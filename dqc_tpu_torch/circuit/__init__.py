@@ -1,0 +1,1 @@
+"""circuit of dqc_tpu_torch (see the package docstring)."""

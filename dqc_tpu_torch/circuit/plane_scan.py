@@ -1,0 +1,720 @@
+"""Plane-layout layer loop: the forward hot path of the engine on the card.
+
+Counterpart of the forward of ``dqc_tpu/circuit/plane_scan.py``. A
+gate-only fused layer runs L times over a state that lives as two f32
+planes (ops/planes.py), and every dense block executes as a hand-written
+kernel:
+
+* blocks on the lane and sublane groups PAIR into one dual-group kernel
+  sweep; high-group blocks use the high-axis kernel;
+* a diagonal run adjacent to a minor dual sweep ('ddual') or to a high
+  sweep ('dhigh') is multiplied inside that sweep's pass;
+* the densities of the last state come from one Gram kernel read per group.
+
+The scheduler (``plane_program`` and its passes) is pure host code and is
+the same as the JAX package's, item for item. This slice executes the items
+``dense``, ``ddual`` and ``dhigh``; the others (``diag``, ``hpair``,
+``mdiag``, ``dcross``, ``xcross``) raise ``NotImplementedError`` naming the
+TPU kernel still to be ported, before any state is allocated. The layer loop
+is a Python loop; the gradient (the reverse scan) is the next slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dqc_tpu_torch.circuit.fused_autograd import (
+    _astype_host,
+    _block_ops,
+    _compose,
+    _ref_gate,
+)
+from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, GateRef
+from dqc_tpu_torch.ops import groups as gr
+from dqc_tpu_torch.ops import planes as pl
+from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
+
+C64 = torch.complex64
+
+
+def plane_tape_eligible(ftape: FusedTape, dtype) -> bool:
+    """True when the plane layout can hold this gate-only layer tape."""
+    if not pl.plane_eligible(ftape.n, dtype):
+        return False
+    return not any(isinstance(fi, FDensity) for fi in ftape.instructions)
+
+
+# ---------------------------------------------------------------------------
+# Instruction scheduling: pair lane/sublane dense blocks into dual sweeps
+# ---------------------------------------------------------------------------
+
+def _touched_groups(fi, n: int) -> set:
+    if isinstance(fi, FBlock):
+        return {fi.group}
+    if isinstance(fi, FCross):
+        return {gr.group_of_bit(n, p)[0] for p in fi.positions}
+    return set(range(len(gr.group_sizes_low_first(n))))  # density: all
+
+
+def _is_dense_minor_block(fi) -> bool:
+    return isinstance(fi, FBlock) and fi.group in (0, 1) and not fi.all_diag
+
+
+def schedule_dual_pairs(ftape: FusedTape) -> Tuple[Tuple[int, Optional[int]], ...]:
+    """Execution order with lane/sublane dense blocks paired.
+
+    Returns a tuple of ``(index, partner_index_or_None)``: when a dense block
+    on group 0 (or 1) is followed — with no intervening instruction touching
+    groups 0 or 1 — by a dense block on the other minor group, both apply in
+    ONE dual kernel sweep. Instructions between the pair act on disjoint
+    qubits, so hoisting the partner is exact.
+    """
+    instrs = ftape.instructions
+    n = ftape.n
+    consumed = [False] * len(instrs)
+    out: List[Tuple[int, Optional[int]]] = []
+    for i, fi in enumerate(instrs):
+        if consumed[i]:
+            continue
+        partner = None
+        if _is_dense_minor_block(fi):
+            want = 1 - fi.group
+            for j in range(i + 1, len(instrs)):
+                fj = instrs[j]
+                if consumed[j]:
+                    continue
+                if _is_dense_minor_block(fj) and fj.group == want:
+                    partner = j
+                    consumed[j] = True
+                    break
+                if _touched_groups(fj, n) & {0, 1}:
+                    break
+        out.append((i, partner))
+        consumed[i] = True
+    return tuple(out)
+
+
+def plane_program(ftape: FusedTape) -> Tuple[Tuple, ...]:
+    """Execution plan over the fused tape: ``('dense', i, partner_or_None)``
+    kernel sweeps, ``('diag', (i1, ..., ik))`` fused diagonal runs (every
+    consecutive stretch of commuting diagonals), the folded ``('ddual', ...)``
+    / ``('dhigh', ...)`` / ``('hpair', ...)`` sweeps, cross-group items and
+    ``('dens', i)`` density requests."""
+    n = ftape.n
+    items: List[Tuple] = []
+    run: List = []
+    for i, j in schedule_dual_pairs(ftape):
+        fi = ftape.instructions[i]
+        is_diag = (isinstance(fi, FCross) and fi.diag) or (
+            isinstance(fi, FBlock) and fi.all_diag)
+        if is_diag:
+            if (isinstance(fi, FCross) and len(
+                    {gr.group_of_bit(n, p)[0] for p in fi.positions}) > 2):
+                # >2-group diagonal: joint broadcast multiply ('mdiag') —
+                # still commutes with the run, but its table does not fold
+                # into the 3-factor diag-run form
+                run.append(("m", i))
+            else:
+                run.append(i)
+            continue
+        if run:
+            items.extend(_split_diag_run(run))
+            run = []
+        if isinstance(fi, FDensity):
+            items.append(("dens", i))
+        elif isinstance(fi, FCross):
+            groups = {gr.group_of_bit(n, p)[0] for p in fi.positions}
+            items.append(("xcross", i) if len(groups) > 2 else ("dcross", i))
+        else:
+            items.append(("dense", i, j))
+    if run:
+        items.extend(_split_diag_run(run))
+    items = _sink_diag_items(tuple(items), ftape)
+    items = _pair_diag_into_dual(_pair_top_groups(items, ftape), ftape)
+    return _pair_diag_into_high(items, ftape)
+
+
+def _sink_diag_items(items: Tuple[Tuple, ...], ftape: FusedTape):
+    """Move every diagonal item (``diag`` run / ``mdiag``) as LATE as
+    possible — diagonals commute with each other and with dense sweeps on
+    disjoint groups — then merge adjacent runs into one. Density readouts
+    (``dens``) are barriers. Exact: only commuting items are reordered."""
+    out: List[Tuple] = []
+    for item in items:
+        if item[0] in ("diag", "mdiag", "dens"):
+            out.append(item)
+            continue
+        # sink the trailing diagonals past this dense item when their
+        # touched groups are disjoint
+        k = len(out)
+        touched = _item_touched(item, ftape)
+        while k > 0 and out[k - 1][0] in ("diag", "mdiag") and not (
+                _item_touched(out[k - 1], ftape) & touched):
+            k -= 1
+        out.insert(k, item)
+    merged: List[Tuple] = []
+    for item in out:
+        if item[0] == "diag" and merged and merged[-1][0] == "diag":
+            merged[-1] = ("diag", merged[-1][1] + item[1])
+        else:
+            merged.append(item)
+    return tuple(merged)
+
+
+def _pair_diag_into_dual(items: Tuple[Tuple, ...], ftape: FusedTape):
+    """Fold a diagonal run ADJACENT to a minor dense sweep into one fused
+    kernel item ``('ddual', run, i, j, diag_first)`` — either tape order:
+    [run, dense] (``diag_first=True``) or [dense, run]."""
+
+    def minor_dense(item):
+        if item[0] != "dense":
+            return False
+        fi = ftape.instructions[item[1]]
+        return isinstance(fi, FBlock) and fi.group in (0, 1)
+
+    out: List[Tuple] = []
+    for item in items:
+        if out and out[-1][0] == "diag" and minor_dense(item):
+            run = out.pop()[1]
+            out.append(("ddual", run, item[1], item[2], True))
+            continue
+        if item[0] == "diag" and out and minor_dense(out[-1]):
+            prev = out.pop()
+            out.append(("ddual", item[1], prev[1], prev[2], False))
+            continue
+        out.append(item)
+    return tuple(out)
+
+
+def _item_touched(item, ftape: FusedTape) -> set:
+    """Groups an execution-plan item reads or writes."""
+    n = ftape.n
+    if item[0] == "diag":
+        out = set()
+        for i in item[1]:
+            out |= _touched_groups(ftape.instructions[i], n)
+        return out
+    if item[0] == "dhigh":
+        out = _touched_groups(ftape.instructions[item[2]], n)
+        for i in item[1]:
+            out |= _touched_groups(ftape.instructions[i], n)
+        return out
+    if item[0] == "dense" and item[2] is not None:
+        return (_touched_groups(ftape.instructions[item[1]], n)
+                | _touched_groups(ftape.instructions[item[2]], n))
+    return _touched_groups(ftape.instructions[item[1]], n)
+
+
+def _pair_diag_into_high(items: Tuple[Tuple, ...], ftape: FusedTape):
+    """Fold a diagonal run ADJACENT to a plain dense high-group sweep into
+    one fused kernel item ``('dhigh', run, i, diag_first)`` — either tape
+    order. Runs AFTER _pair_diag_into_dual, so minor dual folds keep
+    priority; order is preserved exactly."""
+    n = ftape.n
+
+    def foldable(item):
+        if item[0] != "dense" or item[2] is not None:
+            return None
+        fi = ftape.instructions[item[1]]
+        if not isinstance(fi, FBlock) or fi.all_diag:
+            return None
+        return item[1] if pl.dhigh_eligible(fi.group, n) else None
+
+    out: List[Tuple] = []
+    for item in items:
+        if out and out[-1][0] == "diag":
+            i = foldable(item)
+            if i is not None:
+                run = out.pop()[1]
+                out.append(("dhigh", run, i, True))
+                continue
+        if item[0] == "diag" and out:
+            i = foldable(out[-1])
+            if i is not None:
+                out.pop()
+                out.append(("dhigh", item[1], i, False))
+                continue
+        out.append(item)
+    return tuple(out)
+
+
+def _pair_top_groups(items: Tuple[Tuple, ...], ftape: FusedTape):
+    """Compose a dense block on a TINY top group with a dense block on the
+    group below it into ONE merged-axis sweep ``('hpair', low_i, top_i)``
+    (legal whenever nothing between them touches either group)."""
+    n = ftape.n
+    dims = gr.group_dims(n)
+    G = len(dims)
+    jtop, jlow = G - 1, G - 2
+    if jlow < 2 or dims[0] >= pl.MIN_KERNEL_X:
+        return items
+
+    def dense_group(item):
+        if item[0] != "dense" or item[2] is not None:
+            return None
+        fi = ftape.instructions[item[1]]
+        return fi.group if (isinstance(fi, FBlock) and not fi.all_diag) else None
+
+    # the merged op sits at the EARLIER block's position — the LATER block
+    # hoists backwards past the in-between items, exact iff none of them
+    # touches the LATER block's group
+    out: List[Tuple] = []
+    pending: Dict[int, Tuple[int, int]] = {}  # group -> (out idx, instr idx)
+    last_touch = {jtop: -1, jlow: -1}
+    for item in items:
+        g = dense_group(item)
+        if g in (jtop, jlow):
+            other = jlow if g == jtop else jtop
+            if other in pending and last_touch[g] < pending[other][0]:
+                oi, ii = pending.pop(other)
+                low_i, top_i = (ii, item[1]) if other == jlow else (item[1], ii)
+                out[oi] = ("hpair", low_i, top_i)
+                pending.pop(g, None)
+                last_touch[g] = oi
+                last_touch[other] = oi
+                continue
+            pending[g] = (len(out), item[1])
+            last_touch[g] = len(out)
+            out.append(item)
+            continue
+        touched = _item_touched(item, ftape)
+        for gg in (jtop, jlow):
+            if gg in touched:
+                last_touch[gg] = len(out)
+        out.append(item)
+    return tuple(out)
+
+
+def _split_diag_run(run) -> List[Tuple]:
+    """A pending diagonal stretch -> ('diag', idxs) runs with ('mdiag', i)
+    broadcast items first (diagonals commute), so the fused run stays
+    adjacent to a following minor dense sweep."""
+    plain = tuple(i for i in run if not isinstance(i, tuple))
+    items: List[Tuple] = [("mdiag", i) for kind, i in
+                          (x for x in run if isinstance(x, tuple))]
+    if plain:
+        items.append(("diag", plain))
+    return items
+
+
+# ---------------------------------------------------------------------------
+# What this slice executes
+# ---------------------------------------------------------------------------
+
+_MISSING = {
+    "diag": "diag_sweep_planes (dqc_tpu/ops/pallas/diag.py:75)",
+    "hpair": "merged_fact_apply_planes (dqc_tpu/ops/pallas/high_apply.py:190)",
+    "mdiag": "the >2-group diagonal multiply (planes.apply_multi_diag)",
+    "dcross": ("dual_multi_apply_planes / high_multi_apply_planes "
+               "(dqc_tpu/ops/pallas/dual_apply.py:165, high_apply.py:273)"),
+    "xcross": "the >2-group dense gate (planes.apply_cross_span)",
+    "dens": "mid-circuit densities (the generic plane tape path)",
+}
+
+
+def _unsupported(what: str, n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"n={n} needs {what}, not ported to dqc_tpu_torch yet (this slice "
+        "runs n in {14, 17..21, 24..28}); see ROADMAP.md")
+
+
+def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape) -> None:
+    """Raise ``NotImplementedError`` naming every missing kernel when the
+    layer program or the density epilogue needs one this slice lacks."""
+    n = ftape.n
+    missing: List[str] = []
+    for item in plane_program(ftape):
+        kind = item[0]
+        if kind in _MISSING:
+            missing.append(f"plane item {kind!r}: {_MISSING[kind]}")
+        elif kind == "dense" and item[2] is None:
+            j = ftape.instructions[item[1]].group
+            X = pl._high_view(n, j)[1] if j >= 2 else 128
+            if X < pl.MIN_KERNEL_X:
+                missing.append(f"a dense block on the {X}-wide group {j}: the "
+                               "small-X high apply (planes._apply_high_smallx)")
+    njg = len(gr.group_dims(n))
+    for fi in epi_ftape.instructions:
+        groups = _density_groups(fi, n) if isinstance(fi, FDensity) else set()
+        if not isinstance(fi, FDensity):
+            missing.append("a gate in the density epilogue")
+        elif len(groups) > 1:
+            missing.append("a cross-group density (_cross_density)")
+        elif pl.merged_top_tiny(n) and groups & {njg - 1, njg - 2}:
+            missing.append("a tiny-top-group density: gram_merged_top "
+                           "(merged-axis gram_high)")
+    if missing:
+        raise _unsupported("; ".join(dict.fromkeys(missing)), n)
+
+
+# ---------------------------------------------------------------------------
+# Diagonal-run table composition: the run's total diagonal as three pairwise
+# factors D[a, s, l] = Tas[a,s] * Tal[a,l] * Tsl[s,l]
+# ---------------------------------------------------------------------------
+
+class _DiagFactors:
+    def __init__(self, n: int, device: torch.device):
+        self.dims = gr.group_dims(n)          # msb-first
+        self.a_dims = tuple(self.dims[:-2])   # merged high groups
+        self.A = int(np.prod(self.a_dims, dtype=np.int64)) if self.a_dims else 1
+        self.device = device
+        self.sl = None                        # (128, 128) [s, l]
+        self.a_s = None                       # (A, 128)
+        self.a_l = None                       # (A, 128)
+        self.lane = None                      # (128,)
+        self.sub = None                       # (128,)
+        self.a = None                         # (A,)
+
+    def _t(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device).to(C64)
+
+    @staticmethod
+    def _m(acc, t):
+        return t if acc is None else acc * t
+
+    def _ax(self, j: int) -> int:
+        # group j >= 2 sits at this index of a_dims (== index in full dims)
+        return len(self.dims) - 1 - j
+
+    def _expand_vec(self, j: int, vec):
+        shape = [1] * len(self.a_dims)
+        shape[self._ax(j)] = self.dims[self._ax(j)]
+        return self._t(vec).reshape(shape).expand(self.a_dims).reshape(-1)
+
+    def _expand_rows(self, j: int, table2):
+        shape = [1] * len(self.a_dims) + [128]
+        shape[self._ax(j)] = self.dims[self._ax(j)]
+        return self._t(table2).reshape(shape).expand(
+            self.a_dims + (128,)).reshape(self.A, 128)
+
+    def _expand_joint(self, ja: int, jb: int, table2):
+        axa, axb = self._ax(ja), self._ax(jb)  # axa < axb (ja > jb)
+        shape = [1] * len(self.a_dims)
+        shape[axa] = self.dims[axa]
+        shape[axb] = self.dims[axb]
+        return self._t(table2).reshape(shape).expand(self.a_dims).reshape(-1)
+
+    def mul_group(self, j: int, vec):
+        if j == 0:
+            self.lane = self._m(self.lane, self._t(vec).reshape(-1))
+        elif j == 1:
+            self.sub = self._m(self.sub, self._t(vec).reshape(-1))
+        else:
+            self.a = self._m(self.a, self._expand_vec(j, vec))
+
+    def mul_pair(self, ja: int, jb: int, table2):
+        """Joint (ja, jb) cross table, ja > jb (cross_diag_table order)."""
+        if (ja, jb) == (1, 0):
+            self.sl = self._m(self.sl, self._t(table2))
+        elif jb == 0:
+            self.a_l = self._m(self.a_l, self._expand_rows(ja, table2))
+        elif jb == 1:
+            self.a_s = self._m(self.a_s, self._expand_rows(ja, table2))
+        else:
+            self.a = self._m(self.a, self._expand_joint(ja, jb, table2))
+
+    def tables(self):
+        ones = dict(dtype=C64, device=self.device)
+        tsl = torch.ones((128, 128), **ones)
+        if self.sl is not None:
+            tsl = tsl * self.sl
+        if self.sub is not None:
+            tsl = tsl * self.sub[:, None]
+        if self.lane is not None:
+            tsl = tsl * self.lane[None, :]
+        tas = torch.ones((self.A, 128), **ones)
+        if self.a_s is not None:
+            tas = tas * self.a_s
+        tal = torch.ones((self.A, 128), **ones)
+        if self.a_l is not None:
+            tal = tal * self.a_l
+        if self.a is not None:
+            tal = tal * self.a[:, None]
+        return tsl, tas, tal
+
+
+def _run_has_var(run, ftape: FusedTape) -> bool:
+    for i in run:
+        fi = ftape.instructions[i]
+        if isinstance(fi, FBlock) and fi.has_var:
+            return True
+        if isinstance(fi, FCross) and fi.var:
+            return True
+    return False
+
+
+class _Layer:
+    """One layer's gate values, plus the per-call cache of everything that
+    depends only on const gates (the same in every layer: a const diagonal
+    run's tables, a const block's operator), built on ``device``."""
+
+    def __init__(self, ftape: FusedTape, var_gates, const_gates,
+                 device: torch.device, kernels: KernelSet, consts: Dict):
+        self.ftape = ftape
+        self.var_gates = var_gates
+        self.const_gates = const_gates
+        self.device = device
+        self.kernels = kernels
+        self.consts = consts
+
+    def _const(self, key, has_var: bool, build):
+        if has_var:
+            return build()
+        if key not in self.consts:
+            self.consts[key] = build()
+        return self.consts[key]
+
+    def operator(self, i: int):
+        """Block operator of instruction ``i``."""
+        fi = self.ftape.instructions[i]
+        g = gr.group_sizes_low_first(self.ftape.n)[fi.group]
+        return self._const(("op", i), fi.has_var, lambda: _block_operator(
+            fi, self.var_gates, self.const_gates, g))
+
+    def run_tables(self, run):
+        """Complex (tsl, tas, tal) of a diagonal run."""
+        return self._const(("run", run), _run_has_var(run, self.ftape),
+                           lambda: _diag_run_tables(run, self.ftape,
+                                                    self.var_gates,
+                                                    self.const_gates,
+                                                    self.device))
+
+
+def _diag_run_tables(run, ftape: FusedTape, var_gates, const_gates,
+                     device: torch.device):
+    n = ftape.n
+    sizes = gr.group_sizes_low_first(n)
+    f = _DiagFactors(n, device)
+    for i in run:
+        fi = ftape.instructions[i]
+        if isinstance(fi, FBlock):
+            f.mul_group(fi.group, _block_operator(fi, var_gates, const_gates,
+                                                  sizes[fi.group]))
+        else:
+            d = _cross_gate(fi, var_gates, const_gates).reshape(-1)
+            table2, ja, jb = gr.cross_diag_table(d, fi.positions, n)
+            f.mul_pair(ja, jb, table2)
+    return f.tables()
+
+
+# ---------------------------------------------------------------------------
+# Per-instruction plane execution
+# ---------------------------------------------------------------------------
+
+def _block_operator(fi: FBlock, var_gates, const_gates, g: int):
+    return _compose(_block_ops(fi, var_gates, const_gates, g, C64),
+                    diag=fi.all_diag)
+
+
+def _cross_gate(fi: FCross, var_gates, const_gates):
+    return _astype_host(
+        _ref_gate(GateRef(fi.var, fi.queue_idx, (), fi.diag, fi.unitary),
+                  var_gates, const_gates),
+        C64,
+    )
+
+
+def _dual_operators(layer: _Layer, i: int, j: Optional[int]):
+    """(E0, E1) lane/sublane operators of a minor sweep (None = identity)."""
+    fi = layer.ftape.instructions[i]
+    E = layer.operator(i)
+    Ep = layer.operator(j) if j is not None else None
+    return (E, Ep) if fi.group == 0 else (Ep, E)
+
+
+def _apply_dense_item(xr, xi, i, j, layer: _Layer):
+    if j is not None:
+        E0, E1 = _dual_operators(layer, i, j)
+        return pl.apply_dual(xr, xi, E0, E1, kernels=layer.kernels)
+    return pl.apply_block(xr, xi, layer.operator(i),
+                          layer.ftape.instructions[i].group, layer.ftape.n,
+                          kernels=layer.kernels)
+
+
+def _ddual_order(item) -> bool:
+    """diag_first flag of a ddual item (older 4-tuples = diag-first)."""
+    return item[4] if len(item) > 4 else True
+
+
+def _apply_ddual(xr, xi, item, layer: _Layer):
+    """Fused [diag run + minor dense sweep] forward (either tape order):
+    one kernel pass."""
+    E0, E1 = _dual_operators(layer, item[2], item[3])
+    return pl.apply_dual(xr, xi, E0, E1, diag=layer.run_tables(item[1]),
+                         diag_first=_ddual_order(item), kernels=layer.kernels)
+
+
+def _apply_dhigh_item(xr, xi, item, layer: _Layer):
+    """Fused [diag run + dense high-group sweep] forward: one kernel pass."""
+    fi = layer.ftape.instructions[item[2]]
+    return pl.apply_dhigh(xr, xi, layer.operator(item[2]),
+                          layer.run_tables(item[1]), fi.group, layer.ftape.n,
+                          diag_first=item[3], kernels=layer.kernels)
+
+
+def _apply_forward(xr, xi, program, layer: _Layer):
+    """Gate-only forward over a plane program (no density items)."""
+    for item in program:
+        if item[0] == "ddual":
+            xr, xi = _apply_ddual(xr, xi, item, layer)
+        elif item[0] == "dhigh":
+            xr, xi = _apply_dhigh_item(xr, xi, item, layer)
+        elif item[0] == "dense":
+            xr, xi = _apply_dense_item(xr, xi, item[1], item[2], layer)
+        else:
+            raise _unsupported(
+                f"plane item {item[0]!r}: {_MISSING[item[0]]}",
+                layer.ftape.n)
+    return xr, xi
+
+
+# ---------------------------------------------------------------------------
+# The layer loop
+# ---------------------------------------------------------------------------
+
+def _num_layers(stacked_var_gates) -> int:
+    return int(stacked_var_gates[0].shape[0]) if stacked_var_gates else 0
+
+
+def _rotatable_const_diag(program, ftape: FusedTape):
+    """Scan-rotation eligibility: the program ends with a CONST diagonal run
+    that, moved to the front, ddual-folds into the layer's minor dual sweep.
+    Then ``(R D)^L = D (R D)^(L-1) R``: head once, the folded body L-1
+    times, the run once — one full-state pass fewer per layer. Returns
+    ``(head, rotated_body, diag_item)`` or None."""
+    if len(program) < 2 or program[-1][0] != "diag":
+        return None
+    diag_item = program[-1]
+    if _run_has_var(diag_item[1], ftape):
+        return None
+    head = program[:-1]
+    rotated = _pair_diag_into_dual((diag_item,) + head, ftape)
+    if not rotated or rotated[0][0] != "ddual":
+        return None
+    return head, rotated, diag_item
+
+
+def _scan_layers_forward(xr, xi, ftape: FusedTape, program, stacked_var_gates,
+                         const_gates, *, kernels: KernelSet = KERNELS):
+    """Forward L layers of ``program`` on planes (a loop over layers), with
+    the const-trailing-diag rotation when eligible."""
+    consts: Dict = {}
+
+    def layer(l: int) -> _Layer:
+        return _Layer(ftape, tuple(g[l] for g in stacked_var_gates),
+                      const_gates, xr.device, kernels, consts)
+
+    L = _num_layers(stacked_var_gates)
+    rot = _rotatable_const_diag(program, ftape)
+    if rot is not None and L >= 2:
+        head, rotated, diag_item = rot
+        xr, xi = _apply_forward(xr, xi, head, layer(0))
+        for l in range(1, L):
+            xr, xi = _apply_forward(xr, xi, rotated, layer(l))
+        return _apply_forward(xr, xi, (diag_item,), layer(0))
+    for l in range(L):
+        xr, xi = _apply_forward(xr, xi, program, layer(l))
+    return xr, xi
+
+
+# ---------------------------------------------------------------------------
+# Plane density epilogue
+# ---------------------------------------------------------------------------
+
+def plane_epilogue_eligible(epi_ftape: FusedTape, dtype) -> bool:
+    """Density-only tapes on a plane-eligible state."""
+    if not pl.plane_eligible(epi_ftape.n, dtype):
+        return False
+    return all(isinstance(fi, FDensity) for fi in epi_ftape.instructions)
+
+
+def _plane_gram(xr, xi, j: int, n: int, kernels: KernelSet) -> torch.Tensor:
+    """Complex group Gram in one read of the planes (the Gram kernel)."""
+    return pl.gram_axis(xr, xi, j, n, kernels=kernels)
+
+
+def _density_groups(fi: FDensity, n: int) -> set:
+    return {gr.group_of_bit(n, p)[0] for p in fi.positions}
+
+
+def _density_for(grams: Dict, xr, xi, fi: FDensity, n: int,
+                 kernels: KernelSet) -> torch.Tensor:
+    groups = _density_groups(fi, n)
+    if len(groups) != 1:
+        raise _unsupported("a cross-group density (_cross_density)", n)
+    j = groups.pop()
+    G = _gram_for(grams, xr, xi, j, n, kernels)
+    rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
+    return gr.density_from_gram(G, rels, gr.group_sizes_low_first(n)[j])
+
+
+def _epilogue_density_list(epi_ftape: FusedTape, xr, xi, n: int,
+                           kernels: KernelSet = KERNELS):
+    """Diff-density matrices of a density-only tape from cached per-group
+    Grams (one kernel read per group)."""
+    grams: Dict[int, torch.Tensor] = {}
+    return tuple(_density_for(grams, xr, xi, fi, n, kernels)
+                 for fi in epi_ftape.instructions if fi.diff)
+
+
+def _gram_for(grams: Dict[int, torch.Tensor], xr, xi, j: int, n: int,
+              kernels: KernelSet) -> torch.Tensor:
+    """Per-group Gram with caching (the tiny-top-group merged read is not
+    ported: check_forward_supported turns those sizes away)."""
+    G = grams.get(j)
+    if G is None:
+        G = grams[j] = _plane_gram(xr, xi, j, n, kernels)
+    return G
+
+
+# ---------------------------------------------------------------------------
+# Entry points (forward only)
+# ---------------------------------------------------------------------------
+
+def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
+                             epi_ftape: FusedTape, pro_const_gates,
+                             stacked_var_gates, const_gates, *, device=None,
+                             kernels: KernelSet = KERNELS):
+    """Diff densities of ``epi_ftape`` after L layers of ``ftape``, starting
+    from |0..0> — fully plane-resident, no 2^n complex buffer. The JAX
+    signature is kept; a const prologue tape (``pro_ftape``) is not ported
+    yet and raises. Forward only: gate values that require a gradient raise
+    ``NotImplementedError``."""
+    if pro_ftape is not None:
+        raise NotImplementedError("a prologue tape is not ported to "
+                                  "dqc_tpu_torch yet; see ROADMAP.md")
+    if any(isinstance(g, torch.Tensor) and g.requires_grad
+           for g in tuple(stacked_var_gates) + tuple(const_gates)):
+        raise NotImplementedError(
+            "dqc_tpu_torch runs the forward only; gradients come with the "
+            "next slice (block_backward_dual / block_backward_high as a "
+            "torch.autograd.Function, see ROADMAP.md)")
+    check_forward_supported(ftape, epi_ftape)
+    xr, xi = pl.standard_planes(ftape.n, device)
+    xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
+                                  stacked_var_gates, const_gates,
+                                  kernels=kernels)
+    return _epilogue_density_list(epi_ftape, xr, xi, ftape.n, kernels)
+
+
+def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
+                           epi_ftape: FusedTape, pro_const_gates,
+                           stacked_var_gates, const_gates, *,
+                           dtype=C64, device=None,
+                           kernels: KernelSet = KERNELS):
+    """Models whose circuit starts from |0..0>: the plane-resident forward.
+    The JAX package's composed non-plane fallback is not ported: an
+    ineligible tape raises ``NotImplementedError``."""
+    if not (plane_tape_eligible(ftape, dtype)
+            and plane_epilogue_eligible(epi_ftape, dtype)):
+        raise NotImplementedError(
+            "only plane-eligible circuits (n >= 14, complex64, gate-only "
+            "layers, density-only epilogue) run in dqc_tpu_torch yet; the "
+            "non-plane engine is ROADMAP.md queue A")
+    return plane_std_scan_densities(pro_ftape, ftape, epi_ftape,
+                                    pro_const_gates, stacked_var_gates,
+                                    const_gates, device=device,
+                                    kernels=kernels)

@@ -1,0 +1,1 @@
+"""ops of dqc_tpu_torch (see the package docstring)."""

@@ -1,0 +1,35 @@
+"""Hand-written Hopper kernels of the plane engine, with their plain twins.
+
+Each kernel module holds a wrapper (the kernel on a CUDA tensor, its plain
+PyTorch version on a CPU tensor) with an integer ``launches`` counter that
+counts kernel launches only, and the plain version itself. ``KERNELS`` is
+the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
+versions on any device, as the yardstick the kernels are held against.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple
+
+from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
+from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
+from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
+
+
+class KernelSet(NamedTuple):
+    dual_apply: Callable
+    high_apply: Callable
+    gram: Callable
+
+
+KERNELS = KernelSet(dual_apply, high_apply, gram)
+PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain)
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS:
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {w.__name__: w.launches for w in KERNELS}

@@ -1,0 +1,141 @@
+"""The port stands alone, and keeps its device and support rules.
+
+* importing every module of dqc_tpu_torch (and chip_smoke.py) in a fresh
+  process loads neither JAX nor the JAX package, and no file of either
+  says ``import jax`` or names a ``dqc_tpu.`` module;
+* entry points default to the CUDA card and raise without one; sizes and
+  modes this slice does not run raise ``NotImplementedError`` naming what
+  is missing, before any state is allocated; params that require a
+  gradient raise (the port is forward-only so far);
+* the kernel build names nvcc and fails loudly without it.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dqc_tpu_torch import HardwareEfficientAnsatz, config
+from dqc_tpu_torch.ops import planes
+from dqc_tpu_torch.ops.kernels import _build
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "dqc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import dqc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(dqc_tpu_torch.__path__, 'dqc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dqc_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('dqc_tpu_torch')]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15  # every module loaded
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_source_names_no_jax(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|dqc_tpu)\b(?!_)",
+                         text, re.M), path
+    assert "import jax" not in text and "dqc_tpu." not in text, path
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert config.resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HardwareEfficientAnsatz(14, 1, entangler="cz")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        planes.standard_planes(14)
+    assert config.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("n, kernel", [
+    (15, "_apply_high_smallx"),
+    (22, "merged_fact_apply_planes"),
+    (29, "merged_fact_apply_planes"),
+    (30, "gram_merged_top"),
+])
+def test_unsupported_sizes_name_the_kernel(n, kernel):
+    m = HardwareEfficientAnsatz(n, 2, entangler="cz", device="cpu")
+    with pytest.raises(NotImplementedError, match=kernel):
+        m.densities(torch.zeros(2, n, 3))
+
+
+def test_unsupported_n15_names_the_diag_kernel():
+    m = HardwareEfficientAnsatz(15, 2, entangler="cz", device="cpu")
+    with pytest.raises(NotImplementedError, match="diag_sweep_planes"):
+        m.magnetization(torch.zeros(2, 15, 3))
+
+
+def test_cnot_ring_names_the_cross_kernels():
+    m = HardwareEfficientAnsatz(14, 1, entangler="cnot", device="cpu")
+    with pytest.raises(NotImplementedError, match="dual_multi_apply_planes"):
+        m.magnetization(torch.zeros(1, 14, 3))
+
+
+def test_below_plane_size_raises():
+    m = HardwareEfficientAnsatz(10, 1, entangler="cz", device="cpu")
+    with pytest.raises(NotImplementedError, match="plane"):
+        m.magnetization(torch.zeros(1, 10, 3))
+
+
+def test_requires_grad_raises():
+    m = HardwareEfficientAnsatz(14, 1, entangler="cz", device="cpu")
+    p = torch.zeros(1, 14, 3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="block_backward"):
+        m.magnetization(p)
+    # the same params without a gradient run
+    assert float(m.magnetization(p.detach())) == 14
+
+
+@pytest.mark.parametrize("setter, value", [
+    (config.set_kernel_dot_mode, "bf16x3"),
+    (config.set_state_storage, "f16"),
+    (config.set_state_storage, "mixed"),
+])
+def test_unported_modes_raise(setter, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        setter(value)
+    setter("f32")  # the ported mode is accepted
+
+
+def test_wrong_params_shape_raises():
+    m = HardwareEfficientAnsatz(14, 2, entangler="cz", device="cpu")
+    with pytest.raises(ValueError, match="params"):
+        m.densities(torch.zeros(1, 14, 3))
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_targets_follow_the_sources():
+    """Each library's file name carries a hash of its source, the shared
+    header and the flags, inside the git-ignored build directory."""
+    names = {n: _build._target(n) for n in _build.LIBRARIES}
+    assert len(set(names.values())) == len(names)
+    for n, t in names.items():
+        assert t.parent == ROOT / "build" / "dqc_tpu_torch"
+        assert t.name.startswith(f"lib{n}-") and t.suffix == ".so"
+        assert (ROOT / "dqc_tpu_torch" / "csrc" / f"{n}.cu").exists()
+    assert "build/dqc_tpu_torch/" in (ROOT / ".gitignore").read_text()
