@@ -6,21 +6,30 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. environment: torch, the card, its power limit, nvcc, triton;
-2. build: every CUDA kernel of the port from dqc_tpu_torch/csrc (nvcc);
+2. build: every CUDA kernel of the port from dqc_tpu_torch/csrc (nvcc, one
+   process per source, in parallel);
 3. kernel checks at the 28-qubit shapes of the main path: each kernel
-   against its plain PyTorch version on the same inputs, with its time,
-   the plain version's and, where one PyTorch call computes the same
-   function, that call's (library_ms);
-4. the slice: HardwareEfficientAnsatz(28, 100, entangler="cz").densities
+   against its plain PyTorch version on the same inputs — the forward
+   applies and Grams, the seed modes of the applies, and the two backward
+   kernels in every mode the path uses — with its time, the plain
+   version's and, where PyTorch calls compute the same function, theirs
+   (library_ms);
+4. the forward: HardwareEfficientAnsatz(28, 100, entangler="cz").densities
    through the kernels, with the launch counters set to 0 just before and
    read just after; the params = 0 known answer (magnetization 28); a
    28-qubit x 20-layer run held against the plain-version path on the card;
    a timed step and its peak memory;
-5. a JSON line of the kernels, the card's nvidia-smi name and power limit,
+5. the gradient: value_and_grad of the same model's magnetization
+   (loss.backward()) through the kernels, counters set to 0 just before and
+   read just after, with its warm step time and peak memory; the 28q x 1L
+   closed form (<Z_i> = cos alpha_i, so the gradient is -sin alpha_i in
+   alpha and 0 in beta, gamma); 28q x 4L gradients through the kernels
+   against the plain-version path on the card;
+6. a JSON line of the kernels, the card's nvidia-smi name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when torch.cuda.is_available() is false
-or the dqc_tpu_torch package is not beside it. The run takes about a minute
+or the dqc_tpu_torch package is not beside it. The run takes a few minutes
 on an H100 plus the kernels' build.
 """
 
@@ -48,6 +57,11 @@ HIGH_TOL = 1e-4
 GRAM_TOL = 2e-6     # abs on Gram entries of a unit-norm state
 SLICE_TOL = 5e-5    # abs on density entries, kernel path vs plain path
 ZERO_TOL = 1e-5     # params = 0: magnetization vs 28
+GRAM_T0_TOL = 1e-5  # pair grams: abs err over the largest |T0| (2^21-term sums)
+GRAD_LAYERS = 4
+CLOSED_TOL = 1e-5   # 28q x 1L gradient vs (-sin alpha, 0, 0), and the value
+GRAD_TOL = 1e-4     # abs per parameter, kernel path vs plain path, 28q x 4L:
+                    # O(1) gradients from pair grams summed in another order
 
 
 def log(msg: str) -> None:
@@ -90,6 +104,10 @@ def main() -> int:
     from dqc_tpu_torch.ops import kernels as K
     from dqc_tpu_torch.ops import planes as pl
     from dqc_tpu_torch.ops.kernels import _build
+    from dqc_tpu_torch.ops.kernels.block_backward_dual import (
+        block_backward_dual, block_backward_dual_plain)
+    from dqc_tpu_torch.ops.kernels.block_backward_high import (
+        block_backward_high, block_backward_high_plain)
     from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
     from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
     from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
@@ -193,6 +211,45 @@ def main() -> int:
         del xr, xi, work_r, work_i
         torch.cuda.empty_cache()
 
+    def check_many(kernel, variant, shape, n_in, n_planes_out, fn_kernel,
+                   fn_plain, tol, flops, bytes_moved, library=None,
+                   intact=0):
+        """A kernel of ``n_in`` input planes whose outputs are
+        ``n_planes_out`` planes (held to ``tol`` abs) and then pair grams
+        (held to GRAM_T0_TOL times their largest entry). ``intact``: how many
+        leading inputs the kernel must leave as they were."""
+        ins = [randn(*shape) for _ in range(n_in)]
+        want = fn_plain(*ins)
+        work = [t.clone() for t in ins]
+        got = fn_kernel(*work)
+        torch.cuda.synchronize()
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        plane_err = max(errs[:n_planes_out])
+        gram_err = max(errs[n_planes_out:], default=0.0)
+        gram_max = max((w.abs().max().item() for w in want[n_planes_out:]),
+                       default=1.0)
+        moved = max(((a - b).abs().max().item()
+                     for a, b in zip(work[:intact], ins[:intact])), default=0.0)
+        del got, want
+        require(plane_err <= tol and gram_err <= GRAM_T0_TOL * gram_max,
+                f"{kernel}[{variant}] disagrees with its plain version: planes "
+                f"{plane_err:.3e} (tol {tol:.1e}), pair grams {gram_err:.3e} "
+                f"of {gram_max:.3e} (tol {GRAM_T0_TOL:.0e} relative)")
+        require(moved == 0.0, f"{kernel}[{variant}] changed its input planes")
+        ms = cuda_ms(lambda: fn_kernel(*work), reps=10)
+        plain_ms = cuda_ms(lambda: fn_plain(*ins), reps=3)
+        lib_ms = cuda_ms(library(*ins), reps=3) if library else None
+        b_ms, b_by = bound_ms(bytes_moved, flops)
+        row = dict(kernel=kernel, variant=variant, shape=list(shape),
+                   max_abs_err=max(errs), plane_err=plane_err,
+                   gram_rel_err=gram_err / gram_max, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"[kernel] {json.dumps(row)}")
+        del ins, work
+        torch.cuda.empty_cache()
+
     state_bytes = 2 * amps * 4
     table_bytes = lambda a_rows: 2 * 4 * (128 * 128 + 2 * a_rows * 128)
 
@@ -252,7 +309,89 @@ def main() -> int:
               flops=amps * (2 * view[1] + 1) * 2, bytes_moved=state_bytes,
               library=gram_library, normalize=True)
 
-    # 4. the slice: 28 qubits x 100 layers, cz ring ---------------------------
+    # the seed modes: y = acc + conj(E x) into the accumulator planes, the
+    # input planes (the forward state) left intact
+    def seed(apply, *ops):
+        return lambda xr, xi, ar, ai: apply(xr, xi, *ops, conj=True,
+                                            acc=(ar, ai), alias=False)
+
+    check_many("dual_apply", "seed", (A, 128, 128), 4, 2,
+               seed(dual_apply, *el, *em), seed(dual_apply_plain, *el, *em),
+               DUAL_TOL, flops=amps * 2 * 128 * 8,
+               bytes_moved=3 * state_bytes, intact=2)
+    E = unitary(128)
+    check_many("high_apply", "X128_seed", (g2[0], 128, g2[2], 128), 4, 2,
+               seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
+               flops=amps * 128 * 8, bytes_moved=3 * state_bytes, intact=2)
+
+    # block_backward_dual: (F, B) planes (A, 128, 128) rolled back through a
+    # lane + sublane pair, two pair grams; 768 complex MACs per amplitude
+    e0inv, e0, e1inv, e1 = unitary(128), unitary(128), unitary(128), unitary(128)
+    bwd_ops = (*e0inv, *e0, *e1inv, *e1)
+
+    def dual_bwd(fn, **kw):
+        return lambda *planes: fn(*planes, *bwd_ops, **kw)
+
+    def dual_bwd_library(fr, fi, br, bi):
+        F, B = torch.complex(fr, fi), torch.complex(br, bi)
+        L0i, L0, S1i, S1 = (torch.complex(*o) for o in (e0inv, e0, e1inv, e1))
+
+        def run():  # six cuBLAS-backed complex calls, g0_first order
+            F1 = torch.matmul(S1i, F)
+            Ts = torch.einsum("axc,ayc->xy", B, F1)
+            B1 = torch.matmul(S1.T, B)
+            F0 = torch.matmul(F1, L0i.T)
+            Tl = torch.einsum("arx,ary->xy", B1, F0)
+            return F0, torch.matmul(B1, L0), Tl, Ts
+        return run
+
+    for variant, kw in (
+            ("g0_first", dict(g0_first=True)),
+            ("g1_first", dict(g0_first=False)),
+            ("g0_first_diag_after", dict(g0_first=True, diag_first_fwd=False)),
+            ("g0_first_diag_first", dict(g0_first=True, diag_first_fwd=True))):
+        extra = 0
+        if "diag_first_fwd" in kw:
+            kw.update(diag_inv_tables=tables(A), diag_tables=tables(A))
+            extra = 2 * table_bytes(A)
+        check_many("block_backward_dual", variant, (A, 128, 128), 4, 4,
+                   dual_bwd(block_backward_dual, **kw),
+                   dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
+                   flops=amps * 768 * 8, bytes_moved=4 * state_bytes + extra,
+                   library=dual_bwd_library if len(kw) == 1 else None)
+
+    # block_backward_high: the same step on X of (A1, X, M, 128); 3 X
+    # complex MACs per amplitude
+    def high_bwd_library(E, Einv):
+        def make(fr, fi, br, bi):
+            A1, X, M, _ = fr.shape
+            F = torch.complex(fr, fi).view(A1, X, M * 128)
+            B = torch.complex(br, bi).view(A1, X, M * 128)
+            Ec, Eic = torch.complex(*E), torch.complex(*Einv)
+
+            def run():  # three cuBLAS-backed complex calls
+                Fi = torch.matmul(Eic, F)
+                return Fi, torch.einsum("axq,ayq->xy", B, Fi), torch.matmul(Ec.T, B)
+            return run
+        return make
+
+    for (pre, X, M), tags in ((g2, ("plain",)), (g3, ("diag_after", "diag_first"))):
+        E, Einv = unitary(X), unitary(X)
+        a_rows = pre * X * M // 128
+        for tag in tags:
+            kw, extra = {}, 0
+            if tag != "plain":
+                kw = dict(diag_inv_tables=tables(a_rows), diag_tables=tables(a_rows),
+                          diag_first_fwd=tag == "diag_first")
+                extra = 2 * table_bytes(a_rows)
+            check_many("block_backward_high", f"X{X}_{tag}", (pre, X, M, 128), 4, 4,
+                       lambda *p: block_backward_high(*p, *Einv, *E, **kw),
+                       lambda *p: block_backward_high_plain(*p, *Einv, *E, **kw),
+                       HIGH_TOL, flops=amps * 3 * X * 8,
+                       bytes_moved=4 * state_bytes + extra,
+                       library=high_bwd_library(E, Einv) if tag == "plain" else None)
+
+    # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
@@ -261,11 +400,12 @@ def main() -> int:
     dens = model.densities(params)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = K.launch_counts()
+    fwd_counts = K.launch_counts()
     log(f"[slice] {N_QUBITS}q x {LAYERS}L forward through the kernels: "
-        f"{first_s:.3f} s (first call); launches {json.dumps(counts)}")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the main path")
+        f"{first_s:.3f} s (first call); launches {json.dumps(fwd_counts)}")
+    for name in ("dual_apply", "high_apply", "gram"):
+        require(fwd_counts[name] > 0,
+                f"kernel {name} was not launched on the forward path")
     D = torch.stack(dens)
     require(tuple(D.shape) == (N_QUBITS, 2, 2), f"densities of shape {tuple(D.shape)}")
     require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
@@ -314,7 +454,91 @@ def main() -> int:
     require(slice_err <= SLICE_TOL, "kernel path disagrees with the plain path")
     require(abs(m_k - m_p) <= SLICE_TOL * N_QUBITS, "magnetization disagrees")
 
-    # 5. result lines ---------------------------------------------------------
+    # 5. the gradient: value_and_grad of the magnetization, 28q x 100L --------
+    params.requires_grad_(True)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = model.magnetization(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    vg_first_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"[grad] {N_QUBITS}q x {LAYERS}L value_and_grad through the kernels: "
+        f"{vg_first_s:.3f} s (first call); launches {json.dumps(counts)}")
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched on the gradient path")
+    # per step: the forward's sweeps, one seed apply per group (two dual, two
+    # high), and one backward sweep per forward sweep
+    want = {"dual_apply": LAYERS + 2, "high_apply": 2 * LAYERS + 2, "gram": 4,
+            "block_backward_dual": LAYERS, "block_backward_high": 2 * LAYERS}
+    require(counts == want, f"launch counts {counts}, want {want}")
+    grad = params.grad.detach().clone()
+    require(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
+            "gradient is not finite and nonzero")
+    log(f"[grad] value {loss.item():.6f}; |grad| max {grad.abs().max().item():.4e}, "
+        f"rms {grad.pow(2).mean().sqrt().item():.4e}")
+
+    params.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = model.magnetization(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    vg_peak = torch.cuda.max_memory_allocated()
+    drift = (params.grad - grad).abs().max().item()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.magnetization(params).item()
+        fwd_s = time.perf_counter() - t0
+    log(f"[grad] value_and_grad step (warm) {vg_s:.4f} s = "
+        f"{vg_s / LAYERS * 1e3:.2f} ms/layer; forward-only step {fwd_s:.4f} s; "
+        f"ratio {vg_s / fwd_s:.2f}; peak memory {vg_peak / 2**30:.3f} GiB; "
+        f"grad vs first call max abs {drift:.3e}")
+    require(drift <= GRAD_TOL, "two value_and_grad steps disagree")
+    bwd_ms = (LAYERS * (per_launch["block_backward_dual", "g0_first"]
+                        + per_launch["block_backward_high", "X128_plain"]
+                        + per_launch["block_backward_high", "X128_diag_after"])
+              + 2 * per_launch["dual_apply", "seed"]
+              + 2 * per_launch["high_apply", "X128_seed"])
+    log(f"[grad] kernel time per step (launches x per-launch ms above): forward "
+        f"{kernel_ms:.1f} ms + seeds and backward {bwd_ms:.1f} ms = "
+        f"{100 * (kernel_ms + bwd_ms) / (vg_s * 1e3):.1f}% of the step")
+    del params, grad, loss
+    torch.cuda.empty_cache()
+
+    one = HardwareEfficientAnsatz(N_QUBITS, 1, entangler="cz")
+    alpha = torch.linspace(-1.3, 1.4, N_QUBITS, dtype=torch.float64)
+    p1 = torch.zeros(1, N_QUBITS, 3, dtype=torch.float64)
+    p1[0, :, 0] = alpha
+    p1 = p1.float().to(dev).requires_grad_(True)
+    v1 = one.magnetization(p1)
+    v1.backward()
+    g1 = p1.grad[0].double().cpu()
+    a32 = alpha.float().double()
+    val_err = abs(v1.item() - torch.cos(a32).sum().item())
+    closed_err = max((g1[:, 0] + torch.sin(a32)).abs().max().item(),
+                     g1[:, 1:].abs().max().item())
+    log(f"[grad] {N_QUBITS}q x 1L closed form: value err {val_err:.3e}, "
+        f"gradient err {closed_err:.3e} vs (-sin alpha, 0, 0) (tol {CLOSED_TOL:.0e})")
+    require(val_err <= CLOSED_TOL * N_QUBITS and closed_err <= CLOSED_TOL,
+            "the 1-layer closed-form gradient failed")
+
+    four = HardwareEfficientAnsatz(N_QUBITS, GRAD_LAYERS, entangler="cz")
+    p4 = (7.0 * four.init_params(torch.Generator().manual_seed(SEED + 2))
+          ).requires_grad_(True)
+    four.magnetization(p4).backward()
+    g_k = p4.grad.clone()
+    p4.grad = None
+    four.magnetization(p4, kernels=K.PLAIN).backward()
+    grad_err = (g_k - p4.grad).abs().max().item()
+    log(f"[grad] {N_QUBITS}q x {GRAD_LAYERS}L gradient, kernels vs plain path: "
+        f"max abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
+        f"{g_k.abs().max().item():.3e}")
+    require(grad_err <= GRAD_TOL, "kernel-path gradient disagrees with the plain path")
+
+    # 6. result lines ---------------------------------------------------------
     sources = {
         "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
                        "dqc_tpu/ops/pallas/dual_apply.py:232", "plain"),
@@ -322,6 +546,12 @@ def main() -> int:
                        "dqc_tpu/ops/pallas/high_apply.py:76", "X128_plain"),
         "gram": ("dqc_tpu_torch/csrc/gram.cu",
                  "dqc_tpu/ops/pallas/gram.py:58,97,134", "lane"),
+        "block_backward_dual": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
+                                "dqc_tpu/ops/pallas/block_backward.py:437",
+                                "g0_first"),
+        "block_backward_high": ("dqc_tpu_torch/csrc/block_backward_high.cu",
+                                "dqc_tpu/ops/pallas/block_backward.py:906",
+                                "X128_plain"),
     }
     out = []
     for name, (src, replaces, variant) in sources.items():
@@ -329,6 +559,7 @@ def main() -> int:
         rep = next(r for r in mine if r["variant"] == variant)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name],
+                    "launches_forward": fwd_counts[name],
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

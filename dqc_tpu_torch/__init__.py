@@ -7,8 +7,9 @@ Pallas TPU kernels become hand-written CUDA kernels for ``sm_90a``
 that runs on CPU tensors. Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 
-So far: the forward of ``HardwareEfficientAnsatz(n, L, entangler="cz")``
-at n in {14, 17..21, 24..28} (ROADMAP.md lists what comes next).
+So far: the forward and the gradient (torch autograd) of
+``HardwareEfficientAnsatz(n, L, entangler="cz")`` at n in {14, 17..21,
+24..28} (ROADMAP.md lists what comes next).
 """
 
 from dqc_tpu_torch.models.hardware_efficient import HardwareEfficientAnsatz

@@ -1,9 +1,8 @@
-"""Plane-layout layer loop: the forward hot path of the engine on the card.
+"""Plane-layout layer loop: the hot path of the engine on the card.
 
-Counterpart of the forward of ``dqc_tpu/circuit/plane_scan.py``. A
-gate-only fused layer runs L times over a state that lives as two f32
-planes (ops/planes.py), and every dense block executes as a hand-written
-kernel:
+Counterpart of ``dqc_tpu/circuit/plane_scan.py``. A gate-only fused layer
+runs L times over a state that lives as two f32 planes (ops/planes.py),
+and every dense block executes as a hand-written kernel:
 
 * blocks on the lane and sublane groups PAIR into one dual-group kernel
   sweep; high-group blocks use the high-axis kernel;
@@ -11,12 +10,21 @@ kernel:
   sweep ('dhigh') is multiplied inside that sweep's pass;
 * the densities of the last state come from one Gram kernel read per group.
 
+The gradient is the JAX package's O(1)-memory uncompute adjoint: the final
+planes are the only residual. The density cotangents seed the cotangent
+planes (one conj/acc apply per group), then a reverse loop over the layers
+rolls (fwd, bwd) back through each kernel item in one pass of a backward
+kernel (block_backward_dual / block_backward_high), which also yields each
+dense block's pair gram; the variable gates' cotangents close from it in
+small matrix algebra (circuit/fused_autograd.py). ``plane_std_scan_densities``
+is a ``torch.autograd.Function`` around both.
+
 The scheduler (``plane_program`` and its passes) is pure host code and is
 the same as the JAX package's, item for item. This slice executes the items
-``dense``, ``ddual`` and ``dhigh``; the others (``diag``, ``hpair``,
-``mdiag``, ``dcross``, ``xcross``) raise ``NotImplementedError`` naming the
-TPU kernel still to be ported, before any state is allocated. The layer loop
-is a Python loop; the gradient (the reverse scan) is the next slice.
+``dense``, ``ddual`` and ``dhigh``, both ways; the others (``diag``,
+``hpair``, ``mdiag``, ``dcross``, ``xcross``) raise ``NotImplementedError``
+naming the TPU kernel still to be ported, before any state is allocated.
+The layer loops are Python loops.
 """
 
 from __future__ import annotations
@@ -30,7 +38,10 @@ from dqc_tpu_torch.circuit.fused_autograd import (
     _astype_host,
     _block_ops,
     _compose,
+    _gate_op,
+    _inv_diag,
     _ref_gate,
+    dense_block_var_cts,
 )
 from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, GateRef
 from dqc_tpu_torch.ops import groups as gr
@@ -449,7 +460,10 @@ def _run_has_var(run, ftape: FusedTape) -> bool:
 class _Layer:
     """One layer's gate values, plus the per-call cache of everything that
     depends only on const gates (the same in every layer: a const diagonal
-    run's tables, a const block's operator), built on ``device``."""
+    run's tables, a const gate's or block's operator and their inverses),
+    built once on ``device``. Keeping the constants on the device spares a
+    blocking host-to-device copy per use, which would stall the host until
+    the card had finished every kernel queued before it."""
 
     def __init__(self, ftape: FusedTape, var_gates, const_gates,
                  device: torch.device, kernels: KernelSet, consts: Dict):
@@ -467,24 +481,47 @@ class _Layer:
             self.consts[key] = build()
         return self.consts[key]
 
-    def operator(self, i: int):
-        """Block operator of instruction ``i``."""
-        fi = self.ftape.instructions[i]
-        g = gr.group_sizes_low_first(self.ftape.n)[fi.group]
-        return self._const(("op", i), fi.has_var, lambda: _block_operator(
-            fi, self.var_gates, self.const_gates, g))
+    def _on_device(self, x):
+        return torch.as_tensor(x, device=self.device)
 
-    def run_tables(self, run):
-        """Complex (tsl, tas, tal) of a diagonal run."""
-        return self._const(("run", run), _run_has_var(run, self.ftape),
+    def group_size(self, i: int) -> int:
+        return gr.group_sizes_low_first(self.ftape.n)[self.ftape.instructions[i].group]
+
+    def ops(self, i: int, inverse: bool = False):
+        """Block ``i``'s per-gate full-group operators (or their inverses),
+        the constant ones cached on the device."""
+        fi = self.ftape.instructions[i]
+        g = self.group_size(i)
+        return [self._const(("gate", i, k, inverse), ref.var,
+                            lambda ref=ref: self._on_device(_gate_op(
+                                fi, ref, self.var_gates, self.const_gates, g,
+                                C64, inverse=inverse)))
+                for k, ref in enumerate(fi.gates)]
+
+    def operator(self, i: int, inverse: bool = False):
+        """Block operator of instruction ``i`` (or its inverse, composed in
+        reverse order, for the uncompute)."""
+        fi = self.ftape.instructions[i]
+        return self._const(("op", i, inverse), fi.has_var, lambda: _compose(
+            self.ops(i, inverse), diag=fi.all_diag, reverse=inverse))
+
+    def run_tables(self, run, inverse: bool = False):
+        """Complex (tsl, tas, tal) of a diagonal run (or of its inverse)."""
+        return self._const(("run", run, inverse), _run_has_var(run, self.ftape),
                            lambda: _diag_run_tables(run, self.ftape,
                                                     self.var_gates,
                                                     self.const_gates,
-                                                    self.device))
+                                                    self.device,
+                                                    inverse=inverse))
+
+
+def _cross_ctx(fi: FCross) -> str:
+    return (f"{'var' if fi.var else 'const'} cross-group diag gate, "
+            f"queue index {fi.queue_idx}")
 
 
 def _diag_run_tables(run, ftape: FusedTape, var_gates, const_gates,
-                     device: torch.device):
+                     device: torch.device, *, inverse: bool = False):
     n = ftape.n
     sizes = gr.group_sizes_low_first(n)
     f = _DiagFactors(n, device)
@@ -492,9 +529,12 @@ def _diag_run_tables(run, ftape: FusedTape, var_gates, const_gates,
         fi = ftape.instructions[i]
         if isinstance(fi, FBlock):
             f.mul_group(fi.group, _block_operator(fi, var_gates, const_gates,
-                                                  sizes[fi.group]))
+                                                  sizes[fi.group],
+                                                  inverse=inverse))
         else:
             d = _cross_gate(fi, var_gates, const_gates).reshape(-1)
+            if inverse:
+                d = _inv_diag(d, fi.unitary, _cross_ctx(fi))
             table2, ja, jb = gr.cross_diag_table(d, fi.positions, n)
             f.mul_pair(ja, jb, table2)
     return f.tables()
@@ -504,9 +544,10 @@ def _diag_run_tables(run, ftape: FusedTape, var_gates, const_gates,
 # Per-instruction plane execution
 # ---------------------------------------------------------------------------
 
-def _block_operator(fi: FBlock, var_gates, const_gates, g: int):
-    return _compose(_block_ops(fi, var_gates, const_gates, g, C64),
-                    diag=fi.all_diag)
+def _block_operator(fi: FBlock, var_gates, const_gates, g: int, *,
+                    inverse: bool = False, reverse: bool = False):
+    ops = _block_ops(fi, var_gates, const_gates, g, C64, inverse=inverse)
+    return _compose(ops, diag=fi.all_diag, reverse=reverse)
 
 
 def _cross_gate(fi: FCross, var_gates, const_gates):
@@ -572,6 +613,135 @@ def _apply_forward(xr, xi, program, layer: _Layer):
 
 
 # ---------------------------------------------------------------------------
+# Per-item adjoint: the reverse of _apply_forward
+# ---------------------------------------------------------------------------
+
+def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
+                      var_cts: Dict[int, torch.Tensor]):
+    """Reverse the program: paired dense sweeps (with a folded run or not)
+    roll back in one dual backward kernel pass, high sweeps in one high
+    backward kernel pass."""
+    for item in reversed(program):
+        if item[0] == "ddual":
+            fxr, fxi, bxr, bxi = _backward_ddual(fxr, fxi, bxr, bxi, item,
+                                                 layer, var_cts)
+        elif item[0] == "dhigh":
+            fxr, fxi, bxr, bxi = _backward_dhigh(fxr, fxi, bxr, bxi, item,
+                                                 layer, var_cts)
+        elif item[0] == "dense" and item[2] is None:
+            fxr, fxi, bxr, bxi = _backward_step(fxr, fxi, bxr, bxi, item[1],
+                                                layer, var_cts)
+        elif item[0] == "dense":
+            fxr, fxi, bxr, bxi = _backward_dual_step(
+                fxr, fxi, bxr, bxi, item[1], item[2], layer, var_cts)
+        else:
+            raise _unsupported(f"plane item {item[0]!r}: {_MISSING[item[0]]}",
+                               layer.ftape.n)
+    return fxr, fxi, bxr, bxi
+
+
+def _close_block_cts(layer: _Layer, i: int, T0: torch.Tensor,
+                     var_cts: Dict[int, torch.Tensor]) -> None:
+    """The var gates' cotangents of dense block ``i`` from its pair gram."""
+    fi = layer.ftape.instructions[i]
+    if fi.has_var:
+        dense_block_var_cts(fi, layer.ops(i), T0.to(C64), layer.var_gates,
+                            layer.const_gates, layer.group_size(i), C64,
+                            var_cts)
+
+
+def _no_var_run(run, layer: _Layer) -> None:
+    if _run_has_var(run, layer.ftape):
+        raise _unsupported(
+            "the Q reductions of a variable diagonal run (the diag_q outputs of "
+            "block_backward_dual / block_backward_high, _diag_cts_from_Q, "
+            "diag_block_var_cts)", layer.ftape.n)
+
+
+def _backward_step(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
+                   var_cts: Dict[int, torch.Tensor]):
+    """Roll (fwd, bwd) planes back through one unpaired dense block,
+    recording its var gates' cotangents (the dense FBlock branch of the JAX
+    package's _backward_step; the diagonal and cross-group branches need
+    kernels not ported yet)."""
+    fi = layer.ftape.instructions[i]
+    if not isinstance(fi, FBlock) or fi.all_diag:
+        raise _unsupported("the adjoint of a diagonal or cross-group "
+                           "instruction (diag_backward_planes and the "
+                           "cross-group paths)", layer.ftape.n)
+    fxr, fxi, bxr, bxi, T0 = pl.backward_block(
+        fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
+        fi.group, layer.ftape.n, kernels=layer.kernels)
+    _close_block_cts(layer, i, T0, var_cts)
+    return fxr, fxi, bxr, bxi
+
+
+def _backward_dual_step(fxr, fxi, bxr, bxi, i_first: int,
+                        i_second: Optional[int], layer: _Layer,
+                        var_cts: Dict[int, torch.Tensor], *, run=None,
+                        diag_first: bool = True):
+    """Adjoint of a lane + sublane dense sweep in ONE read of the (fwd, bwd)
+    planes (block_backward_dual). ``i_first`` was applied before
+    ``i_second`` in the forward (None: identity on the other minor group);
+    ``run``: a const diagonal run folded into the sweep, before it in the
+    forward when ``diag_first``."""
+    ftape = layer.ftape
+    dev = fxr.device
+    g0_first = ftape.instructions[i_first].group == 0
+    lane_i, sub_i = (i_first, i_second) if g0_first else (i_second, i_first)
+    eye = torch.eye(128, dtype=torch.float32, device=dev)
+    zr = torch.zeros((128, 128), dtype=torch.float32, device=dev)
+
+    def ops_of(i):
+        if i is None:
+            return eye, zr, eye, zr
+        return (*pl.op_planes(layer.operator(i, inverse=True), dev),
+                *pl.op_planes(layer.operator(i), dev))
+
+    diag = {}
+    if run is not None:
+        _no_var_run(run, layer)
+        diag = dict(
+            diag_inv_tables=pl._diag_table_planes(layer.run_tables(run, True), dev),
+            diag_tables=pl._diag_table_planes(layer.run_tables(run), dev),
+            diag_first_fwd=diag_first)
+    out = layer.kernels.block_backward_dual(
+        fxr, fxi, bxr, bxi, *ops_of(lane_i), *ops_of(sub_i),
+        g0_first=g0_first, **diag)
+    if lane_i is not None:
+        _close_block_cts(layer, lane_i, torch.complex(out[4], out[5]), var_cts)
+    if sub_i is not None:
+        _close_block_cts(layer, sub_i, torch.complex(out[6], out[7]), var_cts)
+    return out[0], out[1], out[2], out[3]
+
+
+def _backward_ddual(fxr, fxi, bxr, bxi, item, layer: _Layer,
+                    var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a fused [diag run + minor dense pair] in ONE kernel pass:
+    the pair reverses as in _backward_dual_step and (fwd, bwd) roll through
+    the run in the same pass (without the Q reductions: the run is const)."""
+    return _backward_dual_step(fxr, fxi, bxr, bxi, item[2], item[3], layer,
+                               var_cts, run=item[1],
+                               diag_first=_ddual_order(item))
+
+
+def _backward_dhigh(fxr, fxi, bxr, bxi, item, layer: _Layer,
+                    var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a fused [diag run + dense high-group sweep] in ONE kernel
+    pass: uncompute + transport + the dense block's T0 pair gram
+    (pl.backward_dhigh)."""
+    run, i = item[1], item[2]
+    _no_var_run(run, layer)
+    fi = layer.ftape.instructions[i]
+    fxr, fxi, bxr, bxi, T0, _ = pl.backward_dhigh(
+        fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
+        layer.run_tables(run, True), layer.run_tables(run), fi.group,
+        layer.ftape.n, diag_first=item[3], kernels=layer.kernels)
+    _close_block_cts(layer, i, T0, var_cts)
+    return fxr, fxi, bxr, bxi
+
+
+# ---------------------------------------------------------------------------
 # The layer loop
 # ---------------------------------------------------------------------------
 
@@ -618,6 +788,40 @@ def _scan_layers_forward(xr, xi, ftape: FusedTape, program, stacked_var_gates,
     for l in range(L):
         xr, xi = _apply_forward(xr, xi, program, layer(l))
     return xr, xi
+
+
+def _match_ct(ct: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    ct = ct.reshape(ref.shape)
+    if ref.is_complex():
+        return ct.to(ref.dtype)
+    return ct.real.to(ref.dtype)
+
+
+def _scan_layers_backward(fxr, fxi, bxr, bxi, ftape: FusedTape, program,
+                          stacked_var_gates, const_gates, *,
+                          kernels: KernelSet = KERNELS):
+    """The adjoint of L layers, last layer first (a loop over layers).
+    Returns ``((fxr, fxi, bxr, bxi), stacked_cts)``, the cotangents stacked
+    like the gates. The scan rotation's adjoint needs the diag backward
+    kernel and raises."""
+    L = _num_layers(stacked_var_gates)
+    if _rotatable_const_diag(program, ftape) is not None and L >= 2:
+        raise _unsupported("the adjoint of the rotated trailing diagonal run: "
+                           "diag_backward_planes (dqc_tpu/ops/pallas/diag.py:154)",
+                           ftape.n)
+    consts: Dict = {}
+    per_layer: List = [None] * L
+    for l in reversed(range(L)):
+        layer = _Layer(ftape, tuple(g[l] for g in stacked_var_gates),
+                       const_gates, fxr.device, kernels, consts)
+        var_cts: Dict[int, torch.Tensor] = {}
+        fxr, fxi, bxr, bxi = _backward_program(fxr, fxi, bxr, bxi, program,
+                                               layer, var_cts)
+        per_layer[l] = tuple(_match_ct(var_cts[q], g)
+                             for q, g in enumerate(layer.var_gates))
+    stacked_cts = tuple(torch.stack([cts[q] for cts in per_layer])
+                        for q in range(len(stacked_var_gates)))
+    return (fxr, fxi, bxr, bxi), stacked_cts
 
 
 # ---------------------------------------------------------------------------
@@ -671,33 +875,123 @@ def _gram_for(grams: Dict[int, torch.Tensor], xr, xi, j: int, n: int,
 
 
 # ---------------------------------------------------------------------------
-# Entry points (forward only)
+# Density seeds of the cotangent planes
 # ---------------------------------------------------------------------------
+
+def _add_seed(pending: Dict, fi: FDensity, ct: torch.Tensor, n: int) -> None:
+    """Fold one diff-density cotangent into the seed accumulators: in-group
+    requests sum per-group expanded operators ``(L + L^H)`` (key = group).
+    Cross-group requests need the dense cross-group seed, not ported."""
+    sizes = gr.group_sizes_low_first(n)
+    d = 1 << len(fi.positions)
+    ct_m = ct.reshape(d, d).to(C64)
+    sym = ct_m + ct_m.conj().T
+    groups = _density_groups(fi, n)
+    if len(groups) != 1:
+        raise _unsupported("a cross-group density seed (_apply_dense_cross)", n)
+    j = groups.pop()
+    rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
+    E = gr.expand_in_group(sym, rels, sizes[j])
+    pending[j] = E if j not in pending else pending[j] + E
+
+
+def _collect_seed_pending(epi_ftape: FusedTape, density_cts, n: int,
+                          pending: Optional[Dict] = None) -> Dict:
+    """Summed seed operators ``(L + L^H)`` from the diff-density cotangents
+    of a density-only tape."""
+    if pending is None:
+        pending = {}
+    it = iter(density_cts)
+    for fi in epi_ftape.instructions:
+        if not fi.diff:
+            continue
+        _add_seed(pending, fi, next(it), n)
+    return pending
+
+
+def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
+                kernels: KernelSet = KERNELS):
+    """The density seeds ``sum_j M_j conj(psi)`` as cotangent planes,
+    computed as ``conj(sum_j conj(M_j) psi)``: one apply per group that
+    READS the forward planes (``alias=False``) and accumulates into one
+    set of cotangent planes (``acc``). Returns ``(None, None)`` without
+    seeds. The merged-top seed of a tiny top group is not ported."""
+    njg = len(gr.group_dims(n))
+    if pl.merged_top_tiny(n) and (njg - 1 in pending or njg - 2 in pending):
+        raise _unsupported("the merged-top seed (planes.apply_merged_top)", n)
+    bxr = bxi = None
+    for j, M in pending.items():
+        acc = None if bxr is None else (bxr, bxi)
+        bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), j, n, alias=False,
+                                  conj=True, acc=acc, kernels=kernels)
+    return bxr, bxi
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+class _StdScanDensities(torch.autograd.Function):
+    """The densities of ``epi_ftape`` after L layers of ``ftape`` from
+    |0..0>, differentiable in the stacked var gates.
+
+    The forward keeps only the final planes (and the gate values); the
+    backward consumes them in place (the uncompute rolls them back), so a
+    second backward through the same graph raises. PyTorch's gradient of a
+    complex tensor is the conjugate of the JAX package's cotangent: the
+    backward conjugates the density gradients on the way in and the gate
+    cotangents on the way out."""
+
+    @staticmethod
+    def forward(ctx, ftape, epi_ftape, const_gates, device, kernels,
+                *stacked_var_gates):
+        xr, xi = pl.standard_planes(ftape.n, device)
+        xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
+                                      stacked_var_gates, const_gates,
+                                      kernels=kernels)
+        densities = _epilogue_density_list(epi_ftape, xr, xi, ftape.n, kernels)
+        ctx.statics = (ftape, epi_ftape, const_gates, kernels)
+        ctx.planes = (xr, xi) if any(ctx.needs_input_grad) else None
+        ctx.save_for_backward(*stacked_var_gates)
+        return densities
+
+    @staticmethod
+    def backward(ctx, *density_grads):
+        ftape, epi_ftape, const_gates, kernels = ctx.statics
+        if ctx.planes is None:
+            raise RuntimeError(
+                "plane_std_scan_densities: the final planes were consumed by "
+                "an earlier backward (the O(1)-memory adjoint rolls them back "
+                "in place); run the forward again for another gradient")
+        (fxr, fxi), ctx.planes = ctx.planes, None
+        stacked = ctx.saved_tensors
+        n = ftape.n
+        pending = _collect_seed_pending(
+            epi_ftape, tuple(g.conj() for g in density_grads), n)
+        if not pending:
+            return (None,) * 5 + tuple(torch.zeros_like(g) for g in stacked)
+        bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels)
+        _, stacked_cts = _scan_layers_backward(
+            fxr, fxi, bxr, bxi, ftape, plane_program(ftape), stacked,
+            const_gates, kernels=kernels)
+        return (None,) * 5 + tuple(ct.conj() for ct in stacked_cts)
+
 
 def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
                              epi_ftape: FusedTape, pro_const_gates,
                              stacked_var_gates, const_gates, *, device=None,
                              kernels: KernelSet = KERNELS):
     """Diff densities of ``epi_ftape`` after L layers of ``ftape``, starting
-    from |0..0> — fully plane-resident, no 2^n complex buffer. The JAX
+    from |0..0> — fully plane-resident, no 2^n complex buffer — and
+    differentiable in ``stacked_var_gates`` with torch autograd. The JAX
     signature is kept; a const prologue tape (``pro_ftape``) is not ported
-    yet and raises. Forward only: gate values that require a gradient raise
-    ``NotImplementedError``."""
+    yet and raises."""
     if pro_ftape is not None:
         raise NotImplementedError("a prologue tape is not ported to "
                                   "dqc_tpu_torch yet; see ROADMAP.md")
-    if any(isinstance(g, torch.Tensor) and g.requires_grad
-           for g in tuple(stacked_var_gates) + tuple(const_gates)):
-        raise NotImplementedError(
-            "dqc_tpu_torch runs the forward only; gradients come with the "
-            "next slice (block_backward_dual / block_backward_high as a "
-            "torch.autograd.Function, see ROADMAP.md)")
     check_forward_supported(ftape, epi_ftape)
-    xr, xi = pl.standard_planes(ftape.n, device)
-    xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
-                                  stacked_var_gates, const_gates,
-                                  kernels=kernels)
-    return _epilogue_density_list(epi_ftape, xr, xi, ftape.n, kernels)
+    return _StdScanDensities.apply(ftape, epi_ftape, tuple(const_gates),
+                                   device, kernels, *stacked_var_gates)
 
 
 def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
@@ -705,9 +999,9 @@ def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
                            stacked_var_gates, const_gates, *,
                            dtype=C64, device=None,
                            kernels: KernelSet = KERNELS):
-    """Models whose circuit starts from |0..0>: the plane-resident forward.
-    The JAX package's composed non-plane fallback is not ported: an
-    ineligible tape raises ``NotImplementedError``."""
+    """Models whose circuit starts from |0..0>: the plane-resident forward
+    and its adjoint. The JAX package's composed non-plane fallback is not
+    ported: an ineligible tape raises ``NotImplementedError``."""
     if not (plane_tape_eligible(ftape, dtype)
             and plane_epilogue_eligible(epi_ftape, dtype)):
         raise NotImplementedError(

@@ -1,9 +1,10 @@
-"""Runtime configuration for dqc_tpu_torch (the forward subset).
+"""Runtime configuration for dqc_tpu_torch (the plane-engine subset).
 
-Counterpart of ``dqc_tpu/config.py``. Only the settings the plane-engine
-forward reads are kept: the complex dtype, the in-kernel dot mode and the
-state-plane storage. Each has one ported value so far; asking for another
-raises ``NotImplementedError`` (ROADMAP.md lists the modes still to port).
+Counterpart of ``dqc_tpu/config.py``. Only the settings the plane engine
+reads are kept: the complex dtype, the in-kernel dot modes (forward,
+cotangent side, pair grams) and the state-plane storage. Each has one
+ported value so far; asking for another raises ``NotImplementedError``
+(ROADMAP.md lists the modes still to port).
 
 ``resolve_device`` is the port's device rule: every public entry point takes
 ``device=None``, which means the CUDA card; without one it raises.
@@ -22,12 +23,24 @@ _REAL_OF = {
 
 _KERNEL_DOT_MODE = "f32"
 _STATE_STORAGE = "f32"
+_BWD_KERNEL_DOT_MODE = "auto"
+_GRAM_KERNEL_DOT_MODE = "auto"
 
 
 def _not_ported(what: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{what} {value!r} is not ported to dqc_tpu_torch yet (only 'f32'); "
         "see ROADMAP.md")
+
+
+def _backward_mode(what: str, mode: str) -> str:
+    if mode == "bf16x3":
+        raise NotImplementedError(
+            f"{what} 'bf16x3' (the 3-pass bf16 split of dots.make_dot) is not "
+            "ported to dqc_tpu_torch yet; see ROADMAP.md slice 4")
+    if mode not in ("auto", "f32"):
+        raise ValueError(f"{what} must be 'auto', 'f32' or 'bf16x3'")
+    return mode
 
 
 def canonicalize_complex(dtype=None) -> torch.dtype:
@@ -52,6 +65,35 @@ def set_kernel_dot_mode(mode: str) -> None:
 def kernel_dot_mode() -> str:
     """In-kernel product mode: "f32" is f32 FMA on the CUDA cores (no TF32)."""
     return _KERNEL_DOT_MODE
+
+
+def set_bwd_kernel_dot_mode(mode: str) -> None:
+    """Dot mode of the cotangent-side contractions of the backward kernels
+    (transport ``b' = E^T b``)."""
+    global _BWD_KERNEL_DOT_MODE
+    _BWD_KERNEL_DOT_MODE = _backward_mode("bwd kernel dot mode", mode)
+
+
+def bwd_kernel_dot_mode() -> str:
+    """"auto" follows the forward mode; with f32 storage, the only ported
+    one, that is the JAX package's resolution too."""
+    if _BWD_KERNEL_DOT_MODE == "auto":
+        return kernel_dot_mode()
+    return _BWD_KERNEL_DOT_MODE
+
+
+def set_gram_kernel_dot_mode(mode: str) -> None:
+    """Dot mode of the pair grams ``T0`` inside the backward kernels."""
+    global _GRAM_KERNEL_DOT_MODE
+    _GRAM_KERNEL_DOT_MODE = _backward_mode("gram kernel dot mode", mode)
+
+
+def gram_kernel_dot_mode() -> str:
+    """"auto" resolves to "f32" until bf16x3 is ported. The JAX package
+    resolves it to "bf16x3" (ROADMAP.md section C records the difference)."""
+    if _GRAM_KERNEL_DOT_MODE == "auto":
+        return "f32"
+    return _GRAM_KERNEL_DOT_MODE
 
 
 def set_state_storage(mode: str) -> None:

@@ -6,7 +6,10 @@
 // operator Em (qubits 7..13, the middle axis) on planes of shape
 // (A, 128, 128), with an optional fused diagonal run
 // D[a,s,l] = tas[a,s] tal[a,l] tsl[s,l] multiplied before (diag_first) or
-// after the two products. The conj/acc seed modes belong to the gradient.
+// after the two products. The seed modes of the gradient write conj(y)
+// (conj) and add y into accumulator planes (acc), and the output planes may
+// be other planes than the input (the TPU kernel's alias=False): the density
+// seed reads the forward planes and leaves them intact.
 //
 // Bound: operations. Each amplitude takes 2 x 128 complex multiply-adds
 // (8 real flops each) against 16 bytes moved, about 128 flop per byte,
@@ -14,8 +17,8 @@
 // The "f32" dot mode is f32 FMA on the CUDA cores (no TF32).
 //
 // Design: one block per slab. The block reads the whole complex slab into
-// shared memory (128 KB) before it writes anything, so the update is in
-// place (the TPU kernel aliases output to input). Stage 1 computes
+// shared memory (128 KB) before it writes anything, so the output planes may
+// be the input planes (in place, as the TPU kernel aliases output to input). Stage 1 computes
 // T = X El^T into registers (each of the 512 threads owns 8 rows x 4
 // columns), the slab buffer then takes T, and stage 2 computes Em T. The
 // operators do not fit beside the slab (another 128 KB each), so 16-deep
@@ -45,10 +48,11 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-dual_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
+dual_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
                   const float* __restrict__ elr, const float* __restrict__ eli,
                   const float* __restrict__ emr, const float* __restrict__ emi,
-                  DiagTables d, int has_diag, int diag_first) {
+                  DiagTables d, int has_diag, int diag_first, int conj,
+                  int has_acc) {
   extern __shared__ float smem[];
   float* sr = smem;             // slab, then T (row-major [s][l])
   float* si = sr + N * N;
@@ -59,8 +63,10 @@ dual_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t a = blockIdx.x;
-  float* gxr = xr + a * (N * N);
-  float* gxi = xi + a * (N * N);
+  const float* gxr = xr + a * (N * N);
+  const float* gxi = xi + a * (N * N);
+  float* gyr = yr + a * (N * N);
+  float* gyi = yi + a * (N * N);
 
   // 1. the whole slab into shared memory, times the run when it comes first
   for (int e4 = tid; e4 < N * N / 4; e4 += kThreads) {
@@ -154,7 +160,7 @@ dual_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
     }
   }
 
-  // 4. the run when it follows, then the in-place store (coalesced rows)
+  // 4. the run when it follows, the seed modes, the store (coalesced rows)
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -166,22 +172,30 @@ dual_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
         diag_at(d, a, s, l, dr, di);
         cmul(vr, vi, dr, di, vr, vi);
       }
-      gxr[s * N + l] = vr;
-      gxi[s * N + l] = vi;
+      if (conj) vi = -vi;
+      if (has_acc) {
+        vr += gyr[s * N + l];
+        vi += gyi[s * N + l];
+      }
+      gyr[s * N + l] = vr;
+      gyi[s * N + l] = vi;
     }
 }
 
 }  // namespace
 
-// In place on planes (A, 128, 128): x <- [D] Em x El^T [D]. The six table
-// pointers may be null when has_diag is 0. Returns cudaGetLastError().
-extern "C" int dqc_dual_apply(float* xr, float* xi, const float* elr,
-                              const float* eli, const float* emr,
-                              const float* emi, const float* sl_r,
-                              const float* sl_i, const float* as_r,
-                              const float* as_i, const float* al_r,
-                              const float* al_i, int has_diag, int diag_first,
-                              long long A, void* stream) {
+// On planes (A, 128, 128): y <- [acc +] conj?([D] Em x El^T [D]). y may be
+// x (in place); with has_acc, y holds the accumulator and is added to. The
+// six table pointers may be null when has_diag is 0. Returns
+// cudaGetLastError().
+extern "C" int dqc_dual_apply(const float* xr, const float* xi, float* yr,
+                              float* yi, const float* elr, const float* eli,
+                              const float* emr, const float* emi,
+                              const float* sl_r, const float* sl_i,
+                              const float* as_r, const float* as_i,
+                              const float* al_r, const float* al_i,
+                              int has_diag, int diag_first, int conj,
+                              int has_acc, long long A, void* stream) {
   if (A <= 0 || A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dual_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -189,7 +203,8 @@ extern "C" int dqc_dual_apply(float* xr, float* xi, const float* elr,
   if (err != cudaSuccess) return (int)err;
   DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   dual_apply_kernel<<<(unsigned)A, kThreads, kSmemBytes,
-                      (cudaStream_t)stream>>>(xr, xi, elr, eli, emr, emi, d,
-                                              has_diag, diag_first);
+                      (cudaStream_t)stream>>>(xr, xi, yr, yi, elr, eli, emr,
+                                              emi, d, has_diag, diag_first,
+                                              conj, has_acc);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@
 // (dqc_tpu/ops/pallas/high_apply.py:76, pallas_call at :133), forward form:
 // a dense operator E (X x X, 8 <= X <= 128) on the contracted group axis of
 // the high view, with an optional fused diagonal run multiplied before
-// (diag_first) or after the product. The run's tables are read in their
+// (diag_first) or after the product, and the seed modes of the gradient:
+// conj(y), y added into accumulator planes, and output planes other than the
+// input (alias=False). The run's tables are read in their
 // canonical layout, tsl (128, 128) and tas/tal (A, 128), at
 // a = (i X + x) post + p for view element (i, x, m = p 128 + s, l); the
 // TPU kernel's re-laid-out table views (common.dh_table_views) were a
@@ -18,7 +20,7 @@
 // Design: a "column" is one (i, m, l) position, its X amplitudes X apart
 // by Q = M 128. A block of 256 threads takes 8192 / X consecutive columns
 // (all of one i, since they divide Q), reads the whole X-deep tile into
-// shared memory (64 KB) before it writes, so the update is in place, and
+// shared memory (64 KB) before it writes, so the output may be the input, and
 // each thread keeps 8 rows x 4 columns of the product in registers while
 // 16-deep tiles of E stream through shared memory.
 
@@ -63,10 +65,10 @@ __device__ __forceinline__ void view_diag(const DiagTables& d, int64_t i,
 
 template <int X>
 __global__ void __launch_bounds__(kThreads)
-high_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
+high_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
                   const float* __restrict__ er, const float* __restrict__ ei,
-                  DiagTables d, int has_diag, int diag_first, int64_t Q,
-                  int64_t post) {
+                  DiagTables d, int has_diag, int diag_first, int conj,
+                  int has_acc, int64_t Q, int64_t post) {
   using Cfg = HighCfg<X>;
   constexpr int C = Cfg::C;
   constexpr int KC = Cfg::KC;
@@ -84,8 +86,10 @@ high_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
   const int64_t g0 = (int64_t)blockIdx.x * C;
   const int64_t i = g0 / Q;
   const int64_t q0 = g0 - i * Q;
-  float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x * Q + c]
-  float* bxi = xi + i * X * Q + q0;
+  const float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x * Q + c]
+  const float* bxi = xi + i * X * Q + q0;
+  float* byr = yr + i * X * Q + q0;
+  float* byi = yi + i * X * Q + q0;
 
   // 1. the whole X-deep tile of this block's columns, times the run if first
   for (int e = tid; e < X * C; e += kThreads) {
@@ -134,27 +138,33 @@ high_apply_kernel(float* __restrict__ xr, float* __restrict__ xi,
     }
   }
 
-  // 3. the run when it follows, then the in-place store
+  // 3. the run when it follows, the seed modes, the store
 #pragma unroll
   for (int r = 0; r < Cfg::kRows; ++r)
 #pragma unroll
     for (int j = 0; j < Cfg::kColsPerThread; ++j) {
       const int x = rg * Cfg::kRows + r, c = tc + TC * j;
-      float yr = accr[r][j], yi = acci[r][j];
+      float vr = accr[r][j], vi = acci[r][j];
       if (has_diag && !diag_first) {
         float dr, di;
         view_diag(d, i, X, x, q0 + c, post, dr, di);
-        cmul(yr, yi, dr, di, yr, yi);
+        cmul(vr, vi, dr, di, vr, vi);
       }
-      bxr[x * Q + c] = yr;
-      bxi[x * Q + c] = yi;
+      if (conj) vi = -vi;
+      if (has_acc) {
+        vr += byr[x * Q + c];
+        vi += byi[x * Q + c];
+      }
+      byr[x * Q + c] = vr;
+      byi[x * Q + c] = vi;
     }
 }
 
 template <int X>
-int launch(float* xr, float* xi, const float* er, const float* ei,
-           const DiagTables& d, int has_diag, int diag_first, long long A1,
-           long long Q, cudaStream_t stream) {
+int launch(const float* xr, const float* xi, float* yr, float* yi,
+           const float* er, const float* ei, const DiagTables& d, int has_diag,
+           int diag_first, int conj, int has_acc, long long A1, long long Q,
+           cudaStream_t stream) {
   using Cfg = HighCfg<X>;
   if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (Q / Cfg::C);
@@ -164,30 +174,39 @@ int launch(float* xr, float* xi, const float* er, const float* ei,
       Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   high_apply_kernel<X><<<(unsigned)blocks, kThreads, Cfg::kSmemBytes, stream>>>(
-      xr, xi, er, ei, d, has_diag, diag_first, (int64_t)Q, (int64_t)(Q >> 14));
+      xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, has_acc,
+      (int64_t)Q, (int64_t)(Q >> 14));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// In place on the view (A1, X, Q = M 128): x <- [D] E x [D], X in
-// {8, 16, 32, 64, 128}. With has_diag, Q must be a multiple of 128 * 128
-// (M = post * 128). Returns cudaGetLastError().
-extern "C" int dqc_high_apply(float* xr, float* xi, const float* er,
-                              const float* ei, const float* sl_r,
-                              const float* sl_i, const float* as_r,
-                              const float* as_i, const float* al_r,
-                              const float* al_i, int has_diag, int diag_first,
-                              long long A1, int X, long long Q, void* stream) {
+// On the view (A1, X, Q = M 128): y <- [acc +] conj?([D] E x [D]), X in
+// {8, 16, 32, 64, 128}. y may be x (in place); with has_acc, y holds the
+// accumulator and is added to. With has_diag, Q must be a multiple of
+// 128 * 128 (M = post * 128). Returns cudaGetLastError().
+extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
+                              float* yi, const float* er, const float* ei,
+                              const float* sl_r, const float* sl_i,
+                              const float* as_r, const float* as_i,
+                              const float* al_r, const float* al_i,
+                              int has_diag, int diag_first, int conj,
+                              int has_acc, long long A1, int X, long long Q,
+                              void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
+#define DQC_HIGH_CASE(XX)                                                   \
+  case XX:                                                                  \
+    return launch<XX>(xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, \
+                      has_acc, A1, Q, s);
   switch (X) {
-    case 8: return launch<8>(xr, xi, er, ei, d, has_diag, diag_first, A1, Q, s);
-    case 16: return launch<16>(xr, xi, er, ei, d, has_diag, diag_first, A1, Q, s);
-    case 32: return launch<32>(xr, xi, er, ei, d, has_diag, diag_first, A1, Q, s);
-    case 64: return launch<64>(xr, xi, er, ei, d, has_diag, diag_first, A1, Q, s);
-    case 128: return launch<128>(xr, xi, er, ei, d, has_diag, diag_first, A1, Q, s);
+    DQC_HIGH_CASE(8)
+    DQC_HIGH_CASE(16)
+    DQC_HIGH_CASE(32)
+    DQC_HIGH_CASE(64)
+    DQC_HIGH_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DQC_HIGH_CASE
 }

@@ -4,8 +4,10 @@ Counterpart of ``dqc_tpu/models/hardware_efficient.py`` in scan mode: per
 layer, one variable dense 1-qubit gate on every qubit followed by a ring of
 constant entanglers (CNOT or CZ); observables are the 1-qubit densities of
 every qubit, with a magnetization loss. The layer tape runs L times on the
-plane engine (circuit/plane_scan.py). Forward only: params that require a
-gradient raise ``NotImplementedError`` (the gradient is the next slice).
+plane engine (circuit/plane_scan.py). ``densities`` and ``magnetization``
+are differentiable in ``params`` with torch autograd (``loss.backward()``
+is the counterpart of the JAX class's ``jax.value_and_grad``), through the
+engine's O(1)-memory uncompute adjoint.
 
 The CZ ring runs at n in {14, 17..21, 24..28}; other n, and the CNOT ring
 (dense cross-group gates), raise ``NotImplementedError`` naming the kernel

@@ -11,6 +11,14 @@ from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
 
+from dqc_tpu_torch.ops.kernels.block_backward_dual import (
+    block_backward_dual,
+    block_backward_dual_plain,
+)
+from dqc_tpu_torch.ops.kernels.block_backward_high import (
+    block_backward_high,
+    block_backward_high_plain,
+)
 from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
 from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
 from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
@@ -20,10 +28,14 @@ class KernelSet(NamedTuple):
     dual_apply: Callable
     high_apply: Callable
     gram: Callable
+    block_backward_dual: Callable
+    block_backward_high: Callable
 
 
-KERNELS = KernelSet(dual_apply, high_apply, gram)
-PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain)
+KERNELS = KernelSet(dual_apply, high_apply, gram, block_backward_dual,
+                    block_backward_high)
+PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain,
+                  block_backward_dual_plain, block_backward_high_plain)
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "dqc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LIBRARIES = ("dual_apply", "high_apply", "gram")
+LIBRARIES = ("dual_apply", "high_apply", "gram", "block_backward_dual",
+             "block_backward_high")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

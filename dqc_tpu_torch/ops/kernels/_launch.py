@@ -48,12 +48,29 @@ def check_cuda_f32(what: str, tensors: Sequence[torch.Tensor],
             raise ValueError(f"{what}: data must be {align}-byte aligned")
 
 
+def output_planes(what: str, xr: torch.Tensor, xi: torch.Tensor, acc,
+                  alias: bool):
+    """Where an apply kernel writes: the accumulator planes (``acc``, added
+    to), the input planes (``alias``, in place) or fresh planes."""
+    if acc is not None:
+        out = tuple(a.view(xr.shape) for a in acc)
+        check_cuda_f32(what, out, xr.device, align=16)
+        return out
+    if alias:
+        return xr, xi
+    return torch.empty_like(xr), torch.empty_like(xi)
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def table_ptrs(diag_tables) -> list:

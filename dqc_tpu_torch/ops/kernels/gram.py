@@ -28,11 +28,13 @@ _BLOCKS_PER_SM = 4
 _CHUNK = 1024
 
 
-def _pair_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``sum_{p,q} a[p,x,q] b[p,y,q]`` as Grams of chunks of at most 1024
-    columns, then one sum over the chunks: a single f32 product over
-    millions of columns loses ~1e-4 relative (measured on the CPU at 24
-    qubits), the chunked form ~1e-6."""
+def pair_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_{p,q} a[p,x,q] b[p,y,q]`` (real or complex, no conjugation) as
+    products of chunks of at most 1024 columns, then one sum over the
+    chunks: a single f32 product over millions of columns loses ~1e-4
+    relative (measured on the CPU at 24 qubits), the chunked form ~1e-6.
+    The plain versions of the Gram and of the backward kernels' pair grams
+    share it."""
     P, X, Q = a.shape
     if Q == 1:
         kp = math.gcd(P, _CHUNK)
@@ -45,7 +47,7 @@ def _pair_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def gram_plain(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: three real contractions."""
-    return _pair_sum(xr, xr) + _pair_sum(xi, xi), _pair_sum(xr, xi)
+    return pair_sum(xr, xr) + pair_sum(xi, xi), pair_sum(xr, xi)
 
 
 _ARGTYPES = [_launch.VOIDP] * 4 + [_launch.LONG, _launch.INT, _launch.LONG,
@@ -67,8 +69,8 @@ def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
         raise ValueError(f"gram: view {tuple(xr.shape)} does not tile by "
                          f"{cols_per_tile} columns")
     _launch.check_cuda_f32("gram", (xr, xi), xr.device)
-    sms = torch.cuda.get_device_properties(xr.device).multi_processor_count
-    nblk = min((P * Q) // cols_per_tile, _BLOCKS_PER_SM * sms)
+    nblk = min((P * Q) // cols_per_tile,
+               _BLOCKS_PER_SM * _launch.sm_count(xr.device))
     part = torch.empty((nblk, 2, X, X), dtype=torch.float32, device=xr.device)
     out = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
     fn = _launch.entry("gram", "dqc_gram", _ARGTYPES)

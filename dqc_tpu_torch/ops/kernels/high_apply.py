@@ -1,17 +1,20 @@
 """High-group apply on f32 planes: ``y = E . x`` along X of ``(A1, X, M, 128)``.
 
 Replaces the TPU kernel ``high_group_apply_planes``
-(``dqc_tpu/ops/pallas/high_apply.py:76``), forward form: a dense ``X x X``
-operator on the contracted group axis of the high view, with an optional
-fused diagonal run multiplied before (``diag_first``) or after the product.
-The run's tables stay canonical — ``tsl (128, 128)``, ``tas``/``tal``
-``(A, 128)`` read at ``a = (i X + x) post + p`` for view element
-``(i, x, m = p 128 + s, l)``. The Hopper kernel is ``csrc/high_apply.cu``
-(bound by operations: X complex multiply-adds per amplitude against 16
-bytes); :func:`high_apply_plain` is its plain PyTorch version.
+(``dqc_tpu/ops/pallas/high_apply.py:76``): a dense ``X x X`` operator on
+the contracted group axis of the high view, with an optional fused
+diagonal run multiplied before (``diag_first``) or after the product, and
+the density-seed modes ``conj`` / ``acc`` / ``alias=False`` of
+``dual_apply``. The run's tables stay canonical — ``tsl (128, 128)``,
+``tas``/``tal`` ``(A, 128)`` read at ``a = (i X + x) post + p`` for view
+element ``(i, x, m = p 128 + s, l)``. The Hopper kernel is
+``csrc/high_apply.cu`` (bound by operations: X complex multiply-adds per
+amplitude against 16 bytes); :func:`high_apply_plain` is its plain
+PyTorch version.
 
-:func:`high_apply` consumes its input planes like ``dual_apply``: in place
-on a CUDA tensor, the plain version's fresh planes on a CPU tensor.
+:func:`high_apply` returns its output planes like ``dual_apply``: the
+input planes (in place), the accumulator, or fresh planes on a CUDA
+tensor; the plain version's fresh planes on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
@@ -39,8 +43,10 @@ def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
 
 def high_apply_plain(xr, xi, e_r, e_i,
                      diag_tables: Optional[Sequence[torch.Tensor]] = None,
-                     diag_first: bool = True) -> Planes:
-    """Plain PyTorch version of the kernel (complex64 matmul); fresh outputs."""
+                     diag_first: bool = True, *, conj: bool = False,
+                     acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+    """Plain PyTorch version of the kernel (complex64 matmul); fresh
+    outputs, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
     x = torch.complex(xr, xi)
     D = view_diag_run(diag_tables, xr.shape) if diag_tables is not None else None
@@ -50,20 +56,24 @@ def high_apply_plain(xr, xi, e_r, e_i,
                      x.reshape(A1, X, M * 128)).reshape(x.shape)
     if D is not None and not diag_first:
         y = y * D
-    return y.real.contiguous(), y.imag.contiguous()
+    if acc is not None:
+        acc = (acc[0].reshape(xr.shape), acc[1].reshape(xr.shape))
+    return _seed_out(y.real, y.imag, conj, acc)
 
 
-_ARGTYPES = [_launch.VOIDP] * 10 + [_launch.INT, _launch.INT, _launch.LONG,
-                                    _launch.INT, _launch.LONG, _launch.VOIDP]
+_ARGTYPES = [_launch.VOIDP] * 12 + [_launch.INT] * 4 + [
+    _launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
 
 
 def high_apply(xr, xi, e_r, e_i,
                diag_tables: Optional[Sequence[torch.Tensor]] = None,
-               diag_first: bool = True) -> Planes:
-    """``[D] E x [D]`` on the view ``(A1, X, M, 128)``, X in 8..128; ``E``
-    an f32 real/imag pair (X, X); ``diag_tables`` the run's six f32 planes
-    (tsl (128, 128); tas, tal (A, 128) or their (A1, X, post, 128) view,
-    planes.dhigh_view_tables) or None. A run needs M % 128 == 0."""
+               diag_first: bool = True, *, conj: bool = False,
+               acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+    """``[acc +] conj?([D] E x [D])`` on the view ``(A1, X, M, 128)``, X in
+    8..128; ``E`` an f32 real/imag pair (X, X); ``diag_tables`` the run's
+    six f32 planes (tsl (128, 128); tas, tal (A, 128) or their (A1, X,
+    post, 128) view, planes.dhigh_view_tables) or None. A run needs
+    M % 128 == 0. ``acc`` planes have the view's shape."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -71,20 +81,23 @@ def high_apply(xr, xi, e_r, e_i,
     if diag_tables is not None and M % 128:
         raise ValueError(f"high_apply: a diag run needs M % 128 == 0, got M={M}")
     if xr.device.type == "cpu":
-        return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first)
+        return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first,
+                                conj=conj, acc=acc)
     if X not in KERNEL_X:
         raise ValueError(f"high_apply: X={X} is not one of {KERNEL_X}")
     _launch.check_cuda_f32("high_apply", (xr, xi, e_r, e_i), xr.device)
+    out = _launch.output_planes("high_apply", xr, xi, acc, alias)
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
         raise ValueError(f"high_apply: operator must be ({X}, {X})")
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
     fn = _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES)
-    code = fn(xr.data_ptr(), xi.data_ptr(), e_r.data_ptr(), e_i.data_ptr(),
-              *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
-              int(diag_first), A1, X, M * 128, _launch.stream(xr.device))
+    code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+              e_r.data_ptr(), e_i.data_ptr(), *_launch.table_ptrs(diag_tables),
+              int(diag_tables is not None), int(diag_first), int(conj),
+              int(acc is not None), A1, X, M * 128, _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_apply", "high_apply launch")
     high_apply.launches += 1
-    return xr, xi
+    return out
 
 
 high_apply.launches = 0

@@ -1,7 +1,7 @@
 """Plane-layout statevector ops: a complex64 state as two f32 planes.
 
-Counterpart of the forward subset of ``dqc_tpu/ops/planes.py``. Inside the
-layer loop (circuit/plane_scan.py) the state lives as a pair of float32
+Counterpart of the main-path subset of ``dqc_tpu/ops/planes.py``. Inside
+the layer loop (circuit/plane_scan.py) the state lives as a pair of float32
 planes
 
     ``(xr, xi)``, each of shape ``(A, 128, 128)``, ``A = 2^(n-14)``,
@@ -15,10 +15,17 @@ Op mapping (one pass over the state each):
 * dense block on group j >= 2  -> the high-axis kernel (ops/kernels/high_apply)
 * a diagonal run next to either -> multiplied inside that kernel's pass
 * group Grams (densities)      -> the Gram kernel (ops/kernels/gram)
+* the adjoint of a dense block on group j >= 2, with or without a folded
+  run -> the high backward kernel (ops/kernels/block_backward_high); the
+  adjoint of a lane + sublane pair is called from circuit/plane_scan.py
+  (ops/kernels/block_backward_dual), as in the JAX package
 
 Every apply consumes its input planes and returns the result (in place on
-the card). ``kernels`` selects the wrappers (default) or the plain versions
-(``ops.kernels.PLAIN``), the yardstick for the kernels on the card.
+the card), unless ``alias=False`` (fresh output planes) or ``acc`` (added
+into the accumulator planes) is given: the density seed reads the forward
+planes and leaves them intact. ``kernels`` selects the wrappers (default)
+or the plain versions (``ops.kernels.PLAIN``), the yardstick for the
+kernels on the card.
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ def op_planes(E, device) -> Planes:
             E.imag.to(torch.float32).contiguous())
 
 
-def _table_planes(tables, device):
+def _diag_table_planes(tables, device):
     """Complex ``(tsl, tas, tal)`` -> the six f32 table planes of the
     fused-run kernels."""
     if tables is None:
@@ -116,20 +123,31 @@ def merged_top_tiny(n: int) -> bool:
 # Dense applies
 # ---------------------------------------------------------------------------
 
-def apply_dual(xr, xi, E0, E1, *, diag=None, diag_first: bool = True,
+def _check_out_dtype(out_dtype) -> None:
+    if out_dtype is not None and out_dtype != torch.float32:
+        raise NotImplementedError(
+            f"plane storage {out_dtype} is not ported to dqc_tpu_torch yet "
+            "(only float32); see ROADMAP.md")
+
+
+def apply_dual(xr, xi, E0, E1, *, alias: bool = True, conj: bool = False,
+               acc=None, diag=None, diag_first: bool = True, out_dtype=None,
                kernels: KernelSet = KERNELS) -> Planes:
     """One pass applying lane-group operator ``E0`` and sublane-group
     operator ``E1`` (either may be None = identity; both 128x128 complex).
     ``diag``: complex (tsl, tas, tal) tables of a fused diagonal run
     multiplied in the same pass — BEFORE the dual gates when ``diag_first``
-    (tape order [run, dense]), AFTER them otherwise ([dense, run])."""
+    (tape order [run, dense]), AFTER them otherwise ([dense, run]).
+    ``conj``/``acc``/``alias``: the seed modes (module docstring)."""
+    _check_out_dtype(out_dtype)
     dev = xr.device
     eye = torch.eye(128, dtype=torch.float32, device=dev)
     zr = torch.zeros((128, 128), dtype=torch.float32, device=dev)
     e0r, e0i = op_planes(E0, dev) if E0 is not None else (eye, zr)
     e1r, e1i = op_planes(E1, dev) if E1 is not None else (eye, zr)
     return kernels.dual_apply(xr, xi, e0r, e0i, e1r, e1i,
-                              _table_planes(diag, dev), diag_first)
+                              _diag_table_planes(diag, dev), diag_first,
+                              conj=conj, acc=acc, alias=alias)
 
 
 def dhigh_eligible(j: int, n: int) -> bool:
@@ -150,7 +168,7 @@ def dhigh_view_tables(tables, j: int, n: int, device):
     need)."""
     pre, X, M = _high_view(n, j)
     v = (pre, X, M // 128, 128)
-    tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i = _table_planes(tables, device)
+    tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i = _diag_table_planes(tables, device)
     return (tsl_r, tsl_i, tas_r.view(v), tas_i.view(v), tal_r.view(v),
             tal_i.view(v))
 
@@ -168,9 +186,11 @@ def apply_dhigh(xr, xi, E, tables, j: int, n: int, *, diag_first: bool = True,
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
-def apply_high(xr, xi, E, j: int, n: int, *,
+def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
+               conj: bool = False, acc=None, out_dtype=None,
                kernels: KernelSet = KERNELS) -> Planes:
     """Dense full-group operator on high group ``j >= 2`` (one pass)."""
+    _check_out_dtype(out_dtype)
     pre, X, M = _high_view(n, j)
     if X < MIN_KERNEL_X:
         raise NotImplementedError(
@@ -178,20 +198,92 @@ def apply_high(xr, xi, E, j: int, n: int, *,
             "small-X high apply (planes._apply_high_smallx) and the merged "
             "top axis (merged_fact_apply_planes) are not ported yet; see "
             "ROADMAP.md")
+    v = (pre, X, M, 128)
     er, ei = op_planes(E, xr.device)
-    yr, yi = kernels.high_apply(xr.view(pre, X, M, 128), xi.view(pre, X, M, 128),
-                                er, ei)
+    if acc is not None:
+        acc = (acc[0].view(v), acc[1].view(v))
+    yr, yi = kernels.high_apply(xr.view(v), xi.view(v), er, ei, conj=conj,
+                                acc=acc, alias=alias)
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
-def apply_block(xr, xi, E, j: int, n: int, *,
+def apply_block(xr, xi, E, j: int, n: int, *, alias: bool = True,
+                conj: bool = False, acc=None, out_dtype=None,
                 kernels: KernelSet = KERNELS) -> Planes:
-    """Dense full-group operator on any group axis."""
+    """Dense full-group operator on any group axis. ``conj``/``acc``: emit
+    ``acc + conj(E x)`` with the accumulator updated in place (density
+    seeds)."""
+    kw = dict(alias=alias, conj=conj, acc=acc, out_dtype=out_dtype,
+              kernels=kernels)
     if j == 0:
-        return apply_dual(xr, xi, E, None, kernels=kernels)
+        return apply_dual(xr, xi, E, None, **kw)
     if j == 1:
-        return apply_dual(xr, xi, None, E, kernels=kernels)
-    return apply_high(xr, xi, E, j, n, kernels=kernels)
+        return apply_dual(xr, xi, None, E, **kw)
+    return apply_high(xr, xi, E, j, n, **kw)
+
+
+# ---------------------------------------------------------------------------
+# One-pass blockwise adjoint steps
+# ---------------------------------------------------------------------------
+
+def backward_dhigh(fxr, fxi, bxr, bxi, Einv, E, tables_inv, tables, j: int,
+                   n: int, *, diag_first: bool = True, with_q: bool = False,
+                   kernels: KernelSet = KERNELS):
+    """One-pass adjoint of a fused [diag run + dense high sweep]: uncompute,
+    cotangent transport and the dense block's T0 pair gram in a single read
+    of the (fwd, bwd) planes. Returns ``(fxr, fxi, bxr, bxi, T0, None)``
+    with T0 complex (X, X). The run's Q reductions (``with_q``, for a run
+    with variable gates) are not ported: the kernel's ``diag_q`` outputs
+    come with the diag backward kernels (ROADMAP.md)."""
+    if with_q:
+        raise NotImplementedError(
+            "the Q reductions of a variable diagonal run (block_backward_high "
+            "diag_q, diag_backward_planes) are not ported to dqc_tpu_torch "
+            "yet; see ROADMAP.md")
+    pre, X, M = _high_view(n, j)
+    v = (pre, X, M, 128)
+    dev = fxr.device
+    out = kernels.block_backward_high(
+        fxr.view(v), fxi.view(v), bxr.view(v), bxi.view(v),
+        *op_planes(Einv, dev), *op_planes(E, dev),
+        diag_inv_tables=dhigh_view_tables(tables_inv, j, n, dev),
+        diag_tables=dhigh_view_tables(tables, j, n, dev),
+        diag_first_fwd=diag_first)
+    fr, fi, br, bi, t0r, t0i = out
+    return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
+            bi.view(bxr.shape), torch.complex(t0r, t0i), None)
+
+
+def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
+                   kernels: KernelSet = KERNELS):
+    """Uncompute + pair gram + cotangent transport for one dense block on a
+    high group, in a single read of the (fwd, bwd) planes:
+
+    ``fwd_in = Einv fwd_out``, ``bwd' = E^T bwd``,
+    ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]`` (complex, returned dense).
+
+    Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired lane or sublane
+    block and a high group narrower than 8 need kernels not ported yet and
+    raise ``NotImplementedError``."""
+    if j in (0, 1):
+        raise NotImplementedError(
+            f"the adjoint of an unpaired {('lane', 'sublane')[j]} block needs "
+            f"block_backward_{('lane', 'sublane')[j]} "
+            f"(dqc_tpu/ops/pallas/block_backward.py:{(88, 184)[j]}), not "
+            "ported to dqc_tpu_torch yet; see ROADMAP.md")
+    pre, X, M = _high_view(n, j)
+    if X < MIN_KERNEL_X:
+        raise NotImplementedError(
+            f"the adjoint of a dense block on a {X}-wide high group (n={n}, "
+            f"group {j}) needs the merged top axis or the small-X path, not "
+            "ported to dqc_tpu_torch yet; see ROADMAP.md")
+    v = (pre, X, M, 128)
+    dev = fxr.device
+    fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
+        fxr.view(v), fxi.view(v), bxr.view(v), bxi.view(v),
+        *op_planes(Einv, dev), *op_planes(E, dev))
+    return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
+            bi.view(bxr.shape), torch.complex(t0r, t0i))
 
 
 # ---------------------------------------------------------------------------

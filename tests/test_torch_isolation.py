@@ -6,7 +6,7 @@
 * entry points default to the CUDA card and raise without one; sizes and
   modes this slice does not run raise ``NotImplementedError`` naming what
   is missing, before any state is allocated; params that require a
-  gradient raise (the port is forward-only so far);
+  gradient get one, and a second backward through the same graph raises;
 * the kernel build names nvcc and fails loudly without it.
 """
 
@@ -97,23 +97,67 @@ def test_below_plane_size_raises():
 
 
 def test_requires_grad_raises():
+    """Params that require a gradient get one (the gradient of the
+    magnetization at params = 0 is 0: every <Z_i> = cos alpha_i sits at its
+    maximum); only a second backward through the same graph raises, as the
+    first consumed the saved final planes."""
     m = HardwareEfficientAnsatz(14, 1, entangler="cz", device="cpu")
     p = torch.zeros(1, 14, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="block_backward"):
-        m.magnetization(p)
+    loss = m.magnetization(p)
+    loss.backward(retain_graph=True)
+    assert loss.item() == 14 and p.grad.shape == (1, 14, 3)
+    assert p.grad.abs().max().item() < 1e-6
+    with pytest.raises(RuntimeError, match="consumed"):
+        loss.backward()
     # the same params without a gradient run
     assert float(m.magnetization(p.detach())) == 14
+
+
+@pytest.mark.parametrize("j, kernel", [(0, "block_backward_lane"),
+                                       (1, "block_backward_sublane")])
+def test_unpaired_minor_backward_names_the_kernel(j, kernel):
+    x = torch.zeros(planes.plane_shape(14))
+    eye = torch.eye(128, dtype=torch.complex64)
+    with pytest.raises(NotImplementedError, match=kernel):
+        planes.backward_block(x, x, x, x, eye, eye, j, 14)
+
+
+def test_var_diag_run_q_names_the_kernels():
+    x = torch.zeros((1, 128, 128, 128))
+    with pytest.raises(NotImplementedError, match="diag_q"):
+        planes.backward_dhigh(x, x, x, x, None, None, None, None, 2, 21,
+                              with_q=True)
 
 
 @pytest.mark.parametrize("setter, value", [
     (config.set_kernel_dot_mode, "bf16x3"),
     (config.set_state_storage, "f16"),
     (config.set_state_storage, "mixed"),
+    (config.set_bwd_kernel_dot_mode, "bf16x3"),
+    (config.set_gram_kernel_dot_mode, "bf16x3"),
 ])
 def test_unported_modes_raise(setter, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         setter(value)
     setter("f32")  # the ported mode is accepted
+
+
+@pytest.mark.parametrize("setter, getter", [
+    (config.set_bwd_kernel_dot_mode, config.bwd_kernel_dot_mode),
+    (config.set_gram_kernel_dot_mode, config.gram_kernel_dot_mode),
+])
+def test_backward_dot_modes_resolve_to_f32(setter, getter):
+    """"auto" resolves to "f32" until bf16x3 is ported (the JAX package
+    resolves the gram mode's "auto" to "bf16x3"); other names are errors."""
+    try:
+        setter("auto")
+        assert getter() == "f32"
+        setter("f32")
+        assert getter() == "f32"
+        with pytest.raises(ValueError):
+            setter("tf32")
+    finally:
+        setter("auto")
 
 
 def test_wrong_params_shape_raises():

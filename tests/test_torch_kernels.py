@@ -200,4 +200,11 @@ def test_kernel_wrappers_refuse_other_devices():
                       e[:8, :8].contiguous(), e[:8, :8].contiguous())
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.gram(x, x)
-    assert tk.launch_counts() == {"dual_apply": 0, "high_apply": 0, "gram": 0}
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.block_backward_dual(x, x, x, x, *[e] * 8)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.block_backward_high(*[x.view(1, 8, 16, 128)] * 4,
+                               *[e[:8, :8].contiguous()] * 4)
+    assert tk.launch_counts() == {"dual_apply": 0, "high_apply": 0, "gram": 0,
+                                  "block_backward_dual": 0,
+                                  "block_backward_high": 0}
