@@ -8,29 +8,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. environment: torch, the card, its power limit, nvcc, triton;
 2. build: every CUDA kernel of the port from dqc_tpu_torch/csrc (nvcc, one
    process per source, in parallel);
-3. kernel checks at the 28-qubit shapes of the main path: each kernel
+3. kernel checks at the 28-qubit shapes of the 28-qubit path: each kernel
    against its plain PyTorch version on the same inputs — the forward
    applies and Grams, the seed modes of the applies, and the two backward
    kernels in every mode the path uses — with its time, the plain
    version's and, where PyTorch calls compute the same function, theirs
-   (library_ms);
-4. the forward: HardwareEfficientAnsatz(28, 100, entangler="cz").densities
-   through the kernels, with the launch counters set to 0 just before and
-   read just after; the params = 0 known answer (magnetization 28); a
-   28-qubit x 20-layer run held against the plain-version path on the card;
-   a timed step and its peak memory;
-5. the gradient: value_and_grad of the same model's magnetization
+   (library_ms); then the same at the 29- and 30-qubit shapes: the kernels
+   of the 29-qubit path at its shapes, and the merged-top kernels
+   (merged_fact_apply, block_backward_merged_fact, the Gram and the seed
+   apply at X = 256 / 512) and the diagonal-run kernels;
+4. the 28-qubit forward: HardwareEfficientAnsatz(28, 100, entangler="cz")
+   .densities through the kernels, with the launch counters set to 0 just
+   before and read just after; the params = 0 known answer (magnetization
+   28); a 28-qubit x 20-layer run held against the plain-version path on
+   the card; a timed step and its peak memory;
+5. the 28-qubit gradient: value_and_grad of the same model's magnetization
    (loss.backward()) through the kernels, counters set to 0 just before and
    read just after, with its warm step time and peak memory; the 28q x 1L
    closed form (<Z_i> = cos alpha_i, so the gradient is -sin alpha_i in
    alpha and 0 in beta, gamma); 28q x 4L gradients through the kernels
    against the plain-version path on the card;
-6. a JSON line of the kernels, the card's nvidia-smi name and power limit,
+6. the 29-qubit path, the JAX package's bench workload uncut: the forward
+   and the value_and_grad of HardwareEfficientAnsatz(29, 100, "cz"), each
+   with the counters set to 0 just before and read just after and held to
+   the launch counts of its program, with warm step times and peak memory;
+   the 29q and 30q x 1L closed forms (the lone diagonal run in the layer);
+   30q x 3L at params = 0 (the scan rotation at Xt = 4); 29q x 4L gradients
+   through the kernels against the plain-version path on the card;
+7. a JSON line of the kernels, the card's nvidia-smi name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when torch.cuda.is_available() is false
-or the dqc_tpu_torch package is not beside it. The run takes a few minutes
-on an H100 plus the kernels' build.
+or the dqc_tpu_torch package is not beside it. The run takes several
+minutes on an H100 plus the kernels' build.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ N_QUBITS = 28
 LAYERS = 100
 CHECK_LAYERS = 20
 SEED = 1234
+N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_grad
+N30 = 30
 
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores and HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
@@ -60,8 +72,10 @@ ZERO_TOL = 1e-5     # params = 0: magnetization vs 28
 GRAM_T0_TOL = 1e-5  # pair grams: abs err over the largest |T0| (2^21-term sums)
 GRAD_LAYERS = 4
 CLOSED_TOL = 1e-5   # 28q x 1L gradient vs (-sin alpha, 0, 0), and the value
-GRAD_TOL = 1e-4     # abs per parameter, kernel path vs plain path, 28q x 4L:
-                    # O(1) gradients from pair grams summed in another order
+GRAD_TOL = 1e-4     # abs per parameter, kernel path vs plain path, 28q and
+                    # 29q x 4L: O(1) gradients from pair grams summed in
+                    # another order
+DIAG_TOL = 1e-5     # abs, unit-variance planes times unit-modulus phases
 
 
 def log(msg: str) -> None:
@@ -108,9 +122,15 @@ def main() -> int:
         block_backward_dual, block_backward_dual_plain)
     from dqc_tpu_torch.ops.kernels.block_backward_high import (
         block_backward_high, block_backward_high_plain)
+    from dqc_tpu_torch.ops.kernels.block_backward_merged_fact import (
+        block_backward_merged_fact, block_backward_merged_fact_plain)
+    from dqc_tpu_torch.ops.kernels.diag import (
+        diag_backward, diag_backward_plain, diag_sweep, diag_sweep_plain)
     from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
     from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
     from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
+    from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
+        merged_fact_apply, merged_fact_apply_plain)
 
     # the yardsticks run in full f32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -391,6 +411,141 @@ def main() -> int:
                        bytes_moved=4 * state_bytes + extra,
                        library=high_bwd_library(E, Einv) if tag == "plain" else None)
 
+    # 3b. kernel checks at the 29- and 30-qubit shapes ------------------------
+    A29 = 1 << (N29 - 14)
+    amps29 = float(1 << N29)
+    state29 = 2 * amps29 * 4
+
+    # the 28-qubit path's kernels at the 29-qubit path's own shapes: the
+    # rotated body's dual sweep (the ring's run folded first) and its
+    # adjoint, the group-2 sweep and its adjoint, the Grams of groups 0-2 and
+    # the seeds of groups 0-2
+    el29, em29 = unitary(128), unitary(128)
+    check("dual_apply", "29q_diag_first", (A29, 128, 128), dual_apply,
+          dual_apply_plain, (*el29, *em29, tables(A29), True), DUAL_TOL,
+          flops=amps29 * 2 * 128 * 8, bytes_moved=2 * state29 + table_bytes(A29))
+    g2_29 = pl._high_view(N29, 2)   # (32768, 128, 128): the group-2 sweep
+    E = unitary(128)
+    check("high_apply", "29q_X128_plain", (g2_29[0], 128, g2_29[2], 128),
+          high_apply, high_apply_plain, (*E, None, True), HIGH_TOL,
+          flops=amps29 * 128 * 8, bytes_moved=2 * state29, library=high_library(E))
+    for variant, view in (("29q_lane", (A29 * 128, 128, 1)),
+                          ("29q_sublane", (A29, 128, 128)),
+                          ("29q_high_g2", (g2_29[0], 128, g2_29[2] * 128))):
+        check("gram", variant, view, gram, gram_plain, (), GRAM_TOL,
+              flops=amps29 * (2 * view[1] + 1) * 2, bytes_moved=state29,
+              library=gram_library, normalize=True)
+    check_many("dual_apply", "29q_seed", (A29, 128, 128), 4, 2,
+               seed(dual_apply, *el29, *em29), seed(dual_apply_plain, *el29, *em29),
+               DUAL_TOL, flops=amps29 * 2 * 128 * 8,
+               bytes_moved=3 * state29, intact=2)
+    check_many("high_apply", "29q_X128_seed", (g2_29[0], 128, g2_29[2], 128), 4, 2,
+               seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
+               flops=amps29 * 128 * 8, bytes_moved=3 * state29, intact=2)
+    kw = dict(g0_first=True, diag_first_fwd=True, diag_inv_tables=tables(A29),
+              diag_tables=tables(A29))
+    check_many("block_backward_dual", "29q_g0_first_diag_first", (A29, 128, 128),
+               4, 4, dual_bwd(block_backward_dual, **kw),
+               dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
+               flops=amps29 * 768 * 8,
+               bytes_moved=4 * state29 + 2 * table_bytes(A29))
+    E, Einv = unitary(128), unitary(128)
+    check_many("block_backward_high", "29q_X128_plain",
+               (g2_29[0], 128, g2_29[2], 128), 4, 4,
+               lambda *p: block_backward_high(*p, *Einv, *E),
+               lambda *p: block_backward_high_plain(*p, *Einv, *E), HIGH_TOL,
+               flops=amps29 * 3 * 128 * 8, bytes_moved=4 * state29,
+               library=high_bwd_library(E, Einv))
+
+    # the merged top axis: (1, Xt 128, M, 128) at 2^29 amplitudes, Xt = 2 as
+    # at 29 qubits and Xt = 4 as at 30 (its M cut to half, so that the plain
+    # versions fit beside the kernel's planes)
+    merged_shapes = ((2, (1, 256, 1 << 14, 128)), (4, (1, 512, 1 << 13, 128)))
+
+    def merged_library(El, Et, x_top):
+        def make(xr, xi):
+            A1, _, M, _ = xr.shape
+            x = torch.complex(xr, xi).view(A1, x_top, 128, M * 128)
+            elc, etc = torch.complex(*El), torch.complex(*Et)
+            return lambda: torch.einsum("ab,dk,ibkq->iadq", etc, elc, x)
+        return make
+
+    def merged_bwd_library(Eli, El, Eti, Et, x_top):
+        def make(fr, fi, br, bi):
+            A1, _, M, _ = fr.shape
+            v = (A1, x_top, 128, M * 128)
+            F, B = torch.complex(fr, fi).view(v), torch.complex(br, bi).view(v)
+            lic, lc, tic, tc = (torch.complex(*o) for o in (Eli, El, Eti, Et))
+
+            def run():  # six cuBLAS-backed matmul / einsum calls
+                fB = torch.matmul(lic, F)
+                t_low = torch.einsum("iaxq,iayq->xy", B, fB)
+                t_top = torch.einsum("ixdq,yb,ibdq->xy", B, tic, F)
+                fin = torch.einsum("ab,ibdq->iadq", tic, fB)
+                bout = torch.einsum("ba,ibdq->iadq", tc, torch.matmul(lc.T, B))
+                return fin, bout, t_top, t_low
+            return run
+        return make
+
+    def seed_library(E):
+        def make(xr, xi, ar, ai):
+            A1, X, M, _ = xr.shape
+            x = torch.complex(xr, xi).view(A1, X, M * 128)
+            acc = torch.complex(ar, ai).view(A1, X, M * 128)
+            ec = torch.complex(*E)
+            return lambda: acc + torch.matmul(ec, x).conj()
+        return make
+
+    for x_top, shape in merged_shapes:
+        X = shape[1]
+        El, Et = unitary(128), unitary(x_top)
+        check("merged_fact_apply", f"Xt{x_top}", shape,
+              lambda xr, xi, *a, xt=x_top: merged_fact_apply(xr, xi, *a, x_top=xt),
+              lambda xr, xi, *a, xt=x_top: merged_fact_apply_plain(xr, xi, *a,
+                                                                   x_top=xt),
+              (*El, *Et), HIGH_TOL, flops=amps29 * (128 + x_top) * 8,
+              bytes_moved=2 * state29, library=merged_library(El, Et, x_top))
+        Eli, Eti = unitary(128), unitary(x_top)
+        ops = (*Eli, *El, *Eti, *Et)
+        check_many("block_backward_merged_fact", f"Xt{x_top}", shape, 4, 4,
+                   lambda *p, xt=x_top: block_backward_merged_fact(*p, *ops, x_top=xt),
+                   lambda *p, xt=x_top: block_backward_merged_fact_plain(
+                       *p, *ops, x_top=xt), HIGH_TOL,
+                   flops=amps29 * 3 * (128 + x_top) * 8, bytes_moved=4 * state29,
+                   library=merged_bwd_library(Eli, El, Eti, Et, x_top))
+        check("gram", f"merged_X{X}", (1, X, shape[2] * 128), gram, gram_plain, (),
+              GRAM_TOL, flops=amps29 * (2 * X + 1) * 2, bytes_moved=state29,
+              library=gram_library, normalize=True)
+        E = unitary(X)
+        check_many("high_apply", f"X{X}_seed", shape, 4, 2, seed(high_apply, *E),
+                   seed(high_apply_plain, *E), HIGH_TOL, flops=amps29 * X * 8,
+                   bytes_moved=3 * state29, intact=2, library=seed_library(E))
+
+    # the diagonal-run kernels on the 29-qubit planes: x *= D, and (F, B) <-
+    # (F Dinv, B D); D = (tas tal) tsl is 18 real flops per amplitude
+    def diag_library(*tabs):
+        def make(*planes):
+            d = []
+            for t in tabs:
+                tsl, tas, tal = (torch.complex(t[k], t[k + 1]) for k in (0, 2, 4))
+                d.append((tsl, tas, tal))
+            xs = [torch.complex(planes[k], planes[k + 1])
+                  for k in range(0, len(planes), 2)]
+            return lambda: [x * ((tas[:, :, None] * tal[:, None, :]) * tsl)
+                            for x, (tsl, tas, tal) in zip(xs, d)]
+        return make
+
+    tab, tab_inv = tables(A29), tables(A29)
+    check("diag_sweep", "29q", (A29, 128, 128), diag_sweep, diag_sweep_plain, tab,
+          DIAG_TOL, flops=amps29 * 18, bytes_moved=2 * state29 + table_bytes(A29),
+          library=diag_library(tab))
+    check_many("diag_backward", "29q", (A29, 128, 128), 4, 4,
+               lambda *p: diag_backward(*p, *tab_inv, *tab),
+               lambda *p: diag_backward_plain(*p, *tab_inv, *tab), DIAG_TOL,
+               flops=amps29 * 36, bytes_moved=4 * state29 + 2 * table_bytes(A29),
+               library=diag_library(tab_inv, tab))
+    del tab, tab_inv
+
     # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
@@ -466,12 +621,12 @@ def main() -> int:
     counts = K.launch_counts()
     log(f"[grad] {N_QUBITS}q x {LAYERS}L value_and_grad through the kernels: "
         f"{vg_first_s:.3f} s (first call); launches {json.dumps(counts)}")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the gradient path")
     # per step: the forward's sweeps, one seed apply per group (two dual, two
     # high), and one backward sweep per forward sweep
-    want = {"dual_apply": LAYERS + 2, "high_apply": 2 * LAYERS + 2, "gram": 4,
-            "block_backward_dual": LAYERS, "block_backward_high": 2 * LAYERS}
+    want = dict.fromkeys(counts, 0)
+    want.update({"dual_apply": LAYERS + 2, "high_apply": 2 * LAYERS + 2,
+                 "gram": 4, "block_backward_dual": LAYERS,
+                 "block_backward_high": 2 * LAYERS})
     require(counts == want, f"launch counts {counts}, want {want}")
     grad = params.grad.detach().clone()
     require(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
@@ -508,58 +663,202 @@ def main() -> int:
     del params, grad, loss
     torch.cuda.empty_cache()
 
-    one = HardwareEfficientAnsatz(N_QUBITS, 1, entangler="cz")
-    alpha = torch.linspace(-1.3, 1.4, N_QUBITS, dtype=torch.float64)
-    p1 = torch.zeros(1, N_QUBITS, 3, dtype=torch.float64)
-    p1[0, :, 0] = alpha
-    p1 = p1.float().to(dev).requires_grad_(True)
-    v1 = one.magnetization(p1)
-    v1.backward()
-    g1 = p1.grad[0].double().cpu()
-    a32 = alpha.float().double()
-    val_err = abs(v1.item() - torch.cos(a32).sum().item())
-    closed_err = max((g1[:, 0] + torch.sin(a32)).abs().max().item(),
-                     g1[:, 1:].abs().max().item())
-    log(f"[grad] {N_QUBITS}q x 1L closed form: value err {val_err:.3e}, "
-        f"gradient err {closed_err:.3e} vs (-sin alpha, 0, 0) (tol {CLOSED_TOL:.0e})")
-    require(val_err <= CLOSED_TOL * N_QUBITS and closed_err <= CLOSED_TOL,
-            "the 1-layer closed-form gradient failed")
+    def closed_form(n: int, tag: str) -> float:
+        """n x 1L at params (alpha, 0, 0): <Z_i> = cos alpha_i, so the
+        gradient is (-sin alpha, 0, 0). Returns the gradient error."""
+        one = HardwareEfficientAnsatz(n, 1, entangler="cz")
+        alpha = torch.linspace(-1.3, 1.4, n, dtype=torch.float64)
+        p1 = torch.zeros(1, n, 3, dtype=torch.float64)
+        p1[0, :, 0] = alpha
+        p1 = p1.float().to(dev).requires_grad_(True)
+        v1 = one.magnetization(p1)
+        v1.backward()
+        g1 = p1.grad[0].double().cpu()
+        a32 = alpha.float().double()
+        val_err = abs(v1.item() - torch.cos(a32).sum().item())
+        closed_err = max((g1[:, 0] + torch.sin(a32)).abs().max().item(),
+                         g1[:, 1:].abs().max().item())
+        log(f"[{tag}] {n}q x 1L closed form: value err {val_err:.3e}, gradient "
+            f"err {closed_err:.3e} vs (-sin alpha, 0, 0) (tol {CLOSED_TOL:.0e})")
+        require(val_err <= CLOSED_TOL * n and closed_err <= CLOSED_TOL,
+                f"the {n}-qubit 1-layer closed-form gradient failed")
+        return closed_err
 
-    four = HardwareEfficientAnsatz(N_QUBITS, GRAD_LAYERS, entangler="cz")
-    p4 = (7.0 * four.init_params(torch.Generator().manual_seed(SEED + 2))
-          ).requires_grad_(True)
-    four.magnetization(p4).backward()
-    g_k = p4.grad.clone()
-    p4.grad = None
-    four.magnetization(p4, kernels=K.PLAIN).backward()
-    grad_err = (g_k - p4.grad).abs().max().item()
-    log(f"[grad] {N_QUBITS}q x {GRAD_LAYERS}L gradient, kernels vs plain path: "
-        f"max abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
-        f"{g_k.abs().max().item():.3e}")
-    require(grad_err <= GRAD_TOL, "kernel-path gradient disagrees with the plain path")
+    def kernels_vs_plain(n: int, tag: str) -> float:
+        """n x GRAD_LAYERS gradients through the kernels and through the
+        plain versions, on the card."""
+        four = HardwareEfficientAnsatz(n, GRAD_LAYERS, entangler="cz")
+        p4 = (7.0 * four.init_params(torch.Generator().manual_seed(SEED + 2))
+              ).requires_grad_(True)
+        four.magnetization(p4).backward()
+        g_k = p4.grad.clone()
+        p4.grad = None
+        four.magnetization(p4, kernels=K.PLAIN).backward()
+        grad_err = (g_k - p4.grad).abs().max().item()
+        log(f"[{tag}] {n}q x {GRAD_LAYERS}L gradient, kernels vs plain path: max "
+            f"abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
+            f"{g_k.abs().max().item():.3e}")
+        require(grad_err <= GRAD_TOL,
+                f"{n}-qubit kernel-path gradient disagrees with the plain path")
+        torch.cuda.empty_cache()
+        return grad_err
 
-    # 6. result lines ---------------------------------------------------------
+    closed_form(N_QUBITS, "grad")
+    kernels_vs_plain(N_QUBITS, "grad")
+
+    # 6. the 29-qubit path: 29 qubits x 100 layers, the bench workload -------
+    m29 = HardwareEfficientAnsatz(N29, LAYERS, entangler="cz")
+    p29 = m29.init_params(torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dens29 = m29.densities(p29)
+    torch.cuda.synchronize()
+    first29_s = time.perf_counter() - t0
+    fwd29 = K.launch_counts()
+    log(f"[slice29] {N29}q x {LAYERS}L forward through the kernels: "
+        f"{first29_s:.3f} s (first call); launches {json.dumps(fwd29)}")
+    # the rotated program: the head [dual, high g2, merged] and L - 1 bodies
+    # [dual with the ring's run folded first, high g2, merged], then the run
+    # on its own; one Gram each for groups 0, 1, 2 and one merged-axis Gram
+    # for groups 3 and 4
+    want29 = dict.fromkeys(fwd29, 0)
+    want29.update({"dual_apply": LAYERS, "high_apply": LAYERS,
+                   "merged_fact_apply": LAYERS, "diag_sweep": 1, "gram": 4})
+    require(fwd29 == want29, f"29q forward launch counts {fwd29}, want {want29}")
+    D = torch.stack(dens29)
+    require(tuple(D.shape) == (N29, 2, 2), f"densities of shape {tuple(D.shape)}")
+    require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
+    herm = (D - D.conj().transpose(1, 2)).abs().max().item()
+    trace = (torch.diagonal(D, dim1=1, dim2=2).sum(-1) - 1).abs().max().item()
+    require(herm <= 1e-6 and trace <= 1e-4,
+            "29q densities are not unit-trace Hermitian matrices")
+    del dens29, D
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mag29 = m29.magnetization(p29).item()
+    step29_s = time.perf_counter() - t0
+    peak29 = torch.cuda.max_memory_allocated()
+    log(f"[slice29] magnetization {mag29:.6f}; max |rho - rho^H| {herm:.2e}; "
+        f"max |tr rho - 1| {trace:.2e}; step (warm) {step29_s:.4f} s = "
+        f"{step29_s / LAYERS * 1e3:.2f} ms/layer; {m29.num_gates / step29_s:.1f} "
+        f"gates/s; peak memory {peak29 / 2**30:.3f} GiB")
+    fwd29_ms = (LAYERS * (per_launch["dual_apply", "29q_diag_first"]
+                          + per_launch["high_apply", "29q_X128_plain"]
+                          + per_launch["merged_fact_apply", "Xt2"])
+                + per_launch["diag_sweep", "29q"]
+                + sum(per_launch["gram", v] for v in
+                      ("29q_lane", "29q_sublane", "29q_high_g2", "merged_X256")))
+    log(f"[slice29] kernel time per step (launches x per-launch ms above): "
+        f"{fwd29_ms:.1f} ms = {100 * fwd29_ms / (step29_s * 1e3):.1f}% of the step")
+
+    p29.requires_grad_(True)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss29 = m29.magnetization(p29)
+    loss29.backward()
+    torch.cuda.synchronize()
+    vg29_first_s = time.perf_counter() - t0
+    counts29 = K.launch_counts()
+    log(f"[grad29] {N29}q x {LAYERS}L value_and_grad through the kernels: "
+        f"{vg29_first_s:.3f} s (first call); launches {json.dumps(counts29)}")
+    for name, c in counts29.items():
+        require(c > 0, f"kernel {name} was not launched on the 29q gradient path")
+    # per step: the forward's launches, the seeds (two dual for groups 0 and
+    # 1, one high for group 2, one merged-axis high apply at X = 256 for
+    # groups 3 and 4), the run's adjoint and one backward sweep per sweep
+    want29 = {"dual_apply": LAYERS + 2, "high_apply": LAYERS + 2, "gram": 4,
+              "block_backward_dual": LAYERS, "block_backward_high": LAYERS,
+              "merged_fact_apply": LAYERS, "block_backward_merged_fact": LAYERS,
+              "diag_sweep": 1, "diag_backward": 1}
+    require(counts29 == want29, f"29q launch counts {counts29}, want {want29}")
+    grad29 = p29.grad.detach().clone()
+    require(bool(torch.isfinite(grad29).all()) and grad29.abs().max().item() > 0,
+            "29q gradient is not finite and nonzero")
+    log(f"[grad29] value {loss29.item():.6f}; |grad| max "
+        f"{grad29.abs().max().item():.4e}, rms {grad29.pow(2).mean().sqrt().item():.4e}")
+    p29.grad = None
+    del loss29
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss29 = m29.magnetization(p29)
+    loss29.backward()
+    torch.cuda.synchronize()
+    vg29_s = time.perf_counter() - t0
+    vg29_peak = torch.cuda.max_memory_allocated()
+    drift29 = (p29.grad - grad29).abs().max().item()
+    log(f"[grad29] value_and_grad step (warm) {vg29_s:.4f} s = "
+        f"{vg29_s / LAYERS * 1e3:.2f} ms/layer; forward-only step {step29_s:.4f} s; "
+        f"ratio {vg29_s / step29_s:.2f}; peak memory {vg29_peak / 2**30:.3f} GiB; "
+        f"grad vs first call max abs {drift29:.3e}")
+    require(drift29 <= GRAD_TOL, "two 29q value_and_grad steps disagree")
+    bwd29_ms = (LAYERS * (per_launch["block_backward_dual", "29q_g0_first_diag_first"]
+                          + per_launch["block_backward_high", "29q_X128_plain"]
+                          + per_launch["block_backward_merged_fact", "Xt2"])
+                + per_launch["diag_backward", "29q"]
+                + 2 * per_launch["dual_apply", "29q_seed"]
+                + per_launch["high_apply", "29q_X128_seed"]
+                + per_launch["high_apply", "X256_seed"])
+    log(f"[grad29] kernel time per step (launches x per-launch ms above): forward "
+        f"{fwd29_ms:.1f} ms + seeds and backward {bwd29_ms:.1f} ms = "
+        f"{100 * (fwd29_ms + bwd29_ms) / (vg29_s * 1e3):.1f}% of the step")
+    del m29, p29, grad29, loss29
+    torch.cuda.empty_cache()
+
+    closed_form(N29, "grad29")
+    closed_form(N30, "grad29")
+    three = HardwareEfficientAnsatz(N30, 3, entangler="cz")
+    p3 = torch.zeros(3, N30, 3, device=dev, requires_grad=True)
+    K.reset_launch_counts()
+    v3 = three.magnetization(p3)
+    v3.backward()
+    c3 = K.launch_counts()
+    g3_max = p3.grad.abs().max().item()
+    log(f"[grad29] {N30}q x 3L params = 0: magnetization {v3.item()!r} (want "
+        f"{N30}); |grad| max {g3_max:.3e}; launches {json.dumps(c3)}")
+    require(abs(v3.item() - N30) <= ZERO_TOL and g3_max <= CLOSED_TOL,
+            "the 30q params = 0 known answer failed")
+    require(c3["merged_fact_apply"] == 3 and c3["block_backward_merged_fact"] == 3,
+            "the 30q run did not go through the merged kernels")
+    del three, p3, v3
+    torch.cuda.empty_cache()
+    kernels_vs_plain(N29, "grad29")
+
+    # 7. result lines ---------------------------------------------------------
+    # each kernel's row at the 29-qubit path's shape of its most launched
+    # variant; launches from the 29q x 100L value_and_grad (and its forward)
     sources = {
         "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
-                       "dqc_tpu/ops/pallas/dual_apply.py:232", "plain"),
+                       "dqc_tpu/ops/pallas/dual_apply.py:232", "29q_diag_first"),
         "high_apply": ("dqc_tpu_torch/csrc/high_apply.cu",
-                       "dqc_tpu/ops/pallas/high_apply.py:76", "X128_plain"),
+                       "dqc_tpu/ops/pallas/high_apply.py:76", "29q_X128_plain"),
         "gram": ("dqc_tpu_torch/csrc/gram.cu",
-                 "dqc_tpu/ops/pallas/gram.py:58,97,134", "lane"),
+                 "dqc_tpu/ops/pallas/gram.py:58,97,134", "29q_lane"),
         "block_backward_dual": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
                                 "dqc_tpu/ops/pallas/block_backward.py:437",
-                                "g0_first"),
+                                "29q_g0_first_diag_first"),
         "block_backward_high": ("dqc_tpu_torch/csrc/block_backward_high.cu",
                                 "dqc_tpu/ops/pallas/block_backward.py:906",
-                                "X128_plain"),
+                                "29q_X128_plain"),
+        "merged_fact_apply": ("dqc_tpu_torch/csrc/merged_fact_apply.cu",
+                              "dqc_tpu/ops/pallas/high_apply.py:190", "Xt2"),
+        "block_backward_merged_fact": (
+            "dqc_tpu_torch/csrc/block_backward_merged_fact.cu",
+            "dqc_tpu/ops/pallas/block_backward.py:670", "Xt2"),
+        "diag_sweep": ("dqc_tpu_torch/csrc/diag.cu",
+                       "dqc_tpu/ops/pallas/diag.py:75", "29q"),
+        "diag_backward": ("dqc_tpu_torch/csrc/diag.cu",
+                          "dqc_tpu/ops/pallas/diag.py:154", "29q"),
     }
     out = []
     for name, (src, replaces, variant) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
         rep = next(r for r in mine if r["variant"] == variant)
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": counts[name],
-                    "launches_forward": fwd_counts[name],
+                    "replaces": replaces, "launches": counts29[name],
+                    "launches_forward": fwd29[name],
+                    "launches_28q": counts[name],
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

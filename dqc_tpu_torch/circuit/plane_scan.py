@@ -20,11 +20,14 @@ small matrix algebra (circuit/fused_autograd.py). ``plane_std_scan_densities``
 is a ``torch.autograd.Function`` around both.
 
 The scheduler (``plane_program`` and its passes) is pure host code and is
-the same as the JAX package's, item for item. This slice executes the items
-``dense``, ``ddual`` and ``dhigh``, both ways; the others (``diag``,
-``hpair``, ``mdiag``, ``dcross``, ``xcross``) raise ``NotImplementedError``
-naming the TPU kernel still to be ported, before any state is allocated.
-The layer loops are Python loops.
+the same as the JAX package's, item for item. The port executes the items
+``dense``, ``ddual``, ``dhigh``, ``diag`` (a lone diagonal run: the diag
+kernels) and ``hpair`` (a tiny top group's block merged with the one below
+it, Kronecker-factorized: merged_fact_apply / block_backward_merged_fact),
+both ways, and the scan rotation of a trailing const run both ways; the
+others (``mdiag``, ``dcross``, ``xcross``, ``dens``) raise
+``NotImplementedError`` naming the TPU kernel still to be ported, before
+any state is allocated. The layer loops are Python loops.
 """
 
 from __future__ import annotations
@@ -316,8 +319,6 @@ def _split_diag_run(run) -> List[Tuple]:
 # ---------------------------------------------------------------------------
 
 _MISSING = {
-    "diag": "diag_sweep_planes (dqc_tpu/ops/pallas/diag.py:75)",
-    "hpair": "merged_fact_apply_planes (dqc_tpu/ops/pallas/high_apply.py:190)",
     "mdiag": "the >2-group diagonal multiply (planes.apply_multi_diag)",
     "dcross": ("dual_multi_apply_planes / high_multi_apply_planes "
                "(dqc_tpu/ops/pallas/dual_apply.py:165, high_apply.py:273)"),
@@ -328,35 +329,24 @@ _MISSING = {
 
 def _unsupported(what: str, n: int) -> NotImplementedError:
     return NotImplementedError(
-        f"n={n} needs {what}, not ported to dqc_tpu_torch yet (this slice "
-        "runs n in {14, 17..21, 24..28}); see ROADMAP.md")
+        f"n={n} needs {what}, not ported to dqc_tpu_torch yet (the port "
+        "runs gate-only layers of dense blocks and diagonal runs at n in "
+        "14..30); see ROADMAP.md")
 
 
 def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape) -> None:
     """Raise ``NotImplementedError`` naming every missing kernel when the
-    layer program or the density epilogue needs one this slice lacks."""
+    layer program or the density epilogue needs one the port lacks."""
     n = ftape.n
     missing: List[str] = []
     for item in plane_program(ftape):
-        kind = item[0]
-        if kind in _MISSING:
-            missing.append(f"plane item {kind!r}: {_MISSING[kind]}")
-        elif kind == "dense" and item[2] is None:
-            j = ftape.instructions[item[1]].group
-            X = pl._high_view(n, j)[1] if j >= 2 else 128
-            if X < pl.MIN_KERNEL_X:
-                missing.append(f"a dense block on the {X}-wide group {j}: the "
-                               "small-X high apply (planes._apply_high_smallx)")
-    njg = len(gr.group_dims(n))
+        if item[0] in _MISSING:
+            missing.append(f"plane item {item[0]!r}: {_MISSING[item[0]]}")
     for fi in epi_ftape.instructions:
-        groups = _density_groups(fi, n) if isinstance(fi, FDensity) else set()
         if not isinstance(fi, FDensity):
             missing.append("a gate in the density epilogue")
-        elif len(groups) > 1:
+        elif len(_density_groups(fi, n)) > 1:
             missing.append("a cross-group density (_cross_density)")
-        elif pl.merged_top_tiny(n) and groups & {njg - 1, njg - 2}:
-            missing.append("a tiny-top-group density: gram_merged_top "
-                           "(merged-axis gram_high)")
     if missing:
         raise _unsupported("; ".join(dict.fromkeys(missing)), n)
 
@@ -596,10 +586,28 @@ def _apply_dhigh_item(xr, xi, item, layer: _Layer):
                           diag_first=item[3], kernels=layer.kernels)
 
 
+def _hpair_ops(item, layer: _Layer, inverse: bool = False):
+    """(E_low, E_top) block operators of an hpair item (or their inverses)."""
+    return layer.operator(item[1], inverse), layer.operator(item[2], inverse)
+
+
+def _apply_hpair(xr, xi, item, layer: _Layer):
+    """Forward of a merged (top, top-1) dense sweep, Kronecker-factorized
+    (config.hpair_factorized: the expanded sweep is not ported)."""
+    El, Et = _hpair_ops(item, layer)
+    return pl.apply_merged_top_fact(xr, xi, Et, El, layer.ftape.n,
+                                    kernels=layer.kernels)
+
+
 def _apply_forward(xr, xi, program, layer: _Layer):
     """Gate-only forward over a plane program (no density items)."""
     for item in program:
-        if item[0] == "ddual":
+        if item[0] == "diag":
+            xr, xi = pl.apply_diag_run(xr, xi, layer.run_tables(item[1]),
+                                       kernels=layer.kernels)
+        elif item[0] == "hpair":
+            xr, xi = _apply_hpair(xr, xi, item, layer)
+        elif item[0] == "ddual":
             xr, xi = _apply_ddual(xr, xi, item, layer)
         elif item[0] == "dhigh":
             xr, xi = _apply_dhigh_item(xr, xi, item, layer)
@@ -620,9 +628,16 @@ def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
                       var_cts: Dict[int, torch.Tensor]):
     """Reverse the program: paired dense sweeps (with a folded run or not)
     roll back in one dual backward kernel pass, high sweeps in one high
-    backward kernel pass."""
+    backward kernel pass, merged sweeps in one merged backward kernel pass
+    and each lone diagonal run in one diag backward kernel pass."""
     for item in reversed(program):
-        if item[0] == "ddual":
+        if item[0] == "diag":
+            fxr, fxi, bxr, bxi = _diag_run_backward(fxr, fxi, bxr, bxi, item[1],
+                                                    layer)
+        elif item[0] == "hpair":
+            fxr, fxi, bxr, bxi = _backward_hpair(fxr, fxi, bxr, bxi, item,
+                                                 layer, var_cts)
+        elif item[0] == "ddual":
             fxr, fxi, bxr, bxi = _backward_ddual(fxr, fxi, bxr, bxi, item,
                                                  layer, var_cts)
         elif item[0] == "dhigh":
@@ -666,8 +681,7 @@ def _backward_step(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
     kernels not ported yet)."""
     fi = layer.ftape.instructions[i]
     if not isinstance(fi, FBlock) or fi.all_diag:
-        raise _unsupported("the adjoint of a diagonal or cross-group "
-                           "instruction (diag_backward_planes and the "
+        raise _unsupported("the adjoint of a cross-group instruction (the "
                            "cross-group paths)", layer.ftape.n)
     fxr, fxi, bxr, bxi, T0 = pl.backward_block(
         fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
@@ -723,6 +737,35 @@ def _backward_ddual(fxr, fxi, bxr, bxi, item, layer: _Layer,
     return _backward_dual_step(fxr, fxi, bxr, bxi, item[2], item[3], layer,
                                var_cts, run=item[1],
                                diag_first=_ddual_order(item))
+
+
+def _diag_run_backward(fxr, fxi, bxr, bxi, run, layer: _Layer):
+    """One in-place kernel pass rolling (fwd, bwd) back through a const
+    diagonal run (uncompute + cotangent transport). A run with variable
+    gates needs the Q reductions and raises."""
+    _no_var_run(run, layer)
+    fxr, fxi, bxr, bxi, _ = pl.backward_diag_run(
+        fxr, fxi, bxr, bxi, layer.run_tables(run, True), layer.run_tables(run),
+        with_q=False, kernels=layer.kernels)
+    return fxr, fxi, bxr, bxi
+
+
+def _backward_hpair(fxr, fxi, bxr, bxi, item, layer: _Layer,
+                    var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a merged (top, top-1) dense sweep in ONE kernel pass
+    (block_backward_merged_fact). With forward order [low, top] (they
+    commute) the two blocks' pair grams are the restrictions of the merged
+    pair gram that the kernel returns: ``T0_top`` sees fwd with only the
+    top block uncomputed, ``T0_low`` fwd with only the low block
+    uncomputed, both against the incoming cotangent."""
+    El, Et = _hpair_ops(item, layer)
+    Eli, Eti = _hpair_ops(item, layer, inverse=True)
+    fxr, fxi, bxr, bxi, T0_top, T0_low = pl.backward_merged_top_fact(
+        fxr, fxi, bxr, bxi, Et, El, Eti, Eli, layer.ftape.n,
+        kernels=layer.kernels)
+    _close_block_cts(layer, item[2], T0_top, var_cts)
+    _close_block_cts(layer, item[1], T0_low, var_cts)
+    return fxr, fxi, bxr, bxi
 
 
 def _backward_dhigh(fxr, fxi, bxr, bxi, item, layer: _Layer,
@@ -800,28 +843,41 @@ def _match_ct(ct: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 def _scan_layers_backward(fxr, fxi, bxr, bxi, ftape: FusedTape, program,
                           stacked_var_gates, const_gates, *,
                           kernels: KernelSet = KERNELS):
-    """The adjoint of L layers, last layer first (a loop over layers).
-    Returns ``((fxr, fxi, bxr, bxi), stacked_cts)``, the cotangents stacked
-    like the gates. The scan rotation's adjoint needs the diag backward
-    kernel and raises."""
+    """The adjoint of L layers, last layer first (a loop over layers),
+    mirroring the rotation of _scan_layers_forward: the trailing const run
+    rolls back first (no cotangents), then the rotated body for layers
+    L-1 .. 1, then the head with layer 0's gates. Returns ``((fxr, fxi, bxr,
+    bxi), stacked_cts)``, the cotangents stacked like the gates."""
     L = _num_layers(stacked_var_gates)
-    if _rotatable_const_diag(program, ftape) is not None and L >= 2:
-        raise _unsupported("the adjoint of the rotated trailing diagonal run: "
-                           "diag_backward_planes (dqc_tpu/ops/pallas/diag.py:154)",
-                           ftape.n)
     consts: Dict = {}
     per_layer: List = [None] * L
-    for l in reversed(range(L)):
-        layer = _Layer(ftape, tuple(g[l] for g in stacked_var_gates),
-                       const_gates, fxr.device, kernels, consts)
+
+    def layer(l: int) -> _Layer:
+        return _Layer(ftape, tuple(g[l] for g in stacked_var_gates),
+                      const_gates, fxr.device, kernels, consts)
+
+    def back(planes, prog, l: int):
         var_cts: Dict[int, torch.Tensor] = {}
-        fxr, fxi, bxr, bxi = _backward_program(fxr, fxi, bxr, bxi, program,
-                                               layer, var_cts)
+        lay = layer(l)
+        planes = _backward_program(*planes, prog, lay, var_cts)
         per_layer[l] = tuple(_match_ct(var_cts[q], g)
-                             for q, g in enumerate(layer.var_gates))
+                             for q, g in enumerate(lay.var_gates))
+        return planes
+
+    planes = (fxr, fxi, bxr, bxi)
+    rot = _rotatable_const_diag(program, ftape)
+    if rot is not None and L >= 2:
+        head, rotated, diag_item = rot
+        planes = _backward_program(*planes, (diag_item,), layer(0), {})
+        for l in reversed(range(1, L)):
+            planes = back(planes, rotated, l)
+        planes = back(planes, head, 0)
+    else:
+        for l in reversed(range(L)):
+            planes = back(planes, program, l)
     stacked_cts = tuple(torch.stack([cts[q] for cts in per_layer])
                         for q in range(len(stacked_var_gates)))
-    return (fxr, fxi, bxr, bxi), stacked_cts
+    return planes, stacked_cts
 
 
 # ---------------------------------------------------------------------------
@@ -866,11 +922,17 @@ def _epilogue_density_list(epi_ftape: FusedTape, xr, xi, n: int,
 
 def _gram_for(grams: Dict[int, torch.Tensor], xr, xi, j: int, n: int,
               kernels: KernelSet) -> torch.Tensor:
-    """Per-group Gram with caching (the tiny-top-group merged read is not
-    ported: check_forward_supported turns those sizes away)."""
+    """Per-group Gram with caching; when the top group is tiny, ONE merged
+    kernel read serves both the top and the next group (partial traces)."""
     G = grams.get(j)
-    if G is None:
-        G = grams[j] = _plane_gram(xr, xi, j, n, kernels)
+    if G is not None:
+        return G
+    njg = len(gr.group_dims(n))
+    if pl.merged_top_tiny(n) and j in (njg - 1, njg - 2):
+        grams[njg - 2], grams[njg - 1] = pl.gram_merged_top(xr, xi, n,
+                                                            kernels=kernels)
+        return grams[j]
+    G = grams[j] = _plane_gram(xr, xi, j, n, kernels)
     return G
 
 
@@ -915,11 +977,24 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
     computed as ``conj(sum_j conj(M_j) psi)``: one apply per group that
     READS the forward planes (``alias=False``) and accumulates into one
     set of cotangent planes (``acc``). Returns ``(None, None)`` without
-    seeds. The merged-top seed of a tiny top group is not ported."""
+    seeds. When the top group is tiny, the top two groups' seeds (a sum of
+    per-group operators) combine into ONE merged-axis operator
+    ``kron(M_top, I) + kron(I, M_low)`` and one pass, first."""
+    pending = dict(pending)
     njg = len(gr.group_dims(n))
-    if pl.merged_top_tiny(n) and (njg - 1 in pending or njg - 2 in pending):
-        raise _unsupported("the merged-top seed (planes.apply_merged_top)", n)
     bxr = bxi = None
+    if pl.merged_top_tiny(n) and (njg - 1 in pending or njg - 2 in pending):
+        X, Xl = gr.group_dims(n)[:2]
+        M_top = pending.pop(njg - 1, None)
+        M_low = pending.pop(njg - 2, None)
+        Mm = None
+        if M_top is not None:
+            Mm = pl._kron_id(M_top, Xl)
+        if M_low is not None:
+            t = pl.kron_ops(np.eye(X, dtype=np.complex64), M_low)
+            Mm = t if Mm is None else Mm + t
+        bxr, bxi = pl.apply_merged_top(fxr, fxi, Mm.conj(), n, alias=False,
+                                       conj=True, kernels=kernels)
     for j, M in pending.items():
         acc = None if bxr is None else (bxr, bxi)
         bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), j, n, alias=False,

@@ -2,7 +2,8 @@
 
 Counterpart of ``dqc_tpu/config.py``. Only the settings the plane engine
 reads are kept: the complex dtype, the in-kernel dot modes (forward,
-cotangent side, pair grams) and the state-plane storage. Each has one
+cotangent side, pair grams), the state-plane storage and the factorized
+merged-top sweep. Each has one
 ported value so far; asking for another raises ``NotImplementedError``
 (ROADMAP.md lists the modes still to port).
 
@@ -94,6 +95,22 @@ def gram_kernel_dot_mode() -> str:
     if _GRAM_KERNEL_DOT_MODE == "auto":
         return "f32"
     return _GRAM_KERNEL_DOT_MODE
+
+
+def set_hpair_factorized(enabled: bool) -> None:
+    """The merged (top, top-1) sweep of a tiny top group runs Kronecker-
+    factorized (merged_fact_apply / block_backward_merged_fact), the JAX
+    package's default. The expanded merged sweep (``False``) needs the high
+    backward kernel at X = 256 / 512 and is not ported."""
+    if not enabled:
+        raise NotImplementedError(
+            "the expanded merged-top sweep (set_hpair_factorized(False)) needs "
+            "block_backward_high at X = 256 / 512, not ported to dqc_tpu_torch "
+            "yet; see ROADMAP.md")
+
+
+def hpair_factorized() -> bool:
+    return True
 
 
 def set_state_storage(mode: str) -> None:

@@ -9,9 +9,10 @@ are differentiable in ``params`` with torch autograd (``loss.backward()``
 is the counterpart of the JAX class's ``jax.value_and_grad``), through the
 engine's O(1)-memory uncompute adjoint.
 
-The CZ ring runs at n in {14, 17..21, 24..28}; other n, and the CNOT ring
-(dense cross-group gates), raise ``NotImplementedError`` naming the kernel
-still to be ported, before any state is allocated.
+The CZ ring runs at every n in 14..30 (n = 29 x 100 layers is the JAX
+package's bench workload); the CNOT ring (dense cross-group gates) raises
+``NotImplementedError`` naming the kernels still to be ported, before any
+state is allocated.
 """
 
 from __future__ import annotations

@@ -19,9 +19,23 @@ from dqc_tpu_torch.ops.kernels.block_backward_high import (
     block_backward_high,
     block_backward_high_plain,
 )
+from dqc_tpu_torch.ops.kernels.block_backward_merged_fact import (
+    block_backward_merged_fact,
+    block_backward_merged_fact_plain,
+)
+from dqc_tpu_torch.ops.kernels.diag import (
+    diag_backward,
+    diag_backward_plain,
+    diag_sweep,
+    diag_sweep_plain,
+)
 from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
 from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
 from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
+from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
+    merged_fact_apply,
+    merged_fact_apply_plain,
+)
 
 
 class KernelSet(NamedTuple):
@@ -30,12 +44,19 @@ class KernelSet(NamedTuple):
     gram: Callable
     block_backward_dual: Callable
     block_backward_high: Callable
+    merged_fact_apply: Callable
+    block_backward_merged_fact: Callable
+    diag_sweep: Callable
+    diag_backward: Callable
 
 
 KERNELS = KernelSet(dual_apply, high_apply, gram, block_backward_dual,
-                    block_backward_high)
+                    block_backward_high, merged_fact_apply,
+                    block_backward_merged_fact, diag_sweep, diag_backward)
 PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain,
-                  block_backward_dual_plain, block_backward_high_plain)
+                  block_backward_dual_plain, block_backward_high_plain,
+                  merged_fact_apply_plain, block_backward_merged_fact_plain,
+                  diag_sweep_plain, diag_backward_plain)
 
 
 def reset_launch_counts() -> None:

@@ -5,11 +5,12 @@
 ``G = S + i (C^T - C)`` (ops/planes.gram_axis). Replaces the three TPU
 kernels of ``dqc_tpu/ops/pallas/gram.py`` — ``gram_lane`` (:58, view
 ``(A 128, 128, 1)``), ``gram_sublane`` (:97, view ``(A, 128, 128)``) and
-``gram_high`` (:134, view ``(A1, X, M 128)``) — with one Hopper kernel,
-``csrc/gram.cu`` (bound by operations: S is symmetric, so 2 X + 1 real
-multiply-adds per amplitude against 8 bytes; the kernel does 3 X), which
-sums per-block partials and adds them in a second, fixed-order pass.
-:func:`gram_plain` is its plain PyTorch version.
+``gram_high`` (:134, view ``(A1, X, M 128)``; also on the merged top
+axis of a tiny top group, X = 256 or 512, ops/planes.gram_merged_top) —
+with one Hopper kernel, ``csrc/gram.cu`` (bound by operations: S is
+symmetric, so 2 X + 1 real multiply-adds per amplitude against 8 bytes; the
+kernel does 3 X), which sums per-block partials and adds them in a second,
+fixed-order pass. :func:`gram_plain` is its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from dqc_tpu_torch.ops.kernels import _launch
 
 KERNEL_X = (8, 16, 32, 64, 128)
+WIDE_X = (256, 512)   # the merged top axis: 128 x 128 patches of (S, C)
 _BLOCKS_PER_SM = 4
 
 
@@ -55,22 +57,26 @@ _ARGTYPES = [_launch.VOIDP] * 4 + [_launch.LONG, _launch.INT, _launch.LONG,
 
 
 def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(S, C)``, each float32 (X, X), of planes viewed as ``(P, X, Q)``."""
+    """``(S, C)``, each float32 (X, X), of planes viewed as ``(P, X, Q)``;
+    X in 8..128, or 256 / 512 with Q a multiple of 32."""
     if xr.dim() != 3 or xi.shape != xr.shape:
         raise ValueError(f"gram: planes must be one (P, X, Q) view, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
     if xr.device.type == "cpu":
         return gram_plain(xr, xi)
     P, X, Q = xr.shape
-    if X not in KERNEL_X:
-        raise ValueError(f"gram: X={X} is not one of {KERNEL_X}")
-    cols_per_tile = 4096 // X
-    if (P * Q) % cols_per_tile or (Q != 1 and Q % cols_per_tile):
+    if X not in KERNEL_X + WIDE_X:
+        raise ValueError(f"gram: X={X} is not one of {KERNEL_X + WIDE_X}")
+    cols_per_tile = 4096 // min(X, 128)
+    if (P * Q) % cols_per_tile or (Q != 1 and Q % cols_per_tile) or (
+            X > 128 and Q == 1):
         raise ValueError(f"gram: view {tuple(xr.shape)} does not tile by "
                          f"{cols_per_tile} columns")
     _launch.check_cuda_f32("gram", (xr, xi), xr.device)
-    nblk = min((P * Q) // cols_per_tile,
-               _BLOCKS_PER_SM * _launch.sm_count(xr.device))
+    # X > 128: each block forms one of the (X / 128)^2 patches of (S, C)
+    patches = (X // 128) ** 2 if X > 128 else 1
+    nblk = min((P * Q) // cols_per_tile, max(
+        1, _BLOCKS_PER_SM * _launch.sm_count(xr.device) // patches))
     part = torch.empty((nblk, 2, X, X), dtype=torch.float32, device=xr.device)
     out = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
     fn = _launch.entry("gram", "dqc_gram", _ARGTYPES)

@@ -14,11 +14,19 @@ Op mapping (one pass over the state each):
 * dense blocks on groups 0+1   -> the dual-group kernel (ops/kernels/dual_apply)
 * dense block on group j >= 2  -> the high-axis kernel (ops/kernels/high_apply)
 * a diagonal run next to either -> multiplied inside that kernel's pass
-* group Grams (densities)      -> the Gram kernel (ops/kernels/gram)
+* a diagonal run on its own    -> the diag sweep kernel (ops/kernels/diag)
+* dense blocks on a tiny top group and the group below it -> one merged-axis
+  sweep, Kronecker-factorized (ops/kernels/merged_fact_apply)
+* group Grams (densities)      -> the Gram kernel (ops/kernels/gram); both
+  top groups' from one merged-axis read when the top group is tiny
+* a 2- or 4-wide group 2 (n = 15, 16): elementwise combinations of its
+  slices, which the JAX package leaves to XLA outside any kernel
 * the adjoint of a dense block on group j >= 2, with or without a folded
   run -> the high backward kernel (ops/kernels/block_backward_high); the
   adjoint of a lane + sublane pair is called from circuit/plane_scan.py
-  (ops/kernels/block_backward_dual), as in the JAX package
+  (ops/kernels/block_backward_dual), as in the JAX package; the adjoints of
+  the merged sweep and of a lone diagonal run have kernels of their own
+  (ops/kernels/block_backward_merged_fact, ops/kernels/diag)
 
 Every apply consumes its input planes and returns the result (in place on
 the card), unless ``alias=False`` (fresh output planes) or ``acc`` (added
@@ -112,11 +120,108 @@ def _high_view(n: int, j: int) -> Tuple[int, int, int]:
     return pre, X, post * 128
 
 
+def _merged_view(n: int, j: int) -> Tuple[int, int, int, int]:
+    """(pre, X, Xl, M) merging tiny group ``j`` (j >= 3) with its lower
+    neighbour ``j - 1``: planes.reshape(pre, X * Xl, M, 128) puts both
+    groups' bits on one contracted axis (merged row ``x Xl + d``) of dim
+    >= 256, where the top group's ops run as kernels."""
+    if j < 3:
+        raise ValueError(f"_merged_view: group {j} has no high group below it")
+    dims = gr.group_dims(n)
+    G = len(dims)
+    ax = G - 1 - j
+    pre = int(np.prod(dims[:ax], dtype=np.int64)) if ax > 0 else 1
+    X = dims[ax]
+    Xl = dims[ax + 1]
+    post = int(np.prod(dims[ax + 2:G - 2], dtype=np.int64)) if ax + 2 <= G - 3 else 1
+    return pre, X, Xl, post * 128
+
+
+def kron_ops(Ea, Eb):
+    """``Ea (x) Eb`` (Ea on the higher, major axis): host numpy when both
+    operators are numpy, a complex64 tensor on the tensor's device
+    otherwise."""
+    if isinstance(Ea, np.ndarray) and isinstance(Eb, np.ndarray):
+        return np.kron(Ea, Eb)
+    dev = Ea.device if isinstance(Ea, torch.Tensor) else Eb.device
+    return torch.kron(torch.as_tensor(Ea, device=dev).to(torch.complex64),
+                      torch.as_tensor(Eb, device=dev).to(torch.complex64))
+
+
+def _kron_id(E, Xl: int):
+    """``E (x) I_Xl``."""
+    return kron_ops(E, np.eye(Xl, dtype=np.complex64))
+
+
+def _trace_id(Gm: torch.Tensor, X: int, Xl: int) -> torch.Tensor:
+    """Partial trace over the identity factor of a merged-axis (X Xl, X Xl)
+    Gram: ``G[x, y] = sum_d Gm[(x, d), (y, d)]``."""
+    return torch.einsum("xdyd->xy", Gm.reshape(X, Xl, X, Xl))
+
+
 def merged_top_tiny(n: int) -> bool:
     """True when the top group is tiny enough that (top, top-1) ops merge
-    onto one kernel axis (the hpair / merged-Gram criterion)."""
+    onto one kernel axis (the hpair / merged-seed / merged-Gram criterion)."""
     dims = gr.group_dims(n)
     return len(dims) >= 4 and dims[0] < MIN_KERNEL_X
+
+
+def _merged_planes(xr, xi, n: int):
+    """The planes on the merged (top, top-1) view, and the top group's X."""
+    pre, X, Xl, M = _merged_view(n, len(gr.group_dims(n)) - 1)
+    v = (pre, X * Xl, M, 128)
+    return xr.view(v), xi.view(v), X
+
+
+def apply_merged_top(xr, xi, E_m, n: int, *, alias: bool = True,
+                     conj: bool = False, acc=None,
+                     kernels: KernelSet = KERNELS) -> Planes:
+    """A dense operator ``E_m`` (X Xl, X Xl) on the merged (top, top-1) axis
+    in one pass: the merged-top density seed (``alias=False``, ``conj``,
+    ``acc``; the high apply kernel takes X = 256 / 512 only so)."""
+    vr, vi, _ = _merged_planes(xr, xi, n)
+    er, ei = op_planes(E_m, xr.device)
+    if acc is not None:
+        acc = (acc[0].view(vr.shape), acc[1].view(vr.shape))
+    yr, yi = kernels.high_apply(vr, vi, er, ei, conj=conj, acc=acc, alias=alias)
+    return yr.view(xr.shape), yi.view(xi.shape)
+
+
+def apply_merged_top_fact(xr, xi, Et, El, n: int, *,
+                          kernels: KernelSet = KERNELS) -> Planes:
+    """``Et (x) El`` on the merged (top, top-1) axis in one pass without
+    expanding the Kronecker product (merged_fact_apply)."""
+    vr, vi, X = _merged_planes(xr, xi, n)
+    dev = xr.device
+    yr, yi = kernels.merged_fact_apply(vr, vi, *op_planes(El, dev),
+                                       *op_planes(Et, dev), x_top=X)
+    return yr.view(xr.shape), yi.view(xi.shape)
+
+
+def backward_merged_top_fact(fxr, fxi, bxr, bxi, Et, El, Eti, Eli, n: int, *,
+                             kernels: KernelSet = KERNELS):
+    """Factorized one-pass adjoint on the merged (top, top-1) axis: returns
+    the planes and the complex ``(T0_top, T0_low)`` pair-gram restrictions
+    (block_backward_merged_fact) instead of the (X Xl)^2 merged gram."""
+    fr, fi, X = _merged_planes(fxr, fxi, n)
+    br, bi, _ = _merged_planes(bxr, bxi, n)
+    dev = fxr.device
+    fr, fi, br, bi, ttr, tti, tlr, tli = kernels.block_backward_merged_fact(
+        fr, fi, br, bi, *op_planes(Eli, dev), *op_planes(El, dev),
+        *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X)
+    return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
+            bi.view(bxr.shape), torch.complex(ttr, tti), torch.complex(tlr, tli))
+
+
+def gram_merged_top(xr, xi, n: int, *, kernels: KernelSet = KERNELS):
+    """(G_low, G_top): both top groups' Grams from ONE merged-axis kernel
+    read, the partial traces of the (X Xl)^2 merged Gram over the other
+    factor."""
+    pre, X, Xl, M = _merged_view(n, len(gr.group_dims(n)) - 1)
+    v = (pre, X * Xl, M * 128)
+    S, C = kernels.gram(xr.view(v), xi.view(v))
+    Gm = torch.complex(S, C.T - C).reshape(X, Xl, X, Xl)
+    return torch.einsum("dxdy->xy", Gm), _trace_id(Gm, X, Xl)
 
 
 # ---------------------------------------------------------------------------
@@ -186,19 +291,45 @@ def apply_dhigh(xr, xi, E, tables, j: int, n: int, *, diag_first: bool = True,
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
+def _apply_high_smallx(vxr, vxi, er, ei, X: int) -> Planes:
+    """Tiny contracted axis (X < 8, a 1- or 2-bit group 2): the operator
+    entries are scalars, so the apply is a linear combination of the axis
+    slices, elementwise (the JAX package's XLA form of it)."""
+    outr, outi = [], []
+    for x in range(X):
+        accr = acci = None
+        for y in range(X):
+            tr = er[x, y] * vxr[:, y] - ei[x, y] * vxi[:, y]
+            ti = er[x, y] * vxi[:, y] + ei[x, y] * vxr[:, y]
+            accr = tr if accr is None else accr + tr
+            acci = ti if acci is None else acci + ti
+        outr.append(accr)
+        outi.append(acci)
+    return torch.stack(outr, dim=1), torch.stack(outi, dim=1)
+
+
 def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
                conj: bool = False, acc=None, out_dtype=None,
                kernels: KernelSet = KERNELS) -> Planes:
-    """Dense full-group operator on high group ``j >= 2`` (one pass)."""
+    """Dense full-group operator on high group ``j >= 2`` (one pass): the
+    high kernel on the group's axis, or on the merged axis of a tiny top
+    group (``E (x) I``), or the elementwise small-X form on a tiny group 2
+    (fresh planes)."""
     _check_out_dtype(out_dtype)
     pre, X, M = _high_view(n, j)
-    if X < MIN_KERNEL_X:
-        raise NotImplementedError(
-            f"dense block on a {X}-wide high group (n={n}, group {j}): the "
-            "small-X high apply (planes._apply_high_smallx) and the merged "
-            "top axis (merged_fact_apply_planes) are not ported yet; see "
-            "ROADMAP.md")
     v = (pre, X, M, 128)
+    if X < MIN_KERNEL_X and j < 3:
+        er, ei = op_planes(E, xr.device)
+        yr, yi = _apply_high_smallx(xr.view(v), xi.view(v), er, ei, X)
+        if conj:
+            yi = -yi
+        if acc is not None:
+            yr, yi = acc[0].view(v) + yr, acc[1].view(v) + yi
+        return yr.reshape(xr.shape), yi.reshape(xi.shape)
+    if X < MIN_KERNEL_X:
+        return apply_merged_top(xr, xi, _kron_id(E, _merged_view(n, j)[2]), n,
+                                alias=alias, conj=conj, acc=acc,
+                                kernels=kernels)
     er, ei = op_planes(E, xr.device)
     if acc is not None:
         acc = (acc[0].view(v), acc[1].view(v))
@@ -263,8 +394,9 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]`` (complex, returned dense).
 
     Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired lane or sublane
-    block and a high group narrower than 8 need kernels not ported yet and
-    raise ``NotImplementedError``."""
+    block, and a lone block on a tiny top group, need kernels not ported
+    yet and raise ``NotImplementedError``; a tiny group 2 runs the
+    elementwise small-X form."""
     if j in (0, 1):
         raise NotImplementedError(
             f"the adjoint of an unpaired {('lane', 'sublane')[j]} block needs "
@@ -272,13 +404,27 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
             f"(dqc_tpu/ops/pallas/block_backward.py:{(88, 184)[j]}), not "
             "ported to dqc_tpu_torch yet; see ROADMAP.md")
     pre, X, M = _high_view(n, j)
-    if X < MIN_KERNEL_X:
-        raise NotImplementedError(
-            f"the adjoint of a dense block on a {X}-wide high group (n={n}, "
-            f"group {j}) needs the merged top axis or the small-X path, not "
-            "ported to dqc_tpu_torch yet; see ROADMAP.md")
     v = (pre, X, M, 128)
     dev = fxr.device
+    if X < MIN_KERNEL_X and j >= 3:
+        raise NotImplementedError(
+            f"the adjoint of a lone dense block on the {X}-wide top group "
+            f"(n={n}) needs block_backward_high at X = {X * 128} on the "
+            "merged axis, not ported to dqc_tpu_torch yet (the hpair sweep "
+            "runs it factorized); see ROADMAP.md")
+    if X < MIN_KERNEL_X:
+        # tiny group 2: the small-X form; T0[x, y] = sum_b bwd[x] fwd_in[y]
+        fr, fi = apply_high(fxr, fxi, Einv, j, n, kernels=kernels)
+        vfr, vfi, vbr, vbi = fr.view(v), fi.view(v), bxr.view(v), bxi.view(v)
+        T0 = torch.stack([torch.stack([
+            torch.complex(torch.sum(vbr[:, x] * vfr[:, y])
+                          - torch.sum(vbi[:, x] * vfi[:, y]),
+                          torch.sum(vbr[:, x] * vfi[:, y])
+                          + torch.sum(vbi[:, x] * vfr[:, y]))
+            for y in range(X)]) for x in range(X)])
+        br, bi = apply_high(bxr, bxi, torch.complex(*op_planes(E, dev)).T, j,
+                            n, kernels=kernels)
+        return fr, fi, br, bi, T0
     fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
         fxr.view(v), fxi.view(v), bxr.view(v), bxi.view(v),
         *op_planes(Einv, dev), *op_planes(E, dev))
@@ -287,8 +433,50 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
 
 
 # ---------------------------------------------------------------------------
+# Lone diagonal runs (ops/kernels/diag)
+# ---------------------------------------------------------------------------
+
+def apply_diag_run(xr, xi, tables, *, kernels: KernelSet = KERNELS) -> Planes:
+    """One in-place pass applying a factored total diagonal ``tables =
+    (tsl, tas, tal)`` (complex: (128, 128), (A, 128), (A, 128))."""
+    return kernels.diag_sweep(xr, xi, *_diag_table_planes(tables, xr.device))
+
+
+def backward_diag_run(fxr, fxi, bxr, bxi, inv_tables, tables, *, with_q: bool,
+                      kernels: KernelSet = KERNELS):
+    """One in-place pass rolling (fwd, bwd) back through a diagonal run:
+    ``fwd *= D_inv``, ``bwd *= D``. Returns ``(fxr, fxi, bxr, bxi, None)``;
+    the Q reductions of a run with variable gates (``with_q``) are not
+    ported and raise."""
+    if with_q:
+        raise NotImplementedError(
+            "the Q reductions of a variable diagonal run (diag_backward_planes "
+            "with_q=True) are not ported to dqc_tpu_torch yet; see ROADMAP.md "
+            "slice item 5")
+    dev = fxr.device
+    out = kernels.diag_backward(fxr, fxi, bxr, bxi,
+                                *_diag_table_planes(inv_tables, dev),
+                                *_diag_table_planes(tables, dev))
+    return (*out, None)
+
+
+# ---------------------------------------------------------------------------
 # Group Grams (density epilogue)
 # ---------------------------------------------------------------------------
+
+def _gram_axis_xla(xr, xi, j: int, n: int) -> torch.Tensor:
+    """Three-einsum Gram of a tiny group 2 (X < 8), as the JAX package
+    computes it outside any kernel."""
+    dims = gr.group_dims(n)
+    ax = len(dims) - 1 - j
+    sub = "abcdefgh"[: len(dims)]
+    spec = f"{sub[:ax]}Z{sub[ax + 1:]},{sub}->Z{sub[ax]}"
+    vr, vi = xr.reshape(dims), xi.reshape(dims)
+    A = torch.einsum(spec, vr, vr)
+    B = torch.einsum(spec, vi, vi)
+    C = torch.einsum(spec, vr, vi)
+    return torch.complex(A + B, C.T - C)
+
 
 def gram_axis(xr, xi, j: int, n: int, *,
               kernels: KernelSet = KERNELS) -> torch.Tensor:
@@ -302,10 +490,11 @@ def gram_axis(xr, xi, j: int, n: int, *,
         shape = (A, 128, 128)
     else:
         pre, X, M = _high_view(n, j)
-        if X < MIN_KERNEL_X and j >= 3:
-            raise NotImplementedError(
-                f"Gram of the {X}-wide top group (n={n}): the merged-top-axis "
-                "Gram (planes.gram_merged_top) is not ported yet; see ROADMAP.md")
+        if X < MIN_KERNEL_X and j < 3:
+            return _gram_axis_xla(xr, xi, j, n)
+        if X < MIN_KERNEL_X:
+            # tiny top group: merged-axis kernel Gram, partial-traced back
+            return gram_merged_top(xr, xi, n, kernels=kernels)[1]
         shape = (pre, X, M * 128)
     S, C = kernels.gram(xr.view(shape), xi.view(shape))
     return torch.complex(S, C.T - C)

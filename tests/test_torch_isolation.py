@@ -3,10 +3,12 @@
 * importing every module of dqc_tpu_torch (and chip_smoke.py) in a fresh
   process loads neither JAX nor the JAX package, and no file of either
   says ``import jax`` or names a ``dqc_tpu.`` module;
-* entry points default to the CUDA card and raise without one; sizes and
-  modes this slice does not run raise ``NotImplementedError`` naming what
-  is missing, before any state is allocated; params that require a
-  gradient get one, and a second backward through the same graph raises;
+* entry points default to the CUDA card and raise without one; every n
+  from 14 to 30 passes the support check of the cz ring, and the new sizes
+  run; modes and paths the port does not run yet raise
+  ``NotImplementedError`` naming what is missing, before any state is
+  allocated; params that require a gradient get one, and a second backward
+  through the same graph raises;
 * the kernel build names nvcc and fails loudly without it.
 """
 
@@ -20,6 +22,10 @@ import pytest
 import torch
 
 from dqc_tpu_torch import HardwareEfficientAnsatz, config
+from dqc_tpu_torch.circuit import plane_scan
+from dqc_tpu_torch.circuit.builder import AutoGradCircuit
+from dqc_tpu_torch.circuit.fusion import fuse_tape
+from dqc_tpu_torch.ops import kernels as tk
 from dqc_tpu_torch.ops import planes
 from dqc_tpu_torch.ops.kernels import _build
 
@@ -66,22 +72,78 @@ def test_default_device_is_cuda():
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("n, kernel", [
-    (15, "_apply_high_smallx"),
-    (22, "merged_fact_apply_planes"),
-    (29, "merged_fact_apply_planes"),
-    (30, "gram_merged_top"),
-])
-def test_unsupported_sizes_name_the_kernel(n, kernel):
-    m = HardwareEfficientAnsatz(n, 2, entangler="cz", device="cpu")
+def _cnot_ring(n):
+    m = HardwareEfficientAnsatz(n, 2, entangler="cnot", device="cpu")
+    m.densities(torch.zeros(2, n, 3))
+
+
+def _unfactorized_hpair(n):
+    config.set_hpair_factorized(False)
+
+
+def _aliased_merged_apply(n):
+    """An in-place apply on the merged top axis (X = 256 at n = 29): the
+    kernel takes X = 256 / 512 only in the seed modes."""
+    _, X, Xl, _ = planes._merged_view(n, 4)
+    x = torch.zeros((1, X * Xl, 8, 128))
+    e = torch.zeros((X * Xl, X * Xl))
+    tk.high_apply(x, x, e, e)
+
+
+def _cross_group_density(n):
+    m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
+    epi = AutoGradCircuit(n)
+    epi.get_q2_dens_op_with_grad(n - 1, 0)
+    plane_scan.check_forward_supported(m._layer_ftape, fuse_tape(epi.tape))
+
+
+@pytest.mark.parametrize("n, run, kernel", [
+    (15, _cnot_ring, "dual_multi_apply_planes"),
+    (22, _unfactorized_hpair, "block_backward_high at X = 256 / 512"),
+    (29, _aliased_merged_apply, "seed modes"),
+    (30, _cross_group_density, "_cross_density"),
+], ids=lambda v: getattr(v, "__name__", str(v)))
+def test_unsupported_sizes_name_the_kernel(n, run, kernel):
+    """What the port still lacks at the sizes it now runs raises
+    NotImplementedError naming the missing kernel, before any state."""
     with pytest.raises(NotImplementedError, match=kernel):
-        m.densities(torch.zeros(2, n, 3))
+        run(n)
 
 
 def test_unsupported_n15_names_the_diag_kernel():
-    m = HardwareEfficientAnsatz(15, 2, entangler="cz", device="cpu")
-    with pytest.raises(NotImplementedError, match="diag_sweep_planes"):
-        m.magnetization(torch.zeros(2, 15, 3))
+    """A diagonal run with variable gates needs the Q reductions of the
+    diag backward kernel, which are not ported."""
+    x = torch.zeros(planes.plane_shape(15))
+    t = (torch.ones((128, 128), dtype=torch.complex64),
+         torch.ones((2, 128), dtype=torch.complex64),
+         torch.ones((2, 128), dtype=torch.complex64))
+    with pytest.raises(NotImplementedError, match="diag_backward_planes"):
+        planes.backward_diag_run(x, x, x, x, t, t, with_q=True)
+    with pytest.raises(NotImplementedError, match="diag_backward_planes"):
+        tk.diag_backward(x, x, x, x, *[x[0]] * 12, with_q=True)
+
+
+@pytest.mark.parametrize("n", range(14, 31))
+def test_every_size_passes_the_support_check(n):
+    """The cz ring's layer program and density epilogue run at every n the
+    plane layout holds: no plan item or density is refused."""
+    m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
+    plane_scan.check_forward_supported(m._layer_ftape, m._epi_ftape)
+    kinds = {item[0] for item in plane_scan.plane_program(m._layer_ftape)}
+    assert kinds <= {"dense", "ddual", "dhigh", "diag", "hpair"}, kinds
+
+
+@pytest.mark.parametrize("n", [15, 16, 22, 23])
+def test_new_sizes_run_at_zero_params(n):
+    """params = 0: the identity circuit, magnetization n and a zero
+    gradient, through the small-X group 2 (n = 15, 16) or the merged top
+    axis (n = 22, 23), with the scan rotation both ways (L = 2)."""
+    m = HardwareEfficientAnsatz(n, 2, entangler="cz", device="cpu")
+    p = torch.zeros(2, n, 3, requires_grad=True)
+    loss = m.magnetization(p)
+    loss.backward()
+    assert loss.item() == n
+    assert p.grad.abs().max().item() < 1e-6
 
 
 def test_cnot_ring_names_the_cross_kernels():

@@ -205,6 +205,15 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.block_backward_high(*[x.view(1, 8, 16, 128)] * 4,
                                *[e[:8, :8].contiguous()] * 4)
-    assert tk.launch_counts() == {"dual_apply": 0, "high_apply": 0, "gram": 0,
-                                  "block_backward_dual": 0,
-                                  "block_backward_high": 0}
+    m = torch.empty((1, 256, 8, 128), device="meta")
+    t = torch.empty((2, 2), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.merged_fact_apply(m, m, e, e, t, t, x_top=2)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.block_backward_merged_fact(m, m, m, m, e, e, e, e, t, t, t, t, x_top=2)
+    tabs = (e, e, x[0], x[0], x[0], x[0])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.diag_sweep(x, x, *tabs)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.diag_backward(x, x, x, x, *tabs, *tabs)
+    assert tk.launch_counts() == {name: 0 for name in tk.KernelSet._fields}

@@ -136,7 +136,7 @@ def test_params_round_trip():
 @pytest.mark.parametrize("n", [15, 17])
 def test_plane_state_fed_to_both_packages(n):
     """One plane state through both packages' apply_dual (with a fused run
-    after the dense step) and apply_high (group 2, X >= 8 only)."""
+    after the dense step) and apply_high on group 2."""
     rng = np.random.default_rng(200 + n)
     psi = (rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n))
     psi = (psi / np.linalg.norm(psi)).astype(np.complex64)
@@ -157,20 +157,17 @@ def test_plane_state_fed_to_both_packages(n):
     np.testing.assert_allclose(got[0], np.asarray(wr), rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(got[1], np.asarray(wi), rtol=2e-5, atol=2e-6)
 
-    if jpl._high_view(n, 2)[1] >= tpl.MIN_KERNEL_X:
-        X = jpl._high_view(n, 2)[1]
-        E = np.linalg.qr(rng.standard_normal((X, X))
-                         + 1j * rng.standard_normal((X, X)))[0].astype(np.complex64)
-        wr, wi = jpl.apply_high(jnp.asarray(xr), jnp.asarray(xi), E, 2, n,
-                                interpret=True)
-        tr_, ti_ = convert.planes_from_jax(xr, xi, device="cpu")
-        got = convert.planes_to_numpy(*tpl.apply_high(tr_, ti_, E, 2, n))
-        np.testing.assert_allclose(got[0], np.asarray(wr), rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(got[1], np.asarray(wi), rtol=2e-5, atol=2e-6)
-    else:
-        with pytest.raises(NotImplementedError, match="_apply_high_smallx"):
-            tpl.apply_high(*convert.planes_from_jax(xr, xi, device="cpu"),
-                           np.eye(2, dtype=np.complex64), 2, n)
+    # group 2: the high kernel at n = 17 (X = 8), the elementwise small-X
+    # apply at n = 15 (X = 2)
+    X = jpl._high_view(n, 2)[1]
+    E = np.linalg.qr(rng.standard_normal((X, X))
+                     + 1j * rng.standard_normal((X, X)))[0].astype(np.complex64)
+    wr, wi = jpl.apply_high(jnp.asarray(xr), jnp.asarray(xi), E, 2, n,
+                            interpret=True)
+    tr_, ti_ = convert.planes_from_jax(xr, xi, device="cpu")
+    got = convert.planes_to_numpy(*tpl.apply_high(tr_, ti_, E, 2, n))
+    np.testing.assert_allclose(got[0], np.asarray(wr), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(got[1], np.asarray(wi), rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("n", [14, 24, 28])
