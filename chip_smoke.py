@@ -35,7 +35,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the 29q and 30q x 1L closed forms (the lone diagonal run in the layer);
    30q x 3L at params = 0 (the scan rotation at Xt = 4); 29q x 4L gradients
    through the kernels against the plain-version path on the card;
-7. a JSON line of the kernels, the card's nvidia-smi name and power limit,
+7. the CNOT ring, the JAX class's default entangler: the kernel checks of
+   its cross-gate kernels (dual_multi_apply and high_multi_apply on the
+   ring's own CNOT operators and on a random 2-qubit unitary's,
+   block_backward_sublane, and the high apply and its adjoint on the X = 8
+   span views) at 28q and 29q shapes in phase 3; then the forward and the
+   value_and_grad of HardwareEfficientAnsatz(29, 20, "cnot") (depth cut
+   from 100 for time: every layer runs the same program), counters set to
+   0 just before and read just after and held to the program's counts,
+   with warm step times, peak memory and the kernel time per step; the 29q
+   and 30q x 1L closed forms of the ring; 30q x 2L at params = 0; 28q and
+   29q x 4L gradients through the kernels against the plain-version path;
+8. a JSON line of the kernels, the card's nvidia-smi name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when torch.cuda.is_available() is false
@@ -50,6 +61,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -59,6 +71,8 @@ CHECK_LAYERS = 20
 SEED = 1234
 N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_grad
 N30 = 30
+CNOT_LAYERS = 20    # the CNOT ring at 29q: depth cut from 100 for time
+CNOT = ((1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 0, 1), (0, 0, 1, 0))
 
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores and HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
@@ -72,6 +86,9 @@ ZERO_TOL = 1e-5     # params = 0: magnetization vs 28
 GRAM_T0_TOL = 1e-5  # pair grams: abs err over the largest |T0| (2^21-term sums)
 GRAD_LAYERS = 4
 CLOSED_TOL = 1e-5   # 28q x 1L gradient vs (-sin alpha, 0, 0), and the value
+CNOT_CLOSED_TOL = 3e-5  # the CNOT ring's 1L closed form, per parameter:
+                        # products of up to n cosines through 2n f32 sweeps
+ZERO_GRAD_TOL = 1e-6    # beta, gamma of the CNOT ring's closed form
 GRAD_TOL = 1e-4     # abs per parameter, kernel path vs plain path, 28q and
                     # 29q x 4L: O(1) gradients from pair grams summed in
                     # another order
@@ -107,6 +124,7 @@ def bound_ms(bytes_moved: float, flops: float):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -124,6 +142,13 @@ def main() -> int:
         block_backward_high, block_backward_high_plain)
     from dqc_tpu_torch.ops.kernels.block_backward_merged_fact import (
         block_backward_merged_fact, block_backward_merged_fact_plain)
+    from dqc_tpu_torch.ops.kernels.block_backward_sublane import (
+        block_backward_sublane, block_backward_sublane_plain)
+    from dqc_tpu_torch.ops.kernels.dual_multi_apply import (
+        dual_multi_apply, dual_multi_apply_plain)
+    from dqc_tpu_torch.ops.kernels.high_multi_apply import (
+        high_multi_apply, high_multi_apply_plain)
+    from dqc_tpu_torch.circuit import plane_scan as ps
     from dqc_tpu_torch.ops.kernels.diag import (
         diag_backward, diag_backward_plain, diag_sweep, diag_sweep_plain)
     from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
@@ -206,7 +231,8 @@ def main() -> int:
     rows = []  # one per (kernel, variant)
 
     def check(kernel, variant, shape, fn_kernel, fn_plain, args, tol,
-              flops, bytes_moved, library=None, normalize=False):
+              flops, bytes_moved, library=None, normalize=False,
+              dense_flops=None):
         xr, xi = randn(*shape), randn(*shape)
         if normalize:
             scale = (xr.double().pow(2).sum() + xi.double().pow(2).sum()).rsqrt()
@@ -226,6 +252,9 @@ def main() -> int:
         row = dict(kernel=kernel, variant=variant, shape=list(shape),
                    max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if dense_flops is not None:
+            # what the kernel computes: dense products, whatever the zeros
+            row["dense_bound_ms"] = bound_ms(bytes_moved, dense_flops)[0]
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
         del xr, xi, work_r, work_i
@@ -233,7 +262,7 @@ def main() -> int:
 
     def check_many(kernel, variant, shape, n_in, n_planes_out, fn_kernel,
                    fn_plain, tol, flops, bytes_moved, library=None,
-                   intact=0):
+                   intact=0, dense_flops=None):
         """A kernel of ``n_in`` input planes whose outputs are
         ``n_planes_out`` planes (held to ``tol`` abs) and then pair grams
         (held to GRAM_T0_TOL times their largest entry). ``intact``: how many
@@ -265,6 +294,8 @@ def main() -> int:
                    gram_rel_err=gram_err / gram_max, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
+        if dense_flops is not None:
+            row["dense_bound_ms"] = bound_ms(bytes_moved, dense_flops)[0]
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
         del ins, work
@@ -335,14 +366,33 @@ def main() -> int:
         return lambda xr, xi, ar, ai: apply(xr, xi, *ops, conj=True,
                                             acc=(ar, ai), alias=False)
 
+    # the seeds' yardsticks: the product, its conjugate and the add
+    def seed_library(E):
+        def make(xr, xi, ar, ai):
+            A1, X, M, _ = xr.shape
+            x = torch.complex(xr, xi).view(A1, X, M * 128)
+            acc = torch.complex(ar, ai).view(A1, X, M * 128)
+            ec = torch.complex(*E)
+            return lambda: acc + torch.matmul(ec, x).conj()
+        return make
+
+    def dual_seed_library(El, Em):
+        def make(xr, xi, ar, ai):
+            x, acc = torch.complex(xr, xi), torch.complex(ar, ai)
+            elc, emc = torch.complex(*El), torch.complex(*Em)
+            return lambda: acc + torch.einsum("sk,akm,lm->asl", emc, x, elc).conj()
+        return make
+
     check_many("dual_apply", "seed", (A, 128, 128), 4, 2,
                seed(dual_apply, *el, *em), seed(dual_apply_plain, *el, *em),
                DUAL_TOL, flops=amps * 2 * 128 * 8,
-               bytes_moved=3 * state_bytes, intact=2)
+               bytes_moved=3 * state_bytes, intact=2,
+               library=dual_seed_library(el, em))
     E = unitary(128)
     check_many("high_apply", "X128_seed", (g2[0], 128, g2[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
-               flops=amps * 128 * 8, bytes_moved=3 * state_bytes, intact=2)
+               flops=amps * 128 * 8, bytes_moved=3 * state_bytes, intact=2,
+               library=seed_library(E))
 
     # block_backward_dual: (F, B) planes (A, 128, 128) rolled back through a
     # lane + sublane pair, two pair grams; 768 complex MACs per amplitude
@@ -438,10 +488,12 @@ def main() -> int:
     check_many("dual_apply", "29q_seed", (A29, 128, 128), 4, 2,
                seed(dual_apply, *el29, *em29), seed(dual_apply_plain, *el29, *em29),
                DUAL_TOL, flops=amps29 * 2 * 128 * 8,
-               bytes_moved=3 * state29, intact=2)
+               bytes_moved=3 * state29, intact=2,
+               library=dual_seed_library(el29, em29))
     check_many("high_apply", "29q_X128_seed", (g2_29[0], 128, g2_29[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
-               flops=amps29 * 128 * 8, bytes_moved=3 * state29, intact=2)
+               flops=amps29 * 128 * 8, bytes_moved=3 * state29, intact=2,
+               library=seed_library(E))
     kw = dict(g0_first=True, diag_first_fwd=True, diag_inv_tables=tables(A29),
               diag_tables=tables(A29))
     check_many("block_backward_dual", "29q_g0_first_diag_first", (A29, 128, 128),
@@ -485,15 +537,6 @@ def main() -> int:
                 bout = torch.einsum("ba,ibdq->iadq", tc, torch.matmul(lc.T, B))
                 return fin, bout, t_top, t_low
             return run
-        return make
-
-    def seed_library(E):
-        def make(xr, xi, ar, ai):
-            A1, X, M, _ = xr.shape
-            x = torch.complex(xr, xi).view(A1, X, M * 128)
-            acc = torch.complex(ar, ai).view(A1, X, M * 128)
-            ec = torch.complex(*E)
-            return lambda: acc + torch.matmul(ec, x).conj()
         return make
 
     for x_top, shape in merged_shapes:
@@ -545,6 +588,123 @@ def main() -> int:
                flops=amps29 * 36, bytes_moved=4 * state29 + 2 * table_bytes(A29),
                library=diag_library(tab_inv, tab))
     del tab, tab_inv
+
+    # 3c. the CNOT ring's kernels ---------------------------------------------
+    # on the operators the port stages for the ring's gates: the Schmidt terms
+    # of the (6, 7) CNOT (T = 2) and of a random 2-qubit unitary (T = 4) for
+    # dual_multi_apply, the span terms of the closing (0, n - 1) CNOT for
+    # high_multi_apply, the X = 8 span operators of the high-boundary CNOTs
+    # for the high apply and its adjoint. Their factors are sparse (a 2 x 2
+    # factor expanded over a group, a projector on one lane bit), so the
+    # bound counts the nonzeros this run's operators have; the kernels do
+    # dense products (dense_bound_ms).
+    cnot = np.array(CNOT, np.complex64)
+    rng = np.random.default_rng(SEED)
+    q, _ = np.linalg.qr(rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4)))
+    rand_gate = q.astype(np.complex64)
+
+    def macs(op_r, op_i) -> float:
+        """Complex multiply-adds per amplitude of applying an operator (or
+        a stack of them, summed) along its axis: its nonzeros per row."""
+        return ((op_r != 0) | (op_i != 0)).sum().item() / op_r.shape[-2]
+
+    def dual_multi_library(ops):
+        def make(xr, xi):
+            x = torch.complex(xr, xi)
+            elc, emc = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
+            return lambda: torch.einsum("tsk,akm,tlm->asl", emc, x, elc)
+        return make
+
+    def high_multi_library(ops):
+        def make(xr, xi):
+            x = torch.complex(xr, xi)
+            ehc, elc = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
+            return lambda: torch.einsum("txy,iymk,tlk->ixml", ehc, x, elc)
+        return make
+
+    def sublane_library(E, Einv):
+        def make(fr, fi, br, bi):
+            F, B = torch.complex(fr, fi), torch.complex(br, bi)
+            Ec, Eic = torch.complex(*E), torch.complex(*Einv)
+
+            def run():  # three cuBLAS-backed complex calls
+                F1 = torch.matmul(Eic, F)
+                return F1, torch.einsum("axc,ayc->xy", B, F1), torch.matmul(Ec.T, B)
+            return run
+        return make
+
+    for nq in (N_QUBITS, N29):
+        a_n, amps_n = 1 << (nq - 14), float(1 << nq)
+        st = 2 * amps_n * 4
+        for tag, gate in (("T2_cnot", cnot), ("T4_unitary", rand_gate)):
+            kind, *ops = pl.cross_terms_operands(
+                ps._dense_cross_expanded_terms(gate, (6, 7), nq), nq, dev)
+            T = ops[0].shape[0]
+            require(kind == "dual" and T == int(tag[1]), f"dual_multi terms {kind} {T}")
+            check("dual_multi_apply", f"{nq}q_{tag}", (a_n, 128, 128),
+                  dual_multi_apply, dual_multi_apply_plain, ops, DUAL_TOL,
+                  flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
+                  bytes_moved=2 * st, library=dual_multi_library(ops),
+                  dense_flops=amps_n * 2 * 128 * T * 8)
+        kind, vshape, *ops = pl.cross_span_operands(cnot, (0, nq - 1), nq, dev)
+        require(kind == "multi" and vshape == (1, 8, 1 << (nq - 10), 128),
+                f"closing CNOT span view {kind} {vshape}")
+        T = ops[0].shape[0]
+        check("high_multi_apply", f"{nq}q_T{T}_cnot", vshape, high_multi_apply,
+              high_multi_apply_plain, ops, HIGH_TOL,
+              flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
+              bytes_moved=2 * st, library=high_multi_library(ops),
+              dense_flops=amps_n * (128 + 8) * T * 8)
+        E, Einv = unitary(128), unitary(128)
+        check_many("block_backward_sublane", f"{nq}q", (a_n, 128, 128), 4, 4,
+                   lambda *p, E=E, Einv=Einv: block_backward_sublane(*p, *Einv, *E),
+                   lambda *p, E=E, Einv=Einv: block_backward_sublane_plain(
+                       *p, *Einv, *E), DUAL_TOL,
+                   flops=amps_n * 384 * 8, bytes_moved=4 * st,
+                   library=sublane_library(E, Einv))
+
+    # the 29q path's high boundaries (13, 14), (20, 21), (27, 28): the high
+    # apply and its adjoint on X = 8 span views
+    cnot_inv = cnot.conj().T.copy()
+    for pos in ((13, 14), (20, 21), (27, 28)):
+        kind, vshape, er, ei = pl.cross_span_operands(cnot, pos, N29, dev)
+        require(kind == "high" and vshape[1] == 8, f"span view {kind} {vshape}")
+        check("high_apply", f"29q_X8_span{pos[0]}", vshape, high_apply,
+              high_apply_plain, (er, ei, None, True), HIGH_TOL,
+              flops=amps29 * macs(er, ei) * 8, bytes_moved=2 * state29,
+              library=high_library((er, ei)), dense_flops=amps29 * 8 * 8)
+        _, _, _, *bops = pl.backward_span_operands(cnot, cnot_inv, pos, N29, dev)
+        check_many("block_backward_high", f"29q_X8_span{pos[0]}", vshape, 4, 4,
+                   lambda *p, b=bops: block_backward_high(*p, *b),
+                   lambda *p, b=bops: block_backward_high_plain(*p, *b), HIGH_TOL,
+                   flops=amps29 * (macs(*bops[:2]) + macs(*bops[2:]) + 8) * 8,
+                   bytes_moved=4 * state29,
+                   library=high_bwd_library(bops[2:], bops[:2]),
+                   dense_flops=amps29 * 3 * 8 * 8)
+
+    # the 29q cnot path's other sweeps: the dual pair without a run, group 3's
+    # X = 128 sweep (view (2, 128, 16384, 128)) and their adjoints
+    el29b, em29b = unitary(128), unitary(128)
+    check("dual_apply", "29q_plain", (A29, 128, 128), dual_apply,
+          dual_apply_plain, (*el29b, *em29b, None, True), DUAL_TOL,
+          flops=amps29 * 2 * 128 * 8, bytes_moved=2 * state29,
+          library=lambda xr, xi: dual_multi_library(
+              [o[None] for o in (*el29b, *em29b)])(xr, xi))
+    g3_29 = pl._high_view(N29, 3)
+    E, Einv = unitary(128), unitary(128)
+    check("high_apply", "29q_X128_g3", (g3_29[0], 128, g3_29[2], 128), high_apply,
+          high_apply_plain, (*E, None, True), HIGH_TOL, flops=amps29 * 128 * 8,
+          bytes_moved=2 * state29, library=high_library(E))
+    check_many("block_backward_high", "29q_X128_g3", (g3_29[0], 128, g3_29[2], 128),
+               4, 4, lambda *p: block_backward_high(*p, *Einv, *E),
+               lambda *p: block_backward_high_plain(*p, *Einv, *E), HIGH_TOL,
+               flops=amps29 * 3 * 128 * 8, bytes_moved=4 * state29,
+               library=high_bwd_library(E, Einv))
+    check_many("block_backward_dual", "29q_g0_first", (A29, 128, 128), 4, 4,
+               dual_bwd(block_backward_dual, g0_first=True),
+               dual_bwd(block_backward_dual_plain, g0_first=True), DUAL_TOL,
+               flops=amps29 * 768 * 8, bytes_moved=4 * state29,
+               library=dual_bwd_library)
 
     # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
@@ -684,10 +844,10 @@ def main() -> int:
                 f"the {n}-qubit 1-layer closed-form gradient failed")
         return closed_err
 
-    def kernels_vs_plain(n: int, tag: str) -> float:
+    def kernels_vs_plain(n: int, tag: str, entangler: str = "cz") -> float:
         """n x GRAD_LAYERS gradients through the kernels and through the
         plain versions, on the card."""
-        four = HardwareEfficientAnsatz(n, GRAD_LAYERS, entangler="cz")
+        four = HardwareEfficientAnsatz(n, GRAD_LAYERS, entangler=entangler)
         p4 = (7.0 * four.init_params(torch.Generator().manual_seed(SEED + 2))
               ).requires_grad_(True)
         four.magnetization(p4).backward()
@@ -695,8 +855,8 @@ def main() -> int:
         p4.grad = None
         four.magnetization(p4, kernels=K.PLAIN).backward()
         grad_err = (g_k - p4.grad).abs().max().item()
-        log(f"[{tag}] {n}q x {GRAD_LAYERS}L gradient, kernels vs plain path: max "
-            f"abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
+        log(f"[{tag}] {n}q x {GRAD_LAYERS}L {entangler} gradient, kernels vs plain "
+            f"path: max abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
             f"{g_k.abs().max().item():.3e}")
         require(grad_err <= GRAD_TOL,
                 f"{n}-qubit kernel-path gradient disagrees with the plain path")
@@ -763,15 +923,15 @@ def main() -> int:
     counts29 = K.launch_counts()
     log(f"[grad29] {N29}q x {LAYERS}L value_and_grad through the kernels: "
         f"{vg29_first_s:.3f} s (first call); launches {json.dumps(counts29)}")
-    for name, c in counts29.items():
-        require(c > 0, f"kernel {name} was not launched on the 29q gradient path")
     # per step: the forward's launches, the seeds (two dual for groups 0 and
     # 1, one high for group 2, one merged-axis high apply at X = 256 for
-    # groups 3 and 4), the run's adjoint and one backward sweep per sweep
-    want29 = {"dual_apply": LAYERS + 2, "high_apply": LAYERS + 2, "gram": 4,
-              "block_backward_dual": LAYERS, "block_backward_high": LAYERS,
-              "merged_fact_apply": LAYERS, "block_backward_merged_fact": LAYERS,
-              "diag_sweep": 1, "diag_backward": 1}
+    # groups 3 and 4), the run's adjoint and one backward sweep per sweep;
+    # the CNOT ring's kernels not at all
+    want29 = dict.fromkeys(counts29, 0)
+    want29.update({"dual_apply": LAYERS + 2, "high_apply": LAYERS + 2, "gram": 4,
+                   "block_backward_dual": LAYERS, "block_backward_high": LAYERS,
+                   "merged_fact_apply": LAYERS, "block_backward_merged_fact": LAYERS,
+                   "diag_sweep": 1, "diag_backward": 1})
     require(counts29 == want29, f"29q launch counts {counts29}, want {want29}")
     grad29 = p29.grad.detach().clone()
     require(bool(torch.isfinite(grad29).all()) and grad29.abs().max().item() > 0,
@@ -825,9 +985,191 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels_vs_plain(N29, "grad29")
 
-    # 7. result lines ---------------------------------------------------------
+    # 7. the CNOT ring: 29 qubits x 20 layers ---------------------------------
+    mc = HardwareEfficientAnsatz(N29, CNOT_LAYERS, entangler="cnot")
+    pc = mc.init_params(torch.Generator().manual_seed(SEED))
+
+    def cnot_program(model, n: int):
+        """Per-layer (kernel, variant) launches of the ring's layer program,
+        forward and backward, from its plan items and the port's dispatch
+        (variants name the kernel rows above)."""
+        ftape = model._layer_ftape
+        fwd, bwd = [], []
+        for item in ps.plane_program(ftape):
+            fi = ftape.instructions[item[1]]
+            if item[0] == "dense" and (item[2] is not None or fi.group < 2):
+                fwd.append(("dual_apply", f"{n}q_plain"))
+                require(item[2] is not None or fi.group == 1, f"item {item}")
+                bwd.append(("block_backward_dual", f"{n}q_g0_first")
+                           if item[2] is not None
+                           else ("block_backward_sublane", f"{n}q"))
+            elif item[0] == "dense":
+                pre, X, M = pl._high_view(n, fi.group)
+                require(X == 128, f"item {item} at X = {X}")
+                v = f"{n}q_X128_plain" if fi.group == 2 else f"{n}q_X128_g{fi.group}"
+                fwd.append(("high_apply", v))
+                bwd.append(("block_backward_high", v))
+            elif item[0] == "hpair":
+                fwd.append(("merged_fact_apply", "Xt2"))
+                bwd.append(("block_backward_merged_fact", "Xt2"))
+            else:
+                require(item[0] == "dcross", f"item {item}")
+                kind, ops = ps._cross_plan(cnot, fi.positions, n, dev)
+                sub = ops[0]
+                if kind == "span" and sub == "high":
+                    v = ("high_apply", f"{n}q_X8_span{min(fi.positions)}")
+                elif kind == "span" and sub == "multi":
+                    v = ("high_multi_apply", f"{n}q_T2_cnot")
+                else:
+                    require(kind == "terms" and sub == "dual", f"plan {kind} {sub}")
+                    v = ("dual_multi_apply", f"{n}q_T2_cnot")
+                fwd.append(v)
+                if pl.backward_span_eligible(fi.positions, n):
+                    bwd.append(("block_backward_high", v[1]))
+                else:  # uncompute with G^-1, transport with G^T
+                    bwd += [v, v]
+        return fwd, bwd
+
+    fwd_items, bwd_items = cnot_program(mc, N29)
+    # the epilogue: a Gram each for groups 0, 1, 2 and one merged-axis Gram
+    # for groups 3 and 4; the seeds: two dual, one high (group 2), one
+    # merged-axis high apply at X = 256
+    grams = [("gram", v) for v in ("29q_lane", "29q_sublane", "29q_high_g2",
+                                   "merged_X256")]
+    seeds = [("dual_apply", "29q_seed")] * 2 + [("high_apply", "29q_X128_seed"),
+                                               ("high_apply", "X256_seed")]
+    fwd_step = CNOT_LAYERS * fwd_items + grams
+    vg_step = CNOT_LAYERS * (fwd_items + bwd_items) + grams + seeds
+    names = list(K.launch_counts())
+    want_fwd = dict.fromkeys(names, 0)
+    want_fwd.update(Counter(k for k, _ in fwd_step))
+    want_vg = dict.fromkeys(names, 0)
+    want_vg.update(Counter(k for k, _ in vg_step))
+    log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
+        f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    densc = mc.densities(pc)
+    torch.cuda.synchronize()
+    firstc_s = time.perf_counter() - t0
+    fwdc = K.launch_counts()
+    log(f"[cnot29] {N29}q x {CNOT_LAYERS}L cnot forward through the kernels: "
+        f"{firstc_s:.3f} s (first call); launches {json.dumps(fwdc)}")
+    require(fwdc == want_fwd, f"cnot29 forward launch counts {fwdc}, want {want_fwd}")
+    D = torch.stack(densc)
+    require(tuple(D.shape) == (N29, 2, 2), f"densities of shape {tuple(D.shape)}")
+    require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
+    herm = (D - D.conj().transpose(1, 2)).abs().max().item()
+    trace = (torch.diagonal(D, dim1=1, dim2=2).sum(-1) - 1).abs().max().item()
+    require(herm <= 1e-6 and trace <= 1e-4,
+            "cnot29 densities are not unit-trace Hermitian matrices")
+    del densc, D
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    magc = mc.magnetization(pc).item()
+    stepc_s = time.perf_counter() - t0
+    peakc = torch.cuda.max_memory_allocated()
+    fwdc_ms = sum(per_launch[kv] for kv in fwd_step)
+    log(f"[cnot29] magnetization {magc:.6f}; max |rho - rho^H| {herm:.2e}; "
+        f"max |tr rho - 1| {trace:.2e}; step (warm) {stepc_s:.4f} s = "
+        f"{stepc_s / CNOT_LAYERS * 1e3:.2f} ms/layer; peak memory "
+        f"{peakc / 2**30:.3f} GiB; kernel time per step (launches x per-launch "
+        f"ms above) {fwdc_ms:.1f} ms = {100 * fwdc_ms / (stepc_s * 1e3):.1f}% of the step")
+
+    pc.requires_grad_(True)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lossc = mc.magnetization(pc)
+    lossc.backward()
+    torch.cuda.synchronize()
+    vgc_first_s = time.perf_counter() - t0
+    countsc = K.launch_counts()
+    log(f"[cnot29] {N29}q x {CNOT_LAYERS}L cnot value_and_grad through the "
+        f"kernels: {vgc_first_s:.3f} s (first call); launches {json.dumps(countsc)}")
+    require(countsc == want_vg, f"cnot29 launch counts {countsc}, want {want_vg}")
+    gradc = pc.grad.detach().clone()
+    require(bool(torch.isfinite(gradc).all()) and gradc.abs().max().item() > 0,
+            "cnot29 gradient is not finite and nonzero")
+    pc.grad = None
+    del lossc
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lossc = mc.magnetization(pc)
+    lossc.backward()
+    torch.cuda.synchronize()
+    vgc_s = time.perf_counter() - t0
+    vgc_peak = torch.cuda.max_memory_allocated()
+    driftc = (pc.grad - gradc).abs().max().item()
+    vgc_ms = sum(per_launch[kv] for kv in vg_step)
+    log(f"[cnot29] value {lossc.item():.6f}; |grad| max {gradc.abs().max().item():.4e}, "
+        f"rms {gradc.pow(2).mean().sqrt().item():.4e}; value_and_grad step (warm) "
+        f"{vgc_s:.4f} s = {vgc_s / CNOT_LAYERS * 1e3:.2f} ms/layer; forward-only "
+        f"step {stepc_s:.4f} s; ratio {vgc_s / stepc_s:.2f}; peak memory "
+        f"{vgc_peak / 2**30:.3f} GiB; grad vs first call max abs {driftc:.3e}")
+    require(driftc <= GRAD_TOL, "two cnot29 value_and_grad steps disagree")
+    by_kernel = Counter()
+    for k, v in vg_step:
+        by_kernel[k] += per_launch[k, v]
+    log(f"[cnot29] kernel time per step (launches x per-launch ms above): "
+        f"{vgc_ms:.1f} ms = {100 * vgc_ms / (vgc_s * 1e3):.1f}% of the step; by "
+        f"kernel {json.dumps({k: round(t, 2) for k, t in by_kernel.most_common()})}")
+    del mc, pc, gradc, lossc
+    torch.cuda.empty_cache()
+
+    def cnot_closed_form(n: int) -> None:
+        """n x 1L at params (alpha, 0, 0): the ring's CNOTs (control first)
+        give <Z_k> = prod_{j <= k} cos alpha_j for k < n - 1, and the
+        closing CNOT <Z_{n-1}> = prod_{j >= 1} cos alpha_j; the beta and
+        gamma gradients are 0."""
+        one = HardwareEfficientAnsatz(n, 1, entangler="cnot")
+        alpha = torch.linspace(-1.3, 1.4, n, dtype=torch.float64)
+        p1 = torch.zeros(1, n, 3, dtype=torch.float64)
+        p1[0, :, 0] = alpha
+        p1 = p1.float().to(dev).requires_grad_(True)
+        v1 = one.magnetization(p1)
+        v1.backward()
+        g1 = p1.grad[0].double().cpu()
+        a = alpha.float().double().requires_grad_(True)
+        z = torch.cat([torch.cumprod(torch.cos(a), 0)[:n - 1],
+                       torch.prod(torch.cos(a[1:]))[None]]).sum()
+        z.backward()
+        val_err = abs(v1.item() - z.item())
+        a_err = (g1[:, 0] - a.grad).abs().max().item()
+        bg = g1[:, 1:].abs().max().item()
+        log(f"[cnot29] {n}q x 1L cnot closed form: value err {val_err:.3e} (tol "
+            f"{CLOSED_TOL * n:.1e}), alpha gradient err {a_err:.3e} (tol "
+            f"{CNOT_CLOSED_TOL:.0e}), |beta, gamma gradient| max {bg:.3e} (tol "
+            f"{ZERO_GRAD_TOL:.0e})")
+        require(val_err <= CLOSED_TOL * n and a_err <= CNOT_CLOSED_TOL
+                and bg <= ZERO_GRAD_TOL,
+                f"the {n}-qubit 1-layer CNOT closed form failed")
+        torch.cuda.empty_cache()
+
+    cnot_closed_form(N29)
+    cnot_closed_form(N30)
+    two = HardwareEfficientAnsatz(N30, 2, entangler="cnot")
+    p2 = torch.zeros(2, N30, 3, device=dev, requires_grad=True)
+    v2 = two.magnetization(p2)
+    v2.backward()
+    g2_max = p2.grad.abs().max().item()
+    log(f"[cnot29] {N30}q x 2L cnot params = 0: magnetization {v2.item()!r} "
+        f"(want {N30}, tol {CLOSED_TOL * N30:.1e}: the CNOT's f32 Schmidt terms); "
+        f"|grad| max {g2_max:.3e} (tol {CLOSED_TOL:.0e})")
+    require(abs(v2.item() - N30) <= CLOSED_TOL * N30 and g2_max <= CLOSED_TOL,
+            "the 30q CNOT params = 0 known answer failed")
+    del two, p2, v2
+    torch.cuda.empty_cache()
+    kernels_vs_plain(N_QUBITS, "cnot29", "cnot")
+    kernels_vs_plain(N29, "cnot29", "cnot")
+
+    # 8. result lines ---------------------------------------------------------
     # each kernel's row at the 29-qubit path's shape of its most launched
-    # variant; launches from the 29q x 100L value_and_grad (and its forward)
+    # variant; launches from the 29q x 100L cz value_and_grad (and its
+    # forward), and for the CNOT ring's kernels from the 29q x 20L cnot
+    # value_and_grad (and its forward)
     sources = {
         "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
                        "dqc_tpu/ops/pallas/dual_apply.py:232", "29q_diag_first"),
@@ -850,20 +1192,34 @@ def main() -> int:
                        "dqc_tpu/ops/pallas/diag.py:75", "29q"),
         "diag_backward": ("dqc_tpu_torch/csrc/diag.cu",
                           "dqc_tpu/ops/pallas/diag.py:154", "29q"),
+        "dual_multi_apply": ("dqc_tpu_torch/csrc/dual_multi_apply.cu",
+                             "dqc_tpu/ops/pallas/dual_apply.py:165",
+                             "29q_T2_cnot"),
+        "high_multi_apply": ("dqc_tpu_torch/csrc/high_multi_apply.cu",
+                             "dqc_tpu/ops/pallas/high_apply.py:273",
+                             "29q_T2_cnot"),
+        "block_backward_sublane": ("dqc_tpu_torch/csrc/block_backward_sublane.cu",
+                                   "dqc_tpu/ops/pallas/block_backward.py:184",
+                                   "29q"),
     }
+    cnot_kernels = ("dual_multi_apply", "high_multi_apply", "block_backward_sublane")
     out = []
     for name, (src, replaces, variant) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
         rep = next(r for r in mine if r["variant"] == variant)
+        main_vg, main_fwd = ((countsc, fwdc) if name in cnot_kernels
+                             else (counts29, fwd29))
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": counts29[name],
-                    "launches_forward": fwd29[name],
+                    "replaces": replaces, "launches": main_vg[name],
+                    "launches_forward": main_fwd[name],
+                    "launches_cnot29": countsc[name],
                     "launches_28q": counts[name],
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"], "variant": variant,
-                    "shape": rep["shape"]})
+                    "shape": rep["shape"],
+                    "dense_bound_ms": rep.get("dense_bound_ms")})
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

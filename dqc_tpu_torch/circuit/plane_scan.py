@@ -22,12 +22,17 @@ is a ``torch.autograd.Function`` around both.
 The scheduler (``plane_program`` and its passes) is pure host code and is
 the same as the JAX package's, item for item. The port executes the items
 ``dense``, ``ddual``, ``dhigh``, ``diag`` (a lone diagonal run: the diag
-kernels) and ``hpair`` (a tiny top group's block merged with the one below
-it, Kronecker-factorized: merged_fact_apply / block_backward_merged_fact),
-both ways, and the scan rotation of a trailing const run both ways; the
-others (``mdiag``, ``dcross``, ``xcross``, ``dens``) raise
-``NotImplementedError`` naming the TPU kernel still to be ported, before
-any state is allocated. The layer loops are Python loops.
+kernels), ``hpair`` (a tiny top group's block merged with the one below
+it, Kronecker-factorized: merged_fact_apply / block_backward_merged_fact)
+and ``dcross`` (a dense gate across two groups, e.g. a CNOT of the ring: one
+pass of dual_multi_apply, of the high apply on a span view or of
+high_multi_apply; its adjoint one block_backward_high pass on a span view,
+or the 3-pass uncompute / transport), both ways, and the scan rotation of a
+trailing const run both ways. The others (``mdiag``, ``xcross``, ``dens``),
+the gradient of a variable ``dcross`` gate without a span view
+(``_plane_pair_grad``) and cross-group density seeds raise
+``NotImplementedError`` naming what is still to be ported, before any state
+is allocated. The layer loops are Python loops.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from dqc_tpu_torch.circuit.fused_autograd import (
     _block_ops,
     _compose,
     _gate_op,
+    _inv_dense,
     _inv_diag,
     _ref_gate,
     dense_block_var_cts,
@@ -320,11 +326,11 @@ def _split_diag_run(run) -> List[Tuple]:
 
 _MISSING = {
     "mdiag": "the >2-group diagonal multiply (planes.apply_multi_diag)",
-    "dcross": ("dual_multi_apply_planes / high_multi_apply_planes "
-               "(dqc_tpu/ops/pallas/dual_apply.py:165, high_apply.py:273)"),
-    "xcross": "the >2-group dense gate (planes.apply_cross_span)",
+    "xcross": "the >2-group dense gate (xcross: _apply_xcross)",
     "dens": "mid-circuit densities (the generic plane tape path)",
 }
+_PAIR_GRAD = ("the gradient of a variable dense cross-group gate without a "
+              "span view (_plane_pair_grad, on groups.subblocks)")
 
 
 def _unsupported(what: str, n: int) -> NotImplementedError:
@@ -349,6 +355,18 @@ def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape) -> None:
             missing.append("a cross-group density (_cross_density)")
     if missing:
         raise _unsupported("; ".join(dict.fromkeys(missing)), n)
+
+
+def check_backward_supported(ftape: FusedTape) -> None:
+    """Raise ``NotImplementedError`` when the layer program's adjoint needs
+    what the port lacks: a variable dense cross-group gate without a span
+    view (its cotangent needs ``_plane_pair_grad``)."""
+    n = ftape.n
+    for item in plane_program(ftape):
+        if item[0] == "dcross":
+            fi = ftape.instructions[item[1]]
+            if fi.var and not pl.backward_span_eligible(fi.positions, n):
+                raise _unsupported(_PAIR_GRAD, n)
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +566,141 @@ def _cross_gate(fi: FCross, var_gates, const_gates):
     )
 
 
+# ---------------------------------------------------------------------------
+# Dense cross-group (2-qubit) gates on planes
+#
+# G = sum_t EA_t (x) EB_t over its two groups: the whole term sum runs in ONE
+# kernel pass (a span view of the high bits, the multi-term dual kernel or
+# the multi-term high + lane kernel), in place; shapes without a fused
+# kernel run 2 accumulate sweeps per term.
+# ---------------------------------------------------------------------------
+
+def _schmidt_pruned(gate4):
+    """schmidt_terms with concrete zero-weight terms dropped host-side."""
+    As, Bs = gr.schmidt_terms(gate4)
+    ca, cb = gr.concrete_or_none(As), gr.concrete_or_none(Bs)
+    if ca is not None and cb is not None:
+        return [(ca[i], cb[i]) for i in range(ca.shape[0])
+                if np.abs(ca[i]).max() * np.abs(cb[i]).max() > 1e-12]
+    return [(As[i], Bs[i]) for i in range(4)]
+
+
+def _dense_cross_expanded_terms(gate_m, positions, n: int):
+    """Exact per-group operator-product decomposition of a dense k-qubit
+    gate spanning TWO groups: ``G = sum_t EA_t (on ja) * EB_t (on jb)``,
+    full-group expanded.
+
+    k = 2: operator-Schmidt (rank <= 4, SVD-pruned for constants). k >= 3:
+    slice decomposition over the side with fewer gate bits — for each
+    ``(qa, pa)`` a-side bit pattern pair, the a-side factor is the
+    elementary ``|qa><pa|`` and the b-side factor the corresponding 2^kb
+    slice of G (4^ka terms, zero slices of a constant dropped)."""
+    sizes = gr.group_sizes_low_first(n)
+    k = len(positions)
+    if k == 2:
+        p2, p1 = positions
+        j2, r2 = gr.group_of_bit(n, p2)
+        j1, r1 = gr.group_of_bit(n, p1)
+        return [(gr.expand_in_group(A, (r2,), sizes[j2]), j2,
+                 gr.expand_in_group(B, (r1,), sizes[j1]), j1)
+                for A, B in _schmidt_pruned(gate_m)]
+
+    info = [gr.group_of_bit(n, p) for p in positions]
+    group_ids = list(dict.fromkeys(g for g, _ in info))
+    assert len(group_ids) == 2, positions
+    ia = [i for i, (g, _) in enumerate(info) if g == group_ids[0]]
+    ib = [i for i, (g, _) in enumerate(info) if g == group_ids[1]]
+    if len(ia) > len(ib):
+        ia, ib = ib, ia
+    ja, jb = info[ia[0]][0], info[ib[0]][0]
+    ka, kb = len(ia), len(ib)
+    rels_a = tuple(info[i][1] for i in ia)
+    rels_b = tuple(info[i][1] for i in ib)
+    c = gr.concrete_or_none(gate_m)
+    G = (c if c is not None else gate_m).reshape((2,) * (2 * k))  # q .. p bits
+    terms = []
+    for qa in range(1 << ka):
+        for pa in range(1 << ka):
+            idx = [slice(None)] * (2 * k)
+            for t, i in enumerate(ia):
+                idx[i] = (qa >> (ka - 1 - t)) & 1
+                idx[k + i] = (pa >> (ka - 1 - t)) & 1
+            B = G[tuple(idx)].reshape(1 << kb, 1 << kb)
+            if c is not None and np.abs(B).max() < 1e-12:
+                continue
+            A = np.zeros((1 << ka, 1 << ka), np.complex64)
+            A[qa, pa] = 1.0
+            terms.append((gr.expand_in_group(A, rels_a, sizes[ja]), ja,
+                          gr.expand_in_group(B, rels_b, sizes[jb]), jb))
+    return terms
+
+
+def _cross_plan(gate_m, positions, n: int, device: torch.device):
+    """How a dense cross-group gate runs, with its operands staged on
+    ``device``: ``("span", ops)`` (planes.apply_cross_span), ``("terms",
+    ops)`` (planes.apply_cross_terms) or ``("per_term", terms)`` (the
+    operators of the 2-sweeps-per-term fallback)."""
+    ops = pl.cross_span_operands(gate_m, positions, n, device)
+    if ops is not None:
+        return "span", ops
+    terms = _dense_cross_expanded_terms(gate_m, positions, n)
+    ops = pl.cross_terms_operands(terms, n, device)
+    if ops is not None:
+        return "terms", ops
+
+    def dev(E):
+        return torch.as_tensor(E, device=device).to(C64)
+
+    return "per_term", [(dev(EA), ja, dev(EB), jb) for EA, ja, EB, jb in terms]
+
+
+def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
+                       *, conj: bool = False, acc0=None, alias: bool = False,
+                       plan=None):
+    """Dense cross-group gate = per-group term decomposition: the WHOLE term
+    sum in one fused kernel pass (in place when ``alias``), or 2 accumulate
+    sweeps per term where the pair shape has no fused kernel. ``conj`` /
+    ``acc0`` give the seed form ``acc0 + conj(G x)``. ``plan``: the gate's
+    :func:`_cross_plan`, staged once per call for a constant gate
+    (``gate_m`` is then not read)."""
+    if plan is None:
+        plan = _cross_plan(gate_m, positions, n, xr.device)
+    kind, ops = plan
+    kw = dict(alias=alias and acc0 is None, conj=conj, acc=acc0, kernels=kernels)
+    if kind == "span":
+        return pl.apply_cross_span(xr, xi, gate_m, positions, n, operands=ops, **kw)
+    if kind == "terms":
+        return pl.apply_cross_terms(xr, xi, None, n, operands=ops, **kw)
+    acc = acc0
+    for EA, ja, EB, jb in ops:
+        tr, ti = pl.apply_block(xr, xi, EB, jb, n, alias=False, kernels=kernels)
+        acc = pl.apply_block(tr, ti, EA, ja, n, acc=acc, conj=conj,
+                             kernels=kernels)
+    return acc
+
+
+def _cross_dense_gate(fi: FCross, var_gates, const_gates):
+    kk = 1 << len(fi.positions)
+    return _cross_gate(fi, var_gates, const_gates).reshape(kk, kk)
+
+
+def _cross_gates(layer: _Layer, i: int):
+    """Instruction ``i``'s dense cross-group gate and its inverse."""
+    fi = layer.ftape.instructions[i]
+    m = _cross_dense_gate(fi, layer.var_gates, layer.const_gates)
+    return m, _inv_dense(m, fi.unitary, _cross_ctx(fi))
+
+
+def _apply_dcross(xr, xi, i: int, layer: _Layer):
+    """Forward of a ``dcross`` item: one in-place kernel pass."""
+    fi = layer.ftape.instructions[i]
+    n = layer.ftape.n
+    plan = layer._const(("dcross", i), fi.var, lambda: _cross_plan(
+        _cross_gates(layer, i)[0], fi.positions, n, layer.device))
+    return _apply_dense_cross(xr, xi, None, fi.positions, n, layer.kernels,
+                              alias=True, plan=plan)
+
+
 def _dual_operators(layer: _Layer, i: int, j: Optional[int]):
     """(E0, E1) lane/sublane operators of a minor sweep (None = identity)."""
     fi = layer.ftape.instructions[i]
@@ -613,6 +766,8 @@ def _apply_forward(xr, xi, program, layer: _Layer):
             xr, xi = _apply_dhigh_item(xr, xi, item, layer)
         elif item[0] == "dense":
             xr, xi = _apply_dense_item(xr, xi, item[1], item[2], layer)
+        elif item[0] == "dcross":
+            xr, xi = _apply_dcross(xr, xi, item[1], layer)
         else:
             raise _unsupported(
                 f"plane item {item[0]!r}: {_MISSING[item[0]]}",
@@ -628,8 +783,9 @@ def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
                       var_cts: Dict[int, torch.Tensor]):
     """Reverse the program: paired dense sweeps (with a folded run or not)
     roll back in one dual backward kernel pass, high sweeps in one high
-    backward kernel pass, merged sweeps in one merged backward kernel pass
-    and each lone diagonal run in one diag backward kernel pass."""
+    backward kernel pass, merged sweeps in one merged backward kernel pass,
+    each lone diagonal run in one diag backward kernel pass and each dense
+    cross-group gate in one or three passes (_backward_dense_cross)."""
     for item in reversed(program):
         if item[0] == "diag":
             fxr, fxi, bxr, bxi = _diag_run_backward(fxr, fxi, bxr, bxi, item[1],
@@ -649,6 +805,9 @@ def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
         elif item[0] == "dense":
             fxr, fxi, bxr, bxi = _backward_dual_step(
                 fxr, fxi, bxr, bxi, item[1], item[2], layer, var_cts)
+        elif item[0] == "dcross":
+            fxr, fxi, bxr, bxi = _backward_dense_cross(
+                fxr, fxi, bxr, bxi, item[1], layer, var_cts)
         else:
             raise _unsupported(f"plane item {item[0]!r}: {_MISSING[item[0]]}",
                                layer.ftape.n)
@@ -765,6 +924,39 @@ def _backward_hpair(fxr, fxi, bxr, bxi, item, layer: _Layer,
         kernels=layer.kernels)
     _close_block_cts(layer, item[2], T0_top, var_cts)
     _close_block_cts(layer, item[1], T0_low, var_cts)
+    return fxr, fxi, bxr, bxi
+
+
+def _backward_dense_cross(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
+                          var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a dense cross-group gate. A span view without lane bits:
+    uncompute, transport and the gate cotangent in ONE block_backward_high
+    pass (planes.backward_cross_span). Otherwise: uncompute with G^-1, the
+    pair gradient on the restored planes (a variable gate: _plane_pair_grad,
+    not ported — check_backward_supported refuses it before any state), and
+    transport with G^T, each a fused one-pass apply."""
+    fi = layer.ftape.instructions[i]
+    n = layer.ftape.n
+    pos, dev = fi.positions, layer.device
+    if pl.backward_span_eligible(pos, n):
+        ops = layer._const(("dcross", i, "adjoint"), fi.var, lambda: (
+            pl.backward_span_operands(*_cross_gates(layer, i), pos, n, dev)))
+        fxr, fxi, bxr, bxi, W = pl.backward_cross_span(
+            fxr, fxi, bxr, bxi, None, None, pos, n, kernels=layer.kernels,
+            operands=ops, with_cotangent=fi.var)
+        if fi.var:
+            var_cts[fi.queue_idx] = W
+        return fxr, fxi, bxr, bxi
+    if fi.var:
+        raise _unsupported(_PAIR_GRAD, n)
+    inv_plan = layer._const(("dcross", i, "inverse"), fi.var, lambda: (
+        _cross_plan(_cross_gates(layer, i)[1], pos, n, dev)))
+    fxr, fxi = _apply_dense_cross(fxr, fxi, None, pos, n, layer.kernels,
+                                  alias=True, plan=inv_plan)
+    tr_plan = layer._const(("dcross", i, "transpose"), fi.var, lambda: (
+        _cross_plan(_cross_gates(layer, i)[0].T, pos, n, dev)))
+    bxr, bxi = _apply_dense_cross(bxr, bxi, None, pos, n, layer.kernels,
+                                  alias=True, plan=tr_plan)
     return fxr, fxi, bxr, bxi
 
 
@@ -950,7 +1142,8 @@ def _add_seed(pending: Dict, fi: FDensity, ct: torch.Tensor, n: int) -> None:
     sym = ct_m + ct_m.conj().T
     groups = _density_groups(fi, n)
     if len(groups) != 1:
-        raise _unsupported("a cross-group density seed (_apply_dense_cross)", n)
+        raise _unsupported("a cross-group density seed (the conj / acc modes of "
+                           "dual_multi_apply_planes / high_multi_apply_planes)", n)
     j = groups.pop()
     rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
     E = gr.expand_in_group(sym, rels, sizes[j])
@@ -1065,6 +1258,10 @@ def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
         raise NotImplementedError("a prologue tape is not ported to "
                                   "dqc_tpu_torch yet; see ROADMAP.md")
     check_forward_supported(ftape, epi_ftape)
+    if torch.is_grad_enabled() and any(
+            isinstance(g, torch.Tensor) and g.requires_grad
+            for g in stacked_var_gates):
+        check_backward_supported(ftape)
     return _StdScanDensities.apply(ftape, epi_ftape, tuple(const_gates),
                                    device, kernels, *stacked_var_gates)
 

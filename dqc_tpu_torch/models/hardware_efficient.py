@@ -9,10 +9,11 @@ are differentiable in ``params`` with torch autograd (``loss.backward()``
 is the counterpart of the JAX class's ``jax.value_and_grad``), through the
 engine's O(1)-memory uncompute adjoint.
 
-The CZ ring runs at every n in 14..30 (n = 29 x 100 layers is the JAX
-package's bench workload); the CNOT ring (dense cross-group gates) raises
-``NotImplementedError`` naming the kernels still to be ported, before any
-state is allocated.
+Both rings run at every n in 14..30, forward and gradient: the CZ ring
+(n = 29 x 100 layers is the JAX package's bench workload) and the CNOT
+ring, the JAX class's default, whose gates across group boundaries are
+dense cross-group gates (one pass each of the multi-term kernels or of the
+high kernels on a span view).
 """
 
 from __future__ import annotations

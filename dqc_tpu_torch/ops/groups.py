@@ -167,6 +167,32 @@ def cross_diag_table(diag, positions: Sequence[int], n: int):
     return d2[ea[:, None], eb[None, :]], ja, jb
 
 
+def schmidt_terms(gate4):
+    """``G = sum_i A_i (x) B_i``, A on the msb qubit (pos2): stacked
+    ``(4, 2, 2)`` factors from the SVD of the 4 x 4 gate reshuffled to
+    ``[(q2 p2), (q1 p1)]``. Host numpy (memoised) for a constant gate, torch
+    on the gate's device for a variable one; the adjoint never
+    differentiates through it (gate cotangents come from pair grams)."""
+    c = concrete_or_none(gate4)
+    if c is not None:
+        key = ("S", c.tobytes(), c.dtype.str)
+
+        def build():
+            M = np.ascontiguousarray(
+                c.reshape(2, 2, 2, 2).transpose(0, 2, 1, 3)).reshape(4, 4)
+            u, s, vh = np.linalg.svd(M)
+            sq = np.sqrt(s).astype(M.dtype)
+            return (np.ascontiguousarray((u * sq[None, :]).T.reshape(4, 2, 2)),
+                    np.ascontiguousarray((sq[:, None] * vh).reshape(4, 2, 2)))
+
+        return _cached(key, build)
+    M = gate4.reshape(2, 2, 2, 2).permute(0, 2, 1, 3).reshape(4, 4)
+    u, s, vh = torch.linalg.svd(M)
+    sq = torch.sqrt(s).to(M.dtype)
+    return ((u * sq[None, :]).T.reshape(4, 2, 2),
+            (sq[:, None] * vh).reshape(4, 2, 2))
+
+
 @lru_cache(maxsize=None)
 def _selector_matrix(rel_positions: Tuple[int, ...], g: int) -> np.ndarray:
     """For each full-group index, the packed value of the target bits

@@ -23,6 +23,10 @@ from dqc_tpu_torch.ops.kernels.block_backward_merged_fact import (
     block_backward_merged_fact,
     block_backward_merged_fact_plain,
 )
+from dqc_tpu_torch.ops.kernels.block_backward_sublane import (
+    block_backward_sublane,
+    block_backward_sublane_plain,
+)
 from dqc_tpu_torch.ops.kernels.diag import (
     diag_backward,
     diag_backward_plain,
@@ -30,8 +34,16 @@ from dqc_tpu_torch.ops.kernels.diag import (
     diag_sweep_plain,
 )
 from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
+from dqc_tpu_torch.ops.kernels.dual_multi_apply import (
+    dual_multi_apply,
+    dual_multi_apply_plain,
+)
 from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
 from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
+from dqc_tpu_torch.ops.kernels.high_multi_apply import (
+    high_multi_apply,
+    high_multi_apply_plain,
+)
 from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
     merged_fact_apply,
     merged_fact_apply_plain,
@@ -48,15 +60,20 @@ class KernelSet(NamedTuple):
     block_backward_merged_fact: Callable
     diag_sweep: Callable
     diag_backward: Callable
+    dual_multi_apply: Callable
+    high_multi_apply: Callable
+    block_backward_sublane: Callable
 
 
 KERNELS = KernelSet(dual_apply, high_apply, gram, block_backward_dual,
                     block_backward_high, merged_fact_apply,
-                    block_backward_merged_fact, diag_sweep, diag_backward)
+                    block_backward_merged_fact, diag_sweep, diag_backward,
+                    dual_multi_apply, high_multi_apply, block_backward_sublane)
 PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain,
                   block_backward_dual_plain, block_backward_high_plain,
                   merged_fact_apply_plain, block_backward_merged_fact_plain,
-                  diag_sweep_plain, diag_backward_plain)
+                  diag_sweep_plain, diag_backward_plain, dual_multi_apply_plain,
+                  high_multi_apply_plain, block_backward_sublane_plain)
 
 
 def reset_launch_counts() -> None:

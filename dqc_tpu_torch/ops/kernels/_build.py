@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LIBRARIES = ("dual_apply", "high_apply", "gram", "block_backward_dual",
              "block_backward_high", "merged_fact_apply",
-             "block_backward_merged_fact", "diag")
+             "block_backward_merged_fact", "diag", "dual_multi_apply",
+             "high_multi_apply", "block_backward_sublane")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,13 @@ Op mapping (one pass over the state each):
   top groups' from one merged-axis read when the top group is tiny
 * a 2- or 4-wide group 2 (n = 15, 16): elementwise combinations of its
   slices, which the JAX package leaves to XLA outside any kernel
+* a dense gate across two groups (the CNOT ring) -> one pass: the
+  multi-term dual kernel (ops/kernels/dual_multi_apply) for (lane, sublane),
+  the high kernel on a span view of its high bits, or the multi-term high +
+  lane kernel (ops/kernels/high_multi_apply) with a lane bit; its adjoint on
+  a span view is one high backward kernel pass
+* the adjoint of an unpaired sublane block -> ops/kernels/
+  block_backward_sublane
 * the adjoint of a dense block on group j >= 2, with or without a folded
   run -> the high backward kernel (ops/kernels/block_backward_high); the
   adjoint of a lane + sublane pair is called from circuit/plane_scan.py
@@ -326,6 +333,13 @@ def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
         if acc is not None:
             yr, yi = acc[0].view(v) + yr, acc[1].view(v) + yi
         return yr.reshape(xr.shape), yi.reshape(xi.shape)
+    if X < MIN_KERNEL_X and alias and not conj and acc is None:
+        # a lone block on a tiny top group, in place: ``E (x) I`` on the
+        # merged axis, Kronecker-factorized (the JAX package expands it to
+        # an X * 128-wide in-place high sweep, not ported)
+        eye = torch.eye(_merged_view(n, j)[2], dtype=torch.complex64,
+                        device=xr.device)
+        return apply_merged_top_fact(xr, xi, E, eye, n, kernels=kernels)
     if X < MIN_KERNEL_X:
         return apply_merged_top(xr, xi, _kron_id(E, _merged_view(n, j)[2]), n,
                                 alias=alias, conj=conj, acc=acc,
@@ -351,6 +365,291 @@ def apply_block(xr, xi, E, j: int, n: int, *, alias: bool = True,
     if j == 1:
         return apply_dual(xr, xi, None, E, **kw)
     return apply_high(xr, xi, E, j, n, **kw)
+
+
+def _stacked_planes(ops, device) -> Planes:
+    rs, is_ = zip(*(op_planes(E, device) for E in ops))
+    return torch.stack(rs), torch.stack(is_)
+
+
+def cross_terms_operands(terms, n: int, device):
+    """The stacked f32 factor planes of :func:`apply_cross_terms` on
+    ``device``: ``("dual", el_r, el_i, em_r, em_i)`` for a (lane, sublane)
+    pair, ``("high", j, eh_r, eh_i, el_r, el_i)`` for (lane, high group j)
+    with a kernel-sized X, or None when the pair has no fused kernel."""
+    groups = {t[1] for t in terms} | {t[3] for t in terms}
+    if len(groups) != 2:
+        return None
+    if groups == {0, 1}:
+        el = [EA if ja == 0 else EB for EA, ja, EB, jb in terms]
+        em = [EB if ja == 0 else EA for EA, ja, EB, jb in terms]
+        return ("dual", *_stacked_planes(el, device), *_stacked_planes(em, device))
+    if 0 in groups:
+        j = max(groups)
+        if _high_view(n, j)[1] < MIN_KERNEL_X:
+            return None
+        eh = [EA if ja == j else EB for EA, ja, EB, jb in terms]
+        el = [EB if ja == j else EA for EA, ja, EB, jb in terms]
+        return ("high", j, *_stacked_planes(eh, device),
+                *_stacked_planes(el, device))
+    return None
+
+
+def apply_cross_terms(xr, xi, terms, n: int, *, alias: bool = True,
+                      conj: bool = False, acc=None, out_dtype=None,
+                      kernels: KernelSet = KERNELS, operands=None):
+    """ONE-pass execution of a dense cross-group gate's full per-group term
+    decomposition (plane_scan._dense_cross_expanded_terms): ``y = sum_t
+    (EA_t on ja)(EB_t on jb) x`` — the multi-term dual kernel for (lane,
+    sublane), the multi-term high + lane kernel for (lane, high group).
+    Returns None when the pair shape has no fused kernel (the caller falls
+    back to the per-term sweeps). ``operands``: the result of
+    :func:`cross_terms_operands`, staged on the device once per call for a
+    constant gate (``terms`` is then not read). The multi-term kernels run
+    in place only: ``conj``/``acc``/``alias=False`` raise."""
+    _check_out_dtype(out_dtype)
+    if operands is None:
+        operands = cross_terms_operands(terms, n, xr.device)
+    if operands is None:
+        return None
+    kw = dict(conj=conj, acc=acc, alias=alias)
+    if operands[0] == "dual":
+        return kernels.dual_multi_apply(xr, xi, *operands[1:], **kw)
+    pre, X, M = _high_view(n, operands[1])
+    v = (pre, X, M, 128)
+    yr, yi = kernels.high_multi_apply(xr.view(v), xi.view(v), *operands[2:], **kw)
+    return yr.view(xr.shape), yi.view(xi.shape)
+
+
+# ---------------------------------------------------------------------------
+# One-pass dense cross-group gates on a SPAN view
+#
+# The plane layout's flat ravel orders qubits (n-1 .. 14 | 13 .. 7 | 6 .. 0):
+# any contiguous bit range [b0, b_max] with b0 >= 7 is one contiguous axis of
+# the view ``(2^(n-1-b_max), 2^span, 2^(b0-7), 128)`` — the high kernels'
+# (A1, X, M, 128) contract. A dense gate whose non-lane bits fit a <= 8-bit
+# span runs as ONE in-place high-kernel pass with the gate expanded over the
+# span axis; lane bits ride along as per-term 128 x 128 lane factors in the
+# multi-term high + lane kernel.
+# ---------------------------------------------------------------------------
+
+MAX_SPAN_BITS = 8
+
+
+def _span_geom(positions, n: int):
+    """(b0, span_bits, lane_bits) of the span view for a dense gate, or
+    None when ineligible. The span covers every bit >= 7, padded down to at
+    least 3 bits (X = 8, the smallest kernel axis)."""
+    if n < 15:
+        return None
+    hi = [p for p in positions if p >= 7]
+    lanes = tuple(p for p in positions if p < 7)
+    # pure-minor pairs belong to the dual kernel; and without an A bit the
+    # span view cannot beat the existing paths
+    if not hi or max(hi) < 14:
+        return None
+    b_max, b_min = max(hi), min(hi)
+    span = max(3, b_max - b_min + 1)
+    if span > MAX_SPAN_BITS:
+        return None
+    b0 = b_max - span + 1
+    if b0 < 7:
+        return None
+    if lanes and len(lanes) > 2:
+        return None
+    return b0, span, lanes
+
+
+def cross_span_eligible(positions, n: int) -> bool:
+    """True when a dense gate on ``positions`` runs as ONE span-view kernel
+    pass (see _span_geom)."""
+    return _span_geom(positions, n) is not None
+
+
+def _permuted_gate(gate_m, positions):
+    """(positions sorted descending, gate reindexed to that order) — the
+    gate's index convention ties bit significance to the positions tuple
+    order."""
+    k = len(positions)
+    order = sorted(range(k), key=lambda i: -positions[i])
+    spos = tuple(positions[i] for i in order)
+    if list(order) == list(range(k)):
+        return spos, gate_m
+    perm = list(order) + [k + i for i in order]
+    c = gr.concrete_or_none(gate_m)
+    if c is not None:
+        key = ("PG", c.tobytes(), c.dtype.str, tuple(order))
+        return spos, gr._cached(key, lambda: np.ascontiguousarray(
+            c.reshape((2,) * (2 * k)).transpose(perm).reshape(1 << k, 1 << k)))
+    G = gate_m.reshape((2,) * (2 * k))
+    return spos, G.permute(perm).reshape(1 << k, 1 << k)
+
+
+def _span_operator(G, rels, span: int):
+    """Gate (descending-position index order) expanded over the span axis:
+    complex ``(2^span, 2^span)`` (host-cached for constants)."""
+    return gr.expand_in_group(G, rels, span)
+
+
+def _lane_span_terms(G, kh: int, rels, span: int, lane_rels):
+    """Two-side decomposition of a gate with lane bits: elementary
+    ``|ql><pl|`` on the lane group x the corresponding gate slice expanded
+    over the span axis. Returns stacked complex ``(T, R, R)`` span parts and
+    ``(T, 128, 128)`` lane parts (zero slices pruned for constants)."""
+    kl = len(lane_rels)
+    c = gr.concrete_or_none(G)
+    G4 = (c if c is not None else G).reshape(1 << kh, 1 << kl, 1 << kh, 1 << kl)
+    eh, el = [], []
+    for ql in range(1 << kl):
+        for pl_ in range(1 << kl):
+            sub = G4[:, ql, :, pl_]
+            if c is not None and np.abs(sub).max() < 1e-12:
+                continue
+            B = np.zeros((1 << kl, 1 << kl), np.complex64)
+            B[ql, pl_] = 1.0
+            eh.append(gr.expand_in_group(sub, rels, span))
+            el.append(gr.expand_in_group(B, lane_rels, gr.GROUP_BITS))
+    return eh, el
+
+
+def cross_span_operands(gate_m, positions, n: int, device):
+    """The span view's shape and its f32 operand planes on ``device``:
+    ``("high", vshape, er, ei)``, or ``("multi", vshape, eh_r, eh_i, el_r,
+    el_i)`` with lane bits; None without a span view."""
+    geom = _span_geom(positions, n)
+    if geom is None:
+        return None
+    b0, span, _ = geom
+    spos, G = _permuted_gate(gate_m, tuple(int(p) for p in positions))
+    hi = [p for p in spos if p >= 7]
+    lanes = [p for p in spos if p < 7]
+    rels = tuple(p - b0 for p in hi)
+    vshape = (1 << (n - 1 - hi[0]), 1 << span, 1 << (b0 - 7), 128)
+    if not lanes:
+        return ("high", vshape, *op_planes(_span_operator(G, rels, span), device))
+    eh, el = _lane_span_terms(G, len(hi), rels, span, tuple(lanes))
+    return ("multi", vshape, *_stacked_planes(eh, device),
+            *_stacked_planes(el, device))
+
+
+def apply_cross_span(xr, xi, gate_m, positions, n: int, *, alias: bool = True,
+                     conj: bool = False, acc=None, out_dtype=None,
+                     kernels: KernelSet = KERNELS, operands=None):
+    """ONE-pass dense cross-group gate on the span view — the (sublane,
+    high), (high, high) and (lane, high-span) shapes: the high apply kernel
+    with the gate expanded over the span axis, or the multi-term high +
+    lane kernel with lane bits (in place only). Semantics of apply_block
+    (conj/acc/alias). Returns None when the bit pattern has no span view.
+    ``operands``: the result of :func:`cross_span_operands`, staged once per
+    call for a constant gate."""
+    _check_out_dtype(out_dtype)
+    if operands is None:
+        operands = cross_span_operands(gate_m, positions, n, xr.device)
+    if operands is None:
+        return None
+    vshape = operands[1]
+    a2 = None if acc is None else (acc[0].view(vshape), acc[1].view(vshape))
+    kw = dict(conj=conj, acc=a2, alias=alias)
+    if operands[0] == "high":
+        yr, yi = kernels.high_apply(xr.view(vshape), xi.view(vshape),
+                                    *operands[2:], **kw)
+    else:
+        yr, yi = kernels.high_multi_apply(xr.view(vshape), xi.view(vshape),
+                                          *operands[2:], **kw)
+    return yr.view(xr.shape), yi.view(xi.shape)
+
+
+def cross_pair_one_pass(positions, n: int) -> bool:
+    """True when a dense cross-group gate over TWO groups executes its whole
+    term decomposition as ONE fused pass: the multi-term dual kernel
+    (minor-minor), the multi-term high + lane kernel (lane x kernel-sized
+    high group), or a span view."""
+    if cross_span_eligible(positions, n):
+        return True
+    groups = {gr.group_of_bit(n, p)[0] for p in positions}
+    if groups == {0, 1}:
+        return True
+    sizes = gr.group_sizes_low_first(n)
+    return 0 in groups and (1 << sizes[max(groups)]) >= MIN_KERNEL_X
+
+
+def backward_span_eligible(positions, n: int) -> bool:
+    """True when a dense gate on ``positions`` has a ONE-pass fused adjoint
+    (backward_cross_span): a span view without lane bits (lane shapes keep
+    the 3-pass path)."""
+    geom = _span_geom(positions, n)
+    return geom is not None and not geom[2]
+
+
+def _span_cotangent(t0r, t0i, rels, span: int) -> torch.Tensor:
+    """Adjoint of expand_in_group: partial trace of the span-block pair gram
+    over the identity-factor bits. ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]``
+    with ``E = expand(G)`` gives ``dL/dG[p, q] = sum_r T0[x(p, r), y(q, r)]``
+    (r = the non-gate span bits, equal on both sides). Complex out."""
+    k = len(rels)
+    row_axes = [span - 1 - r for r in rels]
+    perm = row_axes + [a for a in range(span) if a not in row_axes]
+
+    def red(T0):
+        T4 = T0.reshape((2,) * (2 * span)).permute(perm + [span + a for a in perm])
+        T4 = T4.reshape(1 << k, 1 << (span - k), 1 << k, 1 << (span - k))
+        return torch.einsum("arbr->ab", T4)
+
+    return torch.complex(red(t0r.float()), red(t0i.float()))
+
+
+def backward_span_operands(gate_m, gate_inv, positions, n: int, device):
+    """``(vshape, rels, span, einv_r, einv_i, e_r, e_i)`` of
+    :func:`backward_cross_span` on ``device``, or None when the shape is not
+    backward_span_eligible."""
+    if not backward_span_eligible(positions, n):
+        return None
+    pos = tuple(int(p) for p in positions)
+    b0, span, _ = _span_geom(pos, n)
+    spos, G = _permuted_gate(gate_m, pos)
+    _, Ginv = _permuted_gate(gate_inv, pos)
+    rels = tuple(p - b0 for p in spos)
+    vshape = (1 << (n - 1 - spos[0]), 1 << span, 1 << (b0 - 7), 128)
+    return (vshape, rels, span,
+            *op_planes(_span_operator(Ginv, rels, span), device),
+            *op_planes(_span_operator(G, rels, span), device))
+
+
+def backward_cross_span(fxr, fxi, bxr, bxi, gate_m, gate_inv, positions,
+                        n: int, *, kernels: KernelSet = KERNELS, operands=None,
+                        with_cotangent: bool = True):
+    """ONE-pass adjoint for a span-eligible dense cross-group gate: uncompute
+    (``fwd_in = expand(G^-1) fwd``), cotangent transport (``bwd' =
+    expand(G)^T bwd``) and the gate cotangent, in a single read of the
+    (fwd, bwd) planes via block_backward_high on the span view.
+
+    Returns ``(fxr', fxi', bxr', bxi', W)`` with ``W`` the ``(2^k, 2^k)``
+    complex cotangent in the ORIGINAL positions index order (None when
+    ``with_cotangent`` is False: a constant gate), or None when the shape is
+    not backward_span_eligible. ``operands``: the result of
+    :func:`backward_span_operands`, staged once per call for a constant
+    gate."""
+    if operands is None:
+        operands = backward_span_operands(gate_m, gate_inv, positions, n,
+                                          fxr.device)
+    if operands is None:
+        return None
+    vshape, rels, span = operands[:3]
+    fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
+        fxr.view(vshape), fxi.view(vshape), bxr.view(vshape), bxi.view(vshape),
+        *operands[3:])
+    W = None
+    if with_cotangent:
+        W = _span_cotangent(t0r, t0i, rels, span)
+        pos = tuple(int(p) for p in positions)
+        k = len(pos)
+        order = sorted(range(k), key=lambda i: -pos[i])
+        if list(order) != list(range(k)):
+            inv = [order.index(i) for i in range(k)]
+            W = W.reshape((2,) * (2 * k)).permute(
+                inv + [k + i for i in inv]).reshape(1 << k, 1 << k)
+    return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
+            bi.view(bxr.shape), W)
 
 
 # ---------------------------------------------------------------------------
@@ -393,25 +692,30 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     ``fwd_in = Einv fwd_out``, ``bwd' = E^T bwd``,
     ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]`` (complex, returned dense).
 
-    Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired lane or sublane
-    block, and a lone block on a tiny top group, need kernels not ported
-    yet and raise ``NotImplementedError``; a tiny group 2 runs the
-    elementwise small-X form."""
-    if j in (0, 1):
+    Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired sublane block
+    runs block_backward_sublane; an unpaired lane block needs
+    block_backward_lane, not ported yet, and raises
+    ``NotImplementedError``. A lone block on a tiny top group runs the
+    factorized merged adjoint with an identity low factor (the JAX package
+    runs block_backward_high on the expanded merged axis, X = 256 / 512,
+    not ported); a tiny group 2 runs the elementwise small-X form."""
+    dev = fxr.device
+    if j == 0:
         raise NotImplementedError(
-            f"the adjoint of an unpaired {('lane', 'sublane')[j]} block needs "
-            f"block_backward_{('lane', 'sublane')[j]} "
-            f"(dqc_tpu/ops/pallas/block_backward.py:{(88, 184)[j]}), not "
-            "ported to dqc_tpu_torch yet; see ROADMAP.md")
+            "the adjoint of an unpaired lane block needs block_backward_lane "
+            "(dqc_tpu/ops/pallas/block_backward.py:88), not ported to "
+            "dqc_tpu_torch yet; see ROADMAP.md")
+    if j == 1:
+        fr, fi, br, bi, t0r, t0i = kernels.block_backward_sublane(
+            fxr, fxi, bxr, bxi, *op_planes(Einv, dev), *op_planes(E, dev))
+        return fr, fi, br, bi, torch.complex(t0r, t0i)
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
-    dev = fxr.device
     if X < MIN_KERNEL_X and j >= 3:
-        raise NotImplementedError(
-            f"the adjoint of a lone dense block on the {X}-wide top group "
-            f"(n={n}) needs block_backward_high at X = {X * 128} on the "
-            "merged axis, not ported to dqc_tpu_torch yet (the hpair sweep "
-            "runs it factorized); see ROADMAP.md")
+        eye = torch.eye(_merged_view(n, j)[2], dtype=torch.complex64, device=dev)
+        fr, fi, br, bi, T0, _ = backward_merged_top_fact(
+            fxr, fxi, bxr, bxi, E, eye, Einv, eye, n, kernels=kernels)
+        return fr, fi, br, bi, T0
     if X < MIN_KERNEL_X:
         # tiny group 2: the small-X form; T0[x, y] = sum_b bwd[x] fwd_in[y]
         fr, fi = apply_high(fxr, fxi, Einv, j, n, kernels=kernels)

@@ -5,8 +5,10 @@
   says ``import jax`` or names a ``dqc_tpu.`` module;
 * entry points default to the CUDA card and raise without one; every n
   from 14 to 30 passes the support check of the cz ring, and the new sizes
-  run; modes and paths the port does not run yet raise
-  ``NotImplementedError`` naming what is missing, before any state is
+  run; modes and paths the port does not run yet (the density-seed modes of
+  the multi-term kernels, the gradient of a variable cross gate without a
+  span view, dense gates over three groups, the unpaired lane adjoint)
+  raise ``NotImplementedError`` naming what is missing, before any state is
   allocated; params that require a gradient get one, and a second backward
   through the same graph raises;
 * the kernel build names nvcc and fails loudly without it.
@@ -25,6 +27,7 @@ from dqc_tpu_torch import HardwareEfficientAnsatz, config
 from dqc_tpu_torch.circuit import plane_scan
 from dqc_tpu_torch.circuit.builder import AutoGradCircuit
 from dqc_tpu_torch.circuit.fusion import fuse_tape
+from dqc_tpu_torch.circuit.scan import fuse_layer
 from dqc_tpu_torch.ops import kernels as tk
 from dqc_tpu_torch.ops import planes
 from dqc_tpu_torch.ops.kernels import _build
@@ -73,8 +76,13 @@ def test_default_device_is_cuda():
 
 
 def _cnot_ring(n):
-    m = HardwareEfficientAnsatz(n, 2, entangler="cnot", device="cpu")
-    m.densities(torch.zeros(2, n, 3))
+    """The CNOT ring's (6, 7) gate in the density-seed form (conj, acc):
+    the multi-term kernels run in place only."""
+    m = HardwareEfficientAnsatz(n, 1, entangler="cnot", device="cpu")
+    terms = plane_scan._dense_cross_expanded_terms(m._layer_consts[0].reshape(4, 4),
+                                                   (6, 7), n)
+    x = torch.zeros(planes.plane_shape(n))
+    planes.apply_cross_terms(x, x, terms, n, conj=True, acc=(x, x))
 
 
 def _unfactorized_hpair(n):
@@ -90,6 +98,14 @@ def _aliased_merged_apply(n):
     tk.high_apply(x, x, e, e)
 
 
+def _three_group_gate(n):
+    """A dense gate over three groups (the xcross item)."""
+    layer = AutoGradCircuit(n)
+    layer.add_gate((0, 8, 15), var=False)
+    plane_scan.check_forward_supported(fuse_layer(layer.tape),
+                                       fuse_tape(AutoGradCircuit(n).tape))
+
+
 def _cross_group_density(n):
     m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
     epi = AutoGradCircuit(n)
@@ -102,6 +118,7 @@ def _cross_group_density(n):
     (22, _unfactorized_hpair, "block_backward_high at X = 256 / 512"),
     (29, _aliased_merged_apply, "seed modes"),
     (30, _cross_group_density, "_cross_density"),
+    (22, _three_group_gate, "xcross"),
 ], ids=lambda v: getattr(v, "__name__", str(v)))
 def test_unsupported_sizes_name_the_kernel(n, run, kernel):
     """What the port still lacks at the sizes it now runs raises
@@ -147,9 +164,24 @@ def test_new_sizes_run_at_zero_params(n):
 
 
 def test_cnot_ring_names_the_cross_kernels():
+    """The CNOT ring runs (params = 0: magnetization 14, up to the f32
+    rounding of the CNOT's Schmidt terms). A variable cross gate without a
+    span view runs forward, but its gradient needs _plane_pair_grad: asking
+    for one raises before any state."""
     m = HardwareEfficientAnsatz(14, 1, entangler="cnot", device="cpu")
-    with pytest.raises(NotImplementedError, match="dual_multi_apply_planes"):
-        m.magnetization(torch.zeros(1, 14, 3))
+    assert abs(m.magnetization(torch.zeros(1, 14, 3)).item() - 14) <= 1e-5 * 14
+    layer = AutoGradCircuit(14)
+    layer.add_q2_var_gate(6, 7)
+    ftape = fuse_layer(layer.tape)
+    epi = AutoGradCircuit(14)
+    epi.get_q1_dens_op_with_grad(0)
+    plane_scan.check_forward_supported(ftape, fuse_tape(epi.tape))
+    with pytest.raises(NotImplementedError, match="_plane_pair_grad"):
+        plane_scan.check_backward_supported(ftape)
+    gate = torch.eye(4, dtype=torch.complex64).reshape(-1)[None].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="_plane_pair_grad"):
+        plane_scan.std_scan_with_epilogue(None, ftape, fuse_tape(epi.tape), (),
+                                          (gate,), (), device="cpu")
 
 
 def test_below_plane_size_raises():
@@ -178,10 +210,23 @@ def test_requires_grad_raises():
 @pytest.mark.parametrize("j, kernel", [(0, "block_backward_lane"),
                                        (1, "block_backward_sublane")])
 def test_unpaired_minor_backward_names_the_kernel(j, kernel):
+    """The unpaired lane adjoint is not ported and raises naming its
+    kernel; the unpaired sublane adjoint runs (block_backward_sublane's
+    plain version on the CPU): F <- Einv F, B <- E^T B and the pair gram."""
     x = torch.zeros(planes.plane_shape(14))
     eye = torch.eye(128, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match=kernel):
-        planes.backward_block(x, x, x, x, eye, eye, j, 14)
+    if j == 0:
+        with pytest.raises(NotImplementedError, match=kernel):
+            planes.backward_block(x, x, x, x, eye, eye, j, 14)
+        return
+    assert kernel in tk.KernelSet._fields
+    f = torch.randn((1, 128, 128), generator=torch.Generator().manual_seed(3))
+    fr, fi, br, bi, T0 = planes.backward_block(f, 0 * f, f, f, 2 * eye, eye,
+                                               j, 14)
+    assert torch.equal(fr, 2 * f) and torch.equal(br, f)
+    want = torch.einsum("axc,ayc->xy", f, 2 * f)
+    torch.testing.assert_close(T0, torch.complex(want, want), rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_var_diag_run_q_names_the_kernels():
