@@ -46,8 +46,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    with warm step times, peak memory and the kernel time per step; the 29q
    and 30q x 1L closed forms of the ring; 30q x 2L at params = 0; 28q and
    29q x 4L gradients through the kernels against the plain-version path;
-8. a JSON line of the kernels, the card's nvidia-smi name and power limit,
-   and as the last line {"ok": true, "device": {...}}.
+8. VQE-Ising and QAOA MaxCut: the kernel checks of their modes in phase 3
+   (block_backward_dual with the Q reductions of a variable run, both run
+   orders; the seed modes of dual_multi_apply and high_multi_apply, with
+   an accumulator and fresh; the high apply's seed on the X = 8 span
+   views) on the operators the port stages for an edge density's seed;
+   then the forward and the value_and_grad of VQEIsing(26, 26) (the
+   reference's headline workload, uncut), VQEIsing(29, 26) and
+   QAOAMaxCut(29, random_graph(29, 14, 0), 6), each with the counters set
+   to 0 just before and read just after and held, per kernel and per
+   counted mode, to the launches of the port's own dispatch for the same
+   model run on the meta device (program_launches), with warm step times
+   and peak memory; the VQE closed
+   form at 29q and 30q x 1L, QAOA at params = 0, and 29q VQE (4L) and
+   QAOA (2L) gradients through the kernels against the plain-version path;
+9. a JSON line of the kernels and of the modes checked (their launches
+   counted per mode by the wrappers), the card's nvidia-smi
+   name and power limit, and as the last line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when torch.cuda.is_available() is false
 or the dqc_tpu_torch package is not beside it. The run takes several
@@ -73,6 +88,9 @@ N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_gra
 N30 = 30
 CNOT_LAYERS = 20    # the CNOT ring at 29q: depth cut from 100 for time
 CNOT = ((1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 0, 1), (0, 0, 1, 0))
+VQE_LAYERS = 26     # VQEIsing(26, 26): the reference's headline workload
+QAOA_LAYERS = 6
+QAOA_EXTRA_EDGES = 14   # random_graph(29, 14, 0), the example's graph at 29q
 
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores and HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
@@ -93,6 +111,24 @@ GRAD_TOL = 1e-4     # abs per parameter, kernel path vs plain path, 28q and
                     # 29q x 4L: O(1) gradients from pair grams summed in
                     # another order
 DIAG_TOL = 1e-5     # abs, unit-variance planes times unit-modulus phases
+VQE_VALUE_TOL = 1e-5    # VQE closed form: value within 1e-5 n, each
+VQE_GRAD_TOL = 3e-5     # gradient within 3e-5 n (sums of n edge terms)
+QAOA_ZERO_TOL = 1e-5    # QAOA at params = 0: cut within 1e-5 |E|, |grad|
+MODEL_GRAD_TOL = 1e-4   # relative to max(1, |g|) per parameter, kernel path
+                        # vs plain path (sums of 2^27-term f32 reductions)
+
+
+def random_graph(n, extra_edges, seed):
+    """The QAOA example's graph (examples/example_qaoa_maxcut.py): a ring
+    backbone plus ``extra_edges`` random chords."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    edges = [(i, (i + 1) % n) for i in range(n)]
+    while len(edges) < n + extra_edges:
+        a, b = rng.integers(0, n, 2)
+        if a != b and (min(a, b), max(a, b)) not in [tuple(sorted(e)) for e in edges]:
+            edges.append((int(min(a, b)), int(max(a, b))))
+    return edges
 
 
 def log(msg: str) -> None:
@@ -123,6 +159,80 @@ def bound_ms(bytes_moved: float, flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def call_modes(name: str, a) -> tuple:
+    """The counted modes (ops.kernels' ``mode_launches``) of a call of
+    kernel ``name`` with bound arguments ``a``."""
+    if name == "block_backward_dual":
+        return ("diag_q",) if a.get("diag_q") else ()
+    if name in ("dual_multi_apply", "high_multi_apply"):
+        seed = a.get("conj") or a.get("acc") is not None or not a.get("alias", True)
+        return ("seed",) if seed else ()
+    return ()
+
+
+def call_tag(a) -> str:
+    """What sets a launch's time apart beside its kernel and plane shape:
+    a seed form, a diagonal run and its order, the run's Q outputs."""
+    tags = []
+    if a.get("conj") or a.get("acc") is not None or not a.get("alias", True):
+        tags.append("seed")
+    if a.get("diag_tables") is not None:
+        first = a.get("diag_first", a.get("diag_first_fwd", True))
+        tags.append("diag_first" if first else "diag_after")
+    if a.get("diag_q"):
+        tags.append("q")
+    return "+".join(tags)
+
+
+def variant_tag(variant: str) -> str:
+    """call_tag of the launches a kernel check's variant stands for."""
+    tags = [t for t in ("seed", "diag_first", "diag_after") if t in variant]
+    if variant.endswith("_q"):
+        tags.append("q")
+    return "+".join(tags)
+
+
+def program_launches(build, loss: str):
+    """The launches of one forward and one value_and_grad of the model
+    ``build(device)`` makes, as the port's own dispatch plans them: the
+    model runs on the meta device (shapes, no data) through recording plain
+    versions of the kernels. Returns (forward counts, value_and_grad counts,
+    value_and_grad launches), the counts keyed as ops.kernels.launch_counts
+    keys them, one (kernel, call_tag, plane shape) per launch."""
+    import inspect
+    import torch
+    from dqc_tpu_torch.ops import kernels as K
+
+    calls = []
+
+    def recording(name, plain):
+        sig = inspect.signature(plain)
+
+        def call(*args, **kw):
+            a = sig.bind(*args, **kw).arguments
+            calls.append((name, call_modes(name, a), call_tag(a),
+                          tuple(args[0].shape)))
+            return plain(*args, **kw)
+        return call
+
+    def counts():
+        out = dict.fromkeys(K.launch_counts(), 0)
+        for name, modes, _, _ in calls:
+            out[name] += 1
+            for m in modes:
+                out[f"{name}[{m}]"] += 1
+        return out
+
+    kernels = K.KernelSet(*(recording(f, p) for f, p in
+                            zip(K.KernelSet._fields, K.PLAIN)))
+    model = build("meta")
+    params = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
+    value = getattr(model, loss)(params, kernels=kernels)
+    fwd = counts()
+    value.backward()
+    return fwd, counts(), [c[0:1] + c[2:] for c in calls]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -133,6 +243,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from dqc_tpu_torch import HardwareEfficientAnsatz
+    from dqc_tpu_torch.models.qaoa import QAOAMaxCut
+    from dqc_tpu_torch.models.vqe_ising import VQEIsing
+    from dqc_tpu_torch.ops import groups as gr
     from dqc_tpu_torch.ops import kernels as K
     from dqc_tpu_torch.ops import planes as pl
     from dqc_tpu_torch.ops.kernels import _build
@@ -151,7 +264,8 @@ def main() -> int:
     from dqc_tpu_torch.circuit import plane_scan as ps
     from dqc_tpu_torch.ops.kernels.diag import (
         diag_backward, diag_backward_plain, diag_sweep, diag_sweep_plain)
-    from dqc_tpu_torch.ops.kernels.dual_apply import dual_apply, dual_apply_plain
+    from dqc_tpu_torch.ops.kernels.dual_apply import (
+        diag_run, dual_apply, dual_apply_plain)
     from dqc_tpu_torch.ops.kernels.gram import gram, gram_plain
     from dqc_tpu_torch.ops.kernels.high_apply import high_apply, high_apply_plain
     from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
@@ -262,10 +376,12 @@ def main() -> int:
 
     def check_many(kernel, variant, shape, n_in, n_planes_out, fn_kernel,
                    fn_plain, tol, flops, bytes_moved, library=None,
-                   intact=0, dense_flops=None):
+                   intact=0, dense_flops=None, rel_each=False):
         """A kernel of ``n_in`` input planes whose outputs are
         ``n_planes_out`` planes (held to ``tol`` abs) and then pair grams
-        (held to GRAM_T0_TOL times their largest entry). ``intact``: how many
+        (held to GRAM_T0_TOL times their largest entry; with ``rel_each``
+        each output to GRAM_T0_TOL times its own largest entry, for outputs
+        of unlike scale: pair grams and Q reductions). ``intact``: how many
         leading inputs the kernel must leave as they were."""
         ins = [randn(*shape) for _ in range(n_in)]
         want = fn_plain(*ins)
@@ -277,6 +393,10 @@ def main() -> int:
         gram_err = max(errs[n_planes_out:], default=0.0)
         gram_max = max((w.abs().max().item() for w in want[n_planes_out:]),
                        default=1.0)
+        if rel_each and len(want) > n_planes_out:
+            gram_err = max(e / max(w.abs().max().item(), 1e-30)
+                           for e, w in zip(errs[n_planes_out:], want[n_planes_out:]))
+            gram_max = 1.0
         moved = max(((a - b).abs().max().item()
                      for a, b in zip(work[:intact], ins[:intact])), default=0.0)
         del got, want
@@ -402,18 +522,35 @@ def main() -> int:
     def dual_bwd(fn, **kw):
         return lambda *planes: fn(*planes, *bwd_ops, **kw)
 
-    def dual_bwd_library(fr, fi, br, bi):
-        F, B = torch.complex(fr, fi), torch.complex(br, bi)
-        L0i, L0, S1i, S1 = (torch.complex(*o) for o in (e0inv, e0, e1inv, e1))
+    def dual_bwd_library(diag_inv_tables=None, diag_tables=None,
+                         diag_first_fwd=True, diag_q=False, **_):
+        """The pair's yardstick: six cuBLAS-backed complex calls (g0_first
+        order); with a run, its multiply where the run is met, and with
+        ``diag_q`` the product Q = B F there and its three sums."""
+        def make(fr, fi, br, bi):
+            F0, B0 = torch.complex(fr, fi), torch.complex(br, bi)
+            L0i, L0, S1i, S1 = (torch.complex(*o) for o in (e0inv, e0, e1inv, e1))
 
-        def run():  # six cuBLAS-backed complex calls, g0_first order
-            F1 = torch.matmul(S1i, F)
-            Ts = torch.einsum("axc,ayc->xy", B, F1)
-            B1 = torch.matmul(S1.T, B)
-            F0 = torch.matmul(F1, L0i.T)
-            Tl = torch.einsum("arx,ary->xy", B1, F0)
-            return F0, torch.matmul(B1, L0), Tl, Ts
-        return run
+            def roll_back_run(F, B):
+                Q = B * F if diag_q else None
+                sums = () if Q is None else (Q.sum(0), Q.sum(2), Q.sum(1))
+                return F * diag_run(diag_inv_tables), B * diag_run(diag_tables), sums
+
+            def run():
+                F, B, sums = F0, B0, ()
+                if diag_tables is not None and not diag_first_fwd:
+                    F, B, sums = roll_back_run(F, B)
+                F1 = torch.matmul(S1i, F)
+                Ts = torch.einsum("axc,ayc->xy", B, F1)
+                B1 = torch.matmul(S1.T, B)
+                F = torch.matmul(F1, L0i.T)
+                Tl = torch.einsum("arx,ary->xy", B1, F)
+                B = torch.matmul(B1, L0)
+                if diag_tables is not None and diag_first_fwd:
+                    F, B, sums = roll_back_run(F, B)
+                return F, B, Tl, Ts, *sums
+            return run
+        return make
 
     for variant, kw in (
             ("g0_first", dict(g0_first=True)),
@@ -428,7 +565,7 @@ def main() -> int:
                    dual_bwd(block_backward_dual, **kw),
                    dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
                    flops=amps * 768 * 8, bytes_moved=4 * state_bytes + extra,
-                   library=dual_bwd_library if len(kw) == 1 else None)
+                   library=dual_bwd_library(**kw))
 
     # block_backward_high: the same step on X of (A1, X, M, 128); 3 X
     # complex MACs per amplitude
@@ -704,7 +841,89 @@ def main() -> int:
                dual_bwd(block_backward_dual, g0_first=True),
                dual_bwd(block_backward_dual_plain, g0_first=True), DUAL_TOL,
                flops=amps29 * 768 * 8, bytes_moved=4 * state29,
-               library=dual_bwd_library)
+               library=dual_bwd_library())
+
+    # 3d. the VQE / QAOA kernel modes -----------------------------------------
+    # block_backward_dual with the Q reductions of a random run (both run
+    # orders): 768 complex MACs per amplitude, plus the product Q = B F and
+    # its three sums (12 real flops); outputs 2 x (128 x 128 + 2 A x 128)
+    # floats more. The seed modes on the operands the port stages for an
+    # edge density's seed conj(M), M a random Hermitian 4 x 4: the (6, 7)
+    # edge's four Schmidt terms for dual_multi_apply, the closing (0, n - 1)
+    # edge's four lane slices on the X = 8 span view for high_multi_apply,
+    # the high-boundary edges' X = 8 span operators for the high apply.
+    def hermitian4():
+        z = torch.complex(randn(4, 4), randn(4, 4))
+        return 0.25 * (z + z.conj().T)
+
+    def seed_multi(apply, ops, acc):
+        if acc:
+            return lambda xr, xi, ar, ai: apply(xr, xi, *ops, conj=True,
+                                                acc=(ar, ai), alias=False)
+        return lambda xr, xi: apply(xr, xi, *ops, conj=True, alias=False)
+
+    def multi_seed_library(spec, f1, f2, acc):
+        """The seed's yardstick: one einsum, its conjugate and the add."""
+        def make(xr, xi, *a):
+            x = torch.complex(xr, xi)
+            c1, c2 = torch.complex(*f1), torch.complex(*f2)
+            if acc:
+                y0 = torch.complex(*a)
+                return lambda: y0 + torch.einsum(spec, c1, x, c2).conj()
+            return lambda: torch.einsum(spec, c1, x, c2).conj()
+        return make
+
+    for nq in (N_QUBITS, N29):
+        a_n, amps_n = 1 << (nq - 14), float(1 << nq)
+        st = 2 * amps_n * 4
+        q_bytes = 2 * 4 * (128 * 128 + 2 * a_n * 128)
+        for order in ("first", "after"):
+            kw = dict(g0_first=True, diag_first_fwd=order == "first",
+                      diag_inv_tables=tables(a_n), diag_tables=tables(a_n),
+                      diag_q=True)
+            check_many("block_backward_dual", f"{nq}q_g0_first_diag_{order}_q",
+                       (a_n, 128, 128), 4, 4, dual_bwd(block_backward_dual, **kw),
+                       dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
+                       flops=amps_n * (768 * 8 + 12),
+                       bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
+                       library=dual_bwd_library(**kw), rel_each=True)
+        M = hermitian4()
+        kind, *ops = pl.cross_terms_operands(
+            ps._dense_cross_expanded_terms(M.conj(), (6, 7), nq), nq, dev)
+        require(kind == "dual" and ops[0].shape[0] == 4,
+                f"(6, 7) seed terms {kind} {ops[0].shape}")
+        for acc in (True, False):
+            check_many("dual_multi_apply", f"{nq}q_seed_T4_{'acc' if acc else 'fresh'}",
+                       (a_n, 128, 128), 4 if acc else 2, 2,
+                       seed_multi(dual_multi_apply, ops, acc),
+                       seed_multi(dual_multi_apply_plain, ops, acc), DUAL_TOL,
+                       flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
+                       bytes_moved=(3 if acc else 2) * st, intact=2,
+                       library=multi_seed_library("tsk,akm,tlm->asl", ops[2:],
+                                                  ops[:2], acc),
+                       dense_flops=amps_n * 2 * 128 * 4 * 8)
+        kind, vshape, *ops = pl.cross_span_operands(M.conj(), (0, nq - 1), nq, dev)
+        require(kind == "multi" and vshape == (1, 8, 1 << (nq - 10), 128)
+                and ops[0].shape[0] == 4, f"closing seed span view {kind} {vshape}")
+        for acc in (True, False):
+            check_many("high_multi_apply", f"{nq}q_seed_T4_{'acc' if acc else 'fresh'}",
+                       vshape, 4 if acc else 2, 2,
+                       seed_multi(high_multi_apply, ops, acc),
+                       seed_multi(high_multi_apply_plain, ops, acc), HIGH_TOL,
+                       flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
+                       bytes_moved=(3 if acc else 2) * st, intact=2,
+                       library=multi_seed_library("txy,iymk,tlk->ixml", ops[:2],
+                                                  ops[2:], acc),
+                       dense_flops=amps_n * (128 + 8) * 4 * 8)
+    M = hermitian4()
+    for pos in ((13, 14), (20, 21), (27, 28)):
+        kind, vshape, er, ei = pl.cross_span_operands(M.conj(), pos, N29, dev)
+        require(kind == "high" and vshape[1] == 8, f"seed span view {kind} {vshape}")
+        check_many("high_apply", f"29q_X8_span{pos[0]}_seed", vshape, 4, 2,
+                   seed(high_apply, er, ei), seed(high_apply_plain, er, ei),
+                   HIGH_TOL, flops=amps29 * macs(er, ei) * 8,
+                   bytes_moved=3 * state29, intact=2,
+                   library=seed_library((er, ei)), dense_flops=amps29 * 8 * 8)
 
     # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
@@ -743,6 +962,7 @@ def main() -> int:
     # sweep and one group-3 sweep with the ring's run after it; the epilogue
     # is one Gram per group
     per_launch = {(r["kernel"], r["variant"]): r["ms"] for r in rows}
+    per_bound = {(r["kernel"], r["variant"]): r["bound_ms"] for r in rows}
     kernel_ms = (LAYERS * (per_launch["dual_apply", "plain"]
                            + per_launch["high_apply", "X128_plain"]
                            + per_launch["high_apply", "X128_diag_after"])
@@ -1165,7 +1385,177 @@ def main() -> int:
     kernels_vs_plain(N_QUBITS, "cnot29", "cnot")
     kernels_vs_plain(N29, "cnot29", "cnot")
 
-    # 8. result lines ---------------------------------------------------------
+    # 8. VQE-Ising and QAOA MaxCut ---------------------------------------------
+    # the kernel phase's per-launch times by what sets a launch's time apart
+    per_call = {}
+    for r in rows:
+        per_call.setdefault((r["kernel"], variant_tag(r["variant"]), tuple(r["shape"])),
+                            (r["ms"], r["bound_ms"]))
+
+    def model_phase(tag: str, build, dens_of, loss: str, L: int):
+        """The forward and the value_and_grad of a VQE / QAOA model through
+        the kernels, the counters set to 0 just before each and read just
+        after and held to the launches of the port's dispatch for the same
+        model (program_launches); warm step times, peak memory and the
+        kernel time per step where the kernel phase timed every launch."""
+        want_fwd, want_vg, vg_calls = program_launches(build, loss)
+        model = build(dev)
+        loss_fn = getattr(model, loss)
+        log(f"[{tag}] program: forward {json.dumps(want_fwd)}; value_and_grad "
+            f"{json.dumps(want_vg)}")
+        params = model.init_params(torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        dens = dens_of(model, params)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got_fwd = K.launch_counts()
+        log(f"[{tag}] forward through the kernels: {first_s:.3f} s (first call); "
+            f"launches {json.dumps(got_fwd)}")
+        require(got_fwd == want_fwd, f"{tag} forward launch counts {got_fwd}, "
+                                     f"want {want_fwd}")
+        D = torch.stack(dens)
+        require(tuple(D.shape) == (len(dens), 4, 4), f"densities {tuple(D.shape)}")
+        require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
+        herm = (D - D.conj().transpose(1, 2)).abs().max().item()
+        trace = (torch.diagonal(D, dim1=1, dim2=2).sum(-1) - 1).abs().max().item()
+        require(herm <= 1e-6 and trace <= 1e-4,
+                f"{tag} densities are not unit-trace Hermitian matrices")
+        del dens, D
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value = loss_fn(params).item()
+        fwd_s = time.perf_counter() - t0
+        fwd_peak = torch.cuda.max_memory_allocated()
+        params.requires_grad_(True)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        vg_first_s = time.perf_counter() - t0
+        got_vg = K.launch_counts()
+        log(f"[{tag}] value_and_grad through the kernels: {vg_first_s:.3f} s "
+            f"(first call); launches {json.dumps(got_vg)}")
+        require(got_vg == want_vg, f"{tag} launch counts {got_vg}, want {want_vg}")
+        grad = params.grad.detach().clone()
+        require(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
+                f"{tag} gradient is not finite and nonzero")
+        params.grad = None
+        del loss
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        vg_s = time.perf_counter() - t0
+        vg_peak = torch.cuda.max_memory_allocated()
+        drift = (params.grad - grad).abs().max().item()
+        log(f"[{tag}] value {value:.6f}; |grad| max {grad.abs().max().item():.4e}; "
+            f"forward step (warm) {fwd_s:.4f} s, peak {fwd_peak / 2**30:.3f} GiB; "
+            f"value_and_grad step (warm) {vg_s:.4f} s = {vg_s / L * 1e3:.2f} ms/layer, "
+            f"peak {vg_peak / 2**30:.3f} GiB; grad vs first call max abs {drift:.3e}")
+        require(drift <= GRAD_TOL * max(1.0, grad.abs().max().item()),
+                f"two {tag} value_and_grad steps disagree")
+        out = dict(fwd_s=fwd_s, vg_s=vg_s, fwd_peak=fwd_peak, vg_peak=vg_peak,
+                   counts=got_vg, counts_fwd=got_fwd)
+        n_fwd = sum(want_fwd[k] for k in K.KernelSet._fields)
+        timed = [per_call.get(c) for c in vg_calls]
+        missing = Counter(c for c, t in zip(vg_calls, timed) if t is None)
+        if missing:
+            log(f"[{tag}] kernel time per step not estimated: no kernel check "
+                f"at {len(missing)} launch kinds, e.g. {next(iter(missing))}")
+        else:
+            by_kernel = Counter()
+            for c, (ms, _) in zip(vg_calls, timed):
+                by_kernel[c[0]] += ms
+            fwd_ms = sum(ms for ms, _ in timed[:n_fwd])
+            vg_ms = sum(by_kernel.values())
+            floor_fwd = sum(b for _, b in timed[:n_fwd])
+            floor_vg = sum(b for _, b in timed)
+            log(f"[{tag}] kernel time per step (launches x per-launch ms above): "
+                f"forward {fwd_ms:.1f} ms = {100 * fwd_ms / (fwd_s * 1e3):.1f}% of its "
+                f"step; value_and_grad {vg_ms:.1f} ms = "
+                f"{100 * vg_ms / (vg_s * 1e3):.1f}% of its step; floors (launches x "
+                f"bound_ms) forward {floor_fwd:.1f} ms, value_and_grad "
+                f"{floor_vg:.1f} ms; by kernel "
+                f"{json.dumps({k: round(t, 2) for k, t in by_kernel.most_common()})}")
+            out.update(fwd_kernel_ms=fwd_ms, vg_kernel_ms=vg_ms)
+        del params, grad, loss
+        torch.cuda.empty_cache()
+        return out
+
+    model_phase("vqe26", lambda d: VQEIsing(26, VQE_LAYERS, device=d),
+                lambda m, p: m.densities(p), "energy", VQE_LAYERS)
+    vqe29 = model_phase("vqe29", lambda d: VQEIsing(N29, VQE_LAYERS, device=d),
+                        lambda m, p: m.densities(p), "energy", VQE_LAYERS)
+    graph = random_graph(N29, QAOA_EXTRA_EDGES, 0)
+    qaoa29 = model_phase(
+        "qaoa29", lambda d: QAOAMaxCut(N29, graph, layers_number=QAOA_LAYERS, device=d),
+        lambda m, p: m._densities(p, K.KERNELS), "loss", QAOA_LAYERS)
+
+    def vqe_closed_form(n: int) -> None:
+        """VQEIsing(n, 1) at params (gamma, 0) from |+>^n: E = -n cos^2(2
+        gamma), dE/dgamma = 2 n sin(4 gamma) = -dE/dbeta."""
+        gamma = float(np.float32(0.37))  # the f32 angle, exactly
+        one = VQEIsing(n, 1, scan=True)
+        p1 = torch.tensor([gamma, 0.0], device=dev, requires_grad=True)
+        v1 = one.energy(p1)
+        v1.backward()
+        s4 = 2 * n * np.sin(4 * gamma)
+        val_err = abs(v1.item() + n * np.cos(2 * gamma) ** 2)
+        g = p1.grad.double().cpu()
+        g_err = max(abs(g[0].item() - s4), abs(g[1].item() + s4))
+        log(f"[vqe29] {n}q x 1L closed form: value err {val_err:.3e} (tol "
+            f"{VQE_VALUE_TOL * n:.1e}), gradient err {g_err:.3e} (tol "
+            f"{VQE_GRAD_TOL * n:.1e}) vs 2 n sin(4 gamma) = {s4:.4f}")
+        require(val_err <= VQE_VALUE_TOL * n and g_err <= VQE_GRAD_TOL * n,
+                f"the {n}-qubit VQE closed form failed")
+        torch.cuda.empty_cache()
+
+    vqe_closed_form(N29)
+    vqe_closed_form(N30)
+    zero = QAOAMaxCut(N29, graph, layers_number=2, scan=True)
+    pz = torch.zeros(4, device=dev, requires_grad=True)
+    cut = zero.expected_cut(pz)
+    cut.backward()
+    cut_err = abs(cut.item() - len(graph) / 2)
+    gz = pz.grad.abs().max().item()
+    log(f"[qaoa29] {N29}q x 2L params = 0: cut {cut.item()!r} (want {len(graph) / 2}, "
+        f"tol {QAOA_ZERO_TOL * len(graph):.1e}); |grad| max {gz:.3e} (tol "
+        f"{QAOA_ZERO_TOL:.0e})")
+    require(cut_err <= QAOA_ZERO_TOL * len(graph) and gz <= QAOA_ZERO_TOL,
+            "the QAOA params = 0 known answer failed")
+    del zero, pz, cut
+    torch.cuda.empty_cache()
+
+    def model_vs_plain(tag: str, model, loss_fn) -> float:
+        p = (model.init_params(torch.Generator().manual_seed(SEED + 3))
+             / (0.1 if isinstance(model, QAOAMaxCut) else 1.0)).requires_grad_(True)
+        loss_fn(p).backward()
+        g_k = p.grad.clone()
+        p.grad = None
+        loss_fn(p, kernels=K.PLAIN).backward()
+        rel = ((g_k - p.grad).abs() / p.grad.abs().clamp(min=1.0)).max().item()
+        log(f"[{tag}] {model.n}q x {model.layers}L gradient, kernels vs plain path: "
+            f"max err / max(1, |g|) {rel:.3e} (tol {MODEL_GRAD_TOL:.0e}); |grad| "
+            f"max {g_k.abs().max().item():.3e}")
+        require(rel <= MODEL_GRAD_TOL,
+                f"{tag} kernel-path gradient disagrees with the plain path")
+        torch.cuda.empty_cache()
+        return rel
+
+    four = VQEIsing(N29, GRAD_LAYERS, scan=True)
+    model_vs_plain("vqe29", four, four.energy)
+    del four
+    two = QAOAMaxCut(N29, graph, layers_number=2, scan=True)
+    model_vs_plain("qaoa29", two, two.loss)
+    del two
+    torch.cuda.empty_cache()
+
+    # 9. result lines ---------------------------------------------------------
     # each kernel's row at the 29-qubit path's shape of its most launched
     # variant; launches from the 29q x 100L cz value_and_grad (and its
     # forward), and for the CNOT ring's kernels from the 29q x 20L cnot
@@ -1203,23 +1593,53 @@ def main() -> int:
                                    "29q"),
     }
     cnot_kernels = ("dual_multi_apply", "high_multi_apply", "block_backward_sublane")
+    # the modes the VQE / QAOA slice ported, with their launches counted
+    # per mode (ops.kernels' mode_launches): "launches" from the 29q x 26L
+    # VQE value_and_grad
+    modes = {
+        "block_backward_dual[diag_q]": (
+            "dqc_tpu_torch/csrc/block_backward_dual.cu",
+            "dqc_tpu/ops/pallas/block_backward.py:437 (diag_q)",
+            "29q_g0_first_diag_first_q", "_q"),
+        "dual_multi_apply[seed]": (
+            "dqc_tpu_torch/csrc/dual_multi_apply.cu",
+            "dqc_tpu/ops/pallas/dual_apply.py:165 (conj/acc/alias=False)",
+            "29q_seed_T4_acc", "_seed_"),
+        "high_multi_apply[seed]": (
+            "dqc_tpu_torch/csrc/high_multi_apply.cu",
+            "dqc_tpu/ops/pallas/high_apply.py:273 (conj/acc/alias=False)",
+            "29q_seed_T4_acc", "_seed_"),
+    }
     out = []
-    for name, (src, replaces, variant) in sources.items():
-        mine = [r for r in rows if r["kernel"] == name]
+
+    def row_of(name, src, replaces, mine, variant, launches, launches_forward):
         rep = next(r for r in mine if r["variant"] == variant)
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "launches_forward": launches_forward,
+                "launches_cnot29": countsc.get(name),
+                "launches_28q": counts.get(name),
+                "launches_vqe29": vqe29["counts"].get(name),
+                "launches_qaoa29": qaoa29["counts"].get(name),
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "library_ms": rep["library_ms"], "variant": variant,
+                "shape": rep["shape"], "dense_bound_ms": rep.get("dense_bound_ms")}
+
+    for name, (src, replaces, variant) in sources.items():
+        mine = [r for r in rows if r["kernel"] == name and not (
+            name in ("block_backward_dual", "dual_multi_apply", "high_multi_apply")
+            and r["variant"].endswith(("_q", "_acc", "_fresh")))]
         main_vg, main_fwd = ((countsc, fwdc) if name in cnot_kernels
                              else (counts29, fwd29))
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": main_vg[name],
-                    "launches_forward": main_fwd[name],
-                    "launches_cnot29": countsc[name],
-                    "launches_28q": counts[name],
-                    "max_abs_err": max(r["max_abs_err"] for r in mine),
-                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": rep["library_ms"], "variant": variant,
-                    "shape": rep["shape"],
-                    "dense_bound_ms": rep.get("dense_bound_ms")})
+        out.append(row_of(name, src, replaces, mine, variant, main_vg[name],
+                          main_fwd[name]))
+    for name, (src, replaces, variant, tag) in modes.items():
+        kernel = name.split("[")[0]
+        mine = [r for r in rows if r["kernel"] == kernel and tag in r["variant"]]
+        out.append(row_of(name, src, replaces, mine, variant,
+                          vqe29["counts"][name], vqe29["counts_fwd"][name]))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

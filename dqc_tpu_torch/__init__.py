@@ -8,10 +8,13 @@ that runs on CPU tensors. Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 
 So far: the forward and the gradient (torch autograd) of
-``HardwareEfficientAnsatz(n, L, entangler="cz")`` at n in {14, 17..21,
-24..28} (ROADMAP.md lists what comes next).
+``HardwareEfficientAnsatz(n, L, entangler="cz" | "cnot")``, ``VQEIsing``
+and ``QAOAMaxCut`` (scan mode) at n in 14..30 (ROADMAP.md lists what comes
+next).
 """
 
 from dqc_tpu_torch.models.hardware_efficient import HardwareEfficientAnsatz
+from dqc_tpu_torch.models.qaoa import QAOAMaxCut
+from dqc_tpu_torch.models.vqe_ising import VQEIsing
 
-__all__ = ["HardwareEfficientAnsatz"]
+__all__ = ["HardwareEfficientAnsatz", "QAOAMaxCut", "VQEIsing"]

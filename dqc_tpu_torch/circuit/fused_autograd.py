@@ -145,17 +145,21 @@ def _ref_op_vjp(ref: GateRef, full_ct: torch.Tensor, g: int) -> torch.Tensor:
     dense gate's entry (a, b) appears at every (a c, b c) of the expanded
     operator; a diagonal gate's entry m along the diagonal wherever the
     target bits read m. Returns the gate's flat shape (2^k * 2^k or 2^k)."""
+    if ref.diag:
+        return _diag_table_vjp(ref, torch.diagonal(full_ct), g)
     rels = tuple(int(p) for p in ref.rel_positions)
     k = len(rels)
-    if ref.diag:
-        sel = torch.as_tensor(gr._selector_matrix(rels, g), device=full_ct.device)
-        out = torch.zeros(1 << k, dtype=full_ct.dtype, device=full_ct.device)
-        return out.index_add_(0, sel, torch.diagonal(full_ct))
     perm = gr._expand_perm(rels, g)
     inv = [perm.index(i) for i in range(2 * g)]
     D = full_ct.reshape((2,) * (2 * g)).permute(inv).reshape(
         1 << k, 1 << (g - k), 1 << k, 1 << (g - k))
     return torch.einsum("acbc->ab", D).reshape(-1)
+
+
+def _diag_table_vjp(ref: GateRef, table_ct: torch.Tensor, g: int) -> torch.Tensor:
+    """Cotangent of a diagonal gate from the cotangent of its full-group
+    table (``_ref_table``): each entry added to the gate entry it reads."""
+    return gr.bits_sum(table_ct, [g - 1 - int(r) for r in ref.rel_positions], g)
 
 
 def dense_block_var_cts(fi: FBlock, ops, T0: torch.Tensor, var_gates,
@@ -184,3 +188,27 @@ def dense_block_var_cts(fi: FBlock, ops, T0: torch.Tensor, var_gates,
         gate = _ref_gate(ref, var_gates, const_gates)
         var_cts[ref.queue_idx] = _ref_op_vjp(ref, full_ct, g).reshape(
             gate.shape).to(dtype)
+
+
+def diag_block_var_cts(fi: FBlock, tables, W: torch.Tensor, var_gates,
+                       const_gates, g: int, dtype,
+                       var_cts: Dict[int, torch.Tensor]) -> None:
+    """Close each var gate's cotangent of an all-diagonal block from the
+    block's gradient source ``W[x] = sum_b bwd[x, b] fwd_in[x, b]``: the
+    full-group table cotangent of gate ``i`` is ``W`` times the other
+    gates' tables (prefix and suffix products), projected through the
+    transpose of the diagonal expansion (each table entry added to the gate
+    entry it reads)."""
+    m = len(tables)
+    ones = torch.ones(1 << g, dtype=dtype, device=W.device)
+    prefix = [ones]
+    for i in range(m):
+        prefix.append(_elmul(prefix[i], tables[i]))
+    suffix = [ones] * (m + 1)
+    for i in range(m - 1, -1, -1):
+        suffix[i] = _elmul(suffix[i + 1], tables[i])
+    for i, ref in enumerate(fi.gates):
+        if not ref.var:
+            continue
+        full_ct = _elmul(_elmul(W, prefix[i]), suffix[i + 1])
+        var_cts[ref.queue_idx] = _diag_table_vjp(ref, full_ct, g).to(dtype)

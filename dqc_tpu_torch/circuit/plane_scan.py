@@ -28,11 +28,19 @@ and ``dcross`` (a dense gate across two groups, e.g. a CNOT of the ring: one
 pass of dual_multi_apply, of the high apply on a span view or of
 high_multi_apply; its adjoint one block_backward_high pass on a span view,
 or the 3-pass uncompute / transport), both ways, and the scan rotation of a
-trailing const run both ways. The others (``mdiag``, ``xcross``, ``dens``),
-the gradient of a variable ``dcross`` gate without a span view
-(``_plane_pair_grad``) and cross-group density seeds raise
-``NotImplementedError`` naming what is still to be ported, before any state
-is allocated. The layer loops are Python loops.
+trailing const run both ways. A diagonal run with variable gates (the ZZ
+cost gates of VQE and QAOA) folded into a dual sweep closes its cotangents
+from the Q reductions of block_backward_dual (``diag_q``). Densities across
+groups come from a sub-block contraction, and their seeds from the
+multi-term kernels' seed modes (or a span view, or per-term sweeps). A
+const-only prologue tape runs on the planes before the layers. The others
+(``mdiag``, ``xcross``, ``dens``), the gradient of a variable ``dcross``
+gate without a span view (``_plane_pair_grad``), a variable run in a lone
+``diag`` item or a ``dhigh`` item (the Q outputs of diag_backward_planes
+and block_backward_high) and the seed of a density over more than two
+groups without a span view (``xcross``) raise ``NotImplementedError``
+naming what is still to be ported, before any state is allocated. The
+layer loops are Python loops.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from dqc_tpu_torch.circuit.fused_autograd import (
     _inv_diag,
     _ref_gate,
     dense_block_var_cts,
+    diag_block_var_cts,
 )
 from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, GateRef
 from dqc_tpu_torch.ops import groups as gr
@@ -340,33 +349,59 @@ def _unsupported(what: str, n: int) -> NotImplementedError:
         "14..30); see ROADMAP.md")
 
 
-def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape) -> None:
+_VAR_RUN_Q = {
+    "diag": "the Q reductions of a lone variable diagonal run (the Q outputs "
+            "of diag_backward_planes)",
+    "dhigh": "the Q reductions of a variable diagonal run folded into a high "
+             "sweep (the diag_q outputs of block_backward_high)",
+}
+_XCROSS_SEED = ("the seed of a density over more than two groups without a "
+                "span view (xcross: _apply_xcross)")
+
+
+def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape,
+                            pro_ftape: Optional[FusedTape] = None) -> None:
     """Raise ``NotImplementedError`` naming every missing kernel when the
-    layer program or the density epilogue needs one the port lacks."""
+    prologue, the layer program or the density epilogue needs one the port
+    lacks."""
     n = ftape.n
     missing: List[str] = []
-    for item in plane_program(ftape):
-        if item[0] in _MISSING:
-            missing.append(f"plane item {item[0]!r}: {_MISSING[item[0]]}")
-    for fi in epi_ftape.instructions:
-        if not isinstance(fi, FDensity):
-            missing.append("a gate in the density epilogue")
-        elif len(_density_groups(fi, n)) > 1:
-            missing.append("a cross-group density (_cross_density)")
+    for tape in (pro_ftape, ftape):
+        if tape is None:
+            continue
+        for item in plane_program(tape):
+            if item[0] in _MISSING:
+                missing.append(f"plane item {item[0]!r}: {_MISSING[item[0]]}")
+    if any(not isinstance(fi, FDensity) for fi in epi_ftape.instructions):
+        missing.append("a gate in the density epilogue")
     if missing:
         raise _unsupported("; ".join(dict.fromkeys(missing)), n)
 
 
-def check_backward_supported(ftape: FusedTape) -> None:
-    """Raise ``NotImplementedError`` when the layer program's adjoint needs
-    what the port lacks: a variable dense cross-group gate without a span
-    view (its cotangent needs ``_plane_pair_grad``)."""
+def check_backward_supported(ftape: FusedTape,
+                             epi_ftape: Optional[FusedTape] = None) -> None:
+    """Raise ``NotImplementedError`` when the adjoint needs what the port
+    lacks: a variable dense cross-group gate without a span view (its
+    cotangent needs ``_plane_pair_grad``), a variable diagonal run outside a
+    dual sweep (the Q outputs of the diag and high backward kernels), or the
+    seed of a density over three or more groups without a span view."""
     n = ftape.n
     for item in plane_program(ftape):
         if item[0] == "dcross":
             fi = ftape.instructions[item[1]]
             if fi.var and not pl.backward_span_eligible(fi.positions, n):
                 raise _unsupported(_PAIR_GRAD, n)
+        elif item[0] in _VAR_RUN_Q and _run_has_var(item[1], ftape):
+            raise _unsupported(_VAR_RUN_Q[item[0]], n)
+    for fi in () if epi_ftape is None else epi_ftape.instructions:
+        if fi.diff and _is_xcross_seed(fi.positions, n):
+            raise _unsupported(_XCROSS_SEED, n)
+
+
+def _is_xcross_seed(positions, n: int) -> bool:
+    """A cross-group density seed that needs the >2-group dense apply."""
+    groups = {gr.group_of_bit(n, p)[0] for p in positions}
+    return len(groups) > 2 and not pl.cross_span_eligible(positions, n)
 
 
 # ---------------------------------------------------------------------------
@@ -676,6 +711,7 @@ def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
         tr, ti = pl.apply_block(xr, xi, EB, jb, n, alias=False, kernels=kernels)
         acc = pl.apply_block(tr, ti, EA, ja, n, acc=acc, conj=conj,
                              kernels=kernels)
+        del tr, ti  # one temporary pair at a time
     return acc
 
 
@@ -824,12 +860,9 @@ def _close_block_cts(layer: _Layer, i: int, T0: torch.Tensor,
                             var_cts)
 
 
-def _no_var_run(run, layer: _Layer) -> None:
+def _no_var_run(run, layer: _Layer, kind: str) -> None:
     if _run_has_var(run, layer.ftape):
-        raise _unsupported(
-            "the Q reductions of a variable diagonal run (the diag_q outputs of "
-            "block_backward_dual / block_backward_high, _diag_cts_from_Q, "
-            "diag_block_var_cts)", layer.ftape.n)
+        raise _unsupported(_VAR_RUN_Q[kind], layer.ftape.n)
 
 
 def _backward_step(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
@@ -856,8 +889,10 @@ def _backward_dual_step(fxr, fxi, bxr, bxi, i_first: int,
     """Adjoint of a lane + sublane dense sweep in ONE read of the (fwd, bwd)
     planes (block_backward_dual). ``i_first`` was applied before
     ``i_second`` in the forward (None: identity on the other minor group);
-    ``run``: a const diagonal run folded into the sweep, before it in the
-    forward when ``diag_first``."""
+    ``run``: a diagonal run folded into the sweep, before it in the forward
+    when ``diag_first``; a run with variable gates also yields its Q
+    reductions, from which its gates' cotangents close
+    (:func:`_diag_cts_from_Q`)."""
     ftape = layer.ftape
     dev = fxr.device
     g0_first = ftape.instructions[i_first].group == 0
@@ -872,12 +907,12 @@ def _backward_dual_step(fxr, fxi, bxr, bxi, i_first: int,
                 *pl.op_planes(layer.operator(i), dev))
 
     diag = {}
+    with_q = run is not None and _run_has_var(run, ftape)
     if run is not None:
-        _no_var_run(run, layer)
         diag = dict(
             diag_inv_tables=pl._diag_table_planes(layer.run_tables(run, True), dev),
             diag_tables=pl._diag_table_planes(layer.run_tables(run), dev),
-            diag_first_fwd=diag_first)
+            diag_first_fwd=diag_first, diag_q=with_q)
     out = layer.kernels.block_backward_dual(
         fxr, fxi, bxr, bxi, *ops_of(lane_i), *ops_of(sub_i),
         g0_first=g0_first, **diag)
@@ -885,6 +920,9 @@ def _backward_dual_step(fxr, fxi, bxr, bxi, i_first: int,
         _close_block_cts(layer, lane_i, torch.complex(out[4], out[5]), var_cts)
     if sub_i is not None:
         _close_block_cts(layer, sub_i, torch.complex(out[6], out[7]), var_cts)
+    if with_q:
+        Q = tuple(torch.complex(out[k], out[k + 1]) for k in (8, 10, 12))
+        _diag_cts_from_Q(run, layer, Q, var_cts)
     return out[0], out[1], out[2], out[3]
 
 
@@ -892,17 +930,84 @@ def _backward_ddual(fxr, fxi, bxr, bxi, item, layer: _Layer,
                     var_cts: Dict[int, torch.Tensor]):
     """Adjoint of a fused [diag run + minor dense pair] in ONE kernel pass:
     the pair reverses as in _backward_dual_step and (fwd, bwd) roll through
-    the run in the same pass (without the Q reductions: the run is const)."""
+    the run in the same pass, with the run's Q reductions when it holds
+    variable gates."""
     return _backward_dual_step(fxr, fxi, bxr, bxi, item[2], item[3], layer,
                                var_cts, run=item[1],
                                diag_first=_ddual_order(item))
 
 
+def _reduce_a_rows(Qx: torch.Tensor, j: int, n: int) -> torch.Tensor:
+    """Merged-high-axis reduction keeping group ``j``: (A, ...) ->
+    (dim_j, ...) by summing every other high axis (trailing dims kept)."""
+    dims = gr.group_dims(n)
+    a_dims = dims[:-2]
+    ax = len(dims) - 1 - j
+    v = Qx.reshape(tuple(a_dims) + tuple(Qx.shape[1:]))
+    axes = tuple(k for k in range(len(a_dims)) if k != ax)
+    return v.sum(dim=axes) if axes else v
+
+
+def _reduce_a_joint(Wa: torch.Tensor, ja: int, jb: int, n: int) -> torch.Tensor:
+    """(A,) -> (dim_ja, dim_jb) keeping the two high axes (ja > jb)."""
+    dims = gr.group_dims(n)
+    a_dims = dims[:-2]
+    axa, axb = len(dims) - 1 - ja, len(dims) - 1 - jb
+    v = Wa.reshape(a_dims)
+    axes = tuple(k for k in range(len(a_dims)) if k not in (axa, axb))
+    return v.sum(dim=axes) if axes else v
+
+
+def _diag_cts_from_Q(run, layer: _Layer, Q, var_cts: Dict[int, torch.Tensor]):
+    """Per-gate cotangents of a diagonal run from the kernel's Q pair
+    reductions ``(Qsl, Qas, Qal)`` of ``Q = bwd fwd`` taken before the run
+    is rolled back. Uncomputing gate ``g`` divides fwd by ``d_g``, which
+    lives on ``g``'s own axes only, so its gradient source is the reduction
+    of Q onto those axes times ``d_g^-1``: a block on one group closes in
+    :func:`diag_block_var_cts`, a gate across two groups through the
+    transpose of its joint table (a gather, so a scatter-add)."""
+    ftape = layer.ftape
+    n = ftape.n
+    sizes = gr.group_sizes_low_first(n)
+    Qsl, Qas, Qal = Q
+    for i in run:
+        fi = ftape.instructions[i]
+        if isinstance(fi, FBlock):
+            if not fi.has_var:
+                continue
+            g = sizes[fi.group]
+            inv_tab = layer._on_device(_block_operator(
+                fi, layer.var_gates, layer.const_gates, g, inverse=True)
+            ).reshape(-1).to(C64)
+            if fi.group == 0:
+                W = Qsl.sum(0) * inv_tab
+            elif fi.group == 1:
+                W = Qsl.sum(1) * inv_tab
+            else:
+                W = _reduce_a_rows(Qas.sum(1), fi.group, n) * inv_tab
+            diag_block_var_cts(fi, layer.ops(i), W, layer.var_gates,
+                               layer.const_gates, g, C64, var_cts)
+        elif fi.var:
+            d = _cross_gate(fi, layer.var_gates, layer.const_gates).reshape(-1)
+            inv_t2, ja, jb = gr.cross_diag_table(
+                _inv_diag(d, fi.unitary, _cross_ctx(fi)), fi.positions, n)
+            if (ja, jb) == (1, 0):
+                Wred = Qsl
+            elif jb == 0:
+                Wred = _reduce_a_rows(Qal, ja, n)
+            elif jb == 1:
+                Wred = _reduce_a_rows(Qas, ja, n)
+            else:
+                Wred = _reduce_a_joint(Qas.sum(1), ja, jb, n)
+            var_cts[fi.queue_idx] = gr.cross_diag_table_vjp(
+                Wred * layer._on_device(inv_t2).to(C64), fi.positions, n)
+
+
 def _diag_run_backward(fxr, fxi, bxr, bxi, run, layer: _Layer):
     """One in-place kernel pass rolling (fwd, bwd) back through a const
     diagonal run (uncompute + cotangent transport). A run with variable
-    gates needs the Q reductions and raises."""
-    _no_var_run(run, layer)
+    gates needs the Q reductions of the diag backward kernel and raises."""
+    _no_var_run(run, layer, "diag")
     fxr, fxi, bxr, bxi, _ = pl.backward_diag_run(
         fxr, fxi, bxr, bxi, layer.run_tables(run, True), layer.run_tables(run),
         with_q=False, kernels=layer.kernels)
@@ -966,7 +1071,7 @@ def _backward_dhigh(fxr, fxi, bxr, bxi, item, layer: _Layer,
     pass: uncompute + transport + the dense block's T0 pair gram
     (pl.backward_dhigh)."""
     run, i = item[1], item[2]
-    _no_var_run(run, layer)
+    _no_var_run(run, layer, "dhigh")
     fi = layer.ftape.instructions[i]
     fxr, fxi, bxr, bxi, T0, _ = pl.backward_dhigh(
         fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
@@ -1092,11 +1197,34 @@ def _density_groups(fi: FDensity, n: int) -> set:
     return {gr.group_of_bit(n, p)[0] for p in fi.positions}
 
 
+def _cross_density(xr, xi, positions, n: int) -> torch.Tensor:
+    """Reduced density over positions spanning several groups:
+    ``rho[p, q] = sum_b psi[p, b] conj(psi[q, b])`` from the real-pair
+    sub-block matrices ``Sr``, ``Si`` (groups.subblocks), as the JAX package
+    leaves it to XLA: both are copied once per density into one buffer
+    ``S = [Sr; Si]``, and one product ``S S^T`` holds the four real
+    products. It sums in two levels, matrix products over 1024-amplitude
+    chunks and then a sum of the chunks, so that f32 sums of up to 2^28
+    terms stay short."""
+    k = len(positions)
+    R = 1 << k
+    S = torch.empty((2, R, xr.numel() // R), dtype=torch.float32, device=xr.device)
+    for dst, plane in zip(S, (xr, xi)):
+        view = gr.subblock_view(plane, positions, n)
+        dst.view(view.shape).copy_(view)
+    chunk = min(1024, S.shape[2])
+    C = S.view(2 * R, -1, chunk).transpose(0, 1)
+    G = torch.matmul(C, C.transpose(1, 2)).sum(0)
+    Dr = G[:R, :R] + G[R:, R:]
+    Di = G[R:, :R] - G[:R, R:]
+    return torch.complex(Dr, Di)
+
+
 def _density_for(grams: Dict, xr, xi, fi: FDensity, n: int,
                  kernels: KernelSet) -> torch.Tensor:
     groups = _density_groups(fi, n)
     if len(groups) != 1:
-        raise _unsupported("a cross-group density (_cross_density)", n)
+        return _cross_density(xr, xi, fi.positions, n)
     j = groups.pop()
     G = _gram_for(grams, xr, xi, j, n, kernels)
     rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
@@ -1106,7 +1234,8 @@ def _density_for(grams: Dict, xr, xi, fi: FDensity, n: int,
 def _epilogue_density_list(epi_ftape: FusedTape, xr, xi, n: int,
                            kernels: KernelSet = KERNELS):
     """Diff-density matrices of a density-only tape from cached per-group
-    Grams (one kernel read per group)."""
+    Grams (one kernel read per group; a sub-block contraction for a
+    density across groups)."""
     grams: Dict[int, torch.Tensor] = {}
     return tuple(_density_for(grams, xr, xi, fi, n, kernels)
                  for fi in epi_ftape.instructions if fi.diff)
@@ -1134,20 +1263,22 @@ def _gram_for(grams: Dict[int, torch.Tensor], xr, xi, j: int, n: int,
 
 def _add_seed(pending: Dict, fi: FDensity, ct: torch.Tensor, n: int) -> None:
     """Fold one diff-density cotangent into the seed accumulators: in-group
-    requests sum per-group expanded operators ``(L + L^H)`` (key = group).
-    Cross-group requests need the dense cross-group seed, not ported."""
+    requests sum per-group expanded operators ``(L + L^H)`` (key = group);
+    cross-group requests keep their ``sym`` per positions tuple (key =
+    positions), applied as a dense cross-group gate."""
     sizes = gr.group_sizes_low_first(n)
     d = 1 << len(fi.positions)
     ct_m = ct.reshape(d, d).to(C64)
     sym = ct_m + ct_m.conj().T
     groups = _density_groups(fi, n)
-    if len(groups) != 1:
-        raise _unsupported("a cross-group density seed (the conj / acc modes of "
-                           "dual_multi_apply_planes / high_multi_apply_planes)", n)
-    j = groups.pop()
-    rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
-    E = gr.expand_in_group(sym, rels, sizes[j])
-    pending[j] = E if j not in pending else pending[j] + E
+    if len(groups) == 1:
+        j = groups.pop()
+        rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
+        E = gr.expand_in_group(sym, rels, sizes[j])
+        pending[j] = E if j not in pending else pending[j] + E
+    else:
+        key = tuple(fi.positions)
+        pending[key] = sym if key not in pending else pending[key] + sym
 
 
 def _collect_seed_pending(epi_ftape: FusedTape, density_cts, n: int,
@@ -1172,7 +1303,11 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
     set of cotangent planes (``acc``). Returns ``(None, None)`` without
     seeds. When the top group is tiny, the top two groups' seeds (a sum of
     per-group operators) combine into ONE merged-axis operator
-    ``kron(M_top, I) + kron(I, M_low)`` and one pass, first."""
+    ``kron(M_top, I) + kron(I, M_low)`` and one pass, first. A seed across
+    groups (key = positions) applies ``conj(M)`` as a dense cross-group
+    gate in the same seed form (_apply_dense_cross: the multi-term kernels,
+    a span view or per-term sweeps); one over more than two groups without
+    a span view needs ``_apply_xcross`` and raises."""
     pending = dict(pending)
     njg = len(gr.group_dims(n))
     bxr = bxi = None
@@ -1188,9 +1323,15 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
             Mm = t if Mm is None else Mm + t
         bxr, bxi = pl.apply_merged_top(fxr, fxi, Mm.conj(), n, alias=False,
                                        conj=True, kernels=kernels)
-    for j, M in pending.items():
+    for key, M in pending.items():
         acc = None if bxr is None else (bxr, bxi)
-        bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), j, n, alias=False,
+        if isinstance(key, tuple):
+            if _is_xcross_seed(key, n):
+                raise _unsupported(_XCROSS_SEED, n)
+            bxr, bxi = _apply_dense_cross(fxr, fxi, M.conj(), key, n, kernels,
+                                          conj=True, acc0=acc)
+            continue
+        bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), key, n, alias=False,
                                   conj=True, acc=acc, kernels=kernels)
     return bxr, bxi
 
@@ -1199,9 +1340,21 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _tape_all_const(ftape: FusedTape) -> bool:
+    for fi in ftape.instructions:
+        if isinstance(fi, FBlock) and fi.has_var:
+            return False
+        if isinstance(fi, FCross) and fi.var:
+            return False
+        if isinstance(fi, FDensity):
+            return False
+    return True
+
+
 class _StdScanDensities(torch.autograd.Function):
-    """The densities of ``epi_ftape`` after L layers of ``ftape`` from
-    |0..0>, differentiable in the stacked var gates.
+    """The densities of ``epi_ftape`` after the const prologue ``pro_ftape``
+    (or none) and L layers of ``ftape`` from |0..0>, differentiable in the
+    stacked var gates.
 
     The forward keeps only the final planes (and the gate values); the
     backward consumes them in place (the uncompute rolls them back), so a
@@ -1211,9 +1364,13 @@ class _StdScanDensities(torch.autograd.Function):
     cotangents on the way out."""
 
     @staticmethod
-    def forward(ctx, ftape, epi_ftape, const_gates, device, kernels,
+    def forward(ctx, pro, ftape, epi_ftape, const_gates, device, kernels,
                 *stacked_var_gates):
         xr, xi = pl.standard_planes(ftape.n, device)
+        if pro is not None:
+            pro_ftape, pro_const_gates = pro
+            xr, xi = _apply_forward(xr, xi, plane_program(pro_ftape), _Layer(
+                pro_ftape, (), pro_const_gates, xr.device, kernels, {}))
         xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
                                       stacked_var_gates, const_gates,
                                       kernels=kernels)
@@ -1237,32 +1394,31 @@ class _StdScanDensities(torch.autograd.Function):
         pending = _collect_seed_pending(
             epi_ftape, tuple(g.conj() for g in density_grads), n)
         if not pending:
-            return (None,) * 5 + tuple(torch.zeros_like(g) for g in stacked)
+            return (None,) * 6 + tuple(torch.zeros_like(g) for g in stacked)
         bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels)
+        # the reverse layer loop stops at the prologue: it is const-only and
+        # the initial state needs no cotangent
         _, stacked_cts = _scan_layers_backward(
             fxr, fxi, bxr, bxi, ftape, plane_program(ftape), stacked,
             const_gates, kernels=kernels)
-        return (None,) * 5 + tuple(ct.conj() for ct in stacked_cts)
+        return (None,) * 6 + tuple(ct.conj() for ct in stacked_cts)
 
 
 def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
                              epi_ftape: FusedTape, pro_const_gates,
                              stacked_var_gates, const_gates, *, device=None,
                              kernels: KernelSet = KERNELS):
-    """Diff densities of ``epi_ftape`` after L layers of ``ftape``, starting
-    from |0..0> — fully plane-resident, no 2^n complex buffer — and
-    differentiable in ``stacked_var_gates`` with torch autograd. The JAX
-    signature is kept; a const prologue tape (``pro_ftape``) is not ported
-    yet and raises."""
-    if pro_ftape is not None:
-        raise NotImplementedError("a prologue tape is not ported to "
-                                  "dqc_tpu_torch yet; see ROADMAP.md")
-    check_forward_supported(ftape, epi_ftape)
+    """Diff densities of ``epi_ftape`` after ``pro_ftape`` (const-only, may
+    be None) then L layers of ``ftape``, starting from |0..0> — fully
+    plane-resident, no 2^n complex buffer — and differentiable in
+    ``stacked_var_gates`` with torch autograd."""
+    check_forward_supported(ftape, epi_ftape, pro_ftape)
     if torch.is_grad_enabled() and any(
             isinstance(g, torch.Tensor) and g.requires_grad
             for g in stacked_var_gates):
-        check_backward_supported(ftape)
-    return _StdScanDensities.apply(ftape, epi_ftape, tuple(const_gates),
+        check_backward_supported(ftape, epi_ftape)
+    pro = None if pro_ftape is None else (pro_ftape, tuple(pro_const_gates))
+    return _StdScanDensities.apply(pro, ftape, epi_ftape, tuple(const_gates),
                                    device, kernels, *stacked_var_gates)
 
 
@@ -1274,12 +1430,14 @@ def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
     """Models whose circuit starts from |0..0>: the plane-resident forward
     and its adjoint. The JAX package's composed non-plane fallback is not
     ported: an ineligible tape raises ``NotImplementedError``."""
-    if not (plane_tape_eligible(ftape, dtype)
+    pro_ok = pro_ftape is None or (plane_tape_eligible(pro_ftape, dtype)
+                                   and _tape_all_const(pro_ftape))
+    if not (pro_ok and plane_tape_eligible(ftape, dtype)
             and plane_epilogue_eligible(epi_ftape, dtype)):
         raise NotImplementedError(
-            "only plane-eligible circuits (n >= 14, complex64, gate-only "
-            "layers, density-only epilogue) run in dqc_tpu_torch yet; the "
-            "non-plane engine is ROADMAP.md queue A")
+            "only plane-eligible circuits (n >= 14, complex64, a const-only "
+            "gate prologue, gate-only layers, density-only epilogue) run in "
+            "dqc_tpu_torch yet; the non-plane engine is ROADMAP.md queue A")
     return plane_std_scan_densities(pro_ftape, ftape, epi_ftape,
                                     pro_const_gates, stacked_var_gates,
                                     const_gates, device=device,

@@ -1,7 +1,8 @@
 """Carry-over between the JAX package and the port, through numpy.
 
 The two packages exchange data only as numpy arrays: the Euler angles of
-the hardware-efficient ansatz, ``(L, n, 3)``, and plane states, two f32
+the hardware-efficient ansatz, ``(L, n, 3)``, the flat ``(gamma, beta)``
+vector of VQEIsing and QAOAMaxCut, ``(2L,)``, and plane states, two f32
 arrays ``(A, 128, 128)``.
 """
 
@@ -16,11 +17,14 @@ from dqc_tpu_torch import config
 
 
 def params_from_jax(params, *, dtype=torch.float32, device=None) -> torch.Tensor:
-    """``(L, n, 3)`` Euler angles (a numpy array, or any array numpy can
-    read) -> a tensor of ``dtype`` on ``device`` (default: the card)."""
+    """``(L, n, 3)`` Euler angles or a flat ``(2L,)`` angle vector (a numpy
+    array, or any array numpy can read) -> a tensor of ``dtype`` on
+    ``device`` (default: the card)."""
     a = np.asarray(params)
-    if a.ndim != 3 or a.shape[-1] != 3:
-        raise ValueError(f"expected (layers, n, 3) angles, got {a.shape}")
+    flat = a.ndim == 1 and a.shape[0] % 2 == 0
+    if not flat and (a.ndim != 3 or a.shape[-1] != 3):
+        raise ValueError(f"expected (layers, n, 3) or (2 layers,) angles, got "
+                         f"{a.shape}")
     return torch.tensor(a, dtype=dtype, device=config.resolve_device(device))
 
 

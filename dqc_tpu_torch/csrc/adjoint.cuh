@@ -271,6 +271,108 @@ __device__ void pair_gram(const float* bR, const float* bI, const float* fR,
     }
 }
 
+// Where the Q reductions of a diagonal run go (the diag_q outputs of the
+// dual adjoint, X = 128 slab tiles only): Q[a, s, l] = B F, the holomorphic
+// pair product of the planes as they meet the run (before its update).
+struct QView {
+  float* sl;      // this block's partial slot in the tile's order: re
+                  // [x 128 + c0 + c] (Qsl for a sublane step, its transpose
+                  // for a lane step), im + 128 128
+  float* as_r;    // rows (A, 128): sum over l of Q[a, s, l]
+  float* as_i;
+  float* al_r;    // rows (A, 128): sum over s of Q[a, s, l]
+  float* al_i;
+  int64_t a;      // the slab
+  int sublane;    // the tile's rows x are s (columns l = c0 + c); else x = l
+  int c0;         // the tile's first column
+};
+
+// The tile's share of the Q reductions from the shared-memory tiles of F and
+// B (X = 128 rows, C = 64 columns). Warp w takes rows 8 w .. 8 w + 7, lane t
+// the columns t and t + 32. Each Qsl entry has one writer thread in the
+// block, tile after tile (red.global, as the pair gram), and a warp's 32
+// lanes add to 32 adjacent entries (the slot keeps the tile's order, so a
+// lane step's Q lands transposed); a row's sum over the
+// tile is a fixed butterfly of warp shuffles, added by the warp's lane 0; a
+// column's is 16 per-warp partials in scratch (2 x 16 x 64 floats, the
+// operator-tile buffers, unused here), added in warp order by one thread.
+// Rows and columns of a slab are summed into the (A, 128) outputs by their
+// one owner thread, in tile order: the sums do not depend on scheduling.
+__device__ void q_tile(const float* fR, const float* fI, const float* bR,
+                       const float* bI, const QView& q, float* scratch) {
+  using Cfg = AdjCfg<kGroup>;
+  constexpr int LD = Cfg::LD;
+  static_assert(Cfg::C == 64, "X = 128 tiles");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // rows of the tile sum into Qas (x = s) or Qal (x = l); columns into the
+  // other
+  float* row_r = q.sublane ? q.as_r : q.al_r;
+  float* row_i = q.sublane ? q.as_i : q.al_i;
+  float* col_r = q.sublane ? q.al_r : q.as_r;
+  float* col_i = q.sublane ? q.al_i : q.as_i;
+  float colr[2] = {0.f, 0.f}, coli[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int x = warp * 8 + i;
+    float rr = 0.f, ri = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = lane + 32 * j;
+      float qr, qi;
+      cmul(bR[x * LD + c], bI[x * LD + c], fR[x * LD + c], fI[x * LD + c], qr,
+           qi);
+      const int sl = x * kGroup + q.c0 + c;
+      atomicAdd(q.sl + sl, qr);
+      atomicAdd(q.sl + kGroup * kGroup + sl, qi);
+      rr += qr;
+      ri += qi;
+      colr[j] += qr;
+      coli[j] += qi;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      rr += __shfl_xor_sync(0xffffffffu, rr, off);
+      ri += __shfl_xor_sync(0xffffffffu, ri, off);
+    }
+    if (lane == 0) {
+      row_r[q.a * kGroup + x] += rr;
+      row_i[q.a * kGroup + x] += ri;
+    }
+  }
+  float* sr = scratch;
+  float* si = scratch + 16 * Cfg::C;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    sr[warp * Cfg::C + lane + 32 * j] = colr[j];
+    si[warp * Cfg::C + lane + 32 * j] = coli[j];
+  }
+  __syncthreads();  // the column partials are complete
+  if (threadIdx.x < Cfg::C) {
+    const int c = threadIdx.x;
+    float tr = 0.f, ti = 0.f;
+    for (int w = 0; w < 16; ++w) {
+      tr += sr[w * Cfg::C + c];
+      ti += si[w * Cfg::C + c];
+    }
+    col_r[q.a * kGroup + q.c0 + c] += tr;
+    col_i[q.a * kGroup + q.c0 + c] += ti;
+  }
+}
+
+// The shared-memory tile [x][c] times the run's entries, in place.
+template <int X>
+__device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv) {
+  using Cfg = AdjCfg<X>;
+  for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
+    const int x = e / Cfg::C, c = e % Cfg::C;
+    float dr, di, vr, vi;
+    diag_view_at(dv, x, c, dr, di);
+    cmul(tr_[x * Cfg::LD + c], ti_[x * Cfg::LD + c], dr, di, vr, vi);
+    tr_[x * Cfg::LD + c] = vr;
+    ti_[x * Cfg::LD + c] = vi;
+  }
+}
+
 struct Operators {  // real/imag planes of Einv and E (X x X each)
   const float* inv_r;
   const float* inv_i;
@@ -279,13 +381,16 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 };
 
 // One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs).
-// diag_mode: 0 none, 1 roll the run back on load, 2 on store.
+// diag_mode: 0 none, 1 roll the run back on load, 2 on store. q (X = 128
+// only; null for none): the run's Q reductions, from the planes as they meet
+// the run — loaded as they are, then the run's entries multiplied in shared
+// memory (mode 1), or before the store (mode 2).
 template <int X>
 __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
                              int64_t rs, int64_t cs, const Operators& ops,
                              int diag_mode, const DiagView& dv_inv,
                              const DiagView& dv_fwd, float* part,
-                             float* smem) {
+                             float* smem, const QView* q = nullptr) {
   using Cfg = AdjCfg<X>;
   float* sFr = smem;
   float* sFi = sFr + X * Cfg::LD;
@@ -298,9 +403,19 @@ __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
   float* sTi = sTr + Cfg::KC * X;                           // operator tile
   float accr[8][4], acci[8][4];
 
+  float* scratch = sOi + X * Cfg::LD;  // both halves' operator tiles
   __syncthreads();  // the previous tile's stores and gram have read the buffers
-  load_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 1, dv_inv);
-  load_tile<X>(br, bi, rs, cs, sBr, sBi, diag_mode == 1, dv_fwd);
+  const bool q_on_load = q != nullptr && diag_mode == 1;
+  load_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 1 && !q_on_load, dv_inv);
+  load_tile<X>(br, bi, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load, dv_fwd);
+  if constexpr (X == kGroup) {
+    if (q_on_load) {
+      __syncthreads();  // the tile is loaded
+      q_tile(sFr, sFi, sBr, sBi, *q, scratch);
+      diag_tile_smem<X>(sFr, sFi, dv_inv);
+      diag_tile_smem<X>(sBr, sBi, dv_fwd);
+    }
+  }
 
   // first half: the uncompute fin = Einv F; second half: the transport
   // bout = E^T B (one call site, so that every thread meets the same
@@ -311,6 +426,9 @@ __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
   __syncthreads();  // every thread is done reading F
   acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
   __syncthreads();  // fin and bout are complete
+  if constexpr (X == kGroup) {
+    if (q != nullptr && diag_mode == 2) q_tile(sFr, sFi, sOr, sOi, *q, scratch);
+  }
   store_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 2, dv_inv);
   store_tile<X>(br, bi, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
 

@@ -1,8 +1,9 @@
 // One-pass adjoint step of a lane + sublane block pair on f32 planes.
 //
 // Replaces the TPU kernel block_backward_dual
-// (dqc_tpu/ops/pallas/block_backward.py:437, pallas_call at :499), without
-// its diag_q outputs: the backward mirror of dual_group_apply_planes. For
+// (dqc_tpu/ops/pallas/block_backward.py:437, pallas_call at :499, body
+// _kernel_dual at :240), with its diag_q outputs: the backward mirror of
+// dual_group_apply_planes. For
 // every 128 x 128 slab of the forward planes F and the cotangent planes B
 // (A, 128, 128), with lane operator E0 (the last axis) and sublane operator
 // E1 (the middle axis), in tape order:
@@ -16,7 +17,11 @@
 // diagonal run is rolled back (F *= Dinv, B *= D) before both steps when it
 // followed the pair in the forward (diag_first_fwd = 0), after them when it
 // preceded it. The pair grams are holomorphic (no conjugation) and summed
-// over every slab.
+// over every slab. With diag_q, the run's Q reductions of the holomorphic
+// product Q[a, s, l] = B F, taken where the planes meet the run (before its
+// update): Qsl (128 x 128, summed over every slab), Qas (A x 128, summed over
+// l) and Qal (A x 128, summed over s) — the gradient sources of a run with
+// variable gates (plane_scan._diag_cts_from_Q).
 //
 // Bound: operations. Six 128-wide complex products per slab, 768 complex
 // multiply-adds per amplitude (8 real flops each), against 32 bytes read and
@@ -30,7 +35,16 @@
 // tiles, staging the first step's results through the slab's own place in
 // the planes, which only this block touches and which stays in L2. A grid
 // of one block per SM loops over the slabs; each block sums its pair grams
-// into its own partial slots, added in block order by a second kernel.
+// into its own partial slots, added in block order by a second kernel. The
+// Q reductions are formed in the step that meets the run, from the tiles of
+// F and B already in shared memory (adjoint.cuh q_tile): Qsl into one more
+// partial slot per block (2 x 64 KB, in the tile's order so that a warp's
+// reductions land on adjacent entries: transposed when the run meets a lane
+// step), added by the same second pass; the
+// rows of Qas and Qal by warp shuffles and a fixed-order sum of per-warp
+// column partials, written by the block that owns the slab. Q adds 2 complex
+// multiply-adds and 4 reductions per amplitude of the step that meets the
+// run, and 2 x 2 A x 128 + 2 x 128 x 128 floats of outputs.
 
 #include "adjoint.cuh"
 
@@ -43,16 +57,29 @@ using dqc::Operators;
 
 constexpr int N = dqc::kGroup;
 constexpr int kSlab = N * N;
-constexpr int kPartFloats = 4 * kSlab;  // T0_lane (re, im), T0_sub (re, im)
+// per block: T0_lane (re, im), T0_sub (re, im) and, with diag_q, Qsl (re, im)
+constexpr int kPartFloats = 4 * kSlab;
+constexpr int kPartFloatsQ = 6 * kSlab;
+
+struct QRows {  // the (A, 128) outputs Qas and Qal
+  float* as_r;
+  float* as_i;
+  float* al_r;
+  float* al_i;
+};
 
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
 block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
                            Operators lane, Operators sub, DiagTables dinv,
                            DiagTables dfwd, int has_diag, int diag_first_fwd,
-                           int g0_first, float* part, int64_t A) {
+                           int g0_first, int diag_q, QRows qrows, float* part,
+                           int64_t A) {
   extern __shared__ float smem[];
-  float* part_lane = part + (int64_t)blockIdx.x * kPartFloats;
+  const int part_floats = diag_q ? kPartFloatsQ : kPartFloats;
+  float* part_lane = part + (int64_t)blockIdx.x * part_floats;
   float* part_sub = part_lane + 2 * kSlab;
+  dqc::QView qv{part_sub + 2 * kSlab, qrows.as_r, qrows.as_i, qrows.al_r,
+                qrows.al_i, 0, 0, 0};
   for (int64_t a = blockIdx.x; a < A; a += gridDim.x) {
     const int64_t off = a * kSlab;
     for (int step = 0; step < 2; ++step) {
@@ -67,9 +94,13 @@ block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
         const int64_t rs = sublane ? N : 1, cs = sublane ? 1 : N;
         DiagView vi{dinv, sublane ? 0 : 1, a, 64 * h, N, 0};
         DiagView vf{dfwd, sublane ? 0 : 1, a, 64 * h, N, 0};
+        qv.a = a;
+        qv.sublane = sublane;
+        qv.c0 = 64 * h;
         dqc::adjoint_tile<N>(fr + t, fi + t, br + t, bi + t, rs, cs,
                              sublane ? sub : lane, diag_mode, vi, vf,
-                             sublane ? part_sub : part_lane, smem);
+                             sublane ? part_sub : part_lane, smem,
+                             diag_q && diag_mode ? &qv : nullptr);
       }
     }
   }
@@ -79,10 +110,15 @@ block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
 
 // In place on planes (A, 128, 128): (F, B) <- the adjoint step of the lane
 // operator E0 and sublane operator E1; out = (T0_lane re, im, T0_sub re, im),
-// 4 x 128 x 128 floats. part is scratch of nblk * 4 * 128 * 128 floats, set
-// to zero by the caller, and nblk the number of blocks (at most A). The
-// twelve table pointers may be null when has_diag is 0. Returns
-// cudaGetLastError().
+// 4 x 128 x 128 floats, then with diag_q (Qsl re, im), 2 x 128 x 128 more,
+// transposed ([l][s]) when the run meets the lane step: the step after the
+// pair with diag_first_fwd, the step before it otherwise; the lane step is
+// the second with g0_first.
+// part is scratch of nblk * (4 or 6) * 128 * 128 floats, set to zero by the
+// caller, and nblk the number of blocks (at most A). The twelve table
+// pointers may be null when has_diag is 0. With diag_q (needs has_diag),
+// qas_r/i and qal_r/i are (A, 128) outputs set to zero by the caller (null
+// without). Returns cudaGetLastError().
 extern "C" int dqc_block_backward_dual(
     float* fr, float* fi, float* br, float* bi, const float* e0inv_r,
     const float* e0inv_i, const float* e0_r, const float* e0_i,
@@ -92,8 +128,10 @@ extern "C" int dqc_block_backward_dual(
     const float* ial_i, const float* sl_r, const float* sl_i,
     const float* as_r, const float* as_i, const float* al_r,
     const float* al_i, int has_diag, int diag_first_fwd, int g0_first,
+    int diag_q, float* qas_r, float* qas_i, float* qal_r, float* qal_i,
     float* part, float* out, long long A, int nblk, void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A) return (int)cudaErrorInvalidValue;
+  if (A <= 0 || nblk <= 0 || nblk > A || (diag_q && !has_diag))
+    return (int)cudaErrorInvalidValue;
   constexpr int kSmem = AdjCfg<N>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       block_backward_dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -106,8 +144,9 @@ extern "C" int dqc_block_backward_dual(
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   block_backward_dual_kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
       fr, fi, br, bi, lane, sub, dinv, dfwd, has_diag, diag_first_fwd,
-      g0_first, part, (int64_t)A);
+      g0_first, diag_q, QRows{qas_r, qas_i, qal_r, qal_i}, part, (int64_t)A);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return dqc::launch_reduce(part, out, nblk, kPartFloats, s);
+  return dqc::launch_reduce(part, out, nblk,
+                            diag_q ? kPartFloatsQ : kPartFloats, s);
 }

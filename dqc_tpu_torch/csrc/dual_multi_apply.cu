@@ -2,12 +2,14 @@
 // every 128 x 128 slab, in place.
 //
 // Replaces the TPU kernel dual_multi_apply_planes
-// (dqc_tpu/ops/pallas/dual_apply.py:165, body _kernel_multi at :116), in its
-// in-place form (alias=True; conj / acc / alias=False, the cross-group
-// density seed, are not ported): the whole operator-Schmidt decomposition of
-// a dense gate across the lane group (qubits 0..6, El_t on the last axis)
-// and the sublane group (qubits 7..13, Em_t on the middle axis), T terms,
-// in one pass over planes (A, 128, 128).
+// (dqc_tpu/ops/pallas/dual_apply.py:165, body _kernel_multi at :116): the
+// whole operator-Schmidt decomposition of a dense gate across the lane group
+// (qubits 0..6, El_t on the last axis) and the sublane group (qubits 7..13,
+// Em_t on the middle axis), T terms, in one pass over planes (A, 128, 128),
+// in place; and its density-seed modes (conj / acc / alias=False, :153-157):
+// y = [acc +] conj(sum_t Em_t X El_t^T) with X read only, the seed of a
+// density across the lane and sublane groups (T = 4 terms of its 4 x 4
+// operator).
 //
 // Bound: operations. Per amplitude and term, 2 x 128 complex multiply-adds
 // (8 real flops each) against 16 bytes read and written: 256 T flop per
@@ -21,14 +23,16 @@
 
 #include "multi_apply.cuh"
 
-// In place on planes (A, 128, 128): x <- sum_t Em_t x El_t^T, t < T.
+// On planes (A, 128, 128): y <- [y +] conj?(sum_t Em_t x El_t^T), t < T,
+// with y = x for in place and y the accumulator planes with has_acc.
 // elt = El_t^T and emt = Em_t^T, stacked (T, 128, 128) each, real/imag
 // planes. Returns cudaGetLastError().
-extern "C" int dqc_dual_multi_apply(float* xr, float* xi, const float* elt_r,
+extern "C" int dqc_dual_multi_apply(const float* xr, const float* xi,
+                                    float* yr, float* yi, const float* elt_r,
                                     const float* elt_i, const float* emt_r,
-                                    const float* emt_i, int T, long long A,
-                                    void* stream) {
-  return dqc::launch_multi_apply<dqc::kGroup>(xr, xi, elt_r, elt_i, emt_r,
-                                              emt_i, T, A, 1,
-                                              (cudaStream_t)stream);
+                                    const float* emt_i, int T, int conj,
+                                    int has_acc, long long A, void* stream) {
+  return dqc::launch_multi_apply<dqc::kGroup>(xr, xi, yr, yi, elt_r, elt_i,
+                                              emt_r, emt_i, T, A, 1, conj,
+                                              has_acc, (cudaStream_t)stream);
 }

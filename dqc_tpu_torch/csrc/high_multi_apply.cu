@@ -2,12 +2,14 @@
 // (El_t on the lane axis) x on the view (A1, X, M, 128), in place.
 //
 // Replaces the TPU kernel high_multi_apply_planes
-// (dqc_tpu/ops/pallas/high_apply.py:273, body _kernel_multi at :231), in
-// its in-place form (alias=True; conj / acc / alias=False are not ported):
-// a dense gate with bits on the lane group and on a high group or a span of
+// (dqc_tpu/ops/pallas/high_apply.py:273, body _kernel_multi at :231): a
+// dense gate with bits on the lane group and on a high group or a span of
 // high bits (ops/planes.apply_cross_span: X = 8 for the ring's closing CNOT)
 // as T terms of an X x X factor on the contracted axis and a 128 x 128
-// factor on the lanes, in one pass. The lane factors of a span gate are
+// factor on the lanes, in one pass, in place; and its density-seed modes
+// (conj / acc / alias=False, :261): y = [acc +] conj(sum_t ...) with x read
+// only, the seed of a density across the lane group and a high group on
+// the X = 8 span view (T = 4 lane slices of its 4 x 4 operator). The lane factors of a span gate are
 // elementary |q><p| expansions; this kernel multiplies them as dense
 // 128-wide products.
 //
@@ -22,20 +24,23 @@
 
 #include "multi_apply.cuh"
 
-// In place on the view (A1, X, M, 128), X in {8, 16, 32, 64, 128} and
-// M % (128 / X) == 0: x <- sum_t E_t x El_t^T, t < T. elt = El_t^T
+// On the view (A1, X, M, 128), X in {8, 16, 32, 64, 128} and
+// M % (128 / X) == 0: y <- [y +] conj?(sum_t E_t x El_t^T), t < T, with
+// y = x for in place and y the accumulator with has_acc. elt = El_t^T
 // (T, 128, 128) and et = E_t^T (T, X, X), real/imag planes. Returns
 // cudaGetLastError().
-extern "C" int dqc_high_multi_apply(float* xr, float* xi, const float* elt_r,
+extern "C" int dqc_high_multi_apply(const float* xr, const float* xi,
+                                    float* yr, float* yi, const float* elt_r,
                                     const float* elt_i, const float* et_r,
-                                    const float* et_i, int T, long long A1,
-                                    int X, long long M, void* stream) {
+                                    const float* et_i, int T, int conj,
+                                    int has_acc, long long A1, int X,
+                                    long long M, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (X) {
 #define DQC_MULTI_CASE(XX)                                                  \
   case XX:                                                                  \
-    return dqc::launch_multi_apply<XX>(xr, xi, elt_r, elt_i, et_r, et_i, T, \
-                                       A1, M, s);
+    return dqc::launch_multi_apply<XX>(xr, xi, yr, yi, elt_r, elt_i, et_r,  \
+                                       et_i, T, A1, M, conj, has_acc, s);
     DQC_MULTI_CASE(8)
     DQC_MULTI_CASE(16)
     DQC_MULTI_CASE(32)

@@ -3,6 +3,12 @@
 //
 //   y = sum_t (E_t on the group axis) (El_t on the lane axis) x,   in place,
 //
+// or in the density-seed modes of the gradient: conj writes conj(y), acc
+// adds it into accumulator planes (y <- acc + conj(...), in place on acc),
+// and the output may be fresh planes with x left as it was (alias=False).
+// The seed of a density across two groups is such a sum: its 4 x 4
+// operator's decomposition over the two groups (plane_scan._seed_apply).
+//
 // on the view (A1, X, M, 128) of the planes, E_t an X x X operator on axis
 // X and El_t a 128 x 128 operator on the last (lane) axis, t < T. For a
 // fixed (i, m) the X x 128 matrix Z[x, l] = x[i, x, m, l] becomes
@@ -52,15 +58,19 @@ __device__ __forceinline__ void mcmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// xr, xi: the view (A1, X, M, 128), updated in place. elt: El_t^T stacked
-// (T, 128, 128), elt[t][k][l] = El_t[l][k]; et: E_t^T stacked (T, X, X),
-// et[t][k][x] = E_t[x][k]. A tile is 128 / X consecutive m of one i.
+// xr, xi: the view (A1, X, M, 128), read; yr, yi: the output in the same
+// view (x itself when in place, the accumulator with has_acc). elt: El_t^T
+// stacked (T, 128, 128), elt[t][k][l] = El_t[l][k]; et: E_t^T stacked
+// (T, X, X), et[t][k][x] = E_t[x][k]. A tile is 128 / X consecutive m of
+// one i, read whole before any store.
 template <int X>
 __global__ void __launch_bounds__(kMultiThreads, 1)
-multi_apply_kernel(float* xr, float* xi, const float* __restrict__ elt_r,
+multi_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                   const float* __restrict__ elt_r,
                    const float* __restrict__ elt_i,
                    const float* __restrict__ et_r,
-                   const float* __restrict__ et_i, int T, int64_t M) {
+                   const float* __restrict__ et_i, int T, int64_t M, int conj,
+                   int has_acc) {
   static_assert(X % 8 == 0 && X <= kMultiRows, "8 | X <= 128");
   constexpr int GP = kMultiRows / X;         // m per tile
   constexpr int KB = X < 16 ? X : 16;        // group-product tile depth
@@ -97,11 +107,11 @@ multi_apply_kernel(float* xr, float* xi, const float* __restrict__ elt_r,
   const int g0 = (r0 / X) * X;        // first row of their X-row group
   const int x0 = r0 - g0;             // their x
   for (int cb = 0; cb < kGroup / kMultiCB; ++cb) {
-    float yr[8][2], yi[8][2];
+    float acc_r[8][2], acc_i[8][2];
 #pragma unroll
     for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) yr[a][j] = yi[a][j] = 0.f;
+      for (int j = 0; j < 2; ++j) acc_r[a][j] = acc_i[a][j] = 0.f;
     for (int t = 0; t < T; ++t) {
       const float* lr = elt_r + (int64_t)t * kGroup * kGroup;
       const float* li = elt_i + (int64_t)t * kGroup * kGroup;
@@ -186,32 +196,40 @@ multi_apply_kernel(float* xr, float* xi, const float* __restrict__ elt_r,
             for (int a = 0; a < 4; ++a)
 #pragma unroll
               for (int j = 0; j < 2; ++j)
-                mcmac(yr[4 * h + a][j], yi[4 * h + a][j], er[a], ei[a], br[j],
-                      bi[j]);
+                mcmac(acc_r[4 * h + a][j], acc_i[4 * h + a][j], er[a], ei[a],
+                      br[j], bi[j]);
           }
         }
       }
     }
-    // 4. the column block's sum over the terms, in place (one row per warp
-    //    and store: 32 consecutive lanes)
+    // 4. the column block's sum over the terms, in the seed's form (one row
+    //    per warp and store: 32 consecutive lanes)
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
       const int64_t o = base + row_off(r0 + a) + cb * kMultiCB + lane;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        xr[o + 32 * j] = yr[a][j];
-        xi[o + 32 * j] = yi[a][j];
+        float vr = acc_r[a][j], vi = acc_i[a][j];
+        if (conj) vi = -vi;
+        if (has_acc) {
+          vr += yr[o + 32 * j];
+          vi += yi[o + 32 * j];
+        }
+        yr[o + 32 * j] = vr;
+        yi[o + 32 * j] = vi;
       }
     }
   }
 }
 
-// In place on the view (A1, X, M, 128): x <- sum_t E_t x El_t^T. Needs
+// On the view (A1, X, M, 128): y <- [y +] conj?(sum_t E_t x El_t^T), with
+// y = x for in place and y the accumulator with has_acc. Needs
 // M % (128 / X) == 0. Returns cudaGetLastError().
 template <int X>
-int launch_multi_apply(float* xr, float* xi, const float* elt_r,
-                       const float* elt_i, const float* et_r,
-                       const float* et_i, int T, long long A1, long long M,
+int launch_multi_apply(const float* xr, const float* xi, float* yr, float* yi,
+                       const float* elt_r, const float* elt_i,
+                       const float* et_r, const float* et_i, int T,
+                       long long A1, long long M, int conj, int has_acc,
                        cudaStream_t stream) {
   constexpr int GP = kMultiRows / X;
   if (T <= 0 || A1 <= 0 || M <= 0 || M % GP != 0)
@@ -223,8 +241,8 @@ int launch_multi_apply(float* xr, float* xi, const float* elt_r,
       kMultiSmemBytes);
   if (err != cudaSuccess) return (int)err;
   multi_apply_kernel<X><<<(unsigned)blocks, kMultiThreads, kMultiSmemBytes,
-                          stream>>>(xr, xi, elt_r, elt_i, et_r, et_i, T,
-                                    (int64_t)M);
+                          stream>>>(xr, xi, yr, yi, elt_r, elt_i, et_r,
+                                    et_i, T, (int64_t)M, conj, has_acc);
   return (int)cudaGetLastError();
 }
 

@@ -159,8 +159,8 @@ def cross_diag_table(diag, positions: Sequence[int], n: int):
     eb = _selector_matrix(rels_b, sizes[jb])
     if isinstance(diag, torch.Tensor):
         d2 = diag.reshape((2,) * k).permute(order).reshape(1 << ka, 1 << kb)
-        ea_t = torch.as_tensor(ea, dtype=torch.long, device=diag.device)
-        eb_t = torch.as_tensor(eb, dtype=torch.long, device=diag.device)
+        ea_t = selector_tensor(rels_a, sizes[ja], diag.device)
+        eb_t = selector_tensor(rels_b, sizes[jb], diag.device)
         return d2[ea_t[:, None], eb_t[None, :]], ja, jb
     d2 = np.asarray(diag).reshape((2,) * k).transpose(order).reshape(
         1 << ka, 1 << kb)
@@ -206,6 +206,17 @@ def _selector_matrix(rel_positions: Tuple[int, ...], g: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def selector_tensor(rel_positions: Tuple[int, ...], g: int,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`_selector_matrix` as a long tensor on ``device``, made once:
+    the gathers of a variable gate's tables run every layer, and a host
+    array copied to the card per use would stall the host behind the
+    queued kernels."""
+    return torch.as_tensor(_selector_matrix(rel_positions, g), dtype=torch.long,
+                           device=device)
+
+
+@lru_cache(maxsize=None)
 def _bit_permutation_index(new_order_msb: Tuple[int, ...], g: int) -> np.ndarray:
     """``old[new]``: the old axis index that new index ``new`` reads, where
     the new index reads the old bits in ``new_order_msb`` order (the row
@@ -220,6 +231,12 @@ def _bit_permutation_index(new_order_msb: Tuple[int, ...], g: int) -> np.ndarray
     return out
 
 
+@lru_cache(maxsize=None)
+def _bit_permutation_tensor(new_order_msb: Tuple[int, ...], g: int,
+                            device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_bit_permutation_index(new_order_msb, g), device=device)
+
+
 def density_from_gram(G: torch.Tensor, rel_positions: Sequence[int], g: int) -> torch.Tensor:
     """k-qubit density from its group's Gram: rotate the Gram's bits so the
     targets are on top, then trace the rest. The rotation ``P G P^T`` with a
@@ -230,7 +247,79 @@ def density_from_gram(G: torch.Tensor, rel_positions: Sequence[int], g: int) -> 
         b for b in range(g - 1, -1, -1) if b not in rel_positions
     )
     if order != tuple(range(g - 1, -1, -1)):
-        idx = torch.as_tensor(_bit_permutation_index(order, g), device=G.device)
+        idx = _bit_permutation_tensor(order, g, G.device)
         G = G[idx][:, idx]
     R = 1 << (g - k)
     return torch.einsum("arbr->ab", G.reshape(1 << k, R, 1 << k, R))
+
+
+def bits_sum(ct: torch.Tensor, bit_axes: Sequence[int], nbits: int) -> torch.Tensor:
+    """The transpose of a gather by target bits: ``ct`` (``2^nbits``
+    entries, bit axis 0 the most significant) summed over every bit axis
+    not in ``bit_axes``, leaving ``2^k`` entries indexed by the target bits
+    msb-first in ``bit_axes`` order (``_selector_matrix``'s packing). A sum,
+    not a scatter with atomics: the result does not depend on the order
+    the card adds in."""
+    others = [a for a in range(nbits) if a not in bit_axes]
+    t = ct.reshape((2,) * nbits).permute(list(bit_axes) + others)
+    return t.reshape(1 << len(bit_axes), -1).sum(1)
+
+
+def cross_diag_table_vjp(ct_table: torch.Tensor, positions: Sequence[int],
+                         n: int) -> torch.Tensor:
+    """The transpose of :func:`cross_diag_table` (a gather): the flat
+    ``2^k`` cotangent of the diagonal from the cotangent of its joint table,
+    each table entry added to the diagonal entry it reads."""
+    positions = tuple(int(p) for p in positions)
+    sizes = group_sizes_low_first(n)
+    by_group: Dict[int, List[int]] = {}
+    for i, p in enumerate(positions):
+        by_group.setdefault(group_of_bit(n, p)[0], []).append(i)
+    (ja, ia), (jb, ib) = sorted(by_group.items(), key=lambda kv: -kv[0])
+    ga, gb, k = sizes[ja], sizes[jb], len(positions)
+    # table axes: group ja's bits, then group jb's, each msb first
+    axes = ([ga - 1 - positions[i] % GROUP_BITS for i in ia]
+            + [ga + gb - 1 - positions[i] % GROUP_BITS for i in ib])
+    d2 = bits_sum(ct_table, axes, ga + gb)
+    order = ia + ib
+    inv = [order.index(i) for i in range(k)]
+    return d2.reshape((2,) * k).permute(inv).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Sub-block extraction for reductions
+# ---------------------------------------------------------------------------
+
+def subblocks(t: torch.Tensor, positions: Sequence[int], n: int) -> torch.Tensor:
+    """(2^k, 2^(n-k)) matrix whose row ``r`` is the sub-state with the target
+    bits fixed to the bits of ``r`` (msb-first in ``positions`` order), and
+    whose column reads the other bits msb-first.
+
+    The JAX package rotates each group's bits with a permutation-matrix
+    product and transposes the group clusters to the front; the same bit
+    permutation here is one strided view of the flat index (the runs of
+    other bits between the targets stay whole) and one copy."""
+    return subblock_view(t, positions, n).reshape(1 << len(positions), -1)
+
+
+def subblock_view(t: torch.Tensor, positions: Sequence[int], n: int) -> torch.Tensor:
+    """The strided view behind :func:`subblocks`: the target bits' axes of
+    size 2 first (in ``positions`` order), then the runs of other bits in
+    order. Copying it into a contiguous buffer gives the sub-block matrix."""
+    positions = tuple(int(p) for p in positions)
+    if len(set(positions)) != len(positions) or not all(0 <= p < n for p in positions):
+        raise ValueError(f"positions {positions} for {n} qubits")
+    desc = sorted(positions, reverse=True)
+    shape, target_axis, rest = [], {}, []
+    top = n
+    for p in desc:
+        if top - 1 > p:
+            rest.append(len(shape))
+            shape.append(1 << (top - 1 - p))
+        target_axis[p] = len(shape)
+        shape.append(2)
+        top = p
+    if top > 0:
+        rest.append(len(shape))
+        shape.append(1 << top)
+    return t.reshape(shape).permute([target_axis[p] for p in positions] + rest)

@@ -2,7 +2,10 @@
 
 Each kernel module holds a wrapper (the kernel on a CUDA tensor, its plain
 PyTorch version on a CPU tensor) with an integer ``launches`` counter that
-counts kernel launches only, and the plain version itself. ``KERNELS`` is
+counts kernel launches only, and the plain version itself. A wrapper with
+modes the engine reaches on some paths only also counts those launches per
+mode in ``mode_launches`` (``block_backward_dual``'s ``diag_q``, the
+multi-term applies' ``seed``: ``conj``, ``acc`` or ``alias=False``). ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 """
@@ -76,10 +79,22 @@ PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain,
                   high_multi_apply_plain, block_backward_sublane_plain)
 
 
+def _mode_counts(w) -> Dict[str, int]:
+    return getattr(w, "mode_launches", {})
+
+
 def reset_launch_counts() -> None:
     for w in KERNELS:
         w.launches = 0
+        modes = _mode_counts(w)
+        for m in modes:
+            modes[m] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {w.__name__: w.launches for w in KERNELS}
+    """Launches per kernel, then per counted mode as ``"kernel[mode]"``."""
+    counts = {w.__name__: w.launches for w in KERNELS}
+    for w in KERNELS:
+        for m, c in _mode_counts(w).items():
+            counts[f"{w.__name__}[{m}]"] = c
+    return counts

@@ -6,14 +6,15 @@ Replaces the TPU kernel ``high_multi_apply_planes``
 factors ``E_t`` (X x X) and ``El_t`` (128 x 128) — a dense gate with bits on
 the lane group and on a high group, or on a span of high bits
 (ops/planes.apply_cross_span; X = 8 for the CNOT ring's closing gate), in
-one pass. The seed modes (``conj``, ``acc``, ``alias=False``) are not ported
-and raise ``NotImplementedError`` on any device. The Hopper kernel is
+one pass, with the density-seed modes of ``dual_multi_apply`` (``conj``,
+``acc``, ``alias=False``: the seed of a density across the lane group and a
+high group, on the span view). The Hopper kernel is
 ``csrc/high_multi_apply.cu`` on ``csrc/multi_apply.cuh`` (bound by
 operations: (128 + X) T complex multiply-adds per amplitude against 16
 bytes); :func:`high_multi_apply_plain` is its plain PyTorch version.
 
-:func:`high_multi_apply` consumes its input planes like
-``dual_multi_apply``.
+:func:`high_multi_apply` consumes its input planes (unless ``alias=False``
+or ``acc``) like ``dual_multi_apply``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
-from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_in_place, check_terms
+from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
+from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_terms
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
@@ -33,8 +35,7 @@ def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
                            conj: bool = False, acc=None,
                            alias: bool = True) -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
-    time); fresh outputs. The seed modes raise, as in the kernel."""
-    check_in_place("high_multi_apply_planes", conj, acc, alias)
+    time); fresh outputs, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
     x = torch.complex(xr, xi)
     e = torch.complex(e_r, e_i)
@@ -45,19 +46,20 @@ def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
         yt = torch.matmul(e[t], z)
         y = yt if y is None else y + yt
     y = y.reshape(xr.shape)
-    return y.real.contiguous(), y.imag.contiguous()
+    if acc is not None:
+        acc = (acc[0].view(xr.shape), acc[1].view(xr.shape))
+    return _seed_out(y.real, y.imag, conj, acc)
 
 
-_ARGTYPES = [_launch.VOIDP] * 6 + [_launch.INT, _launch.LONG, _launch.INT,
-                                   _launch.LONG, _launch.VOIDP]
+_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.INT] * 3 + [_launch.LONG, _launch.INT,
+                                                       _launch.LONG, _launch.VOIDP]
 
 
 def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
                      acc=None, alias: bool = True) -> Planes:
-    """``sum_t E_t x El_t^T`` on the view ``(A1, X, M, 128)``, X in 8..128,
-    in place; ``e_*`` stacked ``(T, X, X)``, ``el_*`` stacked
+    """``[acc +] conj?(sum_t E_t x El_t^T)`` on the view ``(A1, X, M, 128)``,
+    X in 8..128; ``e_*`` stacked ``(T, X, X)``, ``el_*`` stacked
     ``(T, 128, 128)``, f32 real/imag planes."""
-    check_in_place("high_multi_apply_planes", conj, acc, alias)
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_multi_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -68,22 +70,28 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     check_terms("high_multi_apply", (e_r, e_i), T, (X, X))
     check_terms("high_multi_apply", (el_r, el_i), T, (128, 128))
     if xr.device.type == "cpu":
-        return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i)
+        return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, conj=conj,
+                                      acc=acc)
     if X not in KERNEL_X or M % (128 // X):
         raise ValueError(f"high_multi_apply: X={X} must be one of {KERNEL_X} "
                          f"and M={M} a multiple of {128 // max(X, 1)}")
     ops = (e_r, e_i, el_r, el_i)
     _launch.check_cuda_f32("high_multi_apply", (xr, xi), xr.device, align=16)
+    out = _launch.output_planes("high_multi_apply", xr, xi, acc, alias)
     _launch.check_cuda_f32("high_multi_apply", ops, xr.device)
     # the kernel reads the factors transposed, so that its tile loads coalesce
     et_r, et_i, elt_r, elt_i = (o.transpose(1, 2).contiguous() for o in ops)
     fn = _launch.entry("high_multi_apply", "dqc_high_multi_apply", _ARGTYPES)
-    code = fn(xr.data_ptr(), xi.data_ptr(), elt_r.data_ptr(), elt_i.data_ptr(),
-              et_r.data_ptr(), et_i.data_ptr(), T, A1, X, M,
+    code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+              elt_r.data_ptr(), elt_i.data_ptr(), et_r.data_ptr(), et_i.data_ptr(),
+              T, int(conj), int(acc is not None), A1, X, M,
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_multi_apply", "high_multi_apply launch")
     high_multi_apply.launches += 1
-    return xr, xi
+    if conj or acc is not None or not alias:
+        high_multi_apply.mode_launches["seed"] += 1
+    return out
 
 
 high_multi_apply.launches = 0
+high_multi_apply.mode_launches = {"seed": 0}

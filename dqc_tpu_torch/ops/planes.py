@@ -405,8 +405,8 @@ def apply_cross_terms(xr, xi, terms, n: int, *, alias: bool = True,
     Returns None when the pair shape has no fused kernel (the caller falls
     back to the per-term sweeps). ``operands``: the result of
     :func:`cross_terms_operands`, staged on the device once per call for a
-    constant gate (``terms`` is then not read). The multi-term kernels run
-    in place only: ``conj``/``acc``/``alias=False`` raise."""
+    constant gate (``terms`` is then not read). ``conj``/``acc``/``alias``:
+    the seed modes of apply_block (the seed of a cross-group density)."""
     _check_out_dtype(out_dtype)
     if operands is None:
         operands = cross_terms_operands(terms, n, xr.device)
@@ -538,7 +538,7 @@ def apply_cross_span(xr, xi, gate_m, positions, n: int, *, alias: bool = True,
     """ONE-pass dense cross-group gate on the span view — the (sublane,
     high), (high, high) and (lane, high-span) shapes: the high apply kernel
     with the gate expanded over the span axis, or the multi-term high +
-    lane kernel with lane bits (in place only). Semantics of apply_block
+    lane kernel with lane bits. Semantics of apply_block
     (conj/acc/alias). Returns None when the bit pattern has no span view.
     ``operands``: the result of :func:`cross_span_operands`, staged once per
     call for a constant gate."""

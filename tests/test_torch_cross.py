@@ -164,7 +164,9 @@ def test_new_wrappers_refuse_other_devices():
     e = torch.empty((128, 128), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.block_backward_sublane(x, x, x, x, e, e, e, e)
-    assert tk.launch_counts() == {name: 0 for name in tk.KernelSet._fields}
+    assert tk.launch_counts() == {name: 0 for name in (
+        *tk.KernelSet._fields, "block_backward_dual[diag_q]",
+        "dual_multi_apply[seed]", "high_multi_apply[seed]")}
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,11 @@
   says ``import jax`` or names a ``dqc_tpu.`` module;
 * entry points default to the CUDA card and raise without one; every n
   from 14 to 30 passes the support check of the cz ring, and the new sizes
-  run; modes and paths the port does not run yet (the density-seed modes of
-  the multi-term kernels, the gradient of a variable cross gate without a
-  span view, dense gates over three groups, the unpaired lane adjoint)
-  raise ``NotImplementedError`` naming what is missing, before any state is
+  run; modes and paths the port does not run yet (the seed of a density
+  over three groups without a span view, a variable diagonal run folded
+  into a high sweep, the gradient of a variable cross gate without a span
+  view, dense gates over three groups, the unpaired lane adjoint) raise
+  ``NotImplementedError`` naming what is missing, before any state is
   allocated; params that require a gradient get one, and a second backward
   through the same graph raises;
 * the kernel build names nvcc and fails loudly without it.
@@ -75,14 +76,15 @@ def test_default_device_is_cuda():
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 
-def _cnot_ring(n):
-    """The CNOT ring's (6, 7) gate in the density-seed form (conj, acc):
-    the multi-term kernels run in place only."""
-    m = HardwareEfficientAnsatz(n, 1, entangler="cnot", device="cpu")
-    terms = plane_scan._dense_cross_expanded_terms(m._layer_consts[0].reshape(4, 4),
-                                                   (6, 7), n)
-    x = torch.zeros(planes.plane_shape(n))
-    planes.apply_cross_terms(x, x, terms, n, conj=True, acc=(x, x))
+def _three_group_density_seed(n):
+    """The seed of a density over three groups that no span view holds
+    (qubits 0, 8, 25) needs the >2-group dense apply (xcross); its
+    forward, a sub-block contraction, runs."""
+    m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
+    epi = AutoGradCircuit(n)
+    epi.get_dens_op((0, 8, 25), with_grad=True)
+    plane_scan.check_forward_supported(m._layer_ftape, fuse_tape(epi.tape))
+    plane_scan.check_backward_supported(m._layer_ftape, fuse_tape(epi.tape))
 
 
 def _unfactorized_hpair(n):
@@ -106,18 +108,26 @@ def _three_group_gate(n):
                                        fuse_tape(AutoGradCircuit(n).tape))
 
 
-def _cross_group_density(n):
-    m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
+def _var_run_in_dhigh(n):
+    """A variable ZZ across groups 1 and 2 next to a dense group-2 block:
+    the run folds into the high sweep, whose adjoint needs the diag_q
+    outputs of block_backward_high (not ported); its forward runs."""
+    layer = AutoGradCircuit(n)
+    layer.add_q2_var_gate_diag(13, 14)
+    layer.add_q1_var_gate(15)
     epi = AutoGradCircuit(n)
-    epi.get_q2_dens_op_with_grad(n - 1, 0)
-    plane_scan.check_forward_supported(m._layer_ftape, fuse_tape(epi.tape))
+    epi.get_q1_dens_op_with_grad(15)
+    ftape = fuse_layer(layer.tape)
+    assert [item[0] for item in plane_scan.plane_program(ftape)] == ["dhigh"]
+    plane_scan.check_forward_supported(ftape, fuse_tape(epi.tape))
+    plane_scan.check_backward_supported(ftape, fuse_tape(epi.tape))
 
 
 @pytest.mark.parametrize("n, run, kernel", [
-    (15, _cnot_ring, "dual_multi_apply_planes"),
+    (30, _three_group_density_seed, "xcross"),
     (22, _unfactorized_hpair, "block_backward_high at X = 256 / 512"),
     (29, _aliased_merged_apply, "seed modes"),
-    (30, _cross_group_density, "_cross_density"),
+    (21, _var_run_in_dhigh, "block_backward_high"),
     (22, _three_group_gate, "xcross"),
 ], ids=lambda v: getattr(v, "__name__", str(v)))
 def test_unsupported_sizes_name_the_kernel(n, run, kernel):
