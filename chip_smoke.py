@@ -60,7 +60,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and peak memory; the VQE closed
    form at 29q and 30q x 1L, QAOA at params = 0, and 29q VQE (4L) and
    QAOA (2L) gradients through the kernels against the plain-version path;
-9. a JSON line of the kernels and of the modes checked (their launches
+9. AutoGradCircuit.build(), the reference-compatible API: the kernel checks
+   of its kernels in phase 3 (block_backward_lane at 28q and 29q,
+   block_backward_high with the Q reductions of a run on the 28q and 29q
+   group-2 and group-3 views in both run orders, diag_backward with Q);
+   then [tape29], the reference's gradient gauntlet (every instruction
+   kind, mid-circuit densities, non-unitary gates) at 29q x 2 layers
+   through autodiff_run, forward and value_and_grad with the counters held
+   per kernel and per mode to the port's dispatch of the same tape on the
+   meta device (block_backward_lane and block_backward_high[diag_q] at
+   least once per differentiated layer), zero gradients for the var gates
+   after the last diff density, simple_run's densities (the fused engine)
+   against autodiff_run's, and the gradient against the fused engine's
+   (fused_tape_forward) and the plain path's; [diagq], a 28q tape with a
+   lone variable diagonal run (diag_backward[with_q] once a step), against
+   the plain path; [ghz29], GHZ(29)'s densities (I / 2) and fidelity;
+   [qft28], QFT|x> against its closed form through build_state_fn;
+10. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -162,8 +178,10 @@ def bound_ms(bytes_moved: float, flops: float):
 def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
-    if name == "block_backward_dual":
+    if name in ("block_backward_dual", "block_backward_high"):
         return ("diag_q",) if a.get("diag_q") else ()
+    if name == "diag_backward":
+        return ("with_q",) if a.get("with_q") else ()
     if name in ("dual_multi_apply", "high_multi_apply"):
         seed = a.get("conj") or a.get("acc") is not None or not a.get("alias", True)
         return ("seed",) if seed else ()
@@ -179,7 +197,7 @@ def call_tag(a) -> str:
     if a.get("diag_tables") is not None:
         first = a.get("diag_first", a.get("diag_first_fwd", True))
         tags.append("diag_first" if first else "diag_after")
-    if a.get("diag_q"):
+    if a.get("diag_q") or a.get("with_q"):
         tags.append("q")
     return "+".join(tags)
 
@@ -192,15 +210,15 @@ def variant_tag(variant: str) -> str:
     return "+".join(tags)
 
 
-def program_launches(build, loss: str):
-    """The launches of one forward and one value_and_grad of the model
-    ``build(device)`` makes, as the port's own dispatch plans them: the
-    model runs on the meta device (shapes, no data) through recording plain
-    versions of the kernels. Returns (forward counts, value_and_grad counts,
-    value_and_grad launches), the counts keyed as ops.kernels.launch_counts
-    keys them, one (kernel, call_tag, plane shape) per launch."""
+def dry_run_launches(run):
+    """The launches of ``run(kernels)`` (a forward returning a scalar
+    loss) and of its backward, as the port's own dispatch plans them: run
+    on the meta device (shapes, no data) through recording plain versions
+    of the kernels. Returns (forward counts, forward-and-backward counts,
+    forward-and-backward launches), the counts keyed as
+    ops.kernels.launch_counts keys them, one (kernel, call_tag, plane shape)
+    per launch."""
     import inspect
-    import torch
     from dqc_tpu_torch.ops import kernels as K
 
     calls = []
@@ -225,12 +243,125 @@ def program_launches(build, loss: str):
 
     kernels = K.KernelSet(*(recording(f, p) for f, p in
                             zip(K.KernelSet._fields, K.PLAIN)))
-    model = build("meta")
-    params = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
-    value = getattr(model, loss)(params, kernels=kernels)
+    value = run(kernels)
     fwd = counts()
     value.backward()
     return fwd, counts(), [c[0:1] + c[2:] for c in calls]
+
+
+def program_launches(build, loss: str):
+    """dry_run_launches of one forward and one value_and_grad of the model
+    ``build(device)`` makes."""
+    import torch
+
+    def run(kernels):
+        model = build("meta")
+        params = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
+        return getattr(model, loss)(params, kernels=kernels)
+    return dry_run_launches(run)
+
+
+def our_kernel_names():
+    """The names of the port's CUDA kernels (every __global__ function of
+    dqc_tpu_torch/csrc), to pick them out of a profiler's events."""
+    import re
+
+    names = set()
+    for path in sorted(os.listdir(os.path.join(HERE, "dqc_tpu_torch", "csrc"))):
+        with open(os.path.join(HERE, "dqc_tpu_torch", "csrc", path)) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                f.read()))
+    return names
+
+
+def profile_device_ms(fn, names):
+    """Run ``fn`` once under torch.profiler: (device ms of the port's
+    kernels by name, device ms of every kernel), or None when the profiler
+    saw no device time (then the split is not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ours, total = Counter(), 0.0
+    for ev in prof.key_averages():
+        # the kernels' own events (a CPU op's entry repeats its kernels' time)
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        total += us / 1e3
+        name = next((k for k in sorted(names, key=len, reverse=True)
+                     if k in ev.key), None)
+        if name is not None:
+            ours[name] += us / 1e3
+    return (ours, total) if total > 0 else None
+
+
+def gauntlet_tape(circuit, n: int, layers: int):
+    """The reference's gradient gauntlet (tests/test_autodiff.py): every
+    instruction kind — var / const x 1q / 2q x unitary / non-unitary /
+    diagonal — with diff densities at each layer's start, non-diff ones
+    after it and at the end."""
+    c = circuit
+    for _ in range(layers):
+        for i in range(n):
+            c.get_q1_dens_op_with_grad(i)
+        for i in range(0, n - 1, 2):
+            c.get_q2_dens_op_with_grad(i + 1, i)
+        for i in range(n):
+            c.add_q1_var_gate(i)
+        for i in range(0, n - 1, 2):
+            c.add_q2_var_gate(i + 1, i)
+        for i in range(0, n - 1, 2):
+            c.add_q2_var_gate_diag(i + 1, i)
+        for i in range(n):
+            c.add_q1_const_gate(i)
+        for i in range(1, n - 1, 2):
+            c.add_q2_const_gate(i + 1, i)
+        for i in range(1, n - 1, 2):
+            c.add_q2_const_gate_diag(i + 1, i)
+        for i in range(n):
+            c.add_q1_var_gate_nonu(i)
+        for i in range(0, n - 1, 2):
+            c.add_q2_var_gate_nonu(i + 1, i)
+        for i in range(n):
+            c.add_q1_const_gate_nonu(i)
+        for i in range(1, n - 1, 2):
+            c.add_q2_const_gate_nonu(i + 1, i)
+        for i in range(n):
+            c.get_q1_dens_op(i)
+    for i in range(n):
+        c.get_q1_dens_op(i)
+    return c
+
+
+def tape_gates(rng, tape, var: bool):
+    """Gate values for one queue of a tape, in consumption order, as
+    tests/test_autodiff.py's gauntlet_gates makes them: random unitaries
+    (QR of a complex normal matrix), random unit-modulus diagonals, and
+    non-unitary gates as unitaries perturbed by 0.01 times a complex normal
+    matrix (a well-conditioned inverse). complex64 numpy."""
+    import numpy as np
+
+    out = []
+    for inst in tape.gates(var=var):
+        d = 1 << inst.k
+        if inst.kind.name == "DIAG":
+            out.append(np.exp(1j * rng.uniform(0, 2 * np.pi, d)).astype(np.complex64))
+            continue
+        q, _ = np.linalg.qr(rng.standard_normal((d, d))
+                            + 1j * rng.standard_normal((d, d)))
+        if not inst.unitary:
+            q = q + 0.01 * (rng.standard_normal((d, d))
+                            + 1j * rng.standard_normal((d, d)))
+        out.append(q.astype(np.complex64).reshape(-1))
+    return out
 
 
 def main() -> int:
@@ -925,6 +1056,105 @@ def main() -> int:
                    bytes_moved=3 * state29, intact=2,
                    library=seed_library((er, ei)), dense_flops=amps29 * 8 * 8)
 
+    # 3e. the kernels of AutoGradCircuit.build() on the plane tape -----------
+    # block_backward_lane, the unpaired lane block's adjoint (384 complex MACs
+    # per amplitude); block_backward_high with the Q reductions of a run
+    # folded into a high sweep, both run orders, on the 29q path's group-2
+    # and group-3 views; diag_backward with the Q reductions of a lone run.
+    # Q adds the product Q = B F and its three sums (12 real flops per
+    # amplitude) and 2 x (128 x 128 + 2 A x 128) floats of outputs.
+    from dqc_tpu_torch.ops.kernels.block_backward_lane import (
+        block_backward_lane, block_backward_lane_plain)
+    from dqc_tpu_torch.ops.kernels.high_apply import view_diag_run
+
+    def lane_library(E, Einv):
+        def make(fr, fi, br, bi):
+            F, B = torch.complex(fr, fi), torch.complex(br, bi)
+            Ec, Eic = torch.complex(*E), torch.complex(*Einv)
+
+            def run():  # three cuBLAS-backed complex calls and the gram product
+                F1 = torch.matmul(F, Eic.T)
+                return F1, torch.einsum("asx,asy->xy", B, F1), torch.matmul(B, Ec)
+            return run
+        return make
+
+    def q_sums(Q):
+        Q = Q.reshape(-1, 128, 128)
+        return Q.sum(0), Q.sum(2), Q.sum(1)
+
+    def high_q_library(E, Einv, ti, tf, first):
+        """Row 11's three calls, the run's multiplies where it is met, the
+        product Q = B F there and its three sums."""
+        def make(fr, fi, br, bi):
+            A1, X, M, _ = fr.shape
+            v = (A1, X, M * 128)
+            F0, B0 = torch.complex(fr, fi).view(v), torch.complex(br, bi).view(v)
+            Ec, Eic = torch.complex(*E), torch.complex(*Einv)
+
+            def roll(F, B):
+                Dinv = view_diag_run(ti, fr.shape).view(v)
+                D = view_diag_run(tf, fr.shape).view(v)
+                return F * Dinv, B * D, q_sums(B * F)
+
+            def run():
+                F, B, sums = F0, B0, ()
+                if not first:
+                    F, B, sums = roll(F, B)
+                F = torch.matmul(Eic, F)
+                T0 = torch.einsum("axq,ayq->xy", B, F)
+                B = torch.matmul(Ec.T, B)
+                if first:
+                    F, B, sums = roll(F, B)
+                return F, B, T0, *sums
+            return run
+        return make
+
+    def diag_q_library(ti, tf):
+        def make(fr, fi, br, bi):
+            rows13 = diag_library(ti, tf)(fr, fi, br, bi)
+            F, B = torch.complex(fr, fi), torch.complex(br, bi)
+            # row 13's multiplies, Q = B F and its three sums
+            return lambda: (*rows13(), *q_sums(B * F))
+        return make
+
+    for nq in (N_QUBITS, N29):
+        a_n, amps_n = 1 << (nq - 14), float(1 << nq)
+        st = 2 * amps_n * 4
+        q_bytes = 2 * 4 * (128 * 128 + 2 * a_n * 128)
+        E, Einv = unitary(128), unitary(128)
+        check_many("block_backward_lane", f"{nq}q", (a_n, 128, 128), 4, 4,
+                   lambda *p, E=E, Einv=Einv: block_backward_lane(*p, *Einv, *E),
+                   lambda *p, E=E, Einv=Einv: block_backward_lane_plain(
+                       *p, *Einv, *E), DUAL_TOL,
+                   flops=amps_n * 384 * 8, bytes_moved=4 * st,
+                   library=lane_library(E, Einv))
+        for j in (2, 3):
+            pre, X, M = pl._high_view(nq, j)
+            E, Einv = unitary(X), unitary(X)
+            for order in ("first", "after"):
+                ti, tf = tables(a_n), tables(a_n)
+                kw = dict(diag_inv_tables=ti, diag_tables=tf,
+                          diag_first_fwd=order == "first", diag_q=True)
+                check_many("block_backward_high", f"{nq}q_X{X}_g{j}_diag_{order}_q",
+                           (pre, X, M, 128), 4, 4,
+                           lambda *p, kw=kw, E=E, Einv=Einv: block_backward_high(
+                               *p, *Einv, *E, **kw),
+                           lambda *p, kw=kw, E=E, Einv=Einv: block_backward_high_plain(
+                               *p, *Einv, *E, **kw), HIGH_TOL,
+                           flops=amps_n * (3 * X * 8 + 12),
+                           bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
+                           library=high_q_library(E, Einv, ti, tf, order == "first"),
+                           rel_each=True)
+        ti, tf = tables(a_n), tables(a_n)
+        check_many("diag_backward", f"{nq}q_q", (a_n, 128, 128), 4, 4,
+                   lambda *p, ti=ti, tf=tf: diag_backward(*p, *ti, *tf, with_q=True),
+                   lambda *p, ti=ti, tf=tf: diag_backward_plain(*p, *ti, *tf,
+                                                                with_q=True),
+                   DIAG_TOL, flops=amps_n * (36 + 12),
+                   bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
+                   library=diag_q_library(ti, tf), rel_each=True)
+        del ti, tf
+
     # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
@@ -1555,11 +1785,247 @@ def main() -> int:
     del two
     torch.cuda.empty_cache()
 
-    # 9. result lines ---------------------------------------------------------
+    # 9. AutoGradCircuit.build() on the plane tape ---------------------------
+    # the reference-compatible API a qdc user writes: the circuit's
+    # autodiff_run (the plane tape and its kernels on the card), simple_run
+    # (the fused engine, plain torch on the card) and build_state_fn
+    from dqc_tpu_torch import GHZ, QFT, AutoGradCircuit
+    from dqc_tpu_torch.circuit.builder import autodiff_densities
+    from dqc_tpu_torch.circuit.fused_autograd import fused_tape_forward
+    from dqc_tpu_torch.circuit.fusion import fuse_tape
+
+    def tsallis(dens):
+        return torch.stack([1 - torch.einsum("ij,ji->", d, d).real
+                            for d in dens]).mean()
+
+    kernel_names = our_kernel_names()
+
+    def tape_phase(tag, circuit, rng, layers):
+        """One build() step of a tape: forward and value_and_grad through
+        autodiff_run, each with the counters set to 0 just before and read
+        just after and held to the port's dispatch of the same tape on the
+        meta device, warm step times, peak memory and the kernel time per
+        step; returns the gates, the gradients and the counts."""
+        n, tape = circuit.n, circuit.tape
+        ftape = fuse_tape(tape)
+        vg_np, cg = tape_gates(rng, tape, True), tape_gates(rng, tape, False)
+        items = Counter(it[0] for it in ps.plane_program(ftape))
+        log(f"[{tag}] {n}q x {layers}L: {len(vg_np)} var and {len(cg)} const gates, "
+            f"{len(tape.densities(diff=True))} diff densities; plan items "
+            f"{json.dumps(items)}")
+
+        def dry(kernels):
+            tv = [torch.tensor(g).to("meta").requires_grad_(True) for g in vg_np]
+            state = torch.zeros(1 << n, dtype=torch.complex64, device="meta")
+            return tsallis(ps.plane_tape_forward(ftape, state, tv, cg,
+                                                 kernels=kernels))
+
+        want_fwd, want_vg, vg_calls = dry_run_launches(dry)
+        _, autodiff_run = circuit.build()
+        tv = [torch.tensor(g, device=dev, requires_grad=True) for g in vg_np]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            dens = autodiff_run(tv, cg)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        got_fwd = K.launch_counts()
+        log(f"[{tag}] forward (autodiff_run) through the kernels: {first_s:.3f} s "
+            f"(first call); launches {json.dumps(got_fwd)}")
+        require(got_fwd == want_fwd, f"{tag} forward launch counts {got_fwd}, "
+                                     f"want {want_fwd}")
+        D = torch.stack([d for d in dens if d.shape == (2, 2)])
+        require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
+        # Hermitian; the trace is the squared norm, which the non-unitary
+        # gates move away from 1
+        herm = (D - D.conj().transpose(1, 2)).abs().max().item()
+        require(herm <= 1e-6, f"{tag} densities are not Hermitian ({herm:.2e})")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            value = tsallis(autodiff_run(tv, cg)).item()
+            fwd_s = time.perf_counter() - t0
+        fwd_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        tsallis(autodiff_run(tv, cg)).backward()
+        torch.cuda.synchronize()
+        vg_first_s = time.perf_counter() - t0
+        got_vg = K.launch_counts()
+        log(f"[{tag}] value_and_grad through the kernels: {vg_first_s:.3f} s "
+            f"(first call); launches {json.dumps(got_vg)}")
+        require(got_vg == want_vg, f"{tag} launch counts {got_vg}, want {want_vg}")
+        grads = [t.grad.detach().clone() for t in tv]
+        for t in tv:
+            t.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tsallis(autodiff_run(tv, cg)).backward()
+        torch.cuda.synchronize()
+        vg_s = time.perf_counter() - t0
+        vg_peak = torch.cuda.max_memory_allocated()
+        drift = max((t.grad - g).abs().max().item() for t, g in zip(tv, grads))
+        gmax = max(g.abs().max().item() for g in grads)
+        log(f"[{tag}] value {value:.6f}; |grad| max {gmax:.4e}; forward step (warm) "
+            f"{fwd_s:.4f} s, peak {fwd_peak / 2**30:.3f} GiB; value_and_grad step "
+            f"(warm) {vg_s:.4f} s, peak {vg_peak / 2**30:.3f} GiB; grad vs first "
+            f"call max abs {drift:.3e}")
+        require(drift <= GRAD_TOL * max(1.0, gmax), f"two {tag} steps disagree")
+        # the device time of one more step, by kernel, from torch.profiler
+        # (the tape's launches come at many shapes the kernel phase does not
+        # time one by one)
+        try:
+            prof = profile_device_ms(
+                lambda: tsallis(autodiff_run(tv, cg)).backward(), kernel_names)
+        except (RuntimeError, OSError) as e:  # the profiler itself, not a check
+            prof, why = None, f"the profiler failed: {e}"
+        else:
+            why = "the profiler saw no device time"
+        if prof is None:
+            log(f"[{tag}] kernel time per step: not measured ({why})")
+        else:
+            ours, total = prof
+            mine = sum(ours.values())
+            log(f"[{tag}] device time of one value_and_grad step (torch.profiler): "
+                f"all kernels {total:.1f} ms = {100 * total / (vg_s * 1e3):.1f}% of "
+                f"the step; the port's kernels {mine:.1f} ms; by kernel "
+                f"{json.dumps({k: round(t, 2) for k, t in ours.most_common()})}")
+        return dict(ftape=ftape, vg=vg_np, cg=cg, grads=grads, counts=got_vg,
+                    counts_fwd=got_fwd, fwd_s=fwd_s, vg_s=vg_s, tv=tv,
+                    simple_autodiff=circuit.build())
+
+    def grad_vs(tag, what, ftape, vg_np, cg, grads, fn):
+        """The gradients of the same tsallis loss through ``fn(tv)``
+        (another engine or the plain path) against the kernels' ones."""
+        tv = [torch.tensor(g, device=dev, requires_grad=True) for g in vg_np]
+        tsallis(fn(tv)).backward()
+        rel = max(((a - t.grad).abs() / t.grad.abs().clamp(min=1.0)).max().item()
+                  for a, t in zip(grads, tv))
+        log(f"[{tag}] gradient, kernels vs {what}: max err / max(1, |g|) {rel:.3e} "
+            f"(tol {MODEL_GRAD_TOL:.0e})")
+        require(rel <= MODEL_GRAD_TOL, f"{tag}: the kernels' gradient disagrees "
+                                       f"with {what}")
+        del tv
+        torch.cuda.empty_cache()
+
+    # [tape29]: the reference's gauntlet tape at 29q x 2 layers. Its second
+    # layer's gates follow its last differentiated density: they get a zero
+    # gradient and are not run, so one layer is differentiated.
+    TAPE_LAYERS = 2
+    gcirc = gauntlet_tape(AutoGradCircuit(N29), N29, TAPE_LAYERS)
+    t29 = tape_phase("tape29", gcirc, np.random.default_rng(SEED), TAPE_LAYERS)
+    c29 = t29["counts"]
+    require(c29["block_backward_lane"] >= TAPE_LAYERS - 1
+            and c29["block_backward_high[diag_q]"] >= TAPE_LAYERS - 1,
+            f"tape29 does not reach block_backward_lane / block_backward_high "
+            f"diag_q: {c29}")
+    n_trail = 2 * N29 + 3 * len(range(0, N29 - 1, 2))  # layer 2's var gates
+    trail = max(g.abs().max().item() for g in t29["grads"][-n_trail:])
+    log(f"[tape29] the {n_trail} var gates after the last diff density: |grad| max "
+        f"{trail!r} (want 0)")
+    require(trail == 0.0, "trailing var gates got a nonzero gradient")
+    simple_run, autodiff_run = t29["simple_autodiff"]
+    with torch.no_grad():
+        all_dens = simple_run(t29["tv"], t29["cg"])
+        diff_dens = autodiff_run(t29["tv"], t29["cg"])
+    diff_idx = [k for k, inst in enumerate(gcirc.tape.densities()) if inst.diff]
+    dens_err = max((all_dens[k] - d).abs().max().item()
+                   for k, d in zip(diff_idx, diff_dens))
+    log(f"[tape29] simple_run (the fused engine) vs autodiff_run densities: max "
+        f"abs {dens_err:.3e} (tol {SLICE_TOL:.0e}) over {len(diff_dens)} densities "
+        f"of {len(all_dens)}")
+    require(len(all_dens) == len(gcirc.tape.densities()) and dens_err <= SLICE_TOL,
+            "simple_run and autodiff_run disagree")
+    del all_dens, diff_dens, simple_run, autodiff_run
+    t29.pop("simple_autodiff")
+    t29.pop("tv")
+    torch.cuda.empty_cache()
+    init29 = torch.zeros(1 << N29, dtype=torch.complex64, device=dev)
+    init29[0] = 1
+    ft29 = t29["ftape"]
+    grad_vs("tape29", "the fused engine (fused_tape_forward)", ft29, t29["vg"],
+            t29["cg"], t29["grads"],
+            lambda tv: fused_tape_forward(ft29, init29, tv, t29["cg"]))
+    grad_vs("tape29", "the plain path", ft29, t29["vg"], t29["cg"], t29["grads"],
+            lambda tv: autodiff_densities(ft29, init29, tv, t29["cg"],
+                                          kernels=K.PLAIN))
+    del init29
+    torch.cuda.empty_cache()
+
+    # [diagq]: a lone variable diagonal run (no dense sweep to fold into), its
+    # Q reductions from diag_backward
+    N_DQ = N_QUBITS
+    dq = AutoGradCircuit(N_DQ)
+    for i in range(N_DQ):
+        dq.add_q1_const_gate(i)
+    for i in range(N_DQ):
+        dq.get_q1_dens_op_with_grad(i)
+    for i in range(N_DQ - 1):
+        dq.add_q2_var_gate_diag(i + 1, i)
+    for i in range(N_DQ):
+        dq.get_q1_dens_op_with_grad(i)
+    for i in range(N_DQ):
+        dq.add_q1_var_gate(i)
+    for i in range(N_DQ):
+        dq.get_q1_dens_op_with_grad(i)
+    dq_items = [it for it in ps.plane_program(fuse_tape(dq.tape)) if it[0] != "dens"]
+    lone = [it for it in dq_items if it[0] == "diag"
+            and ps._run_has_var(it[1], fuse_tape(dq.tape))]
+    log(f"[diagq] {N_DQ}q program (densities left out): {[it[0] for it in dq_items]}")
+    require(len(lone) == 1, f"[diagq] wants one lone variable diag run: {dq_items}")
+    tdq = tape_phase("diagq", dq, np.random.default_rng(SEED + 1), 1)
+    require(tdq["counts"]["diag_backward[with_q]"] == 1,
+            f"diag_backward[with_q] launches {tdq['counts']}, want 1")
+    tdq.pop("simple_autodiff")
+    tdq.pop("tv")
+    initdq = torch.zeros(1 << N_DQ, dtype=torch.complex64, device=dev)
+    initdq[0] = 1
+    grad_vs("diagq", "the plain path", tdq["ftape"], tdq["vg"], tdq["cg"],
+            tdq["grads"], lambda tv: autodiff_densities(
+                tdq["ftape"], initdq, tv, tdq["cg"], kernels=K.PLAIN))
+    del initdq
+    torch.cuda.empty_cache()
+
+    # [ghz29]: known answers through build() and build_state_fn(): every
+    # one-qubit density of the GHZ state is I / 2, and the prepared state is
+    # (|0..0> + |1..1>) / sqrt 2
+    t0 = time.perf_counter()
+    ghz = GHZ(N29)
+    gd = torch.stack(ghz.densities())
+    g_err = (gd - 0.5 * torch.eye(2, device=dev)).abs().max().item()
+    g_fid = ghz.fidelity()
+    log(f"[ghz29] {N29} one-qubit densities through autodiff_run: max |rho - I/2| "
+        f"{g_err:.3e} (tol 1e-5); fidelity through build_state_fn {g_fid!r} (want "
+        f">= 1 - 1e-5); {time.perf_counter() - t0:.2f} s")
+    require(g_err <= 1e-5 and g_fid >= 1 - 1e-5, "the GHZ known answer failed")
+    del ghz, gd
+    torch.cuda.empty_cache()
+
+    # [qft28]: QFT|x> against the closed form exp(2 pi i x y / 2^n) / sqrt 2^n
+    N_QFT = N_QUBITS
+    t0 = time.perf_counter()
+    qft = QFT(N_QFT)
+    x_in = 0x5A5A5A5 % (1 << N_QFT)
+    psi = qft.apply_to_basis_state(x_in)
+    y = torch.arange(1 << N_QFT, device=dev, dtype=torch.int64)
+    ph = ((x_in * y) % (1 << N_QFT)).to(torch.float64) * (2 * np.pi / (1 << N_QFT))
+    exact = torch.polar(torch.full_like(ph, 2.0 ** (-N_QFT / 2)), ph)
+    q_fid = (torch.vdot(exact, psi.to(torch.complex128)).abs() ** 2).item()
+    log(f"[qft28] QFT|{x_in}> ({qft.num_gates()} gates) through build_state_fn: "
+        f"fidelity to the closed form {q_fid!r} (want >= 1 - 1e-4); "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(q_fid >= 1 - 1e-4, "the QFT known answer failed")
+    del qft, psi, y, ph, exact
+    torch.cuda.empty_cache()
+
+    # 10. result lines --------------------------------------------------------
     # each kernel's row at the 29-qubit path's shape of its most launched
     # variant; launches from the 29q x 100L cz value_and_grad (and its
-    # forward), and for the CNOT ring's kernels from the 29q x 20L cnot
-    # value_and_grad (and its forward)
+    # forward), for the CNOT ring's kernels from the 29q x 20L cnot
+    # value_and_grad (and its forward), for block_backward_lane from
+    # [tape29]'s value_and_grad (and its forward)
     sources = {
         "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
                        "dqc_tpu/ops/pallas/dual_apply.py:232", "29q_diag_first"),
@@ -1591,11 +2057,14 @@ def main() -> int:
         "block_backward_sublane": ("dqc_tpu_torch/csrc/block_backward_sublane.cu",
                                    "dqc_tpu/ops/pallas/block_backward.py:184",
                                    "29q"),
+        "block_backward_lane": ("dqc_tpu_torch/csrc/block_backward_lane.cu",
+                                "dqc_tpu/ops/pallas/block_backward.py:88", "29q"),
     }
     cnot_kernels = ("dual_multi_apply", "high_multi_apply", "block_backward_sublane")
     # the modes the VQE / QAOA slice ported, with their launches counted
     # per mode (ops.kernels' mode_launches): "launches" from the 29q x 26L
-    # VQE value_and_grad
+    # VQE value_and_grad; the build() slice's Q modes from [tape29] (the
+    # high adjoint's) and [diagq] (the diag adjoint's)
     modes = {
         "block_backward_dual[diag_q]": (
             "dqc_tpu_torch/csrc/block_backward_dual.cu",
@@ -1609,7 +2078,15 @@ def main() -> int:
             "dqc_tpu_torch/csrc/high_multi_apply.cu",
             "dqc_tpu/ops/pallas/high_apply.py:273 (conj/acc/alias=False)",
             "29q_seed_T4_acc", "_seed_"),
+        "block_backward_high[diag_q]": (
+            "dqc_tpu_torch/csrc/block_backward_high.cu",
+            "dqc_tpu/ops/pallas/block_backward.py:906 (diag_q)",
+            "29q_X128_g2_diag_first_q", "_q"),
+        "diag_backward[with_q]": (
+            "dqc_tpu_torch/csrc/diag.cu", "dqc_tpu/ops/pallas/diag.py:154 (with_q)",
+            "29q_q", "_q"),
     }
+    mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):
@@ -1621,6 +2098,8 @@ def main() -> int:
                 "launches_28q": counts.get(name),
                 "launches_vqe29": vqe29["counts"].get(name),
                 "launches_qaoa29": qaoa29["counts"].get(name),
+                "launches_tape29": t29["counts"].get(name),
+                "launches_diagq": tdq["counts"].get(name),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -1629,17 +2108,20 @@ def main() -> int:
 
     for name, (src, replaces, variant) in sources.items():
         mine = [r for r in rows if r["kernel"] == name and not (
-            name in ("block_backward_dual", "dual_multi_apply", "high_multi_apply")
+            name in ("block_backward_dual", "block_backward_high", "diag_backward",
+                     "dual_multi_apply", "high_multi_apply")
             and r["variant"].endswith(("_q", "_acc", "_fresh")))]
         main_vg, main_fwd = ((countsc, fwdc) if name in cnot_kernels
-                             else (counts29, fwd29))
+                             else (t29["counts"], t29["counts_fwd"])
+                             if name == "block_backward_lane" else (counts29, fwd29))
         out.append(row_of(name, src, replaces, mine, variant, main_vg[name],
                           main_fwd[name]))
     for name, (src, replaces, variant, tag) in modes.items():
         kernel = name.split("[")[0]
         mine = [r for r in rows if r["kernel"] == kernel and tag in r["variant"]]
+        run = mode_runs.get(name, vqe29)
         out.append(row_of(name, src, replaces, mine, variant,
-                          vqe29["counts"][name], vqe29["counts_fwd"][name]))
+                          run["counts"][name], run["counts_fwd"][name]))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,19 @@
-"""Block operators of a fused tape, and the per-gate close of the adjoint.
+"""Fused-tape execution on the grouped complex engine, and its blockwise
+O(1)-memory adjoint.
 
-Counterpart of the per-ref operator helpers of
-``dqc_tpu/circuit/fused_autograd.py`` that ``circuit/plane_scan.py``
-imports: a fused block's gates expand to full-group operators (or diagonal
-tables) and compose into one block operator, or into its inverse for the
-uncompute. Constant gates stay host numpy end to end (value-memoised in
-ops/groups.py); variable gates are torch tensors and compose on their own
-device.
+Counterpart of ``dqc_tpu/circuit/fused_autograd.py``. A fused block's
+gates expand to full-group operators (or diagonal tables) and compose into
+one block operator, or into its inverse for the uncompute. Constant gates
+stay host numpy end to end (value-memoised in ops/groups.py); variable
+gates are torch tensors and compose on their own device.
+
+:func:`fused_run` executes a fused tape on a complex state in the grouped
+shape (ops/groups.py), one product per block; :func:`fused_tape_forward`
+is its differentiable form, a ``torch.autograd.Function`` whose backward
+rolls the state back block by block (the off-plane engine of
+``AutoGradCircuit.build``: n < 14, complex128, and ``simple_run`` at every
+n). The plane engine (circuit/plane_scan.py) shares the operator helpers
+and the cotangent close below.
 
 The blockwise adjoint reads one pair gram per dense block,
 ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]`` (no conjugation), and closes
@@ -18,12 +25,12 @@ circuit/plane_scan.py converts.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dqc_tpu_torch.circuit.fusion import FBlock, GateRef
+from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, GateRef
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops import inversion
 
@@ -212,3 +219,203 @@ def diag_block_var_cts(fi: FBlock, tables, W: torch.Tensor, var_gates,
             continue
         full_ct = _elmul(_elmul(W, prefix[i]), suffix[i + 1])
         var_cts[ref.queue_idx] = _diag_table_vjp(ref, full_ct, g).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The grouped complex engine
+# ---------------------------------------------------------------------------
+
+def _cross_ref(fi: FCross) -> GateRef:
+    return GateRef(fi.var, fi.queue_idx, (), fi.diag, fi.unitary)
+
+
+def _apply_block(t: torch.Tensor, block: FBlock, ops: List, *,
+                 reverse: bool = False) -> torch.Tensor:
+    if block.all_diag:
+        return gr.apply_group_diag(t, _compose(ops, diag=True), block.group)
+    return gr.apply_group_matrix(t, _compose(ops, diag=False, reverse=reverse),
+                                 block.group)
+
+
+def fused_run(ftape: FusedTape, state: torch.Tensor, var_gates, const_gates, *,
+              only_diff: bool = False, stop_after: Optional[int] = None
+              ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Execute a fused tape on a flat complex state; returns
+    ``(densities in tape order, final flat state)``. ``only_diff`` keeps the
+    differentiated densities only; ``stop_after`` ends the run after that
+    instruction index. Plain torch ops (differentiable as they are)."""
+    n = ftape.n
+    t = gr.to_grouped(state, n)
+    sizes = gr.group_sizes_low_first(n)
+    densities: List[torch.Tensor] = []
+    gram_cache: dict = {}  # per-group Grams shared by densities at one point
+    for idx, fi in enumerate(ftape.instructions):
+        if stop_after is not None and idx > stop_after:
+            break
+        if isinstance(fi, FDensity):
+            if fi.diff or not only_diff:
+                densities.append(gr.density_cached(t, fi.positions, n, gram_cache))
+        elif isinstance(fi, FBlock):
+            gram_cache.clear()
+            t = _apply_block(t, fi, _block_ops(fi, var_gates, const_gates,
+                                               sizes[fi.group], t.dtype))
+        else:
+            gram_cache.clear()
+            gate = _astype_host(_ref_gate(_cross_ref(fi), var_gates, const_gates),
+                                t.dtype)
+            if fi.diag:
+                t = gr.apply_diag(t, gate.reshape(-1), fi.positions, n)
+            else:
+                t = gr.apply_dense(t, gate, fi.positions, n)
+    return tuple(densities), gr.from_grouped(t)
+
+
+def _backward_gate_step(fi, fwd, bwd, var_gates, const_gates, sizes, n: int,
+                        var_cts: Dict[int, torch.Tensor]):
+    """Roll (fwd, bwd) back through one gate instruction (FCross or FBlock),
+    recording the variable gates' cotangents in ``var_cts``. ``bwd`` may be
+    None (exactly zero, before any density seed)."""
+    if isinstance(fi, FCross):
+        gate = _astype_host(_ref_gate(_cross_ref(fi), var_gates, const_gates),
+                            fwd.dtype)
+        ctx = (f"{'var' if fi.var else 'const'} cross-group gate, "
+               f"queue index {fi.queue_idx}")
+        if fi.diag:
+            d = gate.reshape(-1)
+            fwd = gr.apply_diag(fwd, _inv_diag(d, fi.unitary, ctx), fi.positions, n)
+            if fi.var and bwd is not None:
+                var_cts[fi.queue_idx] = gr.diag_pair_grad(fwd, bwd, fi.positions, n)
+            if bwd is not None:
+                bwd = gr.apply_diag(bwd, d, fi.positions, n)
+        else:
+            kk = 1 << len(fi.positions)
+            m = gate.reshape(kk, kk)
+            fwd = gr.apply_dense(fwd, _inv_dense(m, fi.unitary, ctx), fi.positions, n)
+            if fi.var and bwd is not None:
+                var_cts[fi.queue_idx] = gr.pair_grad(fwd, bwd, fi.positions, n)
+            if bwd is not None:
+                bwd = gr.apply_dense(bwd, m.T, fi.positions, n)
+        return fwd, bwd
+
+    g = sizes[fi.group]
+    inv_ops = _block_ops(fi, var_gates, const_gates, g, fwd.dtype, inverse=True)
+    if fi.all_diag:
+        fwd = gr.apply_group_diag(fwd, _compose(inv_ops, diag=True), fi.group)
+        if bwd is not None:
+            tables = _block_ops(fi, var_gates, const_gates, g, fwd.dtype)
+            if fi.has_var:
+                W = gr.group_diag_gram(fwd, bwd, fi.group)
+                diag_block_var_cts(fi, tables, W, var_gates, const_gates, g,
+                                   fwd.dtype, var_cts)
+            bwd = gr.apply_group_diag(bwd, _compose(tables, diag=True), fi.group)
+        return fwd, bwd
+
+    fwd = gr.apply_group_matrix(fwd, _compose(inv_ops, diag=False, reverse=True),
+                                fi.group)
+    if bwd is not None:
+        ops = _block_ops(fi, var_gates, const_gates, g, fwd.dtype)
+        if fi.has_var:
+            T0 = gr.group_pair_gram(fwd, bwd, fi.group)
+            dense_block_var_cts(fi, ops, T0, var_gates, const_gates, g,
+                                fwd.dtype, var_cts)
+        bwd = gr.apply_group_matrix(bwd, _compose(ops, diag=False).T, fi.group)
+    return fwd, bwd
+
+
+def _fused_backward(ftape: FusedTape, state: torch.Tensor, var_gates,
+                    const_gates, density_cts) -> Tuple[Optional[torch.Tensor],
+                                                       Dict[int, torch.Tensor]]:
+    """The blockwise adjoint in the JAX package's cotangent convention:
+    ``(state cotangent or None, {queue index: var-gate cotangent})``."""
+    n = ftape.n
+    sizes = gr.group_sizes_low_first(n)
+    last = ftape.last_diff_density_index()
+    diff_indices = [i for i, fi in enumerate(ftape.instructions)
+                    if isinstance(fi, FDensity) and fi.diff]
+    ct_of = dict(zip(diff_indices, density_cts))
+
+    fwd = gr.to_grouped(state, n)
+    bwd = None
+    var_cts: Dict[int, torch.Tensor] = {}
+    pending: Dict[int, object] = {}  # group -> summed seed operator
+
+    def flush_seeds(fwd, bwd):
+        # every density cotangent at one circuit point seeds the same
+        # conj(fwd): the expanded (L + L^H) sum per group, applied once
+        if not pending:
+            return bwd
+        conj = fwd.conj()
+        for j, M in pending.items():
+            seed = gr.apply_group_matrix(conj, M, j)
+            bwd = seed if bwd is None else bwd + seed
+        pending.clear()
+        return bwd
+
+    for idx in range(last, -1, -1):
+        fi = ftape.instructions[idx]
+        if isinstance(fi, FDensity):
+            if not fi.diff or ct_of[idx] is None:
+                continue
+            d = 1 << len(fi.positions)
+            ct_m = ct_of[idx].reshape(d, d).to(fwd.dtype)
+            sym = ct_m + ct_m.conj().T
+            groups_hit = {gr.group_of_bit(n, p)[0] for p in fi.positions}
+            if len(groups_hit) == 1:
+                j = groups_hit.pop()
+                rels = tuple(p % gr.GROUP_BITS for p in fi.positions)
+                E = gr.expand_in_group(sym, rels, sizes[j])
+                pending[j] = E if j not in pending else pending[j] + E
+            else:
+                seed = gr.apply_dense(fwd.conj(), sym, fi.positions, n)
+                bwd = seed if bwd is None else bwd + seed
+            continue
+        bwd = flush_seeds(fwd, bwd)
+        fwd, bwd = _backward_gate_step(fi, fwd, bwd, var_gates, const_gates,
+                                       sizes, n, var_cts)
+    bwd = flush_seeds(fwd, bwd)
+    return (None if bwd is None else gr.from_grouped(bwd)), var_cts
+
+
+class _FusedTapeForward(torch.autograd.Function):
+    """Diff densities of a fused tape with the blockwise uncompute adjoint;
+    the residual is the state at the last differentiated density (or the
+    initial state) and the gate values."""
+
+    @staticmethod
+    def forward(ctx, ftape, const_gates, initial_state, *var_gates):
+        last = ftape.last_diff_density_index()
+        densities, state = fused_run(ftape, initial_state.reshape(-1), var_gates,
+                                     const_gates, only_diff=True,
+                                     stop_after=last if last >= 0 else -1)
+        if last < 0:
+            state = initial_state.reshape(-1)
+        ctx.statics = (ftape, const_gates)
+        ctx.save_for_backward(state, initial_state, *var_gates)
+        return densities
+
+    @staticmethod
+    def backward(ctx, *density_grads):
+        from dqc_tpu_torch.circuit.autograd import match_grad
+
+        ftape, const_gates = ctx.statics
+        state, initial_state, *var_gates = ctx.saved_tensors
+        cts = tuple(None if g is None else g.conj() for g in density_grads)
+        state_ct, var_cts = _fused_backward(ftape, state, var_gates,
+                                            const_gates, cts)
+        state_grad = None
+        if ctx.needs_input_grad[2]:
+            state_grad = (torch.zeros_like(initial_state) if state_ct is None
+                          else match_grad(state_ct, initial_state))
+        grads = tuple(torch.zeros_like(ref) if q not in var_cts
+                      else match_grad(var_cts[q], ref)
+                      for q, ref in enumerate(var_gates))
+        return (None, None, state_grad) + grads
+
+
+def fused_tape_forward(ftape: FusedTape, initial_state: torch.Tensor,
+                       var_gates, const_gates) -> Tuple[torch.Tensor, ...]:
+    """Differentiable fused execution returning the diff-density matrices,
+    with gradients to ``var_gates`` and ``initial_state`` through the
+    blockwise O(1)-memory adjoint."""
+    return _FusedTapeForward.apply(ftape, tuple(const_gates), initial_state,
+                                   *var_gates)

@@ -136,7 +136,8 @@ class Tape:
                 continue
             g = next(vi) if inst.var else next(ci)
             want = inst.gate_size()
-            got = getattr(g, "size", None)
+            # a torch tensor counts its entries with numel(); numpy with size
+            got = g.numel() if hasattr(g, "numel") else getattr(g, "size", None)
             if got is not None and got != want:
                 kindname = "diagonal" if inst.kind is InstrKind.DIAG else "dense"
                 raise ValueError(

@@ -20,27 +20,32 @@ small matrix algebra (circuit/fused_autograd.py). ``plane_std_scan_densities``
 is a ``torch.autograd.Function`` around both.
 
 The scheduler (``plane_program`` and its passes) is pure host code and is
-the same as the JAX package's, item for item. The port executes the items
-``dense``, ``ddual``, ``dhigh``, ``diag`` (a lone diagonal run: the diag
-kernels), ``hpair`` (a tiny top group's block merged with the one below
-it, Kronecker-factorized: merged_fact_apply / block_backward_merged_fact)
-and ``dcross`` (a dense gate across two groups, e.g. a CNOT of the ring: one
-pass of dual_multi_apply, of the high apply on a span view or of
-high_multi_apply; its adjoint one block_backward_high pass on a span view,
-or the 3-pass uncompute / transport), both ways, and the scan rotation of a
-trailing const run both ways. A diagonal run with variable gates (the ZZ
-cost gates of VQE and QAOA) folded into a dual sweep closes its cotangents
-from the Q reductions of block_backward_dual (``diag_q``). Densities across
-groups come from a sub-block contraction, and their seeds from the
-multi-term kernels' seed modes (or a span view, or per-term sweeps). A
-const-only prologue tape runs on the planes before the layers. The others
-(``mdiag``, ``xcross``, ``dens``), the gradient of a variable ``dcross``
-gate without a span view (``_plane_pair_grad``), a variable run in a lone
-``diag`` item or a ``dhigh`` item (the Q outputs of diag_backward_planes
-and block_backward_high) and the seed of a density over more than two
-groups without a span view (``xcross``) raise ``NotImplementedError``
-naming what is still to be ported, before any state is allocated. The
-layer loops are Python loops.
+the same as the JAX package's, item for item. The port executes every item
+kind: ``dense``, ``ddual``, ``dhigh``, ``diag`` (a lone diagonal run: the
+diag kernels), ``hpair`` (a tiny top group's block merged with the one
+below it, Kronecker-factorized: merged_fact_apply /
+block_backward_merged_fact), ``dcross`` (a dense gate across two groups,
+e.g. a CNOT of the ring: one pass of dual_multi_apply, of the high apply on
+a span view or of high_multi_apply; its adjoint one block_backward_high
+pass on a span view, or the 3-pass uncompute / pair gradient / transport),
+both ways, and the scan rotation of a trailing const run both ways. A
+diagonal run with variable gates (the ZZ cost gates of VQE and QAOA)
+closes its cotangents from the Q reductions of the backward kernel that
+rolls it back (``diag_q`` of block_backward_dual or block_backward_high,
+``with_q`` of diag_backward). Densities across groups come from a
+sub-block contraction, and their seeds from the multi-term kernels' seed
+modes (or a span view, or per-term sweeps). A const-only prologue tape
+runs on the planes before the layers. The remaining items are plain torch
+on the planes, as the JAX package leaves them to XLA: ``mdiag`` (a
+diagonal over more than two groups), ``xcross`` (a dense gate over more
+than two groups without a span view: a sub-block product), ``dens`` (a
+mid-circuit density) and the gradient of a variable cross gate without a
+span view (``_plane_pair_grad``). The layer loops are Python loops.
+
+:func:`plane_tape_forward` runs a whole fused tape on the planes, gates
+and density requests interleaved, and is the engine of
+``AutoGradCircuit.build``'s ``autodiff_run`` when :func:`use_plane_tape`
+holds.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dqc_tpu_torch import config
 from dqc_tpu_torch.circuit.fused_autograd import (
     _astype_host,
     _block_ops,
@@ -65,6 +71,7 @@ from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, Ga
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops import planes as pl
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
+from dqc_tpu_torch.ops.kernels.gram import pair_sum
 
 C64 = torch.complex64
 
@@ -327,81 +334,6 @@ def _split_diag_run(run) -> List[Tuple]:
     if plain:
         items.append(("diag", plain))
     return items
-
-
-# ---------------------------------------------------------------------------
-# What this slice executes
-# ---------------------------------------------------------------------------
-
-_MISSING = {
-    "mdiag": "the >2-group diagonal multiply (planes.apply_multi_diag)",
-    "xcross": "the >2-group dense gate (xcross: _apply_xcross)",
-    "dens": "mid-circuit densities (the generic plane tape path)",
-}
-_PAIR_GRAD = ("the gradient of a variable dense cross-group gate without a "
-              "span view (_plane_pair_grad, on groups.subblocks)")
-
-
-def _unsupported(what: str, n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"n={n} needs {what}, not ported to dqc_tpu_torch yet (the port "
-        "runs gate-only layers of dense blocks and diagonal runs at n in "
-        "14..30); see ROADMAP.md")
-
-
-_VAR_RUN_Q = {
-    "diag": "the Q reductions of a lone variable diagonal run (the Q outputs "
-            "of diag_backward_planes)",
-    "dhigh": "the Q reductions of a variable diagonal run folded into a high "
-             "sweep (the diag_q outputs of block_backward_high)",
-}
-_XCROSS_SEED = ("the seed of a density over more than two groups without a "
-                "span view (xcross: _apply_xcross)")
-
-
-def check_forward_supported(ftape: FusedTape, epi_ftape: FusedTape,
-                            pro_ftape: Optional[FusedTape] = None) -> None:
-    """Raise ``NotImplementedError`` naming every missing kernel when the
-    prologue, the layer program or the density epilogue needs one the port
-    lacks."""
-    n = ftape.n
-    missing: List[str] = []
-    for tape in (pro_ftape, ftape):
-        if tape is None:
-            continue
-        for item in plane_program(tape):
-            if item[0] in _MISSING:
-                missing.append(f"plane item {item[0]!r}: {_MISSING[item[0]]}")
-    if any(not isinstance(fi, FDensity) for fi in epi_ftape.instructions):
-        missing.append("a gate in the density epilogue")
-    if missing:
-        raise _unsupported("; ".join(dict.fromkeys(missing)), n)
-
-
-def check_backward_supported(ftape: FusedTape,
-                             epi_ftape: Optional[FusedTape] = None) -> None:
-    """Raise ``NotImplementedError`` when the adjoint needs what the port
-    lacks: a variable dense cross-group gate without a span view (its
-    cotangent needs ``_plane_pair_grad``), a variable diagonal run outside a
-    dual sweep (the Q outputs of the diag and high backward kernels), or the
-    seed of a density over three or more groups without a span view."""
-    n = ftape.n
-    for item in plane_program(ftape):
-        if item[0] == "dcross":
-            fi = ftape.instructions[item[1]]
-            if fi.var and not pl.backward_span_eligible(fi.positions, n):
-                raise _unsupported(_PAIR_GRAD, n)
-        elif item[0] in _VAR_RUN_Q and _run_has_var(item[1], ftape):
-            raise _unsupported(_VAR_RUN_Q[item[0]], n)
-    for fi in () if epi_ftape is None else epi_ftape.instructions:
-        if fi.diff and _is_xcross_seed(fi.positions, n):
-            raise _unsupported(_XCROSS_SEED, n)
-
-
-def _is_xcross_seed(positions, n: int) -> bool:
-    """A cross-group density seed that needs the >2-group dense apply."""
-    groups = {gr.group_of_bit(n, p)[0] for p in positions}
-    return len(groups) > 2 and not pl.cross_span_eligible(positions, n)
 
 
 # ---------------------------------------------------------------------------
@@ -737,11 +669,13 @@ def _apply_dcross(xr, xi, i: int, layer: _Layer):
                               alias=True, plan=plan)
 
 
-def _dual_operators(layer: _Layer, i: int, j: Optional[int]):
-    """(E0, E1) lane/sublane operators of a minor sweep (None = identity)."""
+def _dual_operators(layer: _Layer, i: int, j: Optional[int],
+                    inverse: bool = False):
+    """(E0, E1) lane/sublane operators of a minor sweep (None = identity),
+    or their inverses."""
     fi = layer.ftape.instructions[i]
-    E = layer.operator(i)
-    Ep = layer.operator(j) if j is not None else None
+    E = layer.operator(i, inverse)
+    Ep = layer.operator(j, inverse) if j is not None else None
     return (E, Ep) if fi.group == 0 else (Ep, E)
 
 
@@ -759,20 +693,24 @@ def _ddual_order(item) -> bool:
     return item[4] if len(item) > 4 else True
 
 
-def _apply_ddual(xr, xi, item, layer: _Layer):
+def _apply_ddual(xr, xi, item, layer: _Layer, inverse: bool = False):
     """Fused [diag run + minor dense sweep] forward (either tape order):
-    one kernel pass."""
-    E0, E1 = _dual_operators(layer, item[2], item[3])
-    return pl.apply_dual(xr, xi, E0, E1, diag=layer.run_tables(item[1]),
-                         diag_first=_ddual_order(item), kernels=layer.kernels)
+    one kernel pass. ``inverse`` un-applies the item (inverse operands, the
+    order flipped) for the uncompute without a cotangent."""
+    E0, E1 = _dual_operators(layer, item[2], item[3], inverse)
+    return pl.apply_dual(xr, xi, E0, E1, diag=layer.run_tables(item[1], inverse),
+                         diag_first=_ddual_order(item) != inverse,
+                         kernels=layer.kernels)
 
 
-def _apply_dhigh_item(xr, xi, item, layer: _Layer):
-    """Fused [diag run + dense high-group sweep] forward: one kernel pass."""
+def _apply_dhigh_item(xr, xi, item, layer: _Layer, inverse: bool = False):
+    """Fused [diag run + dense high-group sweep] forward: one kernel pass
+    (``inverse``: un-applied, as in _apply_ddual)."""
     fi = layer.ftape.instructions[item[2]]
-    return pl.apply_dhigh(xr, xi, layer.operator(item[2]),
-                          layer.run_tables(item[1]), fi.group, layer.ftape.n,
-                          diag_first=item[3], kernels=layer.kernels)
+    return pl.apply_dhigh(xr, xi, layer.operator(item[2], inverse),
+                          layer.run_tables(item[1], inverse), fi.group,
+                          layer.ftape.n, diag_first=item[3] != inverse,
+                          kernels=layer.kernels)
 
 
 def _hpair_ops(item, layer: _Layer, inverse: bool = False):
@@ -788,26 +726,35 @@ def _apply_hpair(xr, xi, item, layer: _Layer):
                                     kernels=layer.kernels)
 
 
+def _apply_item(xr, xi, item, layer: _Layer):
+    """Forward of one gate item of a plane program."""
+    n = layer.ftape.n
+    if item[0] == "diag":
+        return pl.apply_diag_run(xr, xi, layer.run_tables(item[1]),
+                                 kernels=layer.kernels)
+    if item[0] == "hpair":
+        return _apply_hpair(xr, xi, item, layer)
+    if item[0] == "ddual":
+        return _apply_ddual(xr, xi, item, layer)
+    if item[0] == "dhigh":
+        return _apply_dhigh_item(xr, xi, item, layer)
+    if item[0] == "dense":
+        return _apply_dense_item(xr, xi, item[1], item[2], layer)
+    if item[0] == "dcross":
+        return _apply_dcross(xr, xi, item[1], layer)
+    fi = layer.ftape.instructions[item[1]]
+    if item[0] == "mdiag":
+        d = _cross_gate(fi, layer.var_gates, layer.const_gates).reshape(-1)
+        return pl.apply_multi_diag(xr, xi, d, fi.positions, n)
+    assert item[0] == "xcross", item
+    return _apply_xcross(xr, xi, _cross_gates(layer, item[1])[0], fi.positions,
+                         n, layer.kernels)
+
+
 def _apply_forward(xr, xi, program, layer: _Layer):
     """Gate-only forward over a plane program (no density items)."""
     for item in program:
-        if item[0] == "diag":
-            xr, xi = pl.apply_diag_run(xr, xi, layer.run_tables(item[1]),
-                                       kernels=layer.kernels)
-        elif item[0] == "hpair":
-            xr, xi = _apply_hpair(xr, xi, item, layer)
-        elif item[0] == "ddual":
-            xr, xi = _apply_ddual(xr, xi, item, layer)
-        elif item[0] == "dhigh":
-            xr, xi = _apply_dhigh_item(xr, xi, item, layer)
-        elif item[0] == "dense":
-            xr, xi = _apply_dense_item(xr, xi, item[1], item[2], layer)
-        elif item[0] == "dcross":
-            xr, xi = _apply_dcross(xr, xi, item[1], layer)
-        else:
-            raise _unsupported(
-                f"plane item {item[0]!r}: {_MISSING[item[0]]}",
-                layer.ftape.n)
+        xr, xi = _apply_item(xr, xi, item, layer)
     return xr, xi
 
 
@@ -820,12 +767,13 @@ def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
     """Reverse the program: paired dense sweeps (with a folded run or not)
     roll back in one dual backward kernel pass, high sweeps in one high
     backward kernel pass, merged sweeps in one merged backward kernel pass,
-    each lone diagonal run in one diag backward kernel pass and each dense
-    cross-group gate in one or three passes (_backward_dense_cross)."""
+    each lone diagonal run in one diag backward kernel pass, each dense
+    cross-group gate in one or three passes (_backward_dense_cross), and
+    the >2-group items in plain torch steps."""
     for item in reversed(program):
         if item[0] == "diag":
             fxr, fxi, bxr, bxi = _diag_run_backward(fxr, fxi, bxr, bxi, item[1],
-                                                    layer)
+                                                    layer, var_cts)
         elif item[0] == "hpair":
             fxr, fxi, bxr, bxi = _backward_hpair(fxr, fxi, bxr, bxi, item,
                                                  layer, var_cts)
@@ -844,9 +792,13 @@ def _backward_program(fxr, fxi, bxr, bxi, program, layer: _Layer,
         elif item[0] == "dcross":
             fxr, fxi, bxr, bxi = _backward_dense_cross(
                 fxr, fxi, bxr, bxi, item[1], layer, var_cts)
+        elif item[0] == "mdiag":
+            fxr, fxi, bxr, bxi = _backward_multi_diag(
+                fxr, fxi, bxr, bxi, item[1], layer, var_cts)
         else:
-            raise _unsupported(f"plane item {item[0]!r}: {_MISSING[item[0]]}",
-                               layer.ftape.n)
+            assert item[0] == "xcross", item
+            fxr, fxi, bxr, bxi = _backward_xcross(
+                fxr, fxi, bxr, bxi, item[1], layer, var_cts)
     return fxr, fxi, bxr, bxi
 
 
@@ -860,25 +812,118 @@ def _close_block_cts(layer: _Layer, i: int, T0: torch.Tensor,
                             var_cts)
 
 
-def _no_var_run(run, layer: _Layer, kind: str) -> None:
-    if _run_has_var(run, layer.ftape):
-        raise _unsupported(_VAR_RUN_Q[kind], layer.ftape.n)
-
-
 def _backward_step(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
                    var_cts: Dict[int, torch.Tensor]):
-    """Roll (fwd, bwd) planes back through one unpaired dense block,
-    recording its var gates' cotangents (the dense FBlock branch of the JAX
-    package's _backward_step; the diagonal and cross-group branches need
-    kernels not ported yet)."""
+    """Roll (fwd, bwd) planes back through one instruction, recording its
+    var gates' cotangents (the plane mirror of
+    fused_autograd._backward_gate_step): a diagonal gate across two groups
+    or an all-diagonal block by broadcast multiplies (plain torch), a dense
+    block in one backward kernel pass."""
     fi = layer.ftape.instructions[i]
-    if not isinstance(fi, FBlock) or fi.all_diag:
-        raise _unsupported("the adjoint of a cross-group instruction (the "
-                           "cross-group paths)", layer.ftape.n)
+    n = layer.ftape.n
+    if isinstance(fi, FCross):
+        d = _cross_gate(fi, layer.var_gates, layer.const_gates).reshape(-1)
+        inv_t2, ja, jb = gr.cross_diag_table(
+            _inv_diag(d, fi.unitary, _cross_ctx(fi)), fi.positions, n)
+        fxr, fxi = pl.apply_cross_diag(fxr, fxi, inv_t2, ja, jb, n)
+        if fi.var:
+            W2 = pl.cross_diag_gram(fxr, fxi, bxr, bxi, ja, jb, n)
+            var_cts[fi.queue_idx] = gr.cross_diag_table_vjp(W2, fi.positions, n)
+        t2, _, _ = gr.cross_diag_table(d, fi.positions, n)
+        bxr, bxi = pl.apply_cross_diag(bxr, bxi, t2, ja, jb, n)
+        return fxr, fxi, bxr, bxi
+    if fi.all_diag:
+        fxr, fxi = pl.apply_diag_axis(fxr, fxi, layer.operator(i, inverse=True),
+                                      fi.group, n)
+        if fi.has_var:
+            W = pl.diag_gram_axis(fxr, fxi, bxr, bxi, fi.group, n)
+            diag_block_var_cts(fi, layer.ops(i), W, layer.var_gates,
+                               layer.const_gates, layer.group_size(i), C64,
+                               var_cts)
+        bxr, bxi = pl.apply_diag_axis(bxr, bxi, layer.operator(i), fi.group, n)
+        return fxr, fxi, bxr, bxi
     fxr, fxi, bxr, bxi, T0 = pl.backward_block(
         fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
-        fi.group, layer.ftape.n, kernels=layer.kernels)
+        fi.group, n, kernels=layer.kernels)
     _close_block_cts(layer, i, T0, var_cts)
+    return fxr, fxi, bxr, bxi
+
+
+# ---------------------------------------------------------------------------
+# Gates over more than two groups (plain torch on the planes, as the JAX
+# package leaves them to XLA), and the pair gradient of a cross gate
+# without a span view
+# ---------------------------------------------------------------------------
+
+def _apply_xcross(xr, xi, gate_m, positions, n: int, kernels: KernelSet):
+    """A dense k-qubit gate over more than two groups: one in-place pass of
+    the span view where the bits allow one (planes.apply_cross_span), else
+    the target bits gathered to the front (groups.subblocks), one
+    ``(2^k, 2^k) x (2^k, 2^(n-k))`` complex product, and the result written
+    back (fresh planes)."""
+    ops = pl.cross_span_operands(gate_m, positions, n, xr.device)
+    if ops is not None:
+        return pl.apply_cross_span(xr, xi, None, positions, n, kernels=kernels,
+                                   operands=ops)
+    k = len(positions)
+    m = torch.as_tensor(gate_m, device=xr.device).to(C64).reshape(1 << k, 1 << k)
+    dims = gr.group_dims(n)
+    Sr, restore_r = gr.subblocks_with_restore(xr.reshape(dims), positions, n)
+    Si, restore_i = gr.subblocks_with_restore(xi.reshape(dims), positions, n)
+    Y = torch.matmul(m, torch.complex(Sr, Si))
+    del Sr, Si
+    return (restore_r(Y.real).reshape(xr.shape),
+            restore_i(Y.imag).reshape(xi.shape))
+
+
+def _plane_pair_grad(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
+    """Dense cross-gate cotangent ``W[p, q] = sum_b bwd[p, b] fwd[q, b]``
+    on planes (groups.pair_grad on the complex sub-blocks)."""
+    dims = gr.group_dims(n)
+    F = torch.complex(gr.subblocks(fxr.reshape(dims), positions, n),
+                      gr.subblocks(fxi.reshape(dims), positions, n))
+    B = torch.complex(gr.subblocks(bxr.reshape(dims), positions, n),
+                      gr.subblocks(bxi.reshape(dims), positions, n))
+    return pair_sum(B[None], F[None])
+
+
+def _backward_xcross(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
+                     var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a dense gate over more than two groups: one
+    block_backward_high pass on a span view where the bits allow one, else
+    the uncompute with G^-1, the pair gradient and the transport with G^T,
+    each on the sub-blocks."""
+    fi = layer.ftape.instructions[i]
+    n = layer.ftape.n
+    m, minv = _cross_gates(layer, i)
+    fused = pl.backward_cross_span(fxr, fxi, bxr, bxi, m, minv, fi.positions, n,
+                                   kernels=layer.kernels, with_cotangent=fi.var)
+    if fused is not None:
+        fxr, fxi, bxr, bxi, W = fused
+        if fi.var:
+            var_cts[fi.queue_idx] = W
+        return fxr, fxi, bxr, bxi
+    fxr, fxi = _apply_xcross(fxr, fxi, minv, fi.positions, n, layer.kernels)
+    if fi.var:
+        var_cts[fi.queue_idx] = _plane_pair_grad(fxr, fxi, bxr, bxi,
+                                                 fi.positions, n)
+    bxr, bxi = _apply_xcross(bxr, bxi, m.T, fi.positions, n, layer.kernels)
+    return fxr, fxi, bxr, bxi
+
+
+def _backward_multi_diag(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
+                         var_cts: Dict[int, torch.Tensor]):
+    """Adjoint of a diagonal over more than two groups: broadcast uncompute
+    with d^-1, the sub-block pair gradient, transport with d."""
+    fi = layer.ftape.instructions[i]
+    n = layer.ftape.n
+    d = _cross_gate(fi, layer.var_gates, layer.const_gates).reshape(-1)
+    fxr, fxi = pl.apply_multi_diag(
+        fxr, fxi, _inv_diag(d, fi.unitary, _cross_ctx(fi)), fi.positions, n)
+    if fi.var:
+        var_cts[fi.queue_idx] = pl.multi_diag_gram(fxr, fxi, bxr, bxi,
+                                                   fi.positions, n)
+    bxr, bxi = pl.apply_multi_diag(bxr, bxi, d, fi.positions, n)
     return fxr, fxi, bxr, bxi
 
 
@@ -1003,14 +1048,18 @@ def _diag_cts_from_Q(run, layer: _Layer, Q, var_cts: Dict[int, torch.Tensor]):
                 Wred * layer._on_device(inv_t2).to(C64), fi.positions, n)
 
 
-def _diag_run_backward(fxr, fxi, bxr, bxi, run, layer: _Layer):
-    """One in-place kernel pass rolling (fwd, bwd) back through a const
-    diagonal run (uncompute + cotangent transport). A run with variable
-    gates needs the Q reductions of the diag backward kernel and raises."""
-    _no_var_run(run, layer, "diag")
-    fxr, fxi, bxr, bxi, _ = pl.backward_diag_run(
+def _diag_run_backward(fxr, fxi, bxr, bxi, run, layer: _Layer,
+                       var_cts: Dict[int, torch.Tensor]):
+    """One in-place kernel pass rolling (fwd, bwd) back through a diagonal
+    run (uncompute + cotangent transport); a run with variable gates also
+    yields the kernel's Q reductions, from which the gates' cotangents
+    close (:func:`_diag_cts_from_Q`)."""
+    with_q = _run_has_var(run, layer.ftape)
+    fxr, fxi, bxr, bxi, Q = pl.backward_diag_run(
         fxr, fxi, bxr, bxi, layer.run_tables(run, True), layer.run_tables(run),
-        with_q=False, kernels=layer.kernels)
+        with_q=with_q, kernels=layer.kernels)
+    if with_q:
+        _diag_cts_from_Q(run, layer, Q, var_cts)
     return fxr, fxi, bxr, bxi
 
 
@@ -1037,9 +1086,9 @@ def _backward_dense_cross(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
     """Adjoint of a dense cross-group gate. A span view without lane bits:
     uncompute, transport and the gate cotangent in ONE block_backward_high
     pass (planes.backward_cross_span). Otherwise: uncompute with G^-1, the
-    pair gradient on the restored planes (a variable gate: _plane_pair_grad,
-    not ported — check_backward_supported refuses it before any state), and
-    transport with G^T, each a fused one-pass apply."""
+    pair gradient on the restored planes (a variable gate:
+    _plane_pair_grad), and transport with G^T, each a fused one-pass
+    apply."""
     fi = layer.ftape.instructions[i]
     n = layer.ftape.n
     pos, dev = fi.positions, layer.device
@@ -1052,12 +1101,12 @@ def _backward_dense_cross(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
         if fi.var:
             var_cts[fi.queue_idx] = W
         return fxr, fxi, bxr, bxi
-    if fi.var:
-        raise _unsupported(_PAIR_GRAD, n)
     inv_plan = layer._const(("dcross", i, "inverse"), fi.var, lambda: (
         _cross_plan(_cross_gates(layer, i)[1], pos, n, dev)))
     fxr, fxi = _apply_dense_cross(fxr, fxi, None, pos, n, layer.kernels,
                                   alias=True, plan=inv_plan)
+    if fi.var:
+        var_cts[fi.queue_idx] = _plane_pair_grad(fxr, fxi, bxr, bxi, pos, n)
     tr_plan = layer._const(("dcross", i, "transpose"), fi.var, lambda: (
         _cross_plan(_cross_gates(layer, i)[0].T, pos, n, dev)))
     bxr, bxi = _apply_dense_cross(bxr, bxi, None, pos, n, layer.kernels,
@@ -1068,16 +1117,18 @@ def _backward_dense_cross(fxr, fxi, bxr, bxi, i: int, layer: _Layer,
 def _backward_dhigh(fxr, fxi, bxr, bxi, item, layer: _Layer,
                     var_cts: Dict[int, torch.Tensor]):
     """Adjoint of a fused [diag run + dense high-group sweep] in ONE kernel
-    pass: uncompute + transport + the dense block's T0 pair gram
-    (pl.backward_dhigh)."""
+    pass: uncompute + transport + the dense block's T0 pair gram, and the
+    run's Q reductions when it holds variable gates (pl.backward_dhigh)."""
     run, i = item[1], item[2]
-    _no_var_run(run, layer, "dhigh")
     fi = layer.ftape.instructions[i]
-    fxr, fxi, bxr, bxi, T0, _ = pl.backward_dhigh(
+    with_q = _run_has_var(run, layer.ftape)
+    fxr, fxi, bxr, bxi, T0, Q = pl.backward_dhigh(
         fxr, fxi, bxr, bxi, layer.operator(i, inverse=True), layer.operator(i),
         layer.run_tables(run, True), layer.run_tables(run), fi.group,
-        layer.ftape.n, diag_first=item[3], kernels=layer.kernels)
+        layer.ftape.n, diag_first=item[3], with_q=with_q, kernels=layer.kernels)
     _close_block_cts(layer, i, T0, var_cts)
+    if with_q:
+        _diag_cts_from_Q(run, layer, Q, var_cts)
     return fxr, fxi, bxr, bxi
 
 
@@ -1296,21 +1347,21 @@ def _collect_seed_pending(epi_ftape: FusedTape, density_cts, n: int,
 
 
 def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
-                kernels: KernelSet = KERNELS):
+                kernels: KernelSet = KERNELS, bxr=None, bxi=None):
     """The density seeds ``sum_j M_j conj(psi)`` as cotangent planes,
     computed as ``conj(sum_j conj(M_j) psi)``: one apply per group that
     READS the forward planes (``alias=False``) and accumulates into one
-    set of cotangent planes (``acc``). Returns ``(None, None)`` without
-    seeds. When the top group is tiny, the top two groups' seeds (a sum of
+    set of cotangent planes (``acc``: ``(bxr, bxi)`` when given). Returns
+    ``(bxr, bxi)`` as given without seeds. When the top group is tiny, the top two groups' seeds (a sum of
     per-group operators) combine into ONE merged-axis operator
     ``kron(M_top, I) + kron(I, M_low)`` and one pass, first. A seed across
     groups (key = positions) applies ``conj(M)`` as a dense cross-group
     gate in the same seed form (_apply_dense_cross: the multi-term kernels,
     a span view or per-term sweeps); one over more than two groups without
-    a span view needs ``_apply_xcross`` and raises."""
+    a span view as ``conj(_apply_xcross(conj(M)))`` on a copy of the
+    forward planes, added into the accumulator."""
     pending = dict(pending)
     njg = len(gr.group_dims(n))
-    bxr = bxi = None
     if pl.merged_top_tiny(n) and (njg - 1 in pending or njg - 2 in pending):
         X, Xl = gr.group_dims(n)[:2]
         M_top = pending.pop(njg - 1, None)
@@ -1321,15 +1372,23 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
         if M_low is not None:
             t = pl.kron_ops(np.eye(X, dtype=np.complex64), M_low)
             Mm = t if Mm is None else Mm + t
+        acc = None if bxr is None else (bxr, bxi)
         bxr, bxi = pl.apply_merged_top(fxr, fxi, Mm.conj(), n, alias=False,
-                                       conj=True, kernels=kernels)
+                                       conj=True, acc=acc, kernels=kernels)
     for key, M in pending.items():
         acc = None if bxr is None else (bxr, bxi)
         if isinstance(key, tuple):
-            if _is_xcross_seed(key, n):
-                raise _unsupported(_XCROSS_SEED, n)
-            bxr, bxi = _apply_dense_cross(fxr, fxi, M.conj(), key, n, kernels,
-                                          conj=True, acc0=acc)
+            groups = {gr.group_of_bit(n, p)[0] for p in key}
+            if len(groups) <= 2 or pl.cross_span_eligible(key, n):
+                bxr, bxi = _apply_dense_cross(fxr, fxi, M.conj(), key, n,
+                                              kernels, conj=True, acc0=acc)
+                continue
+            yr, yi = _apply_xcross(fxr.clone(), fxi.clone(), M.conj(), key, n,
+                                   kernels)
+            if acc is None:
+                bxr, bxi = yr, -yi
+            else:
+                bxr, bxi = bxr + yr, bxi - yi
             continue
         bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), key, n, alias=False,
                                   conj=True, acc=acc, kernels=kernels)
@@ -1412,11 +1471,6 @@ def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
     be None) then L layers of ``ftape``, starting from |0..0> — fully
     plane-resident, no 2^n complex buffer — and differentiable in
     ``stacked_var_gates`` with torch autograd."""
-    check_forward_supported(ftape, epi_ftape, pro_ftape)
-    if torch.is_grad_enabled() and any(
-            isinstance(g, torch.Tensor) and g.requires_grad
-            for g in stacked_var_gates):
-        check_backward_supported(ftape, epi_ftape)
     pro = None if pro_ftape is None else (pro_ftape, tuple(pro_const_gates))
     return _StdScanDensities.apply(pro, ftape, epi_ftape, tuple(const_gates),
                                    device, kernels, *stacked_var_gates)
@@ -1428,8 +1482,9 @@ def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
                            dtype=C64, device=None,
                            kernels: KernelSet = KERNELS):
     """Models whose circuit starts from |0..0>: the plane-resident forward
-    and its adjoint. The JAX package's composed non-plane fallback is not
-    ported: an ineligible tape raises ``NotImplementedError``."""
+    and its adjoint. The JAX package's scan-mode fallback off the planes
+    (n < 14, complex128) is not ported: an ineligible tape raises
+    ``NotImplementedError``."""
     pro_ok = pro_ftape is None or (plane_tape_eligible(pro_ftape, dtype)
                                    and _tape_all_const(pro_ftape))
     if not (pro_ok and plane_tape_eligible(ftape, dtype)
@@ -1437,8 +1492,245 @@ def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
         raise NotImplementedError(
             "only plane-eligible circuits (n >= 14, complex64, a const-only "
             "gate prologue, gate-only layers, density-only epilogue) run in "
-            "dqc_tpu_torch yet; the non-plane engine is ROADMAP.md queue A")
+            "scan mode in dqc_tpu_torch yet; the scan-mode fallback off the "
+            "planes is ROADMAP.md queue A")
     return plane_std_scan_densities(pro_ftape, ftape, epi_ftape,
                                     pro_const_gates, stacked_var_gates,
                                     const_gates, device=device,
                                     kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# The generic plane tape: a whole fused tape (gates and density requests
+# interleaved) on the planes, the engine of AutoGradCircuit.build's
+# autodiff_run for any circuit the plane layout holds
+# ---------------------------------------------------------------------------
+
+def plane_full_tape_eligible(ftape: FusedTape, dtype) -> bool:
+    """Every instruction kind runs on the planes; only the layout's
+    prerequisites remain (n >= 14, complex64)."""
+    return pl.plane_eligible(ftape.n, dtype)
+
+
+def use_plane_tape(ftape: FusedTape, dtype, device) -> bool:
+    """The plane tape for ``autodiff_run``: ``config.plane_engine()`` True
+    (on any device, the CPU through the plain versions), or "auto" with
+    the state on a CUDA device — the card's counterpart of the JAX
+    package's TPU backend test."""
+    mode = config.plane_engine()
+    if mode is False or not plane_full_tape_eligible(ftape, dtype):
+        return False
+    if mode is True:
+        return True
+    return torch.device(device).type == "cuda"
+
+
+def _trim_program(program, stop_after: Optional[int]):
+    """Restrict a program to instructions with index <= stop_after. A diag
+    run straddling the cut keeps only its early members (diagonals commute,
+    so a subset composes exactly); a dense pair loses a late partner."""
+    if stop_after is None:
+        return program
+    out = []
+    for item in program:
+        if item[0] == "diag":
+            keep = tuple(i for i in item[1] if i <= stop_after)
+            if keep:
+                out.append(("diag", keep))
+        elif item[0] in ("dens", "dcross", "mdiag", "xcross"):
+            if item[1] <= stop_after:
+                out.append(item)
+        elif item[0] == "ddual":
+            keep_run = tuple(x for x in item[1] if x <= stop_after)
+            keep_dense = [x for x in (item[2], item[3])
+                          if x is not None and x <= stop_after]
+            whole = (keep_run == tuple(item[1])
+                     and len(keep_dense) == (2 if item[3] is not None else 1))
+            if whole:
+                out.append(item)
+            else:
+                parts = []
+                if keep_run:
+                    parts.append(("diag", keep_run))
+                if keep_dense:
+                    dense = ("dense", keep_dense[0],
+                             keep_dense[1] if len(keep_dense) > 1 else None)
+                    parts = (parts + [dense] if _ddual_order(item)
+                             else [dense] + parts)
+                out.extend(parts)
+        elif item[0] == "dhigh":
+            keep_run = tuple(x for x in item[1] if x <= stop_after)
+            keep_dense = item[2] <= stop_after
+            if keep_run == tuple(item[1]) and keep_dense:
+                out.append(item)
+            else:
+                parts = []
+                if keep_run:
+                    parts.append(("diag", keep_run))
+                if keep_dense:
+                    dense = ("dense", item[2], None)
+                    parts = [dense] + parts if not item[3] else parts + [dense]
+                out.extend(parts)
+        elif item[0] == "hpair":
+            keep = [x for x in (item[1], item[2]) if x <= stop_after]
+            if len(keep) == 2:
+                out.append(item)
+            elif keep:
+                out.append(("dense", keep[0], None))
+        else:
+            i, j = item[1], item[2]
+            if i > stop_after:
+                continue
+            out.append(("dense", i, j if (j is not None and j <= stop_after) else None))
+    return tuple(out)
+
+
+def _plane_run_diff(ftape: FusedTape, state: torch.Tensor, layer: _Layer, *,
+                    stop_after: Optional[int] = None):
+    """Forward of a whole tape on planes, collecting the diff densities;
+    returns ``(densities, (xr, xi))`` with the planes at the stop point."""
+    n = ftape.n
+    program = _trim_program(plane_program(ftape), stop_after)
+    xr, xi = pl.to_planes(state.to(C64), n)
+    densities = []
+    grams: Dict[int, torch.Tensor] = {}
+    for item in program:
+        if item[0] == "dens":
+            fi = ftape.instructions[item[1]]
+            if fi.diff:
+                densities.append(_density_for(grams, xr, xi, fi, n,
+                                              layer.kernels))
+            continue
+        grams.clear()
+        xr, xi = _apply_item(xr, xi, item, layer)
+    return tuple(densities), (xr, xi)
+
+
+def _uncompute_only(fxr, fxi, i: int, layer: _Layer):
+    """Roll the forward planes back through one instruction without a
+    cotangent (the zero-gradient trailing gates)."""
+    fi = layer.ftape.instructions[i]
+    n = layer.ftape.n
+    if isinstance(fi, FCross):
+        groups = {gr.group_of_bit(n, p)[0] for p in fi.positions}
+        if not fi.diag:
+            minv = _cross_gates(layer, i)[1]
+            if len(groups) > 2:
+                return _apply_xcross(fxr, fxi, minv, fi.positions, n,
+                                     layer.kernels)
+            return _apply_dense_cross(fxr, fxi, minv, fi.positions, n,
+                                      layer.kernels, alias=True)
+        d = _cross_gate(fi, layer.var_gates, layer.const_gates).reshape(-1)
+        dinv = _inv_diag(d, fi.unitary, _cross_ctx(fi))
+        if len(groups) > 2:
+            return pl.apply_multi_diag(fxr, fxi, dinv, fi.positions, n)
+        inv_t2, ja, jb = gr.cross_diag_table(dinv, fi.positions, n)
+        return pl.apply_cross_diag(fxr, fxi, inv_t2, ja, jb, n)
+    if fi.all_diag:
+        return pl.apply_diag_axis(fxr, fxi, layer.operator(i, inverse=True),
+                                  fi.group, n)
+    return pl.apply_block(fxr, fxi, layer.operator(i, inverse=True), fi.group,
+                          n, kernels=layer.kernels)
+
+
+def _uncompute_program(fxr, fxi, program, layer: _Layer):
+    """Roll the forward planes back through a program without a cotangent
+    (the zero-gradient region after the last seed)."""
+    for item in reversed(program):
+        if item[0] == "diag":
+            fxr, fxi = pl.apply_diag_run(fxr, fxi, layer.run_tables(item[1], True),
+                                         kernels=layer.kernels)
+        elif item[0] == "ddual":
+            fxr, fxi = _apply_ddual(fxr, fxi, item, layer, inverse=True)
+        elif item[0] == "dhigh":
+            fxr, fxi = _apply_dhigh_item(fxr, fxi, item, layer, inverse=True)
+        else:
+            fxr, fxi = _uncompute_only(fxr, fxi, item[1], layer)
+            if len(item) > 2 and item[2] is not None:
+                fxr, fxi = _uncompute_only(fxr, fxi, item[2], layer)
+    return fxr, fxi
+
+
+class _PlaneTapeForward(torch.autograd.Function):
+    """The diff densities of a fused tape run on the planes from
+    ``initial_state``, differentiable in the initial state and the var
+    gates. The forward keeps only the planes at the last differentiated
+    density (or the initial state's); the backward consumes them in place,
+    so a second backward through the same graph raises. Density gradients
+    are conjugated on the way in and the cotangents on the way out (torch's
+    gradient of a complex tensor is the conjugate of the JAX package's
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, ftape, const_gates, kernels, initial_state, *var_gates):
+        last = ftape.last_diff_density_index()
+        layer = _Layer(ftape, var_gates, const_gates, initial_state.device,
+                       kernels, {})
+        densities, (xr, xi) = _plane_run_diff(
+            ftape, initial_state, layer, stop_after=last if last >= 0 else -1)
+        if last < 0:
+            xr, xi = pl.to_planes(initial_state.to(C64), ftape.n)
+        ctx.statics = (ftape, const_gates, kernels, initial_state.dtype,
+                       tuple(initial_state.shape))
+        ctx.planes = (xr, xi) if any(ctx.needs_input_grad) else None
+        ctx.save_for_backward(*var_gates)
+        return densities
+
+    @staticmethod
+    def backward(ctx, *density_grads):
+        from dqc_tpu_torch.circuit.autograd import match_grad
+
+        ftape, const_gates, kernels, state_dtype, state_shape = ctx.statics
+        if ctx.planes is None:
+            raise RuntimeError(
+                "plane_tape_forward: the planes were consumed by an earlier "
+                "backward (the O(1)-memory adjoint rolls them back in place); "
+                "run the forward again for another gradient")
+        (fxr, fxi), ctx.planes = ctx.planes, None
+        var_gates = ctx.saved_tensors
+        n = ftape.n
+        last = ftape.last_diff_density_index()
+        diff_indices = [i for i, fi in enumerate(ftape.instructions)
+                        if isinstance(fi, FDensity) and fi.diff]
+        ct_of = dict(zip(diff_indices, (g.conj() for g in density_grads)))
+        layer = _Layer(ftape, var_gates, const_gates, fxr.device, kernels, {})
+        bxr = bxi = None
+        var_cts: Dict[int, torch.Tensor] = {}
+        pending: Dict = {}
+        program = _trim_program(plane_program(ftape), last if last >= 0 else -1)
+        for item in reversed(program):
+            if item[0] == "dens":
+                fi = ftape.instructions[item[1]]
+                if fi.diff:
+                    _add_seed(pending, fi, ct_of[item[1]], n)
+                continue
+            bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels, bxr, bxi)
+            pending.clear()
+            if bxr is None:
+                # before any seed: uncompute only (zero-gradient gates)
+                fxr, fxi = _uncompute_program(fxr, fxi, (item,), layer)
+                continue
+            fxr, fxi, bxr, bxi = _backward_program(fxr, fxi, bxr, bxi, (item,),
+                                                   layer, var_cts)
+        bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels, bxr, bxi)
+        state_grad = None
+        if ctx.needs_input_grad[3]:
+            ref = torch.empty(state_shape, dtype=state_dtype, device="meta")
+            state_grad = (torch.zeros(state_shape, dtype=state_dtype,
+                                      device=fxr.device) if bxr is None
+                          else match_grad(pl.from_planes(bxr, bxi, n), ref))
+        grads = tuple(torch.zeros_like(ref) if q not in var_cts
+                      else match_grad(var_cts[q], ref)
+                      for q, ref in enumerate(var_gates))
+        return (None, None, None, state_grad) + grads
+
+
+def plane_tape_forward(ftape: FusedTape, initial_state: torch.Tensor, var_gates,
+                       const_gates, *, kernels: KernelSet = KERNELS):
+    """Differentiable plane-engine execution of a whole fused tape from
+    ``initial_state`` (a flat complex64 tensor), returning the diff-density
+    matrices: the plane counterpart of fused_autograd.fused_tape_forward,
+    with the same contract. ``kernels=ops.kernels.PLAIN`` runs the plain
+    versions."""
+    return _PlaneTapeForward.apply(ftape, tuple(const_gates), kernels,
+                                   initial_state, *var_gates)

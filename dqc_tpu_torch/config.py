@@ -1,11 +1,16 @@
-"""Runtime configuration for dqc_tpu_torch (the plane-engine subset).
+"""Runtime configuration for dqc_tpu_torch.
 
-Counterpart of ``dqc_tpu/config.py``. Only the settings the plane engine
-reads are kept: the complex dtype, the in-kernel dot modes (forward,
-cotangent side, pair grams), the state-plane storage and the factorized
-merged-top sweep. Each has one
-ported value so far; asking for another raises ``NotImplementedError``
-(ROADMAP.md lists the modes still to port).
+Counterpart of ``dqc_tpu/config.py``: the default complex dtype, gate
+fusion, the plane-engine mode, the singularity checks of the uncompute, the
+in-kernel dot modes (forward, cotangent side, pair grams), the state-plane
+storage and the factorized merged-top sweep. The dot modes, the storage and
+the merged-top sweep have one ported value so far; asking for another
+raises ``NotImplementedError`` (ROADMAP.md lists the modes still to port).
+The singularity checks' "debug" mode raises the same way. The JAX
+package's matmul precision has no counterpart: the port never enables TF32,
+so every product runs in full f32 (or f64). Neither has its
+``set_full_unroll_qubits``, which picks a scanned or a straight-line
+compiled program: the port compiles no program.
 
 ``resolve_device`` is the port's device rule: every public entry point takes
 ``device=None``, which means the CUDA card; without one it raises.
@@ -21,6 +26,10 @@ _REAL_OF = {
     torch.complex64: torch.float32,
     torch.complex128: torch.float64,
 }
+
+_FUSION = True
+_PLANE_ENGINE = "auto"
+_SINGULARITY_CHECKS = "host"
 
 _KERNEL_DOT_MODE = "f32"
 _STATE_STORAGE = "f32"
@@ -45,12 +54,71 @@ def _backward_mode(what: str, mode: str) -> str:
 
 
 def canonicalize_complex(dtype=None) -> torch.dtype:
-    """Validate a complex torch dtype argument (None -> complex64)."""
+    """Validate a complex torch dtype argument (None -> the default)."""
     if dtype is None:
         return _DEFAULT_COMPLEX
     if dtype not in _REAL_OF:
         raise ValueError(f"expected complex64 or complex128, got {dtype}")
     return dtype
+
+
+def set_default_complex(dtype) -> None:
+    """Set the process-wide default complex dtype (complex64 or complex128)."""
+    global _DEFAULT_COMPLEX
+    if dtype not in _REAL_OF:
+        raise ValueError(f"expected complex64 or complex128, got {dtype}")
+    _DEFAULT_COMPLEX = dtype
+
+
+def default_complex() -> torch.dtype:
+    return _DEFAULT_COMPLEX
+
+
+def set_fusion(enabled: bool) -> None:
+    """Gate fusion (circuit/fusion.py): consecutive same-group gates compose
+    into one full-group operator. On by default; ``AutoGradCircuit.build``
+    reads it when ``fused`` is not given."""
+    global _FUSION
+    _FUSION = bool(enabled)
+
+
+def default_fusion() -> bool:
+    return _FUSION
+
+
+def set_plane_engine(mode) -> None:
+    """Plane-engine mode of ``AutoGradCircuit.build``'s ``autodiff_run``:
+    ``"auto"`` (the plane tape when the state lives on a CUDA device, the
+    counterpart of the JAX package's TPU backend test), ``True`` (also on
+    the CPU, through the kernels' plain versions) or ``False``."""
+    global _PLANE_ENGINE
+    if mode not in (True, False, "auto"):
+        raise ValueError("plane engine mode must be True, False or 'auto'")
+    _PLANE_ENGINE = mode
+
+
+def plane_engine():
+    return _PLANE_ENGINE
+
+
+def set_singularity_checks(mode: str) -> None:
+    """"host" (the default) checks a constant non-unitary gate's inverse on
+    the host and raises naming the gate; "off" skips the check. The JAX
+    package's "debug" (a guard on traced gates) has no counterpart yet: a
+    variable gate is not checked in the port (ops/inversion.py), so it
+    raises."""
+    global _SINGULARITY_CHECKS
+    if mode == "debug":
+        raise NotImplementedError(
+            "singularity checks mode 'debug' (the guard on variable gates) is "
+            "not ported to dqc_tpu_torch yet; see ROADMAP.md")
+    if mode not in ("host", "off"):
+        raise ValueError("singularity checks mode must be 'host', 'debug' or 'off'")
+    _SINGULARITY_CHECKS = mode
+
+
+def singularity_checks() -> str:
+    return _SINGULARITY_CHECKS
 
 
 def real_of(dtype) -> torch.dtype:

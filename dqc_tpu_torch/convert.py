@@ -2,8 +2,9 @@
 
 The two packages exchange data only as numpy arrays: the Euler angles of
 the hardware-efficient ansatz, ``(L, n, 3)``, the flat ``(gamma, beta)``
-vector of VQEIsing and QAOAMaxCut, ``(2L,)``, and plane states, two f32
-arrays ``(A, 128, 128)``.
+vector of VQEIsing and QAOAMaxCut, ``(2L,)``, plane states, two f32
+arrays ``(A, 128, 128)``, and the gate lists and initial state of an
+``AutoGradCircuit`` (``build()``'s ``var_gates`` / ``const_gates``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,26 @@ def params_from_jax(params, *, dtype=torch.float32, device=None) -> torch.Tensor
         raise ValueError(f"expected (layers, n, 3) or (2 layers,) angles, got "
                          f"{a.shape}")
     return torch.tensor(a, dtype=dtype, device=config.resolve_device(device))
+
+
+def gates_from_jax(var_gates, const_gates, initial_state=None, *, dtype=None,
+                   device=None):
+    """An ``AutoGradCircuit``'s gate lists (numpy-readable arrays, flat or
+    square) and optional flat initial state -> the port's form: the var
+    gates as complex tensors on ``device`` (default: the card), to take
+    gradients; the const gates as host numpy arrays, so that equal
+    constants share one expanded operator; the state as a complex tensor
+    on ``device`` (None stays None)."""
+    dt = config.canonicalize_complex(dtype)
+    dev = config.resolve_device(device)
+    np_dt = np.complex64 if dt == torch.complex64 else np.complex128
+    vg = [torch.tensor(np.asarray(g, dtype=np_dt), device=dev) for g in var_gates]
+    cg = [np.asarray(g, dtype=np_dt) for g in const_gates]
+    state = None
+    if initial_state is not None:
+        state = torch.tensor(np.asarray(initial_state, dtype=np_dt).reshape(-1),
+                             device=dev)
+    return vg, cg, state
 
 
 def planes_from_jax(xr, xi, *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -298,8 +298,10 @@ struct QView {
 // operator-tile buffers, unused here), added in warp order by one thread.
 // Rows and columns of a slab are summed into the (A, 128) outputs by their
 // one owner thread, in tile order: the sums do not depend on scheduling.
+template <int X>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
                        const float* bI, const QView& q, float* scratch) {
+  static_assert(X == kGroup, "slab tiles: X = 128");
   using Cfg = AdjCfg<kGroup>;
   constexpr int LD = Cfg::LD;
   static_assert(Cfg::C == 64, "X = 128 tiles");
@@ -359,6 +361,126 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
   }
 }
 
+// Where the Q reductions of a diagonal run folded into a high sweep go (the
+// diag_q outputs of block_backward_high): the tile is X rows x C = 8192 / X
+// columns of the view (A1, X, Q = post 128 128) at (i, q0 .. q0 + C - 1),
+// column q = (p 128 + s) 128 + l of row x holding the run's entry
+// D[a = (i X + x) post + p, s, l].
+struct QHigh {
+  float* sl;      // this block's Qsl partial slot: re [s 128 + l], im + 128 128
+  float* as_r;    // rows (A, 128): sum over l of Q[a, s, l]
+  float* as_i;
+  float* al_r;    // rows (A, 128): sum over s of Q[a, s, l]
+  float* al_i;
+  int64_t i;      // the tile's leading index
+  int64_t q0;     // the tile's first column
+  int64_t post;
+};
+
+// The tile's share of the Q reductions, Q = B F, from the shared-memory
+// tiles of F and B. The caller walks a block's tiles one (i, p) group at a
+// time (all 128 x 128 columns of one i and p, so every Qas and Qal entry
+// has one block as its writer), and within a block every entry keeps one
+// writer thread, tile after tile:
+// * Qal[a, l]: thread f = x SL + lc (SL = min(C, 128) columns of one
+//   (x, s) segment) sums the tile's C / SL segments of row x at column lc in
+//   order, then adds to the entry;
+// * Qas[a, s]: warp w takes the segments (x, k) = w, w + 16, ...; a
+//   segment's sum is a fixed butterfly of warp shuffles, added by lane 0;
+// * Qsl[s, l]: column c's sum over the rows, in R = max(1, 512 / C) row
+//   chunks whose partials go to scratch (2 R C <= 32 X floats, the
+//   operator-tile buffers) and are added in chunk order by one thread, which
+//   adds the result to the block's slot (red.global, as the pair gram).
+// Every read of F and B comes before the one barrier, so the caller may
+// update the tiles once this returns.
+template <int X>
+__device__ void q_tile(const float* fR, const float* fI, const float* bR,
+                       const float* bI, const QHigh& q, float* scratch) {
+  using Cfg = AdjCfg<X>;
+  constexpr int C = Cfg::C, LD = Cfg::LD;
+  constexpr int SL = C < kGroup ? C : kGroup;
+  constexpr int NSEG = C / SL;
+  constexpr int R = C < kAdjThreads ? kAdjThreads / C : 1;
+  constexpr int RC = X / R;
+  static_assert(R == 1 || 2 * R * C <= 4 * Cfg::KC * X, "scratch holds the partials");
+  const int64_t p = q.q0 >> 14;
+  const int s0 = (int)((q.q0 >> 7) & 127);
+  const int l0 = (int)(q.q0 & 127);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int f = threadIdx.x; f < X * SL; f += kAdjThreads) {
+    const int x = f / SL, lc = f % SL;
+    float sr = 0.f, si = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < NSEG; ++k) {
+      const int e = x * LD + k * SL + lc;
+      float qr, qi;
+      cmul(bR[e], bI[e], fR[e], fI[e], qr, qi);
+      sr += qr;
+      si += qi;
+    }
+    const int64_t a = (q.i * X + x) * q.post + p;
+    q.al_r[a * kGroup + l0 + lc] += sr;
+    q.al_i[a * kGroup + l0 + lc] += si;
+  }
+#pragma unroll 1
+  for (int seg = warp; seg < X * NSEG; seg += kAdjThreads / 32) {
+    const int x = seg / NSEG, k = seg % NSEG;
+    float sr = 0.f, si = 0.f;
+    for (int lc = lane; lc < SL; lc += 32) {
+      const int e = x * LD + k * SL + lc;
+      float qr, qi;
+      cmul(bR[e], bI[e], fR[e], fI[e], qr, qi);
+      sr += qr;
+      si += qi;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sr += __shfl_xor_sync(0xffffffffu, sr, off);
+      si += __shfl_xor_sync(0xffffffffu, si, off);
+    }
+    if (lane == 0) {
+      const int64_t a = (q.i * X + x) * q.post + p;
+      q.as_r[a * kGroup + s0 + k] += sr;
+      q.as_i[a * kGroup + s0 + k] += si;
+    }
+  }
+  float* pr = scratch;
+  float* pi = scratch + R * C;
+  for (int t = threadIdx.x; t < R * C; t += kAdjThreads) {
+    const int c = t % C, r = t / C;
+    float sr = 0.f, si = 0.f;
+#pragma unroll 1
+    for (int x = r * RC; x < (r + 1) * RC; ++x) {
+      float qr, qi;
+      cmul(bR[x * LD + c], bI[x * LD + c], fR[x * LD + c], fI[x * LD + c], qr,
+           qi);
+      sr += qr;
+      si += qi;
+    }
+    if (R == 1) {
+      const int sl = (int)((q.q0 + c) & (kGroup * kGroup - 1));
+      atomicAdd(q.sl + sl, sr);
+      atomicAdd(q.sl + kGroup * kGroup + sl, si);
+    } else {
+      pr[r * C + c] = sr;
+      pi[r * C + c] = si;
+    }
+  }
+  if constexpr (R > 1) {
+    __syncthreads();  // the row-chunk partials are complete
+    for (int c = threadIdx.x; c < C; c += kAdjThreads) {
+      float sr = 0.f, si = 0.f;
+      for (int r = 0; r < R; ++r) {
+        sr += pr[r * C + c];
+        si += pi[r * C + c];
+      }
+      const int sl = (int)((q.q0 + c) & (kGroup * kGroup - 1));
+      atomicAdd(q.sl + sl, sr);
+      atomicAdd(q.sl + kGroup * kGroup + sl, si);
+    }
+  }
+}
+
 // The shared-memory tile [x][c] times the run's entries, in place.
 template <int X>
 __device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv) {
@@ -381,16 +503,17 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 };
 
 // One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs).
-// diag_mode: 0 none, 1 roll the run back on load, 2 on store. q (X = 128
-// only; null for none): the run's Q reductions, from the planes as they meet
-// the run — loaded as they are, then the run's entries multiplied in shared
-// memory (mode 1), or before the store (mode 2).
-template <int X>
+// diag_mode: 0 none, 1 roll the run back on load, 2 on store. q (null for
+// none): where the run's Q reductions go (QView for a slab tile, QHigh for a
+// high-view tile), from the planes as they meet the run — loaded as they
+// are, then the run's entries multiplied in shared memory (mode 1), or
+// before the store (mode 2).
+template <int X, class QT = QView>
 __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
                              int64_t rs, int64_t cs, const Operators& ops,
                              int diag_mode, const DiagView& dv_inv,
                              const DiagView& dv_fwd, float* part,
-                             float* smem, const QView* q = nullptr) {
+                             float* smem, const QT* q = nullptr) {
   using Cfg = AdjCfg<X>;
   float* sFr = smem;
   float* sFi = sFr + X * Cfg::LD;
@@ -408,13 +531,12 @@ __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
   const bool q_on_load = q != nullptr && diag_mode == 1;
   load_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 1 && !q_on_load, dv_inv);
   load_tile<X>(br, bi, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load, dv_fwd);
-  if constexpr (X == kGroup) {
-    if (q_on_load) {
-      __syncthreads();  // the tile is loaded
-      q_tile(sFr, sFi, sBr, sBi, *q, scratch);
-      diag_tile_smem<X>(sFr, sFi, dv_inv);
-      diag_tile_smem<X>(sBr, sBi, dv_fwd);
-    }
+  if (q_on_load) {
+    __syncthreads();  // the tile is loaded
+    q_tile<X>(sFr, sFi, sBr, sBi, *q, scratch);
+    __syncthreads();  // every read of the raw tiles is done
+    diag_tile_smem<X>(sFr, sFi, dv_inv);
+    diag_tile_smem<X>(sBr, sBi, dv_fwd);
   }
 
   // first half: the uncompute fin = Einv F; second half: the transport
@@ -426,42 +548,12 @@ __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
   __syncthreads();  // every thread is done reading F
   acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
   __syncthreads();  // fin and bout are complete
-  if constexpr (X == kGroup) {
-    if (q != nullptr && diag_mode == 2) q_tile(sFr, sFi, sOr, sOi, *q, scratch);
-  }
+  if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
   store_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 2, dv_inv);
   store_tile<X>(br, bi, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
 
   // the pair gram of the incoming cotangent and fin
   pair_gram<X>(sBr, sBi, sFr, sFi, part);
-}
-
-// out[e] = sum over slots s of part[s n2 + e], e < n2, in slot order: each
-// of the 32 y-threads of a column of the block sums the slots s = ty mod 32
-// in order, then thread ty = 0 adds the 32 sums in order.
-__global__ void adjoint_reduce_kernel(const float* __restrict__ part,
-                                      float* __restrict__ out, int64_t nslots,
-                                      int n2) {
-  __shared__ float acc[32][33];
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  float sum = 0.f;
-  if (e < n2)
-    for (int64_t s = threadIdx.y; s < nslots; s += 32)
-      sum += part[s * n2 + e];
-  acc[threadIdx.y][threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < n2) {
-    float total = 0.f;
-    for (int y = 0; y < 32; ++y) total += acc[y][threadIdx.x];
-    out[e] = total;
-  }
-}
-
-inline int launch_reduce(const float* part, float* out, int64_t nslots, int n2,
-                         cudaStream_t stream) {
-  adjoint_reduce_kernel<<<(n2 + 31) / 32, dim3(32, 32), 0, stream>>>(
-      part, out, nslots, n2);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace dqc

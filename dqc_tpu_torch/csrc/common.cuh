@@ -39,6 +39,34 @@ __device__ __forceinline__ void diag_at(const DiagTables& d, int64_t a, int s,
   cmul(mr, mi, __ldg(d.sl_r + sl), __ldg(d.sl_i + sl), dr, di);
 }
 
+// out[e] = sum over slots s of part[s n2 + e], e < n2, in slot order: each
+// of the 32 y-threads of a column of the block sums the slots s = ty mod 32
+// in order, then thread ty = 0 adds the 32 sums in order.
+__global__ void adjoint_reduce_kernel(const float* __restrict__ part,
+                                      float* __restrict__ out, int64_t nslots,
+                                      int n2) {
+  __shared__ float acc[32][33];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float sum = 0.f;
+  if (e < n2)
+    for (int64_t s = threadIdx.y; s < nslots; s += 32)
+      sum += part[s * n2 + e];
+  acc[threadIdx.y][threadIdx.x] = sum;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < n2) {
+    float total = 0.f;
+    for (int y = 0; y < 32; ++y) total += acc[y][threadIdx.x];
+    out[e] = total;
+  }
+}
+
+inline int launch_reduce(const float* part, float* out, int64_t nslots, int n2,
+                         cudaStream_t stream) {
+  adjoint_reduce_kernel<<<(n2 + 31) / 32, dim3(32, 32), 0, stream>>>(
+      part, out, nslots, n2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dqc
 
 // The message of a code returned by a dqc_* entry point (each library is

@@ -1,8 +1,8 @@
 // Fused diagonal-run sweep and its one-pass adjoint on f32 planes.
 //
 // Replaces the TPU kernels diag_sweep_planes (dqc_tpu/ops/pallas/diag.py:75,
-// pallas_call at :90) and diag_backward_planes (:154, at :184) without its Q
-// reductions (with_q = False). A run of commuting diagonal gates is one
+// pallas_call at :90) and diag_backward_planes (:154, at :184, body
+// _kernel_bwd at :105) with its Q reductions. A run of commuting diagonal gates is one
 // elementwise multiply by its total diagonal, factored over the plane axes
 // (a = merged high groups, s = sublane, l = lane) as
 // D[a, s, l] = (tas[a, s] tal[a, l]) tsl[s, l], the association order of the
@@ -11,7 +11,11 @@
 //   sweep:     x   *= D
 //   backward:  fwd *= Dinv,  bwd *= D
 //
-// in place on planes (A, 128, 128).
+// in place on planes (A, 128, 128). With Q (a run with variable gates) the
+// backward also forms the reductions of the holomorphic product
+// Q[a, s, l] = bwd fwd, taken before the update: Qsl (128 x 128, summed over
+// a), Qas (A x 128, summed over l) and Qal (A x 128, summed over s) — the
+// gradient sources of the run's variable gates.
 //
 // Bound: bytes. One read and one write of each plane, 16 bytes per amplitude
 // for the sweep and 32 for the backward, against 3 (6) complex multiplies:
@@ -22,6 +26,17 @@
 // (tables stay in L2: at most 2 x (A + 128) x 128 complex entries), and tas
 // as one broadcast complex scalar; a grid-stride loop over the float4s with
 // int64 offsets (a 30-qubit plane has 2^30 elements).
+//
+// The Q mode works by slabs: a block of 256 threads walks its slabs a in
+// grid-stride order, thread (w, t) (warp w, lane t) taking lanes 4 t .. 4 t
+// + 3 of rows s = w, w + 8, ..., w + 120. A row's Qas entry is a fixed
+// butterfly of warp shuffles, written by lane 0; a column's Qal entry sums
+// 8 per-warp partials from shared memory in warp order; Qsl goes to the
+// block's own partial slot, each entry added by the one thread that owns
+// it, slab after slab (the slot stays in L2), and a second kernel adds the
+// slots in block order. No sum depends on scheduling. Q adds 1 complex
+// multiply and 3 reductions per amplitude, and 2 x 2 A x 128 + 2 x 128 x 128
+// floats of outputs.
 
 #include "common.cuh"
 
@@ -89,6 +104,81 @@ diag_backward_kernel(float* fr, float* fi, float* br, float* bi,
   }
 }
 
+constexpr int kRows = 128 / (kThreads / 32);  // rows of a slab per warp
+
+__global__ void __launch_bounds__(kThreads)
+diag_backward_q_kernel(float* fr, float* fi, float* br, float* bi,
+                       DiagTables dinv, DiagTables dfwd, float* qas_r,
+                       float* qas_i, float* qal_r, float* qal_i, float* part,
+                       int64_t A) {
+  __shared__ float colr[kThreads / 32][dqc::kGroup];
+  __shared__ float coli[kThreads / 32][dqc::kGroup];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l0 = 4 * lane;
+  float* slot = part + (int64_t)blockIdx.x * 2 * dqc::kGroup * dqc::kGroup;
+  for (int64_t a = blockIdx.x; a < A; a += gridDim.x) {
+    float cr[4] = {0.f, 0.f, 0.f, 0.f}, ci[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int k = 0; k < kRows; ++k) {
+      const int s = warp + (kThreads / 32) * k;
+      const int64_t e = (a * dqc::kGroup + s) * 32 + lane;  // float4 index
+      const float4 f_r = reinterpret_cast<const float4*>(fr)[e];
+      const float4 f_i = reinterpret_cast<const float4*>(fi)[e];
+      const float4 b_r = reinterpret_cast<const float4*>(br)[e];
+      const float4 b_i = reinterpret_cast<const float4*>(bi)[e];
+      const float far[4] = {f_r.x, f_r.y, f_r.z, f_r.w};
+      const float fai[4] = {f_i.x, f_i.y, f_i.z, f_i.w};
+      const float bar[4] = {b_r.x, b_r.y, b_r.z, b_r.w};
+      const float bai[4] = {b_i.x, b_i.y, b_i.z, b_i.w};
+      float qr[4], qi[4], rr = 0.f, ri = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        cmul(bar[j], bai[j], far[j], fai[j], qr[j], qi[j]);
+        rr += qr[j];
+        ri += qi[j];
+        cr[j] += qr[j];
+        ci[j] += qi[j];
+      }
+      float4* sr = reinterpret_cast<float4*>(slot + s * dqc::kGroup + l0);
+      float4* si = reinterpret_cast<float4*>(slot + dqc::kGroup * dqc::kGroup +
+                                             s * dqc::kGroup + l0);
+      float4 vr = *sr, vi = *si;
+      vr.x += qr[0]; vr.y += qr[1]; vr.z += qr[2]; vr.w += qr[3];
+      vi.x += qi[0]; vi.y += qi[1]; vi.z += qi[2]; vi.w += qi[3];
+      *sr = vr;
+      *si = vi;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        rr += __shfl_xor_sync(0xffffffffu, rr, off);
+        ri += __shfl_xor_sync(0xffffffffu, ri, off);
+      }
+      if (lane == 0) {
+        qas_r[a * dqc::kGroup + s] = rr;
+        qas_i[a * dqc::kGroup + s] = ri;
+      }
+      times_diag(fr, fi, dinv, e);
+      times_diag(br, bi, dfwd, e);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      colr[warp][l0 + j] = cr[j];
+      coli[warp][l0 + j] = ci[j];
+    }
+    __syncthreads();  // the column partials are complete
+    if (threadIdx.x < dqc::kGroup) {
+      const int l = threadIdx.x;
+      float tr = 0.f, ti = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        tr += colr[w][l];
+        ti += coli[w][l];
+      }
+      qal_r[a * dqc::kGroup + l] = tr;
+      qal_i[a * dqc::kGroup + l] = ti;
+    }
+    __syncthreads();  // the partials are read before the next slab's
+  }
+}
+
 int grid_for(int64_t n4) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -131,4 +221,30 @@ extern "C" int dqc_diag_backward(float* fr, float* fi, float* br, float* bi,
   diag_backward_kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
       fr, fi, br, bi, dinv, dfwd, n4);
   return (int)cudaGetLastError();
+}
+
+// The backward with the Q reductions, taken before the update: qas_r/i and
+// qal_r/i are (A, 128) outputs; part is scratch of nblk * 2 * 128 * 128
+// floats set to zero by the caller (nblk blocks, at most A), qsl the
+// (Qsl re, im) output, 2 x 128 x 128 floats. Returns cudaGetLastError().
+extern "C" int dqc_diag_backward_q(float* fr, float* fi, float* br, float* bi,
+                                   const float* isl_r, const float* isl_i,
+                                   const float* ias_r, const float* ias_i,
+                                   const float* ial_r, const float* ial_i,
+                                   const float* sl_r, const float* sl_i,
+                                   const float* as_r, const float* as_i,
+                                   const float* al_r, const float* al_i,
+                                   float* qas_r, float* qas_i, float* qal_r,
+                                   float* qal_i, float* part, float* qsl,
+                                   long long A, int nblk, void* stream) {
+  if (A <= 0 || nblk <= 0 || nblk > A) return (int)cudaErrorInvalidValue;
+  const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
+  const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
+  cudaStream_t s = (cudaStream_t)stream;
+  diag_backward_q_kernel<<<nblk, kThreads, 0, s>>>(
+      fr, fi, br, bi, dinv, dfwd, qas_r, qas_i, qal_r, qal_i, part,
+      (int64_t)A);
+  const int code = (int)cudaGetLastError();
+  if (code != 0) return code;
+  return dqc::launch_reduce(part, qsl, nblk, 2 * dqc::kGroup * dqc::kGroup, s);
 }

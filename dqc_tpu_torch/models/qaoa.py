@@ -1,10 +1,12 @@
 """QAOA for weighted MaxCut on an arbitrary graph.
 
-Counterpart of ``dqc_tpu/models/qaoa.py`` in scan mode: the VQE circuit
-family (alternating diagonal ZZ-cost and X-mixer layers from |+>^n) over an
+Counterpart of ``dqc_tpu/models/qaoa.py``: the VQE circuit family (alternating diagonal ZZ-cost and X-mixer layers from |+>^n) over an
 arbitrary weighted edge list with per-layer (gamma, beta) parameters. The
 cut is read from the edge 2-qubit densities: ``cut = sum_e w_e (1 - <Z Z>_e)
-/ 2``. ``loss`` is differentiable in ``params`` with torch autograd.
+/ 2``. ``loss`` is differentiable in ``params`` with torch autograd. Scan
+mode (the default from three layers on) runs the layer tape on the plane
+engine; ``scan=False`` the unrolled circuit through ``AutoGradCircuit
+.build``'s engine.
 
 On the plane engine the cost gates across group boundaries form one
 variable diagonal run folded into the dual sweep; edges that span several
@@ -15,6 +17,7 @@ per-term sweeps for the widest pairs.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,10 +28,11 @@ from dqc_tpu_torch.circuit.builder import AutoGradCircuit
 from dqc_tpu_torch.circuit.fusion import fuse_tape
 from dqc_tpu_torch.circuit.plane_scan import std_scan_with_epilogue
 from dqc_tpu_torch.circuit.scan import fuse_layer
+from dqc_tpu_torch.circuit.builder import autodiff_densities
 from dqc_tpu_torch.models.vqe_ising import (
     _NP_COMPLEX,
     hadamard_prologue,
-    scan_only,
+    unrolled_circuit,
     x_rotation_stack,
 )
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
@@ -48,16 +52,12 @@ class QAOAMaxCut:
             raise ValueError("one weight per edge required")
         self.layers = int(layers_number)
         self.dtype = config.canonicalize_complex(dtype)
-        scan_only(scan, self.layers, "QAOAMaxCut")
-        self.scan = True
+        self.scan = (self.layers >= 3) if scan is None else bool(scan)
         self.device = config.resolve_device(device)
 
         self._pro_ftape, self._const_gates = hadamard_prologue(self.n, self.dtype)
         layer = AutoGradCircuit(self.n, dtype=self.dtype)
-        for (a, b) in self.edges:
-            layer.add_q2_var_gate_diag(a, b)
-        for i in range(self.n):
-            layer.add_q1_var_gate(i)
+        self._add_layer(layer)
         epi = AutoGradCircuit(self.n, dtype=self.dtype)
         for (a, b) in self.edges:
             epi.get_q2_dens_op_with_grad(a, b)
@@ -68,6 +68,29 @@ class QAOAMaxCut:
                                    device=self.device)
         self._w = torch.as_tensor(self.weights, dtype=config.real_of(self.dtype),
                                   device=self.device)
+
+    @functools.cached_property
+    def circuit(self) -> AutoGradCircuit:
+        """The unrolled circuit (reference-compatible), built on first use:
+        ``scan=False`` runs it, scan mode never does."""
+        return unrolled_circuit(self.n, self.dtype, self.device, self.layers,
+                                self._add_layer, self.edges)
+
+    @functools.cached_property
+    def _ftape(self):
+        return fuse_tape(self.circuit.tape)
+
+    def _add_layer(self, c: AutoGradCircuit) -> None:
+        for (a, b) in self.edges:
+            c.add_q2_var_gate_diag(a, b)
+        for i in range(self.n):
+            c.add_q1_var_gate(i)
+
+    def params2gates(self, params: torch.Tensor) -> List[torch.Tensor]:
+        """(2L,) angles -> the unrolled circuit's var gates: per layer, one
+        cost diagonal per edge, then n mixers."""
+        stacked = self._stacked_gates(params)
+        return [slot[l] for l in range(self.layers) for slot in stacked]
 
     def init_params(self, generator: torch.Generator) -> torch.Tensor:
         """``0.1 * N(0, 1)`` angles ``(2L,)`` drawn from ``generator`` (on
@@ -93,6 +116,10 @@ class QAOAMaxCut:
         if tuple(params.shape) != (2 * self.layers,):
             raise ValueError(f"params must be ({2 * self.layers},), got "
                              f"{tuple(params.shape)}")
+        if not self.scan:
+            return list(autodiff_densities(
+                self._ftape, self.circuit.initial_state(),
+                self.params2gates(params), self._const_gates, kernels=kernels))
         return list(std_scan_with_epilogue(
             self._pro_ftape, self._layer_ftape, self._epi_ftape,
             tuple(self._const_gates), self._stacked_gates(params), (),

@@ -1,11 +1,14 @@
 """VQE for the transverse-field Ising model (ring topology).
 
-Counterpart of ``dqc_tpu/models/vqe_ising.py`` in scan mode: the reference
-example's ansatz of ``layers`` alternating layers of diagonal ZZ gates on
+Counterpart of ``dqc_tpu/models/vqe_ising.py``: the reference example's
+ansatz of ``layers`` alternating layers of diagonal ZZ gates on
 every ring edge and X rotations on every qubit, from the uniform
 superposition (a const prologue of Hadamards on |0..0>), with every
 nearest-neighbour 2-qubit density as observable and the TFIM energy
-``sum tr(rho h)`` as the loss. ``energy`` is differentiable in ``params``
+``sum tr(rho h)`` as the loss. Scan mode (the default from three layers
+on, as in the JAX class) runs the layer tape L times on the plane engine;
+``scan=False`` runs the unrolled circuit through ``AutoGradCircuit.build``'s
+engine (builder.autodiff_densities). ``energy`` is differentiable in ``params``
 with torch autograd (``loss.backward()`` is the counterpart of the JAX
 class's ``jax.value_and_grad``).
 
@@ -18,13 +21,14 @@ contraction and their seeds from the multi-term kernels' seed modes.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dqc_tpu_torch import config
-from dqc_tpu_torch.circuit.builder import AutoGradCircuit
+from dqc_tpu_torch.circuit.builder import AutoGradCircuit, autodiff_densities
 from dqc_tpu_torch.circuit.fusion import fuse_tape
 from dqc_tpu_torch.circuit.plane_scan import std_scan_with_epilogue
 from dqc_tpu_torch.circuit.scan import fuse_layer
@@ -44,14 +48,17 @@ def hadamard_prologue(n: int, dtype) -> Tuple:
     return fuse_tape(pro.tape), n * [h2.reshape(-1)]
 
 
-def scan_only(scan: Optional[bool], layers: int, model: str) -> None:
-    """The port runs these models in scan mode only (the JAX default from
-    three layers on)."""
-    if not ((layers >= 3) if scan is None else bool(scan)):
-        raise NotImplementedError(
-            f"{model}(scan=False): the unrolled circuit needs the generic "
-            "plane-tape path (AutoGradCircuit.build), not ported to "
-            "dqc_tpu_torch yet; pass scan=True (see ROADMAP.md)")
+def unrolled_circuit(n: int, dtype, device, layers: int, add_layer, edges) -> AutoGradCircuit:
+    """The reference-compatible unrolled circuit of the VQE / QAOA family:
+    const Hadamards, ``layers`` ansatz layers, one diff density per edge."""
+    c = AutoGradCircuit(n, dtype=dtype, device=device)
+    for i in range(n):
+        c.add_q1_const_gate(i)
+    for _ in range(layers):
+        add_layer(c)
+    for a, b in edges:
+        c.get_q2_dens_op_with_grad(a, b)
+    return c
 
 
 def x_rotation_stack(betas: torch.Tensor, dtype) -> torch.Tensor:
@@ -71,8 +78,7 @@ class VQEIsing:
         self.layers = int(layers_number)
         self.field = float(magnetic_field)
         self.dtype = config.canonicalize_complex(dtype)
-        scan_only(scan, self.layers, "VQEIsing")
-        self.scan = True
+        self.scan = (self.layers >= 3) if scan is None else bool(scan)
         self.device = config.resolve_device(device)
 
         self._pro_ftape, self._const_gates = hadamard_prologue(self.n, self.dtype)
@@ -94,6 +100,18 @@ class VQEIsing:
                   ).astype(_NP_COMPLEX[self.dtype])
         self._h = torch.as_tensor(self.h, device=self.device)
 
+    @functools.cached_property
+    def circuit(self) -> AutoGradCircuit:
+        """The unrolled circuit (reference-compatible), built on first use:
+        ``scan=False`` runs it, scan mode never does."""
+        return unrolled_circuit(
+            self.n, self.dtype, self.device, self.layers, self._add_layer_gates,
+            [(i, i + 1) for i in range(self.n - 1)] + [(0, self.n - 1)])
+
+    @functools.cached_property
+    def _ftape(self):
+        return fuse_tape(self.circuit.tape)
+
     def _add_layer_gates(self, c: AutoGradCircuit) -> None:
         """One ansatz layer (reference example_vqse_ising.py:68-75)."""
         for i in range(self.n - 1):
@@ -112,6 +130,13 @@ class VQEIsing:
         x_stack = x_rotation_stack(params[1::2], self.dtype)
         return tuple([zz_stack] * self.n + [x_stack] * self.n)
 
+    def params2gates(self, params: torch.Tensor) -> List[torch.Tensor]:
+        """(2L,) angles -> the unrolled circuit's var gates: per layer, n
+        copies of zz(gamma), then n copies of x(beta)."""
+        stacked = self._stacked_gates(params)
+        return [stacked[q][l] for l in range(self.layers)
+                for q in range(2 * self.n)]
+
     def init_params(self, generator: torch.Generator) -> torch.Tensor:
         """``N(0, 1)`` angles ``(2L,)`` drawn from ``generator`` (on its
         device), placed on the model's device."""
@@ -129,6 +154,11 @@ class VQEIsing:
     def densities(self, params, *, kernels: KernelSet = KERNELS) -> List[torch.Tensor]:
         """The n edge densities (4, 4): (i, i + 1) for i < n - 1, then
         (0, n - 1). ``kernels=ops.kernels.PLAIN`` runs the plain versions."""
+        if not self.scan:
+            return list(autodiff_densities(
+                self._ftape, self.circuit.initial_state(),
+                self.params2gates(self._params(params)), self._const_gates,
+                kernels=kernels))
         return list(std_scan_with_epilogue(
             self._pro_ftape, self._layer_ftape, self._epi_ftape,
             tuple(self._const_gates), self._stacked_gates(self._params(params)),

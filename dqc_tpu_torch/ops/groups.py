@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from dqc_tpu_torch.ops.kernels.gram import pair_sum
+
 GROUP_BITS = 7
 
 
@@ -323,3 +325,186 @@ def subblock_view(t: torch.Tensor, positions: Sequence[int], n: int) -> torch.Te
         rest.append(len(shape))
         shape.append(1 << top)
     return t.reshape(shape).permute([target_axis[p] for p in positions] + rest)
+
+
+def subblocks_with_restore(t: torch.Tensor, positions: Sequence[int], n: int):
+    """Like :func:`subblocks`, also returning ``restore(S') -> t'``, which
+    writes a modified sub-block matrix back into the layout of ``t`` (the
+    generic-gate path: a k-qubit gate at any positions is
+    ``restore(G @ subblocks(t))``). The JAX package restores with the
+    inverse permutation-matrix products; here the same strided view of a
+    fresh buffer takes the copy."""
+    S = subblocks(t, positions, n)
+    shape = t.shape
+
+    def restore(S2: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(shape, dtype=S2.dtype, device=S2.device)
+        view = subblock_view(out, positions, n)
+        view.copy_(S2.reshape(view.shape))
+        return out
+
+    return S, restore
+
+
+# ---------------------------------------------------------------------------
+# The grouped complex engine (circuit/fused_autograd.py): a complex state in
+# the grouped shape group_dims(n), every group op one product or broadcast
+# multiply over its axis. Constant operators (host numpy) are staged on the
+# state's device per use. Reductions over the other amplitudes (Grams,
+# densities, pair grams) sum in two levels (ops.kernels.gram.pair_sum):
+# one f32 product over 2^22-2^28 columns drifts ~1e-3 at 29 qubits.
+# ---------------------------------------------------------------------------
+
+def to_grouped(state: torch.Tensor, n: int) -> torch.Tensor:
+    return state.reshape(group_dims(n))
+
+
+def from_grouped(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1)
+
+
+def _on(x, t: torch.Tensor) -> torch.Tensor:
+    """An operator or table (numpy or tensor) as a tensor like ``t``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=t.device, dtype=t.dtype)
+    return torch.as_tensor(np.ascontiguousarray(x), device=t.device).to(t.dtype)
+
+
+def _group_view(t: torch.Tensor, j: int):
+    """``t`` as ``(pre, X, post)`` with group ``j`` on the middle axis."""
+    ax = t.dim() - 1 - j
+    pre = int(np.prod(t.shape[:ax], dtype=np.int64))
+    return t.reshape(pre, t.shape[ax], -1)
+
+
+def apply_group_matrix(t: torch.Tensor, E, j: int) -> torch.Tensor:
+    """Contract group axis ``j`` with a full-group operator:
+    ``out[.., y, ..] = sum_x E[y, x] t[.., x, ..]`` (one batched product)."""
+    return torch.matmul(_on(E, t), _group_view(t, j)).reshape(t.shape)
+
+
+def apply_group_diag(t: torch.Tensor, table, j: int) -> torch.Tensor:
+    """A full-group diagonal table on group axis ``j``."""
+    return (_group_view(t, j) * _on(table, t).reshape(1, -1, 1)).reshape(t.shape)
+
+
+def apply_cross_diag(t: torch.Tensor, table2, j2: int, j1: int) -> torch.Tensor:
+    """Joint diagonal over two group axes; ``table2``: (dim_j2, dim_j1)."""
+    a2, a1 = t.dim() - 1 - j2, t.dim() - 1 - j1
+    table2 = _on(table2, t)
+    if a2 > a1:
+        table2 = table2.T
+        a2, a1 = a1, a2
+    shape = [1] * t.dim()
+    shape[a2] = t.shape[a2]
+    shape[a1] = t.shape[a1]
+    return t * table2.reshape(shape)
+
+
+def apply_dense(t: torch.Tensor, gate, positions: Sequence[int], n: int) -> torch.Tensor:
+    """Dense k-qubit gate at arbitrary positions (grouped state in and
+    out): one group product in a group, the Schmidt terms of a 2-qubit gate
+    across two groups, or a sub-block product for k >= 3 across groups."""
+    positions = tuple(int(p) for p in positions)
+    k = len(positions)
+    groups = {group_of_bit(n, p)[0] for p in positions}
+    sizes = group_sizes_low_first(n)
+    if len(groups) == 1:
+        j = groups.pop()
+        rels = tuple(p % GROUP_BITS for p in positions)
+        return apply_group_matrix(t, expand_in_group(_host_or(gate, t), rels,
+                                                     sizes[j]), j)
+    if k == 2:
+        p2, p1 = positions
+        j2, r2 = group_of_bit(n, p2)
+        j1, r1 = group_of_bit(n, p1)
+        As, Bs = schmidt_terms(_host_or(gate, t))
+        out = None
+        for i in range(4):
+            EA = expand_in_group(As[i], (r2,), sizes[j2])
+            EB = expand_in_group(Bs[i], (r1,), sizes[j1])
+            term = apply_group_matrix(apply_group_matrix(t, EB, j1), EA, j2)
+            out = term if out is None else out + term
+        return out
+    S, restore = subblocks_with_restore(t, positions, n)
+    return restore(torch.matmul(_on(gate, t).reshape(1 << k, 1 << k), S))
+
+
+def _host_or(x, t: torch.Tensor):
+    """A constant stays host numpy in ``t``'s complex precision (so that it
+    keeps value-memoisation); a tensor is cast to ``t``'s dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=t.dtype)
+    np_dt = np.complex128 if t.dtype == torch.complex128 else np.complex64
+    return np.asarray(x).astype(np_dt)
+
+
+def apply_diag(t: torch.Tensor, diag, positions: Sequence[int], n: int) -> torch.Tensor:
+    """Diagonal k-qubit gate at arbitrary positions, one broadcast multiply
+    (a sub-block scale across more than two groups)."""
+    positions = tuple(int(p) for p in positions)
+    diag = _host_or(diag, t).reshape(-1)
+    sizes = group_sizes_low_first(n)
+    groups = {group_of_bit(n, p)[0] for p in positions}
+    if len(groups) == 1:
+        j = groups.pop()
+        rels = tuple(p % GROUP_BITS for p in positions)
+        return apply_group_diag(t, expand_diag_in_group(diag, rels, sizes[j]), j)
+    if len(groups) == 2:
+        table2, ja, jb = cross_diag_table(diag, positions, n)
+        return apply_cross_diag(t, table2, ja, jb)
+    S, restore = subblocks_with_restore(t, positions, n)
+    return restore(S * _on(diag, t)[:, None])
+
+
+def group_pair_gram(fwd_t: torch.Tensor, bwd_t: torch.Tensor, j: int) -> torch.Tensor:
+    """Full-group pair contraction ``T0[x, y] = sum_b bwd[x, b] fwd[y, b]``
+    over group axis ``j``."""
+    return pair_sum(_group_view(bwd_t, j), _group_view(fwd_t, j))
+
+
+def group_diag_gram(fwd_t: torch.Tensor, bwd_t: torch.Tensor, j: int) -> torch.Tensor:
+    """Diagonal of the group pair gram: ``W[x] = sum_b bwd[x, b] fwd[x, b]``."""
+    return (_group_view(bwd_t, j) * _group_view(fwd_t, j)).sum(dim=(0, 2))
+
+
+def group_gram(t: torch.Tensor, j: int) -> torch.Tensor:
+    """Full-group Gram ``G[x, y] = sum_b t[x, b] conj(t[y, b])``."""
+    return group_pair_gram(t.conj(), t, j)
+
+
+def density(t: torch.Tensor, positions: Sequence[int], n: int) -> torch.Tensor:
+    """Reduced density matrix: through the group Gram for targets in one
+    group, a sub-block product across groups."""
+    return density_cached(t, positions, n, {})
+
+
+def density_cached(t: torch.Tensor, positions: Sequence[int], n: int,
+                   cache: dict) -> torch.Tensor:
+    """Density with per-group Gram sharing: requests at one circuit point
+    reuse one Gram per group. ``cache`` must be cleared whenever the state
+    changes."""
+    positions = tuple(int(p) for p in positions)
+    groups = {group_of_bit(n, p)[0] for p in positions}
+    if len(groups) == 1:
+        j = groups.pop()
+        G = cache.get(j)
+        if G is None:
+            G = cache[j] = group_gram(t, j)
+        rels = tuple(p % GROUP_BITS for p in positions)
+        return density_from_gram(G, rels, group_sizes_low_first(n)[j])
+    S = subblocks(t, positions, n)
+    return pair_sum(S[None], S.conj()[None])
+
+
+def pair_grad(fwd_t: torch.Tensor, bwd_t: torch.Tensor, positions: Sequence[int],
+              n: int) -> torch.Tensor:
+    """Dense-gate cotangent ``sum_b bwd[p, b] fwd[q, b]``."""
+    return pair_sum(subblocks(bwd_t, positions, n)[None],
+                    subblocks(fwd_t, positions, n)[None])
+
+
+def diag_pair_grad(fwd_t: torch.Tensor, bwd_t: torch.Tensor,
+                   positions: Sequence[int], n: int) -> torch.Tensor:
+    """Diagonal-gate cotangent ``sum_b bwd[p, b] fwd[p, b]``."""
+    return (subblocks(bwd_t, positions, n) * subblocks(fwd_t, positions, n)).sum(1)

@@ -9,7 +9,8 @@ so a constant gate (host numpy) is inverted on the host with a condition
 check that raises a ``ValueError`` naming the gate before any device work.
 A variable gate (a torch tensor) is inverted on its device with
 ``torch.linalg.inv``, unchecked: the JAX package's debug-mode guard of
-traced gates has no counterpart yet.
+traced gates has no counterpart yet. ``config.set_singularity_checks("off")``
+skips the host check, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dqc_tpu_torch import config
 from dqc_tpu_torch.ops import groups as gr
 
 
@@ -42,6 +44,8 @@ def invert_gate(m, unitary: bool, ctx: str = "gate"):
     if c is not None:
         if unitary:
             return c.conj().T
+        if config.singularity_checks() == "off":
+            return np.linalg.inv(c)
         try:
             inv = np.linalg.inv(c)
         except np.linalg.LinAlgError as e:
@@ -61,6 +65,8 @@ def invert_diag(d, unitary: bool, ctx: str = "diag gate"):
     if c is not None:
         if unitary:
             return c.conj()
+        if config.singularity_checks() == "off":
+            return 1.0 / c
         mags = np.abs(c)
         if mags.min() == 0.0 or mags.max() / mags.min() > _cond_limit(c.dtype):
             detail = ("zero diagonal entry" if mags.min() == 0.0

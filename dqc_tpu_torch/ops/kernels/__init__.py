@@ -4,8 +4,9 @@ Each kernel module holds a wrapper (the kernel on a CUDA tensor, its plain
 PyTorch version on a CPU tensor) with an integer ``launches`` counter that
 counts kernel launches only, and the plain version itself. A wrapper with
 modes the engine reaches on some paths only also counts those launches per
-mode in ``mode_launches`` (``block_backward_dual``'s ``diag_q``, the
-multi-term applies' ``seed``: ``conj``, ``acc`` or ``alias=False``). ``KERNELS`` is
+mode in ``mode_launches`` (the ``diag_q`` of ``block_backward_dual`` and
+``block_backward_high``, ``diag_backward``'s ``with_q``, the multi-term
+applies' ``seed``: ``conj``, ``acc`` or ``alias=False``). ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 """
@@ -21,6 +22,10 @@ from dqc_tpu_torch.ops.kernels.block_backward_dual import (
 from dqc_tpu_torch.ops.kernels.block_backward_high import (
     block_backward_high,
     block_backward_high_plain,
+)
+from dqc_tpu_torch.ops.kernels.block_backward_lane import (
+    block_backward_lane,
+    block_backward_lane_plain,
 )
 from dqc_tpu_torch.ops.kernels.block_backward_merged_fact import (
     block_backward_merged_fact,
@@ -66,17 +71,20 @@ class KernelSet(NamedTuple):
     dual_multi_apply: Callable
     high_multi_apply: Callable
     block_backward_sublane: Callable
+    block_backward_lane: Callable
 
 
 KERNELS = KernelSet(dual_apply, high_apply, gram, block_backward_dual,
                     block_backward_high, merged_fact_apply,
                     block_backward_merged_fact, diag_sweep, diag_backward,
-                    dual_multi_apply, high_multi_apply, block_backward_sublane)
+                    dual_multi_apply, high_multi_apply, block_backward_sublane,
+                    block_backward_lane)
 PLAIN = KernelSet(dual_apply_plain, high_apply_plain, gram_plain,
                   block_backward_dual_plain, block_backward_high_plain,
                   merged_fact_apply_plain, block_backward_merged_fact_plain,
                   diag_sweep_plain, diag_backward_plain, dual_multi_apply_plain,
-                  high_multi_apply_plain, block_backward_sublane_plain)
+                  high_multi_apply_plain, block_backward_sublane_plain,
+                  block_backward_lane_plain)
 
 
 def _mode_counts(w) -> Dict[str, int]:

@@ -1,8 +1,8 @@
 """One-pass adjoint step of a high-group block on f32 planes.
 
 Replaces the TPU kernel ``block_backward_high``
-(``dqc_tpu/ops/pallas/block_backward.py:906``) for ``X <= 128``, without
-its ``diag_q`` outputs: on the view ``(A1, X, M, 128)`` of the forward
+(``dqc_tpu/ops/pallas/block_backward.py:906``) for ``X <= 128``, with its
+``diag_q`` outputs: on the view ``(A1, X, M, 128)`` of the forward
 planes ``F`` and the cotangent planes ``B``, with the group's operator
 ``E`` (X x X) on axis X,
 
@@ -11,14 +11,20 @@ planes ``F`` and the cotangent planes ``B``, with the group's operator
 with the pair gram holomorphic (no conjugation) and an optional fused
 diagonal run rolled back (``F *= Dinv``, ``B *= D``) before the dense stage
 when the run followed it in the forward (``diag_first_fwd=False``), after
-it otherwise. The run's tables stay canonical, as in ``high_apply``. The
+it otherwise. The run's tables stay canonical, as in ``high_apply``. With
+``diag_q`` (a run with variable gates) it also returns the run's Q
+reductions of the holomorphic product ``Q = B F`` where the planes meet the
+run, before its update: ``Qsl`` (128, 128) summed over ``a``, ``Qas`` and
+``Qal`` (A, 128) summed over ``l`` and over ``s``, for the view element
+``(i, x, q = (p 128 + s) 128 + l)`` at ``a = (i X + x) post + p``. The
 Hopper kernel is ``csrc/block_backward_high.cu`` (bound by operations: 3 X
 complex multiply-adds per amplitude); :func:`block_backward_high_plain` is
 its plain PyTorch version.
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
-``(f_r, f_i, b_r, b_i, T0_r, T0_i)``.
+``(f_r, f_i, b_r, b_i, T0_r, T0_i)``, then with ``diag_q`` ``(Qsl_r, Qsl_i,
+Qas_r, Qas_i, Qal_r, Qal_i)``.
 """
 
 from __future__ import annotations
@@ -36,27 +42,41 @@ from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X, view_diag_run
 def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                               diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                               diag_tables: Optional[Sequence[torch.Tensor]] = None,
-                              diag_first_fwd: bool = True):
+                              diag_first_fwd: bool = True, diag_q: bool = False):
     """Plain PyTorch version of the kernel (complex64 matmuls); fresh
     outputs."""
+    _check_diag_q(diag_q, diag_tables)
     A1, X, M, _ = fr.shape
     v = (A1, X, M * 128)
     F = torch.complex(fr, fi).reshape(v)
     B = torch.complex(br, bi).reshape(v)
+    Q = None
     if diag_tables is not None:
         Dinv = view_diag_run(diag_inv_tables, fr.shape).reshape(v)
         D = view_diag_run(diag_tables, fr.shape).reshape(v)
         if not diag_first_fwd:
+            Q = B * F if diag_q else None
             F, B = F * Dinv, B * D
     F = torch.matmul(torch.complex(einv_r, einv_i), F)
     T0 = pair_sum(B, F)
     B = torch.matmul(torch.complex(e_r, e_i).transpose(0, 1), B)
     if diag_tables is not None and diag_first_fwd:
+        Q = B * F if diag_q else None
         F, B = F * Dinv, B * D
-    return _split(F.reshape(fr.shape), B.reshape(fr.shape), T0)
+    out = _split(F.reshape(fr.shape), B.reshape(fr.shape), T0)
+    if Q is None:
+        return out
+    # view element (i, x, (p, s, l)) reads the run at a = (i X + x) post + p
+    Qv = Q.reshape(A1 * X * (M // 128), 128, 128)
+    return out + _split(Qv.sum(0), Qv.sum(2), Qv.sum(1))
 
 
-_ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 2 + [_launch.VOIDP] * 2
+def _check_diag_q(diag_q: bool, diag_tables) -> None:
+    if diag_q and diag_tables is None:
+        raise ValueError("block_backward_high: diag_q needs a diagonal run")
+
+
+_ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
              + [_launch.LONG, _launch.INT, _launch.LONG, _launch.INT,
                 _launch.VOIDP])
 
@@ -64,11 +84,12 @@ _ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 2 + [_launch.VOIDP] * 2
 def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                         diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_tables: Optional[Sequence[torch.Tensor]] = None,
-                        diag_first_fwd: bool = True):
+                        diag_first_fwd: bool = True, diag_q: bool = False):
     """The adjoint step on the view ``(A1, X, M, 128)``, X in 8..128;
     operators are f32 real/imag pairs (X, X); the tables as in
     ``high_apply`` (run's inverse, then run), or both None. A run needs
-    M % 128 == 0."""
+    M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions to the
+    outputs."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -80,11 +101,13 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     if diag_tables is not None and M % 128:
         raise ValueError(f"block_backward_high: a diag run needs M % 128 == 0, "
                          f"got M={M}")
+    _check_diag_q(diag_q, diag_tables)
     ops = (einv_r, einv_i, e_r, e_i)
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
-            diag_tables=diag_tables, diag_first_fwd=diag_first_fwd)
+            diag_tables=diag_tables, diag_first_fwd=diag_first_fwd,
+            diag_q=diag_q)
     if X not in KERNEL_X:
         raise ValueError(f"block_backward_high: X={X} is not one of {KERNEL_X}")
     _launch.check_cuda_f32("block_backward_high", planes + ops, fr.device)
@@ -95,20 +118,33 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                              fr.device)
     lib = "block_backward_high"
     slots = _launch.entry(lib, "dqc_block_backward_high_slots", [_launch.INT])(X)
-    ntiles = A1 * X * M * 128 // 8192
-    nblk = min(ntiles, _launch.sm_count(fr.device))
-    part = torch.zeros((nblk * slots, 2, X, X), dtype=torch.float32,
-                       device=fr.device)
-    out = torch.empty((2, X, X), dtype=torch.float32, device=fr.device)
+    # the blocks take tiles of 8192 / X columns, or with diag_q whole (i, p)
+    # groups of 128 x 128 columns
+    units = A1 * M // 128 if diag_q else A1 * X * M * 128 // 8192
+    nblk = min(units, _launch.sm_count(fr.device))
+    dev = fr.device
+    part = torch.zeros((nblk * slots, 2, X, X), dtype=torch.float32, device=dev)
+    out = torch.empty((2, X, X), dtype=torch.float32, device=dev)
+    q_ptrs = [None] * 6
+    if diag_q:
+        rows = torch.zeros((4, A1 * X * M // 128, 128), dtype=torch.float32,
+                           device=dev)
+        qpart = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
+        qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
+        q_ptrs = [r.data_ptr() for r in rows] + [qpart.data_ptr(), qsl.data_ptr()]
     fn = _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
               *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
-              int(diag_first_fwd), part.data_ptr(), out.data_ptr(), A1, X,
-              M * 128, nblk, _launch.stream(fr.device))
+              int(diag_first_fwd), int(diag_q), *q_ptrs, part.data_ptr(),
+              out.data_ptr(), A1, X, M * 128, nblk, _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
-    return (fr, fi, br, bi, out[0], out[1])
+    if not diag_q:
+        return (fr, fi, br, bi, out[0], out[1])
+    block_backward_high.mode_launches["diag_q"] += 1
+    return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
 block_backward_high.launches = 0
+block_backward_high.mode_launches = {"diag_q": 0}

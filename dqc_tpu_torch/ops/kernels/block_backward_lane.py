@@ -1,0 +1,70 @@
+"""One-pass adjoint step of an unpaired lane-group block on f32 planes.
+
+Replaces the TPU kernel ``block_backward_lane``
+(``dqc_tpu/ops/pallas/block_backward.py:88``): on the forward planes ``F``
+and the cotangent planes ``B`` ``(A, 128, 128) x 2``, with the lane-group
+operator ``E`` (qubits 0..6, the last axis),
+
+``F <- F Einv^T``, ``T0[x, y] += sum B[a, s, x] F[a, s, y]``, ``B <- B E``
+
+with the pair gram holomorphic (no conjugation; ``B`` the incoming
+cotangent, ``F`` the uncomputed planes). The Hopper kernel is
+``csrc/block_backward_lane.cu`` on ``csrc/adjoint.cuh`` (bound by
+operations: 384 complex multiply-adds per amplitude);
+:func:`block_backward_lane_plain` is its plain PyTorch version.
+
+:func:`block_backward_lane` updates ``(F, B)`` in place on a CUDA tensor
+and returns the plain version's fresh planes on a CPU tensor. Returns
+``(f_r, f_i, b_r, b_i, T0_r, T0_i)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
+from dqc_tpu_torch.ops.kernels.gram import pair_sum
+
+
+def block_backward_lane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i):
+    """Plain PyTorch version of the kernel (complex64 matmuls); fresh
+    outputs."""
+    F = torch.matmul(torch.complex(fr, fi),
+                     torch.complex(einv_r, einv_i).transpose(0, 1))
+    B = torch.complex(br, bi)
+    T0 = pair_sum(B.reshape(-1, 128, 1), F.reshape(-1, 128, 1))
+    return _split(F, torch.matmul(B, torch.complex(e_r, e_i)), T0)
+
+
+_ARGTYPES = [_launch.VOIDP] * 10 + [_launch.LONG, _launch.INT, _launch.VOIDP]
+
+
+def block_backward_lane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i):
+    """The adjoint step on planes ``(A, 128, 128)``; operators are f32
+    real/imag pairs (128, 128)."""
+    planes = (fr, fi, br, bi)
+    if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
+            p.shape != fr.shape for p in planes):
+        raise ValueError(f"block_backward_lane: planes must be (A, 128, 128), "
+                         f"got {[tuple(p.shape) for p in planes]}")
+    ops = (einv_r, einv_i, e_r, e_i)
+    if fr.device.type == "cpu":
+        return block_backward_lane_plain(*planes, *ops)
+    A = fr.shape[0]
+    _launch.check_cuda_f32("block_backward_lane", planes + ops, fr.device)
+    if any(tuple(o.shape) != (128, 128) for o in ops):
+        raise ValueError("block_backward_lane: operators must be (128, 128)")
+    nblk = min(A, _launch.sm_count(fr.device))
+    part = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=fr.device)
+    out = torch.empty((2, 128, 128), dtype=torch.float32, device=fr.device)
+    lib = "block_backward_lane"
+    fn = _launch.entry(lib, "dqc_block_backward_lane", _ARGTYPES)
+    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
+              part.data_ptr(), out.data_ptr(), A, nblk, _launch.stream(fr.device))
+    _launch.raise_on_error(code, lib, "block_backward_lane launch")
+    block_backward_lane.launches += 1
+    return (fr, fi, br, bi, out[0], out[1])
+
+
+block_backward_lane.launches = 0

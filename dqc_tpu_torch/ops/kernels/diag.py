@@ -1,15 +1,18 @@
 """Fused diagonal-run sweep and its one-pass adjoint on f32 planes.
 
 Replaces the TPU kernels ``diag_sweep_planes``
-(``dqc_tpu/ops/pallas/diag.py:75``) and ``diag_backward_planes`` (``:154``)
-without its Q reductions (``with_q=False``): a run of commuting diagonal
+(``dqc_tpu/ops/pallas/diag.py:75``) and ``diag_backward_planes`` (``:154``),
+with its Q reductions (``with_q``): a run of commuting diagonal
 gates is one elementwise multiply by its total diagonal in factored form,
 ``D[a, s, l] = (tas[a, s] tal[a, l]) tsl[s, l]`` on planes ``(A, 128, 128)``
 (ops/planes.py, plane_scan._DiagFactors):
 
 * :func:`diag_sweep`: ``x *= D``;
 * :func:`diag_backward`: ``fwd *= Dinv``, ``bwd *= D`` (the cotangent
-  transport by ``D^T = D``).
+  transport by ``D^T = D``); with ``with_q`` (a run with variable gates)
+  also the reductions of the holomorphic product ``Q[a, s, l] = bwd fwd``
+  taken before the update: ``Qsl`` (128, 128) summed over ``a``, ``Qas``
+  (A, 128) summed over ``l``, ``Qal`` (A, 128) summed over ``s``.
 
 The Hopper kernels are ``csrc/diag.cu`` (bound by bytes: one read and one
 write of each plane, 16 or 32 bytes per amplitude, against 3 or 6 complex
@@ -26,6 +29,7 @@ from typing import Sequence
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
 from dqc_tpu_torch.ops.kernels.dual_apply import diag_run
 
 
@@ -39,10 +43,14 @@ def diag_sweep_plain(xr, xi, *tables):
     return _times(xr, xi, tables)
 
 
-def diag_backward_plain(fr, fi, br, bi, *tables):
+def diag_backward_plain(fr, fi, br, bi, *tables, with_q: bool = False):
     """Plain PyTorch version of the adjoint; ``tables`` are the run's
     inverse's six planes, then the run's. Fresh outputs."""
-    return (*_times(fr, fi, tables[:6]), *_times(br, bi, tables[6:]))
+    out = (*_times(fr, fi, tables[:6]), *_times(br, bi, tables[6:]))
+    if not with_q:
+        return out
+    Q = torch.complex(br, bi) * torch.complex(fr, fi)
+    return out + _split(Q.sum(0), Q.sum(2), Q.sum(1))
 
 
 def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> int:
@@ -56,6 +64,8 @@ def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> int:
 
 _SWEEP_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.LONG, _launch.VOIDP]
 _BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.VOIDP]
+_BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22
+                        + [_launch.LONG, _launch.INT, _launch.VOIDP])
 
 
 def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
@@ -80,30 +90,40 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
                   tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i, *,
                   with_q: bool = False):
     """``fwd *= Dinv``, ``bwd *= D`` on planes ``(A, 128, 128)``: the run's
-    inverse's six table planes, then the run's. ``with_q`` (the pair-product
-    reductions of a run with variable gates) is not ported."""
-    if with_q:
-        raise NotImplementedError(
-            "diag_backward_planes with_q=True (the Q reductions of a variable "
-            "diagonal run) is not ported to dqc_tpu_torch yet; see ROADMAP.md "
-            "slice item 5")
+    inverse's six table planes, then the run's. Returns the four planes,
+    then with ``with_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i, Qal_r, Qal_i)``."""
     planes = (fr, fi, br, bi)
     inv = (isl_r, isl_i, ias_r, ias_i, ial_r, ial_i)
     fwd = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_backward", planes)
     if fr.device.type == "cpu":
-        return diag_backward_plain(*planes, *inv, *fwd)
-    _launch.check_cuda_f32("diag_backward", planes, fr.device, align=16)
+        return diag_backward_plain(*planes, *inv, *fwd, with_q=with_q)
+    dev = fr.device
+    _launch.check_cuda_f32("diag_backward", planes, dev, align=16)
     for tabs in (inv, fwd):
-        _launch.check_tables("diag_backward", tabs, A, fr.device)
-        _launch.check_cuda_f32("diag_backward", tabs, fr.device, align=16)
-    fn = _launch.entry("diag", "dqc_diag_backward", _BACKWARD_ARGTYPES)
+        _launch.check_tables("diag_backward", tabs, A, dev)
+        _launch.check_cuda_f32("diag_backward", tabs, dev, align=16)
+    if not with_q:
+        fn = _launch.entry("diag", "dqc_diag_backward", _BACKWARD_ARGTYPES)
+        code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
+                  *_launch.table_ptrs(fwd), A, _launch.stream(dev))
+        _launch.raise_on_error(code, "diag", "diag_backward launch")
+        diag_backward.launches += 1
+        return fr, fi, br, bi
+    nblk = min(A, 2 * _launch.sm_count(dev))
+    rows = torch.empty((4, A, 128), dtype=torch.float32, device=dev)
+    part = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
+    qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
+    fn = _launch.entry("diag", "dqc_diag_backward_q", _BACKWARD_Q_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
-              *_launch.table_ptrs(fwd), A, _launch.stream(fr.device))
+              *_launch.table_ptrs(fwd), *(r.data_ptr() for r in rows),
+              part.data_ptr(), qsl.data_ptr(), A, nblk, _launch.stream(dev))
     _launch.raise_on_error(code, "diag", "diag_backward launch")
     diag_backward.launches += 1
-    return fr, fi, br, bi
+    diag_backward.mode_launches["with_q"] += 1
+    return fr, fi, br, bi, qsl[0], qsl[1], *rows
 
 
 diag_sweep.launches = 0
 diag_backward.launches = 0
+diag_backward.mode_launches = {"with_q": 0}

@@ -26,8 +26,14 @@ Op mapping (one pass over the state each):
   the high kernel on a span view of its high bits, or the multi-term high +
   lane kernel (ops/kernels/high_multi_apply) with a lane bit; its adjoint on
   a span view is one high backward kernel pass
-* the adjoint of an unpaired sublane block -> ops/kernels/
-  block_backward_sublane
+* the adjoint of an unpaired lane or sublane block -> ops/kernels/
+  block_backward_lane, block_backward_sublane
+* a variable diagonal run's Q reductions -> the adjoint that rolls the run
+  back (block_backward_dual / block_backward_high ``diag_q``, diag_backward
+  ``with_q``)
+* diagonals over more than two groups, and the gradient sources of the
+  plane tape's unfused diagonal branches -> plain torch broadcast multiplies
+  and sums, as the JAX package leaves them to XLA
 * the adjoint of a dense block on group j >= 2, with or without a folded
   run -> the high backward kernel (ops/kernels/block_backward_high); the
   adjoint of a lane + sublane pair is called from circuit/plane_scan.py
@@ -45,7 +51,7 @@ kernels on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -151,8 +157,8 @@ def kron_ops(Ea, Eb):
     if isinstance(Ea, np.ndarray) and isinstance(Eb, np.ndarray):
         return np.kron(Ea, Eb)
     dev = Ea.device if isinstance(Ea, torch.Tensor) else Eb.device
-    return torch.kron(torch.as_tensor(Ea, device=dev).to(torch.complex64),
-                      torch.as_tensor(Eb, device=dev).to(torch.complex64))
+    return torch.kron(torch.as_tensor(Ea, device=dev).to(torch.complex64).contiguous(),
+                      torch.as_tensor(Eb, device=dev).to(torch.complex64).contiguous())
 
 
 def _kron_id(E, Xl: int):
@@ -660,16 +666,12 @@ def backward_dhigh(fxr, fxi, bxr, bxi, Einv, E, tables_inv, tables, j: int,
                    n: int, *, diag_first: bool = True, with_q: bool = False,
                    kernels: KernelSet = KERNELS):
     """One-pass adjoint of a fused [diag run + dense high sweep]: uncompute,
-    cotangent transport and the dense block's T0 pair gram in a single read
-    of the (fwd, bwd) planes. Returns ``(fxr, fxi, bxr, bxi, T0, None)``
-    with T0 complex (X, X). The run's Q reductions (``with_q``, for a run
-    with variable gates) are not ported: the kernel's ``diag_q`` outputs
-    come with the diag backward kernels (ROADMAP.md)."""
-    if with_q:
-        raise NotImplementedError(
-            "the Q reductions of a variable diagonal run (block_backward_high "
-            "diag_q, diag_backward_planes) are not ported to dqc_tpu_torch "
-            "yet; see ROADMAP.md")
+    cotangent transport, the dense block's T0 pair gram and (``with_q``, a
+    run with variable gates) the run's Q reductions, in a single read of
+    the (fwd, bwd) planes. Returns ``(fxr, fxi, bxr, bxi, T0, Q)`` with T0
+    complex (X, X) and Q None or the complex ``(Qsl (128, 128), Qas (A,
+    128), Qal (A, 128))`` of ``Q = bwd fwd`` where the planes meet the run
+    (the diag kernels' reductions)."""
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
     dev = fxr.device
@@ -678,10 +680,16 @@ def backward_dhigh(fxr, fxi, bxr, bxi, Einv, E, tables_inv, tables, j: int,
         *op_planes(Einv, dev), *op_planes(E, dev),
         diag_inv_tables=dhigh_view_tables(tables_inv, j, n, dev),
         diag_tables=dhigh_view_tables(tables, j, n, dev),
-        diag_first_fwd=diag_first)
-    fr, fi, br, bi, t0r, t0i = out
+        diag_first_fwd=diag_first, diag_q=with_q)
+    fr, fi, br, bi, t0r, t0i = out[:6]
+    Q = None
+    if with_q:
+        A = pre * X * (M // 128)
+        Q = (torch.complex(out[6], out[7]),
+             torch.complex(out[8], out[9]).reshape(A, 128),
+             torch.complex(out[10], out[11]).reshape(A, 128))
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
-            bi.view(bxr.shape), torch.complex(t0r, t0i), None)
+            bi.view(bxr.shape), torch.complex(t0r, t0i), Q)
 
 
 def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
@@ -692,22 +700,17 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     ``fwd_in = Einv fwd_out``, ``bwd' = E^T bwd``,
     ``T0[x, y] = sum_b bwd[x, b] fwd_in[y, b]`` (complex, returned dense).
 
-    Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired sublane block
-    runs block_backward_sublane; an unpaired lane block needs
-    block_backward_lane, not ported yet, and raises
-    ``NotImplementedError``. A lone block on a tiny top group runs the
+    Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired lane block runs
+    block_backward_lane, an unpaired sublane block block_backward_sublane.
+    A lone block on a tiny top group runs the
     factorized merged adjoint with an identity low factor (the JAX package
     runs block_backward_high on the expanded merged axis, X = 256 / 512,
     not ported); a tiny group 2 runs the elementwise small-X form."""
     dev = fxr.device
-    if j == 0:
-        raise NotImplementedError(
-            "the adjoint of an unpaired lane block needs block_backward_lane "
-            "(dqc_tpu/ops/pallas/block_backward.py:88), not ported to "
-            "dqc_tpu_torch yet; see ROADMAP.md")
-    if j == 1:
-        fr, fi, br, bi, t0r, t0i = kernels.block_backward_sublane(
-            fxr, fxi, bxr, bxi, *op_planes(Einv, dev), *op_planes(E, dev))
+    if j in (0, 1):
+        step = kernels.block_backward_lane if j == 0 else kernels.block_backward_sublane
+        fr, fi, br, bi, t0r, t0i = step(fxr, fxi, bxr, bxi, *op_planes(Einv, dev),
+                                        *op_planes(E, dev))
         return fr, fi, br, bi, torch.complex(t0r, t0i)
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
@@ -749,19 +752,147 @@ def apply_diag_run(xr, xi, tables, *, kernels: KernelSet = KERNELS) -> Planes:
 def backward_diag_run(fxr, fxi, bxr, bxi, inv_tables, tables, *, with_q: bool,
                       kernels: KernelSet = KERNELS):
     """One in-place pass rolling (fwd, bwd) back through a diagonal run:
-    ``fwd *= D_inv``, ``bwd *= D``. Returns ``(fxr, fxi, bxr, bxi, None)``;
-    the Q reductions of a run with variable gates (``with_q``) are not
-    ported and raise."""
-    if with_q:
-        raise NotImplementedError(
-            "the Q reductions of a variable diagonal run (diag_backward_planes "
-            "with_q=True) are not ported to dqc_tpu_torch yet; see ROADMAP.md "
-            "slice item 5")
+    ``fwd *= D_inv``, ``bwd *= D``. Returns ``(fxr, fxi, bxr, bxi, Q)``, Q
+    None or (``with_q``, a run with variable gates) the complex ``(Qsl
+    (128, 128), Qas (A, 128), Qal (A, 128))`` reductions of ``Q = bwd fwd``
+    taken before the update."""
     dev = fxr.device
     out = kernels.diag_backward(fxr, fxi, bxr, bxi,
                                 *_diag_table_planes(inv_tables, dev),
-                                *_diag_table_planes(tables, dev))
-    return (*out, None)
+                                *_diag_table_planes(tables, dev), with_q=with_q)
+    if not with_q:
+        return (*out, None)
+    Q = tuple(torch.complex(out[k], out[k + 1]) for k in (4, 6, 8))
+    return (*out[:4], Q)
+
+
+# ---------------------------------------------------------------------------
+# Diagonals off the kernels (plain torch on the planes, as the JAX package
+# leaves them to XLA): a single-group or two-group diagonal of the plane
+# tape's unfused branches, a diagonal over more than two groups, and their
+# gradient sources
+# ---------------------------------------------------------------------------
+
+def _grouped(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(gr.group_dims(n))
+
+
+def _cmul_planes(xr, xi, dr, di):
+    return xr * dr - xi * di, xr * di + xi * dr
+
+
+def _planes_times(xr, xi, tr, ti, shape, n: int) -> Planes:
+    yr, yi = _cmul_planes(_grouped(xr, n), _grouped(xi, n), tr.reshape(shape),
+                          ti.reshape(shape))
+    return yr.reshape(xr.shape).contiguous(), yi.reshape(xi.shape).contiguous()
+
+
+def apply_diag_axis(xr, xi, table, j: int, n: int) -> Planes:
+    """Full-group diagonal table on group ``j`` (broadcast multiply)."""
+    dims = gr.group_dims(n)
+    shape = [1] * len(dims)
+    shape[len(dims) - 1 - j] = dims[len(dims) - 1 - j]
+    return _planes_times(xr, xi, *op_planes(table, xr.device), shape, n)
+
+
+def _axis_indicators(positions, n: int):
+    """For each of the ``2^k`` diagonal entries, the (axis, 0/1 indicator
+    vector) factors whose broadcast product selects the amplitudes with
+    that bit pattern (positions msb-first)."""
+    dims = gr.group_dims(n)
+    G = len(dims)
+    k = len(positions)
+    out = []
+    for j in range(1 << k):
+        factors: Dict[int, np.ndarray] = {}
+        for gate_bit, p in enumerate(positions):
+            jg, rel = gr.group_of_bit(n, p)
+            ax = G - 1 - jg
+            want = (j >> (k - 1 - gate_bit)) & 1
+            v = (((np.arange(dims[ax]) >> rel) & 1) == want).astype(np.float32)
+            factors[ax] = factors.get(ax, np.ones(dims[ax], np.float32)) * v
+        out.append(factors)
+    return out
+
+
+def _multi_diag_table(d, positions, n: int, device) -> torch.Tensor:
+    """The joint complex table of a diagonal over any groups, broadcastable
+    to the grouped shape: ``sum_j d[j] * (indicator product)``."""
+    dims = gr.group_dims(n)
+    G = len(dims)
+    d = torch.as_tensor(d, device=device).reshape(-1).to(torch.complex64)
+    table = None
+    for j, factors in enumerate(_axis_indicators(positions, n)):
+        m = None
+        for ax, v in factors.items():
+            sh = [1] * G
+            sh[ax] = dims[ax]
+            b = torch.as_tensor(v, device=device).reshape(sh)
+            m = b if m is None else m * b
+        term = d[j] * m
+        table = term if table is None else table + term
+    return table
+
+
+def apply_multi_diag(xr, xi, d, positions, n: int) -> Planes:
+    """Diagonal k-qubit gate spanning any number of groups: its joint table
+    (the indicator sum) applied as one broadcast multiply."""
+    t = _multi_diag_table(d, positions, n, xr.device)
+    return _planes_times(xr, xi, t.real, t.imag, t.shape, n)
+
+
+def _sub_planes(xr, xi, positions, n: int):
+    return (gr.subblocks(_grouped(xr, n), positions, n),
+            gr.subblocks(_grouped(xi, n), positions, n))
+
+
+def multi_diag_gram(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
+    """``W[j] = sum_b bwd[j, b] fwd[j, b]`` over the gate-bit sub-blocks
+    (the diagonal gate's cotangent, groups.diag_pair_grad on planes)."""
+    Fr, Fi = _sub_planes(fxr, fxi, positions, n)
+    Br, Bi = _sub_planes(bxr, bxi, positions, n)
+    return torch.complex((Br * Fr - Bi * Fi).sum(1), (Br * Fi + Bi * Fr).sum(1))
+
+
+def apply_cross_diag(xr, xi, table2, j2: int, j1: int, n: int) -> Planes:
+    """Joint diagonal over two group axes; ``table2``: (dim_j2, dim_j1)."""
+    dims = gr.group_dims(n)
+    G = len(dims)
+    a2, a1 = G - 1 - j2, G - 1 - j1
+    tr, ti = op_planes(table2, xr.device)
+    if a2 > a1:
+        tr, ti = tr.T, ti.T
+        a2, a1 = a1, a2
+    shape = [1] * G
+    shape[a2] = dims[a2]
+    shape[a1] = dims[a1]
+    return _planes_times(xr, xi, tr.contiguous(), ti.contiguous(), shape, n)
+
+
+def _pair_reduce(fxr, fxi, bxr, bxi, keep, n: int) -> torch.Tensor:
+    """``sum bwd * fwd`` (complex, no conjugation) over every grouped axis
+    but ``keep``."""
+    fr, fi = _grouped(fxr, n), _grouped(fxi, n)
+    br, bi = _grouped(bxr, n), _grouped(bxi, n)
+    axes = tuple(a for a in range(fr.dim()) if a not in keep)
+    return torch.complex((br * fr - bi * fi).sum(axes),
+                         (br * fi + bi * fr).sum(axes))
+
+
+def diag_gram_axis(fxr, fxi, bxr, bxi, j: int, n: int) -> torch.Tensor:
+    """Complex ``W[x] = sum_b bwd[x, b] fwd[x, b]`` over group axis ``j``
+    (the all-diagonal block's gradient source)."""
+    G = len(gr.group_dims(n))
+    return _pair_reduce(fxr, fxi, bxr, bxi, (G - 1 - j,), n)
+
+
+def cross_diag_gram(fxr, fxi, bxr, bxi, j2: int, j1: int, n: int) -> torch.Tensor:
+    """Complex ``W2[x2, x1] = sum_b bwd fwd`` over the two group axes of a
+    cross diagonal (its joint table's cotangent), (dim_j2, dim_j1)."""
+    G = len(gr.group_dims(n))
+    a2, a1 = G - 1 - j2, G - 1 - j1
+    W = _pair_reduce(fxr, fxi, bxr, bxi, (a2, a1), n)
+    return W.T if a2 > a1 else W
 
 
 # ---------------------------------------------------------------------------

@@ -164,8 +164,11 @@ def test_new_wrappers_refuse_other_devices():
     e = torch.empty((128, 128), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.block_backward_sublane(x, x, x, x, e, e, e, e)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.block_backward_lane(x, x, x, x, e, e, e, e)
     assert tk.launch_counts() == {name: 0 for name in (
         *tk.KernelSet._fields, "block_backward_dual[diag_q]",
+        "block_backward_high[diag_q]", "diag_backward[with_q]",
         "dual_multi_apply[seed]", "high_multi_apply[seed]")}
 
 
@@ -318,7 +321,6 @@ def test_var_span_gates_grad_matches_jax():
     finally:
         jconfig.set_plane_engine("auto")
     tft, tepi = _var_span_tapes(TCircuit, tfuse_layer, tfuse_tape, n)
-    tps.check_backward_supported(tft)
     t1, t2 = (torch.from_numpy(a).requires_grad_(True) for a in (q1, q2))
     loss = _var_span_loss(torch, tps.std_scan_with_epilogue, tft, tepi, t1, t2,
                           device="cpu")
@@ -413,8 +415,6 @@ def test_every_size_passes_the_cnot_support_check(n):
     holds, forward and backward: no plan item is refused, and every cross
     gate is a dcross item."""
     m = THEA(n, 1, entangler="cnot", device="cpu")
-    tps.check_forward_supported(m._layer_ftape, m._epi_ftape)
-    tps.check_backward_supported(m._layer_ftape)
     kinds = [item[0] for item in tps.plane_program(m._layer_ftape)]
     assert set(kinds) <= {"dense", "dcross", "hpair"}, kinds
     # one per group boundary and the ring's closing gate

@@ -456,8 +456,6 @@ def test_every_size_passes_the_support_check(n, model):
         m = TVQE(n, 3, device="cpu")
     else:
         m = TQAOA(n, random_graph(n, n // 2, 0), layers_number=3, device="cpu")
-    tps.check_forward_supported(m._layer_ftape, m._epi_ftape, m._pro_ftape)
-    tps.check_backward_supported(m._layer_ftape, m._epi_ftape)
     prog = tps.plane_program(m._layer_ftape)
     assert [item[0] for item in prog].count("ddual") == 1, prog
     assert {item[0] for item in prog} <= {"ddual", "dense", "hpair"}, prog
@@ -475,8 +473,24 @@ def test_every_size_passes_the_support_check(n, model):
     lambda: TQAOA(14, random_graph(14, 7, 0), layers_number=2, device="cpu"),
 ], ids=["vqe_default_2L", "vqe_scan_false", "qaoa_default_2L"])
 def test_unrolled_models_name_the_tape_path(build):
-    with pytest.raises(NotImplementedError, match="plane-tape path"):
-        build()
+    """The unrolled models (``scan=False``, or fewer than three layers
+    without ``scan``) run their reference-compatible circuit through
+    ``AutoGradCircuit.build``'s engine and agree with the same model in scan
+    mode: value and gradient within 2e-5 max(1, |x|)."""
+    m = build()
+    assert not m.scan
+    p = (0.3 * torch.randn(2 * m.layers, generator=torch.Generator().manual_seed(5))
+         ).requires_grad_(True)
+    loss = m.energy if isinstance(m, TVQE) else m.loss
+    v = loss(p)
+    v.backward()
+    m.scan = True
+    p2 = p.detach().clone().requires_grad_(True)
+    v2 = loss(p2)
+    v2.backward()
+    assert abs(v.item() - v2.item()) <= 2e-5 * max(1.0, abs(v2.item()))
+    assert (p.grad - p2.grad).abs().max().item() <= 2e-5 * max(
+        1.0, p2.grad.abs().max().item())
 
 
 def test_distributed_energy_names_parallel():
