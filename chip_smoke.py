@@ -76,7 +76,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    lone variable diagonal run (diag_backward[with_q] once a step), against
    the plain path; [ghz29], GHZ(29)'s densities (I / 2) and fidelity;
    [qft28], QFT|x> against its closed form through build_state_fn;
-10. a JSON line of the kernels and of the modes checked (their launches
+10. the expanded merged top and scan mode wherever the JAX package runs
+   it: the kernel checks of the in-place high apply and of
+   block_backward_high on the merged axis (X = 256 at the 29q shape, 512
+   at the 30q shape) in phase 3; [hpair29], HardwareEfficientAnsatz(29, 20,
+   "cz") under set_hpair_factorized(False) (the merged sweep expanded to
+   X = 256 both ways), forward and value_and_grad with the counters held
+   to the port's dispatch on the meta device, against the factorized
+   route on the same params and the 29q x 1L closed form; [hpair30], the
+   CNOT ring at 30q x 2L (its lone 2-bit top-group block at X = 512 both
+   ways), by default and with the hpair expanded, at params = 0, and
+   against the plain path at 23q x 2L (the same X = 512 kernels: the 30q
+   plain path does not fit in the card's memory); [fallback], scan mode off the planes (plain
+   torch on the card: VQEIsing(10, 6), HardwareEfficientAnsatz(20, 4, "cz")
+   at complex128, HardwareEfficientAnsatz(24, 4) under
+   set_plane_engine(False)) against the unrolled models and the plane
+   path; [init28], scan_with_epilogue from a random 28q state, 4 cz
+   layers, the kernels against the plain path (densities, gate and state
+   gradients), counters held to the meta-device dry run;
+11. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -98,6 +116,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_QUBITS = 28
 LAYERS = 100
+HPAIR_LAYERS = 20   # [hpair29]: depth cut from 100 for chip time only
 CHECK_LAYERS = 20
 SEED = 1234
 N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_grad
@@ -130,6 +149,8 @@ DIAG_TOL = 1e-5     # abs, unit-variance planes times unit-modulus phases
 VQE_VALUE_TOL = 1e-5    # VQE closed form: value within 1e-5 n, each
 VQE_GRAD_TOL = 3e-5     # gradient within 3e-5 n (sums of n edge terms)
 QAOA_ZERO_TOL = 1e-5    # QAOA at params = 0: cut within 1e-5 |E|, |grad|
+FALLBACK_TOL = 1e-5     # densities: scan mode off the planes vs the routes
+                        # beside it (plain torch both, f32 or f64)
 MODEL_GRAD_TOL = 1e-4   # relative to max(1, |g|) per parameter, kernel path
                         # vs plain path (sums of 2^27-term f32 reductions)
 
@@ -178,8 +199,14 @@ def bound_ms(bytes_moved: float, flops: float):
 def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
-    if name in ("block_backward_dual", "block_backward_high"):
+    if name == "block_backward_dual":
         return ("diag_q",) if a.get("diag_q") else ()
+    if name == "block_backward_high":
+        return (("diag_q",) if a.get("diag_q") else ()) + (
+            ("wide",) if a["fr"].shape[1] > 128 else ())
+    if name == "high_apply":
+        inplace = a.get("acc") is None and a.get("alias", True)
+        return ("wide_inplace",) if inplace and a["xr"].shape[1] > 128 else ()
     if name == "diag_backward":
         return ("with_q",) if a.get("with_q") else ()
     if name in ("dual_multi_apply", "high_multi_apply"):
@@ -507,16 +534,19 @@ def main() -> int:
 
     def check_many(kernel, variant, shape, n_in, n_planes_out, fn_kernel,
                    fn_plain, tol, flops, bytes_moved, library=None,
-                   intact=0, dense_flops=None, rel_each=False):
+                   intact=0, dense_flops=None, rel_each=False, reuse=False):
         """A kernel of ``n_in`` input planes whose outputs are
         ``n_planes_out`` planes (held to ``tol`` abs) and then pair grams
         (held to GRAM_T0_TOL times their largest entry; with ``rel_each``
         each output to GRAM_T0_TOL times its own largest entry, for outputs
         of unlike scale: pair grams and Q reductions). ``intact``: how many
-        leading inputs the kernel must leave as they were."""
+        leading inputs the kernel must leave as they were. ``reuse``: the
+        kernel runs on the inputs themselves, not on copies (30q planes, so
+        that the plain version fits beside them; the times then run on the
+        kernel's outputs, of the same shapes and scale)."""
         ins = [randn(*shape) for _ in range(n_in)]
         want = fn_plain(*ins)
-        work = [t.clone() for t in ins]
+        work = ins if reuse else [t.clone() for t in ins]
         got = fn_kernel(*work)
         torch.cuda.synchronize()
         errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
@@ -1155,6 +1185,30 @@ def main() -> int:
                    library=diag_q_library(ti, tf), rel_each=True)
         del ti, tf
 
+    # 3f. the expanded merged top ----------------------------------------------
+    # the in-place high apply (X complex MACs per amplitude) and
+    # block_backward_high (3 X) on the merged axis of a tiny top group:
+    # X = 256 at the 29q shape (1, 256, 16384, 128), X = 512 at the 30q shape
+    # (1, 512, 16384, 128); the yardsticks row 2's matmul and row 11's three
+    # calls
+    for nq, X in ((N29, 256), (N30, 512)):
+        amps_n = float(1 << nq)
+        st = 2 * amps_n * 4
+        shape = (1, X, (1 << nq) // (X * 128), 128)
+        E = unitary(X)
+        check("high_apply", f"{nq}q_X{X}_inplace", shape, high_apply,
+              high_apply_plain, (*E, None, True), HIGH_TOL, flops=amps_n * X * 8,
+              bytes_moved=2 * st, library=high_library(E))
+        E, Einv = unitary(X), unitary(X)
+        check_many("block_backward_high", f"{nq}q_X{X}_wide", shape, 4, 4,
+                   lambda *p, E=E, Einv=Einv: block_backward_high(*p, *Einv, *E),
+                   lambda *p, E=E, Einv=Einv: block_backward_high_plain(
+                       *p, *Einv, *E), HIGH_TOL, flops=amps_n * 3 * X * 8,
+                   bytes_moved=4 * st, library=high_bwd_library(E, Einv),
+                   reuse=nq == N30)
+        del E, Einv
+        torch.cuda.empty_cache()
+
     # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
     model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
@@ -1294,10 +1348,11 @@ def main() -> int:
                 f"the {n}-qubit 1-layer closed-form gradient failed")
         return closed_err
 
-    def kernels_vs_plain(n: int, tag: str, entangler: str = "cz") -> float:
-        """n x GRAD_LAYERS gradients through the kernels and through the
+    def kernels_vs_plain(n: int, tag: str, entangler: str = "cz",
+                         layers: int = GRAD_LAYERS) -> float:
+        """n x ``layers`` gradients through the kernels and through the
         plain versions, on the card."""
-        four = HardwareEfficientAnsatz(n, GRAD_LAYERS, entangler=entangler)
+        four = HardwareEfficientAnsatz(n, layers, entangler=entangler)
         p4 = (7.0 * four.init_params(torch.Generator().manual_seed(SEED + 2))
               ).requires_grad_(True)
         four.magnetization(p4).backward()
@@ -1305,7 +1360,7 @@ def main() -> int:
         p4.grad = None
         four.magnetization(p4, kernels=K.PLAIN).backward()
         grad_err = (g_k - p4.grad).abs().max().item()
-        log(f"[{tag}] {n}q x {GRAD_LAYERS}L {entangler} gradient, kernels vs plain "
+        log(f"[{tag}] {n}q x {layers}L {entangler} gradient, kernels vs plain "
             f"path: max abs err {grad_err:.3e} (tol {GRAD_TOL:.0e}); |grad| max "
             f"{g_k.abs().max().item():.3e}")
         require(grad_err <= GRAD_TOL,
@@ -1646,13 +1701,14 @@ def main() -> int:
         require(got_fwd == want_fwd, f"{tag} forward launch counts {got_fwd}, "
                                      f"want {want_fwd}")
         D = torch.stack(dens)
-        require(tuple(D.shape) == (len(dens), 4, 4), f"densities {tuple(D.shape)}")
+        require(D.dim() == 3 and D.shape[1] == D.shape[2] in (2, 4),
+                f"densities {tuple(D.shape)}")
         require(bool(torch.isfinite(torch.view_as_real(D)).all()), "non-finite densities")
         herm = (D - D.conj().transpose(1, 2)).abs().max().item()
         trace = (torch.diagonal(D, dim1=1, dim2=2).sum(-1) - 1).abs().max().item()
         require(herm <= 1e-6 and trace <= 1e-4,
                 f"{tag} densities are not unit-trace Hermitian matrices")
-        del dens, D
+        del dens
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         value = loss_fn(params).item()
@@ -1690,7 +1746,7 @@ def main() -> int:
         require(drift <= GRAD_TOL * max(1.0, grad.abs().max().item()),
                 f"two {tag} value_and_grad steps disagree")
         out = dict(fwd_s=fwd_s, vg_s=vg_s, fwd_peak=fwd_peak, vg_peak=vg_peak,
-                   counts=got_vg, counts_fwd=got_fwd)
+                   counts=got_vg, counts_fwd=got_fwd, dens=D, grad=grad)
         n_fwd = sum(want_fwd[k] for k in K.KernelSet._fields)
         timed = [per_call.get(c) for c in vg_calls]
         missing = Counter(c for c, t in zip(vg_calls, timed) if t is None)
@@ -2020,7 +2076,189 @@ def main() -> int:
     del qft, psi, y, ph, exact
     torch.cuda.empty_cache()
 
-    # 10. result lines --------------------------------------------------------
+    # 10. the expanded merged top, and scan mode off the planes ----------------
+    from dqc_tpu_torch import config
+    from dqc_tpu_torch.ops.observables import expval_from_density
+
+    def wide_counts(c) -> tuple:
+        return c["high_apply[wide_inplace]"], c["block_backward_high[wide]"]
+
+    # [hpair29]: the cz ring with the merged (groups 3, 4) sweep expanded to
+    # X = 256 both ways, the counters held to the dry run under the same
+    # setting; then the factorized route on the same params
+    config.set_hpair_factorized(False)
+    try:
+        hp29 = model_phase(
+            "hpair29", lambda d: HardwareEfficientAnsatz(N29, HPAIR_LAYERS,
+                                                         entangler="cz", device=d),
+            lambda m, p: m.densities(p), "magnetization", HPAIR_LAYERS)
+        closed_form(N29, "hpair29")
+    finally:
+        config.set_hpair_factorized(True)
+    hp_wide = wide_counts(hp29["counts"])
+    log(f"[hpair29] the new kernels' launches per value_and_grad step: "
+        f"high_apply[wide_inplace] {hp_wide[0]}, block_backward_high[wide] "
+        f"{hp_wide[1]}; peak memory forward {hp29['fwd_peak'] / 2**30:.3f} GiB, "
+        f"value_and_grad {hp29['vg_peak'] / 2**30:.3f} GiB")
+    require(hp_wide == (HPAIR_LAYERS, HPAIR_LAYERS)
+            and hp29["counts"]["merged_fact_apply"] == 0,
+            f"[hpair29] did not run the expanded sweep: {hp29['counts']}")
+    fact = HardwareEfficientAnsatz(N29, HPAIR_LAYERS, entangler="cz")
+    pf = fact.init_params(torch.Generator().manual_seed(SEED))
+    d_f = torch.stack(fact.densities(pf))
+    pf.requires_grad_(True)
+    fact.magnetization(pf).backward()
+    hp_d = (hp29["dens"] - d_f).abs().max().item()
+    hp_g = ((hp29["grad"] - pf.grad).abs() / pf.grad.abs().clamp(min=1.0)).max().item()
+    log(f"[hpair29] expanded vs factorized route, same params: max abs density "
+        f"err {hp_d:.3e} (tol {SLICE_TOL:.0e}), max gradient err / max(1, |g|) "
+        f"{hp_g:.3e} (tol {MODEL_GRAD_TOL:.0e})")
+    require(hp_d <= SLICE_TOL and hp_g <= MODEL_GRAD_TOL,
+            "[hpair29] the expanded sweep disagrees with the factorized one")
+    del fact, pf, d_f
+    torch.cuda.empty_cache()
+
+    # [hpair30]: the CNOT ring at 30q x 2L, whose lone top-group block (the
+    # in-group CNOT (28, 29)) runs at X = 512 both ways by default; with the
+    # hpair expanded the merged sweep too. The plain path does not fit in the
+    # card's memory at 30q (its plain versions return fresh planes while the
+    # layer loop still holds the planes it started from: 72 GiB live at the
+    # first pair gram's 8 GiB copy), so the gradient is held against it at
+    # 23q, where the same lone block runs on the same X = 512 kernels; the
+    # 30q shapes are held kernel by kernel in phase 3f
+    L30 = 2
+    N23 = 23
+    for factorized in (True, False):
+        config.set_hpair_factorized(factorized)
+        try:
+            tag = f"hpair30 {'factorized' if factorized else 'expanded'} hpair"
+            two = HardwareEfficientAnsatz(N30, L30, entangler="cnot")
+            p2 = torch.zeros(L30, N30, 3, device=dev, requires_grad=True)
+            K.reset_launch_counts()
+            v2 = two.magnetization(p2)
+            v2.backward()
+            c2 = wide_counts(K.launch_counts())
+            g2_max = p2.grad.abs().max().item()
+            want_wide = L30 if factorized else 2 * L30
+            log(f"[{tag}] {N30}q x {L30}L cnot params = 0: magnetization "
+                f"{v2.item()!r} (want {N30}, tol {CLOSED_TOL * N30:.1e}); |grad| "
+                f"max {g2_max:.3e} (tol {CLOSED_TOL:.0e}); wide launches {c2} "
+                f"(want {(want_wide, want_wide)})")
+            require(abs(v2.item() - N30) <= CLOSED_TOL * N30
+                    and g2_max <= CLOSED_TOL, f"[{tag}] params = 0 failed")
+            require(c2 == (want_wide, want_wide),
+                    f"[{tag}] wide launches {c2}, want {want_wide} each")
+            del two, p2, v2
+            torch.cuda.empty_cache()
+            kernels_vs_plain(N23, tag, "cnot", layers=L30)
+        finally:
+            config.set_hpair_factorized(True)
+
+    # [fallback]: scan mode off the planes, plain torch on the card, against
+    # the unrolled model (build()'s engine) or the plane path
+    def dens_and_grad(model, loss: str, p):
+        dens = torch.stack(model.densities(p))
+        p = p.clone().requires_grad_(True)
+        value = getattr(model, loss)(p)
+        value.backward()
+        return dens.detach(), value.item(), p.grad
+
+    def fallback(tag, a, b, loss, p, plane_off_a=False):
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        config.set_plane_engine(False if plane_off_a else "auto")
+        try:
+            d_a, v_a, g_a = dens_and_grad(a, loss, p)
+        finally:
+            config.set_plane_engine("auto")
+        launched = {k: v for k, v in K.launch_counts().items() if v}
+        d_b, v_b, g_b = dens_and_grad(b, loss, p)
+        d_err = (d_a - d_b).abs().max().item()
+        g_err = ((g_a - g_b).abs() / g_b.abs().clamp(min=1.0)).max().item()
+        log(f"[fallback] {tag}: value {v_a:.8f} vs {v_b:.8f}; max abs density err "
+            f"{d_err:.3e} (tol {FALLBACK_TOL:.0e}); max gradient err / max(1, |g|) "
+            f"{g_err:.3e} (tol {MODEL_GRAD_TOL:.0e}); kernel launches of the "
+            f"fallback {launched}; {time.perf_counter() - t0:.2f} s")
+        require(not launched, f"[fallback] {tag} launched kernels: {launched}")
+        require(d_err <= FALLBACK_TOL and g_err <= MODEL_GRAD_TOL,
+                f"[fallback] {tag} disagrees")
+
+    vq = VQEIsing(10, 6)
+    fallback("VQEIsing(10, 6) scan vs scan=False", vq,
+             VQEIsing(10, 6, scan=False), "energy",
+             vq.init_params(torch.Generator().manual_seed(SEED)))
+    c128 = torch.complex128
+    hz = HardwareEfficientAnsatz(20, 4, entangler="cz", dtype=c128)
+    fallback("HardwareEfficientAnsatz(20, 4, cz) complex128 scan vs scan=False",
+             hz, HardwareEfficientAnsatz(20, 4, entangler="cz", dtype=c128,
+                                         scan=False), "magnetization",
+             7.0 * hz.init_params(torch.Generator().manual_seed(SEED)))
+    h24 = HardwareEfficientAnsatz(24, 4)
+    fallback("HardwareEfficientAnsatz(24, 4) set_plane_engine(False) vs the plane "
+             "path", h24, h24, "magnetization",
+             7.0 * h24.init_params(torch.Generator().manual_seed(SEED)),
+             plane_off_a=True)
+    del vq, hz, h24
+    torch.cuda.empty_cache()
+
+    # [init28]: scan_with_epilogue from a seeded random normalised 28q state,
+    # 4 cz layers, through the kernels and through the plain versions
+    L_INIT = 4
+    m28 = HardwareEfficientAnsatz(N_QUBITS, L_INIT, entangler="cz")
+    zop = torch.tensor([[1, 0], [0, -1]], dtype=torch.complex64, device=dev)
+    g28 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    psi = torch.complex(torch.randn(1 << N_QUBITS, generator=g28, device=dev),
+                        torch.randn(1 << N_QUBITS, generator=g28, device=dev))
+    psi = psi / psi.abs().pow(2).sum().sqrt()
+    p28 = 7.0 * m28.init_params(torch.Generator().manual_seed(SEED + 5))
+
+    def init_run(kernels, state0, p0, z):
+        state = state0.detach().clone().requires_grad_(True)
+        p = p0.detach().clone().requires_grad_(True)
+        dens = ps.scan_with_epilogue(m28._layer_ftape, m28._epi_ftape, state,
+                                     m28._stacked_gates(p), m28._layer_consts,
+                                     kernels=kernels)
+        loss = torch.stack([expval_from_density(d, z) for d in dens]).sum()
+        return loss, dens, state, p
+
+    def init_meta(kernels):
+        meta = torch.empty(1 << N_QUBITS, dtype=torch.complex64, device="meta")
+        return init_run(kernels, meta, p28.to("meta"), zop.to("meta"))[0]
+
+    want_fwd, want_vg, _ = dry_run_launches(init_meta)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k, dens_k, st_k, p_k = init_run(K.KERNELS, psi, p28, zop)
+    fwd_init = K.launch_counts()
+    loss_k.backward()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    got_init = K.launch_counts()
+    log(f"[init28] {N_QUBITS}q x {L_INIT}L cz from a random state through the "
+        f"kernels: value_and_grad {init_s:.3f} s (first call); launches "
+        f"{json.dumps(got_init)}")
+    require(fwd_init == want_fwd and got_init == want_vg,
+            f"[init28] launch counts {got_init}, want {want_vg}")
+    loss_p, dens_p, st_p, p_p = init_run(K.PLAIN, psi, p28, zop)
+    loss_p.backward()
+    d_err = (torch.stack(dens_k) - torch.stack(dens_p)).abs().max().item()
+    g_err = ((p_k.grad - p_p.grad).abs() / p_p.grad.abs().clamp(min=1.0)).max().item()
+    s_max = st_p.grad.abs().max().item()
+    s_err = (st_k.grad - st_p.grad).abs().max().item() / s_max
+    log(f"[init28] kernels vs plain path: value {loss_k.item():.7f} vs "
+        f"{loss_p.item():.7f}; max abs density err {d_err:.3e} (tol "
+        f"{FALLBACK_TOL:.0e}); gate gradient err / max(1, |g|) {g_err:.3e} (tol "
+        f"{MODEL_GRAD_TOL:.0e}); state gradient max err / its largest entry "
+        f"{s_err:.3e} (tol {MODEL_GRAD_TOL:.0e}, largest {s_max:.3e})")
+    require(d_err <= FALLBACK_TOL and g_err <= MODEL_GRAD_TOL
+            and s_err <= MODEL_GRAD_TOL, "[init28] kernels disagree with the plain path")
+    require(bool(torch.isfinite(torch.view_as_real(st_k.grad)).all()) and s_max > 0,
+            "[init28] the state gradient is not finite and nonzero")
+    del m28, psi, loss_k, dens_k, st_k, p_k, loss_p, dens_p, st_p, p_p
+    torch.cuda.empty_cache()
+
+    # 11. result lines --------------------------------------------------------
     # each kernel's row at the 29-qubit path's shape of its most launched
     # variant; launches from the 29q x 100L cz value_and_grad (and its
     # forward), for the CNOT ring's kernels from the 29q x 20L cnot
@@ -2085,8 +2323,17 @@ def main() -> int:
         "diag_backward[with_q]": (
             "dqc_tpu_torch/csrc/diag.cu", "dqc_tpu/ops/pallas/diag.py:154 (with_q)",
             "29q_q", "_q"),
+        "high_apply[wide_inplace]": (
+            "dqc_tpu_torch/csrc/wide_apply.cuh",
+            "dqc_tpu/ops/pallas/high_apply.py:76 (alias=True, X = 256 / 512)",
+            "29q_X256_inplace", "_inplace"),
+        "block_backward_high[wide]": (
+            "dqc_tpu_torch/csrc/block_backward_high.cu",
+            "dqc_tpu/ops/pallas/block_backward.py:906 (X = 256 / 512)",
+            "29q_X256_wide", "_wide"),
     }
-    mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq}
+    mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
+                 "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):
@@ -2100,6 +2347,7 @@ def main() -> int:
                 "launches_qaoa29": qaoa29["counts"].get(name),
                 "launches_tape29": t29["counts"].get(name),
                 "launches_diagq": tdq["counts"].get(name),
+                "launches_hpair29": hp29["counts"].get(name),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

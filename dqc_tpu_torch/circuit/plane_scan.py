@@ -24,7 +24,9 @@ the same as the JAX package's, item for item. The port executes every item
 kind: ``dense``, ``ddual``, ``dhigh``, ``diag`` (a lone diagonal run: the
 diag kernels), ``hpair`` (a tiny top group's block merged with the one
 below it, Kronecker-factorized: merged_fact_apply /
-block_backward_merged_fact), ``dcross`` (a dense gate across two groups,
+block_backward_merged_fact; or expanded to the X = 256 / 512 merged axis
+under ``config.set_hpair_factorized(False)``: the high apply in place and
+block_backward_high), ``dcross`` (a dense gate across two groups,
 e.g. a CNOT of the ring: one pass of dual_multi_apply, of the high apply on
 a span view or of high_multi_apply; its adjoint one block_backward_high
 pass on a span view, or the 3-pass uncompute / pair gradient / transport),
@@ -46,6 +48,18 @@ span view (``_plane_pair_grad``). The layer loops are Python loops.
 and density requests interleaved, and is the engine of
 ``AutoGradCircuit.build``'s ``autodiff_run`` when :func:`use_plane_tape`
 holds.
+
+Scan mode's entry points follow the JAX package's dispatch:
+:func:`std_scan_with_epilogue` (models from |0..0>) runs the fully
+plane-resident op when :func:`use_plane_engine` holds and every stage is
+plane eligible, else the fallback: a complex |0..0>, the prologue by
+``fused_run`` and :func:`scan_with_epilogue`, which runs
+:func:`plane_scan_densities` (from an arbitrary state, on the planes) or
+composes ``scan.scanned_layers`` (:func:`plane_scanned_layers` on the
+planes, the grouped complex engine off them) with
+:func:`epilogue_densities` (:func:`plane_density_epilogue` or the fused
+engine). Off the planes (n < 14, complex128, ``set_plane_engine(False)``)
+everything is plain torch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from dqc_tpu_torch.circuit.fused_autograd import (
     diag_block_var_cts,
 )
 from dqc_tpu_torch.circuit.fusion import FBlock, FCross, FDensity, FusedTape, GateRef
+from dqc_tpu_torch.circuit.scan import _match_ct, _num_layers
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops import planes as pl
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
@@ -81,6 +96,14 @@ def plane_tape_eligible(ftape: FusedTape, dtype) -> bool:
     if not pl.plane_eligible(ftape.n, dtype):
         return False
     return not any(isinstance(fi, FDensity) for fi in ftape.instructions)
+
+
+def use_plane_engine(ftape: FusedTape, dtype) -> bool:
+    """Scan mode on the planes: ``config.plane_engine()`` True or "auto"
+    with a plane-eligible layer tape (on any device: the CPU runs the
+    kernels' plain versions); False keeps scan mode off the planes. The
+    JAX package's "auto" asks for its TPU backend instead."""
+    return config.plane_engine() is not False and plane_tape_eligible(ftape, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -719,11 +742,15 @@ def _hpair_ops(item, layer: _Layer, inverse: bool = False):
 
 
 def _apply_hpair(xr, xi, item, layer: _Layer):
-    """Forward of a merged (top, top-1) dense sweep, Kronecker-factorized
-    (config.hpair_factorized: the expanded sweep is not ported)."""
+    """Forward of a merged (top, top-1) dense sweep: Kronecker-factorized by
+    default, the expanded merged operator ``Et (x) El`` in one in-place
+    X = 256 / 512 high sweep under ``config.set_hpair_factorized(False)``."""
     El, Et = _hpair_ops(item, layer)
-    return pl.apply_merged_top_fact(xr, xi, Et, El, layer.ftape.n,
-                                    kernels=layer.kernels)
+    if config.hpair_factorized():
+        return pl.apply_merged_top_fact(xr, xi, Et, El, layer.ftape.n,
+                                        kernels=layer.kernels)
+    return pl.apply_merged_top(xr, xi, pl.kron_ops(Et, El), layer.ftape.n,
+                               kernels=layer.kernels)
 
 
 def _apply_item(xr, xi, item, layer: _Layer):
@@ -1065,19 +1092,35 @@ def _diag_run_backward(fxr, fxi, bxr, bxi, run, layer: _Layer,
 
 def _backward_hpair(fxr, fxi, bxr, bxi, item, layer: _Layer,
                     var_cts: Dict[int, torch.Tensor]):
-    """Adjoint of a merged (top, top-1) dense sweep in ONE kernel pass
-    (block_backward_merged_fact). With forward order [low, top] (they
-    commute) the two blocks' pair grams are the restrictions of the merged
-    pair gram that the kernel returns: ``T0_top`` sees fwd with only the
-    top block uncomputed, ``T0_low`` fwd with only the low block
-    uncomputed, both against the incoming cotangent."""
+    """Adjoint of a merged (top, top-1) dense sweep in ONE kernel pass. With
+    forward order [low, top] (they commute) the two blocks' pair grams are
+    restrictions of the merged pair gram ``T0m[(x d), (y d')] = sum_b
+    bwd[..] fwd_in[..]``: ``T0_top`` sees fwd with only the top block
+    uncomputed (``El`` applied to fwd_in), ``T0_low`` the cotangent after
+    the top transport (``Et^T`` bwd),
+
+    ``T0_top[x, y] = sum_{a b} El[a, b] T0m[(x a), (y b)]``,
+    ``T0_low[x, y] = sum_{e d} Et[e, d] T0m[(e x), (d y)]``.
+
+    The factorized kernel (block_backward_merged_fact, the default) returns
+    both restrictions itself; the expanded sweep (block_backward_high on the
+    merged axis) returns ``T0m``, and they are extracted here."""
     El, Et = _hpair_ops(item, layer)
     Eli, Eti = _hpair_ops(item, layer, inverse=True)
-    fxr, fxi, bxr, bxi, T0_top, T0_low = pl.backward_merged_top_fact(
-        fxr, fxi, bxr, bxi, Et, El, Eti, Eli, layer.ftape.n,
+    n = layer.ftape.n
+    if config.hpair_factorized():
+        fxr, fxi, bxr, bxi, T0_top, T0_low = pl.backward_merged_top_fact(
+            fxr, fxi, bxr, bxi, Et, El, Eti, Eli, n, kernels=layer.kernels)
+        _close_block_cts(layer, item[2], T0_top, var_cts)
+        _close_block_cts(layer, item[1], T0_low, var_cts)
+        return fxr, fxi, bxr, bxi
+    fxr, fxi, bxr, bxi, T0m = pl.backward_merged_top(
+        fxr, fxi, bxr, bxi, pl.kron_ops(Eti, Eli), pl.kron_ops(Et, El), n,
         kernels=layer.kernels)
-    _close_block_cts(layer, item[2], T0_top, var_cts)
-    _close_block_cts(layer, item[1], T0_low, var_cts)
+    X, Xl = 1 << layer.group_size(item[2]), 1 << layer.group_size(item[1])
+    T4 = T0m.reshape(X, Xl, X, Xl)
+    _close_block_cts(layer, item[2], torch.einsum("ab,xayb->xy", El, T4), var_cts)
+    _close_block_cts(layer, item[1], torch.einsum("ed,exdy->xy", Et, T4), var_cts)
     return fxr, fxi, bxr, bxi
 
 
@@ -1136,10 +1179,6 @@ def _backward_dhigh(fxr, fxi, bxr, bxi, item, layer: _Layer,
 # The layer loop
 # ---------------------------------------------------------------------------
 
-def _num_layers(stacked_var_gates) -> int:
-    return int(stacked_var_gates[0].shape[0]) if stacked_var_gates else 0
-
-
 def _rotatable_const_diag(program, ftape: FusedTape):
     """Scan-rotation eligibility: the program ends with a CONST diagonal run
     that, moved to the front, ddual-folds into the layer's minor dual sweep.
@@ -1179,13 +1218,6 @@ def _scan_layers_forward(xr, xi, ftape: FusedTape, program, stacked_var_gates,
     for l in range(L):
         xr, xi = _apply_forward(xr, xi, program, layer(l))
     return xr, xi
-
-
-def _match_ct(ct: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    ct = ct.reshape(ref.shape)
-    if ref.is_complex():
-        return ct.to(ref.dtype)
-    return ct.real.to(ref.dtype)
 
 
 def _scan_layers_backward(fxr, fxi, bxr, bxi, ftape: FusedTape, program,
@@ -1237,6 +1269,12 @@ def plane_epilogue_eligible(epi_ftape: FusedTape, dtype) -> bool:
     if not pl.plane_eligible(epi_ftape.n, dtype):
         return False
     return all(isinstance(fi, FDensity) for fi in epi_ftape.instructions)
+
+
+def use_plane_epilogue(epi_ftape: FusedTape, dtype) -> bool:
+    """The density epilogue on the planes, by the rule of use_plane_engine."""
+    return (config.plane_engine() is not False
+            and plane_epilogue_eligible(epi_ftape, dtype))
 
 
 def _plane_gram(xr, xi, j: int, n: int, kernels: KernelSet) -> torch.Tensor:
@@ -1410,30 +1448,159 @@ def _tape_all_const(ftape: FusedTape) -> bool:
     return True
 
 
-class _StdScanDensities(torch.autograd.Function):
-    """The densities of ``epi_ftape`` after the const prologue ``pro_ftape``
-    (or none) and L layers of ``ftape`` from |0..0>, differentiable in the
-    stacked var gates.
+def _ct_to_planes(ct: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A state cotangent (the JAX package's convention) -> cotangent planes.
+    f32 storage only, the one ported: the f16 storage's prescale has no
+    counterpart yet."""
+    return pl.to_planes(ct.to(C64), n)
 
-    The forward keeps only the final planes (and the gate values); the
-    backward consumes them in place (the uncompute rolls them back), so a
-    second backward through the same graph raises. PyTorch's gradient of a
-    complex tensor is the conjugate of the JAX package's cotangent: the
-    backward conjugates the density gradients on the way in and the gate
-    cotangents on the way out."""
+
+def _state_grad(bxr, bxi, n: int, ref_dtype, ref_shape) -> torch.Tensor:
+    """Cotangent planes -> the torch gradient of an initial state of
+    ``ref_dtype`` and ``ref_shape`` (the conjugate of the cotangent)."""
+    from dqc_tpu_torch.circuit.autograd import match_grad
+
+    ref = torch.empty(ref_shape, dtype=ref_dtype, device="meta")
+    return match_grad(pl.from_planes(bxr, bxi, n), ref)
+
+
+def _take_planes(ctx, what: str):
+    """The planes a forward kept for its backward, which consumes them (the
+    O(1)-memory adjoint rolls them back in place)."""
+    if ctx.planes is None:
+        raise RuntimeError(
+            f"{what}: the final planes were consumed by an earlier backward "
+            "(the O(1)-memory adjoint rolls them back in place); run the "
+            "forward again for another gradient")
+    planes, ctx.planes = ctx.planes, None
+    return planes
+
+
+class _PlaneScannedLayers(torch.autograd.Function):
+    """The final flat complex64 state after L layers of ``ftape`` run on the
+    planes from ``initial_state``, differentiable in the initial state and
+    the stacked var gates. The forward keeps the final planes, which the
+    backward consumes; density gradients, the state gradient and the gate
+    cotangents cross the boundary conjugated (torch's gradient of a complex
+    tensor is the conjugate of the JAX package's cotangent)."""
 
     @staticmethod
-    def forward(ctx, pro, ftape, epi_ftape, const_gates, device, kernels,
+    def forward(ctx, ftape, const_gates, kernels, initial_state,
                 *stacked_var_gates):
-        xr, xi = pl.standard_planes(ftape.n, device)
-        if pro is not None:
-            pro_ftape, pro_const_gates = pro
-            xr, xi = _apply_forward(xr, xi, plane_program(pro_ftape), _Layer(
-                pro_ftape, (), pro_const_gates, xr.device, kernels, {}))
+        n = ftape.n
+        xr, xi = pl.to_planes(initial_state.to(C64), n)
         xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
                                       stacked_var_gates, const_gates,
                                       kernels=kernels)
-        densities = _epilogue_density_list(epi_ftape, xr, xi, ftape.n, kernels)
+        ctx.statics = (ftape, const_gates, kernels, initial_state.dtype,
+                       tuple(initial_state.shape))
+        ctx.planes = (xr, xi) if any(ctx.needs_input_grad) else None
+        ctx.save_for_backward(*stacked_var_gates)
+        return pl.from_planes(xr, xi, n)
+
+    @staticmethod
+    def backward(ctx, grad_state):
+        ftape, const_gates, kernels, state_dtype, state_shape = ctx.statics
+        fxr, fxi = _take_planes(ctx, "plane_scanned_layers")
+        n = ftape.n
+        bxr, bxi = _ct_to_planes(grad_state.conj(), n)
+        (_, _, bxr, bxi), stacked_cts = _scan_layers_backward(
+            fxr, fxi, bxr, bxi, ftape, plane_program(ftape), ctx.saved_tensors,
+            const_gates, kernels=kernels)
+        state_grad = None
+        if ctx.needs_input_grad[3]:
+            state_grad = _state_grad(bxr, bxi, n, state_dtype, state_shape)
+        return (None, None, None, state_grad) + tuple(ct.conj().resolve_conj()
+                                                      for ct in stacked_cts)
+
+
+def plane_scanned_layers(ftape: FusedTape, initial_state: torch.Tensor,
+                         stacked_var_gates, const_gates, *,
+                         kernels: KernelSet = KERNELS) -> torch.Tensor:
+    """L layers of ``ftape`` on the planes from an arbitrary complex64 state
+    (flat), returning the final flat state: the contract of
+    scan.scanned_layers."""
+    return _PlaneScannedLayers.apply(ftape, tuple(const_gates), kernels,
+                                     initial_state, *stacked_var_gates)
+
+
+class _PlaneDensityEpilogue(torch.autograd.Function):
+    """The diff densities of a density-only tape on a flat complex64 state,
+    from the planes (Gram kernels), differentiable in the state: the
+    backward seeds ``(L + L^H) conj(psi)`` with one plane apply per group."""
+
+    @staticmethod
+    def forward(ctx, epi_ftape, kernels, state):
+        n = epi_ftape.n
+        xr, xi = pl.to_planes(state.to(C64), n)
+        ctx.statics = (epi_ftape, kernels, state.dtype, tuple(state.shape))
+        ctx.planes = (xr, xi) if ctx.needs_input_grad[2] else None
+        return _epilogue_density_list(epi_ftape, xr, xi, n, kernels)
+
+    @staticmethod
+    def backward(ctx, *density_grads):
+        epi_ftape, kernels, state_dtype, state_shape = ctx.statics
+        xr, xi = _take_planes(ctx, "plane_density_epilogue")
+        n = epi_ftape.n
+        pending = _collect_seed_pending(
+            epi_ftape, tuple(g.conj() for g in density_grads), n)
+        bxr, bxi = _seed_apply(xr, xi, pending, n, kernels)
+        if bxr is None:
+            return None, None, torch.zeros(state_shape, dtype=state_dtype,
+                                           device=xr.device)
+        return None, None, _state_grad(bxr, bxi, n, state_dtype, state_shape)
+
+
+def plane_density_epilogue(epi_ftape: FusedTape, state: torch.Tensor, *,
+                           kernels: KernelSet = KERNELS):
+    """The plane counterpart of ``fused_tape_forward(epi_ftape, state, (),
+    ())`` for a density-only tape."""
+    return _PlaneDensityEpilogue.apply(epi_ftape, kernels, state)
+
+
+def epilogue_densities(epi_ftape: FusedTape, state: torch.Tensor, *,
+                       kernels: KernelSet = KERNELS):
+    """The epilogue models run on a final state: on the planes when
+    use_plane_epilogue holds, else the fused engine."""
+    from dqc_tpu_torch.circuit.fused_autograd import fused_tape_forward
+
+    if use_plane_epilogue(epi_ftape, state.dtype):
+        return plane_density_epilogue(epi_ftape, state, kernels=kernels)
+    return fused_tape_forward(epi_ftape, state, (), ())
+
+
+class _ScanDensities(torch.autograd.Function):
+    """The densities of ``epi_ftape`` after L layers of ``ftape`` on the
+    planes, from ``initial_state`` (a flat complex64 state, differentiable)
+    or, when it is None, from |0..0> built as planes and the const prologue
+    ``pro`` (``(pro_ftape, const gates)`` or None) run on them: no 2^n
+    complex buffer at all. Differentiable in the stacked var gates.
+
+    The forward keeps only the final planes (and the gate values); the
+    backward consumes them in place, so a second backward through the same
+    graph raises. Density gradients are conjugated on the way in, the gate
+    cotangents and the state's on the way out. From |0..0> the reverse
+    layer loop stops at the prologue: it is const-only, and the initial
+    state needs no cotangent."""
+
+    @staticmethod
+    def forward(ctx, pro, ftape, epi_ftape, const_gates, device, kernels,
+                initial_state, *stacked_var_gates):
+        n = ftape.n
+        if initial_state is None:
+            xr, xi = pl.standard_planes(n, device)
+            if pro is not None:
+                pro_ftape, pro_const_gates = pro
+                xr, xi = _apply_forward(xr, xi, plane_program(pro_ftape), _Layer(
+                    pro_ftape, (), pro_const_gates, xr.device, kernels, {}))
+            ctx.state_ref = None
+        else:
+            xr, xi = pl.to_planes(initial_state.to(C64), n)
+            ctx.state_ref = (initial_state.dtype, tuple(initial_state.shape))
+        xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
+                                      stacked_var_gates, const_gates,
+                                      kernels=kernels)
+        densities = _epilogue_density_list(epi_ftape, xr, xi, n, kernels)
         ctx.statics = (ftape, epi_ftape, const_gates, kernels)
         ctx.planes = (xr, xi) if any(ctx.needs_input_grad) else None
         ctx.save_for_backward(*stacked_var_gates)
@@ -1442,25 +1609,38 @@ class _StdScanDensities(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *density_grads):
         ftape, epi_ftape, const_gates, kernels = ctx.statics
-        if ctx.planes is None:
-            raise RuntimeError(
-                "plane_std_scan_densities: the final planes were consumed by "
-                "an earlier backward (the O(1)-memory adjoint rolls them back "
-                "in place); run the forward again for another gradient")
-        (fxr, fxi), ctx.planes = ctx.planes, None
+        fxr, fxi = _take_planes(ctx, "plane_scan_densities")
         stacked = ctx.saved_tensors
         n = ftape.n
+        want_state = ctx.state_ref is not None and ctx.needs_input_grad[6]
         pending = _collect_seed_pending(
             epi_ftape, tuple(g.conj() for g in density_grads), n)
         if not pending:
-            return (None,) * 6 + tuple(torch.zeros_like(g) for g in stacked)
+            state_grad = (torch.zeros(ctx.state_ref[1], dtype=ctx.state_ref[0],
+                                      device=fxr.device) if want_state else None)
+            return ((None,) * 6 + (state_grad,)
+                    + tuple(torch.zeros_like(g) for g in stacked))
         bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels)
-        # the reverse layer loop stops at the prologue: it is const-only and
-        # the initial state needs no cotangent
-        _, stacked_cts = _scan_layers_backward(
+        (_, _, bxr, bxi), stacked_cts = _scan_layers_backward(
             fxr, fxi, bxr, bxi, ftape, plane_program(ftape), stacked,
             const_gates, kernels=kernels)
-        return (None,) * 6 + tuple(ct.conj() for ct in stacked_cts)
+        state_grad = (_state_grad(bxr, bxi, n, *ctx.state_ref) if want_state
+                      else None)
+        return ((None,) * 6 + (state_grad,)
+                + tuple(ct.conj().resolve_conj() for ct in stacked_cts))
+
+
+def plane_scan_densities(ftape: FusedTape, epi_ftape: FusedTape,
+                         initial_state: torch.Tensor, stacked_var_gates,
+                         const_gates, *, kernels: KernelSet = KERNELS):
+    """Diff densities of ``epi_ftape`` after L layers of ``ftape`` from an
+    arbitrary flat complex64 state, plane-resident from the state to the
+    densities and back: ``plane_density_epilogue(epi_ftape,
+    plane_scanned_layers(...))`` without the complex state between them.
+    Differentiable in the initial state and the stacked gates."""
+    return _ScanDensities.apply(None, ftape, epi_ftape, tuple(const_gates),
+                                initial_state.device, kernels, initial_state,
+                                *stacked_var_gates)
 
 
 def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
@@ -1472,8 +1652,28 @@ def plane_std_scan_densities(pro_ftape: Optional[FusedTape], ftape: FusedTape,
     plane-resident, no 2^n complex buffer — and differentiable in
     ``stacked_var_gates`` with torch autograd."""
     pro = None if pro_ftape is None else (pro_ftape, tuple(pro_const_gates))
-    return _StdScanDensities.apply(pro, ftape, epi_ftape, tuple(const_gates),
-                                   device, kernels, *stacked_var_gates)
+    return _ScanDensities.apply(pro, ftape, epi_ftape, tuple(const_gates),
+                                device, kernels, None, *stacked_var_gates)
+
+
+def scan_with_epilogue(ftape: FusedTape, epi_ftape: FusedTape,
+                       initial_state: torch.Tensor, stacked_var_gates,
+                       const_gates, *, kernels: KernelSet = KERNELS):
+    """The densities of ``epi_ftape`` after L layers of ``ftape`` from
+    ``initial_state``: the fused plane-resident op when both tapes are plane
+    eligible and use_plane_engine holds, else scan.scanned_layers composed
+    with epilogue_densities (each on the planes where it may be)."""
+    from dqc_tpu_torch.circuit.scan import scanned_layers
+
+    dtype = initial_state.dtype
+    if (use_plane_engine(ftape, dtype)
+            and plane_epilogue_eligible(epi_ftape, dtype)):
+        return plane_scan_densities(ftape, epi_ftape, initial_state,
+                                    stacked_var_gates, const_gates,
+                                    kernels=kernels)
+    state = scanned_layers(ftape, initial_state, stacked_var_gates,
+                           const_gates, kernels=kernels)
+    return epilogue_densities(epi_ftape, state, kernels=kernels)
 
 
 def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
@@ -1481,23 +1681,27 @@ def std_scan_with_epilogue(pro_ftape: Optional[FusedTape], ftape: FusedTape,
                            stacked_var_gates, const_gates, *,
                            dtype=C64, device=None,
                            kernels: KernelSet = KERNELS):
-    """Models whose circuit starts from |0..0>: the plane-resident forward
-    and its adjoint. The JAX package's scan-mode fallback off the planes
-    (n < 14, complex128) is not ported: an ineligible tape raises
-    ``NotImplementedError``."""
+    """Models whose circuit starts from |0..0>: the fully plane-resident op
+    when every stage is eligible and use_plane_engine holds, else the
+    composed fallback: |0..0> as a complex state, the const prologue by
+    ``fused_run``, then scan_with_epilogue (n < 14, complex128, or
+    ``config.set_plane_engine(False)``)."""
+    from dqc_tpu_torch.circuit.fused_autograd import fused_run
+    from dqc_tpu_torch.ops.statevector import standard_state
+
     pro_ok = pro_ftape is None or (plane_tape_eligible(pro_ftape, dtype)
                                    and _tape_all_const(pro_ftape))
-    if not (pro_ok and plane_tape_eligible(ftape, dtype)
+    if (pro_ok and use_plane_engine(ftape, dtype)
             and plane_epilogue_eligible(epi_ftape, dtype)):
-        raise NotImplementedError(
-            "only plane-eligible circuits (n >= 14, complex64, a const-only "
-            "gate prologue, gate-only layers, density-only epilogue) run in "
-            "scan mode in dqc_tpu_torch yet; the scan-mode fallback off the "
-            "planes is ROADMAP.md queue A")
-    return plane_std_scan_densities(pro_ftape, ftape, epi_ftape,
-                                    pro_const_gates, stacked_var_gates,
-                                    const_gates, device=device,
-                                    kernels=kernels)
+        return plane_std_scan_densities(pro_ftape, ftape, epi_ftape,
+                                        pro_const_gates, stacked_var_gates,
+                                        const_gates, device=device,
+                                        kernels=kernels)
+    state = standard_state(ftape.n, dtype, device)
+    if pro_ftape is not None:
+        _, state = fused_run(pro_ftape, state, (), tuple(pro_const_gates))
+    return scan_with_epilogue(ftape, epi_ftape, state, stacked_var_gates,
+                              const_gates, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@
 Counterpart of ``dqc_tpu/config.py``: the default complex dtype, gate
 fusion, the plane-engine mode, the singularity checks of the uncompute, the
 in-kernel dot modes (forward, cotangent side, pair grams), the state-plane
-storage and the factorized merged-top sweep. The dot modes, the storage and
-the merged-top sweep have one ported value so far; asking for another
-raises ``NotImplementedError`` (ROADMAP.md lists the modes still to port).
+storage and the factorized merged-top sweep. The dot modes and the storage
+have one ported value so far; asking for another raises
+``NotImplementedError`` (ROADMAP.md lists the modes still to port).
 The singularity checks' "debug" mode raises the same way. The JAX
 package's matmul precision has no counterpart: the port never enables TF32,
 so every product runs in full f32 (or f64). Neither has its
@@ -35,6 +35,7 @@ _KERNEL_DOT_MODE = "f32"
 _STATE_STORAGE = "f32"
 _BWD_KERNEL_DOT_MODE = "auto"
 _GRAM_KERNEL_DOT_MODE = "auto"
+_HPAIR_FACTORIZED = True
 
 
 def _not_ported(what: str, value) -> NotImplementedError:
@@ -87,10 +88,13 @@ def default_fusion() -> bool:
 
 
 def set_plane_engine(mode) -> None:
-    """Plane-engine mode of ``AutoGradCircuit.build``'s ``autodiff_run``:
-    ``"auto"`` (the plane tape when the state lives on a CUDA device, the
-    counterpart of the JAX package's TPU backend test), ``True`` (also on
-    the CPU, through the kernels' plain versions) or ``False``."""
+    """Plane-engine mode. ``False`` keeps every engine off the planes.
+    ``True`` puts a plane-eligible tape (n >= 14, complex64) on the planes
+    on any device, the CPU through the kernels' plain versions. ``"auto"``
+    (the default) does the same in scan mode, and for
+    ``AutoGradCircuit.build``'s ``autodiff_run`` picks the plane tape only
+    when the state lives on a CUDA device; the JAX package's "auto" picks
+    the planes on its TPU backend in both."""
     global _PLANE_ENGINE
     if mode not in (True, False, "auto"):
         raise ValueError("plane engine mode must be True, False or 'auto'")
@@ -166,19 +170,18 @@ def gram_kernel_dot_mode() -> str:
 
 
 def set_hpair_factorized(enabled: bool) -> None:
-    """The merged (top, top-1) sweep of a tiny top group runs Kronecker-
-    factorized (merged_fact_apply / block_backward_merged_fact), the JAX
-    package's default. The expanded merged sweep (``False``) needs the high
-    backward kernel at X = 256 / 512 and is not ported."""
-    if not enabled:
-        raise NotImplementedError(
-            "the expanded merged-top sweep (set_hpair_factorized(False)) needs "
-            "block_backward_high at X = 256 / 512, not ported to dqc_tpu_torch "
-            "yet; see ROADMAP.md")
+    """The merged (top, top-1) sweep of a tiny top group: Kronecker-
+    factorized (merged_fact_apply / block_backward_merged_fact, ``True``,
+    the default as in the JAX package), or expanded (``False``): the merged
+    operator ``Et (x) El`` applied on the X = 256 / 512 merged axis by the
+    high apply in place and its adjoint by block_backward_high, the two
+    blocks' pair grams extracted from the merged one."""
+    global _HPAIR_FACTORIZED
+    _HPAIR_FACTORIZED = bool(enabled)
 
 
 def hpair_factorized() -> bool:
-    return True
+    return _HPAIR_FACTORIZED
 
 
 def set_state_storage(mode: str) -> None:

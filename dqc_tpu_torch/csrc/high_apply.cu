@@ -18,8 +18,10 @@
 // cores, no TF32.
 //
 // X = 256 and 512 are the merged top axis of a tiny top group
-// (ops/planes._merged_view) and run only in the seed modes, by
-// high_apply_wide_kernel below (the density seed of the top two groups).
+// (ops/planes._merged_view): the in-place sweep of a dense block there (a
+// lone top-group block, E (x) I, or the unfactorized hpair's merged
+// operator) and the density seed of the top two groups, by
+// wide_apply_kernel (csrc/wide_apply.cuh), without a diagonal run.
 //
 // Design: a "column" is one (i, m, l) position, its X amplitudes X apart
 // by Q = M 128. A block of 256 threads takes 8192 / X consecutive columns
@@ -28,7 +30,7 @@
 // each thread keeps 8 rows x 4 columns of the product in registers while
 // 16-deep tiles of E stream through shared memory.
 
-#include "common.cuh"
+#include "wide_apply.cuh"
 
 namespace {
 
@@ -164,108 +166,6 @@ high_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
     }
 }
 
-// The merged top axis of a tiny top group, X = 256 or 512, in the seed modes
-// only (the output is not the input: fresh or accumulator planes). A block
-// computes 128 output rows (row block rb) x 64 columns with the X = 128
-// tile's thread layout (8 rows x 4 columns per thread), streaming 16-deep
-// tiles of both E and x through shared memory; the X / 128 row blocks of a
-// column tile are neighbours in the grid, so their x tiles come from L2.
-template <int X>
-__global__ void __launch_bounds__(kThreads)
-high_apply_wide_kernel(const float* __restrict__ xr,
-                       const float* __restrict__ xi, float* yr, float* yi,
-                       const float* __restrict__ er,
-                       const float* __restrict__ ei, int conj, int has_acc,
-                       int64_t Q) {
-  using Cfg = HighCfg<128>;
-  constexpr int C = Cfg::C;      // 64 columns
-  constexpr int KC = Cfg::KC;    // 16
-  constexpr int LDE = Cfg::LDE;
-  constexpr int TC = Cfg::kColThreads;
-  constexpr int NRB = X / 128;
-  __shared__ float sEr[128 * LDE], sEi[128 * LDE];
-  __shared__ float sXr[KC * C], sXi[KC * C];
-
-  const int tid = threadIdx.x;
-  const int rg = tid / TC, tc = tid % TC;
-  const int rb = (int)(blockIdx.x % NRB);
-  const int64_t g0 = (int64_t)(blockIdx.x / NRB) * C;
-  const int64_t i = g0 / Q;
-  const int64_t q0 = g0 - i * Q;
-  const float* bxr = xr + i * X * Q + q0;   // element (k, c) at bxr[k Q + c]
-  const float* bxi = xi + i * X * Q + q0;
-  const float* ber = er + (int64_t)rb * 128 * X;  // row r of the row block
-  const float* bei = ei + (int64_t)rb * 128 * X;
-
-  float accr[Cfg::kRows][Cfg::kColsPerThread];
-  float acci[Cfg::kRows][Cfg::kColsPerThread];
-#pragma unroll
-  for (int r = 0; r < Cfg::kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < Cfg::kColsPerThread; ++j) accr[r][j] = acci[r][j] = 0.f;
-  for (int k0 = 0; k0 < X; k0 += KC) {
-    __syncthreads();  // the previous tiles are consumed
-    for (int e = tid; e < 128 * KC; e += kThreads) {
-      const int row = e / KC, kk = e % KC;
-      sEr[row * LDE + kk] = ber[(int64_t)row * X + k0 + kk];
-      sEi[row * LDE + kk] = bei[(int64_t)row * X + k0 + kk];
-    }
-    for (int e = tid; e < KC * C; e += kThreads) {
-      const int kk = e / C, c = e % C;
-      sXr[e] = bxr[(int64_t)(k0 + kk) * Q + c];
-      sXi[e] = bxi[(int64_t)(k0 + kk) * Q + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float br[Cfg::kColsPerThread], bi[Cfg::kColsPerThread];
-#pragma unroll
-      for (int j = 0; j < Cfg::kColsPerThread; ++j) {
-        br[j] = sXr[kk * C + tc + TC * j];
-        bi[j] = sXi[kk * C + tc + TC * j];
-      }
-#pragma unroll
-      for (int r = 0; r < Cfg::kRows; ++r) {
-        const float ar = sEr[(rg * Cfg::kRows + r) * LDE + kk];
-        const float ai = sEi[(rg * Cfg::kRows + r) * LDE + kk];
-#pragma unroll
-        for (int j = 0; j < Cfg::kColsPerThread; ++j)
-          cmac(accr[r][j], acci[r][j], ar, ai, br[j], bi[j]);
-      }
-    }
-  }
-
-  float* byr = yr + i * X * Q + q0;
-  float* byi = yi + i * X * Q + q0;
-#pragma unroll
-  for (int r = 0; r < Cfg::kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < Cfg::kColsPerThread; ++j) {
-      const int64_t o = (int64_t)(rb * 128 + rg * Cfg::kRows + r) * Q + tc + TC * j;
-      float vr = accr[r][j], vi = acci[r][j];
-      if (conj) vi = -vi;
-      if (has_acc) {
-        vr += byr[o];
-        vi += byi[o];
-      }
-      byr[o] = vr;
-      byi[o] = vi;
-    }
-}
-
-template <int X>
-int launch_wide(const float* xr, const float* xi, float* yr, float* yi,
-                const float* er, const float* ei, int conj, int has_acc,
-                long long A1, long long Q, cudaStream_t stream) {
-  constexpr int C = HighCfg<128>::C;
-  if (Q % C != 0 || yr == xr || yi == xi) return (int)cudaErrorInvalidValue;
-  const long long blocks = A1 * (Q / C) * (X / 128);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  high_apply_wide_kernel<X><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      xr, xi, yr, yi, er, ei, conj, has_acc, (int64_t)Q);
-  return (int)cudaGetLastError();
-}
-
 template <int X>
 int launch(const float* xr, const float* xi, float* yr, float* yi,
            const float* er, const float* ei, const DiagTables& d, int has_diag,
@@ -288,9 +188,9 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
 }  // namespace
 
 // On the view (A1, X, Q = M 128): y <- [acc +] conj?([D] E x [D]), X in
-// {8, 16, 32, 64, 128}, or X in {256, 512} without a run and with y other
-// than x. y may be x (in place) at X <= 128; with has_acc, y holds the
-// accumulator and is added to. With has_diag, Q must be a multiple of
+// {8, 16, 32, 64, 128}, or X in {256, 512} without a run (Q a multiple of
+// 32). y may be x (in place); with has_acc, y holds the accumulator and is
+// added to. With has_diag, Q must be a multiple of
 // 128 * 128 (M = post * 128). Returns cudaGetLastError().
 extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
                               float* yi, const float* er, const float* ei,
@@ -315,10 +215,12 @@ extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
     DQC_HIGH_CASE(128)
     case 256:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return launch_wide<256>(xr, xi, yr, yi, er, ei, conj, has_acc, A1, Q, s);
+      return dqc::launch_wide_apply<256>(xr, xi, yr, yi, er, ei, 0, conj,
+                                         has_acc, A1, Q, s);
     case 512:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return launch_wide<512>(xr, xi, yr, yi, er, ei, conj, has_acc, A1, Q, s);
+      return dqc::launch_wide_apply<512>(xr, xi, yr, yi, er, ei, 0, conj,
+                                         has_acc, A1, Q, s);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DQC_HIGH_CASE

@@ -5,7 +5,9 @@ variable dense 1-qubit gate on every qubit followed by a ring of constant
 entanglers (CNOT or CZ); observables are the 1-qubit densities of every
 qubit, with a magnetization loss. In scan mode (the port's default at any
 depth; the JAX class's from three layers on) the layer tape runs L times on
-the plane engine (circuit/plane_scan.py); with ``scan=False`` the unrolled
+the plane engine (circuit/plane_scan.py), or off the planes below 14
+qubits, at complex128 and under ``config.set_plane_engine(False)``
+(circuit/scan.py); with ``scan=False`` the unrolled
 circuit runs through ``AutoGradCircuit.build``'s engine
 (builder.autodiff_densities: the plane tape, or the fused engine below 14
 qubits and at complex128). ``densities`` and ``magnetization``
@@ -13,7 +15,8 @@ are differentiable in ``params`` with torch autograd (``loss.backward()``
 is the counterpart of the JAX class's ``jax.value_and_grad``), through the
 engine's O(1)-memory uncompute adjoint.
 
-Both rings run at every n in 14..30, forward and gradient: the CZ ring
+Both rings run at every n, forward and gradient, on the kernels from 14 to
+30 qubits: the CZ ring
 (n = 29 x 100 layers is the JAX package's bench workload) and the CNOT
 ring, the JAX class's default, whose gates across group boundaries are
 dense cross-group gates (one pass each of the multi-term kernels or of the

@@ -5,7 +5,9 @@ arbitrary weighted edge list with per-layer (gamma, beta) parameters. The
 cut is read from the edge 2-qubit densities: ``cut = sum_e w_e (1 - <Z Z>_e)
 / 2``. ``loss`` is differentiable in ``params`` with torch autograd. Scan
 mode (the default from three layers on) runs the layer tape on the plane
-engine; ``scan=False`` the unrolled circuit through ``AutoGradCircuit
+engine, or off the planes where the JAX package's does (below 14 qubits,
+at complex128, under ``config.set_plane_engine(False)``); ``scan=False``
+the unrolled circuit through ``AutoGradCircuit
 .build``'s engine.
 
 On the plane engine the cost gates across group boundaries form one

@@ -6,8 +6,9 @@ every ring edge and X rotations on every qubit, from the uniform
 superposition (a const prologue of Hadamards on |0..0>), with every
 nearest-neighbour 2-qubit density as observable and the TFIM energy
 ``sum tr(rho h)`` as the loss. Scan mode (the default from three layers
-on, as in the JAX class) runs the layer tape L times on the plane engine;
-``scan=False`` runs the unrolled circuit through ``AutoGradCircuit.build``'s
+on, as in the JAX class) runs the layer tape L times on the plane engine,
+or off the planes below 14 qubits, at complex128 and under
+``config.set_plane_engine(False)`` (circuit/scan.py); ``scan=False`` runs the unrolled circuit through ``AutoGradCircuit.build``'s
 engine (builder.autodiff_densities). ``energy`` is differentiable in ``params``
 with torch autograd (``loss.backward()`` is the counterpart of the JAX
 class's ``jax.value_and_grad``).

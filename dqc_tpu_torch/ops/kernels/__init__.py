@@ -6,7 +6,9 @@ counts kernel launches only, and the plain version itself. A wrapper with
 modes the engine reaches on some paths only also counts those launches per
 mode in ``mode_launches`` (the ``diag_q`` of ``block_backward_dual`` and
 ``block_backward_high``, ``diag_backward``'s ``with_q``, the multi-term
-applies' ``seed``: ``conj``, ``acc`` or ``alias=False``). ``KERNELS`` is
+applies' ``seed``: ``conj``, ``acc`` or ``alias=False``; the merged top
+axis, X = 256 / 512: ``high_apply``'s ``wide_inplace`` and
+``block_backward_high``'s ``wide``). ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 """

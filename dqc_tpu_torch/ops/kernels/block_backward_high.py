@@ -1,8 +1,8 @@
 """One-pass adjoint step of a high-group block on f32 planes.
 
 Replaces the TPU kernel ``block_backward_high``
-(``dqc_tpu/ops/pallas/block_backward.py:906``) for ``X <= 128``, with its
-``diag_q`` outputs: on the view ``(A1, X, M, 128)`` of the forward
+(``dqc_tpu/ops/pallas/block_backward.py:906``) with its ``diag_q``
+outputs: on the view ``(A1, X, M, 128)`` of the forward
 planes ``F`` and the cotangent planes ``B``, with the group's operator
 ``E`` (X x X) on axis X,
 
@@ -19,7 +19,11 @@ run, before its update: ``Qsl`` (128, 128) summed over ``a``, ``Qas`` and
 ``(i, x, q = (p 128 + s) 128 + l)`` at ``a = (i X + x) post + p``. The
 Hopper kernel is ``csrc/block_backward_high.cu`` (bound by operations: 3 X
 complex multiply-adds per amplitude); :func:`block_backward_high_plain` is
-its plain PyTorch version.
+its plain PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
+of a tiny top group without a run (a lone top-group block as ``E (x) I``,
+the unfactorized hpair's merged operator), where the kernel forms the pair
+gram as ``(B F^T) Einv^T`` before the two in-place applies (counted also in
+``mode_launches["wide"]``).
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -36,7 +40,7 @@ import torch
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
 from dqc_tpu_torch.ops.kernels.gram import pair_sum
-from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X, view_diag_run
+from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X, WIDE_X, view_diag_run
 
 
 def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
@@ -85,11 +89,11 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                         diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_first_fwd: bool = True, diag_q: bool = False):
-    """The adjoint step on the view ``(A1, X, M, 128)``, X in 8..128;
-    operators are f32 real/imag pairs (X, X); the tables as in
-    ``high_apply`` (run's inverse, then run), or both None. A run needs
-    M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions to the
-    outputs."""
+    """The adjoint step on the view ``(A1, X, M, 128)``, X in 8..128, or
+    256 / 512 without a run; operators are f32 real/imag pairs (X, X); the
+    tables as in ``high_apply`` (run's inverse, then run), or both None. A
+    run needs M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions
+    to the outputs."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -102,17 +106,23 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         raise ValueError(f"block_backward_high: a diag run needs M % 128 == 0, "
                          f"got M={M}")
     _check_diag_q(diag_q, diag_tables)
+    if X > 128 and diag_tables is not None:
+        raise ValueError(f"block_backward_high: a diag run folds into X <= 128 "
+                         f"only, got X={X}")
     ops = (einv_r, einv_i, e_r, e_i)
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
             diag_tables=diag_tables, diag_first_fwd=diag_first_fwd,
             diag_q=diag_q)
-    if X not in KERNEL_X:
-        raise ValueError(f"block_backward_high: X={X} is not one of {KERNEL_X}")
+    if X not in KERNEL_X + WIDE_X:
+        raise ValueError(f"block_backward_high: X={X} is not one of "
+                         f"{KERNEL_X + WIDE_X}")
     _launch.check_cuda_f32("block_backward_high", planes + ops, fr.device)
     if any(tuple(o.shape) != (X, X) for o in ops):
         raise ValueError(f"block_backward_high: operators must be ({X}, {X})")
+    if X in WIDE_X:
+        return _block_backward_wide(planes, ops, A1, X, M)
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
@@ -146,5 +156,31 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
+_WIDE_ARGTYPES = ([_launch.VOIDP] * 11 + [_launch.LONG, _launch.INT, _launch.LONG,
+                                         _launch.INT, _launch.VOIDP])
+_BLOCKS_PER_SM = 4
+
+
+def _block_backward_wide(planes, ops, A1: int, X: int, M: int):
+    """X = 256 / 512: each block of the cross-Gram forms one of the
+    (X / 128)^2 patches of ``B F^T`` over its group of 32-column tiles."""
+    dev = planes[0].device
+    patches = (X // 128) ** 2
+    nblk = min(A1 * M * 128 // 32, 65535,
+               max(1, _BLOCKS_PER_SM * _launch.sm_count(dev) // patches))
+    part = torch.empty((nblk, 2, X, X), dtype=torch.float32, device=dev)
+    gram = torch.empty((2, X, X), dtype=torch.float32, device=dev)
+    out = torch.empty((2, X, X), dtype=torch.float32, device=dev)
+    lib = "block_backward_high"
+    fn = _launch.entry(lib, "dqc_block_backward_high_wide", _WIDE_ARGTYPES)
+    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
+              part.data_ptr(), gram.data_ptr(), out.data_ptr(), A1, X, M * 128,
+              nblk, _launch.stream(dev))
+    _launch.raise_on_error(code, lib, "block_backward_high launch")
+    block_backward_high.launches += 1
+    block_backward_high.mode_launches["wide"] += 1
+    return (*planes, out[0], out[1])
+
+
 block_backward_high.launches = 0
-block_backward_high.mode_launches = {"diag_q": 0}
+block_backward_high.mode_launches = {"diag_q": 0, "wide": 0}

@@ -8,9 +8,11 @@ the density-seed modes ``conj`` / ``acc`` / ``alias=False`` of
 ``dual_apply``. The run's tables stay canonical — ``tsl (128, 128)``,
 ``tas``/``tal`` ``(A, 128)`` read at ``a = (i X + x) post + p`` for view
 element ``(i, x, m = p 128 + s, l)``. X is 8..128, or 256 / 512 on the
-merged top axis of a tiny top group (ops/planes._merged_view) in the seed
-modes only (``alias=False``, no run): the merged-top density seed. The
-Hopper kernel is ``csrc/high_apply.cu`` (bound by operations: X complex
+merged top axis of a tiny top group (ops/planes._merged_view), there
+without a run, in place (a lone top-group block as ``E (x) I``, the
+unfactorized hpair's merged operator) or in the seed modes (the merged-top
+density seed). The Hopper kernel is ``csrc/high_apply.cu``, and
+``csrc/wide_apply.cuh`` at X = 256 / 512 (bound by operations: X complex
 multiply-adds per amplitude against 16 bytes, 24 in the seed modes);
 :func:`high_apply_plain` is its plain PyTorch version.
 
@@ -30,7 +32,7 @@ from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
-WIDE_X = (256, 512)   # the merged top axis: seed modes only
+WIDE_X = (256, 512)   # the merged top axis: every mode but a diagonal run
 
 
 def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
@@ -73,22 +75,21 @@ def high_apply(xr, xi, e_r, e_i,
                diag_first: bool = True, *, conj: bool = False,
                acc: Optional[Planes] = None, alias: bool = True) -> Planes:
     """``[acc +] conj?([D] E x [D])`` on the view ``(A1, X, M, 128)``, X in
-    8..128, or 256 / 512 with ``alias=False`` and no run; ``E`` an f32
-    real/imag pair (X, X); ``diag_tables`` the run's six f32 planes (tsl
-    (128, 128); tas, tal (A, 128) or their (A1, X, post, 128) view,
-    planes.dhigh_view_tables) or None. A run needs M % 128 == 0. ``acc``
-    planes have the view's shape."""
+    8..128, or 256 / 512 without a run; ``E`` an f32 real/imag pair (X, X);
+    ``diag_tables`` the run's six f32 planes (tsl (128, 128); tas, tal (A,
+    128) or their (A1, X, post, 128) view, planes.dhigh_view_tables) or
+    None. A run needs M % 128 == 0. ``acc`` planes have the view's shape.
+    The in-place sweep at X = 256 / 512 is also counted in
+    ``mode_launches["wide_inplace"]``."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
     A1, X, M, _ = xr.shape
     if diag_tables is not None and M % 128:
         raise ValueError(f"high_apply: a diag run needs M % 128 == 0, got M={M}")
-    if X > 128 and (alias or diag_tables is not None):
-        raise NotImplementedError(
-            f"high_apply at X={X} runs only in the seed modes (alias=False, "
-            "no diag run); the in-place merged sweep serves the unfactorized "
-            "hpair, not ported to dqc_tpu_torch yet; see ROADMAP.md")
+    if X > 128 and diag_tables is not None:
+        raise ValueError(f"high_apply: a diag run folds into X <= 128 only, "
+                         f"got X={X}")
     if xr.device.type == "cpu":
         return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first,
                                 conj=conj, acc=acc)
@@ -106,7 +107,10 @@ def high_apply(xr, xi, e_r, e_i,
               int(acc is not None), A1, X, M * 128, _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_apply", "high_apply launch")
     high_apply.launches += 1
+    if X in WIDE_X and out[0] is xr:
+        high_apply.mode_launches["wide_inplace"] += 1
     return out
 
 
 high_apply.launches = 0
+high_apply.mode_launches = {"wide_inplace": 0}

@@ -16,7 +16,9 @@ Op mapping (one pass over the state each):
 * a diagonal run next to either -> multiplied inside that kernel's pass
 * a diagonal run on its own    -> the diag sweep kernel (ops/kernels/diag)
 * dense blocks on a tiny top group and the group below it -> one merged-axis
-  sweep, Kronecker-factorized (ops/kernels/merged_fact_apply)
+  sweep, Kronecker-factorized (ops/kernels/merged_fact_apply), or expanded
+  to the X = 256 / 512 merged axis (config.set_hpair_factorized(False)) on
+  the high kernels, as a lone block on a tiny top group always is
 * group Grams (densities)      -> the Gram kernel (ops/kernels/gram); both
   top groups' from one merged-axis read when the top group is tiny
 * a 2- or 4-wide group 2 (n = 15, 16): elementwise combinations of its
@@ -39,7 +41,8 @@ Op mapping (one pass over the state each):
   adjoint of a lane + sublane pair is called from circuit/plane_scan.py
   (ops/kernels/block_backward_dual), as in the JAX package; the adjoints of
   the merged sweep and of a lone diagonal run have kernels of their own
-  (ops/kernels/block_backward_merged_fact, ops/kernels/diag)
+  (ops/kernels/block_backward_merged_fact, ops/kernels/diag); the expanded
+  merged sweep's adjoint is the high backward kernel at X = 256 / 512
 
 Every apply consumes its input planes and returns the result (in place on
 the card), unless ``alias=False`` (fresh output planes) or ``acc`` (added
@@ -162,7 +165,10 @@ def kron_ops(Ea, Eb):
 
 
 def _kron_id(E, Xl: int):
-    """``E (x) I_Xl``."""
+    """``E (x) I_Xl`` (the identity made on a tensor's own device, so that a
+    constant cached on the card needs no host-to-device copy)."""
+    if isinstance(E, torch.Tensor):
+        return kron_ops(E, torch.eye(Xl, dtype=torch.complex64, device=E.device))
     return kron_ops(E, np.eye(Xl, dtype=np.complex64))
 
 
@@ -190,8 +196,9 @@ def apply_merged_top(xr, xi, E_m, n: int, *, alias: bool = True,
                      conj: bool = False, acc=None,
                      kernels: KernelSet = KERNELS) -> Planes:
     """A dense operator ``E_m`` (X Xl, X Xl) on the merged (top, top-1) axis
-    in one pass: the merged-top density seed (``alias=False``, ``conj``,
-    ``acc``; the high apply kernel takes X = 256 / 512 only so)."""
+    in one pass of the high apply at X = 256 / 512: in place (a lone
+    top-group block, the unfactorized hpair) or the merged-top density seed
+    (``alias=False``, ``conj``, ``acc``)."""
     vr, vi, _ = _merged_planes(xr, xi, n)
     er, ei = op_planes(E_m, xr.device)
     if acc is not None:
@@ -224,6 +231,20 @@ def backward_merged_top_fact(fxr, fxi, bxr, bxi, Et, El, Eti, Eli, n: int, *,
         *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X)
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
             bi.view(bxr.shape), torch.complex(ttr, tti), torch.complex(tlr, tli))
+
+
+def backward_merged_top(fxr, fxi, bxr, bxi, Einv_m, E_m, n: int, *,
+                        kernels: KernelSet = KERNELS):
+    """The high backward kernel on the merged (top, top-1) axis at X = 256 /
+    512: returns the planes and the complex merged (X Xl)^2 pair gram, from
+    which the caller extracts the per-block ones."""
+    fr, fi, _ = _merged_planes(fxr, fxi, n)
+    br, bi, _ = _merged_planes(bxr, bxi, n)
+    dev = fxr.device
+    fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
+        fr, fi, br, bi, *op_planes(Einv_m, dev), *op_planes(E_m, dev))
+    return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
+            bi.view(bxr.shape), torch.complex(t0r, t0i))
 
 
 def gram_merged_top(xr, xi, n: int, *, kernels: KernelSet = KERNELS):
@@ -325,9 +346,9 @@ def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
                conj: bool = False, acc=None, out_dtype=None,
                kernels: KernelSet = KERNELS) -> Planes:
     """Dense full-group operator on high group ``j >= 2`` (one pass): the
-    high kernel on the group's axis, or on the merged axis of a tiny top
-    group (``E (x) I``), or the elementwise small-X form on a tiny group 2
-    (fresh planes)."""
+    high kernel on the group's axis, or on the X = 256 / 512 merged axis of
+    a tiny top group (``E (x) I``), or the elementwise small-X form on a
+    tiny group 2 (fresh planes)."""
     _check_out_dtype(out_dtype)
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
@@ -339,13 +360,6 @@ def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
         if acc is not None:
             yr, yi = acc[0].view(v) + yr, acc[1].view(v) + yi
         return yr.reshape(xr.shape), yi.reshape(xi.shape)
-    if X < MIN_KERNEL_X and alias and not conj and acc is None:
-        # a lone block on a tiny top group, in place: ``E (x) I`` on the
-        # merged axis, Kronecker-factorized (the JAX package expands it to
-        # an X * 128-wide in-place high sweep, not ported)
-        eye = torch.eye(_merged_view(n, j)[2], dtype=torch.complex64,
-                        device=xr.device)
-        return apply_merged_top_fact(xr, xi, E, eye, n, kernels=kernels)
     if X < MIN_KERNEL_X:
         return apply_merged_top(xr, xi, _kron_id(E, _merged_view(n, j)[2]), n,
                                 alias=alias, conj=conj, acc=acc,
@@ -702,10 +716,9 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
 
     Returns ``(fxr', fxi', bxr', bxi', T0)``. An unpaired lane block runs
     block_backward_lane, an unpaired sublane block block_backward_sublane.
-    A lone block on a tiny top group runs the
-    factorized merged adjoint with an identity low factor (the JAX package
-    runs block_backward_high on the expanded merged axis, X = 256 / 512,
-    not ported); a tiny group 2 runs the elementwise small-X form."""
+    A lone block on a tiny top group runs block_backward_high on the merged
+    axis (X = 256 / 512) with ``E (x) I``, its pair gram the partial trace
+    of the merged one; a tiny group 2 runs the elementwise small-X form."""
     dev = fxr.device
     if j in (0, 1):
         step = kernels.block_backward_lane if j == 0 else kernels.block_backward_sublane
@@ -715,10 +728,11 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
     if X < MIN_KERNEL_X and j >= 3:
-        eye = torch.eye(_merged_view(n, j)[2], dtype=torch.complex64, device=dev)
-        fr, fi, br, bi, T0, _ = backward_merged_top_fact(
-            fxr, fxi, bxr, bxi, E, eye, Einv, eye, n, kernels=kernels)
-        return fr, fi, br, bi, T0
+        _, X, Xl, _ = _merged_view(n, j)
+        fr, fi, br, bi, T0m = backward_merged_top(
+            fxr, fxi, bxr, bxi, _kron_id(Einv, Xl), _kron_id(E, Xl), n,
+            kernels=kernels)
+        return fr, fi, br, bi, _trace_id(T0m, X, Xl)
     if X < MIN_KERNEL_X:
         # tiny group 2: the small-X form; T0[x, y] = sum_b bwd[x] fwd_in[y]
         fr, fi = apply_high(fxr, fxi, Einv, j, n, kernels=kernels)

@@ -5,9 +5,10 @@
   says ``import jax`` or names a ``dqc_tpu.`` module;
 * entry points default to the CUDA card and raise without one; every n
   from 14 to 30 plans the cz ring's layer from the kernel items, and the
-  new sizes run; modes the port does not run yet (the unfactorized hpair,
-  the in-place merged apply at X = 256 / 512) raise ``NotImplementedError``
-  naming what is missing; the paths earlier slices refused (the seed of a
+  new sizes run; the modes earlier slices refused (the unfactorized hpair,
+  the in-place merged apply at X = 256 / 512, scan mode below the plane
+  size) run and agree with the routes they stand beside; the paths earlier
+  slices refused (the seed of a
   density over three groups without a span view, a variable diagonal run
   folded into a high sweep, the gradient of a variable cross gate without
   a span view, dense gates over three groups, the unpaired lane adjoint)
@@ -80,16 +81,37 @@ def test_default_device_is_cuda():
 
 
 def _unfactorized_hpair(n):
-    config.set_hpair_factorized(False)
+    """The expanded merged sweep (X = 256 at n = 22) gives the factorized
+    sweep's value and gradient (one layer, random params)."""
+    p = torch.tensor(np.random.default_rng(n).standard_normal((1, n, 3)),
+                     dtype=torch.float32)
+    out = []
+    for factorized in (False, True):
+        config.set_hpair_factorized(factorized)
+        try:
+            m = HardwareEfficientAnsatz(n, 1, entangler="cz", device="cpu")
+            q = p.clone().requires_grad_(True)
+            loss = m.magnetization(q)
+            loss.backward()
+        finally:
+            config.set_hpair_factorized(True)
+        out.append((loss.item(), q.grad))
+    (v0, g0), (v1, g1) = out
+    assert abs(v0 - v1) <= 1e-5 * n
+    assert (g0 - g1).abs().max().item() <= 2e-5
 
 
 def _aliased_merged_apply(n):
-    """An in-place apply on the merged top axis (X = 256 at n = 29): the
-    kernel takes X = 256 / 512 only in the seed modes."""
+    """An in-place apply on the merged top axis (X = 256 at n = 29), on a
+    small view: the plain version's E x."""
     _, X, Xl, _ = planes._merged_view(n, 4)
-    x = torch.zeros((1, X * Xl, 8, 128))
-    e = torch.zeros((X * Xl, X * Xl))
-    tk.high_apply(x, x, e, e)
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn((1, X * Xl, 8, 128), generator=g)
+    e = torch.randn((X * Xl, X * Xl), generator=g)
+    yr, yi = tk.high_apply(x, torch.zeros_like(x), e, torch.zeros_like(e))
+    want = torch.matmul(e, x.reshape(X * Xl, -1)).reshape(x.shape)
+    torch.testing.assert_close(yr, want, rtol=1e-5, atol=1e-4)
+    assert yi.abs().max().item() == 0
 
 
 @pytest.mark.parametrize("n, run, kernel", [
@@ -97,10 +119,11 @@ def _aliased_merged_apply(n):
     (29, _aliased_merged_apply, "seed modes"),
 ], ids=lambda v: getattr(v, "__name__", str(v)))
 def test_unsupported_sizes_name_the_kernel(n, run, kernel):
-    """What the port still lacks at the sizes it now runs raises
-    NotImplementedError naming the missing kernel, before any state."""
-    with pytest.raises(NotImplementedError, match=kernel):
-        run(n)
+    """What earlier slices refused at the sizes they ran now runs: the
+    unfactorized hpair (``kernel`` names the kernel it needed, the high
+    adjoint at X = 256 / 512) and the in-place merged apply, beyond the
+    seed modes."""
+    run(n)
 
 
 def _three_group_density_seed(n):
@@ -232,9 +255,20 @@ def test_cnot_ring_names_the_cross_kernels():
 
 
 def test_below_plane_size_raises():
-    m = HardwareEfficientAnsatz(10, 1, entangler="cz", device="cpu")
-    with pytest.raises(NotImplementedError, match="plane"):
-        m.magnetization(torch.zeros(1, 10, 3))
+    """Below the plane size scan mode runs the fallback off the planes and
+    equals ``scan=False`` (value and gradient)."""
+    p = torch.tensor(np.random.default_rng(10).standard_normal((1, 10, 3)),
+                     dtype=torch.float32)
+    out = []
+    for scan in (True, False):
+        m = HardwareEfficientAnsatz(10, 1, entangler="cz", device="cpu", scan=scan)
+        q = p.clone().requires_grad_(True)
+        loss = m.magnetization(q)
+        loss.backward()
+        out.append((loss.item(), q.grad))
+    (v0, g0), (v1, g1) = out
+    assert abs(v0 - v1) <= 1e-5
+    assert (g0 - g1).abs().max().item() <= 1e-5
 
 
 def test_requires_grad_raises():

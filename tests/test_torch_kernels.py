@@ -219,4 +219,5 @@ def test_kernel_wrappers_refuse_other_devices():
     assert tk.launch_counts() == {name: 0 for name in (
         *tk.KernelSet._fields, "block_backward_dual[diag_q]",
         "block_backward_high[diag_q]", "diag_backward[with_q]",
-        "dual_multi_apply[seed]", "high_multi_apply[seed]")}
+        "dual_multi_apply[seed]", "high_multi_apply[seed]",
+        "high_apply[wide_inplace]", "block_backward_high[wide]")}
