@@ -16,8 +16,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (library_ms); then the same at the 29- and 30-qubit shapes: the kernels
    of the 29-qubit path at its shapes, and the merged-top kernels
    (merged_fact_apply, block_backward_merged_fact, the Gram and the seed
-   apply at X = 256 / 512) and the diagonal-run kernels;
-4. the 28-qubit forward: HardwareEfficientAnsatz(28, 100, entangler="cz")
+   apply at X = 256 / 512) and the diagonal-run kernels; and the six
+   kernels that meet reduced cotangent storage or a bf16x3 dot, in their
+   f16, bf16 and bf16x3 variants (the seeds of the dual and high applies at
+   X = 128, 256, 512, the dual, high and merged-top adjoints, the diag
+   adjoint), with the lane, sublane and X = 256 adjoints' bf16x3 pair
+   grams;
+4. the 28-qubit forward: HardwareEfficientAnsatz(28, 20, entangler="cz")
    .densities through the kernels, with the launch counters set to 0 just
    before and read just after; the params = 0 known answer (magnetization
    28); a 28-qubit x 20-layer run held against the plain-version path on
@@ -94,7 +99,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path; [init28], scan_with_epilogue from a random 28q state, 4 cz
    layers, the kernels against the plain path (densities, gate and state
    gradients), counters held to the meta-device dry run;
-11. a JSON line of the kernels and of the modes checked (their launches
+11. reduced cotangent storage (run beside phase 6): [f16_29], the 29-qubit x 100-layer
+   value_and_grad of phase 6 under "f16" (its value bit-identical to f32
+   storage's, the gradient's rms error, counts with the f16 and bf16x3
+   variants, the warm step and peak memory); [storage29], 29q x 4L under
+   "mixed" and "f16" against f32 storage, counts held to the meta-device
+   dry run; [f16_30], 30q x 20L under "f16": warm steps, peak memory,
+   params = 0 and the one-layer closed form;
+12. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -116,6 +128,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_QUBITS = 28
 LAYERS = 100
+L28 = 20            # [slice] / [grad] (PRs 1-2's 28q comparison phases): depth
+                    # cut from 100 for chip time beside the storage phases
 HPAIR_LAYERS = 20   # [hpair29]: depth cut from 100 for chip time only
 CHECK_LAYERS = 20
 SEED = 1234
@@ -127,8 +141,10 @@ VQE_LAYERS = 26     # VQEIsing(26, 26): the reference's headline workload
 QAOA_LAYERS = 6
 QAOA_EXTRA_EDGES = 14   # random_graph(29, 14, 0), the example's graph at 29q
 
-# Published H100 SXM peaks (dense): FP32 on the CUDA cores and HBM3 rate.
+# Published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 on the
+# tensor cores (the rate of bf16x3's three bf16 products) and HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 DUAL_TOL = 1e-4     # abs, unit-variance amplitudes through unitary operators
@@ -153,6 +169,29 @@ FALLBACK_TOL = 1e-5     # densities: scan mode off the planes vs the routes
                         # beside it (plain torch both, f32 or f64)
 MODEL_GRAD_TOL = 1e-4   # relative to max(1, |g|) per parameter, kernel path
                         # vs plain path (sums of 2^27-term f32 reductions)
+STORE_ULPS = 2.0        # reduced cotangent planes, kernel vs plain: storage
+                        # ulps at max(|amplitude|, the planes' rms)
+                        # (_storage.ulps_apart)
+F16_29_RMS_TOL = 2e-3   # [f16_29]: rms |g - g32| / max |g32| at depth 100
+STORAGE29_TOL = {"mixed": 5e-2, "f16": 5e-3}  # [storage29]: rms |g - g32| /
+                        # max |g32|; the JAX package's own on the same model
+                        # and params is 9.65e-3 and 1.19e-3 at 16q (max 5.0e-2
+                        # and 6.3e-3, the port's the same), the port's
+                        # 5.5e-3-2.1e-2 and 1.1e-3-1.4e-3 at 18-22q (CPU)
+F16_CLOSED_TOL = 4e-3   # [f16_30]: 30q x 1L closed form under f16 storage; the
+                        # JAX package's own error there is 1.1e-3 at 14q and
+                        # 1.3e-3 at 16q (CPU), the port's the same to 4
+                        # digits, 2.0e-3 at 22q
+BF16X3_GRAM_TOL = 2e-4  # the closed forms under the default bf16x3 pair grams,
+                        # per parameter over max(1, |g|): the JAX package's
+                        # own bar for its bf16x3 grams against f32
+                        # (tests/test_plane_scan.py); with f32 grams they
+                        # keep their own bars
+F16_L = 20              # [f16_30]: 30q depth cut from the bench's for chip time
+STORAGE_L = 4           # [storage29]
+BWD_KERNELS = ("block_backward_dual", "block_backward_high",
+               "block_backward_merged_fact", "block_backward_lane",
+               "block_backward_sublane")
 
 
 def random_graph(n, extra_edges, seed):
@@ -190,25 +229,50 @@ def nvcc_version(nvcc: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def bound_ms(bytes_moved: float, flops: float):
+def bound_ms(bytes_moved: float, flops: float, bf16_flops: float = 0.0):
+    """The least time for the work: the bytes over the HBM rate, or the f32
+    flops over the FP32 rate plus the bf16 flops (bf16x3's three bf16
+    products per real multiply-add) over the bf16 rate, the larger."""
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def storage_modes(dtype) -> tuple:
+    """The storage mode a launch counts for planes of ``dtype``."""
+    import torch
+    return {torch.bfloat16: ("bf16",), torch.float16: ("f16",)}.get(dtype, ())
+
+
+def dot_modes(a) -> tuple:
+    return ((("bf16x3",) if a.get("bwd_mode") == "bf16x3" else ())
+            + (("gram_bf16x3",) if a.get("gram_mode") == "bf16x3" else ()))
 
 
 def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
     if name == "block_backward_dual":
-        return ("diag_q",) if a.get("diag_q") else ()
+        return (("diag_q",) if a.get("diag_q") else ()) + storage_modes(
+            a["br"].dtype) + dot_modes(a)
     if name == "block_backward_high":
-        return (("diag_q",) if a.get("diag_q") else ()) + (
+        return ((("diag_q",) if a.get("diag_q") else ()) + (
             ("wide",) if a["fr"].shape[1] > 128 else ())
-    if name == "high_apply":
-        inplace = a.get("acc") is None and a.get("alias", True)
-        return ("wide_inplace",) if inplace and a["xr"].shape[1] > 128 else ()
+            + storage_modes(a["br"].dtype) + dot_modes(a))
+    if name == "block_backward_merged_fact":
+        return storage_modes(a["br"].dtype) + dot_modes(a)
+    if name in ("block_backward_lane", "block_backward_sublane"):
+        return dot_modes(a)
+    if name in ("dual_apply", "high_apply"):
+        acc = a.get("acc")
+        out = (acc[0].dtype if acc is not None
+               else a.get("out_dtype") or a["xr"].dtype)
+        inplace = acc is None and a.get("alias", True)
+        wide = (("wide_inplace",) if name == "high_apply" and inplace
+                and a["xr"].shape[1] > 128 else ())
+        return wide + storage_modes(out)
     if name == "diag_backward":
-        return ("with_q",) if a.get("with_q") else ()
+        return (("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
     if name in ("dual_multi_apply", "high_multi_apply"):
         seed = a.get("conj") or a.get("acc") is not None or not a.get("alias", True)
         return ("seed",) if seed else ()
@@ -286,6 +350,17 @@ def program_launches(build, loss: str):
         params = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
         return getattr(model, loss)(params, kernels=kernels)
     return dry_run_launches(run)
+
+
+def with_gram_modes(want: dict) -> dict:
+    """Launch counts of a run under the default dot modes: every launch of
+    an adjoint kernel with a pair gram counts in its "gram_bf16x3" mode when
+    config.gram_kernel_dot_mode() is "bf16x3" (the default)."""
+    from dqc_tpu_torch import config
+    x3 = config.gram_kernel_dot_mode() == "bf16x3"
+    for k in BWD_KERNELS:
+        want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
+    return want
 
 
 def our_kernel_names():
@@ -400,7 +475,7 @@ def main() -> int:
               "a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from dqc_tpu_torch import HardwareEfficientAnsatz
+    from dqc_tpu_torch import HardwareEfficientAnsatz, config
     from dqc_tpu_torch.models.qaoa import QAOAMaxCut
     from dqc_tpu_torch.models.vqe_ising import VQEIsing
     from dqc_tpu_torch.ops import groups as gr
@@ -1209,8 +1284,243 @@ def main() -> int:
         del E, Einv
         torch.cuda.empty_cache()
 
-    # 4. the forward: 28 qubits x 100 layers, cz ring --------------------------
-    model = HardwareEfficientAnsatz(N_QUBITS, LAYERS, entangler="cz")
+    # 3g. reduced cotangent storage and bf16x3 --------------------------------
+    # the six kernels that meet a reduced plane or a bf16x3 dot on the cz
+    # path under "mixed" (bf16 cotangent planes) and "f16", at the 29q path's
+    # shapes (the X = 512 seed and the Xt = 4 merged adjoint at 30q's): the
+    # forward planes F stay f32, the cotangent planes B are stored reduced,
+    # the transports and pair grams run bf16x3 (the "auto" modes under those
+    # storages), the uncomputes f32; and under f32 storage the pair grams
+    # alone in bf16x3, the new default. Decoded B within STORE_ULPS ulps of
+    # the storage, grams and Q within _storage.gram_tolerance of their
+    # largest entry. The bound counts the bytes the reduced planes move (2
+    # per element of B) and bf16x3's three bf16 products per real
+    # multiply-add at the bf16 rate.
+    from dqc_tpu_torch.ops.kernels import _storage as stc
+
+    STORES = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32}
+
+    def check_reduced(kernel, variant, shape, n_f, n_b, n_f_out, n_b_out,
+                      fn_kernel, fn_plain, dtype, f32_flops, bf16_flops,
+                      bytes_moved, b_scale=0.5, g_tol=None, ulps=STORE_ULPS):
+        """Inputs: n_f f32 planes, then n_b planes stored as ``dtype``;
+        outputs: n_f_out f32 planes, n_b_out planes of ``dtype``, then grams
+        or Q reductions. The kernel runs on the inputs themselves after the
+        plain version (the times then run on its outputs, of the same
+        shapes and scale). f32 cotangent planes are held to HIGH_TOL abs.
+        plain_ms is the one plain call that makes the reference outputs."""
+        ins = [randn(*shape) for _ in range(n_f)]
+        ins += [stc.store_as(b_scale * randn(*shape), dtype) for _ in range(n_b)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fn_plain(*ins)
+        stop.record()
+        stop.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        got = fn_kernel(*ins)
+        torch.cuda.synchronize()
+        f_err = max(((g - w).abs().max().item()
+                     for g, w in zip(got[:n_f_out], want[:n_f_out])), default=0.0)
+        b_ulps = (stc.ulps_apart(got[n_f_out:n_f_out + 2],
+                                 want[n_f_out:n_f_out + 2], dtype)
+                  if n_b_out else 0.0)
+        b_err = max(((g.float() - w.float()).abs().max().item()
+                     for g, w in zip(got[n_f_out:n_f_out + n_b_out],
+                                     want[n_f_out:n_f_out + n_b_out])), default=0.0)
+        g_rel = max(((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                     for g, w in zip(got[n_f_out + n_b_out:],
+                                     want[n_f_out + n_b_out:])), default=0.0)
+        dtypes_ok = all(g.dtype == dtype for g in got[n_f_out:n_f_out + n_b_out])
+        del got, want
+        g_tol = g_tol or stc.gram_tolerance(dtype)
+        if dtype == torch.float32:
+            f_err, b_ulps = max(f_err, b_err), 0.0
+        require(dtypes_ok, f"{kernel}[{variant}] did not keep the {dtype} storage")
+        require(f_err <= HIGH_TOL and b_ulps <= ulps and g_rel <= g_tol,
+                f"{kernel}[{variant}] disagrees with its plain version: f32 "
+                f"planes {f_err:.3e} (tol {HIGH_TOL:.0e}), {dtype} planes "
+                f"{b_ulps:.2f} ulps (tol {ulps}), grams {g_rel:.3e} "
+                f"relative (tol {g_tol:.1e})")
+        ms = cuda_ms(lambda: fn_kernel(*ins), reps=5)
+        b_ms, b_by = bound_ms(bytes_moved, f32_flops, bf16_flops)
+        row = dict(kernel=kernel, variant=variant, shape=list(shape),
+                   storage=str(dtype).split(".")[-1], max_abs_err=max(f_err, b_err),
+                   store_ulps=b_ulps, gram_rel_err=g_rel, tol=HIGH_TOL, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(f"[kernel] {json.dumps(row)}")
+        del ins
+        torch.cuda.empty_cache()
+
+    def cmac_flops(cmacs: float, x3: bool):
+        """(f32 flops, bf16 flops) of ``cmacs`` complex multiply-adds per
+        amplitude of the 29q planes in a dot mode: 8 f32 flops each, or
+        in bf16x3 4 real products of three bf16 products each."""
+        return (0.0, amps29 * cmacs * 4 * 3 * 2) if x3 else (amps29 * cmacs * 8, 0.0)
+
+    def b_bytes(dtype) -> float:
+        return 2 * amps29 * (4 if dtype == torch.float32 else 2)
+
+    x3_modes = dict(bwd_mode="bf16x3", gram_mode="bf16x3")
+    gram_x3 = dict(gram_mode="bf16x3")
+
+    # 1-2. the seeds: acc + conj(E x) into the cotangent planes (acc), or
+    # fresh planes of the storage (the first seed; at n >= 22 the merged
+    # top's, at X = 256 / 512)
+    for store in ("f16", "bf16"):
+        dt = STORES[store]
+        check_reduced("dual_apply", f"29q_seed_{store}", (A29, 128, 128), 2, 2, 0, 2,
+                      lambda xr, xi, ar, ai: dual_apply(
+                          xr, xi, *el29, *em29, conj=True, acc=(ar, ai), alias=False),
+                      lambda xr, xi, ar, ai: dual_apply_plain(
+                          xr, xi, *el29, *em29, conj=True, acc=(ar, ai)),
+                      dt, amps29 * 2 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt))
+        E = unitary(128)
+        check_reduced("high_apply", f"29q_X128_seed_{store}",
+                      (g2_29[0], 128, g2_29[2], 128), 2, 2, 0, 2,
+                      lambda xr, xi, ar, ai, E=E: high_apply(
+                          xr, xi, *E, conj=True, acc=(ar, ai), alias=False),
+                      lambda xr, xi, ar, ai, E=E: high_apply_plain(
+                          xr, xi, *E, conj=True, acc=(ar, ai)),
+                      dt, amps29 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt))
+    check_reduced("dual_apply", "29q_seed_fresh_f16", (A29, 128, 128), 2, 0, 0, 2,
+                  lambda xr, xi: dual_apply(xr, xi, *el29, *em29, conj=True,
+                                            alias=False, out_dtype=torch.float16),
+                  lambda xr, xi: dual_apply_plain(xr, xi, *el29, *em29, conj=True,
+                                                  out_dtype=torch.float16),
+                  torch.float16, amps29 * 2 * 128 * 8, 0.0,
+                  state29 + b_bytes(torch.float16))
+    for nq, X, stores in ((N29, 256, ("f16", "bf16")), (N30, 512, ("f16",))):
+        amps_n = float(1 << nq)
+        shape = (1, X, (1 << nq) // (X * 128), 128)
+        E = unitary(X)
+        for store in stores:
+            dt = STORES[store]
+            check_reduced("high_apply", f"{nq}q_X{X}_seed_fresh_{store}", shape, 2, 0,
+                          0, 2, lambda xr, xi, E=E, dt=dt: high_apply(
+                              xr, xi, *E, conj=True, alias=False, out_dtype=dt),
+                          lambda xr, xi, E=E, dt=dt: high_apply_plain(
+                              xr, xi, *E, conj=True, out_dtype=dt),
+                          dt, amps_n * X * 8, 0.0,
+                          2 * amps_n * 4 + 2 * amps_n * 2)
+        del E
+        torch.cuda.empty_cache()
+
+    # 3. block_backward_dual: the rotated body's ddual (the ring's run met
+    # after the pair), and with a variable run's Q (met first)
+    e0inv29, e029, e1inv29, e129 = (unitary(128) for _ in range(4))
+    ops29 = (*e0inv29, *e029, *e1inv29, *e129)
+    for store, modes, variant in (
+            ("f16", x3_modes, "29q_f16_g0_first_diag_first"),
+            ("bf16", x3_modes, "29q_bf16_g0_first_diag_first"),
+            ("f32", gram_x3, "29q_gram_bf16x3_g0_first_diag_first"),
+            ("f16", dict(x3_modes, diag_q=True, diag_first_fwd=False),
+             "29q_f16_g0_first_diag_after_q")):
+        dt = STORES[store]
+        kw = dict(g0_first=True, diag_first_fwd=True, diag_inv_tables=tables(A29),
+                  diag_tables=tables(A29))
+        kw.update(modes)
+        x3 = kw.get("bwd_mode") == "bf16x3"
+        f_un, _ = cmac_flops(256, False)
+        f_tr, b_tr = cmac_flops(256, x3)
+        f_gr, b_gr = cmac_flops(256, True)
+        # B passes up to three stores here (between the steps and beside
+        # the run, as the TPU kernel stages it): one ulp more
+        check_reduced("block_backward_dual", variant, (A29, 128, 128), 2, 2, 2, 2,
+                      lambda *p, kw=kw: block_backward_dual(*p, *ops29, **kw),
+                      lambda *p, kw=kw: block_backward_dual_plain(*p, *ops29, **kw),
+                      dt, f_un + f_tr + f_gr, b_tr + b_gr,
+                      state29 * 2 + b_bytes(dt) * 2 + 2 * table_bytes(A29),
+                      ulps=STORE_ULPS + 1)
+    del ops29
+
+    # 4. block_backward_high on the 29q group-2 view, and with a run's Q
+    E, Einv = unitary(128), unitary(128)
+    view = (g2_29[0], 128, g2_29[2], 128)
+    a_rows = g2_29[0] * 128 * g2_29[2] // 128
+    for store, modes, variant in (
+            ("f16", x3_modes, "29q_X128_f16"), ("bf16", x3_modes, "29q_X128_bf16"),
+            ("f32", gram_x3, "29q_X128_gram_bf16x3"),
+            ("f16", dict(x3_modes, diag_q=True, diag_first_fwd=True,
+                         diag_inv_tables=tables(a_rows), diag_tables=tables(a_rows)),
+             "29q_X128_f16_diag_first_q")):
+        dt = STORES[store]
+        x3 = modes.get("bwd_mode") == "bf16x3"
+        f_tr, b_tr = cmac_flops(128, x3)
+        f_gr, b_gr = cmac_flops(128, True)
+        check_reduced("block_backward_high", variant, view, 2, 2, 2, 2,
+                      lambda *p, kw=modes: block_backward_high(*p, *Einv, *E, **kw),
+                      lambda *p, kw=modes: block_backward_high_plain(*p, *Einv, *E, **kw),
+                      dt, amps29 * 128 * 8 + f_tr + f_gr, b_tr + b_gr,
+                      state29 * 2 + b_bytes(dt) * 2)
+    # the wide adjoint (X = 256, a lone top-group block) takes the bf16x3
+    # pair gram under f32 storage
+    shape256 = (1, 256, 1 << 14, 128)
+    E, Einv = unitary(256), unitary(256)
+    check_reduced("block_backward_high", "29q_X256_wide_gram_bf16x3", shape256,
+                  2, 2, 2, 2,
+                  lambda *p: block_backward_high(*p, *Einv, *E, **gram_x3),
+                  lambda *p: block_backward_high_plain(*p, *Einv, *E, **gram_x3),
+                  torch.float32, amps29 * 2 * 256 * 8, amps29 * 256 * 24,
+                  4 * state29, g_tol=4e-5)  # G = B F^T split, not B (Einv F)
+    del E, Einv
+
+    # 5. block_backward_merged_fact (Xt = 2 at 29q, Xt = 4 on the 30q merged
+    # axis with its M halved)
+    for x_top, shape in merged_shapes:
+        Eli, El = unitary(128), unitary(128)
+        Eti, Et = unitary(x_top), unitary(x_top)
+        mops = (*Eli, *El, *Eti, *Et)
+        cases = ((("f16", x3_modes), ("bf16", x3_modes), ("f32", gram_x3))
+                 if x_top == 2 else (("f16", x3_modes),))
+        for store, modes in cases:
+            dt = STORES[store]
+            x3 = modes.get("bwd_mode") == "bf16x3"
+            f_tr, b_tr = cmac_flops(128, x3)
+            f_gr, b_gr = cmac_flops(128, True)
+            tag = store if store != "f32" else "gram_bf16x3"
+            check_reduced("block_backward_merged_fact", f"Xt{x_top}_{tag}", shape,
+                          2, 2, 2, 2,
+                          lambda *p, kw=modes, xt=x_top: block_backward_merged_fact(
+                              *p, *mops, x_top=xt, **kw),
+                          lambda *p, kw=modes, xt=x_top: block_backward_merged_fact_plain(
+                              *p, *mops, x_top=xt, **kw),
+                          dt, amps29 * (128 + 3 * x_top) * 8 + f_tr + f_gr,
+                          b_tr + b_gr, state29 * 2 + b_bytes(dt) * 2)
+        del mops
+        torch.cuda.empty_cache()
+
+    # 6. diag_backward: elementwise, B decoded and encoded
+    tab, tab_inv = tables(A29), tables(A29)
+    for store, with_q in (("f16", False), ("bf16", False), ("f16", True)):
+        dt = STORES[store]
+        check_reduced("diag_backward", f"29q_{store}" + ("_q" if with_q else ""),
+                      (A29, 128, 128), 2, 2, 2, 2,
+                      lambda *p, q=with_q: diag_backward(*p, *tab_inv, *tab, with_q=q),
+                      lambda *p, q=with_q: diag_backward_plain(*p, *tab_inv, *tab,
+                                                               with_q=q),
+                      dt, amps29 * (36 + (12 if with_q else 0)), 0.0,
+                      state29 * 2 + b_bytes(dt) * 2 + 2 * table_bytes(A29))
+    del tab, tab_inv
+
+    # the lane and sublane adjoints' bf16x3 pair grams (f32 storage, the
+    # default modes of the CNOT ring and the plane tape)
+    for name, fn, fn_plain in (
+            ("block_backward_sublane", block_backward_sublane, block_backward_sublane_plain),
+            ("block_backward_lane", K.block_backward_lane, K.PLAIN.block_backward_lane)):
+        E, Einv = unitary(128), unitary(128)
+        check_reduced(name, "29q_gram_bf16x3", (A29, 128, 128), 2, 2, 2, 2,
+                      lambda *p, fn=fn: fn(*p, *Einv, *E, **gram_x3),
+                      lambda *p, fn=fn_plain: fn(*p, *Einv, *E, **gram_x3),
+                      torch.float32, amps29 * 2 * 128 * 8, amps29 * 128 * 24,
+                      4 * state29)
+    torch.cuda.empty_cache()
+
+    # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
+    model = HardwareEfficientAnsatz(N_QUBITS, L28, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -1219,7 +1529,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     fwd_counts = K.launch_counts()
-    log(f"[slice] {N_QUBITS}q x {LAYERS}L forward through the kernels: "
+    log(f"[slice] {N_QUBITS}q x {L28}L forward through the kernels: "
         f"{first_s:.3f} s (first call); launches {json.dumps(fwd_counts)}")
     for name in ("dual_apply", "high_apply", "gram"):
         require(fwd_counts[name] > 0,
@@ -1240,14 +1550,14 @@ def main() -> int:
     model.magnetization(params).item()
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[slice] step (warm) {step_s:.4f} s = {step_s / LAYERS * 1e3:.2f} ms/layer; "
+    log(f"[slice] step (warm) {step_s:.4f} s = {step_s / L28 * 1e3:.2f} ms/layer; "
         f"{model.num_gates / step_s:.1f} gates/s; peak memory {peak / 2**30:.3f} GiB")
     # where the step goes: each layer is one dual sweep, one plain group-2
     # sweep and one group-3 sweep with the ring's run after it; the epilogue
     # is one Gram per group
     per_launch = {(r["kernel"], r["variant"]): r["ms"] for r in rows}
     per_bound = {(r["kernel"], r["variant"]): r["bound_ms"] for r in rows}
-    kernel_ms = (LAYERS * (per_launch["dual_apply", "plain"]
+    kernel_ms = (L28 * (per_launch["dual_apply", "plain"]
                            + per_launch["high_apply", "X128_plain"]
                            + per_launch["high_apply", "X128_diag_after"])
                  + sum(per_launch["gram", v]
@@ -1256,7 +1566,7 @@ def main() -> int:
         f"{kernel_ms:.1f} ms = {100 * kernel_ms / (step_s * 1e3):.1f}% of the step; "
         f"the rest ({step_s * 1e3 - kernel_ms:.1f} ms) is host work and launch gaps")
 
-    zero = model.magnetization(torch.zeros(LAYERS, N_QUBITS, 3)).item()
+    zero = model.magnetization(torch.zeros(L28, N_QUBITS, 3)).item()
     log(f"[slice] params = 0: magnetization {zero!r} (want {N_QUBITS})")
     require(abs(zero - N_QUBITS) <= ZERO_TOL, "params = 0 known answer failed")
 
@@ -1273,7 +1583,7 @@ def main() -> int:
     require(slice_err <= SLICE_TOL, "kernel path disagrees with the plain path")
     require(abs(m_k - m_p) <= SLICE_TOL * N_QUBITS, "magnetization disagrees")
 
-    # 5. the gradient: value_and_grad of the magnetization, 28q x 100L --------
+    # 5. the gradient: value_and_grad of the magnetization, 28q x L28 layers
     params.requires_grad_(True)
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -1283,14 +1593,15 @@ def main() -> int:
     torch.cuda.synchronize()
     vg_first_s = time.perf_counter() - t0
     counts = K.launch_counts()
-    log(f"[grad] {N_QUBITS}q x {LAYERS}L value_and_grad through the kernels: "
+    log(f"[grad] {N_QUBITS}q x {L28}L value_and_grad through the kernels: "
         f"{vg_first_s:.3f} s (first call); launches {json.dumps(counts)}")
     # per step: the forward's sweeps, one seed apply per group (two dual, two
     # high), and one backward sweep per forward sweep
     want = dict.fromkeys(counts, 0)
-    want.update({"dual_apply": LAYERS + 2, "high_apply": 2 * LAYERS + 2,
-                 "gram": 4, "block_backward_dual": LAYERS,
-                 "block_backward_high": 2 * LAYERS})
+    want.update({"dual_apply": L28 + 2, "high_apply": 2 * L28 + 2,
+                 "gram": 4, "block_backward_dual": L28,
+                 "block_backward_high": 2 * L28})
+    with_gram_modes(want)
     require(counts == want, f"launch counts {counts}, want {want}")
     grad = params.grad.detach().clone()
     require(bool(torch.isfinite(grad).all()) and grad.abs().max().item() > 0,
@@ -1312,24 +1623,41 @@ def main() -> int:
         model.magnetization(params).item()
         fwd_s = time.perf_counter() - t0
     log(f"[grad] value_and_grad step (warm) {vg_s:.4f} s = "
-        f"{vg_s / LAYERS * 1e3:.2f} ms/layer; forward-only step {fwd_s:.4f} s; "
+        f"{vg_s / L28 * 1e3:.2f} ms/layer; forward-only step {fwd_s:.4f} s; "
         f"ratio {vg_s / fwd_s:.2f}; peak memory {vg_peak / 2**30:.3f} GiB; "
         f"grad vs first call max abs {drift:.3e}")
     require(drift <= GRAD_TOL, "two value_and_grad steps disagree")
-    bwd_ms = (LAYERS * (per_launch["block_backward_dual", "g0_first"]
+    bwd_ms = (L28 * (per_launch["block_backward_dual", "g0_first"]
                         + per_launch["block_backward_high", "X128_plain"]
                         + per_launch["block_backward_high", "X128_diag_after"])
               + 2 * per_launch["dual_apply", "seed"]
               + 2 * per_launch["high_apply", "X128_seed"])
-    log(f"[grad] kernel time per step (launches x per-launch ms above): forward "
-        f"{kernel_ms:.1f} ms + seeds and backward {bwd_ms:.1f} ms = "
+    log(f"[grad] kernel time per step (launches x per-launch ms above, the "
+        f"adjoints' f32-gram rows; the step runs the default bf16x3 grams): "
+        f"forward {kernel_ms:.1f} ms + seeds and backward {bwd_ms:.1f} ms = "
         f"{100 * (kernel_ms + bwd_ms) / (vg_s * 1e3):.1f}% of the step")
     del params, grad, loss
     torch.cuda.empty_cache()
 
-    def closed_form(n: int, tag: str) -> float:
+    def with_gram(mode, fn, *args, **kw):
+        """``fn`` under pair grams in ``mode`` ("auto": the default)."""
+        config.set_gram_kernel_dot_mode(mode)
+        try:
+            return fn(*args, **kw)
+        finally:
+            config.set_gram_kernel_dot_mode("auto")
+
+    def closed_forms(fn, *args, **kw):
+        """An exact-answer check twice: with f32 pair grams at its own bar,
+        then under the default bf16x3 grams at BF16X3_GRAM_TOL."""
+        with_gram("f32", fn, *args, **kw)
+        with_gram("auto", fn, *args, **kw, x3=True)
+
+    def closed_form(n: int, tag: str, tol: float = CLOSED_TOL,
+                    x3: bool = False) -> float:
         """n x 1L at params (alpha, 0, 0): <Z_i> = cos alpha_i, so the
         gradient is (-sin alpha, 0, 0). Returns the gradient error."""
+        tol = max(tol, BF16X3_GRAM_TOL) if x3 else tol
         one = HardwareEfficientAnsatz(n, 1, entangler="cz")
         alpha = torch.linspace(-1.3, 1.4, n, dtype=torch.float64)
         p1 = torch.zeros(1, n, 3, dtype=torch.float64)
@@ -1342,9 +1670,10 @@ def main() -> int:
         val_err = abs(v1.item() - torch.cos(a32).sum().item())
         closed_err = max((g1[:, 0] + torch.sin(a32)).abs().max().item(),
                          g1[:, 1:].abs().max().item())
-        log(f"[{tag}] {n}q x 1L closed form: value err {val_err:.3e}, gradient "
-            f"err {closed_err:.3e} vs (-sin alpha, 0, 0) (tol {CLOSED_TOL:.0e})")
-        require(val_err <= CLOSED_TOL * n and closed_err <= CLOSED_TOL,
+        log(f"[{tag}] {n}q x 1L closed form ({config.gram_kernel_dot_mode()} pair "
+            f"grams): value err {val_err:.3e}, gradient err {closed_err:.3e} vs "
+            f"(-sin alpha, 0, 0) (tol {tol:.0e})")
+        require(val_err <= CLOSED_TOL * n and closed_err <= tol,
                 f"the {n}-qubit 1-layer closed-form gradient failed")
         return closed_err
 
@@ -1368,7 +1697,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         return grad_err
 
-    closed_form(N_QUBITS, "grad")
+    closed_forms(closed_form, N_QUBITS, "grad")
     kernels_vs_plain(N_QUBITS, "grad")
 
     # 6. the 29-qubit path: 29 qubits x 100 layers, the bench workload -------
@@ -1437,6 +1766,7 @@ def main() -> int:
                    "block_backward_dual": LAYERS, "block_backward_high": LAYERS,
                    "merged_fact_apply": LAYERS, "block_backward_merged_fact": LAYERS,
                    "diag_sweep": 1, "diag_backward": 1})
+    with_gram_modes(want29)
     require(counts29 == want29, f"29q launch counts {counts29}, want {want29}")
     grad29 = p29.grad.detach().clone()
     require(bool(torch.isfinite(grad29).all()) and grad29.abs().max().item() > 0,
@@ -1458,21 +1788,94 @@ def main() -> int:
         f"ratio {vg29_s / step29_s:.2f}; peak memory {vg29_peak / 2**30:.3f} GiB; "
         f"grad vs first call max abs {drift29:.3e}")
     require(drift29 <= GRAD_TOL, "two 29q value_and_grad steps disagree")
-    bwd29_ms = (LAYERS * (per_launch["block_backward_dual", "29q_g0_first_diag_first"]
-                          + per_launch["block_backward_high", "29q_X128_plain"]
-                          + per_launch["block_backward_merged_fact", "Xt2"])
-                + per_launch["diag_backward", "29q"]
-                + 2 * per_launch["dual_apply", "29q_seed"]
-                + per_launch["high_apply", "29q_X128_seed"]
-                + per_launch["high_apply", "X256_seed"])
+    # [f16_29]: the same model and params under "f16" cotangent storage: the
+    # forward planes stay f32 (the value bit-identical to [grad29]'s), the
+    # cotangent planes are f16 with the prescale S = 256, the transports and
+    # pair grams bf16x3; the six kernels' f16 variants launched as often as
+    # the f32 run launches the kernels
+    loss32_value = loss29.item()
+    want16 = dict(want29)
+    want16.update({"dual_apply[f16]": 2, "high_apply[f16]": 2,
+                   "diag_backward[f16]": 1})
+    for k in ("block_backward_dual", "block_backward_high",
+              "block_backward_merged_fact"):
+        want16[f"{k}[f16]"] = want16[f"{k}[bf16x3]"] = want29[k]
+    config.set_state_storage("f16")
+    try:
+        p29.grad = None
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss16 = m29.magnetization(p29)
+        loss16.backward()
+        torch.cuda.synchronize()
+        f16_first_s = time.perf_counter() - t0
+        counts16 = K.launch_counts()
+        require(counts16 == want16, f"[f16_29] launch counts {counts16}, want {want16}")
+        g16 = p29.grad.detach().clone()
+        value16 = loss16.item()
+        p29.grad = None
+        del loss16
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss16 = m29.magnetization(p29)
+        loss16.backward()
+        torch.cuda.synchronize()
+        f16_s = time.perf_counter() - t0
+        f16_peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_state_storage("f32")
+    scale = grad29.abs().max().item()
+    d16 = (g16 - grad29).abs()
+    rms16, max16 = d16.pow(2).mean().sqrt().item() / scale, d16.max().item() / scale
+    log(f"[f16_29] {N29}q x {LAYERS}L value_and_grad under f16 storage: "
+        f"{f16_first_s:.3f} s (first call); launches {json.dumps(counts16)}")
+    log(f"[f16_29] value {value16!r} vs f32 storage {loss32_value!r} (bit-identical: "
+        f"{value16 == loss32_value}); gradient vs f32 storage: rms |g - g32| / max "
+        f"|g32| {rms16:.3e} (tol {F16_29_RMS_TOL:.0e}), max {max16:.3e}; "
+        f"value_and_grad step (warm) {f16_s:.4f} s = {f16_s / LAYERS * 1e3:.2f} "
+        f"ms/layer (f32 storage {vg29_s:.4f} s); peak memory {f16_peak / 2**30:.3f} "
+        f"GiB (f32 storage {vg29_peak / 2**30:.3f} GiB)")
+    require(value16 == loss32_value, "[f16_29] the value moved with the storage")
+    require(bool(torch.isfinite(g16).all()) and rms16 <= F16_29_RMS_TOL,
+            "[f16_29] gradient outside the f16 storage's error")
+    bwd16_ms = (LAYERS * (
+        per_launch["block_backward_dual", "29q_f16_g0_first_diag_first"]
+        + per_launch["block_backward_high", "29q_X128_f16"]
+        + per_launch["block_backward_merged_fact", "Xt2_f16"])
+        + per_launch["diag_backward", "29q_f16"]
+        + 2 * per_launch["dual_apply", "29q_seed_f16"]
+        + per_launch["high_apply", "29q_X128_seed_f16"]
+        + per_launch["high_apply", "29q_X256_seed_fresh_f16"])
+    log(f"[f16_29] kernel time per step (launches x per-launch ms above): forward "
+        f"{fwd29_ms:.1f} ms + seeds and backward {bwd16_ms:.1f} ms = "
+        f"{100 * (fwd29_ms + bwd16_ms) / (f16_s * 1e3):.1f}% of the step")
+    f16_29 = dict(counts=counts16, step_s=f16_s, peak=f16_peak, rms=rms16, max=max16)
+    del g16, loss16
+
+    # the step runs the default bf16x3 pair grams (the rows "gram_bf16x3"
+    # above); the f32-gram rows beside them give the same step with f32 grams
+    seeds29_ms = (per_launch["diag_backward", "29q"]
+                  + 2 * per_launch["dual_apply", "29q_seed"]
+                  + per_launch["high_apply", "29q_X128_seed"]
+                  + per_launch["high_apply", "X256_seed"])
+    bwd29_ms = seeds29_ms + LAYERS * (
+        per_launch["block_backward_dual", "29q_gram_bf16x3_g0_first_diag_first"]
+        + per_launch["block_backward_high", "29q_X128_gram_bf16x3"]
+        + per_launch["block_backward_merged_fact", "Xt2_gram_bf16x3"])
+    bwd29_f32_ms = seeds29_ms + LAYERS * (
+        per_launch["block_backward_dual", "29q_g0_first_diag_first"]
+        + per_launch["block_backward_high", "29q_X128_plain"]
+        + per_launch["block_backward_merged_fact", "Xt2"])
     log(f"[grad29] kernel time per step (launches x per-launch ms above): forward "
-        f"{fwd29_ms:.1f} ms + seeds and backward {bwd29_ms:.1f} ms = "
+        f"{fwd29_ms:.1f} ms + seeds and backward {bwd29_ms:.1f} ms (bf16x3 pair "
+        f"grams; {bwd29_f32_ms:.1f} ms with the f32-gram rows) = "
         f"{100 * (fwd29_ms + bwd29_ms) / (vg29_s * 1e3):.1f}% of the step")
     del m29, p29, grad29, loss29
     torch.cuda.empty_cache()
 
-    closed_form(N29, "grad29")
-    closed_form(N30, "grad29")
+    closed_forms(closed_form, N29, "grad29")
+    closed_forms(closed_form, N30, "grad29")
     three = HardwareEfficientAnsatz(N30, 3, entangler="cz")
     p3 = torch.zeros(3, N30, 3, device=dev, requires_grad=True)
     K.reset_launch_counts()
@@ -1489,6 +1892,118 @@ def main() -> int:
     del three, p3, v3
     torch.cuda.empty_cache()
     kernels_vs_plain(N29, "grad29")
+
+    # [storage29]: HardwareEfficientAnsatz(29, 4, "cz") under "mixed" and
+    # "f16" against f32 storage on the same params: values bit-identical,
+    # gradients within the storage's error, launches per kernel and mode
+    # equal to the port's dispatch of the same model on the meta device; the
+    # f32-storage run launches none of the storage or transport variants
+    m4 = HardwareEfficientAnsatz(N29, STORAGE_L, entangler="cz")
+    p4 = m4.init_params(torch.Generator().manual_seed(SEED + 2))
+    st_runs = {}
+    for storage in ("f32", "mixed", "f16"):
+        config.set_state_storage(storage)
+        try:
+            _, want_vg, _ = program_launches(
+                lambda d: HardwareEfficientAnsatz(N29, STORAGE_L, entangler="cz",
+                                                  device=d), "magnetization")
+            p = p4.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            v = m4.magnetization(p)
+            v.backward()
+            torch.cuda.synchronize()
+            got = K.launch_counts()
+        finally:
+            config.set_state_storage("f32")
+        require(got == want_vg, f"[storage29] {storage} launch counts {got}, "
+                                f"want the dry run's {want_vg}")
+        st_runs[storage] = (v.item(), p.grad.detach().clone(), got)
+        del p, v
+    v32, g32, c32 = st_runs["f32"]
+    new_variants = [k for k in c32 if k.endswith(("[bf16]", "[f16]", "[bf16x3]"))]
+    require(all(c32[k] == 0 for k in new_variants),
+            "[storage29] the f32-storage run launched a storage variant")
+    for storage in ("mixed", "f16"):
+        v, g, c = st_runs[storage]
+        d = (g - g32).abs() / g32.abs().max().item()
+        rel, rms = d.max().item(), d.pow(2).mean().sqrt().item()
+        tag = "bf16" if storage == "mixed" else "f16"
+        launched = {k: c[k] for k in c if k.endswith((f"[{tag}]", "[bf16x3]")) and c[k]}
+        log(f"[storage29] {N29}q x {STORAGE_L}L {storage}: value {v!r} vs f32 "
+            f"{v32!r}; gradient |g - g32| / max |g32|: rms {rms:.3e} (tol "
+            f"{STORAGE29_TOL[storage]:.0e}), max {rel:.3e}; variants launched "
+            f"{json.dumps(launched)}")
+        require(v == v32, f"[storage29] the {storage} value moved with the storage")
+        require(rms <= STORAGE29_TOL[storage], f"[storage29] {storage} gradient error")
+        require(all(c[f"{k}[{tag}]"] == c[k] and c[k] > 0 for k in (
+            "block_backward_dual", "block_backward_high",
+            "block_backward_merged_fact", "diag_backward")),
+            f"[storage29] {storage} did not run the backward kernels' {tag} variants")
+    storage29 = {s_: st_runs[s_][2] for s_ in st_runs}
+    del m4, p4, st_runs, g32
+    torch.cuda.empty_cache()
+
+    # [f16_30]: HardwareEfficientAnsatz(30, 20, "cz") under "f16", the JAX
+    # package's 30-qubit bench line with its depth cut for chip time: warm
+    # value_and_grad and forward steps and peak memory (8 GiB of f32 forward
+    # planes beside 4 GiB of f16 cotangent planes); params = 0; the 30q x 1L
+    # closed form under f16
+    config.set_state_storage("f16")
+    try:
+        m30 = HardwareEfficientAnsatz(N30, F16_L, entangler="cz")
+        p30 = m30.init_params(torch.Generator().manual_seed(SEED)).requires_grad_(True)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        l30 = m30.magnetization(p30)
+        l30.backward()
+        torch.cuda.synchronize()
+        f30_first_s = time.perf_counter() - t0
+        c30 = K.launch_counts()
+        require(c30["block_backward_dual[f16]"] == c30["block_backward_dual"] > 0
+                and c30["block_backward_merged_fact[f16]"] == F16_L,
+                f"[f16_30] did not run the f16 variants: {c30}")
+        require(bool(torch.isfinite(p30.grad).all()), "[f16_30] non-finite gradient")
+        p30.grad = None
+        del l30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        l30 = m30.magnetization(p30)
+        l30.backward()
+        torch.cuda.synchronize()
+        f30_s = time.perf_counter() - t0
+        f30_peak = torch.cuda.max_memory_allocated()
+        v30 = l30.item()
+        del l30
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m30.magnetization(p30).item()
+            f30_fwd_s = time.perf_counter() - t0
+            f30_fwd_peak = torch.cuda.max_memory_allocated()
+        log(f"[f16_30] {N30}q x {F16_L}L under f16 storage: value {v30:.6f}; "
+            f"value_and_grad {f30_first_s:.3f} s (first call), {f30_s:.4f} s warm = "
+            f"{f30_s / F16_L * 1e3:.2f} ms/layer, peak memory {f30_peak / 2**30:.3f} "
+            f"GiB; forward step (warm) {f30_fwd_s:.4f} s, peak {f30_fwd_peak / 2**30:.3f} "
+            f"GiB; launches {json.dumps(c30)}")
+        del p30, m30
+        torch.cuda.empty_cache()
+        z30 = HardwareEfficientAnsatz(N30, F16_L, entangler="cz")
+        pz = torch.zeros(F16_L, N30, 3, device=dev, requires_grad=True)
+        vz = z30.magnetization(pz)
+        vz.backward()
+        gz = pz.grad.abs().max().item()
+        log(f"[f16_30] {N30}q x {F16_L}L params = 0: magnetization {vz.item()!r} "
+            f"(want {N30}); |grad| max {gz:.3e}")
+        require(abs(vz.item() - N30) <= ZERO_TOL * N30 and gz <= ZERO_TOL,
+                "[f16_30] the params = 0 known answer failed")
+        del z30, pz, vz
+        torch.cuda.empty_cache()
+        closed_form(N30, "f16_30", tol=F16_CLOSED_TOL, x3=True)
+    finally:
+        config.set_state_storage("f32")
+    f16_30 = dict(counts=c30, step_s=f30_s, fwd_s=f30_fwd_s, peak=f30_peak)
+    torch.cuda.empty_cache()
 
     # 7. the CNOT ring: 29 qubits x 20 layers ---------------------------------
     mc = HardwareEfficientAnsatz(N29, CNOT_LAYERS, entangler="cnot")
@@ -1550,6 +2065,7 @@ def main() -> int:
     want_fwd.update(Counter(k for k, _ in fwd_step))
     want_vg = dict.fromkeys(names, 0)
     want_vg.update(Counter(k for k, _ in vg_step))
+    with_gram_modes(want_vg)
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
         f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
 
@@ -1624,11 +2140,13 @@ def main() -> int:
     del mc, pc, gradc, lossc
     torch.cuda.empty_cache()
 
-    def cnot_closed_form(n: int) -> None:
+    def cnot_closed_form(n: int, x3: bool = False) -> None:
         """n x 1L at params (alpha, 0, 0): the ring's CNOTs (control first)
         give <Z_k> = prod_{j <= k} cos alpha_j for k < n - 1, and the
         closing CNOT <Z_{n-1}> = prod_{j >= 1} cos alpha_j; the beta and
         gamma gradients are 0."""
+        a_tol = max(CNOT_CLOSED_TOL, BF16X3_GRAM_TOL) if x3 else CNOT_CLOSED_TOL
+        z_tol = max(ZERO_GRAD_TOL, BF16X3_GRAM_TOL) if x3 else ZERO_GRAD_TOL
         one = HardwareEfficientAnsatz(n, 1, entangler="cnot")
         alpha = torch.linspace(-1.3, 1.4, n, dtype=torch.float64)
         p1 = torch.zeros(1, n, 3, dtype=torch.float64)
@@ -1644,17 +2162,16 @@ def main() -> int:
         val_err = abs(v1.item() - z.item())
         a_err = (g1[:, 0] - a.grad).abs().max().item()
         bg = g1[:, 1:].abs().max().item()
-        log(f"[cnot29] {n}q x 1L cnot closed form: value err {val_err:.3e} (tol "
-            f"{CLOSED_TOL * n:.1e}), alpha gradient err {a_err:.3e} (tol "
-            f"{CNOT_CLOSED_TOL:.0e}), |beta, gamma gradient| max {bg:.3e} (tol "
-            f"{ZERO_GRAD_TOL:.0e})")
-        require(val_err <= CLOSED_TOL * n and a_err <= CNOT_CLOSED_TOL
-                and bg <= ZERO_GRAD_TOL,
+        log(f"[cnot29] {n}q x 1L cnot closed form ({config.gram_kernel_dot_mode()} "
+            f"pair grams): value err {val_err:.3e} (tol {CLOSED_TOL * n:.1e}), alpha "
+            f"gradient err {a_err:.3e} (tol {a_tol:.0e}), |beta, gamma gradient| max "
+            f"{bg:.3e} (tol {z_tol:.0e})")
+        require(val_err <= CLOSED_TOL * n and a_err <= a_tol and bg <= z_tol,
                 f"the {n}-qubit 1-layer CNOT closed form failed")
         torch.cuda.empty_cache()
 
-    cnot_closed_form(N29)
-    cnot_closed_form(N30)
+    closed_forms(cnot_closed_form, N29)
+    closed_forms(cnot_closed_form, N30)
     two = HardwareEfficientAnsatz(N30, 2, entangler="cnot")
     p2 = torch.zeros(2, N30, 3, device=dev, requires_grad=True)
     v2 = two.magnetization(p2)
@@ -1782,7 +2299,7 @@ def main() -> int:
         "qaoa29", lambda d: QAOAMaxCut(N29, graph, layers_number=QAOA_LAYERS, device=d),
         lambda m, p: m._densities(p, K.KERNELS), "loss", QAOA_LAYERS)
 
-    def vqe_closed_form(n: int) -> None:
+    def vqe_closed_form(n: int, x3: bool = False) -> None:
         """VQEIsing(n, 1) at params (gamma, 0) from |+>^n: E = -n cos^2(2
         gamma), dE/dgamma = 2 n sin(4 gamma) = -dE/dbeta."""
         gamma = float(np.float32(0.37))  # the f32 angle, exactly
@@ -1794,15 +2311,18 @@ def main() -> int:
         val_err = abs(v1.item() + n * np.cos(2 * gamma) ** 2)
         g = p1.grad.double().cpu()
         g_err = max(abs(g[0].item() - s4), abs(g[1].item() + s4))
-        log(f"[vqe29] {n}q x 1L closed form: value err {val_err:.3e} (tol "
-            f"{VQE_VALUE_TOL * n:.1e}), gradient err {g_err:.3e} (tol "
-            f"{VQE_GRAD_TOL * n:.1e}) vs 2 n sin(4 gamma) = {s4:.4f}")
-        require(val_err <= VQE_VALUE_TOL * n and g_err <= VQE_GRAD_TOL * n,
+        g_tol = VQE_GRAD_TOL * n
+        if x3:
+            g_tol = max(g_tol, BF16X3_GRAM_TOL * max(1.0, abs(s4)))
+        log(f"[vqe29] {n}q x 1L closed form ({config.gram_kernel_dot_mode()} pair "
+            f"grams): value err {val_err:.3e} (tol {VQE_VALUE_TOL * n:.1e}), "
+            f"gradient err {g_err:.3e} (tol {g_tol:.1e}) vs 2 n sin(4 gamma) = {s4:.4f}")
+        require(val_err <= VQE_VALUE_TOL * n and g_err <= g_tol,
                 f"the {n}-qubit VQE closed form failed")
         torch.cuda.empty_cache()
 
-    vqe_closed_form(N29)
-    vqe_closed_form(N30)
+    closed_forms(vqe_closed_form, N29)
+    closed_forms(vqe_closed_form, N30)
     zero = QAOAMaxCut(N29, graph, layers_number=2, scan=True)
     pz = torch.zeros(4, device=dev, requires_grad=True)
     cut = zero.expected_cut(pz)
@@ -2092,7 +2612,7 @@ def main() -> int:
             "hpair29", lambda d: HardwareEfficientAnsatz(N29, HPAIR_LAYERS,
                                                          entangler="cz", device=d),
             lambda m, p: m.densities(p), "magnetization", HPAIR_LAYERS)
-        closed_form(N29, "hpair29")
+        closed_forms(closed_form, N29, "hpair29")
     finally:
         config.set_hpair_factorized(True)
     hp_wide = wide_counts(hp29["counts"])
@@ -2355,7 +2875,7 @@ def main() -> int:
                 "shape": rep["shape"], "dense_bound_ms": rep.get("dense_bound_ms")}
 
     for name, (src, replaces, variant) in sources.items():
-        mine = [r for r in rows if r["kernel"] == name and not (
+        mine = [r for r in rows if r["kernel"] == name and "storage" not in r and not (
             name in ("block_backward_dual", "block_backward_high", "diag_backward",
                      "dual_multi_apply", "high_multi_apply")
             and r["variant"].endswith(("_q", "_acc", "_fresh")))]
@@ -2366,10 +2886,72 @@ def main() -> int:
                           main_fwd[name]))
     for name, (src, replaces, variant, tag) in modes.items():
         kernel = name.split("[")[0]
-        mine = [r for r in rows if r["kernel"] == kernel and tag in r["variant"]]
+        mine = [r for r in rows if r["kernel"] == kernel and tag in r["variant"]
+                and "storage" not in r]
         run = mode_runs.get(name, vqe29)
         out.append(row_of(name, src, replaces, mine, variant,
                           run["counts"][name], run["counts_fwd"][name]))
+    # the storage and dot-mode variants: "launches" from [f16_29] for
+    # f16 and the bf16x3 transport, from [storage29]'s "mixed" run for bf16,
+    # from [grad29] for the default bf16x3 pair grams ([cnot29] for the
+    # sublane adjoint's, [tape29] for the lane adjoint's); their forwards
+    # launch none of them
+    bb = "dqc_tpu/ops/pallas/block_backward.py"
+    f16c, bf16c = f16_29["counts"], storage29["mixed"]
+    # name: (source, replaces, representative row, storages of its rows, runs)
+    variants = {
+        "dual_apply[f16]": ("dqc_tpu_torch/csrc/dual_apply.cu",
+                            "dqc_tpu/ops/pallas/dual_apply.py:232 (seed, u16 out)",
+                            "29q_seed_f16", ("float16",), f16c),
+        "dual_apply[bf16]": ("dqc_tpu_torch/csrc/dual_apply.cu",
+                             "dqc_tpu/ops/pallas/dual_apply.py:232 (seed, bf16 out)",
+                             "29q_seed_bf16", ("bfloat16",), bf16c),
+        "high_apply[f16]": ("dqc_tpu_torch/csrc/high_apply.cu",
+                            "dqc_tpu/ops/pallas/high_apply.py:76 (seed, u16 out)",
+                            "29q_X128_seed_f16", ("float16",), f16c),
+        "high_apply[bf16]": ("dqc_tpu_torch/csrc/high_apply.cu",
+                             "dqc_tpu/ops/pallas/high_apply.py:76 (seed, bf16 out)",
+                             "29q_X128_seed_bf16", ("bfloat16",), bf16c),
+        "diag_backward[f16]": ("dqc_tpu_torch/csrc/diag.cu",
+                               "dqc_tpu/ops/pallas/diag.py:154 (u16 bwd)",
+                               "29q_f16", ("float16",), f16c),
+        "diag_backward[bf16]": ("dqc_tpu_torch/csrc/diag.cu",
+                                "dqc_tpu/ops/pallas/diag.py:154 (bf16 bwd)",
+                                "29q_bf16", ("bfloat16",), bf16c),
+        "block_backward_sublane[gram_bf16x3]": (
+            "dqc_tpu_torch/csrc/block_backward_sublane.cu",
+            f"{bb}:184 (gram_dot_mode bf16x3)", "29q_gram_bf16x3",
+            ("float32",), countsc),
+        "block_backward_lane[gram_bf16x3]": (
+            "dqc_tpu_torch/csrc/block_backward_lane.cu",
+            f"{bb}:88 (gram_dot_mode bf16x3)", "29q_gram_bf16x3",
+            ("float32",), t29["counts"]),
+    }
+    for kernel, src, line, pre in (
+            ("block_backward_dual", "dqc_tpu_torch/csrc/block_backward_dual.cu",
+             f"{bb}:437", "29q_"),
+            ("block_backward_high", "dqc_tpu_torch/csrc/block_backward_high.cu",
+             f"{bb}:906", "29q_X128_"),
+            ("block_backward_merged_fact",
+             "dqc_tpu_torch/csrc/block_backward_merged_fact.cu", f"{bb}:670", "Xt2_")):
+        rep_of = {"f16": f"{pre}f16", "bf16": f"{pre}bf16",
+                  "gram_bf16x3": f"{pre}gram_bf16x3"}
+        if kernel == "block_backward_dual":
+            rep_of = {k: f"29q_{k}_g0_first_diag_first" for k in rep_of}
+        variants[f"{kernel}[f16]"] = (src, f"{line} (u16 bwd)", rep_of["f16"],
+                                      ("float16",), f16c)
+        variants[f"{kernel}[bf16]"] = (src, f"{line} (bf16 bwd)", rep_of["bf16"],
+                                       ("bfloat16",), bf16c)
+        variants[f"{kernel}[bf16x3]"] = (src, f"{line} (bwd_dot_mode bf16x3)",
+                                         rep_of["f16"], ("float16", "bfloat16"), f16c)
+        variants[f"{kernel}[gram_bf16x3]"] = (src, f"{line} (gram_dot_mode bf16x3)",
+                                              rep_of["gram_bf16x3"], ("float32",),
+                                              counts29)
+    for name, (src, replaces, variant, storages, run_counts) in variants.items():
+        kernel = name.split("[")[0]
+        mine = [r for r in rows if r["kernel"] == kernel
+                and r.get("storage") in storages]
+        out.append(row_of(name, src, replaces, mine, variant, run_counts[name], 0))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -987,7 +987,7 @@ def _backward_dual_step(fxr, fxi, bxr, bxi, i_first: int,
             diag_first_fwd=diag_first, diag_q=with_q)
     out = layer.kernels.block_backward_dual(
         fxr, fxi, bxr, bxi, *ops_of(lane_i), *ops_of(sub_i),
-        g0_first=g0_first, **diag)
+        g0_first=g0_first, **diag, **pl._bwd_modes())
     if lane_i is not None:
         _close_block_cts(layer, lane_i, torch.complex(out[4], out[5]), var_cts)
     if sub_i is not None:
@@ -1240,7 +1240,7 @@ def _scan_layers_backward(fxr, fxi, bxr, bxi, ftape: FusedTape, program,
         var_cts: Dict[int, torch.Tensor] = {}
         lay = layer(l)
         planes = _backward_program(*planes, prog, lay, var_cts)
-        per_layer[l] = tuple(_match_ct(var_cts[q], g)
+        per_layer[l] = tuple(_plane_ct(var_cts[q], g)
                              for q, g in enumerate(lay.var_gates))
         return planes
 
@@ -1354,10 +1354,14 @@ def _add_seed(pending: Dict, fi: FDensity, ct: torch.Tensor, n: int) -> None:
     """Fold one diff-density cotangent into the seed accumulators: in-group
     requests sum per-group expanded operators ``(L + L^H)`` (key = group);
     cross-group requests keep their ``sym`` per positions tuple (key =
-    positions), applied as a dense cross-group gate."""
+    positions), applied as a dense cross-group gate. The f16 prescale
+    (:func:`_ct_prescale`) rides on the seeds."""
     sizes = gr.group_sizes_low_first(n)
     d = 1 << len(fi.positions)
     ct_m = ct.reshape(d, d).to(C64)
+    s = _ct_prescale()
+    if s is not None:
+        ct_m = ct_m * s
     sym = ct_m + ct_m.conj().T
     groups = _density_groups(fi, n)
     if len(groups) == 1:
@@ -1397,9 +1401,15 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
     gate in the same seed form (_apply_dense_cross: the multi-term kernels,
     a span view or per-term sweeps); one over more than two groups without
     a span view as ``conj(_apply_xcross(conj(M)))`` on a copy of the
-    forward planes, added into the accumulator."""
+    forward planes, added into the accumulator.
+
+    The first seed creates the cotangent planes in config.bwd_plane_dtype()
+    and the later ones accumulate in that storage (the JAX package's
+    ``out_dtype``). A seed across groups runs the multi-term kernels, which
+    take f32 planes only: under reduced storage it raises (ROADMAP.md)."""
     pending = dict(pending)
     njg = len(gr.group_dims(n))
+    bwd_dt = config.bwd_plane_dtype()
     if pl.merged_top_tiny(n) and (njg - 1 in pending or njg - 2 in pending):
         X, Xl = gr.group_dims(n)[:2]
         M_top = pending.pop(njg - 1, None)
@@ -1412,10 +1422,17 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
             Mm = t if Mm is None else Mm + t
         acc = None if bxr is None else (bxr, bxi)
         bxr, bxi = pl.apply_merged_top(fxr, fxi, Mm.conj(), n, alias=False,
-                                       conj=True, acc=acc, kernels=kernels)
+                                       conj=True, acc=acc, out_dtype=bwd_dt,
+                                       kernels=kernels)
     for key, M in pending.items():
         acc = None if bxr is None else (bxr, bxi)
         if isinstance(key, tuple):
+            if bwd_dt != torch.float32:
+                raise NotImplementedError(
+                    f"the seed of a density across groups {key} runs the "
+                    f"multi-term kernels, which take f32 planes only: "
+                    f"{config.state_storage()!r} storage is not ported to "
+                    "them yet; see ROADMAP.md")
             groups = {gr.group_of_bit(n, p)[0] for p in key}
             if len(groups) <= 2 or pl.cross_span_eligible(key, n):
                 bxr, bxi = _apply_dense_cross(fxr, fxi, M.conj(), key, n,
@@ -1429,7 +1446,8 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
                 bxr, bxi = bxr + yr, bxi - yi
             continue
         bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), key, n, alias=False,
-                                  conj=True, acc=acc, kernels=kernels)
+                                  conj=True, acc=acc, out_dtype=bwd_dt,
+                                  kernels=kernels)
     return bxr, bxi
 
 
@@ -1448,20 +1466,50 @@ def _tape_all_const(ftape: FusedTape) -> bool:
     return True
 
 
+def _ct_prescale() -> Optional[float]:
+    """The power-of-2 prescale the cotangent planes carry under "f16"
+    storage, None for every other mode (the JAX package's
+    plane_scan._ct_prescale). f16 has 5 exponent bits (smallest normal
+    6.1e-5, the kernels' codec flushes below it) while a deep statevector's
+    cotangent entries sit near 2^(-n/2); the grams, transports and Q
+    reductions are linear in the cotangent, so one division at each exit
+    (gate cotangents, the state's) removes it exactly. S = 256 keeps the
+    entries clear of the flushed band up to ~34 qubits and clips only above
+    a cotangent 2-norm of 256 (65504 / 256)."""
+    return 256.0 if config.state_storage() == "f16" else None
+
+
+def _plane_ct(ct: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A gate cotangent of the plane engine, the f16 prescale removed, shaped
+    and typed like its gate."""
+    s = _ct_prescale()
+    if s is not None:
+        ct = ct * (1.0 / s)
+    return _match_ct(ct, ref)
+
+
 def _ct_to_planes(ct: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A state cotangent (the JAX package's convention) -> cotangent planes.
-    f32 storage only, the one ported: the f16 storage's prescale has no
-    counterpart yet."""
-    return pl.to_planes(ct.to(C64), n)
+    """A state cotangent (the JAX package's convention) -> cotangent planes
+    in config.bwd_plane_dtype(), the f16 prescale applied."""
+    ct = ct.to(C64)
+    s = _ct_prescale()
+    if s is not None:
+        ct = ct * s
+    return pl.to_planes(ct, n, config.bwd_plane_dtype())
 
 
 def _state_grad(bxr, bxi, n: int, ref_dtype, ref_shape) -> torch.Tensor:
     """Cotangent planes -> the torch gradient of an initial state of
-    ``ref_dtype`` and ``ref_shape`` (the conjugate of the cotangent)."""
+    ``ref_dtype`` and ``ref_shape`` (the conjugate of the cotangent), the
+    f16 prescale removed."""
     from dqc_tpu_torch.circuit.autograd import match_grad
 
     ref = torch.empty(ref_shape, dtype=ref_dtype, device="meta")
-    return match_grad(pl.from_planes(bxr, bxi, n), ref)
+    st = pl.from_planes(bxr, bxi, n)
+    s = _ct_prescale()
+    if s is not None:
+        st = st * (1.0 / s)
+    return match_grad(st, ref)
 
 
 def _take_planes(ctx, what: str):
@@ -1885,6 +1933,11 @@ class _PlaneTapeForward(torch.autograd.Function):
         from dqc_tpu_torch.circuit.autograd import match_grad
 
         ftape, const_gates, kernels, state_dtype, state_shape = ctx.statics
+        if config.state_storage() != "f32":
+            raise NotImplementedError(
+                f"plane_tape_forward's adjoint under {config.state_storage()!r} "
+                "storage (the generic plane tape of autodiff_run) is not "
+                "ported yet; see ROADMAP.md")
         if ctx.planes is None:
             raise RuntimeError(
                 "plane_tape_forward: the planes were consumed by an earlier "

@@ -3,10 +3,11 @@
 Counterpart of ``dqc_tpu/config.py``: the default complex dtype, gate
 fusion, the plane-engine mode, the singularity checks of the uncompute, the
 in-kernel dot modes (forward, cotangent side, pair grams), the state-plane
-storage and the factorized merged-top sweep. The dot modes and the storage
-have one ported value so far; asking for another raises
-``NotImplementedError`` (ROADMAP.md lists the modes still to port).
-The singularity checks' "debug" mode raises the same way. The JAX
+storage and the factorized merged-top sweep. Storage "f32", "mixed" and
+"f16" are ported, and the cotangent-side and pair-gram dots take "f32" and
+"bf16x3"; "bf16" storage and the forward "bf16x3" raise
+``NotImplementedError`` (ROADMAP.md lists them). The singularity checks'
+"debug" mode raises the same way. The JAX
 package's matmul precision has no counterpart: the port never enables TF32,
 so every product runs in full f32 (or f64). Neither has its
 ``set_full_unroll_qubits``, which picks a scanned or a straight-line
@@ -40,16 +41,11 @@ _HPAIR_FACTORIZED = True
 
 def _not_ported(what: str, value) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} {value!r} is not ported to dqc_tpu_torch yet (only 'f32'); "
-        "see ROADMAP.md")
+        f"{what} {value!r} is not ported to dqc_tpu_torch yet; see ROADMAP.md")
 
 
 def _backward_mode(what: str, mode: str) -> str:
-    if mode == "bf16x3":
-        raise NotImplementedError(
-            f"{what} 'bf16x3' (the 3-pass bf16 split of dots.make_dot) is not "
-            "ported to dqc_tpu_torch yet; see ROADMAP.md slice 4")
-    if mode not in ("auto", "f32"):
+    if mode not in ("auto", "f32", "bf16x3"):
         raise ValueError(f"{what} must be 'auto', 'f32' or 'bf16x3'")
     return mode
 
@@ -131,8 +127,12 @@ def real_of(dtype) -> torch.dtype:
 
 
 def set_kernel_dot_mode(mode: str) -> None:
-    if mode != "f32":
+    """The forward and uncompute products: "f32" only; "bf16x3" raises
+    (ROADMAP.md)."""
+    if mode == "bf16x3":
         raise _not_ported("kernel dot mode", mode)
+    if mode != "f32":
+        raise ValueError("kernel dot mode must be 'f32' or 'bf16x3'")
 
 
 def kernel_dot_mode() -> str:
@@ -142,30 +142,35 @@ def kernel_dot_mode() -> str:
 
 def set_bwd_kernel_dot_mode(mode: str) -> None:
     """Dot mode of the cotangent-side contractions of the backward kernels
-    (transport ``b' = E^T b``)."""
+    (transport ``b' = E^T b``): "auto", "f32" or "bf16x3"."""
     global _BWD_KERNEL_DOT_MODE
     _BWD_KERNEL_DOT_MODE = _backward_mode("bwd kernel dot mode", mode)
 
 
 def bwd_kernel_dot_mode() -> str:
-    """"auto" follows the forward mode; with f32 storage, the only ported
-    one, that is the JAX package's resolution too."""
+    """"auto" is "bf16x3" under reduced cotangent storage (its dot error
+    sits far under the per-store rounding) and the forward mode otherwise,
+    as in the JAX package."""
     if _BWD_KERNEL_DOT_MODE == "auto":
+        if _STATE_STORAGE in ("mixed", "f16"):
+            return "bf16x3"
         return kernel_dot_mode()
     return _BWD_KERNEL_DOT_MODE
 
 
 def set_gram_kernel_dot_mode(mode: str) -> None:
-    """Dot mode of the pair grams ``T0`` inside the backward kernels."""
+    """Dot mode of the pair grams ``T0`` inside the backward kernels:
+    "auto", "f32" or "bf16x3"."""
     global _GRAM_KERNEL_DOT_MODE
     _GRAM_KERNEL_DOT_MODE = _backward_mode("gram kernel dot mode", mode)
 
 
 def gram_kernel_dot_mode() -> str:
-    """"auto" resolves to "f32" until bf16x3 is ported. The JAX package
-    resolves it to "bf16x3" (ROADMAP.md section C records the difference)."""
+    """"auto" resolves to "bf16x3" whatever the storage, as in the JAX
+    package: each pair gram is a per-gate leaf output, so its 3-pass split
+    does not compound."""
     if _GRAM_KERNEL_DOT_MODE == "auto":
-        return "f32"
+        return "bf16x3"
     return _GRAM_KERNEL_DOT_MODE
 
 
@@ -185,8 +190,18 @@ def hpair_factorized() -> bool:
 
 
 def set_state_storage(mode: str) -> None:
-    if mode != "f32":
+    """Storage of the statevector planes between kernel passes (compute is
+    f32 inside the kernels): "f32"; "mixed", forward planes f32 and
+    cotangent planes bf16; "f16", cotangent planes float16, carrying the
+    power-of-2 prescale of plane_scan._ct_prescale. "bf16" (both pairs
+    bf16) raises (ROADMAP.md). Off the planes (n < 14, complex128, the plane
+    engine off) the storage has no effect."""
+    global _STATE_STORAGE
+    if mode == "bf16":
         raise _not_ported("state storage", mode)
+    if mode not in ("f32", "mixed", "f16"):
+        raise ValueError("state storage must be 'f32', 'mixed', 'f16' or 'bf16'")
+    _STATE_STORAGE = mode
 
 
 def state_storage() -> str:
@@ -196,6 +211,14 @@ def state_storage() -> str:
 def fwd_plane_dtype() -> torch.dtype:
     """Storage dtype of the forward statevector planes."""
     return torch.float32
+
+
+def bwd_plane_dtype() -> torch.dtype:
+    """Storage dtype of the cotangent planes: bfloat16 under "mixed",
+    float16 under "f16" (the JAX package keeps the same bits in uint16
+    planes because Mosaic has no f16 type), else float32."""
+    return {"mixed": torch.bfloat16, "f16": torch.float16}.get(
+        _STATE_STORAGE, torch.float32)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -33,6 +33,20 @@
 // wait for the old value (each entry has one writer, so they add in program
 // order), and a second kernel adds the slots in a fixed order: the result
 // does not depend on scheduling.
+//
+// Reduced cotangent storage and bf16x3 (config.set_state_storage,
+// set_bwd_kernel_dot_mode / set_gram_kernel_dot_mode): B may be stored as
+// bf16 or f16 (common.cuh's codec at its loads and stores; F stays f32), the
+// transport may run bf16x3 (TX3) and the pair gram bf16x3 (GX3), the
+// uncompute always f32. The bf16x3 pair gram of a 128-row tile runs on the
+// tensor cores (pair_gram_x3_mma128: mma.sync m16n8k16 bf16, three products
+// per real product, the parts split from shared memory into registers);
+// faster than the f32 gram's FMAs. Elsewhere bf16x3 is two FMAs per real
+// product on parts split in registers (common.cuh cmac3): the transport half
+// stages its operator tile as hi and lo parts at half the depth, in the same
+// shared memory, and splits the tile's values as it reads them; a narrower
+// pair gram splits both operands as it reads them, one column of its float4
+// at a time so that the parts stay in registers.
 #pragma once
 
 #include "common.cuh"
@@ -102,15 +116,23 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
 // Op = E (trans = 0) or E^T (trans = 1), E an X x X operator in device
 // memory and T the shared-memory tile [x][c]; run by each half of the block
 // on its own operands and operator-tile buffer. Both operands are read as
-// float4 (four rows of the operator tile, four columns of the tile).
-template <int X>
+// float4 (four rows of the operator tile, four columns of the tile). With
+// TX3 the second half (trans = 1, the transport) runs bf16x3: its operator
+// tile holds the hi and lo parts of KC / 2 rows of E, and both halves step
+// KC / 2 deep so that they meet the same barriers.
+template <int X, bool TX3 = false>
 __device__ void op_times_tile(const float* __restrict__ er,
                               const float* __restrict__ ei, int trans,
                               const float* tr_, const float* ti_, float* sTr,
                               float* sTi, float (&accr)[8][4],
                               float (&acci)[8][4]) {
   using Cfg = AdjCfg<X>;
-  constexpr int KC = Cfg::KC, CT = Cfg::CT, LD = Cfg::LD;
+  constexpr int KC = TX3 ? Cfg::KC / 2 : Cfg::KC, CT = Cfg::CT, LD = Cfg::LD;
+  const bool x3 = TX3 && trans;
+  // the x3 half's operator tile: hi (r, i) in sTr, lo (r, i) after it
+  float* sLr = sTr + 2 * KC * X;
+  float* sLi = sLr + KC * X;
+  if (x3) sTi = sTr + KC * X;
   const int t = threadIdx.x % kHalf;
   const int rg = t / CT, ct = t % CT;
 #pragma unroll
@@ -131,71 +153,123 @@ __device__ void op_times_tile(const float* __restrict__ er,
         kk = e % KC;
         src = (int64_t)row * X + k0 + kk;
       }
-      sTr[kk * X + row] = __ldg(er + src);
-      sTi[kk * X + row] = __ldg(ei + src);
+      const float vr = __ldg(er + src), vi = __ldg(ei + src);
+      if (x3) {
+        split_hl(vr, sTr[kk * X + row], sLr[kk * X + row]);
+        split_hl(vi, sTi[kk * X + row], sLi[kk * X + row]);
+      } else {
+        sTr[kk * X + row] = vr;
+        sTi[kk * X + row] = vi;
+      }
     }
     __syncthreads();
+    if (x3) {
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 br4 =
-          *reinterpret_cast<const float4*>(tr_ + (k0 + kk) * LD + 4 * ct);
-      const float4 bi4 =
-          *reinterpret_cast<const float4*>(ti_ + (k0 + kk) * LD + 4 * ct);
-      const float br[4] = {br4.x, br4.y, br4.z, br4.w};
-      const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
+      for (int kk = 0; kk < KC; ++kk) {
+        const float4 br4 =
+            *reinterpret_cast<const float4*>(tr_ + (k0 + kk) * LD + 4 * ct);
+        const float4 bi4 =
+            *reinterpret_cast<const float4*>(ti_ + (k0 + kk) * LD + 4 * ct);
+        const float br[4] = {br4.x, br4.y, br4.z, br4.w};
+        const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
+        float brh[4], brs[4], bih[4], bis[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows rg 8 + 4 h .. + 3, one float4 each
-        const float4 ar4 =
-            *reinterpret_cast<const float4*>(sTr + kk * X + rg * 8 + 4 * h);
-        const float4 ai4 =
-            *reinterpret_cast<const float4*>(sTi + kk * X + rg * 8 + 4 * h);
-        const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
-        const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
+        for (int j = 0; j < 4; ++j) {
+          split_hs(br[j], brh[j], brs[j]);
+          split_hs(bi[j], bih[j], bis[j]);
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const int o = kk * X + rg * 8 + 4 * h;
+          const float4 arh4 = *reinterpret_cast<const float4*>(sTr + o);
+          const float4 aih4 = *reinterpret_cast<const float4*>(sTi + o);
+          const float4 arl4 = *reinterpret_cast<const float4*>(sLr + o);
+          const float4 ail4 = *reinterpret_cast<const float4*>(sLi + o);
+          const float arh[4] = {arh4.x, arh4.y, arh4.z, arh4.w};
+          const float aih[4] = {aih4.x, aih4.y, aih4.z, aih4.w};
+          const float arl[4] = {arl4.x, arl4.y, arl4.z, arl4.w};
+          const float ail[4] = {ail4.x, ail4.y, ail4.z, ail4.w};
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cmac(accr[4 * h + i][j], acci[4 * h + i][j], ar[i], ai[i], br[j],
-                 bi[j]);
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              cmac3(accr[4 * h + i][j], acci[4 * h + i][j], arh[i], arl[i],
+                    aih[i], ail[i], brh[j], brs[j], bih[j], bis[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const float4 br4 =
+            *reinterpret_cast<const float4*>(tr_ + (k0 + kk) * LD + 4 * ct);
+        const float4 bi4 =
+            *reinterpret_cast<const float4*>(ti_ + (k0 + kk) * LD + 4 * ct);
+        const float br[4] = {br4.x, br4.y, br4.z, br4.w};
+        const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows rg 8 + 4 h .. + 3, one float4 each
+          const float4 ar4 =
+              *reinterpret_cast<const float4*>(sTr + kk * X + rg * 8 + 4 * h);
+          const float4 ai4 =
+              *reinterpret_cast<const float4*>(sTi + kk * X + rg * 8 + 4 * h);
+          const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
+          const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              cmac(accr[4 * h + i][j], acci[4 * h + i][j], ar[i], ai[i], br[j],
+                   bi[j]);
+        }
       }
     }
   }
 }
 
-// The products back into the shared-memory tile [y][c].
+// The products back into the shared-memory tile [y][c], rounded to the
+// storage kind qkind (kStoreF32: as they are).
 template <int X>
 __device__ __forceinline__ void acc_to_tile(const float (&accr)[8][4],
                                             const float (&acci)[8][4],
-                                            float* tr_, float* ti_) {
+                                            float* tr_, float* ti_,
+                                            int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
   const int t = threadIdx.x % kHalf;
   const int rg = t / Cfg::CT, ct = t % Cfg::CT;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int o = (rg * 8 + i) * Cfg::LD + 4 * ct;
-    *reinterpret_cast<float4*>(tr_ + o) =
-        make_float4(accr[i][0], accr[i][1], accr[i][2], accr[i][3]);
-    *reinterpret_cast<float4*>(ti_ + o) =
-        make_float4(acci[i][0], acci[i][1], acci[i][2], acci[i][3]);
+    *reinterpret_cast<float4*>(tr_ + o) = make_float4(
+        quantize(accr[i][0], qkind), quantize(accr[i][1], qkind),
+        quantize(accr[i][2], qkind), quantize(accr[i][3], qkind));
+    *reinterpret_cast<float4*>(ti_ + o) = make_float4(
+        quantize(acci[i][0], qkind), quantize(acci[i][1], qkind),
+        quantize(acci[i][2], qkind), quantize(acci[i][3], qkind));
   }
 }
 
 // Planes <-> shared-memory tile, in the order that keeps device-memory
 // accesses coalesced (x fastest when the rows are adjacent, rs == 1),
-// optionally times the run's entries.
+// optionally times the run's entries; the planes stored as kind (common.cuh
+// codec). qkind rounds the loaded values times the run to that storage
+// (kStoreF32: not at all), as a store and a reload would.
 template <int X>
-__device__ void load_tile(const float* gr_, const float* gi_, int64_t rs,
-                          int64_t cs, float* tr_, float* ti_, int use_diag,
-                          const DiagView& dv) {
+__device__ void load_tile(const void* gr_, const void* gi_, int kind,
+                          int64_t rs, int64_t cs, float* tr_, float* ti_,
+                          int use_diag, const DiagView& dv,
+                          int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
     const int c = rs == 1 ? e / X : e % Cfg::C;
-    float vr = gr_[x * rs + c * cs], vi = gi_[x * rs + c * cs];
+    float vr = load_plane(gr_, x * rs + c * cs, kind);
+    float vi = load_plane(gi_, x * rs + c * cs, kind);
     if (use_diag) {
       float dr, di;
       diag_view_at(dv, x, c, dr, di);
       cmul(vr, vi, dr, di, vr, vi);
+      vr = quantize(vr, qkind);
+      vi = quantize(vi, qkind);
     }
     tr_[x * Cfg::LD + c] = vr;
     ti_[x * Cfg::LD + c] = vi;
@@ -203,9 +277,9 @@ __device__ void load_tile(const float* gr_, const float* gi_, int64_t rs,
 }
 
 template <int X>
-__device__ void store_tile(float* gr_, float* gi_, int64_t rs, int64_t cs,
-                           const float* tr_, const float* ti_, int use_diag,
-                           const DiagView& dv) {
+__device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
+                           int64_t cs, const float* tr_, const float* ti_,
+                           int use_diag, const DiagView& dv) {
   using Cfg = AdjCfg<X>;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
@@ -216,17 +290,130 @@ __device__ void store_tile(float* gr_, float* gi_, int64_t rs, int64_t cs,
       diag_view_at(dv, x, c, dr, di);
       cmul(vr, vi, dr, di, vr, vi);
     }
-    gr_[x * rs + c * cs] = vr;
-    gi_[x * rs + c * cs] = vi;
+    store_plane(gr_, x * rs + c * cs, vr, kind);
+    store_plane(gi_, x * rs + c * cs, vi, kind);
   }
+}
+
+// Two floats (the lower index first) as the hi and lo bf16 parts of a
+// bf16x2 register each, for mma.sync.
+__device__ __forceinline__ void split_bf16x2(float2 v, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - __low2float(h),
+                                                 v.y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d += a b, one m16n8k16 bf16 product with f32 accumulation on the tensor
+// cores (a: 4 registers of the row-major 16 x 16 A fragment, b: 2 of the
+// column-major 16 x 8 B fragment).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in bf16x3 on the tensor cores: ah bh + ah bl + al bh.
+__device__ __forceinline__ void mma_bf16x3(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_bf16(d, ah, bh0, bh1);
+  mma_bf16(d, ah, bl0, bl1);
+  mma_bf16(d, al, bh0, bh1);
+}
+
+// The bf16x3 pair gram of a 128-row tile on the tensor cores: part[x][y]
+// (re), part[X X + x X + y] (im) += sum over the tile's 64 columns of
+// B[x][c] F[y][c]. Warp w owns the 32 x 32 output block at rows 32 (w / 4),
+// columns 32 (w % 4): 2 x 4 m16n8 tiles, their re and im accumulators in
+// registers, 16 columns per k-step. Each operand fragment is read from
+// shared memory as float2 pairs and split into bf16 hi and lo registers
+// there; a complex product is Br Fr - Bi Fi and Br Fi + Bi Fr, each real
+// product three bf16 mma (hi hi, hi lo, lo hi), -Bi by flipping the sign
+// bits of its parts (exact). Each accumulator entry has one writer thread,
+// added to the block's slot without waiting for the old value, as below.
+__device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
+                                    const float* fR, const float* fI,
+                                    float* part) {
+  using Cfg = AdjCfg<kGroup>;
+  constexpr int LD = Cfg::LD, X = kGroup;
+  static_assert(Cfg::C == 64 && Cfg::G == 1, "X = 128 tiles, one slot");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int xb = 32 * (warp >> 2), yb = 32 * (warp & 3);
+  float accr[2][4][4], acci[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accr[m][n][e] = acci[m][n][e] = 0.f;
+#pragma unroll 1
+  for (int kb = 0; kb < Cfg::C; kb += 16) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      // A = B[x][c]: rows x = xb + 16 m + g (+ 8), columns kb + 2 t (+ 8)
+      uint32_t arh[4], arl[4], aih[4], ail[4], anh[4], anl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = xb + 16 * m + g + 8 * (r & 1);
+        const int col = kb + 2 * t + 8 * (r >> 1);
+        split_bf16x2(*reinterpret_cast<const float2*>(bR + row * LD + col),
+                     arh[r], arl[r]);
+        split_bf16x2(*reinterpret_cast<const float2*>(bI + row * LD + col),
+                     aih[r], ail[r]);
+        anh[r] = aih[r] ^ 0x80008000u;
+        anl[r] = ail[r] ^ 0x80008000u;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        // B = F^T: column y = yb + 8 n + g, rows c = kb + 2 t (+ 8)
+        const float* fr = fR + (yb + 8 * n + g) * LD + kb + 2 * t;
+        const float* fi = fI + (yb + 8 * n + g) * LD + kb + 2 * t;
+        uint32_t brh0, brl0, brh1, brl1, bih0, bil0, bih1, bil1;
+        split_bf16x2(*reinterpret_cast<const float2*>(fr), brh0, brl0);
+        split_bf16x2(*reinterpret_cast<const float2*>(fr + 8), brh1, brl1);
+        split_bf16x2(*reinterpret_cast<const float2*>(fi), bih0, bil0);
+        split_bf16x2(*reinterpret_cast<const float2*>(fi + 8), bih1, bil1);
+        mma_bf16x3(accr[m][n], arh, arl, brh0, brh1, brl0, brl1);
+        mma_bf16x3(accr[m][n], anh, anl, bih0, bih1, bil0, bil1);
+        mma_bf16x3(acci[m][n], arh, arl, bih0, bih1, bil0, bil1);
+        mma_bf16x3(acci[m][n], aih, ail, brh0, brh1, brl0, brl1);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = xb + 16 * m + g + 8 * (e >> 1);
+        const int y = yb + 8 * n + 2 * t + (e & 1);
+        atomicAdd(part + x * X + y, accr[m][n][e]);
+        atomicAdd(part + X * X + x * X + y, acci[m][n][e]);
+      }
 }
 
 // part[g][x][y] (re), part[g][X X + x X + y] (im) += sum over this group's
 // columns, the float4 columns 4 (g + G kk) .. + 3, of B[x][c] F[y][c];
-// x = rx + i, y = cy + CT2 j.
-template <int X>
+// x = rx + i, y = cy + CT2 j. With GX3 the products run bf16x3: on the
+// tensor cores at X = 128 (pair_gram_x3_mma128), else on the CUDA cores,
+// the columns of a float4 one at a time with scalar reads, B as (hi, lo)
+// parts and F as (hi, hi + lo).
+template <int X, bool GX3 = false>
 __device__ void pair_gram(const float* bR, const float* bI, const float* fR,
                           const float* fI, float* part) {
+  if constexpr (GX3 && X == kGroup) {
+    pair_gram_x3_mma128(bR, bI, fR, fI, part);
+    return;
+  }
   using Cfg = AdjCfg<X>;
   constexpr int G = Cfg::G, CT2 = Cfg::CT2, LD = Cfg::LD;
   const int g = threadIdx.x / Cfg::TPG, t = threadIdx.x % Cfg::TPG;
@@ -239,22 +426,44 @@ __device__ void pair_gram(const float* bR, const float* bI, const float* fR,
     for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0.f;
   for (int c4 = g; c4 < Cfg::C4; c4 += G) {
     const int c = 4 * c4;
-    float4 f_r[4], f_i[4];
+    if constexpr (GX3) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f_r[j] = *reinterpret_cast<const float4*>(fR + (cy + CT2 * j) * LD + c);
-      f_i[j] = *reinterpret_cast<const float4*>(fI + (cy + CT2 * j) * LD + c);
-    }
+      for (int u = 0; u < 4; ++u) {
+        float fh_r[4], fs_r[4], fh_i[4], fs_i[4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 b_r = *reinterpret_cast<const float4*>(bR + (rx + i) * LD + c);
-      const float4 b_i = *reinterpret_cast<const float4*>(bI + (rx + i) * LD + c);
+        for (int j = 0; j < 4; ++j) {
+          split_hs(fR[(cy + CT2 * j) * LD + c + u], fh_r[j], fs_r[j]);
+          split_hs(fI[(cy + CT2 * j) * LD + c + u], fh_i[j], fs_i[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float bh_r, bl_r, bh_i, bl_i;
+          split_hl(bR[(rx + i) * LD + c + u], bh_r, bl_r);
+          split_hl(bI[(rx + i) * LD + c + u], bh_i, bl_i);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cmac3(accr[i][j], acci[i][j], bh_r, bl_r, bh_i, bl_i, fh_r[j],
+                  fs_r[j], fh_i[j], fs_i[j]);
+        }
+      }
+    } else {
+      float4 f_r[4], f_i[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        cmac(accr[i][j], acci[i][j], b_r.x, b_i.x, f_r[j].x, f_i[j].x);
-        cmac(accr[i][j], acci[i][j], b_r.y, b_i.y, f_r[j].y, f_i[j].y);
-        cmac(accr[i][j], acci[i][j], b_r.z, b_i.z, f_r[j].z, f_i[j].z);
-        cmac(accr[i][j], acci[i][j], b_r.w, b_i.w, f_r[j].w, f_i[j].w);
+        f_r[j] = *reinterpret_cast<const float4*>(fR + (cy + CT2 * j) * LD + c);
+        f_i[j] = *reinterpret_cast<const float4*>(fI + (cy + CT2 * j) * LD + c);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 b_r = *reinterpret_cast<const float4*>(bR + (rx + i) * LD + c);
+        const float4 b_i = *reinterpret_cast<const float4*>(bI + (rx + i) * LD + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          cmac(accr[i][j], acci[i][j], b_r.x, b_i.x, f_r[j].x, f_i[j].x);
+          cmac(accr[i][j], acci[i][j], b_r.y, b_i.y, f_r[j].y, f_i[j].y);
+          cmac(accr[i][j], acci[i][j], b_r.z, b_i.z, f_r[j].z, f_i[j].z);
+          cmac(accr[i][j], acci[i][j], b_r.w, b_i.w, f_r[j].w, f_i[j].w);
+        }
       }
     }
   }
@@ -481,17 +690,19 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
   }
 }
 
-// The shared-memory tile [x][c] times the run's entries, in place.
+// The shared-memory tile [x][c] times the run's entries, in place, rounded
+// to the storage kind qkind.
 template <int X>
-__device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv) {
+__device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv,
+                               int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = e / Cfg::C, c = e % Cfg::C;
     float dr, di, vr, vi;
     diag_view_at(dv, x, c, dr, di);
     cmul(tr_[x * Cfg::LD + c], ti_[x * Cfg::LD + c], dr, di, vr, vi);
-    tr_[x * Cfg::LD + c] = vr;
-    ti_[x * Cfg::LD + c] = vi;
+    tr_[x * Cfg::LD + c] = quantize(vr, qkind);
+    ti_[x * Cfg::LD + c] = quantize(vi, qkind);
   }
 }
 
@@ -507,13 +718,17 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 // none): where the run's Q reductions go (QView for a slab tile, QHigh for a
 // high-view tile), from the planes as they meet the run — loaded as they
 // are, then the run's entries multiplied in shared memory (mode 1), or
-// before the store (mode 2).
-template <int X, class QT = QView>
-__device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
-                             int64_t rs, int64_t cs, const Operators& ops,
-                             int diag_mode, const DiagView& dv_inv,
-                             const DiagView& dv_fwd, float* part,
-                             float* smem, const QT* q = nullptr) {
+// before the store (mode 2). B is stored as bkind (F as f32); TX3 / GX3 run
+// the transport / the pair gram bf16x3. stage (the dual adjoint, whose TPU
+// kernel stages the run's step through its output planes) rounds B to its
+// storage where that kernel stores and reloads it: after the run's entries
+// on load, before them on store.
+template <int X, bool TX3 = false, bool GX3 = false, class QT = QView>
+__device__ void adjoint_tile(float* fr, float* fi, void* br, void* bi,
+                             int bkind, int stage, int64_t rs, int64_t cs,
+                             const Operators& ops, int diag_mode,
+                             const DiagView& dv_inv, const DiagView& dv_fwd,
+                             float* part, float* smem, const QT* q = nullptr) {
   using Cfg = AdjCfg<X>;
   float* sFr = smem;
   float* sFi = sFr + X * Cfg::LD;
@@ -525,35 +740,39 @@ __device__ void adjoint_tile(float* fr, float* fi, float* br, float* bi,
   float* sTr = sOi + X * Cfg::LD + half * 2 * Cfg::KC * X;  // this half's
   float* sTi = sTr + Cfg::KC * X;                           // operator tile
   float accr[8][4], acci[8][4];
+  const int qkind = stage ? bkind : kStoreF32;
 
   float* scratch = sOi + X * Cfg::LD;  // both halves' operator tiles
   __syncthreads();  // the previous tile's stores and gram have read the buffers
   const bool q_on_load = q != nullptr && diag_mode == 1;
-  load_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 1 && !q_on_load, dv_inv);
-  load_tile<X>(br, bi, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load, dv_fwd);
+  load_tile<X>(fr, fi, kStoreF32, rs, cs, sFr, sFi,
+               diag_mode == 1 && !q_on_load, dv_inv);
+  load_tile<X>(br, bi, bkind, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load,
+               dv_fwd, qkind);
   if (q_on_load) {
     __syncthreads();  // the tile is loaded
     q_tile<X>(sFr, sFi, sBr, sBi, *q, scratch);
     __syncthreads();  // every read of the raw tiles is done
     diag_tile_smem<X>(sFr, sFi, dv_inv);
-    diag_tile_smem<X>(sBr, sBi, dv_fwd);
+    diag_tile_smem<X>(sBr, sBi, dv_fwd, qkind);
   }
 
   // first half: the uncompute fin = Einv F; second half: the transport
   // bout = E^T B (one call site, so that every thread meets the same
   // barriers)
-  op_times_tile<X>(half ? ops.e_r : ops.inv_r, half ? ops.e_i : ops.inv_i,
-                   half, half ? sBr : sFr, half ? sBi : sFi, sTr, sTi, accr,
-                   acci);
+  op_times_tile<X, TX3>(half ? ops.e_r : ops.inv_r, half ? ops.e_i : ops.inv_i,
+                        half, half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
+                        accr, acci);
   __syncthreads();  // every thread is done reading F
-  acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
+  acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi,
+                 half && diag_mode == 2 ? qkind : kStoreF32);
   __syncthreads();  // fin and bout are complete
   if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
-  store_tile<X>(fr, fi, rs, cs, sFr, sFi, diag_mode == 2, dv_inv);
-  store_tile<X>(br, bi, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
+  store_tile<X>(fr, fi, kStoreF32, rs, cs, sFr, sFi, diag_mode == 2, dv_inv);
+  store_tile<X>(br, bi, bkind, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
 
   // the pair gram of the incoming cotangent and fin
-  pair_gram<X>(sBr, sBi, sFr, sFi, part);
+  pair_gram<X, GX3>(sBr, sBi, sFr, sFi, part);
 }
 
 }  // namespace dqc

@@ -45,6 +45,16 @@
 // column partials, written by the block that owns the slab. Q adds 2 complex
 // multiply-adds and 4 reductions per amplitude of the step that meets the
 // run, and 2 x 2 A x 128 + 2 x 128 x 128 floats of outputs.
+//
+// Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
+// gram_dot_mode at block_backward.py:283-308): B is stored as f32, bf16 or
+// f16 (bkind; F stays f32), the two transports run bf16x3 with bwd_x3 and
+// the two pair grams with gram_x3, the uncomputes in f32. B is rounded to
+// its storage where the TPU kernel stores and reloads it: between the two
+// steps (here the staging through the planes) and next to the run.
+// The transports' bf16x3 costs two FMAs per real product and the operand
+// splits, the pair grams' runs on the tensor cores (adjoint.cuh); the bytes
+// move with the storage: 24 per amplitude with a 16-bit B against 32.
 
 #include "adjoint.cuh"
 
@@ -68,12 +78,14 @@ struct QRows {  // the (A, 128) outputs Qas and Qal
   float* al_i;
 };
 
+template <bool TX3, bool GX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
-                           Operators lane, Operators sub, DiagTables dinv,
-                           DiagTables dfwd, int has_diag, int diag_first_fwd,
-                           int g0_first, int diag_q, QRows qrows, float* part,
-                           int64_t A) {
+block_backward_dual_kernel(float* fr, float* fi, char* br, char* bi,
+                           int bkind, Operators lane, Operators sub,
+                           DiagTables dinv, DiagTables dfwd, int has_diag,
+                           int diag_first_fwd, int g0_first, int diag_q,
+                           QRows qrows, float* part, int64_t A) {
+  const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
   extern __shared__ float smem[];
   const int part_floats = diag_q ? kPartFloatsQ : kPartFloats;
   float* part_lane = part + (int64_t)blockIdx.x * part_floats;
@@ -97,13 +109,31 @@ block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
         qv.a = a;
         qv.sublane = sublane;
         qv.c0 = 64 * h;
-        dqc::adjoint_tile<N>(fr + t, fi + t, br + t, bi + t, rs, cs,
-                             sublane ? sub : lane, diag_mode, vi, vf,
-                             sublane ? part_sub : part_lane, smem,
-                             diag_q && diag_mode ? &qv : nullptr);
+        dqc::adjoint_tile<N, TX3, GX3>(
+            fr + t, fi + t, br + t * bsize, bi + t * bsize, bkind, 1, rs, cs,
+            sublane ? sub : lane, diag_mode, vi, vf,
+            sublane ? part_sub : part_lane, smem,
+            diag_q && diag_mode ? &qv : nullptr);
       }
     }
   }
+}
+
+template <bool TX3, bool GX3>
+int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+           const Operators& lane, const Operators& sub, const DiagTables& dinv,
+           const DiagTables& dfwd, int has_diag, int diag_first_fwd,
+           int g0_first, int diag_q, const QRows& qrows, float* part,
+           int64_t A, int nblk, cudaStream_t s) {
+  constexpr int kSmem = AdjCfg<N>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_backward_dual_kernel<TX3, GX3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  block_backward_dual_kernel<TX3, GX3><<<nblk, dqc::kAdjThreads, kSmem, s>>>(
+      fr, fi, static_cast<char*>(br), static_cast<char*>(bi), bkind, lane, sub,
+      dinv, dfwd, has_diag, diag_first_fwd, g0_first, diag_q, qrows, part, A);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -113,14 +143,16 @@ block_backward_dual_kernel(float* fr, float* fi, float* br, float* bi,
 // 4 x 128 x 128 floats, then with diag_q (Qsl re, im), 2 x 128 x 128 more,
 // transposed ([l][s]) when the run meets the lane step: the step after the
 // pair with diag_first_fwd, the step before it otherwise; the lane step is
-// the second with g0_first.
+// the second with g0_first. B is stored as bkind (0 f32, 1 bf16, 2 f16 in
+// common.cuh's codec), F as f32; bwd_x3 / gram_x3 run the transports / the
+// pair grams bf16x3.
 // part is scratch of nblk * (4 or 6) * 128 * 128 floats, set to zero by the
 // caller, and nblk the number of blocks (at most A). The twelve table
 // pointers may be null when has_diag is 0. With diag_q (needs has_diag),
 // qas_r/i and qal_r/i are (A, 128) outputs set to zero by the caller (null
 // without). Returns cudaGetLastError().
 extern "C" int dqc_block_backward_dual(
-    float* fr, float* fi, float* br, float* bi, const float* e0inv_r,
+    float* fr, float* fi, void* br, void* bi, const float* e0inv_r,
     const float* e0inv_i, const float* e0_r, const float* e0_i,
     const float* e1inv_r, const float* e1inv_i, const float* e1_r,
     const float* e1_i, const float* isl_r, const float* isl_i,
@@ -129,24 +161,28 @@ extern "C" int dqc_block_backward_dual(
     const float* as_r, const float* as_i, const float* al_r,
     const float* al_i, int has_diag, int diag_first_fwd, int g0_first,
     int diag_q, float* qas_r, float* qas_i, float* qal_r, float* qal_i,
-    float* part, float* out, long long A, int nblk, void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A || (diag_q && !has_diag))
+    float* part, float* out, long long A, int nblk, int bkind, int bwd_x3,
+    int gram_x3, void* stream) {
+  if (A <= 0 || nblk <= 0 || nblk > A || (diag_q && !has_diag) || bkind < 0 ||
+      bkind > 2)
     return (int)cudaErrorInvalidValue;
-  constexpr int kSmem = AdjCfg<N>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_backward_dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const Operators lane{e0inv_r, e0inv_i, e0_r, e0_i};
   const Operators sub{e1inv_r, e1inv_i, e1_r, e1_i};
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
-  block_backward_dual_kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
-      fr, fi, br, bi, lane, sub, dinv, dfwd, has_diag, diag_first_fwd,
-      g0_first, diag_q, QRows{qas_r, qas_i, qal_r, qal_i}, part, (int64_t)A);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const QRows qrows{qas_r, qas_i, qal_r, qal_i};
+  int code;
+#define DQC_DUAL_LAUNCH(T, G)                                                 \
+  code = launch<T, G>(fr, fi, br, bi, bkind, lane, sub, dinv, dfwd, has_diag, \
+                      diag_first_fwd, g0_first, diag_q, qrows, part,         \
+                      (int64_t)A, nblk, s)
+  if (bwd_x3 && gram_x3) DQC_DUAL_LAUNCH(true, true);
+  else if (bwd_x3) DQC_DUAL_LAUNCH(true, false);
+  else if (gram_x3) DQC_DUAL_LAUNCH(false, true);
+  else DQC_DUAL_LAUNCH(false, false);
+#undef DQC_DUAL_LAUNCH
+  if (code != 0) return code;
   return dqc::launch_reduce(part, out, nblk,
                             diag_q ? kPartFloatsQ : kPartFloats, s);
 }

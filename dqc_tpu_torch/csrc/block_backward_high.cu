@@ -60,6 +60,14 @@
 // than in one pass (48 bytes per amplitude against 32), but the work stays
 // at the bound's 3 X complex multiply-adds per amplitude. Every sum runs in
 // a fixed order.
+//
+// Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
+// gram_dot_mode at block_backward.py:826-835), X <= 128: B is stored as f32,
+// bf16 or f16 (bkind, F stays f32; one load and one store per element, as
+// in the TPU kernel), the transport runs bf16x3 with bwd_x3 and the pair
+// gram with gram_x3 (adjoint.cuh). X = 256 / 512 takes gram_x3 in its
+// cross-Gram (both operands split as they are read from shared memory) and
+// f32 planes with an f32 transport only.
 
 #include "adjoint.cuh"
 #include "wide_apply.cuh"
@@ -82,15 +90,16 @@ struct QOut {  // the diag_q outputs: Qas, Qal rows (A, 128), Qsl partial slots
   float* sl_part;  // nblk x 2 x 128 x 128
 };
 
-template <int X>
+template <int X, bool TX3, bool GX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_high_kernel(float* fr, float* fi, float* br, float* bi,
+block_backward_high_kernel(float* fr, float* fi, char* br, char* bi, int bkind,
                            Operators ops, DiagTables dinv, DiagTables dfwd,
                            int has_diag, int diag_first_fwd, int diag_q,
                            QOut qo, float* part, int64_t Q, int64_t post,
                            int64_t ntiles) {
   using Cfg = AdjCfg<X>;
   extern __shared__ float smem[];
+  const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
   float* slots = part + (int64_t)blockIdx.x * Cfg::G * Cfg::kSlotFloats;
   const int diag_mode = has_diag ? (diag_first_fwd ? 2 : 1) : 0;
   // with diag_q a block takes whole (i, p) groups of kSl / C tiles
@@ -107,32 +116,33 @@ block_backward_high_kernel(float* fr, float* fi, float* br, float* bi,
       DiagView vf{dfwd, 2, i, q0, X, post};
       qh.i = i;
       qh.q0 = q0;
-      dqc::adjoint_tile<X, QHigh>(fr + t, fi + t, br + t, bi + t, Q, 1, ops,
-                                  diag_mode, vi, vf, slots, smem,
-                                  diag_q ? &qh : nullptr);
+      dqc::adjoint_tile<X, TX3, GX3, QHigh>(
+          fr + t, fi + t, br + t * bsize, bi + t * bsize, bkind, 0, Q, 1, ops,
+          diag_mode, vi, vf, slots, smem, diag_q ? &qh : nullptr);
     }
   }
 }
 
-template <int X>
-int launch(float* fr, float* fi, float* br, float* bi, const Operators& ops,
-           const DiagTables& dinv, const DiagTables& dfwd, int has_diag,
-           int diag_first_fwd, int diag_q, const QOut& qo, float* qsl,
-           float* part, float* out, long long A1, long long Q, int nblk,
-           cudaStream_t stream) {
+template <int X, bool TX3, bool GX3>
+int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+           const Operators& ops, const DiagTables& dinv, const DiagTables& dfwd,
+           int has_diag, int diag_first_fwd, int diag_q, const QOut& qo,
+           float* qsl, float* part, float* out, long long A1, long long Q,
+           int nblk, cudaStream_t stream) {
   using Cfg = AdjCfg<X>;
   if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
   const long long ntiles = A1 * (Q / Cfg::C);
   const long long units = diag_q ? ntiles / (kSl / Cfg::C) : ntiles;
   if (units <= 0 || nblk <= 0 || nblk > units) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_high_kernel<X>,
+      block_backward_high_kernel<X, TX3, GX3>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  block_backward_high_kernel<X><<<nblk, dqc::kAdjThreads, Cfg::kSmemBytes,
-                                  stream>>>(
-      fr, fi, br, bi, ops, dinv, dfwd, has_diag, diag_first_fwd, diag_q, qo,
-      part, (int64_t)Q, (int64_t)(Q >> 14), (int64_t)ntiles);
+  block_backward_high_kernel<X, TX3, GX3><<<nblk, dqc::kAdjThreads,
+                                            Cfg::kSmemBytes, stream>>>(
+      fr, fi, static_cast<char*>(br), static_cast<char*>(bi), bkind, ops, dinv,
+      dfwd, has_diag, diag_first_fwd, diag_q, qo, part, (int64_t)Q,
+      (int64_t)(Q >> 14), (int64_t)ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int code = dqc::launch_reduce(part, out, (int64_t)nblk * Cfg::G,
@@ -179,7 +189,7 @@ __device__ __forceinline__ void xg_flush(float (&Gr)[XgCfg::RX][XgCfg::RY],
 // no conjugation) for x in patch row bx, y in patch column by, over the
 // column tiles tile = group, group + gridDim.y, ... of the view (P, X, Q),
 // into part[group][0 / 1][x][y] (re / im): each entry has one writer.
-template <int NRB>
+template <int NRB, bool GX3>
 __global__ void __launch_bounds__(kXgThreads, 1)
 cross_gram_wide_kernel(const float* __restrict__ br, const float* __restrict__ bi,
                        const float* __restrict__ fr, const float* __restrict__ fi,
@@ -235,15 +245,35 @@ cross_gram_wide_kernel(const float* __restrict__ br, const float* __restrict__ b
         vr[j] = sfr[c * LD + cy + TC * j];
         vi[j] = sfi[c * LD + cy + TC * j];
       }
-#pragma unroll
-      for (int i = 0; i < RX; ++i)
+      if constexpr (GX3) {
+        // bf16x3: B as (hi, lo), F as (hi, hi + lo)
+        float vrh[RY], vrs[RY], vih[RY], vis[RY];
 #pragma unroll
         for (int j = 0; j < RY; ++j) {
-          Gr[i][j] = fmaf(ar[i], vr[j], Gr[i][j]);
-          Gr[i][j] = fmaf(-ai[i], vi[j], Gr[i][j]);
-          Gi[i][j] = fmaf(ar[i], vi[j], Gi[i][j]);
-          Gi[i][j] = fmaf(ai[i], vr[j], Gi[i][j]);
+          dqc::split_hs(vr[j], vrh[j], vrs[j]);
+          dqc::split_hs(vi[j], vih[j], vis[j]);
         }
+#pragma unroll
+        for (int i = 0; i < RX; ++i) {
+          float arh, arl, aih, ail;
+          dqc::split_hl(ar[i], arh, arl);
+          dqc::split_hl(ai[i], aih, ail);
+#pragma unroll
+          for (int j = 0; j < RY; ++j)
+            dqc::cmac3(Gr[i][j], Gi[i][j], arh, arl, aih, ail, vrh[j], vrs[j],
+                       vih[j], vis[j]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < RX; ++i)
+#pragma unroll
+          for (int j = 0; j < RY; ++j) {
+            Gr[i][j] = fmaf(ar[i], vr[j], Gr[i][j]);
+            Gr[i][j] = fmaf(-ai[i], vi[j], Gr[i][j]);
+            Gi[i][j] = fmaf(ar[i], vi[j], Gi[i][j]);
+            Gi[i][j] = fmaf(ai[i], vr[j], Gi[i][j]);
+          }
+      }
     }
     if (++chunk == kXgChunkTiles) {
       xg_flush(Gr, Gi, run);
@@ -299,7 +329,7 @@ gram_times_inv_t_kernel(const float* __restrict__ g,
   t0[X * X + x * X + y] = acci;
 }
 
-template <int X>
+template <int X, bool GX3>
 int launch_wide(float* fr, float* fi, float* br, float* bi, const Operators& ops,
                 float* part, float* gram, float* out, long long A1,
                 long long Q, int nblk, cudaStream_t stream) {
@@ -309,11 +339,11 @@ int launch_wide(float* fr, float* fi, float* br, float* bi, const Operators& ops
     return (int)cudaErrorInvalidValue;
   // 1. G = B F^T on the planes as they come in
   cudaError_t err = cudaFuncSetAttribute(
-      cross_gram_wide_kernel<NRB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      XgCfg::kSmemBytes);
+      cross_gram_wide_kernel<NRB, GX3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  cross_gram_wide_kernel<NRB><<<dim3(NRB * NRB, nblk), kXgThreads,
-                                XgCfg::kSmemBytes, stream>>>(
+  cross_gram_wide_kernel<NRB, GX3><<<dim3(NRB * NRB, nblk), kXgThreads,
+                                     XgCfg::kSmemBytes, stream>>>(
       br, bi, fr, fi, part, (int64_t)Q, (int64_t)ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -325,11 +355,11 @@ int launch_wide(float* fr, float* fi, float* br, float* bi, const Operators& ops
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // 3. F <- Einv F, B <- E^T B, in place
-  code = dqc::launch_wide_apply<X>(fr, fi, fr, fi, ops.inv_r, ops.inv_i, 0, 0,
-                                   0, A1, Q, stream);
+  code = dqc::launch_wide_apply<X>(fr, fi, fr, fi, dqc::kStoreF32, ops.inv_r,
+                                   ops.inv_i, 0, 0, 0, A1, Q, stream);
   if (code != 0) return code;
-  return dqc::launch_wide_apply<X>(br, bi, br, bi, ops.e_r, ops.e_i, 1, 0, 0,
-                                   A1, Q, stream);
+  return dqc::launch_wide_apply<X>(br, bi, br, bi, dqc::kStoreF32, ops.e_r,
+                                   ops.e_i, 1, 0, 0, A1, Q, stream);
 }
 
 }  // namespace
@@ -358,9 +388,10 @@ extern "C" int dqc_block_backward_high_slots(int X) {
 // qal_r/i are (A, 128) outputs, A = A1 X Q / (128 128), set to zero by the
 // caller; qpart is scratch of nblk * 2 * 128 * 128 floats set to zero, and
 // qsl the (Qsl re, im) output, 2 x 128 x 128 floats (all null without).
-// Returns cudaGetLastError().
+// B is stored as bkind (0 f32, 1 bf16, 2 f16), F as f32; bwd_x3 / gram_x3
+// run the transport / the pair gram bf16x3. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high(
-    float* fr, float* fi, float* br, float* bi, const float* einv_r,
+    float* fr, float* fi, void* br, void* bi, const float* einv_r,
     const float* einv_i, const float* e_r, const float* e_i,
     const float* isl_r, const float* isl_i, const float* ias_r,
     const float* ias_i, const float* ial_r, const float* ial_i,
@@ -368,51 +399,64 @@ extern "C" int dqc_block_backward_high(
     const float* as_i, const float* al_r, const float* al_i, int has_diag,
     int diag_first_fwd, int diag_q, float* qas_r, float* qas_i, float* qal_r,
     float* qal_i, float* qpart, float* qsl, float* part, float* out,
-    long long A1, int X, long long Q, int nblk, void* stream) {
+    long long A1, int X, long long Q, int nblk, int bkind, int bwd_x3,
+    int gram_x3, void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
   if (diag_q && !has_diag) return (int)cudaErrorInvalidValue;
+  if (bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
   const Operators ops{einv_r, einv_i, e_r, e_i};
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const QOut qo{qas_r, qas_i, qal_r, qal_i, qpart};
   cudaStream_t s = (cudaStream_t)stream;
+  const int mode = 2 * (bwd_x3 != 0) + (gram_x3 != 0);
+#define DQC_HIGH_MODE(XX, T, G)                                              \
+  return launch<XX, T, G>(fr, fi, br, bi, bkind, ops, dinv, dfwd, has_diag,  \
+                          diag_first_fwd, diag_q, qo, qsl, part, out, A1, Q, \
+                          nblk, s)
+#define DQC_HIGH_CASE(XX)                                  \
+  case XX:                                                 \
+    switch (mode) {                                        \
+      case 0: DQC_HIGH_MODE(XX, false, false);             \
+      case 1: DQC_HIGH_MODE(XX, false, true);              \
+      case 2: DQC_HIGH_MODE(XX, true, false);              \
+      default: DQC_HIGH_MODE(XX, true, true);              \
+    }
   switch (X) {
-    case 8: return launch<8>(fr, fi, br, bi, ops, dinv, dfwd, has_diag,
-                             diag_first_fwd, diag_q, qo, qsl, part, out, A1,
-                             Q, nblk, s);
-    case 16: return launch<16>(fr, fi, br, bi, ops, dinv, dfwd, has_diag,
-                               diag_first_fwd, diag_q, qo, qsl, part, out, A1,
-                               Q, nblk, s);
-    case 32: return launch<32>(fr, fi, br, bi, ops, dinv, dfwd, has_diag,
-                               diag_first_fwd, diag_q, qo, qsl, part, out, A1,
-                               Q, nblk, s);
-    case 64: return launch<64>(fr, fi, br, bi, ops, dinv, dfwd, has_diag,
-                               diag_first_fwd, diag_q, qo, qsl, part, out, A1,
-                               Q, nblk, s);
-    case 128: return launch<128>(fr, fi, br, bi, ops, dinv, dfwd, has_diag,
-                                 diag_first_fwd, diag_q, qo, qsl, part, out,
-                                 A1, Q, nblk, s);
+    DQC_HIGH_CASE(8)
+    DQC_HIGH_CASE(16)
+    DQC_HIGH_CASE(32)
+    DQC_HIGH_CASE(64)
+    DQC_HIGH_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DQC_HIGH_CASE
+#undef DQC_HIGH_MODE
 }
 
 // In place on the view (A1, X, Q = M 128), X in {256, 512}, Q a multiple of
 // 32: (F, B) <- the adjoint step of E without a diagonal run; out = (T0 re,
 // T0 im), 2 x X x X floats. part is scratch of nblk * 2 * X * X floats
 // (every entry written) and gram of 2 * X * X; nblk is the number of column
-// groups (at most 65535 and A1 Q / 32). Returns cudaGetLastError().
+// groups (at most 65535 and A1 Q / 32). gram_x3 runs the cross-Gram
+// bf16x3. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high_wide(
     float* fr, float* fi, float* br, float* bi, const float* einv_r,
     const float* einv_i, const float* e_r, const float* e_i, float* part,
     float* gram, float* out, long long A1, int X, long long Q, int nblk,
-    void* stream) {
+    int gram_x3, void* stream) {
   const Operators ops{einv_r, einv_i, e_r, e_i};
   cudaStream_t s = (cudaStream_t)stream;
+#define DQC_WIDE(XX, G) \
+  return launch_wide<XX, G>(fr, fi, br, bi, ops, part, gram, out, A1, Q, nblk, s)
   switch (X) {
-    case 256: return launch_wide<256>(fr, fi, br, bi, ops, part, gram, out, A1,
-                                      Q, nblk, s);
-    case 512: return launch_wide<512>(fr, fi, br, bi, ops, part, gram, out, A1,
-                                      Q, nblk, s);
+    case 256:
+      if (gram_x3) DQC_WIDE(256, true);
+      DQC_WIDE(256, false);
+    case 512:
+      if (gram_x3) DQC_WIDE(512, true);
+      DQC_WIDE(512, false);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DQC_WIDE
 }

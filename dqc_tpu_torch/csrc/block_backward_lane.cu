@@ -40,6 +40,7 @@ constexpr int N = dqc::kGroup;
 constexpr int kSlab = N * N;
 constexpr int kPartFloats = 2 * kSlab;  // T0 (re, im)
 
+template <bool GX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
 block_backward_lane_kernel(float* fr, float* fi, float* br, float* bi,
                            Operators ops, float* part, int64_t A) {
@@ -50,8 +51,9 @@ block_backward_lane_kernel(float* fr, float* fi, float* br, float* bi,
     for (int h = 0; h < 2; ++h) {
       // row tile s in [64 h, 64 h + 64): x = l at stride 1, c = s at stride N
       const int64_t t = a * kSlab + 64 * h * N;
-      dqc::adjoint_tile<N>(fr + t, fi + t, br + t, bi + t, 1, N, ops, 0, none,
-                           none, slot, smem);
+      dqc::adjoint_tile<N, false, GX3>(fr + t, fi + t, br + t, bi + t,
+                                       dqc::kStoreF32, 0, 1, N, ops, 0, none,
+                                       none, slot, smem);
     }
   }
 }
@@ -61,22 +63,24 @@ block_backward_lane_kernel(float* fr, float* fi, float* br, float* bi,
 // In place on planes (A, 128, 128): (F, B) <- the adjoint step of the lane
 // operator E; out = (T0 re, T0 im), 2 x 128 x 128 floats. part is scratch of
 // nblk * 2 * 128 * 128 floats, set to zero by the caller, and nblk the
-// number of blocks (at most A). Returns cudaGetLastError().
+// number of blocks (at most A). gram_x3 runs the pair gram bf16x3
+// (adjoint.cuh). Returns cudaGetLastError().
 extern "C" int dqc_block_backward_lane(float* fr, float* fi, float* br,
                                        float* bi, const float* einv_r,
                                        const float* einv_i, const float* e_r,
                                        const float* e_i, float* part,
                                        float* out, long long A, int nblk,
-                                       void* stream) {
+                                       int gram_x3, void* stream) {
   if (A <= 0 || nblk <= 0 || nblk > A) return (int)cudaErrorInvalidValue;
   constexpr int kSmem = AdjCfg<N>::kSmemBytes;
+  auto kernel = gram_x3 ? block_backward_lane_kernel<true>
+                       : block_backward_lane_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_lane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const Operators ops{einv_r, einv_i, e_r, e_i};
-  block_backward_lane_kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
+  kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
       fr, fi, br, bi, ops, part, (int64_t)A);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -32,6 +32,13 @@
 // its P into its own slot (one writer per entry, program order), the low
 // pair gram goes to the block's slot as in adjoint.cuh, and second kernels
 // add the slots in a fixed order: the result does not depend on scheduling.
+//
+// Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
+// gram_dot_mode at block_backward.py:627-629, :643-645): B is stored as
+// f32, bf16 or f16 (bkind; F stays f32; one load and one store per
+// element), the low transport runs bf16x3 with bwd_x3 and T0_low with
+// gram_x3 (adjoint.cuh). The top factor and T0_top stay f32 elementwise
+// whatever the modes, as the TPU kernel keeps them on the VPU at Xt <= 4.
 
 #include "adjoint.cuh"
 
@@ -69,10 +76,10 @@ __device__ __forceinline__ void warp_sum_to_slot(float (&pr)[XT][XT],
     }
 }
 
-template <int XT>
+template <int XT, bool TX3, bool GX3>
 __global__ void __launch_bounds__(kAdjThreads, 1)
-block_backward_merged_fact_kernel(float* fr, float* fi, float* br, float* bi,
-                                  Operators low, const float* __restrict__ eti_r,
+block_backward_merged_fact_kernel(float* fr, float* fi, void* br, void* bi,
+                                  int bkind, Operators low, const float* __restrict__ eti_r,
                                   const float* __restrict__ eti_i,
                                   const float* __restrict__ et_r,
                                   const float* __restrict__ et_i,
@@ -107,8 +114,8 @@ block_backward_merged_fact_kernel(float* fr, float* fi, float* br, float* bi,
       const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
       sFr[d * LD + p] = fr[o];
       sFi[d * LD + p] = fi[o];
-      sBr[d * LD + p] = br[o];
-      sBi[d * LD + p] = bi[o];
+      sBr[d * LD + p] = dqc::load_plane(br, o, bkind);
+      sBi[d * LD + p] = dqc::load_plane(bi, o, bkind);
     }
     __syncthreads();
 
@@ -138,15 +145,16 @@ block_backward_merged_fact_kernel(float* fr, float* fi, float* br, float* bi,
     }
 
     // 3. first half: Eli F (the low uncompute); second half: El^T B
-    dqc::op_times_tile<XL>(half ? low.e_r : low.inv_r, half ? low.e_i : low.inv_i,
-                           half, half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
-                           accr, acci);
+    dqc::op_times_tile<XL, TX3>(half ? low.e_r : low.inv_r,
+                                half ? low.e_i : low.inv_i, half,
+                                half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
+                                accr, acci);
     __syncthreads();  // every thread is done reading F
     dqc::acc_to_tile<XL>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
     __syncthreads();  // (I (x) Eli) F and (I (x) El^T) B are complete
 
     // 4. T0_low: the pair gram of the incoming B and (I (x) Eli) F
-    dqc::pair_gram<XL>(sBr, sBi, sFr, sFi, slot_low);
+    dqc::pair_gram<XL, GX3>(sBr, sBi, sFr, sFi, slot_low);
     __syncthreads();  // the pair gram has read F
 
     // 5. the top factor: F <- (Eti (x) I) F, B <- (Et^T (x) I) B
@@ -184,8 +192,8 @@ block_backward_merged_fact_kernel(float* fr, float* fi, float* br, float* bi,
       const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
       fr[o] = sFr[d * LD + p];
       fi[o] = sFi[d * LD + p];
-      br[o] = sOr[d * LD + p];
-      bi[o] = sOi[d * LD + p];
+      dqc::store_plane(br, o, sOr[d * LD + p], bkind);
+      dqc::store_plane(bi, o, sOi[d * LD + p], bkind);
     }
   }
 }
@@ -213,8 +221,9 @@ __global__ void top_finish_kernel(const float* __restrict__ part_top,
   out[XT * XT + k] = ti;
 }
 
-template <int XT>
-int launch(float* fr, float* fi, float* br, float* bi, const Operators& low,
+template <int XT, bool TX3, bool GX3>
+int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+           const Operators& low,
            const float* eti_r, const float* eti_i, const float* et_r,
            const float* et_i, float* part_low, float* part_top, float* t0_low,
            float* t0_top, long long A1, long long Q, int nblk,
@@ -224,12 +233,12 @@ int launch(float* fr, float* fi, float* br, float* bi, const Operators& low,
   const long long ntiles = A1 * (Q / C);
   if (ntiles <= 0 || nblk <= 0 || nblk > ntiles) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_merged_fact_kernel<XT>,
+      block_backward_merged_fact_kernel<XT, TX3, GX3>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  block_backward_merged_fact_kernel<XT><<<nblk, kAdjThreads, Cfg::kSmemBytes,
-                                          stream>>>(
-      fr, fi, br, bi, low, eti_r, eti_i, et_r, et_i, part_low, part_top,
+  block_backward_merged_fact_kernel<XT, TX3, GX3><<<nblk, kAdjThreads,
+                                                    Cfg::kSmemBytes, stream>>>(
+      fr, fi, br, bi, bkind, low, eti_r, eti_i, et_r, et_i, part_low, part_top,
       (int64_t)Q, (int64_t)ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -252,20 +261,37 @@ extern "C" int dqc_block_backward_merged_fact_warps() { return kWarps; }
 // floats, and t0_top = (T0_top re, im), 2 x Xt x Xt. part_low is scratch of
 // nblk * 2 * 128 * 128 floats and part_top of nblk * warps * 2 * Xt * Xt,
 // both set to zero by the caller; nblk is the number of blocks (at most the
-// number of tiles, A1 Q Xt / 64). Returns cudaGetLastError().
+// number of tiles, A1 Q Xt / 64). B is stored as bkind (0 f32, 1 bf16, 2
+// f16), F as f32; bwd_x3 / gram_x3 run the low transport / T0_low bf16x3.
+// Returns cudaGetLastError().
 extern "C" int dqc_block_backward_merged_fact(
-    float* fr, float* fi, float* br, float* bi, const float* eli_r,
+    float* fr, float* fi, void* br, void* bi, const float* eli_r,
     const float* eli_i, const float* el_r, const float* el_i,
     const float* eti_r, const float* eti_i, const float* et_r,
     const float* et_i, float* part_low, float* part_top, float* t0_low,
-    float* t0_top, long long A1, int XT, long long Q, int nblk, void* stream) {
+    float* t0_top, long long A1, int XT, long long Q, int nblk, int bkind,
+    int bwd_x3, int gram_x3, void* stream) {
+  if (bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
   const Operators low{eli_r, eli_i, el_r, el_i};
   cudaStream_t s = (cudaStream_t)stream;
+  const int mode = 2 * (bwd_x3 != 0) + (gram_x3 != 0);
+#define DQC_MF_MODE(XX, T, G)                                                 \
+  return launch<XX, T, G>(fr, fi, br, bi, bkind, low, eti_r, eti_i, et_r,     \
+                          et_i, part_low, part_top, t0_low, t0_top, A1, Q,    \
+                          nblk, s)
+#define DQC_MF_CASE(XX)                        \
+  case XX:                                     \
+    switch (mode) {                            \
+      case 0: DQC_MF_MODE(XX, false, false);   \
+      case 1: DQC_MF_MODE(XX, false, true);    \
+      case 2: DQC_MF_MODE(XX, true, false);    \
+      default: DQC_MF_MODE(XX, true, true);    \
+    }
   switch (XT) {
-    case 2: return launch<2>(fr, fi, br, bi, low, eti_r, eti_i, et_r, et_i,
-                             part_low, part_top, t0_low, t0_top, A1, Q, nblk, s);
-    case 4: return launch<4>(fr, fi, br, bi, low, eti_r, eti_i, et_r, et_i,
-                             part_low, part_top, t0_low, t0_top, A1, Q, nblk, s);
+    DQC_MF_CASE(2)
+    DQC_MF_CASE(4)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DQC_MF_CASE
+#undef DQC_MF_MODE
 }

@@ -1,8 +1,10 @@
 // Shared device helpers of the dqc_tpu_torch kernels (complex arithmetic on
-// real/imag float pairs, and the factored diagonal run of ops/planes.py).
+// real/imag float pairs, the factored diagonal run of ops/planes.py, the
+// cotangent planes' storage codec and the bf16x3 operand split).
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dqc {
@@ -37,6 +39,101 @@ __device__ __forceinline__ void diag_at(const DiagTables& d, int64_t a, int s,
   cmul(__ldg(d.as_r + as), __ldg(d.as_i + as), __ldg(d.al_r + al),
        __ldg(d.al_i + al), mr, mi);
   cmul(mr, mi, __ldg(d.sl_r + sl), __ldg(d.sl_i + sl), dr, di);
+}
+
+// --- Storage of the cotangent planes -------------------------------------
+//
+// The counterpart of dqc_tpu/ops/pallas/common.py f32_of / store_as (and of
+// ops/kernels/_storage.py, the plain versions' copy). A plane is stored as
+// float32 (kStoreF32), bfloat16 (kStoreBF16, round to nearest even) or
+// float16 bits (kStoreF16) in the JAX package's codec, which is not IEEE
+// half conversion: the encode clamps to +-65504 and stores every |x| < 2^-14
+// as a signed zero (the TPU flushes the f32 denormal its exponent rebias
+// makes), rounding to nearest even elsewhere; the decode reads subnormal
+// patterns as signed zeros and exponent 31 as 2^16 (1 + m / 1024). Compute
+// is f32 throughout: loads decode, stores encode.
+enum : int { kStoreF32 = 0, kStoreBF16 = 1, kStoreF16 = 2 };
+
+__device__ __forceinline__ float f16_bits_to_f32(uint32_t u) {
+  uint32_t bits = ((u & 0x7FFFu) << 13) | ((u & 0x8000u) << 16);
+  if ((u & 0x7C00u) == 0) bits &= 0x80000000u;  // subnormal: signed zero
+  return __uint_as_float(bits) * 0x1p112f;
+}
+
+__device__ __forceinline__ uint16_t f32_to_f16_bits(float v) {
+  if (v != v) return (uint16_t)0x7E00u;  // NaN stays NaN
+  const float c = fminf(fmaxf(v, -65504.f), 65504.f);
+  const uint32_t sign = (__float_as_uint(c) >> 16) & 0x8000u;
+  if (fabsf(c) < 0x1p-14f) return (uint16_t)sign;  // the flushed band
+  uint32_t mag = __float_as_uint(c * 0x1p-112f) & 0x7FFFFFFFu;
+  mag = mag + 0x0FFFu + ((mag >> 13) & 1u);  // RTNE on the 13 dropped bits
+  return (uint16_t)(sign | (mag >> 13));
+}
+
+__device__ __forceinline__ float load_plane(const void* p, int64_t i,
+                                            int kind) {
+  if (kind == kStoreF32) return static_cast<const float*>(p)[i];
+  const uint32_t h = static_cast<const uint16_t*>(p)[i];
+  if (kind == kStoreBF16) return __uint_as_float(h << 16);
+  return f16_bits_to_f32(h);
+}
+
+__device__ __forceinline__ void store_plane(void* p, int64_t i, float v,
+                                            int kind) {
+  if (kind == kStoreF32) {
+    static_cast<float*>(p)[i] = v;
+  } else if (kind == kStoreBF16) {
+    static_cast<uint16_t*>(p)[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  } else {
+    static_cast<uint16_t*>(p)[i] = f32_to_f16_bits(v);
+  }
+}
+
+// The value a store then a load give: v rounded to the storage.
+__device__ __forceinline__ float quantize(float v, int kind) {
+  if (kind == kStoreF32) return v;
+  if (kind == kStoreBF16)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  return f16_bits_to_f32(f32_to_f16_bits(v));
+}
+
+// --- bf16x3 ---------------------------------------------------------------
+//
+// The counterpart of dqc_tpu/ops/pallas/dots.py _dot_bf16x3: hi = bf16(a),
+// lo = bf16(a - hi), and a b ~ ah bh + ah bl + al bh accumulated in f32.
+// The kernels take it as ah (bh + bl) + al bh, two FMAs: every product of
+// those parts is exact in f32 (bh + bl has at most 16 significant bits), so
+// the sum is the three-pass one with only the accumulation rounding.
+__device__ __forceinline__ float bf16_hi(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+// a -> (hi, lo), the left operand's parts.
+__device__ __forceinline__ void split_hl(float a, float& hi, float& lo) {
+  hi = bf16_hi(a);
+  lo = bf16_hi(a - hi);
+}
+
+// b -> (hi, hi + lo), the right operand's parts.
+__device__ __forceinline__ void split_hs(float b, float& hi, float& s) {
+  hi = bf16_hi(b);
+  s = hi + bf16_hi(b - hi);
+}
+
+// acc += (ar + i ai)(br + i bi) in bf16x3, the left operand as (hi, lo)
+// parts, the right as (hi, hi + lo).
+__device__ __forceinline__ void cmac3(float& accr, float& acci, float arh,
+                                      float arl, float aih, float ail,
+                                      float brh, float brs, float bih,
+                                      float bis) {
+  accr = fmaf(arh, brs, accr);
+  accr = fmaf(arl, brh, accr);
+  accr = fmaf(-aih, bis, accr);
+  accr = fmaf(-ail, bih, accr);
+  acci = fmaf(arh, bis, acci);
+  acci = fmaf(arl, bih, acci);
+  acci = fmaf(aih, brs, acci);
+  acci = fmaf(ail, brh, acci);
 }
 
 // out[e] = sum over slots s of part[s n2 + e], e < n2, in slot order: each

@@ -37,6 +37,12 @@
 // slots in block order. No sum depends on scheduling. Q adds 1 complex
 // multiply and 3 reductions per amplitude, and 2 x 2 A x 128 + 2 x 128 x 128
 // floats of outputs.
+//
+// Reduced storage (the TPU kernel's f32_of / store_as at diag.py:117-150):
+// the backward's B is stored as f32, bf16 or f16 (bkind, common.cuh codec;
+// F stays f32), read and written four elements at a time (8 bytes for a
+// 16-bit B), decoded to f32 before the multiply and the Q reductions. The
+// backward then moves 24 bytes per amplitude against 32.
 
 #include "common.cuh"
 
@@ -87,6 +93,55 @@ __device__ __forceinline__ void times_diag(float* xr, float* xi,
   *pi = make_float4(yi[0], yi[1], yi[2], yi[3]);
 }
 
+// The four elements at float4 index e of a plane stored as kind.
+__device__ __forceinline__ void load4(const void* p, int64_t e, int kind,
+                                      float (&v)[4]) {
+  if (kind == dqc::kStoreF32) {
+    const float4 f = reinterpret_cast<const float4*>(p)[e];
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    return;
+  }
+  const uint2 u = reinterpret_cast<const uint2*>(p)[e];
+  const uint32_t h[4] = {u.x & 0xFFFFu, u.x >> 16, u.y & 0xFFFFu, u.y >> 16};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = kind == dqc::kStoreBF16 ? __uint_as_float(h[k] << 16)
+                                   : dqc::f16_bits_to_f32(h[k]);
+}
+
+__device__ __forceinline__ void store4(void* p, int64_t e, int kind,
+                                       const float (&v)[4]) {
+  if (kind == dqc::kStoreF32) {
+    reinterpret_cast<float4*>(p)[e] = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  uint32_t h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = kind == dqc::kStoreBF16
+               ? (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[k]))
+               : (uint32_t)dqc::f32_to_f16_bits(v[k]);
+  reinterpret_cast<uint2*>(p)[e] = make_uint2(h[0] | (h[1] << 16),
+                                              h[2] | (h[3] << 16));
+}
+
+// x[e] *= D at float4 index e of planes stored as kind.
+__device__ __forceinline__ void times_diag_kind(void* xr, void* xi, int kind,
+                                                const DiagTables& d,
+                                                int64_t e) {
+  const int64_t a = e >> 12;
+  const int s = (int)((e >> 5) & 127);
+  const int l0 = (int)(e & 31) * 4;
+  float dr[4], di[4], ar[4], ai[4], yr[4], yi[4];
+  diag4(d, a, s, l0, dr, di);
+  load4(xr, e, kind, ar);
+  load4(xi, e, kind, ai);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cmul(ar[k], ai[k], dr[k], di[k], yr[k], yi[k]);
+  store4(xr, e, kind, yr);
+  store4(xi, e, kind, yi);
+}
+
 __global__ void __launch_bounds__(kThreads)
 diag_sweep_kernel(float* xr, float* xi, DiagTables d, int64_t n4) {
   for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
@@ -95,19 +150,19 @@ diag_sweep_kernel(float* xr, float* xi, DiagTables d, int64_t n4) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-diag_backward_kernel(float* fr, float* fi, float* br, float* bi,
+diag_backward_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
                      DiagTables dinv, DiagTables dfwd, int64_t n4) {
   for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
        e += (int64_t)gridDim.x * kThreads) {
     times_diag(fr, fi, dinv, e);
-    times_diag(br, bi, dfwd, e);
+    times_diag_kind(br, bi, bkind, dfwd, e);
   }
 }
 
 constexpr int kRows = 128 / (kThreads / 32);  // rows of a slab per warp
 
 __global__ void __launch_bounds__(kThreads)
-diag_backward_q_kernel(float* fr, float* fi, float* br, float* bi,
+diag_backward_q_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
                        DiagTables dinv, DiagTables dfwd, float* qas_r,
                        float* qas_i, float* qal_r, float* qal_i, float* part,
                        int64_t A) {
@@ -124,12 +179,11 @@ diag_backward_q_kernel(float* fr, float* fi, float* br, float* bi,
       const int64_t e = (a * dqc::kGroup + s) * 32 + lane;  // float4 index
       const float4 f_r = reinterpret_cast<const float4*>(fr)[e];
       const float4 f_i = reinterpret_cast<const float4*>(fi)[e];
-      const float4 b_r = reinterpret_cast<const float4*>(br)[e];
-      const float4 b_i = reinterpret_cast<const float4*>(bi)[e];
       const float far[4] = {f_r.x, f_r.y, f_r.z, f_r.w};
       const float fai[4] = {f_i.x, f_i.y, f_i.z, f_i.w};
-      const float bar[4] = {b_r.x, b_r.y, b_r.z, b_r.w};
-      const float bai[4] = {b_i.x, b_i.y, b_i.z, b_i.w};
+      float bar[4], bai[4];
+      load4(br, e, bkind, bar);
+      load4(bi, e, bkind, bai);
       float qr[4], qi[4], rr = 0.f, ri = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -157,7 +211,7 @@ diag_backward_q_kernel(float* fr, float* fi, float* br, float* bi,
         qas_i[a * dqc::kGroup + s] = ri;
       }
       times_diag(fr, fi, dinv, e);
-      times_diag(br, bi, dfwd, e);
+      times_diag_kind(br, bi, bkind, dfwd, e);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -205,29 +259,31 @@ extern "C" int dqc_diag_sweep(float* xr, float* xi, const float* sl_r,
 }
 
 // fwd <- fwd * Dinv, bwd <- bwd * D in place on planes (A, 128, 128): the six
-// tables of the run's inverse, then the run's. Returns cudaGetLastError().
-extern "C" int dqc_diag_backward(float* fr, float* fi, float* br, float* bi,
+// tables of the run's inverse, then the run's; bwd stored as bkind (0 f32,
+// 1 bf16, 2 f16), fwd as f32. Returns cudaGetLastError().
+extern "C" int dqc_diag_backward(float* fr, float* fi, void* br, void* bi,
                                  const float* isl_r, const float* isl_i,
                                  const float* ias_r, const float* ias_i,
                                  const float* ial_r, const float* ial_i,
                                  const float* sl_r, const float* sl_i,
                                  const float* as_r, const float* as_i,
                                  const float* al_r, const float* al_i,
-                                 long long A, void* stream) {
-  if (A <= 0) return (int)cudaErrorInvalidValue;
+                                 long long A, int bkind, void* stream) {
+  if (A <= 0 || bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const int64_t n4 = (int64_t)A * 128 * 32;
   diag_backward_kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
-      fr, fi, br, bi, dinv, dfwd, n4);
+      fr, fi, br, bi, bkind, dinv, dfwd, n4);
   return (int)cudaGetLastError();
 }
 
 // The backward with the Q reductions, taken before the update: qas_r/i and
 // qal_r/i are (A, 128) outputs; part is scratch of nblk * 2 * 128 * 128
 // floats set to zero by the caller (nblk blocks, at most A), qsl the
-// (Qsl re, im) output, 2 x 128 x 128 floats. Returns cudaGetLastError().
-extern "C" int dqc_diag_backward_q(float* fr, float* fi, float* br, float* bi,
+// (Qsl re, im) output, 2 x 128 x 128 floats; bwd stored as bkind. Returns
+// cudaGetLastError().
+extern "C" int dqc_diag_backward_q(float* fr, float* fi, void* br, void* bi,
                                    const float* isl_r, const float* isl_i,
                                    const float* ias_r, const float* ias_i,
                                    const float* ial_r, const float* ial_i,
@@ -236,13 +292,15 @@ extern "C" int dqc_diag_backward_q(float* fr, float* fi, float* br, float* bi,
                                    const float* al_r, const float* al_i,
                                    float* qas_r, float* qas_i, float* qal_r,
                                    float* qal_i, float* part, float* qsl,
-                                   long long A, int nblk, void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A) return (int)cudaErrorInvalidValue;
+                                   long long A, int nblk, int bkind,
+                                   void* stream) {
+  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2)
+    return (int)cudaErrorInvalidValue;
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
   diag_backward_q_kernel<<<nblk, kThreads, 0, s>>>(
-      fr, fi, br, bi, dinv, dfwd, qas_r, qas_i, qal_r, qal_i, part,
+      fr, fi, br, bi, bkind, dinv, dfwd, qas_r, qas_i, qal_r, qal_i, part,
       (int64_t)A);
   const int code = (int)cudaGetLastError();
   if (code != 0) return code;

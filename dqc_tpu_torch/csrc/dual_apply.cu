@@ -9,7 +9,11 @@
 // after the two products. The seed modes of the gradient write conj(y)
 // (conj) and add y into accumulator planes (acc), and the output planes may
 // be other planes than the input (the TPU kernel's alias=False): the density
-// seed reads the forward planes and leaves them intact.
+// seed reads the forward planes and leaves them intact. The seed's output
+// (and accumulator) planes may be stored reduced (ykind: the cotangent
+// storage of config.set_state_storage, common.cuh's codec; the TPU kernel's
+// store_as at dual_apply.py:109-113): the accumulator is decoded, added to
+// in f32 and encoded.
 //
 // Bound: operations. Each amplitude takes 2 x 128 complex multiply-adds
 // (8 real flops each) against 16 bytes moved, about 128 flop per byte,
@@ -47,9 +51,13 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
+// YKIND: the storage of y (a template parameter, so that the f32 sweep
+// keeps its plain stores)
+template <int YKIND>
 __global__ void __launch_bounds__(kThreads, 1)
-dual_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  const float* __restrict__ elr, const float* __restrict__ eli,
+dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+                  const float* __restrict__ elr,
+                  const float* __restrict__ eli,
                   const float* __restrict__ emr, const float* __restrict__ emi,
                   DiagTables d, int has_diag, int diag_first, int conj,
                   int has_acc) {
@@ -65,8 +73,10 @@ dual_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
   const int64_t a = blockIdx.x;
   const float* gxr = xr + a * (N * N);
   const float* gxi = xi + a * (N * N);
-  float* gyr = yr + a * (N * N);
-  float* gyi = yi + a * (N * N);
+  constexpr int ykind = YKIND;
+  constexpr int ysize = ykind == dqc::kStoreF32 ? 4 : 2;  // bytes per y element
+  char* gyr = yr + a * (N * N) * ysize;
+  char* gyi = yi + a * (N * N) * ysize;
 
   // 1. the whole slab into shared memory, times the run when it comes first
   for (int e4 = tid; e4 < N * N / 4; e4 += kThreads) {
@@ -174,37 +184,40 @@ dual_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
       }
       if (conj) vi = -vi;
       if (has_acc) {
-        vr += gyr[s * N + l];
-        vi += gyi[s * N + l];
+        vr += dqc::load_plane(gyr, s * N + l, ykind);
+        vi += dqc::load_plane(gyi, s * N + l, ykind);
       }
-      gyr[s * N + l] = vr;
-      gyi[s * N + l] = vi;
+      dqc::store_plane(gyr, s * N + l, vr, ykind);
+      dqc::store_plane(gyi, s * N + l, vi, ykind);
     }
 }
 
 }  // namespace
 
 // On planes (A, 128, 128): y <- [acc +] conj?([D] Em x El^T [D]). y may be
-// x (in place); with has_acc, y holds the accumulator and is added to. The
-// six table pointers may be null when has_diag is 0. Returns
-// cudaGetLastError().
-extern "C" int dqc_dual_apply(const float* xr, const float* xi, float* yr,
-                              float* yi, const float* elr, const float* eli,
+// x (in place, ykind 0); with has_acc, y holds the accumulator and is added
+// to. y is stored as ykind (0 f32, 1 bf16, 2 f16), x as f32. The six table
+// pointers may be null when has_diag is 0. Returns cudaGetLastError().
+extern "C" int dqc_dual_apply(const float* xr, const float* xi, void* yr,
+                              void* yi, int ykind, const float* elr,
+                              const float* eli,
                               const float* emr, const float* emi,
                               const float* sl_r, const float* sl_i,
                               const float* as_r, const float* as_i,
                               const float* al_r, const float* al_i,
                               int has_diag, int diag_first, int conj,
                               int has_acc, long long A, void* stream) {
-  if (A <= 0 || A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (A <= 0 || A > 0x7fffffffLL || ykind < 0 || ykind > 2)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ykind == dqc::kStoreF32    ? dual_apply_kernel<dqc::kStoreF32>
+                : ykind == dqc::kStoreBF16 ? dual_apply_kernel<dqc::kStoreBF16>
+                                           : dual_apply_kernel<dqc::kStoreF16>;
   cudaError_t err = cudaFuncSetAttribute(
-      dual_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
-  dual_apply_kernel<<<(unsigned)A, kThreads, kSmemBytes,
-                      (cudaStream_t)stream>>>(xr, xi, yr, yi, elr, eli, emr,
-                                              emi, d, has_diag, diag_first,
-                                              conj, has_acc);
+  kernel<<<(unsigned)A, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), elr, eli, emr,
+      emi, d, has_diag, diag_first, conj, has_acc);
   return (int)cudaGetLastError();
 }

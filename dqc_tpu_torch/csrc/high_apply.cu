@@ -69,10 +69,11 @@ __device__ __forceinline__ void view_diag(const DiagTables& d, int64_t i,
   diag_at(d, (i * X + x) * post + p, s, l, dr, di);
 }
 
-template <int X>
+template <int X, int YKIND>
 __global__ void __launch_bounds__(kThreads)
-high_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  const float* __restrict__ er, const float* __restrict__ ei,
+high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+                  const float* __restrict__ er,
+                  const float* __restrict__ ei,
                   DiagTables d, int has_diag, int diag_first, int conj,
                   int has_acc, int64_t Q, int64_t post) {
   using Cfg = HighCfg<X>;
@@ -94,8 +95,10 @@ high_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
   const int64_t q0 = g0 - i * Q;
   const float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x * Q + c]
   const float* bxi = xi + i * X * Q + q0;
-  float* byr = yr + i * X * Q + q0;
-  float* byi = yi + i * X * Q + q0;
+  constexpr int ykind = YKIND;  // y's storage, a template parameter
+  constexpr int ysize = ykind == dqc::kStoreF32 ? 4 : 2;  // bytes per y element
+  char* byr = yr + (i * X * Q + q0) * ysize;
+  char* byi = yi + (i * X * Q + q0) * ysize;
 
   // 1. the whole X-deep tile of this block's columns, times the run if first
   for (int e = tid; e < X * C; e += kThreads) {
@@ -158,31 +161,44 @@ high_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
       }
       if (conj) vi = -vi;
       if (has_acc) {
-        vr += byr[x * Q + c];
-        vi += byi[x * Q + c];
+        vr += dqc::load_plane(byr, x * Q + c, ykind);
+        vi += dqc::load_plane(byi, x * Q + c, ykind);
       }
-      byr[x * Q + c] = vr;
-      byi[x * Q + c] = vi;
+      dqc::store_plane(byr, x * Q + c, vr, ykind);
+      dqc::store_plane(byi, x * Q + c, vi, ykind);
     }
 }
 
-template <int X>
-int launch(const float* xr, const float* xi, float* yr, float* yi,
-           const float* er, const float* ei, const DiagTables& d, int has_diag,
-           int diag_first, int conj, int has_acc, long long A1, long long Q,
-           cudaStream_t stream) {
+template <int X, int YKIND>
+int launch_kind(const float* xr, const float* xi, void* yr, void* yi,
+                const float* er, const float* ei, const DiagTables& d,
+                int has_diag, int diag_first, int conj, int has_acc,
+                long long A1, long long Q, cudaStream_t stream) {
   using Cfg = HighCfg<X>;
   if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (Q / Cfg::C);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      high_apply_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      high_apply_kernel<X, YKIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  high_apply_kernel<X><<<(unsigned)blocks, kThreads, Cfg::kSmemBytes, stream>>>(
-      xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, has_acc,
-      (int64_t)Q, (int64_t)(Q >> 14));
+  high_apply_kernel<X, YKIND><<<(unsigned)blocks, kThreads, Cfg::kSmemBytes,
+                                stream>>>(
+      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), er, ei, d,
+      has_diag, diag_first, conj, has_acc, (int64_t)Q, (int64_t)(Q >> 14));
   return (int)cudaGetLastError();
+}
+
+template <int X>
+int launch(const float* xr, const float* xi, void* yr, void* yi, int ykind,
+           const float* er, const float* ei, const DiagTables& d, int has_diag,
+           int diag_first, int conj, int has_acc, long long A1, long long Q,
+           cudaStream_t stream) {
+  auto fn = ykind == dqc::kStoreF32    ? launch_kind<X, dqc::kStoreF32>
+            : ykind == dqc::kStoreBF16 ? launch_kind<X, dqc::kStoreBF16>
+                                       : launch_kind<X, dqc::kStoreF16>;
+  return fn(xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, has_acc, A1,
+            Q, stream);
 }
 
 }  // namespace
@@ -191,9 +207,11 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
 // {8, 16, 32, 64, 128}, or X in {256, 512} without a run (Q a multiple of
 // 32). y may be x (in place); with has_acc, y holds the accumulator and is
 // added to. With has_diag, Q must be a multiple of
-// 128 * 128 (M = post * 128). Returns cudaGetLastError().
-extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
-                              float* yi, const float* er, const float* ei,
+// 128 * 128 (M = post * 128). y is stored as ykind (0 f32, 1 bf16, 2 f16;
+// the seed modes' cotangent planes), x as f32. Returns cudaGetLastError().
+extern "C" int dqc_high_apply(const float* xr, const float* xi, void* yr,
+                              void* yi, int ykind, const float* er,
+                              const float* ei,
                               const float* sl_r, const float* sl_i,
                               const float* as_r, const float* as_i,
                               const float* al_r, const float* al_i,
@@ -201,12 +219,13 @@ extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
                               int has_acc, long long A1, int X, long long Q,
                               void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
+  if (ykind < 0 || ykind > 2) return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
-#define DQC_HIGH_CASE(XX)                                                   \
-  case XX:                                                                  \
-    return launch<XX>(xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, \
-                      has_acc, A1, Q, s);
+#define DQC_HIGH_CASE(XX)                                                    \
+  case XX:                                                                   \
+    return launch<XX>(xr, xi, yr, yi, ykind, er, ei, d, has_diag, diag_first, \
+                      conj, has_acc, A1, Q, s);
   switch (X) {
     DQC_HIGH_CASE(8)
     DQC_HIGH_CASE(16)
@@ -215,12 +234,12 @@ extern "C" int dqc_high_apply(const float* xr, const float* xi, float* yr,
     DQC_HIGH_CASE(128)
     case 256:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return dqc::launch_wide_apply<256>(xr, xi, yr, yi, er, ei, 0, conj,
-                                         has_acc, A1, Q, s);
+      return dqc::launch_wide_apply<256>(xr, xi, yr, yi, ykind, er, ei, 0,
+                                         conj, has_acc, A1, Q, s);
     case 512:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return dqc::launch_wide_apply<512>(xr, xi, yr, yi, er, ei, 0, conj,
-                                         has_acc, A1, Q, s);
+      return dqc::launch_wide_apply<512>(xr, xi, yr, yi, ykind, er, ei, 0,
+                                         conj, has_acc, A1, Q, s);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DQC_HIGH_CASE

@@ -52,12 +52,14 @@ __device__ __forceinline__ void wide_cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// y <- [acc +] conj?(op(E) x), op(E) = E or E^T (trans); y may be x.
-template <int X>
+// y <- [acc +] conj?(op(E) x), op(E) = E or E^T (trans); y may be x (ykind
+// 0); y stored as ykind (common.cuh codec), x as f32.
+template <int X, int YKIND>
 __global__ void __launch_bounds__(kWideThreads)
-wide_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  const float* __restrict__ er, const float* __restrict__ ei,
-                  int trans, int conj, int has_acc, int64_t Q) {
+wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+                  const float* __restrict__ er,
+                  const float* __restrict__ ei, int trans, int conj,
+                  int has_acc, int64_t Q) {
   using Cfg = WideCfg<X>;
   constexpr int C = Cfg::C, KC = Cfg::KC, LDE = Cfg::LDE, TC = Cfg::TC;
   constexpr int RP = Cfg::RP;
@@ -75,8 +77,10 @@ wide_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
   const int64_t q0 = g0 - i * Q;
   const float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x Q + c]
   const float* bxi = xi + i * X * Q + q0;
-  float* byr = yr + i * X * Q + q0;
-  float* byi = yi + i * X * Q + q0;
+  constexpr int ykind = YKIND;  // y's storage, a template parameter
+  constexpr int ysize = ykind == kStoreF32 ? 4 : 2;  // bytes per y element
+  char* byr = yr + (i * X * Q + q0) * ysize;
+  char* byi = yi + (i * X * Q + q0) * ysize;
 
   // 1. the whole X-deep tile of this block's columns
   for (int e = tid; e < X * C; e += kWideThreads) {
@@ -139,11 +143,11 @@ wide_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
         float wr = accr[r][j], wi = acci[r][j];
         if (conj) wi = -wi;
         if (has_acc) {
-          wr += byr[o];
-          wi += byi[o];
+          wr += load_plane(byr, o, ykind);
+          wi += load_plane(byi, o, ykind);
         }
-        byr[o] = wr;
-        byi[o] = wi;
+        store_plane(byr, o, wr, ykind);
+        store_plane(byi, o, wi, ykind);
       }
   }
 }
@@ -151,21 +155,23 @@ wide_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
 // Launches wide_apply_kernel<X> over A1 Q / 32 blocks; returns a CUDA error
 // code (cudaErrorInvalidValue for a Q that does not tile).
 template <int X>
-inline int launch_wide_apply(const float* xr, const float* xi, float* yr,
-                             float* yi, const float* er, const float* ei,
-                             int trans, int conj, int has_acc, long long A1,
-                             long long Q, cudaStream_t stream) {
+inline int launch_wide_apply(const float* xr, const float* xi, void* yr,
+                             void* yi, int ykind, const float* er,
+                             const float* ei, int trans, int conj, int has_acc,
+                             long long A1, long long Q, cudaStream_t stream) {
   using Cfg = WideCfg<X>;
   if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (Q / Cfg::C);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = ykind == kStoreF32    ? wide_apply_kernel<X, kStoreF32>
+                : ykind == kStoreBF16 ? wide_apply_kernel<X, kStoreBF16>
+                                      : wide_apply_kernel<X, kStoreF16>;
   cudaError_t err = cudaFuncSetAttribute(
-      wide_apply_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  wide_apply_kernel<X><<<(unsigned)blocks, kWideThreads, Cfg::kSmemBytes,
-                         stream>>>(xr, xi, yr, yi, er, ei, trans, conj, has_acc,
-                                   (int64_t)Q);
+  kernel<<<(unsigned)blocks, kWideThreads, Cfg::kSmemBytes, stream>>>(
+      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), er, ei, trans,
+      conj, has_acc, (int64_t)Q);
   return (int)cudaGetLastError();
 }
 

@@ -33,13 +33,15 @@ def raise_on_error(code: int, lib_name: str, what: str) -> None:
 
 
 def check_cuda_f32(what: str, tensors: Sequence[torch.Tensor],
-                   device: torch.device, align: int = 4) -> None:
-    """Every tensor is contiguous float32 on ``device`` (a CUDA device)."""
+                   device: torch.device, align: int = 4,
+                   dtypes=(torch.float32,)) -> None:
+    """Every tensor is contiguous on ``device`` (a CUDA device) with a dtype
+    of ``dtypes`` (float32 unless given)."""
     if device.type != "cuda":
         raise ValueError(f"{what}: expected CPU or CUDA tensors, got {device}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: expected float32 planes, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: expected planes of {dtypes}, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{what}: tensors on {t.device} and {device}")
         if not t.is_contiguous():
@@ -49,16 +51,26 @@ def check_cuda_f32(what: str, tensors: Sequence[torch.Tensor],
 
 
 def output_planes(what: str, xr: torch.Tensor, xi: torch.Tensor, acc,
-                  alias: bool):
+                  alias: bool, out_dtype=None,
+                  dtypes=(torch.float32,)):
     """Where an apply kernel writes: the accumulator planes (``acc``, added
-    to), the input planes (``alias``, in place) or fresh planes."""
+    to), the input planes (``alias``, in place) or fresh planes of
+    ``out_dtype`` (the input's dtype when None). Accumulator planes have a
+    dtype of ``dtypes``."""
     if acc is not None:
         out = tuple(a.view(xr.shape) for a in acc)
-        check_cuda_f32(what, out, xr.device, align=16)
+        check_cuda_f32(what, out, xr.device, align=16, dtypes=dtypes)
+        if out[0].dtype != out[1].dtype:
+            raise TypeError(f"{what}: accumulator planes of two dtypes")
         return out
     if alias:
+        if out_dtype not in (None, xr.dtype):
+            raise ValueError(f"{what}: an in-place apply keeps the input's "
+                             f"dtype {xr.dtype}, not {out_dtype}")
         return xr, xi
-    return torch.empty_like(xr), torch.empty_like(xi)
+    dt = xr.dtype if out_dtype is None else out_dtype
+    return (torch.empty(xr.shape, dtype=dt, device=xr.device),
+            torch.empty(xi.shape, dtype=dt, device=xi.device))
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -25,6 +25,13 @@ the unfactorized hpair's merged operator), where the kernel forms the pair
 gram as ``(B F^T) Einv^T`` before the two in-place applies (counted also in
 ``mode_launches["wide"]``).
 
+At X <= 128 the cotangent planes ``B`` may be stored as float32, bfloat16
+or float16 (``F`` float32) and the transport and the pair gram run in
+``bwd_mode`` / ``gram_mode`` ("f32" or "bf16x3"), as the TPU kernel's
+``bwd_dot_mode`` and ``gram_dot_mode``, counted in ``mode_launches`` as in
+``block_backward_dual``. At X = 256 / 512 the pair gram takes either mode;
+reduced planes and a bf16x3 transport raise there (ROADMAP.md).
+
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
 ``(f_r, f_i, b_r, b_i, T0_r, T0_i)``, then with ``diag_q`` ``(Qsl_r, Qsl_i,
@@ -38,22 +45,25 @@ from typing import Optional, Sequence
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
+                                                store_b)
 from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
-from dqc_tpu_torch.ops.kernels.gram import pair_sum
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X, WIDE_X, view_diag_run
 
 
 def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                               diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                               diag_tables: Optional[Sequence[torch.Tensor]] = None,
-                              diag_first_fwd: bool = True, diag_q: bool = False):
-    """Plain PyTorch version of the kernel (complex64 matmuls); fresh
-    outputs."""
+                              diag_first_fwd: bool = True, diag_q: bool = False,
+                              bwd_mode: str = "f32", gram_mode: str = "f32"):
+    """Plain PyTorch version of the kernel (complex64 matmuls in the dot
+    modes, B decoded on load and encoded on store); fresh outputs."""
     _check_diag_q(diag_q, diag_tables)
     A1, X, M, _ = fr.shape
     v = (A1, X, M * 128)
     F = torch.complex(fr, fi).reshape(v)
-    B = torch.complex(br, bi).reshape(v)
+    B = load_b(br, bi).reshape(v)
     Q = None
     if diag_tables is not None:
         Dinv = view_diag_run(diag_inv_tables, fr.shape).reshape(v)
@@ -62,12 +72,13 @@ def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
             Q = B * F if diag_q else None
             F, B = F * Dinv, B * D
     F = torch.matmul(torch.complex(einv_r, einv_i), F)
-    T0 = pair_sum(B, F)
-    B = torch.matmul(torch.complex(e_r, e_i).transpose(0, 1), B)
+    T0 = _st.pair_sum(B, F, gram_mode)
+    B = _st.cmatmul(torch.complex(e_r, e_i).transpose(0, 1), B, bwd_mode)
     if diag_tables is not None and diag_first_fwd:
         Q = B * F if diag_q else None
         F, B = F * Dinv, B * D
-    out = _split(F.reshape(fr.shape), B.reshape(fr.shape), T0)
+    out = (*_split(F.reshape(fr.shape)), *store_b(B.reshape(fr.shape), br.dtype),
+           *_split(T0))
     if Q is None:
         return out
     # view element (i, x, (p, s, l)) reads the run at a = (i X + x) post + p
@@ -81,19 +92,22 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
 
 
 _ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
-             + [_launch.LONG, _launch.INT, _launch.LONG, _launch.INT,
-                _launch.VOIDP])
+             + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 4
+             + [_launch.VOIDP])
 
 
 def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                         diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_tables: Optional[Sequence[torch.Tensor]] = None,
-                        diag_first_fwd: bool = True, diag_q: bool = False):
+                        diag_first_fwd: bool = True, diag_q: bool = False,
+                        bwd_mode: str = "f32", gram_mode: str = "f32"):
     """The adjoint step on the view ``(A1, X, M, 128)``, X in 8..128, or
     256 / 512 without a run; operators are f32 real/imag pairs (X, X); the
     tables as in ``high_apply`` (run's inverse, then run), or both None. A
     run needs M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions
-    to the outputs."""
+    to the outputs. ``B`` is stored as float32, bfloat16 or float16 (X <=
+    128); ``bwd_mode`` / ``gram_mode`` are the transport's and the pair
+    gram's dot modes."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -110,19 +124,26 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         raise ValueError(f"block_backward_high: a diag run folds into X <= 128 "
                          f"only, got X={X}")
     ops = (einv_r, einv_i, e_r, e_i)
+    check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode)
+    if X in WIDE_X:
+        _st.refuse_reduced("block_backward_high at X = 256 / 512", br, bi)
+        _st.refuse_bf16x3("block_backward_high at X = 256 / 512", "transport",
+                          bwd_mode)
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
             diag_tables=diag_tables, diag_first_fwd=diag_first_fwd,
-            diag_q=diag_q)
+            diag_q=diag_q, bwd_mode=bwd_mode, gram_mode=gram_mode)
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"block_backward_high: X={X} is not one of "
                          f"{KERNEL_X + WIDE_X}")
-    _launch.check_cuda_f32("block_backward_high", planes + ops, fr.device)
+    _launch.check_cuda_f32("block_backward_high", (fr, fi) + ops, fr.device)
+    _launch.check_cuda_f32("block_backward_high", (br, bi), fr.device,
+                           dtypes=_st.STORAGE_DTYPES)
     if any(tuple(o.shape) != (X, X) for o in ops):
         raise ValueError(f"block_backward_high: operators must be ({X}, {X})")
     if X in WIDE_X:
-        return _block_backward_wide(planes, ops, A1, X, M)
+        return _block_backward_wide(planes, ops, A1, X, M, gram_mode)
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
@@ -147,21 +168,24 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
               *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
               int(diag_first_fwd), int(diag_q), *q_ptrs, part.data_ptr(),
-              out.data_ptr(), A1, X, M * 128, nblk, _launch.stream(dev))
+              out.data_ptr(), A1, X, M * 128, nblk, _st.storage_kind(br.dtype),
+              int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
+              _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
+    count_modes(block_backward_high, br.dtype, bwd_mode, gram_mode)
     if not diag_q:
         return (fr, fi, br, bi, out[0], out[1])
     block_backward_high.mode_launches["diag_q"] += 1
     return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
-_WIDE_ARGTYPES = ([_launch.VOIDP] * 11 + [_launch.LONG, _launch.INT, _launch.LONG,
-                                         _launch.INT, _launch.VOIDP])
+_WIDE_ARGTYPES = ([_launch.VOIDP] * 11 + [_launch.LONG, _launch.INT, _launch.LONG]
+                  + [_launch.INT] * 2 + [_launch.VOIDP])
 _BLOCKS_PER_SM = 4
 
 
-def _block_backward_wide(planes, ops, A1: int, X: int, M: int):
+def _block_backward_wide(planes, ops, A1: int, X: int, M: int, gram_mode: str):
     """X = 256 / 512: each block of the cross-Gram forms one of the
     (X / 128)^2 patches of ``B F^T`` over its group of 32-column tiles."""
     dev = planes[0].device
@@ -175,12 +199,14 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int):
     fn = _launch.entry(lib, "dqc_block_backward_high_wide", _WIDE_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
               part.data_ptr(), gram.data_ptr(), out.data_ptr(), A1, X, M * 128,
-              nblk, _launch.stream(dev))
+              nblk, int(gram_mode == "bf16x3"), _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
     block_backward_high.mode_launches["wide"] += 1
+    count_modes(block_backward_high, torch.float32, "f32", gram_mode)
     return (*planes, out[0], out[1])
 
 
 block_backward_high.launches = 0
-block_backward_high.mode_launches = {"diag_q": 0, "wide": 0}
+block_backward_high.mode_launches = {"diag_q": 0, "wide": 0, "bf16": 0,
+                                     "f16": 0, "bf16x3": 0, "gram_bf16x3": 0}

@@ -23,33 +23,43 @@ from __future__ import annotations
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
-from dqc_tpu_torch.ops.kernels.gram import pair_sum
 
 
-def block_backward_sublane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i):
-    """Plain PyTorch version of the kernel (complex64 matmuls); fresh
-    outputs."""
+def block_backward_sublane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
+                              bwd_mode: str = "f32", gram_mode: str = "f32"):
+    """Plain PyTorch version of the kernel (complex64 matmuls, the pair gram
+    in ``gram_mode``); fresh outputs. Refuses what the kernel refuses."""
+    _st.refuse_reduced("block_backward_sublane", fr, fi, br, bi)
+    _st.refuse_bf16x3("block_backward_sublane", "transport", bwd_mode)
     F = torch.matmul(torch.complex(einv_r, einv_i), torch.complex(fr, fi))
     B = torch.complex(br, bi)
-    T0 = pair_sum(B, F)
+    T0 = _st.pair_sum(B, F, gram_mode)
     return _split(F, torch.matmul(torch.complex(e_r, e_i).transpose(0, 1), B), T0)
 
 
-_ARGTYPES = [_launch.VOIDP] * 10 + [_launch.LONG, _launch.INT, _launch.VOIDP]
+_ARGTYPES = [_launch.VOIDP] * 10 + [_launch.LONG] + [_launch.INT] * 2 + [_launch.VOIDP]
 
 
-def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i):
+def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
+                          bwd_mode: str = "f32", gram_mode: str = "f32"):
     """The adjoint step on planes ``(A, 128, 128)``; operators are f32
-    real/imag pairs (128, 128)."""
+    real/imag pairs (128, 128). The pair gram runs in ``gram_mode`` ("f32"
+    or "bf16x3", also counted in ``mode_launches["gram_bf16x3"]``); f32
+    planes and an f32 transport only (``bwd_mode`` "bf16x3" and reduced
+    planes raise, ROADMAP.md)."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):
         raise ValueError(f"block_backward_sublane: planes must be (A, 128, 128), "
                          f"got {[tuple(p.shape) for p in planes]}")
     ops = (einv_r, einv_i, e_r, e_i)
+    _st.refuse_reduced("block_backward_sublane", *planes)
+    _st.refuse_bf16x3("block_backward_sublane", "transport", bwd_mode)
+    _st.check_dot_mode("block_backward_sublane", gram_mode)
     if fr.device.type == "cpu":
-        return block_backward_sublane_plain(*planes, *ops)
+        return block_backward_sublane_plain(*planes, *ops, gram_mode=gram_mode)
     A = fr.shape[0]
     _launch.check_cuda_f32("block_backward_sublane", planes + ops, fr.device)
     if any(tuple(o.shape) != (128, 128) for o in ops):
@@ -60,10 +70,14 @@ def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i):
     lib = "block_backward_sublane"
     fn = _launch.entry(lib, "dqc_block_backward_sublane", _ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
-              part.data_ptr(), out.data_ptr(), A, nblk, _launch.stream(fr.device))
+              part.data_ptr(), out.data_ptr(), A, nblk,
+              int(gram_mode == "bf16x3"), _launch.stream(fr.device))
     _launch.raise_on_error(code, lib, "block_backward_sublane launch")
     block_backward_sublane.launches += 1
+    if gram_mode == "bf16x3":
+        block_backward_sublane.mode_launches["gram_bf16x3"] += 1
     return (fr, fi, br, bi, out[0], out[1])
 
 
 block_backward_sublane.launches = 0
+block_backward_sublane.mode_launches = {"gram_bf16x3": 0}

@@ -29,6 +29,8 @@ from typing import Sequence
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels._storage import count_modes, load_b, store_b
 from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
 from dqc_tpu_torch.ops.kernels.dual_apply import diag_run
 
@@ -45,11 +47,14 @@ def diag_sweep_plain(xr, xi, *tables):
 
 def diag_backward_plain(fr, fi, br, bi, *tables, with_q: bool = False):
     """Plain PyTorch version of the adjoint; ``tables`` are the run's
-    inverse's six planes, then the run's. Fresh outputs."""
-    out = (*_times(fr, fi, tables[:6]), *_times(br, bi, tables[6:]))
+    inverse's six planes, then the run's. B is decoded on load and encoded
+    on store. Fresh outputs."""
+    B = load_b(br, bi)
+    out = (*_times(fr, fi, tables[:6]), *store_b(B * diag_run(tables[6:]),
+                                                 br.dtype))
     if not with_q:
         return out
-    Q = torch.complex(br, bi) * torch.complex(fr, fi)
+    Q = B * torch.complex(fr, fi)
     return out + _split(Q.sum(0), Q.sum(2), Q.sum(1))
 
 
@@ -63,9 +68,10 @@ def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> int:
 
 
 _SWEEP_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.LONG, _launch.VOIDP]
-_BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.VOIDP]
+_BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT,
+                                             _launch.VOIDP]
 _BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22
-                        + [_launch.LONG, _launch.INT, _launch.VOIDP])
+                        + [_launch.LONG, _launch.INT, _launch.INT, _launch.VOIDP])
 
 
 def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
@@ -73,6 +79,7 @@ def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
     ``tsl`` (128, 128) and ``tas``, ``tal`` (A, 128)."""
     tables = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_sweep", (xr, xi))
+    _st.refuse_reduced("diag_sweep", xr, xi)
     if xr.device.type == "cpu":
         return diag_sweep_plain(xr, xi, *tables)
     _launch.check_cuda_f32("diag_sweep", (xr, xi), xr.device, align=16)
@@ -91,24 +98,35 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
                   with_q: bool = False):
     """``fwd *= Dinv``, ``bwd *= D`` on planes ``(A, 128, 128)``: the run's
     inverse's six table planes, then the run's. Returns the four planes,
-    then with ``with_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i, Qal_r, Qal_i)``."""
+    then with ``with_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i, Qal_r, Qal_i)``.
+    ``bwd`` may be stored as float32, bfloat16 or float16 (the kernels'
+    codec; ``fwd`` float32), counted in ``mode_launches`` under the
+    storage's name."""
     planes = (fr, fi, br, bi)
     inv = (isl_r, isl_i, ias_r, ias_i, ial_r, ial_i)
     fwd = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_backward", planes)
+    _st.refuse_reduced("diag_backward", fr, fi)
+    _st.storage_kind(br.dtype)
+    if bi.dtype != br.dtype:
+        raise TypeError("diag_backward: cotangent planes of two dtypes")
     if fr.device.type == "cpu":
         return diag_backward_plain(*planes, *inv, *fwd, with_q=with_q)
     dev = fr.device
-    _launch.check_cuda_f32("diag_backward", planes, dev, align=16)
+    _launch.check_cuda_f32("diag_backward", (fr, fi), dev, align=16)
+    _launch.check_cuda_f32("diag_backward", (br, bi), dev, align=16,
+                           dtypes=_st.STORAGE_DTYPES)
+    bkind = _st.storage_kind(br.dtype)
     for tabs in (inv, fwd):
         _launch.check_tables("diag_backward", tabs, A, dev)
         _launch.check_cuda_f32("diag_backward", tabs, dev, align=16)
     if not with_q:
         fn = _launch.entry("diag", "dqc_diag_backward", _BACKWARD_ARGTYPES)
         code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
-                  *_launch.table_ptrs(fwd), A, _launch.stream(dev))
+                  *_launch.table_ptrs(fwd), A, bkind, _launch.stream(dev))
         _launch.raise_on_error(code, "diag", "diag_backward launch")
         diag_backward.launches += 1
+        count_modes(diag_backward, br.dtype, "f32", "f32")
         return fr, fi, br, bi
     nblk = min(A, 2 * _launch.sm_count(dev))
     rows = torch.empty((4, A, 128), dtype=torch.float32, device=dev)
@@ -117,13 +135,15 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
     fn = _launch.entry("diag", "dqc_diag_backward_q", _BACKWARD_Q_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
               *_launch.table_ptrs(fwd), *(r.data_ptr() for r in rows),
-              part.data_ptr(), qsl.data_ptr(), A, nblk, _launch.stream(dev))
+              part.data_ptr(), qsl.data_ptr(), A, nblk, bkind,
+              _launch.stream(dev))
     _launch.raise_on_error(code, "diag", "diag_backward launch")
     diag_backward.launches += 1
     diag_backward.mode_launches["with_q"] += 1
+    count_modes(diag_backward, br.dtype, "f32", "f32")
     return fr, fi, br, bi, qsl[0], qsl[1], *rows
 
 
 diag_sweep.launches = 0
 diag_backward.launches = 0
-diag_backward.mode_launches = {"with_q": 0}
+diag_backward.mode_launches = {"with_q": 0, "bf16": 0, "f16": 0}

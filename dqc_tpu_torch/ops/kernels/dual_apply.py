@@ -17,6 +17,12 @@ complex multiply-adds per amplitude against 16 bytes);
 (as the TPU kernel aliases output to input), into the accumulator planes
 with ``acc``, or into fresh planes with ``alias=False``; on a CPU tensor it
 returns the plain version's fresh planes. Callers use the returned planes.
+
+The seed's output planes may be stored reduced, the cotangent storage of
+``config.set_state_storage`` (``out_dtype``, or the accumulator's dtype):
+bfloat16 or float16 in the kernels' codec (ops/kernels/_storage.py), the
+input planes staying float32. Those launches are also counted in
+``mode_launches`` under the storage's name ("bf16", "f16").
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -39,19 +46,11 @@ def diag_run(diag_tables: Sequence[torch.Tensor]) -> torch.Tensor:
     return (tas[:, :, None] * tal[:, None, :]) * tsl[None]
 
 
-def _seed_out(yr, yi, conj: bool, acc) -> Planes:
-    """The seed modes on a complex result: ``[acc +] conj?(y)``."""
-    if conj:
-        yi = -yi
-    if acc is not None:
-        yr, yi = acc[0] + yr, acc[1] + yi
-    return yr.contiguous(), yi.contiguous()
-
-
 def dual_apply_plain(xr, xi, el_r, el_i, em_r, em_i,
                      diag_tables: Optional[Sequence[torch.Tensor]] = None,
                      diag_first: bool = True, *, conj: bool = False,
-                     acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+                     acc: Optional[Planes] = None, alias: bool = True,
+                     out_dtype=None) -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls); fresh
     outputs, whatever ``alias`` says."""
     x = torch.complex(xr, xi)
@@ -63,42 +62,51 @@ def dual_apply_plain(xr, xi, el_r, el_i, em_r, em_i,
     y = torch.matmul(em, torch.matmul(x, el.transpose(0, 1)))
     if D is not None and not diag_first:
         y = y * D
-    return _seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 14 + [_launch.INT] * 4 + [_launch.LONG,
-                                                        _launch.VOIDP]
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 10
+             + [_launch.INT] * 4 + [_launch.LONG, _launch.VOIDP])
+
 
 
 def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
                diag_tables: Optional[Sequence[torch.Tensor]] = None,
                diag_first: bool = True, *, conj: bool = False,
-               acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+               acc: Optional[Planes] = None, alias: bool = True,
+               out_dtype=None) -> Planes:
     """``[acc +] conj?([D] Em X El^T [D])`` on planes ``(A, 128, 128)``;
     operators are f32 real/imag pairs (128, 128); ``diag_tables`` the run's
-    six f32 planes ``(tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)`` or None."""
+    six f32 planes ``(tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)`` or None.
+    ``out_dtype``: the storage of fresh output planes (``alias=False``)."""
     if xr.dim() != 3 or tuple(xr.shape[1:]) != (128, 128) or xi.shape != xr.shape:
         raise ValueError(f"dual_apply: planes must be (A, 128, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    _st.refuse_reduced("dual_apply", xr, xi)
     if xr.device.type == "cpu":
         return dual_apply_plain(xr, xi, el_r, el_i, em_r, em_i, diag_tables,
-                                diag_first, conj=conj, acc=acc)
+                                diag_first, conj=conj, acc=acc,
+                                out_dtype=out_dtype)
     A = xr.shape[0]
     ops = (el_r, el_i, em_r, em_i)
     _launch.check_cuda_f32("dual_apply", (xr, xi), xr.device, align=16)
-    out = _launch.output_planes("dual_apply", xr, xi, acc, alias)
+    out = _launch.output_planes("dual_apply", xr, xi, acc, alias, out_dtype,
+                                _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("dual_apply", ops, xr.device)
     if any(tuple(o.shape) != (128, 128) for o in ops):
         raise ValueError("dual_apply: operators must be (128, 128)")
     _launch.check_tables("dual_apply", diag_tables, A, xr.device)
     fn = _launch.entry("dual_apply", "dqc_dual_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-              *(o.data_ptr() for o in ops), *_launch.table_ptrs(diag_tables),
+              _st.storage_kind(out[0].dtype), *(o.data_ptr() for o in ops),
+              *_launch.table_ptrs(diag_tables),
               int(diag_tables is not None), int(diag_first), int(conj),
               int(acc is not None), A, _launch.stream(xr.device))
     _launch.raise_on_error(code, "dual_apply", "dual_apply launch")
     dual_apply.launches += 1
+    _st.count_storage(dual_apply, out[0].dtype)
     return out
 
 
 dual_apply.launches = 0
+dual_apply.mode_launches = {"bf16": 0, "f16": 0}

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
-from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
+from dqc_tpu_torch.ops.kernels import _storage as _st
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -44,7 +44,7 @@ def dual_multi_apply_plain(xr, xi, el_r, el_i, em_r, em_i, *,
     for t in range(el.shape[0]):
         yt = torch.matmul(em[t], torch.matmul(x, el[t].transpose(0, 1)))
         y = yt if y is None else y + yt
-    return _seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc)
 
 
 _ARGTYPES = [_launch.VOIDP] * 8 + [_launch.INT] * 3 + [_launch.LONG, _launch.VOIDP]
@@ -68,6 +68,7 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     if T < 1:
         raise ValueError("dual_multi_apply: factors must be stacked (T, 128, 128)")
     check_terms("dual_multi_apply", ops, T, (128, 128))
+    _st.refuse_reduced("dual_multi_apply", xr, xi, *(acc or ()))
     if xr.device.type == "cpu":
         return dual_multi_apply_plain(xr, xi, *ops, conj=conj, acc=acc)
     _launch.check_cuda_f32("dual_multi_apply", (xr, xi), xr.device, align=16)

@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
 
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: 128 x 128 patches of (S, C)
@@ -62,6 +63,7 @@ def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     if xr.dim() != 3 or xi.shape != xr.shape:
         raise ValueError(f"gram: planes must be one (P, X, Q) view, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+    _st.refuse_reduced("gram", xr, xi)
     if xr.device.type == "cpu":
         return gram_plain(xr, xi)
     P, X, Q = xr.shape

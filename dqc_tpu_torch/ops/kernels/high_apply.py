@@ -18,7 +18,10 @@ multiply-adds per amplitude against 16 bytes, 24 in the seed modes);
 
 :func:`high_apply` returns its output planes like ``dual_apply``: the
 input planes (in place), the accumulator, or fresh planes on a CUDA
-tensor; the plain version's fresh planes on a CPU tensor.
+tensor; the plain version's fresh planes on a CPU tensor. The seed's
+output planes may be stored reduced (``out_dtype`` or the accumulator's
+dtype, as in ``dual_apply``), counted in ``mode_launches`` under the
+storage's name.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
-from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
+from dqc_tpu_torch.ops.kernels import _storage as _st
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
@@ -49,7 +52,8 @@ def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
 def high_apply_plain(xr, xi, e_r, e_i,
                      diag_tables: Optional[Sequence[torch.Tensor]] = None,
                      diag_first: bool = True, *, conj: bool = False,
-                     acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+                     acc: Optional[Planes] = None, alias: bool = True,
+                     out_dtype=None) -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmul); fresh
     outputs, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
@@ -63,22 +67,24 @@ def high_apply_plain(xr, xi, e_r, e_i,
         y = y * D
     if acc is not None:
         acc = (acc[0].reshape(xr.shape), acc[1].reshape(xr.shape))
-    return _seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 12 + [_launch.INT] * 4 + [
-    _launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
+_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 8 + [
+    _launch.INT] * 4 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
 
 
 def high_apply(xr, xi, e_r, e_i,
                diag_tables: Optional[Sequence[torch.Tensor]] = None,
                diag_first: bool = True, *, conj: bool = False,
-               acc: Optional[Planes] = None, alias: bool = True) -> Planes:
+               acc: Optional[Planes] = None, alias: bool = True,
+               out_dtype=None) -> Planes:
     """``[acc +] conj?([D] E x [D])`` on the view ``(A1, X, M, 128)``, X in
     8..128, or 256 / 512 without a run; ``E`` an f32 real/imag pair (X, X);
     ``diag_tables`` the run's six f32 planes (tsl (128, 128); tas, tal (A,
     128) or their (A1, X, post, 128) view, planes.dhigh_view_tables) or
     None. A run needs M % 128 == 0. ``acc`` planes have the view's shape.
+    ``out_dtype``: the storage of fresh output planes (``alias=False``).
     The in-place sweep at X = 256 / 512 is also counted in
     ``mode_launches["wide_inplace"]``."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
@@ -90,27 +96,31 @@ def high_apply(xr, xi, e_r, e_i,
     if X > 128 and diag_tables is not None:
         raise ValueError(f"high_apply: a diag run folds into X <= 128 only, "
                          f"got X={X}")
+    _st.refuse_reduced("high_apply", xr, xi)
     if xr.device.type == "cpu":
         return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first,
-                                conj=conj, acc=acc)
+                                conj=conj, acc=acc, out_dtype=out_dtype)
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"high_apply: X={X} is not one of {KERNEL_X + WIDE_X}")
     _launch.check_cuda_f32("high_apply", (xr, xi, e_r, e_i), xr.device)
-    out = _launch.output_planes("high_apply", xr, xi, acc, alias)
+    out = _launch.output_planes("high_apply", xr, xi, acc, alias, out_dtype,
+                                _st.STORAGE_DTYPES)
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
         raise ValueError(f"high_apply: operator must be ({X}, {X})")
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
     fn = _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-              e_r.data_ptr(), e_i.data_ptr(), *_launch.table_ptrs(diag_tables),
+              _st.storage_kind(out[0].dtype), e_r.data_ptr(), e_i.data_ptr(),
+              *_launch.table_ptrs(diag_tables),
               int(diag_tables is not None), int(diag_first), int(conj),
               int(acc is not None), A1, X, M * 128, _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_apply", "high_apply launch")
     high_apply.launches += 1
     if X in WIDE_X and out[0] is xr:
         high_apply.mode_launches["wide_inplace"] += 1
+    _st.count_storage(high_apply, out[0].dtype)
     return out
 
 
 high_apply.launches = 0
-high_apply.mode_launches = {"wide_inplace": 0}
+high_apply.mode_launches = {"wide_inplace": 0, "bf16": 0, "f16": 0}

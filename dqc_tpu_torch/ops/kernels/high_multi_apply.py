@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
-from dqc_tpu_torch.ops.kernels.dual_apply import _seed_out
+from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_terms
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X
 
@@ -48,7 +48,7 @@ def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
     y = y.reshape(xr.shape)
     if acc is not None:
         acc = (acc[0].view(xr.shape), acc[1].view(xr.shape))
-    return _seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc)
 
 
 _ARGTYPES = [_launch.VOIDP] * 8 + [_launch.INT] * 3 + [_launch.LONG, _launch.INT,
@@ -69,6 +69,7 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
         raise ValueError("high_multi_apply: factors must be stacked (T, ...)")
     check_terms("high_multi_apply", (e_r, e_i), T, (X, X))
     check_terms("high_multi_apply", (el_r, el_i), T, (128, 128))
+    _st.refuse_reduced("high_multi_apply", xr, xi, *(acc or ()))
     if xr.device.type == "cpu":
         return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, conj=conj,
                                       acc=acc)

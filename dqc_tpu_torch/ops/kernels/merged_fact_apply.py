@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
+from dqc_tpu_torch.ops.kernels import _storage as _st
 
 KERNEL_X_TOP = (2, 4)
 KERNEL_X_LOW = 128
@@ -76,6 +77,7 @@ def merged_fact_apply(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int):
     ``el`` an f32 real/imag pair (Xl, Xl), ``et`` one (Xt, Xt)."""
     A1, Xl, M = check_merged("merged_fact_apply", (xr, xi), (el_r, el_i),
                              (et_r, et_i), x_top)
+    _st.refuse_reduced("merged_fact_apply", xr, xi)
     if xr.device.type == "cpu":
         return merged_fact_apply_plain(xr, xi, el_r, el_i, et_r, et_i,
                                        x_top=x_top)

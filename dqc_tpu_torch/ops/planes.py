@@ -50,6 +50,16 @@ into the accumulator planes) is given: the density seed reads the forward
 planes and leaves them intact. ``kernels`` selects the wrappers (default)
 or the plain versions (``ops.kernels.PLAIN``), the yardstick for the
 kernels on the card.
+
+Storage (config.set_state_storage): the forward planes are float32, the
+cotangent planes float32, bfloat16 ("mixed") or float16 ("f16"). The
+kernels decode and encode them with the JAX package's in-kernel codec
+(ops/kernels/_storage.py); the conversions here, outside the kernels
+(``plane_f32``, ``plane_store``, ``to_planes``, ``from_planes``, the small-X
+pieces and the plain diagonal ops), are IEEE casts, as the JAX package's
+XLA-level ``enc16`` / ``dec16`` are. The seeds create the cotangent planes
+in their storage (``out_dtype``), and the backward steps take the dot modes
+of config.bwd_kernel_dot_mode / gram_kernel_dot_mode.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ import torch
 from dqc_tpu_torch import config
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
+from dqc_tpu_torch.ops.kernels import _storage
 
 # a high-group kernel takes a contracted axis of at least 8 (the TPU
 # kernels' tiling floor, kept so that both packages schedule alike)
@@ -79,16 +90,28 @@ def plane_shape(n: int) -> Tuple[int, int, int]:
     return (1 << (n - 14), 128, 128)
 
 
-def to_planes(state: torch.Tensor, n: int) -> Planes:
-    """Flat or grouped complex state -> (xr, xi) f32 planes."""
+def plane_f32(x: torch.Tensor) -> torch.Tensor:
+    """A plane of any storage dtype as float32 values (an IEEE upcast; the
+    JAX package's ``dec16`` outside its kernels)."""
+    return x.to(torch.float32)
+
+
+def plane_store(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 values as a plane of the storage dtype (an IEEE downcast,
+    round to nearest even; the JAX package's ``enc16``)."""
+    return x.to(dtype).contiguous()
+
+
+def to_planes(state: torch.Tensor, n: int, dtype=torch.float32) -> Planes:
+    """Flat or grouped complex state -> (xr, xi) planes stored as ``dtype``."""
     t = state.reshape(plane_shape(n))
-    return (t.real.to(torch.float32).contiguous(),
-            t.imag.to(torch.float32).contiguous())
+    return (plane_store(t.real.to(torch.float32), dtype),
+            plane_store(t.imag.to(torch.float32), dtype))
 
 
 def from_planes(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
-    """(xr, xi) planes -> flat complex64 state."""
-    return torch.complex(xr.to(torch.float32), xi.to(torch.float32)).reshape(-1)
+    """(xr, xi) planes of any storage -> flat complex64 state."""
+    return torch.complex(plane_f32(xr), plane_f32(xi)).reshape(-1)
 
 
 def standard_planes(n: int, device=None) -> Planes:
@@ -193,17 +216,18 @@ def _merged_planes(xr, xi, n: int):
 
 
 def apply_merged_top(xr, xi, E_m, n: int, *, alias: bool = True,
-                     conj: bool = False, acc=None,
+                     conj: bool = False, acc=None, out_dtype=None,
                      kernels: KernelSet = KERNELS) -> Planes:
     """A dense operator ``E_m`` (X Xl, X Xl) on the merged (top, top-1) axis
     in one pass of the high apply at X = 256 / 512: in place (a lone
     top-group block, the unfactorized hpair) or the merged-top density seed
-    (``alias=False``, ``conj``, ``acc``)."""
+    (``alias=False``, ``conj``, ``acc``, ``out_dtype``)."""
     vr, vi, _ = _merged_planes(xr, xi, n)
     er, ei = op_planes(E_m, xr.device)
     if acc is not None:
         acc = (acc[0].view(vr.shape), acc[1].view(vr.shape))
-    yr, yi = kernels.high_apply(vr, vi, er, ei, conj=conj, acc=acc, alias=alias)
+    yr, yi = kernels.high_apply(vr, vi, er, ei, conj=conj, acc=acc, alias=alias,
+                                out_dtype=out_dtype)
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -228,7 +252,7 @@ def backward_merged_top_fact(fxr, fxi, bxr, bxi, Et, El, Eti, Eli, n: int, *,
     dev = fxr.device
     fr, fi, br, bi, ttr, tti, tlr, tli = kernels.block_backward_merged_fact(
         fr, fi, br, bi, *op_planes(Eli, dev), *op_planes(El, dev),
-        *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X)
+        *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X, **_bwd_modes())
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
             bi.view(bxr.shape), torch.complex(ttr, tti), torch.complex(tlr, tli))
 
@@ -242,7 +266,8 @@ def backward_merged_top(fxr, fxi, bxr, bxi, Einv_m, E_m, n: int, *,
     br, bi, _ = _merged_planes(bxr, bxi, n)
     dev = fxr.device
     fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
-        fr, fi, br, bi, *op_planes(Einv_m, dev), *op_planes(E_m, dev))
+        fr, fi, br, bi, *op_planes(Einv_m, dev), *op_planes(E_m, dev),
+        **_bwd_modes())
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
             bi.view(bxr.shape), torch.complex(t0r, t0i))
 
@@ -262,11 +287,23 @@ def gram_merged_top(xr, xi, n: int, *, kernels: KernelSet = KERNELS):
 # Dense applies
 # ---------------------------------------------------------------------------
 
-def _check_out_dtype(out_dtype) -> None:
-    if out_dtype is not None and out_dtype != torch.float32:
+def _check_out_dtype(out_dtype, what: str = None) -> None:
+    """The storage of a seed's fresh planes: any cotangent storage for the
+    dual and high applies (``what`` None), float32 for ``what``, a path
+    whose kernels take f32 planes only."""
+    if out_dtype is None:
+        return
+    _storage.storage_kind(out_dtype)
+    if what is not None and out_dtype != torch.float32:
         raise NotImplementedError(
-            f"plane storage {out_dtype} is not ported to dqc_tpu_torch yet "
-            "(only float32); see ROADMAP.md")
+            f"{what}: {out_dtype} planes (reduced storage) are not ported to "
+            "this path yet; see ROADMAP.md")
+
+
+def _bwd_modes() -> Dict[str, str]:
+    """The backward kernels' dot modes, as config resolves them."""
+    return dict(bwd_mode=config.bwd_kernel_dot_mode(),
+                gram_mode=config.gram_kernel_dot_mode())
 
 
 def apply_dual(xr, xi, E0, E1, *, alias: bool = True, conj: bool = False,
@@ -286,7 +323,8 @@ def apply_dual(xr, xi, E0, E1, *, alias: bool = True, conj: bool = False,
     e1r, e1i = op_planes(E1, dev) if E1 is not None else (eye, zr)
     return kernels.dual_apply(xr, xi, e0r, e0i, e1r, e1i,
                               _diag_table_planes(diag, dev), diag_first,
-                              conj=conj, acc=acc, alias=alias)
+                              conj=conj, acc=acc, alias=alias,
+                              out_dtype=out_dtype)
 
 
 def dhigh_eligible(j: int, n: int) -> bool:
@@ -353,22 +391,27 @@ def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
     if X < MIN_KERNEL_X and j < 3:
+        # elementwise, the storage decoded and encoded as the JAX package's
+        # XLA form does (IEEE casts)
         er, ei = op_planes(E, xr.device)
-        yr, yi = _apply_high_smallx(xr.view(v), xi.view(v), er, ei, X)
+        yr, yi = _apply_high_smallx(plane_f32(xr.view(v)), plane_f32(xi.view(v)),
+                                    er, ei, X)
         if conj:
             yi = -yi
+        out_dt = acc[0].dtype if acc is not None else (out_dtype or xr.dtype)
         if acc is not None:
-            yr, yi = acc[0].view(v) + yr, acc[1].view(v) + yi
-        return yr.reshape(xr.shape), yi.reshape(xi.shape)
+            yr, yi = plane_f32(acc[0].view(v)) + yr, plane_f32(acc[1].view(v)) + yi
+        return (plane_store(yr, out_dt).reshape(xr.shape),
+                plane_store(yi, out_dt).reshape(xi.shape))
     if X < MIN_KERNEL_X:
         return apply_merged_top(xr, xi, _kron_id(E, _merged_view(n, j)[2]), n,
                                 alias=alias, conj=conj, acc=acc,
-                                kernels=kernels)
+                                out_dtype=out_dtype, kernels=kernels)
     er, ei = op_planes(E, xr.device)
     if acc is not None:
         acc = (acc[0].view(v), acc[1].view(v))
     yr, yi = kernels.high_apply(xr.view(v), xi.view(v), er, ei, conj=conj,
-                                acc=acc, alias=alias)
+                                acc=acc, alias=alias, out_dtype=out_dtype)
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -427,7 +470,7 @@ def apply_cross_terms(xr, xi, terms, n: int, *, alias: bool = True,
     :func:`cross_terms_operands`, staged on the device once per call for a
     constant gate (``terms`` is then not read). ``conj``/``acc``/``alias``:
     the seed modes of apply_block (the seed of a cross-group density)."""
-    _check_out_dtype(out_dtype)
+    _check_out_dtype(out_dtype, "apply_cross_terms")
     if operands is None:
         operands = cross_terms_operands(terms, n, xr.device)
     if operands is None:
@@ -562,7 +605,7 @@ def apply_cross_span(xr, xi, gate_m, positions, n: int, *, alias: bool = True,
     (conj/acc/alias). Returns None when the bit pattern has no span view.
     ``operands``: the result of :func:`cross_span_operands`, staged once per
     call for a constant gate."""
-    _check_out_dtype(out_dtype)
+    _check_out_dtype(out_dtype, "apply_cross_span")
     if operands is None:
         operands = cross_span_operands(gate_m, positions, n, xr.device)
     if operands is None:
@@ -657,7 +700,7 @@ def backward_cross_span(fxr, fxi, bxr, bxi, gate_m, gate_inv, positions,
     vshape, rels, span = operands[:3]
     fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
         fxr.view(vshape), fxi.view(vshape), bxr.view(vshape), bxi.view(vshape),
-        *operands[3:])
+        *operands[3:], **_bwd_modes())
     W = None
     if with_cotangent:
         W = _span_cotangent(t0r, t0i, rels, span)
@@ -694,7 +737,7 @@ def backward_dhigh(fxr, fxi, bxr, bxi, Einv, E, tables_inv, tables, j: int,
         *op_planes(Einv, dev), *op_planes(E, dev),
         diag_inv_tables=dhigh_view_tables(tables_inv, j, n, dev),
         diag_tables=dhigh_view_tables(tables, j, n, dev),
-        diag_first_fwd=diag_first, diag_q=with_q)
+        diag_first_fwd=diag_first, diag_q=with_q, **_bwd_modes())
     fr, fi, br, bi, t0r, t0i = out[:6]
     Q = None
     if with_q:
@@ -723,7 +766,7 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     if j in (0, 1):
         step = kernels.block_backward_lane if j == 0 else kernels.block_backward_sublane
         fr, fi, br, bi, t0r, t0i = step(fxr, fxi, bxr, bxi, *op_planes(Einv, dev),
-                                        *op_planes(E, dev))
+                                        *op_planes(E, dev), **_bwd_modes())
         return fr, fi, br, bi, torch.complex(t0r, t0i)
     pre, X, M = _high_view(n, j)
     v = (pre, X, M, 128)
@@ -736,7 +779,8 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     if X < MIN_KERNEL_X:
         # tiny group 2: the small-X form; T0[x, y] = sum_b bwd[x] fwd_in[y]
         fr, fi = apply_high(fxr, fxi, Einv, j, n, kernels=kernels)
-        vfr, vfi, vbr, vbi = fr.view(v), fi.view(v), bxr.view(v), bxi.view(v)
+        vfr, vfi = fr.view(v), fi.view(v)
+        vbr, vbi = plane_f32(bxr.view(v)), plane_f32(bxi.view(v))
         T0 = torch.stack([torch.stack([
             torch.complex(torch.sum(vbr[:, x] * vfr[:, y])
                           - torch.sum(vbi[:, x] * vfi[:, y]),
@@ -748,7 +792,7 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
         return fr, fi, br, bi, T0
     fr, fi, br, bi, t0r, t0i = kernels.block_backward_high(
         fxr.view(v), fxi.view(v), bxr.view(v), bxi.view(v),
-        *op_planes(Einv, dev), *op_planes(E, dev))
+        *op_planes(Einv, dev), *op_planes(E, dev), **_bwd_modes())
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
             bi.view(bxr.shape), torch.complex(t0r, t0i))
 
@@ -796,9 +840,10 @@ def _cmul_planes(xr, xi, dr, di):
 
 
 def _planes_times(xr, xi, tr, ti, shape, n: int) -> Planes:
-    yr, yi = _cmul_planes(_grouped(xr, n), _grouped(xi, n), tr.reshape(shape),
-                          ti.reshape(shape))
-    return yr.reshape(xr.shape).contiguous(), yi.reshape(xi.shape).contiguous()
+    yr, yi = _cmul_planes(plane_f32(_grouped(xr, n)), plane_f32(_grouped(xi, n)),
+                          tr.reshape(shape), ti.reshape(shape))
+    return (plane_store(yr.reshape(xr.shape), xr.dtype),
+            plane_store(yi.reshape(xi.shape), xi.dtype))
 
 
 def apply_diag_axis(xr, xi, table, j: int, n: int) -> Planes:
@@ -864,7 +909,7 @@ def multi_diag_gram(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
     """``W[j] = sum_b bwd[j, b] fwd[j, b]`` over the gate-bit sub-blocks
     (the diagonal gate's cotangent, groups.diag_pair_grad on planes)."""
     Fr, Fi = _sub_planes(fxr, fxi, positions, n)
-    Br, Bi = _sub_planes(bxr, bxi, positions, n)
+    Br, Bi = (plane_f32(p) for p in _sub_planes(bxr, bxi, positions, n))
     return torch.complex((Br * Fr - Bi * Fi).sum(1), (Br * Fi + Bi * Fr).sum(1))
 
 
@@ -887,7 +932,7 @@ def _pair_reduce(fxr, fxi, bxr, bxi, keep, n: int) -> torch.Tensor:
     """``sum bwd * fwd`` (complex, no conjugation) over every grouped axis
     but ``keep``."""
     fr, fi = _grouped(fxr, n), _grouped(fxi, n)
-    br, bi = _grouped(bxr, n), _grouped(bxi, n)
+    br, bi = plane_f32(_grouped(bxr, n)), plane_f32(_grouped(bxi, n))
     axes = tuple(a for a in range(fr.dim()) if a not in keep)
     return torch.complex((br * fr - bi * fi).sum(axes),
                          (br * fi + bi * fr).sum(axes))

@@ -39,6 +39,7 @@ from dqc_tpu.ops.pallas.high_apply import high_group_apply_planes
 
 from dqc_tpu_torch import HardwareEfficientAnsatz as THEA
 from dqc_tpu_torch import convert
+from dqc_tpu_torch import config
 from dqc_tpu_torch.circuit import fused_autograd as tfa
 from dqc_tpu_torch.circuit.fusion import FBlock as TFBlock, GateRef as TGateRef
 from dqc_tpu_torch.ops import inversion as tinv
@@ -53,9 +54,14 @@ C64 = jnp.complex64
 
 @pytest.fixture(autouse=True)
 def _jax_gram_f32():
+    """Both packages' pair grams in "f32" (their default is "bf16x3"), so
+    that the 2e-5 bars hold f32 kernels to f32 kernels;
+    tests/test_torch_storage.py holds the default."""
     jconfig.set_gram_kernel_dot_mode("f32")
+    config.set_gram_kernel_dot_mode("f32")
     yield
     jconfig.set_gram_kernel_dot_mode("auto")
+    config.set_gram_kernel_dot_mode("auto")
 
 
 def _cnormal(rng, shape, scale=1.0):
@@ -424,6 +430,7 @@ if __name__ == "__main__":
     #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_backward.py
     jax.config.update("jax_platforms", "cpu")
     jconfig.set_gram_kernel_dot_mode("f32")
+    config.set_gram_kernel_dot_mode("f32")
     cases = [(n, pe, MAGNETIZATION, 500 + n)
              for n, pe in ((14, True), (17, True), (21, True), (24, False))]
     cases += [(n, True, X_Y_LOSS, 600 + n) for n in (14, 17)]

@@ -45,6 +45,7 @@ from dqc_tpu.ops.pallas.high_apply import high_multi_apply_planes
 
 from dqc_tpu_torch import HardwareEfficientAnsatz as THEA
 from dqc_tpu_torch import convert
+from dqc_tpu_torch import config as tconfig
 from dqc_tpu_torch.circuit import plane_scan as tps
 from dqc_tpu_torch.circuit.builder import AutoGradCircuit as TCircuit
 from dqc_tpu_torch.circuit.fusion import fuse_tape as tfuse_tape
@@ -64,9 +65,12 @@ CNOT = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 0, 1], [0, 0, 1, 0]],
 
 @pytest.fixture(autouse=True)
 def _jax_gram_f32():
+    """Both packages' pair grams in "f32" (their default is "bf16x3")."""
     jconfig.set_gram_kernel_dot_mode("f32")
+    tconfig.set_gram_kernel_dot_mode("f32")
     yield
     jconfig.set_gram_kernel_dot_mode("auto")
+    tconfig.set_gram_kernel_dot_mode("auto")
 
 
 def _cnormal(rng, shape, scale=1.0):
@@ -170,7 +174,14 @@ def test_new_wrappers_refuse_other_devices():
         *tk.KernelSet._fields, "block_backward_dual[diag_q]",
         "block_backward_high[diag_q]", "diag_backward[with_q]",
         "dual_multi_apply[seed]", "high_multi_apply[seed]",
-        "high_apply[wide_inplace]", "block_backward_high[wide]")}
+        "high_apply[wide_inplace]", "block_backward_high[wide]",
+        *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "diag_backward")
+          for m in ("bf16", "f16")),
+        *(f"{k}[{m}]" for k in ("block_backward_dual", "block_backward_high",
+                                "block_backward_merged_fact")
+          for m in ("bf16", "f16", "bf16x3", "gram_bf16x3")),
+        "block_backward_lane[gram_bf16x3]",
+        "block_backward_sublane[gram_bf16x3]")}
 
 
 # ---------------------------------------------------------------------------

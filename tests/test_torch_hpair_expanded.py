@@ -50,8 +50,10 @@ TOL = 2e-5
 @pytest.fixture(autouse=True)
 def _configs():
     jconfig.set_gram_kernel_dot_mode("f32")
+    config.set_gram_kernel_dot_mode("f32")
     yield
     jconfig.set_gram_kernel_dot_mode("auto")
+    config.set_gram_kernel_dot_mode("auto")
     jconfig.set_plane_engine("auto")
     config.set_hpair_factorized(True)
 

@@ -297,8 +297,12 @@ def test_unpaired_minor_backward_names_the_kernel(j, kernel):
     eye = torch.eye(128, dtype=torch.complex64)
     assert kernel in tk.KernelSet._fields
     f = torch.randn((1, 128, 128), generator=torch.Generator().manual_seed(3))
-    fr, fi, br, bi, T0 = planes.backward_block(f, 0 * f, f, f, 2 * eye, eye,
-                                               j, 14)
+    config.set_gram_kernel_dot_mode("f32")  # the default is "bf16x3"
+    try:
+        fr, fi, br, bi, T0 = planes.backward_block(f, 0 * f, f, f, 2 * eye,
+                                                   eye, j, 14)
+    finally:
+        config.set_gram_kernel_dot_mode("auto")
     assert torch.equal(fr, 2 * f) and torch.equal(br, f)
     spec = "axc,ayc->xy" if j == 1 else "acx,acy->xy"
     want = torch.einsum(spec, f, 2 * f)
@@ -333,17 +337,28 @@ def test_new_kernels_count_launches_and_refuse_meta():
     assert tk.launch_counts() == counts
 
 
-@pytest.mark.parametrize("setter, value", [
-    (config.set_kernel_dot_mode, "bf16x3"),
-    (config.set_state_storage, "f16"),
-    (config.set_state_storage, "mixed"),
-    (config.set_bwd_kernel_dot_mode, "bf16x3"),
-    (config.set_gram_kernel_dot_mode, "bf16x3"),
+@pytest.mark.parametrize("setter, value, ported", [
+    (config.set_kernel_dot_mode, "bf16x3", False),
+    (config.set_state_storage, "bf16", False),
+    (config.set_state_storage, "f16", True),
+    (config.set_state_storage, "mixed", True),
+    (config.set_bwd_kernel_dot_mode, "bf16x3", True),
+    (config.set_gram_kernel_dot_mode, "bf16x3", True),
 ])
-def test_unported_modes_raise(setter, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setter(value)
-    setter("f32")  # the ported mode is accepted
+def test_unported_modes_raise(setter, value, ported):
+    """The forward "bf16x3" and "bf16" storage raise naming ROADMAP.md; the
+    cotangent storages and the backward "bf16x3" modes are accepted."""
+    try:
+        if ported:
+            setter(value)
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                setter(value)
+    finally:
+        setter("f32")  # accepted in every setter
+        config.set_bwd_kernel_dot_mode("auto")
+        config.set_gram_kernel_dot_mode("auto")
+    assert config.state_storage() == "f32" and config.kernel_dot_mode() == "f32"
 
 
 @pytest.mark.parametrize("make", [
@@ -388,17 +403,25 @@ def test_singularity_checks_modes():
     (config.set_gram_kernel_dot_mode, config.gram_kernel_dot_mode),
 ])
 def test_backward_dot_modes_resolve_to_f32(setter, getter):
-    """"auto" resolves to "f32" until bf16x3 is ported (the JAX package
-    resolves the gram mode's "auto" to "bf16x3"); other names are errors."""
+    """"auto" resolves as in the JAX package: the transport's mode to the
+    forward mode ("f32") under f32 storage and to "bf16x3" under "mixed" and
+    "f16", the pair grams' to "bf16x3" always; an explicit mode wins, other
+    names are errors."""
+    is_gram = setter is config.set_gram_kernel_dot_mode
     try:
         setter("auto")
-        assert getter() == "f32"
-        setter("f32")
-        assert getter() == "f32"
+        for storage in ("f32", "mixed", "f16"):
+            config.set_state_storage(storage)
+            want = "bf16x3" if is_gram or storage != "f32" else "f32"
+            assert getter() == want, (storage, getter())
+        for mode in ("f32", "bf16x3"):
+            setter(mode)
+            assert getter() == mode
         with pytest.raises(ValueError):
             setter("tf32")
     finally:
         setter("auto")
+        config.set_state_storage("f32")
 
 
 def test_wrong_params_shape_raises():

@@ -39,6 +39,7 @@ from dqc_tpu.ops.pallas.high_apply import (high_group_apply_planes,
 
 from dqc_tpu_torch import HardwareEfficientAnsatz as THEA
 from dqc_tpu_torch import convert
+from dqc_tpu_torch import config as tconfig
 from dqc_tpu_torch.ops import kernels as tk
 
 torch.set_num_threads(2)
@@ -50,9 +51,12 @@ C64 = jnp.complex64
 
 @pytest.fixture(autouse=True)
 def _jax_gram_f32():
+    """Both packages' pair grams in "f32" (their default is "bf16x3")."""
     jconfig.set_gram_kernel_dot_mode("f32")
+    tconfig.set_gram_kernel_dot_mode("f32")
     yield
     jconfig.set_gram_kernel_dot_mode("auto")
+    tconfig.set_gram_kernel_dot_mode("auto")
 
 
 def _cnormal(rng, shape, scale=1.0):
@@ -294,6 +298,7 @@ if __name__ == "__main__":
     #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_merged_diag.py
     jax.config.update("jax_platforms", "cpu")
     jconfig.set_gram_kernel_dot_mode("f32")
+    tconfig.set_gram_kernel_dot_mode("f32")
     cases = [(n, pe, L, MAGNETIZATION, 1200 + 10 * n + L)
              for n, pe in SIZES for L in (1, 3)]
     cases.append((22, False, 2, X_Y_LOSS, 1300))

@@ -50,12 +50,14 @@ TOL128 = 1e-10
 
 @pytest.fixture(autouse=True)
 def _configs():
-    """Both packages' plane-engine modes restored, the JAX side's pair
-    grams in "f32" (its "bf16x3" is not ported)."""
+    """Both packages' plane-engine modes restored, their pair grams in
+    "f32" (their default is "bf16x3")."""
     jconfig.set_gram_kernel_dot_mode("f32")
+    config.set_gram_kernel_dot_mode("f32")
     yield
     jconfig.set_plane_engine("auto")
     jconfig.set_gram_kernel_dot_mode("auto")
+    config.set_gram_kernel_dot_mode("auto")
     config.set_plane_engine("auto")
 
 

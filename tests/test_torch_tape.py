@@ -103,14 +103,19 @@ def gauntlet_parity(n: int, jax_plane: bool):
     t_vg, t_cg, _ = convert.gates_from_jax(vg, cg, device="cpu")
     for g in t_vg:
         g.requires_grad_(True)
+    # both packages' pair grams in "f32" (their default is "bf16x3")
+    config.set_gram_kernel_dot_mode("f32")
     config.set_plane_engine(True)
     try:
         _, run = c.build()
         dens = run(t_vg, t_cg)
     finally:
         config.set_plane_engine("auto")
-    loss = tsallis(dens)
-    loss.backward()
+    try:
+        loss = tsallis(dens)
+        loss.backward()
+    finally:
+        config.set_gram_kernel_dot_mode("auto")
     assert_close(torch.stack(dens[:n]).detach().numpy(),
                  np.stack([np.asarray(d) for d in want_dens[:n]]), "1q densities")
     assert_close(loss.item(), float(want_v), "loss")
