@@ -106,7 +106,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    "mixed" and "f16" against f32 storage, counts held to the meta-device
    dry run; [f16_30], 30q x 20L under "f16": warm steps, peak memory,
    params = 0 and the one-layer closed form;
-12. a JSON line of the kernels and of the modes checked (their launches
+12. reduced cotangent storage on the other plane paths: in phase 3 the
+   multi-term applies in place on f16 / bf16 cotangent planes and as seeds
+   into them (acc and fresh), the lane and sublane adjoints and the X = 256
+   (29q) / 512 (30q) adjoint with bf16x3 transport (and in f16 with an f32
+   transport beside it), the X = 8 span seed into f16 planes, each against
+   its plain version; then [cnot29_f16], [vqe29_f16], [qaoa29_f16] and
+   [tape29_f16] (the models of phases 7-9 and the gauntlet tape under
+   "f16" on the same params: values bit-identical to f32 storage's, the
+   gradient's rms error within its bar, counts held to the dry run under
+   the same storage, warm steps and peak memory), [paths29_mixed] (the CNOT
+   ring, VQE, QAOA and the tape under "mixed", the X = 256 wide adjoint
+   under "mixed" and "f16", each against f32 storage, whose runs launch
+   none of the storage variants) and [hpair30_f16] (the CNOT ring at 30q x
+   2L under "f16", both hpair settings, params = 0);
+13. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -187,6 +201,25 @@ BF16X3_GRAM_TOL = 2e-4  # the closed forms under the default bf16x3 pair grams,
                         # own bar for its bf16x3 grams against f32
                         # (tests/test_plane_scan.py); with f32 grams they
                         # keep their own bars
+REDUCED_TOL = {"f16": 5e-3, "mixed": 5e-2}  # [storage29]'s rms bars, and
+# the JAX package's own largest max |g - g32| / max |g32| on each reduced
+# phase's model at 14-16q (CPU, its plane engine; printed by
+# tests/test_torch_storage_models.py chip-bars and
+# tests/test_torch_storage_tape.py): a phase's rms bar is the smaller of
+# the two bars and 2.5 times this figure
+JAX_OWN_ERR = {("cnot", "f16"): 2.792e-3, ("vqe", "f16"): 3.505e-4,
+               ("qaoa", "f16"): 1.321e-4, ("tape", "f16"): 1.06e-4,
+               ("cnot", "mixed"): 5.379e-3, ("vqe", "mixed"): 1.830e-3,
+               ("qaoa", "mixed"): 7.559e-4, ("tape", "mixed"): 1.05e-3,
+               ("hpair", "mixed"): 5.297e-2, ("hpair", "f16"): 5.246e-3}
+
+
+def reduced_tol(model: str, storage: str) -> float:
+    return min(REDUCED_TOL[storage], 2.5 * JAX_OWN_ERR[model, storage])
+
+
+
+PATHS_L = {"cnot": 4, "vqe": 4, "qaoa": 2, "hpair": 4}  # [paths29_mixed] depths
 F16_L = 20              # [f16_30]: 30q depth cut from the bench's for chip time
 STORAGE_L = 4           # [storage29]
 BWD_KERNELS = ("block_backward_dual", "block_backward_high",
@@ -207,8 +240,16 @@ def random_graph(n, extra_edges, seed):
     return edges
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_time(phase: str) -> None:
+    """When a phase starts, in seconds of the run (the chip-time budget)."""
+    log(f"[time] {phase} at {time.perf_counter() - T_START:.1f} s")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -262,7 +303,7 @@ def call_modes(name: str, a) -> tuple:
     if name == "block_backward_merged_fact":
         return storage_modes(a["br"].dtype) + dot_modes(a)
     if name in ("block_backward_lane", "block_backward_sublane"):
-        return dot_modes(a)
+        return storage_modes(a["br"].dtype) + dot_modes(a)
     if name in ("dual_apply", "high_apply"):
         acc = a.get("acc")
         out = (acc[0].dtype if acc is not None
@@ -274,8 +315,11 @@ def call_modes(name: str, a) -> tuple:
     if name == "diag_backward":
         return (("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
     if name in ("dual_multi_apply", "high_multi_apply"):
-        seed = a.get("conj") or a.get("acc") is not None or not a.get("alias", True)
-        return ("seed",) if seed else ()
+        acc, alias = a.get("acc"), a.get("alias", True)
+        seed = a.get("conj") or acc is not None or not alias
+        out = (acc[0].dtype if acc is not None else a["xr"].dtype if alias
+               else a.get("out_dtype") or a["xr"].dtype)
+        return (("seed",) if seed else ()) + storage_modes(out)
     return ()
 
 
@@ -340,16 +384,22 @@ def dry_run_launches(run):
     return fwd, counts(), [c[0:1] + c[2:] for c in calls]
 
 
-def program_launches(build, loss: str):
-    """dry_run_launches of one forward and one value_and_grad of the model
-    ``build(device)`` makes."""
+def model_dry_run(build, loss: str):
+    """The run of dry_run_launches for the model ``build(device)`` makes:
+    its ``loss`` on the meta device."""
     import torch
 
     def run(kernels):
         model = build("meta")
         params = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
         return getattr(model, loss)(params, kernels=kernels)
-    return dry_run_launches(run)
+    return run
+
+
+def program_launches(build, loss: str):
+    """dry_run_launches of one forward and one value_and_grad of the model
+    ``build(device)`` makes."""
+    return dry_run_launches(model_dry_run(build, loss))
 
 
 def with_gram_modes(want: dict) -> dict:
@@ -533,10 +583,11 @@ def main() -> int:
         f"into {_build.BUILD_DIR}")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # 3. kernel checks at the 28-qubit shapes -------------------------------
+    log_time("kernel checks")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     A = 1 << (N_QUBITS - 14)
     amps = float(1 << N_QUBITS)
@@ -1519,7 +1570,127 @@ def main() -> int:
                       4 * state29)
     torch.cuda.empty_cache()
 
+    # 3h. reduced cotangent storage on the other plane paths ----------------
+    # the kernels that take a reduced cotangent on the CNOT ring, VQE, QAOA,
+    # the plane tape and the expanded merged top, at the 29q path's shapes
+    # (the X = 512 adjoint at 30q's), in f16 and bf16 storage: the multi-term
+    # applies in place on the cotangent (the ring's G^T transports) and as
+    # seeds from the f32 forward planes (acc and fresh), on the ring's CNOT
+    # terms (T = 2) and an edge density's seed terms (T = 4; the random
+    # unitary's T = 4 in place); the lane and sublane adjoints and the
+    # X = 256 / 512 adjoint with bf16x3 transport and grams (the "auto" modes
+    # under reduced storage) and, in f16, with an f32 transport beside them;
+    # the X = 8 span seed into f16 planes. Bounds as in 3g: 2 bytes per
+    # element of a 16-bit plane; the multi-term applies' operations from
+    # their factors' nonzeros, as their f32 rows.
+    log_time("3h")
+    M4 = hermitian4()
+    for store in ("f16", "bf16"):
+        dt = STORES[store]
+        for tag, gate in (("T2_cnot", cnot), ("T4_unitary", rand_gate)):
+            kind, *ops = pl.cross_terms_operands(
+                ps._dense_cross_expanded_terms(gate, (6, 7), N29), N29, dev)
+            flops = amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8
+            check_reduced("dual_multi_apply", f"29q_{tag}_{store}", (A29, 128, 128),
+                          0, 2, 0, 2,
+                          lambda br, bi, o=ops: dual_multi_apply(br, bi, *o),
+                          lambda br, bi, o=ops: dual_multi_apply_plain(br, bi, *o),
+                          dt, flops, 0.0, 2 * b_bytes(dt))
+        kind, *ops = pl.cross_terms_operands(
+            ps._dense_cross_expanded_terms(M4.conj(), (6, 7), N29), N29, dev)
+        flops = amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8
+        check_reduced("dual_multi_apply", f"29q_seed_T4_acc_{store}", (A29, 128, 128),
+                      2, 2, 0, 2,
+                      lambda xr, xi, ar, ai, o=ops: dual_multi_apply(
+                          xr, xi, *o, conj=True, acc=(ar, ai), alias=False),
+                      lambda xr, xi, ar, ai, o=ops: dual_multi_apply_plain(
+                          xr, xi, *o, conj=True, acc=(ar, ai)),
+                      dt, flops, 0.0, state29 + 2 * b_bytes(dt))
+        check_reduced("dual_multi_apply", f"29q_seed_T4_fresh_{store}",
+                      (A29, 128, 128), 2, 0, 0, 2,
+                      lambda xr, xi, o=ops, dt=dt: dual_multi_apply(
+                          xr, xi, *o, conj=True, alias=False, out_dtype=dt),
+                      lambda xr, xi, o=ops, dt=dt: dual_multi_apply_plain(
+                          xr, xi, *o, conj=True, out_dtype=dt),
+                      dt, flops, 0.0, state29 + b_bytes(dt))
+        kind, vshape, *ops = pl.cross_span_operands(cnot, (0, N29 - 1), N29, dev)
+        check_reduced("high_multi_apply", f"29q_T2_cnot_{store}", vshape, 0, 2, 0, 2,
+                      lambda br, bi, o=ops: high_multi_apply(br, bi, *o),
+                      lambda br, bi, o=ops: high_multi_apply_plain(br, bi, *o),
+                      dt, amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8, 0.0,
+                      2 * b_bytes(dt))
+        kind, vshape, *ops = pl.cross_span_operands(M4.conj(), (0, N29 - 1), N29, dev)
+        flops = amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8
+        check_reduced("high_multi_apply", f"29q_seed_T4_acc_{store}", vshape, 2, 2, 0, 2,
+                      lambda xr, xi, ar, ai, o=ops: high_multi_apply(
+                          xr, xi, *o, conj=True, acc=(ar, ai), alias=False),
+                      lambda xr, xi, ar, ai, o=ops: high_multi_apply_plain(
+                          xr, xi, *o, conj=True, acc=(ar, ai)),
+                      dt, flops, 0.0, state29 + 2 * b_bytes(dt))
+        check_reduced("high_multi_apply", f"29q_seed_T4_fresh_{store}", vshape,
+                      2, 0, 0, 2,
+                      lambda xr, xi, o=ops, dt=dt: high_multi_apply(
+                          xr, xi, *o, conj=True, alias=False, out_dtype=dt),
+                      lambda xr, xi, o=ops, dt=dt: high_multi_apply_plain(
+                          xr, xi, *o, conj=True, out_dtype=dt),
+                      dt, flops, 0.0, state29 + b_bytes(dt))
+        del ops
+        torch.cuda.empty_cache()
+    # the X = 8 span seed into f16 planes (the seed of a density across the
+    # sublane group and group 2, in every VQE and QAOA step)
+    kind, vshape, er, ei = pl.cross_span_operands(M4.conj(), (13, 14), N29, dev)
+    check_reduced("high_apply", "29q_X8_span13_seed_f16", vshape, 2, 2, 0, 2,
+                  lambda xr, xi, ar, ai: high_apply(xr, xi, er, ei, conj=True,
+                                                    acc=(ar, ai), alias=False),
+                  lambda xr, xi, ar, ai: high_apply_plain(xr, xi, er, ei, conj=True,
+                                                          acc=(ar, ai)),
+                  torch.float16, amps29 * macs(er, ei) * 8, 0.0,
+                  state29 + 2 * b_bytes(torch.float16))
+    # the unpaired sublane and lane adjoints
+    f32_bwd = dict(bwd_mode="f32", gram_mode="bf16x3")
+    for name, fn, fn_plain in (
+            ("block_backward_sublane", block_backward_sublane, block_backward_sublane_plain),
+            ("block_backward_lane", K.block_backward_lane, K.PLAIN.block_backward_lane)):
+        E, Einv = unitary(128), unitary(128)
+        for store, modes, tag in (("f16", x3_modes, "f16"), ("bf16", x3_modes, "bf16"),
+                                  ("f16", f32_bwd, "f16_f32_transport")):
+            dt = STORES[store]
+            x3 = modes["bwd_mode"] == "bf16x3"
+            f_un, _ = cmac_flops(128, False)
+            f_tr, b_tr = cmac_flops(128, x3)
+            f_gr, b_gr = cmac_flops(128, True)
+            check_reduced(name, f"29q_{tag}", (A29, 128, 128), 2, 2, 2, 2,
+                          lambda *p, fn=fn, kw=modes: fn(*p, *Einv, *E, **kw),
+                          lambda *p, fn=fn_plain, kw=modes: fn(*p, *Einv, *E, **kw),
+                          dt, f_un + f_tr + f_gr, b_tr + b_gr,
+                          state29 * 2 + b_bytes(dt) * 2)
+    # the X = 256 (29q) / 512 (30q) adjoint on the merged top axis: the
+    # cross-Gram reads B stored reduced, the transport is the wide apply in
+    # place on it; the pair gram as G = B F^T is held at 4e-5 (3g)
+    for nq, X, cases in ((N29, 256, (("f16", x3_modes, "f16"), ("bf16", x3_modes, "bf16"),
+                                     ("f16", f32_bwd, "f16_f32_transport"))),
+                         (N30, 512, (("f16", x3_modes, "f16"),))):
+        amps_n = float(1 << nq)
+        shape = (1, X, (1 << nq) // (X * 128), 128)
+        E, Einv = unitary(X), unitary(X)
+        torch.cuda.empty_cache()
+        for store, modes, tag in cases:
+            dt = STORES[store]
+            x3 = modes["bwd_mode"] == "bf16x3"
+            f32_fl = amps_n * X * 8 * (1 if x3 else 2)
+            bf16_fl = amps_n * X * 24 * (2 if x3 else 1)
+            check_reduced("block_backward_high", f"{nq}q_X{X}_wide_{tag}", shape,
+                          2, 2, 2, 2,
+                          lambda *p, kw=modes: block_backward_high(*p, *Einv, *E, **kw),
+                          lambda *p, kw=modes: block_backward_high_plain(
+                              *p, *Einv, *E, **kw),
+                          dt, f32_fl, bf16_fl, 2 * 2 * amps_n * 4 + 2 * 2 * amps_n * 2,
+                          g_tol=4e-5)
+        del E, Einv
+        torch.cuda.empty_cache()
+
     # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
+    log_time("[slice]")
     model = HardwareEfficientAnsatz(N_QUBITS, L28, entangler="cz")
     params = model.init_params(torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1697,10 +1868,73 @@ def main() -> int:
         torch.cuda.empty_cache()
         return grad_err
 
+    REDUCED_KEYS = ("[bf16]", "[f16]", "[bf16x3]")
+
+    def storage_phase(tag, run, params, storage, dry, ref=None, rms_tol=None,
+                      variants=()):
+        """value_and_grad of ``run(params)`` (a scalar loss of a list of
+        tensors) under cotangent storage ``storage``, once: the counters set
+        to 0 just before and read just after and held, per kernel and mode,
+        to the port's dispatch of the same run on the meta device (``dry``)
+        under the same storage; its step time and peak memory (every kernel
+        and shape it runs has launched before, in the kernel phase or the
+        f32 phase of the same model). With ``ref`` (the f32-storage run's
+        value and gradient on the same params): the value bit-identical,
+        the gradient's rms and max of |g - g32| / max |g32|, the rms within
+        ``rms_tol``, and each of the counters ``variants`` launched. An
+        f32-storage run launches none of the storage and transport
+        variants. Returns (counts, value, flat gradient, step s, peak
+        bytes)."""
+        config.set_state_storage(storage)
+        try:
+            t0 = time.perf_counter()
+            _, want, _ = dry_run_launches(dry)
+            dry_s = time.perf_counter() - t0
+            ps_ = [p.detach().clone().requires_grad_(True) for p in params]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = run(ps_)
+            loss.backward()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            got = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            value = loss.item()
+            grad = torch.cat([p.grad.detach().reshape(-1) for p in ps_])
+            del loss, ps_
+        finally:
+            config.set_state_storage("f32")
+        launched = {k: v for k, v in got.items() if k.endswith(REDUCED_KEYS) and v}
+        log(f"[{tag}] {storage} storage: value_and_grad step {step_s:.4f} s, peak "
+            f"{peak / 2**30:.3f} GiB (meta-device dry run {dry_s:.1f} s); value "
+            f"{value!r}; storage and transport variants launched "
+            f"{json.dumps(launched)}")
+        require(got == want, f"[{tag}] {storage} launch counts {got}, want the "
+                             f"dry run's {want}")
+        require(bool(torch.isfinite(grad).all()), f"[{tag}] non-finite gradient")
+        if storage == "f32":
+            require(not launched, f"[{tag}] the f32-storage run launched {launched}")
+        if ref is not None:
+            v32, g32 = ref[0], ref[1].reshape(-1)
+            d = (grad - g32).abs() / g32.abs().max().item()
+            rms, mx = d.pow(2).mean().sqrt().item(), d.max().item()
+            log(f"[{tag}] {storage} vs f32 storage: value {value!r} vs {v32!r} "
+                f"(bit-identical: {value == v32}); gradient |g - g32| / max |g32|: "
+                f"rms {rms:.3e} (tol {rms_tol:.1e}), max {mx:.3e}")
+            require(value == v32, f"[{tag}] the {storage} value moved with the storage")
+            require(rms <= rms_tol, f"[{tag}] {storage} gradient outside its bar")
+            require(all(got[k] > 0 for k in variants),
+                    f"[{tag}] {storage} did not launch {list(variants)}")
+        torch.cuda.empty_cache()
+        return got, value, grad, step_s, peak
+
     closed_forms(closed_form, N_QUBITS, "grad")
     kernels_vs_plain(N_QUBITS, "grad")
 
     # 6. the 29-qubit path: 29 qubits x 100 layers, the bench workload -------
+    log_time("[slice29]")
     m29 = HardwareEfficientAnsatz(N29, LAYERS, entangler="cz")
     p29 = m29.init_params(torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
@@ -2006,6 +2240,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the CNOT ring: 29 qubits x 20 layers ---------------------------------
+    log_time("[cnot29]")
     mc = HardwareEfficientAnsatz(N29, CNOT_LAYERS, entangler="cnot")
     pc = mc.init_params(torch.Generator().manual_seed(SEED))
 
@@ -2137,6 +2372,20 @@ def main() -> int:
     log(f"[cnot29] kernel time per step (launches x per-launch ms above): "
         f"{vgc_ms:.1f} ms = {100 * vgc_ms / (vgc_s * 1e3):.1f}% of the step; by "
         f"kernel {json.dumps({k: round(t, 2) for k, t in by_kernel.most_common()})}")
+    # [cnot29_f16]: the same model and params under "f16": the multi-term
+    # applies in place on the f16 cotangent (the CNOTs' transports), the
+    # sublane adjoint with the bf16x3 transport
+    log_time("[cnot29_f16]")
+    cnot16 = storage_phase(
+        "cnot29_f16", lambda ps_: mc.magnetization(ps_[0]), [pc], "f16",
+        model_dry_run(lambda d: HardwareEfficientAnsatz(
+            N29, CNOT_LAYERS, entangler="cnot", device=d), "magnetization"),
+        ref=(lossc.item(), gradc), rms_tol=reduced_tol("cnot", "f16"),
+        variants=("dual_multi_apply[f16]", "high_multi_apply[f16]",
+                  "block_backward_sublane[f16]", "block_backward_sublane[bf16x3]"))
+    log(f"[cnot29_f16] value_and_grad step {cnot16[3]:.4f} s against f32 storage's "
+        f"{vgc_s:.4f} s; peak {cnot16[4] / 2**30:.3f} GiB against "
+        f"{vgc_peak / 2**30:.3f} GiB")
     del mc, pc, gradc, lossc
     torch.cuda.empty_cache()
 
@@ -2189,6 +2438,7 @@ def main() -> int:
 
     # 8. VQE-Ising and QAOA MaxCut ---------------------------------------------
     # the kernel phase's per-launch times by what sets a launch's time apart
+    log_time("[vqe26]")
     per_call = {}
     for r in rows:
         per_call.setdefault((r["kernel"], variant_tag(r["variant"]), tuple(r["shape"])),
@@ -2263,7 +2513,8 @@ def main() -> int:
         require(drift <= GRAD_TOL * max(1.0, grad.abs().max().item()),
                 f"two {tag} value_and_grad steps disagree")
         out = dict(fwd_s=fwd_s, vg_s=vg_s, fwd_peak=fwd_peak, vg_peak=vg_peak,
-                   counts=got_vg, counts_fwd=got_fwd, dens=D, grad=grad)
+                   counts=got_vg, counts_fwd=got_fwd, dens=D, grad=grad,
+                   value_vg=loss.item())
         n_fwd = sum(want_fwd[k] for k in K.KernelSet._fields)
         timed = [per_call.get(c) for c in vg_calls]
         missing = Counter(c for c, t in zip(vg_calls, timed) if t is None)
@@ -2298,6 +2549,31 @@ def main() -> int:
     qaoa29 = model_phase(
         "qaoa29", lambda d: QAOAMaxCut(N29, graph, layers_number=QAOA_LAYERS, device=d),
         lambda m, p: m._densities(p, K.KERNELS), "loss", QAOA_LAYERS)
+
+    # [vqe29_f16], [qaoa29_f16]: the same models and params under "f16": the
+    # cross-group density seeds (the multi-term applies, the X = 8 span
+    # seeds) create and accumulate f16 cotangent planes
+    def reduced_model(tag, key, build, loss, ref, storage, variants):
+        model = build(dev)
+        p = model.init_params(torch.Generator().manual_seed(SEED))
+        out = storage_phase(tag, lambda ps_: getattr(model, loss)(ps_[0]), [p],
+                            storage, model_dry_run(build, loss),
+                            ref=(ref["value_vg"], ref["grad"]),
+                            rms_tol=reduced_tol(key, storage),
+                            variants=variants)
+        log(f"[{tag}] value_and_grad step {out[3]:.4f} s against f32 storage's "
+            f"{ref['vg_s']:.4f} s; peak {out[4] / 2**30:.3f} GiB against "
+            f"{ref['vg_peak'] / 2**30:.3f} GiB")
+        return out
+
+    seeds16 = ("dual_multi_apply[f16]", "high_multi_apply[f16]", "high_apply[f16]",
+               "block_backward_dual[f16]")
+    reduced_model("vqe29_f16", "vqe", lambda d: VQEIsing(N29, VQE_LAYERS, device=d),
+                  "energy", vqe29, "f16", seeds16)
+    reduced_model(
+        "qaoa29_f16", "qaoa",
+        lambda d: QAOAMaxCut(N29, graph, layers_number=QAOA_LAYERS, device=d),
+        "loss", qaoa29, "f16", seeds16)
 
     def vqe_closed_form(n: int, x3: bool = False) -> None:
         """VQEIsing(n, 1) at params (gamma, 0) from |+>^n: E = -n cos^2(2
@@ -2365,6 +2641,7 @@ def main() -> int:
     # the reference-compatible API a qdc user writes: the circuit's
     # autodiff_run (the plane tape and its kernels on the card), simple_run
     # (the fused engine, plain torch on the card) and build_state_fn
+    log_time("[tape29]")
     from dqc_tpu_torch import GHZ, QFT, AutoGradCircuit
     from dqc_tpu_torch.circuit.builder import autodiff_densities
     from dqc_tpu_torch.circuit.fused_autograd import fused_tape_forward
@@ -2375,6 +2652,16 @@ def main() -> int:
                             for d in dens]).mean()
 
     kernel_names = our_kernel_names()
+
+    def tape_dry(ftape, vg_np, cg):
+        """The run of dry_run_launches for a tape: its tsallis loss through
+        plane_tape_forward on the meta device."""
+        def dry(kernels):
+            tv = [torch.tensor(g).to("meta").requires_grad_(True) for g in vg_np]
+            state = torch.zeros(1 << ftape.n, dtype=torch.complex64, device="meta")
+            return tsallis(ps.plane_tape_forward(ftape, state, tv, cg,
+                                                 kernels=kernels))
+        return dry
 
     def tape_phase(tag, circuit, rng, layers):
         """One build() step of a tape: forward and value_and_grad through
@@ -2390,13 +2677,7 @@ def main() -> int:
             f"{len(tape.densities(diff=True))} diff densities; plan items "
             f"{json.dumps(items)}")
 
-        def dry(kernels):
-            tv = [torch.tensor(g).to("meta").requires_grad_(True) for g in vg_np]
-            state = torch.zeros(1 << n, dtype=torch.complex64, device="meta")
-            return tsallis(ps.plane_tape_forward(ftape, state, tv, cg,
-                                                 kernels=kernels))
-
-        want_fwd, want_vg, vg_calls = dry_run_launches(dry)
+        want_fwd, want_vg, vg_calls = dry_run_launches(tape_dry(ftape, vg_np, cg))
         _, autodiff_run = circuit.build()
         tv = [torch.tensor(g, device=dev, requires_grad=True) for g in vg_np]
         with torch.no_grad():
@@ -2438,10 +2719,13 @@ def main() -> int:
             t.grad = None
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tsallis(autodiff_run(tv, cg)).backward()
+        loss = tsallis(autodiff_run(tv, cg))
+        loss.backward()
         torch.cuda.synchronize()
         vg_s = time.perf_counter() - t0
         vg_peak = torch.cuda.max_memory_allocated()
+        value_vg = loss.item()
+        del loss
         drift = max((t.grad - g).abs().max().item() for t, g in zip(tv, grads))
         gmax = max(g.abs().max().item() for g in grads)
         log(f"[{tag}] value {value:.6f}; |grad| max {gmax:.4e}; forward step (warm) "
@@ -2470,7 +2754,8 @@ def main() -> int:
                 f"{json.dumps({k: round(t, 2) for k, t in ours.most_common()})}")
         return dict(ftape=ftape, vg=vg_np, cg=cg, grads=grads, counts=got_vg,
                     counts_fwd=got_fwd, fwd_s=fwd_s, vg_s=vg_s, tv=tv,
-                    simple_autodiff=circuit.build())
+                    simple_autodiff=circuit.build(), value_vg=value_vg,
+                    vg_peak=vg_peak)
 
     def grad_vs(tag, what, ftape, vg_np, cg, grads, fn):
         """The gradients of the same tsallis loss through ``fn(tv)``
@@ -2497,6 +2782,22 @@ def main() -> int:
             and c29["block_backward_high[diag_q]"] >= TAPE_LAYERS - 1,
             f"tape29 does not reach block_backward_lane / block_backward_high "
             f"diag_q: {c29}")
+    # [tape29_f16]: the same tape and gates through autodiff_run under "f16":
+    # the lane and sublane adjoints, the cross-gate transports and the seeds
+    # on f16 cotangent planes
+    tape_run = t29["simple_autodiff"][1]
+    t_vg = [torch.tensor(g, device=dev) for g in t29["vg"]]
+    tape16 = storage_phase(
+        "tape29_f16", lambda ps_: tsallis(tape_run(ps_, t29["cg"])), t_vg, "f16",
+        tape_dry(t29["ftape"], t29["vg"], t29["cg"]),
+        ref=(t29["value_vg"], torch.cat([g.reshape(-1) for g in t29["grads"]])),
+        rms_tol=reduced_tol("tape", "f16"),
+        variants=("block_backward_lane[f16]", "block_backward_lane[bf16x3]",
+                  "block_backward_sublane[f16]", "dual_multi_apply[f16]"))
+    log(f"[tape29_f16] value_and_grad step {tape16[3]:.4f} s against f32 storage's "
+        f"{t29['vg_s']:.4f} s; peak {tape16[4] / 2**30:.3f} GiB against "
+        f"{t29['vg_peak'] / 2**30:.3f} GiB")
+    del t_vg
     n_trail = 2 * N29 + 3 * len(range(0, N29 - 1, 2))  # layer 2's var gates
     trail = max(g.abs().max().item() for g in t29["grads"][-n_trail:])
     log(f"[tape29] the {n_trail} var gates after the last diff density: |grad| max "
@@ -2597,6 +2898,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. the expanded merged top, and scan mode off the planes ----------------
+    log_time("[hpair29]")
     from dqc_tpu_torch import config
     from dqc_tpu_torch.ops.observables import expval_from_density
 
@@ -2673,6 +2975,94 @@ def main() -> int:
             kernels_vs_plain(N23, tag, "cnot", layers=L30)
         finally:
             config.set_hpair_factorized(True)
+
+    # [paths29_mixed]: the CNOT ring, VQE, QAOA and the gauntlet tape under
+    # "mixed" against f32 storage on the same params (cut to a few layers for
+    # chip time), and the X = 256 wide adjoint: HardwareEfficientAnsatz(29,
+    # 4, "cz") with the hpair expanded, under "mixed" and "f16". Every run's
+    # counters held to its dry run under its storage; the f32 runs launch
+    # none of the storage or transport variants
+    log_time("[paths29_mixed]")
+    paths = {}
+    for tag, build, loss, storages, variants in (
+            ("cnot", lambda d: HardwareEfficientAnsatz(N29, PATHS_L["cnot"],
+                                                       entangler="cnot", device=d),
+             "magnetization", ("mixed",),
+             ("dual_multi_apply[bf16]", "high_multi_apply[bf16]",
+              "block_backward_sublane[bf16]")),
+            ("vqe", lambda d: VQEIsing(N29, PATHS_L["vqe"], device=d), "energy",
+             ("mixed",), ("dual_multi_apply[bf16]", "high_multi_apply[bf16]")),
+            ("qaoa", lambda d: QAOAMaxCut(N29, graph, layers_number=PATHS_L["qaoa"],
+                                          scan=True, device=d), "loss", ("mixed",),
+             ("dual_multi_apply[bf16]", "high_multi_apply[bf16]")),
+            ("hpair", lambda d: HardwareEfficientAnsatz(N29, PATHS_L["hpair"],
+                                                        entangler="cz", device=d),
+             "magnetization", ("mixed", "f16"), ("block_backward_high[wide]",))):
+        config.set_hpair_factorized(tag != "hpair")
+        try:
+            model = build(dev)
+            p = model.init_params(torch.Generator().manual_seed(SEED + 4))
+            run = lambda ps_, m=model, l=loss: getattr(m, l)(ps_[0])  # noqa: E731
+            dry = model_dry_run(build, loss)
+            _, v32, g32, _, _ = storage_phase(f"paths29_mixed {tag}", run, [p],
+                                                "f32", dry)
+            for storage in storages:
+                key = "bf16" if storage == "mixed" else "f16"
+                paths[tag, storage] = storage_phase(
+                    f"paths29_mixed {tag}", run, [p], storage, dry, ref=(v32, g32),
+                    rms_tol=reduced_tol(tag, storage),
+                    variants=variants + (f"block_backward_high[{key}]",)
+                    if tag == "hpair" else variants)[0]
+        finally:
+            config.set_hpair_factorized(True)
+        del model, p, g32
+        torch.cuda.empty_cache()
+    _, tape_run = gcirc.build()
+    t_vg = [torch.tensor(g, device=dev) for g in t29["vg"]]
+    paths["tape", "mixed"] = storage_phase(
+        "paths29_mixed tape", lambda ps_: tsallis(tape_run(ps_, t29["cg"])), t_vg,
+        "mixed", tape_dry(t29["ftape"], t29["vg"], t29["cg"]),
+        ref=(t29["value_vg"], torch.cat([g.reshape(-1) for g in t29["grads"]])),
+        rms_tol=reduced_tol("tape", "mixed"),
+        variants=("block_backward_lane[bf16]", "block_backward_sublane[bf16]"))[0]
+    del t_vg
+    torch.cuda.empty_cache()
+
+    # [hpair30_f16]: the CNOT ring at 30q x 2L under "f16", its lone 2-bit
+    # top-group block at X = 512 both ways (the wide adjoint on f16
+    # cotangent planes), by default and with the hpair expanded: params = 0
+    # (n within 1e-5 n, |grad| <= 1e-5), the counters held to the dry run
+    for factorized in (True, False):
+        config.set_hpair_factorized(factorized)
+        config.set_state_storage("f16")
+        try:
+            tag = f"hpair30_f16 {'factorized' if factorized else 'expanded'} hpair"
+            build = lambda d: HardwareEfficientAnsatz(N30, L30, entangler="cnot",  # noqa: E731
+                                                      device=d)
+            _, want, _ = program_launches(build, "magnetization")
+            two = build(dev)
+            p2 = torch.zeros(L30, N30, 3, device=dev, requires_grad=True)
+            K.reset_launch_counts()
+            v2 = two.magnetization(p2)
+            v2.backward()
+            got = K.launch_counts()
+        finally:
+            config.set_state_storage("f32")
+            config.set_hpair_factorized(True)
+        g2_max = p2.grad.abs().max().item()
+        log(f"[{tag}] {N30}q x {L30}L cnot params = 0: magnetization {v2.item()!r} "
+            f"(want {N30}, tol {CLOSED_TOL * N30:.1e}); |grad| max {g2_max:.3e} "
+            f"(tol {CLOSED_TOL:.0e}); block_backward_high[wide] "
+            f"{got['block_backward_high[wide]']}, [f16] {got['block_backward_high[f16]']}")
+        require(got == want, f"[{tag}] launch counts {got}, want the dry run's {want}")
+        require(abs(v2.item() - N30) <= CLOSED_TOL * N30 and g2_max <= CLOSED_TOL,
+                f"[{tag}] params = 0 failed")
+        require(got["block_backward_high[wide]"] > 0 and got["block_backward_high[f16]"]
+                >= got["block_backward_high[wide]"],
+                f"[{tag}] the X = 512 adjoint did not run on f16 planes")
+        paths["hpair30", factorized] = got
+        del two, p2, v2
+        torch.cuda.empty_cache()
 
     # [fallback]: scan mode off the planes, plain torch on the card, against
     # the unrolled model (build()'s engine) or the plane path
@@ -2784,6 +3174,7 @@ def main() -> int:
     # forward), for the CNOT ring's kernels from the 29q x 20L cnot
     # value_and_grad (and its forward), for block_backward_lane from
     # [tape29]'s value_and_grad (and its forward)
+    log_time("result lines")
     sources = {
         "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
                        "dqc_tpu/ops/pallas/dual_apply.py:232", "29q_diag_first"),
@@ -2947,6 +3338,39 @@ def main() -> int:
         variants[f"{kernel}[gram_bf16x3]"] = (src, f"{line} (gram_dot_mode bf16x3)",
                                               rep_of["gram_bf16x3"], ("float32",),
                                               counts29)
+    # the variants of the other plane paths: f16 and the bf16x3 transport
+    # from [cnot29_f16] (the multi-term applies, the sublane adjoint) and
+    # [tape29_f16] (the lane adjoint), bf16 from [paths29_mixed]'s CNOT ring
+    # and tape; the X = 256 adjoint on reduced planes from [paths29_mixed]'s
+    # expanded hpair (every wide launch there is one)
+    c16, tc16 = cnot16[0], tape16[0]
+    cmix, tmix = paths["cnot", "mixed"], paths["tape", "mixed"]
+    da = "dqc_tpu/ops/pallas/dual_apply.py:165"
+    ha = "dqc_tpu/ops/pallas/high_apply.py:273"
+    for name, src, line, counts16, countsb in (
+            ("dual_multi_apply", "dqc_tpu_torch/csrc/dual_multi_apply.cu", da, c16, cmix),
+            ("high_multi_apply", "dqc_tpu_torch/csrc/high_multi_apply.cu", ha, c16, cmix)):
+        variants[f"{name}[f16]"] = (src, f"{line} (u16 planes)", "29q_T2_cnot_f16",
+                                    ("float16",), counts16)
+        variants[f"{name}[bf16]"] = (src, f"{line} (bf16 planes)", "29q_T2_cnot_bf16",
+                                     ("bfloat16",), countsb)
+    for name, line, counts16, countsb in (
+            ("block_backward_sublane", f"{bb}:184", c16, cmix),
+            ("block_backward_lane", f"{bb}:88", tc16, tmix)):
+        src = f"dqc_tpu_torch/csrc/{name}.cu"
+        variants[f"{name}[f16]"] = (src, f"{line} (u16 bwd)", "29q_f16", ("float16",),
+                                    counts16)
+        variants[f"{name}[bf16]"] = (src, f"{line} (bf16 bwd)", "29q_bf16",
+                                     ("bfloat16",), countsb)
+        variants[f"{name}[bf16x3]"] = (src, f"{line} (bwd_dot_mode bf16x3)", "29q_f16",
+                                       ("float16", "bfloat16"), counts16)
+    for store, storage, dtn in (("f16", "f16", "float16"), ("bf16", "mixed", "bfloat16")):
+        name = f"block_backward_high[wide+{store}]"
+        variants[name] = (
+            "dqc_tpu_torch/csrc/block_backward_high.cu",
+            f"{bb}:906 (X = 256 / 512, {'u16' if store == 'f16' else 'bf16'} bwd)",
+            f"29q_X256_wide_{store}", (dtn,),
+            {name: paths["hpair", storage]["block_backward_high[wide]"]})
     for name, (src, replaces, variant, storages, run_counts) in variants.items():
         kernel = name.split("[")[0]
         mine = [r for r in rows if r["kernel"] == kernel

@@ -646,17 +646,21 @@ def _cross_plan(gate_m, positions, n: int, device: torch.device):
 
 def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
                        *, conj: bool = False, acc0=None, alias: bool = False,
-                       plan=None):
+                       out_dtype=None, plan=None):
     """Dense cross-group gate = per-group term decomposition: the WHOLE term
     sum in one fused kernel pass (in place when ``alias``), or 2 accumulate
     sweeps per term where the pair shape has no fused kernel. ``conj`` /
-    ``acc0`` give the seed form ``acc0 + conj(G x)``. ``plan``: the gate's
-    :func:`_cross_plan`, staged once per call for a constant gate
-    (``gate_m`` is then not read)."""
+    ``acc0`` give the seed form ``acc0 + conj(G x)``; ``out_dtype``: the
+    storage of a fresh accumulator (a seed creating the cotangent planes).
+    The per-term sweeps store their temporary and the accumulator in the
+    input's storage after every term, as the JAX package does. ``plan``:
+    the gate's :func:`_cross_plan`, staged once per call for a constant
+    gate (``gate_m`` is then not read)."""
     if plan is None:
         plan = _cross_plan(gate_m, positions, n, xr.device)
     kind, ops = plan
-    kw = dict(alias=alias and acc0 is None, conj=conj, acc=acc0, kernels=kernels)
+    kw = dict(alias=alias and acc0 is None, conj=conj, acc=acc0,
+              out_dtype=out_dtype, kernels=kernels)
     if kind == "span":
         return pl.apply_cross_span(xr, xi, gate_m, positions, n, operands=ops, **kw)
     if kind == "terms":
@@ -665,6 +669,7 @@ def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
     for EA, ja, EB, jb in ops:
         tr, ti = pl.apply_block(xr, xi, EB, jb, n, alias=False, kernels=kernels)
         acc = pl.apply_block(tr, ti, EA, ja, n, acc=acc, conj=conj,
+                             out_dtype=None if acc is not None else out_dtype,
                              kernels=kernels)
         del tr, ti  # one temporary pair at a time
     return acc
@@ -887,7 +892,8 @@ def _apply_xcross(xr, xi, gate_m, positions, n: int, kernels: KernelSet):
     the span view where the bits allow one (planes.apply_cross_span), else
     the target bits gathered to the front (groups.subblocks), one
     ``(2^k, 2^k) x (2^k, 2^(n-k))`` complex product, and the result written
-    back (fresh planes)."""
+    back (fresh planes; reduced planes decoded and encoded with the host
+    codec, as the JAX package's XLA form does)."""
     ops = pl.cross_span_operands(gate_m, positions, n, xr.device)
     if ops is not None:
         return pl.apply_cross_span(xr, xi, None, positions, n, kernels=kernels,
@@ -897,20 +903,21 @@ def _apply_xcross(xr, xi, gate_m, positions, n: int, kernels: KernelSet):
     dims = gr.group_dims(n)
     Sr, restore_r = gr.subblocks_with_restore(xr.reshape(dims), positions, n)
     Si, restore_i = gr.subblocks_with_restore(xi.reshape(dims), positions, n)
-    Y = torch.matmul(m, torch.complex(Sr, Si))
+    Y = torch.matmul(m, torch.complex(pl.plane_f32(Sr), pl.plane_f32(Si)))
     del Sr, Si
-    return (restore_r(Y.real).reshape(xr.shape),
-            restore_i(Y.imag).reshape(xi.shape))
+    return (pl.plane_store(restore_r(Y.real), xr.dtype).reshape(xr.shape),
+            pl.plane_store(restore_i(Y.imag), xi.dtype).reshape(xi.shape))
 
 
 def _plane_pair_grad(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
     """Dense cross-gate cotangent ``W[p, q] = sum_b bwd[p, b] fwd[q, b]``
-    on planes (groups.pair_grad on the complex sub-blocks)."""
+    on planes (groups.pair_grad on the complex sub-blocks; the cotangent's
+    decoded)."""
     dims = gr.group_dims(n)
     F = torch.complex(gr.subblocks(fxr.reshape(dims), positions, n),
                       gr.subblocks(fxi.reshape(dims), positions, n))
-    B = torch.complex(gr.subblocks(bxr.reshape(dims), positions, n),
-                      gr.subblocks(bxi.reshape(dims), positions, n))
+    B = torch.complex(pl.plane_f32(gr.subblocks(bxr.reshape(dims), positions, n)),
+                      pl.plane_f32(gr.subblocks(bxi.reshape(dims), positions, n)))
     return pair_sum(B[None], F[None])
 
 
@@ -1405,8 +1412,8 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
 
     The first seed creates the cotangent planes in config.bwd_plane_dtype()
     and the later ones accumulate in that storage (the JAX package's
-    ``out_dtype``). A seed across groups runs the multi-term kernels, which
-    take f32 planes only: under reduced storage it raises (ROADMAP.md)."""
+    ``out_dtype``): the kernels encode, and the >2-group branch decodes and
+    encodes with the host codec, as the JAX package's XLA form does."""
     pending = dict(pending)
     njg = len(gr.group_dims(n))
     bwd_dt = config.bwd_plane_dtype()
@@ -1427,23 +1434,20 @@ def _seed_apply(fxr, fxi, pending: Dict[int, torch.Tensor], n: int,
     for key, M in pending.items():
         acc = None if bxr is None else (bxr, bxi)
         if isinstance(key, tuple):
-            if bwd_dt != torch.float32:
-                raise NotImplementedError(
-                    f"the seed of a density across groups {key} runs the "
-                    f"multi-term kernels, which take f32 planes only: "
-                    f"{config.state_storage()!r} storage is not ported to "
-                    "them yet; see ROADMAP.md")
             groups = {gr.group_of_bit(n, p)[0] for p in key}
             if len(groups) <= 2 or pl.cross_span_eligible(key, n):
                 bxr, bxi = _apply_dense_cross(fxr, fxi, M.conj(), key, n,
-                                              kernels, conj=True, acc0=acc)
+                                              kernels, conj=True, acc0=acc,
+                                              out_dtype=bwd_dt)
                 continue
             yr, yi = _apply_xcross(fxr.clone(), fxi.clone(), M.conj(), key, n,
                                    kernels)
             if acc is None:
-                bxr, bxi = yr, -yi
+                bxr = pl.plane_store(pl.plane_f32(yr), bwd_dt)
+                bxi = pl.plane_store(-pl.plane_f32(yi), bwd_dt)
             else:
-                bxr, bxi = bxr + yr, bxi - yi
+                bxr = pl.plane_store(pl.plane_f32(bxr) + yr, bxr.dtype)
+                bxi = pl.plane_store(pl.plane_f32(bxi) - yi, bxi.dtype)
             continue
         bxr, bxi = pl.apply_block(fxr, fxi, M.conj(), key, n, alias=False,
                                   conj=True, acc=acc, out_dtype=bwd_dt,
@@ -1479,13 +1483,17 @@ def _ct_prescale() -> Optional[float]:
     return 256.0 if config.state_storage() == "f16" else None
 
 
+def _unscaled(ct: torch.Tensor) -> torch.Tensor:
+    """A cotangent out of the cotangent planes with the f16 prescale
+    removed."""
+    s = _ct_prescale()
+    return ct if s is None else ct * (1.0 / s)
+
+
 def _plane_ct(ct: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """A gate cotangent of the plane engine, the f16 prescale removed, shaped
     and typed like its gate."""
-    s = _ct_prescale()
-    if s is not None:
-        ct = ct * (1.0 / s)
-    return _match_ct(ct, ref)
+    return _match_ct(_unscaled(ct), ref)
 
 
 def _ct_to_planes(ct: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1505,11 +1513,7 @@ def _state_grad(bxr, bxi, n: int, ref_dtype, ref_shape) -> torch.Tensor:
     from dqc_tpu_torch.circuit.autograd import match_grad
 
     ref = torch.empty(ref_shape, dtype=ref_dtype, device="meta")
-    st = pl.from_planes(bxr, bxi, n)
-    s = _ct_prescale()
-    if s is not None:
-        st = st * (1.0 / s)
-    return match_grad(st, ref)
+    return match_grad(_unscaled(pl.from_planes(bxr, bxi, n)), ref)
 
 
 def _take_planes(ctx, what: str):
@@ -1933,11 +1937,6 @@ class _PlaneTapeForward(torch.autograd.Function):
         from dqc_tpu_torch.circuit.autograd import match_grad
 
         ftape, const_gates, kernels, state_dtype, state_shape = ctx.statics
-        if config.state_storage() != "f32":
-            raise NotImplementedError(
-                f"plane_tape_forward's adjoint under {config.state_storage()!r} "
-                "storage (the generic plane tape of autodiff_run) is not "
-                "ported yet; see ROADMAP.md")
         if ctx.planes is None:
             raise RuntimeError(
                 "plane_tape_forward: the planes were consumed by an earlier "
@@ -1972,12 +1971,11 @@ class _PlaneTapeForward(torch.autograd.Function):
         bxr, bxi = _seed_apply(fxr, fxi, pending, n, kernels, bxr, bxi)
         state_grad = None
         if ctx.needs_input_grad[3]:
-            ref = torch.empty(state_shape, dtype=state_dtype, device="meta")
             state_grad = (torch.zeros(state_shape, dtype=state_dtype,
                                       device=fxr.device) if bxr is None
-                          else match_grad(pl.from_planes(bxr, bxi, n), ref))
+                          else _state_grad(bxr, bxi, n, state_dtype, state_shape))
         grads = tuple(torch.zeros_like(ref) if q not in var_cts
-                      else match_grad(var_cts[q], ref)
+                      else match_grad(_unscaled(var_cts[q]), ref)
                       for q, ref in enumerate(var_gates))
         return (None, None, None, state_grad) + grads
 

@@ -65,9 +65,12 @@
 // gram_dot_mode at block_backward.py:826-835), X <= 128: B is stored as f32,
 // bf16 or f16 (bkind, F stays f32; one load and one store per element, as
 // in the TPU kernel), the transport runs bf16x3 with bwd_x3 and the pair
-// gram with gram_x3 (adjoint.cuh). X = 256 / 512 takes gram_x3 in its
-// cross-Gram (both operands split as they are read from shared memory) and
-// f32 planes with an f32 transport only.
+// gram with gram_x3 (adjoint.cuh). X = 256 / 512 takes the same modes: the
+// cross-Gram decodes B as it reads it and, with gram_x3, splits both
+// operands as they are read from shared memory; the transport is the wide
+// apply in place on B in its storage, bf16x3 with bwd_x3 (one load and one
+// store of B there, as in the TPU kernel; the cross-Gram's read of B comes
+// before it).
 
 #include "adjoint.cuh"
 #include "wide_apply.cuh"
@@ -188,10 +191,11 @@ __device__ __forceinline__ void xg_flush(float (&Gr)[XgCfg::RX][XgCfg::RY],
 // Block (bx NRB + by, group) adds G[x, y] = sum_q B[x, q] F[y, q] (complex,
 // no conjugation) for x in patch row bx, y in patch column by, over the
 // column tiles tile = group, group + gridDim.y, ... of the view (P, X, Q),
-// into part[group][0 / 1][x][y] (re / im): each entry has one writer.
-template <int NRB, bool GX3>
+// into part[group][0 / 1][x][y] (re / im): each entry has one writer. B is
+// stored as BKIND (common.cuh codec), decoded as the tile is read.
+template <int NRB, bool GX3, int BKIND>
 __global__ void __launch_bounds__(kXgThreads, 1)
-cross_gram_wide_kernel(const float* __restrict__ br, const float* __restrict__ bi,
+cross_gram_wide_kernel(const void* __restrict__ br, const void* __restrict__ bi,
                        const float* __restrict__ fr, const float* __restrict__ fi,
                        float* __restrict__ part, int64_t Q, int64_t ntiles) {
   constexpr int X = NRB * 128;
@@ -227,8 +231,8 @@ cross_gram_wide_kernel(const float* __restrict__ br, const float* __restrict__ b
       const int x = e / CB, c = e % CB;
       const int64_t ob = base + (int64_t)(bx * 128 + x) * Q + c;
       const int64_t of = base + (int64_t)(by * 128 + x) * Q + c;
-      sbr[c * LD + x] = br[ob];
-      sbi[c * LD + x] = bi[ob];
+      sbr[c * LD + x] = dqc::load_plane(br, ob, BKIND);
+      sbi[c * LD + x] = dqc::load_plane(bi, ob, BKIND);
       sfr[c * LD + x] = fr[of];
       sfi[c * LD + x] = fi[of];
     }
@@ -329,37 +333,50 @@ gram_times_inv_t_kernel(const float* __restrict__ g,
   t0[X * X + x * X + y] = acci;
 }
 
-template <int X, bool GX3>
-int launch_wide(float* fr, float* fi, float* br, float* bi, const Operators& ops,
-                float* part, float* gram, float* out, long long A1,
-                long long Q, int nblk, cudaStream_t stream) {
+template <int X, bool GX3, int BKIND>
+int launch_cross_gram(const void* br, const void* bi, const float* fr,
+                      const float* fi, float* part, long long Q,
+                      long long ntiles, int nblk, cudaStream_t stream) {
   constexpr int NRB = X / 128;
+  auto kernel = cross_gram_wide_kernel<NRB, GX3, BKIND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(NRB * NRB, nblk), kXgThreads, XgCfg::kSmemBytes, stream>>>(
+      br, bi, fr, fi, part, (int64_t)Q, (int64_t)ntiles);
+  return (int)cudaGetLastError();
+}
+
+template <int X, bool GX3>
+int launch_wide(float* fr, float* fi, void* br, void* bi, int bkind,
+                int bwd_x3, const Operators& ops, float* part, float* gram,
+                float* out, long long A1, long long Q, int nblk,
+                cudaStream_t stream) {
   const long long ntiles = A1 * (Q / XgCfg::CB);
-  if (Q % XgCfg::CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles)
+  if (Q % XgCfg::CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles ||
+      bkind < 0 || bkind > 2)
     return (int)cudaErrorInvalidValue;
   // 1. G = B F^T on the planes as they come in
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_gram_wide_kernel<NRB, GX3>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  cross_gram_wide_kernel<NRB, GX3><<<dim3(NRB * NRB, nblk), kXgThreads,
-                                     XgCfg::kSmemBytes, stream>>>(
-      br, bi, fr, fi, part, (int64_t)Q, (int64_t)ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int code = dqc::launch_reduce(part, gram, nblk, 2 * X * X, stream);
+  constexpr int F32 = dqc::kStoreF32, BF16 = dqc::kStoreBF16;
+  auto gram_fn = bkind == F32    ? launch_cross_gram<X, GX3, F32>
+                 : bkind == BF16 ? launch_cross_gram<X, GX3, BF16>
+                                 : launch_cross_gram<X, GX3, dqc::kStoreF16>;
+  int code = gram_fn(br, bi, fr, fi, part, Q, ntiles, nblk, stream);
+  if (code != 0) return code;
+  code = dqc::launch_reduce(part, gram, nblk, 2 * X * X, stream);
   if (code != 0) return code;
   // 2. T0 = G Einv^T
   gram_times_inv_t_kernel<X><<<dim3(X / 16, X / 16), 256, 0, stream>>>(
       gram, ops.inv_r, ops.inv_i, out);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // 3. F <- Einv F, B <- E^T B, in place
+  // 3. F <- Einv F, B <- E^T B (B in its storage, the product bf16x3 with
+  //    bwd_x3), in place
   code = dqc::launch_wide_apply<X>(fr, fi, fr, fi, dqc::kStoreF32, ops.inv_r,
                                    ops.inv_i, 0, 0, 0, A1, Q, stream);
   if (code != 0) return code;
-  return dqc::launch_wide_apply<X>(br, bi, br, bi, dqc::kStoreF32, ops.e_r,
-                                   ops.e_i, 1, 0, 0, A1, Q, stream);
+  return dqc::launch_wide_inplace<X>(br, bi, bkind, bwd_x3, ops.e_r, ops.e_i,
+                                     1, A1, Q, stream);
 }
 
 }  // namespace
@@ -438,17 +455,19 @@ extern "C" int dqc_block_backward_high(
 // 32: (F, B) <- the adjoint step of E without a diagonal run; out = (T0 re,
 // T0 im), 2 x X x X floats. part is scratch of nblk * 2 * X * X floats
 // (every entry written) and gram of 2 * X * X; nblk is the number of column
-// groups (at most 65535 and A1 Q / 32). gram_x3 runs the cross-Gram
-// bf16x3. Returns cudaGetLastError().
+// groups (at most 65535 and A1 Q / 32). B is stored as bkind (0 f32, 1 bf16,
+// 2 f16), F as f32; bwd_x3 runs the transport bf16x3 and gram_x3 the
+// cross-Gram. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high_wide(
-    float* fr, float* fi, float* br, float* bi, const float* einv_r,
+    float* fr, float* fi, void* br, void* bi, int bkind, const float* einv_r,
     const float* einv_i, const float* e_r, const float* e_i, float* part,
     float* gram, float* out, long long A1, int X, long long Q, int nblk,
-    int gram_x3, void* stream) {
+    int bwd_x3, int gram_x3, void* stream) {
   const Operators ops{einv_r, einv_i, e_r, e_i};
   cudaStream_t s = (cudaStream_t)stream;
-#define DQC_WIDE(XX, G) \
-  return launch_wide<XX, G>(fr, fi, br, bi, ops, part, gram, out, A1, Q, nblk, s)
+#define DQC_WIDE(XX, G)                                                    \
+  return launch_wide<XX, G>(fr, fi, br, bi, bkind, bwd_x3, ops, part, gram, \
+                            out, A1, Q, nblk, s)
   switch (X) {
     case 256:
       if (gram_x3) DQC_WIDE(256, true);

@@ -1,4 +1,4 @@
-// One-pass adjoint step of an unpaired lane-group block on f32 planes.
+// One-pass adjoint step of an unpaired lane-group block on the planes.
 //
 // Replaces the TPU kernel block_backward_lane
 // (dqc_tpu/ops/pallas/block_backward.py:88, body _kernel at :35): for every
@@ -26,6 +26,12 @@
 // the slabs; each block sums its pair gram into its own partial slot (one
 // writer per entry), and a second kernel adds the slots in block order, so
 // the result does not depend on scheduling.
+//
+// Reduced cotangent storage and bf16x3 (the TPU kernel's f32_of / store_as
+// and bwd_dot_mode / gram_dot_mode): B may be stored as bf16 or f16 (one
+// decode on load, one encode on store, F stays f32), and the transport and
+// the pair gram may run bf16x3, as adjoint.cuh does them for the dual and
+// high adjoints.
 
 #include "adjoint.cuh"
 
@@ -40,20 +46,21 @@ constexpr int N = dqc::kGroup;
 constexpr int kSlab = N * N;
 constexpr int kPartFloats = 2 * kSlab;  // T0 (re, im)
 
-template <bool GX3>
+template <bool TX3, bool GX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_lane_kernel(float* fr, float* fi, float* br, float* bi,
-                           Operators ops, float* part, int64_t A) {
+block_backward_lane_kernel(float* fr, float* fi, char* br, char* bi,
+                           int bkind, Operators ops, float* part, int64_t A) {
   extern __shared__ float smem[];
   float* slot = part + (int64_t)blockIdx.x * kPartFloats;
+  const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
   const DiagView none{DiagTables{}, 1, 0, 0, N, 0};
   for (int64_t a = blockIdx.x; a < A; a += gridDim.x) {
     for (int h = 0; h < 2; ++h) {
       // row tile s in [64 h, 64 h + 64): x = l at stride 1, c = s at stride N
       const int64_t t = a * kSlab + 64 * h * N;
-      dqc::adjoint_tile<N, false, GX3>(fr + t, fi + t, br + t, bi + t,
-                                       dqc::kStoreF32, 0, 1, N, ops, 0, none,
-                                       none, slot, smem);
+      dqc::adjoint_tile<N, TX3, GX3>(fr + t, fi + t, br + t * bsize,
+                                     bi + t * bsize, bkind, 0, 1, N, ops,
+                                     0, none, none, slot, smem);
     }
   }
 }
@@ -63,25 +70,31 @@ block_backward_lane_kernel(float* fr, float* fi, float* br, float* bi,
 // In place on planes (A, 128, 128): (F, B) <- the adjoint step of the lane
 // operator E; out = (T0 re, T0 im), 2 x 128 x 128 floats. part is scratch of
 // nblk * 2 * 128 * 128 floats, set to zero by the caller, and nblk the
-// number of blocks (at most A). gram_x3 runs the pair gram bf16x3
+// number of blocks (at most A). B is stored as bkind (0 f32, 1 bf16, 2 f16),
+// F as f32; bwd_x3 / gram_x3 run the transport / the pair gram bf16x3
 // (adjoint.cuh). Returns cudaGetLastError().
-extern "C" int dqc_block_backward_lane(float* fr, float* fi, float* br,
-                                       float* bi, const float* einv_r,
+extern "C" int dqc_block_backward_lane(float* fr, float* fi, void* br,
+                                       void* bi, int bkind,
+                                       const float* einv_r,
                                        const float* einv_i, const float* e_r,
                                        const float* e_i, float* part,
                                        float* out, long long A, int nblk,
-                                       int gram_x3, void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A) return (int)cudaErrorInvalidValue;
+                                       int bwd_x3, int gram_x3, void* stream) {
+  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2)
+    return (int)cudaErrorInvalidValue;
   constexpr int kSmem = AdjCfg<N>::kSmemBytes;
-  auto kernel = gram_x3 ? block_backward_lane_kernel<true>
-                       : block_backward_lane_kernel<false>;
+  auto kernel = bwd_x3 ? (gram_x3 ? block_backward_lane_kernel<true, true>
+                                 : block_backward_lane_kernel<true, false>)
+                      : (gram_x3 ? block_backward_lane_kernel<false, true>
+                                 : block_backward_lane_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const Operators ops{einv_r, einv_i, e_r, e_i};
   kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
-      fr, fi, br, bi, ops, part, (int64_t)A);
+      fr, fi, static_cast<char*>(br), static_cast<char*>(bi), bkind, ops, part,
+      (int64_t)A);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return dqc::launch_reduce(part, out, nblk, kPartFloats, s);

@@ -89,6 +89,39 @@ __device__ __forceinline__ void store_plane(void* p, int64_t i, float v,
   }
 }
 
+// The four elements at float4 index e of a plane stored as kind (a kind known
+// at compile time folds the branches away), and their store.
+__device__ __forceinline__ void load4(const void* p, int64_t e, int kind,
+                                      float (&v)[4]) {
+  if (kind == kStoreF32) {
+    const float4 f = reinterpret_cast<const float4*>(p)[e];
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    return;
+  }
+  const uint2 u = reinterpret_cast<const uint2*>(p)[e];
+  const uint32_t h[4] = {u.x & 0xFFFFu, u.x >> 16, u.y & 0xFFFFu, u.y >> 16};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = kind == kStoreBF16 ? __uint_as_float(h[k] << 16)
+                              : f16_bits_to_f32(h[k]);
+}
+
+__device__ __forceinline__ void store4(void* p, int64_t e, int kind,
+                                       const float (&v)[4]) {
+  if (kind == kStoreF32) {
+    reinterpret_cast<float4*>(p)[e] = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  uint32_t h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = kind == kStoreBF16
+               ? (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[k]))
+               : (uint32_t)f32_to_f16_bits(v[k]);
+  reinterpret_cast<uint2*>(p)[e] = make_uint2(h[0] | (h[1] << 16),
+                                              h[2] | (h[3] << 16));
+}
+
 // The value a store then a load give: v rounded to the storage.
 __device__ __forceinline__ float quantize(float v, int kind) {
   if (kind == kStoreF32) return v;

@@ -50,6 +50,8 @@ namespace {
 
 using dqc::DiagTables;
 using dqc::cmul;
+using dqc::load4;
+using dqc::store4;
 
 constexpr int kThreads = 256;
 
@@ -91,38 +93,6 @@ __device__ __forceinline__ void times_diag(float* xr, float* xi,
   for (int k = 0; k < 4; ++k) cmul(ar[k], ai[k], dr[k], di[k], yr[k], yi[k]);
   *pr = make_float4(yr[0], yr[1], yr[2], yr[3]);
   *pi = make_float4(yi[0], yi[1], yi[2], yi[3]);
-}
-
-// The four elements at float4 index e of a plane stored as kind.
-__device__ __forceinline__ void load4(const void* p, int64_t e, int kind,
-                                      float (&v)[4]) {
-  if (kind == dqc::kStoreF32) {
-    const float4 f = reinterpret_cast<const float4*>(p)[e];
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-    return;
-  }
-  const uint2 u = reinterpret_cast<const uint2*>(p)[e];
-  const uint32_t h[4] = {u.x & 0xFFFFu, u.x >> 16, u.y & 0xFFFFu, u.y >> 16};
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    v[k] = kind == dqc::kStoreBF16 ? __uint_as_float(h[k] << 16)
-                                   : dqc::f16_bits_to_f32(h[k]);
-}
-
-__device__ __forceinline__ void store4(void* p, int64_t e, int kind,
-                                       const float (&v)[4]) {
-  if (kind == dqc::kStoreF32) {
-    reinterpret_cast<float4*>(p)[e] = make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-  uint32_t h[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    h[k] = kind == dqc::kStoreBF16
-               ? (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[k]))
-               : (uint32_t)dqc::f32_to_f16_bits(v[k]);
-  reinterpret_cast<uint2*>(p)[e] = make_uint2(h[0] | (h[1] << 16),
-                                              h[2] | (h[3] << 16));
 }
 
 // x[e] *= D at float4 index e of planes stored as kind.

@@ -1,4 +1,4 @@
-// Multi-term dual-group apply on f32 planes: y = sum_t Em_t . X . El_t^T for
+// Multi-term dual-group apply on the planes: y = sum_t Em_t . X . El_t^T for
 // every 128 x 128 slab, in place.
 //
 // Replaces the TPU kernel dual_multi_apply_planes
@@ -19,20 +19,24 @@
 // Design: multi_apply.cuh at X = 128 on the view (A, 128, 1, 128): a block
 // per slab holds the whole slab in shared memory (every output depends on
 // all of it, for every term) and streams the output in 64-lane column
-// blocks, summing the terms in registers.
+// blocks, summing the terms in registers. Under reduced cotangent storage
+// the planes are stored as bf16 or f16 (multi_apply.cuh): the CNOT ring's
+// G^T transport in place on B, the seeds from f32 forward planes into B.
 
 #include "multi_apply.cuh"
 
 // On planes (A, 128, 128): y <- [y +] conj?(sum_t Em_t x El_t^T), t < T,
-// with y = x for in place and y the accumulator planes with has_acc.
-// elt = El_t^T and emt = Em_t^T, stacked (T, 128, 128) each, real/imag
-// planes. Returns cudaGetLastError().
-extern "C" int dqc_dual_multi_apply(const float* xr, const float* xi,
-                                    float* yr, float* yi, const float* elt_r,
-                                    const float* elt_i, const float* emt_r,
-                                    const float* emt_i, int T, int conj,
-                                    int has_acc, long long A, void* stream) {
-  return dqc::launch_multi_apply<dqc::kGroup>(xr, xi, yr, yi, elt_r, elt_i,
-                                              emt_r, emt_i, T, A, 1, conj,
-                                              has_acc, (cudaStream_t)stream);
+// with y = x for in place and y the accumulator planes with has_acc; x
+// stored as xkind, y as ykind (0 f32, 1 bf16, 2 f16; multi_apply.cuh's
+// pairs). elt = El_t^T and emt = Em_t^T, stacked (T, 128, 128) each,
+// real/imag planes. Returns cudaGetLastError().
+extern "C" int dqc_dual_multi_apply(const void* xr, const void* xi, void* yr,
+                                    void* yi, int xkind, int ykind,
+                                    const float* elt_r, const float* elt_i,
+                                    const float* emt_r, const float* emt_i,
+                                    int T, int conj, int has_acc, long long A,
+                                    void* stream) {
+  return dqc::launch_multi_apply<dqc::kGroup>(
+      xr, xi, yr, yi, xkind, ykind, elt_r, elt_i, emt_r, emt_i, T, A, 1, conj,
+      has_acc, (cudaStream_t)stream);
 }

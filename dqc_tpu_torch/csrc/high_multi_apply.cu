@@ -1,4 +1,4 @@
-// Multi-term high + lane apply on f32 planes: y = sum_t (E_t on axis X)
+// Multi-term high + lane apply on the planes: y = sum_t (E_t on axis X)
 // (El_t on the lane axis) x on the view (A1, X, M, 128), in place.
 //
 // Replaces the TPU kernel high_multi_apply_planes
@@ -20,27 +20,32 @@
 // Design: multi_apply.cuh: a block takes 128 / X consecutive m of one i
 // (128 rows of 128 lanes) into shared memory, forms each term's lane
 // product into a shared buffer one 64-lane column block at a time, and adds
-// the group product within each X-row group in registers.
+// the group product within each X-row group in registers. Under reduced
+// cotangent storage the planes are stored as bf16 or f16 (multi_apply.cuh):
+// the span gate's transport in place on B, the seeds into B.
 
 #include "multi_apply.cuh"
 
 // On the view (A1, X, M, 128), X in {8, 16, 32, 64, 128} and
 // M % (128 / X) == 0: y <- [y +] conj?(sum_t E_t x El_t^T), t < T, with
-// y = x for in place and y the accumulator with has_acc. elt = El_t^T
+// y = x for in place and y the accumulator with has_acc; x stored as xkind,
+// y as ykind (0 f32, 1 bf16, 2 f16; multi_apply.cuh's pairs). elt = El_t^T
 // (T, 128, 128) and et = E_t^T (T, X, X), real/imag planes. Returns
 // cudaGetLastError().
-extern "C" int dqc_high_multi_apply(const float* xr, const float* xi,
-                                    float* yr, float* yi, const float* elt_r,
-                                    const float* elt_i, const float* et_r,
-                                    const float* et_i, int T, int conj,
-                                    int has_acc, long long A1, int X,
-                                    long long M, void* stream) {
+extern "C" int dqc_high_multi_apply(const void* xr, const void* xi, void* yr,
+                                    void* yi, int xkind, int ykind,
+                                    const float* elt_r, const float* elt_i,
+                                    const float* et_r, const float* et_i,
+                                    int T, int conj, int has_acc,
+                                    long long A1, int X, long long M,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (X) {
-#define DQC_MULTI_CASE(XX)                                                  \
-  case XX:                                                                  \
-    return dqc::launch_multi_apply<XX>(xr, xi, yr, yi, elt_r, elt_i, et_r,  \
-                                       et_i, T, A1, M, conj, has_acc, s);
+#define DQC_MULTI_CASE(XX)                                                   \
+  case XX:                                                                   \
+    return dqc::launch_multi_apply<XX>(xr, xi, yr, yi, xkind, ykind, elt_r,  \
+                                       elt_i, et_r, et_i, T, A1, M, conj,    \
+                                       has_acc, s);
     DQC_MULTI_CASE(8)
     DQC_MULTI_CASE(16)
     DQC_MULTI_CASE(32)

@@ -1,4 +1,4 @@
-// The sum-of-terms apply on f32 planes, shared by dual_multi_apply.cu and
+// The sum-of-terms apply on the planes, shared by dual_multi_apply.cu and
 // high_multi_apply.cu:
 //
 //   y = sum_t (E_t on the group axis) (El_t on the lane axis) x,   in place,
@@ -34,6 +34,16 @@
 // that the tile loads are coalesced. The rows' entries along the contracted
 // axis are read as float4 broadcasts, the tile's and T's entries one column
 // per lane, without bank conflicts.
+//
+// Reduced cotangent storage (config.set_state_storage "mixed" / "f16"; the
+// TPU kernels' f32_of / store_as at dual_apply.py:128-129, 155-159): x and
+// y may be stored as bf16 or f16 bits (common.cuh's codec), each a template
+// parameter (XKIND, YKIND), so that the f32 instantiation keeps its plain
+// float4 loads and stores. x is decoded as the tile is read, an accumulator
+// decoded where it is added, and y encoded as it is stored; every product
+// runs in f32 (the TPU kernels' kernel_dot_mode). In place on a reduced
+// cotangent (the transport of a cross-group gate), x and y are the same
+// planes of one storage; a seed reads f32 forward planes into reduced y.
 #pragma once
 
 #include "common.cuh"
@@ -58,14 +68,15 @@ __device__ __forceinline__ void mcmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// xr, xi: the view (A1, X, M, 128), read; yr, yi: the output in the same
-// view (x itself when in place, the accumulator with has_acc). elt: El_t^T
+// xr, xi: the view (A1, X, M, 128) stored as XKIND, read; yr, yi: the
+// output in the same view stored as YKIND (x itself when in place, the
+// accumulator with has_acc). elt: El_t^T
 // stacked (T, 128, 128), elt[t][k][l] = El_t[l][k]; et: E_t^T stacked
 // (T, X, X), et[t][k][x] = E_t[x][k]. A tile is 128 / X consecutive m of
 // one i, read whole before any store.
-template <int X>
+template <int X, int XKIND, int YKIND>
 __global__ void __launch_bounds__(kMultiThreads, 1)
-multi_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
+multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
                    const float* __restrict__ elt_r,
                    const float* __restrict__ elt_i,
                    const float* __restrict__ et_r,
@@ -98,9 +109,12 @@ multi_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
   // 1. every row of the tile into shared memory, before any store
   for (int e4 = tid; e4 < kMultiRows * kGroup / 4; e4 += kMultiThreads) {
     const int r = e4 / (kGroup / 4), c4 = e4 % (kGroup / 4);
-    const int64_t o = base + row_off(r) + 4 * c4;
-    reinterpret_cast<float4*>(sXr)[e4] = *reinterpret_cast<const float4*>(xr + o);
-    reinterpret_cast<float4*>(sXi)[e4] = *reinterpret_cast<const float4*>(xi + o);
+    const int64_t o4 = (base + row_off(r)) / 4 + c4;  // float4 index
+    float vr[4], vi[4];
+    load4(xr, o4, XKIND, vr);
+    load4(xi, o4, XKIND, vi);
+    reinterpret_cast<float4*>(sXr)[e4] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+    reinterpret_cast<float4*>(sXi)[e4] = make_float4(vi[0], vi[1], vi[2], vi[3]);
   }
 
   const int r0 = warp * 8;            // this thread's rows r0 .. r0 + 7
@@ -212,38 +226,59 @@ multi_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
         float vr = acc_r[a][j], vi = acc_i[a][j];
         if (conj) vi = -vi;
         if (has_acc) {
-          vr += yr[o + 32 * j];
-          vi += yi[o + 32 * j];
+          vr += load_plane(yr, o + 32 * j, YKIND);
+          vi += load_plane(yi, o + 32 * j, YKIND);
         }
-        yr[o + 32 * j] = vr;
-        yi[o + 32 * j] = vi;
+        store_plane(yr, o + 32 * j, vr, YKIND);
+        store_plane(yi, o + 32 * j, vi, YKIND);
       }
     }
   }
 }
 
+template <int X, int XKIND, int YKIND>
+int launch_multi_kind(const void* xr, const void* xi, void* yr, void* yi,
+                      const float* elt_r, const float* elt_i,
+                      const float* et_r, const float* et_i, int T,
+                      long long blocks, long long M, int conj, int has_acc,
+                      cudaStream_t stream) {
+  auto kernel = multi_apply_kernel<X, XKIND, YKIND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMultiSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kMultiThreads, kMultiSmemBytes, stream>>>(
+      xr, xi, yr, yi, elt_r, elt_i, et_r, et_i, T, (int64_t)M, conj, has_acc);
+  return (int)cudaGetLastError();
+}
+
 // On the view (A1, X, M, 128): y <- [y +] conj?(sum_t E_t x El_t^T), with
-// y = x for in place and y the accumulator with has_acc. Needs
+// y = x for in place and y the accumulator with has_acc; x stored as xkind
+// and y as ykind (0 f32, 1 bf16, 2 f16): both f32, both one reduced storage
+// (in place on a cotangent), or x f32 and y reduced (a seed). Needs
 // M % (128 / X) == 0. Returns cudaGetLastError().
 template <int X>
-int launch_multi_apply(const float* xr, const float* xi, float* yr, float* yi,
-                       const float* elt_r, const float* elt_i,
-                       const float* et_r, const float* et_i, int T,
-                       long long A1, long long M, int conj, int has_acc,
-                       cudaStream_t stream) {
+int launch_multi_apply(const void* xr, const void* xi, void* yr, void* yi,
+                       int xkind, int ykind, const float* elt_r,
+                       const float* elt_i, const float* et_r,
+                       const float* et_i, int T, long long A1, long long M,
+                       int conj, int has_acc, cudaStream_t stream) {
   constexpr int GP = kMultiRows / X;
   if (T <= 0 || A1 <= 0 || M <= 0 || M % GP != 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (M / GP);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      multi_apply_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMultiSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  multi_apply_kernel<X><<<(unsigned)blocks, kMultiThreads, kMultiSmemBytes,
-                          stream>>>(xr, xi, yr, yi, elt_r, elt_i, et_r,
-                                    et_i, T, (int64_t)M, conj, has_acc);
-  return (int)cudaGetLastError();
+#define DQC_MULTI_KIND(XK, YK)                                               \
+  if (xkind == XK && ykind == YK)                                            \
+    return launch_multi_kind<X, XK, YK>(xr, xi, yr, yi, elt_r, elt_i, et_r,  \
+                                        et_i, T, blocks, M, conj, has_acc,   \
+                                        stream);
+  DQC_MULTI_KIND(kStoreF32, kStoreF32)
+  DQC_MULTI_KIND(kStoreBF16, kStoreBF16)
+  DQC_MULTI_KIND(kStoreF16, kStoreF16)
+  DQC_MULTI_KIND(kStoreF32, kStoreBF16)
+  DQC_MULTI_KIND(kStoreF32, kStoreF16)
+#undef DQC_MULTI_KIND
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace dqc

@@ -20,6 +20,15 @@
 // passes of 256: each thread keeps 8 rows x 4 columns of the product in
 // registers while 16-deep tiles of E (256 rows of it, or of E^T) stream
 // through shared memory from L2, and stores them when the pass ends.
+//
+// Reduced cotangent storage and bf16x3 (the transport of the X = 256 / 512
+// adjoint, csrc/block_backward_high.cu; the TPU kernel's f32_of / store_as
+// and bwd_dot_mode): x may be stored as bf16 or f16 bits and y too
+// (common.cuh's codec; XKIND and YKIND are template parameters, so that the
+// f32 sweep keeps its plain loads and stores), and the product may run
+// bf16x3 (TX3) on the CUDA cores: the E tile is staged as its hi and lo
+// bf16 parts (twice the tile buffer), each x value split into hi and
+// hi + lo as it is read, two FMAs per real product (common.cuh cmac3).
 
 #pragma once
 
@@ -29,7 +38,7 @@ namespace dqc {
 
 constexpr int kWideThreads = 256;
 
-template <int X>
+template <int X, bool TX3 = false>
 struct WideCfg {
   static constexpr int C = 32;                       // columns per block
   static constexpr int kRows = 8;                    // rows per thread
@@ -39,7 +48,9 @@ struct WideCfg {
   static constexpr int RP = RG * kRows;              // rows per pass
   static constexpr int KC = 16;                      // E tile depth
   static constexpr int LDE = KC + 1;                 // padded E tile row
-  static constexpr int kSmemBytes = (2 * X * C + 2 * RP * LDE) * (int)sizeof(float);
+  static constexpr int kOpBufs = TX3 ? 4 : 2;        // E tile: re, im (hi, lo)
+  static constexpr int kSmemBytes =
+      (2 * X * C + kOpBufs * RP * LDE) * (int)sizeof(float);
   static_assert(X % RP == 0, "whole passes");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
@@ -52,22 +63,39 @@ __device__ __forceinline__ void wide_cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// y <- [acc +] conj?(op(E) x), op(E) = E or E^T (trans); y may be x (ykind
-// 0); y stored as ykind (common.cuh codec), x as f32.
-template <int X, int YKIND>
+// One operator entry into the shared E tile: as it is, or (TX3) as its hi
+// and lo bf16 parts.
+template <bool TX3>
+__device__ __forceinline__ void stage_op(float wr, float wi, int at, float* tr,
+                                         float* ti, float* tlr, float* tli) {
+  if constexpr (TX3) {
+    split_hl(wr, tr[at], tlr[at]);
+    split_hl(wi, ti[at], tli[at]);
+  } else {
+    tr[at] = wr;
+    ti[at] = wi;
+  }
+}
+
+// y <- [acc +] conj?(op(E) x), op(E) = E or E^T (trans); y may be x (of one
+// storage); x stored as XKIND, y as YKIND (common.cuh codec); TX3: the
+// product in bf16x3.
+template <int X, int XKIND, int YKIND, bool TX3>
 __global__ void __launch_bounds__(kWideThreads)
-wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+wide_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
                   const float* __restrict__ er,
                   const float* __restrict__ ei, int trans, int conj,
                   int has_acc, int64_t Q) {
-  using Cfg = WideCfg<X>;
+  using Cfg = WideCfg<X, TX3>;
   constexpr int C = Cfg::C, KC = Cfg::KC, LDE = Cfg::LDE, TC = Cfg::TC;
   constexpr int RP = Cfg::RP;
   extern __shared__ float smem[];
   float* vr = smem;            // input tile [x][c]
   float* vi = vr + X * C;
-  float* tr = vi + X * C;      // operator tile [row][kk]
+  float* tr = vi + X * C;      // operator tile [row][kk] (TX3: its hi part)
   float* ti = tr + RP * LDE;
+  float* tlr = ti + RP * LDE;  // TX3: the operator tile's lo part
+  float* tli = tlr + RP * LDE;
 
   const int tid = threadIdx.x;
   const int rg = tid / TC;     // rows rg * 8 + r of the pass
@@ -75,18 +103,19 @@ wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
   const int64_t g0 = (int64_t)blockIdx.x * C;
   const int64_t i = g0 / Q;
   const int64_t q0 = g0 - i * Q;
-  const float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x Q + c]
-  const float* bxi = xi + i * X * Q + q0;
-  constexpr int ykind = YKIND;  // y's storage, a template parameter
-  constexpr int ysize = ykind == kStoreF32 ? 4 : 2;  // bytes per y element
-  char* byr = yr + (i * X * Q + q0) * ysize;
-  char* byi = yi + (i * X * Q + q0) * ysize;
+  constexpr int xsize = XKIND == kStoreF32 ? 4 : 2;  // bytes per x element
+  constexpr int ysize = YKIND == kStoreF32 ? 4 : 2;  // bytes per y element
+  // element (x, c) at bx[x Q + c]
+  const char* bxr = static_cast<const char*>(xr) + (i * X * Q + q0) * xsize;
+  const char* bxi = static_cast<const char*>(xi) + (i * X * Q + q0) * xsize;
+  char* byr = static_cast<char*>(yr) + (i * X * Q + q0) * ysize;
+  char* byi = static_cast<char*>(yi) + (i * X * Q + q0) * ysize;
 
   // 1. the whole X-deep tile of this block's columns
   for (int e = tid; e < X * C; e += kWideThreads) {
     const int x = e / C, c = e % C;
-    vr[e] = bxr[(int64_t)x * Q + c];
-    vi[e] = bxi[(int64_t)x * Q + c];
+    vr[e] = load_plane(bxr, (int64_t)x * Q + c, XKIND);
+    vi[e] = load_plane(bxi, (int64_t)x * Q + c, XKIND);
   }
 
   for (int r0 = 0; r0 < X; r0 += RP) {
@@ -99,20 +128,22 @@ wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
     // 2. rows r0 .. r0 + RP of op(E) x
     for (int k0 = 0; k0 < X; k0 += KC) {
       __syncthreads();  // the tile is loaded / the previous E tile consumed
+      // (two loops of a fixed trip count, so that each unrolls and its
+      // loads are all in flight at once: at X = 512 one block fills an SM)
       if (trans) {
         // op(E)[row, k] = E[k, row]: neighbouring threads, neighbouring rows
         for (int e = tid; e < RP * KC; e += kWideThreads) {
           const int kk = e / RP, row = e % RP;
           const int64_t o = (int64_t)(k0 + kk) * X + r0 + row;
-          tr[row * LDE + kk] = __ldg(er + o);
-          ti[row * LDE + kk] = __ldg(ei + o);
+          stage_op<TX3>(__ldg(er + o), __ldg(ei + o), row * LDE + kk, tr, ti,
+                        tlr, tli);
         }
       } else {
         for (int e = tid; e < RP * KC; e += kWideThreads) {
           const int row = e / KC, kk = e % KC;
           const int64_t o = (int64_t)(r0 + row) * X + k0 + kk;
-          tr[row * LDE + kk] = __ldg(er + o);
-          ti[row * LDE + kk] = __ldg(ei + o);
+          stage_op<TX3>(__ldg(er + o), __ldg(ei + o), row * LDE + kk, tr, ti,
+                        tlr, tli);
         }
       }
       __syncthreads();
@@ -124,13 +155,32 @@ wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
           br[j] = vr[(k0 + kk) * C + tc + TC * j];
           bi[j] = vi[(k0 + kk) * C + tc + TC * j];
         }
+        if constexpr (TX3) {
+          float brh[Cfg::kCols], brs[Cfg::kCols], bih[Cfg::kCols],
+              bis[Cfg::kCols];
 #pragma unroll
-        for (int r = 0; r < Cfg::kRows; ++r) {
-          const float ar = tr[(rg * Cfg::kRows + r) * LDE + kk];
-          const float ai = ti[(rg * Cfg::kRows + r) * LDE + kk];
+          for (int j = 0; j < Cfg::kCols; ++j) {
+            split_hs(br[j], brh[j], brs[j]);
+            split_hs(bi[j], bih[j], bis[j]);
+          }
 #pragma unroll
-          for (int j = 0; j < Cfg::kCols; ++j)
-            wide_cmac(accr[r][j], acci[r][j], ar, ai, br[j], bi[j]);
+          for (int r = 0; r < Cfg::kRows; ++r) {
+            const int o = (rg * Cfg::kRows + r) * LDE + kk;
+            const float arh = tr[o], aih = ti[o], arl = tlr[o], ail = tli[o];
+#pragma unroll
+            for (int j = 0; j < Cfg::kCols; ++j)
+              cmac3(accr[r][j], acci[r][j], arh, arl, aih, ail, brh[j],
+                    brs[j], bih[j], bis[j]);
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < Cfg::kRows; ++r) {
+            const float ar = tr[(rg * Cfg::kRows + r) * LDE + kk];
+            const float ai = ti[(rg * Cfg::kRows + r) * LDE + kk];
+#pragma unroll
+            for (int j = 0; j < Cfg::kCols; ++j)
+              wide_cmac(accr[r][j], acci[r][j], ar, ai, br[j], bi[j]);
+          }
         }
       }
     }
@@ -143,36 +193,67 @@ wide_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
         float wr = accr[r][j], wi = acci[r][j];
         if (conj) wi = -wi;
         if (has_acc) {
-          wr += load_plane(byr, o, ykind);
-          wi += load_plane(byi, o, ykind);
+          wr += load_plane(byr, o, YKIND);
+          wi += load_plane(byi, o, YKIND);
         }
-        store_plane(byr, o, wr, ykind);
-        store_plane(byi, o, wi, ykind);
+        store_plane(byr, o, wr, YKIND);
+        store_plane(byi, o, wi, YKIND);
       }
   }
 }
 
-// Launches wide_apply_kernel<X> over A1 Q / 32 blocks; returns a CUDA error
+template <int X, int XKIND, int YKIND, bool TX3>
+inline int launch_wide_kind(const void* xr, const void* xi, void* yr, void* yi,
+                            const float* er, const float* ei, int trans,
+                            int conj, int has_acc, long long A1, long long Q,
+                            cudaStream_t stream) {
+  using Cfg = WideCfg<X, TX3>;
+  if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = A1 * (Q / Cfg::C);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = wide_apply_kernel<X, XKIND, YKIND, TX3>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kWideThreads, Cfg::kSmemBytes, stream>>>(
+      xr, xi, yr, yi, er, ei, trans, conj, has_acc, (int64_t)Q);
+  return (int)cudaGetLastError();
+}
+
+// Launches wide_apply_kernel<X> over A1 Q / 32 blocks with x stored as f32
+// and y as ykind (the high apply's sweep and seeds); returns a CUDA error
 // code (cudaErrorInvalidValue for a Q that does not tile).
 template <int X>
 inline int launch_wide_apply(const float* xr, const float* xi, void* yr,
                              void* yi, int ykind, const float* er,
                              const float* ei, int trans, int conj, int has_acc,
                              long long A1, long long Q, cudaStream_t stream) {
-  using Cfg = WideCfg<X>;
-  if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = A1 * (Q / Cfg::C);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = ykind == kStoreF32    ? wide_apply_kernel<X, kStoreF32>
-                : ykind == kStoreBF16 ? wide_apply_kernel<X, kStoreBF16>
-                                      : wide_apply_kernel<X, kStoreF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kWideThreads, Cfg::kSmemBytes, stream>>>(
-      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), er, ei, trans,
-      conj, has_acc, (int64_t)Q);
-  return (int)cudaGetLastError();
+  constexpr int F = kStoreF32;
+  auto fn = ykind == kStoreF32    ? launch_wide_kind<X, F, kStoreF32, false>
+            : ykind == kStoreBF16 ? launch_wide_kind<X, F, kStoreBF16, false>
+                                  : launch_wide_kind<X, F, kStoreF16, false>;
+  return fn(xr, xi, yr, yi, er, ei, trans, conj, has_acc, A1, Q, stream);
+}
+
+// The in-place apply on planes stored as kind (0 f32, 1 bf16, 2 f16), the
+// product bf16x3 with x3: the X = 256 / 512 adjoint's transport on B.
+template <int X>
+inline int launch_wide_inplace(void* xr, void* xi, int kind, int x3,
+                               const float* er, const float* ei, int trans,
+                               long long A1, long long Q,
+                               cudaStream_t stream) {
+#define DQC_WIDE_KIND(K, T)                                              \
+  if (kind == K && (x3 != 0) == T)                                       \
+    return launch_wide_kind<X, K, K, T>(xr, xi, xr, xi, er, ei, trans, 0, \
+                                        0, A1, Q, stream);
+  DQC_WIDE_KIND(kStoreF32, false)
+  DQC_WIDE_KIND(kStoreF32, true)
+  DQC_WIDE_KIND(kStoreBF16, false)
+  DQC_WIDE_KIND(kStoreBF16, true)
+  DQC_WIDE_KIND(kStoreF16, false)
+  DQC_WIDE_KIND(kStoreF16, true)
+#undef DQC_WIDE_KIND
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace dqc

@@ -10,10 +10,9 @@ applies' ``seed``: ``conj``, ``acc`` or ``alias=False``; the merged top
 axis, X = 256 / 512: ``high_apply``'s ``wide_inplace`` and
 ``block_backward_high``'s ``wide``; the storage and dot-mode variants:
 "bf16" and "f16" for cotangent planes stored reduced (the seeds of
-``dual_apply`` / ``high_apply``, the adjoints ``block_backward_dual`` /
-``_high`` / ``_merged_fact`` and ``diag_backward``), "bf16x3" for a bf16x3
-transport and "gram_bf16x3" for bf16x3 pair grams (the lane and sublane
-adjoints take the latter only). ``KERNELS`` is
+``dual_apply`` / ``high_apply``, the multi-term applies in place and as
+seeds, every adjoint and ``diag_backward``), "bf16x3" for a bf16x3
+transport and "gram_bf16x3" for bf16x3 pair grams. ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 ``_storage`` holds the kernels' storage codec and bf16x3 products as the

@@ -20,8 +20,8 @@ ah bl + al bh`` accumulated in f32. ``ah (bh + bl) + al bh`` is the same
 sum: every product of those parts is exact in f32 (``bh + bl`` has at most
 16 significant bits), so only the f32 accumulation rounds.
 
-Beside them: the cotangent planes' load, round and store in the adjoints'
-plain versions, the wrappers' mode checks, ``mode_launches`` counters and
+Beside them: the cotangent planes' load, round and store in the plain
+versions, the wrappers' mode checks, ``mode_launches`` counters and
 refusals (a kernel without a storage or dot mode raises, never falls back
 to f32), and the yardsticks the kernels are held to under reduced storage
 (``ulps_apart``, ``gram_tolerance``).
@@ -199,24 +199,26 @@ def count_modes(wrapper, bdtype, bwd_mode: str, gram_mode: str) -> None:
         wrapper.mode_launches["gram_bf16x3"] += 1
 
 
+def check_apply_storage(what: str, xdtype, ydtype) -> None:
+    """The storages an apply reads and writes in one pass: f32 into any
+    storage (a seed from the forward planes), or one storage in and out (in
+    place on the cotangent planes)."""
+    storage_kind(xdtype)
+    storage_kind(ydtype)
+    if xdtype not in (torch.float32, ydtype):
+        raise TypeError(f"{what}: planes stored as {xdtype} into {ydtype}: an "
+                        "apply reads f32 into any storage, or one storage in "
+                        "and out")
+
+
 def refuse_reduced(kernel: str, *planes) -> None:
     """Raise for a plane stored reduced, handed to a kernel that takes f32
-    planes only (the forward kernels, the multi-term applies, the lane,
-    sublane and wide adjoints)."""
+    planes only (the forward kernels and the Grams)."""
     for p in planes:
         if p is not None and p.dtype != torch.float32:
             raise NotImplementedError(
                 f"{kernel}: {p.dtype} planes (reduced storage) are not ported "
                 "to this kernel yet; see ROADMAP.md")
-
-
-def refuse_bf16x3(kernel: str, what: str, mode: str) -> None:
-    """Raise for a bf16x3 dot mode handed to a kernel without it."""
-    check_dot_mode(kernel, mode)
-    if mode != "f32":
-        raise NotImplementedError(
-            f"{kernel}: the {what} dot mode {mode!r} is not ported to this "
-            "kernel yet; see ROADMAP.md")
 
 
 def seed_out(yr, yi, conj: bool, acc, out_dtype=None):

@@ -29,8 +29,8 @@ At X <= 128 the cotangent planes ``B`` may be stored as float32, bfloat16
 or float16 (``F`` float32) and the transport and the pair gram run in
 ``bwd_mode`` / ``gram_mode`` ("f32" or "bf16x3"), as the TPU kernel's
 ``bwd_dot_mode`` and ``gram_dot_mode``, counted in ``mode_launches`` as in
-``block_backward_dual``. At X = 256 / 512 the pair gram takes either mode;
-reduced planes and a bf16x3 transport raise there (ROADMAP.md).
+``block_backward_dual``; at X = 256 / 512 too, where the cross-Gram reads
+B in its storage and the transport is the wide apply in place on it.
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -105,9 +105,9 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     256 / 512 without a run; operators are f32 real/imag pairs (X, X); the
     tables as in ``high_apply`` (run's inverse, then run), or both None. A
     run needs M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions
-    to the outputs. ``B`` is stored as float32, bfloat16 or float16 (X <=
-    128); ``bwd_mode`` / ``gram_mode`` are the transport's and the pair
-    gram's dot modes."""
+    to the outputs. ``B`` is stored as float32, bfloat16 or float16;
+    ``bwd_mode`` / ``gram_mode`` are the transport's and the pair gram's dot
+    modes."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -125,10 +125,6 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                          f"only, got X={X}")
     ops = (einv_r, einv_i, e_r, e_i)
     check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode)
-    if X in WIDE_X:
-        _st.refuse_reduced("block_backward_high at X = 256 / 512", br, bi)
-        _st.refuse_bf16x3("block_backward_high at X = 256 / 512", "transport",
-                          bwd_mode)
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
@@ -143,7 +139,7 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     if any(tuple(o.shape) != (X, X) for o in ops):
         raise ValueError(f"block_backward_high: operators must be ({X}, {X})")
     if X in WIDE_X:
-        return _block_backward_wide(planes, ops, A1, X, M, gram_mode)
+        return _block_backward_wide(planes, ops, A1, X, M, bwd_mode, gram_mode)
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
@@ -180,15 +176,18 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
-_WIDE_ARGTYPES = ([_launch.VOIDP] * 11 + [_launch.LONG, _launch.INT, _launch.LONG]
-                  + [_launch.INT] * 2 + [_launch.VOIDP])
+_WIDE_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 7
+                  + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 3
+                  + [_launch.VOIDP])
 _BLOCKS_PER_SM = 4
 
 
-def _block_backward_wide(planes, ops, A1: int, X: int, M: int, gram_mode: str):
+def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
+                         gram_mode: str):
     """X = 256 / 512: each block of the cross-Gram forms one of the
     (X / 128)^2 patches of ``B F^T`` over its group of 32-column tiles."""
     dev = planes[0].device
+    bdt = planes[2].dtype
     patches = (X // 128) ** 2
     nblk = min(A1 * M * 128 // 32, 65535,
                max(1, _BLOCKS_PER_SM * _launch.sm_count(dev) // patches))
@@ -197,13 +196,14 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int, gram_mode: str):
     out = torch.empty((2, X, X), dtype=torch.float32, device=dev)
     lib = "block_backward_high"
     fn = _launch.entry(lib, "dqc_block_backward_high_wide", _WIDE_ARGTYPES)
-    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
-              part.data_ptr(), gram.data_ptr(), out.data_ptr(), A1, X, M * 128,
-              nblk, int(gram_mode == "bf16x3"), _launch.stream(dev))
+    code = fn(*(p.data_ptr() for p in planes), _st.storage_kind(bdt),
+              *(o.data_ptr() for o in ops), part.data_ptr(), gram.data_ptr(),
+              out.data_ptr(), A1, X, M * 128, nblk, int(bwd_mode == "bf16x3"),
+              int(gram_mode == "bf16x3"), _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
     block_backward_high.mode_launches["wide"] += 1
-    count_modes(block_backward_high, torch.float32, "f32", gram_mode)
+    count_modes(block_backward_high, bdt, bwd_mode, gram_mode)
     return (*planes, out[0], out[1])
 
 

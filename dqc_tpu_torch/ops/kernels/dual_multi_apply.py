@@ -1,4 +1,4 @@
-"""Multi-term dual-group apply on f32 planes: ``y = sum_t Em_t . X . El_t^T``.
+"""Multi-term dual-group apply on the planes: ``y = sum_t Em_t . X . El_t^T``.
 
 Replaces the TPU kernel ``dual_multi_apply_planes``
 (``dqc_tpu/ops/pallas/dual_apply.py:165``): a dense gate across the lane
@@ -18,6 +18,14 @@ or ``acc`` is given: on a CUDA tensor the kernel writes the result into
 them, into the accumulator planes with ``acc``, or into fresh planes with
 ``alias=False``; on a CPU tensor it returns the plain version's fresh
 planes. Callers use the returned planes.
+
+Under reduced cotangent storage (``config.set_state_storage``) the planes
+may be stored as bfloat16 or float16 in the kernels' codec
+(ops/kernels/_storage.py), as the TPU kernel's ``f32_of`` / ``store_as``:
+in place on reduced planes (the transport of a cross-group gate on the
+cotangent), or a seed from f32 planes into reduced ones (``acc``'s dtype or
+``out_dtype``). The products stay f32. Those launches are also counted in
+``mode_launches`` under the storage's name ("bf16", "f16").
 """
 
 from __future__ import annotations
@@ -33,21 +41,23 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 
 
 def dual_multi_apply_plain(xr, xi, el_r, el_i, em_r, em_i, *,
-                           conj: bool = False, acc=None,
-                           alias: bool = True) -> Planes:
+                           conj: bool = False, acc=None, alias: bool = True,
+                           out_dtype=None) -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
-    time); fresh outputs, whatever ``alias`` says."""
-    x = torch.complex(xr, xi)
+    time, the planes decoded and encoded as the kernel does); fresh outputs
+    in the kernel's storage, whatever ``alias`` says."""
+    x = _st.load_b(xr, xi)
     el = torch.complex(el_r, el_i)
     em = torch.complex(em_r, em_i)
     y = None
     for t in range(el.shape[0]):
         yt = torch.matmul(em[t], torch.matmul(x, el[t].transpose(0, 1)))
         y = yt if y is None else y + yt
-    return _st.seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.INT] * 3 + [_launch.LONG, _launch.VOIDP]
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
+             + [_launch.INT] * 3 + [_launch.LONG, _launch.VOIDP])
 
 
 def check_terms(what: str, ops, T: int, shape) -> None:
@@ -56,10 +66,21 @@ def check_terms(what: str, ops, T: int, shape) -> None:
                          f"{[tuple(o.shape) for o in ops]}")
 
 
+def out_storage(xr, acc, alias: bool, out_dtype):
+    """The storage an apply writes: the accumulator's, the input's (in
+    place) or ``out_dtype`` (fresh planes; the input's when None)."""
+    if acc is not None:
+        return acc[0].dtype
+    if alias:
+        return xr.dtype
+    return out_dtype or xr.dtype
+
+
 def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
-                     acc=None, alias: bool = True) -> Planes:
+                     acc=None, alias: bool = True, out_dtype=None) -> Planes:
     """``[acc +] conj?(sum_t Em_t X El_t^T)`` on planes ``(A, 128, 128)``;
-    the factors are f32 real/imag planes stacked ``(T, 128, 128)``."""
+    the factors are f32 real/imag planes stacked ``(T, 128, 128)``.
+    ``out_dtype``: the storage of fresh output planes (``alias=False``)."""
     if xr.dim() != 3 or tuple(xr.shape[1:]) != (128, 128) or xi.shape != xr.shape:
         raise ValueError(f"dual_multi_apply: planes must be (A, 128, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -68,16 +89,21 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     if T < 1:
         raise ValueError("dual_multi_apply: factors must be stacked (T, 128, 128)")
     check_terms("dual_multi_apply", ops, T, (128, 128))
-    _st.refuse_reduced("dual_multi_apply", xr, xi, *(acc or ()))
+    _st.check_apply_storage("dual_multi_apply", xr.dtype,
+                            out_storage(xr, acc, alias, out_dtype))
     if xr.device.type == "cpu":
-        return dual_multi_apply_plain(xr, xi, *ops, conj=conj, acc=acc)
-    _launch.check_cuda_f32("dual_multi_apply", (xr, xi), xr.device, align=16)
-    out = _launch.output_planes("dual_multi_apply", xr, xi, acc, alias)
+        return dual_multi_apply_plain(xr, xi, *ops, conj=conj, acc=acc,
+                                      out_dtype=None if alias else out_dtype)
+    _launch.check_cuda_f32("dual_multi_apply", (xr, xi), xr.device, align=16,
+                           dtypes=_st.STORAGE_DTYPES)
+    out = _launch.output_planes("dual_multi_apply", xr, xi, acc, alias,
+                                out_dtype, _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("dual_multi_apply", ops, xr.device)
     # the kernel reads the factors transposed, so that its tile loads coalesce
     elt_r, elt_i, emt_r, emt_i = (o.transpose(1, 2).contiguous() for o in ops)
     fn = _launch.entry("dual_multi_apply", "dqc_dual_multi_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+              _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
               elt_r.data_ptr(), elt_i.data_ptr(), emt_r.data_ptr(),
               emt_i.data_ptr(), T, int(conj), int(acc is not None), xr.shape[0],
               _launch.stream(xr.device))
@@ -85,8 +111,9 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     dual_multi_apply.launches += 1
     if conj or acc is not None or not alias:
         dual_multi_apply.mode_launches["seed"] += 1
+    _st.count_storage(dual_multi_apply, out[0].dtype)
     return out
 
 
 dual_multi_apply.launches = 0
-dual_multi_apply.mode_launches = {"seed": 0}
+dual_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0}

@@ -1,4 +1,4 @@
-"""Multi-term high + lane apply on f32 planes over the view ``(A1, X, M, 128)``.
+"""Multi-term high + lane apply on the planes over the view ``(A1, X, M, 128)``.
 
 Replaces the TPU kernel ``high_multi_apply_planes``
 (``dqc_tpu/ops/pallas/high_apply.py:273``) in its in-place form:
@@ -14,7 +14,8 @@ operations: (128 + X) T complex multiply-adds per amplitude against 16
 bytes); :func:`high_multi_apply_plain` is its plain PyTorch version.
 
 :func:`high_multi_apply` consumes its input planes (unless ``alias=False``
-or ``acc``) like ``dual_multi_apply``.
+or ``acc``) like ``dual_multi_apply``, and takes the cotangent storages of
+``dual_multi_apply`` (counted in ``mode_launches`` as there).
 """
 
 from __future__ import annotations
@@ -25,19 +26,20 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
-from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_terms
+from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_terms, out_storage
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
 
 def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
-                           conj: bool = False, acc=None,
-                           alias: bool = True) -> Planes:
+                           conj: bool = False, acc=None, alias: bool = True,
+                           out_dtype=None) -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
-    time); fresh outputs, whatever ``alias`` says."""
+    time, the planes decoded and encoded as the kernel does); fresh outputs
+    in the kernel's storage, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
-    x = torch.complex(xr, xi)
+    x = _st.load_b(xr, xi)
     e = torch.complex(e_r, e_i)
     el = torch.complex(el_r, el_i)
     y = None
@@ -48,18 +50,20 @@ def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
     y = y.reshape(xr.shape)
     if acc is not None:
         acc = (acc[0].view(xr.shape), acc[1].view(xr.shape))
-    return _st.seed_out(y.real, y.imag, conj, acc)
+    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.INT] * 3 + [_launch.LONG, _launch.INT,
-                                                       _launch.LONG, _launch.VOIDP]
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
+             + [_launch.INT] * 3 + [_launch.LONG, _launch.INT, _launch.LONG,
+                                    _launch.VOIDP])
 
 
 def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
-                     acc=None, alias: bool = True) -> Planes:
+                     acc=None, alias: bool = True, out_dtype=None) -> Planes:
     """``[acc +] conj?(sum_t E_t x El_t^T)`` on the view ``(A1, X, M, 128)``,
     X in 8..128; ``e_*`` stacked ``(T, X, X)``, ``el_*`` stacked
-    ``(T, 128, 128)``, f32 real/imag planes."""
+    ``(T, 128, 128)``, f32 real/imag planes. ``out_dtype``: the storage of
+    fresh output planes (``alias=False``)."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_multi_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -69,21 +73,26 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
         raise ValueError("high_multi_apply: factors must be stacked (T, ...)")
     check_terms("high_multi_apply", (e_r, e_i), T, (X, X))
     check_terms("high_multi_apply", (el_r, el_i), T, (128, 128))
-    _st.refuse_reduced("high_multi_apply", xr, xi, *(acc or ()))
+    _st.check_apply_storage("high_multi_apply", xr.dtype,
+                            out_storage(xr, acc, alias, out_dtype))
     if xr.device.type == "cpu":
         return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, conj=conj,
-                                      acc=acc)
+                                      acc=acc,
+                                      out_dtype=None if alias else out_dtype)
     if X not in KERNEL_X or M % (128 // X):
         raise ValueError(f"high_multi_apply: X={X} must be one of {KERNEL_X} "
                          f"and M={M} a multiple of {128 // max(X, 1)}")
     ops = (e_r, e_i, el_r, el_i)
-    _launch.check_cuda_f32("high_multi_apply", (xr, xi), xr.device, align=16)
-    out = _launch.output_planes("high_multi_apply", xr, xi, acc, alias)
+    _launch.check_cuda_f32("high_multi_apply", (xr, xi), xr.device, align=16,
+                           dtypes=_st.STORAGE_DTYPES)
+    out = _launch.output_planes("high_multi_apply", xr, xi, acc, alias,
+                                out_dtype, _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("high_multi_apply", ops, xr.device)
     # the kernel reads the factors transposed, so that its tile loads coalesce
     et_r, et_i, elt_r, elt_i = (o.transpose(1, 2).contiguous() for o in ops)
     fn = _launch.entry("high_multi_apply", "dqc_high_multi_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+              _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
               elt_r.data_ptr(), elt_i.data_ptr(), et_r.data_ptr(), et_i.data_ptr(),
               T, int(conj), int(acc is not None), A1, X, M,
               _launch.stream(xr.device))
@@ -91,8 +100,9 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     high_multi_apply.launches += 1
     if conj or acc is not None or not alias:
         high_multi_apply.mode_launches["seed"] += 1
+    _st.count_storage(high_multi_apply, out[0].dtype)
     return out
 
 
 high_multi_apply.launches = 0
-high_multi_apply.mode_launches = {"seed": 0}
+high_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0}

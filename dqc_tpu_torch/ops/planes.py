@@ -58,8 +58,9 @@ kernels decode and encode them with the JAX package's in-kernel codec
 (``plane_f32``, ``plane_store``, ``to_planes``, ``from_planes``, the small-X
 pieces and the plain diagonal ops), are IEEE casts, as the JAX package's
 XLA-level ``enc16`` / ``dec16`` are. The seeds create the cotangent planes
-in their storage (``out_dtype``), and the backward steps take the dot modes
-of config.bwd_kernel_dot_mode / gram_kernel_dot_mode.
+in their storage (``out_dtype``, the cross-group seeds' too), the
+cross-group applies run in place on them, and the backward steps take the
+dot modes of config.bwd_kernel_dot_mode / gram_kernel_dot_mode.
 """
 
 from __future__ import annotations
@@ -287,17 +288,10 @@ def gram_merged_top(xr, xi, n: int, *, kernels: KernelSet = KERNELS):
 # Dense applies
 # ---------------------------------------------------------------------------
 
-def _check_out_dtype(out_dtype, what: str = None) -> None:
-    """The storage of a seed's fresh planes: any cotangent storage for the
-    dual and high applies (``what`` None), float32 for ``what``, a path
-    whose kernels take f32 planes only."""
-    if out_dtype is None:
-        return
-    _storage.storage_kind(out_dtype)
-    if what is not None and out_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what}: {out_dtype} planes (reduced storage) are not ported to "
-            "this path yet; see ROADMAP.md")
+def _check_out_dtype(out_dtype) -> None:
+    """The storage of a seed's fresh planes: a cotangent storage."""
+    if out_dtype is not None:
+        _storage.storage_kind(out_dtype)
 
 
 def _bwd_modes() -> Dict[str, str]:
@@ -469,13 +463,14 @@ def apply_cross_terms(xr, xi, terms, n: int, *, alias: bool = True,
     back to the per-term sweeps). ``operands``: the result of
     :func:`cross_terms_operands`, staged on the device once per call for a
     constant gate (``terms`` is then not read). ``conj``/``acc``/``alias``:
-    the seed modes of apply_block (the seed of a cross-group density)."""
-    _check_out_dtype(out_dtype, "apply_cross_terms")
+    the seed modes of apply_block (the seed of a cross-group density), into
+    fresh planes of ``out_dtype``."""
+    _check_out_dtype(out_dtype)
     if operands is None:
         operands = cross_terms_operands(terms, n, xr.device)
     if operands is None:
         return None
-    kw = dict(conj=conj, acc=acc, alias=alias)
+    kw = dict(conj=conj, acc=acc, alias=alias, out_dtype=out_dtype)
     if operands[0] == "dual":
         return kernels.dual_multi_apply(xr, xi, *operands[1:], **kw)
     pre, X, M = _high_view(n, operands[1])
@@ -602,17 +597,18 @@ def apply_cross_span(xr, xi, gate_m, positions, n: int, *, alias: bool = True,
     high), (high, high) and (lane, high-span) shapes: the high apply kernel
     with the gate expanded over the span axis, or the multi-term high +
     lane kernel with lane bits. Semantics of apply_block
-    (conj/acc/alias). Returns None when the bit pattern has no span view.
+    (conj/acc/alias/out_dtype). Returns None when the bit pattern has no
+    span view.
     ``operands``: the result of :func:`cross_span_operands`, staged once per
     call for a constant gate."""
-    _check_out_dtype(out_dtype, "apply_cross_span")
+    _check_out_dtype(out_dtype)
     if operands is None:
         operands = cross_span_operands(gate_m, positions, n, xr.device)
     if operands is None:
         return None
     vshape = operands[1]
     a2 = None if acc is None else (acc[0].view(vshape), acc[1].view(vshape))
-    kw = dict(conj=conj, acc=a2, alias=alias)
+    kw = dict(conj=conj, acc=a2, alias=alias, out_dtype=out_dtype)
     if operands[0] == "high":
         yr, yi = kernels.high_apply(xr.view(vshape), xi.view(vshape),
                                     *operands[2:], **kw)

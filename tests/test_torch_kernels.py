@@ -221,10 +221,10 @@ def test_kernel_wrappers_refuse_other_devices():
         "block_backward_high[diag_q]", "diag_backward[with_q]",
         "dual_multi_apply[seed]", "high_multi_apply[seed]",
         "high_apply[wide_inplace]", "block_backward_high[wide]",
-        *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "diag_backward")
+        *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "diag_backward",
+                                "dual_multi_apply", "high_multi_apply")
           for m in ("bf16", "f16")),
         *(f"{k}[{m}]" for k in ("block_backward_dual", "block_backward_high",
-                                "block_backward_merged_fact")
-          for m in ("bf16", "f16", "bf16x3", "gram_bf16x3")),
-        "block_backward_lane[gram_bf16x3]",
-        "block_backward_sublane[gram_bf16x3]")}
+                                "block_backward_merged_fact",
+                                "block_backward_lane", "block_backward_sublane")
+          for m in ("bf16", "f16", "bf16x3", "gram_bf16x3")))}

@@ -19,7 +19,11 @@ tests/test_state_storage.py for the paths the port runs them on.
   against the port's own f32 storage with the six kernels' storage
   variants counted;
 * the default bf16x3 pair grams against the JAX package's defaults;
-* reduced planes and bf16x3 modes handed to any other kernel raise.
+* bf16 planes handed to the forward kernels and the Grams raise; the
+  kernels of the other plane paths run reduced planes and a bf16x3
+  transport, and the CNOT ring runs under both storages
+  (tests/test_torch_storage_models.py holds those paths to the JAX
+  package).
 
 The JAX side runs its plane engine with the Pallas kernels in interpret
 mode; inputs are made with numpy from a seed and handed to both packages.
@@ -351,7 +355,8 @@ def test_merged_top_reduced_n22():
 
 
 # ---------------------------------------------------------------------------
-# Everything else refuses reduced planes and bf16x3 (ROADMAP.md)
+# What stays unported refuses reduced planes (ROADMAP.md); the kernels of
+# the other plane paths run them
 # ---------------------------------------------------------------------------
 
 def _bf16_planes(shape):
@@ -359,38 +364,80 @@ def _bf16_planes(shape):
     return x, x.clone()
 
 
+def _rand_planes(shape, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                 for _ in range(2))
+
+
+def _rand_ops(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape).astype(np.float32))
+                 for _ in range(2))
+
+
 def test_other_kernels_refuse_reduced_planes():
-    f = torch.zeros((1, 128, 128))
-    b = _bf16_planes((1, 128, 128))
+    """bf16 forward planes into the forward kernels and the Grams still
+    raise (ROADMAP.md: "bf16" storage). The multi-term applies, the lane,
+    sublane and X = 256 adjoints and apply_cross_span, which refused reduced
+    planes and a bf16x3 transport before, now run them: each returns planes
+    in the cotangent's storage, its plain version's values, and within two
+    storage ulps of the same call on the decoded f32 planes (one encode)."""
     e = torch.zeros((128, 128))
-    e3 = torch.zeros((1, 128, 128))
-    for step in (tk.block_backward_lane, tk.block_backward_sublane):
-        with pytest.raises(NotImplementedError, match=step.__name__ + ".*ROADMAP"):
-            step(f, f, *b, e, e, e, e)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(f, f, f, f, e, e, e, e, bwd_mode="bf16x3")
-    with pytest.raises(NotImplementedError, match="dual_multi_apply.*ROADMAP"):
-        tk.dual_multi_apply(f, f, e3, e3, e3, e3, alias=False, acc=b)
-    v = torch.zeros((1, 8, 16, 128))
-    with pytest.raises(NotImplementedError, match="high_multi_apply.*ROADMAP"):
-        tk.high_multi_apply(v, v, torch.zeros((1, 8, 8)), torch.zeros((1, 8, 8)),
-                            e3, e3, acc=_bf16_planes(v.shape))
-    w = torch.zeros((1, 256, 8, 128))
-    ew = torch.zeros((256, 256))
-    with pytest.raises(NotImplementedError, match="X = 256 / 512.*ROADMAP"):
-        tk.block_backward_high(w, w, *_bf16_planes(w.shape), ew, ew, ew, ew)
-    with pytest.raises(NotImplementedError, match="X = 256 / 512.*ROADMAP"):
-        tk.block_backward_high(w, w, w, w, ew, ew, ew, ew, bwd_mode="bf16x3")
-    # the forward kernels take f32 planes only
+    b = _bf16_planes((1, 128, 128))
     with pytest.raises(NotImplementedError, match="dual_apply.*ROADMAP"):
         tk.dual_apply(*b, e, e, e, e)
     with pytest.raises(NotImplementedError, match="gram.*ROADMAP"):
         tk.gram(*b)
-    with pytest.raises(NotImplementedError, match="apply_cross_span.*ROADMAP"):
-        tpl.apply_cross_span(f.view(1, 8, 16, 128), f.view(1, 8, 16, 128), None,
-                             (14, 15), 15, out_dtype=torch.bfloat16, alias=False,
-                             operands=("high", (1, 8, 16, 128), torch.zeros(8, 8),
-                                       torch.zeros(8, 8)))
+
+    dt = torch.bfloat16
+    f = _rand_planes((1, 128, 128), 1)
+    bb = _rand_planes((1, 128, 128), 2, dt)
+    b32 = tuple(p.float() for p in bb)
+    ops = _rand_ops((4, 128, 128), 3) + _rand_ops((4, 128, 128), 4)
+    # in place on the cotangent, a seed into it, a fresh seed in its storage
+    for fn, plain, x, y, kw in (
+            (tk.dual_multi_apply, tk.PLAIN.dual_multi_apply, bb, b32, {}),
+            (tk.dual_multi_apply, tk.PLAIN.dual_multi_apply, f, f,
+             dict(conj=True, acc=bb, alias=False)),
+            (tk.dual_multi_apply, tk.PLAIN.dual_multi_apply, f, f,
+             dict(conj=True, alias=False, out_dtype=dt))):
+        got = fn(*x, *ops, **kw)
+        want32 = plain(*y, *ops, **{**kw, "acc": None if "acc" not in kw else b32,
+                                   "out_dtype": None})
+        assert got[0].dtype == dt
+        for g, p in zip(got, plain(*x, *ops, **kw)):
+            assert torch.equal(g, p)
+        assert tk._storage.ulps_apart(got, want32, dt) <= 2.0
+    v = (1, 8, 16, 128)
+    hops = _rand_ops((4, 8, 8), 5) + _rand_ops((4, 128, 128), 6)
+    bv = tuple(p.reshape(v) for p in _rand_planes(v, 7, dt))
+    got = tk.high_multi_apply(*bv, *hops)
+    want = tk.PLAIN.high_multi_apply(*(p.float() for p in bv), *hops)
+    assert got[0].dtype == dt and tk._storage.ulps_apart(got, want, dt) <= 2.0
+    got = tpl.apply_cross_span(
+        f[0].view(v), f[1].view(v), None, (14, 15), 15, out_dtype=dt,
+        alias=False, conj=True,
+        operands=("high", v, *_rand_ops((8, 8), 8)))
+    assert got[0].dtype == dt
+    # the unpaired adjoints and the X = 256 adjoint, bf16x3 transport
+    E = _rand_ops((128, 128), 9) + _rand_ops((128, 128), 10)
+    for step in (tk.block_backward_lane, tk.block_backward_sublane):
+        got = step(*f, *bb, *E, bwd_mode="bf16x3")
+        want = step(*f, *b32, *E, bwd_mode="bf16x3")
+        assert got[2].dtype == dt
+        assert tk._storage.ulps_apart(got[2:4], want[2:4], dt) <= 2.0
+        np.testing.assert_allclose(got[4].numpy(), want[4].numpy(), rtol=0,
+                                   atol=1e-5 * float(want[4].abs().max()))
+    w = (1, 256, 8, 128)
+    fw = _rand_planes(w, 11)
+    bw = _rand_planes(w, 12, dt)
+    Ew = _rand_ops((256, 256), 13) + _rand_ops((256, 256), 14)
+    got = tk.block_backward_high(*fw, *bw, *Ew, bwd_mode="bf16x3")
+    want = tk.block_backward_high(*fw, *(p.float() for p in bw), *Ew,
+                                  bwd_mode="bf16x3")
+    assert got[2].dtype == dt
+    assert tk._storage.ulps_apart(got[2:4], want[2:4], dt) <= 2.0
 
 
 @pytest.mark.parametrize("make, loss", [
@@ -398,13 +445,22 @@ def test_other_kernels_refuse_reduced_planes():
 ], ids=["cnot"])
 @pytest.mark.parametrize("storage", ["mixed", "f16"])
 def test_unported_paths_raise_not_run_f32(make, loss, storage):
-    """The CNOT ring under reduced storage reaches a kernel without it: it
-    raises instead of running in f32."""
+    """The CNOT ring under reduced storage, which raised before this path's
+    kernels took reduced planes, now runs: its value bit-identical to f32
+    storage and its gradient within the JAX package's bar for the dense
+    cross-group gates under reduced storage (1e-2 of the largest entry,
+    tests/test_state_storage.py::test_dense_cross_mixed)."""
     m = make()
     p = m.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
+    v0 = getattr(m, loss)(p)
+    v0.backward()
+    g0, p.grad = p.grad.clone(), None
     config.set_state_storage(storage)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(m, loss)(p).backward()
+    v = getattr(m, loss)(p)
+    v.backward()
+    assert v.item() == v0.item()
+    rel = float((p.grad - g0).abs().max() / g0.abs().max())
+    assert 0 < rel < 1e-2, rel
 
 
 def _measure_model(n, L, params, storage, bwd="auto"):
