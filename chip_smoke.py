@@ -84,7 +84,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 10. the expanded merged top and scan mode wherever the JAX package runs
    it: the kernel checks of the in-place high apply and of
    block_backward_high on the merged axis (X = 256 at the 29q shape, 512
-   at the 30q shape) in phase 3; [hpair29], HardwareEfficientAnsatz(29, 20,
+   at the 30q shape) in phase 3; [hpair29], HardwareEfficientAnsatz(29, 10,
    "cz") under set_hpair_factorized(False) (the merged sweep expanded to
    X = 256 both ways), forward and value_and_grad with the counters held
    to the port's dispatch on the meta device, against the factorized
@@ -99,10 +99,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path; [init28], scan_with_epilogue from a random 28q state, 4 cz
    layers, the kernels against the plain path (densities, gate and state
    gradients), counters held to the meta-device dry run;
-11. reduced cotangent storage (run beside phase 6): [f16_29], the 29-qubit x 100-layer
-   value_and_grad of phase 6 under "f16" (its value bit-identical to f32
-   storage's, the gradient's rms error, counts with the f16 and bf16x3
-   variants, the warm step and peak memory); [storage29], 29q x 4L under
+11. reduced cotangent storage (run beside phase 6): [f16_29], the 29-qubit
+   x 100-layer value_and_grad of phase 6 under "f16", once (its value
+   bit-identical to f32 storage's, the gradient's rms error, counts with the
+   f16 and bf16x3 variants, the step and peak memory); [storage29], 29q x 4L under
    "mixed" and "f16" against f32 storage, counts held to the meta-device
    dry run; [f16_30], 30q x 20L under "f16": warm steps, peak memory,
    params = 0 and the one-layer closed form;
@@ -120,7 +120,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    under "mixed" and "f16", each against f32 storage, whose runs launch
    none of the storage variants) and [hpair30_f16] (the CNOT ring at 30q x
    2L under "f16", both hpair settings, params = 0);
-13. a JSON line of the kernels and of the modes checked (their launches
+13. "bf16" forward storage and the forward bf16x3 on the cz path: in phase
+   3 the nine kernels of the path on bf16 forward planes and in bf16x3
+   (3i: the dual and X = 128 applies in place and as seeds, the X = 256 /
+   512 seeds, the Grams, the merged sweep and its adjoint, the dual and
+   X = 128 adjoints, the diagonal runs), each against its plain version,
+   and the merged-top adjoint again under "f16" / "mixed" with the f32
+   transport the port hands it since; then [bf16_29] (the [ref29] model
+   under "bf16": value and gradient against the reference within 2.5
+   times the JAX package's own error at 14-16q, counts held to the dry
+   run, warm step and peak memory), [x3_29] (the same under
+   set_kernel_dot_mode("bf16x3") with "f32" and with "bf16" storage, and
+   the 29q x 1L closed form under it) and [bf16_30] (30q x 4L under
+   "bf16" at params = 0: the X = 512 seed and Xt = 4 on bf16 planes);
+14. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -144,7 +157,7 @@ N_QUBITS = 28
 LAYERS = 100
 L28 = 20            # [slice] / [grad] (PRs 1-2's 28q comparison phases): depth
                     # cut from 100 for chip time beside the storage phases
-HPAIR_LAYERS = 20   # [hpair29]: depth cut from 100 for chip time only
+HPAIR_LAYERS = 10   # [hpair29]: depth cut from 100 for chip time only
 CHECK_LAYERS = 20
 SEED = 1234
 N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_grad
@@ -186,7 +199,22 @@ MODEL_GRAD_TOL = 1e-4   # relative to max(1, |g|) per parameter, kernel path
 STORE_ULPS = 2.0        # reduced cotangent planes, kernel vs plain: storage
                         # ulps at max(|amplitude|, the planes' rms)
                         # (_storage.ulps_apart)
-F16_29_RMS_TOL = 2e-3   # [f16_29]: rms |g - g32| / max |g32| at depth 100
+FWD16_ULPS = 1.0        # bf16 forward planes, kernel vs plain: storage ulps
+X3_GRAM_TOL = 4e-5      # reductions in bf16x3 on f32 planes, kernel vs plain
+F16_29_RMS_TOL = 2e-3   # [f16_29]: rms |g - g32| / max |g32| (29q x 100L)
+MODES29_L = 20          # [ref29], [bf16_29], [x3_29]: 29q depth cut from the
+                        # bench's 100 for chip time
+BF16_30_L = 4           # [bf16_30]
+FWD16_JAX_BARS = (2e-3, 5e-3)   # "bf16": value (relative), gradient (of max
+                        # |g32|): the JAX package's (tests/test_state_storage.py)
+# the JAX package's own error on [bf16_29] / [x3_29]'s model and depth
+# (HardwareEfficientAnsatz(n, 20, "cz"), params 0.1 N(0, 1)), the largest
+# over 14-16q (CPU, its plane engine; printed by
+# tests/test_torch_fwd16_models.py chip-bars): (value relative, gradient rms
+# of max |g32|); fwd16_bars makes the phases' bars of them
+JAX_OWN_FWD16 = {("bf16", "f32"): (1.465e-2, 1.678e-2),
+                 ("f32", "bf16x3"): (5.001e-5, 4.391e-5),
+                 ("bf16", "bf16x3"): (1.507e-2, 1.926e-2)}
 STORAGE29_TOL = {"mixed": 5e-2, "f16": 5e-3}  # [storage29]: rms |g - g32| /
                         # max |g32|; the JAX package's own on the same model
                         # and params is 9.65e-3 and 1.19e-3 at 16q (max 5.0e-2
@@ -212,6 +240,14 @@ JAX_OWN_ERR = {("cnot", "f16"): 2.792e-3, ("vqe", "f16"): 3.505e-4,
                ("cnot", "mixed"): 5.379e-3, ("vqe", "mixed"): 1.830e-3,
                ("qaoa", "mixed"): 7.559e-4, ("tape", "mixed"): 1.05e-3,
                ("hpair", "mixed"): 5.297e-2, ("hpair", "f16"): 5.246e-3}
+
+
+def fwd16_bars(storage: str, dot: str):
+    """(value, gradient rms) bars of a phase: 2.5 times the JAX package's own
+    error, capped by FWD16_JAX_BARS; where the JAX package's own error is
+    already past that cap (its bars are for another model), 2.5 times it."""
+    return tuple(2.5 * own if own >= cap else min(cap, 2.5 * own)
+                 for own, cap in zip(JAX_OWN_FWD16[storage, dot], FWD16_JAX_BARS))
 
 
 def reduced_tol(model: str, storage: str) -> float:
@@ -290,18 +326,29 @@ def dot_modes(a) -> tuple:
             + (("gram_bf16x3",) if a.get("gram_mode") == "bf16x3" else ()))
 
 
+def fwd_modes(dtype, a) -> tuple:
+    """The forward storage and dot-mode counts of a launch on forward planes
+    of ``dtype``: "fwd_bf16" (bf16 planes), "fwd_bf16x3" (the forward
+    bf16x3)."""
+    import torch
+    return ((("fwd_bf16",) if dtype == torch.bfloat16 else ())
+            + (("fwd_bf16x3",) if a.get("dot_mode") == "bf16x3" else ()))
+
+
 def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
     if name == "block_backward_dual":
         return (("diag_q",) if a.get("diag_q") else ()) + storage_modes(
-            a["br"].dtype) + dot_modes(a)
+            a["br"].dtype) + dot_modes(a) + fwd_modes(a["fr"].dtype, a)
     if name == "block_backward_high":
         return ((("diag_q",) if a.get("diag_q") else ()) + (
             ("wide",) if a["fr"].shape[1] > 128 else ())
-            + storage_modes(a["br"].dtype) + dot_modes(a))
+            + storage_modes(a["br"].dtype) + dot_modes(a)
+            + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_merged_fact":
-        return storage_modes(a["br"].dtype) + dot_modes(a)
+        return (storage_modes(a["br"].dtype) + dot_modes(a)
+                + fwd_modes(a["fr"].dtype, a))
     if name in ("block_backward_lane", "block_backward_sublane"):
         return storage_modes(a["br"].dtype) + dot_modes(a)
     if name in ("dual_apply", "high_apply"):
@@ -311,9 +358,14 @@ def call_modes(name: str, a) -> tuple:
         inplace = acc is None and a.get("alias", True)
         wide = (("wide_inplace",) if name == "high_apply" and inplace
                 and a["xr"].shape[1] > 128 else ())
-        return wide + storage_modes(out)
+        seed = acc is not None or not a.get("alias", True)
+        return (wide + (storage_modes(out) if seed else ())
+                + fwd_modes(a["xr"].dtype, a))
+    if name in ("gram", "merged_fact_apply", "diag_sweep"):
+        return fwd_modes(a["xr"].dtype, a)
     if name == "diag_backward":
-        return (("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
+        return ((("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
+                + fwd_modes(a["fr"].dtype, a))
     if name in ("dual_multi_apply", "high_multi_apply"):
         acc, alias = a.get("acc"), a.get("alias", True)
         seed = a.get("conj") or acc is not None or not alias
@@ -1689,6 +1741,275 @@ def main() -> int:
         del E, Einv
         torch.cuda.empty_cache()
 
+    # 3i. "bf16" forward storage and the forward bf16x3 --------------------
+    # the nine kernels of the cz path at the 29q path's shapes (the X = 512
+    # seed at 30q's; Xt = 4 on the 29q-amplitude merged view as in 3b), in
+    # three settings: "bf16" (F stored bf16, and B under "bf16" storage; the
+    # forward products f32, the backward's transports and grams in bf16x3 as
+    # "auto" resolves them there), "x3" (f32 planes, every product bf16x3:
+    # "auto" under f32 storage follows the forward mode) and "bf16x3" on
+    # bf16 planes. Decoded bf16 planes within FWD16_ULPS storage ulps of the
+    # plain version (the dual adjoint, which stages F and B through its
+    # planes: one more), f32 planes within HIGH_TOL, grams within
+    # _storage.gram_tolerance(bf16) of their largest entry on bf16 planes
+    # and X3_GRAM_TOL on f32 planes. The bf16 rows' library time: the f32
+    # rows' PyTorch calls (for the fresh merged-top seeds the product and its
+    # conjugate) on the decoded planes, their plane results stored back as
+    # bf16; bf16x3 rows have none (no PyTorch call computes that split). The
+    # bound counts 2 bytes per element of a bf16 plane and bf16x3's three
+    # bf16 products per real multiply-add at the bf16 rate. Then row 12f
+    # again: the factorized merged-top adjoint under "f16" / "mixed" with the
+    # f32 transport ops/planes hands it.
+    log_time("3i")
+    BF16 = torch.bfloat16
+    FWD16 = {"bf16": (BF16, "f32"), "x3": (torch.float32, "bf16x3"),
+             "bf16x3": (BF16, "bf16x3")}
+
+    def plane_bytes(dt) -> float:
+        return 2 * amps29 * (2 if dt == BF16 else 4)
+
+    def bf16_library(make):
+        """The f32 row's PyTorch calls on the decoded planes, their plane
+        results stored back as bf16."""
+        def wrapped(*planes):
+            def run():
+                out = make(*(p.float() for p in planes))()
+                outs = out if isinstance(out, (list, tuple)) else (out,)
+                return [(o.real.to(BF16), o.imag.to(BF16)) if o.dim() >= 3 else o
+                        for o in outs]
+            return run
+        return wrapped
+
+    def check_fwd16(kernel, variant, shape, ins, fn_kernel, fn_plain, n_planes,
+                    f32_flops, bf16_flops, bytes_moved, library=None, ulps=FWD16_ULPS,
+                    reuse=True):
+        """``ins``: (dtype, scale) of each input plane; outputs: ``n_planes``
+        plane pairs, then reductions. bf16x3 on bf16 planes: one ulp more
+        (the kernel and its plain version sum the same products in two
+        orders before the bf16 store)."""
+        if variant.endswith("_bf16x3"):
+            ulps += 1
+        xs = [stc.store_as(s * randn(*shape), dt) for dt, s in ins]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fn_plain(*xs)
+        stop.record()
+        stop.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        got = fn_kernel(*(xs if reuse else [x.clone() for x in xs]))
+        torch.cuda.synchronize()
+        worst_ulps, f_err, g_rel, bf = 0.0, 0.0, 0.0, False
+        for k in range(n_planes):
+            g2, w2 = got[2 * k:2 * k + 2], want[2 * k:2 * k + 2]
+            require(g2[0].dtype == w2[0].dtype, f"{kernel}[{variant}] output dtype "
+                                                f"{g2[0].dtype}, want {w2[0].dtype}")
+            if g2[0].dtype == BF16:
+                bf = True
+                worst_ulps = max(worst_ulps, stc.ulps_apart(g2, w2, BF16))
+            else:
+                f_err = max(f_err, max((a - b).abs().max().item() for a, b in zip(g2, w2)))
+        for g_, w_ in zip(got[2 * n_planes:], want[2 * n_planes:]):
+            g_rel = max(g_rel, (g_ - w_).abs().max().item()
+                        / max(w_.abs().max().item(), 1e-30))
+        del got, want
+        bf_in = any(dt == BF16 for dt, _ in ins)
+        g_tol = stc.gram_tolerance(BF16) if bf_in else X3_GRAM_TOL
+        require(worst_ulps <= ulps and f_err <= HIGH_TOL and g_rel <= g_tol,
+                f"{kernel}[{variant}] disagrees with its plain version: bf16 planes "
+                f"{worst_ulps:.2f} ulps (tol {ulps}), f32 planes {f_err:.3e} (tol "
+                f"{HIGH_TOL:.0e}), reductions {g_rel:.3e} relative (tol {g_tol:.1e})")
+        ms = cuda_ms(lambda: fn_kernel(*xs), reps=5)
+        lib_ms = cuda_ms(library(*xs), reps=3) if library else None
+        b_ms, b_by = bound_ms(bytes_moved, f32_flops, bf16_flops)
+        row = dict(kernel=kernel, variant=variant, shape=list(shape),
+                   storage="bfloat16" if bf_in else "float32", fwd=variant.split("_")[-1],
+                   max_abs_err=f_err, store_ulps=worst_ulps, gram_rel_err=g_rel,
+                   tol=HIGH_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"[kernel] {json.dumps(row)}")
+        del xs
+        torch.cuda.empty_cache()
+
+    def fresh_seed_library(E):
+        """The fresh seed's yardstick: the product and its conjugate."""
+        def make(xr, xi):
+            A1, X, M, _ = xr.shape
+            x = torch.complex(xr, xi).view(A1, X, M * 128)
+            ec = torch.complex(*E)
+            return lambda: torch.matmul(ec, x).conj()
+        return make
+
+    def fwd_flops(cmacs: float, dot: str, amps_n: float = None):
+        return cmac_flops(cmacs * (amps_n or amps29) / amps29, dot == "bf16x3")
+
+    tab29 = tables(A29)
+    for tag, (fdt, dot) in FWD16.items():
+        bdt = BF16 if fdt == BF16 else torch.float32
+        lib = (lambda make: bf16_library(make)) if tag == "bf16" else (lambda make: None)
+        f, b = cmac_flops(256, dot == "bf16x3")
+        # 1. the dual sweep in place (the body's, the ring's run folded first)
+        check_fwd16("dual_apply", f"29q_diag_first_{tag}", (A29, 128, 128),
+                    [(fdt, 1.0)] * 2,
+                    lambda xr, xi, d=dot: dual_apply(xr, xi, *el29, *em29, tab29, True,
+                                                     dot_mode=d),
+                    lambda xr, xi, d=dot: dual_apply_plain(xr, xi, *el29, *em29, tab29,
+                                                           True, dot_mode=d),
+                    1, f, b, 2 * plane_bytes(fdt) + table_bytes(A29),
+                    lib(dual_library))
+        # 2. its seed from F into the cotangent planes (acc)
+        check_fwd16("dual_apply", f"29q_seed_{tag}", (A29, 128, 128),
+                    [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda xr, xi, ar, ai, d=dot: dual_apply(
+                        xr, xi, *el29, *em29, conj=True, acc=(ar, ai), alias=False,
+                        dot_mode=d),
+                    lambda xr, xi, ar, ai, d=dot: dual_apply_plain(
+                        xr, xi, *el29, *em29, conj=True, acc=(ar, ai), dot_mode=d),
+                    1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                    lib(dual_seed_library(el29, em29)), reuse=False)
+        # 3. the group-2 sweep in place and its seed (X = 128)
+        E = unitary(128)
+        view = (g2_29[0], 128, g2_29[2], 128)
+        f, b = cmac_flops(128, dot == "bf16x3")
+        check_fwd16("high_apply", f"29q_X128_{tag}", view, [(fdt, 1.0)] * 2,
+                    lambda xr, xi, d=dot, E=E: high_apply(xr, xi, *E, dot_mode=d),
+                    lambda xr, xi, d=dot, E=E: high_apply_plain(xr, xi, *E, dot_mode=d),
+                    1, f, b, 2 * plane_bytes(fdt), lib(high_library(E)))
+        check_fwd16("high_apply", f"29q_X128_seed_{tag}", view,
+                    [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda xr, xi, ar, ai, d=dot, E=E: high_apply(
+                        xr, xi, *E, conj=True, acc=(ar, ai), alias=False, dot_mode=d),
+                    lambda xr, xi, ar, ai, d=dot, E=E: high_apply_plain(
+                        xr, xi, *E, conj=True, acc=(ar, ai), dot_mode=d),
+                    1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                    lib(seed_library(E)), reuse=False)
+        # 4. the merged-top seed, fresh cotangent planes (X = 256 at 29q, 512
+        # at 30q)
+        for nq, X in ((N29, 256), (N30, 512)):
+            if nq == N30 and tag != "bf16":
+                continue
+            amps_n = float(1 << nq)
+            shape = (1, X, (1 << nq) // (X * 128), 128)
+            Ew = unitary(X)
+            f, b = fwd_flops(X, dot, amps_n)
+            check_fwd16("high_apply", f"{nq}q_X{X}_seed_fresh_{tag}", shape,
+                        [(fdt, 1.0)] * 2,
+                        lambda xr, xi, d=dot, E=Ew, o=bdt: high_apply(
+                            xr, xi, *E, conj=True, alias=False, out_dtype=o,
+                            dot_mode=d),
+                        lambda xr, xi, d=dot, E=Ew, o=bdt: high_apply_plain(
+                            xr, xi, *E, conj=True, out_dtype=o, dot_mode=d),
+                        1, f, b, 2 * amps_n * (2 if fdt == BF16 else 4) * 2,
+                        lib(fresh_seed_library(Ew)))
+            del Ew
+            torch.cuda.empty_cache()
+        # 5. the Grams of the epilogue (groups 0-2, the merged top two)
+        for variant, gview in (("29q_lane", (A29 * 128, 128, 1)),
+                               ("29q_sublane", (A29, 128, 128)),
+                               ("29q_high_g2", (g2_29[0], 128, g2_29[2] * 128)),
+                               ("merged_X256", (1, 256, (1 << 14) * 128)),
+                               ("merged_X512", (1, 512, (1 << 13) * 128))):
+            X = gview[1]
+            flops = amps29 * (2 * X + 1) * 2
+            # on bf16 planes the bf16x3 Gram is the f32 one (kernel and sums)
+            fl = (0.0, flops * 3) if dot == "bf16x3" and fdt != BF16 else (flops, 0.0)
+            check_fwd16("gram", f"{variant}_{tag}", gview, [(fdt, 2 ** -14.5)] * 2,
+                        lambda xr, xi, d=dot: gram(xr, xi, dot_mode=d),
+                        lambda xr, xi, d=dot: gram_plain(xr, xi, d),
+                        0, *fl, plane_bytes(fdt), lib(gram_library))
+        # 6. the factorized merged sweep and its adjoint (the transport f32,
+        # the pair grams bf16x3: the modes planes hands it)
+        for x_top, shape in merged_shapes:
+            El, Et, Eli, Eti = unitary(128), unitary(x_top), unitary(128), unitary(x_top)
+            f, b = cmac_flops(128, dot == "bf16x3")
+            check_fwd16("merged_fact_apply", f"Xt{x_top}_{tag}", shape, [(fdt, 1.0)] * 2,
+                        lambda xr, xi, d=dot, xt=x_top, o=(*El, *Et): merged_fact_apply(
+                            xr, xi, *o, x_top=xt, dot_mode=d),
+                        lambda xr, xi, d=dot, xt=x_top, o=(*El, *Et): merged_fact_apply_plain(
+                            xr, xi, *o, x_top=xt, dot_mode=d),
+                        1, f + amps29 * x_top * 8, b, 2 * plane_bytes(fdt),
+                        lib(merged_library(El, Et, x_top)))
+            mops = (*Eli, *El, *Eti, *Et)
+            f_un, b_un = cmac_flops(128, dot == "bf16x3")
+            f_tr, _ = cmac_flops(128 + 3 * x_top, False)
+            f_gr, b_gr = cmac_flops(128, True)
+            kw = dict(x_top=x_top, dot_mode=dot, bwd_mode="f32", gram_mode="bf16x3")
+            check_fwd16("block_backward_merged_fact", f"Xt{x_top}_{tag}", shape,
+                        [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                        lambda *p, kw=kw, o=mops: block_backward_merged_fact(*p, *o, **kw),
+                        lambda *p, kw=kw, o=mops: block_backward_merged_fact_plain(
+                            *p, *o, **kw),
+                        2, f_un + f_tr + f_gr, b_un + b_gr,
+                        2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                        lib(merged_bwd_library(Eli, El, Eti, Et, x_top)))
+            del mops
+            torch.cuda.empty_cache()
+        # 7. the dual and group-2 adjoints ("auto" transports and grams)
+        x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
+        kw = dict(g0_first=True, diag_first_fwd=True, diag_inv_tables=tables(A29),
+                  diag_tables=tables(A29), **x3)
+        e0inv29, e029, e1inv29, e129 = (unitary(128) for _ in range(4))
+        ops29 = (*e0inv29, *e029, *e1inv29, *e129)
+        f_un, b_un = cmac_flops(256, dot == "bf16x3")
+        f_x, b_x = cmac_flops(512, True)
+        check_fwd16("block_backward_dual", f"29q_g0_first_diag_first_{tag}",
+                    (A29, 128, 128), [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda *p, kw=kw, o=ops29: block_backward_dual(*p, *o, **kw),
+                    lambda *p, kw=kw, o=ops29: block_backward_dual_plain(*p, *o, **kw),
+                    2, f_un + f_x, b_un + b_x,
+                    2 * plane_bytes(fdt) + 2 * plane_bytes(bdt) + 2 * table_bytes(A29),
+                    lib(dual_bwd_library(**kw)), ulps=FWD16_ULPS + 1)
+        del ops29
+        E, Einv = unitary(128), unitary(128)
+        f_un, b_un = cmac_flops(128, dot == "bf16x3")
+        f_x, b_x = cmac_flops(256, True)
+        check_fwd16("block_backward_high", f"29q_X128_{tag}", view,
+                    [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high(*p, *Ei, *E, **kw),
+                    lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high_plain(
+                        *p, *Ei, *E, **kw),
+                    2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                    lib(high_bwd_library(E, Einv)))
+        # 8. the diagonal runs (no dot): once, on bf16 planes
+        if tag == "bf16":
+            tab_inv = tables(A29)
+            check_fwd16("diag_sweep", "29q_bf16", (A29, 128, 128), [(BF16, 1.0)] * 2,
+                        lambda xr, xi: diag_sweep(xr, xi, *tab29),
+                        lambda xr, xi: diag_sweep_plain(xr, xi, *tab29),
+                        1, amps29 * 18, 0.0, 2 * plane_bytes(BF16) + table_bytes(A29),
+                        bf16_library(diag_library(tab29)))
+            check_fwd16("diag_backward", "29q_bf16", (A29, 128, 128), [(BF16, 1.0)] * 4,
+                        lambda *p: diag_backward(*p, *tab_inv, *tab29),
+                        lambda *p: diag_backward_plain(*p, *tab_inv, *tab29),
+                        2, amps29 * 36, 0.0, 4 * plane_bytes(BF16) + 2 * table_bytes(A29),
+                        bf16_library(diag_library(tab_inv, tab29)))
+            del tab_inv
+        torch.cuda.empty_cache()
+    del tab29
+    # row 12f again: B stored f16 / bf16, F f32, the transport f32 and T0_low
+    # bf16x3 (the "auto" grams), as ops/planes hands the kernel under "f16"
+    # and "mixed" since this slice
+    for x_top, shape in merged_shapes[:1]:
+        Eli, El = unitary(128), unitary(128)
+        Eti, Et = unitary(x_top), unitary(x_top)
+        mops = (*Eli, *El, *Eti, *Et)
+        clamp = dict(bwd_mode="f32", gram_mode="bf16x3")
+        for store in ("f16", "bf16"):
+            dt = STORES[store]
+            f_tr, _ = cmac_flops(2 * 128 + 3 * x_top, False)
+            f_gr, b_gr = cmac_flops(128, True)
+            check_reduced("block_backward_merged_fact", f"Xt{x_top}_{store}_f32_transport",
+                          shape, 2, 2, 2, 2,
+                          lambda *p, o=mops, xt=x_top: block_backward_merged_fact(
+                              *p, *o, x_top=xt, **clamp),
+                          lambda *p, o=mops, xt=x_top: block_backward_merged_fact_plain(
+                              *p, *o, x_top=xt, **clamp),
+                          dt, f_tr + f_gr, b_gr, state29 * 2 + b_bytes(dt) * 2)
+        del mops
+        torch.cuda.empty_cache()
+
     # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
     log_time("[slice]")
     model = HardwareEfficientAnsatz(N_QUBITS, L28, entangler="cz")
@@ -2022,70 +2343,217 @@ def main() -> int:
         f"ratio {vg29_s / step29_s:.2f}; peak memory {vg29_peak / 2**30:.3f} GiB; "
         f"grad vs first call max abs {drift29:.3e}")
     require(drift29 <= GRAD_TOL, "two 29q value_and_grad steps disagree")
-    # [f16_29]: the same model and params under "f16" cotangent storage: the
-    # forward planes stay f32 (the value bit-identical to [grad29]'s), the
-    # cotangent planes are f16 with the prescale S = 256, the transports and
-    # pair grams bf16x3; the six kernels' f16 variants launched as often as
-    # the f32 run launches the kernels
+    # the 29q x 20L reference of the "bf16" and bf16x3 phases below: f32
+    # storage and f32 dots, params from SEED as [grad29]'s (its depth cut to
+    # 20 for chip time; 100 layers ran above)
     loss32_value = loss29.item()
+    m20 = HardwareEfficientAnsatz(N29, MODES29_L, entangler="cz")
+    p20 = m20.init_params(torch.Generator().manual_seed(SEED)).requires_grad_(True)
+
+    def run29(tag: str, storage: str = "f32", dot: str = "f32", warm: bool = True):
+        """One value_and_grad of the 29q x 20L model under a storage and a
+        forward dot mode (counters set to 0 just before and read just
+        after), and with ``warm`` a second, timed one and its peak memory."""
+        config.set_state_storage(storage)
+        config.set_kernel_dot_mode(dot)
+        try:
+            p20.grad = None
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            v = m20.magnetization(p20)
+            v.backward()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts_ = K.launch_counts()
+            g = p20.grad.detach().clone()
+            value = v.item()
+            del v
+            step_s = peak = None
+            if warm:
+                p20.grad = None
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                v = m20.magnetization(p20)
+                v.backward()
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                del v
+        finally:
+            config.set_state_storage("f32")
+            config.set_kernel_dot_mode("f32")
+        require(bool(torch.isfinite(g).all()), f"[{tag}] non-finite gradient")
+        log(f"[{tag}] {N29}q x {MODES29_L}L value_and_grad ({storage} storage, {dot} "
+            f"forward dots): {first_s:.3f} s (first call)"
+            + (f", {step_s:.4f} s warm = {step_s / MODES29_L * 1e3:.2f} ms/layer, peak "
+               f"memory {peak / 2**30:.3f} GiB" if warm else "")
+            + f"; launches {json.dumps(counts_)}")
+        return dict(value=value, grad=g, counts=counts_, step_s=step_s, peak=peak,
+                    first_s=first_s)
+
+    def vs_ref(tag: str, run: dict, ref: dict, bars=None):
+        """Value (relative) and gradient (rms and max of |g - g32| / max
+        |g32|) against the f32 reference, held to ``bars`` = (value, rms)."""
+        scale = ref["grad"].abs().max().item()
+        d = (run["grad"] - ref["grad"]).abs()
+        rel_v = abs(run["value"] - ref["value"]) / abs(ref["value"])
+        rms, mx = d.pow(2).mean().sqrt().item() / scale, d.max().item() / scale
+        log(f"[{tag}] value {run['value']!r} vs f32 {ref['value']!r} (relative "
+            f"{rel_v:.3e}); gradient |g - g32| / max |g32|: rms {rms:.3e}, max "
+            f"{mx:.3e}" + (f" (bars: value {bars[0]:.2e}, rms {bars[1]:.2e})"
+                           if bars else ""))
+        if bars:
+            require(rel_v <= bars[0] and rms <= bars[1],
+                    f"[{tag}] outside its bars against f32 storage and f32 dots")
+        return dict(rel_value=rel_v, rms=rms, max=mx)
+
+    def dry29(storage: str, dot: str = "f32") -> dict:
+        config.set_state_storage(storage)
+        config.set_kernel_dot_mode(dot)
+        try:
+            return program_launches(lambda d: HardwareEfficientAnsatz(
+                N29, MODES29_L, entangler="cz", device=d), "magnetization")[1]
+        finally:
+            config.set_state_storage("f32")
+            config.set_kernel_dot_mode("f32")
+
+    log_time("[ref29]")
+    ref29 = run29("ref29", warm=True)
+    require(ref29["counts"] == dry29("f32"), "[ref29] launch counts differ from "
+                                             "the dry run's")
+    fwd16_keys = [k for k in ref29["counts"] if k.endswith(("[fwd_bf16]",
+                                                            "[fwd_bf16x3]"))]
+    require(fwd16_keys and all(ref29["counts"][k] == 0 for k in fwd16_keys),
+            "[ref29] the f32 run launched a forward storage or dot-mode variant")
+
+    # [f16_29]: [grad29]'s model and params (29q x 100L) under "f16" cotangent
+    # storage: the forward planes stay f32 (the value bit-identical to
+    # [grad29]'s), the cotangent planes are f16 with the prescale S = 256,
+    # the transports and pair grams bf16x3 (the merged-top transport f32, as
+    # the JAX package's planes hands it); one call (the port compiles
+    # nothing: its first call is its warm step). At 20 layers the rms error
+    # is 2.47e-3 against 2e-3 (PERF.md §6), so this phase keeps its depth.
+    log_time("[f16_29]")
     want16 = dict(want29)
     want16.update({"dual_apply[f16]": 2, "high_apply[f16]": 2,
                    "diag_backward[f16]": 1})
     for k in ("block_backward_dual", "block_backward_high",
               "block_backward_merged_fact"):
-        want16[f"{k}[f16]"] = want16[f"{k}[bf16x3]"] = want29[k]
+        want16[f"{k}[f16]"] = want29[k]
+    for k in ("block_backward_dual", "block_backward_high"):
+        want16[f"{k}[bf16x3]"] = want29[k]
     config.set_state_storage("f16")
     try:
         p29.grad = None
         torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss16 = m29.magnetization(p29)
-        loss16.backward()
-        torch.cuda.synchronize()
-        f16_first_s = time.perf_counter() - t0
-        counts16 = K.launch_counts()
-        require(counts16 == want16, f"[f16_29] launch counts {counts16}, want {want16}")
-        g16 = p29.grad.detach().clone()
-        value16 = loss16.item()
-        p29.grad = None
-        del loss16
         torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         loss16 = m29.magnetization(p29)
         loss16.backward()
         torch.cuda.synchronize()
         f16_s = time.perf_counter() - t0
         f16_peak = torch.cuda.max_memory_allocated()
+        counts16 = K.launch_counts()
+        g16 = p29.grad.detach().clone()
+        value16 = loss16.item()
+        p29.grad = None
+        del loss16
     finally:
         config.set_state_storage("f32")
+    require(counts16 == want16, f"[f16_29] launch counts {counts16}, want {want16}")
     scale = grad29.abs().max().item()
     d16 = (g16 - grad29).abs()
     rms16, max16 = d16.pow(2).mean().sqrt().item() / scale, d16.max().item() / scale
     log(f"[f16_29] {N29}q x {LAYERS}L value_and_grad under f16 storage: "
-        f"{f16_first_s:.3f} s (first call); launches {json.dumps(counts16)}")
+        f"{f16_s:.4f} s = {f16_s / LAYERS * 1e3:.2f} ms/layer (f32 storage "
+        f"{vg29_s:.4f} s); peak memory {f16_peak / 2**30:.3f} GiB (f32 storage "
+        f"{vg29_peak / 2**30:.3f} GiB); launches {json.dumps(counts16)}")
     log(f"[f16_29] value {value16!r} vs f32 storage {loss32_value!r} (bit-identical: "
         f"{value16 == loss32_value}); gradient vs f32 storage: rms |g - g32| / max "
-        f"|g32| {rms16:.3e} (tol {F16_29_RMS_TOL:.0e}), max {max16:.3e}; "
-        f"value_and_grad step (warm) {f16_s:.4f} s = {f16_s / LAYERS * 1e3:.2f} "
-        f"ms/layer (f32 storage {vg29_s:.4f} s); peak memory {f16_peak / 2**30:.3f} "
-        f"GiB (f32 storage {vg29_peak / 2**30:.3f} GiB)")
+        f"|g32| {rms16:.3e} (tol {F16_29_RMS_TOL:.0e}), max {max16:.3e}")
     require(value16 == loss32_value, "[f16_29] the value moved with the storage")
     require(bool(torch.isfinite(g16).all()) and rms16 <= F16_29_RMS_TOL,
             "[f16_29] gradient outside the f16 storage's error")
-    bwd16_ms = (LAYERS * (
-        per_launch["block_backward_dual", "29q_f16_g0_first_diag_first"]
-        + per_launch["block_backward_high", "29q_X128_f16"]
-        + per_launch["block_backward_merged_fact", "Xt2_f16"])
-        + per_launch["diag_backward", "29q_f16"]
-        + 2 * per_launch["dual_apply", "29q_seed_f16"]
-        + per_launch["high_apply", "29q_X128_seed_f16"]
-        + per_launch["high_apply", "29q_X256_seed_fresh_f16"])
-    log(f"[f16_29] kernel time per step (launches x per-launch ms above): forward "
-        f"{fwd29_ms:.1f} ms + seeds and backward {bwd16_ms:.1f} ms = "
-        f"{100 * (fwd29_ms + bwd16_ms) / (f16_s * 1e3):.1f}% of the step")
     f16_29 = dict(counts=counts16, step_s=f16_s, peak=f16_peak, rms=rms16, max=max16)
-    del g16, loss16
+    del g16
+
+    # [bf16_29]: "bf16" storage, both plane pairs bf16: the value carries bf16
+    # rounding too; the gradient's rms under 2.5 times the JAX package's own
+    # error on this model and depth at 14-16q (JAX_OWN_ERR_FWD16, CPU), capped
+    # by its own bars; launches equal to the dry run's under "bf16"
+    log_time("[bf16_29]")
+    bf16r = run29("bf16_29", "bf16")
+    require(bf16r["counts"] == dry29("bf16"), "[bf16_29] launch counts differ from "
+                                              "the dry run's")
+    require(all(bf16r["counts"][f"{k}[fwd_bf16]"] == bf16r["counts"][k] > 0 for k in (
+        "dual_apply", "high_apply", "merged_fact_apply", "gram",
+        "block_backward_dual", "block_backward_high", "block_backward_merged_fact",
+        "diag_sweep", "diag_backward")), "[bf16_29] a kernel ran off its bf16 variant")
+    ebf = vs_ref("bf16_29", bf16r, ref29, fwd16_bars("bf16", "f32"))
+    bf16_29 = dict(counts=bf16r["counts"], step_s=bf16r["step_s"], peak=bf16r["peak"],
+                   **ebf)
+    log(f"[bf16_29] step (warm) {bf16r['step_s']:.4f} s against f32 storage "
+        f"{ref29['step_s']:.4f} s; peak {bf16r['peak'] / 2**30:.3f} GiB against "
+        f"{ref29['peak'] / 2**30:.3f} GiB")
+
+    # [x3_29]: the forward bf16x3 (set_kernel_dot_mode), under "f32" storage
+    # and then "bf16", against the same reference; the 29q x 1L closed form
+    # under it at the JAX package's bar for bf16x3 (2e-4 max(1, |g|))
+    log_time("[x3_29]")
+    x3_29 = {}
+    for storage in ("f32", "bf16"):
+        r = run29(f"x3_29 {storage}", storage, "bf16x3", warm=False)
+        require(r["counts"] == dry29(storage, "bf16x3"),
+                f"[x3_29] {storage}: launch counts differ from the dry run's")
+        require(all(r["counts"][f"{k}[fwd_bf16x3]"] == r["counts"][k] > 0 for k in (
+            "dual_apply", "high_apply", "merged_fact_apply", "gram",
+            "block_backward_dual", "block_backward_high",
+            "block_backward_merged_fact")), f"[x3_29] {storage}: a kernel ran "
+                                            "off its bf16x3 variant")
+        e = vs_ref(f"x3_29 {storage}", r, ref29, fwd16_bars(storage, "bf16x3"))
+        x3_29[storage] = dict(counts=r["counts"], first_s=r["first_s"], **e)
+    del m20, p20
+    config.set_kernel_dot_mode("bf16x3")
+    try:
+        closed_form(N29, "x3_29", tol=BF16X3_GRAM_TOL, x3=True)
+    finally:
+        config.set_kernel_dot_mode("f32")
+    torch.cuda.empty_cache()
+
+    # [bf16_30]: HardwareEfficientAnsatz(30, 4, "cz") under "bf16" (the X =
+    # 512 seed and the Xt = 4 merged top on bf16 planes) at params = 0: the
+    # identity circuit, magnetization 30 within the bf16 value bar, gradient
+    # within the gradient bar; its peak memory
+    log_time("[bf16_30]")
+    config.set_state_storage("bf16")
+    try:
+        z30 = HardwareEfficientAnsatz(N30, BF16_30_L, entangler="cz")
+        pz = torch.zeros(BF16_30_L, N30, 3, device=dev, requires_grad=True)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        vz = z30.magnetization(pz)
+        vz.backward()
+        torch.cuda.synchronize()
+        cz30 = K.launch_counts()
+        peak30 = torch.cuda.max_memory_allocated()
+        gz = pz.grad.abs().max().item()
+        value30 = vz.item()
+    finally:
+        config.set_state_storage("f32")
+    vbar, gbar = FWD16_JAX_BARS[0], FWD16_JAX_BARS[1]
+    log(f"[bf16_30] {N30}q x {BF16_30_L}L params = 0 under bf16 storage: "
+        f"magnetization {value30!r} (want {N30}); |grad| max {gz:.3e}; peak memory "
+        f"{peak30 / 2**30:.3f} GiB; launches {json.dumps(cz30)}")
+    require(abs(value30 - N30) <= vbar * N30 and gz <= gbar,
+            "[bf16_30] the params = 0 known answer failed")
+    require(cz30["block_backward_merged_fact[fwd_bf16]"] == BF16_30_L
+            and cz30["high_apply[fwd_bf16]"] >= 1,
+            f"[bf16_30] did not run the bf16 variants at Xt = 4: {cz30}")
+    bf16_30 = dict(counts=cz30, peak=peak30)
+    del z30, pz, vz
+    torch.cuda.empty_cache()
 
     # the step runs the default bf16x3 pair grams (the rows "gram_bf16x3"
     # above); the f32-gram rows beside them give the same step with f32 grams
@@ -3329,12 +3797,17 @@ def main() -> int:
                   "gram_bf16x3": f"{pre}gram_bf16x3"}
         if kernel == "block_backward_dual":
             rep_of = {k: f"29q_{k}_g0_first_diag_first" for k in rep_of}
+        x3_rep = rep_of["f16"]
+        if kernel == "block_backward_merged_fact":
+            # the path's transport is f32 since the JAX package's clamp was
+            # ported (row 12f)
+            rep_of.update(f16="Xt2_f16_f32_transport", bf16="Xt2_bf16_f32_transport")
         variants[f"{kernel}[f16]"] = (src, f"{line} (u16 bwd)", rep_of["f16"],
                                       ("float16",), f16c)
         variants[f"{kernel}[bf16]"] = (src, f"{line} (bf16 bwd)", rep_of["bf16"],
                                        ("bfloat16",), bf16c)
         variants[f"{kernel}[bf16x3]"] = (src, f"{line} (bwd_dot_mode bf16x3)",
-                                         rep_of["f16"], ("float16", "bfloat16"), f16c)
+                                         x3_rep, ("float16", "bfloat16"), f16c)
         variants[f"{kernel}[gram_bf16x3]"] = (src, f"{line} (gram_dot_mode bf16x3)",
                                               rep_of["gram_bf16x3"], ("float32",),
                                               counts29)
@@ -3374,8 +3847,41 @@ def main() -> int:
     for name, (src, replaces, variant, storages, run_counts) in variants.items():
         kernel = name.split("[")[0]
         mine = [r for r in rows if r["kernel"] == kernel
-                and r.get("storage") in storages]
+                and r.get("storage") in storages and "fwd" not in r]
         out.append(row_of(name, src, replaces, mine, variant, run_counts[name], 0))
+    # "bf16" forward storage and the forward bf16x3: "launches" from
+    # [bf16_29] and from [x3_29]'s f32-storage run
+    fwd_rows = {
+        "dual_apply": ("dqc_tpu_torch/csrc/dual_apply.cu",
+                       "dqc_tpu/ops/pallas/dual_apply.py:232", "29q_diag_first"),
+        "high_apply": ("dqc_tpu_torch/csrc/high_apply.cu",
+                       "dqc_tpu/ops/pallas/high_apply.py:76", "29q_X128"),
+        "gram": ("dqc_tpu_torch/csrc/gram.cu",
+                 "dqc_tpu/ops/pallas/gram.py:58,97,134", "29q_lane"),
+        "merged_fact_apply": ("dqc_tpu_torch/csrc/merged_fact_apply.cu",
+                              "dqc_tpu/ops/pallas/high_apply.py:190", "Xt2"),
+        "diag_sweep": ("dqc_tpu_torch/csrc/diag.cu",
+                       "dqc_tpu/ops/pallas/diag.py:75", "29q"),
+        "diag_backward": ("dqc_tpu_torch/csrc/diag.cu",
+                          "dqc_tpu/ops/pallas/diag.py:154", "29q"),
+        "block_backward_dual": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
+                                f"{bb}:437", "29q_g0_first_diag_first"),
+        "block_backward_high": ("dqc_tpu_torch/csrc/block_backward_high.cu",
+                                f"{bb}:906", "29q_X128"),
+        "block_backward_merged_fact": (
+            "dqc_tpu_torch/csrc/block_backward_merged_fact.cu", f"{bb}:670", "Xt2"),
+    }
+    for kernel, (src, line, pre) in fwd_rows.items():
+        for mode, tags, what, run_counts in (
+                ("fwd_bf16", ("bf16",), "bf16 forward planes", bf16_29["counts"]),
+                ("fwd_bf16x3", ("x3", "bf16x3"), "dot_mode bf16x3",
+                 x3_29["f32"]["counts"])):
+            name = f"{kernel}[{mode}]"
+            if name not in run_counts:
+                continue
+            mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags]
+            out.append(row_of(name, src, f"{line} ({what})", mine,
+                              f"{pre}_{tags[0]}", run_counts[name], None))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -86,6 +86,7 @@ from dqc_tpu_torch.circuit.scan import _match_ct, _num_layers
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops import planes as pl
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
+from dqc_tpu_torch.ops.kernels import _storage
 from dqc_tpu_torch.ops.kernels.gram import pair_sum
 
 C64 = torch.complex64
@@ -655,7 +656,11 @@ def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
     The per-term sweeps store their temporary and the accumulator in the
     input's storage after every term, as the JAX package does. ``plan``:
     the gate's :func:`_cross_plan`, staged once per call for a constant
-    gate (``gate_m`` is then not read)."""
+    gate (``gate_m`` is then not read). Under "bf16" storage or the forward
+    bf16x3 it raises: the multi-term kernels and the span views take
+    neither yet (ROADMAP.md, queue B item 5)."""
+    _storage.refuse_fwd("a dense cross-group gate (the multi-term kernels)",
+                        config.fwd_plane_dtype(), config.kernel_dot_mode())
     if plan is None:
         plan = _cross_plan(gate_m, positions, n, xr.device)
     kind, ops = plan
@@ -911,11 +916,11 @@ def _apply_xcross(xr, xi, gate_m, positions, n: int, kernels: KernelSet):
 
 def _plane_pair_grad(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
     """Dense cross-gate cotangent ``W[p, q] = sum_b bwd[p, b] fwd[q, b]``
-    on planes (groups.pair_grad on the complex sub-blocks; the cotangent's
+    on planes (groups.pair_grad on the complex sub-blocks; both pairs
     decoded)."""
     dims = gr.group_dims(n)
-    F = torch.complex(gr.subblocks(fxr.reshape(dims), positions, n),
-                      gr.subblocks(fxi.reshape(dims), positions, n))
+    F = torch.complex(pl.plane_f32(gr.subblocks(fxr.reshape(dims), positions, n)),
+                      pl.plane_f32(gr.subblocks(fxi.reshape(dims), positions, n)))
     B = torch.complex(pl.plane_f32(gr.subblocks(bxr.reshape(dims), positions, n)),
                       pl.plane_f32(gr.subblocks(bxi.reshape(dims), positions, n)))
     return pair_sum(B[None], F[None])
@@ -1307,7 +1312,7 @@ def _cross_density(xr, xi, positions, n: int) -> torch.Tensor:
     S = torch.empty((2, R, xr.numel() // R), dtype=torch.float32, device=xr.device)
     for dst, plane in zip(S, (xr, xi)):
         view = gr.subblock_view(plane, positions, n)
-        dst.view(view.shape).copy_(view)
+        dst.view(view.shape).copy_(view)  # planes of any storage, upcast
     chunk = min(1024, S.shape[2])
     C = S.view(2 * R, -1, chunk).transpose(0, 1)
     G = torch.matmul(C, C.transpose(1, 2)).sum(0)
@@ -1540,7 +1545,7 @@ class _PlaneScannedLayers(torch.autograd.Function):
     def forward(ctx, ftape, const_gates, kernels, initial_state,
                 *stacked_var_gates):
         n = ftape.n
-        xr, xi = pl.to_planes(initial_state.to(C64), n)
+        xr, xi = pl.to_planes(initial_state.to(C64), n, config.fwd_plane_dtype())
         xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
                                       stacked_var_gates, const_gates,
                                       kernels=kernels)
@@ -1584,7 +1589,7 @@ class _PlaneDensityEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, epi_ftape, kernels, state):
         n = epi_ftape.n
-        xr, xi = pl.to_planes(state.to(C64), n)
+        xr, xi = pl.to_planes(state.to(C64), n, config.fwd_plane_dtype())
         ctx.statics = (epi_ftape, kernels, state.dtype, tuple(state.shape))
         ctx.planes = (xr, xi) if ctx.needs_input_grad[2] else None
         return _epilogue_density_list(epi_ftape, xr, xi, n, kernels)
@@ -1647,7 +1652,7 @@ class _ScanDensities(torch.autograd.Function):
                     pro_ftape, (), pro_const_gates, xr.device, kernels, {}))
             ctx.state_ref = None
         else:
-            xr, xi = pl.to_planes(initial_state.to(C64), n)
+            xr, xi = pl.to_planes(initial_state.to(C64), n, config.fwd_plane_dtype())
             ctx.state_ref = (initial_state.dtype, tuple(initial_state.shape))
         xr, xi = _scan_layers_forward(xr, xi, ftape, plane_program(ftape),
                                       stacked_var_gates, const_gates,
@@ -1847,7 +1852,7 @@ def _plane_run_diff(ftape: FusedTape, state: torch.Tensor, layer: _Layer, *,
     returns ``(densities, (xr, xi))`` with the planes at the stop point."""
     n = ftape.n
     program = _trim_program(plane_program(ftape), stop_after)
-    xr, xi = pl.to_planes(state.to(C64), n)
+    xr, xi = pl.to_planes(state.to(C64), n, config.fwd_plane_dtype())
     densities = []
     grams: Dict[int, torch.Tensor] = {}
     for item in program:
@@ -1925,7 +1930,8 @@ class _PlaneTapeForward(torch.autograd.Function):
         densities, (xr, xi) = _plane_run_diff(
             ftape, initial_state, layer, stop_after=last if last >= 0 else -1)
         if last < 0:
-            xr, xi = pl.to_planes(initial_state.to(C64), ftape.n)
+            xr, xi = pl.to_planes(initial_state.to(C64), ftape.n,
+                                  config.fwd_plane_dtype())
         ctx.statics = (ftape, const_gates, kernels, initial_state.dtype,
                        tuple(initial_state.shape))
         ctx.planes = (xr, xi) if any(ctx.needs_input_grad) else None

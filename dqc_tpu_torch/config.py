@@ -3,11 +3,12 @@
 Counterpart of ``dqc_tpu/config.py``: the default complex dtype, gate
 fusion, the plane-engine mode, the singularity checks of the uncompute, the
 in-kernel dot modes (forward, cotangent side, pair grams), the state-plane
-storage and the factorized merged-top sweep. Storage "f32", "mixed" and
-"f16" are ported, and the cotangent-side and pair-gram dots take "f32" and
-"bf16x3"; "bf16" storage and the forward "bf16x3" raise
-``NotImplementedError`` (ROADMAP.md lists them). The singularity checks'
-"debug" mode raises the same way. The JAX
+storage and the factorized merged-top sweep. Every storage ("f32",
+"mixed", "f16", "bf16") and both dot modes ("f32", "bf16x3") of the JAX
+package are accepted. "bf16" storage and the forward "bf16x3" run on the
+cz ring's kernels; the kernels of the other plane paths refuse them with
+``NotImplementedError`` naming ROADMAP.md (queue B, item 5). The
+singularity checks' "debug" mode raises the same way. The JAX
 package's matmul precision has no counterpart: the port never enables TF32,
 so every product runs in full f32 (or f64). Neither has its
 ``set_full_unroll_qubits``, which picks a scanned or a straight-line
@@ -37,11 +38,6 @@ _STATE_STORAGE = "f32"
 _BWD_KERNEL_DOT_MODE = "auto"
 _GRAM_KERNEL_DOT_MODE = "auto"
 _HPAIR_FACTORIZED = True
-
-
-def _not_ported(what: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} {value!r} is not ported to dqc_tpu_torch yet; see ROADMAP.md")
 
 
 def _backward_mode(what: str, mode: str) -> str:
@@ -127,16 +123,23 @@ def real_of(dtype) -> torch.dtype:
 
 
 def set_kernel_dot_mode(mode: str) -> None:
-    """The forward and uncompute products: "f32" only; "bf16x3" raises
-    (ROADMAP.md)."""
-    if mode == "bf16x3":
-        raise _not_ported("kernel dot mode", mode)
-    if mode != "f32":
+    """The forward products: every apply, every Gram, every seed and the
+    uncompute of every adjoint, and what the backward "auto" resolves to
+    under f32 storage. "f32" (the default) or "bf16x3", the JAX package's
+    opt-in 3-pass split (common.cuh: two FMAs per real product on the CUDA
+    cores). The cz ring's nine kernels take "bf16x3"; the multi-term
+    applies, the lane / sublane adjoints, the X = 8..64 and the in-place
+    X = 256 / 512 high kernels raise ``NotImplementedError`` under it
+    (ROADMAP.md, queue B item 5)."""
+    global _KERNEL_DOT_MODE
+    if mode not in ("f32", "bf16x3"):
         raise ValueError("kernel dot mode must be 'f32' or 'bf16x3'")
+    _KERNEL_DOT_MODE = mode
 
 
 def kernel_dot_mode() -> str:
-    """In-kernel product mode: "f32" is f32 FMA on the CUDA cores (no TF32)."""
+    """In-kernel forward product mode: "f32" is f32 FMA on the CUDA cores
+    (no TF32), "bf16x3" the 3-pass split."""
     return _KERNEL_DOT_MODE
 
 
@@ -148,11 +151,12 @@ def set_bwd_kernel_dot_mode(mode: str) -> None:
 
 
 def bwd_kernel_dot_mode() -> str:
-    """"auto" is "bf16x3" under reduced cotangent storage (its dot error
-    sits far under the per-store rounding) and the forward mode otherwise,
-    as in the JAX package."""
+    """"auto" is "bf16x3" under reduced cotangent storage ("mixed", "f16",
+    "bf16": its dot error sits far under the per-store rounding) and the
+    forward mode (``kernel_dot_mode``) under "f32", as in the JAX
+    package."""
     if _BWD_KERNEL_DOT_MODE == "auto":
-        if _STATE_STORAGE in ("mixed", "f16"):
+        if _STATE_STORAGE in ("mixed", "f16", "bf16"):
             return "bf16x3"
         return kernel_dot_mode()
     return _BWD_KERNEL_DOT_MODE
@@ -193,13 +197,15 @@ def set_state_storage(mode: str) -> None:
     """Storage of the statevector planes between kernel passes (compute is
     f32 inside the kernels): "f32"; "mixed", forward planes f32 and
     cotangent planes bf16; "f16", cotangent planes float16, carrying the
-    power-of-2 prescale of plane_scan._ct_prescale. "bf16" (both pairs
-    bf16) raises (ROADMAP.md). Off the planes (n < 14, complex128, the plane
-    engine off) the storage has no effect."""
+    power-of-2 prescale of plane_scan._ct_prescale; "bf16", both pairs
+    bfloat16 (the value carries bf16 rounding too). "bf16" runs on the cz
+    ring's kernels; the multi-term applies, the lane / sublane adjoints, a
+    run's Q on bf16 forward planes, the X = 8..64 and the in-place
+    X = 256 / 512 high kernels raise ``NotImplementedError`` on bf16
+    forward planes (ROADMAP.md, queue B item 5). Off the planes (n < 14,
+    complex128, the plane engine off) the storage has no effect."""
     global _STATE_STORAGE
-    if mode == "bf16":
-        raise _not_ported("state storage", mode)
-    if mode not in ("f32", "mixed", "f16"):
+    if mode not in ("f32", "mixed", "f16", "bf16"):
         raise ValueError("state storage must be 'f32', 'mixed', 'f16' or 'bf16'")
     _STATE_STORAGE = mode
 
@@ -209,15 +215,17 @@ def state_storage() -> str:
 
 
 def fwd_plane_dtype() -> torch.dtype:
-    """Storage dtype of the forward statevector planes."""
-    return torch.float32
+    """Storage dtype of the forward statevector planes: bfloat16 under
+    "bf16", else float32."""
+    return torch.bfloat16 if _STATE_STORAGE == "bf16" else torch.float32
 
 
 def bwd_plane_dtype() -> torch.dtype:
-    """Storage dtype of the cotangent planes: bfloat16 under "mixed",
-    float16 under "f16" (the JAX package keeps the same bits in uint16
-    planes because Mosaic has no f16 type), else float32."""
-    return {"mixed": torch.bfloat16, "f16": torch.float16}.get(
+    """Storage dtype of the cotangent planes: bfloat16 under "mixed" and
+    "bf16", float16 under "f16" (the JAX package keeps the same bits in
+    uint16 planes because Mosaic has no f16 type), else float32."""
+    return {"mixed": torch.bfloat16, "bf16": torch.bfloat16,
+            "f16": torch.float16}.get(
         _STATE_STORAGE, torch.float32)
 
 

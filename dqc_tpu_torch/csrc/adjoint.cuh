@@ -47,6 +47,15 @@
 // shared memory, and splits the tile's values as it reads them; a narrower
 // pair gram splits both operands as it reads them, one column of its float4
 // at a time so that the parts stay in registers.
+//
+// "bf16" storage and the forward bf16x3 (config.set_state_storage("bf16"),
+// set_kernel_dot_mode): F may be stored as bf16 too (fkind, a run-time
+// argument as B's kind, the same codec; its loads and stores branch once
+// to a loop of each kind, since a per-element branch there cost the f32
+// adjoints 3-18% on the H100), rounded where the TPU kernel stores and
+// reloads it (stage, as B), and the uncompute may run bf16x3 (UX3): the
+// first half then stages its operator tile as hi and lo parts as the
+// transport half does with TX3.
 #pragma once
 
 #include "common.cuh"
@@ -119,16 +128,18 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
 // float4 (four rows of the operator tile, four columns of the tile). With
 // TX3 the second half (trans = 1, the transport) runs bf16x3: its operator
 // tile holds the hi and lo parts of KC / 2 rows of E, and both halves step
-// KC / 2 deep so that they meet the same barriers.
-template <int X, bool TX3 = false>
+// KC / 2 deep so that they meet the same barriers. UX3 runs the first half
+// (trans = 0, the uncompute) bf16x3 the same way.
+template <int X, bool TX3 = false, bool UX3 = false>
 __device__ void op_times_tile(const float* __restrict__ er,
                               const float* __restrict__ ei, int trans,
                               const float* tr_, const float* ti_, float* sTr,
                               float* sTi, float (&accr)[8][4],
                               float (&acci)[8][4]) {
   using Cfg = AdjCfg<X>;
-  constexpr int KC = TX3 ? Cfg::KC / 2 : Cfg::KC, CT = Cfg::CT, LD = Cfg::LD;
-  const bool x3 = TX3 && trans;
+  constexpr int KC = TX3 || UX3 ? Cfg::KC / 2 : Cfg::KC, CT = Cfg::CT;
+  constexpr int LD = Cfg::LD;
+  const bool x3 = trans ? TX3 : UX3;
   // the x3 half's operator tile: hi (r, i) in sTr, lo (r, i) after it
   float* sLr = sTr + 2 * KC * X;
   float* sLi = sLr + KC * X;
@@ -252,13 +263,17 @@ __device__ __forceinline__ void acc_to_tile(const float (&accr)[8][4],
 // accesses coalesced (x fastest when the rows are adjacent, rs == 1),
 // optionally times the run's entries; the planes stored as kind (common.cuh
 // codec). qkind rounds the loaded values times the run to that storage
-// (kStoreF32: not at all), as a store and a reload would.
-template <int X>
+// (kStoreF32: not at all), as a store and a reload would. K >= 0 fixes the
+// planes' kind at compile time (the forward planes': each kind its own
+// loop, so that the f32 one keeps its plain loads), else ``kind`` gives it.
+template <int X, int K = -1>
 __device__ void load_tile(const void* gr_, const void* gi_, int kind,
                           int64_t rs, int64_t cs, float* tr_, float* ti_,
                           int use_diag, const DiagView& dv,
                           int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
+  if constexpr (K >= 0) kind = K;
+  if constexpr (K == kStoreF32) qkind = kStoreF32;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
     const int c = rs == 1 ? e / X : e % Cfg::C;
@@ -276,16 +291,23 @@ __device__ void load_tile(const void* gr_, const void* gi_, int kind,
   }
 }
 
-template <int X>
+// qkind rounds the values to that storage before the run's entries
+// multiply them (kStoreF32: not at all), as a store and a reload would.
+template <int X, int K = -1>
 __device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
                            int64_t cs, const float* tr_, const float* ti_,
-                           int use_diag, const DiagView& dv) {
+                           int use_diag, const DiagView& dv,
+                           int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
+  if constexpr (K >= 0) kind = K;
+  if constexpr (K == kStoreF32) qkind = kStoreF32;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
     const int c = rs == 1 ? e / X : e % Cfg::C;
     float vr = tr_[x * Cfg::LD + c], vi = ti_[x * Cfg::LD + c];
     if (use_diag) {
+      vr = quantize(vr, qkind);
+      vi = quantize(vi, qkind);
       float dr, di;
       diag_view_at(dv, x, c, dr, di);
       cmul(vr, vi, dr, di, vr, vi);
@@ -718,17 +740,21 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 // none): where the run's Q reductions go (QView for a slab tile, QHigh for a
 // high-view tile), from the planes as they meet the run — loaded as they
 // are, then the run's entries multiplied in shared memory (mode 1), or
-// before the store (mode 2). B is stored as bkind (F as f32); TX3 / GX3 run
-// the transport / the pair gram bf16x3. stage (the dual adjoint, whose TPU
-// kernel stages the run's step through its output planes) rounds B to its
-// storage where that kernel stores and reloads it: after the run's entries
-// on load, before them on store.
-template <int X, bool TX3 = false, bool GX3 = false, class QT = QView>
-__device__ void adjoint_tile(float* fr, float* fi, void* br, void* bi,
+// before the store (mode 2). B is stored as bkind, F as fkind; TX3 / GX3 /
+// UX3 run the transport / the pair gram / the uncompute bf16x3. stage (the
+// dual adjoint, whose TPU kernel stages the run's step through its output
+// planes) rounds F and B to their storage where that kernel stores and
+// reloads them: after the run's entries on load, before them on store (B's
+// transport result in shared memory; F as it is stored, since the pair
+// gram reads it unrounded). FK >= 0 fixes F's kind at compile time.
+template <int X, bool TX3 = false, bool GX3 = false, class QT = QView,
+          bool UX3 = false, int FK = -1>
+__device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
                              int bkind, int stage, int64_t rs, int64_t cs,
                              const Operators& ops, int diag_mode,
                              const DiagView& dv_inv, const DiagView& dv_fwd,
-                             float* part, float* smem, const QT* q = nullptr) {
+                             float* part, float* smem, const QT* q = nullptr,
+                             int fkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
   float* sFr = smem;
   float* sFi = sFr + X * Cfg::LD;
@@ -740,35 +766,47 @@ __device__ void adjoint_tile(float* fr, float* fi, void* br, void* bi,
   float* sTr = sOi + X * Cfg::LD + half * 2 * Cfg::KC * X;  // this half's
   float* sTi = sTr + Cfg::KC * X;                           // operator tile
   float accr[8][4], acci[8][4];
+  if constexpr (FK >= 0) fkind = FK;
   const int qkind = stage ? bkind : kStoreF32;
+  const int fqkind = stage ? fkind : kStoreF32;
 
   float* scratch = sOi + X * Cfg::LD;  // both halves' operator tiles
   __syncthreads();  // the previous tile's stores and gram have read the buffers
   const bool q_on_load = q != nullptr && diag_mode == 1;
-  load_tile<X>(fr, fi, kStoreF32, rs, cs, sFr, sFi,
-               diag_mode == 1 && !q_on_load, dv_inv);
+  if (fkind == kStoreF32)
+    load_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi,
+                            diag_mode == 1 && !q_on_load, dv_inv);
+  else
+    load_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi,
+                             diag_mode == 1 && !q_on_load, dv_inv, fqkind);
   load_tile<X>(br, bi, bkind, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load,
                dv_fwd, qkind);
   if (q_on_load) {
     __syncthreads();  // the tile is loaded
     q_tile<X>(sFr, sFi, sBr, sBi, *q, scratch);
     __syncthreads();  // every read of the raw tiles is done
-    diag_tile_smem<X>(sFr, sFi, dv_inv);
+    diag_tile_smem<X>(sFr, sFi, dv_inv, fqkind);
     diag_tile_smem<X>(sBr, sBi, dv_fwd, qkind);
   }
 
   // first half: the uncompute fin = Einv F; second half: the transport
   // bout = E^T B (one call site, so that every thread meets the same
   // barriers)
-  op_times_tile<X, TX3>(half ? ops.e_r : ops.inv_r, half ? ops.e_i : ops.inv_i,
-                        half, half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
-                        accr, acci);
+  op_times_tile<X, TX3, UX3>(half ? ops.e_r : ops.inv_r,
+                             half ? ops.e_i : ops.inv_i, half,
+                             half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
+                             accr, acci);
   __syncthreads();  // every thread is done reading F
   acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi,
                  half && diag_mode == 2 ? qkind : kStoreF32);
   __syncthreads();  // fin and bout are complete
   if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
-  store_tile<X>(fr, fi, kStoreF32, rs, cs, sFr, sFi, diag_mode == 2, dv_inv);
+  if (fkind == kStoreF32)
+    store_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
+                             dv_inv);
+  else
+    store_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
+                              dv_inv, fqkind);
   store_tile<X>(br, bi, bkind, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
 
   // the pair gram of the incoming cotangent and fin

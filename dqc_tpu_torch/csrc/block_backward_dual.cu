@@ -55,6 +55,12 @@
 // The transports' bf16x3 costs two FMAs per real product and the operand
 // splits, the pair grams' runs on the tensor cores (adjoint.cuh); the bytes
 // move with the storage: 24 per amplitude with a 16-bit B against 32.
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
+// on F and its dot_mode): F may be stored as bf16 (fkind, runtime, as B;
+// rounded where the TPU kernel stores and reloads it, as B) and the two
+// uncomputes run bf16x3 with dot_x3 (adjoint.cuh UX3): 16 bytes per
+// amplitude with both pairs 16-bit.
 
 #include "adjoint.cuh"
 
@@ -78,14 +84,15 @@ struct QRows {  // the (A, 128) outputs Qas and Qal
   float* al_i;
 };
 
-template <bool TX3, bool GX3>
+template <bool TX3, bool GX3, bool UX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_dual_kernel(float* fr, float* fi, char* br, char* bi,
-                           int bkind, Operators lane, Operators sub,
+block_backward_dual_kernel(char* fr, char* fi, char* br, char* bi,
+                           int bkind, int fkind, Operators lane, Operators sub,
                            DiagTables dinv, DiagTables dfwd, int has_diag,
                            int diag_first_fwd, int g0_first, int diag_q,
                            QRows qrows, float* part, int64_t A) {
   const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
+  const int fsize = fkind == dqc::kStoreF32 ? 4 : 2;  // bytes per F element
   extern __shared__ float smem[];
   const int part_floats = diag_q ? kPartFloatsQ : kPartFloats;
   float* part_lane = part + (int64_t)blockIdx.x * part_floats;
@@ -109,30 +116,31 @@ block_backward_dual_kernel(float* fr, float* fi, char* br, char* bi,
         qv.a = a;
         qv.sublane = sublane;
         qv.c0 = 64 * h;
-        dqc::adjoint_tile<N, TX3, GX3>(
-            fr + t, fi + t, br + t * bsize, bi + t * bsize, bkind, 1, rs, cs,
-            sublane ? sub : lane, diag_mode, vi, vf,
+        dqc::adjoint_tile<N, TX3, GX3, dqc::QView, UX3>(
+            fr + t * fsize, fi + t * fsize, br + t * bsize, bi + t * bsize,
+            bkind, 1, rs, cs, sublane ? sub : lane, diag_mode, vi, vf,
             sublane ? part_sub : part_lane, smem,
-            diag_q && diag_mode ? &qv : nullptr);
+            diag_q && diag_mode ? &qv : nullptr, fkind);
       }
     }
   }
 }
 
-template <bool TX3, bool GX3>
-int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+template <bool TX3, bool GX3, bool UX3>
+int launch(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
            const Operators& lane, const Operators& sub, const DiagTables& dinv,
            const DiagTables& dfwd, int has_diag, int diag_first_fwd,
            int g0_first, int diag_q, const QRows& qrows, float* part,
            int64_t A, int nblk, cudaStream_t s) {
   constexpr int kSmem = AdjCfg<N>::kSmemBytes;
+  auto kernel = block_backward_dual_kernel<TX3, GX3, UX3>;
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_dual_kernel<TX3, GX3>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  block_backward_dual_kernel<TX3, GX3><<<nblk, dqc::kAdjThreads, kSmem, s>>>(
-      fr, fi, static_cast<char*>(br), static_cast<char*>(bi), bkind, lane, sub,
-      dinv, dfwd, has_diag, diag_first_fwd, g0_first, diag_q, qrows, part, A);
+  kernel<<<nblk, dqc::kAdjThreads, kSmem, s>>>(
+      static_cast<char*>(fr), static_cast<char*>(fi), static_cast<char*>(br),
+      static_cast<char*>(bi), bkind, fkind, lane, sub, dinv, dfwd, has_diag,
+      diag_first_fwd, g0_first, diag_q, qrows, part, A);
   return (int)cudaGetLastError();
 }
 
@@ -144,15 +152,15 @@ int launch(float* fr, float* fi, void* br, void* bi, int bkind,
 // transposed ([l][s]) when the run meets the lane step: the step after the
 // pair with diag_first_fwd, the step before it otherwise; the lane step is
 // the second with g0_first. B is stored as bkind (0 f32, 1 bf16, 2 f16 in
-// common.cuh's codec), F as f32; bwd_x3 / gram_x3 run the transports / the
-// pair grams bf16x3.
+// common.cuh's codec), F as fkind (0 f32, 1 bf16); bwd_x3 / gram_x3 /
+// dot_x3 run the transports / the pair grams / the uncomputes bf16x3.
 // part is scratch of nblk * (4 or 6) * 128 * 128 floats, set to zero by the
 // caller, and nblk the number of blocks (at most A). The twelve table
 // pointers may be null when has_diag is 0. With diag_q (needs has_diag),
 // qas_r/i and qal_r/i are (A, 128) outputs set to zero by the caller (null
 // without). Returns cudaGetLastError().
 extern "C" int dqc_block_backward_dual(
-    float* fr, float* fi, void* br, void* bi, const float* e0inv_r,
+    void* fr, void* fi, void* br, void* bi, const float* e0inv_r,
     const float* e0inv_i, const float* e0_r, const float* e0_i,
     const float* e1inv_r, const float* e1inv_i, const float* e1_r,
     const float* e1_i, const float* isl_r, const float* isl_i,
@@ -162,9 +170,9 @@ extern "C" int dqc_block_backward_dual(
     const float* al_i, int has_diag, int diag_first_fwd, int g0_first,
     int diag_q, float* qas_r, float* qas_i, float* qal_r, float* qal_i,
     float* part, float* out, long long A, int nblk, int bkind, int bwd_x3,
-    int gram_x3, void* stream) {
+    int gram_x3, int fkind, int dot_x3, void* stream) {
   if (A <= 0 || nblk <= 0 || nblk > A || (diag_q && !has_diag) || bkind < 0 ||
-      bkind > 2)
+      bkind > 2 || fkind < 0 || fkind > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Operators lane{e0inv_r, e0inv_i, e0_r, e0_i};
@@ -173,14 +181,21 @@ extern "C" int dqc_block_backward_dual(
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const QRows qrows{qas_r, qas_i, qal_r, qal_i};
   int code;
-#define DQC_DUAL_LAUNCH(T, G)                                                 \
-  code = launch<T, G>(fr, fi, br, bi, bkind, lane, sub, dinv, dfwd, has_diag, \
-                      diag_first_fwd, g0_first, diag_q, qrows, part,         \
-                      (int64_t)A, nblk, s)
-  if (bwd_x3 && gram_x3) DQC_DUAL_LAUNCH(true, true);
-  else if (bwd_x3) DQC_DUAL_LAUNCH(true, false);
-  else if (gram_x3) DQC_DUAL_LAUNCH(false, true);
-  else DQC_DUAL_LAUNCH(false, false);
+#define DQC_DUAL_LAUNCH(T, G, U)                                              \
+  code = launch<T, G, U>(fr, fi, br, bi, bkind, fkind, lane, sub, dinv, dfwd, \
+                         has_diag, diag_first_fwd, g0_first, diag_q, qrows,  \
+                         part, (int64_t)A, nblk, s)
+#define DQC_DUAL_MODES(U)                                 \
+  if (bwd_x3 && gram_x3) DQC_DUAL_LAUNCH(true, true, U);  \
+  else if (bwd_x3) DQC_DUAL_LAUNCH(true, false, U);       \
+  else if (gram_x3) DQC_DUAL_LAUNCH(false, true, U);      \
+  else DQC_DUAL_LAUNCH(false, false, U);
+  if (dot_x3) {
+    DQC_DUAL_MODES(true)
+  } else {
+    DQC_DUAL_MODES(false)
+  }
+#undef DQC_DUAL_MODES
 #undef DQC_DUAL_LAUNCH
   if (code != 0) return code;
   return dqc::launch_reduce(part, out, nblk,

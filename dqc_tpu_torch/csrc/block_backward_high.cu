@@ -71,6 +71,13 @@
 // apply in place on B in its storage, bf16x3 with bwd_x3 (one load and one
 // store of B there, as in the TPU kernel; the cross-Gram's read of B comes
 // before it).
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
+// on F and its dot_mode), X = 128: F may be stored as bf16 (one load and
+// one store per element; its kind a template parameter, since a run-time
+// kind there cost the f32 adjoint 3-5% on the H100) and the uncompute runs
+// bf16x3 with dot_x3 (adjoint.cuh UX3). The other widths take f32 F and an
+// f32 uncompute (their callers refuse the rest).
 
 #include "adjoint.cuh"
 #include "wide_apply.cuh"
@@ -93,9 +100,11 @@ struct QOut {  // the diag_q outputs: Qas, Qal rows (A, 128), Qsl partial slots
   float* sl_part;  // nblk x 2 x 128 x 128
 };
 
-template <int X, bool TX3, bool GX3>
+// F is stored as FK, a compile-time kind (bf16 at X = 128 only), so that
+// the f32 instances keep their plain loads and stores.
+template <int X, bool TX3, bool GX3, bool UX3, int FK>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_high_kernel(float* fr, float* fi, char* br, char* bi, int bkind,
+block_backward_high_kernel(char* fr, char* fi, char* br, char* bi, int bkind,
                            Operators ops, DiagTables dinv, DiagTables dfwd,
                            int has_diag, int diag_first_fwd, int diag_q,
                            QOut qo, float* part, int64_t Q, int64_t post,
@@ -103,6 +112,7 @@ block_backward_high_kernel(float* fr, float* fi, char* br, char* bi, int bkind,
   using Cfg = AdjCfg<X>;
   extern __shared__ float smem[];
   const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
+  constexpr int fsize = FK == dqc::kStoreF32 ? 4 : 2;  // bytes per F element
   float* slots = part + (int64_t)blockIdx.x * Cfg::G * Cfg::kSlotFloats;
   const int diag_mode = has_diag ? (diag_first_fwd ? 2 : 1) : 0;
   // with diag_q a block takes whole (i, p) groups of kSl / C tiles
@@ -119,15 +129,16 @@ block_backward_high_kernel(float* fr, float* fi, char* br, char* bi, int bkind,
       DiagView vf{dfwd, 2, i, q0, X, post};
       qh.i = i;
       qh.q0 = q0;
-      dqc::adjoint_tile<X, TX3, GX3, QHigh>(
-          fr + t, fi + t, br + t * bsize, bi + t * bsize, bkind, 0, Q, 1, ops,
-          diag_mode, vi, vf, slots, smem, diag_q ? &qh : nullptr);
+      dqc::adjoint_tile<X, TX3, GX3, QHigh, UX3, FK>(
+          fr + t * fsize, fi + t * fsize, br + t * bsize, bi + t * bsize,
+          bkind, 0, Q, 1, ops, diag_mode, vi, vf, slots, smem,
+          diag_q ? &qh : nullptr, FK);
     }
   }
 }
 
-template <int X, bool TX3, bool GX3>
-int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+template <int X, bool TX3, bool GX3, bool UX3>
+int launch(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
            const Operators& ops, const DiagTables& dinv, const DiagTables& dfwd,
            int has_diag, int diag_first_fwd, int diag_q, const QOut& qo,
            float* qsl, float* part, float* out, long long A1, long long Q,
@@ -137,15 +148,18 @@ int launch(float* fr, float* fi, void* br, void* bi, int bkind,
   const long long ntiles = A1 * (Q / Cfg::C);
   const long long units = diag_q ? ntiles / (kSl / Cfg::C) : ntiles;
   if (units <= 0 || nblk <= 0 || nblk > units) return (int)cudaErrorInvalidValue;
+  auto kernel = block_backward_high_kernel<X, TX3, GX3, UX3, dqc::kStoreF32>;
+  if constexpr (X == 128) {
+    if (fkind != dqc::kStoreF32)
+      kernel = block_backward_high_kernel<X, TX3, GX3, UX3, dqc::kStoreBF16>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_high_kernel<X, TX3, GX3>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  block_backward_high_kernel<X, TX3, GX3><<<nblk, dqc::kAdjThreads,
-                                            Cfg::kSmemBytes, stream>>>(
-      fr, fi, static_cast<char*>(br), static_cast<char*>(bi), bkind, ops, dinv,
-      dfwd, has_diag, diag_first_fwd, diag_q, qo, part, (int64_t)Q,
-      (int64_t)(Q >> 14), (int64_t)ntiles);
+  kernel<<<nblk, dqc::kAdjThreads, Cfg::kSmemBytes, stream>>>(
+      static_cast<char*>(fr), static_cast<char*>(fi), static_cast<char*>(br),
+      static_cast<char*>(bi), bkind, ops, dinv, dfwd, has_diag, diag_first_fwd,
+      diag_q, qo, part, (int64_t)Q, (int64_t)(Q >> 14), (int64_t)ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int code = dqc::launch_reduce(part, out, (int64_t)nblk * Cfg::G,
@@ -408,7 +422,7 @@ extern "C" int dqc_block_backward_high_slots(int X) {
 // B is stored as bkind (0 f32, 1 bf16, 2 f16), F as f32; bwd_x3 / gram_x3
 // run the transport / the pair gram bf16x3. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high(
-    float* fr, float* fi, void* br, void* bi, const float* einv_r,
+    void* fr, void* fi, void* br, void* bi, const float* einv_r,
     const float* einv_i, const float* e_r, const float* e_i,
     const float* isl_r, const float* isl_i, const float* ias_r,
     const float* ias_i, const float* ial_r, const float* ial_i,
@@ -417,37 +431,47 @@ extern "C" int dqc_block_backward_high(
     int diag_first_fwd, int diag_q, float* qas_r, float* qas_i, float* qal_r,
     float* qal_i, float* qpart, float* qsl, float* part, float* out,
     long long A1, int X, long long Q, int nblk, int bkind, int bwd_x3,
-    int gram_x3, void* stream) {
+    int gram_x3, int fkind, int dot_x3, void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
   if (diag_q && !has_diag) return (int)cudaErrorInvalidValue;
-  if (bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
+  if (bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1)
+    return (int)cudaErrorInvalidValue;
+  // bf16 F and the bf16x3 uncompute: X = 128 (the cz ring's group 2)
+  if ((fkind != 0 || dot_x3) && X != 128) return (int)cudaErrorInvalidValue;
   const Operators ops{einv_r, einv_i, e_r, e_i};
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const QOut qo{qas_r, qas_i, qal_r, qal_i, qpart};
   cudaStream_t s = (cudaStream_t)stream;
   const int mode = 2 * (bwd_x3 != 0) + (gram_x3 != 0);
-#define DQC_HIGH_MODE(XX, T, G)                                              \
-  return launch<XX, T, G>(fr, fi, br, bi, bkind, ops, dinv, dfwd, has_diag,  \
-                          diag_first_fwd, diag_q, qo, qsl, part, out, A1, Q, \
-                          nblk, s)
+#define DQC_HIGH_MODE(XX, T, G, U)                                          \
+  return launch<XX, T, G, U>(fr, fi, br, bi, bkind, fkind, ops, dinv, dfwd, \
+                             has_diag, diag_first_fwd, diag_q, qo, qsl,     \
+                             part, out, A1, Q, nblk, s)
+#define DQC_HIGH_CASE_U(XX, U)                             \
+    switch (mode) {                                        \
+      case 0: DQC_HIGH_MODE(XX, false, false, U);          \
+      case 1: DQC_HIGH_MODE(XX, false, true, U);           \
+      case 2: DQC_HIGH_MODE(XX, true, false, U);           \
+      default: DQC_HIGH_MODE(XX, true, true, U);           \
+    }
 #define DQC_HIGH_CASE(XX)                                  \
   case XX:                                                 \
-    switch (mode) {                                        \
-      case 0: DQC_HIGH_MODE(XX, false, false);             \
-      case 1: DQC_HIGH_MODE(XX, false, true);              \
-      case 2: DQC_HIGH_MODE(XX, true, false);              \
-      default: DQC_HIGH_MODE(XX, true, true);              \
-    }
+    DQC_HIGH_CASE_U(XX, false)
   switch (X) {
     DQC_HIGH_CASE(8)
     DQC_HIGH_CASE(16)
     DQC_HIGH_CASE(32)
     DQC_HIGH_CASE(64)
-    DQC_HIGH_CASE(128)
+    case 128:
+      if (dot_x3) {
+        DQC_HIGH_CASE_U(128, true)
+      }
+      DQC_HIGH_CASE_U(128, false)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DQC_HIGH_CASE
+#undef DQC_HIGH_CASE_U
 #undef DQC_HIGH_MODE
 }
 

@@ -39,6 +39,14 @@
 // element), the low transport runs bf16x3 with bwd_x3 and T0_low with
 // gram_x3 (adjoint.cuh). The top factor and T0_top stay f32 elementwise
 // whatever the modes, as the TPU kernel keeps them on the VPU at Xt <= 4.
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
+// on F and its dot_mode): F may be stored as bf16 (fkind, runtime; one load
+// and one store per element) and the low uncompute runs bf16x3 with dot_x3
+// (adjoint.cuh UX3). A bf16x3 uncompute is built beside an f32 transport
+// only: ops/planes.backward_merged_top_fact hands this kernel an f32
+// transport whenever the backward mode resolves to bf16x3, as the JAX
+// package's planes layer does.
 
 #include "adjoint.cuh"
 
@@ -76,10 +84,47 @@ __device__ __forceinline__ void warp_sum_to_slot(float (&pr)[XT][XT],
     }
 }
 
-template <int XT, bool TX3, bool GX3>
+// F and B of a tile into shared memory (product column p = a C + c is
+// slice a, column c), F stored as FK (a compile-time kind: each kind its own
+// loop, so that the f32 one keeps its plain loads), B as bkind; and back.
+template <int XT, int FK>
+__device__ __forceinline__ void load_fb(const void* fr, const void* fi,
+                                        const void* br, const void* bi,
+                                        int bkind, int64_t base, int64_t Q,
+                                        float* sFr, float* sFi, float* sBr,
+                                        float* sBi) {
+  constexpr int C = PC / XT;
+  for (int e = threadIdx.x; e < XL * PC; e += kAdjThreads) {
+    const int d = e / PC, p = e % PC;
+    const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
+    sFr[d * LD + p] = dqc::load_plane(fr, o, FK);
+    sFi[d * LD + p] = dqc::load_plane(fi, o, FK);
+    sBr[d * LD + p] = dqc::load_plane(br, o, bkind);
+    sBi[d * LD + p] = dqc::load_plane(bi, o, bkind);
+  }
+}
+
+template <int XT, int FK>
+__device__ __forceinline__ void store_fb(void* fr, void* fi, void* br, void* bi,
+                                         int bkind, int64_t base, int64_t Q,
+                                         const float* sFr, const float* sFi,
+                                         const float* sOr, const float* sOi) {
+  constexpr int C = PC / XT;
+  for (int e = threadIdx.x; e < XL * PC; e += kAdjThreads) {
+    const int d = e / PC, p = e % PC;
+    const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
+    dqc::store_plane(fr, o, sFr[d * LD + p], FK);
+    dqc::store_plane(fi, o, sFi[d * LD + p], FK);
+    dqc::store_plane(br, o, sOr[d * LD + p], bkind);
+    dqc::store_plane(bi, o, sOi[d * LD + p], bkind);
+  }
+}
+
+template <int XT, bool TX3, bool GX3, bool UX3>
 __global__ void __launch_bounds__(kAdjThreads, 1)
-block_backward_merged_fact_kernel(float* fr, float* fi, void* br, void* bi,
-                                  int bkind, Operators low, const float* __restrict__ eti_r,
+block_backward_merged_fact_kernel(void* fr, void* fi, void* br, void* bi,
+                                  int bkind, int fkind, Operators low,
+                                  const float* __restrict__ eti_r,
                                   const float* __restrict__ eti_i,
                                   const float* __restrict__ et_r,
                                   const float* __restrict__ et_i,
@@ -109,14 +154,11 @@ block_backward_merged_fact_kernel(float* fr, float* fi, void* br, void* bi,
 
     // 1. load F and B: product column p = a C + c is slice a, column c
     __syncthreads();  // the previous tile's stores have read the buffers
-    for (int e = threadIdx.x; e < XL * PC; e += kAdjThreads) {
-      const int d = e / PC, p = e % PC;
-      const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
-      sFr[d * LD + p] = fr[o];
-      sFi[d * LD + p] = fi[o];
-      sBr[d * LD + p] = dqc::load_plane(br, o, bkind);
-      sBi[d * LD + p] = dqc::load_plane(bi, o, bkind);
-    }
+    if (fkind == dqc::kStoreF32)
+      load_fb<XT, dqc::kStoreF32>(fr, fi, br, bi, bkind, base, Q, sFr, sFi, sBr, sBi);
+    else
+      load_fb<XT, dqc::kStoreBF16>(fr, fi, br, bi, bkind, base, Q, sFr, sFi, sBr,
+                                   sBi);
     __syncthreads();
 
     // 2. the slice gram P[x, b] of the raw tiles, into this warp's slot
@@ -145,7 +187,7 @@ block_backward_merged_fact_kernel(float* fr, float* fi, void* br, void* bi,
     }
 
     // 3. first half: Eli F (the low uncompute); second half: El^T B
-    dqc::op_times_tile<XL, TX3>(half ? low.e_r : low.inv_r,
+    dqc::op_times_tile<XL, TX3, UX3>(half ? low.e_r : low.inv_r,
                                 half ? low.e_i : low.inv_i, half,
                                 half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
                                 accr, acci);
@@ -187,14 +229,12 @@ block_backward_merged_fact_kernel(float* fr, float* fi, void* br, void* bi,
     __syncthreads();
 
     // 6. the store, in the load's order
-    for (int e = threadIdx.x; e < XL * PC; e += kAdjThreads) {
-      const int d = e / PC, p = e % PC;
-      const int64_t o = base + (int64_t)((p / C) * XL + d) * Q + p % C;
-      fr[o] = sFr[d * LD + p];
-      fi[o] = sFi[d * LD + p];
-      dqc::store_plane(br, o, sOr[d * LD + p], bkind);
-      dqc::store_plane(bi, o, sOi[d * LD + p], bkind);
-    }
+    if (fkind == dqc::kStoreF32)
+      store_fb<XT, dqc::kStoreF32>(fr, fi, br, bi, bkind, base, Q, sFr, sFi, sOr,
+                                   sOi);
+    else
+      store_fb<XT, dqc::kStoreBF16>(fr, fi, br, bi, bkind, base, Q, sFr, sFi, sOr,
+                                    sOi);
   }
 }
 
@@ -221,8 +261,8 @@ __global__ void top_finish_kernel(const float* __restrict__ part_top,
   out[XT * XT + k] = ti;
 }
 
-template <int XT, bool TX3, bool GX3>
-int launch(float* fr, float* fi, void* br, void* bi, int bkind,
+template <int XT, bool TX3, bool GX3, bool UX3>
+int launch(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
            const Operators& low,
            const float* eti_r, const float* eti_i, const float* et_r,
            const float* et_i, float* part_low, float* part_top, float* t0_low,
@@ -232,14 +272,13 @@ int launch(float* fr, float* fi, void* br, void* bi, int bkind,
   if (Q % C != 0) return (int)cudaErrorInvalidValue;
   const long long ntiles = A1 * (Q / C);
   if (ntiles <= 0 || nblk <= 0 || nblk > ntiles) return (int)cudaErrorInvalidValue;
+  auto kernel = block_backward_merged_fact_kernel<XT, TX3, GX3, UX3>;
   cudaError_t err = cudaFuncSetAttribute(
-      block_backward_merged_fact_kernel<XT, TX3, GX3>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  block_backward_merged_fact_kernel<XT, TX3, GX3><<<nblk, kAdjThreads,
-                                                    Cfg::kSmemBytes, stream>>>(
-      fr, fi, br, bi, bkind, low, eti_r, eti_i, et_r, et_i, part_low, part_top,
-      (int64_t)Q, (int64_t)ntiles);
+  kernel<<<nblk, kAdjThreads, Cfg::kSmemBytes, stream>>>(
+      fr, fi, br, bi, bkind, fkind, low, eti_r, eti_i, et_r, et_i, part_low,
+      part_top, (int64_t)Q, (int64_t)ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = (cudaError_t)dqc::launch_reduce(part_low, t0_low, nblk,
@@ -262,30 +301,34 @@ extern "C" int dqc_block_backward_merged_fact_warps() { return kWarps; }
 // nblk * 2 * 128 * 128 floats and part_top of nblk * warps * 2 * Xt * Xt,
 // both set to zero by the caller; nblk is the number of blocks (at most the
 // number of tiles, A1 Q Xt / 64). B is stored as bkind (0 f32, 1 bf16, 2
-// f16), F as f32; bwd_x3 / gram_x3 run the low transport / T0_low bf16x3.
+// f16), F as fkind (0 f32, 1 bf16); bwd_x3 / gram_x3 / dot_x3 run the low
+// transport / T0_low / the low uncompute bf16x3 (dot_x3 with bwd_x3 = 0).
 // Returns cudaGetLastError().
 extern "C" int dqc_block_backward_merged_fact(
-    float* fr, float* fi, void* br, void* bi, const float* eli_r,
+    void* fr, void* fi, void* br, void* bi, const float* eli_r,
     const float* eli_i, const float* el_r, const float* el_i,
     const float* eti_r, const float* eti_i, const float* et_r,
     const float* et_i, float* part_low, float* part_top, float* t0_low,
     float* t0_top, long long A1, int XT, long long Q, int nblk, int bkind,
-    int bwd_x3, int gram_x3, void* stream) {
-  if (bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
+    int bwd_x3, int gram_x3, int fkind, int dot_x3, void* stream) {
+  if (bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1 || (dot_x3 && bwd_x3))
+    return (int)cudaErrorInvalidValue;
   const Operators low{eli_r, eli_i, el_r, el_i};
   cudaStream_t s = (cudaStream_t)stream;
-  const int mode = 2 * (bwd_x3 != 0) + (gram_x3 != 0);
-#define DQC_MF_MODE(XX, T, G)                                                 \
-  return launch<XX, T, G>(fr, fi, br, bi, bkind, low, eti_r, eti_i, et_r,     \
-                          et_i, part_low, part_top, t0_low, t0_top, A1, Q,    \
-                          nblk, s)
-#define DQC_MF_CASE(XX)                        \
-  case XX:                                     \
-    switch (mode) {                            \
-      case 0: DQC_MF_MODE(XX, false, false);   \
-      case 1: DQC_MF_MODE(XX, false, true);    \
-      case 2: DQC_MF_MODE(XX, true, false);    \
-      default: DQC_MF_MODE(XX, true, true);    \
+  const int mode = 4 * (dot_x3 != 0) + 2 * (bwd_x3 != 0) + (gram_x3 != 0);
+#define DQC_MF_MODE(XX, T, G, U)                                              \
+  return launch<XX, T, G, U>(fr, fi, br, bi, bkind, fkind, low, eti_r, eti_i, \
+                             et_r, et_i, part_low, part_top, t0_low, t0_top,  \
+                             A1, Q, nblk, s)
+#define DQC_MF_CASE(XX)                               \
+  case XX:                                            \
+    switch (mode) {                                   \
+      case 0: DQC_MF_MODE(XX, false, false, false);   \
+      case 1: DQC_MF_MODE(XX, false, true, false);    \
+      case 2: DQC_MF_MODE(XX, true, false, false);    \
+      case 3: DQC_MF_MODE(XX, true, true, false);     \
+      case 4: DQC_MF_MODE(XX, false, false, true);    \
+      default: DQC_MF_MODE(XX, false, true, true);    \
     }
   switch (XT) {
     DQC_MF_CASE(2)

@@ -43,6 +43,11 @@
 // F stays f32), read and written four elements at a time (8 bytes for a
 // 16-bit B), decoded to f32 before the multiply and the Q reductions. The
 // backward then moves 24 bytes per amplitude against 32.
+//
+// "bf16" storage: the forward planes may be stored as bf16 too (the sweep's
+// x and the backward's F, the kind a template parameter so that the f32
+// sweeps keep their float4 code; without the Q reductions), 8 bytes per
+// amplitude for the sweep against 16.
 
 #include "common.cuh"
 
@@ -112,19 +117,32 @@ __device__ __forceinline__ void times_diag_kind(void* xr, void* xi, int kind,
   store4(xi, e, kind, yi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-diag_sweep_kernel(float* xr, float* xi, DiagTables d, int64_t n4) {
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
-       e += (int64_t)gridDim.x * kThreads)
-    times_diag(xr, xi, d, e);
+// x[e] *= D at float4 index e of planes stored as KIND (known at compile
+// time: the f32 planes keep times_diag's float4 code).
+template <int KIND>
+__device__ __forceinline__ void times_diag_of(void* xr, void* xi,
+                                              const DiagTables& d, int64_t e) {
+  if constexpr (KIND == dqc::kStoreF32)
+    times_diag(static_cast<float*>(xr), static_cast<float*>(xi), d, e);
+  else
+    times_diag_kind(xr, xi, KIND, d, e);
 }
 
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-diag_backward_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
+diag_sweep_kernel(void* xr, void* xi, DiagTables d, int64_t n4) {
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
+       e += (int64_t)gridDim.x * kThreads)
+    times_diag_of<KIND>(xr, xi, d, e);
+}
+
+template <int FKIND>
+__global__ void __launch_bounds__(kThreads)
+diag_backward_kernel(void* fr, void* fi, void* br, void* bi, int bkind,
                      DiagTables dinv, DiagTables dfwd, int64_t n4) {
   for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n4;
        e += (int64_t)gridDim.x * kThreads) {
-    times_diag(fr, fi, dinv, e);
+    times_diag_of<FKIND>(fr, fi, dinv, e);
     times_diag_kind(br, bi, bkind, dfwd, e);
   }
 }
@@ -214,36 +232,43 @@ int grid_for(int64_t n4) {
 
 }  // namespace
 
-// x <- x * D in place on planes (A, 128, 128); the tables as in common.cuh,
-// 16-byte aligned. Returns cudaGetLastError().
-extern "C" int dqc_diag_sweep(float* xr, float* xi, const float* sl_r,
+// x <- x * D in place on planes (A, 128, 128) stored as kind (0 f32, 1
+// bf16); the tables as in common.cuh, 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int dqc_diag_sweep(void* xr, void* xi, const float* sl_r,
                               const float* sl_i, const float* as_r,
                               const float* as_i, const float* al_r,
-                              const float* al_i, long long A, void* stream) {
-  if (A <= 0) return (int)cudaErrorInvalidValue;
+                              const float* al_i, long long A, int kind,
+                              void* stream) {
+  if (A <= 0 || kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const int64_t n4 = (int64_t)A * 128 * 32;
-  diag_sweep_kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
-      xr, xi, d, n4);
+  auto kernel = kind == dqc::kStoreF32 ? diag_sweep_kernel<dqc::kStoreF32>
+                                       : diag_sweep_kernel<dqc::kStoreBF16>;
+  kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(xr, xi, d, n4);
   return (int)cudaGetLastError();
 }
 
 // fwd <- fwd * Dinv, bwd <- bwd * D in place on planes (A, 128, 128): the six
 // tables of the run's inverse, then the run's; bwd stored as bkind (0 f32,
-// 1 bf16, 2 f16), fwd as f32. Returns cudaGetLastError().
-extern "C" int dqc_diag_backward(float* fr, float* fi, void* br, void* bi,
+// 1 bf16, 2 f16), fwd as fkind (0 f32, 1 bf16). Returns cudaGetLastError().
+extern "C" int dqc_diag_backward(void* fr, void* fi, void* br, void* bi,
                                  const float* isl_r, const float* isl_i,
                                  const float* ias_r, const float* ias_i,
                                  const float* ial_r, const float* ial_i,
                                  const float* sl_r, const float* sl_i,
                                  const float* as_r, const float* as_i,
                                  const float* al_r, const float* al_i,
-                                 long long A, int bkind, void* stream) {
-  if (A <= 0 || bkind < 0 || bkind > 2) return (int)cudaErrorInvalidValue;
+                                 long long A, int bkind, int fkind,
+                                 void* stream) {
+  if (A <= 0 || bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1)
+    return (int)cudaErrorInvalidValue;
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   const int64_t n4 = (int64_t)A * 128 * 32;
-  diag_backward_kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = fkind == dqc::kStoreF32 ? diag_backward_kernel<dqc::kStoreF32>
+                                        : diag_backward_kernel<dqc::kStoreBF16>;
+  kernel<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
       fr, fi, br, bi, bkind, dinv, dfwd, n4);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,15 @@
 // columns), the slab buffer then takes T, and stage 2 computes Em T. The
 // operators do not fit beside the slab (another 128 KB each), so 16-deep
 // tiles of them stream through shared memory (16 KB).
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
+// on its input and its dot_mode): x may be stored as bf16 (XKIND), in place
+// (y = x, the forward sweep on bf16 forward planes) or a seed from it into
+// bf16 cotangent planes, and the two products may run bf16x3 (X3): each
+// operator tile is staged as its hi and lo bf16 parts (twice the tile
+// buffer) and each slab value split into hi and lo as it is read, two FMAs
+// per real product (common.cuh cmac3). XKIND, YKIND and X3 are template
+// parameters, so that the f32 sweep keeps its code.
 
 #include "common.cuh"
 
@@ -41,7 +50,11 @@ constexpr int kThreads = 512;  // 16 warps
 constexpr int kRows = 8;       // rows per thread: warp * 8 + i
 constexpr int kCols = 4;       // columns per thread: lane + 32 * j
 constexpr int KC = 16;         // operator tile depth
-constexpr int kSmemBytes = (2 * N * N + 2 * KC * N) * sizeof(float);
+// the slab and the operator tile (X3: its hi and lo parts)
+template <bool X3>
+constexpr int smem_bytes() {
+  return (2 * N * N + (X3 ? 4 : 2) * KC * N) * (int)sizeof(float);
+}
 
 __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
                                      float ai, float br, float bi) {
@@ -51,11 +64,25 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// YKIND: the storage of y (a template parameter, so that the f32 sweep
-// keeps its plain stores)
-template <int YKIND>
+// One operator entry into the shared tile at `at`: as it is, or (X3) as
+// its hi part there and its lo part at the same place of the lo buffers.
+template <bool X3>
+__device__ __forceinline__ void stage_op(float wr, float wi, int at, float* tr,
+                                         float* ti) {
+  if constexpr (X3) {
+    dqc::split_hl(wr, tr[at], tr[2 * KC * N + at]);
+    dqc::split_hl(wi, ti[at], ti[2 * KC * N + at]);
+  } else {
+    tr[at] = wr;
+    ti[at] = wi;
+  }
+}
+
+// XKIND / YKIND: the storage of x / y; X3: the products in bf16x3 (template
+// parameters, so that the f32 sweep keeps its plain loads and stores)
+template <int XKIND, int YKIND, bool X3>
 __global__ void __launch_bounds__(kThreads, 1)
-dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+dual_apply_kernel(const void* xr, const void* xi, char* yr, char* yi,
                   const float* __restrict__ elr,
                   const float* __restrict__ eli,
                   const float* __restrict__ emr, const float* __restrict__ emi,
@@ -65,14 +92,15 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
   float* sr = smem;             // slab, then T (row-major [s][l])
   float* si = sr + N * N;
   float* tr = si + N * N;       // operator tile, [kk][row]
-  float* ti = tr + KC * N;
+  float* ti = tr + KC * N;      // (X3: the lo parts 2 KC N further on)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t a = blockIdx.x;
-  const float* gxr = xr + a * (N * N);
-  const float* gxi = xi + a * (N * N);
+  constexpr int xsize = XKIND == dqc::kStoreF32 ? 4 : 2;  // bytes per x element
+  const char* gxr = static_cast<const char*>(xr) + a * (N * N) * xsize;
+  const char* gxi = static_cast<const char*>(xi) + a * (N * N) * xsize;
   constexpr int ykind = YKIND;
   constexpr int ysize = ykind == dqc::kStoreF32 ? 4 : 2;  // bytes per y element
   char* gyr = yr + a * (N * N) * ysize;
@@ -80,8 +108,17 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
 
   // 1. the whole slab into shared memory, times the run when it comes first
   for (int e4 = tid; e4 < N * N / 4; e4 += kThreads) {
-    float4 vr = reinterpret_cast<const float4*>(gxr)[e4];
-    float4 vi = reinterpret_cast<const float4*>(gxi)[e4];
+    float4 vr, vi;
+    if constexpr (XKIND == dqc::kStoreF32) {
+      vr = reinterpret_cast<const float4*>(gxr)[e4];
+      vi = reinterpret_cast<const float4*>(gxi)[e4];
+    } else {
+      float pr[4], pi[4];
+      dqc::load4(gxr, e4, XKIND, pr);
+      dqc::load4(gxi, e4, XKIND, pi);
+      vr = make_float4(pr[0], pr[1], pr[2], pr[3]);
+      vi = make_float4(pi[0], pi[1], pi[2], pi[3]);
+    }
     if (has_diag && diag_first) {
       const int s = (e4 * 4) / N, l0 = (e4 * 4) % N;
       float pr[4] = {vr.x, vr.y, vr.z, vr.w};
@@ -110,25 +147,48 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
     __syncthreads();  // the slab is loaded / the previous tile is consumed
     for (int e = tid; e < KC * N; e += kThreads) {
       const int l = e / KC, kk = e % KC;
-      tr[kk * N + l] = __ldg(elr + l * N + k0 + kk);
-      ti[kk * N + l] = __ldg(eli + l * N + k0 + kk);
+      stage_op<X3>(__ldg(elr + l * N + k0 + kk), __ldg(eli + l * N + k0 + kk),
+                   kk * N + l, tr, ti);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       float br[kCols], bi[kCols];
+      if constexpr (X3) {
+        // El as (hi, hi + lo) parts, the slab values as (hi, lo)
+        float brs[kCols], bis[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        br[j] = tr[kk * N + lane + 32 * j];
-        bi[j] = ti[kk * N + lane + 32 * j];
-      }
+        for (int j = 0; j < kCols; ++j) {
+          const int o = kk * N + lane + 32 * j;
+          br[j] = tr[o];
+          bi[j] = ti[o];
+          brs[j] = br[j] + tr[2 * KC * N + o];
+          bis[j] = bi[j] + ti[2 * KC * N + o];
+        }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float ar = sr[(warp * kRows + i) * N + k0 + kk];
-        const float ai = si[(warp * kRows + i) * N + k0 + kk];
+        for (int i = 0; i < kRows; ++i) {
+          float arh, arl, aih, ail;
+          dqc::split_hl(sr[(warp * kRows + i) * N + k0 + kk], arh, arl);
+          dqc::split_hl(si[(warp * kRows + i) * N + k0 + kk], aih, ail);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          cmac(accr[i][j], acci[i][j], ar, ai, br[j], bi[j]);
+          for (int j = 0; j < kCols; ++j)
+            dqc::cmac3(accr[i][j], acci[i][j], arh, arl, aih, ail, br[j],
+                       brs[j], bi[j], bis[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          br[j] = tr[kk * N + lane + 32 * j];
+          bi[j] = ti[kk * N + lane + 32 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float ar = sr[(warp * kRows + i) * N + k0 + kk];
+          const float ai = si[(warp * kRows + i) * N + k0 + kk];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            cmac(accr[i][j], acci[i][j], ar, ai, br[j], bi[j]);
+        }
       }
     }
   }
@@ -147,8 +207,8 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
     __syncthreads();  // T is complete / the previous tile is consumed
     for (int e = tid; e < KC * N; e += kThreads) {
       const int s = e / KC, kk = e % KC;
-      tr[kk * N + s] = __ldg(emr + s * N + k0 + kk);
-      ti[kk * N + s] = __ldg(emi + s * N + k0 + kk);
+      stage_op<X3>(__ldg(emr + s * N + k0 + kk), __ldg(emi + s * N + k0 + kk),
+                   kk * N + s, tr, ti);
     }
     __syncthreads();
 #pragma unroll
@@ -159,13 +219,33 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
         br[j] = sr[(k0 + kk) * N + lane + 32 * j];
         bi[j] = si[(k0 + kk) * N + lane + 32 * j];
       }
+      if constexpr (X3) {
+        // Em as (hi, lo) parts, T's values as (hi, hi + lo)
+        float brh[kCols], brs[kCols], bih[kCols], bis[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float ar = tr[kk * N + warp * kRows + i];
-        const float ai = ti[kk * N + warp * kRows + i];
+        for (int j = 0; j < kCols; ++j) {
+          dqc::split_hs(br[j], brh[j], brs[j]);
+          dqc::split_hs(bi[j], bih[j], bis[j]);
+        }
 #pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          cmac(accr[i][j], acci[i][j], ar, ai, br[j], bi[j]);
+        for (int i = 0; i < kRows; ++i) {
+          const int o = kk * N + warp * kRows + i;
+          const float arh = tr[o], aih = ti[o];
+          const float arl = tr[2 * KC * N + o], ail = ti[2 * KC * N + o];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            dqc::cmac3(accr[i][j], acci[i][j], arh, arl, aih, ail, brh[j],
+                       brs[j], bih[j], bis[j]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float ar = tr[kk * N + warp * kRows + i];
+          const float ai = ti[kk * N + warp * kRows + i];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            cmac(accr[i][j], acci[i][j], ar, ai, br[j], bi[j]);
+        }
       }
     }
   }
@@ -194,30 +274,53 @@ dual_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
 
 }  // namespace
 
+template <int XKIND, int YKIND, bool X3>
+int launch(const void* xr, const void* xi, void* yr, void* yi, const float* elr,
+           const float* eli, const float* emr, const float* emi,
+           const DiagTables& d, int has_diag, int diag_first, int conj,
+           int has_acc, long long A, cudaStream_t stream) {
+  auto kernel = dual_apply_kernel<XKIND, YKIND, X3>;
+  constexpr int kSmem = smem_bytes<X3>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)A, kThreads, kSmem, stream>>>(
+      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), elr, eli, emr,
+      emi, d, has_diag, diag_first, conj, has_acc);
+  return (int)cudaGetLastError();
+}
+
 // On planes (A, 128, 128): y <- [acc +] conj?([D] Em x El^T [D]). y may be
-// x (in place, ykind 0); with has_acc, y holds the accumulator and is added
-// to. y is stored as ykind (0 f32, 1 bf16, 2 f16), x as f32. The six table
-// pointers may be null when has_diag is 0. Returns cudaGetLastError().
-extern "C" int dqc_dual_apply(const float* xr, const float* xi, void* yr,
-                              void* yi, int ykind, const float* elr,
+// x (in place, ykind = xkind); with has_acc, y holds the accumulator and is
+// added to. x is stored as xkind (0 f32, 1 bf16), y as ykind (0 f32, 1 bf16,
+// 2 f16): x f32 into any y, or bf16 into bf16. x3: the products in bf16x3.
+// The six table pointers may be null when has_diag is 0. Returns
+// cudaGetLastError().
+extern "C" int dqc_dual_apply(const void* xr, const void* xi, void* yr,
+                              void* yi, int xkind, int ykind, const float* elr,
                               const float* eli,
                               const float* emr, const float* emi,
                               const float* sl_r, const float* sl_i,
                               const float* as_r, const float* as_i,
                               const float* al_r, const float* al_i,
                               int has_diag, int diag_first, int conj,
-                              int has_acc, long long A, void* stream) {
-  if (A <= 0 || A > 0x7fffffffLL || ykind < 0 || ykind > 2)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = ykind == dqc::kStoreF32    ? dual_apply_kernel<dqc::kStoreF32>
-                : ykind == dqc::kStoreBF16 ? dual_apply_kernel<dqc::kStoreBF16>
-                                           : dual_apply_kernel<dqc::kStoreF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
-  kernel<<<(unsigned)A, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), elr, eli, emr,
-      emi, d, has_diag, diag_first, conj, has_acc);
-  return (int)cudaGetLastError();
+                              int has_acc, int x3, long long A, void* stream) {
+  if (A <= 0 || A > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
+  constexpr int F = dqc::kStoreF32, B = dqc::kStoreBF16, H = dqc::kStoreF16;
+#define DQC_DUAL_CASE(XK, YK, T)                                             \
+  if (xkind == XK && ykind == YK && (x3 != 0) == T)                          \
+    return launch<XK, YK, T>(xr, xi, yr, yi, elr, eli, emr, emi, d, has_diag, \
+                             diag_first, conj, has_acc, A,                   \
+                             (cudaStream_t)stream);
+  DQC_DUAL_CASE(F, F, false)
+  DQC_DUAL_CASE(F, B, false)
+  DQC_DUAL_CASE(F, H, false)
+  DQC_DUAL_CASE(F, F, true)
+  DQC_DUAL_CASE(F, B, true)
+  DQC_DUAL_CASE(F, H, true)
+  DQC_DUAL_CASE(B, B, false)
+  DQC_DUAL_CASE(B, B, true)
+#undef DQC_DUAL_CASE
+  return (int)cudaErrorInvalidValue;
 }

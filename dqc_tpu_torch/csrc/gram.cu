@@ -26,6 +26,15 @@
 // running sum in shared memory (each thread its own entries), which keeps
 // the 29- and 30-qubit Grams, with tens of thousands of columns per thread,
 // as close to the exact sums as the 28-qubit ones.
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernels' f32_of and
+// dot_mode), at X = 128 / 256 / 512: the planes may be stored as bf16
+// (XKIND, decoded as the tile is read) and the products may run bf16x3 (X3:
+// each value split as it is read from the tile, rows into hi and lo, columns
+// into hi and hi + lo, two FMAs per real product). On bf16 planes the split
+// of every value has a zero lo part, so bf16x3 and f32 give the same sums
+// and such a call runs the f32 products. XKIND and X3 are template
+// parameters, so that the f32 Gram keeps its code.
 
 #include "common.cuh"
 
@@ -84,9 +93,52 @@ __device__ __forceinline__ void read_run(const float* run, float (&S)[RX][RY],
     }
 }
 
-template <int X>
+// S += ar br + ai bi, C += ar bi over a thread's (rows, columns) patch of
+// one tile column; X3 in bf16x3.
+template <int RX, int RY, bool X3>
+__device__ __forceinline__ void gram_products(const float (&ar)[RX],
+                                              const float (&ai)[RX],
+                                              const float (&br)[RY],
+                                              const float (&bi)[RY],
+                                              float (&S)[RX][RY],
+                                              float (&Cc)[RX][RY]) {
+  if constexpr (X3) {
+    float brh[RY], brs[RY], bih[RY], bis[RY];
+#pragma unroll
+    for (int j = 0; j < RY; ++j) {
+      dqc::split_hs(br[j], brh[j], brs[j]);
+      dqc::split_hs(bi[j], bih[j], bis[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < RX; ++i) {
+      float arh, arl, aih, ail;
+      dqc::split_hl(ar[i], arh, arl);
+      dqc::split_hl(ai[i], aih, ail);
+#pragma unroll
+      for (int j = 0; j < RY; ++j) {
+        S[i][j] = fmaf(arh, brs[j], S[i][j]);
+        S[i][j] = fmaf(arl, brh[j], S[i][j]);
+        S[i][j] = fmaf(aih, bis[j], S[i][j]);
+        S[i][j] = fmaf(ail, bih[j], S[i][j]);
+        Cc[i][j] = fmaf(arh, bis[j], Cc[i][j]);
+        Cc[i][j] = fmaf(arl, bih[j], Cc[i][j]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RX; ++i)
+#pragma unroll
+      for (int j = 0; j < RY; ++j) {
+        S[i][j] = fmaf(ar[i], br[j], S[i][j]);
+        S[i][j] = fmaf(ai[i], bi[j], S[i][j]);
+        Cc[i][j] = fmaf(ar[i], bi[j], Cc[i][j]);
+      }
+  }
+}
+
+template <int X, int XKIND, bool X3>
 __global__ void __launch_bounds__(kThreads, 1)
-gram_partial_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+gram_partial_kernel(const void* __restrict__ xr, const void* __restrict__ xi,
                     float* __restrict__ part, int64_t Q, int64_t ntiles) {
   using Cfg = GramCfg<X>;
   constexpr int RX = Cfg::RX, RY = Cfg::RY, TC = Cfg::TC, G = Cfg::G;
@@ -116,22 +168,20 @@ gram_partial_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     __syncthreads();  // the previous tile is consumed
     if (Q == 1) {
       // lane view: a tile is CB * X contiguous floats, x fastest
-      const float* pr = xr + g0 * X;
-      const float* pi = xi + g0 * X;
+      const int64_t b0 = g0 * X;
       for (int e = tid; e < CB * X; e += kThreads) {
         const int c = e / X, x = e % X;
-        tr[c * LD + x] = pr[e];
-        ti[c * LD + x] = pi[e];
+        tr[c * LD + x] = dqc::load_plane(xr, b0 + e, XKIND);
+        ti[c * LD + x] = dqc::load_plane(xi, b0 + e, XKIND);
       }
     } else {
       // CB divides Q: a tile's columns share p and are contiguous per x
       const int64_t p = g0 / Q, q0 = g0 - p * Q;
-      const float* pr = xr + p * X * Q + q0;
-      const float* pi = xi + p * X * Q + q0;
+      const int64_t b0 = p * X * Q + q0;
       for (int e = tid; e < CB * X; e += kThreads) {
         const int x = e / CB, c = e % CB;
-        tr[c * LD + x] = pr[x * Q + c];
-        ti[c * LD + x] = pi[x * Q + c];
+        tr[c * LD + x] = dqc::load_plane(xr, b0 + x * Q + c, XKIND);
+        ti[c * LD + x] = dqc::load_plane(xi, b0 + x * Q + c, XKIND);
       }
     }
     __syncthreads();
@@ -147,14 +197,7 @@ gram_partial_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         br[j] = tr[c * LD + cy + TC * j];
         bi[j] = ti[c * LD + cy + TC * j];
       }
-#pragma unroll
-      for (int i = 0; i < RX; ++i)
-#pragma unroll
-        for (int j = 0; j < RY; ++j) {
-          S[i][j] = fmaf(ar[i], br[j], S[i][j]);
-          S[i][j] = fmaf(ai[i], bi[j], S[i][j]);
-          Cc[i][j] = fmaf(ar[i], bi[j], Cc[i][j]);
-        }
+      gram_products<RX, RY, X3>(ar, ai, br, bi, S, Cc);
     }
     if (++chunk == kChunkTiles) {
       add_chunk<RX, RY>(S, Cc, run);
@@ -199,10 +242,10 @@ gram_partial_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // neighbours in the grid, so their tiles come from L2. Each block writes its
 // patch of its group's partial part[group], every entry of which one block
 // writes.
-template <int NRB>
+template <int NRB, int XKIND, bool X3>
 __global__ void __launch_bounds__(kThreads, 1)
-gram_wide_partial_kernel(const float* __restrict__ xr,
-                         const float* __restrict__ xi, float* __restrict__ part,
+gram_wide_partial_kernel(const void* __restrict__ xr,
+                         const void* __restrict__ xi, float* __restrict__ part,
                          int64_t Q, int64_t ntiles) {
   using Cfg = GramCfg<128>;
   constexpr int X = NRB * 128;
@@ -232,17 +275,16 @@ gram_wide_partial_kernel(const float* __restrict__ xr,
   for (int64_t tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
     const int64_t g0 = tile * CB;
     const int64_t p = g0 / Q, q0 = g0 - p * Q;
-    const float* pr = xr + p * X * Q + q0;
-    const float* pi = xi + p * X * Q + q0;
+    const int64_t b0 = p * X * Q + q0;
     __syncthreads();  // the previous tile is consumed
     for (int e = tid; e < CB * 128; e += kThreads) {
       const int x = e / CB, c = e % CB;
-      const int64_t oa = (int64_t)(bx * 128 + x) * Q + c;
-      const int64_t ob = (int64_t)(by * 128 + x) * Q + c;
-      ar_[c * LD + x] = pr[oa];
-      ai_[c * LD + x] = pi[oa];
-      br_[c * LD + x] = pr[ob];
-      bi_[c * LD + x] = pi[ob];
+      const int64_t oa = b0 + (int64_t)(bx * 128 + x) * Q + c;
+      const int64_t ob = b0 + (int64_t)(by * 128 + x) * Q + c;
+      ar_[c * LD + x] = dqc::load_plane(xr, oa, XKIND);
+      ai_[c * LD + x] = dqc::load_plane(xi, oa, XKIND);
+      br_[c * LD + x] = dqc::load_plane(xr, ob, XKIND);
+      bi_[c * LD + x] = dqc::load_plane(xi, ob, XKIND);
     }
     __syncthreads();
     for (int c = 0; c < CB; ++c) {
@@ -257,14 +299,7 @@ gram_wide_partial_kernel(const float* __restrict__ xr,
         br[j] = br_[c * LD + cy + TC * j];
         bi[j] = bi_[c * LD + cy + TC * j];
       }
-#pragma unroll
-      for (int i = 0; i < RX; ++i)
-#pragma unroll
-        for (int j = 0; j < RY; ++j) {
-          S[i][j] = fmaf(ar[i], br[j], S[i][j]);
-          S[i][j] = fmaf(ai[i], bi[j], S[i][j]);
-          Cc[i][j] = fmaf(ar[i], bi[j], Cc[i][j]);
-        }
+      gram_products<RX, RY, X3>(ar, ai, br, bi, S, Cc);
     }
     if (++chunk == kChunkTiles) {
       add_chunk<RX, RY>(S, Cc, run);
@@ -295,18 +330,18 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part,
   out[e] = acc;
 }
 
-template <int X>
-int launch(const float* xr, const float* xi, float* part, float* out,
+template <int X, int XKIND = dqc::kStoreF32, bool X3 = false>
+int launch(const void* xr, const void* xi, float* part, float* out,
            long long P, long long Q, int nblk, cudaStream_t stream) {
   using Cfg = GramCfg<X>;
   const long long cols = P * Q;
   if (cols % Cfg::CB != 0 || (Q != 1 && Q % Cfg::CB != 0) || nblk <= 0)
     return (int)cudaErrorInvalidValue;
+  auto kernel = gram_partial_kernel<X, XKIND, X3>;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_partial_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  gram_partial_kernel<X><<<nblk, kThreads, Cfg::kSmemBytes, stream>>>(
+  kernel<<<nblk, kThreads, Cfg::kSmemBytes, stream>>>(
       xr, xi, part, (int64_t)Q, (int64_t)(cols / Cfg::CB));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -315,21 +350,20 @@ int launch(const float* xr, const float* xi, float* part, float* out,
   return (int)cudaGetLastError();
 }
 
-template <int NRB>
-int launch_wide(const float* xr, const float* xi, float* part, float* out,
+template <int NRB, int XKIND = dqc::kStoreF32, bool X3 = false>
+int launch_wide(const void* xr, const void* xi, float* part, float* out,
                 long long P, long long Q, int nblk, cudaStream_t stream) {
   constexpr int X = NRB * 128;
   constexpr int CB = GramCfg<128>::CB;
   constexpr int kSmemBytes = 2 * GramCfg<128>::kTileBytes + GramCfg<128>::kRunBytes;
   if (Q == 1 || Q % CB != 0 || nblk <= 0 || nblk > 65535)
     return (int)cudaErrorInvalidValue;
+  auto kernel = gram_wide_partial_kernel<NRB, XKIND, X3>;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_wide_partial_kernel<NRB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  gram_wide_partial_kernel<NRB><<<dim3(NRB * NRB, nblk), kThreads, kSmemBytes,
-                                  stream>>>(xr, xi, part, (int64_t)Q,
-                                            (int64_t)(P * Q / CB));
+  kernel<<<dim3(NRB * NRB, nblk), kThreads, kSmemBytes, stream>>>(
+      xr, xi, part, (int64_t)Q, (int64_t)(P * Q / CB));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n2 = 2 * X * X;
@@ -343,12 +377,36 @@ int launch_wide(const float* xr, const float* xi, float* part, float* out,
 // out[0] = S, out[1] = C (each X x X). part is scratch of nblk * 2 * X * X
 // floats and nblk the number of partial-sum blocks (at most the number of
 // tiles, P Q X / 4096, for X <= 128) or of column groups (at most P Q / 32,
-// for X > 128, where Q must be a multiple of 32). Returns
-// cudaGetLastError().
-extern "C" int dqc_gram(const float* xr, const float* xi, float* part,
+// for X > 128, where Q must be a multiple of 32). The planes are stored as
+// kind (0 f32, 1 bf16) and x3 runs the products bf16x3; both other than 0
+// take X in {128, 256, 512}. Returns cudaGetLastError().
+extern "C" int dqc_gram(const void* xr, const void* xi, float* part,
                         float* out, long long P, int X, long long Q, int nblk,
-                        void* stream) {
+                        int kind, int x3, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  constexpr int B = dqc::kStoreBF16;
+  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
+  if (kind == B || x3) {
+    // bf16 values split with a zero lo part: bf16x3 is the f32 product there
+    const bool split = kind != B;
+    switch (X) {
+      case 128:
+        return split ? launch<128, dqc::kStoreF32, true>(xr, xi, part, out, P,
+                                                          Q, nblk, s)
+                     : launch<128, B, false>(xr, xi, part, out, P, Q, nblk, s);
+      case 256:
+        return split ? launch_wide<2, dqc::kStoreF32, true>(xr, xi, part, out,
+                                                             P, Q, nblk, s)
+                     : launch_wide<2, B, false>(xr, xi, part, out, P, Q, nblk,
+                                                s);
+      case 512:
+        return split ? launch_wide<4, dqc::kStoreF32, true>(xr, xi, part, out,
+                                                             P, Q, nblk, s)
+                     : launch_wide<4, B, false>(xr, xi, part, out, P, Q, nblk,
+                                                s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (X) {
     case 8: return launch<8>(xr, xi, part, out, P, Q, nblk, s);
     case 16: return launch<16>(xr, xi, part, out, P, Q, nblk, s);

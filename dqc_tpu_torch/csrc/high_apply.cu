@@ -29,6 +29,14 @@
 // shared memory (64 KB) before it writes, so the output may be the input, and
 // each thread keeps 8 rows x 4 columns of the product in registers while
 // 16-deep tiles of E stream through shared memory.
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
+// on its input and its dot_mode), at X = 128 and, for the seeds, X = 256 /
+// 512: x may be stored as bf16 (XKIND), in place or a seed from it into
+// bf16 cotangent planes, and the product may run bf16x3 (X3): the E tile is
+// staged as its hi and lo bf16 parts and each x value split into hi and
+// hi + lo as it is read (common.cuh cmac3). XKIND, YKIND and X3 are
+// template parameters, so that the f32 sweep keeps its code.
 
 #include "wide_apply.cuh"
 
@@ -40,7 +48,7 @@ using dqc::diag_at;
 
 constexpr int kThreads = 256;
 
-template <int X>
+template <int X, bool X3 = false>
 struct HighCfg {
   static constexpr int kRows = 8;                          // rows per thread
   static constexpr int kColsPerThread = 4;
@@ -48,7 +56,8 @@ struct HighCfg {
   static constexpr int C = kColThreads * kColsPerThread;   // columns per block
   static constexpr int KC = X < 16 ? X : 16;               // E tile depth
   static constexpr int LDE = KC + 1;                       // padded E tile row
-  static constexpr int kSmemBytes = (2 * X * C + 2 * X * LDE) * sizeof(float);
+  static constexpr int kSmemBytes =
+      (2 * X * C + (X3 ? 4 : 2) * X * LDE) * (int)sizeof(float);
 };
 
 __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
@@ -69,14 +78,14 @@ __device__ __forceinline__ void view_diag(const DiagTables& d, int64_t i,
   diag_at(d, (i * X + x) * post + p, s, l, dr, di);
 }
 
-template <int X, int YKIND>
+template <int X, int XKIND, int YKIND, bool X3>
 __global__ void __launch_bounds__(kThreads)
-high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
+high_apply_kernel(const void* xr, const void* xi, char* yr, char* yi,
                   const float* __restrict__ er,
                   const float* __restrict__ ei,
                   DiagTables d, int has_diag, int diag_first, int conj,
                   int has_acc, int64_t Q, int64_t post) {
-  using Cfg = HighCfg<X>;
+  using Cfg = HighCfg<X, X3>;
   constexpr int C = Cfg::C;
   constexpr int KC = Cfg::KC;
   constexpr int LDE = Cfg::LDE;
@@ -84,8 +93,10 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
   extern __shared__ float smem[];
   float* vr = smem;             // input tile [x][c]
   float* vi = vr + X * C;
-  float* tr = vi + X * C;       // E tile [row][kk]
+  float* tr = vi + X * C;       // E tile [row][kk] (X3: its hi part)
   float* ti = tr + X * LDE;
+  float* tlr = ti + X * LDE;    // X3: the E tile's lo part
+  float* tli = tlr + X * LDE;
 
   const int tid = threadIdx.x;
   const int rg = tid / TC;      // row group: rows rg * 8 + r
@@ -93,8 +104,10 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
   const int64_t g0 = (int64_t)blockIdx.x * C;
   const int64_t i = g0 / Q;
   const int64_t q0 = g0 - i * Q;
-  const float* bxr = xr + i * X * Q + q0;   // element (x, c) at bxr[x * Q + c]
-  const float* bxi = xi + i * X * Q + q0;
+  constexpr int xsize = XKIND == dqc::kStoreF32 ? 4 : 2;  // bytes per x element
+  // element (x, c) at bx[x Q + c]
+  const char* bxr = static_cast<const char*>(xr) + (i * X * Q + q0) * xsize;
+  const char* bxi = static_cast<const char*>(xi) + (i * X * Q + q0) * xsize;
   constexpr int ykind = YKIND;  // y's storage, a template parameter
   constexpr int ysize = ykind == dqc::kStoreF32 ? 4 : 2;  // bytes per y element
   char* byr = yr + (i * X * Q + q0) * ysize;
@@ -103,7 +116,8 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
   // 1. the whole X-deep tile of this block's columns, times the run if first
   for (int e = tid; e < X * C; e += kThreads) {
     const int x = e / C, c = e % C;
-    float ar = bxr[x * Q + c], ai = bxi[x * Q + c];
+    float ar = dqc::load_plane(bxr, x * Q + c, XKIND);
+    float ai = dqc::load_plane(bxi, x * Q + c, XKIND);
     if (has_diag && diag_first) {
       float dr, di;
       view_diag(d, i, X, x, q0 + c, post, dr, di);
@@ -124,8 +138,9 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
     __syncthreads();  // the tile is loaded / the previous E tile is consumed
     for (int e = tid; e < X * KC; e += kThreads) {
       const int row = e / KC, kk = e % KC;
-      tr[row * LDE + kk] = __ldg(er + row * X + k0 + kk);
-      ti[row * LDE + kk] = __ldg(ei + row * X + k0 + kk);
+      dqc::stage_op<X3>(__ldg(er + row * X + k0 + kk),
+                        __ldg(ei + row * X + k0 + kk), row * LDE + kk, tr, ti,
+                        tlr, tli);
     }
     __syncthreads();
 #pragma unroll
@@ -136,13 +151,32 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
         br[j] = vr[(k0 + kk) * C + tc + TC * j];
         bi[j] = vi[(k0 + kk) * C + tc + TC * j];
       }
+      if constexpr (X3) {
+        float brh[Cfg::kColsPerThread], brs[Cfg::kColsPerThread];
+        float bih[Cfg::kColsPerThread], bis[Cfg::kColsPerThread];
 #pragma unroll
-      for (int r = 0; r < Cfg::kRows; ++r) {
-        const float ar = tr[(rg * Cfg::kRows + r) * LDE + kk];
-        const float ai = ti[(rg * Cfg::kRows + r) * LDE + kk];
+        for (int j = 0; j < Cfg::kColsPerThread; ++j) {
+          dqc::split_hs(br[j], brh[j], brs[j]);
+          dqc::split_hs(bi[j], bih[j], bis[j]);
+        }
 #pragma unroll
-        for (int j = 0; j < Cfg::kColsPerThread; ++j)
-          cmac(accr[r][j], acci[r][j], ar, ai, br[j], bi[j]);
+        for (int r = 0; r < Cfg::kRows; ++r) {
+          const int o = (rg * Cfg::kRows + r) * LDE + kk;
+          const float arh = tr[o], aih = ti[o], arl = tlr[o], ail = tli[o];
+#pragma unroll
+          for (int j = 0; j < Cfg::kColsPerThread; ++j)
+            dqc::cmac3(accr[r][j], acci[r][j], arh, arl, aih, ail, brh[j],
+                       brs[j], bih[j], bis[j]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < Cfg::kRows; ++r) {
+          const float ar = tr[(rg * Cfg::kRows + r) * LDE + kk];
+          const float ai = ti[(rg * Cfg::kRows + r) * LDE + kk];
+#pragma unroll
+          for (int j = 0; j < Cfg::kColsPerThread; ++j)
+            cmac(accr[r][j], acci[r][j], ar, ai, br[j], bi[j]);
+        }
       }
     }
   }
@@ -169,36 +203,58 @@ high_apply_kernel(const float* xr, const float* xi, char* yr, char* yi,
     }
 }
 
-template <int X, int YKIND>
-int launch_kind(const float* xr, const float* xi, void* yr, void* yi,
+template <int X, int XKIND, int YKIND, bool X3>
+int launch_kind(const void* xr, const void* xi, void* yr, void* yi,
                 const float* er, const float* ei, const DiagTables& d,
                 int has_diag, int diag_first, int conj, int has_acc,
                 long long A1, long long Q, cudaStream_t stream) {
-  using Cfg = HighCfg<X>;
+  using Cfg = HighCfg<X, X3>;
   if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (Q / Cfg::C);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = high_apply_kernel<X, XKIND, YKIND, X3>;
   cudaError_t err = cudaFuncSetAttribute(
-      high_apply_kernel<X, YKIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  high_apply_kernel<X, YKIND><<<(unsigned)blocks, kThreads, Cfg::kSmemBytes,
-                                stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, Cfg::kSmemBytes, stream>>>(
       xr, xi, static_cast<char*>(yr), static_cast<char*>(yi), er, ei, d,
       has_diag, diag_first, conj, has_acc, (int64_t)Q, (int64_t)(Q >> 14));
   return (int)cudaGetLastError();
 }
 
+constexpr int F = dqc::kStoreF32, B = dqc::kStoreBF16, H = dqc::kStoreF16;
+
+// f32 x into y of any storage, f32 products (every X)
 template <int X>
-int launch(const float* xr, const float* xi, void* yr, void* yi, int ykind,
+int launch(const void* xr, const void* xi, void* yr, void* yi, int ykind,
            const float* er, const float* ei, const DiagTables& d, int has_diag,
            int diag_first, int conj, int has_acc, long long A1, long long Q,
            cudaStream_t stream) {
-  auto fn = ykind == dqc::kStoreF32    ? launch_kind<X, dqc::kStoreF32>
-            : ykind == dqc::kStoreBF16 ? launch_kind<X, dqc::kStoreBF16>
-                                       : launch_kind<X, dqc::kStoreF16>;
+  auto fn = ykind == F   ? launch_kind<X, F, F, false>
+            : ykind == B ? launch_kind<X, F, B, false>
+                         : launch_kind<X, F, H, false>;
   return fn(xr, xi, yr, yi, er, ei, d, has_diag, diag_first, conj, has_acc, A1,
             Q, stream);
+}
+
+// X = 128 with bf16 x (into bf16 y) or bf16x3 products: the variants of the
+// forward storage and dot mode
+int launch_fwd16(const void* xr, const void* xi, void* yr, void* yi, int xkind,
+                 int ykind, int x3, const float* er, const float* ei,
+                 const DiagTables& d, int has_diag, int diag_first, int conj,
+                 int has_acc, long long A1, long long Q, cudaStream_t stream) {
+#define DQC_FWD16_CASE(XK, YK, T)                                          \
+  if (xkind == XK && ykind == YK && (x3 != 0) == T)                        \
+    return launch_kind<128, XK, YK, T>(xr, xi, yr, yi, er, ei, d, has_diag, \
+                                       diag_first, conj, has_acc, A1, Q,   \
+                                       stream);
+  DQC_FWD16_CASE(F, F, true)
+  DQC_FWD16_CASE(F, B, true)
+  DQC_FWD16_CASE(F, H, true)
+  DQC_FWD16_CASE(B, B, false)
+  DQC_FWD16_CASE(B, B, true)
+#undef DQC_FWD16_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,20 +264,36 @@ int launch(const float* xr, const float* xi, void* yr, void* yi, int ykind,
 // 32). y may be x (in place); with has_acc, y holds the accumulator and is
 // added to. With has_diag, Q must be a multiple of
 // 128 * 128 (M = post * 128). y is stored as ykind (0 f32, 1 bf16, 2 f16;
-// the seed modes' cotangent planes), x as f32. Returns cudaGetLastError().
-extern "C" int dqc_high_apply(const float* xr, const float* xi, void* yr,
-                              void* yi, int ykind, const float* er,
+// the seed modes' cotangent planes), x as xkind (0 f32, 1 bf16: into bf16
+// y); x3 runs the product bf16x3. bf16 x and x3 take X = 128, and X = 256 /
+// 512 with y other planes than x (the seeds). Returns cudaGetLastError().
+extern "C" int dqc_high_apply(const void* xr, const void* xi, void* yr,
+                              void* yi, int xkind, int ykind, const float* er,
                               const float* ei,
                               const float* sl_r, const float* sl_i,
                               const float* as_r, const float* as_i,
                               const float* al_r, const float* al_i,
                               int has_diag, int diag_first, int conj,
-                              int has_acc, long long A1, int X, long long Q,
-                              void* stream) {
+                              int has_acc, int x3, long long A1, int X,
+                              long long Q, void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
-  if (ykind < 0 || ykind > 2) return (int)cudaErrorInvalidValue;
+  if (ykind < 0 || ykind > 2 || xkind < 0 || xkind > 1)
+    return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
+  if (xkind != F || x3) {
+    if (X == 128)
+      return launch_fwd16(xr, xi, yr, yi, xkind, ykind, x3, er, ei, d, has_diag,
+                          diag_first, conj, has_acc, A1, Q, s);
+    if (has_diag || xr == yr) return (int)cudaErrorInvalidValue;
+    if (X == 256)
+      return dqc::launch_wide_seed<256>(xr, xi, yr, yi, xkind, ykind, x3, er,
+                                        ei, conj, has_acc, A1, Q, s);
+    if (X == 512)
+      return dqc::launch_wide_seed<512>(xr, xi, yr, yi, xkind, ykind, x3, er,
+                                        ei, conj, has_acc, A1, Q, s);
+    return (int)cudaErrorInvalidValue;
+  }
 #define DQC_HIGH_CASE(XX)                                                    \
   case XX:                                                                   \
     return launch<XX>(xr, xi, yr, yi, ykind, er, ei, d, has_diag, diag_first, \
@@ -234,11 +306,15 @@ extern "C" int dqc_high_apply(const float* xr, const float* xi, void* yr,
     DQC_HIGH_CASE(128)
     case 256:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return dqc::launch_wide_apply<256>(xr, xi, yr, yi, ykind, er, ei, 0,
+      return dqc::launch_wide_apply<256>(static_cast<const float*>(xr),
+                                         static_cast<const float*>(xi), yr, yi,
+                                         ykind, er, ei, 0,
                                          conj, has_acc, A1, Q, s);
     case 512:
       if (has_diag) return (int)cudaErrorInvalidValue;
-      return dqc::launch_wide_apply<512>(xr, xi, yr, yi, ykind, er, ei, 0,
+      return dqc::launch_wide_apply<512>(static_cast<const float*>(xr),
+                                         static_cast<const float*>(xi), yr, yi,
+                                         ykind, er, ei, 0,
                                          conj, has_acc, A1, Q, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -235,6 +235,30 @@ inline int launch_wide_apply(const float* xr, const float* xi, void* yr,
   return fn(xr, xi, yr, yi, er, ei, trans, conj, has_acc, A1, Q, stream);
 }
 
+// The seeds of the high apply (y other planes than x, no transpose) with
+// bf16 x (into bf16 y) or bf16x3 products ("bf16" storage and the forward
+// bf16x3): x stored as xkind (0 f32, 1 bf16), y as ykind, x3 the product's
+// mode.
+template <int X>
+inline int launch_wide_seed(const void* xr, const void* xi, void* yr,
+                            void* yi, int xkind, int ykind, int x3,
+                            const float* er, const float* ei, int conj,
+                            int has_acc, long long A1, long long Q,
+                            cudaStream_t stream) {
+  constexpr int F = kStoreF32, B = kStoreBF16, H = kStoreF16;
+#define DQC_WIDE_SEED(XK, YK, T)                                           \
+  if (xkind == XK && ykind == YK && (x3 != 0) == T)                        \
+    return launch_wide_kind<X, XK, YK, T>(xr, xi, yr, yi, er, ei, 0, conj, \
+                                          has_acc, A1, Q, stream);
+  DQC_WIDE_SEED(F, F, true)
+  DQC_WIDE_SEED(F, B, true)
+  DQC_WIDE_SEED(F, H, true)
+  DQC_WIDE_SEED(B, B, false)
+  DQC_WIDE_SEED(B, B, true)
+#undef DQC_WIDE_SEED
+  return (int)cudaErrorInvalidValue;
+}
+
 // The in-place apply on planes stored as kind (0 f32, 1 bf16, 2 f16), the
 // product bf16x3 with x3: the X = 256 / 512 adjoint's transport on B.
 template <int X>

@@ -20,11 +20,16 @@ ah bl + al bh`` accumulated in f32. ``ah (bh + bl) + al bh`` is the same
 sum: every product of those parts is exact in f32 (``bh + bl`` has at most
 16 significant bits), so only the f32 accumulation rounds.
 
-Beside them: the cotangent planes' load, round and store in the plain
-versions, the wrappers' mode checks, ``mode_launches`` counters and
-refusals (a kernel without a storage or dot mode raises, never falls back
-to f32), and the yardsticks the kernels are held to under reduced storage
-(``ulps_apart``, ``gram_tolerance``).
+The forward planes are stored as float32 or bfloat16 ("bf16" storage),
+with the same codec; the forward products (the applies, the Grams, the
+seeds and the adjoints' uncompute) run in the forward dot mode
+(``config.kernel_dot_mode``).
+
+Beside them: the planes' load, round and store in the plain versions, the
+wrappers' mode checks, ``mode_launches`` counters and refusals (a kernel
+without a storage or dot mode raises, never falls back to f32), and the
+yardsticks the kernels are held to under reduced storage (``ulps_apart``,
+``gram_tolerance``).
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ from typing import Tuple
 import torch
 
 STORAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FWD_DTYPES = (torch.float32, torch.bfloat16)   # the forward planes' storages
 DOT_MODES = ("f32", "bf16x3")
+# where the kernels and shapes that take neither bf16 forward planes nor the
+# forward bf16x3 yet are listed
+NOT_PORTED_FWD = "see ROADMAP.md, queue B item 5"
 _F16_MIN_NORMAL = 2.0 ** -14
 _F16_MAX = 65504.0
 
@@ -115,8 +124,9 @@ def cmatmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """``a @ b`` of complex64 tensors in dot mode ``mode``: an operator
     (2-D) times a batch of planes or a batch times an operator. bf16x3
     runs a chunk of the planes at a time (their hi and lo parts are four
-    plane-sized copies at once otherwise)."""
-    if mode == "f32":
+    plane-sized copies at once otherwise). On the meta device (shapes only:
+    the dry runs of the dispatch) it is one product."""
+    if mode == "f32" or b.device.type == "meta":
         return torch.matmul(a, b)
     if a.dim() == 2:  # the operator on the left: columns are independent
         out = torch.empty((*b.shape[:-2], a.shape[0], b.shape[-1]),
@@ -139,7 +149,7 @@ def pair_sum(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     leading axis at a time, the chunks' sums added in order."""
     from dqc_tpu_torch.ops.kernels.gram import pair_sum as exact
 
-    if mode == "f32":
+    if mode == "f32" or a.device.type == "meta":
         return exact(a, b)
     step = max(1, _CHUNK // max(1, a[0].numel()))
     out = None
@@ -152,14 +162,14 @@ def pair_sum(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def load_b(br, bi) -> torch.Tensor:
-    """Cotangent planes of any storage as a complex64 tensor (the kernels'
-    decode)."""
+    """Planes of any storage (the cotangent's, or the forward planes'
+    float32 / bfloat16) as a complex64 tensor (the kernels' decode)."""
     return torch.complex(f32_of(br), f32_of(bi))
 
 
 def round_b(B: torch.Tensor, dtype) -> torch.Tensor:
-    """A complex cotangent rounded to the planes' storage, as a store and a
-    reload give it."""
+    """A complex state (cotangent or forward) rounded to the planes'
+    storage, as a store and a reload give it."""
     if dtype == torch.float32:
         return B
     return torch.complex(quantize(B.real.contiguous(), dtype),
@@ -167,15 +177,48 @@ def round_b(B: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def store_b(B: torch.Tensor, dtype):
-    """A complex cotangent as planes of ``dtype`` (the kernels' encode)."""
+    """A complex state (cotangent or forward) as planes of ``dtype`` (the
+    kernels' encode)."""
     return (store_as(B.real.contiguous(), dtype),
             store_as(B.imag.contiguous(), dtype))
 
 
-def check_modes(what: str, fr, br, bi, bwd_mode: str, gram_mode: str) -> None:
-    """F is float32, B of the storage dtypes (both of one), the dot modes
-    known."""
-    refuse_reduced(what, fr)
+def check_fwd(what: str, fr, fi, dot_mode: str = "f32") -> None:
+    """F stored as float32 or bfloat16 (both planes of one dtype), the
+    forward dot mode known."""
+    if fr.dtype not in FWD_DTYPES or fi.dtype != fr.dtype:
+        if fr.dtype == torch.float16 or fi.dtype == torch.float16:
+            raise NotImplementedError(
+                f"{what}: float16 input planes (a cotangent stored as \"f16\" "
+                f"handed to a forward kernel) are not ported; {NOT_PORTED_FWD}")
+        raise TypeError(f"{what}: forward planes of {fr.dtype} and {fi.dtype}, "
+                        f"want one of {FWD_DTYPES}")
+    check_dot_mode(what, dot_mode)
+
+
+def refuse_fwd(what: str, fdtype, dot_mode: str) -> None:
+    """Raise for bf16 forward planes or the forward bf16x3 handed to a
+    kernel, or a shape of one, that takes neither yet."""
+    if fdtype == torch.bfloat16 or dot_mode == "bf16x3":
+        raise NotImplementedError(
+            f"{what}: bf16 forward planes and the forward bf16x3 are not "
+            f"ported here yet; {NOT_PORTED_FWD}")
+
+
+def count_fwd(wrapper, fdtype, dot_mode: str) -> None:
+    """Count a launch on bf16 forward planes ("fwd_bf16") and in the forward
+    bf16x3 ("fwd_bf16x3") in ``wrapper.mode_launches``."""
+    if fdtype == torch.bfloat16:
+        wrapper.mode_launches["fwd_bf16"] += 1
+    if dot_mode == "bf16x3":
+        wrapper.mode_launches["fwd_bf16x3"] += 1
+
+
+def check_modes(what: str, fr, br, bi, bwd_mode: str, gram_mode: str,
+                dot_mode: str = "f32") -> None:
+    """F of the forward storages, B of the storage dtypes (both of one),
+    the dot modes known."""
+    check_fwd(what, fr, fr, dot_mode)
     storage_kind(br.dtype)
     if bi.dtype != br.dtype:
         raise TypeError(f"{what}: cotangent planes of two dtypes")
@@ -209,16 +252,6 @@ def check_apply_storage(what: str, xdtype, ydtype) -> None:
         raise TypeError(f"{what}: planes stored as {xdtype} into {ydtype}: an "
                         "apply reads f32 into any storage, or one storage in "
                         "and out")
-
-
-def refuse_reduced(kernel: str, *planes) -> None:
-    """Raise for a plane stored reduced, handed to a kernel that takes f32
-    planes only (the forward kernels and the Grams)."""
-    for p in planes:
-        if p is not None and p.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{kernel}: {p.dtype} planes (reduced storage) are not ported "
-                "to this kernel yet; see ROADMAP.md")
 
 
 def seed_out(yr, yi, conj: bool, acc, out_dtype=None):

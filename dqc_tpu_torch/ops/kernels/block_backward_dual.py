@@ -31,13 +31,17 @@ T0_sub_r, T0_sub_i)``, then with ``diag_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i,
 Qal_r, Qal_i)``.
 
 The cotangent planes ``B`` may be stored as float32, bfloat16 or float16
-(the kernels' codec, ops/kernels/_storage.py; ``F`` stays float32), and the
-transports and the pair grams run in ``bwd_mode`` / ``gram_mode`` ("f32"
-or "bf16x3"; the uncomputes in f32), as the TPU kernel's ``bwd_dot_mode``
-and ``gram_dot_mode``. ``B`` is rounded to its storage where the TPU kernel
-stores and reloads it: between the two steps and next to the run. Such
-launches are also counted in ``mode_launches`` ("bf16" / "f16" for the
-storage, "bf16x3" for the transports, "gram_bf16x3" for the pair grams).
+(the kernels' codec, ops/kernels/_storage.py) and the forward planes ``F``
+as float32 or bfloat16 ("bf16" storage); the uncomputes run in
+``dot_mode``, the transports and the pair grams in ``bwd_mode`` /
+``gram_mode`` ("f32" or "bf16x3"), as the TPU kernel's ``dot_mode``,
+``bwd_dot_mode`` and ``gram_dot_mode``. ``F`` and ``B`` are rounded to
+their storage where the TPU kernel stores and reloads them: between the
+two steps and next to the run. Such launches are also counted in
+``mode_launches`` ("bf16" / "f16" for B's storage, "bf16x3" for the
+transports, "gram_bf16x3" for the pair grams, "fwd_bf16" for F's storage
+and "fwd_bf16x3" for the uncomputes). ``diag_q`` on bf16 forward planes
+raises (ROADMAP.md, queue B item 5).
 """
 
 from __future__ import annotations
@@ -64,14 +68,14 @@ def block_backward_dual_plain(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
                               diag_tables: Optional[Sequence[torch.Tensor]] = None,
                               diag_first_fwd: bool = True,
                               diag_q: bool = False, bwd_mode: str = "f32",
-                              gram_mode: str = "f32"):
+                              gram_mode: str = "f32", dot_mode: str = "f32"):
     """Plain PyTorch version of the kernel (complex64 matmuls in the dot
-    modes, B decoded, rounded and encoded where the kernel does); fresh
-    outputs."""
+    modes, F and B decoded, rounded and encoded where the kernel does);
+    fresh outputs."""
     _check_diag_q(diag_q, diag_tables)
     A = fr.shape[0]
-    bdt = br.dtype
-    F, B = torch.complex(fr, fi), load_b(br, bi)
+    bdt, fdt = br.dtype, fr.dtype
+    F, B = load_b(fr, fi), load_b(br, bi)
     E0inv, E0 = torch.complex(e0inv_r, e0inv_i), torch.complex(e0_r, e0_i)
     E1inv, E1 = torch.complex(e1inv_r, e1inv_i), torch.complex(e1_r, e1_i)
     Q = None
@@ -79,30 +83,30 @@ def block_backward_dual_plain(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
         Dinv, D = diag_run(diag_inv_tables), diag_run(diag_tables)
         if not diag_first_fwd:
             Q = B * F if diag_q else None
-            F, B = F * Dinv, round_b(B * D, bdt)
+            F, B = round_b(F * Dinv, fdt), round_b(B * D, bdt)
 
     def sublane(F, B):
-        F = torch.matmul(E1inv, F)
+        F = _st.cmatmul(E1inv, F, dot_mode)
         return (F, _st.cmatmul(E1.transpose(0, 1), B, bwd_mode),
                 _st.pair_sum(B, F, gram_mode))
 
     def lane(F, B):
-        F = torch.matmul(F, E0inv.transpose(0, 1))
+        F = _st.cmatmul(F, E0inv.transpose(0, 1), dot_mode)
         T = _st.pair_sum(B.reshape(A * 128, 128, 1), F.reshape(A * 128, 128, 1),
                          gram_mode)
         return F, _st.cmatmul(B, E0, bwd_mode), T
 
     if g0_first:
         F, B, Ts = sublane(F, B)
-        F, B, Tl = lane(F, round_b(B, bdt))
+        F, B, Tl = lane(round_b(F, fdt), round_b(B, bdt))
     else:
         F, B, Tl = lane(F, B)
-        F, B, Ts = sublane(F, round_b(B, bdt))
+        F, B, Ts = sublane(round_b(F, fdt), round_b(B, bdt))
     if diag_tables is not None and diag_first_fwd:
-        B = round_b(B, bdt)
+        F, B = round_b(F, fdt), round_b(B, bdt)
         Q = B * F if diag_q else None
         F, B = F * Dinv, B * D
-    out = (*_split(F), *store_b(B, bdt), *_split(Tl, Ts))
+    out = (*store_b(F, fdt), *store_b(B, bdt), *_split(Tl, Ts))
     if Q is None:
         return out
     return out + _split(Q.sum(0), Q.sum(2), Q.sum(1))
@@ -114,7 +118,7 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
 
 
 _ARGTYPES = ([_launch.VOIDP] * 24 + [_launch.INT] * 4 + [_launch.VOIDP] * 6
-             + [_launch.LONG] + [_launch.INT] * 4 + [_launch.VOIDP])
+             + [_launch.LONG] + [_launch.INT] * 6 + [_launch.VOIDP])
 
 
 def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
@@ -122,14 +126,16 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
                         diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_first_fwd: bool = True, diag_q: bool = False,
-                        bwd_mode: str = "f32", gram_mode: str = "f32"):
+                        bwd_mode: str = "f32", gram_mode: str = "f32",
+                        dot_mode: str = "f32"):
     """The adjoint step on planes ``(A, 128, 128)``; operators are f32
     real/imag pairs (128, 128); ``diag_inv_tables`` / ``diag_tables`` the
     six f32 planes ``(tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)`` of the
     run's inverse and of the run, or both None; ``diag_q`` (with a run)
     adds its Q reductions to the outputs. ``B`` is stored as float32,
-    bfloat16 or float16; ``bwd_mode`` / ``gram_mode`` are the transports'
-    and the pair grams' dot modes."""
+    bfloat16 or float16, ``F`` as float32 or bfloat16; ``dot_mode``,
+    ``bwd_mode`` / ``gram_mode`` are the uncomputes', the transports' and
+    the pair grams' dot modes."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):
@@ -138,15 +144,22 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
     if (diag_tables is None) != (diag_inv_tables is None):
         raise ValueError("block_backward_dual: give both diag tables or neither")
     _check_diag_q(diag_q, diag_tables)
-    check_modes("block_backward_dual", fr, br, bi, bwd_mode, gram_mode)
+    check_modes("block_backward_dual", fr, br, bi, bwd_mode, gram_mode, dot_mode)
+    if fi.dtype != fr.dtype:
+        raise TypeError("block_backward_dual: forward planes of two dtypes")
+    if diag_q:
+        _st.refuse_fwd("block_backward_dual with diag_q", fr.dtype, "f32")
     ops = (e0inv_r, e0inv_i, e0_r, e0_i, e1inv_r, e1inv_i, e1_r, e1_i)
     if fr.device.type == "cpu":
         return block_backward_dual_plain(
             *planes, *ops, g0_first=g0_first, diag_inv_tables=diag_inv_tables,
             diag_tables=diag_tables, diag_first_fwd=diag_first_fwd,
-            diag_q=diag_q, bwd_mode=bwd_mode, gram_mode=gram_mode)
+            diag_q=diag_q, bwd_mode=bwd_mode, gram_mode=gram_mode,
+            dot_mode=dot_mode)
     A = fr.shape[0]
-    _launch.check_cuda_f32("block_backward_dual", (fr, fi) + ops, fr.device)
+    _launch.check_cuda_f32("block_backward_dual", (fr, fi), fr.device,
+                           dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("block_backward_dual", ops, fr.device)
     _launch.check_cuda_f32("block_backward_dual", (br, bi), fr.device,
                            dtypes=_st.STORAGE_DTYPES)
     if any(tuple(o.shape) != (128, 128) for o in ops):
@@ -169,10 +182,12 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
               *([None] * 4 if rows is None else [r.data_ptr() for r in rows]),
               part.data_ptr(), out.data_ptr(), A, nblk,
               _st.storage_kind(br.dtype), int(bwd_mode == "bf16x3"),
-              int(gram_mode == "bf16x3"), _launch.stream(fr.device))
+              int(gram_mode == "bf16x3"), _st.storage_kind(fr.dtype),
+              int(dot_mode == "bf16x3"), _launch.stream(fr.device))
     _launch.raise_on_error(code, "block_backward_dual", "block_backward_dual launch")
     block_backward_dual.launches += 1
     count_modes(block_backward_dual, br.dtype, bwd_mode, gram_mode)
+    _st.count_fwd(block_backward_dual, fr.dtype, dot_mode)
     if diag_q:
         block_backward_dual.mode_launches["diag_q"] += 1
     if rows is None:
@@ -188,4 +203,5 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
 
 block_backward_dual.launches = 0
 block_backward_dual.mode_launches = {"diag_q": 0, "bf16": 0, "f16": 0,
-                                     "bf16x3": 0, "gram_bf16x3": 0}
+                                     "bf16x3": 0, "gram_bf16x3": 0,
+                                     "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -26,11 +26,15 @@ gram as ``(B F^T) Einv^T`` before the two in-place applies (counted also in
 ``mode_launches["wide"]``).
 
 At X <= 128 the cotangent planes ``B`` may be stored as float32, bfloat16
-or float16 (``F`` float32) and the transport and the pair gram run in
-``bwd_mode`` / ``gram_mode`` ("f32" or "bf16x3"), as the TPU kernel's
-``bwd_dot_mode`` and ``gram_dot_mode``, counted in ``mode_launches`` as in
+or float16 and the transport and the pair gram run in ``bwd_mode`` /
+``gram_mode`` ("f32" or "bf16x3"), as the TPU kernel's ``bwd_dot_mode``
+and ``gram_dot_mode``, counted in ``mode_launches`` as in
 ``block_backward_dual``; at X = 256 / 512 too, where the cross-Gram reads
-B in its storage and the transport is the wide apply in place on it.
+B in its storage and the transport is the wide apply in place on it. At
+X = 128 the forward planes ``F`` may be stored bfloat16 ("bf16" storage,
+decoded on load, rounded on store) and the uncompute run bf16x3
+(``dot_mode``), counted as "fwd_bf16" and "fwd_bf16x3"; X = 8..64, X =
+256 / 512 and ``diag_q`` refuse both (ROADMAP.md, queue B item 5).
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -56,13 +60,14 @@ def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                               diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                               diag_tables: Optional[Sequence[torch.Tensor]] = None,
                               diag_first_fwd: bool = True, diag_q: bool = False,
-                              bwd_mode: str = "f32", gram_mode: str = "f32"):
+                              bwd_mode: str = "f32", gram_mode: str = "f32",
+                              dot_mode: str = "f32"):
     """Plain PyTorch version of the kernel (complex64 matmuls in the dot
-    modes, B decoded on load and encoded on store); fresh outputs."""
+    modes, F and B decoded on load and encoded on store); fresh outputs."""
     _check_diag_q(diag_q, diag_tables)
     A1, X, M, _ = fr.shape
     v = (A1, X, M * 128)
-    F = torch.complex(fr, fi).reshape(v)
+    F = load_b(fr, fi).reshape(v)
     B = load_b(br, bi).reshape(v)
     Q = None
     if diag_tables is not None:
@@ -71,14 +76,14 @@ def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         if not diag_first_fwd:
             Q = B * F if diag_q else None
             F, B = F * Dinv, B * D
-    F = torch.matmul(torch.complex(einv_r, einv_i), F)
+    F = _st.cmatmul(torch.complex(einv_r, einv_i), F, dot_mode)
     T0 = _st.pair_sum(B, F, gram_mode)
     B = _st.cmatmul(torch.complex(e_r, e_i).transpose(0, 1), B, bwd_mode)
     if diag_tables is not None and diag_first_fwd:
         Q = B * F if diag_q else None
         F, B = F * Dinv, B * D
-    out = (*_split(F.reshape(fr.shape)), *store_b(B.reshape(fr.shape), br.dtype),
-           *_split(T0))
+    out = (*store_b(F.reshape(fr.shape), fr.dtype),
+           *store_b(B.reshape(fr.shape), br.dtype), *_split(T0))
     if Q is None:
         return out
     # view element (i, x, (p, s, l)) reads the run at a = (i X + x) post + p
@@ -92,7 +97,7 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
 
 
 _ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
-             + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 4
+             + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 6
              + [_launch.VOIDP])
 
 
@@ -100,14 +105,16 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
                         diag_inv_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_tables: Optional[Sequence[torch.Tensor]] = None,
                         diag_first_fwd: bool = True, diag_q: bool = False,
-                        bwd_mode: str = "f32", gram_mode: str = "f32"):
+                        bwd_mode: str = "f32", gram_mode: str = "f32",
+                        dot_mode: str = "f32"):
     """The adjoint step on the view ``(A1, X, M, 128)``, X in 8..128, or
     256 / 512 without a run; operators are f32 real/imag pairs (X, X); the
     tables as in ``high_apply`` (run's inverse, then run), or both None. A
     run needs M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions
-    to the outputs. ``B`` is stored as float32, bfloat16 or float16;
-    ``bwd_mode`` / ``gram_mode`` are the transport's and the pair gram's dot
-    modes."""
+    to the outputs. ``B`` is stored as float32, bfloat16 or float16, ``F``
+    as float32 or bfloat16 (X = 128); ``dot_mode``, ``bwd_mode`` /
+    ``gram_mode`` are the uncompute's, the transport's and the pair gram's
+    dot modes."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -124,16 +131,24 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         raise ValueError(f"block_backward_high: a diag run folds into X <= 128 "
                          f"only, got X={X}")
     ops = (einv_r, einv_i, e_r, e_i)
-    check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode)
+    check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode, dot_mode)
+    if fi.dtype != fr.dtype:
+        raise TypeError("block_backward_high: forward planes of two dtypes")
+    if X != 128 or diag_q:
+        _st.refuse_fwd(f"block_backward_high at X = {X}"
+                       + (" with diag_q" if diag_q else ""), fr.dtype, dot_mode)
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
             diag_tables=diag_tables, diag_first_fwd=diag_first_fwd,
-            diag_q=diag_q, bwd_mode=bwd_mode, gram_mode=gram_mode)
+            diag_q=diag_q, bwd_mode=bwd_mode, gram_mode=gram_mode,
+            dot_mode=dot_mode)
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"block_backward_high: X={X} is not one of "
                          f"{KERNEL_X + WIDE_X}")
-    _launch.check_cuda_f32("block_backward_high", (fr, fi) + ops, fr.device)
+    _launch.check_cuda_f32("block_backward_high", (fr, fi), fr.device,
+                           dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("block_backward_high", ops, fr.device)
     _launch.check_cuda_f32("block_backward_high", (br, bi), fr.device,
                            dtypes=_st.STORAGE_DTYPES)
     if any(tuple(o.shape) != (X, X) for o in ops):
@@ -166,10 +181,12 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
               int(diag_first_fwd), int(diag_q), *q_ptrs, part.data_ptr(),
               out.data_ptr(), A1, X, M * 128, nblk, _st.storage_kind(br.dtype),
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
+              _st.storage_kind(fr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
     count_modes(block_backward_high, br.dtype, bwd_mode, gram_mode)
+    _st.count_fwd(block_backward_high, fr.dtype, dot_mode)
     if not diag_q:
         return (fr, fi, br, bi, out[0], out[1])
     block_backward_high.mode_launches["diag_q"] += 1
@@ -209,4 +226,5 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
 
 block_backward_high.launches = 0
 block_backward_high.mode_launches = {"diag_q": 0, "wide": 0, "bf16": 0,
-                                     "f16": 0, "bf16x3": 0, "gram_bf16x3": 0}
+                                     "f16": 0, "bf16x3": 0, "gram_bf16x3": 0,
+                                     "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -24,10 +24,14 @@ tensor and returns the plain version's fresh planes on a CPU tensor. Returns
 ``(f_r, f_i, b_r, b_i, T0_top_r, T0_top_i, T0_low_r, T0_low_i)``.
 
 The cotangent planes ``B`` may be stored as float32, bfloat16 or float16
-(``F`` float32); the low transport and ``T0_low`` run in ``bwd_mode`` /
-``gram_mode`` ("f32" or "bf16x3"), the top factor and ``T0_top`` in f32
-whatever the modes, as in the TPU kernel; counted in ``mode_launches`` as
-in ``block_backward_dual``.
+and the forward planes ``F`` as float32 or bfloat16 ("bf16" storage); the
+low uncompute runs in ``dot_mode``, the low transport and ``T0_low`` in
+``bwd_mode`` / ``gram_mode`` ("f32" or "bf16x3"), the top factor and
+``T0_top`` in f32 whatever the modes, as in the TPU kernel; counted in
+``mode_launches`` as in ``block_backward_dual``. The kernel is built with
+a bf16x3 uncompute only beside an f32 transport, the modes
+``ops/planes.backward_merged_top_fact`` hands it (as the JAX package's
+planes layer clamps this kernel's transport to f32).
 """
 
 from __future__ import annotations
@@ -50,55 +54,67 @@ from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
 def block_backward_merged_fact_plain(fr, fi, br, bi, elinv_r, elinv_i, el_r,
                                      el_i, etinv_r, etinv_i, et_r, et_i, *,
                                      x_top: int, bwd_mode: str = "f32",
-                                     gram_mode: str = "f32"):
-    """Plain PyTorch version of the kernel (complex64, the low transport and
-    T0_low in the dot modes, B decoded on load and encoded on store); fresh
-    outputs."""
+                                     gram_mode: str = "f32",
+                                     dot_mode: str = "f32"):
+    """Plain PyTorch version of the kernel (complex64, the low uncompute,
+    the low transport and T0_low in the dot modes, F and B decoded on load
+    and encoded on store); fresh outputs."""
     A1, XX, M, _ = fr.shape
     Xl = el_r.shape[0]
     Q = M * 128
     v = (A1, x_top, Xl, Q)
-    F = torch.complex(fr, fi).reshape(v)
+    F = load_b(fr, fi).reshape(v)
     B = load_b(br, bi).reshape(v)
     Eli, El = torch.complex(elinv_r, elinv_i), torch.complex(el_r, el_i)
     Eti, Et = torch.complex(etinv_r, etinv_i), torch.complex(et_r, et_i)
     fA = top_combine(Eti, F)
     T0_top = pair_sum(B.reshape(A1, x_top, Xl * Q), fA.reshape(A1, x_top, Xl * Q))
-    fB = torch.matmul(Eli, F)
+    fB = _st.cmatmul(Eli, F, dot_mode)
     T0_low = _st.pair_sum(B.reshape(A1 * x_top, Xl, Q),
                           fB.reshape(A1 * x_top, Xl, Q), gram_mode)
     F = top_combine(Eti, fB)
     B = top_combine(Et.transpose(0, 1),
                     _st.cmatmul(El.transpose(0, 1), B, bwd_mode))
-    return (*_split(F.reshape(fr.shape)), *store_b(B.reshape(fr.shape), br.dtype),
-            *_split(T0_top, T0_low))
+    return (*store_b(F.reshape(fr.shape), fr.dtype),
+            *store_b(B.reshape(fr.shape), br.dtype), *_split(T0_top, T0_low))
 
 
 _ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT, _launch.LONG,
                                     _launch.INT, _launch.INT, _launch.INT,
-                                    _launch.INT, _launch.VOIDP]
+                                    _launch.INT, _launch.INT, _launch.INT,
+                                    _launch.VOIDP]
 
 
 def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
                                etinv_r, etinv_i, et_r, et_i, *, x_top: int,
-                               bwd_mode: str = "f32", gram_mode: str = "f32"):
+                               bwd_mode: str = "f32", gram_mode: str = "f32",
+                               dot_mode: str = "f32"):
     """The adjoint step on the merged view ``(A1, Xt Xl, M, 128)``; the low
     operators (Eli, El) are f32 real/imag pairs (Xl, Xl), the top ones
     (Eti, Et) pairs (Xt, Xt). ``B`` is stored as float32, bfloat16 or
-    float16; ``bwd_mode`` / ``gram_mode`` are the low transport's and
-    T0_low's dot modes."""
+    float16, ``F`` as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
+    ``gram_mode`` are the low uncompute's, the low transport's and
+    T0_low's dot modes (a bf16x3 uncompute with an f32 transport only)."""
     planes = (fr, fi, br, bi)
     low = (elinv_r, elinv_i, el_r, el_i)
     top = (etinv_r, etinv_i, et_r, et_i)
     A1, Xl, M = check_merged("block_backward_merged_fact", planes, low, top, x_top)
-    check_modes("block_backward_merged_fact", fr, br, bi, bwd_mode, gram_mode)
+    check_modes("block_backward_merged_fact", fr, br, bi, bwd_mode, gram_mode,
+                dot_mode)
+    if fi.dtype != fr.dtype:
+        raise TypeError("block_backward_merged_fact: forward planes of two dtypes")
+    if dot_mode == "bf16x3" and bwd_mode == "bf16x3":
+        raise ValueError("block_backward_merged_fact: a bf16x3 uncompute runs "
+                         "beside an f32 transport only (the modes "
+                         "ops/planes.backward_merged_top_fact hands it)")
     if fr.device.type == "cpu":
         return block_backward_merged_fact_plain(
             *planes, *low, *top, x_top=x_top, bwd_mode=bwd_mode,
-            gram_mode=gram_mode)
+            gram_mode=gram_mode, dot_mode=dot_mode)
     check_kernel_widths("block_backward_merged_fact", x_top, Xl)
-    _launch.check_cuda_f32("block_backward_merged_fact", (fr, fi) + low + top,
-                           fr.device)
+    _launch.check_cuda_f32("block_backward_merged_fact", (fr, fi), fr.device,
+                           dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("block_backward_merged_fact", low + top, fr.device)
     _launch.check_cuda_f32("block_backward_merged_fact", (br, bi), fr.device,
                            dtypes=_st.STORAGE_DTYPES)
     lib = "block_backward_merged_fact"
@@ -116,13 +132,16 @@ def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
               part_top.data_ptr(), t0_low.data_ptr(), t0_top.data_ptr(), A1,
               x_top, M * 128, nblk, _st.storage_kind(br.dtype),
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
+              _st.storage_kind(fr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_merged_fact launch")
     block_backward_merged_fact.launches += 1
     count_modes(block_backward_merged_fact, br.dtype, bwd_mode, gram_mode)
+    _st.count_fwd(block_backward_merged_fact, fr.dtype, dot_mode)
     return (fr, fi, br, bi, t0_top[0], t0_top[1], t0_low[0], t0_low[1])
 
 
 block_backward_merged_fact.launches = 0
 block_backward_merged_fact.mode_launches = {"bf16": 0, "f16": 0, "bf16x3": 0,
-                                            "gram_bf16x3": 0}
+                                            "gram_bf16x3": 0, "fwd_bf16": 0,
+                                            "fwd_bf16x3": 0}

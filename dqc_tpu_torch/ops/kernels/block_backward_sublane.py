@@ -37,9 +37,11 @@ from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
 
 
 def block_backward_sublane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
-                                 bwd_mode: str = "f32", gram_mode: str = "f32"):
+                                 bwd_mode: str = "f32", gram_mode: str = "f32",
+                                 dot_mode: str = "f32"):
     """Plain PyTorch version of the kernel (complex64 matmuls in the dot
     modes, B decoded on load and encoded on store); fresh outputs."""
+    _st.refuse_fwd("block_backward_sublane_plain", torch.float32, dot_mode)
     check_modes("block_backward_sublane", fr, br, bi, bwd_mode, gram_mode)
     F = torch.matmul(torch.complex(einv_r, einv_i), torch.complex(fr, fi))
     B = load_b(br, bi)
@@ -53,18 +55,22 @@ _ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 6
 
 
 def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
-                           bwd_mode: str = "f32", gram_mode: str = "f32"):
+                           bwd_mode: str = "f32", gram_mode: str = "f32",
+                           dot_mode: str = "f32"):
     """The adjoint step on planes ``(A, 128, 128)``; operators are f32
     real/imag pairs (128, 128). ``B`` is stored as float32, bfloat16 or
     float16; ``bwd_mode`` / ``gram_mode`` are the transport's and the pair
-    gram's dot modes."""
+    gram's dot modes. bfloat16 forward planes and ``dot_mode`` "bf16x3"
+    (the forward bf16x3 of the uncompute) raise ``NotImplementedError``
+    (ROADMAP.md, queue B item 5)."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):
         raise ValueError(f"block_backward_sublane: planes must be (A, 128, 128), "
                          f"got {[tuple(p.shape) for p in planes]}")
     ops = (einv_r, einv_i, e_r, e_i)
-    check_modes("block_backward_sublane", fr, br, bi, bwd_mode, gram_mode)
+    check_modes("block_backward_sublane", fr, br, bi, bwd_mode, gram_mode, dot_mode)
+    _st.refuse_fwd("block_backward_sublane", fr.dtype, dot_mode)
     if fr.device.type == "cpu":
         return block_backward_sublane_plain(*planes, *ops, bwd_mode=bwd_mode,
                                             gram_mode=gram_mode)

@@ -19,7 +19,10 @@ write of each plane, 16 or 32 bytes per amplitude, against 3 or 6 complex
 multiplies); :func:`diag_sweep_plain` and :func:`diag_backward_plain` are
 their plain PyTorch versions. On a CUDA tensor the wrappers update the
 planes in place (the TPU kernels alias them) and return them; on a CPU
-tensor they return the plain version's fresh planes.
+tensor they return the plain version's fresh planes. The forward planes
+may be stored bfloat16 ("bf16" storage: decoded on load, rounded to nearest
+even on store; counted in ``mode_launches["fwd_bf16"]``), but not with the
+Q reductions (ROADMAP.md, queue B item 5).
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ from dqc_tpu_torch.ops.kernels.dual_apply import diag_run
 
 
 def _times(xr, xi, tables):
-    y = torch.complex(xr, xi) * diag_run(tables)
-    return y.real.contiguous(), y.imag.contiguous()
+    return _st.store_b(_st.load_b(xr, xi) * diag_run(tables), xr.dtype)
 
 
 def diag_sweep_plain(xr, xi, *tables):
-    """Plain PyTorch version of the sweep (complex64); fresh outputs."""
+    """Plain PyTorch version of the sweep (complex64); fresh outputs of the
+    input's storage."""
     return _times(xr, xi, tables)
 
 
@@ -54,7 +57,7 @@ def diag_backward_plain(fr, fi, br, bi, *tables, with_q: bool = False):
                                                  br.dtype))
     if not with_q:
         return out
-    Q = B * torch.complex(fr, fi)
+    Q = B * _st.load_b(fr, fi)
     return out + _split(Q.sum(0), Q.sum(2), Q.sum(1))
 
 
@@ -67,29 +70,33 @@ def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> int:
     return x.shape[0]
 
 
-_SWEEP_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.LONG, _launch.VOIDP]
+_SWEEP_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.LONG, _launch.INT,
+                                         _launch.VOIDP]
 _BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT,
-                                             _launch.VOIDP]
+                                             _launch.INT, _launch.VOIDP]
 _BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22
                         + [_launch.LONG, _launch.INT, _launch.INT, _launch.VOIDP])
 
 
 def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
-    """``x *= D`` on planes ``(A, 128, 128)``; the six f32 table planes
-    ``tsl`` (128, 128) and ``tas``, ``tal`` (A, 128)."""
+    """``x *= D`` on planes ``(A, 128, 128)`` stored as float32 or
+    bfloat16; the six f32 table planes ``tsl`` (128, 128) and ``tas``,
+    ``tal`` (A, 128)."""
     tables = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_sweep", (xr, xi))
-    _st.refuse_reduced("diag_sweep", xr, xi)
+    _st.check_fwd("diag_sweep", xr, xi)
     if xr.device.type == "cpu":
         return diag_sweep_plain(xr, xi, *tables)
-    _launch.check_cuda_f32("diag_sweep", (xr, xi), xr.device, align=16)
+    _launch.check_cuda_f32("diag_sweep", (xr, xi), xr.device, align=16,
+                           dtypes=_st.FWD_DTYPES)
     _launch.check_tables("diag_sweep", tables, A, xr.device)
     _launch.check_cuda_f32("diag_sweep", tables, xr.device, align=16)
     fn = _launch.entry("diag", "dqc_diag_sweep", _SWEEP_ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), *_launch.table_ptrs(tables), A,
-              _launch.stream(xr.device))
+              _st.storage_kind(xr.dtype), _launch.stream(xr.device))
     _launch.raise_on_error(code, "diag", "diag_sweep launch")
     diag_sweep.launches += 1
+    _st.count_fwd(diag_sweep, xr.dtype, "f32")
     return xr, xi
 
 
@@ -100,20 +107,24 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
     inverse's six table planes, then the run's. Returns the four planes,
     then with ``with_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i, Qal_r, Qal_i)``.
     ``bwd`` may be stored as float32, bfloat16 or float16 (the kernels'
-    codec; ``fwd`` float32), counted in ``mode_launches`` under the
-    storage's name."""
+    codec), counted in ``mode_launches`` under the storage's name, and
+    ``fwd`` as float32 or bfloat16 (without ``with_q``), counted as
+    "fwd_bf16"."""
     planes = (fr, fi, br, bi)
     inv = (isl_r, isl_i, ias_r, ias_i, ial_r, ial_i)
     fwd = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_backward", planes)
-    _st.refuse_reduced("diag_backward", fr, fi)
+    _st.check_fwd("diag_backward", fr, fi)
+    if with_q:
+        _st.refuse_fwd("diag_backward with_q", fr.dtype, "f32")
     _st.storage_kind(br.dtype)
     if bi.dtype != br.dtype:
         raise TypeError("diag_backward: cotangent planes of two dtypes")
     if fr.device.type == "cpu":
         return diag_backward_plain(*planes, *inv, *fwd, with_q=with_q)
     dev = fr.device
-    _launch.check_cuda_f32("diag_backward", (fr, fi), dev, align=16)
+    _launch.check_cuda_f32("diag_backward", (fr, fi), dev, align=16,
+                           dtypes=_st.FWD_DTYPES)
     _launch.check_cuda_f32("diag_backward", (br, bi), dev, align=16,
                            dtypes=_st.STORAGE_DTYPES)
     bkind = _st.storage_kind(br.dtype)
@@ -123,10 +134,12 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
     if not with_q:
         fn = _launch.entry("diag", "dqc_diag_backward", _BACKWARD_ARGTYPES)
         code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
-                  *_launch.table_ptrs(fwd), A, bkind, _launch.stream(dev))
+                  *_launch.table_ptrs(fwd), A, bkind, _st.storage_kind(fr.dtype),
+                  _launch.stream(dev))
         _launch.raise_on_error(code, "diag", "diag_backward launch")
         diag_backward.launches += 1
         count_modes(diag_backward, br.dtype, "f32", "f32")
+        _st.count_fwd(diag_backward, fr.dtype, "f32")
         return fr, fi, br, bi
     nblk = min(A, 2 * _launch.sm_count(dev))
     rows = torch.empty((4, A, 128), dtype=torch.float32, device=dev)
@@ -145,5 +158,6 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
 
 
 diag_sweep.launches = 0
+diag_sweep.mode_launches = {"fwd_bf16": 0}
 diag_backward.launches = 0
-diag_backward.mode_launches = {"with_q": 0, "bf16": 0, "f16": 0}
+diag_backward.mode_launches = {"with_q": 0, "bf16": 0, "f16": 0, "fwd_bf16": 0}

@@ -42,10 +42,11 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 
 def dual_multi_apply_plain(xr, xi, el_r, el_i, em_r, em_i, *,
                            conj: bool = False, acc=None, alias: bool = True,
-                           out_dtype=None) -> Planes:
+                           out_dtype=None, dot_mode: str = "f32") -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
     time, the planes decoded and encoded as the kernel does); fresh outputs
     in the kernel's storage, whatever ``alias`` says."""
+    _st.refuse_fwd("dual_multi_apply_plain", torch.float32, dot_mode)
     x = _st.load_b(xr, xi)
     el = torch.complex(el_r, el_i)
     em = torch.complex(em_r, em_i)
@@ -77,10 +78,14 @@ def out_storage(xr, acc, alias: bool, out_dtype):
 
 
 def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
-                     acc=None, alias: bool = True, out_dtype=None) -> Planes:
+                     acc=None, alias: bool = True, out_dtype=None,
+                     dot_mode: str = "f32") -> Planes:
     """``[acc +] conj?(sum_t Em_t X El_t^T)`` on planes ``(A, 128, 128)``;
     the factors are f32 real/imag planes stacked ``(T, 128, 128)``.
-    ``out_dtype``: the storage of fresh output planes (``alias=False``)."""
+    ``out_dtype``: the storage of fresh output planes (``alias=False``).
+    ``dot_mode`` "bf16x3" (the forward bf16x3) and a seed from bfloat16
+    planes (the forward planes under "bf16" storage) raise
+    ``NotImplementedError`` (ROADMAP.md, queue B item 5)."""
     if xr.dim() != 3 or tuple(xr.shape[1:]) != (128, 128) or xi.shape != xr.shape:
         raise ValueError(f"dual_multi_apply: planes must be (A, 128, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -91,6 +96,10 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     check_terms("dual_multi_apply", ops, T, (128, 128))
     _st.check_apply_storage("dual_multi_apply", xr.dtype,
                             out_storage(xr, acc, alias, out_dtype))
+    _st.check_dot_mode("dual_multi_apply", dot_mode)
+    seed = acc is not None or not alias
+    _st.refuse_fwd("dual_multi_apply" + (" seed" if seed else ""),
+                   xr.dtype if seed else torch.float32, dot_mode)
     if xr.device.type == "cpu":
         return dual_multi_apply_plain(xr, xi, *ops, conj=conj, acc=acc,
                                       out_dtype=None if alias else out_dtype)

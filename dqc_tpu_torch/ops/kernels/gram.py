@@ -11,6 +11,14 @@ with one Hopper kernel, ``csrc/gram.cu`` (bound by operations: S is
 symmetric, so 2 X + 1 real multiply-adds per amplitude against 8 bytes; the
 kernel does 3 X), which sums per-block partials and adds them in a second,
 fixed-order pass. :func:`gram_plain` is its plain PyTorch version.
+
+The planes may be stored bfloat16 ("bf16" storage, decoded on the read) and
+the products run bf16x3 (``dot_mode``, the TPU kernels' ``dot_mode``), at X
+= 128 / 256 / 512, counted in ``mode_launches`` as "fwd_bf16" and
+"fwd_bf16x3"; the narrower views refuse both (ROADMAP.md, queue B item 5).
+On bf16 planes bf16x3 and f32 compute the same sums: a bf16 value's lo part
+is zero, so each product is the exact one, and the kernel runs its f32
+products there.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from dqc_tpu_torch.ops.kernels import _storage as _st
 
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: 128 x 128 patches of (S, C)
+FWD16_X = (128, 256, 512)   # bf16 planes and bf16x3
 _BLOCKS_PER_SM = 4
 
 
@@ -48,24 +57,40 @@ def pair_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         b.reshape(P, X, Q // kq, kq)).sum((0, 1))
 
 
-def gram_plain(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: three real contractions."""
-    return pair_sum(xr, xr) + pair_sum(xi, xi), pair_sum(xr, xi)
+def _pair_sum3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`pair_sum` of real tensors in bf16x3: ``ah (bh + bl) + al bh``."""
+    ah, al = _st.split(a)
+    bh, bl = _st.split(b)
+    return pair_sum(ah, bh + bl) + pair_sum(al, bh)
+
+
+def gram_plain(xr: torch.Tensor, xi: torch.Tensor,
+               dot_mode: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: three real contractions of the
+    decoded planes in ``dot_mode``."""
+    xr, xi = xr.to(torch.float32), xi.to(torch.float32)
+    ps = pair_sum if dot_mode == "f32" else _pair_sum3
+    return ps(xr, xr) + ps(xi, xi), ps(xr, xi)
 
 
 _ARGTYPES = [_launch.VOIDP] * 4 + [_launch.LONG, _launch.INT, _launch.LONG,
-                                   _launch.INT, _launch.VOIDP]
+                                   _launch.INT, _launch.INT, _launch.INT,
+                                   _launch.VOIDP]
 
 
-def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(S, C)``, each float32 (X, X), of planes viewed as ``(P, X, Q)``;
-    X in 8..128, or 256 / 512 with Q a multiple of 32."""
+def gram(xr: torch.Tensor, xi: torch.Tensor,
+         dot_mode: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(S, C)``, each float32 (X, X), of planes (float32 or bfloat16)
+    viewed as ``(P, X, Q)``; X in 8..128, or 256 / 512 with Q a multiple
+    of 32; ``dot_mode`` the products'."""
     if xr.dim() != 3 or xi.shape != xr.shape:
         raise ValueError(f"gram: planes must be one (P, X, Q) view, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-    _st.refuse_reduced("gram", xr, xi)
+    _st.check_fwd("gram", xr, xi, dot_mode)
+    if xr.shape[1] not in FWD16_X:
+        _st.refuse_fwd(f"gram at X = {xr.shape[1]}", xr.dtype, dot_mode)
     if xr.device.type == "cpu":
-        return gram_plain(xr, xi)
+        return gram_plain(xr, xi, dot_mode)
     P, X, Q = xr.shape
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"gram: X={X} is not one of {KERNEL_X + WIDE_X}")
@@ -74,7 +99,7 @@ def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
             X > 128 and Q == 1):
         raise ValueError(f"gram: view {tuple(xr.shape)} does not tile by "
                          f"{cols_per_tile} columns")
-    _launch.check_cuda_f32("gram", (xr, xi), xr.device)
+    _launch.check_cuda_f32("gram", (xr, xi), xr.device, dtypes=_st.FWD_DTYPES)
     # X > 128: each block forms one of the (X / 128)^2 patches of (S, C)
     patches = (X // 128) ** 2 if X > 128 else 1
     nblk = min((P * Q) // cols_per_tile, max(
@@ -83,10 +108,13 @@ def gram(xr: torch.Tensor, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     out = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
     fn = _launch.entry("gram", "dqc_gram", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), part.data_ptr(), out.data_ptr(),
-              P, X, Q, nblk, _launch.stream(xr.device))
+              P, X, Q, nblk, _st.storage_kind(xr.dtype),
+              int(dot_mode == "bf16x3"), _launch.stream(xr.device))
     _launch.raise_on_error(code, "gram", "gram launch")
     gram.launches += 1
+    _st.count_fwd(gram, xr.dtype, dot_mode)
     return out[0], out[1]
 
 
 gram.launches = 0
+gram.mode_launches = {"fwd_bf16": 0, "fwd_bf16x3": 0}

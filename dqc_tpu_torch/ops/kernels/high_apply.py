@@ -21,7 +21,10 @@ input planes (in place), the accumulator, or fresh planes on a CUDA
 tensor; the plain version's fresh planes on a CPU tensor. The seed's
 output planes may be stored reduced (``out_dtype`` or the accumulator's
 dtype, as in ``dual_apply``), counted in ``mode_launches`` under the
-storage's name.
+storage's name. The input planes may be stored bfloat16 ("bf16" storage)
+and the product run bf16x3 (``dot_mode``), counted as "fwd_bf16" and
+"fwd_bf16x3", at X = 128 (in place and the seeds) and X = 256 / 512 (the
+seeds); the other shapes refuse both (ROADMAP.md, queue B item 5).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from dqc_tpu_torch.ops.kernels import _storage as _st
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: every mode but a diagonal run
+FWD16_X = (128,)      # bf16 input planes and bf16x3: in place and seeds
+FWD16_SEED_X = (128, 256, 512)   # ... and the seeds on the merged top axis
 
 
 def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
@@ -53,40 +58,40 @@ def high_apply_plain(xr, xi, e_r, e_i,
                      diag_tables: Optional[Sequence[torch.Tensor]] = None,
                      diag_first: bool = True, *, conj: bool = False,
                      acc: Optional[Planes] = None, alias: bool = True,
-                     out_dtype=None) -> Planes:
-    """Plain PyTorch version of the kernel (complex64 matmul); fresh
-    outputs, whatever ``alias`` says."""
+                     out_dtype=None, dot_mode: str = "f32") -> Planes:
+    """Plain PyTorch version of the kernel (complex64 matmul in
+    ``dot_mode``); fresh outputs, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
-    x = torch.complex(xr, xi)
+    x = _st.load_b(xr, xi)
     D = view_diag_run(diag_tables, xr.shape) if diag_tables is not None else None
     if D is not None and diag_first:
         x = x * D
-    y = torch.matmul(torch.complex(e_r, e_i),
-                     x.reshape(A1, X, M * 128)).reshape(x.shape)
+    y = _st.cmatmul(torch.complex(e_r, e_i), x.reshape(A1, X, M * 128),
+                    dot_mode).reshape(x.shape)
     if D is not None and not diag_first:
         y = y * D
     if acc is not None:
         acc = (acc[0].reshape(xr.shape), acc[1].reshape(xr.shape))
-    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype)
+    return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 8 + [
-    _launch.INT] * 4 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
+_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 8 + [
+    _launch.INT] * 5 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
 
 
 def high_apply(xr, xi, e_r, e_i,
                diag_tables: Optional[Sequence[torch.Tensor]] = None,
                diag_first: bool = True, *, conj: bool = False,
                acc: Optional[Planes] = None, alias: bool = True,
-               out_dtype=None) -> Planes:
+               out_dtype=None, dot_mode: str = "f32") -> Planes:
     """``[acc +] conj?([D] E x [D])`` on the view ``(A1, X, M, 128)``, X in
     8..128, or 256 / 512 without a run; ``E`` an f32 real/imag pair (X, X);
     ``diag_tables`` the run's six f32 planes (tsl (128, 128); tas, tal (A,
     128) or their (A1, X, post, 128) view, planes.dhigh_view_tables) or
     None. A run needs M % 128 == 0. ``acc`` planes have the view's shape.
-    ``out_dtype``: the storage of fresh output planes (``alias=False``).
-    The in-place sweep at X = 256 / 512 is also counted in
-    ``mode_launches["wide_inplace"]``."""
+    ``out_dtype``: the storage of fresh output planes (``alias=False``);
+    ``dot_mode``: the product's dot mode. The in-place sweep at X = 256 /
+    512 is also counted in ``mode_launches["wide_inplace"]``."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -96,13 +101,23 @@ def high_apply(xr, xi, e_r, e_i,
     if X > 128 and diag_tables is not None:
         raise ValueError(f"high_apply: a diag run folds into X <= 128 only, "
                          f"got X={X}")
-    _st.refuse_reduced("high_apply", xr, xi)
+    _st.check_fwd("high_apply", xr, xi, dot_mode)
+    seed = acc is not None or not alias
+    if seed:
+        _st.check_apply_storage("high_apply", xr.dtype, (
+            acc[0].dtype if acc is not None else out_dtype or xr.dtype))
+    if X not in (FWD16_SEED_X if seed else FWD16_X):
+        _st.refuse_fwd(f"high_apply at X = {X}"
+                       + ("" if seed else " in place"), xr.dtype, dot_mode)
     if xr.device.type == "cpu":
         return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first,
-                                conj=conj, acc=acc, out_dtype=out_dtype)
+                                conj=conj, acc=acc, out_dtype=out_dtype,
+                                dot_mode=dot_mode)
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"high_apply: X={X} is not one of {KERNEL_X + WIDE_X}")
-    _launch.check_cuda_f32("high_apply", (xr, xi, e_r, e_i), xr.device)
+    _launch.check_cuda_f32("high_apply", (xr, xi), xr.device,
+                           dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("high_apply", (e_r, e_i), xr.device)
     out = _launch.output_planes("high_apply", xr, xi, acc, alias, out_dtype,
                                 _st.STORAGE_DTYPES)
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
@@ -110,17 +125,21 @@ def high_apply(xr, xi, e_r, e_i,
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
     fn = _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-              _st.storage_kind(out[0].dtype), e_r.data_ptr(), e_i.data_ptr(),
-              *_launch.table_ptrs(diag_tables),
+              _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
+              e_r.data_ptr(), e_i.data_ptr(), *_launch.table_ptrs(diag_tables),
               int(diag_tables is not None), int(diag_first), int(conj),
-              int(acc is not None), A1, X, M * 128, _launch.stream(xr.device))
+              int(acc is not None), int(dot_mode == "bf16x3"), A1, X, M * 128,
+              _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_apply", "high_apply launch")
     high_apply.launches += 1
     if X in WIDE_X and out[0] is xr:
         high_apply.mode_launches["wide_inplace"] += 1
-    _st.count_storage(high_apply, out[0].dtype)
+    if seed:
+        _st.count_storage(high_apply, out[0].dtype)
+    _st.count_fwd(high_apply, xr.dtype, dot_mode)
     return out
 
 
 high_apply.launches = 0
-high_apply.mode_launches = {"wide_inplace": 0, "bf16": 0, "f16": 0}
+high_apply.mode_launches = {"wide_inplace": 0, "bf16": 0, "f16": 0,
+                            "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -34,10 +34,11 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 
 def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
                            conj: bool = False, acc=None, alias: bool = True,
-                           out_dtype=None) -> Planes:
+                           out_dtype=None, dot_mode: str = "f32") -> Planes:
     """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
     time, the planes decoded and encoded as the kernel does); fresh outputs
     in the kernel's storage, whatever ``alias`` says."""
+    _st.refuse_fwd("high_multi_apply_plain", torch.float32, dot_mode)
     A1, X, M, _ = xr.shape
     x = _st.load_b(xr, xi)
     e = torch.complex(e_r, e_i)
@@ -59,11 +60,15 @@ _ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
 
 
 def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
-                     acc=None, alias: bool = True, out_dtype=None) -> Planes:
+                     acc=None, alias: bool = True, out_dtype=None,
+                     dot_mode: str = "f32") -> Planes:
     """``[acc +] conj?(sum_t E_t x El_t^T)`` on the view ``(A1, X, M, 128)``,
     X in 8..128; ``e_*`` stacked ``(T, X, X)``, ``el_*`` stacked
     ``(T, 128, 128)``, f32 real/imag planes. ``out_dtype``: the storage of
-    fresh output planes (``alias=False``)."""
+    fresh output planes (``alias=False``). ``dot_mode`` "bf16x3" (the
+    forward bf16x3) and a seed from bfloat16 planes (the forward planes
+    under "bf16" storage) raise ``NotImplementedError`` (ROADMAP.md, queue B
+    item 5)."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_multi_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -75,6 +80,10 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     check_terms("high_multi_apply", (el_r, el_i), T, (128, 128))
     _st.check_apply_storage("high_multi_apply", xr.dtype,
                             out_storage(xr, acc, alias, out_dtype))
+    _st.check_dot_mode("high_multi_apply", dot_mode)
+    seed = acc is not None or not alias
+    _st.refuse_fwd("high_multi_apply" + (" seed" if seed else ""),
+                   xr.dtype if seed else torch.float32, dot_mode)
     if xr.device.type == "cpu":
         return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, conj=conj,
                                       acc=acc,

@@ -13,7 +13,13 @@ operations: Xl + Xt complex multiply-adds per amplitude against 16 bytes);
 
 :func:`merged_fact_apply` updates the planes in place on a CUDA tensor (the
 TPU kernel aliases them) and returns them; on a CPU tensor it returns the
-plain version's fresh planes.
+plain version's fresh planes. The planes are float32 or bfloat16 ("bf16"
+storage: decoded on load, rounded to nearest even on store) and the low
+factor's product runs in ``dot_mode`` ("f32" or "bf16x3"; the top factor's
+scalar combinations are f32 whatever the mode, as in ``_kernel_fact``),
+counted in ``mode_launches`` as "fwd_bf16" and "fwd_bf16x3". The kernel
+applies the top factor first (the two commute) and the plain version does
+the same, so that under bf16x3 both split the same operand.
 """
 
 from __future__ import annotations
@@ -34,14 +40,20 @@ def top_combine(Et: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                         for a in range(Et.shape[0])], dim=1)
 
 
-def merged_fact_apply_plain(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int):
-    """Plain PyTorch version of the kernel (complex64); fresh outputs."""
+def merged_fact_apply_plain(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int,
+                            dot_mode: str = "f32"):
+    """Plain PyTorch version of the kernel (complex64, the low factor's
+    product in ``dot_mode``); fresh outputs of the input's storage."""
     A1, XX, M, _ = xr.shape
     Xl = el_r.shape[0]
-    x = torch.complex(xr, xi).reshape(A1, x_top, Xl, M * 128)
-    v = torch.matmul(torch.complex(el_r, el_i), x)
-    y = top_combine(torch.complex(et_r, et_i), v).reshape(xr.shape)
-    return y.real.contiguous(), y.imag.contiguous()
+    x = _st.load_b(xr, xi).reshape(A1, x_top, Xl, M * 128)
+    if dot_mode == "f32":
+        v = torch.matmul(torch.complex(el_r, el_i), x)
+        y = top_combine(torch.complex(et_r, et_i), v)
+    else:
+        v = top_combine(torch.complex(et_r, et_i), x)
+        y = _st.cmatmul(torch.complex(el_r, el_i), v, dot_mode)
+    return _st.store_b(y.reshape(xr.shape), xr.dtype)
 
 
 def check_merged(what: str, planes, low_ops, top_ops, x_top: int):
@@ -69,28 +81,35 @@ def check_kernel_widths(what: str, x_top: int, Xl: int) -> None:
 
 
 _ARGTYPES = [_launch.VOIDP] * 6 + [_launch.LONG, _launch.INT, _launch.LONG,
-                                   _launch.VOIDP]
+                                   _launch.INT, _launch.INT, _launch.VOIDP]
 
 
-def merged_fact_apply(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int):
-    """``(Et (x) El) x`` in place on the merged view ``(A1, Xt Xl, M, 128)``;
-    ``el`` an f32 real/imag pair (Xl, Xl), ``et`` one (Xt, Xt)."""
+def merged_fact_apply(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int,
+                      dot_mode: str = "f32"):
+    """``(Et (x) El) x`` in place on the merged view ``(A1, Xt Xl, M, 128)``
+    of planes stored as float32 or bfloat16; ``el`` an f32 real/imag pair
+    (Xl, Xl), ``et`` one (Xt, Xt); ``dot_mode`` the low factor's."""
     A1, Xl, M = check_merged("merged_fact_apply", (xr, xi), (el_r, el_i),
                              (et_r, et_i), x_top)
-    _st.refuse_reduced("merged_fact_apply", xr, xi)
+    _st.check_fwd("merged_fact_apply", xr, xi, dot_mode)
     if xr.device.type == "cpu":
         return merged_fact_apply_plain(xr, xi, el_r, el_i, et_r, et_i,
-                                       x_top=x_top)
+                                       x_top=x_top, dot_mode=dot_mode)
     check_kernel_widths("merged_fact_apply", x_top, Xl)
-    _launch.check_cuda_f32("merged_fact_apply", (xr, xi, el_r, el_i, et_r, et_i),
+    _launch.check_cuda_f32("merged_fact_apply", (xr, xi), xr.device,
+                           dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("merged_fact_apply", (el_r, el_i, et_r, et_i),
                            xr.device)
     fn = _launch.entry("merged_fact_apply", "dqc_merged_fact_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), el_r.data_ptr(), el_i.data_ptr(),
               et_r.data_ptr(), et_i.data_ptr(), A1, x_top, M * 128,
+              _st.storage_kind(xr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "merged_fact_apply", "merged_fact_apply launch")
     merged_fact_apply.launches += 1
+    _st.count_fwd(merged_fact_apply, xr.dtype, dot_mode)
     return xr, xi
 
 
 merged_fact_apply.launches = 0
+merged_fact_apply.mode_launches = {"fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -51,16 +51,21 @@ planes and leaves them intact. ``kernels`` selects the wrappers (default)
 or the plain versions (``ops.kernels.PLAIN``), the yardstick for the
 kernels on the card.
 
-Storage (config.set_state_storage): the forward planes are float32, the
-cotangent planes float32, bfloat16 ("mixed") or float16 ("f16"). The
-kernels decode and encode them with the JAX package's in-kernel codec
-(ops/kernels/_storage.py); the conversions here, outside the kernels
-(``plane_f32``, ``plane_store``, ``to_planes``, ``from_planes``, the small-X
-pieces and the plain diagonal ops), are IEEE casts, as the JAX package's
-XLA-level ``enc16`` / ``dec16`` are. The seeds create the cotangent planes
-in their storage (``out_dtype``, the cross-group seeds' too), the
-cross-group applies run in place on them, and the backward steps take the
-dot modes of config.bwd_kernel_dot_mode / gram_kernel_dot_mode.
+Storage (config.set_state_storage): the forward planes are float32 or
+bfloat16 ("bf16"), the cotangent planes float32, bfloat16 ("mixed",
+"bf16") or float16 ("f16"). The kernels decode and encode them with the
+JAX package's in-kernel codec (ops/kernels/_storage.py); the conversions
+here, outside the kernels (``plane_f32``, ``plane_store``, ``to_planes``,
+``from_planes``, the small-X pieces and the plain diagonal ops), are IEEE
+casts, as the JAX package's XLA-level ``enc16`` / ``dec16`` are. The seeds
+create the cotangent planes in their storage (``out_dtype``, the
+cross-group seeds' too), the cross-group applies run in place on them.
+Every kernel call hands its kernel the modes the JAX function at the same
+place hands its Pallas kernel: the forward products, the seeds, the Grams
+and every adjoint's uncompute take config.kernel_dot_mode, the backward
+steps' transports and pair grams config.bwd_kernel_dot_mode /
+gram_kernel_dot_mode, the factorized merged-top adjoint's transport
+clamped from "bf16x3" to "f32" as in the JAX package.
 """
 
 from __future__ import annotations
@@ -228,7 +233,8 @@ def apply_merged_top(xr, xi, E_m, n: int, *, alias: bool = True,
     if acc is not None:
         acc = (acc[0].view(vr.shape), acc[1].view(vr.shape))
     yr, yi = kernels.high_apply(vr, vi, er, ei, conj=conj, acc=acc, alias=alias,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype,
+                                dot_mode=config.kernel_dot_mode())
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -239,7 +245,8 @@ def apply_merged_top_fact(xr, xi, Et, El, n: int, *,
     vr, vi, X = _merged_planes(xr, xi, n)
     dev = xr.device
     yr, yi = kernels.merged_fact_apply(vr, vi, *op_planes(El, dev),
-                                       *op_planes(Et, dev), x_top=X)
+                                       *op_planes(Et, dev), x_top=X,
+                                       dot_mode=config.kernel_dot_mode())
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -247,13 +254,18 @@ def backward_merged_top_fact(fxr, fxi, bxr, bxi, Et, El, Eti, Eli, n: int, *,
                              kernels: KernelSet = KERNELS):
     """Factorized one-pass adjoint on the merged (top, top-1) axis: returns
     the planes and the complex ``(T0_top, T0_low)`` pair-gram restrictions
-    (block_backward_merged_fact) instead of the (X Xl)^2 merged gram."""
+    (block_backward_merged_fact) instead of the (X Xl)^2 merged gram. The
+    transport runs f32 where the backward mode resolves to "bf16x3", as the
+    JAX package's ``backward_merged_top_fact`` hands its kernel (a measured
+    loss in that kernel on the TPU; the pair gram keeps its mode)."""
     fr, fi, X = _merged_planes(fxr, fxi, n)
     br, bi, _ = _merged_planes(bxr, bxi, n)
     dev = fxr.device
+    modes = _bwd_modes()
+    modes["bwd_mode"] = "f32"
     fr, fi, br, bi, ttr, tti, tlr, tli = kernels.block_backward_merged_fact(
         fr, fi, br, bi, *op_planes(Eli, dev), *op_planes(El, dev),
-        *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X, **_bwd_modes())
+        *op_planes(Eti, dev), *op_planes(Et, dev), x_top=X, **modes)
     return (fr.view(fxr.shape), fi.view(fxr.shape), br.view(bxr.shape),
             bi.view(bxr.shape), torch.complex(ttr, tti), torch.complex(tlr, tli))
 
@@ -279,7 +291,7 @@ def gram_merged_top(xr, xi, n: int, *, kernels: KernelSet = KERNELS):
     factor."""
     pre, X, Xl, M = _merged_view(n, len(gr.group_dims(n)) - 1)
     v = (pre, X * Xl, M * 128)
-    S, C = kernels.gram(xr.view(v), xi.view(v))
+    S, C = kernels.gram(xr.view(v), xi.view(v), dot_mode=config.kernel_dot_mode())
     Gm = torch.complex(S, C.T - C).reshape(X, Xl, X, Xl)
     return torch.einsum("dxdy->xy", Gm), _trace_id(Gm, X, Xl)
 
@@ -295,8 +307,11 @@ def _check_out_dtype(out_dtype) -> None:
 
 
 def _bwd_modes() -> Dict[str, str]:
-    """The backward kernels' dot modes, as config resolves them."""
-    return dict(bwd_mode=config.bwd_kernel_dot_mode(),
+    """The backward kernels' dot modes, as config resolves them: the
+    uncompute's (``dot_mode``, the forward mode), the transport's and the
+    pair gram's."""
+    return dict(dot_mode=config.kernel_dot_mode(),
+                bwd_mode=config.bwd_kernel_dot_mode(),
                 gram_mode=config.gram_kernel_dot_mode())
 
 
@@ -318,7 +333,8 @@ def apply_dual(xr, xi, E0, E1, *, alias: bool = True, conj: bool = False,
     return kernels.dual_apply(xr, xi, e0r, e0i, e1r, e1i,
                               _diag_table_planes(diag, dev), diag_first,
                               conj=conj, acc=acc, alias=alias,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype,
+                              dot_mode=config.kernel_dot_mode())
 
 
 def dhigh_eligible(j: int, n: int) -> bool:
@@ -353,7 +369,7 @@ def apply_dhigh(xr, xi, E, tables, j: int, n: int, *, diag_first: bool = True,
     er, ei = op_planes(E, xr.device)
     yr, yi = kernels.high_apply(xr.view(pre, X, M, 128), xi.view(pre, X, M, 128),
                                 er, ei, dhigh_view_tables(tables, j, n, xr.device),
-                                diag_first)
+                                diag_first, dot_mode=config.kernel_dot_mode())
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -405,7 +421,8 @@ def apply_high(xr, xi, E, j: int, n: int, *, alias: bool = True,
     if acc is not None:
         acc = (acc[0].view(v), acc[1].view(v))
     yr, yi = kernels.high_apply(xr.view(v), xi.view(v), er, ei, conj=conj,
-                                acc=acc, alias=alias, out_dtype=out_dtype)
+                                acc=acc, alias=alias, out_dtype=out_dtype,
+                                dot_mode=config.kernel_dot_mode())
     return yr.view(xr.shape), yi.view(xi.shape)
 
 
@@ -470,7 +487,8 @@ def apply_cross_terms(xr, xi, terms, n: int, *, alias: bool = True,
         operands = cross_terms_operands(terms, n, xr.device)
     if operands is None:
         return None
-    kw = dict(conj=conj, acc=acc, alias=alias, out_dtype=out_dtype)
+    kw = dict(conj=conj, acc=acc, alias=alias, out_dtype=out_dtype,
+              dot_mode=config.kernel_dot_mode())
     if operands[0] == "dual":
         return kernels.dual_multi_apply(xr, xi, *operands[1:], **kw)
     pre, X, M = _high_view(n, operands[1])
@@ -608,7 +626,8 @@ def apply_cross_span(xr, xi, gate_m, positions, n: int, *, alias: bool = True,
         return None
     vshape = operands[1]
     a2 = None if acc is None else (acc[0].view(vshape), acc[1].view(vshape))
-    kw = dict(conj=conj, acc=a2, alias=alias, out_dtype=out_dtype)
+    kw = dict(conj=conj, acc=a2, alias=alias, out_dtype=out_dtype,
+              dot_mode=config.kernel_dot_mode())
     if operands[0] == "high":
         yr, yi = kernels.high_apply(xr.view(vshape), xi.view(vshape),
                                     *operands[2:], **kw)
@@ -775,7 +794,7 @@ def backward_block(fxr, fxi, bxr, bxi, Einv, E, j: int, n: int, *,
     if X < MIN_KERNEL_X:
         # tiny group 2: the small-X form; T0[x, y] = sum_b bwd[x] fwd_in[y]
         fr, fi = apply_high(fxr, fxi, Einv, j, n, kernels=kernels)
-        vfr, vfi = fr.view(v), fi.view(v)
+        vfr, vfi = plane_f32(fr.view(v)), plane_f32(fi.view(v))
         vbr, vbi = plane_f32(bxr.view(v)), plane_f32(bxi.view(v))
         T0 = torch.stack([torch.stack([
             torch.complex(torch.sum(vbr[:, x] * vfr[:, y])
@@ -904,7 +923,7 @@ def _sub_planes(xr, xi, positions, n: int):
 def multi_diag_gram(fxr, fxi, bxr, bxi, positions, n: int) -> torch.Tensor:
     """``W[j] = sum_b bwd[j, b] fwd[j, b]`` over the gate-bit sub-blocks
     (the diagonal gate's cotangent, groups.diag_pair_grad on planes)."""
-    Fr, Fi = _sub_planes(fxr, fxi, positions, n)
+    Fr, Fi = (plane_f32(p) for p in _sub_planes(fxr, fxi, positions, n))
     Br, Bi = (plane_f32(p) for p in _sub_planes(bxr, bxi, positions, n))
     return torch.complex((Br * Fr - Bi * Fi).sum(1), (Br * Fi + Bi * Fr).sum(1))
 
@@ -927,7 +946,7 @@ def apply_cross_diag(xr, xi, table2, j2: int, j1: int, n: int) -> Planes:
 def _pair_reduce(fxr, fxi, bxr, bxi, keep, n: int) -> torch.Tensor:
     """``sum bwd * fwd`` (complex, no conjugation) over every grouped axis
     but ``keep``."""
-    fr, fi = _grouped(fxr, n), _grouped(fxi, n)
+    fr, fi = plane_f32(_grouped(fxr, n)), plane_f32(_grouped(fxi, n))
     br, bi = plane_f32(_grouped(bxr, n)), plane_f32(_grouped(bxi, n))
     axes = tuple(a for a in range(fr.dim()) if a not in keep)
     return torch.complex((br * fr - bi * fi).sum(axes),
@@ -961,7 +980,7 @@ def _gram_axis_xla(xr, xi, j: int, n: int) -> torch.Tensor:
     ax = len(dims) - 1 - j
     sub = "abcdefgh"[: len(dims)]
     spec = f"{sub[:ax]}Z{sub[ax + 1:]},{sub}->Z{sub[ax]}"
-    vr, vi = xr.reshape(dims), xi.reshape(dims)
+    vr, vi = plane_f32(xr.reshape(dims)), plane_f32(xi.reshape(dims))
     A = torch.einsum(spec, vr, vr)
     B = torch.einsum(spec, vi, vi)
     C = torch.einsum(spec, vr, vi)
@@ -986,5 +1005,6 @@ def gram_axis(xr, xi, j: int, n: int, *,
             # tiny top group: merged-axis kernel Gram, partial-traced back
             return gram_merged_top(xr, xi, n, kernels=kernels)[1]
         shape = (pre, X, M * 128)
-    S, C = kernels.gram(xr.view(shape), xi.view(shape))
+    S, C = kernels.gram(xr.view(shape), xi.view(shape),
+                        dot_mode=config.kernel_dot_mode())
     return torch.complex(S, C.T - C)

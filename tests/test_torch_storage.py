@@ -19,11 +19,13 @@ tests/test_state_storage.py for the paths the port runs them on.
   against the port's own f32 storage with the six kernels' storage
   variants counted;
 * the default bf16x3 pair grams against the JAX package's defaults;
-* bf16 planes handed to the forward kernels and the Grams raise; the
-  kernels of the other plane paths run reduced planes and a bf16x3
-  transport, and the CNOT ring runs under both storages
-  (tests/test_torch_storage_models.py holds those paths to the JAX
-  package).
+* f16 planes handed to the forward kernels and the Grams raise (bf16
+  ones run since "bf16" storage: tests/test_torch_fwd16_*.py); the kernels
+  of the other plane paths run reduced planes and a bf16x3 transport, and
+  the CNOT ring runs under both storages (tests/test_torch_storage_models.py
+  holds those paths to the JAX package); the kernels and paths that take
+  neither bf16 forward planes nor the forward bf16x3 yet raise under
+  either.
 
 The JAX side runs its plane engine with the Pallas kernels in interpret
 mode; inputs are made with numpy from a seed and handed to both packages.
@@ -93,16 +95,36 @@ def test_mode_validation():
     assert config.fwd_plane_dtype() == torch.float32
     # the JAX package keeps the same f16 bits in uint16 planes
     assert config.bwd_plane_dtype() == torch.float16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.set_state_storage("bf16")
-    assert config.state_storage() == "f16"
     config.set_state_storage("f32")
     assert config.bwd_plane_dtype() == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.set_kernel_dot_mode("bf16x3")
+    with pytest.raises(ValueError):
+        config.set_kernel_dot_mode("bf16x6")
+    assert config.kernel_dot_mode() == "f32"
 
 
-@pytest.mark.parametrize("storage", ["f32", "mixed", "f16"])
+def test_bf16_storage_dtypes():
+    """"bf16" stores both plane pairs bfloat16, as the JAX package's."""
+    _both("set_state_storage", "bf16")
+    assert config.state_storage() == jconfig.state_storage() == "bf16"
+    assert config.fwd_plane_dtype() == torch.bfloat16
+    assert config.bwd_plane_dtype() == torch.bfloat16
+    assert str(jconfig.fwd_plane_dtype().__name__) == "bfloat16"
+
+
+def test_kernel_dot_mode_bf16x3():
+    """The forward bf16x3 is accepted and is what the backward "auto"
+    resolves to under f32 storage, as in the JAX package."""
+    try:
+        _both("set_kernel_dot_mode", "bf16x3")
+        assert config.kernel_dot_mode() == jconfig.kernel_dot_mode() == "bf16x3"
+        assert config.bwd_kernel_dot_mode() == jconfig.bwd_kernel_dot_mode() == "bf16x3"
+        _both("set_bwd_kernel_dot_mode", "f32")
+        assert config.bwd_kernel_dot_mode() == "f32"
+    finally:
+        _both("set_kernel_dot_mode", "f32")
+
+
+@pytest.mark.parametrize("storage", ["f32", "mixed", "f16", "bf16"])
 def test_bwd_dot_mode_resolution(storage):
     """Every setting of the two backward modes resolves as dqc_tpu's does."""
     _both("set_state_storage", storage)
@@ -114,6 +136,9 @@ def test_bwd_dot_mode_resolution(storage):
             assert config.gram_kernel_dot_mode() == jconfig.gram_kernel_dot_mode()
     _both("set_bwd_kernel_dot_mode", "auto")
     assert config.bwd_kernel_dot_mode() == ("f32" if storage == "f32" else "bf16x3")
+    for mode in ("bf16x3", "f32"):
+        _both("set_kernel_dot_mode", mode)
+        assert config.bwd_kernel_dot_mode() == jconfig.bwd_kernel_dot_mode()
     with pytest.raises(ValueError):
         config.set_bwd_kernel_dot_mode("f64")
 
@@ -351,7 +376,9 @@ def test_merged_top_reduced_n22():
         assert 0 < _rel(g, g0, scale) <= OWN_BAR[storage], (storage, _rel(g, g0, scale))
         dt = config_dtype(storage)
         assert ("high_apply", dt, "f32", "f32") in calls  # the X = 256 seed
-        assert ("block_backward_merged_fact", dt, "bf16x3", "bf16x3") in calls
+        # the transport clamped to f32, as the JAX package's planes layer
+        # hands its kernel (planes.backward_merged_top_fact)
+        assert ("block_backward_merged_fact", dt, "f32", "bf16x3") in calls
 
 
 # ---------------------------------------------------------------------------
@@ -377,18 +404,24 @@ def _rand_ops(shape, seed):
 
 
 def test_other_kernels_refuse_reduced_planes():
-    """bf16 forward planes into the forward kernels and the Grams still
-    raise (ROADMAP.md: "bf16" storage). The multi-term applies, the lane,
-    sublane and X = 256 adjoints and apply_cross_span, which refused reduced
-    planes and a bf16x3 transport before, now run them: each returns planes
-    in the cotangent's storage, its plain version's values, and within two
-    storage ulps of the same call on the decoded f32 planes (one encode)."""
+    """f16 planes into the forward kernels and the Grams still raise
+    (ROADMAP.md: a cotangent stored "f16" handed to a forward kernel);
+    bf16 ones run since "bf16" storage, as the plain versions on the
+    decoded planes. The multi-term applies, the lane, sublane and X = 256
+    adjoints and apply_cross_span, which refused reduced planes and a bf16x3
+    transport before, now run them: each returns planes in the cotangent's
+    storage, its plain version's values, and within two storage ulps of the
+    same call on the decoded f32 planes (one encode)."""
     e = torch.zeros((128, 128))
-    b = _bf16_planes((1, 128, 128))
+    h = tuple(p.to(torch.float16) for p in _bf16_planes((1, 128, 128)))
     with pytest.raises(NotImplementedError, match="dual_apply.*ROADMAP"):
-        tk.dual_apply(*b, e, e, e, e)
+        tk.dual_apply(*h, e, e, e, e)
     with pytest.raises(NotImplementedError, match="gram.*ROADMAP"):
-        tk.gram(*b)
+        tk.gram(*h)
+    b = _rand_planes((1, 128, 128), 0, torch.bfloat16)
+    got = tk.gram(*b)
+    want = tk.gram(*(p.float() for p in b))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
     dt = torch.bfloat16
     f = _rand_planes((1, 128, 128), 1)
@@ -461,6 +494,176 @@ def test_unported_paths_raise_not_run_f32(make, loss, storage):
     assert v.item() == v0.item()
     rel = float((p.grad - g0).abs().max() / g0.abs().max())
     assert 0 < rel < 1e-2, rel
+
+
+# bf16 forward planes ("bf16" storage) and the forward bf16x3: the kernels,
+# shapes and paths that take neither yet raise NotImplementedError naming
+# ROADMAP.md (queue B item 5), on the CPU as on the card; none runs f32 in
+# their place.
+
+FWD16 = [("bf16", "f32"), ("f32", "bf16x3")]
+FWD16_IDS = ["bf16_planes", "fwd_bf16x3"]
+
+
+def _fwd_planes(shape, fwd, seed=20):
+    return _rand_planes(shape, seed, torch.bfloat16 if fwd == "bf16" else torch.float32)
+
+
+def _unported_fwd16_calls(fwd, dm):
+    """Each kernel or shape the cz path does not reach, with bf16 forward
+    planes (``fwd``) or the forward bf16x3 (``dm``)."""
+    bf = torch.bfloat16
+    f = _fwd_planes((1, 128, 128), fwd)
+    b = _rand_planes((1, 128, 128), 21, bf)
+    ops4 = _rand_ops((4, 128, 128), 22) + _rand_ops((4, 128, 128), 23)
+    E = _rand_ops((128, 128), 24) + _rand_ops((128, 128), 25)
+    v8 = (1, 8, 16, 128)
+    f8 = tuple(p.reshape(v8) for p in _fwd_planes(v8, fwd, 26))
+    E8 = _rand_ops((8, 8), 27)
+    hops = _rand_ops((4, 8, 8), 29) + _rand_ops((4, 128, 128), 30)
+    w = (1, 256, 8, 128)
+    fw = _fwd_planes(w, fwd, 31)
+    Ew = _rand_ops((256, 256), 32) + _rand_ops((256, 256), 33)
+    tabs = tuple(p for s_ in ((128, 128), (1, 128), (1, 128))
+                 for p in _rand_ops(s_, 34))
+    vh = (1, 128, 128, 128)   # group 2 of n = 21, a run folded in
+    fh = _fwd_planes(vh, fwd, 39)
+    htabs = tuple(p if k < 2 else p.reshape(1, 128, 1, 128) for k, p in enumerate(
+        q for s_ in ((128, 128),) * 3 for q in _rand_ops(s_, 40)))
+    acc = dict(conj=True, acc=_rand_planes((1, 128, 128), 35, bf), alias=False)
+    seed = dict(conj=True, alias=False, out_dtype=bf)
+    multi_kw = dict(dot_mode=dm) if dm != "f32" else acc
+    return {
+        "dual_multi_apply": lambda: tk.dual_multi_apply(*f, *ops4, **multi_kw),
+        "high_multi_apply": lambda: tk.high_multi_apply(
+            *f8, *hops, **(dict(dot_mode=dm) if dm != "f32" else seed)),
+        "block_backward_lane": lambda: tk.block_backward_lane(*f, *b, *E, dot_mode=dm),
+        "block_backward_sublane": lambda: tk.block_backward_sublane(
+            *f, *b, *E, dot_mode=dm),
+        "high_apply X = 8": lambda: tk.high_apply(*f8, *E8, dot_mode=dm),
+        "high_apply X = 8 seed": lambda: tk.high_apply(*f8, *E8, dot_mode=dm,
+                                                       **seed),
+        "high_apply X = 256 in place": lambda: tk.high_apply(*fw, *Ew[:2],
+                                                             dot_mode=dm),
+        "block_backward_high X = 8": lambda: tk.block_backward_high(
+            *f8, *_rand_planes(v8, 36, bf), *E8, *E8, dot_mode=dm),
+        "block_backward_high X = 256": lambda: tk.block_backward_high(
+            *fw, *_rand_planes(w, 37, bf), *Ew[:2], *Ew[:2], dot_mode=dm),
+        "gram X = 8": lambda: tk.gram(*(p.reshape(1, 8, -1) for p in f8),
+                                      dot_mode=dm),
+        "diag_backward with_q": lambda: tk.diag_backward(
+            *f, *b, *tabs, *tabs, with_q=True),
+        "block_backward_dual diag_q": lambda: tk.block_backward_dual(
+            *f, *b, *E, *E, diag_inv_tables=tabs, diag_tables=tabs, diag_q=True,
+            dot_mode=dm),
+        "block_backward_high diag_q": lambda: tk.block_backward_high(
+            *fh, *_rand_planes(vh, 38, bf), *E, diag_inv_tables=htabs,
+            diag_tables=htabs, diag_q=True, dot_mode=dm),
+    }
+
+
+# the refusals that concern F alone (a run's Q on bf16 F; bf16x3 there is
+# the JAX package's and runs)
+_F_ONLY = ("diag_backward with_q", "block_backward_dual diag_q",
+           "block_backward_high diag_q")
+
+
+@pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
+def test_unported_kernels_refuse_fwd16(fwd, dm):
+    """Every kernel and shape not ported yet (ROADMAP.md, queue B item 5)
+    raises under a bf16 forward plane and under the forward bf16x3, on the
+    CPU."""
+    for name, call in _unported_fwd16_calls(fwd, dm).items():
+        if name in _F_ONLY and fwd != "bf16":
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+@pytest.mark.parametrize("make, loss", [
+    (lambda: THEA(14, 1, "cnot", device="cpu"), "magnetization"),
+    (lambda: _vqe(14), "energy"),
+    (lambda: _qaoa(15), "loss"),
+    (lambda: THEA(22, 1, "cz", device="cpu"), "magnetization"),
+    (lambda: _tape(14), None)], ids=["cnot", "vqe", "qaoa", "hpair_expanded", "tape"])
+@pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
+def test_unported_paths_raise_fwd16(make, loss, fwd, dm):
+    """The CNOT ring, VQEIsing, QAOAMaxCut, the expanded merged top (cz at
+    n = 22 under set_hpair_factorized(False)) and autodiff_run's plane tape
+    raise under "bf16" storage and under the forward bf16x3, naming
+    ROADMAP, before any result."""
+    model = make()
+    config.set_state_storage(fwd if fwd == "bf16" else "f32")
+    config.set_kernel_dot_mode(dm)
+    config.set_plane_engine(True)
+    expanded = isinstance(model, THEA) and model.n == 22
+    config.set_hpair_factorized(not expanded)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            if loss is None:
+                model()
+            else:
+                p = model.init_params(torch.Generator().manual_seed(0))
+                getattr(model, loss)(p.requires_grad_(True)).backward()
+    finally:
+        config.set_kernel_dot_mode("f32")
+        config.set_hpair_factorized(True)
+
+
+def _vqe(n):
+    from dqc_tpu_torch.models.vqe_ising import VQEIsing
+    return VQEIsing(n, 1, device="cpu")
+
+
+def _qaoa(n):
+    from dqc_tpu_torch.models.qaoa import QAOAMaxCut
+    return QAOAMaxCut(n, [(i, (i + 1) % n) for i in range(n)], layers_number=1,
+                      device="cpu")
+
+
+def _tape(n):
+    """autodiff_run of a tape with a dense gate across the lane and sublane
+    groups (the multi-term kernel) and a diff density."""
+    from dqc_tpu_torch import AutoGradCircuit
+    c = AutoGradCircuit(n, device="cpu")
+    c.add_q1_var_gate(0)
+    c.add_q2_var_gate(7, 6)
+    c.get_q1_dens_op_with_grad(3)
+    _, run = c.build()
+    rng = np.random.default_rng(3)
+
+    def call():
+        q1 = np.linalg.qr(rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2)))[0]
+        q2 = np.linalg.qr(rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4)))[0]
+        gates = [torch.tensor(q1.astype(np.complex64).ravel(), requires_grad=True),
+                 torch.tensor(q2.astype(np.complex64).ravel(), requires_grad=True)]
+        dens = run(gates, [])
+        dens[0].real.sum().backward()
+    return call
+
+
+@pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
+def test_fallback_ignores_fwd16(fwd, dm):
+    """Scan mode off the planes (n < 14; the plane engine off) takes
+    neither setting, as the JAX package's XLA engine: results identical to
+    the f32 defaults."""
+    from dqc_tpu_torch.models.vqe_ising import VQEIsing
+    m = VQEIsing(10, 3, device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(1))
+    runs = []
+    for setting in ((None, "f32"), (fwd, dm)):
+        config.set_state_storage(setting[0] or "f32")
+        config.set_kernel_dot_mode(setting[1])
+        try:
+            q = p.clone().requires_grad_(True)
+            v = m.energy(q)
+            v.backward()
+            runs.append((v.item(), q.grad.clone()))
+        finally:
+            config.set_kernel_dot_mode("f32")
+            config.set_state_storage("f32")
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 def _measure_model(n, L, params, storage, bwd="auto"):
