@@ -133,7 +133,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    set_kernel_dot_mode("bf16x3") with "f32" and with "bf16" storage, and
    the 29q x 1L closed form under it) and [bf16_30] (30q x 4L under
    "bf16" at params = 0: the X = 512 seed and Xt = 4 on bf16 planes);
-14. a JSON line of the kernels and of the modes checked (their launches
+14. "bf16" storage and the forward bf16x3 at every ring size, on the CNOT
+   ring and on the expanded merged top: in phase 3 (3j) the high apply,
+   Gram and adjoint at X = 8..64 (views of 2^29 amplitudes), the in-place
+   apply and the adjoint on the merged top axis (X = 256 at 29q, 512 at
+   30q), the multi-term applies (in place on the ring's CNOT terms, an edge
+   density's seed) and the sublane adjoint, on bf16 planes and in bf16x3,
+   each against its plain version; then [cz_bf16_small]
+   (HardwareEfficientAnsatz(n, 4, "cz") at n = 20 and 27 under "bf16" and
+   the forward bf16x3 against its f32 run: value and gradient rms within
+   2.5 times the JAX package's own error on the model at 14-17q, counts
+   held to the dry run), [cnot29_bf16] ([cnot29]'s model and params under
+   "bf16" against its f32 gradient; the forward bf16x3 at 29q x 4L on f32
+   and bf16 planes against an f32 run), [hpair29_bf16] (cz 29q x 4L with the
+   hpair expanded, under "bf16" and the forward bf16x3, against the
+   factorized route) and [cnot30_bf16] (30q x 2L cnot under "bf16" at
+   params = 0: the lone X = 512 top block on bf16 planes);
+15. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -242,12 +258,40 @@ JAX_OWN_ERR = {("cnot", "f16"): 2.792e-3, ("vqe", "f16"): 3.505e-4,
                ("hpair", "mixed"): 5.297e-2, ("hpair", "f16"): 5.246e-3}
 
 
+def own_bars(own):
+    """(value, gradient rms) bars of a phase from the JAX package's own error
+    ``own`` = (value, rms) on its model: 2.5 times it, capped by
+    FWD16_JAX_BARS; where the JAX package's own error is already past that
+    cap (its bars are for another model), 2.5 times it."""
+    return tuple(2.5 * o if o >= cap else min(cap, 2.5 * o)
+                 for o, cap in zip(own, FWD16_JAX_BARS))
+
+
 def fwd16_bars(storage: str, dot: str):
-    """(value, gradient rms) bars of a phase: 2.5 times the JAX package's own
-    error, capped by FWD16_JAX_BARS; where the JAX package's own error is
-    already past that cap (its bars are for another model), 2.5 times it."""
-    return tuple(2.5 * own if own >= cap else min(cap, 2.5 * own)
-                 for own, cap in zip(JAX_OWN_FWD16[storage, dot], FWD16_JAX_BARS))
+    """own_bars of [bf16_29] / [x3_29]'s model."""
+    return own_bars(JAX_OWN_FWD16[storage, dot])
+
+
+# this slice's phases: [cz_bf16_small] (HardwareEfficientAnsatz(n, 4, "cz")
+# at n = 20 and 27: group 2 at X = 64; group 3 at X = 64 beside the X = 128
+# group 2), [cnot29_bf16] ([cnot29]'s model under "bf16"; the forward
+# bf16x3 at 29q x CNOT_X3_L), [cnot30_bf16] (the CNOT ring at 30q x 2L,
+# params = 0, its lone top-group block at X = 512), [hpair29_bf16] (cz 29q x
+# HPAIR_BF16_L with the hpair expanded)
+CZ_SMALL_NS = (20, 27)
+CZ_SMALL_L = 4
+CNOT_X3_L = 4
+CNOT30_L = 2
+HPAIR_BF16_L = 4
+# the JAX package's own error on those models at 14-17q (CPU, its plane
+# engine; printed by tests/test_torch_fwd16_rings.py chip-bars): (value
+# relative, gradient rms of max |g32|) per (entangler, layers, storage,
+# forward dot mode); own_bars makes the phases' bars of them
+JAX_OWN_RINGS = {("cz", 4, "bf16", "f32"): (1.204e-2, 1.430e-2),
+                 ("cz", 4, "f32", "bf16x3"): (1.118e-5, 3.081e-5),
+                 ("cnot", 20, "bf16", "f32"): (1.280e-2, 4.645e-3),
+                 ("cnot", 4, "f32", "bf16x3"): (4.203e-5, 1.107e-5),
+                 ("cnot", 4, "bf16", "bf16x3"): (6.211e-3, 2.043e-3)}
 
 
 def reduced_tol(model: str, storage: str) -> float:
@@ -349,8 +393,11 @@ def call_modes(name: str, a) -> tuple:
     if name == "block_backward_merged_fact":
         return (storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
-    if name in ("block_backward_lane", "block_backward_sublane"):
+    if name == "block_backward_lane":
         return storage_modes(a["br"].dtype) + dot_modes(a)
+    if name == "block_backward_sublane":
+        return (storage_modes(a["br"].dtype) + dot_modes(a)
+                + fwd_modes(a["fr"].dtype, a))
     if name in ("dual_apply", "high_apply"):
         acc = a.get("acc")
         out = (acc[0].dtype if acc is not None
@@ -371,7 +418,10 @@ def call_modes(name: str, a) -> tuple:
         seed = a.get("conj") or acc is not None or not alias
         out = (acc[0].dtype if acc is not None else a["xr"].dtype if alias
                else a.get("out_dtype") or a["xr"].dtype)
-        return (("seed",) if seed else ()) + storage_modes(out)
+        # a seed reads the forward planes; in place, bf16 planes count as
+        # "bf16" whichever pair they are
+        return ((("seed",) if seed else ()) + storage_modes(out)
+                + fwd_modes(a["xr"].dtype if seed else None, a))
     return ()
 
 
@@ -632,7 +682,8 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s "
-        f"into {_build.BUILD_DIR}")
+        f"into {_build.BUILD_DIR}; nvcc seconds per library (all started at "
+        f"once) {json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})}")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -2010,6 +2061,157 @@ def main() -> int:
         del mops
         torch.cuda.empty_cache()
 
+    # 3j. "bf16" storage and the forward bf16x3 on the narrow high groups,
+    # the CNOT ring's kernels and the expanded merged top -------------------
+    # the new variants in the three settings of 3i, each against its plain
+    # version: the high apply (in place with the ring's run folded first,
+    # and its seed), the Gram and the high adjoint at X = 8..64 on views of
+    # 2^29 amplitudes (1, X, 2^29 / (128 X), 128), the layout of group 3 at
+    # n = 24-27 at the 29q amplitude count (X = 16 and 32 in "bf16" only:
+    # the CPU tests hold every setting there); the in-place high apply and
+    # the adjoint on the merged top axis, X = 256 (29q) and 512 (30q,
+    # "bf16" only); the multi-term applies on the ring's own CNOT operators
+    # (in place: the uncompute on F, the transport on B) and an edge
+    # density's T = 4 seed from F; the sublane adjoint. Tolerances and
+    # bounds as 3i's.
+    log_time("3j")
+
+    def small_x_view(X):
+        return (1, X, (1 << N29) // (X * 128), 128)
+
+    for tag, (fdt, dot) in FWD16.items():
+        bdt = BF16 if fdt == BF16 else torch.float32
+        lib = (lambda make: bf16_library(make)) if tag == "bf16" else (lambda make: None)
+        for X in (8, 16, 32, 64):
+            if X in (16, 32) and tag != "bf16":
+                continue
+            view = small_x_view(X)
+            a_rows = (1 << N29) // (128 * 128)
+            tabs = tuple(t.view(1, X, view[2] // 128, 128) if k >= 2 else t
+                         for k, t in enumerate(tables(a_rows)))
+            E, Einv = unitary(X), unitary(X)
+            f, b = cmac_flops(X, dot == "bf16x3")
+            check_fwd16("high_apply", f"29q_X{X}_diag_first_{tag}", view,
+                        [(fdt, 1.0)] * 2,
+                        lambda xr, xi, d=dot, E=E, t=tabs: high_apply(
+                            xr, xi, *E, t, True, dot_mode=d),
+                        lambda xr, xi, d=dot, E=E, t=tabs: high_apply_plain(
+                            xr, xi, *E, t, True, dot_mode=d),
+                        1, f + amps29 * 18, b, 2 * plane_bytes(fdt) + table_bytes(a_rows))
+            if X in (8, 64):
+                check_fwd16("high_apply", f"29q_X{X}_seed_{tag}", view,
+                            [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                            lambda xr, xi, ar, ai, d=dot, E=E: high_apply(
+                                xr, xi, *E, conj=True, acc=(ar, ai), alias=False,
+                                dot_mode=d),
+                            lambda xr, xi, ar, ai, d=dot, E=E: high_apply_plain(
+                                xr, xi, *E, conj=True, acc=(ar, ai), dot_mode=d),
+                            1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                            lib(seed_library(E)), reuse=False)
+                gview = (1, X, view[2] * 128)
+                flops = amps29 * (2 * X + 1) * 2
+                fl = (0.0, flops * 3) if dot == "bf16x3" and fdt != BF16 else (flops, 0.0)
+                check_fwd16("gram", f"29q_X{X}_{tag}", gview, [(fdt, 2 ** -14.5)] * 2,
+                            lambda xr, xi, d=dot: gram(xr, xi, dot_mode=d),
+                            lambda xr, xi, d=dot: gram_plain(xr, xi, d),
+                            0, *fl, plane_bytes(fdt), lib(gram_library))
+            x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
+            f_un, b_un = cmac_flops(X, dot == "bf16x3")
+            f_x, b_x = cmac_flops(2 * X, True)
+            check_fwd16("block_backward_high", f"29q_X{X}_{tag}", view,
+                        [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                        lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high(*p, *Ei, *E, **kw),
+                        lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high_plain(
+                            *p, *Ei, *E, **kw),
+                        2, f_un + f_x, b_un + b_x,
+                        2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                        lib(high_bwd_library(E, Einv)))
+            del tabs, E, Einv
+            torch.cuda.empty_cache()
+        # the merged top axis: the in-place apply and the wide adjoint (its
+        # pair gram as (B F^T) Einv^T, held as the wide adjoint's: 4e-5 on
+        # f32 planes)
+        for nq, X in ((N29, 256), (N30, 512)):
+            if nq == N30 and tag != "bf16":
+                continue
+            amps_n = float(1 << nq)
+            shape = (1, X, (1 << nq) // (X * 128), 128)
+            pb = lambda dt, a=amps_n: 2 * a * (2 if dt == BF16 else 4)  # noqa: E731
+            E, Einv = unitary(X), unitary(X)
+            f, b = fwd_flops(X, dot, amps_n)
+            check_fwd16("high_apply", f"{nq}q_X{X}_inplace_{tag}", shape, [(fdt, 1.0)] * 2,
+                        lambda xr, xi, d=dot, E=E: high_apply(xr, xi, *E, dot_mode=d),
+                        lambda xr, xi, d=dot, E=E: high_apply_plain(xr, xi, *E,
+                                                                    dot_mode=d),
+                        1, f, b, 2 * pb(fdt), lib(high_library(E)))
+            x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
+            f_un, b_un = fwd_flops(X, dot, amps_n)
+            f_x, b_x = fwd_flops(2 * X, "bf16x3", amps_n)
+            check_fwd16("block_backward_high", f"{nq}q_X{X}_wide_{tag}", shape,
+                        [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                        lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high(*p, *Ei, *E, **kw),
+                        lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high_plain(
+                            *p, *Ei, *E, **kw),
+                        2, f_un + f_x, b_un + b_x, 2 * pb(fdt) + 2 * pb(bdt),
+                        lib(high_bwd_library(E, Einv)))
+            del E, Einv
+            torch.cuda.empty_cache()
+        # the multi-term applies: in place on the ring's CNOT terms (the
+        # (6, 7) edge, T = 2; the closing edge's X = 8 span view, T = 2 lane
+        # slices), and an edge density's T = 4 seed from F into B (acc)
+        kind, *dops = pl.cross_terms_operands(
+            ps._dense_cross_expanded_terms(cnot, (6, 7), N29), N29, dev)
+        kind, vshape, *hops = pl.cross_span_operands(cnot, (0, N29 - 1), N29, dev)
+        for name, fn, fn_plain, shape, ops, library in (
+                ("dual_multi_apply", dual_multi_apply, dual_multi_apply_plain,
+                 (A29, 128, 128), dops, dual_multi_library),
+                ("high_multi_apply", high_multi_apply, high_multi_apply_plain,
+                 vshape, hops, high_multi_library)):
+            n_macs = macs(*ops[:2]) + macs(*ops[2:])
+            f, b = cmac_flops(n_macs, dot == "bf16x3")
+            check_fwd16(name, f"29q_T2_cnot_{tag}", shape, [(fdt, 1.0)] * 2,
+                        lambda xr, xi, o=ops, d=dot, fn=fn: fn(xr, xi, *o, dot_mode=d),
+                        lambda xr, xi, o=ops, d=dot, fn=fn_plain: fn(xr, xi, *o,
+                                                                     dot_mode=d),
+                        1, f, b, 2 * plane_bytes(fdt), lib(library(ops)))
+        if tag != "x3":
+            M4 = hermitian4()
+            kind, *dops = pl.cross_terms_operands(
+                ps._dense_cross_expanded_terms(M4.conj(), (6, 7), N29), N29, dev)
+            kind, vshape, *hops = pl.cross_span_operands(M4.conj(), (0, N29 - 1), N29,
+                                                         dev)
+            for name, fn, fn_plain, shape, ops in (
+                    ("dual_multi_apply", dual_multi_apply, dual_multi_apply_plain,
+                     (A29, 128, 128), dops),
+                    ("high_multi_apply", high_multi_apply, high_multi_apply_plain,
+                     vshape, hops)):
+                n_macs = macs(*ops[:2]) + macs(*ops[2:])
+                f, b = cmac_flops(n_macs, dot == "bf16x3")
+                check_fwd16(name, f"29q_seed_T4_acc_{tag}", shape,
+                            [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                            lambda xr, xi, ar, ai, o=ops, d=dot, fn=fn: fn(
+                                xr, xi, *o, conj=True, acc=(ar, ai), alias=False,
+                                dot_mode=d),
+                            lambda xr, xi, ar, ai, o=ops, d=dot, fn=fn_plain: fn(
+                                xr, xi, *o, conj=True, acc=(ar, ai), dot_mode=d),
+                            1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                            reuse=False)
+        del dops, hops
+        torch.cuda.empty_cache()
+        # the sublane adjoint ("auto" transport and gram of the setting)
+        E, Einv = unitary(128), unitary(128)
+        x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
+        f_un, b_un = cmac_flops(128, dot == "bf16x3")
+        f_x, b_x = cmac_flops(256, True)
+        check_fwd16("block_backward_sublane", f"29q_{tag}", (A29, 128, 128),
+                    [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda *p, kw=x3: block_backward_sublane(*p, *Einv, *E, **kw),
+                    lambda *p, kw=x3: block_backward_sublane_plain(*p, *Einv, *E, **kw),
+                    2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                    lib(sublane_library(E, Einv)))
+        del E, Einv
+        torch.cuda.empty_cache()
+
     # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
     log_time("[slice]")
     model = HardwareEfficientAnsatz(N_QUBITS, L28, entangler="cz")
@@ -2418,6 +2620,42 @@ def main() -> int:
             config.set_state_storage("f32")
             config.set_kernel_dot_mode("f32")
 
+    def fwd16_run(tag: str, model, p, build, storage: str = "f32",
+                  dot: str = "f32", loss: str = "magnetization") -> dict:
+        """One value_and_grad of ``model``'s ``loss`` at ``p`` under a storage
+        and a forward dot mode (the hpair setting as config has it), the
+        counters set to 0 just before and read just after and held to the
+        meta-device dry run of ``build`` in the same setting; its time (the
+        port compiles nothing: the kernels it runs have launched above) and
+        peak memory."""
+        config.set_state_storage(storage)
+        config.set_kernel_dot_mode(dot)
+        try:
+            want = program_launches(build, loss)[1]
+            q = p.detach().clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            v = getattr(model, loss)(q)
+            v.backward()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            got = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            value, g = v.item(), q.grad.detach().clone()
+            del v, q
+        finally:
+            config.set_state_storage("f32")
+            config.set_kernel_dot_mode("f32")
+        log(f"[{tag}] {storage} storage, {dot} forward dots: value_and_grad "
+            f"{step_s:.4f} s, peak memory {peak / 2**30:.3f} GiB; value {value!r}; "
+            f"launches {json.dumps({k: c for k, c in got.items() if c})}")
+        require(got == want, f"[{tag}] launch counts {got}, want the dry run's {want}")
+        require(bool(torch.isfinite(g).all()), f"[{tag}] non-finite gradient")
+        torch.cuda.empty_cache()
+        return dict(value=value, grad=g, counts=got, step_s=step_s, peak=peak)
+
     log_time("[ref29]")
     ref29 = run29("ref29", warm=True)
     require(ref29["counts"] == dry29("f32"), "[ref29] launch counts differ from "
@@ -2554,6 +2792,32 @@ def main() -> int:
     bf16_30 = dict(counts=cz30, peak=peak30)
     del z30, pz, vz
     torch.cuda.empty_cache()
+
+    # [cz_bf16_small]: HardwareEfficientAnsatz(n, 4, "cz") at n = 20 (group 2
+    # at X = 64) and 27 (group 3 at X = 64) under "bf16" and under the forward
+    # bf16x3 on f32 planes, against the f32 run on the same params: value and
+    # gradient rms within 2.5 times the JAX package's own error on the same
+    # model and depth at 14-17q (JAX_OWN_RINGS), launches equal to the dry
+    # run's, the X = 8..64 variants launched
+    log_time("[cz_bf16_small]")
+    cz_small = {}
+    for n in CZ_SMALL_NS:
+        build = lambda d, n=n: HardwareEfficientAnsatz(n, CZ_SMALL_L,  # noqa: E731
+                                                       entangler="cz", device=d)
+        model = build(dev)
+        p = model.init_params(torch.Generator().manual_seed(SEED + n))
+        ref = fwd16_run(f"cz_bf16_small {n}q", model, p, build)
+        for storage, dot, mode in (("bf16", "f32", "fwd_bf16"),
+                                   ("f32", "bf16x3", "fwd_bf16x3")):
+            tag = f"cz_bf16_small {n}q {storage}+{dot}"
+            r = fwd16_run(tag, model, p, build, storage, dot)
+            e = vs_ref(tag, r, ref, own_bars(JAX_OWN_RINGS["cz", CZ_SMALL_L, storage, dot]))
+            require(all(r["counts"][f"{k}[{mode}]"] == r["counts"][k] > 0 for k in (
+                "high_apply", "gram", "block_backward_high")),
+                f"[{tag}] a high kernel ran off its {mode} variant")
+            cz_small[n, storage, dot] = dict(counts=r["counts"], step_s=r["step_s"], **e)
+        del model, p, ref
+        torch.cuda.empty_cache()
 
     # the step runs the default bf16x3 pair grams (the rows "gram_bf16x3"
     # above); the f32-gram rows beside them give the same step with f32 grams
@@ -2854,7 +3118,46 @@ def main() -> int:
     log(f"[cnot29_f16] value_and_grad step {cnot16[3]:.4f} s against f32 storage's "
         f"{vgc_s:.4f} s; peak {cnot16[4] / 2**30:.3f} GiB against "
         f"{vgc_peak / 2**30:.3f} GiB")
-    del mc, pc, gradc, lossc
+    # [cnot29_bf16]: the same model and params under "bf16" (the multi-term
+    # applies in place on bf16 F and B, the X = 8 span views, the sublane
+    # adjoint on bf16 F), one step (the port compiles nothing), against the
+    # f32 run's value and gradient above; then the forward bf16x3 on f32 and
+    # bf16 planes at 29q x CNOT_X3_L, against an f32 run there
+    log_time("[cnot29_bf16]")
+    cbuild = lambda d: HardwareEfficientAnsatz(N29, CNOT_LAYERS,  # noqa: E731
+                                               entangler="cnot", device=d)
+    cb = fwd16_run("cnot29_bf16", mc, pc, cbuild, "bf16")
+    # 2.5 times the JAX package's own error, uncapped: its own rms on this
+    # model (4.6e-3 at 15q) is 93% of the "bf16" cap, which then no longer
+    # tells a fault from the storage
+    ecb = vs_ref("cnot29_bf16", cb, dict(value=lossc.item(), grad=gradc),
+                 tuple(2.5 * o for o in JAX_OWN_RINGS["cnot", CNOT_LAYERS, "bf16", "f32"]))
+    require(all(cb["counts"][f"{k}[bf16]"] == cb["counts"][k] > 0 for k in (
+        "dual_multi_apply", "high_multi_apply", "block_backward_sublane"))
+        and cb["counts"]["block_backward_sublane[fwd_bf16]"] > 0
+        and cb["counts"]["high_apply[fwd_bf16]"] == cb["counts"]["high_apply"],
+        "[cnot29_bf16] a kernel ran off its bf16 variant")
+    log(f"[cnot29_bf16] value_and_grad {cb['step_s']:.4f} s against f32's {vgc_s:.4f} "
+        f"s; peak {cb['peak'] / 2**30:.3f} GiB against {vgc_peak / 2**30:.3f} GiB")
+    cnot29_bf16 = dict(counts=cb["counts"], step_s=cb["step_s"], peak=cb["peak"], **ecb)
+    del mc, pc, gradc, lossc, cb
+    torch.cuda.empty_cache()
+    c4build = lambda d: HardwareEfficientAnsatz(N29, CNOT_X3_L,  # noqa: E731
+                                                entangler="cnot", device=d)
+    mc4 = c4build(dev)
+    pc4 = mc4.init_params(torch.Generator().manual_seed(SEED))
+    cref4 = fwd16_run("cnot29_x3 f32", mc4, pc4, c4build)
+    cnot29_x3 = {}
+    for storage in ("f32", "bf16"):
+        tag = f"cnot29_x3 {storage}+bf16x3"
+        r = fwd16_run(tag, mc4, pc4, c4build, storage, "bf16x3")
+        e = vs_ref(tag, r, cref4, own_bars(JAX_OWN_RINGS["cnot", CNOT_X3_L, storage,
+                                                         "bf16x3"]))
+        require(all(r["counts"][f"{k}[fwd_bf16x3]"] == r["counts"][k] > 0 for k in (
+            "dual_multi_apply", "high_multi_apply", "block_backward_sublane")),
+            f"[{tag}] a kernel ran off its bf16x3 variant")
+        cnot29_x3[storage] = dict(counts=r["counts"], step_s=r["step_s"], **e)
+    del mc4, pc4, cref4
     torch.cuda.empty_cache()
 
     def cnot_closed_form(n: int, x3: bool = False) -> None:
@@ -3408,6 +3711,64 @@ def main() -> int:
     del fact, pf, d_f
     torch.cuda.empty_cache()
 
+    # [hpair29_bf16]: cz 29q x HPAIR_BF16_L with the hpair expanded (the
+    # X = 256 in-place apply and adjoint on bf16 planes), under "bf16" and
+    # under the forward bf16x3, against the f32 factorized run on the same
+    # params within [cz_bf16_small]'s bars; the "bf16" expanded run also
+    # against the "bf16" factorized one
+    log_time("[hpair29_bf16]")
+    hbuild = lambda d: HardwareEfficientAnsatz(N29, HPAIR_BF16_L,  # noqa: E731
+                                               entangler="cz", device=d)
+    hm = hbuild(dev)
+    hpp = hm.init_params(torch.Generator().manual_seed(SEED + 5))
+    href = fwd16_run("hpair29_bf16 factorized f32", hm, hpp, hbuild)
+    hfact = fwd16_run("hpair29_bf16 factorized bf16", hm, hpp, hbuild, "bf16")
+    hpair29_bf16 = {}
+    for storage, dot, mode in (("bf16", "f32", "fwd_bf16"), ("f32", "bf16x3", "fwd_bf16x3")):
+        tag = f"hpair29_bf16 expanded {storage}+{dot}"
+        config.set_hpair_factorized(False)
+        try:
+            r = fwd16_run(tag, hm, hpp, hbuild, storage, dot)
+        finally:
+            config.set_hpair_factorized(True)
+        e = vs_ref(tag, r, href, own_bars(JAX_OWN_RINGS["cz", CZ_SMALL_L, storage, dot]))
+        require(wide_counts(r["counts"]) == (HPAIR_BF16_L, HPAIR_BF16_L)
+                and r["counts"][f"high_apply[{mode}]"] == r["counts"]["high_apply"]
+                and r["counts"][f"block_backward_high[{mode}]"]
+                == r["counts"]["block_backward_high"],
+                f"[{tag}] did not run the expanded sweep on its {mode} variants")
+        hpair29_bf16[storage, dot] = dict(counts=r["counts"], step_s=r["step_s"],
+                                          peak=r["peak"], **e)
+        if storage == "bf16":
+            hpair29_bf16["vs_factorized"] = vs_ref(
+                "hpair29_bf16 expanded vs factorized under bf16", r, hfact,
+                own_bars(JAX_OWN_RINGS["cz", CZ_SMALL_L, "bf16", "f32"]))
+    del hm, hpp, href, hfact
+    torch.cuda.empty_cache()
+
+    # [cnot30_bf16]: HardwareEfficientAnsatz(30, 2, "cnot") under "bf16" at
+    # params = 0 (the identity circuit): its lone 2-bit top-group block at
+    # X = 512 both ways on bf16 planes; n within 2e-3 n, |grad| <= 5e-3 (as
+    # [bf16_30]), the counters held to the dry run, peak memory
+    log_time("[cnot30_bf16]")
+    c30build = lambda d: HardwareEfficientAnsatz(N30, CNOT30_L,  # noqa: E731
+                                                 entangler="cnot", device=d)
+    c30 = fwd16_run("cnot30_bf16", c30build(dev), torch.zeros(CNOT30_L, N30, 3, device=dev),
+                    c30build, "bf16")
+    g30 = c30["grad"].abs().max().item()
+    log(f"[cnot30_bf16] {N30}q x {CNOT30_L}L params = 0 under bf16: magnetization "
+        f"{c30['value']!r} (want {N30}); |grad| max {g30:.3e}; peak memory "
+        f"{c30['peak'] / 2**30:.3f} GiB")
+    require(abs(c30["value"] - N30) <= FWD16_JAX_BARS[0] * N30
+            and g30 <= FWD16_JAX_BARS[1], "[cnot30_bf16] the params = 0 known answer failed")
+    require(wide_counts(c30["counts"]) == (CNOT30_L, CNOT30_L)
+            and c30["counts"]["block_backward_high[fwd_bf16]"]
+            == c30["counts"]["block_backward_high"],
+            f"[cnot30_bf16] did not run the X = 512 block on bf16 planes: {c30['counts']}")
+    cnot30_bf16 = dict(counts=c30["counts"], peak=c30["peak"], step_s=c30["step_s"])
+    del c30
+    torch.cuda.empty_cache()
+
     # [hpair30]: the CNOT ring at 30q x 2L, whose lone top-group block (the
     # in-group CNOT (28, 29)) runs at X = 512 both ways by default; with the
     # hpair expanded the merged sweep too. The plain path does not fit in the
@@ -3882,6 +4243,76 @@ def main() -> int:
             mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags]
             out.append(row_of(name, src, f"{line} ({what})", mine,
                               f"{pre}_{tags[0]}", run_counts[name], None))
+    # this slice's variants (phase 3j): "launches" from [cz_bf16_small]'s 20q
+    # runs (every high kernel there is at X = 64), [cnot29_bf16] and the
+    # forward bf16x3 CNOT run on f32 planes ([cnot29_x3]), [hpair29_bf16]'s
+    # expanded runs and [cnot30_bf16] (the merged top axis); each row's
+    # numbers from its kernel's 3j rows of the setting
+    small_bf16 = cz_small[20, "bf16", "f32"]["counts"]
+    small_x3 = cz_small[20, "f32", "bf16x3"]["counts"]
+    hp_bf16 = hpair29_bf16["bf16", "f32"]["counts"]
+    hp_x3 = hpair29_bf16["f32", "bf16x3"]["counts"]
+    c29b, c29x = cnot29_bf16["counts"], cnot29_x3["f32"]["counts"]
+
+    def narrow(r):
+        return r["variant"].split("_")[1] in ("X8", "X16", "X32", "X64")
+
+    def wide_row(kind):
+        return lambda r: f"_{kind}_" in r["variant"]
+
+    def every(r):
+        return True
+
+    # (names of the bf16 and bf16x3 rows, kernel, source (or one per row),
+    # representative variant, which of the kernel's 3j rows, launches of
+    # each; the wide adjoint's bf16 launches [hpair29_bf16]'s and
+    # [cnot30_bf16]'s)
+    slice_rows = (
+        (("high_apply[fwd_bf16,X=8..64]", "high_apply[fwd_bf16x3,X=8..64]"),
+         "high_apply", "high_apply_fwd16.cu", "29q_X64_diag_first", narrow,
+         small_bf16["high_apply[fwd_bf16]"], small_x3["high_apply[fwd_bf16x3]"]),
+        (("gram[fwd_bf16,X=8..64]", "gram[fwd_bf16x3,X=8..64]"), "gram", "gram.cu",
+         "29q_X64", narrow, small_bf16["gram[fwd_bf16]"], small_x3["gram[fwd_bf16x3]"]),
+        (("block_backward_high[fwd_bf16,X=8..64]",
+          "block_backward_high[fwd_bf16x3,X=8..64]"), "block_backward_high",
+         "block_backward_high_fwd16.cu", "29q_X64", narrow,
+         small_bf16["block_backward_high[fwd_bf16]"],
+         small_x3["block_backward_high[fwd_bf16x3]"]),
+        (("high_apply[wide_inplace+fwd_bf16]", "high_apply[wide_inplace+fwd_bf16x3]"),
+         "high_apply", "wide_apply.cuh", "29q_X256_inplace", wide_row("inplace"),
+         hp_bf16["high_apply[wide_inplace]"], hp_x3["high_apply[wide_inplace]"]),
+        (("block_backward_high[wide+fwd_bf16]", "block_backward_high[wide+fwd_bf16x3]"),
+         "block_backward_high", "block_backward_high.cu", "29q_X256_wide",
+         wide_row("wide"), hp_bf16["block_backward_high[wide]"]
+         + cnot30_bf16["counts"]["block_backward_high[wide]"],
+         hp_x3["block_backward_high[wide]"]),
+        (("dual_multi_apply[bf16 storage]", "dual_multi_apply[fwd_bf16x3]"),
+         "dual_multi_apply", "dual_multi_apply.cu", "29q_T2_cnot", every,
+         c29b["dual_multi_apply[bf16]"], c29x["dual_multi_apply[fwd_bf16x3]"]),
+        (("high_multi_apply[bf16 storage]", "high_multi_apply[fwd_bf16x3]"),
+         "high_multi_apply", ("high_multi_apply.cu", "high_multi_apply_x3.cu"),
+         "29q_T2_cnot", every,
+         c29b["high_multi_apply[bf16]"], c29x["high_multi_apply[fwd_bf16x3]"]),
+        (("block_backward_sublane[fwd_bf16]", "block_backward_sublane[fwd_bf16x3]"),
+         "block_backward_sublane", "block_backward_sublane.cu", "29q", every,
+         c29b["block_backward_sublane[fwd_bf16]"],
+         c29x["block_backward_sublane[fwd_bf16x3]"]))
+    replaces_of = {"high_apply": "dqc_tpu/ops/pallas/high_apply.py:76",
+                   "gram": "dqc_tpu/ops/pallas/gram.py:134",
+                   "block_backward_high": f"{bb}:906",
+                   "dual_multi_apply": "dqc_tpu/ops/pallas/dual_apply.py:165",
+                   "high_multi_apply": "dqc_tpu/ops/pallas/high_apply.py:273",
+                   "block_backward_sublane": f"{bb}:184"}
+    for names, kernel, srcs, pre, pick, n_bf16, n_x3 in slice_rows:
+        srcs = (srcs, srcs) if isinstance(srcs, str) else srcs
+        for name, src, tags, what, launches in (
+                (names[0], srcs[0], ("bf16",), "bf16 forward planes", n_bf16),
+                (names[1], srcs[1], ("x3", "bf16x3"), "dot_mode bf16x3", n_x3)):
+            mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags
+                    and pick(r)]
+            out.append(row_of(name, f"dqc_tpu_torch/csrc/{src}",
+                              f"{replaces_of[kernel]} ({what})", mine,
+                              f"{pre}_{tags[0]}", launches, None))
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,6 @@ from dqc_tpu_torch.circuit.scan import _match_ct, _num_layers
 from dqc_tpu_torch.ops import groups as gr
 from dqc_tpu_torch.ops import planes as pl
 from dqc_tpu_torch.ops.kernels import KERNELS, KernelSet
-from dqc_tpu_torch.ops.kernels import _storage
 from dqc_tpu_torch.ops.kernels.gram import pair_sum
 
 C64 = torch.complex64
@@ -656,11 +655,7 @@ def _apply_dense_cross(xr, xi, gate_m, positions, n: int, kernels: KernelSet,
     The per-term sweeps store their temporary and the accumulator in the
     input's storage after every term, as the JAX package does. ``plan``:
     the gate's :func:`_cross_plan`, staged once per call for a constant
-    gate (``gate_m`` is then not read). Under "bf16" storage or the forward
-    bf16x3 it raises: the multi-term kernels and the span views take
-    neither yet (ROADMAP.md, queue B item 5)."""
-    _storage.refuse_fwd("a dense cross-group gate (the multi-term kernels)",
-                        config.fwd_plane_dtype(), config.kernel_dot_mode())
+    gate (``gate_m`` is then not read)."""
     if plan is None:
         plan = _cross_plan(gate_m, positions, n, xr.device)
     kind, ops = plan

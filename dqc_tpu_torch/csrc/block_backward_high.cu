@@ -73,100 +73,20 @@
 // before it).
 //
 // "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
-// on F and its dot_mode), X = 128: F may be stored as bf16 (one load and
-// one store per element; its kind a template parameter, since a run-time
-// kind there cost the f32 adjoint 3-5% on the H100) and the uncompute runs
-// bf16x3 with dot_x3 (adjoint.cuh UX3). The other widths take f32 F and an
-// f32 uncompute (their callers refuse the rest).
-
-#include "adjoint.cuh"
+// on F and its dot_mode), at every X: F may be stored as bf16 (one load and
+// one store per element, as in the TPU kernel) and the uncompute runs
+// bf16x3 with dot_x3 (adjoint.cuh UX3). At X = 128 F's kind is a template
+// parameter (a run-time kind there cost the f32 adjoint 3-5% on the H100);
+// at X = 8..64 the variants take it at run time (adjoint.cuh: one branch
+// per tile to a loop of each kind; half the instantiations) and build in
+// a library of their own, block_backward_high_fwd16.cu, beside the f32
+// instantiations here, which keep their code. At X = 256 / 512 the cross-Gram
+// decodes F as it reads it (FKIND) and the uncompute is the wide apply in
+// place on F in its storage, bf16x3 with dot_x3.
+#include "block_backward_high.cuh"
 #include "wide_apply.cuh"
 
 namespace {
-
-using dqc::AdjCfg;
-using dqc::DiagTables;
-using dqc::DiagView;
-using dqc::Operators;
-using dqc::QHigh;
-
-constexpr int kSl = dqc::kGroup * dqc::kGroup;
-
-struct QOut {  // the diag_q outputs: Qas, Qal rows (A, 128), Qsl partial slots
-  float* as_r;
-  float* as_i;
-  float* al_r;
-  float* al_i;
-  float* sl_part;  // nblk x 2 x 128 x 128
-};
-
-// F is stored as FK, a compile-time kind (bf16 at X = 128 only), so that
-// the f32 instances keep their plain loads and stores.
-template <int X, bool TX3, bool GX3, bool UX3, int FK>
-__global__ void __launch_bounds__(dqc::kAdjThreads, 1)
-block_backward_high_kernel(char* fr, char* fi, char* br, char* bi, int bkind,
-                           Operators ops, DiagTables dinv, DiagTables dfwd,
-                           int has_diag, int diag_first_fwd, int diag_q,
-                           QOut qo, float* part, int64_t Q, int64_t post,
-                           int64_t ntiles) {
-  using Cfg = AdjCfg<X>;
-  extern __shared__ float smem[];
-  const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
-  constexpr int fsize = FK == dqc::kStoreF32 ? 4 : 2;  // bytes per F element
-  float* slots = part + (int64_t)blockIdx.x * Cfg::G * Cfg::kSlotFloats;
-  const int diag_mode = has_diag ? (diag_first_fwd ? 2 : 1) : 0;
-  // with diag_q a block takes whole (i, p) groups of kSl / C tiles
-  const int64_t per_group = diag_q ? kSl / Cfg::C : 1;
-  QHigh qh{qo.sl_part + (int64_t)blockIdx.x * 2 * kSl, qo.as_r, qo.as_i,
-           qo.al_r, qo.al_i, 0, 0, post};
-  for (int64_t grp = blockIdx.x; grp < ntiles / per_group; grp += gridDim.x) {
-    for (int64_t k = 0; k < per_group; ++k) {
-      const int64_t g0 = (grp * per_group + k) * Cfg::C;
-      const int64_t i = g0 / Q;
-      const int64_t q0 = g0 - i * Q;
-      const int64_t t = i * X * Q + q0;
-      DiagView vi{dinv, 2, i, q0, X, post};
-      DiagView vf{dfwd, 2, i, q0, X, post};
-      qh.i = i;
-      qh.q0 = q0;
-      dqc::adjoint_tile<X, TX3, GX3, QHigh, UX3, FK>(
-          fr + t * fsize, fi + t * fsize, br + t * bsize, bi + t * bsize,
-          bkind, 0, Q, 1, ops, diag_mode, vi, vf, slots, smem,
-          diag_q ? &qh : nullptr, FK);
-    }
-  }
-}
-
-template <int X, bool TX3, bool GX3, bool UX3>
-int launch(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
-           const Operators& ops, const DiagTables& dinv, const DiagTables& dfwd,
-           int has_diag, int diag_first_fwd, int diag_q, const QOut& qo,
-           float* qsl, float* part, float* out, long long A1, long long Q,
-           int nblk, cudaStream_t stream) {
-  using Cfg = AdjCfg<X>;
-  if (Q % Cfg::C != 0) return (int)cudaErrorInvalidValue;
-  const long long ntiles = A1 * (Q / Cfg::C);
-  const long long units = diag_q ? ntiles / (kSl / Cfg::C) : ntiles;
-  if (units <= 0 || nblk <= 0 || nblk > units) return (int)cudaErrorInvalidValue;
-  auto kernel = block_backward_high_kernel<X, TX3, GX3, UX3, dqc::kStoreF32>;
-  if constexpr (X == 128) {
-    if (fkind != dqc::kStoreF32)
-      kernel = block_backward_high_kernel<X, TX3, GX3, UX3, dqc::kStoreBF16>;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<nblk, dqc::kAdjThreads, Cfg::kSmemBytes, stream>>>(
-      static_cast<char*>(fr), static_cast<char*>(fi), static_cast<char*>(br),
-      static_cast<char*>(bi), bkind, ops, dinv, dfwd, has_diag, diag_first_fwd,
-      diag_q, qo, part, (int64_t)Q, (int64_t)(Q >> 14), (int64_t)ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int code = dqc::launch_reduce(part, out, (int64_t)nblk * Cfg::G,
-                                Cfg::kSlotFloats, stream);
-  if (code != 0 || !diag_q) return code;
-  return dqc::launch_reduce(qo.sl_part, qsl, nblk, 2 * kSl, stream);
-}
 
 // --- X = 256 / 512 ------------------------------------------------------
 
@@ -206,11 +126,12 @@ __device__ __forceinline__ void xg_flush(float (&Gr)[XgCfg::RX][XgCfg::RY],
 // no conjugation) for x in patch row bx, y in patch column by, over the
 // column tiles tile = group, group + gridDim.y, ... of the view (P, X, Q),
 // into part[group][0 / 1][x][y] (re / im): each entry has one writer. B is
-// stored as BKIND (common.cuh codec), decoded as the tile is read.
-template <int NRB, bool GX3, int BKIND>
+// stored as BKIND and F as FKIND (common.cuh codec), decoded as the tile is
+// read.
+template <int NRB, bool GX3, int BKIND, int FKIND = dqc::kStoreF32>
 __global__ void __launch_bounds__(kXgThreads, 1)
 cross_gram_wide_kernel(const void* __restrict__ br, const void* __restrict__ bi,
-                       const float* __restrict__ fr, const float* __restrict__ fi,
+                       const void* __restrict__ fr, const void* __restrict__ fi,
                        float* __restrict__ part, int64_t Q, int64_t ntiles) {
   constexpr int X = NRB * 128;
   constexpr int RX = XgCfg::RX, RY = XgCfg::RY, TC = XgCfg::TC;
@@ -247,8 +168,8 @@ cross_gram_wide_kernel(const void* __restrict__ br, const void* __restrict__ bi,
       const int64_t of = base + (int64_t)(by * 128 + x) * Q + c;
       sbr[c * LD + x] = dqc::load_plane(br, ob, BKIND);
       sbi[c * LD + x] = dqc::load_plane(bi, ob, BKIND);
-      sfr[c * LD + x] = fr[of];
-      sfi[c * LD + x] = fi[of];
+      sfr[c * LD + x] = dqc::load_plane(fr, of, FKIND);
+      sfi[c * LD + x] = dqc::load_plane(fi, of, FKIND);
     }
     __syncthreads();
     for (int c = 0; c < CB; ++c) {
@@ -347,12 +268,12 @@ gram_times_inv_t_kernel(const float* __restrict__ g,
   t0[X * X + x * X + y] = acci;
 }
 
-template <int X, bool GX3, int BKIND>
-int launch_cross_gram(const void* br, const void* bi, const float* fr,
-                      const float* fi, float* part, long long Q,
+template <int X, bool GX3, int BKIND, int FKIND = dqc::kStoreF32>
+int launch_cross_gram(const void* br, const void* bi, const void* fr,
+                      const void* fi, float* part, long long Q,
                       long long ntiles, int nblk, cudaStream_t stream) {
   constexpr int NRB = X / 128;
-  auto kernel = cross_gram_wide_kernel<NRB, GX3, BKIND>;
+  auto kernel = cross_gram_wide_kernel<NRB, GX3, BKIND, FKIND>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -362,17 +283,20 @@ int launch_cross_gram(const void* br, const void* bi, const float* fr,
 }
 
 template <int X, bool GX3>
-int launch_wide(float* fr, float* fi, void* br, void* bi, int bkind,
-                int bwd_x3, const Operators& ops, float* part, float* gram,
-                float* out, long long A1, long long Q, int nblk,
+int launch_wide(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
+                int bwd_x3, int dot_x3, const Operators& ops, float* part,
+                float* gram, float* out, long long A1, long long Q, int nblk,
                 cudaStream_t stream) {
   const long long ntiles = A1 * (Q / XgCfg::CB);
   if (Q % XgCfg::CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles ||
-      bkind < 0 || bkind > 2)
+      bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1)
     return (int)cudaErrorInvalidValue;
-  // 1. G = B F^T on the planes as they come in
+  // 1. G = B F^T on the planes as they come in (bf16 F: "bf16" storage,
+  //    where B is bf16 too)
   constexpr int F32 = dqc::kStoreF32, BF16 = dqc::kStoreBF16;
-  auto gram_fn = bkind == F32    ? launch_cross_gram<X, GX3, F32>
+  if (fkind == BF16 && bkind != BF16) return (int)cudaErrorInvalidValue;
+  auto gram_fn = fkind == BF16   ? launch_cross_gram<X, GX3, BF16, BF16>
+                 : bkind == F32  ? launch_cross_gram<X, GX3, F32>
                  : bkind == BF16 ? launch_cross_gram<X, GX3, BF16>
                                  : launch_cross_gram<X, GX3, dqc::kStoreF16>;
   int code = gram_fn(br, bi, fr, fi, part, Q, ntiles, nblk, stream);
@@ -384,15 +308,20 @@ int launch_wide(float* fr, float* fi, void* br, void* bi, int bkind,
       gram, ops.inv_r, ops.inv_i, out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // 3. F <- Einv F, B <- E^T B (B in its storage, the product bf16x3 with
-  //    bwd_x3), in place
-  code = dqc::launch_wide_apply<X>(fr, fi, fr, fi, dqc::kStoreF32, ops.inv_r,
-                                   ops.inv_i, 0, 0, 0, A1, Q, stream);
+  // 3. F <- Einv F (F in its storage, the product bf16x3 with dot_x3),
+  //    B <- E^T B (B in its storage, bf16x3 with bwd_x3), in place
+  if (fkind == F32 && !dot_x3)
+    code = dqc::launch_wide_apply<X>(static_cast<const float*>(fr),
+                                     static_cast<const float*>(fi), fr, fi,
+                                     F32, ops.inv_r, ops.inv_i, 0, 0, 0, A1, Q,
+                                     stream);
+  else
+    code = dqc::launch_wide_inplace_fwd16<X>(fr, fi, fkind, dot_x3, ops.inv_r,
+                                             ops.inv_i, A1, Q, stream);
   if (code != 0) return code;
   return dqc::launch_wide_inplace<X>(br, bi, bkind, bwd_x3, ops.e_r, ops.e_i,
                                      1, A1, Q, stream);
 }
-
 }  // namespace
 
 // The number of partial slots per block of the pair gram at this X (the
@@ -408,7 +337,6 @@ extern "C" int dqc_block_backward_high_slots(int X) {
     default: return 0;
   }
 }
-
 // In place on the view (A1, X, Q = M 128), X in {8, 16, 32, 64, 128}:
 // (F, B) <- the adjoint step of E; out = (T0 re, T0 im), 2 x X x X floats.
 // part is scratch of nblk * slots(X) * 2 X X floats, set to zero by the
@@ -419,60 +347,34 @@ extern "C" int dqc_block_backward_high_slots(int X) {
 // qal_r/i are (A, 128) outputs, A = A1 X Q / (128 128), set to zero by the
 // caller; qpart is scratch of nblk * 2 * 128 * 128 floats set to zero, and
 // qsl the (Qsl re, im) output, 2 x 128 x 128 floats (all null without).
-// B is stored as bkind (0 f32, 1 bf16, 2 f16), F as f32; bwd_x3 / gram_x3
-// run the transport / the pair gram bf16x3. Returns cudaGetLastError().
-extern "C" int dqc_block_backward_high(
-    void* fr, void* fi, void* br, void* bi, const float* einv_r,
-    const float* einv_i, const float* e_r, const float* e_i,
-    const float* isl_r, const float* isl_i, const float* ias_r,
-    const float* ias_i, const float* ial_r, const float* ial_i,
-    const float* sl_r, const float* sl_i, const float* as_r,
-    const float* as_i, const float* al_r, const float* al_i, int has_diag,
-    int diag_first_fwd, int diag_q, float* qas_r, float* qas_i, float* qal_r,
-    float* qal_i, float* qpart, float* qsl, float* part, float* out,
-    long long A1, int X, long long Q, int nblk, int bkind, int bwd_x3,
-    int gram_x3, int fkind, int dot_x3, void* stream) {
-  if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
-  if (diag_q && !has_diag) return (int)cudaErrorInvalidValue;
-  if (bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1)
-    return (int)cudaErrorInvalidValue;
-  // bf16 F and the bf16x3 uncompute: X = 128 (the cz ring's group 2)
-  if ((fkind != 0 || dot_x3) && X != 128) return (int)cudaErrorInvalidValue;
-  const Operators ops{einv_r, einv_i, e_r, e_i};
-  const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
-  const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
-  const QOut qo{qas_r, qas_i, qal_r, qal_i, qpart};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int mode = 2 * (bwd_x3 != 0) + (gram_x3 != 0);
-#define DQC_HIGH_MODE(XX, T, G, U)                                          \
-  return launch<XX, T, G, U>(fr, fi, br, bi, bkind, fkind, ops, dinv, dfwd, \
-                             has_diag, diag_first_fwd, diag_q, qo, qsl,     \
-                             part, out, A1, Q, nblk, s)
-#define DQC_HIGH_CASE_U(XX, U)                             \
-    switch (mode) {                                        \
-      case 0: DQC_HIGH_MODE(XX, false, false, U);          \
-      case 1: DQC_HIGH_MODE(XX, false, true, U);           \
-      case 2: DQC_HIGH_MODE(XX, true, false, U);           \
-      default: DQC_HIGH_MODE(XX, true, true, U);           \
-    }
-#define DQC_HIGH_CASE(XX)                                  \
-  case XX:                                                 \
-    DQC_HIGH_CASE_U(XX, false)
+// B is stored as bkind (0 f32, 1 bf16, 2 f16), F as fkind (0 f32, 1 bf16);
+// bwd_x3 / gram_x3 / dot_x3 run the transport / the pair gram / the
+// uncompute bf16x3. Below X = 128 this library takes f32 F and an f32
+// uncompute (dqc_block_backward_high_fwd16 the rest). Returns
+// cudaGetLastError().
+extern "C" int dqc_block_backward_high(DQC_HIGH_PARAMS) {
+  HighArgs a;
+  const int code = DQC_HIGH_ARGS(a);
+  if (code != 0) return code;
+  constexpr int F32 = dqc::kStoreF32, BF16 = dqc::kStoreBF16;
   switch (X) {
-    DQC_HIGH_CASE(8)
-    DQC_HIGH_CASE(16)
-    DQC_HIGH_CASE(32)
-    DQC_HIGH_CASE(64)
+#define DQC_HIGH_F32(XX)                                          \
+  case XX:                                                        \
+    if (fkind != F32 || dot_x3) return (int)cudaErrorInvalidValue; \
+    return launch_modes<XX, false, F32>(a, bwd_x3, gram_x3);
+    DQC_HIGH_F32(8)
+    DQC_HIGH_F32(16)
+    DQC_HIGH_F32(32)
+    DQC_HIGH_F32(64)
+#undef DQC_HIGH_F32
     case 128:
-      if (dot_x3) {
-        DQC_HIGH_CASE_U(128, true)
-      }
-      DQC_HIGH_CASE_U(128, false)
+      if (dot_x3)
+        return fkind == F32 ? launch_modes<128, true, F32>(a, bwd_x3, gram_x3)
+                            : launch_modes<128, true, BF16>(a, bwd_x3, gram_x3);
+      return fkind == F32 ? launch_modes<128, false, F32>(a, bwd_x3, gram_x3)
+                          : launch_modes<128, false, BF16>(a, bwd_x3, gram_x3);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef DQC_HIGH_CASE
-#undef DQC_HIGH_CASE_U
-#undef DQC_HIGH_MODE
 }
 
 // In place on the view (A1, X, Q = M 128), X in {256, 512}, Q a multiple of
@@ -480,18 +382,20 @@ extern "C" int dqc_block_backward_high(
 // T0 im), 2 x X x X floats. part is scratch of nblk * 2 * X * X floats
 // (every entry written) and gram of 2 * X * X; nblk is the number of column
 // groups (at most 65535 and A1 Q / 32). B is stored as bkind (0 f32, 1 bf16,
-// 2 f16), F as f32; bwd_x3 runs the transport bf16x3 and gram_x3 the
-// cross-Gram. Returns cudaGetLastError().
+// 2 f16), F as fkind (0 f32, 1 bf16: with bf16 B, "bf16" storage); bwd_x3
+// runs the transport bf16x3, gram_x3 the cross-Gram and dot_x3 the
+// uncompute. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high_wide(
-    float* fr, float* fi, void* br, void* bi, int bkind, const float* einv_r,
-    const float* einv_i, const float* e_r, const float* e_i, float* part,
-    float* gram, float* out, long long A1, int X, long long Q, int nblk,
-    int bwd_x3, int gram_x3, void* stream) {
+    void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
+    const float* einv_r, const float* einv_i, const float* e_r,
+    const float* e_i, float* part, float* gram, float* out, long long A1,
+    int X, long long Q, int nblk, int bwd_x3, int gram_x3, int dot_x3,
+    void* stream) {
   const Operators ops{einv_r, einv_i, e_r, e_i};
   cudaStream_t s = (cudaStream_t)stream;
-#define DQC_WIDE(XX, G)                                                    \
-  return launch_wide<XX, G>(fr, fi, br, bi, bkind, bwd_x3, ops, part, gram, \
-                            out, A1, Q, nblk, s)
+#define DQC_WIDE(XX, G)                                                       \
+  return launch_wide<XX, G>(fr, fi, br, bi, bkind, fkind, bwd_x3, dot_x3, ops, \
+                            part, gram, out, A1, Q, nblk, s)
   switch (X) {
     case 256:
       if (gram_x3) DQC_WIDE(256, true);

@@ -153,6 +153,20 @@ __device__ __forceinline__ void split_hs(float b, float& hi, float& s) {
   s = hi + bf16_hi(b - hi);
 }
 
+// One operator entry into a shared operator tile: as it is, or (TX3) as its hi
+// and lo bf16 parts.
+template <bool TX3>
+__device__ __forceinline__ void stage_op(float wr, float wi, int at, float* tr,
+                                         float* ti, float* tlr, float* tli) {
+  if constexpr (TX3) {
+    split_hl(wr, tr[at], tlr[at]);
+    split_hl(wi, ti[at], tli[at]);
+  } else {
+    tr[at] = wr;
+    ti[at] = wi;
+  }
+}
+
 // acc += (ar + i ai)(br + i bi) in bf16x3, the left operand as (hi, lo)
 // parts, the right as (hi, hi + lo).
 __device__ __forceinline__ void cmac3(float& accr, float& acci, float arh,

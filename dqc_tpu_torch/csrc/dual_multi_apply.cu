@@ -22,21 +22,25 @@
 // blocks, summing the terms in registers. Under reduced cotangent storage
 // the planes are stored as bf16 or f16 (multi_apply.cuh): the CNOT ring's
 // G^T transport in place on B, the seeds from f32 forward planes into B.
+// Under "bf16" storage the forward planes are bf16 too (the uncompute in
+// place on them, the seeds from them into bf16 B), and the forward bf16x3
+// runs both products in the 3-pass split (multi_apply.cuh X3).
 
 #include "multi_apply.cuh"
 
 // On planes (A, 128, 128): y <- [y +] conj?(sum_t Em_t x El_t^T), t < T,
 // with y = x for in place and y the accumulator planes with has_acc; x
 // stored as xkind, y as ykind (0 f32, 1 bf16, 2 f16; multi_apply.cuh's
-// pairs). elt = El_t^T and emt = Em_t^T, stacked (T, 128, 128) each,
-// real/imag planes. Returns cudaGetLastError().
+// pairs); x3 runs the products bf16x3. elt = El_t^T and emt = Em_t^T,
+// stacked (T, 128, 128) each, real/imag planes. Returns cudaGetLastError().
 extern "C" int dqc_dual_multi_apply(const void* xr, const void* xi, void* yr,
-                                    void* yi, int xkind, int ykind,
+                                    void* yi, int xkind, int ykind, int x3,
                                     const float* elt_r, const float* elt_i,
                                     const float* emt_r, const float* emt_i,
                                     int T, int conj, int has_acc, long long A,
                                     void* stream) {
-  return dqc::launch_multi_apply<dqc::kGroup>(
-      xr, xi, yr, yi, xkind, ykind, elt_r, elt_i, emt_r, emt_i, T, A, 1, conj,
-      has_acc, (cudaStream_t)stream);
+  auto fn = x3 ? dqc::launch_multi_apply<dqc::kGroup, true>
+              : dqc::launch_multi_apply<dqc::kGroup, false>;
+  return fn(xr, xi, yr, yi, xkind, ykind, elt_r, elt_i, emt_r, emt_i, T, A, 1,
+            conj, has_acc, (cudaStream_t)stream);
 }

@@ -28,7 +28,7 @@
 // as close to the exact sums as the 28-qubit ones.
 //
 // "bf16" storage and the forward bf16x3 (the TPU kernels' f32_of and
-// dot_mode), at X = 128 / 256 / 512: the planes may be stored as bf16
+// dot_mode), at every X: the planes may be stored as bf16
 // (XKIND, decoded as the tile is read) and the products may run bf16x3 (X3:
 // each value split as it is read from the tile, rows into hi and lo, columns
 // into hi and hi + lo, two FMAs per real product). On bf16 planes the split
@@ -378,8 +378,8 @@ int launch_wide(const void* xr, const void* xi, float* part, float* out,
 // floats and nblk the number of partial-sum blocks (at most the number of
 // tiles, P Q X / 4096, for X <= 128) or of column groups (at most P Q / 32,
 // for X > 128, where Q must be a multiple of 32). The planes are stored as
-// kind (0 f32, 1 bf16) and x3 runs the products bf16x3; both other than 0
-// take X in {128, 256, 512}. Returns cudaGetLastError().
+// kind (0 f32, 1 bf16) and x3 runs the products bf16x3, at every X.
+// Returns cudaGetLastError().
 extern "C" int dqc_gram(const void* xr, const void* xi, float* part,
                         float* out, long long P, int X, long long Q, int nblk,
                         int kind, int x3, void* stream) {
@@ -390,6 +390,16 @@ extern "C" int dqc_gram(const void* xr, const void* xi, float* part,
     // bf16 values split with a zero lo part: bf16x3 is the f32 product there
     const bool split = kind != B;
     switch (X) {
+#define DQC_GRAM_FWD16(XX)                                                    \
+  case XX:                                                                    \
+    return split ? launch<XX, dqc::kStoreF32, true>(xr, xi, part, out, P, Q,  \
+                                                    nblk, s)                  \
+                 : launch<XX, B, false>(xr, xi, part, out, P, Q, nblk, s);
+      DQC_GRAM_FWD16(8)
+      DQC_GRAM_FWD16(16)
+      DQC_GRAM_FWD16(32)
+      DQC_GRAM_FWD16(64)
+#undef DQC_GRAM_FWD16
       case 128:
         return split ? launch<128, dqc::kStoreF32, true>(xr, xi, part, out, P,
                                                           Q, nblk, s)

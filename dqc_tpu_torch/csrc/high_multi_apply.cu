@@ -22,14 +22,18 @@
 // product into a shared buffer one 64-lane column block at a time, and adds
 // the group product within each X-row group in registers. Under reduced
 // cotangent storage the planes are stored as bf16 or f16 (multi_apply.cuh):
-// the span gate's transport in place on B, the seeds into B.
+// the span gate's transport in place on B, the seeds into B. Under "bf16"
+// storage the forward planes are bf16 too, and the forward bf16x3 runs both
+// products in the 3-pass split (multi_apply.cuh X3; high_multi_apply_x3.cu).
 
 #include "multi_apply.cuh"
 
 // On the view (A1, X, M, 128), X in {8, 16, 32, 64, 128} and
 // M % (128 / X) == 0: y <- [y +] conj?(sum_t E_t x El_t^T), t < T, with
 // y = x for in place and y the accumulator with has_acc; x stored as xkind,
-// y as ykind (0 f32, 1 bf16, 2 f16; multi_apply.cuh's pairs). elt = El_t^T
+// y as ykind (0 f32, 1 bf16, 2 f16; multi_apply.cuh's pairs), the products
+// f32 (the bf16x3 products: dqc_high_multi_apply_x3, high_multi_apply_x3.cu,
+// a library of its own so that the two build in parallel). elt = El_t^T
 // (T, 128, 128) and et = E_t^T (T, X, X), real/imag planes. Returns
 // cudaGetLastError().
 extern "C" int dqc_high_multi_apply(const void* xr, const void* xi, void* yr,
@@ -39,19 +43,7 @@ extern "C" int dqc_high_multi_apply(const void* xr, const void* xi, void* yr,
                                     int T, int conj, int has_acc,
                                     long long A1, int X, long long M,
                                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (X) {
-#define DQC_MULTI_CASE(XX)                                                   \
-  case XX:                                                                   \
-    return dqc::launch_multi_apply<XX>(xr, xi, yr, yi, xkind, ykind, elt_r,  \
-                                       elt_i, et_r, et_i, T, A1, M, conj,    \
-                                       has_acc, s);
-    DQC_MULTI_CASE(8)
-    DQC_MULTI_CASE(16)
-    DQC_MULTI_CASE(32)
-    DQC_MULTI_CASE(64)
-    DQC_MULTI_CASE(128)
-#undef DQC_MULTI_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dqc::launch_high_multi<false>(xr, xi, yr, yi, xkind, ykind, elt_r,
+                                       elt_i, et_r, et_i, T, conj, has_acc, A1,
+                                       X, M, (cudaStream_t)stream);
 }

@@ -44,6 +44,17 @@
 // runs in f32 (the TPU kernels' kernel_dot_mode). In place on a reduced
 // cotangent (the transport of a cross-group gate), x and y are the same
 // planes of one storage; a seed reads f32 forward planes into reduced y.
+//
+// "bf16" storage and the forward bf16x3 (the TPU kernels' f32_of on x and
+// their dot_mode): x may be stored as bf16 in a seed too (the forward
+// planes under "bf16", into bf16 cotangent planes: the XKIND = YKIND = bf16
+// instantiation of the in-place form), and both products may run bf16x3
+// (X3, a template parameter): each operator tile is staged as its hi and
+// lo bf16 parts (the lo parts in the unused half of the operator buffer:
+// the group product's tile is then 1024 / X rows deep at most, 8 at
+// X = 128), and each value of x and of the lane product T split into hi
+// and hi + lo as it is read, two FMAs per real product (common.cuh cmac3).
+// T stays f32 between the two products, as in the TPU kernels.
 #pragma once
 
 #include "common.cuh"
@@ -74,7 +85,7 @@ __device__ __forceinline__ void mcmac(float& accr, float& acci, float ar,
 // stacked (T, 128, 128), elt[t][k][l] = El_t[l][k]; et: E_t^T stacked
 // (T, X, X), et[t][k][x] = E_t[x][k]. A tile is 128 / X consecutive m of
 // one i, read whole before any store.
-template <int X, int XKIND, int YKIND>
+template <int X, int XKIND, int YKIND, bool X3 = false>
 __global__ void __launch_bounds__(kMultiThreads, 1)
 multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
                    const float* __restrict__ elt_r,
@@ -84,7 +95,13 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
                    int has_acc) {
   static_assert(X % 8 == 0 && X <= kMultiRows, "8 | X <= 128");
   constexpr int GP = kMultiRows / X;         // m per tile
-  constexpr int KB = X < 16 ? X : 16;        // group-product tile depth
+  // group-product tile depth; with X3 its lo parts take the buffer's second
+  // half
+  constexpr int KB0 = X < 16 ? X : 16;
+  constexpr int KB = X3 && KB0 * X > kMultiOpFloats / 2
+                         ? kMultiOpFloats / 2 / X : KB0;
+  constexpr int kLo = kMultiOpFloats / 2;    // X3: offset of the lo parts
+  static_assert(kMultiKC * kMultiCB <= kLo, "lane tile and its lo parts");
   extern __shared__ float smem[];
   float* sXr = smem;                          // rows [r][k], r = mm X + x
   float* sXi = sXr + kMultiRows * kGroup;
@@ -140,8 +157,8 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
         for (int e = tid; e < kMultiKC * kMultiCB; e += kMultiThreads) {
           const int kk = e / kMultiCB, c = e % kMultiCB;
           const int64_t src = (int64_t)(k0 + kk) * kGroup + cb * kMultiCB + c;
-          sOr[e] = __ldg(lr + src);
-          sOi[e] = __ldg(li + src);
+          stage_op<X3>(__ldg(lr + src), __ldg(li + src), e, sOr, sOi,
+                       sOr + kLo, sOi + kLo);
         }
         __syncthreads();
 #pragma unroll
@@ -154,19 +171,49 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
               br[q][j] = sOr[(q4 + q) * kMultiCB + lane + 32 * j];
               bi[q][j] = sOi[(q4 + q) * kMultiCB + lane + 32 * j];
             }
-#pragma unroll
-          for (int a = 0; a < 8; ++a) {
-            const float4 zr = *reinterpret_cast<const float4*>(
-                sXr + (r0 + a) * kGroup + k0 + q4);
-            const float4 zi = *reinterpret_cast<const float4*>(
-                sXi + (r0 + a) * kGroup + k0 + q4);
-            const float vr[4] = {zr.x, zr.y, zr.z, zr.w};
-            const float vi[4] = {zi.x, zi.y, zi.z, zi.w};
+          if constexpr (X3) {
+            float bl_r[4][2], bl_i[4][2];  // the operator tile's lo parts
 #pragma unroll
             for (int q = 0; q < 4; ++q)
 #pragma unroll
-              for (int j = 0; j < 2; ++j)
-                mcmac(ar_[a][j], ai_[a][j], vr[q], vi[q], br[q][j], bi[q][j]);
+              for (int j = 0; j < 2; ++j) {
+                bl_r[q][j] = sOr[kLo + (q4 + q) * kMultiCB + lane + 32 * j];
+                bl_i[q][j] = sOi[kLo + (q4 + q) * kMultiCB + lane + 32 * j];
+              }
+#pragma unroll
+            for (int a = 0; a < 8; ++a) {
+              const float4 zr = *reinterpret_cast<const float4*>(
+                  sXr + (r0 + a) * kGroup + k0 + q4);
+              const float4 zi = *reinterpret_cast<const float4*>(
+                  sXi + (r0 + a) * kGroup + k0 + q4);
+              const float vr[4] = {zr.x, zr.y, zr.z, zr.w};
+              const float vi[4] = {zi.x, zi.y, zi.z, zi.w};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                float vrh, vrs, vih, vis;
+                split_hs(vr[q], vrh, vrs);
+                split_hs(vi[q], vih, vis);
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                  cmac3(ar_[a][j], ai_[a][j], br[q][j], bl_r[q][j], bi[q][j],
+                        bl_i[q][j], vrh, vrs, vih, vis);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int a = 0; a < 8; ++a) {
+              const float4 zr = *reinterpret_cast<const float4*>(
+                  sXr + (r0 + a) * kGroup + k0 + q4);
+              const float4 zi = *reinterpret_cast<const float4*>(
+                  sXi + (r0 + a) * kGroup + k0 + q4);
+              const float vr[4] = {zr.x, zr.y, zr.z, zr.w};
+              const float vi[4] = {zi.x, zi.y, zi.z, zi.w};
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                  mcmac(ar_[a][j], ai_[a][j], vr[q], vi[q], br[q][j], bi[q][j]);
+            }
           }
         }
       }
@@ -185,10 +232,10 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
       const float* gi_ = et_i + (int64_t)t * X * X;
       for (int k0 = 0; k0 < X; k0 += KB) {
         __syncthreads();  // T complete / the previous tile consumed
-        for (int e = tid; e < KB * X; e += kMultiThreads) {
-          sOr[e] = __ldg(gr_ + (int64_t)k0 * X + e);  // [kk][x]
-          sOi[e] = __ldg(gi_ + (int64_t)k0 * X + e);
-        }
+        for (int e = tid; e < KB * X; e += kMultiThreads)  // [kk][x]
+          stage_op<X3>(__ldg(gr_ + (int64_t)k0 * X + e),
+                       __ldg(gi_ + (int64_t)k0 * X + e), e, sOr, sOi,
+                       sOr + kLo, sOi + kLo);
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk) {
@@ -198,20 +245,47 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
             br[j] = sTr[(g0 + k0 + kk) * kMultiCB + lane + 32 * j];
             bi[j] = sTi[(g0 + k0 + kk) * kMultiCB + lane + 32 * j];
           }
+          if constexpr (X3) {
+            float brh[2], brs[2], bih[2], bis[2];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 er4 =
-                *reinterpret_cast<const float4*>(sOr + kk * X + x0 + 4 * h);
-            const float4 ei4 =
-                *reinterpret_cast<const float4*>(sOi + kk * X + x0 + 4 * h);
-            const float er[4] = {er4.x, er4.y, er4.z, er4.w};
-            const float ei[4] = {ei4.x, ei4.y, ei4.z, ei4.w};
+            for (int j = 0; j < 2; ++j) {
+              split_hs(br[j], brh[j], brs[j]);
+              split_hs(bi[j], bih[j], bis[j]);
+            }
 #pragma unroll
-            for (int a = 0; a < 4; ++a)
+            for (int h = 0; h < 2; ++h) {
+              const int o = kk * X + x0 + 4 * h;
+              const float4 er4 = *reinterpret_cast<const float4*>(sOr + o);
+              const float4 ei4 = *reinterpret_cast<const float4*>(sOi + o);
+              const float4 el4 = *reinterpret_cast<const float4*>(sOr + kLo + o);
+              const float4 eli4 = *reinterpret_cast<const float4*>(sOi + kLo + o);
+              const float er[4] = {er4.x, er4.y, er4.z, er4.w};
+              const float ei[4] = {ei4.x, ei4.y, ei4.z, ei4.w};
+              const float elr[4] = {el4.x, el4.y, el4.z, el4.w};
+              const float eli[4] = {eli4.x, eli4.y, eli4.z, eli4.w};
 #pragma unroll
-              for (int j = 0; j < 2; ++j)
-                mcmac(acc_r[4 * h + a][j], acc_i[4 * h + a][j], er[a], ei[a],
-                      br[j], bi[j]);
+              for (int a = 0; a < 4; ++a)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                  cmac3(acc_r[4 * h + a][j], acc_i[4 * h + a][j], er[a],
+                        elr[a], ei[a], eli[a], brh[j], brs[j], bih[j], bis[j]);
+            }
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 er4 =
+                  *reinterpret_cast<const float4*>(sOr + kk * X + x0 + 4 * h);
+              const float4 ei4 =
+                  *reinterpret_cast<const float4*>(sOi + kk * X + x0 + 4 * h);
+              const float er[4] = {er4.x, er4.y, er4.z, er4.w};
+              const float ei[4] = {ei4.x, ei4.y, ei4.z, ei4.w};
+#pragma unroll
+              for (int a = 0; a < 4; ++a)
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                  mcmac(acc_r[4 * h + a][j], acc_i[4 * h + a][j], er[a], ei[a],
+                        br[j], bi[j]);
+            }
           }
         }
       }
@@ -236,13 +310,13 @@ multi_apply_kernel(const void* xr, const void* xi, void* yr, void* yi,
   }
 }
 
-template <int X, int XKIND, int YKIND>
+template <int X, int XKIND, int YKIND, bool X3>
 int launch_multi_kind(const void* xr, const void* xi, void* yr, void* yi,
                       const float* elt_r, const float* elt_i,
                       const float* et_r, const float* et_i, int T,
                       long long blocks, long long M, int conj, int has_acc,
                       cudaStream_t stream) {
-  auto kernel = multi_apply_kernel<X, XKIND, YKIND>;
+  auto kernel = multi_apply_kernel<X, XKIND, YKIND, X3>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMultiSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -254,9 +328,11 @@ int launch_multi_kind(const void* xr, const void* xi, void* yr, void* yi,
 // On the view (A1, X, M, 128): y <- [y +] conj?(sum_t E_t x El_t^T), with
 // y = x for in place and y the accumulator with has_acc; x stored as xkind
 // and y as ykind (0 f32, 1 bf16, 2 f16): both f32, both one reduced storage
-// (in place on a cotangent), or x f32 and y reduced (a seed). Needs
-// M % (128 / X) == 0. Returns cudaGetLastError().
-template <int X>
+// (in place on a cotangent or on bf16 forward planes, or a seed from bf16
+// forward planes into bf16 cotangent planes), or x f32 and y reduced (a
+// seed); X3 runs both products bf16x3. Needs M % (128 / X) == 0. Returns
+// cudaGetLastError().
+template <int X, bool X3>
 int launch_multi_apply(const void* xr, const void* xi, void* yr, void* yi,
                        int xkind, int ykind, const float* elt_r,
                        const float* elt_i, const float* et_r,
@@ -267,11 +343,11 @@ int launch_multi_apply(const void* xr, const void* xi, void* yr, void* yi,
     return (int)cudaErrorInvalidValue;
   const long long blocks = A1 * (M / GP);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-#define DQC_MULTI_KIND(XK, YK)                                               \
-  if (xkind == XK && ykind == YK)                                            \
-    return launch_multi_kind<X, XK, YK>(xr, xi, yr, yi, elt_r, elt_i, et_r,  \
-                                        et_i, T, blocks, M, conj, has_acc,   \
-                                        stream);
+#define DQC_MULTI_KIND(XK, YK)                                                \
+  if (xkind == XK && ykind == YK)                                             \
+    return launch_multi_kind<X, XK, YK, X3>(xr, xi, yr, yi, elt_r, elt_i,     \
+                                            et_r, et_i, T, blocks, M, conj,   \
+                                            has_acc, stream);
   DQC_MULTI_KIND(kStoreF32, kStoreF32)
   DQC_MULTI_KIND(kStoreBF16, kStoreBF16)
   DQC_MULTI_KIND(kStoreF16, kStoreF16)
@@ -279,6 +355,30 @@ int launch_multi_apply(const void* xr, const void* xi, void* yr, void* yi,
   DQC_MULTI_KIND(kStoreF32, kStoreF16)
 #undef DQC_MULTI_KIND
   return (int)cudaErrorInvalidValue;
+}
+
+// launch_multi_apply at the view's X (high_multi_apply.cu, and its bf16x3
+// products in high_multi_apply_x3.cu).
+template <bool X3>
+int launch_high_multi(const void* xr, const void* xi, void* yr, void* yi,
+                      int xkind, int ykind, const float* elt_r,
+                      const float* elt_i, const float* et_r, const float* et_i,
+                      int T, int conj, int has_acc, long long A1, int X,
+                      long long M, cudaStream_t s) {
+  switch (X) {
+#define DQC_MULTI_CASE(XX)                                                   \
+  case XX:                                                                   \
+    return launch_multi_apply<XX, X3>(xr, xi, yr, yi, xkind, ykind, elt_r,   \
+                                      elt_i, et_r, et_i, T, A1, M, conj,     \
+                                      has_acc, s);
+    DQC_MULTI_CASE(8)
+    DQC_MULTI_CASE(16)
+    DQC_MULTI_CASE(32)
+    DQC_MULTI_CASE(64)
+    DQC_MULTI_CASE(128)
+#undef DQC_MULTI_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace dqc

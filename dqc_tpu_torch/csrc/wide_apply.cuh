@@ -63,20 +63,6 @@ __device__ __forceinline__ void wide_cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// One operator entry into the shared E tile: as it is, or (TX3) as its hi
-// and lo bf16 parts.
-template <bool TX3>
-__device__ __forceinline__ void stage_op(float wr, float wi, int at, float* tr,
-                                         float* ti, float* tlr, float* tli) {
-  if constexpr (TX3) {
-    split_hl(wr, tr[at], tlr[at]);
-    split_hl(wi, ti[at], tli[at]);
-  } else {
-    tr[at] = wr;
-    ti[at] = wi;
-  }
-}
-
 // y <- [acc +] conj?(op(E) x), op(E) = E or E^T (trans); y may be x (of one
 // storage); x stored as XKIND, y as YKIND (common.cuh codec); TX3: the
 // product in bf16x3.
@@ -256,6 +242,27 @@ inline int launch_wide_seed(const void* xr, const void* xi, void* yr,
   DQC_WIDE_SEED(B, B, false)
   DQC_WIDE_SEED(B, B, true)
 #undef DQC_WIDE_SEED
+  return (int)cudaErrorInvalidValue;
+}
+
+// The in-place apply (no transpose) with bf16 planes or bf16x3 products
+// ("bf16" storage and the forward bf16x3): planes stored as kind (0 f32, 1
+// bf16), the product bf16x3 with x3 (f32 planes take x3 only). The high
+// apply's in-place sweep on the merged top axis and the X = 256 / 512
+// adjoint's uncompute.
+template <int X>
+inline int launch_wide_inplace_fwd16(void* xr, void* xi, int kind, int x3,
+                                     const float* er, const float* ei,
+                                     long long A1, long long Q,
+                                     cudaStream_t stream) {
+#define DQC_WIDE_FWD16(K, T)                                              \
+  if (kind == K && (x3 != 0) == T)                                        \
+    return launch_wide_kind<X, K, K, T>(xr, xi, xr, xi, er, ei, 0, 0, 0, \
+                                        A1, Q, stream);
+  DQC_WIDE_FWD16(kStoreF32, true)
+  DQC_WIDE_FWD16(kStoreBF16, false)
+  DQC_WIDE_FWD16(kStoreBF16, true)
+#undef DQC_WIDE_FWD16
   return (int)cudaErrorInvalidValue;
 }
 

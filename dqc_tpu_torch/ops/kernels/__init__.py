@@ -12,7 +12,13 @@ axis, X = 256 / 512: ``high_apply``'s ``wide_inplace`` and
 "bf16" and "f16" for cotangent planes stored reduced (the seeds of
 ``dual_apply`` / ``high_apply``, the multi-term applies in place and as
 seeds, every adjoint and ``diag_backward``), "bf16x3" for a bf16x3
-transport and "gram_bf16x3" for bf16x3 pair grams. ``KERNELS`` is
+transport and "gram_bf16x3" for bf16x3 pair grams; "fwd_bf16" for bf16
+forward planes ("bf16" storage: every kernel that reads F, the
+multi-term applies' seeds) and "fwd_bf16x3" for the forward bf16x3.
+Below X = 128 the high apply's and the high adjoint's "bf16" / bf16x3
+variants, and the high multi-term apply's bf16x3 products, are libraries
+of their own (``csrc/*_fwd16.cu``, ``csrc/high_multi_apply_x3.cu``) so that
+the build's nvcc processes stay short. ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 ``_storage`` holds the kernels' storage codec and bf16x3 products as the

@@ -6,7 +6,9 @@ ctypes. The libraries go to ``build/dqc_tpu_torch/`` at the root of the
 checkout (git-ignored), named by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one is reused. All sources build
 in parallel, one ``nvcc`` process each, at the first kernel launch (or on
-``build_all()``). A failed build raises with nvcc's output.
+``build_all()``), each process's output read by a thread of its own (so
+that none waits on a full pipe) and its wall time kept in ``build_seconds``.
+A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -31,11 +35,13 @@ LIBRARIES = ("dual_apply", "high_apply", "gram", "block_backward_dual",
              "block_backward_high", "merged_fact_apply",
              "block_backward_merged_fact", "diag", "dual_multi_apply",
              "high_multi_apply", "block_backward_sublane",
-             "block_backward_lane")
+             "block_backward_lane", "block_backward_high_fwd16",
+             "high_apply_fwd16", "high_multi_apply_x3")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}   # ptxas report per library of this process
+build_seconds: Dict[str, float] = {}   # nvcc wall time per library built
 
 
 def nvcc_path() -> str:
@@ -66,15 +72,24 @@ def build_all() -> Dict[str, Path]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: Dict[str, Tuple[subprocess.Popen, Path]] = {}
+    t0 = time.perf_counter()
+
+    def finish(name: str) -> str:
+        out, _ = procs[name][0].communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        return out
+
     try:
         for name, t in todo.items():
             tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True), tmp)
+        with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+            outs = dict(zip(procs, pool.map(finish, procs)))
         failed = []
         for name, (p, tmp) in procs.items():
-            out, _ = p.communicate()
+            out = outs[name]
             build_log[name] = out
             if p.returncode != 0:
                 failed.append(f"nvcc failed for csrc/{name}.cu "

@@ -41,9 +41,10 @@ import torch
 STORAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FWD_DTYPES = (torch.float32, torch.bfloat16)   # the forward planes' storages
 DOT_MODES = ("f32", "bf16x3")
-# where the kernels and shapes that take neither bf16 forward planes nor the
-# forward bf16x3 yet are listed
-NOT_PORTED_FWD = "see ROADMAP.md, queue B item 5"
+# where the kernels and modes that take neither bf16 forward planes nor the
+# forward bf16x3 yet (the lane adjoint, a run's Q reductions) and float16
+# input planes are listed
+NOT_PORTED_FWD = "see ROADMAP.md, queue A item 1"
 _F16_MIN_NORMAL = 2.0 ** -14
 _F16_MAX = 65504.0
 
@@ -198,7 +199,7 @@ def check_fwd(what: str, fr, fi, dot_mode: str = "f32") -> None:
 
 def refuse_fwd(what: str, fdtype, dot_mode: str) -> None:
     """Raise for bf16 forward planes or the forward bf16x3 handed to a
-    kernel, or a shape of one, that takes neither yet."""
+    kernel, or a mode of one, that takes neither yet."""
     if fdtype == torch.bfloat16 or dot_mode == "bf16x3":
         raise NotImplementedError(
             f"{what}: bf16 forward planes and the forward bf16x3 are not "

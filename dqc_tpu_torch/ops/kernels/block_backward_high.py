@@ -18,7 +18,9 @@ run, before its update: ``Qsl`` (128, 128) summed over ``a``, ``Qas`` and
 ``Qal`` (A, 128) summed over ``l`` and over ``s``, for the view element
 ``(i, x, q = (p 128 + s) 128 + l)`` at ``a = (i X + x) post + p``. The
 Hopper kernel is ``csrc/block_backward_high.cu`` (bound by operations: 3 X
-complex multiply-adds per amplitude); :func:`block_backward_high_plain` is
+complex multiply-adds per amplitude), its bf16-F and bf16x3-uncompute
+variants at X = 8..64 ``csrc/block_backward_high_fwd16.cu`` (the same
+kernel, built as a library of its own); :func:`block_backward_high_plain` is
 its plain PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
 of a tiny top group without a run (a lone top-group block as ``E (x) I``,
 the unfactorized hpair's merged operator), where the kernel forms the pair
@@ -31,10 +33,13 @@ or float16 and the transport and the pair gram run in ``bwd_mode`` /
 and ``gram_dot_mode``, counted in ``mode_launches`` as in
 ``block_backward_dual``; at X = 256 / 512 too, where the cross-Gram reads
 B in its storage and the transport is the wide apply in place on it. At
-X = 128 the forward planes ``F`` may be stored bfloat16 ("bf16" storage,
-decoded on load, rounded on store) and the uncompute run bf16x3
-(``dot_mode``), counted as "fwd_bf16" and "fwd_bf16x3"; X = 8..64, X =
-256 / 512 and ``diag_q`` refuse both (ROADMAP.md, queue B item 5).
+every X the forward planes ``F`` may be stored bfloat16 ("bf16" storage,
+decoded on load, rounded on store; with B stored bfloat16 at X = 256 /
+512, as "bf16" storage stores both) and the uncompute run bf16x3
+(``dot_mode``), counted as "fwd_bf16" and "fwd_bf16x3"; at X = 256 / 512
+the cross-Gram decodes F and the uncompute is the wide apply in place on
+F in its storage. ``diag_q`` refuses both (a run's Q on bf16 F:
+ROADMAP.md, queue A item 1).
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -112,7 +117,7 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     tables as in ``high_apply`` (run's inverse, then run), or both None. A
     run needs M % 128 == 0; ``diag_q`` (with a run) adds its Q reductions
     to the outputs. ``B`` is stored as float32, bfloat16 or float16, ``F``
-    as float32 or bfloat16 (X = 128); ``dot_mode``, ``bwd_mode`` /
+    as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
     ``gram_mode`` are the uncompute's, the transport's and the pair gram's
     dot modes."""
     planes = (fr, fi, br, bi)
@@ -134,9 +139,11 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode, dot_mode)
     if fi.dtype != fr.dtype:
         raise TypeError("block_backward_high: forward planes of two dtypes")
-    if X != 128 or diag_q:
-        _st.refuse_fwd(f"block_backward_high at X = {X}"
-                       + (" with diag_q" if diag_q else ""), fr.dtype, dot_mode)
+    if diag_q:
+        _st.refuse_fwd("block_backward_high with diag_q", fr.dtype, dot_mode)
+    if X in WIDE_X and fr.dtype == torch.bfloat16 and br.dtype != torch.bfloat16:
+        raise TypeError("block_backward_high: bfloat16 forward planes at X = "
+                        f"{X} take bfloat16 cotangent planes, got {br.dtype}")
     if fr.device.type == "cpu":
         return block_backward_high_plain(
             *planes, *ops, diag_inv_tables=diag_inv_tables,
@@ -154,7 +161,8 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     if any(tuple(o.shape) != (X, X) for o in ops):
         raise ValueError(f"block_backward_high: operators must be ({X}, {X})")
     if X in WIDE_X:
-        return _block_backward_wide(planes, ops, A1, X, M, bwd_mode, gram_mode)
+        return _block_backward_wide(planes, ops, A1, X, M, bwd_mode, gram_mode,
+                                    dot_mode)
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
@@ -174,7 +182,10 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         qpart = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
         qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
         q_ptrs = [r.data_ptr() for r in rows] + [qpart.data_ptr(), qsl.data_ptr()]
-    fn = _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES)
+    fwd16 = X < 128 and (fr.dtype != torch.float32 or dot_mode == "bf16x3")
+    fn = (_launch.entry("block_backward_high_fwd16",
+                        "dqc_block_backward_high_fwd16", _ARGTYPES) if fwd16
+          else _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES))
     code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
               *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
@@ -193,18 +204,18 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
-_WIDE_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] + [_launch.VOIDP] * 7
-                  + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 3
+_WIDE_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 7
+                  + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 4
                   + [_launch.VOIDP])
 _BLOCKS_PER_SM = 4
 
 
 def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
-                         gram_mode: str):
+                         gram_mode: str, dot_mode: str):
     """X = 256 / 512: each block of the cross-Gram forms one of the
     (X / 128)^2 patches of ``B F^T`` over its group of 32-column tiles."""
     dev = planes[0].device
-    bdt = planes[2].dtype
+    fdt, bdt = planes[0].dtype, planes[2].dtype
     patches = (X // 128) ** 2
     nblk = min(A1 * M * 128 // 32, 65535,
                max(1, _BLOCKS_PER_SM * _launch.sm_count(dev) // patches))
@@ -214,13 +225,15 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
     lib = "block_backward_high"
     fn = _launch.entry(lib, "dqc_block_backward_high_wide", _WIDE_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), _st.storage_kind(bdt),
-              *(o.data_ptr() for o in ops), part.data_ptr(), gram.data_ptr(),
-              out.data_ptr(), A1, X, M * 128, nblk, int(bwd_mode == "bf16x3"),
-              int(gram_mode == "bf16x3"), _launch.stream(dev))
+              _st.storage_kind(fdt), *(o.data_ptr() for o in ops),
+              part.data_ptr(), gram.data_ptr(), out.data_ptr(), A1, X, M * 128,
+              nblk, int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
+              int(dot_mode == "bf16x3"), _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
     block_backward_high.mode_launches["wide"] += 1
     count_modes(block_backward_high, bdt, bwd_mode, gram_mode)
+    _st.count_fwd(block_backward_high, fdt, dot_mode)
     return (*planes, out[0], out[1])
 
 

@@ -63,7 +63,7 @@ def block_backward_lane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     float16; ``bwd_mode`` / ``gram_mode`` are the transport's and the pair
     gram's dot modes. bfloat16 forward planes and ``dot_mode`` "bf16x3"
     (the forward bf16x3 of the uncompute) raise ``NotImplementedError``
-    (ROADMAP.md, queue B item 5)."""
+    (ROADMAP.md, queue A item 1)."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):

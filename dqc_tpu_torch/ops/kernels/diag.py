@@ -22,7 +22,7 @@ planes in place (the TPU kernels alias them) and return them; on a CPU
 tensor they return the plain version's fresh planes. The forward planes
 may be stored bfloat16 ("bf16" storage: decoded on load, rounded to nearest
 even on store; counted in ``mode_launches["fwd_bf16"]``), but not with the
-Q reductions (ROADMAP.md, queue B item 5).
+Q reductions (ROADMAP.md, queue A item 1).
 """
 
 from __future__ import annotations

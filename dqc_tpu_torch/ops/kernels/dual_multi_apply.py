@@ -24,8 +24,12 @@ may be stored as bfloat16 or float16 in the kernels' codec
 (ops/kernels/_storage.py), as the TPU kernel's ``f32_of`` / ``store_as``:
 in place on reduced planes (the transport of a cross-group gate on the
 cotangent), or a seed from f32 planes into reduced ones (``acc``'s dtype or
-``out_dtype``). The products stay f32. Those launches are also counted in
-``mode_launches`` under the storage's name ("bf16", "f16").
+``out_dtype``). Those launches are also counted in ``mode_launches`` under
+the storage's name ("bf16", "f16"). Under "bf16" storage the forward planes
+are bfloat16 too: in place on them (the uncompute; counted as "bf16", as
+in place on a bfloat16 cotangent) and the seeds from them into bfloat16
+cotangent planes (counted as "fwd_bf16"); the products may run bf16x3
+(``dot_mode``, the forward bf16x3), counted as "fwd_bf16x3".
 """
 
 from __future__ import annotations
@@ -43,21 +47,22 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 def dual_multi_apply_plain(xr, xi, el_r, el_i, em_r, em_i, *,
                            conj: bool = False, acc=None, alias: bool = True,
                            out_dtype=None, dot_mode: str = "f32") -> Planes:
-    """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
-    time, the planes decoded and encoded as the kernel does); fresh outputs
-    in the kernel's storage, whatever ``alias`` says."""
-    _st.refuse_fwd("dual_multi_apply_plain", torch.float32, dot_mode)
+    """Plain PyTorch version of the kernel (complex64 matmuls in
+    ``dot_mode``, one term at a time, the lane product first, the planes
+    decoded and encoded as the kernel does); fresh outputs in the kernel's
+    storage, whatever ``alias`` says."""
     x = _st.load_b(xr, xi)
     el = torch.complex(el_r, el_i)
     em = torch.complex(em_r, em_i)
     y = None
     for t in range(el.shape[0]):
-        yt = torch.matmul(em[t], torch.matmul(x, el[t].transpose(0, 1)))
+        yt = _st.cmatmul(em[t], _st.cmatmul(x, el[t].transpose(0, 1), dot_mode),
+                         dot_mode)
         y = yt if y is None else y + yt
     return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 3 + [_launch.VOIDP] * 4
              + [_launch.INT] * 3 + [_launch.LONG, _launch.VOIDP])
 
 
@@ -77,15 +82,25 @@ def out_storage(xr, acc, alias: bool, out_dtype):
     return out_dtype or xr.dtype
 
 
+def count_modes(wrapper, xdtype, ydtype, seed: bool, dot_mode: str) -> None:
+    """A multi-term apply's counted modes: "seed"; its output planes'
+    reduced storage; a seed from bfloat16 forward planes ("bf16" storage;
+    a seed reads the forward planes) as "fwd_bf16"; the forward bf16x3 as
+    "fwd_bf16x3". In place, bfloat16 planes count as "bf16" whether they are
+    the cotangent or the forward planes."""
+    if seed:
+        wrapper.mode_launches["seed"] += 1
+    _st.count_storage(wrapper, ydtype)
+    _st.count_fwd(wrapper, xdtype if seed else torch.float32, dot_mode)
+
+
 def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
                      acc=None, alias: bool = True, out_dtype=None,
                      dot_mode: str = "f32") -> Planes:
     """``[acc +] conj?(sum_t Em_t X El_t^T)`` on planes ``(A, 128, 128)``;
     the factors are f32 real/imag planes stacked ``(T, 128, 128)``.
-    ``out_dtype``: the storage of fresh output planes (``alias=False``).
-    ``dot_mode`` "bf16x3" (the forward bf16x3) and a seed from bfloat16
-    planes (the forward planes under "bf16" storage) raise
-    ``NotImplementedError`` (ROADMAP.md, queue B item 5)."""
+    ``out_dtype``: the storage of fresh output planes (``alias=False``);
+    ``dot_mode``: the products' (the forward dot mode)."""
     if xr.dim() != 3 or tuple(xr.shape[1:]) != (128, 128) or xi.shape != xr.shape:
         raise ValueError(f"dual_multi_apply: planes must be (A, 128, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -97,12 +112,10 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     _st.check_apply_storage("dual_multi_apply", xr.dtype,
                             out_storage(xr, acc, alias, out_dtype))
     _st.check_dot_mode("dual_multi_apply", dot_mode)
-    seed = acc is not None or not alias
-    _st.refuse_fwd("dual_multi_apply" + (" seed" if seed else ""),
-                   xr.dtype if seed else torch.float32, dot_mode)
     if xr.device.type == "cpu":
         return dual_multi_apply_plain(xr, xi, *ops, conj=conj, acc=acc,
-                                      out_dtype=None if alias else out_dtype)
+                                      out_dtype=None if alias else out_dtype,
+                                      dot_mode=dot_mode)
     _launch.check_cuda_f32("dual_multi_apply", (xr, xi), xr.device, align=16,
                            dtypes=_st.STORAGE_DTYPES)
     out = _launch.output_planes("dual_multi_apply", xr, xi, acc, alias,
@@ -113,16 +126,17 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     fn = _launch.entry("dual_multi_apply", "dqc_dual_multi_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
+              int(dot_mode == "bf16x3"),
               elt_r.data_ptr(), elt_i.data_ptr(), emt_r.data_ptr(),
               emt_i.data_ptr(), T, int(conj), int(acc is not None), xr.shape[0],
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "dual_multi_apply", "dual_multi_apply launch")
     dual_multi_apply.launches += 1
-    if conj or acc is not None or not alias:
-        dual_multi_apply.mode_launches["seed"] += 1
-    _st.count_storage(dual_multi_apply, out[0].dtype)
+    count_modes(dual_multi_apply, xr.dtype, out[0].dtype,
+                conj or acc is not None or not alias, dot_mode)
     return out
 
 
 dual_multi_apply.launches = 0
-dual_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0}
+dual_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0,
+                                  "fwd_bf16": 0, "fwd_bf16x3": 0}

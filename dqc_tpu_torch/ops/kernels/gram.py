@@ -13,9 +13,8 @@ kernel does 3 X), which sums per-block partials and adds them in a second,
 fixed-order pass. :func:`gram_plain` is its plain PyTorch version.
 
 The planes may be stored bfloat16 ("bf16" storage, decoded on the read) and
-the products run bf16x3 (``dot_mode``, the TPU kernels' ``dot_mode``), at X
-= 128 / 256 / 512, counted in ``mode_launches`` as "fwd_bf16" and
-"fwd_bf16x3"; the narrower views refuse both (ROADMAP.md, queue B item 5).
+the products run bf16x3 (``dot_mode``, the TPU kernels' ``dot_mode``), at
+every X, counted in ``mode_launches`` as "fwd_bf16" and "fwd_bf16x3".
 On bf16 planes bf16x3 and f32 compute the same sums: a bf16 value's lo part
 is zero, so each product is the exact one, and the kernel runs its f32
 products there.
@@ -33,7 +32,6 @@ from dqc_tpu_torch.ops.kernels import _storage as _st
 
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: 128 x 128 patches of (S, C)
-FWD16_X = (128, 256, 512)   # bf16 planes and bf16x3
 _BLOCKS_PER_SM = 4
 
 
@@ -87,8 +85,6 @@ def gram(xr: torch.Tensor, xi: torch.Tensor,
         raise ValueError(f"gram: planes must be one (P, X, Q) view, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
     _st.check_fwd("gram", xr, xi, dot_mode)
-    if xr.shape[1] not in FWD16_X:
-        _st.refuse_fwd(f"gram at X = {xr.shape[1]}", xr.dtype, dot_mode)
     if xr.device.type == "cpu":
         return gram_plain(xr, xi, dot_mode)
     P, X, Q = xr.shape

@@ -11,8 +11,9 @@ element ``(i, x, m = p 128 + s, l)``. X is 8..128, or 256 / 512 on the
 merged top axis of a tiny top group (ops/planes._merged_view), there
 without a run, in place (a lone top-group block as ``E (x) I``, the
 unfactorized hpair's merged operator) or in the seed modes (the merged-top
-density seed). The Hopper kernel is ``csrc/high_apply.cu``, and
-``csrc/wide_apply.cuh`` at X = 256 / 512 (bound by operations: X complex
+density seed). The Hopper kernel is ``csrc/high_apply.cu`` (its bf16 and
+bf16x3 variants at X = 8..64 built as a library of their own,
+``csrc/high_apply_fwd16.cu``), and ``csrc/wide_apply.cuh`` at X = 256 / 512 (bound by operations: X complex
 multiply-adds per amplitude against 16 bytes, 24 in the seed modes);
 :func:`high_apply_plain` is its plain PyTorch version.
 
@@ -23,8 +24,7 @@ output planes may be stored reduced (``out_dtype`` or the accumulator's
 dtype, as in ``dual_apply``), counted in ``mode_launches`` under the
 storage's name. The input planes may be stored bfloat16 ("bf16" storage)
 and the product run bf16x3 (``dot_mode``), counted as "fwd_bf16" and
-"fwd_bf16x3", at X = 128 (in place and the seeds) and X = 256 / 512 (the
-seeds); the other shapes refuse both (ROADMAP.md, queue B item 5).
+"fwd_bf16x3", at every X, in place and as seeds.
 """
 
 from __future__ import annotations
@@ -39,8 +39,6 @@ from dqc_tpu_torch.ops.kernels import _storage as _st
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: every mode but a diagonal run
-FWD16_X = (128,)      # bf16 input planes and bf16x3: in place and seeds
-FWD16_SEED_X = (128, 256, 512)   # ... and the seeds on the merged top axis
 
 
 def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
@@ -106,9 +104,6 @@ def high_apply(xr, xi, e_r, e_i,
     if seed:
         _st.check_apply_storage("high_apply", xr.dtype, (
             acc[0].dtype if acc is not None else out_dtype or xr.dtype))
-    if X not in (FWD16_SEED_X if seed else FWD16_X):
-        _st.refuse_fwd(f"high_apply at X = {X}"
-                       + ("" if seed else " in place"), xr.dtype, dot_mode)
     if xr.device.type == "cpu":
         return high_apply_plain(xr, xi, e_r, e_i, diag_tables, diag_first,
                                 conj=conj, acc=acc, out_dtype=out_dtype,
@@ -123,7 +118,9 @@ def high_apply(xr, xi, e_r, e_i,
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
         raise ValueError(f"high_apply: operator must be ({X}, {X})")
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
-    fn = _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES)
+    fn = (_launch.entry("high_apply_fwd16", "dqc_high_apply_fwd16", _ARGTYPES)
+          if X < 128 and (xr.dtype != torch.float32 or dot_mode == "bf16x3")
+          else _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES))
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
               e_r.data_ptr(), e_i.data_ptr(), *_launch.table_ptrs(diag_tables),

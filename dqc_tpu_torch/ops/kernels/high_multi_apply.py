@@ -9,13 +9,16 @@ the lane group and on a high group, or on a span of high bits
 one pass, with the density-seed modes of ``dual_multi_apply`` (``conj``,
 ``acc``, ``alias=False``: the seed of a density across the lane group and a
 high group, on the span view). The Hopper kernel is
-``csrc/high_multi_apply.cu`` on ``csrc/multi_apply.cuh`` (bound by
-operations: (128 + X) T complex multiply-adds per amplitude against 16
-bytes); :func:`high_multi_apply_plain` is its plain PyTorch version.
+``csrc/high_multi_apply.cu`` on ``csrc/multi_apply.cuh`` (its bf16x3
+products built as a library of their own, ``csrc/high_multi_apply_x3.cu``;
+bound by operations: (128 + X) T complex multiply-adds per amplitude
+against 16 bytes); :func:`high_multi_apply_plain` is its plain PyTorch
+version.
 
 :func:`high_multi_apply` consumes its input planes (unless ``alias=False``
-or ``acc``) like ``dual_multi_apply``, and takes the cotangent storages of
-``dual_multi_apply`` (counted in ``mode_launches`` as there).
+or ``acc``) like ``dual_multi_apply``, and takes the plane storages and
+the dot modes of ``dual_multi_apply`` (counted in ``mode_launches`` as
+there).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
-from dqc_tpu_torch.ops.kernels.dual_multi_apply import check_terms, out_storage
+from dqc_tpu_torch.ops.kernels.dual_multi_apply import (check_terms, count_modes,
+                                                       out_storage)
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
@@ -35,18 +39,18 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
                            conj: bool = False, acc=None, alias: bool = True,
                            out_dtype=None, dot_mode: str = "f32") -> Planes:
-    """Plain PyTorch version of the kernel (complex64 matmuls, one term at a
-    time, the planes decoded and encoded as the kernel does); fresh outputs
-    in the kernel's storage, whatever ``alias`` says."""
-    _st.refuse_fwd("high_multi_apply_plain", torch.float32, dot_mode)
+    """Plain PyTorch version of the kernel (complex64 matmuls in
+    ``dot_mode``, one term at a time, the lane product first, the planes
+    decoded and encoded as the kernel does); fresh outputs in the kernel's
+    storage, whatever ``alias`` says."""
     A1, X, M, _ = xr.shape
     x = _st.load_b(xr, xi)
     e = torch.complex(e_r, e_i)
     el = torch.complex(el_r, el_i)
     y = None
     for t in range(e.shape[0]):
-        z = torch.matmul(x, el[t].transpose(0, 1)).reshape(A1, X, M * 128)
-        yt = torch.matmul(e[t], z)
+        z = _st.cmatmul(x, el[t].transpose(0, 1), dot_mode).reshape(A1, X, M * 128)
+        yt = _st.cmatmul(e[t], z, dot_mode)
         y = yt if y is None else y + yt
     y = y.reshape(xr.shape)
     if acc is not None:
@@ -65,10 +69,8 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     """``[acc +] conj?(sum_t E_t x El_t^T)`` on the view ``(A1, X, M, 128)``,
     X in 8..128; ``e_*`` stacked ``(T, X, X)``, ``el_*`` stacked
     ``(T, 128, 128)``, f32 real/imag planes. ``out_dtype``: the storage of
-    fresh output planes (``alias=False``). ``dot_mode`` "bf16x3" (the
-    forward bf16x3) and a seed from bfloat16 planes (the forward planes
-    under "bf16" storage) raise ``NotImplementedError`` (ROADMAP.md, queue B
-    item 5)."""
+    fresh output planes (``alias=False``); ``dot_mode``: the products'
+    (the forward dot mode)."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_multi_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -81,13 +83,11 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     _st.check_apply_storage("high_multi_apply", xr.dtype,
                             out_storage(xr, acc, alias, out_dtype))
     _st.check_dot_mode("high_multi_apply", dot_mode)
-    seed = acc is not None or not alias
-    _st.refuse_fwd("high_multi_apply" + (" seed" if seed else ""),
-                   xr.dtype if seed else torch.float32, dot_mode)
     if xr.device.type == "cpu":
         return high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, conj=conj,
                                       acc=acc,
-                                      out_dtype=None if alias else out_dtype)
+                                      out_dtype=None if alias else out_dtype,
+                                      dot_mode=dot_mode)
     if X not in KERNEL_X or M % (128 // X):
         raise ValueError(f"high_multi_apply: X={X} must be one of {KERNEL_X} "
                          f"and M={M} a multiple of {128 // max(X, 1)}")
@@ -99,7 +99,8 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     _launch.check_cuda_f32("high_multi_apply", ops, xr.device)
     # the kernel reads the factors transposed, so that its tile loads coalesce
     et_r, et_i, elt_r, elt_i = (o.transpose(1, 2).contiguous() for o in ops)
-    fn = _launch.entry("high_multi_apply", "dqc_high_multi_apply", _ARGTYPES)
+    lib = "high_multi_apply_x3" if dot_mode == "bf16x3" else "high_multi_apply"
+    fn = _launch.entry(lib, f"dqc_{lib}", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
               elt_r.data_ptr(), elt_i.data_ptr(), et_r.data_ptr(), et_i.data_ptr(),
@@ -107,11 +108,11 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_multi_apply", "high_multi_apply launch")
     high_multi_apply.launches += 1
-    if conj or acc is not None or not alias:
-        high_multi_apply.mode_launches["seed"] += 1
-    _st.count_storage(high_multi_apply, out[0].dtype)
+    count_modes(high_multi_apply, xr.dtype, out[0].dtype,
+                conj or acc is not None or not alias, dot_mode)
     return out
 
 
 high_multi_apply.launches = 0
-high_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0}
+high_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0,
+                                  "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -300,11 +300,14 @@ def test_modes_counted():
     """The wrappers count the new variants (the plain versions on the CPU
     do not launch; the counts are the card's): a seed from bf16 planes is
     a seed into bf16 planes, and the refusals of the card path hold on the
-    CPU too (an X = 64 high apply in bf16x3)."""
-    x = torch.zeros((1, 64, 128, 128), dtype=BF)
-    e = torch.zeros((64, 64))
+    CPU too (the lane adjoint on bf16 forward planes; the X = 64 high apply,
+    refused here before its variants were ported, runs)."""
+    x = torch.zeros((1, 128, 128), dtype=BF)
+    e = torch.zeros((128, 128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.high_apply(x, x.clone(), e, e)
+        tk.block_backward_lane(x, x.clone(), x.clone(), x.clone(), e, e, e, e)
+    x64 = torch.zeros((1, 64, 128, 128), dtype=BF)
+    assert tk.high_apply(x64, x64.clone(), e[:64, :64], e[:64, :64])[0].dtype == BF
     with pytest.raises(TypeError):
         tk.dual_apply(*(torch.zeros((1, 128, 128), dtype=BF),) * 2,
                       *(torch.zeros((128, 128)),) * 4, alias=False,

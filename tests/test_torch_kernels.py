@@ -230,6 +230,8 @@ def test_kernel_wrappers_refuse_other_devices():
           for m in ("bf16", "f16", "bf16x3", "gram_bf16x3")),
         *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "gram",
                                 "merged_fact_apply", "block_backward_dual",
-                                "block_backward_high", "block_backward_merged_fact")
+                                "block_backward_high", "block_backward_merged_fact",
+                                "dual_multi_apply", "high_multi_apply",
+                                "block_backward_sublane")
           for m in ("fwd_bf16", "fwd_bf16x3")),
         "diag_sweep[fwd_bf16]", "diag_backward[fwd_bf16]")}

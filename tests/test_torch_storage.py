@@ -497,8 +497,8 @@ def test_unported_paths_raise_not_run_f32(make, loss, storage):
 
 
 # bf16 forward planes ("bf16" storage) and the forward bf16x3: the kernels,
-# shapes and paths that take neither yet raise NotImplementedError naming
-# ROADMAP.md (queue B item 5), on the CPU as on the card; none runs f32 in
+# modes and paths that take neither yet raise NotImplementedError naming
+# ROADMAP.md (queue A item 1), on the CPU as on the card; none runs f32 in
 # their place.
 
 FWD16 = [("bf16", "f32"), ("f32", "bf16x3")]
@@ -510,47 +510,21 @@ def _fwd_planes(shape, fwd, seed=20):
 
 
 def _unported_fwd16_calls(fwd, dm):
-    """Each kernel or shape the cz path does not reach, with bf16 forward
-    planes (``fwd``) or the forward bf16x3 (``dm``)."""
+    """Each kernel or mode no path of the port runs under bf16 forward
+    planes (``fwd``) or the forward bf16x3 (``dm``) yet: the lane adjoint
+    and a run's Q reductions."""
     bf = torch.bfloat16
     f = _fwd_planes((1, 128, 128), fwd)
     b = _rand_planes((1, 128, 128), 21, bf)
-    ops4 = _rand_ops((4, 128, 128), 22) + _rand_ops((4, 128, 128), 23)
     E = _rand_ops((128, 128), 24) + _rand_ops((128, 128), 25)
-    v8 = (1, 8, 16, 128)
-    f8 = tuple(p.reshape(v8) for p in _fwd_planes(v8, fwd, 26))
-    E8 = _rand_ops((8, 8), 27)
-    hops = _rand_ops((4, 8, 8), 29) + _rand_ops((4, 128, 128), 30)
-    w = (1, 256, 8, 128)
-    fw = _fwd_planes(w, fwd, 31)
-    Ew = _rand_ops((256, 256), 32) + _rand_ops((256, 256), 33)
     tabs = tuple(p for s_ in ((128, 128), (1, 128), (1, 128))
                  for p in _rand_ops(s_, 34))
     vh = (1, 128, 128, 128)   # group 2 of n = 21, a run folded in
     fh = _fwd_planes(vh, fwd, 39)
     htabs = tuple(p if k < 2 else p.reshape(1, 128, 1, 128) for k, p in enumerate(
         q for s_ in ((128, 128),) * 3 for q in _rand_ops(s_, 40)))
-    acc = dict(conj=True, acc=_rand_planes((1, 128, 128), 35, bf), alias=False)
-    seed = dict(conj=True, alias=False, out_dtype=bf)
-    multi_kw = dict(dot_mode=dm) if dm != "f32" else acc
     return {
-        "dual_multi_apply": lambda: tk.dual_multi_apply(*f, *ops4, **multi_kw),
-        "high_multi_apply": lambda: tk.high_multi_apply(
-            *f8, *hops, **(dict(dot_mode=dm) if dm != "f32" else seed)),
         "block_backward_lane": lambda: tk.block_backward_lane(*f, *b, *E, dot_mode=dm),
-        "block_backward_sublane": lambda: tk.block_backward_sublane(
-            *f, *b, *E, dot_mode=dm),
-        "high_apply X = 8": lambda: tk.high_apply(*f8, *E8, dot_mode=dm),
-        "high_apply X = 8 seed": lambda: tk.high_apply(*f8, *E8, dot_mode=dm,
-                                                       **seed),
-        "high_apply X = 256 in place": lambda: tk.high_apply(*fw, *Ew[:2],
-                                                             dot_mode=dm),
-        "block_backward_high X = 8": lambda: tk.block_backward_high(
-            *f8, *_rand_planes(v8, 36, bf), *E8, *E8, dot_mode=dm),
-        "block_backward_high X = 256": lambda: tk.block_backward_high(
-            *fw, *_rand_planes(w, 37, bf), *Ew[:2], *Ew[:2], dot_mode=dm),
-        "gram X = 8": lambda: tk.gram(*(p.reshape(1, 8, -1) for p in f8),
-                                      dot_mode=dm),
         "diag_backward with_q": lambda: tk.diag_backward(
             *f, *b, *tabs, *tabs, with_q=True),
         "block_backward_dual diag_q": lambda: tk.block_backward_dual(
@@ -570,7 +544,7 @@ _F_ONLY = ("diag_backward with_q", "block_backward_dual diag_q",
 
 @pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
 def test_unported_kernels_refuse_fwd16(fwd, dm):
-    """Every kernel and shape not ported yet (ROADMAP.md, queue B item 5)
+    """Every kernel and mode not ported yet (ROADMAP.md, queue A item 1)
     raises under a bf16 forward plane and under the forward bf16x3, on the
     CPU."""
     for name, call in _unported_fwd16_calls(fwd, dm).items():
@@ -581,23 +555,19 @@ def test_unported_kernels_refuse_fwd16(fwd, dm):
 
 
 @pytest.mark.parametrize("make, loss", [
-    (lambda: THEA(14, 1, "cnot", device="cpu"), "magnetization"),
     (lambda: _vqe(14), "energy"),
     (lambda: _qaoa(15), "loss"),
-    (lambda: THEA(22, 1, "cz", device="cpu"), "magnetization"),
-    (lambda: _tape(14), None)], ids=["cnot", "vqe", "qaoa", "hpair_expanded", "tape"])
+    (lambda: _tape(14), None)], ids=["vqe", "qaoa", "tape"])
 @pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
 def test_unported_paths_raise_fwd16(make, loss, fwd, dm):
-    """The CNOT ring, VQEIsing, QAOAMaxCut, the expanded merged top (cz at
-    n = 22 under set_hpair_factorized(False)) and autodiff_run's plane tape
-    raise under "bf16" storage and under the forward bf16x3, naming
-    ROADMAP, before any result."""
+    """VQEIsing, QAOAMaxCut and autodiff_run's plane tape raise under
+    "bf16" storage and under the forward bf16x3, naming ROADMAP, before any
+    result (a run's Q reductions and the lane adjoint on bf16 forward
+    planes are queue A item 1)."""
     model = make()
     config.set_state_storage(fwd if fwd == "bf16" else "f32")
     config.set_kernel_dot_mode(dm)
     config.set_plane_engine(True)
-    expanded = isinstance(model, THEA) and model.n == 22
-    config.set_hpair_factorized(not expanded)
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             if loss is None:
@@ -607,7 +577,6 @@ def test_unported_paths_raise_fwd16(make, loss, fwd, dm):
                 getattr(model, loss)(p.requires_grad_(True)).backward()
     finally:
         config.set_kernel_dot_mode("f32")
-        config.set_hpair_factorized(True)
 
 
 def _vqe(n):
