@@ -22,7 +22,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    X = 128, 256, 512, the dual, high and merged-top adjoints, the diag
    adjoint), with the lane, sublane and X = 256 adjoints' bf16x3 pair
    grams;
-4. the 28-qubit forward: HardwareEfficientAnsatz(28, 20, entangler="cz")
+4. the 28-qubit forward: HardwareEfficientAnsatz(28, 10, entangler="cz")
    .densities through the kernels, with the launch counters set to 0 just
    before and read just after; the params = 0 known answer (magnetization
    28); a 28-qubit x 20-layer run held against the plain-version path on
@@ -84,7 +84,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 10. the expanded merged top and scan mode wherever the JAX package runs
    it: the kernel checks of the in-place high apply and of
    block_backward_high on the merged axis (X = 256 at the 29q shape, 512
-   at the 30q shape) in phase 3; [hpair29], HardwareEfficientAnsatz(29, 10,
+   at the 30q shape) in phase 3; [hpair29], HardwareEfficientAnsatz(29, 5,
    "cz") under set_hpair_factorized(False) (the merged sweep expanded to
    X = 256 both ways), forward and value_and_grad with the counters held
    to the port's dispatch on the meta device, against the factorized
@@ -149,7 +149,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    hpair expanded, under "bf16" and the forward bf16x3, against the
    factorized route) and [cnot30_bf16] (30q x 2L cnot under "bf16" at
    params = 0: the lone X = 512 top block on bf16 planes);
-15. a JSON line of the kernels and of the modes checked (their launches
+15. "bf16" storage and the forward bf16x3 on VQE, QAOA and the plane tape,
+   and "f16" on the per-term fallback: in phase 3 (3k) the lane adjoint on
+   bf16 F and with the uncompute bf16x3, the dual adjoint's and the high
+   adjoint's (X = 8, 64, 128) Q reductions in both run orders and the diag
+   adjoint's on bf16 F and (the first two) with the uncompute bf16x3, and
+   the dual and high applies on f16 input planes (fresh, acc), each
+   against its plain version; then [paths29_bf16] ([paths29_mixed]'s VQE
+   29q x 4L and QAOA 29q x 2L and [tape29]'s tape under "bf16", f32 +
+   bf16x3 and bf16 + bf16x3 against their f32 runs, the [diagq] tape under
+   "bf16"), [vqe_bf16_small] (VQEIsing(n, 2) at n = 20 and 27 under "bf16"
+   and the forward bf16x3), [vqe29_bf16] ([vqe29]'s VQEIsing(29, 26) under
+   "bf16": its step and peak memory against f32's) and [per_term29_f16] (a
+   29q x 2L build() tape whose dense gate on qubits (16, 7) takes the
+   per-term fallback, under "f16" against f32 storage); each against the
+   JAX package's own error on the same model at 14-17q (2.5 times, capped),
+   counts held to the meta-device dry run;
+16. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -171,9 +187,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_QUBITS = 28
 LAYERS = 100
-L28 = 20            # [slice] / [grad] (PRs 1-2's 28q comparison phases): depth
-                    # cut from 100 for chip time beside the storage phases
-HPAIR_LAYERS = 10   # [hpair29]: depth cut from 100 for chip time only
+L28 = 10            # [slice] / [grad] (the 28q comparison phases): depth cut
+                    # from 100 for chip time (the run's 1200 s)
+HPAIR_LAYERS = 5    # [hpair29]: depth cut from 100 for chip time only
 CHECK_LAYERS = 20
 SEED = 1234
 N29 = 29            # the JAX package's bench workload: 29q x 100L value_and_grad
@@ -255,7 +271,9 @@ JAX_OWN_ERR = {("cnot", "f16"): 2.792e-3, ("vqe", "f16"): 3.505e-4,
                ("qaoa", "f16"): 1.321e-4, ("tape", "f16"): 1.06e-4,
                ("cnot", "mixed"): 5.379e-3, ("vqe", "mixed"): 1.830e-3,
                ("qaoa", "mixed"): 7.559e-4, ("tape", "mixed"): 1.05e-3,
-               ("hpair", "mixed"): 5.297e-2, ("hpair", "f16"): 5.246e-3}
+               ("hpair", "mixed"): 5.297e-2, ("hpair", "f16"): 5.246e-3,
+               ("per_term", "f16"): 4.756e-4}   # per_term_tape x 2L at 17-18q
+                                                # (tests/test_torch_fwd16_tape.py)
 
 
 def own_bars(own):
@@ -280,7 +298,7 @@ def fwd16_bars(storage: str, dot: str):
 # HPAIR_BF16_L with the hpair expanded)
 CZ_SMALL_NS = (20, 27)
 CZ_SMALL_L = 4
-CNOT_X3_L = 4
+CNOT_X3_L = 2           # depth cut for chip time: the run's 1200 s
 CNOT30_L = 2
 HPAIR_BF16_L = 4
 # the JAX package's own error on those models at 14-17q (CPU, its plane
@@ -291,7 +309,9 @@ JAX_OWN_RINGS = {("cz", 4, "bf16", "f32"): (1.204e-2, 1.430e-2),
                  ("cz", 4, "f32", "bf16x3"): (1.118e-5, 3.081e-5),
                  ("cnot", 20, "bf16", "f32"): (1.280e-2, 4.645e-3),
                  ("cnot", 4, "f32", "bf16x3"): (4.203e-5, 1.107e-5),
-                 ("cnot", 4, "bf16", "bf16x3"): (6.211e-3, 2.043e-3)}
+                 ("cnot", 4, "bf16", "bf16x3"): (6.211e-3, 2.043e-3),
+                 ("cnot", 2, "f32", "bf16x3"): (2.103e-5, 1.274e-5),
+                 ("cnot", 2, "bf16", "bf16x3"): (5.741e-3, 2.730e-3)}
 
 
 def reduced_tol(model: str, storage: str) -> float:
@@ -300,7 +320,35 @@ def reduced_tol(model: str, storage: str) -> float:
 
 
 PATHS_L = {"cnot": 4, "vqe": 4, "qaoa": 2, "hpair": 4}  # [paths29_mixed] depths
-F16_L = 20              # [f16_30]: 30q depth cut from the bench's for chip time
+# the phases of VQE, QAOA and the tapes under "bf16" / the forward
+# bf16x3 and of the per-term fallback under "f16": [paths29_bf16]
+# ([paths29_mixed]'s VQE and QAOA, [tape29]'s tape and [diagq]'s),
+# [vqe_bf16_small] (VQEIsing(n, VQE_SMALL_L) at n = VQE_SMALL_NS),
+# [vqe29_bf16] ([vqe29]'s model under "bf16"), [per_term29_f16]
+# (per_term_tape at 29q x PER_TERM_L under "f16")
+VQE_SMALL_NS = (20, 27)
+VQE_SMALL_L = 2
+PER_TERM_L = 2
+# the JAX package's own error on those models at 14-17q (CPU, its plane
+# engine; printed by tests/test_torch_fwd16_paths.py chip-bars and
+# tests/test_torch_fwd16_tape.py chip-bars): (value relative, gradient rms
+# of max |g32|), max over n, per (model, layers, storage, dot); own_bars
+# makes the phases' bars of them
+JAX_OWN_PATHS = {("vqe", 4, "bf16", "f32"): (3.944e-4, 1.655e-3),
+                 ("vqe", 4, "f32", "bf16x3"): (1.282e-5, 4.237e-5),
+                 ("vqe", 4, "bf16", "bf16x3"): (4.827e-4, 1.201e-3),
+                 ("qaoa", 2, "bf16", "f32"): (2.179e-4, 1.564e-3),
+                 ("qaoa", 2, "f32", "bf16x3"): (3.135e-7, 1.503e-5),
+                 ("qaoa", 2, "bf16", "bf16x3"): (2.236e-4, 1.542e-3),
+                 ("vqe", 2, "bf16", "f32"): (3.357e-4, 4.494e-4),
+                 ("vqe", 2, "f32", "bf16x3"): (1.064e-5, 1.514e-5),
+                 ("vqe", 26, "bf16", "f32"): (1.075e-3, 1.059e-3),
+                 ("tape", 2, "bf16", "f32"): (9.756e-4, 2.544e-4),
+                 ("tape", 2, "f32", "bf16x3"): (9.832e-6, 4.126e-6),
+                 ("tape", 2, "bf16", "bf16x3"): (5.652e-4, 2.769e-4),
+                 ("diagq", 1, "bf16", "f32"): (8.657e-4, 1.042e-4)}
+F16_L = 6               # [f16_30]: 30q depth cut from the bench's for chip
+                        # time (the run's 1200 s)
 STORAGE_L = 4           # [storage29]
 BWD_KERNELS = ("block_backward_dual", "block_backward_high",
                "block_backward_merged_fact", "block_backward_lane",
@@ -382,6 +430,7 @@ def fwd_modes(dtype, a) -> tuple:
 def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
+    import torch
     if name == "block_backward_dual":
         return (("diag_q",) if a.get("diag_q") else ()) + storage_modes(
             a["br"].dtype) + dot_modes(a) + fwd_modes(a["fr"].dtype, a)
@@ -393,9 +442,7 @@ def call_modes(name: str, a) -> tuple:
     if name == "block_backward_merged_fact":
         return (storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
-    if name == "block_backward_lane":
-        return storage_modes(a["br"].dtype) + dot_modes(a)
-    if name == "block_backward_sublane":
+    if name in ("block_backward_lane", "block_backward_sublane"):
         return (storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
     if name in ("dual_apply", "high_apply"):
@@ -406,7 +453,8 @@ def call_modes(name: str, a) -> tuple:
         wide = (("wide_inplace",) if name == "high_apply" and inplace
                 and a["xr"].shape[1] > 128 else ())
         seed = acc is not None or not a.get("alias", True)
-        return (wide + (storage_modes(out) if seed else ())
+        in16 = ("in_f16",) if a["xr"].dtype == torch.float16 else ()
+        return (in16 + wide + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
     if name in ("gram", "merged_fact_apply", "diag_sweep"):
         return fwd_modes(a["xr"].dtype, a)
@@ -592,6 +640,46 @@ def gauntlet_tape(circuit, n: int, layers: int):
             c.get_q1_dens_op(i)
     for i in range(n):
         c.get_q1_dens_op(i)
+    return c
+
+
+def diag_q_tape(circuit, n: int):
+    """A tape with a lone variable diagonal run (no dense sweep to fold
+    into): its adjoint is diag_backward with the Q reductions."""
+    c = circuit
+    for i in range(n):
+        c.add_q1_const_gate(i)
+    for i in range(n):
+        c.get_q1_dens_op_with_grad(i)
+    for i in range(n - 1):
+        c.add_q2_var_gate_diag(i + 1, i)
+    for i in range(n):
+        c.get_q1_dens_op_with_grad(i)
+    for i in range(n):
+        c.add_q1_var_gate(i)
+    for i in range(n):
+        c.get_q1_dens_op_with_grad(i)
+    return c
+
+
+def per_term_tape(circuit, layers: int):
+    """A tape whose variable dense gate on qubits (16, 7), the sublane group
+    and group 2 ten bits apart, has no span view and no multi-term kernel:
+    it runs the per-term fallback (plane_scan._apply_dense_cross), two
+    sweeps of the dual and high applies per Schmidt term, on the cotangent
+    in its storage. Each layer: densities with gradient on qubits 7 and 16,
+    variable gates on qubits 3 (the lane group), 7, 10 and 16, the dense
+    gate, a variable gate on 15; the densities again at the end."""
+    c = circuit
+    for _ in range(layers):
+        c.get_q1_dens_op_with_grad(7)
+        c.get_q1_dens_op_with_grad(16)
+        for q in (3, 7, 10, 16):
+            c.add_q1_var_gate(q)
+        c.add_q2_var_gate(16, 7)
+        c.add_q1_var_gate(15)
+    c.get_q1_dens_op_with_grad(7)
+    c.get_q1_dens_op_with_grad(16)
     return c
 
 
@@ -1817,7 +1905,7 @@ def main() -> int:
              "bf16x3": (BF16, "bf16x3")}
 
     def plane_bytes(dt) -> float:
-        return 2 * amps29 * (2 if dt == BF16 else 4)
+        return 2 * amps29 * (4 if dt == torch.float32 else 2)
 
     def bf16_library(make):
         """The f32 row's PyTorch calls on the decoded planes, their plane
@@ -1833,11 +1921,13 @@ def main() -> int:
 
     def check_fwd16(kernel, variant, shape, ins, fn_kernel, fn_plain, n_planes,
                     f32_flops, bf16_flops, bytes_moved, library=None, ulps=FWD16_ULPS,
-                    reuse=True):
+                    reuse=True, phase=None):
         """``ins``: (dtype, scale) of each input plane; outputs: ``n_planes``
         plane pairs, then reductions. bf16x3 on bf16 planes: one ulp more
         (the kernel and its plain version sum the same products in two
-        orders before the bf16 store)."""
+        orders before the bf16 store). Planes stored bf16 or f16 are held
+        in ulps of their storage. ``phase`` tags the row with the phase
+        that checked it."""
         if variant.endswith("_bf16x3"):
             ulps += 1
         xs = [stc.store_as(s * randn(*shape), dt) for dt, s in ins]
@@ -1856,17 +1946,18 @@ def main() -> int:
             g2, w2 = got[2 * k:2 * k + 2], want[2 * k:2 * k + 2]
             require(g2[0].dtype == w2[0].dtype, f"{kernel}[{variant}] output dtype "
                                                 f"{g2[0].dtype}, want {w2[0].dtype}")
-            if g2[0].dtype == BF16:
+            if g2[0].dtype in (BF16, torch.float16):
                 bf = True
-                worst_ulps = max(worst_ulps, stc.ulps_apart(g2, w2, BF16))
+                worst_ulps = max(worst_ulps, stc.ulps_apart(g2, w2, g2[0].dtype))
             else:
                 f_err = max(f_err, max((a - b).abs().max().item() for a, b in zip(g2, w2)))
         for g_, w_ in zip(got[2 * n_planes:], want[2 * n_planes:]):
             g_rel = max(g_rel, (g_ - w_).abs().max().item()
                         / max(w_.abs().max().item(), 1e-30))
         del got, want
-        bf_in = any(dt == BF16 for dt, _ in ins)
-        g_tol = stc.gram_tolerance(BF16) if bf_in else X3_GRAM_TOL
+        red = [dt for dt, _ in ins if dt != torch.float32]
+        bf_in = bool(red)
+        g_tol = stc.gram_tolerance(red[0]) if bf_in else X3_GRAM_TOL
         require(worst_ulps <= ulps and f_err <= HIGH_TOL and g_rel <= g_tol,
                 f"{kernel}[{variant}] disagrees with its plain version: bf16 planes "
                 f"{worst_ulps:.2f} ulps (tol {ulps}), f32 planes {f_err:.3e} (tol "
@@ -1875,10 +1966,13 @@ def main() -> int:
         lib_ms = cuda_ms(library(*xs), reps=3) if library else None
         b_ms, b_by = bound_ms(bytes_moved, f32_flops, bf16_flops)
         row = dict(kernel=kernel, variant=variant, shape=list(shape),
-                   storage="bfloat16" if bf_in else "float32", fwd=variant.split("_")[-1],
+                   storage=str(red[0]).split(".")[-1] if bf_in else "float32",
+                   fwd=variant.split("_")[-1],
                    max_abs_err=f_err, store_ulps=worst_ulps, gram_rel_err=g_rel,
                    tol=HIGH_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
+        if phase:
+            row["phase"] = phase
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
         del xs
@@ -2079,6 +2173,17 @@ def main() -> int:
     def small_x_view(X):
         return (1, X, (1 << N29) // (X * 128), 128)
 
+    def high_run_library(E, tabs):
+        """The in-place sweep with the ring's run first: the run's multiply
+        and one matmul."""
+        def make(xr, xi):
+            A1, X, M, _ = xr.shape
+            D = view_diag_run(tabs, xr.shape)
+            x = torch.complex(xr, xi)
+            Ec = torch.complex(*E)
+            return lambda: torch.matmul(Ec, (x * D).view(A1, X, M * 128))
+        return make
+
     for tag, (fdt, dot) in FWD16.items():
         bdt = BF16 if fdt == BF16 else torch.float32
         lib = (lambda make: bf16_library(make)) if tag == "bf16" else (lambda make: None)
@@ -2097,7 +2202,8 @@ def main() -> int:
                             xr, xi, *E, t, True, dot_mode=d),
                         lambda xr, xi, d=dot, E=E, t=tabs: high_apply_plain(
                             xr, xi, *E, t, True, dot_mode=d),
-                        1, f + amps29 * 18, b, 2 * plane_bytes(fdt) + table_bytes(a_rows))
+                        1, f + amps29 * 18, b, 2 * plane_bytes(fdt) + table_bytes(a_rows),
+                        lib(high_run_library(E, tabs)))
             if X in (8, 64):
                 check_fwd16("high_apply", f"29q_X{X}_seed_{tag}", view,
                             [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
@@ -2180,11 +2286,13 @@ def main() -> int:
                 ps._dense_cross_expanded_terms(M4.conj(), (6, 7), N29), N29, dev)
             kind, vshape, *hops = pl.cross_span_operands(M4.conj(), (0, N29 - 1), N29,
                                                          dev)
-            for name, fn, fn_plain, shape, ops in (
+            for name, fn, fn_plain, shape, ops, library in (
                     ("dual_multi_apply", dual_multi_apply, dual_multi_apply_plain,
-                     (A29, 128, 128), dops),
+                     (A29, 128, 128), dops,
+                     multi_seed_library("tsk,akm,tlm->asl", dops[2:], dops[:2], True)),
                     ("high_multi_apply", high_multi_apply, high_multi_apply_plain,
-                     vshape, hops)):
+                     vshape, hops,
+                     multi_seed_library("txy,iymk,tlk->ixml", hops[:2], hops[2:], True))):
                 n_macs = macs(*ops[:2]) + macs(*ops[2:])
                 f, b = cmac_flops(n_macs, dot == "bf16x3")
                 check_fwd16(name, f"29q_seed_T4_acc_{tag}", shape,
@@ -2195,7 +2303,7 @@ def main() -> int:
                             lambda xr, xi, ar, ai, o=ops, d=dot, fn=fn_plain: fn(
                                 xr, xi, *o, conj=True, acc=(ar, ai), dot_mode=d),
                             1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                            reuse=False)
+                            lib(library), reuse=False)
         del dops, hops
         torch.cuda.empty_cache()
         # the sublane adjoint ("auto" transport and gram of the setting)
@@ -2210,6 +2318,131 @@ def main() -> int:
                     2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
                     lib(sublane_library(E, Einv)))
         del E, Einv
+        torch.cuda.empty_cache()
+
+    # 3k. "bf16" storage and the forward bf16x3 on VQE, QAOA and the plane
+    # tape, and f16 input to the applies (the per-term fallback under
+    # "f16") ---------------------------------------------------------------
+    # each new variant against its plain version at the 29q path's shapes,
+    # in 3i's settings: the lane adjoint (bf16 F; the uncompute bf16x3 on
+    # f32 and on bf16 F); the dual adjoint with a run's Q (diag_q), the run
+    # met after the pair ("diag_first": Q of F and B as staged, rounded to
+    # their storage) and before it, on bf16 F and with the uncompute
+    # bf16x3; the high adjoint with Q at X = 8 and 64 (views of 2^29
+    # amplitudes, as 3j's) and 128 (group 2 of the 29q planes), both run
+    # orders (Q of the f32 values); the diag adjoint's Q on bf16 F; the
+    # dual and high (X = 8, 128) applies on f16 input planes, a fresh f16
+    # output and a seed into an f16 accumulator. Tolerances as 3i's: planes
+    # within FWD16_ULPS storage ulps (the dual adjoint with a run, which
+    # stores F and B up to three times, 3: §2's bar for it under reduced
+    # storage), Q and the pair grams within half a
+    # storage ulp of their largest entry (f32 planes in bf16x3: X3_GRAM_TOL);
+    # f16 planes in f16 ulps. Library time: the f32 rows' PyTorch calls on
+    # the decoded planes, stored bf16, for bf16 F; none in bf16x3 and for f16
+    # input (no PyTorch call stores the JAX codec's f16).
+    log_time("3k")
+    F16 = torch.float16
+    for tag, (fdt, dot) in FWD16.items():
+        bdt = BF16 if fdt == BF16 else torch.float32
+        lib = (lambda make: bf16_library(make)) if tag == "bf16" else (lambda make: None)
+        x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
+        f_un, b_un = cmac_flops(128, dot == "bf16x3")
+        f_x, b_x = cmac_flops(256, True)
+        E, Einv = unitary(128), unitary(128)
+        check_fwd16("block_backward_lane", f"29q_{tag}", (A29, 128, 128),
+                    [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                    lambda *p, kw=x3: block_backward_lane(*p, *Einv, *E, **kw),
+                    lambda *p, kw=x3: block_backward_lane_plain(*p, *Einv, *E, **kw),
+                    2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
+                    lib(lane_library(E, Einv)), phase="3k")
+        del E, Einv
+        if tag == "bf16x3":
+            continue
+        q_bytes = 2 * 4 * (128 * 128 + 2 * A29 * 128)
+        f_q = amps29 * 12
+        # the dual adjoint with a run's Q, both run orders
+        for order in ("first", "after"):
+            kw = dict(g0_first=True, diag_first_fwd=order == "first",
+                      diag_inv_tables=tables(A29), diag_tables=tables(A29), diag_q=True,
+                      **x3)
+            f_un, b_un = cmac_flops(256, dot == "bf16x3")
+            f_x, b_x = cmac_flops(512, True)
+            check_fwd16("block_backward_dual", f"29q_g0_first_diag_{order}_q_{tag}",
+                        (A29, 128, 128), [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                        lambda *p, kw=kw: block_backward_dual(*p, *bwd_ops, **kw),
+                        lambda *p, kw=kw: block_backward_dual_plain(*p, *bwd_ops, **kw),
+                        2, f_un + f_x + f_q, b_un + b_x,
+                        2 * plane_bytes(fdt) + 2 * plane_bytes(bdt)
+                        + 2 * table_bytes(A29) + q_bytes,
+                        lib(dual_bwd_library(**kw)), ulps=STORE_ULPS + 1, phase="3k")
+            del kw
+            torch.cuda.empty_cache()
+        # the high adjoint with a run's Q: X = 8, 64 and 128, both orders
+        for X in (8, 64, 128):
+            view = ((g2_29[0], 128, g2_29[2], 128) if X == 128 else small_x_view(X))
+            E, Einv = unitary(X), unitary(X)
+            f_un, b_un = cmac_flops(X, dot == "bf16x3")
+            f_x, b_x = cmac_flops(2 * X, True)
+            for order in ("first", "after"):
+                ti, tf = tables(A29), tables(A29)
+                kw = dict(diag_inv_tables=ti, diag_tables=tf,
+                          diag_first_fwd=order == "first", diag_q=True, **x3)
+                check_fwd16("block_backward_high", f"29q_X{X}_diag_{order}_q_{tag}",
+                            view, [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
+                            lambda *p, kw=kw, E=E, Ei=Einv: block_backward_high(
+                                *p, *Ei, *E, **kw),
+                            lambda *p, kw=kw, E=E, Ei=Einv: block_backward_high_plain(
+                                *p, *Ei, *E, **kw),
+                            2, f_un + f_x + f_q, b_un + b_x,
+                            2 * plane_bytes(fdt) + 2 * plane_bytes(bdt)
+                            + 2 * table_bytes(A29) + q_bytes,
+                            lib(high_q_library(E, Einv, ti, tf, order == "first")),
+                            phase="3k")
+                del ti, tf, kw
+            del E, Einv
+            torch.cuda.empty_cache()
+        if tag == "bf16":
+            # the diag adjoint's Q on bf16 F (no dot)
+            ti, tf = tables(A29), tables(A29)
+            check_fwd16("diag_backward", "29q_q_bf16", (A29, 128, 128), [(BF16, 1.0)] * 4,
+                        lambda *p: diag_backward(*p, *ti, *tf, with_q=True),
+                        lambda *p: diag_backward_plain(*p, *ti, *tf, with_q=True),
+                        2, amps29 * (36 + 12), 0.0,
+                        4 * plane_bytes(BF16) + 2 * table_bytes(A29) + q_bytes,
+                        bf16_library(diag_q_library(ti, tf)), phase="3k")
+            del ti, tf
+    # f16 input planes to the applies, the per-term fallback's forms: a fresh
+    # output in the input's storage, and a seed into an f16 accumulator
+    f, b = cmac_flops(256, False)
+    for form, ins, kw in (("fresh", [(F16, 1.0)] * 2, dict(alias=False)),
+                          ("acc", [(F16, 1.0)] * 2 + [(F16, 0.5)] * 2, dict(conj=True))):
+        n_io = 2 if form == "fresh" else 3
+        if form == "fresh":
+            fk = lambda xr, xi, kw=kw: dual_apply(xr, xi, *el29, *em29, **kw)  # noqa: E731
+            fp = lambda xr, xi, kw=kw: dual_apply_plain(xr, xi, *el29, *em29, **kw)  # noqa: E731
+        else:
+            fk = lambda xr, xi, ar, ai: dual_apply(  # noqa: E731
+                xr, xi, *el29, *em29, conj=True, acc=(ar, ai), alias=False)
+            fp = lambda xr, xi, ar, ai: dual_apply_plain(  # noqa: E731
+                xr, xi, *el29, *em29, conj=True, acc=(ar, ai))
+        check_fwd16("dual_apply", f"29q_{form}_f16in", (A29, 128, 128), ins, fk, fp, 1,
+                    f, b, n_io * plane_bytes(F16), reuse=form == "fresh", phase="3k")
+        for X in (8, 128):
+            view = ((g2_29[0], 128, g2_29[2], 128) if X == 128 else small_x_view(X))
+            E = unitary(X)
+            fx, bx = cmac_flops(X, False)
+            if form == "fresh":
+                fk = lambda xr, xi, E=E: high_apply(xr, xi, *E, alias=False)  # noqa: E731
+                fp = lambda xr, xi, E=E: high_apply_plain(xr, xi, *E, alias=False)  # noqa: E731
+            else:
+                fk = lambda xr, xi, ar, ai, E=E: high_apply(  # noqa: E731
+                    xr, xi, *E, conj=True, acc=(ar, ai), alias=False)
+                fp = lambda xr, xi, ar, ai, E=E: high_apply_plain(  # noqa: E731
+                    xr, xi, *E, conj=True, acc=(ar, ai))
+            check_fwd16("high_apply", f"29q_X{X}_{form}_f16in", view, ins, fk, fp, 1,
+                        fx, bx, n_io * plane_bytes(F16), reuse=form == "fresh",
+                        phase="3k")
+            del E
         torch.cuda.empty_cache()
 
     # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
@@ -3605,19 +3838,7 @@ def main() -> int:
     # [diagq]: a lone variable diagonal run (no dense sweep to fold into), its
     # Q reductions from diag_backward
     N_DQ = N_QUBITS
-    dq = AutoGradCircuit(N_DQ)
-    for i in range(N_DQ):
-        dq.add_q1_const_gate(i)
-    for i in range(N_DQ):
-        dq.get_q1_dens_op_with_grad(i)
-    for i in range(N_DQ - 1):
-        dq.add_q2_var_gate_diag(i + 1, i)
-    for i in range(N_DQ):
-        dq.get_q1_dens_op_with_grad(i)
-    for i in range(N_DQ):
-        dq.add_q1_var_gate(i)
-    for i in range(N_DQ):
-        dq.get_q1_dens_op_with_grad(i)
+    dq = diag_q_tape(AutoGradCircuit(N_DQ), N_DQ)
     dq_items = [it for it in ps.plane_program(fuse_tape(dq.tape)) if it[0] != "dens"]
     lone = [it for it in dq_items if it[0] == "diag"
             and ps._run_has_var(it[1], fuse_tape(dq.tape))]
@@ -3813,6 +4034,7 @@ def main() -> int:
     # none of the storage or transport variants
     log_time("[paths29_mixed]")
     paths = {}
+    paths_f32 = {}   # the f32 runs [paths29_bf16] holds its settings against
     for tag, build, loss, storages, variants in (
             ("cnot", lambda d: HardwareEfficientAnsatz(N29, PATHS_L["cnot"],
                                                        entangler="cnot", device=d),
@@ -3835,6 +4057,9 @@ def main() -> int:
             dry = model_dry_run(build, loss)
             _, v32, g32, _, _ = storage_phase(f"paths29_mixed {tag}", run, [p],
                                                 "f32", dry)
+            if tag in ("vqe", "qaoa"):
+                paths_f32[tag] = dict(model=model, p=p, value=v32, grad=g32,
+                                      build=build, loss=loss)
             for storage in storages:
                 key = "bf16" if storage == "mixed" else "f16"
                 paths[tag, storage] = storage_phase(
@@ -3855,6 +4080,172 @@ def main() -> int:
         rms_tol=reduced_tol("tape", "mixed"),
         variants=("block_backward_lane[bf16]", "block_backward_sublane[bf16]"))[0]
     del t_vg
+    torch.cuda.empty_cache()
+
+    # [paths29_bf16]: [paths29_mixed]'s VQE and QAOA and [tape29]'s tape, on
+    # their models and params, under "bf16", f32 + bf16x3 and bf16 + bf16x3,
+    # each against its own f32 run (the runs above); the [diagq] tape (the
+    # diag adjoint's Q) under "bf16". Counts equal to the dry run; value and
+    # gradient rms within own_bars of the JAX package's own error on the
+    # same model at 14-17q (JAX_OWN_PATHS); every launch of the adjoints
+    # with a run's Q or the lane adjoint in the setting's variants.
+    log_time("[paths29_bf16]")
+
+    def fwd16_phase(tag, run, params, storage, dot, dry, ref, bars, want_modes):
+        """One value_and_grad of ``run(params)`` (a scalar loss of a list of
+        tensors) in a setting, the counters set to 0 just before and read
+        just after and held to the meta-device dry run ``dry`` in the same
+        setting; against ``ref`` = (value, flat gradient) of the f32 run
+        within ``bars`` = (value relative, gradient rms of max |g32|);
+        ``want_modes``: counters that must equal their kernel's launches
+        and be positive, or (a name alone) be positive."""
+        config.set_state_storage(storage)
+        config.set_kernel_dot_mode(dot)
+        try:
+            _, want, _ = dry_run_launches(dry)
+            ps_ = [q.detach().clone().requires_grad_(True) for q in params]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = run(ps_)
+            loss.backward()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            got = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            value = loss.item()
+            grad = torch.cat([q.grad.detach().reshape(-1) for q in ps_])
+            del loss, ps_
+        finally:
+            config.set_state_storage("f32")
+            config.set_kernel_dot_mode("f32")
+        v32, g32 = ref[0], ref[1].reshape(-1)
+        d = (grad - g32).abs() / g32.abs().max().item()
+        rel_v = abs(value - v32) / abs(v32)
+        rms, mx = d.pow(2).mean().sqrt().item(), d.max().item()
+        log(f"[{tag}] {storage} storage, {dot} forward dots: value_and_grad "
+            f"{step_s:.4f} s, peak {peak / 2**30:.3f} GiB; value {value!r} vs f32 "
+            f"{v32!r} (relative {rel_v:.3e}, bar {bars[0]:.2e}); gradient |g - g32| "
+            f"/ max |g32|: rms {rms:.3e} (bar {bars[1]:.2e}), max {mx:.3e}; launches "
+            f"{json.dumps({k: c for k, c in got.items() if c})}")
+        require(got == want, f"[{tag}] {storage}+{dot} launch counts {got}, want "
+                             f"the dry run's {want}")
+        require(bool(torch.isfinite(grad).all()), f"[{tag}] non-finite gradient")
+        require(rel_v <= bars[0] and rms <= bars[1],
+                f"[{tag}] {storage}+{dot} outside its bars against its f32 run")
+        for k in want_modes:
+            kernel = k.split("[")[0]
+            require(got[k] > 0 and (kernel == k or "[fwd" not in k
+                                    or got[k] == got[kernel]),
+                    f"[{tag}] {storage}+{dot}: {k} launched {got[k]} times of "
+                    f"{got[kernel]}")
+        torch.cuda.empty_cache()
+        return dict(counts=got, step_s=step_s, peak=peak, rel_value=rel_v, rms=rms,
+                    max=mx)
+
+    FWD16_SETTINGS = (("bf16", "f32", "fwd_bf16"), ("f32", "bf16x3", "fwd_bf16x3"),
+                      ("bf16", "bf16x3", "fwd_bf16x3"))
+    paths_bf16 = {}
+    for tag in ("vqe", "qaoa"):
+        r = paths_f32[tag]
+        run = lambda ps_, m=r["model"], l=r["loss"]: getattr(m, l)(ps_[0])  # noqa: E731
+        for storage, dot, mode in FWD16_SETTINGS:
+            paths_bf16[tag, storage, dot] = fwd16_phase(
+                f"paths29_bf16 {tag}", run, [r["p"]], storage, dot,
+                model_dry_run(r["build"], r["loss"]), (r["value"], r["grad"]),
+                own_bars(JAX_OWN_PATHS[tag, PATHS_L[tag], storage, dot]),
+                ("block_backward_dual[diag_q]", f"block_backward_dual[{mode}]"))
+    del paths_f32
+    t_vg = [torch.tensor(g, device=dev) for g in t29["vg"]]
+    for storage, dot, mode in FWD16_SETTINGS:
+        paths_bf16["tape", storage, dot] = fwd16_phase(
+            "paths29_bf16 tape", lambda ps_: tsallis(tape_run(ps_, t29["cg"])), t_vg,
+            storage, dot, tape_dry(t29["ftape"], t29["vg"], t29["cg"]),
+            (t29["value_vg"], torch.cat([g.reshape(-1) for g in t29["grads"]])),
+            own_bars(JAX_OWN_PATHS["tape", TAPE_LAYERS, storage, dot]),
+            (f"block_backward_lane[{mode}]", "block_backward_high[diag_q]",
+             f"block_backward_high[{mode}]", "block_backward_dual[diag_q]"))
+    del t_vg
+    _, dq_run = dq.build()
+    dq_vg = [torch.tensor(g, device=dev) for g in tdq["vg"]]
+    paths_bf16["diagq", "bf16", "f32"] = fwd16_phase(
+        "paths29_bf16 diagq", lambda ps_: tsallis(dq_run(ps_, tdq["cg"])), dq_vg,
+        "bf16", "f32", tape_dry(tdq["ftape"], tdq["vg"], tdq["cg"]),
+        (tdq["value_vg"], torch.cat([g.reshape(-1) for g in tdq["grads"]])),
+        own_bars(JAX_OWN_PATHS["diagq", 1, "bf16", "f32"]),
+        ("diag_backward[with_q]", "diag_backward[fwd_bf16]"))
+    del dq_vg, dq_run
+    torch.cuda.empty_cache()
+
+    # [vqe_bf16_small]: VQEIsing(20, 2) and VQEIsing(27, 2) (the high adjoint
+    # at X = 64 beside the dual adjoint with the runs' Q: group 2 at 20q,
+    # group 3 at 27q) under "bf16" and f32 + bf16x3 against their f32 runs
+    log_time("[vqe_bf16_small]")
+    vqe_small = {}
+    for n in VQE_SMALL_NS:
+        build = lambda d, n=n: VQEIsing(n, VQE_SMALL_L, scan=True,  # noqa: E731
+                                         device=d)
+        model = build(dev)
+        p = model.init_params(torch.Generator().manual_seed(SEED + n))
+        ref = fwd16_run(f"vqe_bf16_small {n}q", model, p, build, loss="energy")
+        for storage, dot, mode in FWD16_SETTINGS[:2]:
+            tag = f"vqe_bf16_small {n}q {storage}+{dot}"
+            r = fwd16_run(tag, model, p, build, storage, dot, loss="energy")
+            e = vs_ref(tag, r, ref, own_bars(JAX_OWN_PATHS["vqe", VQE_SMALL_L,
+                                                           storage, dot]))
+            require(r["counts"]["block_backward_dual[diag_q]"] > 0 and all(
+                r["counts"][f"{k}[{mode}]"] == r["counts"][k] > 0
+                for k in ("block_backward_dual", "block_backward_high")),
+                f"[{tag}] the adjoints ran off their {mode} variants")
+            vqe_small[n, storage, dot] = dict(counts=r["counts"], step_s=r["step_s"], **e)
+        del model, p, ref
+        torch.cuda.empty_cache()
+
+    # [vqe29_bf16]: the VQE headline ([vqe29]'s VQEIsing(29, 26) and params)
+    # under "bf16": one value_and_grad step (every kernel it runs has
+    # launched above: the port compiles nothing) and its peak memory,
+    # against [vqe29]'s f32 step, memory and gradient
+    log_time("[vqe29_bf16]")
+    build = lambda d: VQEIsing(N29, VQE_LAYERS, device=d)  # noqa: E731
+    model = build(dev)
+    p = model.init_params(torch.Generator().manual_seed(SEED))
+    r = fwd16_run("vqe29_bf16", model, p, build, "bf16", loss="energy")
+    e = vs_ref("vqe29_bf16", r, dict(value=vqe29["value_vg"], grad=vqe29["grad"]),
+               own_bars(JAX_OWN_PATHS["vqe", VQE_LAYERS, "bf16", "f32"]))
+    require(r["counts"]["block_backward_dual[fwd_bf16]"]
+            == r["counts"]["block_backward_dual"] > 0, "[vqe29_bf16] off its variants")
+    log(f"[vqe29_bf16] {N29}q x {VQE_LAYERS}L under bf16: value_and_grad "
+        f"{r['step_s']:.4f} s at {r['peak'] / 2**30:.3f} GiB against f32's "
+        f"{vqe29['vg_s']:.4f} s at {vqe29['vg_peak'] / 2**30:.3f} GiB")
+    vqe29_bf16 = dict(counts=r["counts"], step_s=r["step_s"], peak=r["peak"], **e)
+    del model, p, r
+    torch.cuda.empty_cache()
+
+    # [per_term29_f16]: a 29q build() tape whose dense gate on qubits (16,
+    # 7) takes the per-term fallback (per_term_tape, 2 layers) under "f16"
+    # against f32 storage: the value bit-identical, the gradient rms within
+    # the [paths29_mixed] "f16" rule, the applies counted on f16 input
+    log_time("[per_term29_f16]")
+    ptc = per_term_tape(AutoGradCircuit(N29), PER_TERM_L)
+    pt_items = [it for it in ps.plane_program(fuse_tape(ptc.tape)) if it[0] == "dcross"]
+    pt_fi = fuse_tape(ptc.tape).instructions[pt_items[0][1]]
+    require(ps._cross_plan(np.eye(4, dtype=np.complex64), pt_fi.positions, N29,
+                           dev)[0] == "per_term",
+            "[per_term29_f16] the gate does not take the per-term fallback")
+    _, pt_run = ptc.build()
+    pt_rng = np.random.default_rng(SEED + 5)
+    pt_vg_np = tape_gates(pt_rng, ptc.tape, True)
+    pt_vg = [torch.tensor(g, device=dev) for g in pt_vg_np]
+    pt_dry = tape_dry(fuse_tape(ptc.tape), pt_vg_np, [])
+    pt = {}
+    _, v32, g32, pt["f32_s"], _ = storage_phase(
+        "per_term29_f16", lambda ps_: tsallis(pt_run(ps_, [])), pt_vg, "f32", pt_dry)
+    pt["counts"], _, _, pt["step_s"], pt["peak"] = storage_phase(
+        "per_term29_f16", lambda ps_: tsallis(pt_run(ps_, [])), pt_vg, "f16", pt_dry,
+        ref=(v32, g32), rms_tol=reduced_tol("per_term", "f16"),
+        variants=("dual_apply[in_f16]", "high_apply[in_f16]"))
+    del ptc, pt_run, pt_vg, g32
     torch.cuda.empty_cache()
 
     # [hpair30_f16]: the CNOT ring at 30q x 2L under "f16", its lone 2-bit
@@ -4240,7 +4631,8 @@ def main() -> int:
             name = f"{kernel}[{mode}]"
             if name not in run_counts:
                 continue
-            mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags]
+            mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags
+                    and "phase" not in r]
             out.append(row_of(name, src, f"{line} ({what})", mine,
                               f"{pre}_{tags[0]}", run_counts[name], None))
     # this slice's variants (phase 3j): "launches" from [cz_bf16_small]'s 20q
@@ -4309,10 +4701,67 @@ def main() -> int:
                 (names[0], srcs[0], ("bf16",), "bf16 forward planes", n_bf16),
                 (names[1], srcs[1], ("x3", "bf16x3"), "dot_mode bf16x3", n_x3)):
             mine = [r for r in rows if r["kernel"] == kernel and r.get("fwd") in tags
-                    and pick(r)]
+                    and pick(r) and "phase" not in r]
             out.append(row_of(name, f"dqc_tpu_torch/csrc/{src}",
                               f"{replaces_of[kernel]} ({what})", mine,
                               f"{pre}_{tags[0]}", launches, None))
+    # phase 3k's variants: "launches" from [paths29_bf16]'s
+    # runs (the tape: the lane adjoint, the high adjoint's Q; VQE: the dual
+    # adjoint's Q; the [diagq] tape: the diag adjoint's) and from
+    # [per_term29_f16] (f16 input to the applies); each row's numbers from
+    # its kernel's 3k rows of the setting
+    def k3(kernel, tags, pick=lambda r: True):
+        return [r for r in rows if r["kernel"] == kernel and r.get("phase") == "3k"
+                and r.get("fwd") in tags and pick(r)]
+
+    def q_rows(r):
+        return "_q_" in r["variant"]
+
+    pb = {k: v["counts"] for k, v in paths_bf16.items()}
+    bfk, x3k = ("bf16", "f32"), ("f32", "bf16x3")
+    for name, kernel, src, line, what, mine, rep, launches in (
+            ("block_backward_lane[fwd_bf16]", "block_backward_lane",
+             "block_backward_lane.cu", f"{bb}:88", "bf16 forward planes",
+             k3("block_backward_lane", ("bf16",)), "29q_bf16",
+             pb["tape", *bfk]["block_backward_lane[fwd_bf16]"]),
+            ("block_backward_lane[fwd_bf16x3]", "block_backward_lane",
+             "block_backward_lane.cu", f"{bb}:88", "dot_mode bf16x3",
+             k3("block_backward_lane", ("x3", "bf16x3")), "29q_x3",
+             pb["tape", *x3k]["block_backward_lane[fwd_bf16x3]"]),
+            ("block_backward_dual[diag_q+fwd_bf16]", "block_backward_dual",
+             "block_backward_dual.cu", f"{bb}:437", "diag_q, bf16 forward planes",
+             k3("block_backward_dual", ("bf16",), q_rows),
+             "29q_g0_first_diag_first_q_bf16",
+             pb["vqe", *bfk]["block_backward_dual[diag_q]"]),
+            ("block_backward_dual[diag_q+fwd_bf16x3]", "block_backward_dual",
+             "block_backward_dual.cu", f"{bb}:437", "diag_q, dot_mode bf16x3",
+             k3("block_backward_dual", ("x3",), q_rows),
+             "29q_g0_first_diag_first_q_x3",
+             pb["vqe", *x3k]["block_backward_dual[diag_q]"]),
+            ("block_backward_high[diag_q+fwd_bf16]", "block_backward_high",
+             "block_backward_high.cu", f"{bb}:906", "diag_q, bf16 forward planes",
+             k3("block_backward_high", ("bf16",), q_rows), "29q_X128_diag_first_q_bf16",
+             pb["tape", *bfk]["block_backward_high[diag_q]"]),
+            ("block_backward_high[diag_q+fwd_bf16x3]", "block_backward_high",
+             "block_backward_high.cu", f"{bb}:906", "diag_q, dot_mode bf16x3",
+             k3("block_backward_high", ("x3",), q_rows), "29q_X128_diag_first_q_x3",
+             pb["tape", *x3k]["block_backward_high[diag_q]"]),
+            ("diag_backward[with_q+fwd_bf16]", "diag_backward", "diag.cu",
+             "dqc_tpu/ops/pallas/diag.py:154", "with_q, bf16 forward planes",
+             k3("diag_backward", ("bf16",)), "29q_q_bf16",
+             pb["diagq", *bfk]["diag_backward[with_q]"]),
+            ("dual_apply[in_f16]", "dual_apply", "dual_apply.cu",
+             "dqc_tpu/ops/pallas/dual_apply.py:232", "u16 input planes",
+             k3("dual_apply", ("f16in",)), "29q_fresh_f16in",
+             pt["counts"]["dual_apply[in_f16]"]),
+            ("high_apply[in_f16]", "high_apply", "high_apply.cu",
+             "dqc_tpu/ops/pallas/high_apply.py:76", "u16 input planes",
+             k3("high_apply", ("f16in",)), "29q_X128_fresh_f16in",
+             pt["counts"]["high_apply[in_f16]"])):
+        require(bool(mine), f"no phase 3k row for {name}")
+        out.append(row_of(name, f"dqc_tpu_torch/csrc/{src}", f"{line} ({what})", mine,
+                          rep, launches, None))
+        require(launches > 0, f"{name} was launched no time on its path")
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,12 @@ fusion, the plane-engine mode, the singularity checks of the uncompute, the
 in-kernel dot modes (forward, cotangent side, pair grams), the state-plane
 storage and the factorized merged-top sweep. Every storage ("f32",
 "mixed", "f16", "bf16") and both dot modes ("f32", "bf16x3") of the JAX
-package are accepted. "bf16" storage and the forward "bf16x3" run on the
-cz and CNOT rings at every size (n = 14-30) and on the expanded merged
-top; the lane adjoint and a run's Q reductions (VQEIsing, QAOAMaxCut,
-``autodiff_run``'s plane tape) refuse them with ``NotImplementedError``
-naming ROADMAP.md (queue A, item 1). The singularity checks' "debug" mode
-raises the same way. The JAX
+package are accepted and run on every plane path the JAX package runs
+them on: the cz and CNOT rings at every size (n = 14-30), the expanded
+merged top, VQEIsing, QAOAMaxCut and ``autodiff_run``'s plane tape, with
+"f16" on the per-term fallback of a dense cross-group gate too. The
+singularity checks' "debug" mode raises ``NotImplementedError`` naming
+ROADMAP.md. The JAX
 package's matmul precision has no counterpart: the port never enables TF32,
 so every product runs in full f32 (or f64). Neither has its
 ``set_full_unroll_qubits``, which picks a scanned or a straight-line
@@ -129,9 +129,9 @@ def set_kernel_dot_mode(mode: str) -> None:
     uncompute of every adjoint, and what the backward "auto" resolves to
     under f32 storage. "f32" (the default) or "bf16x3", the JAX package's
     opt-in 3-pass split (common.cuh: two FMAs per real product on the CUDA
-    cores). Every kernel of the cz and CNOT rings and of the expanded
-    merged top takes "bf16x3"; the lane adjoint and a run's Q reductions
-    raise ``NotImplementedError`` under it (ROADMAP.md, queue A item 1)."""
+    cores). Every kernel takes "bf16x3": the cz and CNOT rings, the
+    expanded merged top, VQEIsing, QAOAMaxCut and ``autodiff_run``'s plane
+    tape run under it."""
     global _KERNEL_DOT_MODE
     if mode not in ("f32", "bf16x3"):
         raise ValueError("kernel dot mode must be 'f32' or 'bf16x3'")
@@ -199,11 +199,13 @@ def set_state_storage(mode: str) -> None:
     f32 inside the kernels): "f32"; "mixed", forward planes f32 and
     cotangent planes bf16; "f16", cotangent planes float16, carrying the
     power-of-2 prescale of plane_scan._ct_prescale; "bf16", both pairs
-    bfloat16 (the value carries bf16 rounding too). "bf16" runs on the cz
-    and CNOT rings at every size and on the expanded merged top; the lane
-    adjoint and a run's Q reductions raise ``NotImplementedError`` on bf16
-    forward planes (ROADMAP.md, queue A item 1). Off the planes (n < 14,
-    complex128, the plane engine off) the storage has no effect."""
+    bfloat16 (the value carries bf16 rounding too). Every storage runs on
+    every plane path: the cz and CNOT rings at every size, the expanded
+    merged top, VQEIsing, QAOAMaxCut and ``autodiff_run``'s plane tape;
+    under "f16" the per-term fallback of a dense cross-group gate hands the
+    f16 cotangent to the dual and high applies as their input. Off the
+    planes (n < 14, complex128, the plane engine off) the storage has no
+    effect."""
     global _STATE_STORAGE
     if mode not in ("f32", "mixed", "f16", "bf16"):
         raise ValueError("state storage must be 'f32', 'mixed', 'f16' or 'bf16'")

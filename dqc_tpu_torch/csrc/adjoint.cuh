@@ -58,6 +58,8 @@
 // transport half does with TX3.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace dqc {
@@ -529,9 +531,13 @@ struct QView {
 // operator-tile buffers, unused here), added in warp order by one thread.
 // Rows and columns of a slab are summed into the (A, 128) outputs by their
 // one owner thread, in tile order: the sums do not depend on scheduling.
-template <int X>
+// RF rounds F to the storage kind fq as it is read (the dual adjoint's TPU
+// kernel stores F and rereads it before a run met after the dense steps;
+// the tile keeps the unrounded values the pair gram reads).
+template <int X, bool RF = false>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
-                       const float* bI, const QView& q, float* scratch) {
+                       const float* bI, const QView& q, float* scratch,
+                       int fq = kStoreF32) {
   static_assert(X == kGroup, "slab tiles: X = 128");
   using Cfg = AdjCfg<kGroup>;
   constexpr int LD = Cfg::LD;
@@ -551,9 +557,12 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = lane + 32 * j;
-      float qr, qi;
-      cmul(bR[x * LD + c], bI[x * LD + c], fR[x * LD + c], fI[x * LD + c], qr,
-           qi);
+      float qr, qi, fr = fR[x * LD + c], fi = fI[x * LD + c];
+      if constexpr (RF) {
+        fr = quantize(fr, fq);
+        fi = quantize(fi, fq);
+      }
+      cmul(bR[x * LD + c], bI[x * LD + c], fr, fi, qr, qi);
       const int sl = x * kGroup + q.c0 + c;
       atomicAdd(q.sl + sl, qr);
       atomicAdd(q.sl + kGroup * kGroup + sl, qi);
@@ -745,8 +754,10 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 // dual adjoint, whose TPU kernel stages the run's step through its output
 // planes) rounds F and B to their storage where that kernel stores and
 // reloads them: after the run's entries on load, before them on store (B's
-// transport result in shared memory; F as it is stored, since the pair
-// gram reads it unrounded). FK >= 0 fixes F's kind at compile time.
+// transport result in shared memory; F as it is stored and as the Q
+// reductions read it, since the pair gram reads it unrounded). Without
+// stage (the high adjoint) Q takes the f32 values, as its TPU kernel's
+// does. FK >= 0 fixes F's kind at compile time.
 template <int X, bool TX3 = false, bool GX3 = false, class QT = QView,
           bool UX3 = false, int FK = -1>
 __device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
@@ -800,7 +811,16 @@ __device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
   acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi,
                  half && diag_mode == 2 ? qkind : kStoreF32);
   __syncthreads();  // fin and bout are complete
-  if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
+  if (q != nullptr && diag_mode == 2) {
+    if constexpr (FK != kStoreF32 && std::is_same<QT, QView>::value) {
+      if (fqkind != kStoreF32)
+        q_tile<X, true>(sFr, sFi, sOr, sOi, *q, scratch, fqkind);
+      else
+        q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
+    } else {
+      q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
+    }
+  }
   if (fkind == kStoreF32)
     store_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
                              dv_inv);

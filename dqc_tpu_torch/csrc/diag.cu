@@ -45,9 +45,11 @@
 // backward then moves 24 bytes per amplitude against 32.
 //
 // "bf16" storage: the forward planes may be stored as bf16 too (the sweep's
-// x and the backward's F, the kind a template parameter so that the f32
-// sweeps keep their float4 code; without the Q reductions), 8 bytes per
-// amplitude for the sweep against 16.
+// x and the backward's F, with or without the Q reductions; the kind a
+// template parameter so that the f32 sweeps keep their float4 code),
+// decoded on load (Q takes the decoded F, as the TPU kernel's f32_of at
+// diag.py:117-120) and rounded on store, 8 bytes per amplitude for the
+// sweep against 16.
 
 #include "common.cuh"
 
@@ -149,8 +151,9 @@ diag_backward_kernel(void* fr, void* fi, void* br, void* bi, int bkind,
 
 constexpr int kRows = 128 / (kThreads / 32);  // rows of a slab per warp
 
+template <int FKIND>
 __global__ void __launch_bounds__(kThreads)
-diag_backward_q_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
+diag_backward_q_kernel(void* fr, void* fi, void* br, void* bi, int bkind,
                        DiagTables dinv, DiagTables dfwd, float* qas_r,
                        float* qas_i, float* qal_r, float* qal_i, float* part,
                        int64_t A) {
@@ -165,11 +168,9 @@ diag_backward_q_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
     for (int k = 0; k < kRows; ++k) {
       const int s = warp + (kThreads / 32) * k;
       const int64_t e = (a * dqc::kGroup + s) * 32 + lane;  // float4 index
-      const float4 f_r = reinterpret_cast<const float4*>(fr)[e];
-      const float4 f_i = reinterpret_cast<const float4*>(fi)[e];
-      const float far[4] = {f_r.x, f_r.y, f_r.z, f_r.w};
-      const float fai[4] = {f_i.x, f_i.y, f_i.z, f_i.w};
-      float bar[4], bai[4];
+      float far[4], fai[4], bar[4], bai[4];
+      load4(fr, e, FKIND, far);
+      load4(fi, e, FKIND, fai);
       load4(br, e, bkind, bar);
       load4(bi, e, bkind, bai);
       float qr[4], qi[4], rr = 0.f, ri = 0.f;
@@ -198,7 +199,7 @@ diag_backward_q_kernel(float* fr, float* fi, void* br, void* bi, int bkind,
         qas_r[a * dqc::kGroup + s] = rr;
         qas_i[a * dqc::kGroup + s] = ri;
       }
-      times_diag(fr, fi, dinv, e);
+      times_diag_of<FKIND>(fr, fi, dinv, e);
       times_diag_kind(br, bi, bkind, dfwd, e);
     }
 #pragma unroll
@@ -276,9 +277,9 @@ extern "C" int dqc_diag_backward(void* fr, void* fi, void* br, void* bi,
 // The backward with the Q reductions, taken before the update: qas_r/i and
 // qal_r/i are (A, 128) outputs; part is scratch of nblk * 2 * 128 * 128
 // floats set to zero by the caller (nblk blocks, at most A), qsl the
-// (Qsl re, im) output, 2 x 128 x 128 floats; bwd stored as bkind. Returns
-// cudaGetLastError().
-extern "C" int dqc_diag_backward_q(float* fr, float* fi, void* br, void* bi,
+// (Qsl re, im) output, 2 x 128 x 128 floats; bwd stored as bkind, fwd as
+// fkind (0 f32, 1 bf16). Returns cudaGetLastError().
+extern "C" int dqc_diag_backward_q(void* fr, void* fi, void* br, void* bi,
                                    const float* isl_r, const float* isl_i,
                                    const float* ias_r, const float* ias_i,
                                    const float* ial_r, const float* ial_i,
@@ -288,13 +289,16 @@ extern "C" int dqc_diag_backward_q(float* fr, float* fi, void* br, void* bi,
                                    float* qas_r, float* qas_i, float* qal_r,
                                    float* qal_i, float* part, float* qsl,
                                    long long A, int nblk, int bkind,
-                                   void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2)
+                                   int fkind, void* stream) {
+  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2 ||
+      fkind < 0 || fkind > 1)
     return (int)cudaErrorInvalidValue;
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
-  diag_backward_q_kernel<<<nblk, kThreads, 0, s>>>(
+  auto kernel = fkind == dqc::kStoreF32 ? diag_backward_q_kernel<dqc::kStoreF32>
+                                        : diag_backward_q_kernel<dqc::kStoreBF16>;
+  kernel<<<nblk, kThreads, 0, s>>>(
       fr, fi, br, bi, bkind, dinv, dfwd, qas_r, qas_i, qal_r, qal_i, part,
       (int64_t)A);
   const int code = (int)cudaGetLastError();

@@ -36,6 +36,13 @@
 // buffer) and each slab value split into hi and lo as it is read, two FMAs
 // per real product (common.cuh cmac3). XKIND, YKIND and X3 are template
 // parameters, so that the f32 sweep keeps its code.
+//
+// f16 input (the TPU kernel's f32_of on a uint16 cotangent): x may be
+// stored as f16 bits in the JAX package's codec, into f16 y: the per-term
+// fallback of a dense cross-group gate under "f16" storage
+// (plane_scan._apply_dense_cross) runs a term's two sweeps on the
+// cotangent, a fresh temporary then a seed into the f16 accumulator, in
+// either dot mode.
 
 #include "common.cuh"
 
@@ -292,8 +299,9 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, const float* elr,
 
 // On planes (A, 128, 128): y <- [acc +] conj?([D] Em x El^T [D]). y may be
 // x (in place, ykind = xkind); with has_acc, y holds the accumulator and is
-// added to. x is stored as xkind (0 f32, 1 bf16), y as ykind (0 f32, 1 bf16,
-// 2 f16): x f32 into any y, or bf16 into bf16. x3: the products in bf16x3.
+// added to. x is stored as xkind (0 f32, 1 bf16, 2 f16), y as ykind (0 f32,
+// 1 bf16, 2 f16): x f32 into any y, bf16 into bf16 or f16 into f16. x3: the
+// products in bf16x3.
 // The six table pointers may be null when has_diag is 0. Returns
 // cudaGetLastError().
 extern "C" int dqc_dual_apply(const void* xr, const void* xi, void* yr,
@@ -321,6 +329,8 @@ extern "C" int dqc_dual_apply(const void* xr, const void* xi, void* yr,
   DQC_DUAL_CASE(F, H, true)
   DQC_DUAL_CASE(B, B, false)
   DQC_DUAL_CASE(B, B, true)
+  DQC_DUAL_CASE(H, H, false)
+  DQC_DUAL_CASE(H, H, true)
 #undef DQC_DUAL_CASE
   return (int)cudaErrorInvalidValue;
 }

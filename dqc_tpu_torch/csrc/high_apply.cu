@@ -38,6 +38,10 @@
 // (common.cuh cmac3). XKIND, YKIND and X3 are template parameters, so that
 // the f32 sweep keeps its code. The variants at X = 8..64 build in a
 // library of their own (high_apply_fwd16.cu; the kernel in high_apply.cuh).
+// x may also be stored as f16 bits (into f16 y, in every mode and at
+// every X): the TPU kernel decodes a uint16 cotangent through f32_of, and
+// the per-term fallback of a dense cross-group gate under "f16" storage
+// hands it the cotangent (plane_scan._apply_dense_cross).
 // At X = 256 / 512 the in-place sweep on bf16 planes or in bf16x3 is
 // wide_apply.cuh's in-place instantiation of the same kernel.
 
@@ -49,11 +53,11 @@
 // 32). y may be x (in place); with has_acc, y holds the accumulator and is
 // added to. With has_diag, Q must be a multiple of
 // 128 * 128 (M = post * 128). y is stored as ykind (0 f32, 1 bf16, 2 f16;
-// the seed modes' cotangent planes), x as xkind (0 f32, 1 bf16: into bf16
-// y); x3 runs the product bf16x3. bf16 x and x3 take X = 128 here (X = 8..64
-// in dqc_high_apply_fwd16), and at X = 256 / 512 y is x (in place, x and y
-// of one storage) or other planes than x (the seeds). Returns
-// cudaGetLastError().
+// the seed modes' cotangent planes), x as xkind (0 f32, 1 bf16, 2 f16: into
+// y of its storage); x3 runs the product bf16x3. bf16 and f16 x and x3 take
+// X = 128 here (X = 8..64 in dqc_high_apply_fwd16), and at X = 256 / 512 y
+// is x (in place, x and y of one storage) or other planes than x (the
+// seeds). Returns cudaGetLastError().
 extern "C" int dqc_high_apply(const void* xr, const void* xi, void* yr,
                               void* yi, int xkind, int ykind, const float* er,
                               const float* ei,
@@ -64,7 +68,7 @@ extern "C" int dqc_high_apply(const void* xr, const void* xi, void* yr,
                               int has_acc, int x3, long long A1, int X,
                               long long Q, void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
-  if (ykind < 0 || ykind > 2 || xkind < 0 || xkind > 1)
+  if (ykind < 0 || ykind > 2 || xkind < 0 || xkind > 2)
     return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;

@@ -204,8 +204,9 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, int ykind,
             Q, stream);
 }
 
-// bf16 x (into bf16 y) or bf16x3 products at X <= 128: the variants of the
-// forward storage and dot mode
+// bf16 x (into bf16 y), f16 x (into f16 y: the per-term fallback's sweeps
+// on an "f16" cotangent) or bf16x3 products at X <= 128: the variants of
+// the forward storage and dot mode, and of f16 input
 template <int X>
 int launch_fwd16(const void* xr, const void* xi, void* yr, void* yi, int xkind,
                  int ykind, int x3, const float* er, const float* ei,
@@ -221,6 +222,8 @@ int launch_fwd16(const void* xr, const void* xi, void* yr, void* yi, int xkind,
   DQC_FWD16_CASE(F, H, true)
   DQC_FWD16_CASE(B, B, false)
   DQC_FWD16_CASE(B, B, true)
+  DQC_FWD16_CASE(H, H, false)
+  DQC_FWD16_CASE(H, H, true)
 #undef DQC_FWD16_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // The "bf16" storage and forward bf16x3 variants of the high-group apply at
 // X = 8..64: x stored as bf16 (in place, or a seed into bf16 cotangent
-// planes) and / or the product in bf16x3 (into any storage), with or
-// without a folded diagonal run.
+// planes) or as f16 bits (into f16 planes: the per-term fallback's sweeps
+// on an "f16" cotangent) and / or the product in bf16x3 (into any
+// storage), with or without a folded diagonal run.
 //
 // Replaces, with high_apply.cu, the TPU kernel high_group_apply_planes
 // (dqc_tpu/ops/pallas/high_apply.py:76) on the narrow high groups: group 2
@@ -15,8 +16,9 @@
 #include "high_apply.cuh"
 
 // dqc_high_apply's contract (high_apply.cu), for X in {8, 16, 32, 64} with
-// x stored as xkind (0 f32, 1 bf16: into bf16 y) or the product bf16x3 (x3);
-// f32 x with f32 products is dqc_high_apply's. Returns cudaGetLastError().
+// x stored as xkind (0 f32, 1 bf16, 2 f16: into y of its storage) or the
+// product bf16x3 (x3); f32 x with f32 products is dqc_high_apply's. Returns
+// cudaGetLastError().
 extern "C" int dqc_high_apply_fwd16(const void* xr, const void* xi, void* yr,
                                     void* yi, int xkind, int ykind,
                                     const float* er, const float* ei,
@@ -27,7 +29,7 @@ extern "C" int dqc_high_apply_fwd16(const void* xr, const void* xi, void* yr,
                                     int has_acc, int x3, long long A1, int X,
                                     long long Q, void* stream) {
   if (has_diag && Q % (128 * 128) != 0) return (int)cudaErrorInvalidValue;
-  if (ykind < 0 || ykind > 2 || xkind < 0 || xkind > 1 ||
+  if (ykind < 0 || ykind > 2 || xkind < 0 || xkind > 2 ||
       (xkind == dqc::kStoreF32 && !x3))
     return (int)cudaErrorInvalidValue;
   const DiagTables d{sl_r, sl_i, as_r, as_i, al_r, al_i};

@@ -222,8 +222,9 @@ inline int launch_wide_apply(const float* xr, const float* xi, void* yr,
 }
 
 // The seeds of the high apply (y other planes than x, no transpose) with
-// bf16 x (into bf16 y) or bf16x3 products ("bf16" storage and the forward
-// bf16x3): x stored as xkind (0 f32, 1 bf16), y as ykind, x3 the product's
+// bf16 x (into bf16 y), f16 x (into f16 y: the per-term fallback under
+// "f16") or bf16x3 products ("bf16" storage and the forward bf16x3): x
+// stored as xkind (0 f32, 1 bf16, 2 f16), y as ykind, x3 the product's
 // mode.
 template <int X>
 inline int launch_wide_seed(const void* xr, const void* xi, void* yr,
@@ -241,15 +242,17 @@ inline int launch_wide_seed(const void* xr, const void* xi, void* yr,
   DQC_WIDE_SEED(F, H, true)
   DQC_WIDE_SEED(B, B, false)
   DQC_WIDE_SEED(B, B, true)
+  DQC_WIDE_SEED(H, H, false)
+  DQC_WIDE_SEED(H, H, true)
 #undef DQC_WIDE_SEED
   return (int)cudaErrorInvalidValue;
 }
 
-// The in-place apply (no transpose) with bf16 planes or bf16x3 products
-// ("bf16" storage and the forward bf16x3): planes stored as kind (0 f32, 1
-// bf16), the product bf16x3 with x3 (f32 planes take x3 only). The high
-// apply's in-place sweep on the merged top axis and the X = 256 / 512
-// adjoint's uncompute.
+// The in-place apply (no transpose) with bf16 or f16 planes or bf16x3
+// products ("bf16" storage and the forward bf16x3; f16 input): planes
+// stored as kind (0 f32, 1 bf16, 2 f16), the product bf16x3 with x3 (f32
+// planes take x3 only). The high apply's in-place sweep on the merged top
+// axis and the X = 256 / 512 adjoint's uncompute.
 template <int X>
 inline int launch_wide_inplace_fwd16(void* xr, void* xi, int kind, int x3,
                                      const float* er, const float* ei,
@@ -262,6 +265,8 @@ inline int launch_wide_inplace_fwd16(void* xr, void* xi, int kind, int x3,
   DQC_WIDE_FWD16(kStoreF32, true)
   DQC_WIDE_FWD16(kStoreBF16, false)
   DQC_WIDE_FWD16(kStoreBF16, true)
+  DQC_WIDE_FWD16(kStoreF16, false)
+  DQC_WIDE_FWD16(kStoreF16, true)
 #undef DQC_WIDE_FWD16
   return (int)cudaErrorInvalidValue;
 }

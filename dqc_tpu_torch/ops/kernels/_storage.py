@@ -41,10 +41,9 @@ import torch
 STORAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FWD_DTYPES = (torch.float32, torch.bfloat16)   # the forward planes' storages
 DOT_MODES = ("f32", "bf16x3")
-# where the kernels and modes that take neither bf16 forward planes nor the
-# forward bf16x3 yet (the lane adjoint, a run's Q reductions) and float16
-# input planes are listed
-NOT_PORTED_FWD = "see ROADMAP.md, queue A item 1"
+# where the float16 input planes that the Grams, the merged-top apply and
+# the diagonal sweep do not take yet are listed (no path hands them one)
+NOT_PORTED_F16 = "see ROADMAP.md, queue B item 9"
 _F16_MIN_NORMAL = 2.0 ** -14
 _F16_MAX = 65504.0
 
@@ -184,26 +183,31 @@ def store_b(B: torch.Tensor, dtype):
             store_as(B.imag.contiguous(), dtype))
 
 
-def check_fwd(what: str, fr, fi, dot_mode: str = "f32") -> None:
+def check_fwd(what: str, fr, fi, dot_mode: str = "f32", f16: bool = False) -> None:
     """F stored as float32 or bfloat16 (both planes of one dtype), the
-    forward dot mode known."""
-    if fr.dtype not in FWD_DTYPES or fi.dtype != fr.dtype:
+    forward dot mode known. ``f16``: float16 input planes too (a cotangent
+    stored as "f16" handed to a forward apply, as the per-term fallback of
+    a dense cross-group gate does); a kernel that does not take them
+    (``gram``, ``merged_fact_apply``, ``diag_sweep``) raises
+    ``NotImplementedError``."""
+    dtypes = STORAGE_DTYPES if f16 else FWD_DTYPES
+    if fr.dtype not in dtypes or fi.dtype != fr.dtype:
         if fr.dtype == torch.float16 or fi.dtype == torch.float16:
             raise NotImplementedError(
                 f"{what}: float16 input planes (a cotangent stored as \"f16\" "
-                f"handed to a forward kernel) are not ported; {NOT_PORTED_FWD}")
+                f"handed to a forward kernel) are not ported; {NOT_PORTED_F16}")
         raise TypeError(f"{what}: forward planes of {fr.dtype} and {fi.dtype}, "
-                        f"want one of {FWD_DTYPES}")
+                        f"want one of {dtypes}")
     check_dot_mode(what, dot_mode)
 
 
-def refuse_fwd(what: str, fdtype, dot_mode: str) -> None:
-    """Raise for bf16 forward planes or the forward bf16x3 handed to a
-    kernel, or a mode of one, that takes neither yet."""
-    if fdtype == torch.bfloat16 or dot_mode == "bf16x3":
-        raise NotImplementedError(
-            f"{what}: bf16 forward planes and the forward bf16x3 are not "
-            f"ported here yet; {NOT_PORTED_FWD}")
+def check_f(what: str, fr, fi, dot_mode: str = "f32") -> None:
+    """An adjoint's forward planes F: float32 or bfloat16, both of one dtype
+    (no storage makes them float16), the forward dot mode known."""
+    if fr.dtype not in FWD_DTYPES or fi.dtype != fr.dtype:
+        raise TypeError(f"{what}: forward planes of {fr.dtype} and {fi.dtype}, "
+                        f"want one of {FWD_DTYPES}")
+    check_dot_mode(what, dot_mode)
 
 
 def count_fwd(wrapper, fdtype, dot_mode: str) -> None:
@@ -219,7 +223,7 @@ def check_modes(what: str, fr, br, bi, bwd_mode: str, gram_mode: str,
                 dot_mode: str = "f32") -> None:
     """F of the forward storages, B of the storage dtypes (both of one),
     the dot modes known."""
-    check_fwd(what, fr, fr, dot_mode)
+    check_f(what, fr, fr, dot_mode)
     storage_kind(br.dtype)
     if bi.dtype != br.dtype:
         raise TypeError(f"{what}: cotangent planes of two dtypes")

@@ -40,9 +40,11 @@ their storage where the TPU kernel stores and reloads them: between the
 two steps and next to the run. Such launches are also counted in
 ``mode_launches`` ("bf16" / "f16" for B's storage, "bf16x3" for the
 transports, "gram_bf16x3" for the pair grams, "fwd_bf16" for F's storage
-and "fwd_bf16x3" for the uncomputes). ``diag_q`` on bf16 forward planes
-or with the forward bf16x3 raises, as ``block_backward_high``'s does: a
-run's Q reductions there are ROADMAP.md, queue A item 1.
+and "fwd_bf16x3" for the uncomputes). With ``diag_q`` under reduced
+storage, Q is taken from the planes as the TPU kernel stages them: where
+the run is met after the dense steps, from F and B rounded to their
+storage (the kernel stores and rereads them there); where it is met
+first, from the decoded input planes.
 """
 
 from __future__ import annotations
@@ -148,8 +150,6 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
     check_modes("block_backward_dual", fr, br, bi, bwd_mode, gram_mode, dot_mode)
     if fi.dtype != fr.dtype:
         raise TypeError("block_backward_dual: forward planes of two dtypes")
-    if diag_q:
-        _st.refuse_fwd("block_backward_dual with diag_q", fr.dtype, dot_mode)
     ops = (e0inv_r, e0inv_i, e0_r, e0_i, e1inv_r, e1inv_i, e1_r, e1_i)
     if fr.device.type == "cpu":
         return block_backward_dual_plain(

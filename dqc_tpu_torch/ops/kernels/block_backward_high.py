@@ -38,8 +38,10 @@ decoded on load, rounded on store; with B stored bfloat16 at X = 256 /
 512, as "bf16" storage stores both) and the uncompute run bf16x3
 (``dot_mode``), counted as "fwd_bf16" and "fwd_bf16x3"; at X = 256 / 512
 the cross-Gram decodes F and the uncompute is the wide apply in place on
-F in its storage. ``diag_q`` refuses both (a run's Q on bf16 F:
-ROADMAP.md, queue A item 1).
+F in its storage. With ``diag_q``, Q is the product of the f32 values
+(the TPU kernel does not stage them): of the decoded input where the run
+is met first, of the uncompute's and the transport's results, unrounded,
+where it is met after the dense stage.
 
 :func:`block_backward_high` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -139,8 +141,6 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     check_modes("block_backward_high", fr, br, bi, bwd_mode, gram_mode, dot_mode)
     if fi.dtype != fr.dtype:
         raise TypeError("block_backward_high: forward planes of two dtypes")
-    if diag_q:
-        _st.refuse_fwd("block_backward_high with diag_q", fr.dtype, dot_mode)
     if X in WIDE_X and fr.dtype == torch.bfloat16 and br.dtype != torch.bfloat16:
         raise TypeError("block_backward_high: bfloat16 forward planes at X = "
                         f"{X} take bfloat16 cotangent planes, got {br.dtype}")

@@ -21,8 +21,10 @@ their plain PyTorch versions. On a CUDA tensor the wrappers update the
 planes in place (the TPU kernels alias them) and return them; on a CPU
 tensor they return the plain version's fresh planes. The forward planes
 may be stored bfloat16 ("bf16" storage: decoded on load, rounded to nearest
-even on store; counted in ``mode_launches["fwd_bf16"]``), but not with the
-Q reductions (ROADMAP.md, queue A item 1).
+even on store; counted in ``mode_launches["fwd_bf16"]``), with or without
+the Q reductions (taken from the decoded planes). The sweep's planes may
+not be float16 (a cotangent stored "f16", which no path hands it): that
+raises ``NotImplementedError`` (ROADMAP.md queue B item 9).
 """
 
 from __future__ import annotations
@@ -74,8 +76,8 @@ _SWEEP_ARGTYPES = [_launch.VOIDP] * 8 + [_launch.LONG, _launch.INT,
                                          _launch.VOIDP]
 _BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT,
                                              _launch.INT, _launch.VOIDP]
-_BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22
-                        + [_launch.LONG, _launch.INT, _launch.INT, _launch.VOIDP])
+_BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22 + [_launch.LONG]
+                        + [_launch.INT] * 3 + [_launch.VOIDP])
 
 
 def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
@@ -108,15 +110,12 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
     then with ``with_q`` ``(Qsl_r, Qsl_i, Qas_r, Qas_i, Qal_r, Qal_i)``.
     ``bwd`` may be stored as float32, bfloat16 or float16 (the kernels'
     codec), counted in ``mode_launches`` under the storage's name, and
-    ``fwd`` as float32 or bfloat16 (without ``with_q``), counted as
-    "fwd_bf16"."""
+    ``fwd`` as float32 or bfloat16, counted as "fwd_bf16"."""
     planes = (fr, fi, br, bi)
     inv = (isl_r, isl_i, ias_r, ias_i, ial_r, ial_i)
     fwd = (tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i)
     A = _check_planes("diag_backward", planes)
-    _st.check_fwd("diag_backward", fr, fi)
-    if with_q:
-        _st.refuse_fwd("diag_backward with_q", fr.dtype, "f32")
+    _st.check_f("diag_backward", fr, fi)
     _st.storage_kind(br.dtype)
     if bi.dtype != br.dtype:
         raise TypeError("diag_backward: cotangent planes of two dtypes")
@@ -149,11 +148,12 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
     code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
               *_launch.table_ptrs(fwd), *(r.data_ptr() for r in rows),
               part.data_ptr(), qsl.data_ptr(), A, nblk, bkind,
-              _launch.stream(dev))
+              _st.storage_kind(fr.dtype), _launch.stream(dev))
     _launch.raise_on_error(code, "diag", "diag_backward launch")
     diag_backward.launches += 1
     diag_backward.mode_launches["with_q"] += 1
     count_modes(diag_backward, br.dtype, "f32", "f32")
+    _st.count_fwd(diag_backward, fr.dtype, "f32")
     return fr, fi, br, bi, qsl[0], qsl[1], *rows
 
 

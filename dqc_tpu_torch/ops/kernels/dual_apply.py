@@ -24,9 +24,13 @@ bfloat16 or float16 in the kernels' codec (ops/kernels/_storage.py). Those
 launches are also counted in ``mode_launches`` under the storage's name
 ("bf16", "f16"). The input planes are float32 or bfloat16 (the forward
 planes under "bf16" storage: in place on them, or a seed from them into
-bf16 cotangent planes), and the two products run in ``dot_mode`` ("f32",
-or "bf16x3" as ``dots.make_dot``; the TPU kernel's ``dot_mode``), counted
-as "fwd_bf16" and "fwd_bf16x3".
+bf16 cotangent planes), or float16 into planes of their storage (the
+cotangent under "f16", which the per-term fallback of a dense cross-group
+gate hands the kernel as its input; decoded as the TPU kernel's
+``f32_of`` decodes its uint16 planes), and the two products run in
+``dot_mode`` ("f32", or "bf16x3" as ``dots.make_dot``; the TPU kernel's
+``dot_mode``), counted as "fwd_bf16" and "fwd_bf16x3"; float16 input is
+counted as "in_f16".
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
                acc: Optional[Planes] = None, alias: bool = True,
                out_dtype=None, dot_mode: str = "f32") -> Planes:
     """``[acc +] conj?([D] Em X El^T [D])`` on planes ``(A, 128, 128)``
-    stored as float32 or bfloat16; operators are f32 real/imag pairs (128,
+    stored as float32, bfloat16 or float16; operators are f32 real/imag pairs (128,
     128); ``diag_tables`` the run's six f32 planes ``(tsl_r, tsl_i, tas_r,
     tas_i, tal_r, tal_i)`` or None. ``out_dtype``: the storage of fresh
     output planes (``alias=False``); ``dot_mode``: the products' dot
@@ -88,7 +92,7 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
     if xr.dim() != 3 or tuple(xr.shape[1:]) != (128, 128) or xi.shape != xr.shape:
         raise ValueError(f"dual_apply: planes must be (A, 128, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-    _st.check_fwd("dual_apply", xr, xi, dot_mode)
+    _st.check_fwd("dual_apply", xr, xi, dot_mode, f16=True)
     seed = acc is not None or not alias
     if seed:
         _st.check_apply_storage("dual_apply", xr.dtype, (
@@ -100,7 +104,7 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
     A = xr.shape[0]
     ops = (el_r, el_i, em_r, em_i)
     _launch.check_cuda_f32("dual_apply", (xr, xi), xr.device, align=16,
-                           dtypes=_st.FWD_DTYPES)
+                           dtypes=_st.STORAGE_DTYPES)
     out = _launch.output_planes("dual_apply", xr, xi, acc, alias, out_dtype,
                                 _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("dual_apply", ops, xr.device)
@@ -119,9 +123,11 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
     if seed:
         _st.count_storage(dual_apply, out[0].dtype)
     _st.count_fwd(dual_apply, xr.dtype, dot_mode)
+    if xr.dtype == torch.float16:
+        dual_apply.mode_launches["in_f16"] += 1
     return out
 
 
 dual_apply.launches = 0
-dual_apply.mode_launches = {"bf16": 0, "f16": 0, "fwd_bf16": 0,
+dual_apply.mode_launches = {"in_f16": 0, "bf16": 0, "f16": 0, "fwd_bf16": 0,
                             "fwd_bf16x3": 0}

@@ -24,7 +24,10 @@ output planes may be stored reduced (``out_dtype`` or the accumulator's
 dtype, as in ``dual_apply``), counted in ``mode_launches`` under the
 storage's name. The input planes may be stored bfloat16 ("bf16" storage)
 and the product run bf16x3 (``dot_mode``), counted as "fwd_bf16" and
-"fwd_bf16x3", at every X, in place and as seeds.
+"fwd_bf16x3", at every X, in place and as seeds; or float16 (the cotangent
+under "f16", which the per-term fallback of a dense cross-group gate hands
+the kernel as its input) into planes of that storage, at every X, counted
+as "in_f16".
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ def high_apply(xr, xi, e_r, e_i,
     if X > 128 and diag_tables is not None:
         raise ValueError(f"high_apply: a diag run folds into X <= 128 only, "
                          f"got X={X}")
-    _st.check_fwd("high_apply", xr, xi, dot_mode)
+    _st.check_fwd("high_apply", xr, xi, dot_mode, f16=True)
     seed = acc is not None or not alias
     if seed:
         _st.check_apply_storage("high_apply", xr.dtype, (
@@ -111,7 +114,7 @@ def high_apply(xr, xi, e_r, e_i,
     if X not in KERNEL_X + WIDE_X:
         raise ValueError(f"high_apply: X={X} is not one of {KERNEL_X + WIDE_X}")
     _launch.check_cuda_f32("high_apply", (xr, xi), xr.device,
-                           dtypes=_st.FWD_DTYPES)
+                           dtypes=_st.STORAGE_DTYPES)
     _launch.check_cuda_f32("high_apply", (e_r, e_i), xr.device)
     out = _launch.output_planes("high_apply", xr, xi, acc, alias, out_dtype,
                                 _st.STORAGE_DTYPES)
@@ -134,9 +137,11 @@ def high_apply(xr, xi, e_r, e_i,
     if seed:
         _st.count_storage(high_apply, out[0].dtype)
     _st.count_fwd(high_apply, xr.dtype, dot_mode)
+    if xr.dtype == torch.float16:
+        high_apply.mode_launches["in_f16"] += 1
     return out
 
 
 high_apply.launches = 0
-high_apply.mode_launches = {"wide_inplace": 0, "bf16": 0, "f16": 0,
+high_apply.mode_launches = {"in_f16": 0, "wide_inplace": 0, "bf16": 0, "f16": 0,
                             "fwd_bf16": 0, "fwd_bf16x3": 0}

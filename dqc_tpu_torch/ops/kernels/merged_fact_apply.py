@@ -19,7 +19,9 @@ factor's product runs in ``dot_mode`` ("f32" or "bf16x3"; the top factor's
 scalar combinations are f32 whatever the mode, as in ``_kernel_fact``),
 counted in ``mode_launches`` as "fwd_bf16" and "fwd_bf16x3". The kernel
 applies the top factor first (the two commute) and the plain version does
-the same, so that under bf16x3 both split the same operand.
+the same, so that under bf16x3 both split the same operand. float16 planes
+(a cotangent stored "f16", which no path hands this kernel) raise
+``NotImplementedError`` (ROADMAP.md queue B item 9).
 """
 
 from __future__ import annotations

@@ -299,13 +299,13 @@ def test_diag_backward_bf16_forward(bstore):
 def test_modes_counted():
     """The wrappers count the new variants (the plain versions on the CPU
     do not launch; the counts are the card's): a seed from bf16 planes is
-    a seed into bf16 planes, and the refusals of the card path hold on the
-    CPU too (the lane adjoint on bf16 forward planes; the X = 64 high apply,
-    refused here before its variants were ported, runs)."""
+    a seed into bf16 planes, and the checks of the card path hold on the
+    CPU too (the lane adjoint on bf16 forward planes and the X = 64 high
+    apply run; an f16 seed from bf16 planes is refused)."""
     x = torch.zeros((1, 128, 128), dtype=BF)
     e = torch.zeros((128, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.block_backward_lane(x, x.clone(), x.clone(), x.clone(), e, e, e, e)
+    out = tk.block_backward_lane(x, x.clone(), x.clone(), x.clone(), e, e, e, e)
+    assert [p.dtype for p in out] == [BF] * 4 + [torch.float32] * 2
     x64 = torch.zeros((1, 64, 128, 128), dtype=BF)
     assert tk.high_apply(x64, x64.clone(), e[:64, :64], e[:64, :64])[0].dtype == BF
     with pytest.raises(TypeError):

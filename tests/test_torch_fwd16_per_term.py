@@ -10,8 +10,9 @@ Schmidt term (``plane_scan._apply_dense_cross``): its forward as seeds
 from the forward planes into fresh ones, its uncompute on bf16 F and its
 transport on bf16 B through the dual and high applies, each term stored
 in the input's storage; a variable gate on qubit 10 and one on 15 around
-it and a density with gradient on qubit 9 (no lane-group block, whose
-adjoint under "bf16" is ROADMAP.md queue A item 1). Densities and the
+it and a density with gradient on qubit 9 (tests/test_torch_fwd16_tape.py
+runs the per-term fallback under "f16" on a tape whose densities the
+gates move, with a lane-group block). Densities and the
 tsallis loss's gradient of both packages in three settings ("bf16", f32 +
 bf16x3, both) against their own f32 runs and each other; bars as
 tests/test_torch_fwd16_rings.py's (its docstring states them), the port

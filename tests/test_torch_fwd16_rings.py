@@ -184,7 +184,7 @@ def test_cz_narrow_groups(n, L, storage, dot):
 
 
 def chip_bars(models=(("cz", (14, 15, 16, 17), 4), ("cnot", (14, 15, 16), 4),
-                      ("cnot", (14, 15, 16), 20))):
+                      ("cnot", (14, 15, 16), 2), ("cnot", (14, 15, 16), 20))):
     """The JAX package's own error, max over n, on chip_smoke's models
     (``HardwareEfficientAnsatz(n, L, entangler)``, params 0.1 N(0, 1), as
     chip_smoke's ``init_params``): (value relative, gradient rms, gradient

@@ -232,6 +232,7 @@ def test_kernel_wrappers_refuse_other_devices():
                                 "merged_fact_apply", "block_backward_dual",
                                 "block_backward_high", "block_backward_merged_fact",
                                 "dual_multi_apply", "high_multi_apply",
-                                "block_backward_sublane")
+                                "block_backward_sublane", "block_backward_lane")
           for m in ("fwd_bf16", "fwd_bf16x3")),
-        "diag_sweep[fwd_bf16]", "diag_backward[fwd_bf16]")}
+        "diag_sweep[fwd_bf16]", "diag_backward[fwd_bf16]",
+        "dual_apply[in_f16]", "high_apply[in_f16]")}

@@ -404,9 +404,10 @@ def _rand_ops(shape, seed):
 
 
 def test_other_kernels_refuse_reduced_planes():
-    """f16 planes into the forward kernels and the Grams still raise
-    (ROADMAP.md: a cotangent stored "f16" handed to a forward kernel);
-    bf16 ones run since "bf16" storage, as the plain versions on the
+    """f16 planes into the Grams still raise (ROADMAP.md queue B item 9: a
+    cotangent stored "f16" handed to a forward kernel no path runs); into
+    the dual apply they run (the per-term fallback's input); bf16 ones run
+    since "bf16" storage, as the plain versions on the
     decoded planes. The multi-term applies, the lane, sublane and X = 256
     adjoints and apply_cross_span, which refused reduced planes and a bf16x3
     transport before, now run them: each returns planes in the cotangent's
@@ -414,8 +415,9 @@ def test_other_kernels_refuse_reduced_planes():
     same call on the decoded f32 planes (one encode)."""
     e = torch.zeros((128, 128))
     h = tuple(p.to(torch.float16) for p in _bf16_planes((1, 128, 128)))
-    with pytest.raises(NotImplementedError, match="dual_apply.*ROADMAP"):
-        tk.dual_apply(*h, e, e, e, e)
+    # f16 input to the applies runs (the per-term fallback under "f16"),
+    # into planes of its storage; the Grams still refuse it
+    assert all(p.dtype == torch.float16 for p in tk.dual_apply(*h, e, e, e, e))
     with pytest.raises(NotImplementedError, match="gram.*ROADMAP"):
         tk.gram(*h)
     b = _rand_planes((1, 128, 128), 0, torch.bfloat16)
@@ -496,119 +498,12 @@ def test_unported_paths_raise_not_run_f32(make, loss, storage):
     assert 0 < rel < 1e-2, rel
 
 
-# bf16 forward planes ("bf16" storage) and the forward bf16x3: the kernels,
-# modes and paths that take neither yet raise NotImplementedError naming
-# ROADMAP.md (queue A item 1), on the CPU as on the card; none runs f32 in
-# their place.
+# bf16 forward planes ("bf16" storage) and the forward bf16x3: every kernel,
+# mode and path takes them (tests/test_torch_fwd16_*.py hold them against
+# the JAX package); off the planes neither setting applies
 
 FWD16 = [("bf16", "f32"), ("f32", "bf16x3")]
 FWD16_IDS = ["bf16_planes", "fwd_bf16x3"]
-
-
-def _fwd_planes(shape, fwd, seed=20):
-    return _rand_planes(shape, seed, torch.bfloat16 if fwd == "bf16" else torch.float32)
-
-
-def _unported_fwd16_calls(fwd, dm):
-    """Each kernel or mode no path of the port runs under bf16 forward
-    planes (``fwd``) or the forward bf16x3 (``dm``) yet: the lane adjoint
-    and a run's Q reductions."""
-    bf = torch.bfloat16
-    f = _fwd_planes((1, 128, 128), fwd)
-    b = _rand_planes((1, 128, 128), 21, bf)
-    E = _rand_ops((128, 128), 24) + _rand_ops((128, 128), 25)
-    tabs = tuple(p for s_ in ((128, 128), (1, 128), (1, 128))
-                 for p in _rand_ops(s_, 34))
-    vh = (1, 128, 128, 128)   # group 2 of n = 21, a run folded in
-    fh = _fwd_planes(vh, fwd, 39)
-    htabs = tuple(p if k < 2 else p.reshape(1, 128, 1, 128) for k, p in enumerate(
-        q for s_ in ((128, 128),) * 3 for q in _rand_ops(s_, 40)))
-    return {
-        "block_backward_lane": lambda: tk.block_backward_lane(*f, *b, *E, dot_mode=dm),
-        "diag_backward with_q": lambda: tk.diag_backward(
-            *f, *b, *tabs, *tabs, with_q=True),
-        "block_backward_dual diag_q": lambda: tk.block_backward_dual(
-            *f, *b, *E, *E, diag_inv_tables=tabs, diag_tables=tabs, diag_q=True,
-            dot_mode=dm),
-        "block_backward_high diag_q": lambda: tk.block_backward_high(
-            *fh, *_rand_planes(vh, 38, bf), *E, diag_inv_tables=htabs,
-            diag_tables=htabs, diag_q=True, dot_mode=dm),
-    }
-
-
-# the refusals that concern F alone (a run's Q on bf16 F; bf16x3 there is
-# the JAX package's and runs)
-_F_ONLY = ("diag_backward with_q", "block_backward_dual diag_q",
-           "block_backward_high diag_q")
-
-
-@pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
-def test_unported_kernels_refuse_fwd16(fwd, dm):
-    """Every kernel and mode not ported yet (ROADMAP.md, queue A item 1)
-    raises under a bf16 forward plane and under the forward bf16x3, on the
-    CPU."""
-    for name, call in _unported_fwd16_calls(fwd, dm).items():
-        if name in _F_ONLY and fwd != "bf16":
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-
-
-@pytest.mark.parametrize("make, loss", [
-    (lambda: _vqe(14), "energy"),
-    (lambda: _qaoa(15), "loss"),
-    (lambda: _tape(14), None)], ids=["vqe", "qaoa", "tape"])
-@pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
-def test_unported_paths_raise_fwd16(make, loss, fwd, dm):
-    """VQEIsing, QAOAMaxCut and autodiff_run's plane tape raise under
-    "bf16" storage and under the forward bf16x3, naming ROADMAP, before any
-    result (a run's Q reductions and the lane adjoint on bf16 forward
-    planes are queue A item 1)."""
-    model = make()
-    config.set_state_storage(fwd if fwd == "bf16" else "f32")
-    config.set_kernel_dot_mode(dm)
-    config.set_plane_engine(True)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if loss is None:
-                model()
-            else:
-                p = model.init_params(torch.Generator().manual_seed(0))
-                getattr(model, loss)(p.requires_grad_(True)).backward()
-    finally:
-        config.set_kernel_dot_mode("f32")
-
-
-def _vqe(n):
-    from dqc_tpu_torch.models.vqe_ising import VQEIsing
-    return VQEIsing(n, 1, device="cpu")
-
-
-def _qaoa(n):
-    from dqc_tpu_torch.models.qaoa import QAOAMaxCut
-    return QAOAMaxCut(n, [(i, (i + 1) % n) for i in range(n)], layers_number=1,
-                      device="cpu")
-
-
-def _tape(n):
-    """autodiff_run of a tape with a dense gate across the lane and sublane
-    groups (the multi-term kernel) and a diff density."""
-    from dqc_tpu_torch import AutoGradCircuit
-    c = AutoGradCircuit(n, device="cpu")
-    c.add_q1_var_gate(0)
-    c.add_q2_var_gate(7, 6)
-    c.get_q1_dens_op_with_grad(3)
-    _, run = c.build()
-    rng = np.random.default_rng(3)
-
-    def call():
-        q1 = np.linalg.qr(rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2)))[0]
-        q2 = np.linalg.qr(rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4)))[0]
-        gates = [torch.tensor(q1.astype(np.complex64).ravel(), requires_grad=True),
-                 torch.tensor(q2.astype(np.complex64).ravel(), requires_grad=True)]
-        dens = run(gates, [])
-        dens[0].real.sum().backward()
-    return call
 
 
 @pytest.mark.parametrize("fwd, dm", FWD16, ids=FWD16_IDS)
