@@ -165,7 +165,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    per-term fallback, under "f16" against f32 storage); each against the
    JAX package's own error on the same model at 14-17q (2.5 times, capped),
    counts held to the meta-device dry run;
-16. a JSON line of the kernels and of the modes checked (their launches
+16. the tensor-core routes (3l, after phase 3): the high apply at X =
+   128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
+   high_apply[tc]) and the X = 256 / 512 adjoint (its cross-Gram and its
+   two updates on the tensor cores): each of their phase-3 rows again with
+   its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
+   runs, three per real product, one fewer for each planes operand whose
+   lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
+   tf32 at 495 TFLOP/s, bf16 at 989), which is then the row's bound_ms,
+   and its share of it, and the kernels' registers and spills from this
+   run's build;
+17. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -203,6 +213,7 @@ QAOA_EXTRA_EDGES = 14   # random_graph(29, 14, 0), the example's graph at 29q
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 on the
 # tensor cores (the rate of bf16x3's three bf16 products) and HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12   # the tensor cores' TF32 rate (3xTF32's products)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -407,6 +418,38 @@ def bound_ms(bytes_moved: float, flops: float, bf16_flops: float = 0.0):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def tc_product(cmacs: float, x3: bool, *planes) -> tuple:
+    """(tf32 flops, bf16 flops) that the tensor cores run for a split
+    complex product of ``cmacs`` complex multiply-adds (csrc/mma.cuh cmma3):
+    8 flops a pass, three passes (hi hi, hi lo, lo hi), one fewer for each
+    planes operand in ``planes`` whose lo parts are zero: 16-bit planes in
+    3xTF32, bf16 planes in bf16x3. ``planes``: the storage dtypes (or
+    their names) of the planes operands; the operator's are never zero.
+    Planes a folded run multiplies before the product count as float32."""
+    names = [str(p).split(".")[-1] for p in planes]
+    exact = sum(n == "bfloat16" or (not x3 and n == "float16") for n in names)
+    fl = 8 * cmacs * (3 - exact)
+    return (0.0, fl) if x3 else (fl, 0.0)
+
+
+def tc_fields(tc) -> dict:
+    """A row's tensor-core work: ``tc``, the tc_product of each of its
+    products, summed as tc_flops = [tf32 flops, bf16 flops]; {} for a row
+    off the tensor cores (tc None)."""
+    if tc is None:
+        return {}
+    return {"tc_flops": [sum(t[0] for t in tc), sum(t[1] for t in tc)]}
+
+
+def tc_bound_ms(bytes_moved: float, tf32_flops: float, bf16_flops: float):
+    """bound_ms of a tensor-core route from the passes it runs (tc_product):
+    the tf32 flops at the TF32 rate plus the bf16 flops at the bf16 rate, or
+    the bytes over the HBM rate, the larger."""
+    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
+    t_ops = (tf32_flops / PEAK_TF32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def storage_modes(dtype) -> tuple:
     """The storage mode a launch counts for planes of ``dtype``."""
     import torch
@@ -454,7 +497,11 @@ def call_modes(name: str, a) -> tuple:
                 and a["xr"].shape[1] > 128 else ())
         seed = acc is not None or not a.get("alias", True)
         in16 = ("in_f16",) if a["xr"].dtype == torch.float16 else ()
-        return (in16 + wide + (storage_modes(out) if seed else ())
+        # the tensor-core apply takes X = 128, 256 and 512, every storage
+        # and mode
+        tc = (("tc",) if name == "high_apply" and a["xr"].shape[1] in (128, 256, 512)
+              else ())
+        return (in16 + wide + tc + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
     if name in ("gram", "merged_fact_apply", "diag_sweep"):
         return fwd_modes(a["xr"].dtype, a)
@@ -821,7 +868,7 @@ def main() -> int:
 
     def check(kernel, variant, shape, fn_kernel, fn_plain, args, tol,
               flops, bytes_moved, library=None, normalize=False,
-              dense_flops=None):
+              dense_flops=None, tc=None):
         xr, xi = randn(*shape), randn(*shape)
         if normalize:
             scale = (xr.double().pow(2).sum() + xi.double().pow(2).sum()).rsqrt()
@@ -840,7 +887,9 @@ def main() -> int:
         b_ms, b_by = bound_ms(bytes_moved, flops)
         row = dict(kernel=kernel, variant=variant, shape=list(shape),
                    max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   flops=flops, bf16_flops=0.0, bytes=bytes_moved,
+                   **tc_fields(tc))
         if dense_flops is not None:
             # what the kernel computes: dense products, whatever the zeros
             row["dense_bound_ms"] = bound_ms(bytes_moved, dense_flops)[0]
@@ -851,7 +900,8 @@ def main() -> int:
 
     def check_many(kernel, variant, shape, n_in, n_planes_out, fn_kernel,
                    fn_plain, tol, flops, bytes_moved, library=None,
-                   intact=0, dense_flops=None, rel_each=False, reuse=False):
+                   intact=0, dense_flops=None, rel_each=False, reuse=False,
+                   tc=None):
         """A kernel of ``n_in`` input planes whose outputs are
         ``n_planes_out`` planes (held to ``tol`` abs) and then pair grams
         (held to GRAM_T0_TOL times their largest entry; with ``rel_each``
@@ -891,7 +941,8 @@ def main() -> int:
                    max_abs_err=max(errs), plane_err=plane_err,
                    gram_rel_err=gram_err / gram_max, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, flops=flops, bf16_flops=0.0, bytes=bytes_moved,
+                   **tc_fields(tc))
         if dense_flops is not None:
             row["dense_bound_ms"] = bound_ms(bytes_moved, dense_flops)[0]
         rows.append(row)
@@ -942,7 +993,8 @@ def main() -> int:
                   high_apply_plain, (*E, tab, tag == "diag_first"), HIGH_TOL,
                   flops=amps * X * 8,
                   bytes_moved=2 * state_bytes + (table_bytes(a_rows) if tab else 0),
-                  library=high_library(E) if tab is None else None)
+                  library=high_library(E) if tab is None else None,
+                  tc=[tc_product(amps * X, False, "float32")] if X >= 128 else None)
 
     # gram: (S, C) over the views (P, X, Q) of the epilogue
     def gram_library(xr, xi):
@@ -990,7 +1042,7 @@ def main() -> int:
     check_many("high_apply", "X128_seed", (g2[0], 128, g2[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
                flops=amps * 128 * 8, bytes_moved=3 * state_bytes, intact=2,
-               library=seed_library(E))
+               library=seed_library(E), tc=[tc_product(amps * 128, False, "float32")])
 
     # block_backward_dual: (F, B) planes (A, 128, 128) rolled back through a
     # lane + sublane pair, two pair grams; 768 complex MACs per amplitude
@@ -1093,7 +1145,8 @@ def main() -> int:
     E = unitary(128)
     check("high_apply", "29q_X128_plain", (g2_29[0], 128, g2_29[2], 128),
           high_apply, high_apply_plain, (*E, None, True), HIGH_TOL,
-          flops=amps29 * 128 * 8, bytes_moved=2 * state29, library=high_library(E))
+          flops=amps29 * 128 * 8, bytes_moved=2 * state29, library=high_library(E),
+          tc=[tc_product(amps29 * 128, False, "float32")])
     for variant, view in (("29q_lane", (A29 * 128, 128, 1)),
                           ("29q_sublane", (A29, 128, 128)),
                           ("29q_high_g2", (g2_29[0], 128, g2_29[2] * 128))):
@@ -1108,7 +1161,7 @@ def main() -> int:
     check_many("high_apply", "29q_X128_seed", (g2_29[0], 128, g2_29[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
                flops=amps29 * 128 * 8, bytes_moved=3 * state29, intact=2,
-               library=seed_library(E))
+               library=seed_library(E), tc=[tc_product(amps29 * 128, False, "float32")])
     kw = dict(g0_first=True, diag_first_fwd=True, diag_inv_tables=tables(A29),
               diag_tables=tables(A29))
     check_many("block_backward_dual", "29q_g0_first_diag_first", (A29, 128, 128),
@@ -1177,7 +1230,8 @@ def main() -> int:
         E = unitary(X)
         check_many("high_apply", f"X{X}_seed", shape, 4, 2, seed(high_apply, *E),
                    seed(high_apply_plain, *E), HIGH_TOL, flops=amps29 * X * 8,
-                   bytes_moved=3 * state29, intact=2, library=seed_library(E))
+                   bytes_moved=3 * state29, intact=2, library=seed_library(E),
+                   tc=[tc_product(amps29 * X, False, "float32")])
 
     # the diagonal-run kernels on the 29-qubit planes: x *= D, and (F, B) <-
     # (F Dinv, B D); D = (tas tal) tsl is 18 real flops per amplitude
@@ -1309,7 +1363,8 @@ def main() -> int:
     E, Einv = unitary(128), unitary(128)
     check("high_apply", "29q_X128_g3", (g3_29[0], 128, g3_29[2], 128), high_apply,
           high_apply_plain, (*E, None, True), HIGH_TOL, flops=amps29 * 128 * 8,
-          bytes_moved=2 * state29, library=high_library(E))
+          bytes_moved=2 * state29, library=high_library(E),
+          tc=[tc_product(amps29 * 128, False, "float32")])
     check_many("block_backward_high", "29q_X128_g3", (g3_29[0], 128, g3_29[2], 128),
                4, 4, lambda *p: block_backward_high(*p, *Einv, *E),
                lambda *p: block_backward_high_plain(*p, *Einv, *E), HIGH_TOL,
@@ -1515,14 +1570,18 @@ def main() -> int:
         E = unitary(X)
         check("high_apply", f"{nq}q_X{X}_inplace", shape, high_apply,
               high_apply_plain, (*E, None, True), HIGH_TOL, flops=amps_n * X * 8,
-              bytes_moved=2 * st, library=high_library(E))
+              bytes_moved=2 * st, library=high_library(E),
+              tc=[tc_product(amps_n * X, False, "float32")])
         E, Einv = unitary(X), unitary(X)
         check_many("block_backward_high", f"{nq}q_X{X}_wide", shape, 4, 4,
                    lambda *p, E=E, Einv=Einv: block_backward_high(*p, *Einv, *E),
                    lambda *p, E=E, Einv=Einv: block_backward_high_plain(
                        *p, *Einv, *E), HIGH_TOL, flops=amps_n * 3 * X * 8,
                    bytes_moved=4 * st, library=high_bwd_library(E, Einv),
-                   reuse=nq == N30)
+                   reuse=nq == N30,
+                   # the cross-Gram B F^T, then the two in-place updates
+                   tc=[tc_product(amps_n * X, False, "float32", "float32"),
+                       tc_product(2 * amps_n * X, False, "float32")])
         del E, Einv
         torch.cuda.empty_cache()
 
@@ -1544,7 +1603,8 @@ def main() -> int:
 
     def check_reduced(kernel, variant, shape, n_f, n_b, n_f_out, n_b_out,
                       fn_kernel, fn_plain, dtype, f32_flops, bf16_flops,
-                      bytes_moved, b_scale=0.5, g_tol=None, ulps=STORE_ULPS):
+                      bytes_moved, b_scale=0.5, g_tol=None, ulps=STORE_ULPS,
+                      tc=None):
         """Inputs: n_f f32 planes, then n_b planes stored as ``dtype``;
         outputs: n_f_out f32 planes, n_b_out planes of ``dtype``, then grams
         or Q reductions. The kernel runs on the inputs themselves after the
@@ -1591,7 +1651,8 @@ def main() -> int:
                    storage=str(dtype).split(".")[-1], max_abs_err=max(f_err, b_err),
                    store_ulps=b_ulps, gram_rel_err=g_rel, tol=HIGH_TOL, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, flops=f32_flops, bf16_flops=bf16_flops,
+                   bytes=bytes_moved, **tc_fields(tc))
         rows.append(row)
         log(f"[kernel] {json.dumps(row)}")
         del ins
@@ -1627,7 +1688,8 @@ def main() -> int:
                           xr, xi, *E, conj=True, acc=(ar, ai), alias=False),
                       lambda xr, xi, ar, ai, E=E: high_apply_plain(
                           xr, xi, *E, conj=True, acc=(ar, ai)),
-                      dt, amps29 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt))
+                      dt, amps29 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt),
+                      tc=[tc_product(amps29 * 128, False, "float32")])
     check_reduced("dual_apply", "29q_seed_fresh_f16", (A29, 128, 128), 2, 0, 0, 2,
                   lambda xr, xi: dual_apply(xr, xi, *el29, *em29, conj=True,
                                             alias=False, out_dtype=torch.float16),
@@ -1647,7 +1709,8 @@ def main() -> int:
                           lambda xr, xi, E=E, dt=dt: high_apply_plain(
                               xr, xi, *E, conj=True, out_dtype=dt),
                           dt, amps_n * X * 8, 0.0,
-                          2 * amps_n * 4 + 2 * amps_n * 2)
+                          2 * amps_n * 4 + 2 * amps_n * 2,
+                          tc=[tc_product(amps_n * X, False, "float32")])
         del E
         torch.cuda.empty_cache()
 
@@ -1707,7 +1770,9 @@ def main() -> int:
                   lambda *p: block_backward_high(*p, *Einv, *E, **gram_x3),
                   lambda *p: block_backward_high_plain(*p, *Einv, *E, **gram_x3),
                   torch.float32, amps29 * 2 * 256 * 8, amps29 * 256 * 24,
-                  4 * state29, g_tol=4e-5)  # G = B F^T split, not B (Einv F)
+                  4 * state29, g_tol=4e-5,  # G = B F^T split, not B (Einv F)
+                  tc=[tc_product(amps29 * 256, True, "float32", "float32"),
+                      tc_product(2 * amps29 * 256, False, "float32")])
     del E, Einv
 
     # 5. block_backward_merged_fact (Xt = 2 at 29q, Xt = 4 on the 30q merged
@@ -1876,7 +1941,12 @@ def main() -> int:
                           lambda *p, kw=modes: block_backward_high_plain(
                               *p, *Einv, *E, **kw),
                           dt, f32_fl, bf16_fl, 2 * 2 * amps_n * 4 + 2 * 2 * amps_n * 2,
-                          g_tol=4e-5)
+                          g_tol=4e-5,
+                          # the cross-Gram (bf16x3), the uncompute on F, the
+                          # transport on B
+                          tc=[tc_product(amps_n * X, True, dt, "float32"),
+                              tc_product(amps_n * X, False, "float32"),
+                              tc_product(amps_n * X, x3, dt)])
         del E, Einv
         torch.cuda.empty_cache()
 
@@ -1921,7 +1991,7 @@ def main() -> int:
 
     def check_fwd16(kernel, variant, shape, ins, fn_kernel, fn_plain, n_planes,
                     f32_flops, bf16_flops, bytes_moved, library=None, ulps=FWD16_ULPS,
-                    reuse=True, phase=None):
+                    reuse=True, phase=None, tc=None):
         """``ins``: (dtype, scale) of each input plane; outputs: ``n_planes``
         plane pairs, then reductions. bf16x3 on bf16 planes: one ulp more
         (the kernel and its plain version sum the same products in two
@@ -1970,7 +2040,8 @@ def main() -> int:
                    fwd=variant.split("_")[-1],
                    max_abs_err=f_err, store_ulps=worst_ulps, gram_rel_err=g_rel,
                    tol=HIGH_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, flops=f32_flops,
+                   bf16_flops=bf16_flops, bytes=bytes_moved, **tc_fields(tc))
         if phase:
             row["phase"] = phase
         rows.append(row)
@@ -2021,7 +2092,8 @@ def main() -> int:
         check_fwd16("high_apply", f"29q_X128_{tag}", view, [(fdt, 1.0)] * 2,
                     lambda xr, xi, d=dot, E=E: high_apply(xr, xi, *E, dot_mode=d),
                     lambda xr, xi, d=dot, E=E: high_apply_plain(xr, xi, *E, dot_mode=d),
-                    1, f, b, 2 * plane_bytes(fdt), lib(high_library(E)))
+                    1, f, b, 2 * plane_bytes(fdt), lib(high_library(E)),
+                    tc=[tc_product(amps29 * 128, dot == "bf16x3", fdt)])
         check_fwd16("high_apply", f"29q_X128_seed_{tag}", view,
                     [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
                     lambda xr, xi, ar, ai, d=dot, E=E: high_apply(
@@ -2029,7 +2101,8 @@ def main() -> int:
                     lambda xr, xi, ar, ai, d=dot, E=E: high_apply_plain(
                         xr, xi, *E, conj=True, acc=(ar, ai), dot_mode=d),
                     1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                    lib(seed_library(E)), reuse=False)
+                    lib(seed_library(E)), reuse=False,
+                    tc=[tc_product(amps29 * 128, dot == "bf16x3", fdt)])
         # 4. the merged-top seed, fresh cotangent planes (X = 256 at 29q, 512
         # at 30q)
         for nq, X in ((N29, 256), (N30, 512)):
@@ -2047,7 +2120,8 @@ def main() -> int:
                         lambda xr, xi, d=dot, E=Ew, o=bdt: high_apply_plain(
                             xr, xi, *E, conj=True, out_dtype=o, dot_mode=d),
                         1, f, b, 2 * amps_n * (2 if fdt == BF16 else 4) * 2,
-                        lib(fresh_seed_library(Ew)))
+                        lib(fresh_seed_library(Ew)),
+                        tc=[tc_product(amps_n * X, dot == "bf16x3", fdt)])
             del Ew
             torch.cuda.empty_cache()
         # 5. the Grams of the epilogue (groups 0-2, the merged top two)
@@ -2249,7 +2323,8 @@ def main() -> int:
                         lambda xr, xi, d=dot, E=E: high_apply(xr, xi, *E, dot_mode=d),
                         lambda xr, xi, d=dot, E=E: high_apply_plain(xr, xi, *E,
                                                                     dot_mode=d),
-                        1, f, b, 2 * pb(fdt), lib(high_library(E)))
+                        1, f, b, 2 * pb(fdt), lib(high_library(E)),
+                        tc=[tc_product(amps_n * X, dot == "bf16x3", fdt)])
             x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
             f_un, b_un = fwd_flops(X, dot, amps_n)
             f_x, b_x = fwd_flops(2 * X, "bf16x3", amps_n)
@@ -2259,7 +2334,11 @@ def main() -> int:
                         lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high_plain(
                             *p, *Ei, *E, **kw),
                         2, f_un + f_x, b_un + b_x, 2 * pb(fdt) + 2 * pb(bdt),
-                        lib(high_bwd_library(E, Einv)))
+                        lib(high_bwd_library(E, Einv)),
+                        # the uncompute on F, the cross-Gram, the transport on B
+                        tc=[tc_product(amps_n * X, dot == "bf16x3", fdt),
+                            tc_product(amps_n * X, True, bdt, fdt),
+                            tc_product(amps_n * X, True, bdt)])
             del E, Einv
             torch.cuda.empty_cache()
         # the multi-term applies: in place on the ring's CNOT terms (the
@@ -2441,9 +2520,35 @@ def main() -> int:
                     xr, xi, *E, conj=True, acc=(ar, ai))
             check_fwd16("high_apply", f"29q_X{X}_{form}_f16in", view, ins, fk, fp, 1,
                         fx, bx, n_io * plane_bytes(F16), reuse=form == "fresh",
-                        phase="3k")
+                        phase="3k",
+                        tc=[tc_product(amps29 * X, False, F16)] if X == 128 else None)
             del E
         torch.cuda.empty_cache()
+
+    # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
+    # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
+    # two updates) and the X = 256 / 512 cross-Gram. Each of their rows with
+    # its bound on the tensor cores (tc_bound_ms, from the mma passes its
+    # storage leaves: tc_product), which becomes its bound_ms (the CUDA-core
+    # figure kept as cuda_core_bound_ms), and its share of it; and the
+    # kernels' registers and spills from this run's build
+    tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel"))
+    if not tc_regs:
+        log("[tc] registers: no ptxas report (the libraries were built before "
+            "this process)")
+    for lib_name, kernels_of in tc_regs.items():
+        for k in kernels_of:
+            log(f"[tc] registers {lib_name}: {json.dumps(k)}")
+    for r in rows:
+        if (r["kernel"], r["shape"][1] >= 128) == ("high_apply", True) or (
+                r["kernel"], r["shape"][1] > 128) == ("block_backward_high", True):
+            require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
+                                     "tensor cores but states no tensor-core work")
+            r["cuda_core_bound_ms"] = r["bound_ms"]
+            r["bound_ms"], r["bound_by"] = tc_bound_ms(r["bytes"], *r["tc_flops"])
+            r["tc_bound_ms"] = r["bound_ms"]
+            r["tc_share"] = r["tc_bound_ms"] / r["ms"]
+            log(f"[tc] {json.dumps({k: r.get(k) for k in ('kernel', 'variant', 'storage', 'fwd', 'ms', 'library_ms', 'bound_ms', 'bound_by', 'cuda_core_bound_ms', 'tc_flops', 'tc_share')})}")
 
     # 4. the forward: 28 qubits x L28 layers, cz ring ------------------------
     log_time("[slice]")
@@ -2528,6 +2633,7 @@ def main() -> int:
     want.update({"dual_apply": L28 + 2, "high_apply": 2 * L28 + 2,
                  "gram": 4, "block_backward_dual": L28,
                  "block_backward_high": 2 * L28})
+    want["high_apply[tc]"] = want["high_apply"]  # X = 128 all: tensor cores
     with_gram_modes(want)
     require(counts == want, f"launch counts {counts}, want {want}")
     grad = params.grad.detach().clone()
@@ -2708,7 +2814,8 @@ def main() -> int:
     # for groups 3 and 4
     want29 = dict.fromkeys(fwd29, 0)
     want29.update({"dual_apply": LAYERS, "high_apply": LAYERS,
-                   "merged_fact_apply": LAYERS, "diag_sweep": 1, "gram": 4})
+                   "high_apply[tc]": LAYERS, "merged_fact_apply": LAYERS,
+                   "diag_sweep": 1, "gram": 4})
     require(fwd29 == want29, f"29q forward launch counts {fwd29}, want {want29}")
     D = torch.stack(dens29)
     require(tuple(D.shape) == (N29, 2, 2), f"densities of shape {tuple(D.shape)}")
@@ -2752,7 +2859,8 @@ def main() -> int:
     # groups 3 and 4), the run's adjoint and one backward sweep per sweep;
     # the CNOT ring's kernels not at all
     want29 = dict.fromkeys(counts29, 0)
-    want29.update({"dual_apply": LAYERS + 2, "high_apply": LAYERS + 2, "gram": 4,
+    want29.update({"dual_apply": LAYERS + 2, "high_apply": LAYERS + 2,
+                   "high_apply[tc]": LAYERS + 2, "gram": 4,
                    "block_backward_dual": LAYERS, "block_backward_high": LAYERS,
                    "merged_fact_apply": LAYERS, "block_backward_merged_fact": LAYERS,
                    "diag_sweep": 1, "diag_backward": 1})
@@ -3265,6 +3373,11 @@ def main() -> int:
     want_fwd.update(Counter(k for k, _ in fwd_step))
     want_vg = dict.fromkeys(names, 0)
     want_vg.update(Counter(k for k, _ in vg_step))
+    # the high applies at X = 128 / 256 (not the X = 8 span views) run on
+    # the tensor cores
+    for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
+        want_["high_apply[tc]"] = sum(k == "high_apply" and "_X8_" not in v
+                                      for k, v in step_)
     with_gram_modes(want_vg)
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
         f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
@@ -4454,8 +4567,12 @@ def main() -> int:
         "diag_backward[with_q]": (
             "dqc_tpu_torch/csrc/diag.cu", "dqc_tpu/ops/pallas/diag.py:154 (with_q)",
             "29q_q", "_q"),
+        "high_apply[tc]": (
+            "dqc_tpu_torch/csrc/tc_apply.cuh",
+            "dqc_tpu/ops/pallas/high_apply.py:76 (X = 128 / 256 / 512, tensor cores)",
+            "29q_X128_plain", "X128_"),
         "high_apply[wide_inplace]": (
-            "dqc_tpu_torch/csrc/wide_apply.cuh",
+            "dqc_tpu_torch/csrc/tc_apply.cuh",
             "dqc_tpu/ops/pallas/high_apply.py:76 (alias=True, X = 256 / 512)",
             "29q_X256_inplace", "_inplace"),
         "block_backward_high[wide]": (
@@ -4464,7 +4581,8 @@ def main() -> int:
             "29q_X256_wide", "_wide"),
     }
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
-                 "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29}
+                 "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
+                 "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29}}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):
@@ -4483,7 +4601,8 @@ def main() -> int:
                 "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": rep["library_ms"], "variant": variant,
-                "shape": rep["shape"], "dense_bound_ms": rep.get("dense_bound_ms")}
+                "shape": rep["shape"], "dense_bound_ms": rep.get("dense_bound_ms"),
+                "tc_bound_ms": rep.get("tc_bound_ms")}
 
     for name, (src, replaces, variant) in sources.items():
         mine = [r for r in rows if r["kernel"] == name and "storage" not in r and not (
@@ -4671,7 +4790,7 @@ def main() -> int:
          small_bf16["block_backward_high[fwd_bf16]"],
          small_x3["block_backward_high[fwd_bf16x3]"]),
         (("high_apply[wide_inplace+fwd_bf16]", "high_apply[wide_inplace+fwd_bf16x3]"),
-         "high_apply", "wide_apply.cuh", "29q_X256_inplace", wide_row("inplace"),
+         "high_apply", "tc_apply.cuh", "29q_X256_inplace", wide_row("inplace"),
          hp_bf16["high_apply[wide_inplace]"], hp_x3["high_apply[wide_inplace]"]),
         (("block_backward_high[wide+fwd_bf16]", "block_backward_high[wide+fwd_bf16x3]"),
          "block_backward_high", "block_backward_high.cu", "29q_X256_wide",

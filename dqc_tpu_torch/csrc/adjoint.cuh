@@ -61,6 +61,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace dqc {
 
@@ -317,29 +318,6 @@ __device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
     store_plane(gr_, x * rs + c * cs, vr, kind);
     store_plane(gi_, x * rs + c * cs, vi, kind);
   }
-}
-
-// Two floats (the lower index first) as the hi and lo bf16 parts of a
-// bf16x2 register each, for mma.sync.
-__device__ __forceinline__ void split_bf16x2(float2 v, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - __low2float(h),
-                                                 v.y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// d += a b, one m16n8k16 bf16 product with f32 accumulation on the tensor
-// cores (a: 4 registers of the row-major 16 x 16 A fragment, b: 2 of the
-// column-major 16 x 8 B fragment).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a b in bf16x3 on the tensor cores: ah bh + ah bl + al bh.

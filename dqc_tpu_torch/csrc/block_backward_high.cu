@@ -23,7 +23,7 @@
 // Bound: operations. Three X-wide complex products per column, 3 X complex
 // multiply-adds per amplitude (8 real flops each) against 32 bytes read and
 // written: ~96 flop per byte at X = 128, above the H100's FP32 ridge
-// (~20 flop/B). f32 FMA on the CUDA cores, no TF32.
+// (~20 flop/B). X <= 128: f32 FMA on the CUDA cores, no TF32.
 //
 // Design: adjoint.cuh on tiles of 8192 / X columns (all of one i, since
 // they divide Q), in place: 512 threads, the uncompute and the transport at
@@ -49,16 +49,20 @@
 //   G = B F^T (the planes as they come in),  T0 = G Einv^T,
 //   F <- Einv F,  B <- E^T B
 //
-// since B (Einv F)^T = (B F^T) Einv^T. G is a cross-Gram on the patch scheme
-// of the wide Gram (csrc/gram.cu at X = 256 / 512): block (patch, column
-// group) forms a 128 x 128 patch of G over its group's column tiles, in two
-// levels (registers over four tiles, then a running sum in shared memory),
-// writes it to its group's partial slot, and a second kernel adds the slots
-// in a fixed order. T0 = G Einv^T is one X x X x X product (16 x 16 tiles,
-// 0.1% of the work), and the two updates are the in-place wide apply
-// (csrc/wide_apply.cuh), E^T read by columns. The planes are read once more
-// than in one pass (48 bytes per amplitude against 32), but the work stays
-// at the bound's 3 X complex multiply-adds per amplitude. Every sum runs in
+// since B (Einv F)^T = (B F^T) Einv^T. G is a cross-Gram on the tensor
+// cores (3xTF32 with f32 grams, three bf16 products with gram_x3; B and F
+// decoded from their storage as a 16-column tile is staged, f32 through a
+// two-stage cp.async ring): block (patch, column group) forms a 128 x 128
+// patch of G over its group's column tiles, 8 warps of 32 x 64 in
+// registers (128 accumulators a thread, one block per SM), adds it to its
+// group's partial slot every 8 tiles, and a second kernel adds the slots
+// in a fixed order. A taller patch does not fit: 256 x 128 complex is the
+// SM's whole register file. So the planes are read X / 128 times each (32
+// bytes an amplitude at X = 256, 64 at X = 512). T0 = G Einv^T is one X x X
+// x X product (16 x 16 tiles, 0.1% of the work). The two updates are not
+// launched here: the wrapper runs them as the in-place tensor-core apply of
+// the high_apply library (csrc/tc_apply.cuh, dqc_tc_apply) on Einv and E^T,
+// each pre-split for its dot mode, after this entry's G. Every sum runs in
 // a fixed order.
 //
 // Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
@@ -66,8 +70,7 @@
 // bf16 or f16 (bkind, F stays f32; one load and one store per element, as
 // in the TPU kernel), the transport runs bf16x3 with bwd_x3 and the pair
 // gram with gram_x3 (adjoint.cuh). X = 256 / 512 takes the same modes: the
-// cross-Gram decodes B as it reads it and, with gram_x3, splits both
-// operands as they are read from shared memory; the transport is the wide
+// cross-Gram decodes B as it stages it; the transport is the tensor-core
 // apply in place on B in its storage, bf16x3 with bwd_x3 (one load and one
 // store of B there, as in the TPU kernel; the cross-Gram's read of B comes
 // before it).
@@ -81,156 +84,207 @@
 // per tile to a loop of each kind; half the instantiations) and build in
 // a library of their own, block_backward_high_fwd16.cu, beside the f32
 // instantiations here, which keep their code. At X = 256 / 512 the cross-Gram
-// decodes F as it reads it (FKIND) and the uncompute is the wide apply in
+// decodes F as it stages it and the uncompute is the tensor-core apply in
 // place on F in its storage, bf16x3 with dot_x3.
 #include "block_backward_high.cuh"
-#include "wide_apply.cuh"
 
 namespace {
 
 // --- X = 256 / 512 ------------------------------------------------------
 
-constexpr int kXgThreads = 512;
-constexpr int kXgChunkTiles = 4;  // tiles summed in registers before a flush
+constexpr int kXgThreads = 256;
 
+template <int MODE>
 struct XgCfg {
-  static constexpr int RX = 8;            // patch rows per thread (of B)
-  static constexpr int RY = 4;            // patch columns per thread (of F)
-  static constexpr int TC = 128 / RY;     // column threads
-  static constexpr int CB = 32;           // columns per tile
-  static constexpr int LD = 128 + 1;      // padded tile row
-  static constexpr int kTileFloats = CB * LD;
-  static constexpr int kRunFloats = 2 * RX * RY * kXgThreads;
-  static constexpr int kSmemBytes = (4 * kTileFloats + kRunFloats) * (int)sizeof(float);
-  static_assert((128 / RX) * TC == kXgThreads, "one thread per patch cell group");
-  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+  static constexpr int CB = 16;          // columns per tile (the product's k)
+  static constexpr int KS = MODE == dqc::kTf32x3 ? 8 : 16;  // k of one mma
+  static constexpr int LD = CB + (MODE == dqc::kTf32x3 ? 4 : 8);  // tile row
+  static constexpr int kArr = 128 * LD;  // one staged array: 128 rows
+  static constexpr int kStage = 4 * kArr;  // B re, im, F re, im
+  static constexpr int kSmemBytes = 2 * kStage * (int)sizeof(float);
+  static constexpr int kFlushTiles = 8;  // tiles summed in registers (128
+                                         // columns) before a flush
 };
 
-// run[(2 (i RY + j) + {0: re, 1: im}) kXgThreads + thread] += the register
-// sums, which restart at 0: this thread's running sums in shared memory.
-__device__ __forceinline__ void xg_flush(float (&Gr)[XgCfg::RX][XgCfg::RY],
-                                         float (&Gi)[XgCfg::RX][XgCfg::RY],
-                                         float* run) {
+// One operand pair (re, im) of a tile: 128 rows x CB columns from element
+// base (row 0, the tile's first column) of planes stored as kind, into
+// dst (re at dst, im at dst + kArr). f32: cp.async straight into the
+// tile; 16-bit: two 16-byte loads a thread into held, decoded and stored
+// by xg_finish once the tile before it is consumed.
+template <int MODE>
+__device__ __forceinline__ void xg_issue(float* dst, const void* pr,
+                                         const void* pi, int kind,
+                                         int64_t base, int64_t Q,
+                                         uint4 (&held)[2]) {
+  using Cfg = XgCfg<MODE>;
+  if (kind == dqc::kStoreF32) {
 #pragma unroll
-  for (int i = 0; i < XgCfg::RX; ++i)
-#pragma unroll
-    for (int j = 0; j < XgCfg::RY; ++j) {
-      float* a = run + 2 * (i * XgCfg::RY + j) * kXgThreads + threadIdx.x;
-      a[0] += Gr[i][j];
-      a[kXgThreads] += Gi[i][j];
-      Gr[i][j] = Gi[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) {  // 2 arrays x 128 rows x 4 pieces
+      const int e = threadIdx.x + kXgThreads * j;
+      const int arr = e >> 9, row = (e >> 2) & 127, piece = e & 3;
+      const float* src = static_cast<const float*>(arr ? pi : pr) + base +
+                         (int64_t)row * Q + 4 * piece;
+      dqc::cp_async16(dst + arr * Cfg::kArr + row * Cfg::LD + 4 * piece, src);
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // 2 arrays x 128 rows x 2 pieces
+      const int e = threadIdx.x + kXgThreads * j;
+      const int arr = e >> 8, row = (e >> 1) & 127, piece = e & 1;
+      held[j] = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const uint16_t*>(arr ? pi : pr) + base +
+          (int64_t)row * Q + 8 * piece));
+    }
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void xg_finish(float* dst, int kind,
+                                          const uint4 (&held)[2]) {
+  using Cfg = XgCfg<MODE>;
+  if (kind == dqc::kStoreF32) return;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int e = threadIdx.x + kXgThreads * j;
+    const int arr = e >> 8, row = (e >> 1) & 127, piece = e & 1;
+    float v[4], w[4];
+    const uint2 lo = make_uint2(held[j].x, held[j].y);
+    const uint2 hi = make_uint2(held[j].z, held[j].w);
+    dqc::load4(&lo, 0, kind, v);
+    dqc::load4(&hi, 0, kind, w);
+    float* o = dst + arr * Cfg::kArr + row * Cfg::LD + 8 * piece;
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // Block (bx NRB + by, group) adds G[x, y] = sum_q B[x, q] F[y, q] (complex,
-// no conjugation) for x in patch row bx, y in patch column by, over the
-// column tiles tile = group, group + gridDim.y, ... of the view (P, X, Q),
-// into part[group][0 / 1][x][y] (re / im): each entry has one writer. B is
-// stored as BKIND and F as FKIND (common.cuh codec), decoded as the tile is
-// read.
-template <int NRB, bool GX3, int BKIND, int FKIND = dqc::kStoreF32>
+// no conjugation) for x in patch row bx, y in patch column by (a 128 x 128
+// patch), over the column tiles tile = group, group + gridDim.y, ... of
+// the view (P, X, Q), into part[group][0 / 1][x][y] (re / im): each entry
+// has one writer. B is stored as bkind, F as fkind (common.cuh codec),
+// decoded as a tile is staged. The products run on the tensor cores, 3xTF32
+// or bf16x3 (MODE); warp w forms the 32 x 64 block at rows 32 (w / 2),
+// columns 64 (w % 2) of the patch, 2 x 8 m16n8 tiles in registers, and
+// adds it to its slot every kFlushTiles tiles (a short run in f32, then a
+// running sum).
+template <int NRB, int MODE>
 __global__ void __launch_bounds__(kXgThreads, 1)
-cross_gram_wide_kernel(const void* __restrict__ br, const void* __restrict__ bi,
-                       const void* __restrict__ fr, const void* __restrict__ fi,
-                       float* __restrict__ part, int64_t Q, int64_t ntiles) {
-  constexpr int X = NRB * 128;
-  constexpr int RX = XgCfg::RX, RY = XgCfg::RY, TC = XgCfg::TC;
-  constexpr int CB = XgCfg::CB, LD = XgCfg::LD;
-  extern __shared__ float smem[];
-  float* sbr = smem;                 // B rows of patch row bx, tile [c][x]
-  float* sbi = sbr + XgCfg::kTileFloats;
-  float* sfr = sbi + XgCfg::kTileFloats;  // F rows of patch column by
-  float* sfi = sfr + XgCfg::kTileFloats;
-  float* run = sfi + XgCfg::kTileFloats;  // running sums, one set per thread
-
+cross_gram_tc_kernel(const void* __restrict__ br, const void* __restrict__ bi,
+                     const void* __restrict__ fr, const void* __restrict__ fi,
+                     int bkind, int fkind, float* __restrict__ part, int64_t Q,
+                     int64_t ntiles) {
+  using Cfg = XgCfg<MODE>;
+  constexpr int X = NRB * 128, CB = Cfg::CB, LD = Cfg::LD;
+  extern __shared__ float4 xg_smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(xg_smem4);
   const int bx = (int)(blockIdx.x / NRB), by = (int)(blockIdx.x % NRB);
-  const int tid = threadIdx.x;
-  const int rx = (tid / TC) * RX;  // rows rx + i
-  const int cy = tid % TC;         // columns cy + TC * j
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  // the lo parts of 16-bit planes are zero (3xTF32), of bf16 planes in bf16x3
+  const bool b_exact = MODE == dqc::kTf32x3 ? bkind != dqc::kStoreF32
+                                            : bkind == dqc::kStoreBF16;
+  const bool f_exact = MODE == dqc::kTf32x3 ? fkind != dqc::kStoreF32
+                                            : fkind == dqc::kStoreBF16;
+  auto tile_base = [&](int64_t tile, int rb) {
+    const int64_t g0 = tile * CB, p = g0 / Q;
+    return p * X * Q + (g0 - p * Q) + (int64_t)rb * 128 * Q;
+  };
+  auto issue = [&](int64_t tile, float* stage, uint4 (&hb)[2], uint4 (&hf)[2]) {
+    xg_issue<MODE>(stage, br, bi, bkind, tile_base(tile, bx), Q, hb);
+    xg_issue<MODE>(stage + 2 * Cfg::kArr, fr, fi, fkind, tile_base(tile, by), Q,
+                   hf);
+    dqc::cp_async_commit();
+  };
+  auto finish = [&](float* stage, const uint4 (&hb)[2], const uint4 (&hf)[2]) {
+    xg_finish<MODE>(stage, bkind, hb);
+    xg_finish<MODE>(stage + 2 * Cfg::kArr, fkind, hf);
+  };
 
-  float Gr[RX][RY], Gi[RX][RY];
+  float accr[8][2][4], acci[8][2][4];  // [n][m][fragment entry]
 #pragma unroll
-  for (int i = 0; i < RX; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < RY; ++j) Gr[i][j] = Gi[i][j] = 0.f;
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-  for (int k = 0; k < 2 * RX * RY; ++k) run[k * kXgThreads + tid] = 0.f;
-
-  int chunk = 0;
-  for (int64_t tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
-    const int64_t g0 = tile * CB;
-    const int64_t p = g0 / Q, q0 = g0 - p * Q;
-    const int64_t base = p * X * Q + q0;
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < CB * 128; e += kXgThreads) {
-      const int x = e / CB, c = e % CB;
-      const int64_t ob = base + (int64_t)(bx * 128 + x) * Q + c;
-      const int64_t of = base + (int64_t)(by * 128 + x) * Q + c;
-      sbr[c * LD + x] = dqc::load_plane(br, ob, BKIND);
-      sbi[c * LD + x] = dqc::load_plane(bi, ob, BKIND);
-      sfr[c * LD + x] = dqc::load_plane(fr, of, FKIND);
-      sfi[c * LD + x] = dqc::load_plane(fi, of, FKIND);
-    }
-    __syncthreads();
-    for (int c = 0; c < CB; ++c) {
-      float ar[RX], ai[RX], vr[RY], vi[RY];
+      for (int e = 0; e < 4; ++e) accr[n][m][e] = acci[n][m][e] = 0.f;
+  float* out = part + (int64_t)blockIdx.y * 2 * X * X;
+  auto flush = [&](bool first) {
 #pragma unroll
-      for (int i = 0; i < RX; ++i) {
-        ar[i] = sbr[c * LD + rx + i];
-        ai[i] = sbi[c * LD + rx + i];
-      }
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int j = 0; j < RY; ++j) {
-        vr[j] = sfr[c * LD + cy + TC * j];
-        vi[j] = sfi[c * LD + cy + TC * j];
-      }
-      if constexpr (GX3) {
-        // bf16x3: B as (hi, lo), F as (hi, hi + lo)
-        float vrh[RY], vrs[RY], vih[RY], vis[RY];
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int j = 0; j < RY; ++j) {
-          dqc::split_hs(vr[j], vrh[j], vrs[j]);
-          dqc::split_hs(vi[j], vih[j], vis[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < RX; ++i) {
-          float arh, arl, aih, ail;
-          dqc::split_hl(ar[i], arh, arl);
-          dqc::split_hl(ai[i], aih, ail);
-#pragma unroll
-          for (int j = 0; j < RY; ++j)
-            dqc::cmac3(Gr[i][j], Gi[i][j], arh, arl, aih, ail, vrh[j], vrs[j],
-                       vih[j], vis[j]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < RX; ++i)
-#pragma unroll
-          for (int j = 0; j < RY; ++j) {
-            Gr[i][j] = fmaf(ar[i], vr[j], Gr[i][j]);
-            Gr[i][j] = fmaf(-ai[i], vi[j], Gr[i][j]);
-            Gi[i][j] = fmaf(ar[i], vi[j], Gi[i][j]);
-            Gi[i][j] = fmaf(ai[i], vr[j], Gi[i][j]);
+        for (int h = 0; h < 2; ++h) {
+          const int64_t x = bx * 128 + wm * 32 + 16 * m + g + 8 * h;
+          const int64_t y = by * 128 + wn * 64 + 8 * n + 2 * t;
+          float2* pr = reinterpret_cast<float2*>(out + x * X + y);
+          float2* pi = reinterpret_cast<float2*>(out + (int64_t)X * X + x * X + y);
+          float2 vr = make_float2(accr[n][m][2 * h], accr[n][m][2 * h + 1]);
+          float2 vi = make_float2(acci[n][m][2 * h], acci[n][m][2 * h + 1]);
+          if (!first) {
+            const float2 sr = *pr, si = *pi;
+            vr.x += sr.x;
+            vr.y += sr.y;
+            vi.x += si.x;
+            vi.y += si.y;
           }
+          *pr = vr;
+          *pi = vi;
+        }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accr[n][m][e] = acci[n][m][e] = 0.f;
+  };
+
+  uint4 hb[2], hf[2];
+  int64_t tile = blockIdx.y;
+  if (tile < ntiles) {
+    issue(tile, smem, hb, hf);
+    finish(smem, hb, hf);
+  }
+  int k = 0;
+  bool first = true;
+  for (; tile < ntiles; tile += gridDim.y, ++k) {
+    float* stage = smem + (k & 1) * Cfg::kStage;
+    float* next = smem + ((k + 1) & 1) * Cfg::kStage;
+    const bool more = tile + gridDim.y < ntiles;
+    if (more) {
+      issue(tile + gridDim.y, next, hb, hf);
+      dqc::cp_async_wait<1>();
+    } else {
+      dqc::cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile is staged and seen by every warp
+    const float* sbr = stage;
+    const float* sbi = stage + Cfg::kArr;
+    const float* sfr = stage + 2 * Cfg::kArr;
+    const float* sfi = stage + 3 * Cfg::kArr;
+#pragma unroll
+    for (int ks = 0; ks < CB; ks += Cfg::KS) {
+      dqc::CFrag<4> a[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        dqc::load_a<MODE>(sbr, sbi, LD, wm * 32 + 16 * m, ks, a[m]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        dqc::CFrag<2> b;
+        dqc::load_b_rows<MODE>(sfr, sfi, LD, wn * 64 + 8 * n, ks, b);
+        dqc::cmma3<MODE, 2>(accr[n], acci[n], a, b, b_exact, f_exact);
       }
     }
-    if (++chunk == kXgChunkTiles) {
-      xg_flush(Gr, Gi, run);
-      chunk = 0;
+    if (more) finish(next, hb, hf);  // its stage's last reads ended a tile ago
+    __syncthreads();  // this stage consumed before it is refilled
+    if ((k + 1) % Cfg::kFlushTiles == 0) {
+      flush(first);
+      first = false;
     }
   }
-  xg_flush(Gr, Gi, run);
-
-  float* out = part + (int64_t)blockIdx.y * 2 * X * X;
-#pragma unroll
-  for (int i = 0; i < RX; ++i)
-#pragma unroll
-    for (int j = 0; j < RY; ++j) {
-      const float* a = run + 2 * (i * RY + j) * kXgThreads + tid;
-      const int64_t e = (int64_t)(bx * 128 + rx + i) * X + by * 128 + cy + TC * j;
-      out[e] = a[0];
-      out[(int64_t)X * X + e] = a[kXgThreads];
-    }
+  if (k % Cfg::kFlushTiles != 0 || first) flush(first);
 }
 
 // T0[x, y] = sum_k G[x, k] Einv[y, k] (complex), 16 x 16 output tiles with
@@ -268,59 +322,46 @@ gram_times_inv_t_kernel(const float* __restrict__ g,
   t0[X * X + x * X + y] = acci;
 }
 
-template <int X, bool GX3, int BKIND, int FKIND = dqc::kStoreF32>
+template <int X, int MODE>
 int launch_cross_gram(const void* br, const void* bi, const void* fr,
-                      const void* fi, float* part, long long Q,
-                      long long ntiles, int nblk, cudaStream_t stream) {
+                      const void* fi, int bkind, int fkind, float* part,
+                      long long Q, long long ntiles, int nblk,
+                      cudaStream_t stream) {
   constexpr int NRB = X / 128;
-  auto kernel = cross_gram_wide_kernel<NRB, GX3, BKIND, FKIND>;
+  auto kernel = cross_gram_tc_kernel<NRB, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, XgCfg<MODE>::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(NRB * NRB, nblk), kXgThreads, XgCfg::kSmemBytes, stream>>>(
-      br, bi, fr, fi, part, (int64_t)Q, (int64_t)ntiles);
+  kernel<<<dim3(NRB * NRB, nblk), kXgThreads, XgCfg<MODE>::kSmemBytes, stream>>>(
+      br, bi, fr, fi, bkind, fkind, part, (int64_t)Q, (int64_t)ntiles);
   return (int)cudaGetLastError();
 }
 
-template <int X, bool GX3>
-int launch_wide(void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
-                int bwd_x3, int dot_x3, const Operators& ops, float* part,
+// G = B F^T and T0 = G Einv^T (Einv f32); the planes are left as they are.
+template <int X>
+int launch_wide(const void* fr, const void* fi, const void* br,
+                const void* bi, int bkind, int fkind, int gram_x3,
+                const float* einv_r, const float* einv_i, float* part,
                 float* gram, float* out, long long A1, long long Q, int nblk,
                 cudaStream_t stream) {
-  const long long ntiles = A1 * (Q / XgCfg::CB);
-  if (Q % XgCfg::CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles ||
-      bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1)
+  constexpr int CB = XgCfg<dqc::kTf32x3>::CB;
+  const long long ntiles = A1 * (Q / CB);
+  if (Q % CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles ||
+      bkind < 0 || bkind > 2 || fkind < 0 || fkind > 1 ||
+      (fkind == dqc::kStoreBF16 && bkind != dqc::kStoreBF16))
     return (int)cudaErrorInvalidValue;
   // 1. G = B F^T on the planes as they come in (bf16 F: "bf16" storage,
   //    where B is bf16 too)
-  constexpr int F32 = dqc::kStoreF32, BF16 = dqc::kStoreBF16;
-  if (fkind == BF16 && bkind != BF16) return (int)cudaErrorInvalidValue;
-  auto gram_fn = fkind == BF16   ? launch_cross_gram<X, GX3, BF16, BF16>
-                 : bkind == F32  ? launch_cross_gram<X, GX3, F32>
-                 : bkind == BF16 ? launch_cross_gram<X, GX3, BF16>
-                                 : launch_cross_gram<X, GX3, dqc::kStoreF16>;
-  int code = gram_fn(br, bi, fr, fi, part, Q, ntiles, nblk, stream);
+  auto gram_fn = gram_x3 ? launch_cross_gram<X, dqc::kBf16x3>
+                         : launch_cross_gram<X, dqc::kTf32x3>;
+  int code = gram_fn(br, bi, fr, fi, bkind, fkind, part, Q, ntiles, nblk, stream);
   if (code != 0) return code;
   code = dqc::launch_reduce(part, gram, nblk, 2 * X * X, stream);
   if (code != 0) return code;
   // 2. T0 = G Einv^T
   gram_times_inv_t_kernel<X><<<dim3(X / 16, X / 16), 256, 0, stream>>>(
-      gram, ops.inv_r, ops.inv_i, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // 3. F <- Einv F (F in its storage, the product bf16x3 with dot_x3),
-  //    B <- E^T B (B in its storage, bf16x3 with bwd_x3), in place
-  if (fkind == F32 && !dot_x3)
-    code = dqc::launch_wide_apply<X>(static_cast<const float*>(fr),
-                                     static_cast<const float*>(fi), fr, fi,
-                                     F32, ops.inv_r, ops.inv_i, 0, 0, 0, A1, Q,
-                                     stream);
-  else
-    code = dqc::launch_wide_inplace_fwd16<X>(fr, fi, fkind, dot_x3, ops.inv_r,
-                                             ops.inv_i, A1, Q, stream);
-  if (code != 0) return code;
-  return dqc::launch_wide_inplace<X>(br, bi, bkind, bwd_x3, ops.e_r, ops.e_i,
-                                     1, A1, Q, stream);
+      gram, einv_r, einv_i, out);
+  return (int)cudaGetLastError();
 }
 }  // namespace
 
@@ -377,33 +418,28 @@ extern "C" int dqc_block_backward_high(DQC_HIGH_PARAMS) {
   }
 }
 
-// In place on the view (A1, X, Q = M 128), X in {256, 512}, Q a multiple of
-// 32: (F, B) <- the adjoint step of E without a diagonal run; out = (T0 re,
-// T0 im), 2 x X x X floats. part is scratch of nblk * 2 * X * X floats
-// (every entry written) and gram of 2 * X * X; nblk is the number of column
-// groups (at most 65535 and A1 Q / 32). B is stored as bkind (0 f32, 1 bf16,
-// 2 f16), F as fkind (0 f32, 1 bf16: with bf16 B, "bf16" storage); bwd_x3
-// runs the transport bf16x3, gram_x3 the cross-Gram and dot_x3 the
-// uncompute. Returns cudaGetLastError().
+// On the view (A1, X, Q = M 128), X in {256, 512}, Q a multiple of 64, the
+// first half of the adjoint step of E without a diagonal run: out = (T0
+// re, T0 im) = (B F^T) Einv^T, 2 x X x X floats, from the planes as they
+// come in (the caller then updates them: F <- Einv F, B <- E^T B). einv_r /
+// einv_i are Einv (f32). part is scratch of nblk * 2 * X * X floats (every
+// entry written) and gram of 2 * X * X; nblk is the number of column groups
+// (at most 65535 and A1 Q / 16). B is stored as bkind (0 f32, 1 bf16, 2
+// f16), F as fkind (0 f32, 1 bf16: with bf16 B, "bf16" storage); gram_x3
+// runs the cross-Gram bf16x3, else 3xTF32. Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high_wide(
-    void* fr, void* fi, void* br, void* bi, int bkind, int fkind,
-    const float* einv_r, const float* einv_i, const float* e_r,
-    const float* e_i, float* part, float* gram, float* out, long long A1,
-    int X, long long Q, int nblk, int bwd_x3, int gram_x3, int dot_x3,
-    void* stream) {
-  const Operators ops{einv_r, einv_i, e_r, e_i};
+    const void* fr, const void* fi, const void* br, const void* bi, int bkind,
+    int fkind, const float* einv_r, const float* einv_i, float* part,
+    float* gram, float* out, long long A1, int X, long long Q, int nblk,
+    int gram_x3, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define DQC_WIDE(XX, G)                                                       \
-  return launch_wide<XX, G>(fr, fi, br, bi, bkind, fkind, bwd_x3, dot_x3, ops, \
-                            part, gram, out, A1, Q, nblk, s)
   switch (X) {
     case 256:
-      if (gram_x3) DQC_WIDE(256, true);
-      DQC_WIDE(256, false);
+      return launch_wide<256>(fr, fi, br, bi, bkind, fkind, gram_x3, einv_r,
+                              einv_i, part, gram, out, A1, Q, nblk, s);
     case 512:
-      if (gram_x3) DQC_WIDE(512, true);
-      DQC_WIDE(512, false);
+      return launch_wide<512>(fr, fi, br, bi, bkind, fkind, gram_x3, einv_r,
+                              einv_i, part, gram, out, A1, Q, nblk, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef DQC_WIDE
 }

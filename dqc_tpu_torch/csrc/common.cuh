@@ -1,6 +1,7 @@
 // Shared device helpers of the dqc_tpu_torch kernels (complex arithmetic on
 // real/imag float pairs, the factored diagonal run of ops/planes.py, the
-// cotangent planes' storage codec and the bf16x3 operand split).
+// cotangent planes' storage codec, the bf16x3 operand split and cp.async
+// copies).
 #pragma once
 
 #include <cstdint>
@@ -39,6 +40,17 @@ __device__ __forceinline__ void diag_at(const DiagTables& d, int64_t a, int s,
   cmul(__ldg(d.as_r + as), __ldg(d.as_i + as), __ldg(d.al_r + al),
        __ldg(d.al_i + al), mr, mi);
   cmul(mr, mi, __ldg(d.sl_r + sl), __ldg(d.sl_i + sl), dr, di);
+}
+
+// The run's D at element (i, x, q) of the high view (A1, X, Q = M 128):
+// q = (p 128 + s) 128 + l, the tables' row a = (i X + x) post + p.
+__device__ __forceinline__ void view_diag(const DiagTables& d, int64_t i,
+                                          int X, int x, int64_t q,
+                                          int64_t post, float& dr, float& di) {
+  const int l = (int)(q & 127);
+  const int s = (int)((q >> 7) & 127);
+  const int64_t p = q >> 14;
+  diag_at(d, (i * X + x) * post + p, s, l, dr, di);
 }
 
 // --- Storage of the cotangent planes -------------------------------------
@@ -181,6 +193,20 @@ __device__ __forceinline__ void cmac3(float& accr, float& acci, float arh,
   acci = fmaf(arl, bih, acci);
   acci = fmaf(aih, brs, acci);
   acci = fmaf(ail, brh, acci);
+}
+
+// --- cp.async: 16-byte copies from global to shared memory -------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // out[e] = sum over slots s of part[s n2 + e], e < n2, in slot order: each

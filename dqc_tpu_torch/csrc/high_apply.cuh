@@ -1,8 +1,9 @@
-// The high-group apply kernel (X <= 128) and its launches, shared by
-// high_apply.cu (every X, and the bf16 / bf16x3 variants at X = 128) and
-// high_apply_fwd16.cu (the bf16 / bf16x3 variants at X = 8..64, a library
-// of its own so that the two build in parallel). high_apply.cu's header
-// comment describes the kernel.
+// The high-group apply kernel on the CUDA cores (X = 8..64) and its
+// launches, shared by high_apply.cu (f32 planes, f32 products) and
+// high_apply_fwd16.cu (the bf16 / f16 / bf16x3 variants, a library of its
+// own so that the two build in parallel); X >= 128 runs on the tensor
+// cores (tc_apply.cuh). high_apply.cu's header comment describes the
+// kernel.
 #pragma once
 
 #include "common.cuh"
@@ -11,7 +12,7 @@ namespace {
 
 using dqc::DiagTables;
 using dqc::cmul;
-using dqc::diag_at;
+using dqc::view_diag;
 
 constexpr int kThreads = 256;
 
@@ -33,16 +34,6 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
   accr = fmaf(-ai, bi, accr);
   acci = fmaf(ar, bi, acci);
   acci = fmaf(ai, br, acci);
-}
-
-// (i, x, q) -> the run's D; q = (p 128 + s) 128 + l.
-__device__ __forceinline__ void view_diag(const DiagTables& d, int64_t i,
-                                          int X, int x, int64_t q,
-                                          int64_t post, float& dr, float& di) {
-  const int l = (int)(q & 127);
-  const int s = (int)((q >> 7) & 127);
-  const int64_t p = q >> 14;
-  diag_at(d, (i * X + x) * post + p, s, l, dr, di);
 }
 
 template <int X, int XKIND, int YKIND, bool X3>
@@ -205,7 +196,7 @@ int launch(const void* xr, const void* xi, void* yr, void* yi, int ykind,
 }
 
 // bf16 x (into bf16 y), f16 x (into f16 y: the per-term fallback's sweeps
-// on an "f16" cotangent) or bf16x3 products at X <= 128: the variants of
+// on an "f16" cotangent) or bf16x3 products at X <= 64: the variants of
 // the forward storage and dot mode, and of f16 input
 template <int X>
 int launch_fwd16(const void* xr, const void* xi, void* yr, void* yi, int xkind,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +43,40 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}   # ptxas report per library of this process
 build_seconds: Dict[str, float] = {}   # nvcc wall time per library built
+
+
+def kernel_resources(substrings) -> Dict[str, list]:
+    """From this process's build (``build_log``, nvcc's ``-Xptxas -v``
+    report): each kernel whose mangled name holds one of ``substrings``, by
+    library, as ``{"kernel", "registers", "spill_stores", "spill_loads"}``
+    (bytes) with the kernel's name and template arguments shortened to
+    ``name<a,b>``."""
+    out: Dict[str, list] = {}
+    for lib, text in build_log.items():
+        entry, found = None, []
+        for line in text.splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                hit = next((k for k in substrings if k in name), None)
+                entry = None
+                if hit:
+                    args = re.search(re.escape(hit) + r"I((?:Li-?\d+E)+)E", name)
+                    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+                    entry = {"kernel": f"{hit}<{','.join(targs)}>"}
+                    found.append(entry)
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+        if found:
+            out[lib] = found
+    return out
 
 
 def nvcc_path() -> str:

@@ -24,8 +24,12 @@ kernel, built as a library of its own); :func:`block_backward_high_plain` is
 its plain PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
 of a tiny top group without a run (a lone top-group block as ``E (x) I``,
 the unfactorized hpair's merged operator), where the kernel forms the pair
-gram as ``(B F^T) Einv^T`` before the two in-place applies (counted also in
-``mode_launches["wide"]``).
+gram as ``(B F^T) Einv^T`` on the tensor cores (3xTF32, or three bf16
+products in bf16x3), then updates the planes with two in-place launches of
+the tensor-core apply of the ``high_apply`` library (``csrc/tc_apply.cuh``,
+:func:`high_apply.launch_tc`) on ``Einv`` and ``E^T``, pre-split here
+(``_tc.tc_operator``); the adjoint is counted once, also in
+``mode_launches["wide"]``.
 
 At X <= 128 the cotangent planes ``B`` may be stored as float32, bfloat16
 or float16 and the transport and the pair gram run in ``bwd_mode`` /
@@ -57,10 +61,12 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
                                                 store_b)
 from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
-from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X, WIDE_X, view_diag_run
+from dqc_tpu_torch.ops.kernels.high_apply import (KERNEL_X, WIDE_X, launch_tc,
+                                                  view_diag_run)
 
 
 def block_backward_high_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
@@ -204,20 +210,23 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     return (fr, fi, br, bi, out[0], out[1], qsl[0], qsl[1], *rows)
 
 
-_WIDE_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 7
-                  + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 4
+_WIDE_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 5
+                  + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 2
                   + [_launch.VOIDP])
-_BLOCKS_PER_SM = 4
+_BLOCKS_PER_SM = 4   # cross-Gram blocks per SM in all (one resident at a time)
+_WIDE_TILE = 16      # columns of one cross-Gram tile
 
 
 def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
                          gram_mode: str, dot_mode: str):
     """X = 256 / 512: each block of the cross-Gram forms one of the
-    (X / 128)^2 patches of ``B F^T`` over its group of 32-column tiles."""
+    (X / 128)^2 patches of ``B F^T`` over its group of 16-column tiles; the
+    library adds them and forms T0, then the two in-place tensor-core
+    applies update F and B."""
     dev = planes[0].device
     fdt, bdt = planes[0].dtype, planes[2].dtype
     patches = (X // 128) ** 2
-    nblk = min(A1 * M * 128 // 32, 65535,
+    nblk = min(A1 * M * 128 // _WIDE_TILE, 65535,
                max(1, _BLOCKS_PER_SM * _launch.sm_count(dev) // patches))
     part = torch.empty((nblk, 2, X, X), dtype=torch.float32, device=dev)
     gram = torch.empty((2, X, X), dtype=torch.float32, device=dev)
@@ -225,11 +234,18 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
     lib = "block_backward_high"
     fn = _launch.entry(lib, "dqc_block_backward_high_wide", _WIDE_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), _st.storage_kind(bdt),
-              _st.storage_kind(fdt), *(o.data_ptr() for o in ops),
+              _st.storage_kind(fdt), ops[0].data_ptr(), ops[1].data_ptr(),
               part.data_ptr(), gram.data_ptr(), out.data_ptr(), A1, X, M * 128,
-              nblk, int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
-              int(dot_mode == "bf16x3"), _launch.stream(dev))
+              nblk, int(gram_mode == "bf16x3"), _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
+    # F <- Einv F (F in its storage, dot_mode), B <- E^T B (B in its
+    # storage, bwd_mode), in place, each operator pre-split for its mode;
+    # after the cross-Gram on the same stream, which read them as they came
+    fr, fi, br, bi = planes
+    launch_tc(fr, fi, fr, fi, _tc.tc_operator(ops[0], ops[1], dot_mode), dot_mode)
+    launch_tc(br, bi, br, bi, _tc.tc_operator(ops[2].t().contiguous(),
+                                              ops[3].t().contiguous(), bwd_mode),
+              bwd_mode)
     block_backward_high.launches += 1
     block_backward_high.mode_launches["wide"] += 1
     count_modes(block_backward_high, bdt, bwd_mode, gram_mode)

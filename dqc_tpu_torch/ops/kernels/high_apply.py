@@ -11,11 +11,14 @@ element ``(i, x, m = p 128 + s, l)``. X is 8..128, or 256 / 512 on the
 merged top axis of a tiny top group (ops/planes._merged_view), there
 without a run, in place (a lone top-group block as ``E (x) I``, the
 unfactorized hpair's merged operator) or in the seed modes (the merged-top
-density seed). The Hopper kernel is ``csrc/high_apply.cu`` (its bf16 and
-bf16x3 variants at X = 8..64 built as a library of their own,
-``csrc/high_apply_fwd16.cu``), and ``csrc/wide_apply.cuh`` at X = 256 / 512 (bound by operations: X complex
-multiply-adds per amplitude against 16 bytes, 24 in the seed modes);
-:func:`high_apply_plain` is its plain PyTorch version.
+density seed). The Hopper kernel is ``csrc/high_apply.cu``: at X = 128,
+256 and 512 the tensor-core apply ``csrc/tc_apply.cuh`` (3xTF32 in the
+"f32" dot mode, three bf16 products in bf16x3; every storage and mode),
+counted also in ``mode_launches["tc"]``; at X = 8..64 its own CUDA-core
+kernel on f32 planes, the bf16 / f16 / bf16x3 variants there built as a
+library of their own, ``csrc/high_apply_fwd16.cu`` (bound by operations: X
+complex multiply-adds per amplitude against 16 bytes, 24 in the seed
+modes); :func:`high_apply_plain` is its plain PyTorch version.
 
 :func:`high_apply` returns its output planes like ``dual_apply``: the
 input planes (in place), the accumulator, or fresh planes on a CUDA
@@ -38,10 +41,24 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 KERNEL_X = (8, 16, 32, 64, 128)
 WIDE_X = (256, 512)   # the merged top axis: every mode but a diagonal run
+TC_X = (128, 256, 512)   # the tensor-core apply (csrc/tc_apply.cuh)
+
+
+def kernel_route(X: int, dtype, dot_mode: str) -> str:
+    """Which kernel a launch at X on input planes of ``dtype`` in
+    ``dot_mode`` reaches: "tc" (the tensor-core apply in the "high_apply"
+    library) at X >= 128, every storage and mode; below, "high_apply_fwd16"
+    for 16-bit planes or bf16x3, else "high_apply" (the CUDA-core kernel)."""
+    if X in TC_X:
+        return "tc"
+    if dtype != torch.float32 or dot_mode == "bf16x3":
+        return "high_apply_fwd16"
+    return "high_apply"
 
 
 def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
@@ -78,6 +95,28 @@ def high_apply_plain(xr, xi, e_r, e_i,
 
 _ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 8 + [
     _launch.INT] * 5 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
+_TC_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 7 + [
+    _launch.INT] * 5 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
+
+
+def launch_tc(xr, xi, yr, yi, op: torch.Tensor, dot_mode: str,
+              diag_tables: Optional[Sequence[torch.Tensor]] = None,
+              diag_first: bool = True, conj: bool = False,
+              has_acc: bool = False) -> None:
+    """One launch of the tensor-core apply (``dqc_tc_apply``) on the view
+    ``(A1, X, ...)`` of ``xr``, X in ``TC_X``: ``y <- [y +] conj?([D] E x
+    [D])``, ``op`` being E pre-split for ``dot_mode``
+    (``_tc.tc_operator``). Checks nothing and counts nothing: the callers
+    are :func:`high_apply` and the X = 256 / 512 adjoint's two in-place
+    updates, each counted by its own wrapper."""
+    A1, X = xr.shape[0], xr.shape[1]
+    code = _launch.entry("high_apply", "dqc_tc_apply", _TC_ARGTYPES)(
+        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+        _st.storage_kind(xr.dtype), _st.storage_kind(yr.dtype), op.data_ptr(),
+        *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
+        int(diag_first), int(conj), int(has_acc), int(dot_mode == "bf16x3"),
+        A1, X, xr[0, 0].numel(), _launch.stream(xr.device))
+    _launch.raise_on_error(code, "high_apply", "high_apply launch")
 
 
 def high_apply(xr, xi, e_r, e_i,
@@ -92,7 +131,8 @@ def high_apply(xr, xi, e_r, e_i,
     None. A run needs M % 128 == 0. ``acc`` planes have the view's shape.
     ``out_dtype``: the storage of fresh output planes (``alias=False``);
     ``dot_mode``: the product's dot mode. The in-place sweep at X = 256 /
-    512 is also counted in ``mode_launches["wide_inplace"]``."""
+    512 is also counted in ``mode_launches["wide_inplace"]``, every launch
+    of the tensor-core apply (X >= 128) in ``mode_launches["tc"]``."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -121,17 +161,25 @@ def high_apply(xr, xi, e_r, e_i,
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
         raise ValueError(f"high_apply: operator must be ({X}, {X})")
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
-    fn = (_launch.entry("high_apply_fwd16", "dqc_high_apply_fwd16", _ARGTYPES)
-          if X < 128 and (xr.dtype != torch.float32 or dot_mode == "bf16x3")
-          else _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES))
-    code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-              _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
-              e_r.data_ptr(), e_i.data_ptr(), *_launch.table_ptrs(diag_tables),
-              int(diag_tables is not None), int(diag_first), int(conj),
-              int(acc is not None), int(dot_mode == "bf16x3"), A1, X, M * 128,
-              _launch.stream(xr.device))
-    _launch.raise_on_error(code, "high_apply", "high_apply launch")
+    route = kernel_route(X, xr.dtype, dot_mode)
+    if route == "tc":
+        launch_tc(xr, xi, *out, _tc.tc_operator(e_r, e_i, dot_mode), dot_mode,
+                  diag_tables, diag_first, conj, acc is not None)
+    else:
+        fn = (_launch.entry("high_apply_fwd16", "dqc_high_apply_fwd16", _ARGTYPES)
+              if route == "high_apply_fwd16"
+              else _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES))
+        code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
+                  out[1].data_ptr(), _st.storage_kind(xr.dtype),
+                  _st.storage_kind(out[0].dtype), e_r.data_ptr(), e_i.data_ptr(),
+                  *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
+                  int(diag_first), int(conj), int(acc is not None),
+                  int(dot_mode == "bf16x3"), A1, X, M * 128,
+                  _launch.stream(xr.device))
+        _launch.raise_on_error(code, "high_apply", "high_apply launch")
     high_apply.launches += 1
+    if route == "tc":
+        high_apply.mode_launches["tc"] += 1
     if X in WIDE_X and out[0] is xr:
         high_apply.mode_launches["wide_inplace"] += 1
     if seed:
@@ -143,5 +191,5 @@ def high_apply(xr, xi, e_r, e_i,
 
 
 high_apply.launches = 0
-high_apply.mode_launches = {"in_f16": 0, "wide_inplace": 0, "bf16": 0, "f16": 0,
-                            "fwd_bf16": 0, "fwd_bf16x3": 0}
+high_apply.mode_launches = {"in_f16": 0, "wide_inplace": 0, "tc": 0, "bf16": 0,
+                            "f16": 0, "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -10,9 +10,9 @@ Schmidt term (``plane_scan._apply_dense_cross``): its forward as seeds
 from the forward planes into fresh ones, its uncompute on bf16 F and its
 transport on bf16 B through the dual and high applies, each term stored
 in the input's storage; a variable gate on qubit 10 and one on 15 around
-it and a density with gradient on qubit 9 (tests/test_torch_fwd16_tape.py
-runs the per-term fallback under "f16" on a tape whose densities the
-gates move, with a lane-group block). Densities and the
+it and a density with gradient on qubit 7, which the dense gate moves
+(tests/test_torch_fwd16_tape.py runs the per-term fallback under "f16"
+on a tape with a lane-group block). Densities and the
 tsallis loss's gradient of both packages in three settings ("bf16", f32 +
 bf16x3, both) against their own f32 runs and each other; bars as
 tests/test_torch_fwd16_rings.py's (its docstring states them), the port
@@ -44,11 +44,13 @@ torch.set_num_threads(2)
 
 N = 17
 # the port against the JAX package, (densities abs, gradient of max |g|):
-# 1.25 x the measured (densities 5.96e-8, 9.54e-7, 5.96e-8; gradients
-# 5.09e-6, 1.39e-5, 4.27e-6), where each package moves 8.7e-3 ("bf16") and
-# 7.1e-6 (f32 + bf16x3) from its own f32 run
-VS_JAX = {("bf16", "f32"): (7.5e-8, 6.4e-6), ("f32", "bf16x3"): (1.2e-6, 1.74e-5),
-          ("bf16", "bf16x3"): (7.5e-8, 5.4e-6)}
+# 1.25 x the measured (densities 0, 1.583e-6, 0; gradients 5.047e-6,
+# 1.447e-5, 4.175e-6, of max |g| = 2.08; at f32 the two packages differ by
+# 1.25e-6 and 8.65e-6), the densities no tighter than 7.5e-8 (an f32 ulp of
+# an O(1) entry), where each package moves 1.35e-2 ("bf16") and up to
+# 1.7e-5 (f32 + bf16x3) from its own f32 run
+VS_JAX = {("bf16", "f32"): (7.5e-8, 6.31e-6), ("f32", "bf16x3"): (1.98e-6, 1.81e-5),
+          ("bf16", "bf16x3"): (7.5e-8, 5.22e-6)}
 MEASURED = {}
 
 
@@ -66,7 +68,7 @@ def _jax_circuit():
     jc.add_q1_var_gate(10)
     jc.add_q2_var_gate(16, 7)
     jc.add_q1_var_gate(15)
-    jc.get_q1_dens_op_with_grad(9)
+    jc.get_q1_dens_op_with_grad(7)
     return jc
 
 
