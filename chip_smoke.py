@@ -167,8 +167,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    counts held to the meta-device dry run;
 16. the tensor-core routes (3l, after phase 3): the high apply at X =
    128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
-   high_apply[tc]) and the X = 256 / 512 adjoint (its cross-Gram and its
-   two updates on the tensor cores): each of their phase-3 rows again with
+   high_apply[tc]), the X = 256 / 512 adjoint (its cross-Gram and its
+   two updates on the tensor cores) and the dual and lane adjoints (their
+   one-pass step, csrc/tc_adjoint.cuh, every storage and mode, counted as
+   block_backward_dual[tc] / block_backward_lane[tc]; the lane adjoint
+   built in the dual adjoint's library): each of their phase-3 rows again with
    its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
    runs, three per real product, one fewer for each planes operand whose
    lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
@@ -364,6 +367,9 @@ STORAGE_L = 4           # [storage29]
 BWD_KERNELS = ("block_backward_dual", "block_backward_high",
                "block_backward_merged_fact", "block_backward_lane",
                "block_backward_sublane")
+# the adjoints whose one-pass step runs on the tensor cores
+# (csrc/tc_adjoint.cuh), every launch counted as "tc"
+TC_ADJOINTS = ("block_backward_dual", "block_backward_lane")
 
 
 def random_graph(n, extra_edges, seed):
@@ -432,6 +438,24 @@ def tc_product(cmacs: float, x3: bool, *planes) -> tuple:
     return (0.0, fl) if x3 else (fl, 0.0)
 
 
+def adjoint_tc(cmacs: float, fdt="float32", bdt="float32", dot="f32",
+               bwd="f32", gram="f32") -> list:
+    """The tensor-core work of a dual or lane adjoint launch
+    (csrc/tc_adjoint.cuh), ``cmacs`` complex multiply-adds per product kind
+    (the dual's two steps: 256 per amplitude, the lane's: 128): the
+    uncomputes on F (stored ``fdt``) in ``dot``, the transports on B
+    (``bdt``) in ``bwd``, the pair grams of B and the f32 uncompute in
+    ``gram``. In 3xTF32 an operator meets 16-bit planes in three parts, so
+    those products keep their three passes. A run folded into the step
+    rounds its planes back to their storage (the TPU kernel's staging), so
+    they count at their storage."""
+    def product(mode, dt):
+        x3 = mode == "bf16x3"
+        return tc_product(cmacs, x3, dt if x3 else "float32")
+    return [product(dot, fdt), product(bwd, bdt),
+            tc_product(cmacs, gram == "bf16x3", bdt, "float32")]
+
+
 def tc_fields(tc) -> dict:
     """A row's tensor-core work: ``tc``, the tc_product of each of its
     products, summed as tc_flops = [tf32 flops, bf16 flops]; {} for a row
@@ -474,8 +498,10 @@ def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
     import torch
+    # the dual and lane adjoints run their one-pass step on the tensor cores
+    # in every storage and mode
     if name == "block_backward_dual":
-        return (("diag_q",) if a.get("diag_q") else ()) + storage_modes(
+        return (("diag_q", "tc") if a.get("diag_q") else ("tc",)) + storage_modes(
             a["br"].dtype) + dot_modes(a) + fwd_modes(a["fr"].dtype, a)
     if name == "block_backward_high":
         return ((("diag_q",) if a.get("diag_q") else ()) + (
@@ -485,7 +511,10 @@ def call_modes(name: str, a) -> tuple:
     if name == "block_backward_merged_fact":
         return (storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
-    if name in ("block_backward_lane", "block_backward_sublane"):
+    if name == "block_backward_lane":
+        return (("tc",) + storage_modes(a["br"].dtype) + dot_modes(a)
+                + fwd_modes(a["fr"].dtype, a))
+    if name == "block_backward_sublane":
         return (storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
     if name in ("dual_apply", "high_apply"):
@@ -602,11 +631,15 @@ def program_launches(build, loss: str):
 def with_gram_modes(want: dict) -> dict:
     """Launch counts of a run under the default dot modes: every launch of
     an adjoint kernel with a pair gram counts in its "gram_bf16x3" mode when
-    config.gram_kernel_dot_mode() is "bf16x3" (the default)."""
+    config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
+    launch of the dual and lane adjoints in its "tc" mode (their one-pass
+    step runs on the tensor cores in every mode)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
+    for k in TC_ADJOINTS:
+        want[f"{k}[tc]"] = want.get(k, 0)
     return want
 
 
@@ -1095,7 +1128,7 @@ def main() -> int:
                    dual_bwd(block_backward_dual, **kw),
                    dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
                    flops=amps * 768 * 8, bytes_moved=4 * state_bytes + extra,
-                   library=dual_bwd_library(**kw))
+                   library=dual_bwd_library(**kw), tc=adjoint_tc(amps * 256))
 
     # block_backward_high: the same step on X of (A1, X, M, 128); 3 X
     # complex MACs per amplitude
@@ -1168,7 +1201,8 @@ def main() -> int:
                4, 4, dual_bwd(block_backward_dual, **kw),
                dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
                flops=amps29 * 768 * 8,
-               bytes_moved=4 * state29 + 2 * table_bytes(A29))
+               bytes_moved=4 * state29 + 2 * table_bytes(A29),
+               library=dual_bwd_library(**kw), tc=adjoint_tc(amps29 * 256))
     E, Einv = unitary(128), unitary(128)
     check_many("block_backward_high", "29q_X128_plain",
                (g2_29[0], 128, g2_29[2], 128), 4, 4,
@@ -1374,7 +1408,7 @@ def main() -> int:
                dual_bwd(block_backward_dual, g0_first=True),
                dual_bwd(block_backward_dual_plain, g0_first=True), DUAL_TOL,
                flops=amps29 * 768 * 8, bytes_moved=4 * state29,
-               library=dual_bwd_library())
+               library=dual_bwd_library(), tc=adjoint_tc(amps29 * 256))
 
     # 3d. the VQE / QAOA kernel modes -----------------------------------------
     # block_backward_dual with the Q reductions of a random run (both run
@@ -1419,7 +1453,8 @@ def main() -> int:
                        dual_bwd(block_backward_dual_plain, **kw), DUAL_TOL,
                        flops=amps_n * (768 * 8 + 12),
                        bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
-                       library=dual_bwd_library(**kw), rel_each=True)
+                       library=dual_bwd_library(**kw), rel_each=True,
+                       tc=adjoint_tc(amps_n * 256))
         M = hermitian4()
         kind, *ops = pl.cross_terms_operands(
             ps._dense_cross_expanded_terms(M.conj(), (6, 7), nq), nq, dev)
@@ -1529,7 +1564,7 @@ def main() -> int:
                    lambda *p, E=E, Einv=Einv: block_backward_lane_plain(
                        *p, *Einv, *E), DUAL_TOL,
                    flops=amps_n * 384 * 8, bytes_moved=4 * st,
-                   library=lane_library(E, Einv))
+                   library=lane_library(E, Einv), tc=adjoint_tc(amps_n * 128))
         for j in (2, 3):
             pre, X, M = pl._high_view(nq, j)
             E, Einv = unitary(X), unitary(X)
@@ -1739,7 +1774,10 @@ def main() -> int:
                       lambda *p, kw=kw: block_backward_dual_plain(*p, *ops29, **kw),
                       dt, f_un + f_tr + f_gr, b_tr + b_gr,
                       state29 * 2 + b_bytes(dt) * 2 + 2 * table_bytes(A29),
-                      ulps=STORE_ULPS + 1)
+                      ulps=STORE_ULPS + 1,
+                      tc=adjoint_tc(amps29 * 256, "float32", dt,
+                                    bwd=kw.get("bwd_mode", "f32"),
+                                    gram=kw.get("gram_mode", "f32")))
     del ops29
 
     # 4. block_backward_high on the 29q group-2 view, and with a run's Q
@@ -1823,7 +1861,8 @@ def main() -> int:
                       lambda *p, fn=fn: fn(*p, *Einv, *E, **gram_x3),
                       lambda *p, fn=fn_plain: fn(*p, *Einv, *E, **gram_x3),
                       torch.float32, amps29 * 2 * 128 * 8, amps29 * 128 * 24,
-                      4 * state29)
+                      4 * state29, tc=adjoint_tc(amps29 * 128, gram="bf16x3")
+                      if name == "block_backward_lane" else None)
     torch.cuda.empty_cache()
 
     # 3h. reduced cotangent storage on the other plane paths ----------------
@@ -1919,7 +1958,11 @@ def main() -> int:
                           lambda *p, fn=fn, kw=modes: fn(*p, *Einv, *E, **kw),
                           lambda *p, fn=fn_plain, kw=modes: fn(*p, *Einv, *E, **kw),
                           dt, f_un + f_tr + f_gr, b_tr + b_gr,
-                          state29 * 2 + b_bytes(dt) * 2)
+                          state29 * 2 + b_bytes(dt) * 2,
+                          tc=adjoint_tc(amps29 * 128, "float32", dt,
+                                        bwd=modes["bwd_mode"],
+                                        gram=modes["gram_mode"])
+                          if name == "block_backward_lane" else None)
     # the X = 256 (29q) / 512 (30q) adjoint on the merged top axis: the
     # cross-Gram reads B stored reduced, the transport is the wide apply in
     # place on it; the pair gram as G = B F^T is held at 4e-5 (3g)
@@ -2179,7 +2222,8 @@ def main() -> int:
                     lambda *p, kw=kw, o=ops29: block_backward_dual_plain(*p, *o, **kw),
                     2, f_un + f_x, b_un + b_x,
                     2 * plane_bytes(fdt) + 2 * plane_bytes(bdt) + 2 * table_bytes(A29),
-                    lib(dual_bwd_library(**kw)), ulps=FWD16_ULPS + 1)
+                    lib(dual_bwd_library(**kw)), ulps=FWD16_ULPS + 1,
+                    tc=adjoint_tc(amps29 * 256, fdt, bdt, dot, "bf16x3", "bf16x3"))
         del ops29
         E, Einv = unitary(128), unitary(128)
         f_un, b_un = cmac_flops(128, dot == "bf16x3")
@@ -2433,7 +2477,8 @@ def main() -> int:
                     lambda *p, kw=x3: block_backward_lane(*p, *Einv, *E, **kw),
                     lambda *p, kw=x3: block_backward_lane_plain(*p, *Einv, *E, **kw),
                     2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                    lib(lane_library(E, Einv)), phase="3k")
+                    lib(lane_library(E, Einv)), phase="3k",
+                    tc=adjoint_tc(amps29 * 128, fdt, bdt, dot, "bf16x3", "bf16x3"))
         del E, Einv
         if tag == "bf16x3":
             continue
@@ -2453,7 +2498,8 @@ def main() -> int:
                         2, f_un + f_x + f_q, b_un + b_x,
                         2 * plane_bytes(fdt) + 2 * plane_bytes(bdt)
                         + 2 * table_bytes(A29) + q_bytes,
-                        lib(dual_bwd_library(**kw)), ulps=STORE_ULPS + 1, phase="3k")
+                        lib(dual_bwd_library(**kw)), ulps=STORE_ULPS + 1, phase="3k",
+                        tc=adjoint_tc(amps29 * 256, fdt, bdt, dot, "bf16x3", "bf16x3"))
             del kw
             torch.cuda.empty_cache()
         # the high adjoint with a run's Q: X = 8, 64 and 128, both orders
@@ -2527,12 +2573,17 @@ def main() -> int:
 
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
-    # two updates) and the X = 256 / 512 cross-Gram. Each of their rows with
-    # its bound on the tensor cores (tc_bound_ms, from the mma passes its
-    # storage leaves: tc_product), which becomes its bound_ms (the CUDA-core
-    # figure kept as cuda_core_bound_ms), and its share of it; and the
-    # kernels' registers and spills from this run's build
-    tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel"))
+    # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
+    # (the dual and lane adjoints' one-pass step, every row of theirs). Each
+    # of their rows with its bound on the tensor cores (tc_bound_ms, from the
+    # mma passes its storage leaves: tc_product), which becomes its bound_ms
+    # (the CUDA-core figure kept as cuda_core_bound_ms), and its share of it;
+    # and the kernels' registers and spills from this run's build (with the
+    # not-inlined functions of the adjoints' step)
+    tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
+                                       "block_backward_dual_kernel", "tc_op_tile",
+                                       "pair_gram_tf32_mma128", "pair_gram_x3_tc",
+                                       "tc_load_tiles", "tc_store_tile"))
     if not tc_regs:
         log("[tc] registers: no ptxas report (the libraries were built before "
             "this process)")
@@ -2541,7 +2592,8 @@ def main() -> int:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
         if (r["kernel"], r["shape"][1] >= 128) == ("high_apply", True) or (
-                r["kernel"], r["shape"][1] > 128) == ("block_backward_high", True):
+                r["kernel"], r["shape"][1] > 128) == ("block_backward_high", True) or (
+                r["kernel"] in TC_ADJOINTS):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -4539,7 +4591,8 @@ def main() -> int:
         "block_backward_sublane": ("dqc_tpu_torch/csrc/block_backward_sublane.cu",
                                    "dqc_tpu/ops/pallas/block_backward.py:184",
                                    "29q"),
-        "block_backward_lane": ("dqc_tpu_torch/csrc/block_backward_lane.cu",
+        # the lane adjoint is the dual kernel's lane step, built in its library
+        "block_backward_lane": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
                                 "dqc_tpu/ops/pallas/block_backward.py:88", "29q"),
     }
     cnot_kernels = ("dual_multi_apply", "high_multi_apply", "block_backward_sublane")
@@ -4579,10 +4632,20 @@ def main() -> int:
             "dqc_tpu_torch/csrc/block_backward_high.cu",
             "dqc_tpu/ops/pallas/block_backward.py:906 (X = 256 / 512)",
             "29q_X256_wide", "_wide"),
+        "block_backward_dual[tc]": (
+            "dqc_tpu_torch/csrc/tc_adjoint.cuh",
+            "dqc_tpu/ops/pallas/block_backward.py:437 (the one-pass step, tensor cores)",
+            "29q_g0_first_diag_first", "29q_g0_first"),
+        "block_backward_lane[tc]": (
+            "dqc_tpu_torch/csrc/tc_adjoint.cuh",
+            "dqc_tpu/ops/pallas/block_backward.py:88 (the one-pass step, tensor cores)",
+            "29q", "q"),
     }
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
-                 "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29}}
+                 "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "block_backward_dual[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "block_backward_lane[tc]": t29}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):
@@ -4653,7 +4716,7 @@ def main() -> int:
             f"{bb}:184 (gram_dot_mode bf16x3)", "29q_gram_bf16x3",
             ("float32",), countsc),
         "block_backward_lane[gram_bf16x3]": (
-            "dqc_tpu_torch/csrc/block_backward_lane.cu",
+            "dqc_tpu_torch/csrc/block_backward_dual.cu",
             f"{bb}:88 (gram_dot_mode bf16x3)", "29q_gram_bf16x3",
             ("float32",), t29["counts"]),
     }
@@ -4701,7 +4764,9 @@ def main() -> int:
     for name, line, counts16, countsb in (
             ("block_backward_sublane", f"{bb}:184", c16, cmix),
             ("block_backward_lane", f"{bb}:88", tc16, tmix)):
-        src = f"dqc_tpu_torch/csrc/{name}.cu"
+        # the lane adjoint is built in the dual adjoint's library
+        src = ("dqc_tpu_torch/csrc/block_backward_dual.cu" if name == "block_backward_lane"
+               else f"dqc_tpu_torch/csrc/{name}.cu")
         variants[f"{name}[f16]"] = (src, f"{line} (u16 bwd)", "29q_f16", ("float16",),
                                     counts16)
         variants[f"{name}[bf16]"] = (src, f"{line} (bf16 bwd)", "29q_bf16",
@@ -4840,11 +4905,11 @@ def main() -> int:
     bfk, x3k = ("bf16", "f32"), ("f32", "bf16x3")
     for name, kernel, src, line, what, mine, rep, launches in (
             ("block_backward_lane[fwd_bf16]", "block_backward_lane",
-             "block_backward_lane.cu", f"{bb}:88", "bf16 forward planes",
+             "block_backward_dual.cu", f"{bb}:88", "bf16 forward planes",
              k3("block_backward_lane", ("bf16",)), "29q_bf16",
              pb["tape", *bfk]["block_backward_lane[fwd_bf16]"]),
             ("block_backward_lane[fwd_bf16x3]", "block_backward_lane",
-             "block_backward_lane.cu", f"{bb}:88", "dot_mode bf16x3",
+             "block_backward_dual.cu", f"{bb}:88", "dot_mode bf16x3",
              k3("block_backward_lane", ("x3", "bf16x3")), "29q_x3",
              pb["tape", *x3k]["block_backward_lane[fwd_bf16x3]"]),
             ("block_backward_dual[diag_q+fwd_bf16]", "block_backward_dual",

@@ -1,5 +1,8 @@
-// The one-pass adjoint step on a tile of columns, shared by the backward
-// kernels (block_backward_dual.cu, block_backward_high.cu).
+// The one-pass adjoint step on a tile of columns on the CUDA cores, shared
+// by the sublane and high adjoints (block_backward_sublane.cu,
+// block_backward_high.cu); the dual and lane adjoints run its tensor-core
+// counterpart (tc_adjoint.cuh), which shares the tile loads' diagonal
+// views, the Q reductions and the bf16x3 pair gram below.
 //
 // A "column" is X amplitudes along the contracted group axis; the tile
 // holds C = 8192 / X columns, and element (x, c) sits at base[x rs + c cs]
@@ -22,7 +25,8 @@
 // halves run the two operator products at once — the first half the
 // uncompute on F, the second the transport on B — each thread keeping 8 rows
 // x 4 columns of its product in registers while 8-deep tiles of its half's
-// operator stream through shared memory. Shared-memory rows are padded to a
+// operator stream through shared memory: f32 FMA on the CUDA cores.
+// Shared-memory rows are padded to a
 // multiple of four floats, so that the products and the pair gram read
 // float4. The uncompute's result replaces F in shared memory, the
 // transport's goes to a third buffer (B is still needed), and all 512
@@ -56,6 +60,11 @@
 // reloads it (stage, as B), and the uncompute may run bf16x3 (UX3): the
 // first half then stages its operator tile as hi and lo parts as the
 // transport half does with TX3.
+//
+// The shared-memory tile functions below that the tensor-core step shares
+// (diag_tile_smem, the slab Q reductions, pair_gram_x3_mma128) take the
+// tile's layout as a parameter L: L::at(x, c) is where element (x, c) sits,
+// rows padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh.
 #pragma once
 
 #include <type_traits>
@@ -90,6 +99,13 @@ struct AdjCfg {
   static_assert(C4 % G == 0, "gram groups share the float4 columns evenly");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
+
+// Element (x, c) of a shared-memory tile with rows of LD floats.
+template <int LD>
+struct PadRows {
+  static __device__ __forceinline__ int at(int x, int c) { return x * LD + c; }
+};
+using Pad128 = PadRows<AdjCfg<kGroup>::LD>;  // the X = 128 tile of adjoint_tile
 
 // Where a tile's entries of the diagonal run D[a, s, l] come from.
 struct DiagView {
@@ -320,6 +336,13 @@ __device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
   }
 }
 
+// p[0] += a, p[1] += b (p 8-byte aligned) by one vector reduction that does
+// not wait for the old values (sm_90's float2 atomicAdd): each entry is
+// added as by a scalar one, in fewer memory operations.
+__device__ __forceinline__ void red2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
 // d += a b in bf16x3 on the tensor cores: ah bh + ah bl + al bh.
 __device__ __forceinline__ void mma_bf16x3(float (&d)[4], const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4], uint32_t bh0,
@@ -340,11 +363,15 @@ __device__ __forceinline__ void mma_bf16x3(float (&d)[4], const uint32_t (&ah)[4
 // product three bf16 mma (hi hi, hi lo, lo hi), -Bi by flipping the sign
 // bits of its parts (exact). Each accumulator entry has one writer thread,
 // added to the block's slot without waiting for the old value, as below.
+// L: the tiles' layout (a pair of neighbouring columns stays adjacent).
+// RED2: each thread's two neighbouring entries added by one vector
+// reduction (red2), as the tensor-core step writes its pair grams.
+template <class L = Pad128, bool RED2 = false>
 __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
                                     const float* fR, const float* fI,
                                     float* part) {
   using Cfg = AdjCfg<kGroup>;
-  constexpr int LD = Cfg::LD, X = kGroup;
+  constexpr int X = kGroup;
   static_assert(Cfg::C == 64 && Cfg::G == 1, "X = 128 tiles, one slot");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -366,23 +393,22 @@ __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
       for (int r = 0; r < 4; ++r) {
         const int row = xb + 16 * m + g + 8 * (r & 1);
         const int col = kb + 2 * t + 8 * (r >> 1);
-        split_bf16x2(*reinterpret_cast<const float2*>(bR + row * LD + col),
-                     arh[r], arl[r]);
-        split_bf16x2(*reinterpret_cast<const float2*>(bI + row * LD + col),
-                     aih[r], ail[r]);
+        const int o = L::at(row, col);
+        split_bf16x2(*reinterpret_cast<const float2*>(bR + o), arh[r], arl[r]);
+        split_bf16x2(*reinterpret_cast<const float2*>(bI + o), aih[r], ail[r]);
         anh[r] = aih[r] ^ 0x80008000u;
         anl[r] = ail[r] ^ 0x80008000u;
       }
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         // B = F^T: column y = yb + 8 n + g, rows c = kb + 2 t (+ 8)
-        const float* fr = fR + (yb + 8 * n + g) * LD + kb + 2 * t;
-        const float* fi = fI + (yb + 8 * n + g) * LD + kb + 2 * t;
+        const int o0 = L::at(yb + 8 * n + g, kb + 2 * t);
+        const int o1 = L::at(yb + 8 * n + g, kb + 2 * t + 8);
         uint32_t brh0, brl0, brh1, brl1, bih0, bil0, bih1, bil1;
-        split_bf16x2(*reinterpret_cast<const float2*>(fr), brh0, brl0);
-        split_bf16x2(*reinterpret_cast<const float2*>(fr + 8), brh1, brl1);
-        split_bf16x2(*reinterpret_cast<const float2*>(fi), bih0, bil0);
-        split_bf16x2(*reinterpret_cast<const float2*>(fi + 8), bih1, bil1);
+        split_bf16x2(*reinterpret_cast<const float2*>(fR + o0), brh0, brl0);
+        split_bf16x2(*reinterpret_cast<const float2*>(fR + o1), brh1, brl1);
+        split_bf16x2(*reinterpret_cast<const float2*>(fI + o0), bih0, bil0);
+        split_bf16x2(*reinterpret_cast<const float2*>(fI + o1), bih1, bil1);
         mma_bf16x3(accr[m][n], arh, arl, brh0, brh1, brl0, brl1);
         mma_bf16x3(accr[m][n], anh, anl, bih0, bih1, bil0, bil1);
         mma_bf16x3(acci[m][n], arh, arl, bih0, bih1, bil0, bil1);
@@ -398,8 +424,14 @@ __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
       for (int e = 0; e < 4; ++e) {
         const int x = xb + 16 * m + g + 8 * (e >> 1);
         const int y = yb + 8 * n + 2 * t + (e & 1);
-        atomicAdd(part + x * X + y, accr[m][n][e]);
-        atomicAdd(part + X * X + x * X + y, acci[m][n][e]);
+        if constexpr (RED2) {
+          if (e & 1) continue;
+          red2(part + x * X + y, accr[m][n][e], accr[m][n][e + 1]);
+          red2(part + X * X + x * X + y, acci[m][n][e], acci[m][n][e + 1]);
+        } else {
+          atomicAdd(part + x * X + y, accr[m][n][e]);
+          atomicAdd(part + X * X + x * X + y, acci[m][n][e]);
+        }
       }
 }
 
@@ -511,14 +543,14 @@ struct QView {
 // one owner thread, in tile order: the sums do not depend on scheduling.
 // RF rounds F to the storage kind fq as it is read (the dual adjoint's TPU
 // kernel stores F and rereads it before a run met after the dense steps;
-// the tile keeps the unrounded values the pair gram reads).
-template <int X, bool RF = false>
+// the tile keeps the unrounded values the pair gram reads). L: the tiles'
+// layout.
+template <int X, bool RF = false, class L = Pad128>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
                        const float* bI, const QView& q, float* scratch,
                        int fq = kStoreF32) {
   static_assert(X == kGroup, "slab tiles: X = 128");
   using Cfg = AdjCfg<kGroup>;
-  constexpr int LD = Cfg::LD;
   static_assert(Cfg::C == 64, "X = 128 tiles");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // rows of the tile sum into Qas (x = s) or Qal (x = l); columns into the
@@ -534,13 +566,13 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
     float rr = 0.f, ri = 0.f;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int c = lane + 32 * j;
-      float qr, qi, fr = fR[x * LD + c], fi = fI[x * LD + c];
+      const int c = lane + 32 * j, o = L::at(x, c);
+      float qr, qi, fr = fR[o], fi = fI[o];
       if constexpr (RF) {
         fr = quantize(fr, fq);
         fi = quantize(fi, fq);
       }
-      cmul(bR[x * LD + c], bI[x * LD + c], fr, fi, qr, qi);
+      cmul(bR[o], bI[o], fr, fi, qr, qi);
       const int sl = x * kGroup + q.c0 + c;
       atomicAdd(q.sl + sl, qr);
       atomicAdd(q.sl + kGroup * kGroup + sl, qi);
@@ -699,19 +731,19 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
   }
 }
 
-// The shared-memory tile [x][c] times the run's entries, in place, rounded
-// to the storage kind qkind.
-template <int X>
+// The shared-memory tile [x][c] (layout L) times the run's entries, in
+// place, rounded to the storage kind qkind.
+template <int X, class L = PadRows<AdjCfg<X>::LD>>
 __device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv,
                                int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
-    const int x = e / Cfg::C, c = e % Cfg::C;
+    const int x = e / Cfg::C, c = e % Cfg::C, o = L::at(x, c);
     float dr, di, vr, vi;
     diag_view_at(dv, x, c, dr, di);
-    cmul(tr_[x * Cfg::LD + c], ti_[x * Cfg::LD + c], dr, di, vr, vi);
-    tr_[x * Cfg::LD + c] = quantize(vr, qkind);
-    ti_[x * Cfg::LD + c] = quantize(vi, qkind);
+    cmul(tr_[o], ti_[o], dr, di, vr, vi);
+    tr_[o] = quantize(vr, qkind);
+    ti_[o] = quantize(vi, qkind);
   }
 }
 

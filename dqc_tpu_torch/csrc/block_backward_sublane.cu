@@ -16,7 +16,9 @@
 // written: ~96 flop per byte, above the H100's FP32 ridge (~20 flop/B). f32
 // FMA on the CUDA cores, no TF32.
 //
-// Design: the sublane step of block_backward_dual.cu alone. F and B of one
+// Design: the sublane step of the dual adjoint alone, on adjoint.cuh's
+// CUDA-core step (the dual adjoint's runs on the tensor cores,
+// tc_adjoint.cuh). F and B of one
 // slab (256 KB) do not fit a block's shared memory, but the step is
 // separable along the lanes, so a block walks its slab as two 64-lane column
 // tiles of adjoint.cuh's step (512 threads, the uncompute and the transport

@@ -113,6 +113,44 @@ __device__ __forceinline__ void mma_op0(float (&d)[4], const uint32_t (&a)[4],
     mma_bf16_0(d, a, b0, b1);
 }
 
+// The hi (LO false) or lo parts of an A fragment's re and im.
+template <bool LO>
+__device__ __forceinline__ const uint32_t (&frag_re(const CFrag<4>& f))[4] {
+  if constexpr (LO) return f.rl; else return f.rh;
+}
+template <bool LO>
+__device__ __forceinline__ const uint32_t (&frag_im(const CFrag<4>& f))[4] {
+  if constexpr (LO) return f.il; else return f.ih;
+}
+
+// One pass of a complex product on split fragments: tr[m] (+)= Xr[m] Yr -
+// Xi[m] Yi, ti[m] (+)= Xr[m] Yi + Xi[m] Yr for A's hi or lo parts X (ALO)
+// and B's parts Y (nyi: Yi with its signs flipped), from zero with ZERO.
+// The 2 M chains go one product each in turn, so that neighbouring
+// products do not wait on each other.
+template <int MODE, int M, bool ZERO, bool ALO>
+__device__ __forceinline__ void cmma_pass(float (&tr)[M][4], float (&ti)[M][4],
+                                          const CFrag<4> (&a)[M], uint32_t yr0,
+                                          uint32_t yr1, uint32_t yi0,
+                                          uint32_t yi1, uint32_t nyi0,
+                                          uint32_t nyi1) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if constexpr (ZERO) {
+      mma_op0<MODE>(tr[m], frag_re<ALO>(a[m]), yr0, yr1);
+      mma_op0<MODE>(ti[m], frag_re<ALO>(a[m]), yi0, yi1);
+    } else {
+      mma_op<MODE>(tr[m], frag_re<ALO>(a[m]), yr0, yr1);
+      mma_op<MODE>(ti[m], frag_re<ALO>(a[m]), yi0, yi1);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    mma_op<MODE>(tr[m], frag_im<ALO>(a[m]), nyi0, nyi1);
+    mma_op<MODE>(ti[m], frag_im<ALO>(a[m]), yr0, yr1);
+  }
+}
+
 // dr[m] += Ar[m] Br - Ai[m] Bi, di[m] += Ar[m] Bi + Ai[m] Br for M A
 // fragments against one B fragment, each real product in three passes (hi
 // hi, hi lo, lo hi). a_exact / b_exact: that operand's lo parts are zero
@@ -120,52 +158,61 @@ __device__ __forceinline__ void mma_op0(float (&d)[4], const uint32_t (&a)[4],
 // read them are skipped. The tensor cores' f32 sums round toward zero,
 // which over the X / 8 k-steps of a long product would shrink every result
 // by up to ~X / 8 * 6 f32 ulps; so each k-step's passes are summed there
-// into fresh registers (the hi pass from zero) and added to the running
-// sums on the CUDA cores, rounded to nearest. The 2 M chains of a pass go
-// one product each in turn, so that neighbouring products do not wait on
-// each other.
+// into fresh registers and added to the running sums on the CUDA cores,
+// rounded to nearest. Within a k-step the small passes (those that read a
+// lo part) go first, from zero, and the hi hi pass last: only the last
+// passes round toward zero at the k-step sum's own size.
 template <int MODE, int M>
 __device__ __forceinline__ void cmma3(float (&dr)[M][4], float (&di)[M][4],
                                       const CFrag<4> (&a)[M], const CFrag<2>& b,
                                       bool a_exact, bool b_exact) {
   constexpr uint32_t neg = kNegMask<MODE>;
   const uint32_t nih0 = b.ih[0] ^ neg, nih1 = b.ih[1] ^ neg;
+  const uint32_t nil0 = b.il[0] ^ neg, nil1 = b.il[1] ^ neg;
   float tr[M][4], ti[M][4];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    mma_op0<MODE>(tr[m], a[m].rh, b.rh[0], b.rh[1]);
-    mma_op0<MODE>(ti[m], a[m].rh, b.ih[0], b.ih[1]);
+  if (!a_exact) {  // lo hi
+    cmma_pass<MODE, M, true, true>(tr, ti, a, b.rh[0], b.rh[1], b.ih[0],
+                                   b.ih[1], nih0, nih1);
+    if (!b_exact)  // hi lo
+      cmma_pass<MODE, M, false, false>(tr, ti, a, b.rl[0], b.rl[1], b.il[0],
+                                       b.il[1], nil0, nil1);
+  } else if (!b_exact) {
+    cmma_pass<MODE, M, true, false>(tr, ti, a, b.rl[0], b.rl[1], b.il[0],
+                                    b.il[1], nil0, nil1);
   }
+  if (a_exact && b_exact)  // hi hi
+    cmma_pass<MODE, M, true, false>(tr, ti, a, b.rh[0], b.rh[1], b.ih[0],
+                                    b.ih[1], nih0, nih1);
+  else
+    cmma_pass<MODE, M, false, false>(tr, ti, a, b.rh[0], b.rh[1], b.ih[0],
+                                     b.ih[1], nih0, nih1);
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    mma_op<MODE>(tr[m], a[m].ih, nih0, nih1);
-    mma_op<MODE>(ti[m], a[m].ih, b.rh[0], b.rh[1]);
-  }
-  if (!b_exact) {
-    const uint32_t nil0 = b.il[0] ^ neg, nil1 = b.il[1] ^ neg;
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mma_op<MODE>(tr[m], a[m].rh, b.rl[0], b.rl[1]);
-      mma_op<MODE>(ti[m], a[m].rh, b.il[0], b.il[1]);
+    for (int e = 0; e < 4; ++e) {
+      dr[m][e] += tr[m][e];
+      di[m][e] += ti[m][e];
     }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mma_op<MODE>(tr[m], a[m].ih, nil0, nil1);
-      mma_op<MODE>(ti[m], a[m].ih, b.rl[0], b.rl[1]);
-    }
-  }
-  if (!a_exact) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mma_op<MODE>(tr[m], a[m].rl, b.rh[0], b.rh[1]);
-      mma_op<MODE>(ti[m], a[m].rl, b.ih[0], b.ih[1]);
-    }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mma_op<MODE>(tr[m], a[m].il, nih0, nih1);
-      mma_op<MODE>(ti[m], a[m].il, b.rh[0], b.rh[1]);
-    }
-  }
+}
+
+// dr[m] += A[m] B for a B whose lo parts are zero and an A split in three
+// parts (a: hi and lo, a2's hi slots: the second lo, A = hi + lo + lo2 to
+// ~2^-33 in tf32: the products then as exact as f32 products). The
+// smallest pass first, from zero, as cmma3 orders them.
+template <int MODE, int M>
+__device__ __forceinline__ void cmma3x(float (&dr)[M][4], float (&di)[M][4],
+                                       const CFrag<4> (&a)[M],
+                                       const CFrag<4> (&a2)[M],
+                                       const CFrag<2>& b) {
+  constexpr uint32_t neg = kNegMask<MODE>;
+  const uint32_t nih0 = b.ih[0] ^ neg, nih1 = b.ih[1] ^ neg;
+  float tr[M][4], ti[M][4];
+  cmma_pass<MODE, M, true, false>(tr, ti, a2, b.rh[0], b.rh[1], b.ih[0], b.ih[1],
+                                  nih0, nih1);
+  cmma_pass<MODE, M, false, true>(tr, ti, a, b.rh[0], b.rh[1], b.ih[0], b.ih[1],
+                                  nih0, nih1);
+  cmma_pass<MODE, M, false, false>(tr, ti, a, b.rh[0], b.rh[1], b.ih[0], b.ih[1],
+                                   nih0, nih1);
 #pragma unroll
   for (int m = 0; m < M; ++m)
 #pragma unroll

@@ -36,7 +36,7 @@ LIBRARIES = ("dual_apply", "high_apply", "gram", "block_backward_dual",
              "block_backward_high", "merged_fact_apply",
              "block_backward_merged_fact", "diag", "dual_multi_apply",
              "high_multi_apply", "block_backward_sublane",
-             "block_backward_lane", "block_backward_high_fwd16",
+             "block_backward_high_fwd16",
              "high_apply_fwd16", "high_multi_apply_x3")
 
 _lock = threading.Lock()
@@ -45,25 +45,43 @@ build_log: Dict[str, str] = {}   # ptxas report per library of this process
 build_seconds: Dict[str, float] = {}   # nvcc wall time per library built
 
 
+def _short_name(hit: str, mangled: str) -> str:
+    """``hit<a,b>``: a function's name and its integer / bool template
+    arguments out of its mangled name (``n`` marks a negative one)."""
+    args = re.search(re.escape(hit) + r"I((?:L[ib]n?\d+E)+)E", mangled)
+    targs = re.findall(r"L[ib](n?\d+)E", args.group(1)) if args else []
+    return f"{hit}<{','.join(t.replace('n', '-') for t in targs)}>"
+
+
 def kernel_resources(substrings) -> Dict[str, list]:
     """From this process's build (``build_log``, nvcc's ``-Xptxas -v``
     report): each kernel whose mangled name holds one of ``substrings``, by
     library, as ``{"kernel", "registers", "spill_stores", "spill_loads"}``
     (bytes) with the kernel's name and template arguments shortened to
-    ``name<a,b>``."""
+    ``name<a,b>``; and each device function the kernels call without
+    inlining it whose name holds one, once, as ``{"function",
+    "spill_stores", "spill_loads"}`` (it runs within its kernel's
+    registers)."""
     out: Dict[str, list] = {}
     for lib, text in build_log.items():
-        entry, found = None, []
+        entry, kernel, found, seen = None, None, [], set()
         for line in text.splitlines():
             m = re.search(r"entry function '(\S+)'", line)
             if m:
+                kernel = m.group(1)
+                hit = next((k for k in substrings if k in kernel), None)
+                entry = {"kernel": _short_name(hit, kernel)} if hit else None
+                if entry:
+                    found.append(entry)
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m and m.group(1) != kernel:
                 name = m.group(1)
                 hit = next((k for k in substrings if k in name), None)
                 entry = None
-                if hit:
-                    args = re.search(re.escape(hit) + r"I((?:Li-?\d+E)+)E", name)
-                    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
-                    entry = {"kernel": f"{hit}<{','.join(targs)}>"}
+                if hit and name not in seen:
+                    seen.add(name)
+                    entry = {"function": _short_name(hit, name)}
                     found.append(entry)
                 continue
             if entry is None:

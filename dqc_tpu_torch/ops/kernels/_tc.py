@@ -1,8 +1,9 @@
 """The tensor-core kernels' operand splits and pre-split operators.
 
 ``csrc/tc_apply.cuh`` (the high apply at X = 128 / 256 / 512, and the two
-updates of the X = 256 / 512 adjoint) and the X = 256 / 512 cross-Gram of
-``csrc/block_backward_high.cu`` run their products on the tensor cores:
+updates of the X = 256 / 512 adjoint), the X = 256 / 512 cross-Gram of
+``csrc/block_backward_high.cu`` and the dual and lane adjoints' one-pass
+step (``csrc/tc_adjoint.cuh``) run their products on the tensor cores:
 
 * the "f32" dot mode as 3xTF32: ``hi = tf32(a)``, ``lo = tf32(a - hi)``,
   both rounded to nearest with ties away from zero (``cvt.rna.tf32``), and
@@ -11,16 +12,18 @@ updates of the X = 256 / 512 adjoint) and the X = 256 / 512 cross-Gram of
 * bf16x3: ``hi = bf16(a)``, ``lo = bf16(a - hi)`` (``_storage.split``),
   the same three products in m16n8k16 bf16.
 
-:func:`tc_operator` is the apply's operator as the kernel reads it, made
-once per launch (X x X entries, 0.1% of the work): the hi and lo parts of
-its real and imaginary planes in mma fragment order, so that a warp reads
-each part of a fragment as one 16-byte load per lane and splits nothing.
+:func:`tc_operator` is an operator as those kernels read it, made once
+per launch (X x X entries, 0.1% of the work): the hi and lo parts of its
+real and imaginary planes in mma fragment order, so that a warp reads each
+part of a fragment as one 16-byte load per lane and splits nothing; one
+gather through a cached index.
 :func:`split_tf32` is the tf32 split in plain PyTorch, the kernels'
 numerics written out for the CPU tests.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -50,37 +53,58 @@ def split_parts(a: torch.Tensor, dot_mode: str):
     return split_tf32(a) if dot_mode == "f32" else _st.split(a)
 
 
-def _fragment_index(ks: int, device):
-    """Row and column of each (lane, register[, half]) of an A fragment of
-    16 rows x ``ks`` columns: m16n8k8 tf32 (ks = 8: (32, 4)) or m16n8k16
-    bf16 (ks = 16: (32, 4, 2), the lower column in the register's low
-    half)."""
-    lane = torch.arange(32, device=device)
-    g, t = (lane // 4)[:, None], (lane % 4)[:, None]
-    r = torch.arange(4, device=device)[None, :]
-    row = g + 8 * (r & 1)
+def split_tf32_3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A real f32 tensor as three tf32 parts, hi + lo + lo2 within ~2^-33 of
+    it: the operator of a 3xTF32 product whose planes operand is exact in
+    tf32 (16-bit planes), so that its products are as close as f32's."""
+    hi, lo = split_tf32(a)
+    return hi, lo, tf32_round(a - hi - lo)
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_index(X: int, ks: int, device) -> torch.Tensor:
+    """Flat indices into an X x X part of the entries of its A fragments in
+    the kernels' order (k-step s, m-tile mt, lane, register[, half]): row
+    mt 16 + g + 8 (r & 1) and column s ks + t + 4 (r >> 1) for m16n8k8 tf32
+    (ks = 8), the pair at columns s ks + 2 t + 8 (r >> 1) + {0, 1} for
+    m16n8k16 bf16 (ks = 16, the lower column in the register's low half);
+    lane = 4 g + t."""
+    s = torch.arange(X // ks, device=device).view(-1, 1, 1, 1)
+    mt = torch.arange(X // 16, device=device).view(1, -1, 1, 1)
+    lane = torch.arange(32, device=device).view(1, 1, -1, 1)
+    r = torch.arange(4, device=device).view(1, 1, 1, -1)
+    g, t = lane // 4, lane % 4
+    row = mt * 16 + g + 8 * (r & 1)
     if ks == 8:
-        return row, t + 4 * (r >> 1)
-    col = 2 * t + 8 * (r >> 1)
-    return row[..., None], col[..., None] + torch.arange(2, device=device)
+        return (row * X + s * ks + t + 4 * (r >> 1)).reshape(-1)
+    at = row * X + s * ks + 2 * t + 8 * (r >> 1)
+    return torch.stack((at, at + 1), dim=-1).reshape(-1)
 
 
-def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str) -> torch.Tensor:
-    """The X x X operator ``E`` as ``csrc/tc_apply.cuh`` reads it: an int32
-    tensor ``(X / ks, X / 16, 4, 32, 4)`` — k-step, m-tile, part (re hi, re
-    lo, im hi, im lo), lane, register — of f32 bit patterns of tf32 parts
-    ("f32", ks = 8), or of pairs of bf16 parts ("bf16x3", ks = 16)."""
+def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str,
+                parts: int = 4) -> torch.Tensor:
+    """The X x X operator ``E`` as the tensor-core kernels read it
+    (``csrc/tc_apply.cuh``, ``csrc/tc_adjoint.cuh``): an int32 tensor ``(X /
+    ks, X / 16, parts, 32, 4)`` — k-step, m-tile, part (re hi, re lo, im
+    hi, im lo; with ``parts=6``, "f32" only, then re lo2 and im lo2:
+    :func:`split_tf32_3`), lane, register — of f32 bit patterns of tf32
+    parts ("f32", ks = 8), or of pairs of bf16 parts ("bf16x3", ks = 16).
+    ``e_r`` / ``e_i`` may be views (a transpose)."""
     X = e_r.shape[0]
     ks = 8 if dot_mode == "f32" else 16
-    row, col = _fragment_index(ks, e_r.device)
-    parts = [*split_parts(e_r, dot_mode), *split_parts(e_i, dot_mode)]
-    out = []
-    for p in parts:
-        blocks = p.reshape(X // 16, 16, X // ks, ks)
-        if ks == 8:
-            f = blocks[:, row, :, col].view(torch.int32)      # (32, 4, mt, s)
-        else:  # the two bf16 halves of a register, the lower column low
-            h = blocks.to(torch.bfloat16).view(torch.int16)[:, row, :, col]
-            f = h.permute(0, 1, 3, 4, 2).contiguous().view(torch.int32)[..., 0]
-        out.append(f.permute(3, 2, 0, 1))                     # (s, mt, 32, 4)
-    return torch.stack(out, dim=2).contiguous()
+    idx = _gather_index(X, ks, e_r.device)
+    if parts == 6:
+        if dot_mode != "f32":
+            raise ValueError("tc_operator: three parts are 3xTF32's")
+        (rh, rl, rl2), (ih, il, il2) = split_tf32_3(e_r), split_tf32_3(e_i)
+        split = [rh, rl, ih, il, rl2, il2]
+    else:
+        split = [*split_parts(e_r, dot_mode), *split_parts(e_i, dot_mode)]
+    P = len(split)
+    flat = torch.stack(split).reshape(P, X * X)
+    if ks == 8:
+        f = flat.view(torch.int32)[:, idx].view(P, X // ks, X // 16, 32, 4)
+    else:  # the two bf16 halves of a register, the lower column low
+        f = (flat.to(torch.bfloat16).view(torch.int16)[:, idx]
+             .view(4, X // ks, X // 16, 32, 4, 2).view(torch.int32)[..., 0])
+    return f.permute(1, 2, 0, 3, 4).contiguous()

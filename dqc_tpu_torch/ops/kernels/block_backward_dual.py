@@ -20,9 +20,14 @@ returns the run's Q reductions of the holomorphic product ``Q[a, s, l] =
 B F`` of the planes as they meet the run, before its update: ``Qsl``
 (128, 128) summed over ``a``, ``Qas`` (A, 128) summed over ``l``, ``Qal``
 (A, 128) summed over ``s``. The Hopper kernel is
-``csrc/block_backward_dual.cu`` (bound by operations: 768 complex
-multiply-adds per amplitude); :func:`block_backward_dual_plain` is its
-plain PyTorch version.
+``csrc/block_backward_dual.cu`` on ``csrc/tc_adjoint.cuh``: every product on
+the tensor cores (``mma.sync``), the uncomputes and transports as 3xTF32
+in the "f32" dot mode or three bf16 products in bf16x3, the pair grams
+likewise (bound by the tensor cores' rate: 768 complex multiply-adds per
+amplitude); each launch hands it the four operators pre-split in mma
+fragment order (:func:`step_operators`) and counts in
+``mode_launches["tc"]``. :func:`block_backward_dual_plain` is its plain
+PyTorch version.
 
 :func:`block_backward_dual` updates ``(F, B)`` in place on a CUDA tensor
 (the TPU kernel aliases them) and returns the plain version's fresh planes
@@ -55,6 +60,7 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
                                                 round_b, store_b)
 from dqc_tpu_torch.ops.kernels.dual_apply import diag_run
@@ -120,7 +126,24 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
         raise ValueError("block_backward_dual: diag_q needs a diagonal run")
 
 
-_ARGTYPES = ([_launch.VOIDP] * 24 + [_launch.INT] * 4 + [_launch.VOIDP] * 6
+def _parts(mode: str, dtype) -> int:
+    """The parts of an operator that meets planes of ``dtype`` in ``mode``:
+    three (six with re and im) where 3xTF32 meets 16-bit planes, exact in
+    tf32 (``csrc/tc_adjoint.cuh`` reads them so), else two."""
+    return 6 if mode == "f32" and dtype != torch.float32 else 4
+
+
+def step_operators(einv_r, einv_i, e_r, e_i, dot_mode: str, bwd_mode: str,
+                   fdtype=torch.float32, bdtype=torch.float32):
+    """One step's operators as ``csrc/tc_adjoint.cuh`` reads them
+    (``_tc.tc_operator``): ``Einv`` for the uncompute in ``dot_mode`` on F
+    stored as ``fdtype``, ``E^T`` for the transport in ``bwd_mode`` on B
+    stored as ``bdtype`` (each the ``Op`` of its ``Op x tile`` product)."""
+    return (_tc.tc_operator(einv_r, einv_i, dot_mode, _parts(dot_mode, fdtype)),
+            _tc.tc_operator(e_r.t(), e_i.t(), bwd_mode, _parts(bwd_mode, bdtype)))
+
+
+_ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 4 + [_launch.VOIDP] * 6
              + [_launch.LONG] + [_launch.INT] * 6 + [_launch.VOIDP])
 
 
@@ -138,7 +161,8 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
     adds its Q reductions to the outputs. ``B`` is stored as float32,
     bfloat16 or float16, ``F`` as float32 or bfloat16; ``dot_mode``,
     ``bwd_mode`` / ``gram_mode`` are the uncomputes', the transports' and
-    the pair grams' dot modes."""
+    the pair grams' dot modes. Every launch also counts as
+    ``mode_launches["tc"]``."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):
@@ -167,6 +191,10 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
         raise ValueError("block_backward_dual: operators must be (128, 128)")
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_dual", tabs, A, fr.device)
+        # the kernel reads four neighbouring entries of tal and tsl at once
+        if tabs is not None and any(t.data_ptr() % 16 for t in tabs):
+            raise ValueError("block_backward_dual: diag tables must be "
+                             "16-byte aligned")
     nblk = min(A, _launch.sm_count(fr.device))
     n_out = 6 if diag_q else 4
     part = torch.zeros((nblk, n_out, 128, 128), dtype=torch.float32,
@@ -174,9 +202,11 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
     out = torch.empty((n_out, 128, 128), dtype=torch.float32, device=fr.device)
     rows = (torch.zeros((4, A, 128), dtype=torch.float32, device=fr.device)
             if diag_q else None)
+    kinds = (dot_mode, bwd_mode, fr.dtype, br.dtype)
+    tc_ops = (*step_operators(*ops[:4], *kinds), *step_operators(*ops[4:], *kinds))
     fn = _launch.entry("block_backward_dual", "dqc_block_backward_dual",
                        _ARGTYPES)
-    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
+    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in tc_ops),
               *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
               int(diag_first_fwd), int(g0_first), int(diag_q),
@@ -187,6 +217,7 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
               int(dot_mode == "bf16x3"), _launch.stream(fr.device))
     _launch.raise_on_error(code, "block_backward_dual", "block_backward_dual launch")
     block_backward_dual.launches += 1
+    block_backward_dual.mode_launches["tc"] += 1
     count_modes(block_backward_dual, br.dtype, bwd_mode, gram_mode)
     _st.count_fwd(block_backward_dual, fr.dtype, dot_mode)
     if diag_q:
@@ -203,6 +234,6 @@ def block_backward_dual(fr, fi, br, bi, e0inv_r, e0inv_i, e0_r, e0_i,
 
 
 block_backward_dual.launches = 0
-block_backward_dual.mode_launches = {"diag_q": 0, "bf16": 0, "f16": 0,
+block_backward_dual.mode_launches = {"diag_q": 0, "tc": 0, "bf16": 0, "f16": 0,
                                      "bf16x3": 0, "gram_bf16x3": 0,
                                      "fwd_bf16": 0, "fwd_bf16x3": 0}
