@@ -168,10 +168,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 16. the tensor-core routes (3l, after phase 3): the high apply at X =
    128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
    high_apply[tc]), the X = 256 / 512 adjoint (its cross-Gram and its
-   two updates on the tensor cores) and the dual and lane adjoints (their
-   one-pass step, csrc/tc_adjoint.cuh, every storage and mode, counted as
-   block_backward_dual[tc] / block_backward_lane[tc]; the lane adjoint
-   built in the dual adjoint's library): each of their phase-3 rows again with
+   two updates on the tensor cores), the dual, lane and sublane adjoints
+   and the high adjoint at X = 128 (their one-pass step,
+   csrc/tc_adjoint.cuh, every storage, mode, run and Q, counted as
+   block_backward_dual[tc], block_backward_lane[tc],
+   block_backward_sublane[tc] and block_backward_high[tc]; the lane and
+   sublane adjoints built in the dual adjoint's library): each of their
+   phase-3 rows again with
    its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
    runs, three per real product, one fewer for each planes operand whose
    lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
@@ -368,8 +371,11 @@ BWD_KERNELS = ("block_backward_dual", "block_backward_high",
                "block_backward_merged_fact", "block_backward_lane",
                "block_backward_sublane")
 # the adjoints whose one-pass step runs on the tensor cores
-# (csrc/tc_adjoint.cuh), every launch counted as "tc"
-TC_ADJOINTS = ("block_backward_dual", "block_backward_lane")
+# (csrc/tc_adjoint.cuh), every launch counted as "tc"; block_backward_high
+# runs it at X = 128 (TC_HIGH_X), those launches counted as "tc"
+TC_ADJOINTS = ("block_backward_dual", "block_backward_lane",
+               "block_backward_sublane")
+TC_HIGH_X = 128
 
 
 def random_graph(n, extra_edges, seed):
@@ -440,15 +446,17 @@ def tc_product(cmacs: float, x3: bool, *planes) -> tuple:
 
 def adjoint_tc(cmacs: float, fdt="float32", bdt="float32", dot="f32",
                bwd="f32", gram="f32") -> list:
-    """The tensor-core work of a dual or lane adjoint launch
-    (csrc/tc_adjoint.cuh), ``cmacs`` complex multiply-adds per product kind
-    (the dual's two steps: 256 per amplitude, the lane's: 128): the
-    uncomputes on F (stored ``fdt``) in ``dot``, the transports on B
+    """The tensor-core work of an adjoint launch on csrc/tc_adjoint.cuh,
+    ``cmacs`` complex multiply-adds per product kind (the dual's two steps:
+    256 per amplitude; the lane, sublane and X = 128 high adjoints' one: 128):
+    the uncomputes on F (stored ``fdt``) in ``dot``, the transports on B
     (``bdt``) in ``bwd``, the pair grams of B and the f32 uncompute in
     ``gram``. In 3xTF32 an operator meets 16-bit planes in three parts, so
-    those products keep their three passes. A run folded into the step
-    rounds its planes back to their storage (the TPU kernel's staging), so
-    they count at their storage."""
+    those products keep their three passes. A run folded into the dual
+    adjoint rounds its planes back to their storage (the TPU kernel's
+    staging), so they count at their storage; a run the high adjoint meets
+    first leaves f32 values in its tiles (no staging): such rows pass
+    "float32"."""
     def product(mode, dt):
         x3 = mode == "bf16x3"
         return tc_product(cmacs, x3, dt if x3 else "float32")
@@ -498,14 +506,15 @@ def call_modes(name: str, a) -> tuple:
     """The counted modes (ops.kernels' ``mode_launches``) of a call of
     kernel ``name`` with bound arguments ``a``."""
     import torch
-    # the dual and lane adjoints run their one-pass step on the tensor cores
-    # in every storage and mode
+    # the dual, lane and sublane adjoints run their one-pass step on the
+    # tensor cores in every storage and mode, the high adjoint at X = 128
     if name == "block_backward_dual":
         return (("diag_q", "tc") if a.get("diag_q") else ("tc",)) + storage_modes(
             a["br"].dtype) + dot_modes(a) + fwd_modes(a["fr"].dtype, a)
     if name == "block_backward_high":
         return ((("diag_q",) if a.get("diag_q") else ()) + (
-            ("wide",) if a["fr"].shape[1] > 128 else ())
+            ("wide",) if a["fr"].shape[1] > 128 else ()) + (
+            ("tc",) if a["fr"].shape[1] == TC_HIGH_X else ())
             + storage_modes(a["br"].dtype) + dot_modes(a)
             + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_merged_fact":
@@ -515,7 +524,7 @@ def call_modes(name: str, a) -> tuple:
         return (("tc",) + storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_sublane":
-        return (storage_modes(a["br"].dtype) + dot_modes(a)
+        return (("tc",) + storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
     if name in ("dual_apply", "high_apply"):
         acc = a.get("acc")
@@ -628,18 +637,21 @@ def program_launches(build, loss: str):
     return dry_run_launches(model_dry_run(build, loss))
 
 
-def with_gram_modes(want: dict) -> dict:
+def with_gram_modes(want: dict, high_tc=None) -> dict:
     """Launch counts of a run under the default dot modes: every launch of
     an adjoint kernel with a pair gram counts in its "gram_bf16x3" mode when
     config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
-    launch of the dual and lane adjoints in its "tc" mode (their one-pass
-    step runs on the tensor cores in every mode)."""
+    launch of the dual, lane and sublane adjoints in its "tc" mode (their
+    one-pass step runs on the tensor cores in every mode), as does every
+    high adjoint launch at X = 128: ``high_tc`` of them (by default all)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
     for k in TC_ADJOINTS:
         want[f"{k}[tc]"] = want.get(k, 0)
+    want["block_backward_high[tc]"] = (want.get("block_backward_high", 0)
+                                       if high_tc is None else high_tc)
     return want
 
 
@@ -1159,7 +1171,8 @@ def main() -> int:
                        lambda *p: block_backward_high_plain(*p, *Einv, *E, **kw),
                        HIGH_TOL, flops=amps * 3 * X * 8,
                        bytes_moved=4 * state_bytes + extra,
-                       library=high_bwd_library(E, Einv) if tag == "plain" else None)
+                       library=high_bwd_library(E, Einv) if tag == "plain" else None,
+                       tc=adjoint_tc(amps * 128))
 
     # 3b. kernel checks at the 29- and 30-qubit shapes ------------------------
     A29 = 1 << (N29 - 14)
@@ -1209,7 +1222,7 @@ def main() -> int:
                lambda *p: block_backward_high(*p, *Einv, *E),
                lambda *p: block_backward_high_plain(*p, *Einv, *E), HIGH_TOL,
                flops=amps29 * 3 * 128 * 8, bytes_moved=4 * state29,
-               library=high_bwd_library(E, Einv))
+               library=high_bwd_library(E, Einv), tc=adjoint_tc(amps29 * 128))
 
     # the merged top axis: (1, Xt 128, M, 128) at 2^29 amplitudes, Xt = 2 as
     # at 29 qubits and Xt = 4 as at 30 (its M cut to half, so that the plain
@@ -1364,7 +1377,7 @@ def main() -> int:
                    lambda *p, E=E, Einv=Einv: block_backward_sublane_plain(
                        *p, *Einv, *E), DUAL_TOL,
                    flops=amps_n * 384 * 8, bytes_moved=4 * st,
-                   library=sublane_library(E, Einv))
+                   library=sublane_library(E, Einv), tc=adjoint_tc(amps_n * 128))
 
     # the 29q path's high boundaries (13, 14), (20, 21), (27, 28): the high
     # apply and its adjoint on X = 8 span views
@@ -1403,7 +1416,7 @@ def main() -> int:
                4, 4, lambda *p: block_backward_high(*p, *Einv, *E),
                lambda *p: block_backward_high_plain(*p, *Einv, *E), HIGH_TOL,
                flops=amps29 * 3 * 128 * 8, bytes_moved=4 * state29,
-               library=high_bwd_library(E, Einv))
+               library=high_bwd_library(E, Einv), tc=adjoint_tc(amps29 * 128))
     check_many("block_backward_dual", "29q_g0_first", (A29, 128, 128), 4, 4,
                dual_bwd(block_backward_dual, g0_first=True),
                dual_bwd(block_backward_dual_plain, g0_first=True), DUAL_TOL,
@@ -1581,7 +1594,8 @@ def main() -> int:
                            flops=amps_n * (3 * X * 8 + 12),
                            bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
                            library=high_q_library(E, Einv, ti, tf, order == "first"),
-                           rel_each=True)
+                           rel_each=True,
+                           tc=adjoint_tc(amps_n * 128) if X == 128 else None)
         ti, tf = tables(a_n), tables(a_n)
         check_many("diag_backward", f"{nq}q_q", (a_n, 128, 128), 4, 4,
                    lambda *p, ti=ti, tf=tf: diag_backward(*p, *ti, *tf, with_q=True),
@@ -1798,7 +1812,10 @@ def main() -> int:
                       lambda *p, kw=modes: block_backward_high(*p, *Einv, *E, **kw),
                       lambda *p, kw=modes: block_backward_high_plain(*p, *Einv, *E, **kw),
                       dt, amps29 * 128 * 8 + f_tr + f_gr, b_tr + b_gr,
-                      state29 * 2 + b_bytes(dt) * 2)
+                      state29 * 2 + b_bytes(dt) * 2,
+                      tc=adjoint_tc(amps29 * 128, "float32", dt,
+                                    bwd=modes.get("bwd_mode", "f32"),
+                                    gram=modes.get("gram_mode", "f32")))
     # the wide adjoint (X = 256, a lone top-group block) takes the bf16x3
     # pair gram under f32 storage
     shape256 = (1, 256, 1 << 14, 128)
@@ -1861,8 +1878,7 @@ def main() -> int:
                       lambda *p, fn=fn: fn(*p, *Einv, *E, **gram_x3),
                       lambda *p, fn=fn_plain: fn(*p, *Einv, *E, **gram_x3),
                       torch.float32, amps29 * 2 * 128 * 8, amps29 * 128 * 24,
-                      4 * state29, tc=adjoint_tc(amps29 * 128, gram="bf16x3")
-                      if name == "block_backward_lane" else None)
+                      4 * state29, tc=adjoint_tc(amps29 * 128, gram="bf16x3"))
     torch.cuda.empty_cache()
 
     # 3h. reduced cotangent storage on the other plane paths ----------------
@@ -1961,8 +1977,7 @@ def main() -> int:
                           state29 * 2 + b_bytes(dt) * 2,
                           tc=adjoint_tc(amps29 * 128, "float32", dt,
                                         bwd=modes["bwd_mode"],
-                                        gram=modes["gram_mode"])
-                          if name == "block_backward_lane" else None)
+                                        gram=modes["gram_mode"]))
     # the X = 256 (29q) / 512 (30q) adjoint on the merged top axis: the
     # cross-Gram reads B stored reduced, the transport is the wide apply in
     # place on it; the pair gram as G = B F^T is held at 4e-5 (3g)
@@ -2234,7 +2249,8 @@ def main() -> int:
                     lambda *p, kw=x3, E=E, Ei=Einv: block_backward_high_plain(
                         *p, *Ei, *E, **kw),
                     2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                    lib(high_bwd_library(E, Einv)))
+                    lib(high_bwd_library(E, Einv)),
+                    tc=adjoint_tc(amps29 * 128, fdt, bdt, dot, "bf16x3", "bf16x3"))
         # 8. the diagonal runs (no dot): once, on bf16 planes
         if tag == "bf16":
             tab_inv = tables(A29)
@@ -2439,7 +2455,8 @@ def main() -> int:
                     lambda *p, kw=x3: block_backward_sublane(*p, *Einv, *E, **kw),
                     lambda *p, kw=x3: block_backward_sublane_plain(*p, *Einv, *E, **kw),
                     2, f_un + f_x, b_un + b_x, 2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                    lib(sublane_library(E, Einv)))
+                    lib(sublane_library(E, Einv)),
+                    tc=adjoint_tc(amps29 * 128, fdt, bdt, dot, "bf16x3", "bf16x3"))
         del E, Einv
         torch.cuda.empty_cache()
 
@@ -2522,7 +2539,14 @@ def main() -> int:
                             2 * plane_bytes(fdt) + 2 * plane_bytes(bdt)
                             + 2 * table_bytes(A29) + q_bytes,
                             lib(high_q_library(E, Einv, ti, tf, order == "first")),
-                            phase="3k")
+                            phase="3k",
+                            # a run met first leaves f32 values in the
+                            # tensor-core step's tiles (no staging)
+                            tc=adjoint_tc(amps29 * 128,
+                                          *((fdt, bdt) if order == "first"
+                                            else ("float32", "float32")),
+                                          dot, "bf16x3", "bf16x3")
+                            if X == 128 else None)
                 del ti, tf, kw
             del E, Einv
             torch.cuda.empty_cache()
@@ -2574,14 +2598,16 @@ def main() -> int:
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
-    # (the dual and lane adjoints' one-pass step, every row of theirs). Each
+    # (the one-pass step of the dual, lane and sublane adjoints and of the
+    # high adjoint at X = 128, every row of theirs). Each
     # of their rows with its bound on the tensor cores (tc_bound_ms, from the
     # mma passes its storage leaves: tc_product), which becomes its bound_ms
     # (the CUDA-core figure kept as cuda_core_bound_ms), and its share of it;
     # and the kernels' registers and spills from this run's build (with the
     # not-inlined functions of the adjoints' step)
     tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
-                                       "block_backward_dual_kernel", "tc_op_tile",
+                                       "block_backward_dual_kernel",
+                                       "block_backward_high_tc_kernel", "tc_op_tile",
                                        "pair_gram_tf32_mma128", "pair_gram_x3_tc",
                                        "tc_load_tiles", "tc_store_tile"))
     if not tc_regs:
@@ -2592,7 +2618,7 @@ def main() -> int:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
         if (r["kernel"], r["shape"][1] >= 128) == ("high_apply", True) or (
-                r["kernel"], r["shape"][1] > 128) == ("block_backward_high", True) or (
+                r["kernel"], r["shape"][1] >= TC_HIGH_X) == ("block_backward_high", True) or (
                 r["kernel"] in TC_ADJOINTS):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
@@ -3430,7 +3456,9 @@ def main() -> int:
     for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
         want_["high_apply[tc]"] = sum(k == "high_apply" and "_X8_" not in v
                                       for k, v in step_)
-    with_gram_modes(want_vg)
+    # so do the X = 128 high adjoints (not the X = 8 span views')
+    with_gram_modes(want_vg, high_tc=sum(k == "block_backward_high" and "_X8_" not in v
+                                         for k, v in vg_step))
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
         f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
 
@@ -4588,10 +4616,11 @@ def main() -> int:
         "high_multi_apply": ("dqc_tpu_torch/csrc/high_multi_apply.cu",
                              "dqc_tpu/ops/pallas/high_apply.py:273",
                              "29q_T2_cnot"),
-        "block_backward_sublane": ("dqc_tpu_torch/csrc/block_backward_sublane.cu",
+        # the lane and sublane adjoints are the dual kernel's lane and
+        # sublane steps, built in its library
+        "block_backward_sublane": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
                                    "dqc_tpu/ops/pallas/block_backward.py:184",
                                    "29q"),
-        # the lane adjoint is the dual kernel's lane step, built in its library
         "block_backward_lane": ("dqc_tpu_torch/csrc/block_backward_dual.cu",
                                 "dqc_tpu/ops/pallas/block_backward.py:88", "29q"),
     }
@@ -4640,12 +4669,22 @@ def main() -> int:
             "dqc_tpu_torch/csrc/tc_adjoint.cuh",
             "dqc_tpu/ops/pallas/block_backward.py:88 (the one-pass step, tensor cores)",
             "29q", "q"),
+        "block_backward_sublane[tc]": (
+            "dqc_tpu_torch/csrc/tc_adjoint.cuh",
+            "dqc_tpu/ops/pallas/block_backward.py:184 (the one-pass step, tensor cores)",
+            "29q", "q"),
+        "block_backward_high[tc]": (
+            "dqc_tpu_torch/csrc/tc_adjoint.cuh",
+            "dqc_tpu/ops/pallas/block_backward.py:906 (X = 128, the one-pass step, "
+            "tensor cores)", "29q_X128_plain", "X128_"),
     }
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
                  "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "block_backward_dual[tc]": {"counts": counts29, "counts_fwd": fwd29},
-                 "block_backward_lane[tc]": t29}
+                 "block_backward_lane[tc]": t29,
+                 "block_backward_sublane[tc]": {"counts": countsc, "counts_fwd": fwdc},
+                 "block_backward_high[tc]": {"counts": counts29, "counts_fwd": fwd29}}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):
@@ -4712,7 +4751,7 @@ def main() -> int:
                                 "dqc_tpu/ops/pallas/diag.py:154 (bf16 bwd)",
                                 "29q_bf16", ("bfloat16",), bf16c),
         "block_backward_sublane[gram_bf16x3]": (
-            "dqc_tpu_torch/csrc/block_backward_sublane.cu",
+            "dqc_tpu_torch/csrc/block_backward_dual.cu",
             f"{bb}:184 (gram_dot_mode bf16x3)", "29q_gram_bf16x3",
             ("float32",), countsc),
         "block_backward_lane[gram_bf16x3]": (
@@ -4764,9 +4803,8 @@ def main() -> int:
     for name, line, counts16, countsb in (
             ("block_backward_sublane", f"{bb}:184", c16, cmix),
             ("block_backward_lane", f"{bb}:88", tc16, tmix)):
-        # the lane adjoint is built in the dual adjoint's library
-        src = ("dqc_tpu_torch/csrc/block_backward_dual.cu" if name == "block_backward_lane"
-               else f"dqc_tpu_torch/csrc/{name}.cu")
+        # the lane and sublane adjoints are built in the dual adjoint's library
+        src = "dqc_tpu_torch/csrc/block_backward_dual.cu"
         variants[f"{name}[f16]"] = (src, f"{line} (u16 bwd)", "29q_f16", ("float16",),
                                     counts16)
         variants[f"{name}[bf16]"] = (src, f"{line} (bf16 bwd)", "29q_bf16",
@@ -4870,7 +4908,7 @@ def main() -> int:
          "29q_T2_cnot", every,
          c29b["high_multi_apply[bf16]"], c29x["high_multi_apply[fwd_bf16x3]"]),
         (("block_backward_sublane[fwd_bf16]", "block_backward_sublane[fwd_bf16x3]"),
-         "block_backward_sublane", "block_backward_sublane.cu", "29q", every,
+         "block_backward_sublane", "block_backward_dual.cu", "29q", every,
          c29b["block_backward_sublane[fwd_bf16]"],
          c29x["block_backward_sublane[fwd_bf16x3]"]))
     replaces_of = {"high_apply": "dqc_tpu/ops/pallas/high_apply.py:76",

@@ -1,8 +1,10 @@
-// The one-pass adjoint step on a tile of columns on the CUDA cores, shared
-// by the sublane and high adjoints (block_backward_sublane.cu,
-// block_backward_high.cu); the dual and lane adjoints run its tensor-core
-// counterpart (tc_adjoint.cuh), which shares the tile loads' diagonal
-// views, the Q reductions and the bf16x3 pair gram below.
+// The one-pass adjoint step on a tile of columns on the CUDA cores: the high
+// adjoint's at X = 8..64 (block_backward_high.cu, block_backward_high_fwd16.cu);
+// the merged-top adjoint (block_backward_merged_fact.cu) runs its products
+// and pair gram at X = 128. The dual, lane and sublane adjoints and the high
+// adjoint at X = 128 run its tensor-core counterpart (tc_adjoint.cuh), which
+// shares the diagonal views, the Q reductions, diag_tile_smem and the bf16x3
+// pair gram below.
 //
 // A "column" is X amplitudes along the contracted group axis; the tile
 // holds C = 8192 / X columns, and element (x, c) sits at base[x rs + c cs]
@@ -40,12 +42,11 @@
 //
 // Reduced cotangent storage and bf16x3 (config.set_state_storage,
 // set_bwd_kernel_dot_mode / set_gram_kernel_dot_mode): B may be stored as
-// bf16 or f16 (common.cuh's codec at its loads and stores; F stays f32), the
-// transport may run bf16x3 (TX3) and the pair gram bf16x3 (GX3), the
-// uncompute always f32. The bf16x3 pair gram of a 128-row tile runs on the
-// tensor cores (pair_gram_x3_mma128: mma.sync m16n8k16 bf16, three products
-// per real product, the parts split from shared memory into registers);
-// faster than the f32 gram's FMAs. Elsewhere bf16x3 is two FMAs per real
+// bf16 or f16 (common.cuh's codec at its loads and stores), the transport
+// may run bf16x3 (TX3) and the pair gram bf16x3 (GX3). The bf16x3 pair gram
+// of a 128-row tile runs on the tensor cores (pair_gram_x3_mma128: mma.sync
+// m16n8k16 bf16, three products per real product, the parts split from
+// shared memory into registers). Elsewhere bf16x3 is two FMAs per real
 // product on parts split in registers (common.cuh cmac3): the transport half
 // stages its operator tile as hi and lo parts at half the depth, in the same
 // shared memory, and splits the tile's values as it reads them; a narrower
@@ -56,18 +57,15 @@
 // set_kernel_dot_mode): F may be stored as bf16 too (fkind, a run-time
 // argument as B's kind, the same codec; its loads and stores branch once
 // to a loop of each kind, since a per-element branch there cost the f32
-// adjoints 3-18% on the H100), rounded where the TPU kernel stores and
-// reloads it (stage, as B), and the uncompute may run bf16x3 (UX3): the
+// adjoints 3-18% on the H100), and the uncompute may run bf16x3 (UX3): the
 // first half then stages its operator tile as hi and lo parts as the
 // transport half does with TX3.
 //
 // The shared-memory tile functions below that the tensor-core step shares
-// (diag_tile_smem, the slab Q reductions, pair_gram_x3_mma128) take the
-// tile's layout as a parameter L: L::at(x, c) is where element (x, c) sits,
-// rows padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh.
+// (diag_tile_smem, the Q reductions, pair_gram_x3_mma128) take the tile's
+// layout as a parameter L: L::at(x, c) is where element (x, c)
+// sits, rows padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -105,7 +103,7 @@ template <int LD>
 struct PadRows {
   static __device__ __forceinline__ int at(int x, int c) { return x * LD + c; }
 };
-using Pad128 = PadRows<AdjCfg<kGroup>::LD>;  // the X = 128 tile of adjoint_tile
+using Pad128 = PadRows<AdjCfg<kGroup>::LD>;  // the X = 128 tile of adjoint.cuh
 
 // Where a tile's entries of the diagonal run D[a, s, l] come from.
 struct DiagView {
@@ -256,43 +254,36 @@ __device__ void op_times_tile(const float* __restrict__ er,
   }
 }
 
-// The products back into the shared-memory tile [y][c], rounded to the
-// storage kind qkind (kStoreF32: as they are).
+// The products back into the shared-memory tile [y][c].
 template <int X>
 __device__ __forceinline__ void acc_to_tile(const float (&accr)[8][4],
                                             const float (&acci)[8][4],
-                                            float* tr_, float* ti_,
-                                            int qkind = kStoreF32) {
+                                            float* tr_, float* ti_) {
   using Cfg = AdjCfg<X>;
   const int t = threadIdx.x % kHalf;
   const int rg = t / Cfg::CT, ct = t % Cfg::CT;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int o = (rg * 8 + i) * Cfg::LD + 4 * ct;
-    *reinterpret_cast<float4*>(tr_ + o) = make_float4(
-        quantize(accr[i][0], qkind), quantize(accr[i][1], qkind),
-        quantize(accr[i][2], qkind), quantize(accr[i][3], qkind));
-    *reinterpret_cast<float4*>(ti_ + o) = make_float4(
-        quantize(acci[i][0], qkind), quantize(acci[i][1], qkind),
-        quantize(acci[i][2], qkind), quantize(acci[i][3], qkind));
+    *reinterpret_cast<float4*>(tr_ + o) =
+        make_float4(accr[i][0], accr[i][1], accr[i][2], accr[i][3]);
+    *reinterpret_cast<float4*>(ti_ + o) =
+        make_float4(acci[i][0], acci[i][1], acci[i][2], acci[i][3]);
   }
 }
 
 // Planes <-> shared-memory tile, in the order that keeps device-memory
 // accesses coalesced (x fastest when the rows are adjacent, rs == 1),
 // optionally times the run's entries; the planes stored as kind (common.cuh
-// codec). qkind rounds the loaded values times the run to that storage
-// (kStoreF32: not at all), as a store and a reload would. K >= 0 fixes the
-// planes' kind at compile time (the forward planes': each kind its own
-// loop, so that the f32 one keeps its plain loads), else ``kind`` gives it.
+// codec). K >= 0 fixes the planes' kind at compile time (the forward
+// planes': each kind its own loop, so that the f32 one keeps its plain
+// loads), else ``kind`` gives it.
 template <int X, int K = -1>
 __device__ void load_tile(const void* gr_, const void* gi_, int kind,
                           int64_t rs, int64_t cs, float* tr_, float* ti_,
-                          int use_diag, const DiagView& dv,
-                          int qkind = kStoreF32) {
+                          int use_diag, const DiagView& dv) {
   using Cfg = AdjCfg<X>;
   if constexpr (K >= 0) kind = K;
-  if constexpr (K == kStoreF32) qkind = kStoreF32;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
     const int c = rs == 1 ? e / X : e % Cfg::C;
@@ -302,31 +293,23 @@ __device__ void load_tile(const void* gr_, const void* gi_, int kind,
       float dr, di;
       diag_view_at(dv, x, c, dr, di);
       cmul(vr, vi, dr, di, vr, vi);
-      vr = quantize(vr, qkind);
-      vi = quantize(vi, qkind);
     }
     tr_[x * Cfg::LD + c] = vr;
     ti_[x * Cfg::LD + c] = vi;
   }
 }
 
-// qkind rounds the values to that storage before the run's entries
-// multiply them (kStoreF32: not at all), as a store and a reload would.
 template <int X, int K = -1>
 __device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
                            int64_t cs, const float* tr_, const float* ti_,
-                           int use_diag, const DiagView& dv,
-                           int qkind = kStoreF32) {
+                           int use_diag, const DiagView& dv) {
   using Cfg = AdjCfg<X>;
   if constexpr (K >= 0) kind = K;
-  if constexpr (K == kStoreF32) qkind = kStoreF32;
   for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
     const int x = rs == 1 ? e % X : e / Cfg::C;
     const int c = rs == 1 ? e / X : e % Cfg::C;
     float vr = tr_[x * Cfg::LD + c], vi = ti_[x * Cfg::LD + c];
     if (use_diag) {
-      vr = quantize(vr, qkind);
-      vi = quantize(vi, qkind);
       float dr, di;
       diag_view_at(dv, x, c, dr, di);
       cmul(vr, vi, dr, di, vr, vi);
@@ -438,9 +421,9 @@ __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
 // part[g][x][y] (re), part[g][X X + x X + y] (im) += sum over this group's
 // columns, the float4 columns 4 (g + G kk) .. + 3, of B[x][c] F[y][c];
 // x = rx + i, y = cy + CT2 j. With GX3 the products run bf16x3: on the
-// tensor cores at X = 128 (pair_gram_x3_mma128), else on the CUDA cores,
-// the columns of a float4 one at a time with scalar reads, B as (hi, lo)
-// parts and F as (hi, hi + lo).
+// tensor cores at X = 128 (pair_gram_x3_mma128, the merged adjoint's low
+// step), else on the CUDA cores, the columns of a float4 one at a time with
+// scalar reads, B as (hi, lo) parts and F as (hi, hi + lo).
 template <int X, bool GX3 = false>
 __device__ void pair_gram(const float* bR, const float* bI, const float* fR,
                           const float* fI, float* part) {
@@ -627,6 +610,19 @@ struct QHigh {
   int64_t post;
 };
 
+// The shape of q_tile's work on a tile of X rows x C = 8192 / X columns of
+// the high view: segments of SL columns (one (x, s) row of l each), R row
+// chunks of the column sums, whose partials need kScratchFloats of the
+// caller's shared memory.
+template <int X>
+struct QHighCfg {
+  static constexpr int C = AdjCfg<X>::C;
+  static constexpr int SL = C < kGroup ? C : kGroup;
+  static constexpr int NSEG = C / SL;
+  static constexpr int R = C < kAdjThreads ? kAdjThreads / C : 1;
+  static constexpr int kScratchFloats = R > 1 ? 2 * R * C : 0;
+};
+
 // The tile's share of the Q reductions, Q = B F, from the shared-memory
 // tiles of F and B. The caller walks a block's tiles one (i, p) group at a
 // time (all 128 x 128 columns of one i and p, so every Qas and Qal entry
@@ -638,21 +634,18 @@ struct QHigh {
 // * Qas[a, s]: warp w takes the segments (x, k) = w, w + 16, ...; a
 //   segment's sum is a fixed butterfly of warp shuffles, added by lane 0;
 // * Qsl[s, l]: column c's sum over the rows, in R = max(1, 512 / C) row
-//   chunks whose partials go to scratch (2 R C <= 32 X floats, the
-//   operator-tile buffers) and are added in chunk order by one thread, which
-//   adds the result to the block's slot (red.global, as the pair gram).
+//   chunks whose partials go to scratch (QHighCfg<X>::kScratchFloats, idle
+//   shared memory of the caller's) and are added in chunk order by one
+//   thread, which adds the result to the block's slot (red.global, as the
+//   pair gram).
 // Every read of F and B comes before the one barrier, so the caller may
-// update the tiles once this returns.
-template <int X>
+// update the tiles once this returns. L: the tiles' layout.
+template <int X, class L = PadRows<AdjCfg<X>::LD>>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
                        const float* bI, const QHigh& q, float* scratch) {
-  using Cfg = AdjCfg<X>;
-  constexpr int C = Cfg::C, LD = Cfg::LD;
-  constexpr int SL = C < kGroup ? C : kGroup;
-  constexpr int NSEG = C / SL;
-  constexpr int R = C < kAdjThreads ? kAdjThreads / C : 1;
+  using Cfg = QHighCfg<X>;
+  constexpr int C = Cfg::C, SL = Cfg::SL, NSEG = Cfg::NSEG, R = Cfg::R;
   constexpr int RC = X / R;
-  static_assert(R == 1 || 2 * R * C <= 4 * Cfg::KC * X, "scratch holds the partials");
   const int64_t p = q.q0 >> 14;
   const int s0 = (int)((q.q0 >> 7) & 127);
   const int l0 = (int)(q.q0 & 127);
@@ -662,7 +655,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
     float sr = 0.f, si = 0.f;
 #pragma unroll 1
     for (int k = 0; k < NSEG; ++k) {
-      const int e = x * LD + k * SL + lc;
+      const int e = L::at(x, k * SL + lc);
       float qr, qi;
       cmul(bR[e], bI[e], fR[e], fI[e], qr, qi);
       sr += qr;
@@ -677,7 +670,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
     const int x = seg / NSEG, k = seg % NSEG;
     float sr = 0.f, si = 0.f;
     for (int lc = lane; lc < SL; lc += 32) {
-      const int e = x * LD + k * SL + lc;
+      const int e = L::at(x, k * SL + lc);
       float qr, qi;
       cmul(bR[e], bI[e], fR[e], fI[e], qr, qi);
       sr += qr;
@@ -701,9 +694,9 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
     float sr = 0.f, si = 0.f;
 #pragma unroll 1
     for (int x = r * RC; x < (r + 1) * RC; ++x) {
+      const int e = L::at(x, c);
       float qr, qi;
-      cmul(bR[x * LD + c], bI[x * LD + c], fR[x * LD + c], fI[x * LD + c], qr,
-           qi);
+      cmul(bR[e], bI[e], fR[e], fI[e], qr, qi);
       sr += qr;
       si += qi;
     }
@@ -756,26 +749,20 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
 
 // One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs).
 // diag_mode: 0 none, 1 roll the run back on load, 2 on store. q (null for
-// none): where the run's Q reductions go (QView for a slab tile, QHigh for a
-// high-view tile), from the planes as they meet the run — loaded as they
-// are, then the run's entries multiplied in shared memory (mode 1), or
-// before the store (mode 2). B is stored as bkind, F as fkind; TX3 / GX3 /
-// UX3 run the transport / the pair gram / the uncompute bf16x3. stage (the
-// dual adjoint, whose TPU kernel stages the run's step through its output
-// planes) rounds F and B to their storage where that kernel stores and
-// reloads them: after the run's entries on load, before them on store (B's
-// transport result in shared memory; F as it is stored and as the Q
-// reductions read it, since the pair gram reads it unrounded). Without
-// stage (the high adjoint) Q takes the f32 values, as its TPU kernel's
-// does. FK >= 0 fixes F's kind at compile time.
-template <int X, bool TX3 = false, bool GX3 = false, class QT = QView,
-          bool UX3 = false, int FK = -1>
+// none): where the run's Q reductions of a high-view tile go, from the
+// planes as they meet the run — loaded as they are, then the run's entries
+// multiplied in shared memory (mode 1), or before the store (mode 2); the
+// f32 values, as the TPU kernel's Q reads them. B is stored as bkind, F as
+// fkind; TX3 / GX3 / UX3 run the transport / the pair gram / the uncompute
+// bf16x3. FK >= 0 fixes F's kind at compile time.
+template <int X, bool TX3 = false, bool GX3 = false, bool UX3 = false,
+          int FK = -1>
 __device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
-                             int bkind, int stage, int64_t rs, int64_t cs,
+                             int bkind, int64_t rs, int64_t cs,
                              const Operators& ops, int diag_mode,
                              const DiagView& dv_inv, const DiagView& dv_fwd,
-                             float* part, float* smem, const QT* q = nullptr,
-                             int fkind = kStoreF32) {
+                             float* part, float* smem, const QHigh* q,
+                             int fkind) {
   using Cfg = AdjCfg<X>;
   float* sFr = smem;
   float* sFi = sFr + X * Cfg::LD;
@@ -788,26 +775,24 @@ __device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
   float* sTi = sTr + Cfg::KC * X;                           // operator tile
   float accr[8][4], acci[8][4];
   if constexpr (FK >= 0) fkind = FK;
-  const int qkind = stage ? bkind : kStoreF32;
-  const int fqkind = stage ? fkind : kStoreF32;
 
   float* scratch = sOi + X * Cfg::LD;  // both halves' operator tiles
+  static_assert(QHighCfg<X>::kScratchFloats <= 4 * Cfg::KC * X,
+                "the operator tiles hold Q's scratch");
   __syncthreads();  // the previous tile's stores and gram have read the buffers
   const bool q_on_load = q != nullptr && diag_mode == 1;
+  const int load_diag = diag_mode == 1 && !q_on_load;
   if (fkind == kStoreF32)
-    load_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi,
-                            diag_mode == 1 && !q_on_load, dv_inv);
+    load_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, load_diag, dv_inv);
   else
-    load_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi,
-                             diag_mode == 1 && !q_on_load, dv_inv, fqkind);
-  load_tile<X>(br, bi, bkind, rs, cs, sBr, sBi, diag_mode == 1 && !q_on_load,
-               dv_fwd, qkind);
+    load_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi, load_diag, dv_inv);
+  load_tile<X>(br, bi, bkind, rs, cs, sBr, sBi, load_diag, dv_fwd);
   if (q_on_load) {
     __syncthreads();  // the tile is loaded
     q_tile<X>(sFr, sFi, sBr, sBi, *q, scratch);
     __syncthreads();  // every read of the raw tiles is done
-    diag_tile_smem<X>(sFr, sFi, dv_inv, fqkind);
-    diag_tile_smem<X>(sBr, sBi, dv_fwd, qkind);
+    diag_tile_smem<X>(sFr, sFi, dv_inv);
+    diag_tile_smem<X>(sBr, sBi, dv_fwd);
   }
 
   // first half: the uncompute fin = Einv F; second half: the transport
@@ -818,25 +803,15 @@ __device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
                              half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
                              accr, acci);
   __syncthreads();  // every thread is done reading F
-  acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi,
-                 half && diag_mode == 2 ? qkind : kStoreF32);
+  acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
   __syncthreads();  // fin and bout are complete
-  if (q != nullptr && diag_mode == 2) {
-    if constexpr (FK != kStoreF32 && std::is_same<QT, QView>::value) {
-      if (fqkind != kStoreF32)
-        q_tile<X, true>(sFr, sFi, sOr, sOi, *q, scratch, fqkind);
-      else
-        q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
-    } else {
-      q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
-    }
-  }
+  if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
   if (fkind == kStoreF32)
     store_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
                              dv_inv);
   else
     store_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
-                              dv_inv, fqkind);
+                              dv_inv);
   store_tile<X>(br, bi, bkind, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
 
   // the pair gram of the incoming cotangent and fin

@@ -24,8 +24,11 @@
 // variable gates (plane_scan._diag_cts_from_Q).
 //
 // The lane adjoint (block_backward_lane, block_backward.py:88, body _kernel
-// at :35) is the lane step alone, so this library builds it too
-// (dqc_block_backward_lane below): the same kernel with one step, no run.
+// at :35) is the lane step alone and the sublane adjoint
+// (block_backward_sublane, block_backward.py:184, pallas_call at :209, body
+// _kernel_sub at :133) the sublane step alone, so this library builds both
+// too (dqc_block_backward_lane and dqc_block_backward_sublane below): the
+// same kernel with one step, no run.
 //
 // Bound: operations on the tensor cores. Six 128-wide complex products per
 // slab, 768 complex multiply-adds per amplitude: the uncomputes and the
@@ -80,7 +83,7 @@ constexpr int kSlab = N * N;
 // per block: T0_lane (re, im), T0_sub (re, im) and, with diag_q, Qsl (re, im)
 constexpr int kPartFloats = 4 * kSlab;
 constexpr int kPartFloatsQ = 6 * kSlab;
-constexpr int kPartFloatsLane = 2 * kSlab;  // the lane adjoint: T0
+constexpr int kPartFloatsOne = 2 * kSlab;  // the lane or sublane adjoint: T0
 
 struct QRows {  // the (A, 128) outputs Qas and Qal
   float* as_r;
@@ -89,9 +92,10 @@ struct QRows {  // the (A, 128) outputs Qas and Qal
   float* al_i;
 };
 
-// nsteps 2: the dual step (sublane and lane, in g0_first's order); 1: the
-// lane step alone (the lane adjoint: no run, stage off). part holds
-// part_floats per block: T0_lane, then T0_sub, then Qsl.
+// nsteps 2: the dual step (sublane and lane, in g0_first's order); 1: one
+// step alone, the lane step (g0_first 0: the lane adjoint) or the sublane
+// step (g0_first 1: the sublane adjoint), no run, stage off. part holds
+// part_floats per block: T0_lane, then T0_sub, then Qsl (one step: its T0).
 template <int UM, int TM, bool GX3>
 __global__ void __launch_bounds__(dqc::kAdjThreads, 1)
 block_backward_dual_kernel(char* fr, char* fi, char* br, char* bi,
@@ -103,13 +107,13 @@ block_backward_dual_kernel(char* fr, char* fi, char* br, char* bi,
   const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
   const int fsize = fkind == dqc::kStoreF32 ? 4 : 2;  // bytes per F element
   float* part_lane = part + (int64_t)blockIdx.x * part_floats;
-  float* part_sub = part_lane + 2 * kSlab;
+  float* part_sub = part_lane + (nsteps - 1) * 2 * kSlab;
   dqc::QView qv{part_sub + 2 * kSlab, qrows.as_r, qrows.as_i, qrows.al_r,
                 qrows.al_i, 0, 0, 0};
   for (int64_t a = blockIdx.x; a < A; a += gridDim.x) {
     const int64_t off = a * kSlab;
     for (int step = 0; step < nsteps; ++step) {
-      const bool sublane = nsteps == 2 && (step == 0) == (g0_first != 0);
+      const bool sublane = (step == 0) == (g0_first != 0);
       int diag_mode = 0;
       if (has_diag && step == 0 && !diag_first_fwd) diag_mode = 1;
       if (has_diag && step == 1 && diag_first_fwd) diag_mode = 2;
@@ -174,6 +178,26 @@ int launch_modes(int dot_x3, int bwd_x3, int gram_x3, void* fr, void* fi,
                   part_floats, A, nblk, nsteps, s);
 }
 
+// One step alone on planes (A, 128, 128): the sublane step, else the lane
+// step.
+int launch_one(int sublane, void* fr, void* fi, void* br, void* bi, int bkind,
+               int fkind, const uint32_t* op_inv, const uint32_t* op_t,
+               float* part, float* out, long long A, int nblk, int bwd_x3,
+               int gram_x3, int dot_x3, cudaStream_t s) {
+  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2 ||
+      fkind < 0 || fkind > 1)
+    return (int)cudaErrorInvalidValue;
+  const TcOps ops{op_inv, op_t};
+  const DiagTables none{};
+  const QRows no_q{};
+  const int code = launch_modes(dot_x3, bwd_x3, gram_x3, fr, fi, br, bi, bkind,
+                                fkind, ops, ops, none, none, 0, 0, sublane, 0,
+                                no_q, part, kPartFloatsOne, (int64_t)A, nblk, 1,
+                                s);
+  if (code != 0) return code;
+  return dqc::launch_reduce(part, out, nblk, kPartFloatsOne, s);
+}
+
 }  // namespace
 
 // In place on planes (A, 128, 128): (F, B) <- the adjoint step of the lane
@@ -235,16 +259,22 @@ extern "C" int dqc_block_backward_lane(void* fr, void* fi, void* br, void* bi,
                                        float* out, long long A, int nblk,
                                        int bwd_x3, int gram_x3, int dot_x3,
                                        void* stream) {
-  if (A <= 0 || nblk <= 0 || nblk > A || bkind < 0 || bkind > 2 ||
-      fkind < 0 || fkind > 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const TcOps ops{op_inv, op_t};
-  const DiagTables none{};
-  const QRows no_q{};
-  const int code = launch_modes(dot_x3, bwd_x3, gram_x3, fr, fi, br, bi, bkind,
-                                fkind, ops, ops, none, none, 0, 0, 0, 0, no_q,
-                                part, kPartFloatsLane, (int64_t)A, nblk, 1, s);
-  if (code != 0) return code;
-  return dqc::launch_reduce(part, out, nblk, kPartFloatsLane, s);
+  return launch_one(0, fr, fi, br, bi, bkind, fkind, op_inv, op_t, part,
+                    out, A, nblk, bwd_x3, gram_x3, dot_x3, (cudaStream_t)stream);
+}
+
+// The sublane adjoint (block_backward.py:184), in place on planes (A, 128,
+// 128): (F, B) <- the adjoint step of the sublane operator E (F <- Einv F,
+// T0 += B F^T, B <- E^T B); arguments as dqc_block_backward_lane's.
+// Returns cudaGetLastError().
+extern "C" int dqc_block_backward_sublane(void* fr, void* fi, void* br,
+                                          void* bi, int bkind, int fkind,
+                                          const uint32_t* op_inv,
+                                          const uint32_t* op_t, float* part,
+                                          float* out, long long A, int nblk,
+                                          int bwd_x3, int gram_x3, int dot_x3,
+                                          void* stream) {
+  return launch_one(1, fr, fi, br, bi, bkind, fkind, op_inv, op_t,
+                    part, out, A, nblk, bwd_x3, gram_x3, dot_x3,
+                    (cudaStream_t)stream);
 }

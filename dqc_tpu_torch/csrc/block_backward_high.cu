@@ -1,8 +1,8 @@
-// One-pass adjoint step of a high-group block on f32 planes.
+// One-pass adjoint step of a high-group block on the planes.
 //
 // Replaces the TPU kernel block_backward_high
 // (dqc_tpu/ops/pallas/block_backward.py:906, pallas_call at :995, body
-// _kernel_high at :756), for X <= 128, with its diag_q outputs. On the view
+// _kernel_high at :756), with its diag_q outputs. On the view
 // (A1, X, Q = M 128)
 // of the forward planes F and the cotangent planes B, with the group's
 // operator E (X x X) on axis X, for every column:
@@ -23,21 +23,31 @@
 // Bound: operations. Three X-wide complex products per column, 3 X complex
 // multiply-adds per amplitude (8 real flops each) against 32 bytes read and
 // written: ~96 flop per byte at X = 128, above the H100's FP32 ridge
-// (~20 flop/B). X <= 128: f32 FMA on the CUDA cores, no TF32.
+// (~20 flop/B). X = 8..64: f32 FMA on the CUDA cores, no TF32. X = 128: on
+// the tensor cores, as the dual adjoint's step (3xTF32 or bf16x3: three
+// passes per real product at 495 / 989 TFLOP/s, a pass fewer where a planes
+// operand's lo parts are zero).
 //
-// Design: adjoint.cuh on tiles of 8192 / X columns (all of one i, since
-// they divide Q), in place: 512 threads, the uncompute and the transport at
-// once on the two halves of the block. A grid of one block per SM loops over
-// the tiles, and the pair grams' per-block, per-group partial slots are
-// added in a fixed order by a second kernel. With diag_q the blocks walk
+// Design: tiles of X rows by 8192 / X columns (all of one i, since they
+// divide Q), in place. A grid of one block per SM loops over the tiles, and
+// the pair grams' per-block, per-group partial slots are added in a fixed
+// order by a second kernel. At X = 8..64, adjoint.cuh's step: 512 threads,
+// the uncompute and the transport at once on the two halves of the block.
+// At X = 128, the tile is 128 rows at stride Q by 64 contiguous columns, the
+// dual adjoint's 128 x 64 tile: tc_adjoint.cuh's step (its tiles unpadded
+// and swizzled in shared memory, loaded in 256-byte row runs, every product
+// on mma.sync on all 16 warps, Einv and E^T pre-split by the wrapper and
+// streamed through a cp.async ring), without the dual adjoint's staging,
+// one pair-gram slot per block. With diag_q the blocks walk
 // the tiles one (i, p) group at a time (the 128 x 128 columns of one i and
 // p: 16384 / C tiles), so that each Qas and Qal entry is written by one
 // block only; the Q phase runs on the tiles already in shared memory
-// (adjoint.cuh q_tile for QHigh): Qas and Qal entries are each added by one
-// thread, tile after tile, and Qsl goes to one more partial slot per block,
-// summed by the same fixed-order second kernel. Q adds 2 complex
-// multiply-adds and 3 reductions per amplitude, and 2 x 2 A x 128 + 2 x 128 x
-// 128 floats of outputs.
+// (adjoint.cuh q_tile for QHigh, on either step's layout; at X = 128 its
+// row-chunk partials in the idle operator ring): Qas and Qal entries are
+// each added by one thread, tile after tile, and Qsl goes to one more
+// partial slot per block, summed by the same fixed-order second kernel. Q
+// adds 2 complex multiply-adds and 3 reductions per amplitude, and 2 x 2 A x
+// 128 + 2 x 128 x 128 floats of outputs.
 //
 // X = 256 and 512, the merged top axis of a tiny top group (a lone dense
 // block there as E (x) I, or the unfactorized hpair's merged operator;
@@ -67,9 +77,9 @@
 //
 // Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
 // gram_dot_mode at block_backward.py:826-835), X <= 128: B is stored as f32,
-// bf16 or f16 (bkind, F stays f32; one load and one store per element, as
-// in the TPU kernel), the transport runs bf16x3 with bwd_x3 and the pair
-// gram with gram_x3 (adjoint.cuh). X = 256 / 512 takes the same modes: the
+// bf16 or f16 (bkind; one load and one store per element, as in the TPU
+// kernel), the transport runs bf16x3 with bwd_x3 and the pair gram with
+// gram_x3, else f32 (3xTF32 at X = 128). X = 256 / 512 takes the same modes: the
 // cross-Gram decodes B as it stages it; the transport is the tensor-core
 // apply in place on B in its storage, bf16x3 with bwd_x3 (one load and one
 // store of B there, as in the TPU kernel; the cross-Gram's read of B comes
@@ -78,17 +88,72 @@
 // "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
 // on F and its dot_mode), at every X: F may be stored as bf16 (one load and
 // one store per element, as in the TPU kernel) and the uncompute runs
-// bf16x3 with dot_x3 (adjoint.cuh UX3). At X = 128 F's kind is a template
-// parameter (a run-time kind there cost the f32 adjoint 3-5% on the H100);
-// at X = 8..64 the variants take it at run time (adjoint.cuh: one branch
-// per tile to a loop of each kind; half the instantiations) and build in
-// a library of their own, block_backward_high_fwd16.cu, beside the f32
-// instantiations here, which keep their code. At X = 256 / 512 the cross-Gram
-// decodes F as it stages it and the uncompute is the tensor-core apply in
-// place on F in its storage, bf16x3 with dot_x3.
+// bf16x3 with dot_x3. At X = 128 the tensor-core step takes F's kind at run
+// time (one branch per tile to a load and a store of each kind). At X =
+// 8..64 the variants take it at run time too (adjoint.cuh: one branch per
+// tile to a loop of each kind; half the instantiations) and build in a
+// library of their own, block_backward_high_fwd16.cu, beside the f32
+// instantiations here, which keep their code. At X = 256 / 512 the
+// cross-Gram decodes F as it stages it and the uncompute is the tensor-core
+// apply in place on F in its storage, bf16x3 with dot_x3.
 #include "block_backward_high.cuh"
+#include "tc_adjoint.cuh"
 
 namespace {
+
+// --- X = 128 on the tensor cores ------------------------------------------
+
+using dqc::TcOps;
+
+// block_backward_high_kernel's walk at X = 128, each tile a step of
+// tc_adjoint.cuh without the dual adjoint's staging (stage 0: F and B are
+// rounded to their storage once, as they are stored; Q reads the f32
+// values); one pair-gram slot per block.
+template <int UM, int TM, bool GX3>
+__global__ void __launch_bounds__(dqc::kAdjThreads, 1)
+block_backward_high_tc_kernel(char* fr, char* fi, char* br, char* bi,
+                              int bkind, int fkind, TcOps ops, DiagTables dinv,
+                              DiagTables dfwd, int has_diag, int diag_first_fwd,
+                              int diag_q, QOut qo, float* part, int64_t Q,
+                              int64_t post, int64_t ntiles) {
+  constexpr int X = dqc::kGroup;
+  const int bsize = bkind == dqc::kStoreF32 ? 4 : 2;  // bytes per B element
+  const int fsize = fkind == dqc::kStoreF32 ? 4 : 2;  // bytes per F element
+  float* slot = part + (int64_t)blockIdx.x * 2 * X * X;
+  const int diag_mode = has_diag ? (diag_first_fwd ? 2 : 1) : 0;
+  QHigh qh{qo.sl_part + (int64_t)blockIdx.x * 2 * kSl, qo.as_r, qo.as_i,
+           qo.al_r, qo.al_i, 0, 0, post};
+  for_each_tile<dqc::TcRows::C>(Q, ntiles, diag_q, [&](int64_t i, int64_t q0) {
+    const int64_t t = i * X * Q + q0;
+    DiagView vi{dinv, 2, i, q0, X, post};
+    DiagView vf{dfwd, 2, i, q0, X, post};
+    qh.i = i;
+    qh.q0 = q0;
+    dqc::tc_adjoint_tile<UM, TM, GX3>(
+        fr + t * fsize, fi + t * fsize, br + t * bsize, bi + t * bsize, bkind,
+        fkind, 0, Q, 1, ops, diag_mode, vi, vf, slot, diag_q ? &qh : nullptr);
+  });
+}
+
+template <int UM, int TM, bool GX3>
+int launch_high_tc(char* fr, char* fi, char* br, char* bi, int bkind,
+                   int fkind, const TcOps& ops, const DiagTables& dinv,
+                   const DiagTables& dfwd, int has_diag, int diag_first_fwd,
+                   int diag_q, const QOut& qo, float* qsl, float* part,
+                   float* out, long long A1, long long Q, int nblk,
+                   cudaStream_t stream) {
+  constexpr int X = dqc::kGroup, kSmem = dqc::kTcAdjSmemBytes;
+  const long long ntiles = high_tiles(dqc::TcRows::C, A1, Q, diag_q, nblk);
+  if (ntiles == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = block_backward_high_tc_kernel<UM, TM, GX3>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nblk, dqc::kAdjThreads, kSmem, stream>>>(
+      fr, fi, br, bi, bkind, fkind, ops, dinv, dfwd, has_diag, diag_first_fwd,
+      diag_q, qo, part, (int64_t)Q, (int64_t)(Q >> 14), (int64_t)ntiles);
+  return high_reduce(part, out, nblk, 2 * X * X, diag_q, qo, qsl, nblk, stream);
+}
 
 // --- X = 256 / 512 ------------------------------------------------------
 
@@ -367,18 +432,18 @@ int launch_wide(const void* fr, const void* fi, const void* br,
 
 // The number of partial slots per block of the pair gram at this X (the
 // caller sizes the scratch: nblk * slots * 2 * X * X floats), 0 for an X the
-// kernel does not take.
+// kernel does not take; X = 128 is dqc_block_backward_high_tc's.
 extern "C" int dqc_block_backward_high_slots(int X) {
   switch (X) {
     case 8: return AdjCfg<8>::G;
     case 16: return AdjCfg<16>::G;
     case 32: return AdjCfg<32>::G;
     case 64: return AdjCfg<64>::G;
-    case 128: return AdjCfg<128>::G;
+    case 128: return 1;
     default: return 0;
   }
 }
-// In place on the view (A1, X, Q = M 128), X in {8, 16, 32, 64, 128}:
+// In place on the view (A1, X, Q = M 128), X in {8, 16, 32, 64}:
 // (F, B) <- the adjoint step of E; out = (T0 re, T0 im), 2 x X x X floats.
 // part is scratch of nblk * slots(X) * 2 X X floats, set to zero by the
 // caller; nblk is the number of blocks (at most the number of tiles,
@@ -390,14 +455,13 @@ extern "C" int dqc_block_backward_high_slots(int X) {
 // qsl the (Qsl re, im) output, 2 x 128 x 128 floats (all null without).
 // B is stored as bkind (0 f32, 1 bf16, 2 f16), F as fkind (0 f32, 1 bf16);
 // bwd_x3 / gram_x3 / dot_x3 run the transport / the pair gram / the
-// uncompute bf16x3. Below X = 128 this library takes f32 F and an f32
-// uncompute (dqc_block_backward_high_fwd16 the rest). Returns
-// cudaGetLastError().
+// uncompute bf16x3. This entry takes f32 F and an f32 uncompute
+// (dqc_block_backward_high_fwd16 the rest). Returns cudaGetLastError().
 extern "C" int dqc_block_backward_high(DQC_HIGH_PARAMS) {
   HighArgs a;
   const int code = DQC_HIGH_ARGS(a);
   if (code != 0) return code;
-  constexpr int F32 = dqc::kStoreF32, BF16 = dqc::kStoreBF16;
+  constexpr int F32 = dqc::kStoreF32;
   switch (X) {
 #define DQC_HIGH_F32(XX)                                          \
   case XX:                                                        \
@@ -408,14 +472,48 @@ extern "C" int dqc_block_backward_high(DQC_HIGH_PARAMS) {
     DQC_HIGH_F32(32)
     DQC_HIGH_F32(64)
 #undef DQC_HIGH_F32
-    case 128:
-      if (dot_x3)
-        return fkind == F32 ? launch_modes<128, true, F32>(a, bwd_x3, gram_x3)
-                            : launch_modes<128, true, BF16>(a, bwd_x3, gram_x3);
-      return fkind == F32 ? launch_modes<128, false, F32>(a, bwd_x3, gram_x3)
-                          : launch_modes<128, false, BF16>(a, bwd_x3, gram_x3);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// dqc_block_backward_high's contract at X = 128 on the tensor cores, for
+// every F and B kind and every mode: op_inv = Einv pre-split in the
+// uncompute's mode (dot_x3), op_t = E^T in the transport's (bwd_x3)
+// (ops/kernels/_tc.tc_operator, in three parts where 3xTF32 meets a 16-bit
+// F or B that the step holds exact: not after a run rolled back on load);
+// part is scratch of nblk * 2 * 128 * 128 floats (one slot a block).
+// Returns cudaGetLastError().
+extern "C" int dqc_block_backward_high_tc(
+    void* fr, void* fi, void* br, void* bi, const uint32_t* op_inv,
+    const uint32_t* op_t, const float* isl_r, const float* isl_i,
+    const float* ias_r, const float* ias_i, const float* ial_r,
+    const float* ial_i, const float* sl_r, const float* sl_i,
+    const float* as_r, const float* as_i, const float* al_r,
+    const float* al_i, int has_diag, int diag_first_fwd, int diag_q,
+    float* qas_r, float* qas_i, float* qal_r, float* qal_i, float* qpart,
+    float* qsl, float* part, float* out, long long A1, long long Q, int nblk,
+    int bkind, int bwd_x3, int gram_x3, int fkind, int dot_x3, void* stream) {
+  if (!high_kinds_ok(has_diag, diag_q, Q, bkind, fkind))
+    return (int)cudaErrorInvalidValue;
+  constexpr int F = dqc::kTf32x3, H = dqc::kBf16x3;
+  using Fn = int (*)(char*, char*, char*, char*, int, int, const TcOps&,
+                     const DiagTables&, const DiagTables&, int, int, int,
+                     const QOut&, float*, float*, float*, long long, long long,
+                     int, cudaStream_t);
+  static const Fn table[8] = {
+      launch_high_tc<F, F, false>, launch_high_tc<F, F, true>,
+      launch_high_tc<F, H, false>, launch_high_tc<F, H, true>,
+      launch_high_tc<H, F, false>, launch_high_tc<H, F, true>,
+      launch_high_tc<H, H, false>, launch_high_tc<H, H, true>};
+  const int k = 4 * (dot_x3 != 0) + 2 * (bwd_x3 != 0) + (gram_x3 != 0);
+  return table[k](static_cast<char*>(fr), static_cast<char*>(fi),
+                  static_cast<char*>(br), static_cast<char*>(bi), bkind, fkind,
+                  TcOps{op_inv, op_t},
+                  DiagTables{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i},
+                  DiagTables{sl_r, sl_i, as_r, as_i, al_r, al_i}, has_diag,
+                  diag_first_fwd, diag_q,
+                  QOut{qas_r, qas_i, qal_r, qal_i, qpart}, qsl, part, out, A1,
+                  Q, nblk, (cudaStream_t)stream);
 }
 
 // On the view (A1, X, Q = M 128), X in {256, 512}, Q a multiple of 64, the

@@ -1,6 +1,8 @@
-// The one-pass adjoint step of a 128 x 64 slab tile on the tensor cores,
-// shared by the dual and lane adjoints (block_backward_dual.cu, which builds
-// both): adjoint.cuh's step with every product on mma.sync.
+// The one-pass adjoint step of a 128 x 64 tile on the tensor cores:
+// adjoint.cuh's step with every product on mma.sync. The dual, lane and
+// sublane adjoints (block_backward_dual.cu, which builds all three) run it on
+// slab tiles, the high adjoint at X = 128 (block_backward_high.cu) on tiles
+// of its view.
 //
 // For a tile of the forward planes F and the cotangent planes B (128 rows x
 // along the contracted axis, 64 columns c; element (x, c) at base[x rs +
@@ -12,8 +14,8 @@
 //
 // and writes fin over F and bout over B, with a diagonal run rolled back on
 // load or on store and the run's Q reductions where it is met, as
-// adjoint.cuh's adjoint_tile does (the same rounding of F and B to their
-// storage with ``stage``, the same Q functions).
+// adjoint.cuh's adjoint_tile does; with ``stage`` (the dual adjoint) F and B
+// are rounded to their storage where its TPU kernel stores and reloads them.
 //
 // Bound: operations on the tensor cores. Per amplitude and step 128 complex
 // multiply-adds each for the uncompute, the transport and the pair gram: as
@@ -52,6 +54,8 @@
 // (bf16) against the tile's 128 KB of planes.
 #pragma once
 
+#include <type_traits>
+
 #include "adjoint.cuh"
 #include "tc_apply.cuh"
 
@@ -79,7 +83,10 @@ static_assert(TcCfg<kGroup, kBf16x3>::kChunkWords ==
 constexpr int kTcAdjSmemBytes =
     (4 * kTcTileFloats + kTcRingWords) * (int)sizeof(float);
 static_assert(kTcAdjSmemBytes <= 232448, "shared memory of one block");
-static_assert(2 * 16 * TcRows::C <= kTcRingWords, "the ring holds Q's scratch");
+static_assert(2 * 16 * TcRows::C <= kTcRingWords &&
+                  QHighCfg<kGroup>::kScratchFloats <= kTcRingWords,
+              "the ring holds Q's scratch");
+static_assert(AdjCfg<kGroup>::C == TcRows::C, "the high view's tiles at X = 128");
 
 // The step's dynamic shared memory: the tiles of F (re, im), then of B,
 // then the operator ring. The functions below address it through this
@@ -150,16 +157,29 @@ __device__ __forceinline__ void tc_group(int e, bool xfast, int& x, int& c) {
 }
 
 // The run's entries D[a, s, l] of the group of four neighbouring elements
-// at (x, c) of a slab tile (DiagView kinds 0 and 1), which runs along l in
-// both: sublane tiles (kind 0) have x = s, c = l - c0, lane tiles (kind 1)
-// x = l, c = s - c0. tas[a, s] once, tal[a, l ..] and tsl[s, l ..] as
+// at (x, c) of a tile, which runs along l in every DiagView kind: sublane
+// tiles (kind 0) have x = s, c = l - c0, lane tiles (kind 1) x = l, c = s -
+// c0, and the high view's (kind 2) column q = c0 + c = (p 128 + s) 128 + l
+// of row x at a = (i X + x) post + p (four columns from a multiple of four
+// share a, s and p). tas[a, s] once, tal[a, l ..] and tsl[s, l ..] as
 // float4 (the tables 16-byte aligned), each entry (tas tal) tsl as diag_at
-// forms it.
+// forms it. HIGH: the view is of kind 2 (known at compile time, so that the
+// slab steps keep their code).
+template <bool HIGH>
 __device__ __forceinline__ void diag_group(const DiagView& v, int x, int c,
                                            float (&dr)[4], float (&di)[4]) {
-  const int s = v.kind == 0 ? x : (int)(v.c0 + c);
-  const int l = v.kind == 0 ? (int)(v.c0 + c) : x;
-  const int64_t as = v.a * kGroup + s, al = v.a * kGroup + l;
+  int s, l;
+  int64_t a = v.a;
+  if constexpr (HIGH) {
+    const int64_t q = v.c0 + c;
+    l = (int)(q & 127);
+    s = (int)((q >> 7) & 127);
+    a = (v.a * v.X + x) * v.post + (q >> 14);
+  } else {
+    s = v.kind == 0 ? x : (int)(v.c0 + c);
+    l = v.kind == 0 ? (int)(v.c0 + c) : x;
+  }
+  const int64_t as = a * kGroup + s, al = a * kGroup + l;
   const int sl = s * kGroup + l;
   const float asr = __ldg(v.t.as_r + as), asi = __ldg(v.t.as_i + as);
   const float4 alr = __ldg(reinterpret_cast<const float4*>(v.t.al_r + al));
@@ -179,6 +199,7 @@ __device__ __forceinline__ void diag_group(const DiagView& v, int x, int c,
 // A group of four loaded values into a tile (shared memory at tr, ti),
 // optionally times the run's entries and then rounded to qkind (kStoreF32:
 // not at all).
+template <bool HIGH>
 __device__ __forceinline__ void tc_put_group(float* tr, float* ti,
                                              float (&vr)[4], float (&vi)[4],
                                              int x, int c, bool xfast,
@@ -186,7 +207,7 @@ __device__ __forceinline__ void tc_put_group(float* tr, float* ti,
                                              int qkind) {
   if (use_diag) {
     float dr[4], di[4];
-    diag_group(dv, x, c, dr, di);
+    diag_group<HIGH>(dv, x, c, dr, di);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       cmul(vr[q], vi[q], dr[q], di[q], vr[q], vi[q]);
@@ -210,10 +231,11 @@ __device__ __forceinline__ void tc_put_group(float* tr, float* ti,
 // Planes -> the tiles of F (stored as fkind; FK >= 0 fixes it at compile
 // time) and of B (bkind), every load of both in flight before the first
 // shared-memory store; with use_diag times the run's entries (Dinv for F,
-// D for B) and then rounded to fqkind / bqkind, as adjoint.cuh's load_tile.
+// D for B) and then rounded to fqkind / bqkind, as adjoint.cuh's load_tile;
+// HIGH: the views are the high view's (diag_group).
 // (Issuing the next tile's loads during this tile's stores, their values
 // held in registers, spilled and was slower on the H100.)
-template <int FK>
+template <int FK, bool HIGH>
 __device__ __noinline__ void tc_load_tiles(const void* fr, const void* fi,
                                            int fkind, const void* br,
                                            const void* bi, int bkind,
@@ -242,16 +264,17 @@ __device__ __noinline__ void tc_load_tiles(const void* fr, const void* fi,
   for (int j = 0; j < kPer; ++j) {
     int x, c;
     tc_group(threadIdx.x + j * kAdjThreads, xfast, x, c);
-    tc_put_group(sF, sF + kTcTileFloats, fr4[j], fi4[j], x, c, xfast, use_diag,
-                 dv_inv, fqkind);
-    tc_put_group(sB, sB + kTcTileFloats, br4[j], bi4[j], x, c, xfast, use_diag,
-                 dv_fwd, bqkind);
+    tc_put_group<HIGH>(sF, sF + kTcTileFloats, fr4[j], fi4[j], x, c, xfast,
+                       use_diag, dv_inv, fqkind);
+    tc_put_group<HIGH>(sB, sB + kTcTileFloats, br4[j], bi4[j], x, c, xfast,
+                       use_diag, dv_fwd, bqkind);
   }
 }
 
 // Tile -> planes; with use_diag the values are rounded to qkind, then
-// times the run's entries (adjoint.cuh's store_tile).
-template <int K = -1>
+// times the run's entries (adjoint.cuh's store_tile); HIGH as
+// tc_load_tiles'.
+template <int K, bool HIGH>
 __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
                                            int64_t rs, int64_t cs, int which,
                                            int use_diag, const DiagView& dv,
@@ -282,7 +305,7 @@ __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
     }
     if (use_diag) {
       float dr[4], di[4];
-      diag_group(dv, x, c, dr, di);
+      diag_group<HIGH>(dv, x, c, dr, di);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         vr[q] = quantize(vr[q], qkind);
@@ -496,18 +519,22 @@ __device__ __noinline__ void pair_gram_x3_tc(float* part) {
 
 // One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs),
 // as adjoint.cuh's adjoint_tile (diag_mode 0 none, 1 roll the run back on
-// load, 2 on store; q null for no Q; B stored as bkind, F as fkind; stage
-// rounds F and B to their storage where the dual adjoint's TPU kernel
-// stores and reloads them), every product on the tensor cores: the
+// load, 2 on store; q null for no Q: a QView on a slab tile, a QHigh on a
+// high-view tile; B stored as bkind, F as fkind; stage rounds F and B to
+// their storage where the dual adjoint's TPU kernel stores and reloads
+// them, and is off for the high adjoint, whose TPU kernel does not stage:
+// its Q reads the f32 values), every product on the tensor cores: the
 // uncompute in UM, the transport in TM (kTf32x3 or kBf16x3), the pair gram
 // bf16x3 with GX3, else 3xTF32. The block's dynamic shared memory
 // (tc_adj_smem) holds kTcAdjSmemBytes.
-template <int UM, int TM, bool GX3>
+template <int UM, int TM, bool GX3, class QT>
 __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
                                 int bkind, int fkind, int stage, int64_t rs,
                                 int64_t cs, const TcOps& ops, int diag_mode,
                                 const DiagView& dv_inv, const DiagView& dv_fwd,
-                                float* part, const QView* q) {
+                                float* part, const QT* q) {
+  constexpr bool kSlab = std::is_same<QT, QView>::value;
+  static_assert(kSlab || std::is_same<QT, QHigh>::value, "a QView or a QHigh");
   float* sFr = tc_tile(kTileF);
   float* sFi = sFr + kTcTileFloats;
   float* sBr = tc_tile(kTileB);
@@ -519,10 +546,14 @@ __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
   const bool q_on_load = q != nullptr && diag_mode == 1;
   const int load_diag = diag_mode == 1 && !q_on_load;
   // a planes operand's lo parts are zero: bf16 in both modes, f16 in tf32
-  // (loaded values, or rounded to their storage after the run's entries)
-  const bool f_exact = fkind != kStoreF32;
-  const bool b_exact_tf32 = bkind != kStoreF32;
-  const bool b_exact_t = TM == kTf32x3 ? b_exact_tf32 : bkind == kStoreBF16;
+  // (loaded values, or rounded to their storage after the run's entries: a
+  // slab step with a run stages; on the high view, a run rolled back on
+  // load leaves f32 values in the tiles)
+  const bool stored = kSlab || diag_mode != 1;
+  const bool f_exact = stored && fkind != kStoreF32;
+  const bool b_exact_tf32 = stored && bkind != kStoreF32;
+  const bool b_exact_t = TM == kTf32x3 ? b_exact_tf32
+                                       : stored && bkind == kStoreBF16;
   // In 3xTF32 an operator meets exact planes (16-bit F or B) in three parts
   // (the wrapper's step_operators pre-splits it so): its two-part split
   // would leave ~2^-22 of each product, four times an f32 product's error.
@@ -532,14 +563,17 @@ __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
   __syncthreads();  // the previous tile's stores, pair gram and Q are done
   if (!q_on_load) tc_prefetch_op<UM>(ring, ops.inv, u3);
   if (fkind == kStoreF32)
-    tc_load_tiles<kStoreF32>(fr, fi, fkind, br, bi, bkind, rs, cs, load_diag,
-                             dv_inv, dv_fwd, fqkind, qkind);
+    tc_load_tiles<kStoreF32, !kSlab>(fr, fi, fkind, br, bi, bkind, rs, cs,
+                                     load_diag, dv_inv, dv_fwd, fqkind, qkind);
   else
-    tc_load_tiles<kStoreBF16>(fr, fi, fkind, br, bi, bkind, rs, cs, load_diag,
-                              dv_inv, dv_fwd, fqkind, qkind);
+    tc_load_tiles<kStoreBF16, !kSlab>(fr, fi, fkind, br, bi, bkind, rs, cs,
+                                      load_diag, dv_inv, dv_fwd, fqkind, qkind);
   if (q_on_load) {
     __syncthreads();  // the tile is loaded
-    q_tile<kGroup, false, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
+    if constexpr (kSlab)
+      q_tile<kGroup, false, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
+    else
+      q_tile<kGroup, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
     __syncthreads();  // every read of the raw tiles and of the scratch is done
     diag_tile_smem<kGroup, TcRows>(sFr, sFi, dv_inv, fqkind);
     diag_tile_smem<kGroup, TcRows>(sBr, sBi, dv_fwd, qkind);
@@ -559,18 +593,21 @@ __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
                     diag_mode == 2 ? qkind : kStoreF32);
   __syncthreads();  // bout is complete
   if (q != nullptr && diag_mode == 2) {
-    if (fqkind != kStoreF32)
+    if constexpr (!kSlab)
+      q_tile<kGroup, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
+    else if (fqkind != kStoreF32)
       q_tile<kGroup, true, TcRows>(sFr, sFi, sBr, sBi, *q, scratch, fqkind);
     else
       q_tile<kGroup, false, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
   }
   if (fkind == kStoreF32)
-    tc_store_tile<kStoreF32>(fr, fi, fkind, rs, cs, kTileF, diag_mode == 2,
-                             dv_inv);
+    tc_store_tile<kStoreF32, !kSlab>(fr, fi, fkind, rs, cs, kTileF,
+                                     diag_mode == 2, dv_inv);
   else
-    tc_store_tile<kStoreBF16>(fr, fi, fkind, rs, cs, kTileF, diag_mode == 2,
-                              dv_inv, fqkind);
-  tc_store_tile<>(br, bi, bkind, rs, cs, kTileB, diag_mode == 2, dv_fwd);
+    tc_store_tile<kStoreBF16, !kSlab>(fr, fi, fkind, rs, cs, kTileF,
+                                      diag_mode == 2, dv_inv, fqkind);
+  tc_store_tile<-1, !kSlab>(br, bi, bkind, rs, cs, kTileB, diag_mode == 2,
+                            dv_fwd);
 }
 
 }  // namespace dqc

@@ -21,10 +21,12 @@ of their own (``csrc/*_fwd16.cu``, ``csrc/high_multi_apply_x3.cu``) so that
 the build's nvcc processes stay short. ``high_apply`` at X = 128 / 256 /
 512 runs on the tensor cores (``csrc/tc_apply.cuh``, every storage and
 mode), counted also as ``high_apply[tc]``; so does every product of the
-dual and lane adjoints' one-pass step (``csrc/tc_adjoint.cuh``, the lane
-adjoint built in the dual adjoint's library as its lane step), counted as
-``block_backward_dual[tc]`` / ``block_backward_lane[tc]``; ``_tc`` holds
-their operand splits and pre-split operators. ``KERNELS`` is
+dual, lane and sublane adjoints' one-pass step and of the high adjoint's
+at X = 128 (``csrc/tc_adjoint.cuh``, the lane and sublane adjoints built in
+the dual adjoint's library as its lane and sublane steps), counted as
+``block_backward_dual[tc]``, ``block_backward_lane[tc]``,
+``block_backward_sublane[tc]`` and ``block_backward_high[tc]``; ``_tc``
+holds their operand splits and pre-split operators. ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 ``_storage`` holds the kernels' storage codec and bf16x3 products as the

@@ -2,8 +2,9 @@
 
 ``csrc/tc_apply.cuh`` (the high apply at X = 128 / 256 / 512, and the two
 updates of the X = 256 / 512 adjoint), the X = 256 / 512 cross-Gram of
-``csrc/block_backward_high.cu`` and the dual and lane adjoints' one-pass
-step (``csrc/tc_adjoint.cuh``) run their products on the tensor cores:
+``csrc/block_backward_high.cu`` and the one-pass adjoint step of the dual,
+lane and sublane adjoints and of the high adjoint at X = 128
+(``csrc/tc_adjoint.cuh``) run their products on the tensor cores:
 
 * the "f32" dot mode as 3xTF32: ``hi = tf32(a)``, ``lo = tf32(a - hi)``,
   both rounded to nearest with ties away from zero (``cvt.rna.tf32``), and

@@ -1,4 +1,4 @@
-"""One-pass adjoint step of a high-group block on f32 planes.
+"""One-pass adjoint step of a high-group block on the planes.
 
 Replaces the TPU kernel ``block_backward_high``
 (``dqc_tpu/ops/pallas/block_backward.py:906``) with its ``diag_q``
@@ -18,10 +18,16 @@ run, before its update: ``Qsl`` (128, 128) summed over ``a``, ``Qas`` and
 ``Qal`` (A, 128) summed over ``l`` and over ``s``, for the view element
 ``(i, x, q = (p 128 + s) 128 + l)`` at ``a = (i X + x) post + p``. The
 Hopper kernel is ``csrc/block_backward_high.cu`` (bound by operations: 3 X
-complex multiply-adds per amplitude), its bf16-F and bf16x3-uncompute
-variants at X = 8..64 ``csrc/block_backward_high_fwd16.cu`` (the same
-kernel, built as a library of its own); :func:`block_backward_high_plain` is
-its plain PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
+complex multiply-adds per amplitude): at X = 8..64 ``csrc/adjoint.cuh``'s
+step on the CUDA cores, its bf16-F and bf16x3-uncompute variants
+``csrc/block_backward_high_fwd16.cu`` (the same kernel, built as a library
+of its own); at X = 128 the dual adjoint's tensor-core step
+(``csrc/tc_adjoint.cuh``, the C entry ``dqc_block_backward_high_tc``: 3xTF32
+in the "f32" dot mode or three bf16 products in bf16x3, every storage, run
+and Q), handed ``Einv`` and ``E^T`` pre-split in mma fragment order
+(:func:`block_backward_dual.step_operators`) and counted also in
+``mode_launches["tc"]``; :func:`block_backward_high_plain` is its plain
+PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
 of a tiny top group without a run (a lone top-group block as ``E (x) I``,
 the unfactorized hpair's merged operator), where the kernel forms the pair
 gram as ``(B F^T) Einv^T`` on the tensor cores (3xTF32, or three bf16
@@ -64,7 +70,7 @@ from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels import _tc
 from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
                                                 store_b)
-from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
+from dqc_tpu_torch.ops.kernels.block_backward_dual import _split, step_operators
 from dqc_tpu_torch.ops.kernels.high_apply import (KERNEL_X, WIDE_X, launch_tc,
                                                   view_diag_run)
 
@@ -112,6 +118,12 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
 _ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
              + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 6
              + [_launch.VOIDP])
+# dqc_block_backward_high_tc: the two pre-split operators for the four
+# f32 ones, no X
+_TC_ARGTYPES = ([_launch.VOIDP] * 18 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
+                + [_launch.LONG, _launch.LONG] + [_launch.INT] * 6
+                + [_launch.VOIDP])
+TC_X = 128   # the X whose step runs on the tensor cores
 
 
 def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
@@ -127,7 +139,7 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     to the outputs. ``B`` is stored as float32, bfloat16 or float16, ``F``
     as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
     ``gram_mode`` are the uncompute's, the transport's and the pair gram's
-    dot modes."""
+    dot modes. Launches at X = 128 also count as ``mode_launches["tc"]``."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -172,6 +184,11 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
+        # the tensor-core step reads four neighbouring entries of tal and
+        # tsl at once
+        if X == TC_X and tabs is not None and any(t.data_ptr() % 16 for t in tabs):
+            raise ValueError("block_backward_high: diag tables must be "
+                             "16-byte aligned")
     lib = "block_backward_high"
     slots = _launch.entry(lib, "dqc_block_backward_high_slots", [_launch.INT])(X)
     # the blocks take tiles of 8192 / X columns, or with diag_q whole (i, p)
@@ -188,20 +205,35 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         qpart = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
         qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
         q_ptrs = [r.data_ptr() for r in rows] + [qpart.data_ptr(), qsl.data_ptr()]
-    fwd16 = X < 128 and (fr.dtype != torch.float32 or dot_mode == "bf16x3")
-    fn = (_launch.entry("block_backward_high_fwd16",
-                        "dqc_block_backward_high_fwd16", _ARGTYPES) if fwd16
-          else _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES))
-    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in ops),
-              *_launch.table_ptrs(diag_inv_tables),
+    head = [p.data_ptr() for p in planes]
+    if X == TC_X:
+        # a run rolled back on load leaves f32 values in the step's tiles
+        # (no staging), which the operators then meet in two parts
+        raw = diag_tables is not None and not diag_first_fwd
+        tc_ops = step_operators(*ops, dot_mode, bwd_mode,
+                                torch.float32 if raw else fr.dtype,
+                                torch.float32 if raw else br.dtype)
+        fn = _launch.entry(lib, "dqc_block_backward_high_tc", _TC_ARGTYPES)
+        head += [o.data_ptr() for o in tc_ops]
+        shape = (A1, M * 128)
+    else:
+        fwd16 = fr.dtype != torch.float32 or dot_mode == "bf16x3"
+        fn = (_launch.entry("block_backward_high_fwd16",
+                            "dqc_block_backward_high_fwd16", _ARGTYPES) if fwd16
+              else _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES))
+        head += [o.data_ptr() for o in ops]
+        shape = (A1, X, M * 128)
+    code = fn(*head, *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
               int(diag_first_fwd), int(diag_q), *q_ptrs, part.data_ptr(),
-              out.data_ptr(), A1, X, M * 128, nblk, _st.storage_kind(br.dtype),
+              out.data_ptr(), *shape, nblk, _st.storage_kind(br.dtype),
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
               _st.storage_kind(fr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
+    if X == TC_X:
+        block_backward_high.mode_launches["tc"] += 1
     count_modes(block_backward_high, br.dtype, bwd_mode, gram_mode)
     _st.count_fwd(block_backward_high, fr.dtype, dot_mode)
     if not diag_q:
@@ -254,6 +286,6 @@ def _block_backward_wide(planes, ops, A1: int, X: int, M: int, bwd_mode: str,
 
 
 block_backward_high.launches = 0
-block_backward_high.mode_launches = {"diag_q": 0, "wide": 0, "bf16": 0,
+block_backward_high.mode_launches = {"diag_q": 0, "wide": 0, "tc": 0, "bf16": 0,
                                      "f16": 0, "bf16x3": 0, "gram_bf16x3": 0,
                                      "fwd_bf16": 0, "fwd_bf16x3": 0}

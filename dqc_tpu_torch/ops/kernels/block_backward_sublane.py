@@ -8,10 +8,15 @@ operator ``E`` (qubits 7..13, the middle axis),
 ``F <- Einv F``, ``T0[x, y] += sum B[a, x, c] F[a, y, c]``, ``B <- E^T B``
 
 with the pair gram holomorphic (no conjugation; ``B`` the incoming
-cotangent, ``F`` the uncomputed planes). The Hopper kernel is
-``csrc/block_backward_sublane.cu`` on ``csrc/adjoint.cuh`` (bound by
-operations: 384 complex multiply-adds per amplitude);
-:func:`block_backward_sublane_plain` is its plain PyTorch version.
+cotangent, ``F`` the uncomputed planes). The Hopper kernel is the dual
+adjoint's sublane step alone, built in its library
+(``csrc/block_backward_dual.cu``'s ``dqc_block_backward_sublane`` on
+``csrc/tc_adjoint.cuh``): the three products on the tensor cores, 3xTF32
+in the "f32" dot mode or three bf16 products in bf16x3 (bound by the
+tensor cores' rate: 384 complex multiply-adds per amplitude); each launch
+hands it ``Einv`` and ``E^T`` pre-split in mma fragment order and counts in
+``mode_launches["tc"]``. :func:`block_backward_sublane_plain` is its plain
+PyTorch version.
 
 :func:`block_backward_sublane` updates ``(F, B)`` in place on a CUDA tensor
 and returns the plain version's fresh planes on a CPU tensor. Returns
@@ -36,7 +41,7 @@ from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
                                                 store_b)
-from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
+from dqc_tpu_torch.ops.kernels.block_backward_dual import _split, step_operators
 
 
 def block_backward_sublane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
@@ -52,7 +57,7 @@ def block_backward_sublane_plain(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     return (*store_b(F, fr.dtype), *store_b(B, br.dtype), *_split(T0))
 
 
-_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 6
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
              + [_launch.LONG] + [_launch.INT] * 4 + [_launch.VOIDP])
 
 
@@ -63,7 +68,7 @@ def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     real/imag pairs (128, 128). ``B`` is stored as float32, bfloat16 or
     float16, ``F`` as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
     ``gram_mode`` are the uncompute's, the transport's and the pair gram's
-    dot modes."""
+    dot modes. Every launch also counts as ``mode_launches["tc"]``."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 3 or tuple(fr.shape[1:]) != (128, 128) or any(
             p.shape != fr.shape for p in planes):
@@ -87,21 +92,23 @@ def block_backward_sublane(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     nblk = min(A, _launch.sm_count(fr.device))
     part = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=fr.device)
     out = torch.empty((2, 128, 128), dtype=torch.float32, device=fr.device)
-    lib = "block_backward_sublane"
+    lib = "block_backward_dual"   # the dual adjoint's library: its sublane step
+    tc_ops = step_operators(*ops, dot_mode, bwd_mode, fr.dtype, br.dtype)
     fn = _launch.entry(lib, "dqc_block_backward_sublane", _ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), _st.storage_kind(br.dtype),
-              _st.storage_kind(fr.dtype), *(o.data_ptr() for o in ops),
+              _st.storage_kind(fr.dtype), *(o.data_ptr() for o in tc_ops),
               part.data_ptr(), out.data_ptr(), A, nblk,
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
               int(dot_mode == "bf16x3"), _launch.stream(fr.device))
     _launch.raise_on_error(code, lib, "block_backward_sublane launch")
     block_backward_sublane.launches += 1
+    block_backward_sublane.mode_launches["tc"] += 1
     count_modes(block_backward_sublane, br.dtype, bwd_mode, gram_mode)
     _st.count_fwd(block_backward_sublane, fr.dtype, dot_mode)
     return (fr, fi, br, bi, out[0], out[1])
 
 
 block_backward_sublane.launches = 0
-block_backward_sublane.mode_launches = {"bf16": 0, "f16": 0, "bf16x3": 0,
+block_backward_sublane.mode_launches = {"tc": 0, "bf16": 0, "f16": 0, "bf16x3": 0,
                                         "gram_bf16x3": 0, "fwd_bf16": 0,
                                         "fwd_bf16x3": 0}

@@ -176,6 +176,7 @@ def test_new_wrappers_refuse_other_devices():
         "dual_multi_apply[seed]", "high_multi_apply[seed]",
         "high_apply[wide_inplace]", "high_apply[tc]", "block_backward_high[wide]",
         "block_backward_dual[tc]", "block_backward_lane[tc]",
+        "block_backward_sublane[tc]", "block_backward_high[tc]",
         *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "diag_backward",
                                 "dual_multi_apply", "high_multi_apply")
           for m in ("bf16", "f16")),

@@ -1,11 +1,13 @@
 """The dual and lane adjoints' tensor-core step, on the CPU.
 
 ``csrc/tc_adjoint.cuh`` (built in ``csrc/block_backward_dual.cu``'s library,
-the lane adjoint as the dual kernel's lane step alone) runs every product
-of the one-pass adjoint on the tensor cores: the uncomputes and the
-transports as 3xTF32 in the "f32" dot mode (three bf16 products in bf16x3),
-the pair grams bf16x3 (the default) or 3xTF32. No CUDA kernel runs here;
-these tests hold what surrounds it and its arithmetic:
+the lane and sublane adjoints as the dual kernel's lane or sublane step
+alone; the high adjoint at X = 128 runs it too,
+``tests/test_torch_tc_adjoint_high.py``) runs every product of the one-pass
+adjoint on the tensor cores: the uncomputes and the transports as 3xTF32 in
+the "f32" dot mode (three bf16 products in bf16x3), the pair grams bf16x3
+(the default) or 3xTF32. No CUDA kernel runs here; these tests hold what
+surrounds it and its arithmetic:
 
 * the wrappers hand their library entry the planes, the storage kinds, the
   mode flags and the operators pre-split in fragment order, each equal to
@@ -24,10 +26,11 @@ these tests hold what surrounds it and its arithmetic:
   the largest entry); against the JAX kernel each within that plus the JAX
   kernel's own distance from float64 (its f32 sums);
 * the cz ring, the CNOT ring and the gauntlet tape's value_and_grad on the
-  meta device through the wrappers under f32, "f16" and "bf16" storage:
-  every launch of the dual and lane adjoints counts ``[tc]``, and the
-  sublane and the X = 128 high adjoints, which keep the CUDA-core step,
-  have no such count.
+  meta device through the wrappers under f32, "f16" and "bf16" storage at
+  n = 15, and the rings at n = 21 (group 2 at X = 128): every launch of the
+  dual, lane and sublane adjoints counts ``[tc]``, and so does every launch
+  of the high adjoint at X = 128, which are the launches it hands the
+  tensor-core entry.
 """
 
 import importlib
@@ -89,6 +92,8 @@ def recorded(monkeypatch):
     def entry(lib, fn, argtypes):
         def call(*args):
             assert len(args) == len(argtypes), (fn, len(args), len(argtypes))
+            if fn == "dqc_block_backward_high_slots":
+                return 1
             calls.append((lib, fn, args))
             return 0
         return call
@@ -124,9 +129,9 @@ def _ops(seed, k):
     return [p for _ in range(k) for p in _pair(_unitary(rng))]
 
 
-def _meta_planes(fdt, bdt, A=2):
-    f = torch.empty((A, 128, 128), dtype=fdt, device="meta")
-    b = torch.empty((A, 128, 128), dtype=bdt, device="meta")
+def _meta_planes(fdt, bdt, A=2, shape=(128, 128)):
+    f = torch.empty((A, *shape), dtype=fdt, device="meta")
+    b = torch.empty((A, *shape), dtype=bdt, device="meta")
     return f, f, b, b
 
 
@@ -264,6 +269,14 @@ def _run(tables, dtype):
     return (tas[:, :, None] * tal[:, None, :]) * tsl[None]
 
 
+def _sublane_step(F, B, Einv, E, prod, dt):
+    """The sublane step (contract the middle axis) in the kernel's numerics
+    (``prod``: split or exact products): fin, bout, T0."""
+    F1 = prod(Einv, F, _tc.split_tf32, _matmul).to(dt)
+    B1 = prod(E.transpose(0, 1), B, _tc.split_tf32, _matmul).to(dt)
+    return F1, B1, prod(B, F1, st.split, _gram_sub)
+
+
 def _dual_step(F, B, E0inv, E0, E1inv, E1, g0_first, run, tinv, tfwd, exact):
     """The dual adjoint's step on complex planes (A, 128, 128) as the kernel
     computes it (``exact``: in float64 instead): the uncomputes and
@@ -277,9 +290,7 @@ def _dual_step(F, B, E0inv, E0, E1inv, E1, g0_first, run, tinv, tfwd, exact):
         F, B = (F * _run(tinv, dt)).to(dt), (B * _run(tfwd, dt)).to(dt)
 
     def sublane(F, B):
-        F1 = prod(E1inv, F, _tc.split_tf32, _matmul).to(dt)
-        B1 = prod(E1.transpose(0, 1), B, _tc.split_tf32, _matmul).to(dt)
-        return F1, B1, prod(B, F1, st.split, _gram_sub)
+        return _sublane_step(F, B, E1inv, E1, prod, dt)
 
     def lane(F, B):
         F1 = prod(F, E0inv.transpose(0, 1), _tc.split_tf32, _matmul).to(dt)
@@ -342,9 +353,18 @@ def test_tensor_core_dual_step_against_pallas(g0_first, run):
 @pytest.fixture
 def meta_kernels(monkeypatch):
     """The wrappers on the meta device, their library entries replaced by
-    stand-ins that launch nothing."""
+    stand-ins that launch nothing; yields the high adjoint's launches as
+    (entry, X)."""
+    high = []
+
     def entry(lib, fn, argtypes):
-        return lambda *args: 0
+        def call(*args):
+            if fn == "dqc_block_backward_high_tc":
+                high.append((fn, 128))
+            elif fn.startswith("dqc_block_backward_high") and fn != "dqc_block_backward_high_slots":
+                high.append((fn, args[33] if "wide" not in fn else args[12]))
+            return 0
+        return call
 
     monkeypatch.setattr(_launch, "check_cuda_f32", lambda *a, **k: None)
     monkeypatch.setattr(_launch, "check_tables", lambda *a, **k: None)
@@ -352,14 +372,13 @@ def meta_kernels(monkeypatch):
     monkeypatch.setattr(_launch, "stream", lambda device: 0)
     monkeypatch.setattr(_launch, "sm_count", lambda device: 132)
     tk.reset_launch_counts()
-    yield
+    yield high
     tk.reset_launch_counts()
     config.set_state_storage("f32")
 
 
-def _model_counts(kind):
+def _model_counts(kind, n):
     if kind == "gauntlet":
-        n = 15
         tape = gauntlet_tape(AutoGradCircuit(n, device="cpu"), n, 2).tape
         var = [torch.zeros(inst.gate_size(), dtype=torch.complex64, device="meta")
                .requires_grad_(True) for inst in tape.gates(var=True)]
@@ -370,23 +389,33 @@ def _model_counts(kind):
                                       kernels=tk.KERNELS)
         sum(torch.einsum("ii->", d).real for d in dens).backward()
     else:
-        model = THEA(15, 2, kind, device="meta")
+        model = THEA(n, 2, kind, device="meta")
         p = model.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)
         model.magnetization(p, kernels=tk.KERNELS).backward()
     return tk.launch_counts()
 
 
 @pytest.mark.parametrize("storage", ["f32", "f16", "bf16"])
-@pytest.mark.parametrize("kind", ["cz", "cnot", "gauntlet"])
-def test_models_count_the_tensor_core_adjoints(meta_kernels, kind, storage):
+@pytest.mark.parametrize("kind, n", [("cz", 15), ("cnot", 15), ("gauntlet", 15),
+                                     ("cz", 21), ("cnot", 21)])
+def test_models_count_the_tensor_core_adjoints(meta_kernels, kind, n, storage):
+    """Every launch of the dual, lane and sublane adjoints counts ``[tc]``;
+    the high adjoint's launches count it exactly when they take the
+    tensor-core entry, which they do at X = 128 (group 2 at n = 21) and at
+    no other X."""
     config.set_state_storage(storage)
-    counts = _model_counts(kind)
+    counts = _model_counts(kind, n)
     adjoint = "block_backward_lane" if kind == "gauntlet" else "block_backward_dual"
     assert counts[adjoint] > 0, counts
-    for k in ("block_backward_dual", "block_backward_lane"):
+    for k in ("block_backward_dual", "block_backward_lane", "block_backward_sublane"):
         assert counts[f"{k}[tc]"] == counts[k], (k, counts)
-    for k in ("block_backward_sublane", "block_backward_high"):
-        assert f"{k}[tc]" not in counts
+    high = meta_kernels
+    tc = sum(fn == "dqc_block_backward_high_tc" for fn, _ in high)
+    assert len(high) == counts["block_backward_high"]
+    assert counts["block_backward_high[tc]"] == tc
+    assert tc == sum(X == 128 for _, X in high)
+    if n == 21:
+        assert tc > 0, high
     if kind == "cnot":
         assert counts["block_backward_sublane"] > 0
     if storage != "f32":
