@@ -165,23 +165,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    per-term fallback, under "f16" against f32 storage); each against the
    JAX package's own error on the same model at 14-17q (2.5 times, capped),
    counts held to the meta-device dry run;
-16. the tensor-core routes (3l, after phase 3): the high apply at X =
+16. the high adjoint at X = 8..64 on the tensor cores (3m,
+   csrc/block_backward_high_small.cu): every variant its entry takes (F
+   f32 / bf16, B f32 / bf16 / f16, each product 3xTF32 or bf16x3, no run
+   or a run met first or after, with and without Q) against its plain
+   version on views (2, X, 256, 128), and f32 planes at X = 16, 32, 64 on
+   views of 2^29 amplitudes with their times (the X = 8 span views in
+   phase 7, with the default bf16x3 pair gram too); then [cz_f32_small]
+   (HardwareEfficientAnsatz(n, 4, "cz") on f32 planes at n = 20, group 2
+   at X = 64, and 25, group 3 at X = 16: densities and gradients through
+   the kernels against the plain path, counts held to the dry run, every
+   high adjoint launch counted block_backward_high[tc]);
+17. the tensor-core routes (3l, after phase 3): the high apply at X =
    128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
    high_apply[tc]), the X = 256 / 512 adjoint (its cross-Gram and its
    two updates on the tensor cores), the dual, lane and sublane adjoints
-   and the high adjoint at X = 128 (their one-pass step,
-   csrc/tc_adjoint.cuh, every storage, mode, run and Q, counted as
-   block_backward_dual[tc], block_backward_lane[tc],
-   block_backward_sublane[tc] and block_backward_high[tc]; the lane and
-   sublane adjoints built in the dual adjoint's library): each of their
-   phase-3 rows again with
+   and the high adjoint at X <= 128 (their one-pass step,
+   csrc/tc_adjoint.cuh and csrc/block_backward_high_small.cu, every
+   storage, mode, run and Q, counted as block_backward_dual[tc],
+   block_backward_lane[tc], block_backward_sublane[tc] and
+   block_backward_high[tc]; the lane and sublane adjoints built in the
+   dual adjoint's library): each of their phase-3 rows again with
    its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
    runs, three per real product, one fewer for each planes operand whose
    lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
    tf32 at 495 TFLOP/s, bf16 at 989), which is then the row's bound_ms,
    and its share of it, and the kernels' registers and spills from this
    run's build;
-17. a JSON line of the kernels and of the modes checked (their launches
+18. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -315,6 +326,7 @@ def fwd16_bars(storage: str, dot: str):
 # HPAIR_BF16_L with the hpair expanded)
 CZ_SMALL_NS = (20, 27)
 CZ_SMALL_L = 4
+CZ_F32_SMALL_NS = (20, 25)  # [cz_f32_small]: group 2 at X = 64, group 3 at X = 16
 CNOT_X3_L = 2           # depth cut for chip time: the run's 1200 s
 CNOT30_L = 2
 HPAIR_BF16_L = 4
@@ -372,7 +384,9 @@ BWD_KERNELS = ("block_backward_dual", "block_backward_high",
                "block_backward_sublane")
 # the adjoints whose one-pass step runs on the tensor cores
 # (csrc/tc_adjoint.cuh), every launch counted as "tc"; block_backward_high
-# runs it at X = 128 (TC_HIGH_X), those launches counted as "tc"
+# runs it at X = 128 (TC_HIGH_X) and its small-X counterpart
+# (csrc/block_backward_high_small.cu) at X = 8..64, those launches counted
+# as "tc" (not the X = 256 / 512 wide adjoint's)
 TC_ADJOINTS = ("block_backward_dual", "block_backward_lane",
                "block_backward_sublane")
 TC_HIGH_X = 128
@@ -448,7 +462,8 @@ def adjoint_tc(cmacs: float, fdt="float32", bdt="float32", dot="f32",
                bwd="f32", gram="f32") -> list:
     """The tensor-core work of an adjoint launch on csrc/tc_adjoint.cuh,
     ``cmacs`` complex multiply-adds per product kind (the dual's two steps:
-    256 per amplitude; the lane, sublane and X = 128 high adjoints' one: 128):
+    256 per amplitude; the lane and sublane adjoints' one: 128; the high
+    adjoint's: X, its operators' dense width):
     the uncomputes on F (stored ``fdt``) in ``dot``, the transports on B
     (``bdt``) in ``bwd``, the pair grams of B and the f32 uncompute in
     ``gram``. In 3xTF32 an operator meets 16-bit planes in three parts, so
@@ -507,14 +522,14 @@ def call_modes(name: str, a) -> tuple:
     kernel ``name`` with bound arguments ``a``."""
     import torch
     # the dual, lane and sublane adjoints run their one-pass step on the
-    # tensor cores in every storage and mode, the high adjoint at X = 128
+    # tensor cores in every storage and mode, the high adjoint at X <= 128
     if name == "block_backward_dual":
         return (("diag_q", "tc") if a.get("diag_q") else ("tc",)) + storage_modes(
             a["br"].dtype) + dot_modes(a) + fwd_modes(a["fr"].dtype, a)
     if name == "block_backward_high":
         return ((("diag_q",) if a.get("diag_q") else ()) + (
             ("wide",) if a["fr"].shape[1] > 128 else ()) + (
-            ("tc",) if a["fr"].shape[1] == TC_HIGH_X else ())
+            ("tc",) if a["fr"].shape[1] <= TC_HIGH_X else ())
             + storage_modes(a["br"].dtype) + dot_modes(a)
             + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_merged_fact":
@@ -637,21 +652,19 @@ def program_launches(build, loss: str):
     return dry_run_launches(model_dry_run(build, loss))
 
 
-def with_gram_modes(want: dict, high_tc=None) -> dict:
+def with_gram_modes(want: dict) -> dict:
     """Launch counts of a run under the default dot modes: every launch of
     an adjoint kernel with a pair gram counts in its "gram_bf16x3" mode when
     config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
     launch of the dual, lane and sublane adjoints in its "tc" mode (their
     one-pass step runs on the tensor cores in every mode), as does every
-    high adjoint launch at X = 128: ``high_tc`` of them (by default all)."""
+    high adjoint launch of these runs (X <= 128)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
-    for k in TC_ADJOINTS:
+    for k in (*TC_ADJOINTS, "block_backward_high"):
         want[f"{k}[tc]"] = want.get(k, 0)
-    want["block_backward_high[tc]"] = (want.get("block_backward_high", 0)
-                                       if high_tc is None else high_tc)
     return want
 
 
@@ -1396,7 +1409,19 @@ def main() -> int:
                    flops=amps29 * (macs(*bops[:2]) + macs(*bops[2:]) + 8) * 8,
                    bytes_moved=4 * state29,
                    library=high_bwd_library(bops[2:], bops[:2]),
-                   dense_flops=amps29 * 3 * 8 * 8)
+                   dense_flops=amps29 * 3 * 8 * 8, tc=adjoint_tc(amps29 * 8))
+        if pos == (13, 14):  # the launch [cnot29] runs: the default bf16x3 pair gram
+            # (its inputs drawn apart, so that every later row sees the data
+            # it saw before this row was added)
+            gen_state = gen.get_state()
+            check_many("block_backward_high", f"29q_X8_span{pos[0]}_gram_bf16x3", vshape,
+                       4, 4, lambda *p, b=bops: block_backward_high(*p, *b, gram_mode="bf16x3"),
+                       lambda *p, b=bops: block_backward_high_plain(*p, *b,
+                                                                   gram_mode="bf16x3"),
+                       HIGH_TOL, flops=amps29 * (macs(*bops[:2]) + macs(*bops[2:]) + 8) * 8,
+                       bytes_moved=4 * state29, dense_flops=amps29 * 3 * 8 * 8,
+                       tc=adjoint_tc(amps29 * 8, gram="bf16x3"))
+            gen.set_state(gen_state)
 
     # the 29q cnot path's other sweeps: the dual pair without a run, group 3's
     # X = 128 sweep (view (2, 128, 16384, 128)) and their adjoints
@@ -1594,8 +1619,7 @@ def main() -> int:
                            flops=amps_n * (3 * X * 8 + 12),
                            bytes_moved=4 * st + 2 * table_bytes(a_n) + q_bytes,
                            library=high_q_library(E, Einv, ti, tf, order == "first"),
-                           rel_each=True,
-                           tc=adjoint_tc(amps_n * 128) if X == 128 else None)
+                           rel_each=True, tc=adjoint_tc(amps_n * X))
         ti, tf = tables(a_n), tables(a_n)
         check_many("diag_backward", f"{nq}q_q", (a_n, 128, 128), 4, 4,
                    lambda *p, ti=ti, tf=tf: diag_backward(*p, *ti, *tf, with_q=True),
@@ -2365,7 +2389,8 @@ def main() -> int:
                             *p, *Ei, *E, **kw),
                         2, f_un + f_x, b_un + b_x,
                         2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                        lib(high_bwd_library(E, Einv)))
+                        lib(high_bwd_library(E, Einv)),
+                        tc=adjoint_tc(amps29 * X, fdt, bdt, dot, "bf16x3", "bf16x3"))
             del tabs, E, Einv
             torch.cuda.empty_cache()
         # the merged top axis: the in-place apply and the wide adjoint (its
@@ -2542,11 +2567,10 @@ def main() -> int:
                             phase="3k",
                             # a run met first leaves f32 values in the
                             # tensor-core step's tiles (no staging)
-                            tc=adjoint_tc(amps29 * 128,
+                            tc=adjoint_tc(amps29 * X,
                                           *((fdt, bdt) if order == "first"
                                             else ("float32", "float32")),
-                                          dot, "bf16x3", "bf16x3")
-                            if X == 128 else None)
+                                          dot, "bf16x3", "bf16x3"))
                 del ti, tf, kw
             del E, Einv
             torch.cuda.empty_cache()
@@ -2595,6 +2619,81 @@ def main() -> int:
             del E
         torch.cuda.empty_cache()
 
+    # 3m. the high adjoint at X = 8..64 on the tensor cores
+    # (csrc/block_backward_high_small.cu) -----------------------------------
+    # every variant its entry takes (F f32 / bf16, B f32 / bf16 / f16; the
+    # uncompute, the transport and the pair gram each 3xTF32 or bf16x3; no
+    # run, a run met first or after, with and without its Q) against its
+    # plain version on views (2, X, 256, 128), without times: planes within
+    # STORE_ULPS storage ulps (f32: HIGH_TOL), the pair grams and Q within
+    # their storage's gram tolerance (f32 planes: GRAM_T0_TOL, X3_GRAM_TOL
+    # with a bf16x3 gram or uncompute); then the rows kept at 2^29 amplitudes
+    # with their times: f32 planes in the "f32" modes at X = 16, 32 and 64
+    # (the views (1, X, 2^22 / X, 128); 3j times X = 16 and 32 in "bf16" only)
+    log_time("3m")
+    gen_state = gen.get_state()  # every later row keeps its data
+    F32 = torch.float32
+    small_settings = ((F32, F32, "f32", "f32", "f32"), (F32, F32, "f32", "f32", "bf16x3"),
+                      (F32, F16, "f32", "bf16x3", "bf16x3"), (F32, F16, "f32", "f32", "bf16x3"),
+                      (F32, BF16, "f32", "bf16x3", "bf16x3"), (BF16, BF16, "f32", "bf16x3", "bf16x3"),
+                      (F32, F32, "bf16x3", "bf16x3", "bf16x3"), (BF16, BF16, "bf16x3", "bf16x3", "bf16x3"),
+                      (F32, F32, "bf16x3", "f32", "f32"), (BF16, BF16, "f32", "f32", "f32"),
+                      (BF16, F16, "f32", "f32", "f32"))
+    small_runs = ((None, False), ("first", False), ("first", True), ("after", False),
+                  ("after", True))
+    worst_small = {"ulps": 0.0, "abs": 0.0, "rel": 0.0}
+    n_small = 0
+    for X in (8, 16, 32, 64):
+        shape = (2, X, 256, 128)
+        a_rows = 2 * X * 256 // 128
+        E, Einv = unitary(X), unitary(X)
+        for fdt, bdt, dot, bwd, gram in small_settings:
+            for run, q in small_runs:
+                kw = dict(dot_mode=dot, bwd_mode=bwd, gram_mode=gram)
+                if run:
+                    kw.update(diag_inv_tables=tables(a_rows), diag_tables=tables(a_rows),
+                              diag_first_fwd=run == "first", diag_q=q)
+                ins = ([stc.store_as(randn(*shape), fdt) for _ in range(2)]
+                       + [stc.store_as(0.5 * randn(*shape), bdt) for _ in range(2)])
+                want = block_backward_high_plain(*ins, *Einv, *E, **kw)
+                got = block_backward_high(*[t.clone() for t in ins], *Einv, *E, **kw)
+                torch.cuda.synchronize()
+                ulps, err = 0.0, 0.0
+                for k in range(2):
+                    g2, w2 = got[2 * k:2 * k + 2], want[2 * k:2 * k + 2]
+                    if g2[0].dtype == F32:
+                        err = max(err, max((a - b).abs().max().item() for a, b in zip(g2, w2)))
+                    else:
+                        ulps = max(ulps, stc.ulps_apart(g2, w2, g2[0].dtype))
+                rel = max((g_ - w_).abs().max().item() / max(w_.abs().max().item(), 1e-30)
+                          for g_, w_ in zip(got[4:], want[4:]))
+                red = [d for d in (bdt, fdt) if d != F32]
+                g_tol = (stc.gram_tolerance(red[0]) if red else
+                         X3_GRAM_TOL if "bf16x3" in (gram, dot) else GRAM_T0_TOL)
+                require(ulps <= STORE_ULPS and err <= HIGH_TOL and rel <= g_tol,
+                        f"block_backward_high[X{X} F {fdt} B {bdt} {dot}/{bwd}/{gram} "
+                        f"run {run} q {q}] disagrees with its plain version: planes "
+                        f"{ulps:.2f} ulps (tol {STORE_ULPS}), {err:.3e} abs (tol "
+                        f"{HIGH_TOL:.0e}), grams and Q {rel:.3e} (tol {g_tol:.1e})")
+                worst_small = {"ulps": max(worst_small["ulps"], ulps),
+                               "abs": max(worst_small["abs"], err),
+                               "rel": max(worst_small["rel"], rel)}
+                n_small += 1
+                del ins, want, got
+        torch.cuda.empty_cache()
+    log(f"[3m] block_backward_high at X = 8..64: {n_small} variants within their bars "
+        f"on views (2, X, 256, 128); worst {json.dumps(worst_small)}")
+    for X in (16, 32, 64):
+        E, Einv = unitary(X), unitary(X)
+        check_many("block_backward_high", f"29q_X{X}_f32", small_x_view(X), 4, 4,
+                   lambda *p, E=E, Einv=Einv: block_backward_high(*p, *Einv, *E),
+                   lambda *p, E=E, Einv=Einv: block_backward_high_plain(*p, *Einv, *E),
+                   HIGH_TOL, flops=amps29 * 3 * X * 8, bytes_moved=4 * state29,
+                   library=high_bwd_library(E, Einv), tc=adjoint_tc(amps29 * X))
+    del E, Einv
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
+
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
@@ -2607,7 +2706,8 @@ def main() -> int:
     # not-inlined functions of the adjoints' step)
     tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
                                        "block_backward_dual_kernel",
-                                       "block_backward_high_tc_kernel", "tc_op_tile",
+                                       "block_backward_high_tc_kernel",
+                                       "block_backward_high_small_kernel", "tc_op_tile",
                                        "pair_gram_tf32_mma128", "pair_gram_x3_tc",
                                        "tc_load_tiles", "tc_store_tile"))
     if not tc_regs:
@@ -2618,8 +2718,7 @@ def main() -> int:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
         if (r["kernel"], r["shape"][1] >= 128) == ("high_apply", True) or (
-                r["kernel"], r["shape"][1] >= TC_HIGH_X) == ("block_backward_high", True) or (
-                r["kernel"] in TC_ADJOINTS):
+                r["kernel"] in (*TC_ADJOINTS, "block_backward_high")):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -3238,6 +3337,38 @@ def main() -> int:
         del model, p, ref
         torch.cuda.empty_cache()
 
+    # [cz_f32_small]: HardwareEfficientAnsatz(n, 4, "cz") on f32 planes at n =
+    # 20 (group 2 at X = 64) and 25 (group 3 at X = 16): the high adjoint's
+    # small-X step inside a model, the kernels against the plain path
+    # (densities within SLICE_TOL, gradients within MODEL_GRAD_TOL of
+    # max(1, |g|)), launches equal to the dry run's, every high adjoint
+    # launch counted "tc"
+    log_time("[cz_f32_small]")
+    cz_f32_small = {}
+    for n in CZ_F32_SMALL_NS:
+        build = lambda d, n=n: HardwareEfficientAnsatz(n, CZ_SMALL_L,  # noqa: E731
+                                                       entangler="cz", device=d)
+        model = build(dev)
+        p = model.init_params(torch.Generator().manual_seed(SEED + 2 * n))
+        r = fwd16_run(f"cz_f32_small {n}q", model, p, build)
+        c = r["counts"]
+        require(c["block_backward_high"] > 0
+                and c["block_backward_high[tc]"] == c["block_backward_high"],
+                f"[cz_f32_small {n}q] the high adjoint ran off the tensor cores: {c}")
+        d_err = (torch.stack(model.densities(p)) - torch.stack(
+            model.densities(p, kernels=K.PLAIN))).abs().max().item()
+        q = p.detach().clone().requires_grad_(True)
+        model.magnetization(q, kernels=K.PLAIN).backward()
+        g_err = ((r["grad"] - q.grad).abs() / q.grad.abs().clamp(min=1.0)).max().item()
+        log(f"[cz_f32_small {n}q] kernels vs plain path: max abs density err "
+            f"{d_err:.3e} (tol {SLICE_TOL:.0e}); gradient err / max(1, |g|) "
+            f"{g_err:.3e} (tol {MODEL_GRAD_TOL:.0e}); value_and_grad {r['step_s']:.4f} s")
+        require(d_err <= SLICE_TOL and g_err <= MODEL_GRAD_TOL,
+                f"[cz_f32_small {n}q] the kernels disagree with the plain path")
+        cz_f32_small[n] = dict(counts=c, d_err=d_err, g_err=g_err)
+        del model, p, r, q
+        torch.cuda.empty_cache()
+
     # the step runs the default bf16x3 pair grams (the rows "gram_bf16x3"
     # above); the f32-gram rows beside them give the same step with f32 grams
     seeds29_ms = (per_launch["diag_backward", "29q"]
@@ -3456,9 +3587,8 @@ def main() -> int:
     for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
         want_["high_apply[tc]"] = sum(k == "high_apply" and "_X8_" not in v
                                       for k, v in step_)
-    # so do the X = 128 high adjoints (not the X = 8 span views')
-    with_gram_modes(want_vg, high_tc=sum(k == "block_backward_high" and "_X8_" not in v
-                                         for k, v in vg_step))
+    # so do the high adjoints, the X = 8 span views' too
+    with_gram_modes(want_vg)
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
         f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
 
@@ -4889,7 +5019,7 @@ def main() -> int:
          "29q_X64", narrow, small_bf16["gram[fwd_bf16]"], small_x3["gram[fwd_bf16x3]"]),
         (("block_backward_high[fwd_bf16,X=8..64]",
           "block_backward_high[fwd_bf16x3,X=8..64]"), "block_backward_high",
-         "block_backward_high_fwd16.cu", "29q_X64", narrow,
+         "block_backward_high_small.cu", "29q_X64", narrow,
          small_bf16["block_backward_high[fwd_bf16]"],
          small_x3["block_backward_high[fwd_bf16x3]"]),
         (("high_apply[wide_inplace+fwd_bf16]", "high_apply[wide_inplace+fwd_bf16x3]"),
@@ -4927,6 +5057,17 @@ def main() -> int:
             out.append(row_of(name, f"dqc_tpu_torch/csrc/{src}",
                               f"{replaces_of[kernel]} ({what})", mine,
                               f"{pre}_{tags[0]}", launches, None))
+    # the high adjoint's small-X step (csrc/block_backward_high_small.cu,
+    # every storage and mode): "launches" from [cz_f32_small]'s 20q run,
+    # whose every high adjoint launch is at X = 64; its numbers from the
+    # X = 8..64 rows on f32 planes (phases 3, 3e, 3m)
+    out.append(row_of(
+        "block_backward_high[tc,X=8..64]",
+        "dqc_tpu_torch/csrc/block_backward_high_small.cu",
+        f"{bb}:906 (X = 8..64, the one-pass step, tensor cores)",
+        [r for r in rows if r["kernel"] == "block_backward_high" and narrow(r)
+         and "storage" not in r], "29q_X64_f32",
+        cz_f32_small[20]["counts"]["block_backward_high[tc]"], 0))
     # phase 3k's variants: "launches" from [paths29_bf16]'s
     # runs (the tape: the lane adjoint, the high adjoint's Q; VQE: the dual
     # adjoint's Q; the [diagq] tape: the diag adjoint's) and from

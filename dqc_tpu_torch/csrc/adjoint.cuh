@@ -1,10 +1,11 @@
-// The one-pass adjoint step on a tile of columns on the CUDA cores: the high
-// adjoint's at X = 8..64 (block_backward_high.cu, block_backward_high_fwd16.cu);
-// the merged-top adjoint (block_backward_merged_fact.cu) runs its products
-// and pair gram at X = 128. The dual, lane and sublane adjoints and the high
-// adjoint at X = 128 run its tensor-core counterpart (tc_adjoint.cuh), which
-// shares the diagonal views, the Q reductions, diag_tile_smem and the bf16x3
-// pair gram below.
+// The one-pass adjoint step on a tile of columns, the pieces its tensor-core
+// kernels share, and its CUDA-core products: the merged-top adjoint
+// (block_backward_merged_fact.cu) runs op_times_tile, acc_to_tile and
+// pair_gram on its X = 128 low step. The tensor-core steps (tc_adjoint.cuh:
+// the dual, lane and sublane adjoints and the high adjoint at X = 128;
+// block_backward_high_small.cu: the high adjoint at X = 8..64) share the
+// diagonal views (diag_group, diag_tile_smem), the Q reductions (q_tile)
+// and the bf16x3 pair gram below.
 //
 // A "column" is X amplitudes along the contracted group axis; the tile
 // holds C = 8192 / X columns, and element (x, c) sits at base[x rs + c cs]
@@ -21,50 +22,33 @@
 // block in the forward) or on store (it preceded it). The pair gram sees the
 // planes between the two.
 //
-// Design: 512 threads in two halves of 256. The block reads the tile of F
-// and of B into shared memory (3 x 68 KB with the third buffer below, at
-// X = 128) before it writes anything, so the step is in place. Then the two
-// halves run the two operator products at once — the first half the
-// uncompute on F, the second the transport on B — each thread keeping 8 rows
-// x 4 columns of its product in registers while 8-deep tiles of its half's
-// operator stream through shared memory: f32 FMA on the CUDA cores.
-// Shared-memory rows are padded to a
+// The CUDA-core products (the merged adjoint's X = 128 low step): 512
+// threads in two halves of 256, the first half the uncompute on F, the
+// second the transport on B, each thread keeping 8 rows x 4 columns of its
+// product in registers while 8-deep tiles of its half's operator stream
+// through shared memory: f32 FMA. Shared-memory rows are padded to a
 // multiple of four floats, so that the products and the pair gram read
-// float4. The uncompute's result replaces F in shared memory, the
-// transport's goes to a third buffer (B is still needed), and all 512
-// threads then store both in the load's coalesced order and form the pair
-// gram. The pair gram splits the tile's columns over G groups of threads
+// float4. The pair gram splits the tile's columns over G groups of threads
 // (G = 1 at X = 128); each group adds its share into its own partial slot in
 // device memory, which only this block touches, with reductions that do not
 // wait for the old value (each entry has one writer, so they add in program
 // order), and a second kernel adds the slots in a fixed order: the result
 // does not depend on scheduling.
 //
-// Reduced cotangent storage and bf16x3 (config.set_state_storage,
-// set_bwd_kernel_dot_mode / set_gram_kernel_dot_mode): B may be stored as
-// bf16 or f16 (common.cuh's codec at its loads and stores), the transport
-// may run bf16x3 (TX3) and the pair gram bf16x3 (GX3). The bf16x3 pair gram
-// of a 128-row tile runs on the tensor cores (pair_gram_x3_mma128: mma.sync
-// m16n8k16 bf16, three products per real product, the parts split from
-// shared memory into registers). Elsewhere bf16x3 is two FMAs per real
-// product on parts split in registers (common.cuh cmac3): the transport half
-// stages its operator tile as hi and lo parts at half the depth, in the same
-// shared memory, and splits the tile's values as it reads them; a narrower
-// pair gram splits both operands as it reads them, one column of its float4
-// at a time so that the parts stay in registers.
+// bf16x3 (set_bwd_kernel_dot_mode / set_gram_kernel_dot_mode,
+// set_kernel_dot_mode): the transport (TX3) or the uncompute (UX3) half
+// stages its operator tile as hi and lo parts at half the depth and splits
+// the tile's values as it reads them, two FMAs per real product on parts
+// split in registers (common.cuh cmac3); the bf16x3 pair gram of a 128-row
+// tile runs on the tensor cores (pair_gram_x3_mma128: mma.sync m16n8k16
+// bf16, three products per real product, the parts split from shared
+// memory into registers).
 //
-// "bf16" storage and the forward bf16x3 (config.set_state_storage("bf16"),
-// set_kernel_dot_mode): F may be stored as bf16 too (fkind, a run-time
-// argument as B's kind, the same codec; its loads and stores branch once
-// to a loop of each kind, since a per-element branch there cost the f32
-// adjoints 3-18% on the H100), and the uncompute may run bf16x3 (UX3): the
-// first half then stages its operator tile as hi and lo parts as the
-// transport half does with TX3.
-//
-// The shared-memory tile functions below that the tensor-core step shares
+// The shared-memory tile functions below that the tensor-core steps share
 // (diag_tile_smem, the Q reductions, pair_gram_x3_mma128) take the tile's
-// layout as a parameter L: L::at(x, c) is where element (x, c)
-// sits, rows padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh.
+// layout as a parameter L: L::at(x, c) is where element (x, c) sits, rows
+// padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh and
+// block_backward_high_small.cu.
 #pragma once
 
 #include "common.cuh"
@@ -105,6 +89,18 @@ struct PadRows {
 };
 using Pad128 = PadRows<AdjCfg<kGroup>::LD>;  // the X = 128 tile of adjoint.cuh
 
+// Rows of C floats unpadded (C a multiple of 32), column c of row x at c ^
+// (8 (x & 3) + (x & 4)): a tf32 product fragment (rows k0 + t (+ 4),
+// columns n0 + g) and a pair-gram fragment (rows r0 + g, columns k0 + t
+// (+ 4), or float2 pairs at 2 t) each meet 32 different banks; four
+// neighbouring columns stay together (16-byte loads and stores).
+template <int C>
+struct SwizzledRows {
+  static __device__ __forceinline__ int at(int x, int c) {
+    return x * C + (c ^ (((x & 3) << 3) | (x & 4)));
+  }
+};
+
 // Where a tile's entries of the diagonal run D[a, s, l] come from.
 struct DiagView {
   DiagTables t;
@@ -127,6 +123,46 @@ __device__ __forceinline__ void diag_view_at(const DiagView& v, int x, int c,
     const int l = (int)(q & 127);
     const int s = (int)((q >> 7) & 127);
     diag_at(v.t, (v.a * v.X + x) * v.post + (q >> 14), s, l, dr, di);
+  }
+}
+
+// The run's entries D[a, s, l] of the group of four neighbouring elements
+// at (x, c) of a tile, which runs along l in every DiagView kind: sublane
+// tiles (kind 0) have x = s, c = l - c0, lane tiles (kind 1) x = l, c = s -
+// c0, and the high view's (kind 2) column q = c0 + c = (p 128 + s) 128 + l
+// of row x at a = (i X + x) post + p (four columns from a multiple of four
+// share a, s and p). tas[a, s] once, tal[a, l ..] and tsl[s, l ..] as
+// float4 (the tables 16-byte aligned), each entry (tas tal) tsl as diag_at
+// forms it. HIGH: the view is of kind 2 (known at compile time, so that the
+// slab steps keep their code).
+template <bool HIGH>
+__device__ __forceinline__ void diag_group(const DiagView& v, int x, int c,
+                                           float (&dr)[4], float (&di)[4]) {
+  int s, l;
+  int64_t a = v.a;
+  if constexpr (HIGH) {
+    const int64_t q = v.c0 + c;
+    l = (int)(q & 127);
+    s = (int)((q >> 7) & 127);
+    a = (v.a * v.X + x) * v.post + (q >> 14);
+  } else {
+    s = v.kind == 0 ? x : (int)(v.c0 + c);
+    l = v.kind == 0 ? (int)(v.c0 + c) : x;
+  }
+  const int64_t as = a * kGroup + s, al = a * kGroup + l;
+  const int sl = s * kGroup + l;
+  const float asr = __ldg(v.t.as_r + as), asi = __ldg(v.t.as_i + as);
+  const float4 alr = __ldg(reinterpret_cast<const float4*>(v.t.al_r + al));
+  const float4 ali = __ldg(reinterpret_cast<const float4*>(v.t.al_i + al));
+  const float4 slr = __ldg(reinterpret_cast<const float4*>(v.t.sl_r + sl));
+  const float4 sli = __ldg(reinterpret_cast<const float4*>(v.t.sl_i + sl));
+  const float lr[4] = {alr.x, alr.y, alr.z, alr.w}, li[4] = {ali.x, ali.y, ali.z, ali.w};
+  const float tr[4] = {slr.x, slr.y, slr.z, slr.w}, ti[4] = {sli.x, sli.y, sli.z, sli.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float mr, mi;
+    cmul(asr, asi, lr[q], li[q], mr, mi);
+    cmul(mr, mi, tr[q], ti[q], dr[q], di[q]);
   }
 }
 
@@ -269,53 +305,6 @@ __device__ __forceinline__ void acc_to_tile(const float (&accr)[8][4],
         make_float4(accr[i][0], accr[i][1], accr[i][2], accr[i][3]);
     *reinterpret_cast<float4*>(ti_ + o) =
         make_float4(acci[i][0], acci[i][1], acci[i][2], acci[i][3]);
-  }
-}
-
-// Planes <-> shared-memory tile, in the order that keeps device-memory
-// accesses coalesced (x fastest when the rows are adjacent, rs == 1),
-// optionally times the run's entries; the planes stored as kind (common.cuh
-// codec). K >= 0 fixes the planes' kind at compile time (the forward
-// planes': each kind its own loop, so that the f32 one keeps its plain
-// loads), else ``kind`` gives it.
-template <int X, int K = -1>
-__device__ void load_tile(const void* gr_, const void* gi_, int kind,
-                          int64_t rs, int64_t cs, float* tr_, float* ti_,
-                          int use_diag, const DiagView& dv) {
-  using Cfg = AdjCfg<X>;
-  if constexpr (K >= 0) kind = K;
-  for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
-    const int x = rs == 1 ? e % X : e / Cfg::C;
-    const int c = rs == 1 ? e / X : e % Cfg::C;
-    float vr = load_plane(gr_, x * rs + c * cs, kind);
-    float vi = load_plane(gi_, x * rs + c * cs, kind);
-    if (use_diag) {
-      float dr, di;
-      diag_view_at(dv, x, c, dr, di);
-      cmul(vr, vi, dr, di, vr, vi);
-    }
-    tr_[x * Cfg::LD + c] = vr;
-    ti_[x * Cfg::LD + c] = vi;
-  }
-}
-
-template <int X, int K = -1>
-__device__ void store_tile(void* gr_, void* gi_, int kind, int64_t rs,
-                           int64_t cs, const float* tr_, const float* ti_,
-                           int use_diag, const DiagView& dv) {
-  using Cfg = AdjCfg<X>;
-  if constexpr (K >= 0) kind = K;
-  for (int e = threadIdx.x; e < X * Cfg::C; e += kAdjThreads) {
-    const int x = rs == 1 ? e % X : e / Cfg::C;
-    const int c = rs == 1 ? e / X : e % Cfg::C;
-    float vr = tr_[x * Cfg::LD + c], vi = ti_[x * Cfg::LD + c];
-    if (use_diag) {
-      float dr, di;
-      diag_view_at(dv, x, c, dr, di);
-      cmul(vr, vi, dr, di, vr, vi);
-    }
-    store_plane(gr_, x * rs + c * cs, vr, kind);
-    store_plane(gi_, x * rs + c * cs, vi, kind);
   }
 }
 
@@ -595,8 +584,8 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
 }
 
 // Where the Q reductions of a diagonal run folded into a high sweep go (the
-// diag_q outputs of block_backward_high): the tile is X rows x C = 8192 / X
-// columns of the view (A1, X, Q = post 128 128) at (i, q0 .. q0 + C - 1),
+// diag_q outputs of block_backward_high): the tile is X rows x C columns of
+// the view (A1, X, Q = post 128 128) at (i, q0 .. q0 + C - 1),
 // column q = (p 128 + s) 128 + l of row x holding the run's entry
 // D[a = (i X + x) post + p, s, l].
 struct QHigh {
@@ -610,16 +599,16 @@ struct QHigh {
   int64_t post;
 };
 
-// The shape of q_tile's work on a tile of X rows x C = 8192 / X columns of
-// the high view: segments of SL columns (one (x, s) row of l each), R row
-// chunks of the column sums, whose partials need kScratchFloats of the
-// caller's shared memory.
-template <int X>
+// The shape of q_tile's work on a tile of X rows x C columns of the high
+// view (C = 8192 / X by default), run by NT threads: segments of SL columns
+// (one (x, s) row of l each), R row chunks of the column sums, whose
+// partials need kScratchFloats of the caller's shared memory.
+template <int X, int C_ = AdjCfg<X>::C, int NT = kAdjThreads>
 struct QHighCfg {
-  static constexpr int C = AdjCfg<X>::C;
+  static constexpr int C = C_;
   static constexpr int SL = C < kGroup ? C : kGroup;
   static constexpr int NSEG = C / SL;
-  static constexpr int R = C < kAdjThreads ? kAdjThreads / C : 1;
+  static constexpr int R = C < NT ? NT / C : 1;
   static constexpr int kScratchFloats = R > 1 ? 2 * R * C : 0;
 };
 
@@ -631,26 +620,27 @@ struct QHighCfg {
 // * Qal[a, l]: thread f = x SL + lc (SL = min(C, 128) columns of one
 //   (x, s) segment) sums the tile's C / SL segments of row x at column lc in
 //   order, then adds to the entry;
-// * Qas[a, s]: warp w takes the segments (x, k) = w, w + 16, ...; a
+// * Qas[a, s]: warp w takes the segments (x, k) = w, w + NT / 32, ...; a
 //   segment's sum is a fixed butterfly of warp shuffles, added by lane 0;
-// * Qsl[s, l]: column c's sum over the rows, in R = max(1, 512 / C) row
-//   chunks whose partials go to scratch (QHighCfg<X>::kScratchFloats, idle
+// * Qsl[s, l]: column c's sum over the rows, in R = max(1, NT / C) row
+//   chunks whose partials go to scratch (QHighCfg::kScratchFloats, idle
 //   shared memory of the caller's) and are added in chunk order by one
 //   thread, which adds the result to the block's slot (red.global, as the
 //   pair gram).
-// Every read of F and B comes before the one barrier, so the caller may
-// update the tiles once this returns. L: the tiles' layout.
-template <int X, class L = PadRows<AdjCfg<X>::LD>>
+// Every read of F and B comes before the one barrier (R > 1), so the caller
+// may then update the tiles. L: the tiles' layout; C_ the tile's columns,
+// NT the block's threads.
+template <int X, class L, int C_ = AdjCfg<X>::C, int NT = kAdjThreads>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
                        const float* bI, const QHigh& q, float* scratch) {
-  using Cfg = QHighCfg<X>;
+  using Cfg = QHighCfg<X, C_, NT>;
   constexpr int C = Cfg::C, SL = Cfg::SL, NSEG = Cfg::NSEG, R = Cfg::R;
   constexpr int RC = X / R;
   const int64_t p = q.q0 >> 14;
   const int s0 = (int)((q.q0 >> 7) & 127);
   const int l0 = (int)(q.q0 & 127);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int f = threadIdx.x; f < X * SL; f += kAdjThreads) {
+  for (int f = threadIdx.x; f < X * SL; f += NT) {
     const int x = f / SL, lc = f % SL;
     float sr = 0.f, si = 0.f;
 #pragma unroll 1
@@ -666,7 +656,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
     q.al_i[a * kGroup + l0 + lc] += si;
   }
 #pragma unroll 1
-  for (int seg = warp; seg < X * NSEG; seg += kAdjThreads / 32) {
+  for (int seg = warp; seg < X * NSEG; seg += NT / 32) {
     const int x = seg / NSEG, k = seg % NSEG;
     float sr = 0.f, si = 0.f;
     for (int lc = lane; lc < SL; lc += 32) {
@@ -689,7 +679,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
   }
   float* pr = scratch;
   float* pi = scratch + R * C;
-  for (int t = threadIdx.x; t < R * C; t += kAdjThreads) {
+  for (int t = threadIdx.x; t < R * C; t += NT) {
     const int c = t % C, r = t / C;
     float sr = 0.f, si = 0.f;
 #pragma unroll 1
@@ -711,7 +701,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
   }
   if constexpr (R > 1) {
     __syncthreads();  // the row-chunk partials are complete
-    for (int c = threadIdx.x; c < C; c += kAdjThreads) {
+    for (int c = threadIdx.x; c < C; c += NT) {
       float sr = 0.f, si = 0.f;
       for (int r = 0; r < R; ++r) {
         sr += pr[r * C + c];
@@ -746,76 +736,5 @@ struct Operators {  // real/imag planes of Einv and E (X x X each)
   const float* e_r;
   const float* e_i;
 };
-
-// One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs).
-// diag_mode: 0 none, 1 roll the run back on load, 2 on store. q (null for
-// none): where the run's Q reductions of a high-view tile go, from the
-// planes as they meet the run — loaded as they are, then the run's entries
-// multiplied in shared memory (mode 1), or before the store (mode 2); the
-// f32 values, as the TPU kernel's Q reads them. B is stored as bkind, F as
-// fkind; TX3 / GX3 / UX3 run the transport / the pair gram / the uncompute
-// bf16x3. FK >= 0 fixes F's kind at compile time.
-template <int X, bool TX3 = false, bool GX3 = false, bool UX3 = false,
-          int FK = -1>
-__device__ void adjoint_tile(void* fr, void* fi, void* br, void* bi,
-                             int bkind, int64_t rs, int64_t cs,
-                             const Operators& ops, int diag_mode,
-                             const DiagView& dv_inv, const DiagView& dv_fwd,
-                             float* part, float* smem, const QHigh* q,
-                             int fkind) {
-  using Cfg = AdjCfg<X>;
-  float* sFr = smem;
-  float* sFi = sFr + X * Cfg::LD;
-  float* sBr = sFi + X * Cfg::LD;
-  float* sBi = sBr + X * Cfg::LD;
-  float* sOr = sBi + X * Cfg::LD;  // the transport's result
-  float* sOi = sOr + X * Cfg::LD;
-  const int half = threadIdx.x / kHalf;
-  float* sTr = sOi + X * Cfg::LD + half * 2 * Cfg::KC * X;  // this half's
-  float* sTi = sTr + Cfg::KC * X;                           // operator tile
-  float accr[8][4], acci[8][4];
-  if constexpr (FK >= 0) fkind = FK;
-
-  float* scratch = sOi + X * Cfg::LD;  // both halves' operator tiles
-  static_assert(QHighCfg<X>::kScratchFloats <= 4 * Cfg::KC * X,
-                "the operator tiles hold Q's scratch");
-  __syncthreads();  // the previous tile's stores and gram have read the buffers
-  const bool q_on_load = q != nullptr && diag_mode == 1;
-  const int load_diag = diag_mode == 1 && !q_on_load;
-  if (fkind == kStoreF32)
-    load_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, load_diag, dv_inv);
-  else
-    load_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi, load_diag, dv_inv);
-  load_tile<X>(br, bi, bkind, rs, cs, sBr, sBi, load_diag, dv_fwd);
-  if (q_on_load) {
-    __syncthreads();  // the tile is loaded
-    q_tile<X>(sFr, sFi, sBr, sBi, *q, scratch);
-    __syncthreads();  // every read of the raw tiles is done
-    diag_tile_smem<X>(sFr, sFi, dv_inv);
-    diag_tile_smem<X>(sBr, sBi, dv_fwd);
-  }
-
-  // first half: the uncompute fin = Einv F; second half: the transport
-  // bout = E^T B (one call site, so that every thread meets the same
-  // barriers)
-  op_times_tile<X, TX3, UX3>(half ? ops.e_r : ops.inv_r,
-                             half ? ops.e_i : ops.inv_i, half,
-                             half ? sBr : sFr, half ? sBi : sFi, sTr, sTi,
-                             accr, acci);
-  __syncthreads();  // every thread is done reading F
-  acc_to_tile<X>(accr, acci, half ? sOr : sFr, half ? sOi : sFi);
-  __syncthreads();  // fin and bout are complete
-  if (q != nullptr && diag_mode == 2) q_tile<X>(sFr, sFi, sOr, sOi, *q, scratch);
-  if (fkind == kStoreF32)
-    store_tile<X, kStoreF32>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
-                             dv_inv);
-  else
-    store_tile<X, kStoreBF16>(fr, fi, fkind, rs, cs, sFr, sFi, diag_mode == 2,
-                              dv_inv);
-  store_tile<X>(br, bi, bkind, rs, cs, sOr, sOi, diag_mode == 2, dv_fwd);
-
-  // the pair gram of the incoming cotangent and fin
-  pair_gram<X, GX3>(sBr, sBi, sFr, sFi, part);
-}
 
 }  // namespace dqc

@@ -20,31 +20,27 @@
 // (A x 128, summed over l and over s), a = (i X + x) post + p — the
 // gradient sources of a run with variable gates (plane_scan._diag_cts_from_Q).
 //
-// Bound: operations. Three X-wide complex products per column, 3 X complex
-// multiply-adds per amplitude (8 real flops each) against 32 bytes read and
-// written: ~96 flop per byte at X = 128, above the H100's FP32 ridge
-// (~20 flop/B). X = 8..64: f32 FMA on the CUDA cores, no TF32. X = 128: on
-// the tensor cores, as the dual adjoint's step (3xTF32 or bf16x3: three
-// passes per real product at 495 / 989 TFLOP/s, a pass fewer where a planes
-// operand's lo parts are zero).
+// Bound: at X = 128 operations, three X-wide complex products per column,
+// 3 X complex multiply-adds per amplitude (8 real flops each) against 32
+// bytes read and written: ~96 flop per byte, above the H100's FP32 ridge
+// (~20 flop/B); on the tensor cores, as the dual adjoint's step (3xTF32 or
+// bf16x3: three passes per real product at 495 / 989 TFLOP/s, a pass fewer
+// where a planes operand's lo parts are zero). X = 8..64 is
+// block_backward_high_small.cu's tensor-core step, a library of its own.
 //
-// Design: tiles of X rows by 8192 / X columns (all of one i, since they
-// divide Q), in place. A grid of one block per SM loops over the tiles, and
-// the pair grams' per-block, per-group partial slots are added in a fixed
-// order by a second kernel. At X = 8..64, adjoint.cuh's step: 512 threads,
-// the uncompute and the transport at once on the two halves of the block.
-// At X = 128, the tile is 128 rows at stride Q by 64 contiguous columns, the
-// dual adjoint's 128 x 64 tile: tc_adjoint.cuh's step (its tiles unpadded
-// and swizzled in shared memory, loaded in 256-byte row runs, every product
-// on mma.sync on all 16 warps, Einv and E^T pre-split by the wrapper and
-// streamed through a cp.async ring), without the dual adjoint's staging,
-// one pair-gram slot per block. With diag_q the blocks walk
-// the tiles one (i, p) group at a time (the 128 x 128 columns of one i and
-// p: 16384 / C tiles), so that each Qas and Qal entry is written by one
-// block only; the Q phase runs on the tiles already in shared memory
-// (adjoint.cuh q_tile for QHigh, on either step's layout; at X = 128 its
-// row-chunk partials in the idle operator ring): Qas and Qal entries are
-// each added by one thread, tile after tile, and Qsl goes to one more
+// Design at X = 128: the tile is 128 rows at stride Q by 64 contiguous
+// columns, the dual adjoint's 128 x 64 tile, in place: tc_adjoint.cuh's
+// step (its tiles unpadded and swizzled in shared memory, loaded in
+// 256-byte row runs, every product on mma.sync on all 16 warps, Einv and
+// E^T pre-split by the wrapper and streamed through a cp.async ring),
+// without the dual adjoint's staging, one pair-gram slot per block. A grid
+// of one block per SM loops over the tiles, and the slots are added in a
+// fixed order by a second kernel. With diag_q the blocks walk the tiles one
+// (i, p) group at a time (the 128 x 128 columns of one i and p: 256 tiles),
+// so that each Qas and Qal entry is written by one block only; the Q phase
+// runs on the tiles already in shared memory (adjoint.cuh q_tile for QHigh,
+// its row-chunk partials in the idle operator ring): Qas and Qal entries
+// are each added by one thread, tile after tile, and Qsl goes to one more
 // partial slot per block, summed by the same fixed-order second kernel. Q
 // adds 2 complex multiply-adds and 3 reductions per amplitude, and 2 x 2 A x
 // 128 + 2 x 128 x 128 floats of outputs.
@@ -76,26 +72,21 @@
 // a fixed order.
 //
 // Reduced storage and bf16x3 (the TPU kernel's bwd_dot_mode and
-// gram_dot_mode at block_backward.py:826-835), X <= 128: B is stored as f32,
-// bf16 or f16 (bkind; one load and one store per element, as in the TPU
-// kernel), the transport runs bf16x3 with bwd_x3 and the pair gram with
-// gram_x3, else f32 (3xTF32 at X = 128). X = 256 / 512 takes the same modes: the
-// cross-Gram decodes B as it stages it; the transport is the tensor-core
-// apply in place on B in its storage, bf16x3 with bwd_x3 (one load and one
-// store of B there, as in the TPU kernel; the cross-Gram's read of B comes
-// before it).
+// gram_dot_mode at block_backward.py:826-835): B is stored as f32, bf16 or
+// f16 (bkind; one load and one store per element, as in the TPU kernel),
+// the transport runs bf16x3 with bwd_x3 and the pair gram with gram_x3,
+// else 3xTF32. X = 256 / 512 takes the same modes: the cross-Gram decodes B
+// as it stages it; the transport is the tensor-core apply in place on B in
+// its storage, bf16x3 with bwd_x3 (one load and one store of B there, as in
+// the TPU kernel; the cross-Gram's read of B comes before it).
 //
 // "bf16" storage and the forward bf16x3 (the TPU kernel's f32_of / store_as
 // on F and its dot_mode), at every X: F may be stored as bf16 (one load and
 // one store per element, as in the TPU kernel) and the uncompute runs
 // bf16x3 with dot_x3. At X = 128 the tensor-core step takes F's kind at run
 // time (one branch per tile to a load and a store of each kind). At X =
-// 8..64 the variants take it at run time too (adjoint.cuh: one branch per
-// tile to a loop of each kind; half the instantiations) and build in a
-// library of their own, block_backward_high_fwd16.cu, beside the f32
-// instantiations here, which keep their code. At X = 256 / 512 the
-// cross-Gram decodes F as it stages it and the uncompute is the tensor-core
-// apply in place on F in its storage, bf16x3 with dot_x3.
+// 256 / 512 the cross-Gram decodes F as it stages it and the uncompute is
+// the tensor-core apply in place on F in its storage, bf16x3 with dot_x3.
 #include "block_backward_high.cuh"
 #include "tc_adjoint.cuh"
 
@@ -334,11 +325,11 @@ cross_gram_tc_kernel(const void* __restrict__ br, const void* __restrict__ bi,
       dqc::CFrag<4> a[2];
 #pragma unroll
       for (int m = 0; m < 2; ++m)
-        dqc::load_a<MODE>(sbr, sbi, LD, wm * 32 + 16 * m, ks, a[m]);
+        dqc::load_a<MODE, dqc::RowMajor<LD>>(sbr, sbi, wm * 32 + 16 * m, ks, a[m]);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         dqc::CFrag<2> b;
-        dqc::load_b_rows<MODE>(sfr, sfi, LD, wn * 64 + 8 * n, ks, b);
+        dqc::load_b_rows<MODE, dqc::RowMajor<LD>>(sfr, sfi, wn * 64 + 8 * n, ks, b);
         dqc::cmma3<MODE, 2>(accr[n], acci[n], a, b, b_exact, f_exact);
       }
     }
@@ -430,54 +421,8 @@ int launch_wide(const void* fr, const void* fi, const void* br,
 }
 }  // namespace
 
-// The number of partial slots per block of the pair gram at this X (the
-// caller sizes the scratch: nblk * slots * 2 * X * X floats), 0 for an X the
-// kernel does not take; X = 128 is dqc_block_backward_high_tc's.
-extern "C" int dqc_block_backward_high_slots(int X) {
-  switch (X) {
-    case 8: return AdjCfg<8>::G;
-    case 16: return AdjCfg<16>::G;
-    case 32: return AdjCfg<32>::G;
-    case 64: return AdjCfg<64>::G;
-    case 128: return 1;
-    default: return 0;
-  }
-}
-// In place on the view (A1, X, Q = M 128), X in {8, 16, 32, 64}:
-// (F, B) <- the adjoint step of E; out = (T0 re, T0 im), 2 x X x X floats.
-// part is scratch of nblk * slots(X) * 2 X X floats, set to zero by the
-// caller; nblk is the number of blocks (at most the number of tiles,
-// A1 Q X / 8192, or with diag_q of (i, p) groups, A1 Q / (128 128)). With
-// has_diag, Q must be a multiple of 128 * 128. The twelve table pointers may
-// be null when has_diag is 0. With diag_q (needs has_diag): qas_r/i and
-// qal_r/i are (A, 128) outputs, A = A1 X Q / (128 128), set to zero by the
-// caller; qpart is scratch of nblk * 2 * 128 * 128 floats set to zero, and
-// qsl the (Qsl re, im) output, 2 x 128 x 128 floats (all null without).
-// B is stored as bkind (0 f32, 1 bf16, 2 f16), F as fkind (0 f32, 1 bf16);
-// bwd_x3 / gram_x3 / dot_x3 run the transport / the pair gram / the
-// uncompute bf16x3. This entry takes f32 F and an f32 uncompute
-// (dqc_block_backward_high_fwd16 the rest). Returns cudaGetLastError().
-extern "C" int dqc_block_backward_high(DQC_HIGH_PARAMS) {
-  HighArgs a;
-  const int code = DQC_HIGH_ARGS(a);
-  if (code != 0) return code;
-  constexpr int F32 = dqc::kStoreF32;
-  switch (X) {
-#define DQC_HIGH_F32(XX)                                          \
-  case XX:                                                        \
-    if (fkind != F32 || dot_x3) return (int)cudaErrorInvalidValue; \
-    return launch_modes<XX, false, F32>(a, bwd_x3, gram_x3);
-    DQC_HIGH_F32(8)
-    DQC_HIGH_F32(16)
-    DQC_HIGH_F32(32)
-    DQC_HIGH_F32(64)
-#undef DQC_HIGH_F32
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// dqc_block_backward_high's contract at X = 128 on the tensor cores, for
-// every F and B kind and every mode: op_inv = Einv pre-split in the
+// In place on the view (A1, 128, Q = M 128): (F, B) <- the adjoint step of
+// E; out = (T0 re, T0 im), 2 x 128 x 128 floats. op_inv = Einv pre-split in the
 // uncompute's mode (dot_x3), op_t = E^T in the transport's (bwd_x3)
 // (ops/kernels/_tc.tc_operator, in three parts where 3xTF32 meets a 16-bit
 // F or B that the step holds exact: not after a run rolled back on load);

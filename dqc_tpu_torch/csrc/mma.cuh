@@ -222,44 +222,72 @@ __device__ __forceinline__ void cmma3x(float (&dr)[M][4], float (&di)[M][4],
     }
 }
 
-// The A fragment of a k-step from a row-major f32 tile s[row][k] (stride
-// ld; rows row0 .. row0 + 15, columns k0 ..), split into its parts.
-template <int MODE>
-__device__ __forceinline__ void load_a(const float* sr, const float* si, int ld,
+// A tile's layout in shared memory: element (row, column) at L::at(row,
+// column). Row-major rows of LD floats:
+template <int LD>
+struct RowMajor {
+  static __device__ __forceinline__ int at(int r, int c) { return r * LD + c; }
+};
+
+// The A fragment of a k-step from an f32 tile s[row][k] in layout L (rows
+// row0 .. row0 + 15, columns k0 ..; two neighbouring columns adjacent),
+// split into its parts.
+template <int MODE, class L>
+__device__ __forceinline__ void load_a(const float* sr, const float* si,
                                        int row0, int k0, CFrag<4>& a) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = row0 + g + 8 * (r & 1);
     if constexpr (MODE == kTf32x3) {
-      const int o = row * ld + k0 + t + 4 * (r >> 1);
+      const int o = L::at(row, k0 + t + 4 * (r >> 1));
       split_tf32(sr[o], a.rh[r], a.rl[r]);
       split_tf32(si[o], a.ih[r], a.il[r]);
     } else {
-      const int o = row * ld + k0 + 2 * t + 8 * (r >> 1);
+      const int o = L::at(row, k0 + 2 * t + 8 * (r >> 1));
       split_bf16x2(*reinterpret_cast<const float2*>(sr + o), a.rh[r], a.rl[r]);
       split_bf16x2(*reinterpret_cast<const float2*>(si + o), a.ih[r], a.il[r]);
     }
   }
 }
 
-// The B fragment of a k-step whose columns n0 .. n0 + 7 are rows of a
-// row-major f32 tile s[n][k] (stride ld; k0 ..): B = s^T, split.
-template <int MODE>
+// The B fragment of a k-step whose columns n0 .. n0 + 7 are rows of an f32
+// tile s[n][k] in layout L (k0 ..): B = s^T, split.
+template <int MODE, class L>
 __device__ __forceinline__ void load_b_rows(const float* sr, const float* si,
-                                            int ld, int n0, int k0,
-                                            CFrag<2>& b) {
+                                            int n0, int k0, CFrag<2>& b) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if constexpr (MODE == kTf32x3) {
-      const int o = (n0 + g) * ld + k0 + t + 4 * j;
+      const int o = L::at(n0 + g, k0 + t + 4 * j);
       split_tf32(sr[o], b.rh[j], b.rl[j]);
       split_tf32(si[o], b.ih[j], b.il[j]);
     } else {
-      const int o = (n0 + g) * ld + k0 + 2 * t + 8 * j;
+      const int o = L::at(n0 + g, k0 + 2 * t + 8 * j);
       split_bf16x2(*reinterpret_cast<const float2*>(sr + o), b.rh[j], b.rl[j]);
       split_bf16x2(*reinterpret_cast<const float2*>(si + o), b.ih[j], b.il[j]);
+    }
+  }
+}
+
+// The B fragment of a k-step from an f32 tile s[k][n] in layout L (rows
+// k0 .., columns n0 .. n0 + 7), split.
+template <int MODE, class L>
+__device__ __forceinline__ void load_b_cols(const float* sr, const float* si,
+                                            int k0, int n0, CFrag<2>& b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if constexpr (MODE == kTf32x3) {
+      const int o = L::at(k0 + t + 4 * j, n0 + g);
+      split_tf32(sr[o], b.rh[j], b.rl[j]);
+      split_tf32(si[o], b.ih[j], b.il[j]);
+    } else {  // rows k, k + 1 in one register
+      const int k = k0 + 2 * t + 8 * j;
+      const int o0 = L::at(k, n0 + g), o1 = L::at(k + 1, n0 + g);
+      split_bf16x2(make_float2(sr[o0], sr[o1]), b.rh[j], b.rl[j]);
+      split_bf16x2(make_float2(si[o0], si[o1]), b.ih[j], b.il[j]);
     }
   }
 }

@@ -61,16 +61,9 @@
 
 namespace dqc {
 
-// The 128 x 64 tile: row x holds its 64 columns unpadded, column c at
-// c ^ (8 (x & 3) + (x & 4)). A tf32 product fragment (rows k0 + t + 4 j,
-// columns n0 + g) and a pair-gram fragment (rows r0 + g, columns k0 + t
-// (+ 4), or float2 pairs at 2 t) each meet 32 different banks; four
-// neighbouring columns stay together (16-byte stores of the loads).
-struct TcRows {
+// The 128 x 64 tile: 64 columns a row, swizzled (adjoint.cuh SwizzledRows).
+struct TcRows : SwizzledRows<64> {
   static constexpr int C = 64;
-  static __device__ __forceinline__ int at(int x, int c) {
-    return x * C + (c ^ (((x & 3) << 3) | (x & 4)));
-  }
 };
 
 constexpr int kTcTileFloats = kGroup * TcRows::C;
@@ -153,46 +146,6 @@ __device__ __forceinline__ void tc_group(int e, bool xfast, int& x, int& c) {
   } else {
     x = e >> 4;
     c = 4 * (e & 15);
-  }
-}
-
-// The run's entries D[a, s, l] of the group of four neighbouring elements
-// at (x, c) of a tile, which runs along l in every DiagView kind: sublane
-// tiles (kind 0) have x = s, c = l - c0, lane tiles (kind 1) x = l, c = s -
-// c0, and the high view's (kind 2) column q = c0 + c = (p 128 + s) 128 + l
-// of row x at a = (i X + x) post + p (four columns from a multiple of four
-// share a, s and p). tas[a, s] once, tal[a, l ..] and tsl[s, l ..] as
-// float4 (the tables 16-byte aligned), each entry (tas tal) tsl as diag_at
-// forms it. HIGH: the view is of kind 2 (known at compile time, so that the
-// slab steps keep their code).
-template <bool HIGH>
-__device__ __forceinline__ void diag_group(const DiagView& v, int x, int c,
-                                           float (&dr)[4], float (&di)[4]) {
-  int s, l;
-  int64_t a = v.a;
-  if constexpr (HIGH) {
-    const int64_t q = v.c0 + c;
-    l = (int)(q & 127);
-    s = (int)((q >> 7) & 127);
-    a = (v.a * v.X + x) * v.post + (q >> 14);
-  } else {
-    s = v.kind == 0 ? x : (int)(v.c0 + c);
-    l = v.kind == 0 ? (int)(v.c0 + c) : x;
-  }
-  const int64_t as = a * kGroup + s, al = a * kGroup + l;
-  const int sl = s * kGroup + l;
-  const float asr = __ldg(v.t.as_r + as), asi = __ldg(v.t.as_i + as);
-  const float4 alr = __ldg(reinterpret_cast<const float4*>(v.t.al_r + al));
-  const float4 ali = __ldg(reinterpret_cast<const float4*>(v.t.al_i + al));
-  const float4 slr = __ldg(reinterpret_cast<const float4*>(v.t.sl_r + sl));
-  const float4 sli = __ldg(reinterpret_cast<const float4*>(v.t.sl_i + sl));
-  const float lr[4] = {alr.x, alr.y, alr.z, alr.w}, li[4] = {ali.x, ali.y, ali.z, ali.w};
-  const float tr[4] = {slr.x, slr.y, slr.z, slr.w}, ti[4] = {sli.x, sli.y, sli.z, sli.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float mr, mi;
-    cmul(asr, asi, lr[q], li[q], mr, mi);
-    cmul(mr, mi, tr[q], ti[q], dr[q], di[q]);
   }
 }
 
@@ -319,27 +272,6 @@ __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
   }
 }
 
-// The B fragment of a product's k-step from the tile (rows k0 .., columns
-// n0 .. n0 + 7), split for MODE.
-template <int MODE>
-__device__ __forceinline__ void tc_tile_b(const float* vr, const float* vi,
-                                          int k0, int n0, CFrag<2>& b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if constexpr (MODE == kTf32x3) {
-      const int o = TcRows::at(k0 + t + 4 * j, n0 + g);
-      split_tf32(vr[o], b.rh[j], b.rl[j]);
-      split_tf32(vi[o], b.ih[j], b.il[j]);
-    } else {  // rows k, k + 1 in one register
-      const int k = k0 + 2 * t + 8 * j;
-      const int o0 = TcRows::at(k, n0 + g), o1 = TcRows::at(k + 1, n0 + g);
-      split_bf16x2(make_float2(vr[o0], vr[o1]), b.rh[j], b.rl[j]);
-      split_bf16x2(make_float2(vi[o0], vi[o1]), b.ih[j], b.il[j]);
-    }
-  }
-}
-
 // The tile T (kTileF or kTileB) <- Op T, rounded to qkind (kStoreF32: as
 // it is): warp (wr, wc) = (warp / 4, warp % 4) keeps rows 32 wr .. + 31,
 // columns 16 wc .. + 15 of the product in registers, acc[n][m][fragment
@@ -400,7 +332,7 @@ __device__ __noinline__ void tc_op_tile(const uint32_t* op, int which,
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         CFrag<2> b;
-        tc_tile_b<MODE>(tr, ti, (ci * KPC + j) * Cfg::KS, wc * 16 + 8 * n, b);
+        load_b_cols<MODE, TcRows>(tr, ti, (ci * KPC + j) * Cfg::KS, wc * 16 + 8 * n, b);
         if constexpr (P == 6)
           cmma3x<MODE, 2>(accr[n], acci[n], a, a2, b);
         else
@@ -459,23 +391,12 @@ __device__ __noinline__ void pair_gram_tf32_mma128(float* part, bool b_exact) {
       // A = B[x][c]: rows xb + 16 m + g (+ 8), columns kb + t (+ 4)
       CFrag<4> a[2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int o = TcRows::at(xb + 16 * m + g + 8 * (r & 1), kb + t + 4 * (r >> 1));
-          split_tf32(bR[o], a[m].rh[r], a[m].rl[r]);
-          split_tf32(bI[o], a[m].ih[r], a[m].il[r]);
-        }
+      for (int m = 0; m < 2; ++m) load_a<kTf32x3, TcRows>(bR, bI, xb + 16 * m, kb, a[m]);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         // B = fin^T: column y = yb + 8 n + g, rows c = kb + t (+ 4)
         CFrag<2> b;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int o = TcRows::at(yb + 8 * n + g, kb + t + 4 * j);
-          split_tf32(fR[o], b.rh[j], b.rl[j]);
-          split_tf32(fI[o], b.ih[j], b.il[j]);
-        }
+        load_b_rows<kTf32x3, TcRows>(fR, fI, yb + 8 * n, kb, b);
         cmma3<kTf32x3, 2>(accr[n], acci[n], a, b, b_exact, false);
       }
     }

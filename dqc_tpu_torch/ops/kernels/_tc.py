@@ -4,7 +4,9 @@
 updates of the X = 256 / 512 adjoint), the X = 256 / 512 cross-Gram of
 ``csrc/block_backward_high.cu`` and the one-pass adjoint step of the dual,
 lane and sublane adjoints and of the high adjoint at X = 128
-(``csrc/tc_adjoint.cuh``) run their products on the tensor cores:
+(``csrc/tc_adjoint.cuh``) and at X = 8..64
+(``csrc/block_backward_high_small.cu``) run their products on the tensor
+cores:
 
 * the "f32" dot mode as 3xTF32: ``hi = tf32(a)``, ``lo = tf32(a - hi)``,
   both rounded to nearest with ties away from zero (``cvt.rna.tf32``), and
@@ -90,7 +92,12 @@ def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str,
     hi, im lo; with ``parts=6``, "f32" only, then re lo2 and im lo2:
     :func:`split_tf32_3`), lane, register — of f32 bit patterns of tf32
     parts ("f32", ks = 8), or of pairs of bf16 parts ("bf16x3", ks = 16).
-    ``e_r`` / ``e_i`` may be views (a transpose)."""
+    ``e_r`` / ``e_i`` may be views (a transpose). An X = 8 operator is laid
+    out as ``diag(E, E)``, 16 x 16: the small-X adjoint step
+    (``csrc/block_backward_high_small.cu``) stacks two 8-row halves of its
+    tile as 16 rows."""
+    if e_r.shape[0] == 8:
+        e_r, e_i = torch.block_diag(e_r, e_r), torch.block_diag(e_i, e_i)
     X = e_r.shape[0]
     ks = 8 if dot_mode == "f32" else 16
     idx = _gather_index(X, ks, e_r.device)

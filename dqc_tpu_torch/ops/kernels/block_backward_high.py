@@ -17,17 +17,18 @@ reductions of the holomorphic product ``Q = B F`` where the planes meet the
 run, before its update: ``Qsl`` (128, 128) summed over ``a``, ``Qas`` and
 ``Qal`` (A, 128) summed over ``l`` and over ``s``, for the view element
 ``(i, x, q = (p 128 + s) 128 + l)`` at ``a = (i X + x) post + p``. The
-Hopper kernel is ``csrc/block_backward_high.cu`` (bound by operations: 3 X
-complex multiply-adds per amplitude): at X = 8..64 ``csrc/adjoint.cuh``'s
-step on the CUDA cores, its bf16-F and bf16x3-uncompute variants
-``csrc/block_backward_high_fwd16.cu`` (the same kernel, built as a library
-of its own); at X = 128 the dual adjoint's tensor-core step
-(``csrc/tc_adjoint.cuh``, the C entry ``dqc_block_backward_high_tc``: 3xTF32
-in the "f32" dot mode or three bf16 products in bf16x3, every storage, run
-and Q), handed ``Einv`` and ``E^T`` pre-split in mma fragment order
+Hopper kernels run every product on the tensor cores (3xTF32 in the "f32"
+dot mode, three bf16 products in bf16x3), in every storage, run and Q, handed
+``Einv`` and ``E^T`` pre-split in mma fragment order
 (:func:`block_backward_dual.step_operators`) and counted also in
-``mode_launches["tc"]``; :func:`block_backward_high_plain` is its plain
-PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
+``mode_launches["tc"]``: at X = 8..64 ``csrc/block_backward_high_small.cu``
+(the C entry ``dqc_block_backward_high_small``, a library of its own:
+tiles of 2048 amplitudes streamed through a cp.async stage, the operators in
+shared memory, X = 8 as 16 rows under ``diag(E, E)``; bound by bytes), at X
+= 128 the dual adjoint's step (``csrc/tc_adjoint.cuh``, the C entry
+``dqc_block_backward_high_tc`` in ``csrc/block_backward_high.cu``);
+:func:`block_backward_high_plain` is their
+plain PyTorch version. X is 8..128, or 256 / 512 on the merged top axis
 of a tiny top group without a run (a lone top-group block as ``E (x) I``,
 the unfactorized hpair's merged operator), where the kernel forms the pair
 gram as ``(B F^T) Einv^T`` on the tensor cores (3xTF32, or three bf16
@@ -115,15 +116,23 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
         raise ValueError("block_backward_high: diag_q needs a diagonal run")
 
 
-_ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
-             + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 6
-             + [_launch.VOIDP])
-# dqc_block_backward_high_tc: the two pre-split operators for the four
-# f32 ones, no X
+# dqc_block_backward_high_tc (X = 128): planes, the two pre-split
+# operators, the twelve tables, run flags, Q outputs and scratch, A1, Q,
+# nblk, kinds and modes
 _TC_ARGTYPES = ([_launch.VOIDP] * 18 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
                 + [_launch.LONG, _launch.LONG] + [_launch.INT] * 6
                 + [_launch.VOIDP])
-TC_X = 128   # the X whose step runs on the tensor cores
+# dqc_block_backward_high_small (X = 8..64): the same with X after A1 and
+# the pair gram's slots a block after nblk
+_SMALL_ARGTYPES = ([_launch.VOIDP] * 18 + [_launch.INT] * 3 + [_launch.VOIDP] * 8
+                   + [_launch.LONG, _launch.INT, _launch.LONG] + [_launch.INT] * 7
+                   + [_launch.VOIDP])
+TC_X = 128   # the X of the dual adjoint's step; below, the small-X step
+SMALL_TILE = 2048   # amplitudes of the small-X step's tiles
+# the small-X step's pair-gram slots and blocks per SM at each X
+# (csrc/block_backward_high_small.cu SmCfg: WG_K, kBlocksPerSm)
+SMALL_SLOTS = {8: 8, 16: 8, 32: 2, 64: 1}
+SMALL_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 2, 64: 1}
 
 
 def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
@@ -139,7 +148,7 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     to the outputs. ``B`` is stored as float32, bfloat16 or float16, ``F``
     as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
     ``gram_mode`` are the uncompute's, the transport's and the pair gram's
-    dot modes. Launches at X = 128 also count as ``mode_launches["tc"]``."""
+    dot modes. Launches at X <= 128 also count as ``mode_launches["tc"]``."""
     planes = (fr, fi, br, bi)
     if fr.dim() != 4 or fr.shape[-1] != 128 or any(
             p.shape != fr.shape for p in planes):
@@ -184,17 +193,20 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
     for tabs in (diag_inv_tables, diag_tables):
         _launch.check_tables("block_backward_high", tabs, A1 * X * M // 128,
                              fr.device)
-        # the tensor-core step reads four neighbouring entries of tal and
+        # the tensor-core steps read four neighbouring entries of tal and
         # tsl at once
-        if X == TC_X and tabs is not None and any(t.data_ptr() % 16 for t in tabs):
+        if tabs is not None and any(t.data_ptr() % 16 for t in tabs):
             raise ValueError("block_backward_high: diag tables must be "
                              "16-byte aligned")
-    lib = "block_backward_high"
-    slots = _launch.entry(lib, "dqc_block_backward_high_slots", [_launch.INT])(X)
-    # the blocks take tiles of 8192 / X columns, or with diag_q whole (i, p)
-    # groups of 128 x 128 columns
-    units = A1 * M // 128 if diag_q else A1 * X * M * 128 // 8192
-    nblk = min(units, _launch.sm_count(fr.device))
+    if X < TC_X and any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("block_backward_high: planes must be 16-byte aligned")
+    # the blocks take tiles of 8192 (X = 128) or 2048 amplitudes, or with
+    # diag_q whole (i, p) groups of 128 x 128 columns
+    tile = 8192 if X == TC_X else SMALL_TILE
+    units = A1 * M // 128 if diag_q else A1 * X * M * 128 // tile
+    per_sm = 1 if X == TC_X else SMALL_BLOCKS_PER_SM[X]
+    nblk = min(units, per_sm * _launch.sm_count(fr.device))
+    slots = 1 if X == TC_X else SMALL_SLOTS[X]
     dev = fr.device
     part = torch.zeros((nblk * slots, 2, X, X), dtype=torch.float32, device=dev)
     out = torch.empty((2, X, X), dtype=torch.float32, device=dev)
@@ -205,35 +217,31 @@ def block_backward_high(fr, fi, br, bi, einv_r, einv_i, e_r, e_i, *,
         qpart = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
         qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
         q_ptrs = [r.data_ptr() for r in rows] + [qpart.data_ptr(), qsl.data_ptr()]
-    head = [p.data_ptr() for p in planes]
+    # a run rolled back on load leaves f32 values in the step's tiles (no
+    # staging), which the operators then meet in two parts
+    raw = diag_tables is not None and not diag_first_fwd
+    tc_ops = step_operators(*ops, dot_mode, bwd_mode,
+                            torch.float32 if raw else fr.dtype,
+                            torch.float32 if raw else br.dtype)
     if X == TC_X:
-        # a run rolled back on load leaves f32 values in the step's tiles
-        # (no staging), which the operators then meet in two parts
-        raw = diag_tables is not None and not diag_first_fwd
-        tc_ops = step_operators(*ops, dot_mode, bwd_mode,
-                                torch.float32 if raw else fr.dtype,
-                                torch.float32 if raw else br.dtype)
+        lib = "block_backward_high"
         fn = _launch.entry(lib, "dqc_block_backward_high_tc", _TC_ARGTYPES)
-        head += [o.data_ptr() for o in tc_ops]
-        shape = (A1, M * 128)
+        shape = (A1, M * 128, nblk)
     else:
-        fwd16 = fr.dtype != torch.float32 or dot_mode == "bf16x3"
-        fn = (_launch.entry("block_backward_high_fwd16",
-                            "dqc_block_backward_high_fwd16", _ARGTYPES) if fwd16
-              else _launch.entry(lib, "dqc_block_backward_high", _ARGTYPES))
-        head += [o.data_ptr() for o in ops]
-        shape = (A1, X, M * 128)
-    code = fn(*head, *_launch.table_ptrs(diag_inv_tables),
+        lib = "block_backward_high_small"
+        fn = _launch.entry(lib, "dqc_block_backward_high_small", _SMALL_ARGTYPES)
+        shape = (A1, X, M * 128, nblk, slots)
+    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in tc_ops),
+              *_launch.table_ptrs(diag_inv_tables),
               *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
               int(diag_first_fwd), int(diag_q), *q_ptrs, part.data_ptr(),
-              out.data_ptr(), *shape, nblk, _st.storage_kind(br.dtype),
+              out.data_ptr(), *shape, _st.storage_kind(br.dtype),
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
               _st.storage_kind(fr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_high launch")
     block_backward_high.launches += 1
-    if X == TC_X:
-        block_backward_high.mode_launches["tc"] += 1
+    block_backward_high.mode_launches["tc"] += 1
     count_modes(block_backward_high, br.dtype, bwd_mode, gram_mode)
     _st.count_fwd(block_backward_high, fr.dtype, dot_mode)
     if not diag_q:

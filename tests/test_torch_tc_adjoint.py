@@ -29,8 +29,8 @@ surrounds it and its arithmetic:
   meta device through the wrappers under f32, "f16" and "bf16" storage at
   n = 15, and the rings at n = 21 (group 2 at X = 128): every launch of the
   dual, lane and sublane adjoints counts ``[tc]``, and so does every launch
-  of the high adjoint at X = 128, which are the launches it hands the
-  tensor-core entry.
+  of the high adjoint at X <= 128, which are the launches it hands its
+  tensor-core entries.
 """
 
 import importlib
@@ -92,8 +92,6 @@ def recorded(monkeypatch):
     def entry(lib, fn, argtypes):
         def call(*args):
             assert len(args) == len(argtypes), (fn, len(args), len(argtypes))
-            if fn == "dqc_block_backward_high_slots":
-                return 1
             calls.append((lib, fn, args))
             return 0
         return call
@@ -356,13 +354,14 @@ def meta_kernels(monkeypatch):
     stand-ins that launch nothing; yields the high adjoint's launches as
     (entry, X)."""
     high = []
+    x_arg = {"dqc_block_backward_high_small": 30, "dqc_block_backward_high_wide": 12}
 
     def entry(lib, fn, argtypes):
         def call(*args):
             if fn == "dqc_block_backward_high_tc":
                 high.append((fn, 128))
-            elif fn.startswith("dqc_block_backward_high") and fn != "dqc_block_backward_high_slots":
-                high.append((fn, args[33] if "wide" not in fn else args[12]))
+            elif fn.startswith("dqc_block_backward_high"):
+                high.append((fn, args[x_arg[fn]]))
             return 0
         return call
 
@@ -400,9 +399,10 @@ def _model_counts(kind, n):
                                      ("cz", 21), ("cnot", 21)])
 def test_models_count_the_tensor_core_adjoints(meta_kernels, kind, n, storage):
     """Every launch of the dual, lane and sublane adjoints counts ``[tc]``;
-    the high adjoint's launches count it exactly when they take the
-    tensor-core entry, which they do at X = 128 (group 2 at n = 21) and at
-    no other X."""
+    the high adjoint's launches count it exactly when they take a
+    tensor-core entry, which they do at every X up to 128 (the X = 128 step,
+    group 2 at n = 21; the small-X step below) and not on the X = 256 / 512
+    merged top axis."""
     config.set_state_storage(storage)
     counts = _model_counts(kind, n)
     adjoint = "block_backward_lane" if kind == "gauntlet" else "block_backward_dual"
@@ -410,10 +410,11 @@ def test_models_count_the_tensor_core_adjoints(meta_kernels, kind, n, storage):
     for k in ("block_backward_dual", "block_backward_lane", "block_backward_sublane"):
         assert counts[f"{k}[tc]"] == counts[k], (k, counts)
     high = meta_kernels
-    tc = sum(fn == "dqc_block_backward_high_tc" for fn, _ in high)
+    tc = sum(fn in ("dqc_block_backward_high_tc", "dqc_block_backward_high_small")
+             for fn, _ in high)
     assert len(high) == counts["block_backward_high"]
     assert counts["block_backward_high[tc]"] == tc
-    assert tc == sum(X == 128 for _, X in high)
+    assert tc == sum(X <= 128 for _, X in high)
     if n == 21:
         assert tc > 0, high
     if kind == "cnot":

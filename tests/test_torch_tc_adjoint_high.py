@@ -15,8 +15,8 @@ and its Q. No CUDA kernel runs here; these tests hold:
   three parts where 3xTF32 meets 16-bit planes the step holds exact (not
   after a run the high adjoint rolls back on load: its tiles then hold f32
   values), the kinds and mode flags; every launch counts in
-  ``mode_launches["tc"]``; the high adjoint at X = 64 still hands its f32
-  operators to its CUDA-core entries;
+  ``mode_launches["tc"]``; so does the high adjoint at X = 64, to its
+  small-X entry (``tests/test_torch_tc_adjoint_small_x.py`` holds X = 8..64);
 * each step written out in the kernel's numerics (3xTF32 of
   ``_tc.split_tf32`` parts, bf16x3 pair grams of ``_storage.split`` parts,
   float64 part products) against the JAX package's ``block_backward_sublane``
@@ -133,20 +133,24 @@ def test_high_hands_presplit_operators(recorded, fdt, bdt, dot, bwd, gram, run):
 @pytest.mark.parametrize("fdt, dot", [(F32, "f32"), (BF16, "f32"), (F32, "bf16x3")],
                          ids=["f32", "bf16", "f32_dot_x3"])
 def test_high_below_128_keeps_its_entries(recorded, fdt, dot):
-    """X = 64: the CUDA-core step, handed the f32 operators (Einv, E), no
-    ``[tc]`` count."""
+    """X = 64: the small-X tensor-core entry (a library of its own), handed
+    Einv and E^T pre-split in their products' modes (in three parts where
+    3xTF32 meets the bf16 planes), X, the blocks (one per SM at X = 64) and
+    the pair gram's one slot a block, counted in ``[tc]``."""
     calls, made = recorded
-    ops = _ops(50, 2, X=64)
+    einv_r, einv_i, e_r, e_i = ops = _ops(50, 2, X=64)
     bbh.block_backward_high(*_meta_planes(fdt, fdt, 1, (64, 256, 128)), *ops,
                             dot_mode=dot)
     (lib, fn, args), = calls
-    want = (("block_backward_high", "dqc_block_backward_high") if fdt == F32 and dot == "f32"
-            else ("block_backward_high_fwd16", "dqc_block_backward_high_fwd16"))
-    assert (lib, fn) == want
-    assert args[4:8] == tuple(o.data_ptr() for o in ops)
-    assert not made
+    assert (lib, fn) == ("block_backward_high_small", "dqc_block_backward_high_small")
+    assert torch.equal(made[args[4]], _want(einv_r, einv_i, dot, fdt))
+    assert torch.equal(made[args[5]], _want(e_r.t(), e_i.t(), "f32", fdt))
+    # A1, X, Q, nblk, slots; bkind, bwd_x3, gram_x3, fkind, dot_x3
+    assert args[29:34] == (1, 64, 256 * 128, 132, 1)
+    assert args[34:39] == (st.storage_kind(fdt), 0, 0, st.storage_kind(fdt),
+                           int(dot == "bf16x3"))
     w = bbh.block_backward_high
-    assert w.launches == 1 and w.mode_launches["tc"] == 0
+    assert w.launches == w.mode_launches["tc"] == 1
 
 
 # ---------------------------------------------------------------------------

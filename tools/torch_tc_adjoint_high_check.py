@@ -7,15 +7,16 @@ the tensor cores, on one CUDA card.
 
 Builds the port's kernels and prints the registers and spills of the dual
 adjoint's library (which builds the sublane step) and of the high adjoint's
-(the tensor-core kernel at X = 128, the CUDA-core ones below); holds
+(the tensor-core kernel at X = 128); holds
 ``block_backward_sublane`` at A = 1024 slabs (24 qubits) and
 ``block_backward_high`` at X = 128 on the view (4, 128, 256, 128) to their
 plain versions in every storage (F f32 / bf16, B f32 / bf16 / f16) and dot
 mode, the high adjoint also without a run and with a run met first or after,
 with and without its Q (planes within 1e-4 or 2 storage ulps, pair grams
 and Q within the storage's gram tolerance, 1e-5 / 4e-5 of their largest
-entry on f32 planes); then the X = 64 high adjoint and the dual adjoint with
-a run's Q, both orders, f32 and bf16; then the time of one launch at 29
+entry on f32 planes); then the X = 64 high adjoint (its small-X step,
+tools/torch_tc_adjoint_small_x_check.py checks every variant) and the dual
+adjoint with a run's Q, both orders, f32 and bf16; then the time of one launch at 29
 qubits (CUDA events, five launches after one) of each kernel in four
 settings, the high adjoint also with a run's Q, and of the dual adjoint (no
 run, the ring's run, with bf16x3 grams) and the merged-top adjoint (Xt = 2,
@@ -66,7 +67,7 @@ print(f"[{ROLE} build] {time.perf_counter() - t0:.1f} s {json.dumps(_build.build
 if ROLE == "change":
     for lib, ks in _build.kernel_resources((
             "block_backward_dual_kernel", "block_backward_high_tc_kernel",
-            "block_backward_high_kernel", "tc_op_tile", "pair_gram", "tc_load_tiles",
+            "tc_op_tile", "pair_gram", "tc_load_tiles",
             "tc_store_tile")).items():
         for k in ks:
             print(f"[regs] {lib} {json.dumps(k)}", flush=True)
@@ -167,7 +168,7 @@ if ROLE == "change":
                 torch.cuda.synchronize()
                 compare(f"high128 b={bdt} f={fdt} dot={dot} bwd={bwd} gram={gram} run={run} "
                         f"q={q}", got, want, 2, bdt, fdt, gram == "bf16x3" or dot == "bf16x3")
-    # the X = 64 CUDA-core step and the dual adjoint's Q, unchanged
+    # the X = 64 step and the dual adjoint's Q
     for bdt, fdt, dot, bwd, gram in SETTINGS[:1] + SETTINGS[5:6]:
         for first in (True, False):
             planes = planes_of((2, 64, 2048, 128), fdt, bdt)
