@@ -176,7 +176,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    at X = 64, and 25, group 3 at X = 16: densities and gradients through
    the kernels against the plain path, counts held to the dry run, every
    high adjoint launch counted block_backward_high[tc]);
-17. the tensor-core routes (3l, after phase 3): the high apply at X =
+17. the Gram at X = 128 / 256 / 512 and the merged-top adjoint on the
+   tensor cores (3n, csrc/gram.cu's dqc_gram_tc and
+   csrc/block_backward_merged_fact.cu on csrc/tc_adjoint.cuh's step): every
+   variant their entries take (the Gram's lane, sublane, high and merged-top
+   views on f32 and bf16 planes in both dot modes; the merged adjoint at
+   Xt = 2 and 4 with F f32 / bf16, B f32 / bf16 / f16 and every
+   combination of the three dot modes, a bf16x3 uncompute beside a bf16x3
+   transport among them) against their plain versions on small views, that
+   pair also timed at 2^29; every launch of both counted gram[tc] /
+   block_backward_merged_fact[tc] and held to the dry runs;
+18. the tensor-core routes (3l, after phase 3): the high apply at X =
    128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
    high_apply[tc]), the X = 256 / 512 adjoint (its cross-Gram and its
    two updates on the tensor cores), the dual, lane and sublane adjoints
@@ -185,14 +195,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    storage, mode, run and Q, counted as block_backward_dual[tc],
    block_backward_lane[tc], block_backward_sublane[tc] and
    block_backward_high[tc]; the lane and sublane adjoints built in the
-   dual adjoint's library): each of their phase-3 rows again with
+   dual adjoint's library), the Gram at X >= 128 and the merged-top
+   adjoint (gram[tc], block_backward_merged_fact[tc]; its top factor's f32
+   work on the CUDA cores at the FP32 rate): each of their phase-3 rows again with
    its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
    runs, three per real product, one fewer for each planes operand whose
    lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
    tf32 at 495 TFLOP/s, bf16 at 989), which is then the row's bound_ms,
    and its share of it, and the kernels' registers and spills from this
    run's build;
-18. a JSON line of the kernels and of the modes checked (their launches
+19. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -479,21 +491,42 @@ def adjoint_tc(cmacs: float, fdt="float32", bdt="float32", dot="f32",
             tc_product(cmacs, gram == "bf16x3", bdt, "float32")]
 
 
+def gram_tc(amps: float, X: int, dt="float32", dot="f32") -> list:
+    """The tensor-core work of a Gram launch at X >= 128 (csrc/gram.cu's
+    dqc_gram_tc): the function's 2 X + 1 real multiply-adds per amplitude,
+    three tf32 passes ("f32") or three bf16 passes (bf16x3) on f32 planes,
+    one bf16 pass on bf16 planes (exact in both formats: the kernel runs
+    them as bf16 products whatever the mode)."""
+    bf = str(dt).split(".")[-1] == "bfloat16"
+    return [tc_product(amps * (2 * X + 1) / 4, bf or dot == "bf16x3", dt, dt)]
+
+
+def cuda_core(flops: float) -> tuple:
+    """Work of a tensor-core route that stays on the CUDA cores (f32 FMA):
+    the merged adjoint's top factor and T0_top."""
+    return (0.0, 0.0, flops)
+
+
 def tc_fields(tc) -> dict:
     """A row's tensor-core work: ``tc``, the tc_product of each of its
-    products, summed as tc_flops = [tf32 flops, bf16 flops]; {} for a row
-    off the tensor cores (tc None)."""
+    products (and its cuda_core work), summed as tc_flops = [tf32 flops,
+    bf16 flops, f32 flops on the CUDA cores]; {} for a row off the tensor
+    cores (tc None)."""
     if tc is None:
         return {}
-    return {"tc_flops": [sum(t[0] for t in tc), sum(t[1] for t in tc)]}
+    return {"tc_flops": [sum(t[k] if len(t) > k else 0.0 for t in tc)
+                         for k in range(3)]}
 
 
-def tc_bound_ms(bytes_moved: float, tf32_flops: float, bf16_flops: float):
+def tc_bound_ms(bytes_moved: float, tf32_flops: float, bf16_flops: float,
+                fp32_flops: float = 0.0):
     """bound_ms of a tensor-core route from the passes it runs (tc_product):
-    the tf32 flops at the TF32 rate plus the bf16 flops at the bf16 rate, or
-    the bytes over the HBM rate, the larger."""
+    the tf32 flops at the TF32 rate plus the bf16 flops at the bf16 rate
+    (plus the f32 flops it runs on the CUDA cores at the FP32 rate), or the
+    bytes over the HBM rate, the larger."""
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_ops = (tf32_flops / PEAK_TF32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    t_ops = (tf32_flops / PEAK_TF32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+             + fp32_flops / PEAK_FP32_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -533,7 +566,7 @@ def call_modes(name: str, a) -> tuple:
             + storage_modes(a["br"].dtype) + dot_modes(a)
             + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_merged_fact":
-        return (storage_modes(a["br"].dtype) + dot_modes(a)
+        return (("tc",) + storage_modes(a["br"].dtype) + dot_modes(a)
                 + fwd_modes(a["fr"].dtype, a))
     if name == "block_backward_lane":
         return (("tc",) + storage_modes(a["br"].dtype) + dot_modes(a)
@@ -556,7 +589,10 @@ def call_modes(name: str, a) -> tuple:
               else ())
         return (in16 + wide + tc + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
-    if name in ("gram", "merged_fact_apply", "diag_sweep"):
+    if name == "gram":  # the tensor-core Gram at X = 128 / 256 / 512
+        return ((("tc",) if a["xr"].shape[1] >= 128 else ())
+                + fwd_modes(a["xr"].dtype, a))
+    if name in ("merged_fact_apply", "diag_sweep"):
         return fwd_modes(a["xr"].dtype, a)
     if name == "diag_backward":
         return ((("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
@@ -656,14 +692,16 @@ def with_gram_modes(want: dict) -> dict:
     """Launch counts of a run under the default dot modes: every launch of
     an adjoint kernel with a pair gram counts in its "gram_bf16x3" mode when
     config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
-    launch of the dual, lane and sublane adjoints in its "tc" mode (their
-    one-pass step runs on the tensor cores in every mode), as does every
-    high adjoint launch of these runs (X <= 128)."""
+    launch of the dual, lane, sublane and merged-top adjoints in its "tc"
+    mode (their one-pass step runs on the tensor cores in every mode), as
+    does every high adjoint launch and every Gram of these runs (X >= 128:
+    the 28q and 29q rings' Grams are all of groups of 7 bits or the merged
+    top)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
-    for k in (*TC_ADJOINTS, "block_backward_high"):
+    for k in (*TC_ADJOINTS, "block_backward_high", "block_backward_merged_fact", "gram"):
         want[f"{k}[tc]"] = want.get(k, 0)
     return want
 
@@ -1066,7 +1104,7 @@ def main() -> int:
                           ("high_g3", (g3[0], 128, g3[2] * 128))):
         check("gram", variant, view, gram, gram_plain, (), GRAM_TOL,
               flops=amps * (2 * view[1] + 1) * 2, bytes_moved=state_bytes,
-              library=gram_library, normalize=True)
+              library=gram_library, normalize=True, tc=gram_tc(amps, view[1]))
 
     # the seed modes: y = acc + conj(E x) into the accumulator planes, the
     # input planes (the forward state) left intact
@@ -1211,7 +1249,7 @@ def main() -> int:
                           ("29q_high_g2", (g2_29[0], 128, g2_29[2] * 128))):
         check("gram", variant, view, gram, gram_plain, (), GRAM_TOL,
               flops=amps29 * (2 * view[1] + 1) * 2, bytes_moved=state29,
-              library=gram_library, normalize=True)
+              library=gram_library, normalize=True, tc=gram_tc(amps29, view[1]))
     check_many("dual_apply", "29q_seed", (A29, 128, 128), 4, 2,
                seed(dual_apply, *el29, *em29), seed(dual_apply_plain, *el29, *em29),
                DUAL_TOL, flops=amps29 * 2 * 128 * 8,
@@ -1241,6 +1279,14 @@ def main() -> int:
     # at 29 qubits and Xt = 4 as at 30 (its M cut to half, so that the plain
     # versions fit beside the kernel's planes)
     merged_shapes = ((2, (1, 256, 1 << 14, 128)), (4, (1, 512, 1 << 13, 128)))
+
+    def merged_tc(x_top, fdt="float32", bdt="float32", dot="f32", bwd="f32",
+                  gram="f32"):
+        """The merged adjoint's work at 2^29 amplitudes: its low factor on
+        the tensor cores (adjoint_tc at X = 128), its top factor and T0_top
+        (3 Xt complex multiply-adds per amplitude) on the CUDA cores."""
+        return (adjoint_tc(amps29 * 128, fdt, bdt, dot, bwd, gram)
+                + [cuda_core(amps29 * 3 * x_top * 8)])
 
     def merged_library(El, Et, x_top):
         def make(xr, xi):
@@ -1283,10 +1329,11 @@ def main() -> int:
                    lambda *p, xt=x_top: block_backward_merged_fact_plain(
                        *p, *ops, x_top=xt), HIGH_TOL,
                    flops=amps29 * 3 * (128 + x_top) * 8, bytes_moved=4 * state29,
-                   library=merged_bwd_library(Eli, El, Eti, Et, x_top))
+                   library=merged_bwd_library(Eli, El, Eti, Et, x_top),
+                   tc=merged_tc(x_top))
         check("gram", f"merged_X{X}", (1, X, shape[2] * 128), gram, gram_plain, (),
               GRAM_TOL, flops=amps29 * (2 * X + 1) * 2, bytes_moved=state29,
-              library=gram_library, normalize=True)
+              library=gram_library, normalize=True, tc=gram_tc(amps29, X))
         E = unitary(X)
         check_many("high_apply", f"X{X}_seed", shape, 4, 2, seed(high_apply, *E),
                    seed(high_apply_plain, *E), HIGH_TOL, flops=amps29 * X * 8,
@@ -1875,7 +1922,9 @@ def main() -> int:
                           lambda *p, kw=modes, xt=x_top: block_backward_merged_fact_plain(
                               *p, *mops, x_top=xt, **kw),
                           dt, amps29 * (128 + 3 * x_top) * 8 + f_tr + f_gr,
-                          b_tr + b_gr, state29 * 2 + b_bytes(dt) * 2)
+                          b_tr + b_gr, state29 * 2 + b_bytes(dt) * 2,
+                          tc=merged_tc(x_top, "float32", dt, "f32",
+                                       modes.get("bwd_mode", "f32"), "bf16x3"))
         del mops
         torch.cuda.empty_cache()
 
@@ -2219,7 +2268,8 @@ def main() -> int:
             check_fwd16("gram", f"{variant}_{tag}", gview, [(fdt, 2 ** -14.5)] * 2,
                         lambda xr, xi, d=dot: gram(xr, xi, dot_mode=d),
                         lambda xr, xi, d=dot: gram_plain(xr, xi, d),
-                        0, *fl, plane_bytes(fdt), lib(gram_library))
+                        0, *fl, plane_bytes(fdt), lib(gram_library),
+                        tc=gram_tc(amps29, X, fdt, dot))
         # 6. the factorized merged sweep and its adjoint (the transport f32,
         # the pair grams bf16x3: the modes planes hands it)
         for x_top, shape in merged_shapes:
@@ -2244,7 +2294,8 @@ def main() -> int:
                             *p, *o, **kw),
                         2, f_un + f_tr + f_gr, b_un + b_gr,
                         2 * plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                        lib(merged_bwd_library(Eli, El, Eti, Et, x_top)))
+                        lib(merged_bwd_library(Eli, El, Eti, Et, x_top)),
+                        tc=merged_tc(x_top, fdt, bdt, dot, "f32", "bf16x3"))
             del mops
             torch.cuda.empty_cache()
         # 7. the dual and group-2 adjoints ("auto" transports and grams)
@@ -2309,7 +2360,8 @@ def main() -> int:
                               *p, *o, x_top=xt, **clamp),
                           lambda *p, o=mops, xt=x_top: block_backward_merged_fact_plain(
                               *p, *o, x_top=xt, **clamp),
-                          dt, f_tr + f_gr, b_gr, state29 * 2 + b_bytes(dt) * 2)
+                          dt, f_tr + f_gr, b_gr, state29 * 2 + b_bytes(dt) * 2,
+                          tc=merged_tc(x_top, "float32", dt, "f32", "f32", "bf16x3"))
         del mops
         torch.cuda.empty_cache()
 
@@ -2694,6 +2746,102 @@ def main() -> int:
     gen.set_state(gen_state)
     torch.cuda.empty_cache()
 
+    # 3n. the Gram at X = 128 / 256 / 512 and the merged-top adjoint on the
+    # tensor cores (csrc/gram.cu's dqc_gram_tc; csrc/block_backward_merged_fact.cu
+    # on csrc/tc_adjoint.cuh's step): every variant their entries take against
+    # the plain versions on small views, without times: the Gram of the lane,
+    # sublane and high views at X = 128 and of the merged top at X = 256 / 512
+    # on f32 and bf16 planes in both dot modes (within GRAM_T0_TOL of the
+    # largest entry; X3_GRAM_TOL in bf16x3 on f32 planes), the merged adjoint
+    # at Xt = 2 and 4 on views (1, Xt 128, 32, 128) with F f32 / bf16, B f32 /
+    # bf16 / f16 and every combination of the three dot modes (planes within
+    # HIGH_TOL or STORE_ULPS storage ulps, T0_top and T0_low within their
+    # storage's gram tolerance, X3_GRAM_TOL with a bf16x3 gram or uncompute on
+    # f32 planes); then the one mode pair no path hands it, a bf16x3
+    # uncompute beside a bf16x3 transport, timed at 2^29. The rows of phases 3, 3e and
+    # 3i time the rest at 29q, with their tensor-core bounds from phase 3l.
+    log_time("3n")
+    gen_state = gen.get_state()  # every later row keeps its data
+    # (3m's loop variable took the name gram)
+    from dqc_tpu_torch.ops.kernels.gram import gram as gram_fn
+    worst_gram, n_gram = 0.0, 0
+    for view in ((1 << 13, 128, 1), (64, 128, 128), (2, 128, 256 * 128),
+                 (2, 256, 256 * 128), (2, 512, 256 * 128)):
+        for fdt in (F32, BF16):
+            for dot in ("f32", "bf16x3"):
+                xr, xi = (stc.store_as(randn(*view), fdt) for _ in range(2))
+                want = gram_plain(xr, xi, dot)
+                got = gram_fn(xr, xi, dot_mode=dot)
+                torch.cuda.synchronize()
+                rel = max((g_ - w_).abs().max().item() / w_.abs().max().item()
+                          for g_, w_ in zip(got, want))
+                tol = X3_GRAM_TOL if (fdt, dot) == (F32, "bf16x3") else GRAM_T0_TOL
+                require(rel <= tol, f"gram[{view} {fdt} {dot}] disagrees with its "
+                                    f"plain version: {rel:.3e} relative (tol {tol:.0e})")
+                worst_gram = max(worst_gram, rel)
+                n_gram += 1
+                del xr, xi, want, got
+    modes3 = [(d, b, g_) for d in ("f32", "bf16x3") for b in ("f32", "bf16x3")
+              for g_ in ("f32", "bf16x3")]
+    worst_merged = {"ulps": 0.0, "abs": 0.0, "rel": 0.0}
+    n_merged = 0
+    for x_top in (2, 4):
+        shape = (1, x_top * 128, 32, 128)
+        mops = (*unitary(128), *unitary(128), *unitary(x_top), *unitary(x_top))
+        for fdt in (F32, BF16):
+            for bdt in (F32, BF16, F16):
+                for dot, bwd, gm_ in modes3:
+                    kw = dict(x_top=x_top, dot_mode=dot, bwd_mode=bwd, gram_mode=gm_)
+                    ins = ([stc.store_as(randn(*shape), fdt) for _ in range(2)]
+                           + [stc.store_as(0.5 * randn(*shape), bdt) for _ in range(2)])
+                    want = block_backward_merged_fact_plain(*ins, *mops, **kw)
+                    got = block_backward_merged_fact(*[t.clone() for t in ins], *mops, **kw)
+                    torch.cuda.synchronize()
+                    ulps, err = 0.0, 0.0
+                    for k in range(2):
+                        g2, w2 = got[2 * k:2 * k + 2], want[2 * k:2 * k + 2]
+                        if g2[0].dtype == F32:
+                            err = max(err, max((a - b).abs().max().item()
+                                               for a, b in zip(g2, w2)))
+                        else:
+                            ulps = max(ulps, stc.ulps_apart(g2, w2, g2[0].dtype))
+                    rel = max((torch.complex(got[j], got[j + 1])
+                               - torch.complex(want[j], want[j + 1])).abs().max().item()
+                              / torch.complex(want[j], want[j + 1]).abs().max().item()
+                              for j in (4, 6))
+                    red = [d for d in (bdt, fdt) if d != F32]
+                    g_tol = (stc.gram_tolerance(red[0]) if red else
+                             X3_GRAM_TOL if "bf16x3" in (gm_, dot) else GRAM_T0_TOL)
+                    require(ulps <= STORE_ULPS and err <= HIGH_TOL and rel <= g_tol,
+                            f"block_backward_merged_fact[Xt{x_top} F {fdt} B {bdt} "
+                            f"{dot}/{bwd}/{gm_}] disagrees with its plain version: "
+                            f"planes {ulps:.2f} ulps (tol {STORE_ULPS}), {err:.3e} abs "
+                            f"(tol {HIGH_TOL:.0e}), T0 {rel:.3e} (tol {g_tol:.1e})")
+                    worst_merged = {"ulps": max(worst_merged["ulps"], ulps),
+                                    "abs": max(worst_merged["abs"], err),
+                                    "rel": max(worst_merged["rel"], rel)}
+                    n_merged += 1
+                    del ins, want, got
+        del mops
+        torch.cuda.empty_cache()
+    log(f"[3n] gram at X = 128..512: {n_gram} variants within their bars, worst "
+        f"{worst_gram:.3e} relative; block_backward_merged_fact: {n_merged} variants "
+        f"within their bars on views (1, Xt 128, 32, 128); worst "
+        f"{json.dumps(worst_merged)}")
+    x_top, shape = merged_shapes[0]
+    mops = (*unitary(128), *unitary(128), *unitary(x_top), *unitary(x_top))
+    x3x3 = dict(x_top=x_top, dot_mode="bf16x3", bwd_mode="bf16x3", gram_mode="bf16x3")
+    _, b_x3 = cmac_flops(3 * 128, True)
+    check_fwd16("block_backward_merged_fact", f"Xt{x_top}_x3x3", shape,
+                [(F32, 1.0)] * 2 + [(F32, 0.5)] * 2,
+                lambda *p: block_backward_merged_fact(*p, *mops, **x3x3),
+                lambda *p: block_backward_merged_fact_plain(*p, *mops, **x3x3),
+                2, amps29 * 3 * x_top * 8, b_x3, 4 * state29, phase="3n",
+                tc=merged_tc(x_top, dot="bf16x3", bwd="bf16x3", gram="bf16x3"))
+    del mops
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
+
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
@@ -2705,6 +2853,8 @@ def main() -> int:
     # and the kernels' registers and spills from this run's build (with the
     # not-inlined functions of the adjoints' step)
     tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
+                                       "gram_tc_kernel", "block_backward_merged_fact_kernel",
+                                       "merged_slice_gram", "merged_top_factor",
                                        "block_backward_dual_kernel",
                                        "block_backward_high_tc_kernel",
                                        "block_backward_high_small_kernel", "tc_op_tile",
@@ -2717,8 +2867,9 @@ def main() -> int:
         for k in kernels_of:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
-        if (r["kernel"], r["shape"][1] >= 128) == ("high_apply", True) or (
-                r["kernel"] in (*TC_ADJOINTS, "block_backward_high")):
+        if (r["kernel"] in ("high_apply", "gram") and r["shape"][1] >= 128) or (
+                r["kernel"] in (*TC_ADJOINTS, "block_backward_high",
+                                "block_backward_merged_fact")):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -2993,6 +3144,7 @@ def main() -> int:
     want29.update({"dual_apply": LAYERS, "high_apply": LAYERS,
                    "high_apply[tc]": LAYERS, "merged_fact_apply": LAYERS,
                    "diag_sweep": 1, "gram": 4})
+    with_gram_modes(want29)  # the Grams' [tc]; no adjoint in a forward
     require(fwd29 == want29, f"29q forward launch counts {fwd29}, want {want29}")
     D = torch.stack(dens29)
     require(tuple(D.shape) == (N29, 2, 2), f"densities of shape {tuple(D.shape)}")
@@ -3587,7 +3739,8 @@ def main() -> int:
     for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
         want_["high_apply[tc]"] = sum(k == "high_apply" and "_X8_" not in v
                                       for k, v in step_)
-    # so do the high adjoints, the X = 8 span views' too
+    # so do the high adjoints, the X = 8 span views' too, and the Grams
+    with_gram_modes(want_fwd)
     with_gram_modes(want_vg)
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
         f"backward {json.dumps(Counter(k for k, _ in bwd_items))}")
@@ -4807,6 +4960,14 @@ def main() -> int:
             "dqc_tpu_torch/csrc/tc_adjoint.cuh",
             "dqc_tpu/ops/pallas/block_backward.py:906 (X = 128, the one-pass step, "
             "tensor cores)", "29q_X128_plain", "X128_"),
+        "gram[tc]": (
+            "dqc_tpu_torch/csrc/gram.cu",
+            "dqc_tpu/ops/pallas/gram.py:58,97,134 (X = 128 / 256 / 512, tensor cores)",
+            "29q_lane", "29q_"),
+        "block_backward_merged_fact[tc]": (
+            "dqc_tpu_torch/csrc/block_backward_merged_fact.cu",
+            "dqc_tpu/ops/pallas/block_backward.py:670 (the one-pass step, tensor cores)",
+            "Xt2", "Xt"),
     }
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
@@ -4814,7 +4975,9 @@ def main() -> int:
                  "block_backward_dual[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "block_backward_lane[tc]": t29,
                  "block_backward_sublane[tc]": {"counts": countsc, "counts_fwd": fwdc},
-                 "block_backward_high[tc]": {"counts": counts29, "counts_fwd": fwd29}}
+                 "block_backward_high[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "gram[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "block_backward_merged_fact[tc]": {"counts": counts29, "counts_fwd": fwd29}}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):

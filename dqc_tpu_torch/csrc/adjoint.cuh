@@ -1,11 +1,8 @@
-// The one-pass adjoint step on a tile of columns, the pieces its tensor-core
-// kernels share, and its CUDA-core products: the merged-top adjoint
-// (block_backward_merged_fact.cu) runs op_times_tile, acc_to_tile and
-// pair_gram on its X = 128 low step. The tensor-core steps (tc_adjoint.cuh:
-// the dual, lane and sublane adjoints and the high adjoint at X = 128;
-// block_backward_high_small.cu: the high adjoint at X = 8..64) share the
-// diagonal views (diag_group, diag_tile_smem), the Q reductions (q_tile)
-// and the bf16x3 pair gram below.
+// The pieces the one-pass adjoint steps on the tensor cores share
+// (tc_adjoint.cuh: the dual, lane and sublane adjoints, the high adjoint at
+// X = 128 and the merged-top adjoint; block_backward_high_small.cu: the high
+// adjoint at X = 8..64): the diagonal views (diag_group, diag_tile_smem),
+// the Q reductions (q_tile) and the bf16x3 pair gram of a 128-row tile.
 //
 // A "column" is X amplitudes along the contracted group axis; the tile
 // holds C = 8192 / X columns, and element (x, c) sits at base[x rs + c cs]
@@ -20,35 +17,15 @@
 // and writes fin over F and bout over B. An optional diagonal run is rolled
 // back with it: fwd *= Dinv and bwd *= D on load (the run followed the dense
 // block in the forward) or on store (it preceded it). The pair gram sees the
-// planes between the two.
+// planes between the two. Each pair-gram entry has one writer thread in a
+// block, added to the block's own partial slot in device memory with
+// reductions that do not wait for the old value (program order, like "+="),
+// and a second kernel adds the slots in a fixed order: the result does not
+// depend on scheduling.
 //
-// The CUDA-core products (the merged adjoint's X = 128 low step): 512
-// threads in two halves of 256, the first half the uncompute on F, the
-// second the transport on B, each thread keeping 8 rows x 4 columns of its
-// product in registers while 8-deep tiles of its half's operator stream
-// through shared memory: f32 FMA. Shared-memory rows are padded to a
-// multiple of four floats, so that the products and the pair gram read
-// float4. The pair gram splits the tile's columns over G groups of threads
-// (G = 1 at X = 128); each group adds its share into its own partial slot in
-// device memory, which only this block touches, with reductions that do not
-// wait for the old value (each entry has one writer, so they add in program
-// order), and a second kernel adds the slots in a fixed order: the result
-// does not depend on scheduling.
-//
-// bf16x3 (set_bwd_kernel_dot_mode / set_gram_kernel_dot_mode,
-// set_kernel_dot_mode): the transport (TX3) or the uncompute (UX3) half
-// stages its operator tile as hi and lo parts at half the depth and splits
-// the tile's values as it reads them, two FMAs per real product on parts
-// split in registers (common.cuh cmac3); the bf16x3 pair gram of a 128-row
-// tile runs on the tensor cores (pair_gram_x3_mma128: mma.sync m16n8k16
-// bf16, three products per real product, the parts split from shared
-// memory into registers).
-//
-// The shared-memory tile functions below that the tensor-core steps share
-// (diag_tile_smem, the Q reductions, pair_gram_x3_mma128) take the tile's
-// layout as a parameter L: L::at(x, c) is where element (x, c) sits, rows
-// padded to LD floats here (PadRows), swizzled in tc_adjoint.cuh and
-// block_backward_high_small.cu.
+// The shared-memory tile functions below take the tile's layout as a
+// parameter L: L::at(x, c) is where element (x, c) sits (swizzled rows:
+// SwizzledRows, block_backward_high_small.cu's).
 #pragma once
 
 #include "common.cuh"
@@ -57,37 +34,11 @@
 namespace dqc {
 
 constexpr int kAdjThreads = 512;
-constexpr int kHalf = kAdjThreads / 2;  // threads per operator product
 
 template <int X>
 struct AdjCfg {
   static constexpr int C = 8192 / X;      // tile columns
-  static constexpr int LD = C + 4;        // padded row, float4-aligned
-  static constexpr int KC = 8;            // operator tile depth
-  // operator x tile products, one per half: 8 rows x 4 columns per thread
-  static constexpr int RG = X / 8;        // row groups
-  static constexpr int CT = kHalf / RG;   // column threads (C / 4)
-  static constexpr int C4 = C / 4;        // float4 columns
-  // pair gram: X x X outputs, the tile's C columns split over G groups
-  static constexpr int CT2 = X / 4;
-  static constexpr int TPG = RG * CT2;          // threads per group
-  static constexpr int G = kAdjThreads / TPG;   // column groups
-  static constexpr int kSlotFloats = 2 * X * X;  // one partial (re, im)
-  // F, B and the transport's result (re, im), and one operator tile per half
-  static constexpr int kSmemFloats = 6 * X * LD + 4 * KC * X;
-  static constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
-  static_assert(CT * 4 == C, "four columns per thread");
-  static_assert(TPG * G == kAdjThreads, "gram groups fill the block");
-  static_assert(C4 % G == 0, "gram groups share the float4 columns evenly");
-  static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
-
-// Element (x, c) of a shared-memory tile with rows of LD floats.
-template <int LD>
-struct PadRows {
-  static __device__ __forceinline__ int at(int x, int c) { return x * LD + c; }
-};
-using Pad128 = PadRows<AdjCfg<kGroup>::LD>;  // the X = 128 tile of adjoint.cuh
 
 // Rows of C floats unpadded (C a multiple of 32), column c of row x at c ^
 // (8 (x & 3) + (x & 4)): a tf32 product fragment (rows k0 + t (+ 4),
@@ -174,140 +125,6 @@ __device__ __forceinline__ void cmac(float& accr, float& acci, float ar,
   acci = fmaf(ai, br, acci);
 }
 
-// acc[i][j] = sum_k Op[y][k] T[k][c] for y = rg 8 + i, c = 4 ct + j, with
-// Op = E (trans = 0) or E^T (trans = 1), E an X x X operator in device
-// memory and T the shared-memory tile [x][c]; run by each half of the block
-// on its own operands and operator-tile buffer. Both operands are read as
-// float4 (four rows of the operator tile, four columns of the tile). With
-// TX3 the second half (trans = 1, the transport) runs bf16x3: its operator
-// tile holds the hi and lo parts of KC / 2 rows of E, and both halves step
-// KC / 2 deep so that they meet the same barriers. UX3 runs the first half
-// (trans = 0, the uncompute) bf16x3 the same way.
-template <int X, bool TX3 = false, bool UX3 = false>
-__device__ void op_times_tile(const float* __restrict__ er,
-                              const float* __restrict__ ei, int trans,
-                              const float* tr_, const float* ti_, float* sTr,
-                              float* sTi, float (&accr)[8][4],
-                              float (&acci)[8][4]) {
-  using Cfg = AdjCfg<X>;
-  constexpr int KC = TX3 || UX3 ? Cfg::KC / 2 : Cfg::KC, CT = Cfg::CT;
-  constexpr int LD = Cfg::LD;
-  const bool x3 = trans ? TX3 : UX3;
-  // the x3 half's operator tile: hi (r, i) in sTr, lo (r, i) after it
-  float* sLr = sTr + 2 * KC * X;
-  float* sLi = sLr + KC * X;
-  if (x3) sTi = sTr + KC * X;
-  const int t = threadIdx.x % kHalf;
-  const int rg = t / CT, ct = t % CT;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0.f;
-  for (int k0 = 0; k0 < X; k0 += KC) {
-    __syncthreads();  // the tile is ready / the previous operator tile is consumed
-    for (int e = t; e < KC * X; e += kHalf) {
-      int row, kk;
-      int64_t src;
-      if (trans) {  // Op[row][k] = E[k][row]: read rows of E
-        kk = e / X;
-        row = e % X;
-        src = (int64_t)(k0 + kk) * X + row;
-      } else {
-        row = e / KC;
-        kk = e % KC;
-        src = (int64_t)row * X + k0 + kk;
-      }
-      const float vr = __ldg(er + src), vi = __ldg(ei + src);
-      if (x3) {
-        split_hl(vr, sTr[kk * X + row], sLr[kk * X + row]);
-        split_hl(vi, sTi[kk * X + row], sLi[kk * X + row]);
-      } else {
-        sTr[kk * X + row] = vr;
-        sTi[kk * X + row] = vi;
-      }
-    }
-    __syncthreads();
-    if (x3) {
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 br4 =
-            *reinterpret_cast<const float4*>(tr_ + (k0 + kk) * LD + 4 * ct);
-        const float4 bi4 =
-            *reinterpret_cast<const float4*>(ti_ + (k0 + kk) * LD + 4 * ct);
-        const float br[4] = {br4.x, br4.y, br4.z, br4.w};
-        const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
-        float brh[4], brs[4], bih[4], bis[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          split_hs(br[j], brh[j], brs[j]);
-          split_hs(bi[j], bih[j], bis[j]);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int o = kk * X + rg * 8 + 4 * h;
-          const float4 arh4 = *reinterpret_cast<const float4*>(sTr + o);
-          const float4 aih4 = *reinterpret_cast<const float4*>(sTi + o);
-          const float4 arl4 = *reinterpret_cast<const float4*>(sLr + o);
-          const float4 ail4 = *reinterpret_cast<const float4*>(sLi + o);
-          const float arh[4] = {arh4.x, arh4.y, arh4.z, arh4.w};
-          const float aih[4] = {aih4.x, aih4.y, aih4.z, aih4.w};
-          const float arl[4] = {arl4.x, arl4.y, arl4.z, arl4.w};
-          const float ail[4] = {ail4.x, ail4.y, ail4.z, ail4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              cmac3(accr[4 * h + i][j], acci[4 * h + i][j], arh[i], arl[i],
-                    aih[i], ail[i], brh[j], brs[j], bih[j], bis[j]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 br4 =
-            *reinterpret_cast<const float4*>(tr_ + (k0 + kk) * LD + 4 * ct);
-        const float4 bi4 =
-            *reinterpret_cast<const float4*>(ti_ + (k0 + kk) * LD + 4 * ct);
-        const float br[4] = {br4.x, br4.y, br4.z, br4.w};
-        const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // rows rg 8 + 4 h .. + 3, one float4 each
-          const float4 ar4 =
-              *reinterpret_cast<const float4*>(sTr + kk * X + rg * 8 + 4 * h);
-          const float4 ai4 =
-              *reinterpret_cast<const float4*>(sTi + kk * X + rg * 8 + 4 * h);
-          const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
-          const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              cmac(accr[4 * h + i][j], acci[4 * h + i][j], ar[i], ai[i], br[j],
-                   bi[j]);
-        }
-      }
-    }
-  }
-}
-
-// The products back into the shared-memory tile [y][c].
-template <int X>
-__device__ __forceinline__ void acc_to_tile(const float (&accr)[8][4],
-                                            const float (&acci)[8][4],
-                                            float* tr_, float* ti_) {
-  using Cfg = AdjCfg<X>;
-  const int t = threadIdx.x % kHalf;
-  const int rg = t / Cfg::CT, ct = t % Cfg::CT;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int o = (rg * 8 + i) * Cfg::LD + 4 * ct;
-    *reinterpret_cast<float4*>(tr_ + o) =
-        make_float4(accr[i][0], accr[i][1], accr[i][2], accr[i][3]);
-    *reinterpret_cast<float4*>(ti_ + o) =
-        make_float4(acci[i][0], acci[i][1], acci[i][2], acci[i][3]);
-  }
-}
-
 // p[0] += a, p[1] += b (p 8-byte aligned) by one vector reduction that does
 // not wait for the old values (sm_90's float2 atomicAdd): each entry is
 // added as by a scalar one, in fewer memory operations.
@@ -334,17 +151,16 @@ __device__ __forceinline__ void mma_bf16x3(float (&d)[4], const uint32_t (&ah)[4
 // there; a complex product is Br Fr - Bi Fi and Br Fi + Bi Fr, each real
 // product three bf16 mma (hi hi, hi lo, lo hi), -Bi by flipping the sign
 // bits of its parts (exact). Each accumulator entry has one writer thread,
-// added to the block's slot without waiting for the old value, as below.
-// L: the tiles' layout (a pair of neighbouring columns stays adjacent).
-// RED2: each thread's two neighbouring entries added by one vector
-// reduction (red2), as the tensor-core step writes its pair grams.
-template <class L = Pad128, bool RED2 = false>
+// its two neighbouring entries added to the block's slot by one vector
+// reduction (red2). L: the tiles' layout (a pair of neighbouring columns
+// stays adjacent).
+template <class L>
 __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
                                     const float* fR, const float* fI,
                                     float* part) {
   using Cfg = AdjCfg<kGroup>;
   constexpr int X = kGroup;
-  static_assert(Cfg::C == 64 && Cfg::G == 1, "X = 128 tiles, one slot");
+  static_assert(Cfg::C == 64, "X = 128 tiles");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int xb = 32 * (warp >> 2), yb = 32 * (warp & 3);
@@ -396,94 +212,10 @@ __device__ void pair_gram_x3_mma128(const float* bR, const float* bI,
       for (int e = 0; e < 4; ++e) {
         const int x = xb + 16 * m + g + 8 * (e >> 1);
         const int y = yb + 8 * n + 2 * t + (e & 1);
-        if constexpr (RED2) {
-          if (e & 1) continue;
-          red2(part + x * X + y, accr[m][n][e], accr[m][n][e + 1]);
-          red2(part + X * X + x * X + y, acci[m][n][e], acci[m][n][e + 1]);
-        } else {
-          atomicAdd(part + x * X + y, accr[m][n][e]);
-          atomicAdd(part + X * X + x * X + y, acci[m][n][e]);
-        }
+        if (e & 1) continue;
+        red2(part + x * X + y, accr[m][n][e], accr[m][n][e + 1]);
+        red2(part + X * X + x * X + y, acci[m][n][e], acci[m][n][e + 1]);
       }
-}
-
-// part[g][x][y] (re), part[g][X X + x X + y] (im) += sum over this group's
-// columns, the float4 columns 4 (g + G kk) .. + 3, of B[x][c] F[y][c];
-// x = rx + i, y = cy + CT2 j. With GX3 the products run bf16x3: on the
-// tensor cores at X = 128 (pair_gram_x3_mma128, the merged adjoint's low
-// step), else on the CUDA cores, the columns of a float4 one at a time with
-// scalar reads, B as (hi, lo) parts and F as (hi, hi + lo).
-template <int X, bool GX3 = false>
-__device__ void pair_gram(const float* bR, const float* bI, const float* fR,
-                          const float* fI, float* part) {
-  if constexpr (GX3 && X == kGroup) {
-    pair_gram_x3_mma128(bR, bI, fR, fI, part);
-    return;
-  }
-  using Cfg = AdjCfg<X>;
-  constexpr int G = Cfg::G, CT2 = Cfg::CT2, LD = Cfg::LD;
-  const int g = threadIdx.x / Cfg::TPG, t = threadIdx.x % Cfg::TPG;
-  const int rx = (t / CT2) * 8, cy = t % CT2;
-  float* slot = part + (int64_t)g * Cfg::kSlotFloats;
-  float accr[8][4], acci[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0.f;
-  for (int c4 = g; c4 < Cfg::C4; c4 += G) {
-    const int c = 4 * c4;
-    if constexpr (GX3) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float fh_r[4], fs_r[4], fh_i[4], fs_i[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          split_hs(fR[(cy + CT2 * j) * LD + c + u], fh_r[j], fs_r[j]);
-          split_hs(fI[(cy + CT2 * j) * LD + c + u], fh_i[j], fs_i[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float bh_r, bl_r, bh_i, bl_i;
-          split_hl(bR[(rx + i) * LD + c + u], bh_r, bl_r);
-          split_hl(bI[(rx + i) * LD + c + u], bh_i, bl_i);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cmac3(accr[i][j], acci[i][j], bh_r, bl_r, bh_i, bl_i, fh_r[j],
-                  fs_r[j], fh_i[j], fs_i[j]);
-        }
-      }
-    } else {
-      float4 f_r[4], f_i[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        f_r[j] = *reinterpret_cast<const float4*>(fR + (cy + CT2 * j) * LD + c);
-        f_i[j] = *reinterpret_cast<const float4*>(fI + (cy + CT2 * j) * LD + c);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 b_r = *reinterpret_cast<const float4*>(bR + (rx + i) * LD + c);
-        const float4 b_i = *reinterpret_cast<const float4*>(bI + (rx + i) * LD + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cmac(accr[i][j], acci[i][j], b_r.x, b_i.x, f_r[j].x, f_i[j].x);
-          cmac(accr[i][j], acci[i][j], b_r.y, b_i.y, f_r[j].y, f_i[j].y);
-          cmac(accr[i][j], acci[i][j], b_r.z, b_i.z, f_r[j].z, f_i[j].z);
-          cmac(accr[i][j], acci[i][j], b_r.w, b_i.w, f_r[j].w, f_i[j].w);
-        }
-      }
-    }
-  }
-  // each entry of the slot has this one thread as its only writer, tile
-  // after tile: a reduction without return (red.global) adds in program
-  // order, like "+=", but does not wait for the entry's old value
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = (rx + i) * X + cy + CT2 * j;
-      atomicAdd(slot + e, accr[i][j]);
-      atomicAdd(slot + X * X + e, acci[i][j]);
-    }
 }
 
 // Where the Q reductions of a diagonal run go (the diag_q outputs of the
@@ -517,7 +249,7 @@ struct QView {
 // kernel stores F and rereads it before a run met after the dense steps;
 // the tile keeps the unrounded values the pair gram reads). L: the tiles'
 // layout.
-template <int X, bool RF = false, class L = Pad128>
+template <int X, bool RF, class L>
 __device__ void q_tile(const float* fR, const float* fI, const float* bR,
                        const float* bI, const QView& q, float* scratch,
                        int fq = kStoreF32) {
@@ -716,7 +448,7 @@ __device__ void q_tile(const float* fR, const float* fI, const float* bR,
 
 // The shared-memory tile [x][c] (layout L) times the run's entries, in
 // place, rounded to the storage kind qkind.
-template <int X, class L = PadRows<AdjCfg<X>::LD>>
+template <int X, class L>
 __device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv,
                                int qkind = kStoreF32) {
   using Cfg = AdjCfg<X>;
@@ -729,12 +461,5 @@ __device__ void diag_tile_smem(float* tr_, float* ti_, const DiagView& dv,
     ti_[o] = quantize(vi, qkind);
   }
 }
-
-struct Operators {  // real/imag planes of Einv and E (X x X each)
-  const float* inv_r;
-  const float* inv_i;
-  const float* e_r;
-  const float* e_i;
-};
 
 }  // namespace dqc

@@ -2,7 +2,8 @@
 // adjoint.cuh's step with every product on mma.sync. The dual, lane and
 // sublane adjoints (block_backward_dual.cu, which builds all three) run it on
 // slab tiles, the high adjoint at X = 128 (block_backward_high.cu) on tiles
-// of its view.
+// of its view, the merged-top adjoint (block_backward_merged_fact.cu) on
+// tiles of Xt slices of its merged view, with two passes of its own.
 //
 // For a tile of the forward planes F and the cotangent planes B (128 rows x
 // along the contracted axis, 64 columns c; element (x, c) at base[x rs +
@@ -181,19 +182,30 @@ __device__ __forceinline__ void tc_put_group(float* tr, float* ti,
   }
 }
 
+// Where element (x, c) of a tile sits in the planes, from the tile's base:
+// x rs + c cs, the columns in slices of 2^cshift, each slice a further ss
+// on (the merged top's slices, block_backward_merged_fact.cu; elsewhere one
+// slice: cshift 6, ss 0). A group of four columns stays in one slice.
+__device__ __forceinline__ int64_t tc_at(int x, int c, int64_t rs, int64_t cs,
+                                         int64_t ss, int cshift) {
+  return x * rs + c * cs + (int64_t)(c >> cshift) * ss;
+}
+
 // Planes -> the tiles of F (stored as fkind; FK >= 0 fixes it at compile
 // time) and of B (bkind), every load of both in flight before the first
 // shared-memory store; with use_diag times the run's entries (Dinv for F,
 // D for B) and then rounded to fqkind / bqkind, as adjoint.cuh's load_tile;
-// HIGH: the views are the high view's (diag_group).
+// HIGH: the views are the high view's (diag_group); element (x, c) at
+// tc_at.
 // (Issuing the next tile's loads during this tile's stores, their values
 // held in registers, spilled and was slower on the H100.)
 template <int FK, bool HIGH>
 __device__ __noinline__ void tc_load_tiles(const void* fr, const void* fi,
                                            int fkind, const void* br,
                                            const void* bi, int bkind,
-                                           int64_t rs, int64_t cs,
-                                           int use_diag, const DiagView& dv_inv,
+                                           int64_t rs, int64_t cs, int64_t ss,
+                                           int cshift, int use_diag,
+                                           const DiagView& dv_inv,
                                            const DiagView& dv_fwd, int fqkind,
                                            int bqkind) {
   if constexpr (FK >= 0) fkind = FK;
@@ -205,7 +217,7 @@ __device__ __noinline__ void tc_load_tiles(const void* fr, const void* fi,
   for (int j = 0; j < kPer; ++j) {
     int x, c;
     tc_group(threadIdx.x + j * kAdjThreads, xfast, x, c);
-    const int64_t e4 = (x * rs + c * cs) >> 2;
+    const int64_t e4 = tc_at(x, c, rs, cs, ss, cshift) >> 2;
     load4(fr, e4, fkind, fr4[j]);
     load4(fi, e4, fkind, fi4[j]);
     load4(br, e4, bkind, br4[j]);
@@ -229,7 +241,8 @@ __device__ __noinline__ void tc_load_tiles(const void* fr, const void* fi,
 // tc_load_tiles'.
 template <int K, bool HIGH>
 __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
-                                           int64_t rs, int64_t cs, int which,
+                                           int64_t rs, int64_t cs, int64_t ss,
+                                           int cshift, int which,
                                            int use_diag, const DiagView& dv,
                                            int qkind = kStoreF32) {
   const float* tr_ = tc_tile(which);
@@ -266,7 +279,7 @@ __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
         cmul(vr[q], vi[q], dr[q], di[q], vr[q], vi[q]);
       }
     }
-    const int64_t e4 = (x * rs + c * cs) >> 2;
+    const int64_t e4 = tc_at(x, c, rs, cs, ss, cshift) >> 2;
     store4(gr_, e4, kind, vr);
     store4(gi_, e4, kind, vi);
   }
@@ -434,9 +447,21 @@ __device__ __forceinline__ void tc_op_tile_op(const uint32_t* op, int which,
 __device__ __noinline__ void pair_gram_x3_tc(float* part) {
   const float* bR = tc_tile(kTileB);
   const float* fR = tc_tile(kTileF);
-  pair_gram_x3_mma128<TcRows, true>(bR, bR + kTcTileFloats, fR,
+  pair_gram_x3_mma128<TcRows>(bR, bR + kTcTileFloats, fR,
                                     fR + kTcTileFloats, part);
 }
+
+// A step's own column slices and extra passes: none for the dual, lane,
+// sublane and high adjoints. The merged-top adjoint
+// (block_backward_merged_fact.cu) hands its own: the slices' stride and
+// width (tc_at), a pass after the load (the raw tiles' slice gram) and one
+// before the stores (the top factor), both on the tiles in shared memory.
+struct TcNoTop {
+  static constexpr int64_t ss = 0;
+  static constexpr int cshift = 6;
+  __device__ __forceinline__ void after_load() const {}
+  __device__ __forceinline__ void before_store() const {}
+};
 
 // One adjoint step on the tile at (fr, fi, br, bi) with strides (rs, cs),
 // as adjoint.cuh's adjoint_tile (diag_mode 0 none, 1 roll the run back on
@@ -446,14 +471,15 @@ __device__ __noinline__ void pair_gram_x3_tc(float* part) {
 // them, and is off for the high adjoint, whose TPU kernel does not stage:
 // its Q reads the f32 values), every product on the tensor cores: the
 // uncompute in UM, the transport in TM (kTf32x3 or kBf16x3), the pair gram
-// bf16x3 with GX3, else 3xTF32. The block's dynamic shared memory
-// (tc_adj_smem) holds kTcAdjSmemBytes.
-template <int UM, int TM, bool GX3, class QT>
+// bf16x3 with GX3, else 3xTF32; top: the step's slices and extra passes
+// (TcNoTop). The block's dynamic shared memory (tc_adj_smem) holds
+// kTcAdjSmemBytes.
+template <int UM, int TM, bool GX3, class QT, class Top = TcNoTop>
 __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
                                 int bkind, int fkind, int stage, int64_t rs,
                                 int64_t cs, const TcOps& ops, int diag_mode,
                                 const DiagView& dv_inv, const DiagView& dv_fwd,
-                                float* part, const QT* q) {
+                                float* part, const QT* q, const Top& top = Top()) {
   constexpr bool kSlab = std::is_same<QT, QView>::value;
   static_assert(kSlab || std::is_same<QT, QHigh>::value, "a QView or a QHigh");
   float* sFr = tc_tile(kTileF);
@@ -485,10 +511,13 @@ __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
   if (!q_on_load) tc_prefetch_op<UM>(ring, ops.inv, u3);
   if (fkind == kStoreF32)
     tc_load_tiles<kStoreF32, !kSlab>(fr, fi, fkind, br, bi, bkind, rs, cs,
-                                     load_diag, dv_inv, dv_fwd, fqkind, qkind);
+                                     top.ss, top.cshift, load_diag, dv_inv,
+                                     dv_fwd, fqkind, qkind);
   else
     tc_load_tiles<kStoreBF16, !kSlab>(fr, fi, fkind, br, bi, bkind, rs, cs,
-                                      load_diag, dv_inv, dv_fwd, fqkind, qkind);
+                                      top.ss, top.cshift, load_diag, dv_inv,
+                                      dv_fwd, fqkind, qkind);
+  top.after_load();
   if (q_on_load) {
     __syncthreads();  // the tile is loaded
     if constexpr (kSlab)
@@ -521,14 +550,15 @@ __device__ void tc_adjoint_tile(void* fr, void* fi, void* br, void* bi,
     else
       q_tile<kGroup, false, TcRows>(sFr, sFi, sBr, sBi, *q, scratch);
   }
+  top.before_store();
   if (fkind == kStoreF32)
-    tc_store_tile<kStoreF32, !kSlab>(fr, fi, fkind, rs, cs, kTileF,
-                                     diag_mode == 2, dv_inv);
+    tc_store_tile<kStoreF32, !kSlab>(fr, fi, fkind, rs, cs, top.ss, top.cshift,
+                                     kTileF, diag_mode == 2, dv_inv);
   else
-    tc_store_tile<kStoreBF16, !kSlab>(fr, fi, fkind, rs, cs, kTileF,
-                                      diag_mode == 2, dv_inv, fqkind);
-  tc_store_tile<-1, !kSlab>(br, bi, bkind, rs, cs, kTileB, diag_mode == 2,
-                            dv_fwd);
+    tc_store_tile<kStoreBF16, !kSlab>(fr, fi, fkind, rs, cs, top.ss, top.cshift,
+                                      kTileF, diag_mode == 2, dv_inv, fqkind);
+  tc_store_tile<-1, !kSlab>(br, bi, bkind, rs, cs, top.ss, top.cshift, kTileB,
+                            diag_mode == 2, dv_fwd);
 }
 
 }  // namespace dqc

@@ -16,7 +16,12 @@ the pair grams holomorphic (no conjugation) and summed over every column,
 merged pair gram that the two blocks' cotangents need
 (plane_scan._backward_hpair). The Hopper kernel is
 ``csrc/block_backward_merged_fact.cu`` (bound by operations: 3 Xl + 3 Xt
-complex multiply-adds per amplitude against 32 bytes);
+complex multiply-adds per amplitude against 32 bytes): the low factor runs
+``csrc/tc_adjoint.cuh``'s one-pass step on the tensor cores (3xTF32 in the
+"f32" dot mode, three bf16 passes in bf16x3), handed ``Eli`` and ``El^T``
+pre-split in mma fragment order (:func:`block_backward_dual.step_operators`),
+the top factor and ``T0_top`` two passes of its own on the CUDA cores; every
+launch counts in ``mode_launches["tc"]``.
 :func:`block_backward_merged_fact_plain` is its plain PyTorch version.
 
 :func:`block_backward_merged_fact` updates ``(F, B)`` in place on a CUDA
@@ -28,10 +33,10 @@ and the forward planes ``F`` as float32 or bfloat16 ("bf16" storage); the
 low uncompute runs in ``dot_mode``, the low transport and ``T0_low`` in
 ``bwd_mode`` / ``gram_mode`` ("f32" or "bf16x3"), the top factor and
 ``T0_top`` in f32 whatever the modes, as in the TPU kernel; counted in
-``mode_launches`` as in ``block_backward_dual``. The kernel is built with
-a bf16x3 uncompute only beside an f32 transport, the modes
-``ops/planes.backward_merged_top_fact`` hands it (as the JAX package's
-planes layer clamps this kernel's transport to f32).
+``mode_launches`` as in ``block_backward_dual``. The three modes are
+independent (``ops/planes.backward_merged_top_fact`` hands it an f32
+transport whenever the backward mode resolves to bf16x3, as the JAX
+package's planes layer clamps this kernel's transport).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels._storage import (check_modes, count_modes, load_b,
                                                 store_b)
-from dqc_tpu_torch.ops.kernels.block_backward_dual import _split
+from dqc_tpu_torch.ops.kernels.block_backward_dual import _split, step_operators
 from dqc_tpu_torch.ops.kernels.gram import pair_sum
 from dqc_tpu_torch.ops.kernels.merged_fact_apply import (
     check_kernel_widths,
@@ -79,10 +84,10 @@ def block_backward_merged_fact_plain(fr, fi, br, bi, elinv_r, elinv_i, el_r,
             *store_b(B.reshape(fr.shape), br.dtype), *_split(T0_top, T0_low))
 
 
-_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT, _launch.LONG,
-                                    _launch.INT, _launch.INT, _launch.INT,
-                                    _launch.INT, _launch.INT, _launch.INT,
-                                    _launch.VOIDP]
+# planes, the two pre-split low operators, the top operators, scratch and
+# outputs; A1, Xt, Q, nblk; kinds and modes
+_ARGTYPES = ([_launch.VOIDP] * 14 + [_launch.LONG, _launch.INT, _launch.LONG]
+             + [_launch.INT] * 6 + [_launch.VOIDP])
 
 
 def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
@@ -94,7 +99,8 @@ def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
     (Eti, Et) pairs (Xt, Xt). ``B`` is stored as float32, bfloat16 or
     float16, ``F`` as float32 or bfloat16; ``dot_mode``, ``bwd_mode`` /
     ``gram_mode`` are the low uncompute's, the low transport's and
-    T0_low's dot modes (a bf16x3 uncompute with an f32 transport only)."""
+    T0_low's dot modes. Every launch also counts as
+    ``mode_launches["tc"]``."""
     planes = (fr, fi, br, bi)
     low = (elinv_r, elinv_i, el_r, el_i)
     top = (etinv_r, etinv_i, et_r, et_i)
@@ -103,20 +109,17 @@ def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
                 dot_mode)
     if fi.dtype != fr.dtype:
         raise TypeError("block_backward_merged_fact: forward planes of two dtypes")
-    if dot_mode == "bf16x3" and bwd_mode == "bf16x3":
-        raise ValueError("block_backward_merged_fact: a bf16x3 uncompute runs "
-                         "beside an f32 transport only (the modes "
-                         "ops/planes.backward_merged_top_fact hands it)")
     if fr.device.type == "cpu":
         return block_backward_merged_fact_plain(
             *planes, *low, *top, x_top=x_top, bwd_mode=bwd_mode,
             gram_mode=gram_mode, dot_mode=dot_mode)
     check_kernel_widths("block_backward_merged_fact", x_top, Xl)
+    # the tensor-core step loads and stores four neighbouring elements
     _launch.check_cuda_f32("block_backward_merged_fact", (fr, fi), fr.device,
-                           dtypes=_st.FWD_DTYPES)
+                           align=16, dtypes=_st.FWD_DTYPES)
     _launch.check_cuda_f32("block_backward_merged_fact", low + top, fr.device)
     _launch.check_cuda_f32("block_backward_merged_fact", (br, bi), fr.device,
-                           dtypes=_st.STORAGE_DTYPES)
+                           align=16, dtypes=_st.STORAGE_DTYPES)
     lib = "block_backward_merged_fact"
     ntiles = A1 * x_top * Xl * M * 128 // 8192
     nblk = min(ntiles, _launch.sm_count(fr.device))
@@ -127,8 +130,10 @@ def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
                            device=dev)
     t0_low = torch.empty((2, Xl, Xl), dtype=torch.float32, device=dev)
     t0_top = torch.empty((2, x_top, x_top), dtype=torch.float32, device=dev)
+    tc_ops = step_operators(*low, dot_mode, bwd_mode, fr.dtype, br.dtype)
     fn = _launch.entry(lib, "dqc_block_backward_merged_fact", _ARGTYPES)
-    code = fn(*(p.data_ptr() for p in planes + low + top), part_low.data_ptr(),
+    code = fn(*(p.data_ptr() for p in planes), *(o.data_ptr() for o in tc_ops),
+              *(p.data_ptr() for p in top), part_low.data_ptr(),
               part_top.data_ptr(), t0_low.data_ptr(), t0_top.data_ptr(), A1,
               x_top, M * 128, nblk, _st.storage_kind(br.dtype),
               int(bwd_mode == "bf16x3"), int(gram_mode == "bf16x3"),
@@ -136,12 +141,13 @@ def block_backward_merged_fact(fr, fi, br, bi, elinv_r, elinv_i, el_r, el_i,
               _launch.stream(dev))
     _launch.raise_on_error(code, lib, "block_backward_merged_fact launch")
     block_backward_merged_fact.launches += 1
+    block_backward_merged_fact.mode_launches["tc"] += 1
     count_modes(block_backward_merged_fact, br.dtype, bwd_mode, gram_mode)
     _st.count_fwd(block_backward_merged_fact, fr.dtype, dot_mode)
     return (fr, fi, br, bi, t0_top[0], t0_top[1], t0_low[0], t0_low[1])
 
 
 block_backward_merged_fact.launches = 0
-block_backward_merged_fact.mode_launches = {"bf16": 0, "f16": 0, "bf16x3": 0,
+block_backward_merged_fact.mode_launches = {"tc": 0, "bf16": 0, "f16": 0, "bf16x3": 0,
                                             "gram_bf16x3": 0, "fwd_bf16": 0,
                                             "fwd_bf16x3": 0}
