@@ -197,14 +197,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    block_backward_high[tc]; the lane and sublane adjoints built in the
    dual adjoint's library), the Gram at X >= 128 and the merged-top
    adjoint (gram[tc], block_backward_merged_fact[tc]; its top factor's f32
-   work on the CUDA cores at the FP32 rate): each of their phase-3 rows again with
+   work on the CUDA cores at the FP32 rate), the dual apply and the
+   merged-top apply (dual_apply[tc], merged_fact_apply[tc]; the merged top
+   factor's f32 work likewise): each of their phase-3 rows again with
    its bound on the tensor cores (tc_bound_ms: the mma passes the kernel
    runs, three per real product, one fewer for each planes operand whose
    lo parts are zero — 16-bit planes in 3xTF32, bf16 planes in bf16x3 —
    tf32 at 495 TFLOP/s, bf16 at 989), which is then the row's bound_ms,
    and its share of it, and the kernels' registers and spills from this
    run's build;
-19. a JSON line of the kernels and of the modes checked (their launches
+19. the dual apply and the merged-top apply on the tensor cores (3o, after
+   3n: csrc/dual_apply.cu and csrc/merged_fact_apply.cu on
+   csrc/tc_adjoint.cuh's tile product): every variant their entries take
+   (the dual apply with x f32 / bf16 / f16, in place, fresh and into an
+   accumulator of each storage, no run or one first or after, both dot
+   modes; the merged apply at Xt = 2 and 4 on f32 and bf16 planes, both dot
+   modes) against their plain versions on small views; their phase-3 rows
+   timed at 29q with their tensor-core bounds in phase 3l, every launch of
+   both counted dual_apply[tc] / merged_fact_apply[tc] and held to the dry
+   runs;
+20. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -491,6 +503,25 @@ def adjoint_tc(cmacs: float, fdt="float32", bdt="float32", dot="f32",
             tc_product(cmacs, gram == "bf16x3", bdt, "float32")]
 
 
+def dual_apply_tc(amps: float, xdt="float32", dot="f32", run_first=False) -> list:
+    """The tensor-core work of a dual apply launch (csrc/dual_apply.cu) on
+    ``amps`` amplitudes: its lane product on x (stored ``xdt``; a run
+    multiplied in first leaves f32 values) and its sublane product on the
+    f32 T, 128 complex multiply-adds per amplitude each. In 3xTF32 El meets
+    16-bit x in three parts, so that product keeps its three passes."""
+    x3 = dot == "bf16x3"
+    lane = xdt if x3 and not run_first else "float32"
+    return [tc_product(amps * 128, x3, lane), tc_product(amps * 128, x3, "float32")]
+
+
+def merged_apply_tc(amps: float, x_top: int, dot="f32") -> list:
+    """The work of a merged-top apply launch (csrc/merged_fact_apply.cu):
+    its low factor on the tensor cores on the f32 combinations of the top
+    factor, which takes Xt complex multiply-adds per amplitude on the CUDA
+    cores."""
+    return [tc_product(amps * 128, dot == "bf16x3", "float32"), cuda_core(amps * x_top * 8)]
+
+
 def gram_tc(amps: float, X: int, dt="float32", dot="f32") -> list:
     """The tensor-core work of a Gram launch at X >= 128 (csrc/gram.cu's
     dqc_gram_tc): the function's 2 X + 1 real multiply-adds per amplitude,
@@ -583,16 +614,18 @@ def call_modes(name: str, a) -> tuple:
                 and a["xr"].shape[1] > 128 else ())
         seed = acc is not None or not a.get("alias", True)
         in16 = ("in_f16",) if a["xr"].dtype == torch.float16 else ()
-        # the tensor-core apply takes X = 128, 256 and 512, every storage
-        # and mode
-        tc = (("tc",) if name == "high_apply" and a["xr"].shape[1] in (128, 256, 512)
+        # the tensor-core high apply takes X = 128, 256 and 512, every
+        # storage and mode; the dual apply runs on the tensor cores always
+        tc = (("tc",) if name == "dual_apply" or a["xr"].shape[1] in (128, 256, 512)
               else ())
         return (in16 + wide + tc + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
     if name == "gram":  # the tensor-core Gram at X = 128 / 256 / 512
         return ((("tc",) if a["xr"].shape[1] >= 128 else ())
                 + fwd_modes(a["xr"].dtype, a))
-    if name in ("merged_fact_apply", "diag_sweep"):
+    if name == "merged_fact_apply":  # its low factor on the tensor cores
+        return ("tc",) + fwd_modes(a["xr"].dtype, a)
+    if name == "diag_sweep":
         return fwd_modes(a["xr"].dtype, a)
     if name == "diag_backward":
         return ((("with_q",) if a.get("with_q") else ()) + storage_modes(a["br"].dtype)
@@ -694,14 +727,16 @@ def with_gram_modes(want: dict) -> dict:
     config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
     launch of the dual, lane, sublane and merged-top adjoints in its "tc"
     mode (their one-pass step runs on the tensor cores in every mode), as
-    does every high adjoint launch and every Gram of these runs (X >= 128:
+    does every high adjoint launch, every Gram of these runs (X >= 128:
     the 28q and 29q rings' Grams are all of groups of 7 bits or the merged
-    top)."""
+    top) and every dual and merged-top apply (both on the tensor cores in
+    every storage and mode)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
-    for k in (*TC_ADJOINTS, "block_backward_high", "block_backward_merged_fact", "gram"):
+    for k in (*TC_ADJOINTS, "block_backward_high", "block_backward_merged_fact", "gram",
+              "dual_apply", "merged_fact_apply"):
         want[f"{k}[tc]"] = want.get(k, 0)
     return want
 
@@ -1064,7 +1099,8 @@ def main() -> int:
         check("dual_apply", variant, (A, 128, 128), dual_apply, dual_apply_plain,
               (*el, *em, tab, first), DUAL_TOL,
               flops=amps * 2 * 128 * 8, bytes_moved=2 * state_bytes + extra,
-              library=dual_library if tab is None else None)
+              library=dual_library if tab is None else None,
+              tc=dual_apply_tc(amps, run_first=tab is not None and first))
 
     # high_apply: y = E x along X of the view (A1, X, M, 128)
     def high_library(E):
@@ -1133,7 +1169,7 @@ def main() -> int:
                seed(dual_apply, *el, *em), seed(dual_apply_plain, *el, *em),
                DUAL_TOL, flops=amps * 2 * 128 * 8,
                bytes_moved=3 * state_bytes, intact=2,
-               library=dual_seed_library(el, em))
+               library=dual_seed_library(el, em), tc=dual_apply_tc(amps))
     E = unitary(128)
     check_many("high_apply", "X128_seed", (g2[0], 128, g2[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
@@ -1237,7 +1273,8 @@ def main() -> int:
     el29, em29 = unitary(128), unitary(128)
     check("dual_apply", "29q_diag_first", (A29, 128, 128), dual_apply,
           dual_apply_plain, (*el29, *em29, tables(A29), True), DUAL_TOL,
-          flops=amps29 * 2 * 128 * 8, bytes_moved=2 * state29 + table_bytes(A29))
+          flops=amps29 * 2 * 128 * 8, bytes_moved=2 * state29 + table_bytes(A29),
+          tc=dual_apply_tc(amps29, run_first=True))
     g2_29 = pl._high_view(N29, 2)   # (32768, 128, 128): the group-2 sweep
     E = unitary(128)
     check("high_apply", "29q_X128_plain", (g2_29[0], 128, g2_29[2], 128),
@@ -1254,7 +1291,7 @@ def main() -> int:
                seed(dual_apply, *el29, *em29), seed(dual_apply_plain, *el29, *em29),
                DUAL_TOL, flops=amps29 * 2 * 128 * 8,
                bytes_moved=3 * state29, intact=2,
-               library=dual_seed_library(el29, em29))
+               library=dual_seed_library(el29, em29), tc=dual_apply_tc(amps29))
     check_many("high_apply", "29q_X128_seed", (g2_29[0], 128, g2_29[2], 128), 4, 2,
                seed(high_apply, *E), seed(high_apply_plain, *E), HIGH_TOL,
                flops=amps29 * 128 * 8, bytes_moved=3 * state29, intact=2,
@@ -1321,7 +1358,8 @@ def main() -> int:
               lambda xr, xi, *a, xt=x_top: merged_fact_apply_plain(xr, xi, *a,
                                                                    x_top=xt),
               (*El, *Et), HIGH_TOL, flops=amps29 * (128 + x_top) * 8,
-              bytes_moved=2 * state29, library=merged_library(El, Et, x_top))
+              bytes_moved=2 * state29, library=merged_library(El, Et, x_top),
+              tc=merged_apply_tc(amps29, x_top))
         Eli, Eti = unitary(128), unitary(x_top)
         ops = (*Eli, *El, *Eti, *Et)
         check_many("block_backward_merged_fact", f"Xt{x_top}", shape, 4, 4,
@@ -1477,7 +1515,7 @@ def main() -> int:
           dual_apply_plain, (*el29b, *em29b, None, True), DUAL_TOL,
           flops=amps29 * 2 * 128 * 8, bytes_moved=2 * state29,
           library=lambda xr, xi: dual_multi_library(
-              [o[None] for o in (*el29b, *em29b)])(xr, xi))
+              [o[None] for o in (*el29b, *em29b)])(xr, xi), tc=dual_apply_tc(amps29))
     g3_29 = pl._high_view(N29, 3)
     E, Einv = unitary(128), unitary(128)
     check("high_apply", "29q_X128_g3", (g3_29[0], 128, g3_29[2], 128), high_apply,
@@ -1800,7 +1838,8 @@ def main() -> int:
                           xr, xi, *el29, *em29, conj=True, acc=(ar, ai), alias=False),
                       lambda xr, xi, ar, ai: dual_apply_plain(
                           xr, xi, *el29, *em29, conj=True, acc=(ar, ai)),
-                      dt, amps29 * 2 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt))
+                      dt, amps29 * 2 * 128 * 8, 0.0, state29 + 2 * b_bytes(dt),
+                      tc=dual_apply_tc(amps29))
         E = unitary(128)
         check_reduced("high_apply", f"29q_X128_seed_{store}",
                       (g2_29[0], 128, g2_29[2], 128), 2, 2, 0, 2,
@@ -1816,7 +1855,7 @@ def main() -> int:
                   lambda xr, xi: dual_apply_plain(xr, xi, *el29, *em29, conj=True,
                                                   out_dtype=torch.float16),
                   torch.float16, amps29 * 2 * 128 * 8, 0.0,
-                  state29 + b_bytes(torch.float16))
+                  state29 + b_bytes(torch.float16), tc=dual_apply_tc(amps29))
     for nq, X, stores in ((N29, 256, ("f16", "bf16")), (N30, 512, ("f16",))):
         amps_n = float(1 << nq)
         shape = (1, X, (1 << nq) // (X * 128), 128)
@@ -2205,7 +2244,7 @@ def main() -> int:
                     lambda xr, xi, d=dot: dual_apply_plain(xr, xi, *el29, *em29, tab29,
                                                            True, dot_mode=d),
                     1, f, b, 2 * plane_bytes(fdt) + table_bytes(A29),
-                    lib(dual_library))
+                    lib(dual_library), tc=dual_apply_tc(amps29, fdt, dot, True))
         # 2. its seed from F into the cotangent planes (acc)
         check_fwd16("dual_apply", f"29q_seed_{tag}", (A29, 128, 128),
                     [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
@@ -2215,7 +2254,8 @@ def main() -> int:
                     lambda xr, xi, ar, ai, d=dot: dual_apply_plain(
                         xr, xi, *el29, *em29, conj=True, acc=(ar, ai), dot_mode=d),
                     1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                    lib(dual_seed_library(el29, em29)), reuse=False)
+                    lib(dual_seed_library(el29, em29)), reuse=False,
+                    tc=dual_apply_tc(amps29, fdt, dot))
         # 3. the group-2 sweep in place and its seed (X = 128)
         E = unitary(128)
         view = (g2_29[0], 128, g2_29[2], 128)
@@ -2281,7 +2321,8 @@ def main() -> int:
                         lambda xr, xi, d=dot, xt=x_top, o=(*El, *Et): merged_fact_apply_plain(
                             xr, xi, *o, x_top=xt, dot_mode=d),
                         1, f + amps29 * x_top * 8, b, 2 * plane_bytes(fdt),
-                        lib(merged_library(El, Et, x_top)))
+                        lib(merged_library(El, Et, x_top)),
+                        tc=merged_apply_tc(amps29, x_top, dot))
             mops = (*Eli, *El, *Eti, *Et)
             f_un, b_un = cmac_flops(128, dot == "bf16x3")
             f_tr, _ = cmac_flops(128 + 3 * x_top, False)
@@ -2651,7 +2692,8 @@ def main() -> int:
             fp = lambda xr, xi, ar, ai: dual_apply_plain(  # noqa: E731
                 xr, xi, *el29, *em29, conj=True, acc=(ar, ai))
         check_fwd16("dual_apply", f"29q_{form}_f16in", (A29, 128, 128), ins, fk, fp, 1,
-                    f, b, n_io * plane_bytes(F16), reuse=form == "fresh", phase="3k")
+                    f, b, n_io * plane_bytes(F16), reuse=form == "fresh", phase="3k",
+                    tc=dual_apply_tc(amps29, F16))
         for X in (8, 128):
             view = ((g2_29[0], 128, g2_29[2], 128) if X == 128 else small_x_view(X))
             E = unitary(X)
@@ -2842,17 +2884,103 @@ def main() -> int:
     gen.set_state(gen_state)
     torch.cuda.empty_cache()
 
+    # 3o. the dual apply and the merged-top apply on the tensor cores
+    # (csrc/dual_apply.cu and csrc/merged_fact_apply.cu on csrc/tc_adjoint.cuh's
+    # tile product): every variant their entries take against the plain
+    # versions on small views, without times (the rows of phases 3, 3e, 3i
+    # and 3k time them at 29q, with their tensor-core bounds from phase 3l):
+    # the dual apply on views (8, 128, 128) with x f32, bf16 or f16, in place,
+    # fresh and into an accumulator (conj) of each storage it takes, no run
+    # or one multiplied first or after, in both dot modes (PERF.md's rows 1,
+    # 1s, 1f, 1v, 1x, 1h and the seeds into f16 / bf16 planes); the merged
+    # apply at Xt = 2 and 4 on views (1, Xt 128, 32, 128), f32 and bf16
+    # planes, both dot modes (rows 6, 6v, 6x). f32 planes within HIGH_TOL abs
+    # (unit-variance planes through unitary operators), 16-bit planes within
+    # STORE_ULPS storage ulps, as phase 3n's.
+    log_time("3o")
+    gen_state = gen.get_state()  # every later row keeps its data
+    STORES16 = {F32: (F32, BF16, torch.float16), BF16: (BF16,),
+                torch.float16: (torch.float16,)}
+    worst_fwd = {"ulps": 0.0, "abs": 0.0}
+    n_dual = n_mfa = 0
+
+    def held_fwd(what, got, want):
+        """A plane pair against its plain version's: STORE_ULPS storage ulps
+        when stored 16-bit, HIGH_TOL abs when f32."""
+        require(got[0].dtype == want[0].dtype,
+                f"{what}: output {got[0].dtype}, want {want[0].dtype}")
+        if got[0].dtype == F32:
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            worst_fwd["abs"] = max(worst_fwd["abs"], err)
+            require(err <= HIGH_TOL, f"{what} disagrees with its plain version: "
+                                     f"{err:.3e} abs (tol {HIGH_TOL:.0e})")
+        else:
+            ulps = stc.ulps_apart(got, want, got[0].dtype)
+            worst_fwd["ulps"] = max(worst_fwd["ulps"], ulps)
+            require(ulps <= STORE_ULPS, f"{what} disagrees with its plain version: "
+                                        f"{ulps:.2f} ulps (tol {STORE_ULPS})")
+
+    A8 = 8
+    dual_ops = (*unitary(128), *unitary(128))
+    tab8 = tables(A8)
+    for xdt, ydts in STORES16.items():
+        for dot in ("f32", "bf16x3"):
+            for run in (None, "first", "after"):
+                rkw = dict(dot_mode=dot)
+                if run is not None:
+                    rkw.update(diag_tables=tab8, diag_first=run == "first")
+                forms = [("inplace", xdt)] + [(f, y) for f in ("fresh", "acc") for y in ydts]
+                for form, ydt in forms:
+                    xs = [stc.store_as(randn(A8, 128, 128), xdt) for _ in range(2)]
+                    kw = dict(rkw)
+                    if form == "fresh":
+                        kw.update(conj=True, alias=False, out_dtype=ydt)
+                    elif form == "acc":
+                        acc = [stc.store_as(0.5 * randn(A8, 128, 128), ydt) for _ in range(2)]
+                        kw.update(conj=True, acc=tuple(acc), alias=False)
+                    want = dual_apply_plain(*xs, *dual_ops, **kw)
+                    if form == "acc":
+                        kw["acc"] = tuple(a.clone() for a in acc)
+                    got = dual_apply(*[x.clone() for x in xs], *dual_ops, **kw)
+                    torch.cuda.synchronize()
+                    held_fwd(f"dual_apply[{xdt} -> {ydt} {form} run {run} {dot}]", got, want)
+                    n_dual += 1
+                    del xs, want, got
+    for x_top in (2, 4):
+        shape = (1, x_top * 128, 32, 128)
+        mops = (*unitary(128), *unitary(x_top))
+        for fdt in (F32, BF16):
+            for dot in ("f32", "bf16x3"):
+                xs = [stc.store_as(randn(*shape), fdt) for _ in range(2)]
+                want = merged_fact_apply_plain(*xs, *mops, x_top=x_top, dot_mode=dot)
+                got = merged_fact_apply(*[x.clone() for x in xs], *mops, x_top=x_top,
+                                        dot_mode=dot)
+                torch.cuda.synchronize()
+                held_fwd(f"merged_fact_apply[Xt{x_top} {fdt} {dot}]", got, want)
+                n_mfa += 1
+                del xs, want, got
+    log(f"[3o] dual_apply: {n_dual} variants within their bars on views ({A8}, 128, "
+        f"128); merged_fact_apply: {n_mfa} on views (1, Xt 128, 32, 128); worst "
+        f"{json.dumps(worst_fwd)}")
+    del dual_ops, tab8
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
+
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
     # (the one-pass step of the dual, lane and sublane adjoints and of the
-    # high adjoint at X = 128, every row of theirs). Each
+    # high adjoint at X = 128, every row of theirs; the tile product of the
+    # dual apply and of the merged-top apply, every row of theirs). Each
     # of their rows with its bound on the tensor cores (tc_bound_ms, from the
     # mma passes its storage leaves: tc_product), which becomes its bound_ms
     # (the CUDA-core figure kept as cuda_core_bound_ms), and its share of it;
     # and the kernels' registers and spills from this run's build (with the
     # not-inlined functions of the adjoints' step)
     tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
+                                       "dual_apply_tc_kernel", "dual_load_slab",
+                                       "dual_store_slab",
+                                       "merged_fact_apply_tc_kernel", "merged_load_top",
                                        "gram_tc_kernel", "block_backward_merged_fact_kernel",
                                        "merged_slice_gram", "merged_top_factor",
                                        "block_backward_dual_kernel",
@@ -2869,7 +2997,8 @@ def main() -> int:
     for r in rows:
         if (r["kernel"] in ("high_apply", "gram") and r["shape"][1] >= 128) or (
                 r["kernel"] in (*TC_ADJOINTS, "block_backward_high",
-                                "block_backward_merged_fact")):
+                                "block_backward_merged_fact", "dual_apply",
+                                "merged_fact_apply")):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -4968,6 +5097,14 @@ def main() -> int:
             "dqc_tpu_torch/csrc/block_backward_merged_fact.cu",
             "dqc_tpu/ops/pallas/block_backward.py:670 (the one-pass step, tensor cores)",
             "Xt2", "Xt"),
+        "dual_apply[tc]": (
+            "dqc_tpu_torch/csrc/dual_apply.cu",
+            "dqc_tpu/ops/pallas/dual_apply.py:232 (both products, tensor cores)",
+            "29q_diag_first", "29q_"),
+        "merged_fact_apply[tc]": (
+            "dqc_tpu_torch/csrc/merged_fact_apply.cu",
+            "dqc_tpu/ops/pallas/high_apply.py:190 (the low factor, tensor cores)",
+            "Xt2", "Xt"),
     }
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
@@ -4977,7 +5114,9 @@ def main() -> int:
                  "block_backward_sublane[tc]": {"counts": countsc, "counts_fwd": fwdc},
                  "block_backward_high[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "gram[tc]": {"counts": counts29, "counts_fwd": fwd29},
-                 "block_backward_merged_fact[tc]": {"counts": counts29, "counts_fwd": fwd29}}
+                 "block_backward_merged_fact[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "dual_apply[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "merged_fact_apply[tc]": {"counts": counts29, "counts_fwd": fwd29}}
     out = []
 
     def row_of(name, src, replaces, mine, variant, launches, launches_forward):

@@ -3,7 +3,10 @@
 // sublane adjoints (block_backward_dual.cu, which builds all three) run it on
 // slab tiles, the high adjoint at X = 128 (block_backward_high.cu) on tiles
 // of its view, the merged-top adjoint (block_backward_merged_fact.cu) on
-// tiles of Xt slices of its merged view, with two passes of its own.
+// tiles of Xt slices of its merged view, with two passes of its own. The
+// forward applies run its tile product alone (tc_op_tile): the dual apply
+// (dual_apply.cu) on a whole slab held in the F and B tiles' places, the
+// merged-top apply (merged_fact_apply.cu) on tiles of Xt slices.
 //
 // For a tile of the forward planes F and the cotangent planes B (128 rows x
 // along the contracted axis, 64 columns c; element (x, c) at base[x rs +
@@ -285,6 +288,16 @@ __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
   }
 }
 
+// A whole 128 x 128 slab in the places of the F and B tiles, as the forward
+// dual apply (csrc/dual_apply.cu) holds it: the tile at tc_tile(h) holds
+// rows s = 64 h .. 64 h + 63 of the slab as [l][s - 64 h] (TcRows: the lane
+// step's tile). Element (s, l) of the slab at at(l, s) from tc_tile(0).
+struct TcSlabCols {
+  static __device__ __forceinline__ int at(int l, int s) {
+    return (s >> 6) * 2 * kTcTileFloats + TcRows::at(l, s & 63);
+  }
+};
+
 // The tile T (kTileF or kTileB) <- Op T, rounded to qkind (kStoreF32: as
 // it is): warp (wr, wc) = (warp / 4, warp % 4) keeps rows 32 wr .. + 31,
 // columns 16 wc .. + 15 of the product in registers, acc[n][m][fragment
@@ -292,16 +305,19 @@ __device__ __noinline__ void tc_store_tile(void* gr_, void* gi_, int kind,
 // pre-split for MODE, streamed chunk by chunk through the ring; the caller
 // has issued its chunks 0 and 1 (tc_prefetch) into stages 0 and 1, and
 // every thread calls. t_exact: T's lo parts are zero; P = 6 (the operator
-// in three parts) needs them zero. Not inlined: the
+// in three parts) needs them zero. SLAB: T is column tile ``which`` (l =
+// 64 which ..) of a slab held as TcSlabCols holds it, its rows s across
+// both tiles: the product's B fragments are that layout's rows (load_b_rows)
+// and its results go back to the same places. Not inlined: the
 // caller's state stays out of the product's registers. (Storing the
 // results to the planes from here instead, in the fragments' order, was
 // slower on the H100.)
-template <int MODE, int P = 4>
+template <int MODE, int P = 4, bool SLAB = false>
 __device__ __noinline__ void tc_op_tile(const uint32_t* op, int which,
                                         bool t_exact, int qkind) {
   using Cfg = TcCfg<kGroup, MODE>;
   using O = TcOp<MODE, P>;
-  float* tr = tc_tile(which);
+  float* tr = SLAB ? tc_tile(0) + which * 64 * TcRows::C : tc_tile(which);
   float* ti = tr + kTcTileFloats;
   uint32_t* ring = tc_ring();
   constexpr int KPC = O::KPC, nchunks = O::nchunks;
@@ -345,7 +361,10 @@ __device__ __noinline__ void tc_op_tile(const uint32_t* op, int which,
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         CFrag<2> b;
-        load_b_cols<MODE, TcRows>(tr, ti, (ci * KPC + j) * Cfg::KS, wc * 16 + 8 * n, b);
+        if constexpr (SLAB)
+          load_b_rows<MODE, TcSlabCols>(tr, ti, wc * 16 + 8 * n, (ci * KPC + j) * Cfg::KS, b);
+        else
+          load_b_cols<MODE, TcRows>(tr, ti, (ci * KPC + j) * Cfg::KS, wc * 16 + 8 * n, b);
         if constexpr (P == 6)
           cmma3x<MODE, 2>(accr[n], acci[n], a, a2, b);
         else
@@ -361,7 +380,16 @@ __device__ __noinline__ void tc_op_tile(const uint32_t* op, int which,
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int o = TcRows::at(32 * wr + 16 * m + g + 8 * h, 16 * wc + 8 * n + 2 * t);
+        const int row = 32 * wr + 16 * m + g + 8 * h, col = 16 * wc + 8 * n + 2 * t;
+        if constexpr (SLAB) {  // row s, columns l and l + 1: two rows of a tile
+          const int o0 = TcSlabCols::at(col, row), o1 = TcSlabCols::at(col + 1, row);
+          tr[o0] = quantize(accr[n][m][2 * h], qkind);
+          tr[o1] = quantize(accr[n][m][2 * h + 1], qkind);
+          ti[o0] = quantize(acci[n][m][2 * h], qkind);
+          ti[o1] = quantize(acci[n][m][2 * h + 1], qkind);
+          continue;
+        }
+        const int o = TcRows::at(row, col);
         *reinterpret_cast<float2*>(tr + o) =
             make_float2(quantize(accr[n][m][2 * h], qkind),
                         quantize(accr[n][m][2 * h + 1], qkind));

@@ -27,8 +27,12 @@ adjoints' one-pass step and of the high adjoint's at X = 8..128
 adjoint's library as its lane and sublane steps;
 ``csrc/block_backward_high_small.cu`` below X = 128), counted as
 ``block_backward_dual[tc]``, ``block_backward_lane[tc]``,
-``block_backward_sublane[tc]`` and ``block_backward_high[tc]``; ``_tc``
-holds their operand splits and pre-split operators. ``KERNELS`` is
+``block_backward_sublane[tc]`` and ``block_backward_high[tc]``; so do
+the Gram at X = 128 / 256 / 512 and the merged-top adjoint (``gram[tc]``,
+``block_backward_merged_fact[tc]``) and the dual and merged-top applies
+(``dual_apply[tc]``, ``merged_fact_apply[tc]``: ``csrc/tc_adjoint.cuh``'s
+tile product); ``_tc`` holds their operand splits and pre-split
+operators. ``KERNELS`` is
 the set of wrappers the engine runs by default; ``PLAIN`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
 ``_storage`` holds the kernels' storage codec and bf16x3 products as the

@@ -65,6 +65,13 @@ def split_tf32_3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     return hi, lo, tf32_round(a - hi - lo)
 
 
+def operator_parts(mode: str, planes_dtype) -> int:
+    """The parts of an operator that meets planes stored as ``planes_dtype``
+    in ``mode``: three (six with re and im) where 3xTF32 meets 16-bit
+    planes, exact in tf32 (the kernels read them so), else two."""
+    return 6 if mode == "f32" and planes_dtype != torch.float32 else 4
+
+
 @functools.lru_cache(maxsize=None)
 def _gather_index(X: int, ks: int, device) -> torch.Tensor:
     """Flat indices into an X x X part of the entries of its A fragments in

@@ -126,21 +126,14 @@ def _check_diag_q(diag_q: bool, diag_tables) -> None:
         raise ValueError("block_backward_dual: diag_q needs a diagonal run")
 
 
-def _parts(mode: str, dtype) -> int:
-    """The parts of an operator that meets planes of ``dtype`` in ``mode``:
-    three (six with re and im) where 3xTF32 meets 16-bit planes, exact in
-    tf32 (``csrc/tc_adjoint.cuh`` reads them so), else two."""
-    return 6 if mode == "f32" and dtype != torch.float32 else 4
-
-
 def step_operators(einv_r, einv_i, e_r, e_i, dot_mode: str, bwd_mode: str,
                    fdtype=torch.float32, bdtype=torch.float32):
     """One step's operators as ``csrc/tc_adjoint.cuh`` reads them
     (``_tc.tc_operator``): ``Einv`` for the uncompute in ``dot_mode`` on F
     stored as ``fdtype``, ``E^T`` for the transport in ``bwd_mode`` on B
     stored as ``bdtype`` (each the ``Op`` of its ``Op x tile`` product)."""
-    return (_tc.tc_operator(einv_r, einv_i, dot_mode, _parts(dot_mode, fdtype)),
-            _tc.tc_operator(e_r.t(), e_i.t(), bwd_mode, _parts(bwd_mode, bdtype)))
+    return (_tc.tc_operator(einv_r, einv_i, dot_mode, _tc.operator_parts(dot_mode, fdtype)),
+            _tc.tc_operator(e_r.t(), e_i.t(), bwd_mode, _tc.operator_parts(bwd_mode, bdtype)))
 
 
 _ARGTYPES = ([_launch.VOIDP] * 20 + [_launch.INT] * 4 + [_launch.VOIDP] * 6

@@ -9,8 +9,12 @@ Replaces the TPU kernel ``dual_group_apply_planes``
 gradient: ``conj`` writes ``conj(y)``, ``acc`` adds ``y`` into accumulator
 planes, ``alias=False`` writes fresh planes and leaves the input intact.
 The Hopper kernel is ``csrc/dual_apply.cu`` (bound by operations: 256
-complex multiply-adds per amplitude against 16 bytes);
-:func:`dual_apply_plain` is its plain PyTorch version.
+complex multiply-adds per amplitude against 16 bytes), both products on the
+tensor cores (``csrc/tc_adjoint.cuh``'s tile product; 3xTF32 in the "f32"
+dot mode, three bf16 passes in bf16x3), handed ``El`` and ``Em`` pre-split
+in mma fragment order (:func:`operators`); every launch counts in
+``mode_launches["tc"]``. :func:`dual_apply_plain` is its plain PyTorch
+version.
 
 :func:`dual_apply` consumes its input planes unless ``alias=False`` or
 ``acc`` is given: on a CUDA tensor the kernel writes the result into them
@@ -41,6 +45,7 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -74,8 +79,19 @@ def dual_apply_plain(xr, xi, el_r, el_i, em_r, em_i,
     return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 10
-             + [_launch.INT] * 5 + [_launch.LONG, _launch.VOIDP])
+def operators(el_r, el_i, em_r, em_i, dot_mode: str, lane_dtype):
+    """The two products' operators as ``csrc/dual_apply.cu`` reads them
+    (``_tc.tc_operator``, each the ``Op`` of its ``Op x tile`` product): El
+    for the lane product (its tiles hold rows s as [l][s]: ``T = X El^T``)
+    on planes of ``lane_dtype`` (x's storage; float32 where a run multiplies
+    x first), and Em for the sublane product on the f32 T."""
+    return (_tc.tc_operator(el_r, el_i, dot_mode, _tc.operator_parts(dot_mode, lane_dtype)),
+            _tc.tc_operator(em_r, em_i, dot_mode))
+
+
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 2
+             + [_launch.INT] + [_launch.VOIDP] * 6 + [_launch.INT] * 5
+             + [_launch.LONG, _launch.VOIDP])
 
 
 def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
@@ -111,15 +127,19 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
     if any(tuple(o.shape) != (128, 128) for o in ops):
         raise ValueError("dual_apply: operators must be (128, 128)")
     _launch.check_tables("dual_apply", diag_tables, A, xr.device)
+    run_first = diag_tables is not None and diag_first
+    op_l, op_m = operators(*ops, dot_mode, torch.float32 if run_first else xr.dtype)
     fn = _launch.entry("dual_apply", "dqc_dual_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
-              *(o.data_ptr() for o in ops), *_launch.table_ptrs(diag_tables),
+              op_l.data_ptr(), op_m.data_ptr(), int(op_l.shape[2] == 6),  # El in 3 parts
+              *_launch.table_ptrs(diag_tables),
               int(diag_tables is not None), int(diag_first), int(conj),
               int(acc is not None), int(dot_mode == "bf16x3"), A,
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "dual_apply", "dual_apply launch")
     dual_apply.launches += 1
+    dual_apply.mode_launches["tc"] += 1
     if seed:
         _st.count_storage(dual_apply, out[0].dtype)
     _st.count_fwd(dual_apply, xr.dtype, dot_mode)
@@ -129,5 +149,5 @@ def dual_apply(xr, xi, el_r, el_i, em_r, em_i,
 
 
 dual_apply.launches = 0
-dual_apply.mode_launches = {"in_f16": 0, "bf16": 0, "f16": 0, "fwd_bf16": 0,
+dual_apply.mode_launches = {"tc": 0, "in_f16": 0, "bf16": 0, "f16": 0, "fwd_bf16": 0,
                             "fwd_bf16x3": 0}

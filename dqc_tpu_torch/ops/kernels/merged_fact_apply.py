@@ -8,7 +8,12 @@ merged row ``x = t Xl + d`` (ops/planes._merged_view), without expanding
 the ``(Xt Xl)^2`` operator: the low factor ``El`` (Xl x Xl) acts within each
 top slice ``t``, the top factor ``Et`` (Xt x Xt) mixes the slices
 elementwise. The Hopper kernel is ``csrc/merged_fact_apply.cu`` (bound by
-operations: Xl + Xt complex multiply-adds per amplitude against 16 bytes);
+operations: Xl + Xt complex multiply-adds per amplitude against 16 bytes):
+the low factor on the tensor cores (``csrc/tc_adjoint.cuh``'s tile product
+on tiles of the Xt slices; 3xTF32 in the "f32" dot mode, three bf16 passes
+in bf16x3), handed ``El`` pre-split in mma fragment order
+(``_tc.tc_operator``), the top factor's combinations on the CUDA cores as
+the tiles load; every launch counts in ``mode_launches["tc"]``.
 :func:`merged_fact_apply_plain` is its plain PyTorch version.
 
 :func:`merged_fact_apply` updates the planes in place on a CUDA tensor (the
@@ -30,6 +35,7 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 
 KERNEL_X_TOP = (2, 4)
 KERNEL_X_LOW = 128
@@ -82,7 +88,7 @@ def check_kernel_widths(what: str, x_top: int, Xl: int) -> None:
                          f"and Xl = {KERNEL_X_LOW}, got {x_top} and {Xl}")
 
 
-_ARGTYPES = [_launch.VOIDP] * 6 + [_launch.LONG, _launch.INT, _launch.LONG,
+_ARGTYPES = [_launch.VOIDP] * 5 + [_launch.LONG, _launch.INT, _launch.LONG,
                                    _launch.INT, _launch.INT, _launch.VOIDP]
 
 
@@ -98,20 +104,22 @@ def merged_fact_apply(xr, xi, el_r, el_i, et_r, et_i, *, x_top: int,
         return merged_fact_apply_plain(xr, xi, el_r, el_i, et_r, et_i,
                                        x_top=x_top, dot_mode=dot_mode)
     check_kernel_widths("merged_fact_apply", x_top, Xl)
-    _launch.check_cuda_f32("merged_fact_apply", (xr, xi), xr.device,
+    _launch.check_cuda_f32("merged_fact_apply", (xr, xi), xr.device, align=16,
                            dtypes=_st.FWD_DTYPES)
     _launch.check_cuda_f32("merged_fact_apply", (el_r, el_i, et_r, et_i),
                            xr.device)
+    op = _tc.tc_operator(el_r, el_i, dot_mode)
     fn = _launch.entry("merged_fact_apply", "dqc_merged_fact_apply", _ARGTYPES)
-    code = fn(xr.data_ptr(), xi.data_ptr(), el_r.data_ptr(), el_i.data_ptr(),
-              et_r.data_ptr(), et_i.data_ptr(), A1, x_top, M * 128,
+    code = fn(xr.data_ptr(), xi.data_ptr(), op.data_ptr(), et_r.data_ptr(),
+              et_i.data_ptr(), A1, x_top, M * 128,
               _st.storage_kind(xr.dtype), int(dot_mode == "bf16x3"),
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "merged_fact_apply", "merged_fact_apply launch")
     merged_fact_apply.launches += 1
+    merged_fact_apply.mode_launches["tc"] += 1
     _st.count_fwd(merged_fact_apply, xr.dtype, dot_mode)
     return xr, xi
 
 
 merged_fact_apply.launches = 0
-merged_fact_apply.mode_launches = {"fwd_bf16": 0, "fwd_bf16x3": 0}
+merged_fact_apply.mode_launches = {"tc": 0, "fwd_bf16": 0, "fwd_bf16x3": 0}
