@@ -186,10 +186,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    transport among them) against their plain versions on small views, that
    pair also timed at 2^29; every launch of both counted gram[tc] /
    block_backward_merged_fact[tc] and held to the dry runs;
-18. the tensor-core routes (3l, after phase 3): the high apply at X =
-   128 / 256 / 512 (csrc/tc_apply.cuh, every storage and mode, counted as
-   high_apply[tc]), the X = 256 / 512 adjoint (its cross-Gram and its
-   two updates on the tensor cores), the dual, lane and sublane adjoints
+18. the tensor-core routes (3l, after phase 3): the high apply at every X
+   (csrc/tc_apply.cuh at X = 128 / 256 / 512, csrc/high_apply_small.cu
+   below, every storage and mode, counted as high_apply[tc]), the
+   multi-term dual apply (dual_multi_apply[tc]), the X = 256 / 512
+   adjoint (its cross-Gram and its two updates on the tensor cores), the
+   dual, lane and sublane adjoints
    and the high adjoint at X <= 128 (their one-pass step,
    csrc/tc_adjoint.cuh and csrc/block_backward_high_small.cu, every
    storage, mode, run and Q, counted as block_backward_dual[tc],
@@ -216,7 +218,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    timed at 29q with their tensor-core bounds in phase 3l, every launch of
    both counted dual_apply[tc] / merged_fact_apply[tc] and held to the dry
    runs;
-20. a JSON line of the kernels and of the modes checked (their launches
+20. the high apply at X = 8..64 and the multi-term dual apply on the tensor
+   cores (3p, after 3o: csrc/high_apply_small.cu, 2048-amplitude tiles
+   streamed through a cp.async ring with E pre-split in shared memory, and
+   csrc/dual_multi_apply.cu, term by term a lane and a sublane product
+   summed in registers, the operators streamed by bulk copies): every
+   variant their entries take (the high apply at X = 8, 16, 32, 64 with x
+   f32 / bf16 / f16, in place, fresh and into an accumulator of each
+   storage, no run or one first or after, both dot modes; the multi-term
+   apply with T = 1, 2, 4, 16 in the same storages, forms and dot modes)
+   against their plain versions on small views; the f32 high apply in
+   place at X = 16 / 32 / 64 timed at 29q; their other rows timed in the
+   earlier phases with their tensor-core bounds in phase 3l; every launch of
+   both counted high_apply[tc] / dual_multi_apply[tc] and held to the dry
+   runs;
+21. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -514,6 +530,25 @@ def dual_apply_tc(amps: float, xdt="float32", dot="f32", run_first=False) -> lis
     return [tc_product(amps * 128, x3, lane), tc_product(amps * 128, x3, "float32")]
 
 
+def high_apply_tc(amps: float, X: int, xdt="float32", dot="f32",
+                  run_first=False) -> list:
+    """The tensor-core work of a high apply launch: X complex multiply-adds
+    per amplitude (csrc/tc_apply.cuh at X >= 128, csrc/high_apply_small.cu
+    below), a pass fewer where x's lo parts are zero: bf16 x in bf16x3, and
+    16-bit x in 3xTF32 at X >= 128 (below, E meets it in three parts and
+    keeps three passes). A run multiplied in first leaves f32 values."""
+    x3 = dot == "bf16x3"
+    planes = "float32" if run_first or (X < 128 and not x3) else xdt
+    return [tc_product(amps * X, x3, planes)]
+
+
+def multi_apply_tc(amps: float, T: int, xdt="float32", dot="f32") -> list:
+    """The tensor-core work of a multi-term dual apply launch
+    (csrc/dual_multi_apply.cu): each term's lane and sublane products, as
+    the dual apply's (dual_apply_tc), whatever zeros its factors hold."""
+    return dual_apply_tc(amps * T, xdt, dot)
+
+
 def merged_apply_tc(amps: float, x_top: int, dot="f32") -> list:
     """The work of a merged-top apply launch (csrc/merged_fact_apply.cu):
     its low factor on the tensor cores on the f32 combinations of the top
@@ -614,11 +649,8 @@ def call_modes(name: str, a) -> tuple:
                 and a["xr"].shape[1] > 128 else ())
         seed = acc is not None or not a.get("alias", True)
         in16 = ("in_f16",) if a["xr"].dtype == torch.float16 else ()
-        # the tensor-core high apply takes X = 128, 256 and 512, every
-        # storage and mode; the dual apply runs on the tensor cores always
-        tc = (("tc",) if name == "dual_apply" or a["xr"].shape[1] in (128, 256, 512)
-              else ())
-        return (in16 + wide + tc + (storage_modes(out) if seed else ())
+        # both run on the tensor cores at every X, in every storage and mode
+        return (in16 + wide + ("tc",) + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
     if name == "gram":  # the tensor-core Gram at X = 128 / 256 / 512
         return ((("tc",) if a["xr"].shape[1] >= 128 else ())
@@ -636,8 +668,9 @@ def call_modes(name: str, a) -> tuple:
         out = (acc[0].dtype if acc is not None else a["xr"].dtype if alias
                else a.get("out_dtype") or a["xr"].dtype)
         # a seed reads the forward planes; in place, bf16 planes count as
-        # "bf16" whichever pair they are
-        return ((("seed",) if seed else ()) + storage_modes(out)
+        # "bf16" whichever pair they are; the dual one runs on the tensor cores
+        return ((("tc",) if name == "dual_multi_apply" else ())
+                + (("seed",) if seed else ()) + storage_modes(out)
                 + fwd_modes(a["xr"].dtype if seed else None, a))
     return ()
 
@@ -1126,7 +1159,7 @@ def main() -> int:
                   flops=amps * X * 8,
                   bytes_moved=2 * state_bytes + (table_bytes(a_rows) if tab else 0),
                   library=high_library(E) if tab is None else None,
-                  tc=[tc_product(amps * X, False, "float32")] if X >= 128 else None)
+                  tc=high_apply_tc(amps, X))
 
     # gram: (S, C) over the views (P, X, Q) of the epilogue
     def gram_library(xr, xi):
@@ -1459,7 +1492,7 @@ def main() -> int:
                   dual_multi_apply, dual_multi_apply_plain, ops, DUAL_TOL,
                   flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
                   bytes_moved=2 * st, library=dual_multi_library(ops),
-                  dense_flops=amps_n * 2 * 128 * T * 8)
+                  dense_flops=amps_n * 2 * 128 * T * 8, tc=multi_apply_tc(amps_n, T))
         kind, vshape, *ops = pl.cross_span_operands(cnot, (0, nq - 1), nq, dev)
         require(kind == "multi" and vshape == (1, 8, 1 << (nq - 10), 128),
                 f"closing CNOT span view {kind} {vshape}")
@@ -1486,7 +1519,8 @@ def main() -> int:
         check("high_apply", f"29q_X8_span{pos[0]}", vshape, high_apply,
               high_apply_plain, (er, ei, None, True), HIGH_TOL,
               flops=amps29 * macs(er, ei) * 8, bytes_moved=2 * state29,
-              library=high_library((er, ei)), dense_flops=amps29 * 8 * 8)
+              library=high_library((er, ei)), dense_flops=amps29 * 8 * 8,
+              tc=high_apply_tc(amps29, 8))
         _, _, _, *bops = pl.backward_span_operands(cnot, cnot_inv, pos, N29, dev)
         check_many("block_backward_high", f"29q_X8_span{pos[0]}", vshape, 4, 4,
                    lambda *p, b=bops: block_backward_high(*p, *b),
@@ -1592,7 +1626,7 @@ def main() -> int:
                        bytes_moved=(3 if acc else 2) * st, intact=2,
                        library=multi_seed_library("tsk,akm,tlm->asl", ops[2:],
                                                   ops[:2], acc),
-                       dense_flops=amps_n * 2 * 128 * 4 * 8)
+                       dense_flops=amps_n * 2 * 128 * 4 * 8, tc=multi_apply_tc(amps_n, 4))
         kind, vshape, *ops = pl.cross_span_operands(M.conj(), (0, nq - 1), nq, dev)
         require(kind == "multi" and vshape == (1, 8, 1 << (nq - 10), 128)
                 and ops[0].shape[0] == 4, f"closing seed span view {kind} {vshape}")
@@ -1614,7 +1648,8 @@ def main() -> int:
                    seed(high_apply, er, ei), seed(high_apply_plain, er, ei),
                    HIGH_TOL, flops=amps29 * macs(er, ei) * 8,
                    bytes_moved=3 * state29, intact=2,
-                   library=seed_library((er, ei)), dense_flops=amps29 * 8 * 8)
+                   library=seed_library((er, ei)), dense_flops=amps29 * 8 * 8,
+                   tc=high_apply_tc(amps29, 8))
 
     # 3e. the kernels of AutoGradCircuit.build() on the plane tape -----------
     # block_backward_lane, the unpaired lane block's adjoint (384 complex MACs
@@ -2018,7 +2053,8 @@ def main() -> int:
                           0, 2, 0, 2,
                           lambda br, bi, o=ops: dual_multi_apply(br, bi, *o),
                           lambda br, bi, o=ops: dual_multi_apply_plain(br, bi, *o),
-                          dt, flops, 0.0, 2 * b_bytes(dt))
+                          dt, flops, 0.0, 2 * b_bytes(dt),
+                          tc=multi_apply_tc(amps29, ops[0].shape[0], dt))
         kind, *ops = pl.cross_terms_operands(
             ps._dense_cross_expanded_terms(M4.conj(), (6, 7), N29), N29, dev)
         flops = amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8
@@ -2028,14 +2064,16 @@ def main() -> int:
                           xr, xi, *o, conj=True, acc=(ar, ai), alias=False),
                       lambda xr, xi, ar, ai, o=ops: dual_multi_apply_plain(
                           xr, xi, *o, conj=True, acc=(ar, ai)),
-                      dt, flops, 0.0, state29 + 2 * b_bytes(dt))
+                      dt, flops, 0.0, state29 + 2 * b_bytes(dt),
+                      tc=multi_apply_tc(amps29, 4))
         check_reduced("dual_multi_apply", f"29q_seed_T4_fresh_{store}",
                       (A29, 128, 128), 2, 0, 0, 2,
                       lambda xr, xi, o=ops, dt=dt: dual_multi_apply(
                           xr, xi, *o, conj=True, alias=False, out_dtype=dt),
                       lambda xr, xi, o=ops, dt=dt: dual_multi_apply_plain(
                           xr, xi, *o, conj=True, out_dtype=dt),
-                      dt, flops, 0.0, state29 + b_bytes(dt))
+                      dt, flops, 0.0, state29 + b_bytes(dt),
+                      tc=multi_apply_tc(amps29, 4))
         kind, vshape, *ops = pl.cross_span_operands(cnot, (0, N29 - 1), N29, dev)
         check_reduced("high_multi_apply", f"29q_T2_cnot_{store}", vshape, 0, 2, 0, 2,
                       lambda br, bi, o=ops: high_multi_apply(br, bi, *o),
@@ -2068,7 +2106,7 @@ def main() -> int:
                   lambda xr, xi, ar, ai: high_apply_plain(xr, xi, er, ei, conj=True,
                                                           acc=(ar, ai)),
                   torch.float16, amps29 * macs(er, ei) * 8, 0.0,
-                  state29 + 2 * b_bytes(torch.float16))
+                  state29 + 2 * b_bytes(torch.float16), tc=high_apply_tc(amps29, 8))
     # the unpaired sublane and lane adjoints
     f32_bwd = dict(bwd_mode="f32", gram_mode="bf16x3")
     for name, fn, fn_plain in (
@@ -2454,7 +2492,8 @@ def main() -> int:
                         lambda xr, xi, d=dot, E=E, t=tabs: high_apply_plain(
                             xr, xi, *E, t, True, dot_mode=d),
                         1, f + amps29 * 18, b, 2 * plane_bytes(fdt) + table_bytes(a_rows),
-                        lib(high_run_library(E, tabs)))
+                        lib(high_run_library(E, tabs)),
+                        tc=high_apply_tc(amps29, X, fdt, dot, run_first=True))
             if X in (8, 64):
                 check_fwd16("high_apply", f"29q_X{X}_seed_{tag}", view,
                             [(fdt, 1.0)] * 2 + [(bdt, 0.5)] * 2,
@@ -2464,7 +2503,8 @@ def main() -> int:
                             lambda xr, xi, ar, ai, d=dot, E=E: high_apply_plain(
                                 xr, xi, *E, conj=True, acc=(ar, ai), dot_mode=d),
                             1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                            lib(seed_library(E)), reuse=False)
+                            lib(seed_library(E)), reuse=False,
+                            tc=high_apply_tc(amps29, X, fdt, dot))
                 gview = (1, X, view[2] * 128)
                 flops = amps29 * (2 * X + 1) * 2
                 fl = (0.0, flops * 3) if dot == "bf16x3" and fdt != BF16 else (flops, 0.0)
@@ -2536,7 +2576,9 @@ def main() -> int:
                         lambda xr, xi, o=ops, d=dot, fn=fn: fn(xr, xi, *o, dot_mode=d),
                         lambda xr, xi, o=ops, d=dot, fn=fn_plain: fn(xr, xi, *o,
                                                                      dot_mode=d),
-                        1, f, b, 2 * plane_bytes(fdt), lib(library(ops)))
+                        1, f, b, 2 * plane_bytes(fdt), lib(library(ops)),
+                        tc=(multi_apply_tc(amps29, ops[0].shape[0], fdt, dot)
+                            if name == "dual_multi_apply" else None))
         if tag != "x3":
             M4 = hermitian4()
             kind, *dops = pl.cross_terms_operands(
@@ -2560,7 +2602,9 @@ def main() -> int:
                             lambda xr, xi, ar, ai, o=ops, d=dot, fn=fn_plain: fn(
                                 xr, xi, *o, conj=True, acc=(ar, ai), dot_mode=d),
                             1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
-                            lib(library), reuse=False)
+                            lib(library), reuse=False,
+                            tc=(multi_apply_tc(amps29, 4, fdt, dot)
+                                if name == "dual_multi_apply" else None))
         del dops, hops
         torch.cuda.empty_cache()
         # the sublane adjoint ("auto" transport and gram of the setting)
@@ -2709,7 +2753,7 @@ def main() -> int:
             check_fwd16("high_apply", f"29q_X{X}_{form}_f16in", view, ins, fk, fp, 1,
                         fx, bx, n_io * plane_bytes(F16), reuse=form == "fresh",
                         phase="3k",
-                        tc=[tc_product(amps29 * X, False, F16)] if X == 128 else None)
+                        tc=high_apply_tc(amps29, X, F16))
             del E
         torch.cuda.empty_cache()
 
@@ -2966,6 +3010,88 @@ def main() -> int:
     gen.set_state(gen_state)
     torch.cuda.empty_cache()
 
+    # 3p. the high apply at X = 8..64 and the multi-term dual apply on the
+    # tensor cores (csrc/high_apply_small.cu, csrc/dual_multi_apply.cu): every
+    # variant their entries take against their plain versions on small views,
+    # without times (the rows of phases 3, 3c, 3d, 3h, 3j and 3k time them at
+    # 29q, with their tensor-core bounds from phase 3l): the high apply at
+    # X = 8, 16, 32 and 64 on views (2, X, 128, 128) with x f32, bf16 or f16,
+    # in place, fresh and into an accumulator (conj) of each storage it
+    # takes, no run or one multiplied first or after, in both dot modes
+    # (PERF.md's rows 2x, 2y, 2yf, 2v', 2x', 2h); the multi-term dual apply
+    # with T = 1, 2, 4 and 16 terms (16: a traced k >= 4 gate's, into an
+    # accumulator only) on views (4, 128, 128) in the same storages, forms
+    # and dot modes (rows 8, 8s, 8f, 8v, 8x). f32 planes within HIGH_TOL abs,
+    # 16-bit planes within STORE_ULPS storage ulps, as 3o's. Then the f32
+    # high apply in place at X = 16, 32 and 64 on views of 2^29 amplitudes
+    # (group 2 at n = 17-20 and group 3 at n = 24-27; first timed here),
+    # beside its matmul.
+    log_time("3p")
+    gen_state = gen.get_state()  # every later row keeps its data
+    worst_fwd.update({"ulps": 0.0, "abs": 0.0})
+    n_high = n_multi = 0
+
+    def seed_forms(xdt):
+        return [("inplace", xdt)] + [(f, y) for f in ("fresh", "acc") for y in STORES16[xdt]]
+
+    def held_seed(what, fn, fn_plain, shape, xdt, ydt, form, ops, kw):
+        xs = [stc.store_as(randn(*shape), xdt) for _ in range(2)]
+        kw = dict(kw)
+        acc = None
+        if form == "fresh":
+            kw.update(conj=True, alias=False, out_dtype=ydt)
+        elif form == "acc":
+            acc = [stc.store_as(0.5 * randn(*shape), ydt) for _ in range(2)]
+            kw.update(conj=True, acc=tuple(acc), alias=False)
+        want = fn_plain(*xs, *ops, **kw)
+        if acc is not None:
+            kw["acc"] = tuple(a.clone() for a in acc)
+        got = fn(*[x.clone() for x in xs], *ops, **kw)
+        torch.cuda.synchronize()
+        held_fwd(what, got, want)
+
+    for X in (8, 16, 32, 64):
+        shape = (2, X, 128, 128)
+        E = unitary(X)
+        tabX = tables(2 * X)
+        for xdt in STORES16:
+            for dot in ("f32", "bf16x3"):
+                for run in (None, "first", "after"):
+                    kw = dict(dot_mode=dot)
+                    if run is not None:
+                        kw.update(diag_tables=tabX, diag_first=run == "first")
+                    for form, ydt in seed_forms(xdt):
+                        held_seed(f"high_apply[X{X} {xdt} -> {ydt} {form} run {run} {dot}]",
+                                  high_apply, high_apply_plain, shape, xdt, ydt, form, E, kw)
+                        n_high += 1
+        del E, tabX
+    for T in (1, 2, 4, 16):
+        terms = [unitary(128) for _ in range(2 * T)]
+        mops = tuple(torch.stack([terms[k + T * f][p] for k in range(T)])
+                     for f in (0, 1) for p in (0, 1))
+        for xdt in STORES16:
+            for dot in ("f32", "bf16x3"):
+                for form, ydt in seed_forms(xdt):
+                    if T == 16 and form != "acc":
+                        continue
+                    held_seed(f"dual_multi_apply[T{T} {xdt} -> {ydt} {form} {dot}]",
+                              dual_multi_apply, dual_multi_apply_plain, (4, 128, 128),
+                              xdt, ydt, form, mops, dict(dot_mode=dot))
+                    n_multi += 1
+        del terms, mops
+    log(f"[3p] high_apply: {n_high} variants within their bars on views (2, X, 128, "
+        f"128), X = 8..64; dual_multi_apply: {n_multi} on views (4, 128, 128), T = 1, "
+        f"2, 4, 16; worst {json.dumps(worst_fwd)}")
+    for X in (16, 32, 64):
+        E = unitary(X)
+        check("high_apply", f"29q_X{X}_f32", (1, X, (1 << N29) // (X * 128), 128),
+              high_apply, high_apply_plain, (*E, None, True), HIGH_TOL,
+              flops=amps29 * X * 8, bytes_moved=2 * state29, library=high_library(E),
+              tc=high_apply_tc(amps29, X))
+        del E
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
+
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
@@ -2978,6 +3104,8 @@ def main() -> int:
     # and the kernels' registers and spills from this run's build (with the
     # not-inlined functions of the adjoints' step)
     tc_regs = _build.kernel_resources(("tc_apply_kernel", "cross_gram_tc_kernel",
+                                       "high_apply_small_kernel",
+                                       "dual_multi_apply_tc_kernel",
                                        "dual_apply_tc_kernel", "dual_load_slab",
                                        "dual_store_slab",
                                        "merged_fact_apply_tc_kernel", "merged_load_top",
@@ -2995,10 +3123,10 @@ def main() -> int:
         for k in kernels_of:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
-        if (r["kernel"] in ("high_apply", "gram") and r["shape"][1] >= 128) or (
+        if (r["kernel"] == "gram" and r["shape"][1] >= 128) or (
                 r["kernel"] in (*TC_ADJOINTS, "block_backward_high",
                                 "block_backward_merged_fact", "dual_apply",
-                                "merged_fact_apply")):
+                                "merged_fact_apply", "high_apply", "dual_multi_apply")):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -3863,11 +3991,11 @@ def main() -> int:
     want_fwd.update(Counter(k for k, _ in fwd_step))
     want_vg = dict.fromkeys(names, 0)
     want_vg.update(Counter(k for k, _ in vg_step))
-    # the high applies at X = 128 / 256 (not the X = 8 span views) run on
-    # the tensor cores
+    # every high apply (the X = 8 span views too) and every multi-term dual
+    # apply runs on the tensor cores
     for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
-        want_["high_apply[tc]"] = sum(k == "high_apply" and "_X8_" not in v
-                                      for k, v in step_)
+        for k in ("high_apply", "dual_multi_apply"):
+            want_[f"{k}[tc]"] = sum(k == kk for kk, _ in step_)
     # so do the high adjoints, the X = 8 span views' too, and the Grams
     with_gram_modes(want_fwd)
     with_gram_modes(want_vg)
@@ -5063,8 +5191,12 @@ def main() -> int:
             "29q_q", "_q"),
         "high_apply[tc]": (
             "dqc_tpu_torch/csrc/tc_apply.cuh",
-            "dqc_tpu/ops/pallas/high_apply.py:76 (X = 128 / 256 / 512, tensor cores)",
-            "29q_X128_plain", "X128_"),
+            "dqc_tpu/ops/pallas/high_apply.py:76 (every X on the tensor cores; "
+            "X = 128 / 256 / 512 here)", "29q_X128_plain", "X128_"),
+        "dual_multi_apply[tc]": (
+            "dqc_tpu_torch/csrc/dual_multi_apply.cu",
+            "dqc_tpu/ops/pallas/dual_apply.py:165 (every product, tensor cores)",
+            "29q_T2_cnot", "29q_T"),
         "high_apply[wide_inplace]": (
             "dqc_tpu_torch/csrc/tc_apply.cuh",
             "dqc_tpu/ops/pallas/high_apply.py:76 (alias=True, X = 256 / 512)",
@@ -5109,6 +5241,7 @@ def main() -> int:
     mode_runs = {"block_backward_high[diag_q]": t29, "diag_backward[with_q]": tdq,
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
                  "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29},
+                 "dual_multi_apply[tc]": {"counts": countsc, "counts_fwd": fwdc},
                  "block_backward_dual[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "block_backward_lane[tc]": t29,
                  "block_backward_sublane[tc]": {"counts": countsc, "counts_fwd": fwdc},
@@ -5315,7 +5448,7 @@ def main() -> int:
     # [cnot30_bf16]'s)
     slice_rows = (
         (("high_apply[fwd_bf16,X=8..64]", "high_apply[fwd_bf16x3,X=8..64]"),
-         "high_apply", "high_apply_fwd16.cu", "29q_X64_diag_first", narrow,
+         "high_apply", "high_apply_small.cu", "29q_X64_diag_first", narrow,
          small_bf16["high_apply[fwd_bf16]"], small_x3["high_apply[fwd_bf16x3]"]),
         (("gram[fwd_bf16,X=8..64]", "gram[fwd_bf16x3,X=8..64]"), "gram", "gram.cu",
          "29q_X64", narrow, small_bf16["gram[fwd_bf16]"], small_x3["gram[fwd_bf16x3]"]),
@@ -5359,10 +5492,18 @@ def main() -> int:
             out.append(row_of(name, f"dqc_tpu_torch/csrc/{src}",
                               f"{replaces_of[kernel]} ({what})", mine,
                               f"{pre}_{tags[0]}", launches, None))
-    # the high adjoint's small-X step (csrc/block_backward_high_small.cu,
-    # every storage and mode): "launches" from [cz_f32_small]'s 20q run,
-    # whose every high adjoint launch is at X = 64; its numbers from the
-    # X = 8..64 rows on f32 planes (phases 3, 3e, 3m)
+    # the high apply and the high adjoint at X = 8..64 on the tensor cores
+    # (csrc/high_apply_small.cu, csrc/block_backward_high_small.cu, every
+    # storage and mode): "launches" from [cz_f32_small]'s 20q run, whose every
+    # high apply and high adjoint launch is at X = 64; their numbers from the
+    # X = 8..64 rows on f32 planes (phases 3, 3e, 3m, 3p)
+    out.append(row_of(
+        "high_apply[tc,X=8..64]",
+        "dqc_tpu_torch/csrc/high_apply_small.cu",
+        "dqc_tpu/ops/pallas/high_apply.py:76 (X = 8..64, tensor cores)",
+        [r for r in rows if r["kernel"] == "high_apply" and narrow(r)
+         and "storage" not in r and "fwd" not in r], "29q_X64_f32",
+        cz_f32_small[20]["counts"]["high_apply[tc]"], 0))
     out.append(row_of(
         "block_backward_high[tc,X=8..64]",
         "dqc_tpu_torch/csrc/block_backward_high_small.cu",

@@ -209,6 +209,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// --- Bulk copies (the Tensor Memory Accelerator) and mbarriers ---------
+
+// An mbarrier in shared memory expecting `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)), "r"(count)
+               : "memory");
+}
+// Makes initialised mbarriers visible to the bulk copies.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Waits until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"((unsigned)__cvta_generic_to_shared(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory in one bulk copy, which completes that many bytes of the
+// transaction count of `bar` (set by the issuing thread's arrive.expect_tx).
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+      "l"(src), "r"(bytes), "r"((unsigned)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+
 // out[e] = sum over slots s of part[s n2 + e], e < n2, in slot order: each
 // of the 32 y-threads of a column of the block sums the slots s = ty mod 32
 // in order, then thread ty = 0 adds the 32 sums in order.

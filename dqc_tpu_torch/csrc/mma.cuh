@@ -222,6 +222,24 @@ __device__ __forceinline__ void cmma3x(float (&dr)[M][4], float (&di)[M][4],
     }
 }
 
+// The parts of a pre-split operator's A fragment at f (this lane's first
+// uint4 of its P parts, 32 uint4 apart: ops/kernels/_tc.tc_operator's
+// layout): a (re / im, hi / lo) and, with three (P = 6), a2's hi slots (the
+// second lo parts).
+__device__ __forceinline__ void load_op_frag(const uint4* f, bool three,
+                                             CFrag<4>& a, CFrag<4>& a2) {
+  const uint4 rh = f[0], rl = f[32], ih = f[64], il = f[96];
+  a.rh[0] = rh.x; a.rh[1] = rh.y; a.rh[2] = rh.z; a.rh[3] = rh.w;
+  a.rl[0] = rl.x; a.rl[1] = rl.y; a.rl[2] = rl.z; a.rl[3] = rl.w;
+  a.ih[0] = ih.x; a.ih[1] = ih.y; a.ih[2] = ih.z; a.ih[3] = ih.w;
+  a.il[0] = il.x; a.il[1] = il.y; a.il[2] = il.z; a.il[3] = il.w;
+  if (three) {
+    const uint4 r2 = f[128], i2 = f[160];
+    a2.rh[0] = r2.x; a2.rh[1] = r2.y; a2.rh[2] = r2.z; a2.rh[3] = r2.w;
+    a2.ih[0] = i2.x; a2.ih[1] = i2.y; a2.ih[2] = i2.z; a2.ih[3] = i2.w;
+  }
+}
+
 // A tile's layout in shared memory: element (row, column) at L::at(row,
 // column). Row-major rows of LD floats:
 template <int LD>

@@ -1,5 +1,5 @@
-// The sum-of-terms apply on the planes, shared by dual_multi_apply.cu and
-// high_multi_apply.cu:
+// The sum-of-terms apply on the planes of high_multi_apply.cu (and of
+// high_multi_apply_x3.cu, its bf16x3 products), on the CUDA cores:
 //
 //   y = sum_t (E_t on the group axis) (El_t on the lane axis) x,   in place,
 //
@@ -12,8 +12,8 @@
 // on the view (A1, X, M, 128) of the planes, E_t an X x X operator on axis
 // X and El_t a 128 x 128 operator on the last (lane) axis, t < T. For a
 // fixed (i, m) the X x 128 matrix Z[x, l] = x[i, x, m, l] becomes
-// sum_t E_t Z El_t^T. The dual form (planes (A, 128, 128), Em_t on the
-// sublane axis) is the view (A, 128, 1, 128) with X = 128.
+// sum_t E_t Z El_t^T. (The dual form, planes (A, 128, 128) with Em_t on
+// the sublane axis, runs on the tensor cores: dual_multi_apply.cu.)
 //
 // Bound: operations. Per amplitude and term, 128 complex multiply-adds for
 // the lane factor and X for the group factor (8 real flops each), against

@@ -345,19 +345,8 @@ __device__ __noinline__ void tc_op_tile(const uint32_t* op, int which,
           ring + (ci % Cfg::kStages) * O::kChunkWords + j * O::kStepWords);
       CFrag<4> a[2], a2[2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {  // the parts of m-tile 2 wr + m, a uint4 each
-        const uint4* f = stage + (2 * wr + m) * P * 32 + lane;
-        const uint4 rh = f[0], rl = f[32], ih = f[64], il = f[96];
-        a[m].rh[0] = rh.x; a[m].rh[1] = rh.y; a[m].rh[2] = rh.z; a[m].rh[3] = rh.w;
-        a[m].rl[0] = rl.x; a[m].rl[1] = rl.y; a[m].rl[2] = rl.z; a[m].rl[3] = rl.w;
-        a[m].ih[0] = ih.x; a[m].ih[1] = ih.y; a[m].ih[2] = ih.z; a[m].ih[3] = ih.w;
-        a[m].il[0] = il.x; a[m].il[1] = il.y; a[m].il[2] = il.z; a[m].il[3] = il.w;
-        if constexpr (P == 6) {
-          const uint4 r2 = f[128], i2 = f[160];
-          a2[m].rh[0] = r2.x; a2[m].rh[1] = r2.y; a2[m].rh[2] = r2.z; a2[m].rh[3] = r2.w;
-          a2[m].ih[0] = i2.x; a2[m].ih[1] = i2.y; a2[m].ih[2] = i2.z; a2[m].ih[3] = i2.w;
-        }
-      }
+      for (int m = 0; m < 2; ++m)  // the parts of m-tile 2 wr + m, a uint4 each
+        load_op_frag(stage + (2 * wr + m) * P * 32 + lane, P == 6, a[m], a2[m]);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         CFrag<2> b;

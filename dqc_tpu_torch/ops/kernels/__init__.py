@@ -15,13 +15,15 @@ seeds, every adjoint and ``diag_backward``), "bf16x3" for a bf16x3
 transport and "gram_bf16x3" for bf16x3 pair grams; "fwd_bf16" for bf16
 forward planes ("bf16" storage: every kernel that reads F, the
 multi-term applies' seeds) and "fwd_bf16x3" for the forward bf16x3.
-Below X = 128 the high apply's "bf16" / bf16x3 variants, the high
-multi-term apply's bf16x3 products and the high adjoint are libraries of
-their own (``csrc/high_apply_fwd16.cu``, ``csrc/high_multi_apply_x3.cu``,
-``csrc/block_backward_high_small.cu``) so that the build's nvcc processes
-stay short. ``high_apply`` at X = 128 / 256 / 512 runs on the tensor cores
-(``csrc/tc_apply.cuh``, every storage and mode), counted also as
-``high_apply[tc]``; so does every product of the dual, lane and sublane
+Below X = 128 the high apply and the high adjoint, and the high
+multi-term apply's bf16x3 products, are libraries of their own
+(``csrc/high_apply_small.cu``, ``csrc/block_backward_high_small.cu``,
+``csrc/high_multi_apply_x3.cu``) so that the build's nvcc processes stay
+short. ``high_apply`` runs on the tensor cores at every X
+(``csrc/tc_apply.cuh`` at X = 128 / 256 / 512, ``csrc/high_apply_small.cu``
+at X = 8..64, every storage and mode), counted also as ``high_apply[tc]``,
+and so does ``dual_multi_apply`` (``dual_multi_apply[tc]``); so does every
+product of the dual, lane and sublane
 adjoints' one-pass step and of the high adjoint's at X = 8..128
 (``csrc/tc_adjoint.cuh``, the lane and sublane adjoints built in the dual
 adjoint's library as its lane and sublane steps;

@@ -92,6 +92,14 @@ def _gather_index(X: int, ks: int, device) -> torch.Tensor:
     return torch.stack((at, at + 1), dim=-1).reshape(-1)
 
 
+def _diag2(e: torch.Tensor) -> torch.Tensor:
+    """diag(E, E) of an operator (or of each of a stack)."""
+    z = e.new_zeros((*e.shape[:-2], 16, 16))
+    z[..., :8, :8] = e
+    z[..., 8:, 8:] = e
+    return z
+
+
 def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str,
                 parts: int = 4) -> torch.Tensor:
     """The X x X operator ``E`` as the tensor-core kernels read it
@@ -100,13 +108,15 @@ def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str,
     hi, im lo; with ``parts=6``, "f32" only, then re lo2 and im lo2:
     :func:`split_tf32_3`), lane, register — of f32 bit patterns of tf32
     parts ("f32", ks = 8), or of pairs of bf16 parts ("bf16x3", ks = 16).
-    ``e_r`` / ``e_i`` may be views (a transpose). An X = 8 operator is laid
-    out as ``diag(E, E)``, 16 x 16: the small-X adjoint step
-    (``csrc/block_backward_high_small.cu``) stacks two 8-row halves of its
-    tile as 16 rows."""
-    if e_r.shape[0] == 8:
-        e_r, e_i = torch.block_diag(e_r, e_r), torch.block_diag(e_i, e_i)
-    X = e_r.shape[0]
+    ``e_r`` / ``e_i`` may be views (a transpose), or stacks ``(T, X, X)`` of
+    operators (the multi-term dual apply's terms, ``csrc/dual_multi_apply.cu``),
+    each laid out so: ``(T, X / ks, X / 16, parts, 32, 4)``. An X = 8
+    operator is laid out as ``diag(E, E)``, 16 x 16: the small-X kernels
+    (``csrc/small_x.cuh``) stack two 8-row halves of their tile as 16 rows."""
+    if e_r.shape[-1] == 8:
+        e_r, e_i = _diag2(e_r), _diag2(e_i)
+    X = e_r.shape[-1]
+    lead = tuple(e_r.shape[:-2])
     ks = 8 if dot_mode == "f32" else 16
     idx = _gather_index(X, ks, e_r.device)
     if parts == 6:
@@ -117,10 +127,12 @@ def tc_operator(e_r: torch.Tensor, e_i: torch.Tensor, dot_mode: str,
     else:
         split = [*split_parts(e_r, dot_mode), *split_parts(e_i, dot_mode)]
     P = len(split)
-    flat = torch.stack(split).reshape(P, X * X)
+    flat = torch.stack(split, dim=-3).reshape(*lead, P, X * X)
     if ks == 8:
-        f = flat.view(torch.int32)[:, idx].view(P, X // ks, X // 16, 32, 4)
+        f = flat.view(torch.int32)[..., idx].view(*lead, P, X // ks, X // 16, 32, 4)
     else:  # the two bf16 halves of a register, the lower column low
-        f = (flat.to(torch.bfloat16).view(torch.int16)[:, idx]
-             .view(4, X // ks, X // 16, 32, 4, 2).view(torch.int32)[..., 0])
-    return f.permute(1, 2, 0, 3, 4).contiguous()
+        f = (flat.to(torch.bfloat16).view(torch.int16)[..., idx]
+             .view(*lead, P, X // ks, X // 16, 32, 4, 2).view(torch.int32)[..., 0])
+    d = len(lead)
+    return f.permute(*range(d), d + 1, d + 2, d, d + 3, d + 4).contiguous()
+

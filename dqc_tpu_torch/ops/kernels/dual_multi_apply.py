@@ -8,10 +8,13 @@ decomposition (``El_t`` on the last axis, ``Em_t`` on the middle one, each
 density-seed modes of the gradient (the seed of a density across the two
 groups): ``conj`` writes ``conj(y)``, ``acc`` adds ``y`` into accumulator
 planes, ``alias=False`` writes fresh planes and leaves the input intact.
-The Hopper kernel is ``csrc/dual_multi_apply.cu`` on
-``csrc/multi_apply.cuh`` (bound by operations: 256 T complex multiply-adds
-per amplitude against 16 bytes); :func:`dual_multi_apply_plain` is its
-plain PyTorch version.
+The Hopper kernel is ``csrc/dual_multi_apply.cu``, every product on the
+tensor cores (3xTF32 in the "f32" dot mode, three bf16 products in bf16x3;
+bound by operations: 256 T complex multiply-adds per amplitude against 16
+bytes, 13.33 ms at T = 2 on 2^29 f32 amplitudes), handed the stacked
+factors pre-split in mma fragment order (:func:`operators`), any T (16 for
+a traced k >= 4 gate); every launch counts in ``mode_launches["tc"]``.
+:func:`dual_multi_apply_plain` is its plain PyTorch version.
 
 :func:`dual_multi_apply` consumes its input planes unless ``alias=False``
 or ``acc`` is given: on a CUDA tensor the kernel writes the result into
@@ -40,6 +43,7 @@ import torch
 
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
+from dqc_tpu_torch.ops.kernels import _tc
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -62,8 +66,20 @@ def dual_multi_apply_plain(xr, xi, el_r, el_i, em_r, em_i, *,
     return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 3 + [_launch.VOIDP] * 4
-             + [_launch.INT] * 3 + [_launch.LONG, _launch.VOIDP])
+# x, y, kinds, x3, El_t and Em_t pre-split, El_t in three parts, T, conj,
+# has_acc, A, stream
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 3 + [_launch.VOIDP] * 2
+             + [_launch.INT] * 4 + [_launch.LONG, _launch.VOIDP])
+
+
+def operators(el_r, el_i, em_r, em_i, dot_mode: str, x_dtype):
+    """The stacked factors as ``csrc/dual_multi_apply.cu`` reads them
+    (``_tc.tc_operator`` of each stack, each the ``Op`` of its ``Op x tile``
+    product): El_t for the lane products on x stored as ``x_dtype`` (in
+    three tf32 parts where 3xTF32 meets 16-bit x), Em_t for the sublane
+    products on the f32 T."""
+    return (_tc.tc_operator(el_r, el_i, dot_mode, _tc.operator_parts(dot_mode, x_dtype)),
+            _tc.tc_operator(em_r, em_i, dot_mode))
 
 
 def check_terms(what: str, ops, T: int, shape) -> None:
@@ -121,22 +137,21 @@ def dual_multi_apply(xr, xi, el_r, el_i, em_r, em_i, *, conj: bool = False,
     out = _launch.output_planes("dual_multi_apply", xr, xi, acc, alias,
                                 out_dtype, _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("dual_multi_apply", ops, xr.device)
-    # the kernel reads the factors transposed, so that its tile loads coalesce
-    elt_r, elt_i, emt_r, emt_i = (o.transpose(1, 2).contiguous() for o in ops)
+    op_l, op_m = operators(*ops, dot_mode, xr.dtype)
     fn = _launch.entry("dual_multi_apply", "dqc_dual_multi_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
-              int(dot_mode == "bf16x3"),
-              elt_r.data_ptr(), elt_i.data_ptr(), emt_r.data_ptr(),
-              emt_i.data_ptr(), T, int(conj), int(acc is not None), xr.shape[0],
+              int(dot_mode == "bf16x3"), op_l.data_ptr(), op_m.data_ptr(),
+              int(op_l.shape[3] == 6), T, int(conj), int(acc is not None), xr.shape[0],
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "dual_multi_apply", "dual_multi_apply launch")
     dual_multi_apply.launches += 1
+    dual_multi_apply.mode_launches["tc"] += 1
     count_modes(dual_multi_apply, xr.dtype, out[0].dtype,
                 conj or acc is not None or not alias, dot_mode)
     return out
 
 
 dual_multi_apply.launches = 0
-dual_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0,
+dual_multi_apply.mode_launches = {"tc": 0, "seed": 0, "bf16": 0, "f16": 0,
                                   "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -11,14 +11,19 @@ element ``(i, x, m = p 128 + s, l)``. X is 8..128, or 256 / 512 on the
 merged top axis of a tiny top group (ops/planes._merged_view), there
 without a run, in place (a lone top-group block as ``E (x) I``, the
 unfactorized hpair's merged operator) or in the seed modes (the merged-top
-density seed). The Hopper kernel is ``csrc/high_apply.cu``: at X = 128,
-256 and 512 the tensor-core apply ``csrc/tc_apply.cuh`` (3xTF32 in the
-"f32" dot mode, three bf16 products in bf16x3; every storage and mode),
-counted also in ``mode_launches["tc"]``; at X = 8..64 its own CUDA-core
-kernel on f32 planes, the bf16 / f16 / bf16x3 variants there built as a
-library of their own, ``csrc/high_apply_fwd16.cu`` (bound by operations: X
-complex multiply-adds per amplitude against 16 bytes, 24 in the seed
-modes); :func:`high_apply_plain` is its plain PyTorch version.
+density seed). Every launch runs on the tensor cores and counts in
+``mode_launches["tc"]``: at X = 128, 256 and 512 ``csrc/tc_apply.cuh``
+(the C entry ``dqc_tc_apply`` of ``csrc/high_apply.cu``; bound by
+operations: about a 3.33 ms floor at X = 128 on 2^29 f32 amplitudes), at X
+= 8..64 ``csrc/high_apply_small.cu`` (``dqc_high_apply_small``, a library
+of its own: 2048-amplitude tiles streamed through a cp.async ring two tiles
+ahead, E pre-split in shared memory; bound by bytes: 2.56 ms in place on
+2^29 f32 amplitudes, X complex multiply-adds per amplitude in three tf32 or
+bf16 passes staying under it). E comes pre-split by :func:`_tc.tc_operator`
+in the dot mode ("f32" as 3xTF32, bf16x3 as three bf16 products; at X <=
+64 in three tf32 parts where 3xTF32 meets 16-bit x that no run multiplies
+first, X = 8 as diag(E, E)). :func:`high_apply_plain` is its plain PyTorch
+version.
 
 :func:`high_apply` returns its output planes like ``dual_apply``: the
 input planes (in place), the accumulator, or fresh planes on a CUDA
@@ -49,16 +54,11 @@ WIDE_X = (256, 512)   # the merged top axis: every mode but a diagonal run
 TC_X = (128, 256, 512)   # the tensor-core apply (csrc/tc_apply.cuh)
 
 
-def kernel_route(X: int, dtype, dot_mode: str) -> str:
-    """Which kernel a launch at X on input planes of ``dtype`` in
-    ``dot_mode`` reaches: "tc" (the tensor-core apply in the "high_apply"
-    library) at X >= 128, every storage and mode; below, "high_apply_fwd16"
-    for 16-bit planes or bf16x3, else "high_apply" (the CUDA-core kernel)."""
-    if X in TC_X:
-        return "tc"
-    if dtype != torch.float32 or dot_mode == "bf16x3":
-        return "high_apply_fwd16"
-    return "high_apply"
+def kernel_route(X: int) -> str:
+    """The library a launch at X reaches, every storage and dot mode on the
+    tensor cores: "high_apply" (``dqc_tc_apply``) at X >= 128,
+    "high_apply_small" (``dqc_high_apply_small``) below."""
+    return "high_apply" if X in TC_X else "high_apply_small"
 
 
 def view_diag_run(diag_tables: Sequence[torch.Tensor], shape) -> torch.Tensor:
@@ -93,8 +93,11 @@ def high_apply_plain(xr, xi, e_r, e_i,
     return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 8 + [
-    _launch.INT] * 5 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
+# dqc_high_apply_small: x, y, kinds, E pre-split, in three parts, the run's
+# tables, modes, A1, X, Q, stream
+_SMALL_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] + [
+    _launch.INT] + [_launch.VOIDP] * 6 + [_launch.INT] * 5 + [
+    _launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
 _TC_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 7 + [
     _launch.INT] * 5 + [_launch.LONG, _launch.INT, _launch.LONG, _launch.VOIDP]
 
@@ -132,7 +135,7 @@ def high_apply(xr, xi, e_r, e_i,
     ``out_dtype``: the storage of fresh output planes (``alias=False``);
     ``dot_mode``: the product's dot mode. The in-place sweep at X = 256 /
     512 is also counted in ``mode_launches["wide_inplace"]``, every launch
-    of the tensor-core apply (X >= 128) in ``mode_launches["tc"]``."""
+    (all on the tensor cores) in ``mode_launches["tc"]``."""
     if xr.dim() != 4 or xr.shape[-1] != 128 or xi.shape != xr.shape:
         raise ValueError(f"high_apply: planes must be (A1, X, M, 128), got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -161,25 +164,29 @@ def high_apply(xr, xi, e_r, e_i,
     if tuple(e_r.shape) != (X, X) or tuple(e_i.shape) != (X, X):
         raise ValueError(f"high_apply: operator must be ({X}, {X})")
     _launch.check_tables("high_apply", diag_tables, A1 * X * M // 128, xr.device)
-    route = kernel_route(X, xr.dtype, dot_mode)
-    if route == "tc":
+    route = kernel_route(X)
+    if route == "high_apply":
         launch_tc(xr, xi, *out, _tc.tc_operator(e_r, e_i, dot_mode), dot_mode,
                   diag_tables, diag_first, conj, acc is not None)
     else:
-        fn = (_launch.entry("high_apply_fwd16", "dqc_high_apply_fwd16", _ARGTYPES)
-              if route == "high_apply_fwd16"
-              else _launch.entry("high_apply", "dqc_high_apply", _ARGTYPES))
-        code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
-                  out[1].data_ptr(), _st.storage_kind(xr.dtype),
-                  _st.storage_kind(out[0].dtype), e_r.data_ptr(), e_i.data_ptr(),
-                  *_launch.table_ptrs(diag_tables), int(diag_tables is not None),
-                  int(diag_first), int(conj), int(acc is not None),
-                  int(dot_mode == "bf16x3"), A1, X, M * 128,
-                  _launch.stream(xr.device))
-        _launch.raise_on_error(code, "high_apply", "high_apply launch")
+        # the streamed kernel's cp.async copies and four-entry table reads
+        if any(p.data_ptr() % 16 for p in (xr, xi, *out)) or (
+                diag_tables is not None and any(t.data_ptr() % 16 for t in diag_tables)):
+            raise ValueError("high_apply: planes and diag tables must be 16-byte "
+                             "aligned below X = 128")
+        run_first = diag_tables is not None and diag_first
+        op = _tc.tc_operator(e_r, e_i, dot_mode, _tc.operator_parts(
+            dot_mode, torch.float32 if run_first else xr.dtype))
+        code = _launch.entry(route, "dqc_high_apply_small", _SMALL_ARGTYPES)(
+            xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype), op.data_ptr(),
+            int(op.shape[2] == 6), *_launch.table_ptrs(diag_tables),
+            int(diag_tables is not None), int(diag_first), int(conj),
+            int(acc is not None), int(dot_mode == "bf16x3"), A1, X, M * 128,
+            _launch.stream(xr.device))
+        _launch.raise_on_error(code, route, "high_apply launch")
     high_apply.launches += 1
-    if route == "tc":
-        high_apply.mode_launches["tc"] += 1
+    high_apply.mode_launches["tc"] += 1
     if X in WIDE_X and out[0] is xr:
         high_apply.mode_launches["wide_inplace"] += 1
     if seed:

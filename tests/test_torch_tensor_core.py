@@ -16,8 +16,9 @@ runs here; these tests hold what surrounds them:
   unit-variance planes and a random unitary stays within 1e-6 relative of
   float64 (the split's own error, ~2^-21: HIGH_TOL 1e-4 on planes and
   GRAM_T0_TOL 1e-5 on pair grams in chip_smoke.py hold unchanged);
-* the dispatch: which X, storages and dot modes reach the tensor-core
-  apply (``high_apply.kernel_route``), counted in
+* the dispatch: which library each X reaches (``high_apply.kernel_route``:
+  ``csrc/tc_apply.cuh`` at X >= 128, ``csrc/high_apply_small.cu`` below,
+  every storage and dot mode on the tensor cores), every launch counted in
   ``high_apply.mode_launches["tc"]`` by the wrapper itself on meta tensors
   (its library entry points replaced by recorders), and the launches of
   the cz and CNOT models' value_and_grad on the meta device.
@@ -172,13 +173,9 @@ def test_3xtf32_product_within_1e6_of_float64(X):
 
 def test_kernel_route_table():
     for X in (8, 16, 32, 64):
-        assert ha.kernel_route(X, F32, "f32") == "high_apply"
-        for dt, dot in ((F32, "bf16x3"), (BF16, "f32"), (F16, "f32"), (BF16, "bf16x3")):
-            assert ha.kernel_route(X, dt, dot) == "high_apply_fwd16"
+        assert ha.kernel_route(X) == "high_apply_small"
     for X in (128, 256, 512):
-        for dt in (F32, BF16, F16):
-            for dot in ("f32", "bf16x3"):
-                assert ha.kernel_route(X, dt, dot) == "tc"
+        assert ha.kernel_route(X) == "high_apply"
 
 
 @pytest.fixture
@@ -214,15 +211,13 @@ def test_high_apply_counts_the_tensor_core_route(meta_launches, dot):
             acc = torch.empty(x.shape, dtype=dt, device="meta")
             ha.high_apply(x, x, E, E, conj=True, acc=(acc, acc), alias=False,
                           dot_mode=dot)                                  # seed
-            want_tc += 2 * (X >= 128)
+            want_tc += 2
             fns = [fn for fn, _ in meta_launches[-2:]]
-            want = ("dqc_tc_apply" if X >= 128 else
-                    "dqc_high_apply" if dt == F32 and dot == "f32"
-                    else "dqc_high_apply_fwd16")
+            want = "dqc_tc_apply" if X >= 128 else "dqc_high_apply_small"
             assert fns == [want, want], (X, dt, dot, fns)
             kinds = meta_launches[-1][1][4:6]
             assert kinds == (st.storage_kind(dt), st.storage_kind(dt))
-    assert ha.high_apply.mode_launches["tc"] == want_tc == 18
+    assert ha.high_apply.mode_launches["tc"] == want_tc == 30
     assert ha.high_apply.launches == 30
 
 
@@ -263,7 +258,7 @@ def _model_high_applies(model, loss="magnetization"):
                 a = sig.bind(*args, **kw).arguments
                 X, dt = args[0].shape[1], args[0].dtype
                 dot = a.get("dot_mode", "f32")
-                calls.append((X, dt, dot, ha.kernel_route(X, dt, dot)))
+                calls.append((X, dt, dot, ha.kernel_route(X)))
             return plain(*args, **kw)
         return call
 
@@ -296,7 +291,7 @@ def test_models_reach_the_tensor_cores(restore_config, n, entangler, storage,
     calls = _model_high_applies(THEA(n, 2, entangler, device="meta"))
     assert calls
     for X, dt, d, route in calls:
-        assert (route == "tc") == (X >= 128), (X, dt, d, route)
+        assert route == ("high_apply" if X >= 128 else "high_apply_small"), (X, dt, d, route)
     wide = {X for X, *_ in calls if X >= 128}
     # n = 22 expanded: groups 2 and 3 are one merged axis of 256
     want = {21: {128}, 22: {256}, 23: {128, 512}, 17: set()}[n]
