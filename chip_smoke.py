@@ -189,7 +189,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 18. the tensor-core routes (3l, after phase 3): the high apply at every X
    (csrc/tc_apply.cuh at X = 128 / 256 / 512, csrc/high_apply_small.cu
    below, every storage and mode, counted as high_apply[tc]), the
-   multi-term dual apply (dual_multi_apply[tc]), the X = 256 / 512
+   multi-term applies (dual_multi_apply[tc], high_multi_apply[tc]: the
+   dual multi-term kernel at every X), the X = 256 / 512
    adjoint (its cross-Gram and its two updates on the tensor cores), the
    dual, lane and sublane adjoints
    and the high adjoint at X <= 128 (their one-pass step,
@@ -197,7 +198,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    storage, mode, run and Q, counted as block_backward_dual[tc],
    block_backward_lane[tc], block_backward_sublane[tc] and
    block_backward_high[tc]; the lane and sublane adjoints built in the
-   dual adjoint's library), the Gram at X >= 128 and the merged-top
+   dual adjoint's library), the Gram at every X and the merged-top
    adjoint (gram[tc], block_backward_merged_fact[tc]; its top factor's f32
    work on the CUDA cores at the FP32 rate), the dual apply and the
    merged-top apply (dual_apply[tc], merged_fact_apply[tc]; the merged top
@@ -232,7 +233,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    earlier phases with their tensor-core bounds in phase 3l; every launch of
    both counted high_apply[tc] / dual_multi_apply[tc] and held to the dry
    runs;
-21. a JSON line of the kernels and of the modes checked (their launches
+21. the high multi-term apply on the dual multi-term kernel and the Gram at
+   X = 8..64 on the tensor cores (3q, after 3p: csrc/dual_multi_apply.cu's
+   entry dqc_high_multi_apply, a tile of 128 / X consecutive m of one i,
+   the group product block-diagonal, X = 8 as diag(E, E); csrc/gram.cu's
+   dqc_gram_tc, one X x X patch a block streamed through a cp.async ring):
+   every variant their entries take (the high multi-term apply at X = 8,
+   16, 32, 64, 128 with T = 2 and 4 terms, x f32 / bf16 / f16, in place,
+   fresh and into an accumulator of each storage, both dot modes; the Gram
+   at X = 8, 16, 32, 64 on f32 and bf16 planes in both dot modes) against
+   their plain versions on small views; the f32 Gram at X = 8 and 64 timed
+   at 29q; the multi-term apply's other rows timed in the earlier phases
+   with their tensor-core bounds in phase 3l; every launch of both counted
+   high_multi_apply[tc] / gram[tc] and held to the dry runs;
+22. a JSON line of the kernels and of the modes checked (their launches
    counted per mode by the wrappers), the card's nvidia-smi
    name and power limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -549,6 +563,18 @@ def multi_apply_tc(amps: float, T: int, xdt="float32", dot="f32") -> list:
     return dual_apply_tc(amps * T, xdt, dot)
 
 
+def high_multi_tc(amps: float, X: int, T: int, xdt="float32", dot="f32") -> list:
+    """The tensor-core work of a high multi-term apply launch (the dual
+    multi-term kernel's entry dqc_high_multi_apply in
+    csrc/dual_multi_apply.cu): per term the lane product on x (stored
+    ``xdt``) as the dual apply's, 128 complex multiply-adds per amplitude,
+    and the group product on the f32 T, X (the function's; the kernel runs
+    16 at X = 8, as diag(E, E)), whatever zeros its factors hold."""
+    x3 = dot == "bf16x3"
+    return [tc_product(amps * T * 128, x3, xdt if x3 else "float32"),
+            tc_product(amps * T * X, x3, "float32")]
+
+
 def merged_apply_tc(amps: float, x_top: int, dot="f32") -> list:
     """The work of a merged-top apply launch (csrc/merged_fact_apply.cu):
     its low factor on the tensor cores on the f32 combinations of the top
@@ -558,8 +584,8 @@ def merged_apply_tc(amps: float, x_top: int, dot="f32") -> list:
 
 
 def gram_tc(amps: float, X: int, dt="float32", dot="f32") -> list:
-    """The tensor-core work of a Gram launch at X >= 128 (csrc/gram.cu's
-    dqc_gram_tc): the function's 2 X + 1 real multiply-adds per amplitude,
+    """The tensor-core work of a Gram launch (csrc/gram.cu's dqc_gram_tc, at
+    every X): the function's 2 X + 1 real multiply-adds per amplitude,
     three tf32 passes ("f32") or three bf16 passes (bf16x3) on f32 planes,
     one bf16 pass on bf16 planes (exact in both formats: the kernel runs
     them as bf16 products whatever the mode)."""
@@ -652,9 +678,8 @@ def call_modes(name: str, a) -> tuple:
         # both run on the tensor cores at every X, in every storage and mode
         return (in16 + wide + ("tc",) + (storage_modes(out) if seed else ())
                 + fwd_modes(a["xr"].dtype, a))
-    if name == "gram":  # the tensor-core Gram at X = 128 / 256 / 512
-        return ((("tc",) if a["xr"].shape[1] >= 128 else ())
-                + fwd_modes(a["xr"].dtype, a))
+    if name == "gram":  # the tensor-core Gram at every X
+        return ("tc",) + fwd_modes(a["xr"].dtype, a)
     if name == "merged_fact_apply":  # its low factor on the tensor cores
         return ("tc",) + fwd_modes(a["xr"].dtype, a)
     if name == "diag_sweep":
@@ -668,9 +693,8 @@ def call_modes(name: str, a) -> tuple:
         out = (acc[0].dtype if acc is not None else a["xr"].dtype if alias
                else a.get("out_dtype") or a["xr"].dtype)
         # a seed reads the forward planes; in place, bf16 planes count as
-        # "bf16" whichever pair they are; the dual one runs on the tensor cores
-        return ((("tc",) if name == "dual_multi_apply" else ())
-                + (("seed",) if seed else ()) + storage_modes(out)
+        # "bf16" whichever pair they are; both run on the tensor cores
+        return (("tc",) + (("seed",) if seed else ()) + storage_modes(out)
                 + fwd_modes(a["xr"].dtype if seed else None, a))
     return ()
 
@@ -760,16 +784,15 @@ def with_gram_modes(want: dict) -> dict:
     config.gram_kernel_dot_mode() is "bf16x3" (the default), and every
     launch of the dual, lane, sublane and merged-top adjoints in its "tc"
     mode (their one-pass step runs on the tensor cores in every mode), as
-    does every high adjoint launch, every Gram of these runs (X >= 128:
-    the 28q and 29q rings' Grams are all of groups of 7 bits or the merged
-    top) and every dual and merged-top apply (both on the tensor cores in
+    does every high adjoint launch, every Gram (at every X), every dual and
+    merged-top apply and every multi-term apply (all on the tensor cores in
     every storage and mode)."""
     from dqc_tpu_torch import config
     x3 = config.gram_kernel_dot_mode() == "bf16x3"
     for k in BWD_KERNELS:
         want[f"{k}[gram_bf16x3]"] = want.get(k, 0) if x3 else 0
     for k in (*TC_ADJOINTS, "block_backward_high", "block_backward_merged_fact", "gram",
-              "dual_apply", "merged_fact_apply"):
+              "dual_apply", "merged_fact_apply", "dual_multi_apply", "high_multi_apply"):
         want[f"{k}[tc]"] = want.get(k, 0)
     return want
 
@@ -1501,7 +1524,7 @@ def main() -> int:
               high_multi_apply_plain, ops, HIGH_TOL,
               flops=amps_n * (macs(*ops[:2]) + macs(*ops[2:])) * 8,
               bytes_moved=2 * st, library=high_multi_library(ops),
-              dense_flops=amps_n * (128 + 8) * T * 8)
+              dense_flops=amps_n * (128 + 8) * T * 8, tc=high_multi_tc(amps_n, 8, T))
         E, Einv = unitary(128), unitary(128)
         check_many("block_backward_sublane", f"{nq}q", (a_n, 128, 128), 4, 4,
                    lambda *p, E=E, Einv=Einv: block_backward_sublane(*p, *Einv, *E),
@@ -1639,7 +1662,8 @@ def main() -> int:
                        bytes_moved=(3 if acc else 2) * st, intact=2,
                        library=multi_seed_library("txy,iymk,tlk->ixml", ops[:2],
                                                   ops[2:], acc),
-                       dense_flops=amps_n * (128 + 8) * 4 * 8)
+                       dense_flops=amps_n * (128 + 8) * 4 * 8,
+                       tc=high_multi_tc(amps_n, 8, 4))
     M = hermitian4()
     for pos in ((13, 14), (20, 21), (27, 28)):
         kind, vshape, er, ei = pl.cross_span_operands(M.conj(), pos, N29, dev)
@@ -2079,7 +2103,7 @@ def main() -> int:
                       lambda br, bi, o=ops: high_multi_apply(br, bi, *o),
                       lambda br, bi, o=ops: high_multi_apply_plain(br, bi, *o),
                       dt, amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8, 0.0,
-                      2 * b_bytes(dt))
+                      2 * b_bytes(dt), tc=high_multi_tc(amps29, 8, 2, dt))
         kind, vshape, *ops = pl.cross_span_operands(M4.conj(), (0, N29 - 1), N29, dev)
         flops = amps29 * (macs(*ops[:2]) + macs(*ops[2:])) * 8
         check_reduced("high_multi_apply", f"29q_seed_T4_acc_{store}", vshape, 2, 2, 0, 2,
@@ -2087,14 +2111,16 @@ def main() -> int:
                           xr, xi, *o, conj=True, acc=(ar, ai), alias=False),
                       lambda xr, xi, ar, ai, o=ops: high_multi_apply_plain(
                           xr, xi, *o, conj=True, acc=(ar, ai)),
-                      dt, flops, 0.0, state29 + 2 * b_bytes(dt))
+                      dt, flops, 0.0, state29 + 2 * b_bytes(dt),
+                      tc=high_multi_tc(amps29, 8, 4))
         check_reduced("high_multi_apply", f"29q_seed_T4_fresh_{store}", vshape,
                       2, 0, 0, 2,
                       lambda xr, xi, o=ops, dt=dt: high_multi_apply(
                           xr, xi, *o, conj=True, alias=False, out_dtype=dt),
                       lambda xr, xi, o=ops, dt=dt: high_multi_apply_plain(
                           xr, xi, *o, conj=True, out_dtype=dt),
-                      dt, flops, 0.0, state29 + b_bytes(dt))
+                      dt, flops, 0.0, state29 + b_bytes(dt),
+                      tc=high_multi_tc(amps29, 8, 4))
         del ops
         torch.cuda.empty_cache()
     # the X = 8 span seed into f16 planes (the seed of a density across the
@@ -2511,7 +2537,8 @@ def main() -> int:
                 check_fwd16("gram", f"29q_X{X}_{tag}", gview, [(fdt, 2 ** -14.5)] * 2,
                             lambda xr, xi, d=dot: gram(xr, xi, dot_mode=d),
                             lambda xr, xi, d=dot: gram_plain(xr, xi, d),
-                            0, *fl, plane_bytes(fdt), lib(gram_library))
+                            0, *fl, plane_bytes(fdt), lib(gram_library),
+                            tc=gram_tc(amps29, X, fdt, dot))
             x3 = dict(bwd_mode="bf16x3", gram_mode="bf16x3", dot_mode=dot)
             f_un, b_un = cmac_flops(X, dot == "bf16x3")
             f_x, b_x = cmac_flops(2 * X, True)
@@ -2578,7 +2605,8 @@ def main() -> int:
                                                                      dot_mode=d),
                         1, f, b, 2 * plane_bytes(fdt), lib(library(ops)),
                         tc=(multi_apply_tc(amps29, ops[0].shape[0], fdt, dot)
-                            if name == "dual_multi_apply" else None))
+                            if name == "dual_multi_apply"
+                            else high_multi_tc(amps29, 8, ops[0].shape[0], fdt, dot)))
         if tag != "x3":
             M4 = hermitian4()
             kind, *dops = pl.cross_terms_operands(
@@ -2604,7 +2632,8 @@ def main() -> int:
                             1, f, b, plane_bytes(fdt) + 2 * plane_bytes(bdt),
                             lib(library), reuse=False,
                             tc=(multi_apply_tc(amps29, 4, fdt, dot)
-                                if name == "dual_multi_apply" else None))
+                                if name == "dual_multi_apply"
+                                else high_multi_tc(amps29, 8, 4, fdt, dot)))
         del dops, hops
         torch.cuda.empty_cache()
         # the sublane adjoint ("auto" transport and gram of the setting)
@@ -3092,6 +3121,64 @@ def main() -> int:
     gen.set_state(gen_state)
     torch.cuda.empty_cache()
 
+    # 3q. the high multi-term apply on the dual multi-term kernel and the
+    # Gram at X = 8..64 on the tensor cores (csrc/dual_multi_apply.cu's entry
+    # dqc_high_multi_apply, csrc/gram.cu's dqc_gram_tc): every variant their
+    # entries take against their plain versions on small views, without
+    # times (the rows of phases 3c, 3d, 3h and 3j time the multi-term apply
+    # at 29q, with their tensor-core bounds from phase 3l): the high
+    # multi-term apply at X = 8, 16, 32, 64 and 128 with T = 2 and 4 terms on
+    # views (2, X, 2 (128 / X), 128), x f32 / bf16 / f16, in place, fresh and
+    # into an accumulator (conj) of each storage it takes, in both dot modes
+    # (PERF.md's rows 9, 9s, 9f, 9v, 9x), planes within 3p's bars; the Gram at
+    # X = 8, 16, 32 and 64 on views (8, X, 8192) of f32 and bf16 planes in
+    # both dot modes (rows 5, 5v', 5x'), (S, C) within GRAM_T0_TOL of their
+    # largest entry (X3_GRAM_TOL in bf16x3 on f32 planes). Then the f32 Gram
+    # at X = 8 and 64 on views of 2^29 amplitudes (first timed here), beside
+    # its einsum.
+    log_time("3q")
+    gen_state = gen.get_state()  # every later row keeps its data
+    worst_fwd.update({"ulps": 0.0, "abs": 0.0})
+    n_hm = n_gs = 0
+    worst_gs = 0.0
+    for X in (8, 16, 32, 64, 128):
+        shape = (2, X, 2 * (128 // X), 128)
+        for T in (2, 4):
+            hops = (*(torch.stack(p) for p in zip(*[unitary(X) for _ in range(T)])),
+                    *(torch.stack(p) for p in zip(*[unitary(128) for _ in range(T)])))
+            for xdt in STORES16:
+                for dot in ("f32", "bf16x3"):
+                    for form, ydt in seed_forms(xdt):
+                        held_seed(f"high_multi_apply[X{X} T{T} {xdt} -> {ydt} {form} {dot}]",
+                                  high_multi_apply, high_multi_apply_plain, shape, xdt,
+                                  ydt, form, hops, dict(dot_mode=dot))
+                        n_hm += 1
+            del hops
+    for X in (8, 16, 32, 64):
+        for fdt in (F32, BF16):
+            for dot in ("f32", "bf16x3"):
+                xr, xi = (stc.store_as(randn(8, X, 8192), fdt) for _ in range(2))
+                want = gram_plain(xr, xi, dot)
+                got = gram_fn(xr, xi, dot_mode=dot)
+                torch.cuda.synchronize()
+                rel = max((g_ - w_).abs().max().item() / w_.abs().max().item()
+                          for g_, w_ in zip(got, want))
+                tol = X3_GRAM_TOL if (fdt, dot) == (F32, "bf16x3") else GRAM_T0_TOL
+                require(rel <= tol, f"gram[X{X} {fdt} {dot}] disagrees with its plain "
+                                    f"version: {rel:.3e} relative (tol {tol:.0e})")
+                worst_gs = max(worst_gs, rel)
+                n_gs += 1
+                del xr, xi, want, got
+    log(f"[3q] high_multi_apply: {n_hm} variants within their bars on views (2, X, "
+        f"2 (128 / X), 128), X = 8..128, T = 2, 4; worst {json.dumps(worst_fwd)}; gram: "
+        f"{n_gs} on views (8, X, 8192), X = 8..64, worst {worst_gs:.3e} relative")
+    for X in (8, 64):
+        check("gram", f"29q_X{X}_f32", (1, X, (1 << N29) // X), gram_fn, gram_plain, (),
+              GRAM_TOL, flops=amps29 * (2 * X + 1) * 2, bytes_moved=state29,
+              library=gram_library, normalize=True, tc=gram_tc(amps29, X))
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
+
     # 3l. the tensor-core routes: csrc/tc_apply.cuh (the high apply at X =
     # 128 / 256 / 512 in every mode and storage, the X = 256 / 512 adjoint's
     # two updates), the X = 256 / 512 cross-Gram and csrc/tc_adjoint.cuh
@@ -3109,7 +3196,8 @@ def main() -> int:
                                        "dual_apply_tc_kernel", "dual_load_slab",
                                        "dual_store_slab",
                                        "merged_fact_apply_tc_kernel", "merged_load_top",
-                                       "gram_tc_kernel", "block_backward_merged_fact_kernel",
+                                       "gram_tc_kernel", "gram_tc_small_kernel",
+                                       "block_backward_merged_fact_kernel",
                                        "merged_slice_gram", "merged_top_factor",
                                        "block_backward_dual_kernel",
                                        "block_backward_high_tc_kernel",
@@ -3123,10 +3211,10 @@ def main() -> int:
         for k in kernels_of:
             log(f"[tc] registers {lib_name}: {json.dumps(k)}")
     for r in rows:
-        if (r["kernel"] == "gram" and r["shape"][1] >= 128) or (
-                r["kernel"] in (*TC_ADJOINTS, "block_backward_high",
-                                "block_backward_merged_fact", "dual_apply",
-                                "merged_fact_apply", "high_apply", "dual_multi_apply")):
+        if r["kernel"] in (*TC_ADJOINTS, "block_backward_high", "gram",
+                           "block_backward_merged_fact", "dual_apply",
+                           "merged_fact_apply", "high_apply", "dual_multi_apply",
+                           "high_multi_apply"):
             require("tc_flops" in r, f"{r['kernel']}[{r['variant']}] runs on the "
                                      "tensor cores but states no tensor-core work")
             r["cuda_core_bound_ms"] = r["bound_ms"]
@@ -3991,12 +4079,11 @@ def main() -> int:
     want_fwd.update(Counter(k for k, _ in fwd_step))
     want_vg = dict.fromkeys(names, 0)
     want_vg.update(Counter(k for k, _ in vg_step))
-    # every high apply (the X = 8 span views too) and every multi-term dual
-    # apply runs on the tensor cores
+    # every high apply (the X = 8 span views too) runs on the tensor cores
     for want_, step_ in ((want_fwd, fwd_step), (want_vg, vg_step)):
-        for k in ("high_apply", "dual_multi_apply"):
-            want_[f"{k}[tc]"] = sum(k == kk for kk, _ in step_)
-    # so do the high adjoints, the X = 8 span views' too, and the Grams
+        want_["high_apply[tc]"] = sum(k == "high_apply" for k, _ in step_)
+    # so do the multi-term applies, the high adjoints, the X = 8 span
+    # views' too, and the Grams
     with_gram_modes(want_fwd)
     with_gram_modes(want_vg)
     log(f"[cnot29] per layer: forward {json.dumps(Counter(k for k, _ in fwd_items))}; "
@@ -5153,7 +5240,9 @@ def main() -> int:
         "dual_multi_apply": ("dqc_tpu_torch/csrc/dual_multi_apply.cu",
                              "dqc_tpu/ops/pallas/dual_apply.py:165",
                              "29q_T2_cnot"),
-        "high_multi_apply": ("dqc_tpu_torch/csrc/high_multi_apply.cu",
+        # the high multi-term apply is the dual multi-term kernel's entry
+        # dqc_high_multi_apply, built in its library
+        "high_multi_apply": ("dqc_tpu_torch/csrc/dual_multi_apply.cu",
                              "dqc_tpu/ops/pallas/high_apply.py:273",
                              "29q_T2_cnot"),
         # the lane and sublane adjoints are the dual kernel's lane and
@@ -5179,7 +5268,7 @@ def main() -> int:
             "dqc_tpu/ops/pallas/dual_apply.py:165 (conj/acc/alias=False)",
             "29q_seed_T4_acc", "_seed_"),
         "high_multi_apply[seed]": (
-            "dqc_tpu_torch/csrc/high_multi_apply.cu",
+            "dqc_tpu_torch/csrc/dual_multi_apply.cu",
             "dqc_tpu/ops/pallas/high_apply.py:273 (conj/acc/alias=False)",
             "29q_seed_T4_acc", "_seed_"),
         "block_backward_high[diag_q]": (
@@ -5196,6 +5285,10 @@ def main() -> int:
         "dual_multi_apply[tc]": (
             "dqc_tpu_torch/csrc/dual_multi_apply.cu",
             "dqc_tpu/ops/pallas/dual_apply.py:165 (every product, tensor cores)",
+            "29q_T2_cnot", "29q_T"),
+        "high_multi_apply[tc]": (
+            "dqc_tpu_torch/csrc/dual_multi_apply.cu",
+            "dqc_tpu/ops/pallas/high_apply.py:273 (every product, tensor cores)",
             "29q_T2_cnot", "29q_T"),
         "high_apply[wide_inplace]": (
             "dqc_tpu_torch/csrc/tc_apply.cuh",
@@ -5223,7 +5316,7 @@ def main() -> int:
             "tensor cores)", "29q_X128_plain", "X128_"),
         "gram[tc]": (
             "dqc_tpu_torch/csrc/gram.cu",
-            "dqc_tpu/ops/pallas/gram.py:58,97,134 (X = 128 / 256 / 512, tensor cores)",
+            "dqc_tpu/ops/pallas/gram.py:58,97,134 (every X, tensor cores)",
             "29q_lane", "29q_"),
         "block_backward_merged_fact[tc]": (
             "dqc_tpu_torch/csrc/block_backward_merged_fact.cu",
@@ -5242,6 +5335,7 @@ def main() -> int:
                  "high_apply[wide_inplace]": hp29, "block_backward_high[wide]": hp29,
                  "high_apply[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "dual_multi_apply[tc]": {"counts": countsc, "counts_fwd": fwdc},
+                 "high_multi_apply[tc]": {"counts": countsc, "counts_fwd": fwdc},
                  "block_backward_dual[tc]": {"counts": counts29, "counts_fwd": fwd29},
                  "block_backward_lane[tc]": t29,
                  "block_backward_sublane[tc]": {"counts": countsc, "counts_fwd": fwdc},
@@ -5360,7 +5454,7 @@ def main() -> int:
     ha = "dqc_tpu/ops/pallas/high_apply.py:273"
     for name, src, line, counts16, countsb in (
             ("dual_multi_apply", "dqc_tpu_torch/csrc/dual_multi_apply.cu", da, c16, cmix),
-            ("high_multi_apply", "dqc_tpu_torch/csrc/high_multi_apply.cu", ha, c16, cmix)):
+            ("high_multi_apply", "dqc_tpu_torch/csrc/dual_multi_apply.cu", ha, c16, cmix)):
         variants[f"{name}[f16]"] = (src, f"{line} (u16 planes)", "29q_T2_cnot_f16",
                                     ("float16",), counts16)
         variants[f"{name}[bf16]"] = (src, f"{line} (bf16 planes)", "29q_T2_cnot_bf16",
@@ -5469,7 +5563,7 @@ def main() -> int:
          "dual_multi_apply", "dual_multi_apply.cu", "29q_T2_cnot", every,
          c29b["dual_multi_apply[bf16]"], c29x["dual_multi_apply[fwd_bf16x3]"]),
         (("high_multi_apply[bf16 storage]", "high_multi_apply[fwd_bf16x3]"),
-         "high_multi_apply", ("high_multi_apply.cu", "high_multi_apply_x3.cu"),
+         "high_multi_apply", "dual_multi_apply.cu",
          "29q_T2_cnot", every,
          c29b["high_multi_apply[bf16]"], c29x["high_multi_apply[fwd_bf16x3]"]),
         (("block_backward_sublane[fwd_bf16]", "block_backward_sublane[fwd_bf16x3]"),

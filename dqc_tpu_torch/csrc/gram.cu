@@ -34,19 +34,14 @@
 // P + P^T: the result does not depend on scheduling, and no f32 sum runs
 // over more than a few hundred terms of its own size.
 //
-// X = 8..64 run on the CUDA cores (f32 FMA): each block sums its share of
-// the columns into registers (each of 512 threads owns a patch of (x, y)
-// pairs, or one pair and a slice of the columns for X <= 16), writes one
-// partial (S, C), and a second kernel adds the partials in a fixed order.
-// Columns stream through shared memory in tiles of 4096 / X columns, stored
-// [column][x] with a padded row. A thread's sums run in two levels:
-// registers over a chunk of four tiles, then a running sum in shared memory
-// (each thread its own entries). There the planes may be stored as bf16
-// (XKIND, decoded as the tile is read) and the products may run bf16x3 (X3:
-// each value split as it is read from the tile, rows into hi and lo,
-// columns into hi and hi + lo, two FMAs per real product). On bf16 planes
-// the split of every value has a zero lo part, so bf16x3 and f32 give the
-// same sums and such a call runs the f32 products.
+// X = 8, 16, 32 and 64 run on the tensor cores too, one X x X patch a
+// block: 8 warps, each a 32 x 32 block of the patch (16 x 16 at X = 16, 16 x
+// 8 at X = 8, whose A fragments take 8 zero rows) over its share of each
+// 128-column tile (64 at X = 64), the warps of one block of the patch
+// splitting the tile's columns (8 ways, 2 at X = 64), each such k-group
+// with its own partial slot. These views are bound by bytes (2 X + 1
+// multiply-adds against 8 bytes; 4 on bf16 planes): the tiles stream
+// through a three-stage cp.async ring, 16-byte copies, two blocks an SM.
 
 #include <type_traits>
 
@@ -54,232 +49,6 @@
 #include "mma.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;
-constexpr int kChunkTiles = 4;   // tiles summed in registers before a flush
-
-template <int X>
-struct GramCfg {
-  static constexpr int RX = X >= 64 ? 4 : X >= 32 ? 2 : 1;
-  static constexpr int RY = X >= 64 ? 2 : 1;
-  static constexpr int TR = X / RX;                 // row threads
-  static constexpr int TC = X / RY;                 // column threads
-  static constexpr int G = kThreads / (TR * TC);    // column groups
-  static constexpr int CB = 4096 / X;               // columns per tile
-  static constexpr int LD = X + 1;                  // padded tile row
-  static constexpr int kTileBytes = 2 * CB * LD * sizeof(float);
-  static constexpr int kRunBytes = 2 * RX * RY * kThreads * sizeof(float);
-  static constexpr int kSmemBytes = kTileBytes + kRunBytes;
-};
-
-// run[(2 (i RY + j) + {0: S, 1: C}) kThreads + thread]: this thread's running
-// (S, C) in shared memory. add_chunk adds the register chunk in and clears it.
-template <int RX, int RY>
-__device__ __forceinline__ void add_chunk(float (&S)[RX][RY], float (&Cc)[RX][RY],
-                                          float* run) {
-#pragma unroll
-  for (int i = 0; i < RX; ++i)
-#pragma unroll
-    for (int j = 0; j < RY; ++j) {
-      float* a = run + 2 * (i * RY + j) * kThreads + threadIdx.x;
-      a[0] += S[i][j];
-      a[kThreads] += Cc[i][j];
-      S[i][j] = Cc[i][j] = 0.f;
-    }
-}
-
-template <int RX, int RY>
-__device__ __forceinline__ void clear_run(float* run) {
-#pragma unroll
-  for (int k = 0; k < 2 * RX * RY; ++k) run[k * kThreads + threadIdx.x] = 0.f;
-}
-
-// The registers <- the running sums (after the last add_chunk).
-template <int RX, int RY>
-__device__ __forceinline__ void read_run(const float* run, float (&S)[RX][RY],
-                                         float (&Cc)[RX][RY]) {
-#pragma unroll
-  for (int i = 0; i < RX; ++i)
-#pragma unroll
-    for (int j = 0; j < RY; ++j) {
-      const float* a = run + 2 * (i * RY + j) * kThreads + threadIdx.x;
-      S[i][j] = a[0];
-      Cc[i][j] = a[kThreads];
-    }
-}
-
-// S += ar br + ai bi, C += ar bi over a thread's (rows, columns) patch of
-// one tile column; X3 in bf16x3.
-template <int RX, int RY, bool X3>
-__device__ __forceinline__ void gram_products(const float (&ar)[RX],
-                                              const float (&ai)[RX],
-                                              const float (&br)[RY],
-                                              const float (&bi)[RY],
-                                              float (&S)[RX][RY],
-                                              float (&Cc)[RX][RY]) {
-  if constexpr (X3) {
-    float brh[RY], brs[RY], bih[RY], bis[RY];
-#pragma unroll
-    for (int j = 0; j < RY; ++j) {
-      dqc::split_hs(br[j], brh[j], brs[j]);
-      dqc::split_hs(bi[j], bih[j], bis[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RX; ++i) {
-      float arh, arl, aih, ail;
-      dqc::split_hl(ar[i], arh, arl);
-      dqc::split_hl(ai[i], aih, ail);
-#pragma unroll
-      for (int j = 0; j < RY; ++j) {
-        S[i][j] = fmaf(arh, brs[j], S[i][j]);
-        S[i][j] = fmaf(arl, brh[j], S[i][j]);
-        S[i][j] = fmaf(aih, bis[j], S[i][j]);
-        S[i][j] = fmaf(ail, bih[j], S[i][j]);
-        Cc[i][j] = fmaf(arh, bis[j], Cc[i][j]);
-        Cc[i][j] = fmaf(arl, bih[j], Cc[i][j]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < RX; ++i)
-#pragma unroll
-      for (int j = 0; j < RY; ++j) {
-        S[i][j] = fmaf(ar[i], br[j], S[i][j]);
-        S[i][j] = fmaf(ai[i], bi[j], S[i][j]);
-        Cc[i][j] = fmaf(ar[i], bi[j], Cc[i][j]);
-      }
-  }
-}
-
-template <int X, int XKIND, bool X3>
-__global__ void __launch_bounds__(kThreads, 1)
-gram_partial_kernel(const void* __restrict__ xr, const void* __restrict__ xi,
-                    float* __restrict__ part, int64_t Q, int64_t ntiles) {
-  using Cfg = GramCfg<X>;
-  constexpr int RX = Cfg::RX, RY = Cfg::RY, TC = Cfg::TC, G = Cfg::G;
-  constexpr int CB = Cfg::CB, LD = Cfg::LD;
-  constexpr int kPairThreads = Cfg::TR * TC;
-  extern __shared__ float smem[];
-  float* tr = smem;            // tile [c][x]
-  float* ti = tr + CB * LD;
-  float* run = ti + CB * LD;   // running sums
-
-  const int tid = threadIdx.x;
-  const int grp = tid / kPairThreads;
-  const int t = tid % kPairThreads;
-  const int rx = (t / TC) * RX;   // rows rx + i
-  const int cy = t % TC;          // columns cy + TC * j
-
-  float S[RX][RY], Cc[RX][RY];
-#pragma unroll
-  for (int i = 0; i < RX; ++i)
-#pragma unroll
-    for (int j = 0; j < RY; ++j) S[i][j] = Cc[i][j] = 0.f;
-  clear_run<RX, RY>(run);
-
-  int chunk = 0;
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t g0 = tile * CB;
-    __syncthreads();  // the previous tile is consumed
-    if (Q == 1) {
-      // lane view: a tile is CB * X contiguous floats, x fastest
-      const int64_t b0 = g0 * X;
-      for (int e = tid; e < CB * X; e += kThreads) {
-        const int c = e / X, x = e % X;
-        tr[c * LD + x] = dqc::load_plane(xr, b0 + e, XKIND);
-        ti[c * LD + x] = dqc::load_plane(xi, b0 + e, XKIND);
-      }
-    } else {
-      // CB divides Q: a tile's columns share p and are contiguous per x
-      const int64_t p = g0 / Q, q0 = g0 - p * Q;
-      const int64_t b0 = p * X * Q + q0;
-      for (int e = tid; e < CB * X; e += kThreads) {
-        const int x = e / CB, c = e % CB;
-        tr[c * LD + x] = dqc::load_plane(xr, b0 + x * Q + c, XKIND);
-        ti[c * LD + x] = dqc::load_plane(xi, b0 + x * Q + c, XKIND);
-      }
-    }
-    __syncthreads();
-    for (int c = grp; c < CB; c += G) {
-      float ar[RX], ai[RX], br[RY], bi[RY];
-#pragma unroll
-      for (int i = 0; i < RX; ++i) {
-        ar[i] = tr[c * LD + rx + i];
-        ai[i] = ti[c * LD + rx + i];
-      }
-#pragma unroll
-      for (int j = 0; j < RY; ++j) {
-        br[j] = tr[c * LD + cy + TC * j];
-        bi[j] = ti[c * LD + cy + TC * j];
-      }
-      gram_products<RX, RY, X3>(ar, ai, br, bi, S, Cc);
-    }
-    if (++chunk == kChunkTiles) {
-      add_chunk<RX, RY>(S, Cc, run);
-      chunk = 0;
-    }
-  }
-  add_chunk<RX, RY>(S, Cc, run);
-  read_run<RX, RY>(run, S, Cc);
-
-  // this block's partial (S, C) at part[block][0 / 1][x][y]
-  float* out = part + (int64_t)blockIdx.x * 2 * X * X;
-  if (G == 1) {
-#pragma unroll
-    for (int i = 0; i < RX; ++i)
-#pragma unroll
-      for (int j = 0; j < RY; ++j) {
-        out[(rx + i) * X + cy + TC * j] = S[i][j];
-        out[X * X + (rx + i) * X + cy + TC * j] = Cc[i][j];
-      }
-  } else {
-    // X <= 16: one pair per thread; add the column groups in a fixed order
-    __syncthreads();  // the tile buffer is free
-    smem[tid] = S[0][0];
-    smem[kThreads + tid] = Cc[0][0];
-    __syncthreads();
-    if (grp == 0) {
-      float s = 0.f, cc = 0.f;
-      for (int g = 0; g < G; ++g) {
-        s += smem[g * kPairThreads + t];
-        cc += smem[kThreads + g * kPairThreads + t];
-      }
-      out[rx * X + cy] = s;
-      out[X * X + rx * X + cy] = cc;
-    }
-  }
-}
-
-// out[e] = sum over blocks of part[b][e], e < 2 X X, in block order.
-__global__ void gram_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int nblk, int n2) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n2) return;
-  float acc = 0.f;
-  for (int b = 0; b < nblk; ++b) acc += part[(int64_t)b * n2 + e];
-  out[e] = acc;
-}
-
-template <int X, int XKIND = dqc::kStoreF32, bool X3 = false>
-int launch(const void* xr, const void* xi, float* part, float* out,
-           long long P, long long Q, int nblk, cudaStream_t stream) {
-  using Cfg = GramCfg<X>;
-  const long long cols = P * Q;
-  if (cols % Cfg::CB != 0 || (Q != 1 && Q % Cfg::CB != 0) || nblk <= 0)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = gram_partial_kernel<X, XKIND, X3>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<nblk, kThreads, Cfg::kSmemBytes, stream>>>(
-      xr, xi, part, (int64_t)Q, (int64_t)(cols / Cfg::CB));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n2 = 2 * X * X;
-  gram_reduce_kernel<<<(n2 + 255) / 256, 256, 0, stream>>>(part, out, nblk, n2);
-  return (int)cudaGetLastError();
-}
-
 
 // --- X = 128, 256 and 512 on the tensor cores --------------------------------
 
@@ -390,41 +159,41 @@ __device__ __forceinline__ uint32_t halved(uint32_t v) {
 // (with EXACT the lo parts are zero: their passes are skipped), summed from
 // zero, the small passes first, and added to the accumulators rounded to
 // nearest. P(bx, by) + P(by, bx)^T is xr xr^T + xi xi^T in three passes.
-template <int MODE, bool EXACT>
-__device__ __forceinline__ void tcg_kstep(float (&accS)[2][4],
-                                          float (&accC)[2][4],
-                                          const CFrag<4> (&a)[2],
+template <int MODE, bool EXACT, int M = 2>
+__device__ __forceinline__ void tcg_kstep(float (&accS)[M][4],
+                                          float (&accC)[M][4],
+                                          const CFrag<4> (&a)[M],
                                           const CFrag<2>& b) {
   using dqc::mma_op;
   using dqc::mma_op0;
-  float tS[2][4], tC[2][4];
+  float tS[M][4], tC[M][4];
   if constexpr (!EXACT) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < M; ++m) {
       mma_op0<MODE>(tS[m], a[m].rh, b.rl[0], b.rl[1]);
       mma_op0<MODE>(tC[m], a[m].rl, b.ih[0], b.ih[1]);
     }
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < M; ++m) {
       mma_op<MODE>(tS[m], a[m].il, b.ih[0], b.ih[1]);
       mma_op<MODE>(tC[m], a[m].rh, b.il[0], b.il[1]);
     }
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < M; ++m) {
       mma_op<MODE>(tS[m], a[m].rh, b.rh[0], b.rh[1]);
       mma_op<MODE>(tC[m], a[m].rh, b.ih[0], b.ih[1]);
     }
   } else {
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < M; ++m) {
       mma_op0<MODE>(tS[m], a[m].rh, b.rh[0], b.rh[1]);
       mma_op0<MODE>(tC[m], a[m].rh, b.ih[0], b.ih[1]);
     }
   }
 #pragma unroll
-  for (int m = 0; m < 2; ++m) mma_op<MODE>(tS[m], a[m].ih, b.ih[0], b.ih[1]);
+  for (int m = 0; m < M; ++m) mma_op<MODE>(tS[m], a[m].ih, b.ih[0], b.ih[1]);
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       accS[m][e] += tS[m][e];
@@ -600,52 +369,197 @@ int launch_tc(const void* xr, const void* xi, float* part, float* tot,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// --- X = 8, 16, 32 and 64 on the tensor cores ------------------------------
 
-// (S, C) of the view (P, X, Q), X in {8, 16, 32, 64}, into out[0] = S,
-// out[1] = C (each X x X). part is scratch of nblk * 2 * X * X floats and
-// nblk the number of partial-sum blocks (at most the number of tiles,
-// P Q X / 4096). The planes are stored as kind (0 f32, 1 bf16) and x3 runs
-// the products bf16x3. Returns cudaGetLastError().
-extern "C" int dqc_gram(const void* xr, const void* xi, float* part,
-                        float* out, long long P, int X, long long Q, int nblk,
-                        int kind, int x3, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  constexpr int B = dqc::kStoreBF16;
-  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
-  if (kind == B || x3) {
-    // bf16 values split with a zero lo part: bf16x3 is the f32 product there
-    const bool split = kind != B;
-    switch (X) {
-#define DQC_GRAM_FWD16(XX)                                                    \
-  case XX:                                                                    \
-    return split ? launch<XX, dqc::kStoreF32, true>(xr, xi, part, out, P, Q,  \
-                                                    nblk, s)                  \
-                 : launch<XX, B, false>(xr, xi, part, out, P, Q, nblk, s);
-      DQC_GRAM_FWD16(8)
-      DQC_GRAM_FWD16(16)
-      DQC_GRAM_FWD16(32)
-      DQC_GRAM_FWD16(64)
-#undef DQC_GRAM_FWD16
-      default: return (int)cudaErrorInvalidValue;
+constexpr int kSmStages = 3;    // the cp.async ring
+constexpr int kSmFlush = 8;     // tiles summed in registers before a flush
+
+// The tiles of one launch at X <= 64: planes stored as KIND (bf16 kept bf16
+// in shared memory), products split for MODE. A stage holds xr and xi of
+// the X rows of CB columns, [x][k], padded so that every fragment read meets
+// 32 banks; at X = 8 each array has 16 rows, the last 8 zero (the A
+// fragments' rows 8..15). Warps: TILES blocks of the patch, WM x WN each,
+// times KG k-groups, each KC columns of a tile a k-group.
+template <int KIND, int MODE, int X>
+struct SmallGram {
+  using T = std::conditional_t<KIND == dqc::kStoreF32, float, uint16_t>;
+  static constexpr bool kLane = false;
+  static constexpr int ES = (int)sizeof(T);
+  static constexpr int KS = MODE == kTf32x3 ? 8 : 16;
+  static constexpr int XR = X < 16 ? 16 : X;          // rows of an array
+  static constexpr int CB = X < 64 ? 128 : 64;         // columns a tile
+  static constexpr int LD = CB + (KIND == dqc::kStoreF32 && MODE == kTf32x3 ? 4 : 8);
+  static constexpr int kArr = XR * LD;
+  static constexpr int kChunksRow = CB * ES / 16;
+  static constexpr int kStageBytes = 2 * kArr * ES;
+  static constexpr int kSmemBytes = kSmStages * kStageBytes;
+  static constexpr int WM = XR < 32 ? XR : 32, WN = X < 32 ? X : 32;
+  static constexpr int MW = WM / 16, NW = WN / 8;      // m- and n-tiles a warp
+  static constexpr int TC = X / WN, TILES = (XR / WM) * TC;
+  static constexpr int KG = 8 / TILES;                 // k-groups
+  static constexpr int KC = CB / KG;                   // their columns a tile
+  static_assert((LD * ES) % 16 == 0 && KC % KS == 0 && TILES * KG == 8,
+                "aligned rows, whole k-steps, 8 warps");
+  static_assert(kSmemBytes <= 232448 / 2, "two blocks an SM");
+  static __device__ __forceinline__ int at(int x, int k) { return x * LD + k; }
+};
+
+// Block b adds its share of the CB-column tiles tile = b, b + gridDim.x,
+// ... of the view (P, X, Q) into the partial slots part[b KG + k-group]
+// [0 / 1][x][y] of P and C (one writer an entry, flushed every kSmFlush
+// tiles); warp w forms block w % TILES of the patch over k-group w / TILES
+// of each tile's columns.
+template <int X, int KIND, int MODE>
+__global__ void __launch_bounds__(kTcThreads, 2)
+gram_tc_small_kernel(const void* __restrict__ xr, const void* __restrict__ xi,
+                     float* __restrict__ part, int64_t Q, int64_t ntiles) {
+  using G = SmallGram<KIND, MODE, X>;
+  using T = typename G::T;
+  constexpr int ELEMS = 16 / G::ES;
+  extern __shared__ float4 gram_smem4[];
+  char* smem = reinterpret_cast<char*>(gram_smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile_of = warp % G::TILES, kg = warp / G::TILES;
+  const int row0 = (tile_of / G::TC) * G::WM, col0 = (tile_of % G::TC) * G::WN;
+
+  if constexpr (X < 16) {  // the zero rows, never copied over
+    for (int e = threadIdx.x; e < kSmStages * 2 * 8 * G::LD; e += kTcThreads) {
+      const int a = e / (8 * G::LD), o = e % (8 * G::LD);
+      reinterpret_cast<T*>(smem + (a / 2) * G::kStageBytes)[(a % 2) * G::kArr + 8 * G::LD + o] = T(0);
     }
   }
-  switch (X) {
-    case 8: return launch<8>(xr, xi, part, out, P, Q, nblk, s);
-    case 16: return launch<16>(xr, xi, part, out, P, Q, nblk, s);
-    case 32: return launch<32>(xr, xi, part, out, P, Q, nblk, s);
-    case 64: return launch<64>(xr, xi, part, out, P, Q, nblk, s);
-    default: return (int)cudaErrorInvalidValue;
+  auto fetch = [&](int64_t tile, char* stage) {
+    const int64_t g0 = tile * G::CB, p = g0 / Q;
+    const int64_t base = p * X * Q + (g0 - p * Q);
+#pragma unroll 4
+    for (int c = threadIdx.x; c < 2 * X * G::kChunksRow; c += kTcThreads) {
+      const int arr = c / (X * G::kChunksRow);
+      const int x = (c / G::kChunksRow) % X, piece = c % G::kChunksRow;
+      const T* src = static_cast<const T*>(arr ? xi : xr) + base + (int64_t)x * Q +
+                     piece * ELEMS;
+      dqc::cp_async16(stage + (arr * G::kArr + x * G::LD + piece * ELEMS) * G::ES, src);
+    }
+  };
+
+  float accS[G::NW][G::MW][4], accC[G::NW][G::MW][4];
+#pragma unroll
+  for (int n = 0; n < G::NW; ++n)
+#pragma unroll
+    for (int m = 0; m < G::MW; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accS[n][m][e] = accC[n][m][e] = 0.f;
+  float* out = part + ((int64_t)blockIdx.x * G::KG + kg) * 2 * X * X;
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int m = 0; m < G::MW; ++m)
+#pragma unroll
+      for (int n = 0; n < G::NW; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = row0 + 16 * m + g + 8 * h, y = col0 + 8 * n + 2 * t;
+          if (X < 16 && x >= X) continue;
+          float2* ps = reinterpret_cast<float2*>(out + x * X + y);
+          float2* pc = reinterpret_cast<float2*>(out + X * X + x * X + y);
+          float2 vs = make_float2(accS[n][m][2 * h], accS[n][m][2 * h + 1]);
+          float2 vc = make_float2(accC[n][m][2 * h], accC[n][m][2 * h + 1]);
+          if (!first) {
+            const float2 os = *ps, oc = *pc;
+            vs.x += os.x;
+            vs.y += os.y;
+            vc.x += oc.x;
+            vc.y += oc.y;
+          }
+          *ps = vs;
+          *pc = vc;
+        }
+#pragma unroll
+    for (int n = 0; n < G::NW; ++n)
+#pragma unroll
+      for (int m = 0; m < G::MW; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accS[n][m][e] = accC[n][m][e] = 0.f;
+  };
+
+  const int64_t nt = blockIdx.x < ntiles ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+#pragma unroll
+  for (int s = 0; s < kSmStages - 1; ++s) {
+    if (s < nt) fetch(blockIdx.x + s * (int64_t)gridDim.x, smem + s * G::kStageBytes);
+    dqc::cp_async_commit();
   }
+  bool first = true;
+  int64_t k = 0;
+  for (; k < nt; ++k) {
+    dqc::cp_async_wait<kSmStages - 2>();
+    __syncthreads();  // tile k is staged and seen; tile k - 1's stage is free
+    if (k + kSmStages - 1 < nt)
+      fetch(blockIdx.x + (k + kSmStages - 1) * gridDim.x,
+            smem + ((k + kSmStages - 1) % kSmStages) * G::kStageBytes);
+    dqc::cp_async_commit();
+    const T* sr = reinterpret_cast<const T*>(smem + (k % kSmStages) * G::kStageBytes);
+    const T* si = sr + G::kArr;
+#pragma unroll
+    for (int ks = 0; ks < G::KC; ks += G::KS) {
+      const int k0 = kg * G::KC + ks;
+      CFrag<4> a[G::MW];
+#pragma unroll
+      for (int m = 0; m < G::MW; ++m) {
+        tcg_frag_a<G>(sr, si, row0 + 16 * m, k0, a[m]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[m].ih[r] = halved<MODE>(a[m].ih[r]);
+      }
+#pragma unroll
+      for (int n = 0; n < G::NW; ++n) {
+        CFrag<2> b;
+        tcg_frag_b<G>(sr, si, col0 + 8 * n, k0, b);
+        b.rh[0] = halved<MODE>(b.rh[0]);
+        b.rh[1] = halved<MODE>(b.rh[1]);
+        tcg_kstep<MODE, KIND != dqc::kStoreF32, G::MW>(accS[n], accC[n], a, b);
+      }
+    }
+    if ((k + 1) % kSmFlush == 0) {
+      flush(first);
+      first = false;
+    }
+  }
+  dqc::cp_async_wait<0>();
+  if (k % kSmFlush != 0 || first) flush(first);
 }
 
-// (S, C) of the view (P, X, Q), X in {128, 256, 512}, on the tensor cores,
-// into out[0] = S, out[1] = C. part is scratch of nblk * 2 * X * X floats
-// (every entry written) and tot of 2 * X * X; nblk is the number of column
-// groups (at most 65535 and the number of 32-column tiles, P Q / 32). Q is 1
-// (the lane view, X = 128 only) or a multiple of 32. The planes are stored
-// as kind (0 f32, 1 bf16: one bf16 pass whatever the mode); on f32 planes
-// x3 runs the products bf16x3, else 3xTF32. Returns cudaGetLastError().
+template <int X, int KIND, int MODE>
+int launch_tc_small(const void* xr, const void* xi, float* part, float* tot,
+                    float* out, long long P, long long Q, int nblk,
+                    cudaStream_t stream) {
+  using G = SmallGram<KIND, MODE, X>;
+  const long long cols = P * Q, ntiles = cols / G::CB;
+  if (Q % G::CB != 0 || nblk <= 0 || nblk > 65535 || nblk > ntiles)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gram_tc_small_kernel<X, KIND, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nblk, kTcThreads, G::kSmemBytes, stream>>>(xr, xi, part, (int64_t)Q,
+                                                       (int64_t)ntiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int code = dqc::launch_reduce(part, tot, (int64_t)nblk * G::KG, 2 * X * X, stream);
+  if (code != 0) return code;
+  gram_sym_kernel<<<(X * X + 255) / 256, 256, 0, stream>>>(tot, out, X);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// (S, C) of the view (P, X, Q), X in {8, 16, 32, 64, 128, 256, 512}, on the
+// tensor cores, into out[0] = S, out[1] = C. tot is scratch of 2 * X * X
+// floats and part of nslots * 2 * X * X (every entry written): at X >= 128
+// nslots = nblk, the column groups (at most 65535 and the number of
+// 32-column tiles, P Q / 32), with Q 1 (the lane view, X = 128 only) or a
+// multiple of 32; below, nblk blocks (at most the number of tiles, P Q /
+// 128, P Q / 64 at X = 64) of 8 slots each, 2 at X = 64, with Q a multiple
+// of 128. The planes are stored as kind (0 f32, 1 bf16: one bf16 pass
+// whatever the mode); on f32 planes x3 runs the products bf16x3, else
+// 3xTF32. Returns cudaGetLastError().
 extern "C" int dqc_gram_tc(const void* xr, const void* xi, float* part,
                            float* tot, float* out, long long P, int X,
                            long long Q, int nblk, int kind, int x3,
@@ -655,7 +569,6 @@ extern "C" int dqc_gram_tc(const void* xr, const void* xi, float* part,
   constexpr int F = dqc::kStoreF32, B = dqc::kStoreBF16;
   if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
   const bool lane = Q == 1;
-  if (lane && X != 128) return (int)cudaErrorInvalidValue;
   // 0: f32 planes in 3xTF32, 1: f32 planes in bf16x3, 2: bf16 planes
   const int k = kind == B ? 2 : x3 ? 1 : 0;
   using Fn = int (*)(const void*, const void*, float*, float*, float*,
@@ -669,6 +582,18 @@ extern "C" int dqc_gram_tc(const void* xr, const void* xi, float* part,
        launch_tc<2, B, kBf16x3, false>},
       {launch_tc<4, F, kTf32x3, false>, launch_tc<4, F, kBf16x3, false>,
        launch_tc<4, B, kBf16x3, false>}};
+  static const Fn small[4][3] = {
+      {launch_tc_small<8, F, kTf32x3>, launch_tc_small<8, F, kBf16x3>,
+       launch_tc_small<8, B, kBf16x3>},
+      {launch_tc_small<16, F, kTf32x3>, launch_tc_small<16, F, kBf16x3>,
+       launch_tc_small<16, B, kBf16x3>},
+      {launch_tc_small<32, F, kTf32x3>, launch_tc_small<32, F, kBf16x3>,
+       launch_tc_small<32, B, kBf16x3>},
+      {launch_tc_small<64, F, kTf32x3>, launch_tc_small<64, F, kBf16x3>,
+       launch_tc_small<64, B, kBf16x3>}};
+  const int w = X == 8 ? 0 : X == 16 ? 1 : X == 32 ? 2 : X == 64 ? 3 : -1;
+  if (w >= 0 && !lane)
+    return small[w][k](xr, xi, part, tot, out, P, Q, nblk, (cudaStream_t)stream);
   const int v = X == 128 ? (lane ? 1 : 0) : X == 256 ? 2 : X == 512 ? 3 : -1;
   if (v < 0) return (int)cudaErrorInvalidValue;
   return table[v][k](xr, xi, part, tot, out, P, Q, nblk, (cudaStream_t)stream);

@@ -15,14 +15,14 @@ seeds, every adjoint and ``diag_backward``), "bf16x3" for a bf16x3
 transport and "gram_bf16x3" for bf16x3 pair grams; "fwd_bf16" for bf16
 forward planes ("bf16" storage: every kernel that reads F, the
 multi-term applies' seeds) and "fwd_bf16x3" for the forward bf16x3.
-Below X = 128 the high apply and the high adjoint, and the high
-multi-term apply's bf16x3 products, are libraries of their own
-(``csrc/high_apply_small.cu``, ``csrc/block_backward_high_small.cu``,
-``csrc/high_multi_apply_x3.cu``) so that the build's nvcc processes stay
-short. ``high_apply`` runs on the tensor cores at every X
-(``csrc/tc_apply.cuh`` at X = 128 / 256 / 512, ``csrc/high_apply_small.cu``
-at X = 8..64, every storage and mode), counted also as ``high_apply[tc]``,
-and so does ``dual_multi_apply`` (``dual_multi_apply[tc]``); so does every
+Below X = 128 the high apply and the high adjoint are libraries of their
+own (``csrc/high_apply_small.cu``, ``csrc/block_backward_high_small.cu``)
+so that the build's nvcc processes stay short. ``high_apply`` runs on the
+tensor cores at every X (``csrc/tc_apply.cuh`` at X = 128 / 256 / 512,
+``csrc/high_apply_small.cu`` at X = 8..64, every storage and mode), counted
+also as ``high_apply[tc]``, and so do both multi-term applies, one kernel
+(``csrc/dual_multi_apply.cu``: ``dual_multi_apply[tc]``,
+``high_multi_apply[tc]``); so does every
 product of the dual, lane and sublane
 adjoints' one-pass step and of the high adjoint's at X = 8..128
 (``csrc/tc_adjoint.cuh``, the lane and sublane adjoints built in the dual
@@ -30,7 +30,7 @@ adjoint's library as its lane and sublane steps;
 ``csrc/block_backward_high_small.cu`` below X = 128), counted as
 ``block_backward_dual[tc]``, ``block_backward_lane[tc]``,
 ``block_backward_sublane[tc]`` and ``block_backward_high[tc]``; so do
-the Gram at X = 128 / 256 / 512 and the merged-top adjoint (``gram[tc]``,
+the Gram at every X and the merged-top adjoint (``gram[tc]``,
 ``block_backward_merged_fact[tc]``) and the dual and merged-top applies
 (``dual_apply[tc]``, ``merged_fact_apply[tc]``: ``csrc/tc_adjoint.cuh``'s
 tile product); ``_tc`` holds their operand splits and pre-split

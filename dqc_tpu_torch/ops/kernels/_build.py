@@ -35,8 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES = ("dual_apply", "high_apply", "gram", "block_backward_dual",
              "block_backward_high", "merged_fact_apply",
              "block_backward_merged_fact", "diag", "dual_multi_apply",
-             "high_multi_apply", "block_backward_high_small",
-             "high_apply_small", "high_multi_apply_x3")
+             "block_backward_high_small", "high_apply_small")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

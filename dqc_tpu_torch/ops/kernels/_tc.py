@@ -5,9 +5,9 @@ updates of the X = 256 / 512 adjoint), the X = 256 / 512 cross-Gram of
 ``csrc/block_backward_high.cu`` and the one-pass adjoint step of the dual,
 lane and sublane adjoints and of the high adjoint at X = 128
 (``csrc/tc_adjoint.cuh``; the merged-top adjoint runs it too) and at X =
-8..64 (``csrc/block_backward_high_small.cu``), and the Gram at X = 128 /
-256 / 512 (``csrc/gram.cu``, which reads no operator) run their products on
-the tensor cores:
+8..64 (``csrc/block_backward_high_small.cu``), and the Gram at every X
+(``csrc/gram.cu``, which reads no operator) run their products on the
+tensor cores:
 
 * the "f32" dot mode as 3xTF32: ``hi = tf32(a)``, ``lo = tf32(a - hi)``,
   both rounded to nearest with ties away from zero (``cvt.rna.tf32``), and

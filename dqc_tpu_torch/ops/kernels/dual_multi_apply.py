@@ -77,7 +77,8 @@ def operators(el_r, el_i, em_r, em_i, dot_mode: str, x_dtype):
     (``_tc.tc_operator`` of each stack, each the ``Op`` of its ``Op x tile``
     product): El_t for the lane products on x stored as ``x_dtype`` (in
     three tf32 parts where 3xTF32 meets 16-bit x), Em_t for the sublane
-    products on the f32 T."""
+    products on the f32 T (or the high multi-term apply's E_t, X x X, for
+    its group products; X = 8 laid out as ``diag(E_t, E_t)``)."""
     return (_tc.tc_operator(el_r, el_i, dot_mode, _tc.operator_parts(dot_mode, x_dtype)),
             _tc.tc_operator(em_r, em_i, dot_mode))
 

@@ -7,14 +7,16 @@ kernels of ``dqc_tpu/ops/pallas/gram.py`` — ``gram_lane`` (:58, view
 ``(A 128, 128, 1)``), ``gram_sublane`` (:97, view ``(A, 128, 128)``) and
 ``gram_high`` (:134, view ``(A1, X, M 128)``; also on the merged top
 axis of a tiny top group, X = 256 or 512, ops/planes.gram_merged_top) —
-with ``csrc/gram.cu`` (bound by operations: S is symmetric, so 2 X + 1
-real multiply-adds per amplitude against 8 bytes), which sums per-block
-partials and adds them in a second, fixed-order pass. At X = 128, 256 and
-512 its C entry ``dqc_gram_tc`` runs the products on the tensor cores
-(3xTF32 in the "f32" dot mode, three bf16 passes in bf16x3, one bf16 pass
-on bf16 planes, exact in both; S formed as ``P + P^T``), counted in
-``mode_launches["tc"]``; X = 8..64 run ``dqc_gram`` on the CUDA cores.
-:func:`gram_plain` is its plain PyTorch version.
+with ``csrc/gram.cu`` (S is symmetric, so 2 X + 1 real multiply-adds per
+amplitude against 8 bytes: bound by bytes at X = 8..64, by operations
+above), which sums per-block partials and adds them in a second,
+fixed-order pass. Its C entry ``dqc_gram_tc`` runs the products on the
+tensor cores at every X (3xTF32 in the "f32" dot mode, three bf16 passes
+in bf16x3, one bf16 pass on bf16 planes, exact in both; S formed as ``P +
+P^T``): 128 x 128 patches of (S, C) over 32-column tiles at X = 128, 256
+and 512, one X x X patch over 128-column tiles (64 at X = 64) streamed
+through a three-stage ring below; every launch counted in
+``mode_launches["tc"]``. :func:`gram_plain` is its plain PyTorch version.
 
 The planes may be stored bfloat16 ("bf16" storage, decoded on the read) and
 the products run bf16x3 (``dot_mode``, the TPU kernels' ``dot_mode``), at
@@ -35,11 +37,20 @@ import torch
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
 
-KERNEL_X = (8, 16, 32, 64)   # the CUDA-core Gram (dqc_gram)
-TC_X = (128, 256, 512)       # the tensor-core Gram (dqc_gram_tc): 128 x 128
-                             # patches of (S, C), 32-column tiles
-TC_TILE = 32
-_BLOCKS_PER_SM = 4
+KERNEL_X = (8, 16, 32, 64, 128, 256, 512)
+_BLOCKS_PER_SM = 4        # X >= 128: over the (X / 128)^2 patches
+_SMALL_BLOCKS_PER_SM = 2  # X <= 64: one patch a block
+
+
+def tile_columns(X: int) -> int:
+    """The columns of one tile of the view at X (``csrc/gram.cu``)."""
+    return 32 if X >= 128 else 64 if X == 64 else 128
+
+
+def k_groups(X: int) -> int:
+    """Partial slots a block writes: one at X >= 128, else one per k-group
+    of its warps (2 at X = 64, 8 below)."""
+    return 1 if X >= 128 else 2 if X == 64 else 8
 
 
 _CHUNK = 1024
@@ -78,9 +89,6 @@ def gram_plain(xr: torch.Tensor, xi: torch.Tensor,
     return ps(xr, xr) + ps(xi, xi), ps(xr, xi)
 
 
-_ARGTYPES = [_launch.VOIDP] * 4 + [_launch.LONG, _launch.INT, _launch.LONG,
-                                   _launch.INT, _launch.INT, _launch.INT,
-                                   _launch.VOIDP]
 _TC_ARGTYPES = ([_launch.VOIDP] * 5 + [_launch.LONG, _launch.INT, _launch.LONG]
                 + [_launch.INT] * 3 + [_launch.VOIDP])
 
@@ -88,8 +96,9 @@ _TC_ARGTYPES = ([_launch.VOIDP] * 5 + [_launch.LONG, _launch.INT, _launch.LONG]
 def gram(xr: torch.Tensor, xi: torch.Tensor,
          dot_mode: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
     """``(S, C)``, each float32 (X, X), of planes (float32 or bfloat16)
-    viewed as ``(P, X, Q)``; X in 8..64, or 128 / 256 / 512 with Q = 1
-    (X = 128 only) or a multiple of 32; ``dot_mode`` the products'."""
+    viewed as ``(P, X, Q)``; X in 8..64 with Q a multiple of 128 (64 at X =
+    64), or 128 / 256 / 512 with Q = 1 (X = 128 only) or a multiple of 32;
+    ``dot_mode`` the products'."""
     if xr.dim() != 3 or xi.shape != xr.shape:
         raise ValueError(f"gram: planes must be one (P, X, Q) view, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -97,36 +106,30 @@ def gram(xr: torch.Tensor, xi: torch.Tensor,
     if xr.device.type == "cpu":
         return gram_plain(xr, xi, dot_mode)
     P, X, Q = xr.shape
-    if X not in KERNEL_X + TC_X:
-        raise ValueError(f"gram: X={X} is not one of {KERNEL_X + TC_X}")
-    cols_per_tile = TC_TILE if X in TC_X else 4096 // X
+    if X not in KERNEL_X:
+        raise ValueError(f"gram: X={X} is not one of {KERNEL_X}")
+    cols_per_tile = tile_columns(X)
     if (P * Q) % cols_per_tile or (Q != 1 and Q % cols_per_tile) or (
-            X > 128 and Q == 1):
+            Q == 1 and X != 128):
         raise ValueError(f"gram: view {tuple(xr.shape)} does not tile by "
                          f"{cols_per_tile} columns")
-    # the tensor-core Gram copies 16 bytes at a time
-    _launch.check_cuda_f32("gram", (xr, xi), xr.device,
-                           align=16 if X in TC_X else 4, dtypes=_st.FWD_DTYPES)
+    _launch.check_cuda_f32("gram", (xr, xi), xr.device, align=16,
+                           dtypes=_st.FWD_DTYPES)
     # X >= 128: each block forms one of the (X / 128)^2 patches of (S, C)
-    patches = (X // 128) ** 2 if X in TC_X else 1
-    nblk = min((P * Q) // cols_per_tile, 65535, max(
-        1, _BLOCKS_PER_SM * _launch.sm_count(xr.device) // patches))
-    part = torch.empty((nblk, 2, X, X), dtype=torch.float32, device=xr.device)
+    blocks = (_BLOCKS_PER_SM * _launch.sm_count(xr.device) // (X // 128) ** 2
+              if X >= 128 else _SMALL_BLOCKS_PER_SM * _launch.sm_count(xr.device))
+    nblk = min((P * Q) // cols_per_tile, 65535, max(1, blocks))
+    part = torch.empty((nblk * k_groups(X), 2, X, X), dtype=torch.float32,
+                       device=xr.device)
+    tot = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
     out = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
-    args = (P, X, Q, nblk, _st.storage_kind(xr.dtype),
-            int(dot_mode == "bf16x3"), _launch.stream(xr.device))
-    if X in TC_X:
-        tot = torch.empty((2, X, X), dtype=torch.float32, device=xr.device)
-        fn = _launch.entry("gram", "dqc_gram_tc", _TC_ARGTYPES)
-        code = fn(xr.data_ptr(), xi.data_ptr(), part.data_ptr(), tot.data_ptr(),
-                  out.data_ptr(), *args)
-        gram.mode_launches["tc"] += 1
-    else:
-        fn = _launch.entry("gram", "dqc_gram", _ARGTYPES)
-        code = fn(xr.data_ptr(), xi.data_ptr(), part.data_ptr(), out.data_ptr(),
-                  *args)
+    fn = _launch.entry("gram", "dqc_gram_tc", _TC_ARGTYPES)
+    code = fn(xr.data_ptr(), xi.data_ptr(), part.data_ptr(), tot.data_ptr(),
+              out.data_ptr(), P, X, Q, nblk, _st.storage_kind(xr.dtype),
+              int(dot_mode == "bf16x3"), _launch.stream(xr.device))
     _launch.raise_on_error(code, "gram", "gram launch")
     gram.launches += 1
+    gram.mode_launches["tc"] += 1
     _st.count_fwd(gram, xr.dtype, dot_mode)
     return out[0], out[1]
 

@@ -8,12 +8,16 @@ the lane group and on a high group, or on a span of high bits
 (ops/planes.apply_cross_span; X = 8 for the CNOT ring's closing gate), in
 one pass, with the density-seed modes of ``dual_multi_apply`` (``conj``,
 ``acc``, ``alias=False``: the seed of a density across the lane group and a
-high group, on the span view). The Hopper kernel is
-``csrc/high_multi_apply.cu`` on ``csrc/multi_apply.cuh`` (its bf16x3
-products built as a library of their own, ``csrc/high_multi_apply_x3.cu``;
-bound by operations: (128 + X) T complex multiply-adds per amplitude
-against 16 bytes); :func:`high_multi_apply_plain` is its plain PyTorch
-version.
+high group, on the span view). The Hopper kernel is the multi-term dual
+apply's (``csrc/dual_multi_apply.cu``, its C entry
+``dqc_high_multi_apply``): a tile of 128 rows (128 / X consecutive m of one
+i) by 128 lanes, per term the lane product on the tensor cores as the dual
+form's and the group product block-diagonal (X = 8 as ``diag(E_t, E_t)``),
+both on ``mma.sync`` (3xTF32 in the "f32" dot mode, bf16x3); bound by
+operations: (128 + X) T complex multiply-adds per amplitude against 16
+bytes, 7.08 ms at X = 8, T = 2 on 2^29 f32 amplitudes. Every launch counts
+in ``mode_launches["tc"]``. :func:`high_multi_apply_plain` is its plain
+PyTorch version.
 
 :func:`high_multi_apply` consumes its input planes (unless ``alias=False``
 or ``acc``) like ``dual_multi_apply``, and takes the plane storages and
@@ -30,7 +34,7 @@ import torch
 from dqc_tpu_torch.ops.kernels import _launch
 from dqc_tpu_torch.ops.kernels import _storage as _st
 from dqc_tpu_torch.ops.kernels.dual_multi_apply import (check_terms, count_modes,
-                                                       out_storage)
+                                                       operators, out_storage)
 from dqc_tpu_torch.ops.kernels.high_apply import KERNEL_X
 
 Planes = Tuple[torch.Tensor, torch.Tensor]
@@ -58,8 +62,10 @@ def high_multi_apply_plain(xr, xi, e_r, e_i, el_r, el_i, *,
     return _st.seed_out(y.real, y.imag, conj, acc, out_dtype or xr.dtype)
 
 
-_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 2 + [_launch.VOIDP] * 4
-             + [_launch.INT] * 3 + [_launch.LONG, _launch.INT, _launch.LONG,
+# x, y, kinds, x3, El_t and E_t pre-split, El_t in three parts, T, conj,
+# has_acc, A1, X, M, stream
+_ARGTYPES = ([_launch.VOIDP] * 4 + [_launch.INT] * 3 + [_launch.VOIDP] * 2
+             + [_launch.INT] * 4 + [_launch.LONG, _launch.INT, _launch.LONG,
                                     _launch.VOIDP])
 
 
@@ -97,22 +103,21 @@ def high_multi_apply(xr, xi, e_r, e_i, el_r, el_i, *, conj: bool = False,
     out = _launch.output_planes("high_multi_apply", xr, xi, acc, alias,
                                 out_dtype, _st.STORAGE_DTYPES)
     _launch.check_cuda_f32("high_multi_apply", ops, xr.device)
-    # the kernel reads the factors transposed, so that its tile loads coalesce
-    et_r, et_i, elt_r, elt_i = (o.transpose(1, 2).contiguous() for o in ops)
-    lib = "high_multi_apply_x3" if dot_mode == "bf16x3" else "high_multi_apply"
-    fn = _launch.entry(lib, f"dqc_{lib}", _ARGTYPES)
+    op_l, op_e = operators(el_r, el_i, e_r, e_i, dot_mode, xr.dtype)
+    fn = _launch.entry("dual_multi_apply", "dqc_high_multi_apply", _ARGTYPES)
     code = fn(xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
               _st.storage_kind(xr.dtype), _st.storage_kind(out[0].dtype),
-              elt_r.data_ptr(), elt_i.data_ptr(), et_r.data_ptr(), et_i.data_ptr(),
-              T, int(conj), int(acc is not None), A1, X, M,
+              int(dot_mode == "bf16x3"), op_l.data_ptr(), op_e.data_ptr(),
+              int(op_l.shape[3] == 6), T, int(conj), int(acc is not None), A1, X, M,
               _launch.stream(xr.device))
     _launch.raise_on_error(code, "high_multi_apply", "high_multi_apply launch")
     high_multi_apply.launches += 1
+    high_multi_apply.mode_launches["tc"] += 1
     count_modes(high_multi_apply, xr.dtype, out[0].dtype,
                 conj or acc is not None or not alias, dot_mode)
     return out
 
 
 high_multi_apply.launches = 0
-high_multi_apply.mode_launches = {"seed": 0, "bf16": 0, "f16": 0,
+high_multi_apply.mode_launches = {"tc": 0, "seed": 0, "bf16": 0, "f16": 0,
                                   "fwd_bf16": 0, "fwd_bf16x3": 0}

@@ -224,7 +224,7 @@ def test_kernel_wrappers_refuse_other_devices():
         "block_backward_dual[tc]", "block_backward_lane[tc]",
         "block_backward_sublane[tc]", "block_backward_high[tc]",
         "block_backward_merged_fact[tc]", "gram[tc]", "dual_apply[tc]",
-        "merged_fact_apply[tc]", "dual_multi_apply[tc]",
+        "merged_fact_apply[tc]", "dual_multi_apply[tc]", "high_multi_apply[tc]",
         *(f"{k}[{m}]" for k in ("dual_apply", "high_apply", "diag_backward",
                                 "dual_multi_apply", "high_multi_apply")
           for m in ("bf16", "f16")),

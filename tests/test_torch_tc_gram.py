@@ -10,8 +10,8 @@ two cross passes. No CUDA kernel runs here; these tests hold:
 * what the wrapper hands its library on meta planes with the entries
   replaced by recorders: the view ``(P, X, Q)``, the column groups, the
   storage kind and the bf16x3 flag to ``dqc_gram_tc`` at X >= 128, every
-  such launch counted in ``mode_launches["tc"]``; X = 64 to the CUDA-core
-  ``dqc_gram``, not counted there; the cz ring's Grams at n = 22 and 23
+  such launch counted in ``mode_launches["tc"]``; X = 64 to the same
+  entry, counted there too; the cz ring's Grams at n = 22 and 23
   (the merged top at X = 256 / 512) on the meta device;
 * the Gram written out in the kernel's numerics (``_tc.split_tf32`` or
   ``_storage.split`` parts, float64 part products, S = P + P^T) against the
@@ -82,13 +82,15 @@ def test_gram_hands_the_tensor_core_entry(recorded, view, dtype, dot):
     assert w.mode_launches["fwd_bf16x3"] == int(dot == "bf16x3")
 
 
-def test_gram_below_128_keeps_the_cuda_core_entry(recorded):
+def test_gram_below_128_hands_the_tensor_core_entry(recorded):
+    """X = 64: ``dqc_gram_tc`` too, one 64 x 64 patch a block over 64-column
+    tiles, two blocks an SM; counted ``[tc]``."""
     calls, _ = recorded
     gm.gram(*_meta((4, 64, 1 << 14), F32))
     (lib, fn, args), = calls
-    assert (lib, fn) == ("gram", "dqc_gram")
-    assert args[4:7] == (4, 64, 1 << 14)
-    assert gm.gram.launches == 1 and gm.gram.mode_launches["tc"] == 0
+    assert (lib, fn) == ("gram", "dqc_gram_tc")
+    assert args[5:9] == (4, 64, 1 << 14, 2 * 132)
+    assert gm.gram.launches == gm.gram.mode_launches["tc"] == 1
 
 
 def test_gram_refuses_views_the_tiles_do_not_cover(recorded):
