@@ -2026,8 +2026,10 @@ def main() -> int:
         del mops
         torch.cuda.empty_cache()
 
-    # 6. diag_backward: elementwise, B decoded and encoded
+    # 6. diag_backward: elementwise, B decoded and encoded (with Q: its
+    # outputs written once too)
     tab, tab_inv = tables(A29), tables(A29)
+    q_bytes = 2 * 4 * (128 * 128 + 2 * A29 * 128)
     for store, with_q in (("f16", False), ("bf16", False), ("f16", True)):
         dt = STORES[store]
         check_reduced("diag_backward", f"29q_{store}" + ("_q" if with_q else ""),
@@ -2036,7 +2038,8 @@ def main() -> int:
                       lambda *p, q=with_q: diag_backward_plain(*p, *tab_inv, *tab,
                                                                with_q=q),
                       dt, amps29 * (36 + (12 if with_q else 0)), 0.0,
-                      state29 * 2 + b_bytes(dt) * 2 + 2 * table_bytes(A29))
+                      state29 * 2 + b_bytes(dt) * 2 + 2 * table_bytes(A29)
+                      + (q_bytes if with_q else 0))
     del tab, tab_inv
 
     # the lane and sublane adjoints' bf16x3 pair grams (f32 storage, the

@@ -27,16 +27,22 @@
 // as one broadcast complex scalar; a grid-stride loop over the float4s with
 // int64 offsets (a 30-qubit plane has 2^30 elements).
 //
-// The Q mode works by slabs: a block of 256 threads walks its slabs a in
-// grid-stride order, thread (w, t) (warp w, lane t) taking lanes 4 t .. 4 t
-// + 3 of rows s = w, w + 8, ..., w + 120. A row's Qas entry is a fixed
-// butterfly of warp shuffles, written by lane 0; a column's Qal entry sums
-// 8 per-warp partials from shared memory in warp order; Qsl goes to the
-// block's own partial slot, each entry added by the one thread that owns
-// it, slab after slab (the slot stays in L2), and a second kernel adds the
-// slots in block order. No sum depends on scheduling. Q adds 1 complex
-// multiply and 3 reductions per amplitude, and 2 x 2 A x 128 + 2 x 128 x 128
-// floats of outputs.
+// The Q mode (the one-pass backward with the reductions) is bound by the
+// same bytes plus Q's outputs. Its kernel holds what would cost a round
+// trip on the SM: persistent blocks of 512 threads, one an SM, walk their
+// slabs a in grid-stride order; each thread loads a group of two rows of a
+// slab (32-64 KB of loads in flight an SM) before it uses any, and reads
+// and writes each amplitude once: the values it loaded give Q and are
+// updated and stored. The block's Qsl partial lives in shared memory
+// (128 KB), each entry added to by the one thread that owns it, slab after
+// slab, and written to the block's slot once, after the walk; a second
+// kernel adds the slots in block order.
+// A group's row sums (Qas) go over the lanes as one batched butterfly; a
+// column's Qal entry sums 16 per-warp partials in warp order, from a
+// shared buffer of two (one barrier a slab, after the next slab's loads are
+// issued). No sum depends on scheduling. Q adds 1 complex multiply and 3
+// reductions per amplitude, and 2 x 2 A x 128 + 2 x 128 x 128 floats of
+// outputs.
 //
 // Reduced storage (the TPU kernel's f32_of / store_as at diag.py:117-150):
 // the backward's B is stored as f32, bf16 or f16 (bkind, common.cuh codec;
@@ -50,6 +56,8 @@
 // decoded on load (Q takes the decoded F, as the TPU kernel's f32_of at
 // diag.py:117-120) and rounded on store, 8 bytes per amplitude for the
 // sweep against 16.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -149,77 +157,204 @@ diag_backward_kernel(void* fr, void* fi, void* br, void* bi, int bkind,
   }
 }
 
-constexpr int kRows = 128 / (kThreads / 32);  // rows of a slab per warp
+// --- The backward with the Q reductions ----------------------------------
 
-template <int FKIND>
-__global__ void __launch_bounds__(kThreads)
-diag_backward_q_kernel(void* fr, void* fi, void* br, void* bi, int bkind,
+constexpr int kQThreads = 512;                  // one persistent block an SM
+constexpr int kQWarps = kQThreads / 32;
+constexpr int kQRows = dqc::kGroup / kQWarps;   // rows of a slab per warp
+constexpr int kSlab = dqc::kGroup * dqc::kGroup;
+// shared memory: the block's Qsl partial (re, then im) and two buffers of
+// the warps' Qal partials [buffer][re, im][warp][l]
+constexpr int kColFloats = 2 * kQWarps * dqc::kGroup;
+constexpr int kQSmemBytes = (2 * kSlab + 2 * kColFloats) * (int)sizeof(float);
+
+// The rows of a slab a thread loads before it uses any (a group): 32-64 KB
+// of loads in flight an SM (more rows a group spilled at the 128 registers
+// of 512 threads and ran slower).
+constexpr int kQGroupRows = 2;
+
+// Four elements of a plane as stored: a float4, or four 16-bit codes.
+template <int KIND>
+using Raw4 = std::conditional_t<KIND == dqc::kStoreF32, float4, uint2>;
+
+template <int KIND>
+__device__ __forceinline__ Raw4<KIND> load_raw(const void* p, int64_t e) {
+  return reinterpret_cast<const Raw4<KIND>*>(p)[e];
+}
+
+// x (four decoded elements of row s of slab a) times the run's D, stored
+// to the planes as KIND at float4 index e.
+template <int KIND>
+__device__ __forceinline__ void store_times_diag(void* xr, void* xi,
+                                                 const DiagTables& d,
+                                                 int64_t a, int s, int l0,
+                                                 int64_t e, const float (&ar)[4],
+                                                 const float (&ai)[4]) {
+  float dr[4], di[4], yr[4], yi[4];
+  diag4(d, a, s, l0, dr, di);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cmul(ar[k], ai[k], dr[k], di[k], yr[k], yi[k]);
+  dqc::store4(xr, e, KIND, yr);
+  dqc::store4(xi, e, KIND, yi);
+}
+
+// One exchange of the batched butterfly over the warp's lanes, then the
+// rest: before the exchange at offset OFF the lane holds N OFF / 16 values
+// (at least one); with more than one it keeps the half that its OFF bit
+// selects and adds the partner's values of that half, else it adds the
+// partner's one value. Every value is thus summed as the tree of xor
+// offsets 16, 8, 4, 2, 1 (lane t with t + 16 first), the same on every
+// lane that holds it (each pair's sum commutes).
+template <int N, int OFF>
+__device__ __forceinline__ void lane_tree(float (&v)[N], int lane) {
+  if constexpr (OFF > 0) {
+    constexpr int n = N * OFF / 16 > 1 ? N * OFF / 16 : 1;
+    if constexpr (n > 1) {
+      const bool hi = (lane & OFF) != 0;
+#pragma unroll
+      for (int j = 0; j < n / 2; ++j) {
+        const float keep = hi ? v[j + n / 2] : v[j];
+        const float send = hi ? v[j] : v[j + n / 2];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+    }
+    lane_tree<N, OFF / 2>(v, lane);
+  }
+}
+
+// Persistent blocks of 512 threads, one an SM, walk their slabs a in
+// grid-stride order. Thread (w, t) owns lanes l0 = 4 t .. 4 t + 3 of rows
+// s = w + 16 k (k = 0..7) of every slab, and the same entries of the
+// block's Qsl partial in shared memory: it alone adds to them, slab after
+// slab, and writes them to the block's slot once, after the walk. A slab
+// goes in groups of G rows: the thread issues the group's plane loads, then
+// decodes each row once, forms Q = B F, adds it to Qsl, to its row sums
+// ((q0 + q1) + q2) + q3 and to its column partials (rows in k order), and
+// stores the row's F Dinv and B D. A group's 2 G row sums go over the lanes
+// as one batched butterfly (lane_tree). At the end of a slab each warp's
+// column partials go to a shared buffer (two, alternating by slab); after
+// the next slab's first loads are issued, one barrier, and 256 threads add
+// the 16 warps' partials in warp order into Qal. No sum depends on
+// scheduling.
+template <int FKIND, int BKIND>
+__global__ void __launch_bounds__(kQThreads, 1)
+diag_backward_q_kernel(void* fr, void* fi, void* br, void* bi,
                        DiagTables dinv, DiagTables dfwd, float* qas_r,
                        float* qas_i, float* qal_r, float* qal_i, float* part,
                        int64_t A) {
-  __shared__ float colr[kThreads / 32][dqc::kGroup];
-  __shared__ float coli[kThreads / 32][dqc::kGroup];
+  constexpr int G = kQGroupRows;
+  extern __shared__ float4 q_smem[];
+  float* qsl = reinterpret_cast<float*>(q_smem);    // [re, im][s][l]
+  float* col = qsl + 2 * kSlab;                     // [buffer][re, im][w][l]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int l0 = 4 * lane;
-  float* slot = part + (int64_t)blockIdx.x * 2 * dqc::kGroup * dqc::kGroup;
+#pragma unroll
+  for (int k = 0; k < kQRows; ++k) {
+    const int at = (warp + kQWarps * k) * dqc::kGroup + l0;
+    *reinterpret_cast<float4*>(qsl + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(qsl + kSlab + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the Qal entries of slab `done`, from the partials in buffer `buf`
+  auto column_sums = [&](int64_t done, int buf) {
+    __syncthreads();  // every warp's partials of that slab are in place
+    if (threadIdx.x < 2 * dqc::kGroup) {
+      const int c = threadIdx.x / dqc::kGroup, l = threadIdx.x % dqc::kGroup;
+      const float* p = col + (buf * 2 + c) * kQWarps * dqc::kGroup + l;
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kQWarps; ++w) t += p[w * dqc::kGroup];
+      (c ? qal_i : qal_r)[done * dqc::kGroup + l] = t;
+    }
+  };
+  int64_t done = -1;
+  int buf = 0;
   for (int64_t a = blockIdx.x; a < A; a += gridDim.x) {
     float cr[4] = {0.f, 0.f, 0.f, 0.f}, ci[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
-    for (int k = 0; k < kRows; ++k) {
-      const int s = warp + (kThreads / 32) * k;
-      const int64_t e = (a * dqc::kGroup + s) * 32 + lane;  // float4 index
-      float far[4], fai[4], bar[4], bai[4];
-      load4(fr, e, FKIND, far);
-      load4(fi, e, FKIND, fai);
-      load4(br, e, bkind, bar);
-      load4(bi, e, bkind, bai);
-      float qr[4], qi[4], rr = 0.f, ri = 0.f;
+    for (int g = 0; g < kQRows / G; ++g) {
+      Raw4<FKIND> ufr[G], ufi[G];
+      Raw4<BKIND> ubr[G], ubi[G];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        cmul(bar[j], bai[j], far[j], fai[j], qr[j], qi[j]);
-        rr += qr[j];
-        ri += qi[j];
-        cr[j] += qr[j];
-        ci[j] += qi[j];
+      for (int j = 0; j < G; ++j) {
+        const int s = warp + kQWarps * (g * G + j);
+        const int64_t e = (a * dqc::kGroup + s) * 32 + lane;  // float4 index
+        ufr[j] = load_raw<FKIND>(fr, e);
+        ufi[j] = load_raw<FKIND>(fi, e);
+        ubr[j] = load_raw<BKIND>(br, e);
+        ubi[j] = load_raw<BKIND>(bi, e);
       }
-      float4* sr = reinterpret_cast<float4*>(slot + s * dqc::kGroup + l0);
-      float4* si = reinterpret_cast<float4*>(slot + dqc::kGroup * dqc::kGroup +
-                                             s * dqc::kGroup + l0);
-      float4 vr = *sr, vi = *si;
-      vr.x += qr[0]; vr.y += qr[1]; vr.z += qr[2]; vr.w += qr[3];
-      vi.x += qi[0]; vi.y += qi[1]; vi.z += qi[2]; vi.w += qi[3];
-      *sr = vr;
-      *si = vi;
+      if (g == 0 && done >= 0) column_sums(done, buf ^ 1);
+      float rows[2 * G];  // row j's sum of Q over the lane's four: re, im
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        rr += __shfl_xor_sync(0xffffffffu, rr, off);
-        ri += __shfl_xor_sync(0xffffffffu, ri, off);
-      }
-      if (lane == 0) {
-        qas_r[a * dqc::kGroup + s] = rr;
-        qas_i[a * dqc::kGroup + s] = ri;
-      }
-      times_diag_of<FKIND>(fr, fi, dinv, e);
-      times_diag_kind(br, bi, bkind, dfwd, e);
-    }
+      for (int j = 0; j < G; ++j) {
+        const int s = warp + kQWarps * (g * G + j);
+        const int64_t e = (a * dqc::kGroup + s) * 32 + lane;
+        float far[4], fai[4], bar[4], bai[4], qr[4], qi[4];
+        // common.cuh's decode, on the values already loaded
+        load4(&ufr[j], 0, FKIND, far);
+        load4(&ufi[j], 0, FKIND, fai);
+        load4(&ubr[j], 0, BKIND, bar);
+        load4(&ubi[j], 0, BKIND, bai);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      colr[warp][l0 + j] = cr[j];
-      coli[warp][l0 + j] = ci[j];
-    }
-    __syncthreads();  // the column partials are complete
-    if (threadIdx.x < dqc::kGroup) {
-      const int l = threadIdx.x;
-      float tr = 0.f, ti = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) {
-        tr += colr[w][l];
-        ti += coli[w][l];
+        for (int k = 0; k < 4; ++k) {
+          cmul(bar[k], bai[k], far[k], fai[k], qr[k], qi[k]);
+          cr[k] += qr[k];
+          ci[k] += qi[k];
+        }
+        float4* sr = reinterpret_cast<float4*>(qsl + s * dqc::kGroup + l0);
+        float4* si = reinterpret_cast<float4*>(qsl + kSlab + s * dqc::kGroup + l0);
+        float4 vr = *sr, vi = *si;
+        vr.x += qr[0]; vr.y += qr[1]; vr.z += qr[2]; vr.w += qr[3];
+        vi.x += qi[0]; vi.y += qi[1]; vi.z += qi[2]; vi.w += qi[3];
+        *sr = vr;
+        *si = vi;
+        rows[2 * j] = ((qr[0] + qr[1]) + qr[2]) + qr[3];
+        rows[2 * j + 1] = ((qi[0] + qi[1]) + qi[2]) + qi[3];
+        store_times_diag<FKIND>(fr, fi, dinv, a, s, l0, e, far, fai);
+        store_times_diag<BKIND>(br, bi, dfwd, a, s, l0, e, bar, bai);
       }
-      qal_r[a * dqc::kGroup + l] = tr;
-      qal_i[a * dqc::kGroup + l] = ti;
+      // the lane holds value (lane / (16 / G)) of the group: row v / 2,
+      // its real part for even v
+      lane_tree<2 * G, 16>(rows, lane);
+      if (lane % (16 / G) == 0) {
+        const int v = lane / (16 / G);
+        const int s = warp + kQWarps * (g * G + v / 2);
+        ((v & 1) ? qas_i : qas_r)[a * dqc::kGroup + s] = rows[0];
+      }
     }
-    __syncthreads();  // the partials are read before the next slab's
+    float* p = col + buf * 2 * kQWarps * dqc::kGroup + warp * dqc::kGroup + l0;
+    *reinterpret_cast<float4*>(p) = make_float4(cr[0], cr[1], cr[2], cr[3]);
+    *reinterpret_cast<float4*>(p + kQWarps * dqc::kGroup) =
+        make_float4(ci[0], ci[1], ci[2], ci[3]);
+    done = a;
+    buf ^= 1;
   }
+  if (done >= 0) column_sums(done, buf ^ 1);
+  float* slot = part + (int64_t)blockIdx.x * 2 * kSlab;
+#pragma unroll
+  for (int k = 0; k < kQRows; ++k) {
+    const int at = (warp + kQWarps * k) * dqc::kGroup + l0;
+    *reinterpret_cast<float4*>(slot + at) = *reinterpret_cast<const float4*>(qsl + at);
+    *reinterpret_cast<float4*>(slot + kSlab + at) =
+        *reinterpret_cast<const float4*>(qsl + kSlab + at);
+  }
+}
+
+template <int FKIND, int BKIND>
+int launch_backward_q(void* fr, void* fi, void* br, void* bi,
+                      const DiagTables& dinv, const DiagTables& dfwd,
+                      float* qas_r, float* qas_i, float* qal_r, float* qal_i,
+                      float* part, int64_t A, int nblk, cudaStream_t s) {
+  auto kernel = diag_backward_q_kernel<FKIND, BKIND>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kQSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nblk, kQThreads, kQSmemBytes, s>>>(fr, fi, br, bi, dinv, dfwd,
+                                              qas_r, qas_i, qal_r, qal_i,
+                                              part, A);
+  return (int)cudaGetLastError();
 }
 
 int grid_for(int64_t n4) {
@@ -276,9 +411,10 @@ extern "C" int dqc_diag_backward(void* fr, void* fi, void* br, void* bi,
 
 // The backward with the Q reductions, taken before the update: qas_r/i and
 // qal_r/i are (A, 128) outputs; part is scratch of nblk * 2 * 128 * 128
-// floats set to zero by the caller (nblk blocks, at most A), qsl the
-// (Qsl re, im) output, 2 x 128 x 128 floats; bwd stored as bkind, fwd as
-// fkind (0 f32, 1 bf16). Returns cudaGetLastError().
+// floats (nblk blocks, at most A, one an SM: each writes its whole slot),
+// qsl the (Qsl re, im) output, 2 x 128 x 128 floats; bwd stored as bkind
+// (0 f32, 1 bf16, 2 f16), fwd as fkind (0 f32, 1 bf16). Returns
+// cudaGetLastError().
 extern "C" int dqc_diag_backward_q(void* fr, void* fi, void* br, void* bi,
                                    const float* isl_r, const float* isl_i,
                                    const float* ias_r, const float* ias_i,
@@ -296,12 +432,20 @@ extern "C" int dqc_diag_backward_q(void* fr, void* fi, void* br, void* bi,
   const DiagTables dinv{isl_r, isl_i, ias_r, ias_i, ial_r, ial_i};
   const DiagTables dfwd{sl_r, sl_i, as_r, as_i, al_r, al_i};
   cudaStream_t s = (cudaStream_t)stream;
-  auto kernel = fkind == dqc::kStoreF32 ? diag_backward_q_kernel<dqc::kStoreF32>
-                                        : diag_backward_q_kernel<dqc::kStoreBF16>;
-  kernel<<<nblk, kThreads, 0, s>>>(
-      fr, fi, br, bi, bkind, dinv, dfwd, qas_r, qas_i, qal_r, qal_i, part,
-      (int64_t)A);
-  const int code = (int)cudaGetLastError();
+  using dqc::kStoreBF16;
+  using dqc::kStoreF16;
+  using dqc::kStoreF32;
+  auto launch = launch_backward_q<kStoreF32, kStoreF32>;
+  if (fkind == kStoreF32)
+    launch = bkind == kStoreF32    ? launch_backward_q<kStoreF32, kStoreF32>
+             : bkind == kStoreBF16 ? launch_backward_q<kStoreF32, kStoreBF16>
+                                   : launch_backward_q<kStoreF32, kStoreF16>;
+  else
+    launch = bkind == kStoreF32    ? launch_backward_q<kStoreBF16, kStoreF32>
+             : bkind == kStoreBF16 ? launch_backward_q<kStoreBF16, kStoreBF16>
+                                   : launch_backward_q<kStoreBF16, kStoreF16>;
+  const int code = launch(fr, fi, br, bi, dinv, dfwd, qas_r, qas_i, qal_r,
+                          qal_i, part, (int64_t)A, nblk, s);
   if (code != 0) return code;
-  return dqc::launch_reduce(part, qsl, nblk, 2 * dqc::kGroup * dqc::kGroup, s);
+  return dqc::launch_reduce(part, qsl, nblk, 2 * kSlab, s);
 }

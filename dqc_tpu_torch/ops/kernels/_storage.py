@@ -43,7 +43,7 @@ FWD_DTYPES = (torch.float32, torch.bfloat16)   # the forward planes' storages
 DOT_MODES = ("f32", "bf16x3")
 # where the float16 input planes that the Grams, the merged-top apply and
 # the diagonal sweep do not take yet are listed (no path hands them one)
-NOT_PORTED_F16 = "see ROADMAP.md, queue B item 9"
+NOT_PORTED_F16 = "see ROADMAP.md, queue B item 1"
 _F16_MIN_NORMAL = 2.0 ** -14
 _F16_MAX = 65504.0
 

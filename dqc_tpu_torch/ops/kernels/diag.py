@@ -16,15 +16,18 @@ gates is one elementwise multiply by its total diagonal in factored form,
 
 The Hopper kernels are ``csrc/diag.cu`` (bound by bytes: one read and one
 write of each plane, 16 or 32 bytes per amplitude, against 3 or 6 complex
-multiplies); :func:`diag_sweep_plain` and :func:`diag_backward_plain` are
-their plain PyTorch versions. On a CUDA tensor the wrappers update the
-planes in place (the TPU kernels alias them) and return them; on a CPU
-tensor they return the plain version's fresh planes. The forward planes
-may be stored bfloat16 ("bf16" storage: decoded on load, rounded to nearest
-even on store; counted in ``mode_launches["fwd_bf16"]``), with or without
-the Q reductions (taken from the decoded planes). The sweep's planes may
-not be float16 (a cotangent stored "f16", which no path hands it): that
-raises ``NotImplementedError`` (ROADMAP.md queue B item 9).
+multiplies; with Q, persistent blocks one an SM that read each amplitude
+once and keep their Qsl partial on the SM until their walk ends,
+:func:`_q_buffers`); :func:`diag_sweep_plain` and
+:func:`diag_backward_plain` are their plain PyTorch versions. On a CUDA
+tensor the wrappers update the planes in place (the TPU kernels alias
+them) and return them; on a CPU tensor they return the plain version's
+fresh planes. The forward planes may be stored bfloat16 ("bf16" storage:
+decoded on load, rounded to nearest even on store; counted in
+``mode_launches["fwd_bf16"]``), with or without the Q reductions (taken
+from the decoded planes). The sweep's planes may not be float16 (a
+cotangent stored "f16", which no path hands it): that raises
+``NotImplementedError`` (ROADMAP.md queue B item 1).
 """
 
 from __future__ import annotations
@@ -78,6 +81,18 @@ _BACKWARD_ARGTYPES = [_launch.VOIDP] * 16 + [_launch.LONG, _launch.INT,
                                              _launch.INT, _launch.VOIDP]
 _BACKWARD_Q_ARGTYPES = ([_launch.VOIDP] * 22 + [_launch.LONG]
                         + [_launch.INT] * 3 + [_launch.VOIDP])
+
+
+def _q_buffers(A: int, dev: torch.device):
+    """The Q kernel's grid and buffers: ``nblk`` persistent blocks, one an
+    SM and at most one a slab; the rows ``(Qas_r, Qas_i, Qal_r, Qal_i)``,
+    (4, A, 128); a Qsl slot a block, (nblk, 2, 128, 128), each written
+    whole by its block; and Qsl (2, 128, 128)."""
+    nblk = min(A, _launch.sm_count(dev))
+    rows = torch.empty((4, A, 128), dtype=torch.float32, device=dev)
+    part = torch.empty((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
+    qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
+    return nblk, rows, part, qsl
 
 
 def diag_sweep(xr, xi, tsl_r, tsl_i, tas_r, tas_i, tal_r, tal_i):
@@ -140,10 +155,7 @@ def diag_backward(fr, fi, br, bi, isl_r, isl_i, ias_r, ias_i, ial_r, ial_i,
         count_modes(diag_backward, br.dtype, "f32", "f32")
         _st.count_fwd(diag_backward, fr.dtype, "f32")
         return fr, fi, br, bi
-    nblk = min(A, 2 * _launch.sm_count(dev))
-    rows = torch.empty((4, A, 128), dtype=torch.float32, device=dev)
-    part = torch.zeros((nblk, 2, 128, 128), dtype=torch.float32, device=dev)
-    qsl = torch.empty((2, 128, 128), dtype=torch.float32, device=dev)
+    nblk, rows, part, qsl = _q_buffers(A, dev)
     fn = _launch.entry("diag", "dqc_diag_backward_q", _BACKWARD_Q_ARGTYPES)
     code = fn(*(p.data_ptr() for p in planes), *_launch.table_ptrs(inv),
               *_launch.table_ptrs(fwd), *(r.data_ptr() for r in rows),

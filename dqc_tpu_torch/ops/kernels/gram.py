@@ -24,7 +24,7 @@ every X, counted in ``mode_launches`` as "fwd_bf16" and "fwd_bf16x3".
 On bf16 planes bf16x3 and f32 compute the same sums: a bf16 value's lo part
 is zero, so each product is the exact one. float16 planes (a cotangent
 stored "f16", which the TPU kernels decode but no path of either package
-hands them) raise ``NotImplementedError`` (ROADMAP.md queue B item 9).
+hands them) raise ``NotImplementedError`` (ROADMAP.md queue B item 1).
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ counted in ``mode_launches`` as "fwd_bf16" and "fwd_bf16x3". The kernel
 applies the top factor first (the two commute) and the plain version does
 the same, so that under bf16x3 both split the same operand. float16 planes
 (a cotangent stored "f16", which no path hands this kernel) raise
-``NotImplementedError`` (ROADMAP.md queue B item 9).
+``NotImplementedError`` (ROADMAP.md queue B item 1).
 """
 
 from __future__ import annotations

@@ -406,7 +406,7 @@ def test_f16_input(kernel, mode, dm):
 
 def test_f16_refused_where_no_path_hands_it():
     """The Grams, the merged-top apply and the diagonal sweep still refuse
-    f16 input planes (ROADMAP.md queue B item 9: no path hands them a
+    f16 input planes (ROADMAP.md queue B item 1: no path hands them a
     cotangent), on the CPU as on the card."""
     h = tuple(torch.zeros((1, 128, 128), dtype=F16) for _ in range(2))
     m = tuple(torch.zeros((1, 256, 8, 128), dtype=F16) for _ in range(2))
@@ -416,7 +416,7 @@ def test_f16_refused_where_no_path_hands_it():
              lambda: tk.merged_fact_apply(*m, e, e, e[:2, :2], e[:2, :2], x_top=2),
              lambda: tk.diag_sweep(*h, *tabs))
     for call in calls:
-        with pytest.raises(NotImplementedError, match="queue B item 9"):
+        with pytest.raises(NotImplementedError, match="queue B item 1"):
             call()
 
 

@@ -250,8 +250,14 @@ X_Y_LOSS = {"x": 0.6, "y": 1.0, "z": 0.3}
 SIZES = [(15, True), (16, True), (22, False), (23, False)]
 
 
-@pytest.mark.parametrize("L", [1, 3])
-@pytest.mark.parametrize("n, plane_engine", SIZES)
+# one layer on the JAX plane engine (n = 15, 16) runs the route that three
+# layers at the same n run (the same plane scan, kernels and merged top);
+# slow for the suite's time
+GRAD_CASES = [pytest.param(n, pe, L, marks=pytest.mark.slow) if pe and L == 1
+              else (n, pe, L) for n, pe in SIZES for L in (1, 3)]
+
+
+@pytest.mark.parametrize("n, plane_engine, L", GRAD_CASES)
 def test_magnetization_grad_matches_jax(n, plane_engine, L):
     params = _params(n, L, seed=1200 + 10 * n + L)
     want_v, want_g = _jax_value_and_grad(n, L, params, MAGNETIZATION, plane_engine)

@@ -404,7 +404,7 @@ def _rand_ops(shape, seed):
 
 
 def test_other_kernels_refuse_reduced_planes():
-    """f16 planes into the Grams still raise (ROADMAP.md queue B item 9: a
+    """f16 planes into the Grams still raise (ROADMAP.md queue B item 1: a
     cotangent stored "f16" handed to a forward kernel no path runs); into
     the dual apply they run (the per-term fallback's input); bf16 ones run
     since "bf16" storage, as the plain versions on the
